@@ -8,10 +8,13 @@ built at import time: the CPU tests import every module without ``nvcc``.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
 them; ``load(name)`` builds one source if needed and returns its library.
+``on_device`` and ``check_cuda`` are the two steps every wrapper takes around
+a launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -89,6 +92,21 @@ def build_all() -> dict[str, float]:
         _finish(name, proc, out)
         seconds[name] = 0.0 if proc is None else time.perf_counter() - t0
     return seconds
+
+
+def on_device(dev):
+    """Make ``dev`` the current CUDA device for a launch, if it is not already."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def check_cuda(err: int, what: str) -> None:
+    """Raise on the ``cudaGetLastError()`` code a kernel's C entry point returned."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch.data.batch import LabeledPointBatch
+from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.glm import GeneralizedLinearModel
@@ -33,6 +34,23 @@ def batch_from_numpy(features, labels, offsets=None, weights=None, *,
                                     None if offsets is None else np.asarray(offsets),
                                     None if weights is None else np.asarray(weights),
                                     dtype=dtype, device=device)
+
+
+def sparse_batch_from_numpy(rows, cols, vals, labels, *, dim: int, offsets=None, weights=None,
+                            dtype: torch.dtype | None = None, ell="auto", hybrid=None,
+                            column_sorted_gradient: bool = False,
+                            device=None) -> SparseLabeledPointBatch:
+    """A SparseLabeledPointBatch from numpy COO triples, built like the JAX
+    package's ``from_coo`` (``dtype=None`` keeps the values' float dtype;
+    ``torch.bfloat16`` rounds them)."""
+    vals = np.asarray(vals)
+    if dtype is None:
+        dtype = torch.from_numpy(vals[:0]).dtype
+    return SparseLabeledPointBatch.from_coo(
+        np.asarray(rows), np.asarray(cols), vals, np.asarray(labels), dim=dim,
+        offsets=None if offsets is None else np.asarray(offsets),
+        weights=None if weights is None else np.asarray(weights), dtype=dtype, ell=ell,
+        hybrid=hybrid, column_sorted_gradient=column_sorted_gradient, device=device)
 
 
 def normalization_from_numpy(factors, shifts, *, device=None) -> NormalizationContext:

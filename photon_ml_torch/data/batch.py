@@ -22,7 +22,8 @@ import torch
 from photon_ml_torch.device import resolve_device
 
 
-def _tensor(a, dtype, device) -> torch.Tensor:
+def device_tensor(a, dtype, device) -> torch.Tensor:
+    """``a`` (numpy array or tensor) as a contiguous ``dtype`` tensor on ``device``."""
     if isinstance(a, np.ndarray):
         a = torch.from_numpy(np.ascontiguousarray(a))
     return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
@@ -91,20 +92,20 @@ class LabeledPointBatch:
         rounds the feature block to bf16 and keeps the other columns f32.
         """
         device = resolve_device(device)
-        features = _tensor(features, dtype, device)
+        features = device_tensor(features, dtype, device)
         dtype = features.dtype
         if dtype == torch.bfloat16:
             dtype = torch.float32
-        labels = _tensor(labels, dtype, device)
+        labels = device_tensor(labels, dtype, device)
         n = features.shape[0]
         if offsets is None:
             offsets = torch.zeros((n,), dtype=dtype, device=device)
         else:
-            offsets = _tensor(offsets, dtype, device)
+            offsets = device_tensor(offsets, dtype, device)
         if weights is None:
             weights = torch.ones((n,), dtype=dtype, device=device)
         else:
-            weights = _tensor(weights, dtype, device)
+            weights = device_tensor(weights, dtype, device)
         return cls(features=features, labels=labels, offsets=offsets, weights=weights)
 
     def pad_to(self, n: int) -> "LabeledPointBatch":

@@ -1,7 +1,8 @@
 """Single-GLM training: the regularization path with warm starts.
 
 Counterpart of ``train_glm`` and ``_objective_for_batch`` in
-``photon_ml_tpu/estimators.py``; reference photon-api
+``photon_ml_tpu/estimators.py``: dense and sparse batches train through
+the same path; reference photon-api
 ModelTraining.scala:55-228 (trainGeneralizedLinearModel, a foldLeft over
 sorted λs warm-starting each solve from the previous one).
 """
@@ -15,11 +16,18 @@ from typing import Callable, Sequence
 import torch
 
 from photon_ml_torch.data.batch import LabeledPointBatch
+from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.glm import GeneralizedLinearModel
 from photon_ml_torch.ops.losses import loss_for_task
 from photon_ml_torch.ops.normalization import NormalizationContext
 from photon_ml_torch.ops.objective import GLMObjective
+from photon_ml_torch.ops.sparse_objective import SparseGLMObjective
+from photon_ml_torch.ops.variance import (
+    coefficient_variances,
+    resolve_variance_mode_for,
+    validate_variance_mode,
+)
 from photon_ml_torch.optim.common import SolverResult
 from photon_ml_torch.optim.optimizer import (
     OptimizerConfig,
@@ -32,25 +40,25 @@ from photon_ml_torch.types import TaskType
 logger = logging.getLogger(__name__)
 
 
-def _require_dense(batch) -> None:
-    if not isinstance(batch, LabeledPointBatch):
+def _require_batch(batch) -> None:
+    if not isinstance(batch, (LabeledPointBatch, SparseLabeledPointBatch)):
         raise TypeError(
-            f"{type(batch).__name__} is not supported: only the dense "
-            "LabeledPointBatch is ported (sparse FE is ROADMAP.md queue A item 14)"
+            f"{type(batch).__name__} is not a training batch: pass a "
+            "LabeledPointBatch or a SparseLabeledPointBatch"
         )
 
 
 def _objective_for_batch(batch, loss, l2_weight, normalization,
-                         use_kernel: bool | None = None) -> GLMObjective:
-    """The objective for a batch. Only the dense ``LabeledPointBatch`` is
-    ported; the sparse layout waits for ROADMAP.md queue A item 14."""
-    _require_dense(batch)
-    return GLMObjective(loss, l2_weight=l2_weight, normalization=normalization,
-                        use_kernel=use_kernel)
+                         use_kernel: bool | None = None):
+    """Dense or sparse objective by batch type: one train_glm serves both
+    the [n, d] block and the giant-d sparse layouts."""
+    _require_batch(batch)
+    cls = SparseGLMObjective if isinstance(batch, SparseLabeledPointBatch) else GLMObjective
+    return cls(loss, l2_weight=l2_weight, normalization=normalization, use_kernel=use_kernel)
 
 
 def train_glm(
-    batch: LabeledPointBatch,
+    batch: LabeledPointBatch | SparseLabeledPointBatch,
     task: TaskType,
     *,
     optimizer: OptimizerConfig | None = None,
@@ -59,6 +67,7 @@ def train_glm(
     normalization: NormalizationContext | None = None,
     intercept_index: int | None = None,
     compute_variance: bool = False,
+    variance_mode: str = "auto",
     lower_bounds=None,
     upper_bounds=None,
     use_kernel: bool | None = None,
@@ -70,17 +79,18 @@ def train_glm(
     with an L1 part is solved by OWL-QN. Returned models are in original
     feature space (warm starts stay in normalized space).
 
-    use_kernel: the objective's evaluation path (``ops/objective.py``;
-    None = the fused kernel on a CUDA batch). on_solve: called with
+    compute_variance: attach per-coefficient variances at each optimum
+    (``ops/variance.py``); ``variance_mode`` is "auto", "full" or
+    "diagonal" (a sparse batch supports only the diagonal), checked before
+    any λ trains.
+
+    use_kernel: the objective's evaluation path (``ops/objective.py``,
+    ``ops/sparse_objective.py``; None = the kernels on a CUDA batch). on_solve: called with
     (λ, SolverResult) after each λ's solve.
     """
-    _require_dense(batch)
-    if compute_variance:
-        raise NotImplementedError(
-            "compute_variance needs ops/variance.py, which is not ported yet "
-            "(ROADMAP.md queue A, head of the queue)"
-        )
+    _require_batch(batch)
     optimizer = resolve_auto_optimizer(optimizer or OptimizerConfig())
+    validate_variance_mode(variance_mode)
     has_bounds = lower_bounds is not None or upper_bounds is not None
     if has_bounds and (
         elastic_net_alpha > 0.0
@@ -92,9 +102,13 @@ def train_glm(
             "(elastic_net_alpha must be 0)"
         )
     loss = loss_for_task(task)
+    if compute_variance:  # an explicit "full" on a sparse batch fails here
+        resolve_variance_mode_for(_objective_for_batch(batch, loss, 0.0, normalization),
+                                  variance_mode, batch.dim)
 
     def bound_tensor(b):
-        return None if b is None else torch.as_tensor(b, dtype=batch.dtype, device=batch.device)
+        return None if b is None else torch.as_tensor(b, dtype=batch.solve_dtype,
+                                                      device=batch.device)
 
     models: dict[float, GeneralizedLinearModel] = {}
     w = torch.zeros((batch.dim,), dtype=batch.solve_dtype, device=batch.device)
@@ -111,8 +125,13 @@ def train_glm(
         w = result.coefficients
         if on_solve is not None:
             on_solve(lam, result)
-        means = objective.normalization.to_model_space(w, intercept_index)
-        models[lam] = GeneralizedLinearModel(Coefficients(means=means), task)
+        norm = objective.normalization
+        means = norm.to_model_space(w, intercept_index)
+        variances = None
+        if compute_variance:
+            variances = norm.variances_to_model_space(
+                coefficient_variances(objective, w, batch, mode=variance_mode))
+        models[lam] = GeneralizedLinearModel(Coefficients(means=means, variances=variances), task)
         logger.info("trained λ=%g: value=%g iters=%d", lam, float(result.value),
                     result.iterations)
     return models

@@ -21,11 +21,12 @@ kernel or raises.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
+from photon_ml_torch.build import check_cuda as _check
+from photon_ml_torch.build import on_device as _on
 from photon_ml_torch.data.batch import LabeledPointBatch
 from photon_ml_torch.ops.losses import PointwiseLoss
 
@@ -62,22 +63,10 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-
 def max_staged_d(itemsize: int) -> int:
     """Largest d that one staged pass over X supports (4: f32, 2: bf16);
     wider blocks read each row tile twice. Builds the kernel."""
     return _lib().fused_glm_max_staged_d(itemsize)
-
-
-def _on(dev: torch.device):
-    """Make ``dev`` the current device for a launch, if it is not already."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
 
 
 def _require(cond: bool, msg: str) -> None:

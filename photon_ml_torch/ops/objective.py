@@ -49,6 +49,17 @@ def _rmatvec(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return r @ (x.to(r.dtype) if x.dtype != r.dtype else x)
 
 
+def chain_rule(norm: NormalizationContext, g_eff: torch.Tensor,
+               rsum: torch.Tensor) -> torch.Tensor:
+    """Gradient in w from X'r in effective coordinates and Σr:
+    ``factors ⊙ (X'r − Σr·shifts)``."""
+    if norm.shifts is not None:
+        g_eff = g_eff - rsum * norm.shifts
+    if norm.factors is not None:
+        g_eff = g_eff * norm.factors
+    return g_eff
+
+
 class GLMObjective:
     """Weighted GLM objective: sum_i w_i * l(margin_i, y_i) + (l2/2)‖w‖².
 
@@ -92,15 +103,6 @@ class GLMObjective:
             return batch.features.device.type == "cuda"
         return self.use_kernel
 
-    def _chain_rule(self, g_eff: torch.Tensor, rsum: torch.Tensor) -> torch.Tensor:
-        """Gradient in w from X'r in effective coordinates and Σr."""
-        norm = self.normalization
-        if norm.shifts is not None:
-            g_eff = g_eff - rsum * norm.shifts
-        if norm.factors is not None:
-            g_eff = g_eff * norm.factors
-        return g_eff
-
     def value_and_gradient(self, coefficients: torch.Tensor, batch: LabeledPointBatch):
         if self._kernel_enabled(batch):
             return fused_value_and_gradient(
@@ -111,7 +113,7 @@ class GLMObjective:
         l, dz = self.loss.loss_and_dz(margins, batch.labels)
         r = batch.weights * dz
         value = torch.sum(batch.weights * l)
-        grad = self._chain_rule(_rmatvec(batch.features, r), torch.sum(r))
+        grad = chain_rule(self.normalization, _rmatvec(batch.features, r), torch.sum(r))
         if self.l2_weight > 0.0:
             value = value + 0.5 * self.l2_weight * torch.dot(coefficients, coefficients)
             grad = grad + self.l2_weight * coefficients
@@ -130,7 +132,7 @@ class GLMObjective:
         ev = self.normalization.effective_coefficients(vector)
         xv = _matvec(batch.features, ev) - self.normalization.margin_shift(ev)
         q = d2 * xv
-        hv = self._chain_rule(_rmatvec(batch.features, q), torch.sum(q))
+        hv = chain_rule(self.normalization, _rmatvec(batch.features, q), torch.sum(q))
         if self.l2_weight > 0.0:
             hv = hv + self.l2_weight * vector
         return hv

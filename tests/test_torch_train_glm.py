@@ -116,8 +116,11 @@ def test_on_solve_reports_each_lambda():
 def test_train_glm_rejections():
     x, y, o, ws = make_data(2, 50, 4, True)
     batch = convert.batch_from_numpy(x, y, o, ws, device="cpu")
-    with pytest.raises(NotImplementedError, match="variance"):
-        train_glm(batch, TaskType.LOGISTIC_REGRESSION, compute_variance=True)
+    solves = []
+    with pytest.raises(ValueError, match="variance mode"):
+        train_glm(batch, TaskType.LOGISTIC_REGRESSION, compute_variance=True,
+                  variance_mode="exact", on_solve=lambda lam, r: solves.append(lam))
+    assert solves == []  # rejected before any solve
     with pytest.raises(TypeError, match="LabeledPointBatch"):
         train_glm(object(), TaskType.LOGISTIC_REGRESSION)
     with pytest.raises(ValueError, match="box constraints"):
