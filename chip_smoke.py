@@ -49,6 +49,34 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
 6. Times (CUDA events, median of 20 after warm-up): per-λ solve times, the
    device time of one sparse evaluation and its parts, and a
    ``{"kernels": ...}`` JSON line.
+7. The GAME slice (``GameEstimator.fit``: a fixed effect plus per-user and
+   per-item random effects by coordinate descent), data made with numpy from
+   ``--seed``:
+   a. the packed-aux kernel's operand forms and units against their plain
+      versions at [2^17, 512] and at a ragged shape, twice and bitwise equal,
+      with their times (``dev/torch_kernel_probe.py``);
+   b. the Newton lanes' Cholesky solve against Gauss-Jordan elimination at
+      [2000, 16, 16], with both times;
+   c. at bench.py's flagship GAME shape (n=2^17, ``global`` d=256,
+      ``per_entity`` d=16, 2000 users, 1500 items, one 128-slot bucket, L2
+      weight 1, f32), 4 sweeps each: logistic labels with L-BFGS lanes and
+      with Newton lanes, the Newton fit again with the kernel's products on
+      the tensor cores (``kernel_unit="mma"``) and through the closed form
+      (``use_kernel=False``), bench.py's linear labels with L-BFGS lanes and
+      with Newton lanes (the latter through the separate-column form). The
+      launch counters are set to 0 before each fit and read after it: every
+      fixed-effect evaluation launched the packed kernel. Checks: training
+      loss non-increasing over the sweeps; final training losses within rel
+      1e-4 (kernel against closed form), 1e-3 (fma against mma; L-BFGS lanes
+      against Newton lanes); the logistic model's AUC on 2^15 held-out rows
+      (a quarter of unseen users) above the fixed effect's alone;
+   d. the kernels on the main path's own inputs at [2^17, 256] against their
+      plain versions, with device times, bounds and the two-matmul closed
+      form's time;
+   e. a small problem (n=4096) on the card in f32 against the CPU in f64:
+      coefficients and tables within 1e-3 max|w|;
+   f. a larger run (n=2^20, 16,000 users, 12,000 items, logistic, Newton
+      lanes, 2 sweeps) whose times are printed.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -58,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -685,6 +714,486 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
     return entries
 
 
+#: the GAME slice: bench.py's flagship GAME shape (bench_game_sweep), a larger
+#: run whose times give a later benchmark a size to start from, and the small
+#: problem held against the CPU
+GAME = {
+    "flagship": dict(n=1 << 17, d_fe=256, d_re=16, users=2000, items=1500, held_out=1 << 15,
+                     sweeps=4),
+    "large": dict(n=1 << 20, d_fe=256, d_re=16, users=16000, items=12000, held_out=0, sweeps=2),
+    "small": dict(n=4096, d_fe=32, d_re=8, users=48, items=24, held_out=0, sweeps=3),
+    "cap": 128,
+}
+
+
+def _game_arrays(np, seed: int, n: int, d_fe: int, d_re: int, users: int, items: int,
+                 held_out: int, **_):
+    """bench.py's GAME data (bench_game_sweep) with planted random effects:
+    uniform user and item ids, standard-normal ``global`` and ``per_entity``
+    shards in f32, bench.py's linear labels (a planted fixed effect plus unit
+    noise) and logistic labels drawn from a planted fixed effect plus planted
+    per-user and per-item effects. ``held_out`` more rows of the same model
+    follow the training rows, a quarter of them of users never trained on."""
+    rng = np.random.default_rng(seed)
+    total = n + held_out
+    user_idx = rng.integers(0, users, size=total)
+    item_idx = rng.integers(0, items, size=total)
+    if held_out:
+        user_idx[n + 3 * held_out // 4:] += users
+    x_fe = rng.standard_normal((total, d_fe), dtype=np.float32)
+    x_re = rng.standard_normal((total, d_re), dtype=np.float32)
+    w_fe = rng.normal(size=d_fe).astype(np.float32) / np.sqrt(d_fe)
+    y_linear = x_fe @ w_fe + rng.normal(size=total).astype(np.float32)
+    w_user = (0.5 * rng.normal(size=(2 * users, d_re))).astype(np.float32)
+    w_item = (0.5 * rng.normal(size=(items, d_re))).astype(np.float32)
+    z = x_fe @ w_fe + np.einsum("nd,nd->n", x_re, w_user[user_idx]) \
+        + np.einsum("nd,nd->n", x_re, w_item[item_idx])
+    y_logistic = (rng.uniform(size=total) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    keys = {"user": np.char.add("u", user_idx.astype(str)),
+            "item": np.char.add("i", item_idx.astype(str))}
+
+    def part(lo, hi):
+        return dict(x_fe=x_fe[lo:hi], x_re=x_re[lo:hi],
+                    keys={t: k[lo:hi] for t, k in keys.items()},
+                    labels={"LINEAR_REGRESSION": y_linear[lo:hi],
+                            "LOGISTIC_REGRESSION": y_logistic[lo:hi]})
+
+    return part(0, n), (part(n, total) if held_out else None)
+
+
+def _game_dataset(arrays, task: str, device, vocabs=None, dtype=None):
+    from photon_ml_torch.data.game_data import build_game_dataset
+
+    kw = {} if dtype is None else {"dtype": dtype}
+    return build_game_dataset(
+        labels=arrays["labels"][task],
+        feature_shards={"global": arrays["x_fe"], "per_entity": arrays["x_re"]},
+        entity_keys=arrays["keys"], entity_vocabs=vocabs, device=device, **kw)
+
+
+def _game_estimator(task: str, lanes: str, sweeps: int, *, random_effects: bool = True, **kw):
+    """bench.py's GAME configuration: L-BFGS (10 iterations) on the fixed
+    effect, ``lanes`` (10 iterations) on the per-user and per-item effects,
+    L2 weight 1 everywhere, one bucket of 128 slots per entity."""
+    from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+    from photon_ml_torch.estimators import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.types import TaskType
+
+    def opt(kind):
+        return CoordinateOptimizationConfig(
+            optimizer=OptimizerConfig(OptimizerType[kind], max_iterations=10), l2_weight=1.0)
+
+    configs = {"fixed": FixedEffectCoordinateConfig("global", opt("LBFGS"))}
+    if random_effects:
+        for cid, re_type in (("per_user", "user"), ("per_item", "item")):
+            configs[cid] = RandomEffectCoordinateConfig(re_type, "per_entity", opt(lanes),
+                                                        bucket_sizes=(GAME["cap"],))
+    return GameEstimator(task=TaskType[task], coordinate_configs=configs, num_iterations=sweeps,
+                         **kw)
+
+
+class _GameTimers:
+    """Wall-clock seconds (synchronized) of the coordinates' ``update_model``
+    and ``score`` and of the bucket builder during one fit, by wrapping the
+    port's methods; restored on exit."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seconds: dict = {}
+        self._saved = []
+
+    def _wrap(self, owner, name, key_of):
+        fn = getattr(owner, name)
+        torch, seconds = self.torch, self.seconds
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            key = key_of(*args, **kw)
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+
+        self._saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+
+    def __enter__(self):
+        from photon_ml_torch import estimators
+        from photon_ml_torch.algorithm import coordinates
+
+        for cls in (coordinates.FixedEffectCoordinate, coordinates.RandomEffectCoordinate):
+            self._wrap(cls, "update_model", lambda self_, *a, **k: f"solve {self_.coordinate_id}")
+            self._wrap(cls, "score", lambda self_, *a, **k: "rescoring")
+        self._wrap(estimators, "build_random_effect_dataset", lambda *a, **k: "bucket builder")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+
+def _game_fit(torch, label: str, estimator, dataset, sweeps: int) -> dict:
+    """One ``GameEstimator.fit`` with the launch counters set to 0 just before
+    and read just after. Every fixed-effect update must have launched the
+    packed kernel once per evaluation and no other dense kernel."""
+    from photon_ml_torch.algorithm.coordinates import lane_iteration_histogram
+    from photon_ml_torch.ops import fused_glm, packed_glm
+    from photon_ml_torch.optim.common import LaneTraces
+
+    counters = ("packed_launches", "mma_launches", "columns_launches", "reduce_launches")
+    for name in counters:
+        setattr(packed_glm, name, 0)
+    b1_before = fused_glm.launches
+    updates, marks = [], {"packed": 0, "columns": 0}
+
+    def on_update(iteration, cid, info):
+        row = {"sweep": iteration, "coordinate": cid}
+        if isinstance(info, LaneTraces):
+            row["lane_iterations"] = lane_iteration_histogram(info)
+        elif info is not None:
+            packed, columns = packed_glm.packed_launches, packed_glm.columns_launches
+            row.update(iterations=info.iterations, reason=info.reason,
+                       evaluations=(packed - marks["packed"]) + (columns - marks["columns"]))
+            marks.update(packed=packed, columns=columns)
+        updates.append(row)
+
+    estimator.on_update = on_update
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _GameTimers(torch) as timers:
+        result = estimator.fit(dataset)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: getattr(packed_glm, name) for name in counters}
+    uses_kernel = estimator.use_kernel is not False
+    for row in updates:
+        if "evaluations" in row:
+            # every evaluation of the solve went through the packed kernel
+            wanted = row["iterations"] + 1 if uses_kernel else 0
+            assert (row["evaluations"] >= wanted) if uses_kernel else row["evaluations"] == 0, \
+                f"{label}: fixed-effect update {row} launched too few packed kernels"
+    assert fused_glm.launches == b1_before, f"{label}: the separate-column kernel was launched"
+    assert launches["reduce_launches"] == launches["packed_launches"] + launches["columns_launches"]
+    loss_name = next(k for k in result.metric_history[0] if k.startswith("train:"))
+    last = [h[loss_name] for h in result.metric_history
+            if h["coordinate"] == result.metric_history[-1]["coordinate"]]
+    assert len(last) == sweeps and all(math.isfinite(v) for v in last), f"{label}: {last}"
+    assert all(b <= a * (1 + 1e-5) for a, b in zip(last, last[1:])), \
+        f"{label}: training loss rose over the sweeps: {last}"
+    solves = {k: v for k, v in timers.seconds.items() if k.startswith("solve ")}
+    known = sum(solves.values()) + timers.seconds.get("rescoring", 0.0) \
+        + timers.seconds.get("bucket builder", 0.0)
+    fe_rows = [r for r in updates if "evaluations" in r]
+    lanes: dict = {}
+    for r in updates:
+        for its, count in r.get("lane_iterations", {}).items():
+            lanes[its] = lanes.get(its, 0) + count
+    out = {"fit": label, "seconds": seconds, "sweeps": sweeps,
+           "seconds_per_sweep": (seconds - timers.seconds.get("bucket builder", 0.0)) / sweeps,
+           "per_sweep": {k: v / sweeps for k, v in solves.items()},
+           "rescoring_per_sweep": timers.seconds.get("rescoring", 0.0) / sweeps,
+           "host_rest_per_sweep": (seconds - known) / sweeps,
+           "bucket_builder_seconds": timers.seconds.get("bucket builder", 0.0),
+           "fe_evaluations_per_solve": [r["evaluations"] for r in fe_rows],
+           "fe_iterations_per_solve": [r["iterations"] for r in fe_rows],
+           "lane_iteration_histogram": dict(sorted(lanes.items())),
+           "loss_per_sweep": last, "launches": launches,
+           "peak_memory_MiB": torch.cuda.max_memory_allocated() / 2**20}
+    _log(f"GAME fit {json.dumps(out)}")
+    out["result"] = result
+    return out
+
+
+def _rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _lane_loop_share(torch, estimator, dataset) -> dict:
+    """Where one random-effect update's wall time goes: the wall clock of one
+    ``update_model`` of the per-user coordinate (synchronized) beside the sum
+    of its kernels' device time from ``torch.profiler``; the rest is time the
+    card waits for the host."""
+    sequence, coordinates = estimator._build_coordinates(dataset, None)
+    coord = coordinates["per_user"]
+    model = coord.initial_model()
+    coord.update_model(model, None)  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coord.update_model(model, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        coord.update_model(model, None)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                    for e in events)
+    kernels = sum(e.count for e in events
+                  if getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) > 0)
+    out = {"wall_ms": wall * 1e3, "device_ms": device_us / 1e3 if device_us else None,
+           "device_events": kernels}
+    out["host_share"] = None if not device_us else max(0.0, 1.0 - device_us / 1e6 / wall)
+    return out
+
+
+def _packed_entry(torch, name, replaces, launches, kernel, plain, library, x, n_aux_bytes,
+                  limits, grad_scale=None, **extra):
+    """One ``packed_glm`` entry of the kernels line at the GAME fixed-effect
+    shape: the kernel held against its plain version on the main path's
+    inputs (``limits``: value rel, gradient atol as a share of
+    ``grad_scale``, by default max|g|), their device times, and the bound from the bytes (X, the aux columns, w
+    in, the gradient, the value and Σr out) and 4 n d operations."""
+    n, d = x.shape
+    v, g, _ = kernel()
+    vr, gr, _ = plain()
+    torch.cuda.synchronize()
+    vtol, gshare = limits
+    gmax = float(gr.abs().max())
+    assert abs(float(v - vr)) <= vtol * abs(float(vr)), f"{name}: value off its plain version"
+    assert torch.allclose(g, gr, rtol=1e-4, atol=gshare * (grad_scale or gmax)), \
+        f"{name}: gradient off its plain version by {float((g - gr).abs().max())} (max |g| " \
+        f"{gmax}, scale {grad_scale})"
+    nbytes = n * d * x.element_size() + n_aux_bytes + 4 * d + 4 * d + 8
+    bound, by = _bound_ms(nbytes, 4.0 * n * d)
+    return {"name": name, "route": "cuda", "source": "photon_ml_torch/csrc/packed_glm.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": float((g - gr).abs().max()), "max_abs_gradient": gmax,
+            "value_rel_err": abs(float(v - vr)) / abs(float(vr)),
+            "ms": _device_ms(torch, kernel), "plain_ms": _device_ms(torch, plain),
+            "bound_ms": bound, "bound_by": by, "library_ms": _device_ms(torch, library),
+            "eager_ms": _eager_ms(torch, kernel), "shape": [n, d],
+            "dtype": str(x.dtype).replace("torch.", ""), "bytes": nbytes, **extra}
+
+
+def _game_slice(torch, np, seed: int, dev, card: str) -> list:
+    """The GAME slice at full width, printing as it goes. Returns the
+    packed_glm entries of the kernels line."""
+    from dev import torch_kernel_probe
+    from photon_ml_torch.evaluation import local_metrics
+    from photon_ml_torch.ops import packed_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.optim import newton
+
+    # a. the operand-form and unit study at the probes' shape (a phase of its own)
+    for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
+        setattr(packed_glm, name, 0)
+    t0 = time.perf_counter()
+    probe_rows = torch_kernel_probe.run(torch, _device_ms, seed, dev)
+    for row in probe_rows:
+        _log(f"kernel probe: {json.dumps(row)}")
+    probe_launches = {name: getattr(packed_glm, name) for name in
+                      ("packed_launches", "mma_launches", "columns_launches")}
+    assert all(v > 0 for v in probe_launches.values()), probe_launches
+    _log(f"kernel probe phase: {time.perf_counter() - t0:.2f} s, launches {probe_launches}")
+
+    # b. the positive-definite solve of the Newton lanes at [2000, 16, 16]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(2000, 32, 16, device=dev, generator=gen)
+    h = torch.einsum("bnd,bne->bde", a, a) + torch.eye(16, device=dev)
+    g = torch.randn(2000, 16, device=dev, generator=gen)
+    p_chol, ok = newton.solve_pd(h, g)
+    p_gj = newton.solve_pd_gauss_jordan(h, g)
+    gap = float((p_chol - p_gj).abs().max() / p_gj.abs().max())
+    assert bool(ok.all()) and gap <= 1e-4, f"Cholesky solve off Gauss-Jordan by {gap}"
+    # eager times: the batched Cholesky solve allocates inside the library
+    # call and cannot be captured in a CUDA graph
+    _log(f"Newton solve [2000, 16, 16] f32 ({card}): cholesky_ex + cholesky_solve "
+         f"{_eager_ms(torch, lambda: newton.solve_pd(h, g)):.4f} ms, Gauss-Jordan elimination "
+         f"{_eager_ms(torch, lambda: newton.solve_pd_gauss_jordan(h, g)):.4f} ms (eager, one "
+         f"call as the lane loop makes it), max rel gap {gap:.3g}")
+    del a, h, g
+
+    # c. the fits at the flagship shape
+    shape = GAME["flagship"]
+    sweeps = shape["sweeps"]
+    t0 = time.perf_counter()
+    train, held = _game_arrays(np, seed, **shape)
+    t_arrays = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = {task: _game_dataset(train, task, dev)
+            for task in ("LOGISTIC_REGRESSION", "LINEAR_REGRESSION")}
+    held_ds = _game_dataset(held, "LOGISTIC_REGRESSION", dev,
+                            vocabs=data["LOGISTIC_REGRESSION"].entity_vocabs)
+    torch.cuda.synchronize()
+    _log(f"GAME data n={shape['n']} (+{shape['held_out']} held out) global d={shape['d_fe']} "
+         f"per_entity d={shape['d_re']} users={shape['users']} items={shape['items']}: numpy "
+         f"{t_arrays:.2f} s, build_game_dataset x3 {time.perf_counter() - t0:.2f} s")
+    unseen = int((held_ds.entity_idx["user"] < 0).sum())
+    assert unseen > 0, "the held-out rows should hold users never trained on"
+
+    log, lin = "LOGISTIC_REGRESSION", "LINEAR_REGRESSION"
+    fits = {}
+    # warm up (kernel build caches, cuBLAS/cuSOLVER handles) outside the times
+    _game_estimator(log, "NEWTON", 1).fit(data[log])
+    _game_estimator(log, "LBFGS", 1, kernel_unit="mma").fit(data[log])
+    for label, task, lanes, kw in (
+            ("logistic lbfgs-lanes fma", log, "LBFGS", {}),
+            ("logistic newton-lanes fma", log, "NEWTON", {}),
+            ("logistic newton-lanes mma", log, "NEWTON", {"kernel_unit": "mma"}),
+            ("logistic newton-lanes closed-form", log, "NEWTON", {"use_kernel": False}),
+            ("linear lbfgs-lanes fma", lin, "LBFGS", {}),
+            ("linear newton-lanes columns", lin, "NEWTON", {"kernel_aux": "columns"})):
+        fits[label] = _game_fit(torch, label, _game_estimator(task, lanes, sweeps, **kw),
+                                data[task], sweeps)
+    fe_only = _game_fit(torch, "logistic fixed effect only", _game_estimator(
+        log, "NEWTON", 1, random_effects=False), data[log], 1)
+
+    def final(label):
+        return fits[label]["loss_per_sweep"][-1]
+
+    main = fits["logistic newton-lanes fma"]
+    path_launches = {
+        "P6": sum(f["launches"]["packed_launches"] - f["launches"]["mma_launches"]
+                  for f in fits.values()),
+        "P7": sum(f["launches"]["mma_launches"] for f in fits.values()),
+        "P5": sum(f["launches"]["columns_launches"] for f in fits.values()),
+        "reduce": sum(f["launches"]["reduce_launches"] for f in fits.values())}
+    assert all(v > 0 for v in path_launches.values()), path_launches
+    assert fits["logistic newton-lanes closed-form"]["launches"]["reduce_launches"] == 0
+    gaps = {
+        # the kernel and the closed form differ by f32 rounding only
+        "kernel vs closed form": (_rel_gap(main["loss_per_sweep"][-1],
+                                           final("logistic newton-lanes closed-form")), 1e-4),
+        # TF32 operands perturb each evaluation by about 1e-6 relative; both
+        # fits converge on the same optimum
+        "fma vs mma": (_rel_gap(final("logistic newton-lanes mma"),
+                                main["loss_per_sweep"][-1]), 1e-3),
+        "lbfgs lanes vs newton lanes (logistic)": (_rel_gap(
+            final("logistic lbfgs-lanes fma"), main["loss_per_sweep"][-1]), 1e-3),
+        "lbfgs lanes vs newton lanes (linear)": (_rel_gap(
+            final("linear lbfgs-lanes fma"), final("linear newton-lanes columns")), 1e-3)}
+    _log("GAME final training loss, rel gaps (limit): " + ", ".join(
+        f"{k} {v:.3g} ({lim:g})" for k, (v, lim) in gaps.items()))
+    for k, (v, lim) in gaps.items():
+        assert v <= lim, f"{k}: rel gap {v} > {lim}"
+
+    held_y = held_ds.host_array("labels")
+    aucs = {}
+    for name, model in (("GAME", main["result"].model), ("fixed effect only",
+                                                         fe_only["result"].model)):
+        scores = model.score(held_ds)
+        assert scores.shape == (shape["held_out"],) and bool(torch.isfinite(scores).all())
+        aucs[name] = local_metrics.area_under_roc_curve(scores, held_y)
+    train_scores = main["result"].model.score(data[log])
+    assert train_scores.shape == (shape["n"],) and bool(torch.isfinite(train_scores).all())
+    _log(f"GAME logistic AUC on {shape['held_out']} held-out rows ({unseen} of unseen users): "
+         f"{aucs['GAME']:.6f} against the fixed effect alone {aucs['fixed effect only']:.6f}; "
+         f"training AUC "
+         f"{local_metrics.area_under_roc_curve(train_scores, data[log].host_array('labels')):.6f}")
+    assert aucs["GAME"] > aucs["fixed effect only"] > 0.5, aucs
+
+    share = _lane_loop_share(torch, _game_estimator(log, "LBFGS", 1), data[log])
+    _log(f"lane loop, one per-user L-BFGS update [2000, 128, 16] ({card}): {json.dumps(share)}")
+    share = _lane_loop_share(torch, _game_estimator(log, "NEWTON", 1), data[log])
+    _log(f"lane loop, one per-user Newton update [2000, 128, 16] ({card}): {json.dumps(share)}")
+
+    # d. the kernels at the shape and on the inputs the main path gives them
+    ds = data[log]
+    x = ds.feature_shards["global"]
+    w = main["result"].model.get("fixed").glm.coefficients.means.float().contiguous()
+    residual = main["result"].model.score(ds) - x @ w
+    y, o, ws = ds.labels, (ds.offsets + residual).contiguous(), ds.weights
+    aux = packed_glm.pack_aux(y, o, ws)
+    loss = LogisticLoss()
+    n = x.shape[0]
+    r = torch.rand(n, device=dev)
+    library = lambda: (torch.matmul(x, w), torch.matmul(r, x))  # noqa: E731
+    # at the fit's optimum the gradient is what is left of a cancellation, so
+    # the TF32 variant (operands rounded to 10 mantissa bits against the plain
+    # version's f32) is held to 2e-4 of the largest column sum of |r_i x_ic|
+    residuals = (ws * loss.loss_and_dz(x @ w + o, y)[1]).abs()
+    tf32_scale = float((residuals @ x.abs()).max())
+    p6 = "experiments/kernel_probe6.py:99"
+    entries = [
+        _packed_entry(torch, "packed_glm", p6, path_launches["P6"],
+                      lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False),
+                      lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False),
+                      library, x, 12 * n, torch_kernel_probe.limits("float32", "fma", "fma"),
+                      form="packed aux, fma, no Σr (the GAME path's call)"),
+        _packed_entry(torch, "packed_glm[mma]", "experiments/kernel_probe7.py:112",
+                      path_launches["P7"],
+                      lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False,
+                                                     margin_unit="mma", grad_unit="mma"),
+                      lambda: packed_glm.packed_core_reference(
+                          loss, x, aux, w, with_rsum=False, margin_unit="mma", grad_unit="mma"),
+                      library, x, 12 * n, (1e-4, 2e-4), grad_scale=tf32_scale,
+                      form="packed aux, mma (TF32) for both products"),
+        _packed_entry(torch, "packed_glm[columns]", "experiments/kernel_probe5.py:121",
+                      path_launches["P5"],
+                      lambda: packed_glm.columns_core(loss, x, y, ws, o, w, with_rsum=False),
+                      lambda: packed_glm.columns_core_reference(loss, x, y, ws, o, w,
+                                                                with_rsum=False),
+                      library, x, 12 * n, torch_kernel_probe.limits("float32", "fma", "fma"),
+                      form="separate y, ws, o columns, no Σr"),
+    ]
+    parts = packed_glm.launch_partials(loss, x, aux, None, None, None, w, None, True, "fma",
+                                       "fma")
+    red, red_ref = packed_glm.reduce_partials(*parts), packed_glm.reduce_partials_reference(*parts)
+    blocks, d = parts[2].shape
+    red_bound, red_by = _bound_ms(4.0 * (blocks + 1) * (d + 2), float(blocks * (d + 2)))
+    entries.append({
+        "name": "packed_glm_reduce", "route": "cuda",
+        "source": "photon_ml_torch/csrc/packed_glm.cu", "replaces": p6,
+        "launches": path_launches["reduce"],
+        "max_abs_err": max(float((red[1] - red_ref[1]).abs().max()),
+                           abs(float(red[0] - red_ref[0]))),
+        "ms": _device_ms(torch, lambda: packed_glm.reduce_partials(*parts)),
+        "plain_ms": _device_ms(torch, lambda: packed_glm.reduce_partials_reference(*parts)),
+        "bound_ms": red_bound, "bound_by": red_by,
+        "library_ms": _device_ms(torch, lambda: (torch.sum(parts[2], dim=0), torch.sum(parts[0]),
+                                                 torch.sum(parts[1]))),
+        "eager_ms": _eager_ms(torch, lambda: packed_glm.reduce_partials(*parts)),
+        "blocks": blocks})
+    keep = ("variant", "kernel", "dtype", "ms", "plain_ms", "frac")
+    entries[0]["probe_shape_rows"] = [{k: r_[k] for k in keep if k in r_} for r_ in probe_rows
+                                      if "ms" in r_]
+    del fits, fe_only, data, held_ds, train, held, x, aux, parts
+    torch.cuda.empty_cache()
+
+    # e. a small problem on the card (f32, the kernel) against the CPU (f64)
+    small = GAME["small"]
+    arrays, _ = _game_arrays(np, seed + 1, **small)
+    got = {}
+    for where, dtype in ((dev, None), ("cpu", np.float64)):
+        ds = _game_dataset(arrays, log, where, dtype=dtype)
+        model = _game_estimator(log, "NEWTON", small["sweeps"]).fit(ds).model
+        got[str(where)] = torch.cat(
+            [model.get("fixed").glm.coefficients.means.double().cpu()]
+            + [model.get(c).coefficients.double().cpu().reshape(-1)
+               for c in ("per_user", "per_item")])
+    gap = float((got[str(dev)] - got["cpu"]).abs().max())
+    scale = float(got["cpu"].abs().max())
+    _log(f"small GAME problem n={small['n']}: card f32 vs cpu f64 max |dw| {gap:.3g} "
+         f"(max |w| {scale:.3g})")
+    assert gap <= 1e-3 * scale
+
+    # f. the larger run: times for a later benchmark to start from
+    shape = GAME["large"]
+    t0 = time.perf_counter()
+    train, _ = _game_arrays(np, seed + 2, **shape)
+    t_arrays = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big = _game_dataset(train, log, dev)
+    torch.cuda.synchronize()
+    _log(f"large GAME data n={shape['n']} users={shape['users']} items={shape['items']}: numpy "
+         f"{t_arrays:.2f} s, build_game_dataset {time.perf_counter() - t0:.2f} s")
+    del train
+    large = _game_fit(torch, "large logistic newton-lanes fma",
+                      _game_estimator(log, "NEWTON", shape["sweeps"]), big, shape["sweeps"])
+    assert large["launches"]["packed_launches"] > 0
+    del big, large
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -872,6 +1381,11 @@ def main(argv=None) -> int:
     sparse_entries = _sparse_slice(torch, np, args.seed, dev, card)
     _log(f"sparse phases: {time.perf_counter() - t0:.2f} s")
     line["kernels"].extend(sparse_entries)
+
+    # 7. the GAME slice
+    t0 = time.perf_counter()
+    line["kernels"].extend(_game_slice(torch, np, args.seed, dev, card))
+    _log(f"GAME phases: {time.perf_counter() - t0:.2f} s")
     _log(card)
     _log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,10 +4,13 @@ The JAX package stays the reference. This package keeps its module names
 so each port module sits at the same path as its counterpart, and it
 imports only ``torch``, numpy and the standard library.
 
-Ported so far: single-GLM training (``estimators.train_glm``) with the
-L-BFGS / LBFGSB / OWL-QN / TRON solvers, normalization, the four pointwise
-losses, GLM scoring, and the fused value+gradient kernel
-(``ops/fused_glm.py`` over ``csrc/fused_glm.cu``).
+Ported so far: single-GLM training (``estimators.train_glm``) on dense and
+sparse batches with the L-BFGS / LBFGSB / OWL-QN / TRON / Newton solvers,
+normalization, variances, the four pointwise losses and GLM scoring; in-core
+GAME training on one device (``estimators.GameEstimator``: a fixed effect
+plus per-entity random effects by block coordinate descent, lane-batched
+L-BFGS and Newton solves); and the hand-written kernels under ``csrc/``
+(``ops/fused_glm.py``, ``ops/packed_glm.py``, ``ops/sparse_gather.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``device.resolve_device``).

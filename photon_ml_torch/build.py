@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface (loaded with ``ctypes``) under ``build/torch_kernels/`` of
-the checkout. The file name carries a hash of the source and the flags, so
+the checkout. The file name carries a hash of the source (with the csrc files
+it includes) and the flags, so
 an edited source builds anew and an unchanged one is reused. Nothing is
 built at import time: the CPU tests import every module without ``nvcc``.
 
@@ -52,8 +53,18 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _source_bytes(path: Path) -> bytes:
+    """A source with every ``#include "..."`` of a csrc file appended, so a
+    library is rebuilt when a file it includes changes."""
+    src = path.read_bytes()
+    for line in src.decode().splitlines():
+        if line.startswith('#include "'):
+            src += _source_bytes(CSRC / line.split('"')[1])
+    return src
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu")
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -11,10 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from photon_ml_torch.data.batch import LabeledPointBatch
+from photon_ml_torch.data.batch import LabeledPointBatch, device_tensor
+from photon_ml_torch.data.game_data import EntityBucket, GameDataset, RandomEffectDataset
 from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.models.coefficients import Coefficients
+from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_torch.models.glm import GeneralizedLinearModel
 from photon_ml_torch.ops.normalization import NormalizationContext
 from photon_ml_torch.types import TaskType
@@ -69,5 +71,104 @@ def coefficients_from_numpy(means, variances=None, *, device=None) -> Coefficien
 def glm_from_numpy(means, variances, task, *, device=None) -> GeneralizedLinearModel:
     """A GeneralizedLinearModel; ``task`` is a TaskType, its name, or any
     enum whose value is the name."""
-    task = task if isinstance(task, TaskType) else TaskType(getattr(task, "value", task))
-    return GeneralizedLinearModel(coefficients_from_numpy(means, variances, device=device), task)
+    return GeneralizedLinearModel(coefficients_from_numpy(means, variances, device=device),
+                                  _task(task))
+
+
+def _task(task) -> TaskType:
+    return task if isinstance(task, TaskType) else TaskType(getattr(task, "value", task))
+
+
+def game_dataset_from_numpy(*, unique_ids, labels, offsets, weights, feature_shards,
+                            entity_idx, entity_vocabs, ids=None, device=None) -> GameDataset:
+    """A GameDataset from the fields of another package's dataset as numpy
+    arrays: dense [n, d] shards (a bf16 shard passes as float32 values and
+    ``torch.bfloat16`` is not restored), [n] int entity indices, key vocabs."""
+    device = resolve_device(device)
+    # copies: the arrays of another framework may be read-only views
+    host = {"labels": np.array(labels), "offsets": np.array(offsets),
+            "weights": np.array(weights)}
+    shards = {}
+    for k, v in feature_shards.items():
+        host[f"shard/{k}"] = np.array(v)
+        shards[k] = device_tensor(host[f"shard/{k}"], None, device)
+    idx = {}
+    for t, v in entity_idx.items():
+        host[f"entity_idx/{t}"] = np.asarray(v).astype(np.int32)
+        idx[t] = device_tensor(host[f"entity_idx/{t}"], torch.int32, device)
+    return GameDataset(
+        unique_ids=np.asarray(unique_ids),
+        labels=device_tensor(host["labels"], None, device),
+        offsets=device_tensor(host["offsets"], None, device),
+        weights=device_tensor(host["weights"], None, device),
+        feature_shards=shards, entity_idx=idx,
+        entity_vocabs={t: np.asarray(v) for t, v in entity_vocabs.items()},
+        ids={k: np.asarray(v) for k, v in (ids or {}).items()}, host_cache=host)
+
+
+def random_effect_dataset_from_numpy(*, random_effect_type: str, feature_shard_id: str, buckets,
+                                     num_entities: int, dim: int,
+                                     device=None) -> RandomEffectDataset:
+    """A RandomEffectDataset from bucket fields as numpy arrays: ``buckets``
+    is a sequence of mappings with features [e, cap, d], labels, weights
+    [e, cap], entity_rows [e] and sample_rows [e, cap]."""
+    device = resolve_device(device)
+    out = []
+    for b in buckets:
+        out.append(EntityBucket(
+            features=device_tensor(np.array(b["features"]), None, device),
+            labels=device_tensor(np.array(b["labels"]), None, device),
+            weights=device_tensor(np.array(b["weights"]), None, device),
+            entity_rows=device_tensor(np.array(b["entity_rows"]), torch.int32, device),
+            sample_rows=device_tensor(np.array(b["sample_rows"]), torch.int32, device)))
+    return RandomEffectDataset(random_effect_type=random_effect_type,
+                               feature_shard_id=feature_shard_id, buckets=out,
+                               num_entities=int(num_entities), dim=int(dim))
+
+
+def game_model_from_numpy(models, *, device=None) -> GameModel:
+    """A GameModel from an ordered mapping coordinate id -> plain values: a
+    fixed effect is ``{"kind": "fixed", "means", "variances", "task",
+    "feature_shard_id"}``, a random effect ``{"kind": "random",
+    "coefficients", "variances", "entity_keys", "random_effect_type",
+    "feature_shard_id", "task"}``."""
+    device = resolve_device(device)
+    out = {}
+    for cid, m in models.items():
+        if m["kind"] == "fixed":
+            out[cid] = FixedEffectModel(
+                glm=glm_from_numpy(m["means"], m.get("variances"), m["task"], device=device),
+                feature_shard_id=m["feature_shard_id"])
+        elif m["kind"] == "random":
+            out[cid] = RandomEffectModel(
+                coefficients=_opt_tensor(m["coefficients"], device),
+                variances=_opt_tensor(m.get("variances"), device),
+                entity_keys=np.asarray(m["entity_keys"]),
+                random_effect_type=m["random_effect_type"],
+                feature_shard_id=m["feature_shard_id"], task=_task(m["task"]))
+        else:
+            raise ValueError(f"coordinate '{cid}': unknown model kind {m['kind']!r}")
+    return GameModel(models=out)
+
+
+def game_model_to_numpy(model: GameModel) -> dict:
+    """The inverse of :func:`game_model_from_numpy`: numpy arrays and plain
+    Python values (task names as strings)."""
+
+    def arr(t):
+        return None if t is None else t.detach().cpu().numpy()
+
+    out = {}
+    for cid, m in model.models.items():
+        if isinstance(m, FixedEffectModel):
+            out[cid] = {"kind": "fixed", "means": arr(m.glm.coefficients.means),
+                        "variances": arr(m.glm.coefficients.variances), "task": m.task.value,
+                        "feature_shard_id": m.feature_shard_id}
+        elif isinstance(m, RandomEffectModel):
+            out[cid] = {"kind": "random", "coefficients": arr(m.coefficients),
+                        "variances": arr(m.variances), "entity_keys": np.asarray(m.entity_keys),
+                        "random_effect_type": m.random_effect_type,
+                        "feature_shard_id": m.feature_shard_id, "task": m.task.value}
+        else:
+            raise TypeError(f"coordinate '{cid}': cannot convert {type(m).__name__}")
+    return out

@@ -1,0 +1,455 @@
+"""GAME dataset: column-oriented GameDatum collection and the bucketed
+per-entity training view.
+
+Counterpart of ``photon_ml_tpu/data/game_data.py``; reference photon-api
+data/GameDatum.scala, data/FixedEffectDataSet.scala,
+data/RandomEffectDataSet.scala (grouping per entity with reservoir caps and
+lower bounds).
+
+- One feature block per feature shard (a dense [n, d_shard] tensor, or a
+  ``SparseShard`` for a fixed effect too wide to densify), [n]
+  labels/offsets/weights, and per random-effect type an [n] entity index.
+- Random-effect training data is size-bucketed padded blocks: entities
+  bucketed by sample count, each bucket an [entities, cap, d] tensor that
+  the lane-batched solvers consume.
+- Scoring always runs over the full sample axis through an entity-indexed
+  gather (models/game.py), so samples left out of training (reservoir cap,
+  lower bound) are still scored.
+
+The host builders are vectorized numpy and give arrays equal to the JAX
+package's, element for element; only the finished arrays move to the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from photon_ml_torch.data.batch import LabeledPointBatch, device_tensor
+from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch, SparseShard
+from photon_ml_torch.device import resolve_device
+from photon_ml_torch.sampling.down_sampler import stable_uniform
+
+_NUMPY_TO_TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+
+
+@dataclasses.dataclass
+class GameDataset:
+    """Column-oriented GAME data: built once on the host, then resident on
+    ``device``.
+
+    feature_shards: shard id -> [n, d_shard] tensor, or a SparseShard
+    entity_idx:     RE type -> [n] int32 tensor (row in that type's entity
+                    vocab, -1 for entities absent from the vocab)
+    entity_vocabs:  RE type -> [num_entities] key array (host)
+    ids:            evaluation id columns (e.g. queryId) -> [n] host array
+    """
+
+    unique_ids: np.ndarray
+    labels: torch.Tensor
+    offsets: torch.Tensor
+    weights: torch.Tensor
+    feature_shards: dict
+    entity_idx: dict
+    entity_vocabs: dict
+    ids: dict = dataclasses.field(default_factory=dict)
+    #: host copies kept by build_game_dataset so bucketing never pulls
+    #: device tensors back
+    host_cache: dict = dataclasses.field(default_factory=dict)
+    #: per sparse shard, its training batch built once (the layout does not
+    #: depend on the offsets)
+    _sparse_batches: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    def host_array(self, name: str) -> np.ndarray:
+        """Host copy of a namespaced array: 'labels'/'weights'/'offsets',
+        'shard/<shard_id>', or 'entity_idx/<re_type>'."""
+        if name in self.host_cache:
+            return self.host_cache[name]
+        if name in ("labels", "weights", "offsets"):
+            value = getattr(self, name).cpu().numpy()
+        elif name.startswith("shard/"):
+            shard = self.feature_shards[name[len("shard/"):]]
+            if isinstance(shard, SparseShard):
+                raise TypeError(
+                    f"feature shard '{name[len('shard/'):]}' is sparse "
+                    "(giant-d); dense host materialization would defeat it. "
+                    "Random-effect coordinates and other dense consumers "
+                    "need a dense shard."
+                )
+            value = shard.float().cpu().numpy() if shard.dtype == torch.bfloat16 \
+                else shard.cpu().numpy()
+        elif name.startswith("entity_idx/"):
+            value = self.entity_idx[name[len("entity_idx/"):]].cpu().numpy()
+        else:
+            raise KeyError(name)
+        self.host_cache[name] = value
+        return value
+
+    @property
+    def num_samples(self) -> int:
+        return int(self.labels.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.labels.device
+
+    def shard_features(self, shard_id: str):
+        return self.feature_shards[shard_id]
+
+    def entity_indices(self, re_type: str) -> torch.Tensor:
+        return self.entity_idx[re_type]
+
+    def fixed_effect_batch(
+        self, shard_id: str, extra_offsets: torch.Tensor | None = None
+    ) -> LabeledPointBatch | SparseLabeledPointBatch:
+        offsets = self.offsets if extra_offsets is None else self.offsets + extra_offsets
+        shard = self.feature_shards[shard_id]
+        if isinstance(shard, SparseShard):
+            base = self._sparse_batches.get(shard_id)
+            if base is None:
+                base = self._sparse_batches[shard_id] = SparseLabeledPointBatch.from_shard(
+                    shard, self.labels, self.offsets, self.weights, device=self.device)
+            return base.with_offsets(offsets.to(base.offsets.dtype))
+        return LabeledPointBatch(features=shard, labels=self.labels, offsets=offsets,
+                                 weights=self.weights)
+
+
+def pad_game_dataset(dataset: GameDataset, multiple: int) -> tuple[GameDataset, int]:
+    """Pad the sample axis with zero-weight rows to a multiple of ``multiple``.
+
+    Padding rows carry weight 0, entity index -1 (scored as 0), offset and
+    label 0, zero feature rows and fresh negative unique ids. Sparse shards
+    pad by raising ``num_samples``. Entity buckets built from the unpadded
+    dataset stay valid. Returns (padded dataset, original sample count); the
+    dataset itself when already divisible.
+    """
+    n = dataset.num_samples
+    pad = (-n) % max(1, int(multiple))
+    if pad == 0:
+        return dataset, n
+    device = dataset.device
+
+    def padded_vec(name: str):
+        arr = dataset.host_array(name)
+        out = np.concatenate([arr, np.zeros(pad, dtype=arr.dtype)])
+        return out, device_tensor(out, None, device)
+
+    labels_h, labels_d = padded_vec("labels")
+    offsets_h, offsets_d = padded_vec("offsets")
+    weights_h, weights_d = padded_vec("weights")
+    shards: dict = {}
+    host_cache = {"labels": labels_h, "offsets": offsets_h, "weights": weights_h}
+    for k, v in dataset.feature_shards.items():
+        if isinstance(v, SparseShard):
+            # the coalesced triple survives; the device arrays and the hybrid
+            # split hold the old sample count
+            shards[k] = dataclasses.replace(v, num_samples=v.num_samples + pad, _device={},
+                                            _hybrid_cache=None)
+        else:
+            arr = dataset.host_array(f"shard/{k}")
+            arr = np.concatenate([arr, np.zeros((pad, arr.shape[1]), dtype=arr.dtype)])
+            shards[k] = device_tensor(arr, v.dtype, device)
+            host_cache[f"shard/{k}"] = arr
+    entity_idx: dict = {}
+    for t in dataset.entity_idx:
+        arr = np.concatenate(
+            [dataset.host_array(f"entity_idx/{t}"), np.full(pad, -1, dtype=np.int32)]
+        ).astype(np.int32)
+        entity_idx[t] = device_tensor(arr, torch.int32, device)
+        host_cache[f"entity_idx/{t}"] = arr
+    ids = {
+        k: np.concatenate([np.asarray(v), np.zeros(pad, np.asarray(v).dtype)])
+        for k, v in dataset.ids.items()
+    }
+    unique_ids = np.concatenate(
+        [np.asarray(dataset.unique_ids),
+         -(np.arange(pad, dtype=np.int64) + 1 + np.abs(dataset.unique_ids).max(initial=0))]
+    )
+    return GameDataset(
+        unique_ids=unique_ids, labels=labels_d, offsets=offsets_d, weights=weights_d,
+        feature_shards=shards, entity_idx=entity_idx, entity_vocabs=dataset.entity_vocabs,
+        ids=ids, host_cache=host_cache,
+    ), n
+
+
+@dataclasses.dataclass
+class EntityBucket:
+    """One size-bucket of random-effect training data.
+
+    features:    [e, cap, d]
+    labels/weights: [e, cap] (weight 0 marks padding)
+    entity_rows: [e] int32, row of each entity in the RE type's vocab
+    sample_rows: [e, cap] int32, global sample row of each slot, -1 pad
+    """
+
+    features: torch.Tensor
+    labels: torch.Tensor
+    weights: torch.Tensor
+    entity_rows: torch.Tensor
+    sample_rows: torch.Tensor
+
+    @property
+    def num_entities(self) -> int:
+        return self.features.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.features.shape[1]
+
+    def gather_offsets(self, full_offsets: torch.Tensor) -> torch.Tensor:
+        """Current residual offsets for every slot: [e, cap]."""
+        rows = self.sample_rows.long()
+        gathered = full_offsets[torch.clamp(rows, min=0)]
+        return torch.where(rows >= 0, gathered, torch.zeros_like(gathered))
+
+
+@dataclasses.dataclass
+class RandomEffectDataset:
+    """Bucketed per-entity training view for one RE coordinate (identity
+    projection on a dense shard: the table is [num_entities, dim])."""
+
+    random_effect_type: str
+    feature_shard_id: str
+    buckets: list
+    num_entities: int  # size of the entity vocab
+    dim: int
+
+    @property
+    def num_trained_entities(self) -> int:
+        return sum(b.num_entities for b in self.buckets)
+
+    @property
+    def table_width(self) -> int:
+        return self.dim
+
+
+def _stable_priorities(sample_ids: np.ndarray, seed: int) -> np.ndarray:
+    """Deterministic per-sample priorities for reservoir sampling, stable
+    under recompute: the splitmix64 keying of the down-samplers."""
+    return stable_uniform(sample_ids, seed)
+
+
+def group_entities_into_buckets(
+    entity_idx: np.ndarray,
+    unique_ids: np.ndarray,
+    *,
+    bucket_sizes: Sequence[int],
+    active_data_upper_bound: int | None = None,
+    active_data_lower_bound: int | None = None,
+    seed: int = 0,
+) -> dict[int, list[tuple[int, np.ndarray]]]:
+    """Group sample rows by entity into size buckets.
+
+    Returns {bucket_capacity: [(entity_row, sample_rows), ...]}. Applies the
+    per-entity reservoir cap (stable-id keyed, reference
+    RandomEffectDataSet.scala:354-420) and the lower-bound filter (:320-341).
+    """
+    valid = entity_idx >= 0
+    order = np.argsort(entity_idx[valid], kind="stable")
+    rows = np.nonzero(valid)[0][order]
+    ents = entity_idx[rows]
+    per_bucket: dict[int, list[tuple[int, np.ndarray]]] = {c: [] for c in bucket_sizes}
+    if len(ents) == 0:
+        return per_bucket
+    boundaries = np.concatenate(
+        [[0], np.nonzero(ents[1:] != ents[:-1])[0] + 1, [len(ents)]]
+    )
+    max_bucket = max(bucket_sizes)
+    for start, end in zip(boundaries[:-1], boundaries[1:]):
+        entity = int(ents[start])
+        sample_rows = rows[start:end]
+        count = len(sample_rows)
+        if active_data_lower_bound is not None and count < active_data_lower_bound:
+            continue
+        # the largest bucket is an implicit cap: sampling (not
+        # head-truncation) applies either way, so the kept subset is unbiased
+        cap = min(active_data_upper_bound or max_bucket, max_bucket)
+        if count > cap:
+            # stable reservoir: keep the `cap` samples with smallest priority
+            prio = _stable_priorities(unique_ids[sample_rows], seed)
+            keep = np.argsort(prio, kind="stable")[:cap]
+            sample_rows = sample_rows[np.sort(keep)]
+            count = cap
+        bucket_cap = next(c for c in bucket_sizes if c >= count)
+        per_bucket[bucket_cap].append((entity, sample_rows))
+    return per_bucket
+
+
+def pack_bucket_lanes(
+    members: list[tuple[int, np.ndarray]],
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized lane layout for one bucket's members.
+
+    Returns (entity_rows[e], rows_concat[m], lane[m], slot[m]): sample i of
+    entity lane l lands at [lane, slot] in the padded [e, cap] blocks.
+    """
+    e = len(members)
+    entity_rows = np.fromiter(
+        (ent for ent, _ in members), dtype=np.int32, count=e
+    )
+    counts = np.fromiter((len(sr) for _, sr in members), dtype=np.intp, count=e)
+    rows_concat = np.concatenate([sr for _, sr in members])
+    lane = np.repeat(np.arange(e, dtype=np.intp), counts)
+    slot = np.arange(len(rows_concat), dtype=np.intp) - np.repeat(
+        np.concatenate(([0], np.cumsum(counts[:-1]))), counts
+    )
+    return entity_rows, rows_concat, lane, slot
+
+
+def build_random_effect_dataset(
+    dataset: GameDataset,
+    re_type: str,
+    shard_id: str,
+    *,
+    active_data_upper_bound: int | None = None,
+    active_data_lower_bound: int | None = None,
+    bucket_sizes: Sequence[int] = (8, 32, 128, 512, 2048),
+    seed: int = 0,
+) -> RandomEffectDataset:
+    """Group samples by entity into padded, size-bucketed blocks on the
+    dataset's device (identity projection on a dense shard).
+
+    - upper bound: per-entity reservoir cap (stable-id keyed sampling).
+    - lower bound: entities with fewer samples are left out of training
+      (still scored through the gather path).
+    - buckets: entities padded to the smallest bucket capacity >= their
+      (capped) sample count.
+    """
+    shard = dataset.feature_shards[shard_id]
+    if isinstance(shard, SparseShard):
+        raise NotImplementedError(
+            f"random-effect coordinate on the sparse shard '{shard_id}': compact "
+            "per-entity tables are not ported yet (ROADMAP.md item 14)"
+        )
+    entity_idx = dataset.host_array(f"entity_idx/{re_type}")
+    features = dataset.host_array(f"shard/{shard_id}")
+    labels = dataset.host_array("labels")
+    weights = dataset.host_array("weights")
+    unique_ids = np.asarray(dataset.unique_ids)
+    dim = features.shape[1]
+    num_entities = len(dataset.entity_vocabs[re_type])
+    device = dataset.device
+
+    per_bucket = group_entities_into_buckets(
+        entity_idx,
+        unique_ids,
+        bucket_sizes=bucket_sizes,
+        active_data_upper_bound=active_data_upper_bound,
+        active_data_lower_bound=active_data_lower_bound,
+        seed=seed,
+    )
+    buckets: list[EntityBucket] = []
+    for cap, members in per_bucket.items():
+        if not members:
+            continue
+        e = len(members)
+        be, rows_concat, lane, slot = pack_bucket_lanes(members)
+        bl = np.zeros((e, cap), dtype=labels.dtype)
+        bw = np.zeros((e, cap), dtype=weights.dtype)
+        bs = np.full((e, cap), -1, dtype=np.int32)
+        bl[lane, slot] = labels[rows_concat]
+        bw[lane, slot] = weights[rows_concat]
+        bs[lane, slot] = rows_concat
+        bf = np.zeros((e, cap, dim), dtype=features.dtype)
+        bf[lane, slot] = features[rows_concat]
+        buckets.append(
+            EntityBucket(
+                features=device_tensor(bf, shard.dtype, device),
+                labels=device_tensor(bl, None, device),
+                weights=device_tensor(bw, None, device),
+                entity_rows=device_tensor(be, torch.int32, device),
+                sample_rows=device_tensor(bs, torch.int32, device),
+            )
+        )
+    return RandomEffectDataset(
+        random_effect_type=re_type,
+        feature_shard_id=shard_id,
+        buckets=buckets,
+        num_entities=num_entities,
+        dim=dim,
+    )
+
+
+def entity_index_of(keys: np.ndarray, vocab: np.ndarray) -> np.ndarray:
+    """Row of each key in ``vocab`` ([n] int32), -1 for a key it lacks."""
+    if len(vocab) == 0:
+        return np.full(len(keys), -1, dtype=np.int32)
+    order = np.argsort(vocab, kind="stable")
+    sorted_vocab = vocab[order]
+    pos = np.minimum(np.searchsorted(sorted_vocab, keys), len(vocab) - 1)
+    return np.where(sorted_vocab[pos] == keys, order[pos], -1).astype(np.int32)
+
+
+def build_game_dataset(
+    *,
+    labels,
+    feature_shards: Mapping[str, object],
+    entity_keys: Mapping[str, np.ndarray] | None = None,
+    offsets=None,
+    weights=None,
+    unique_ids=None,
+    ids: Mapping[str, np.ndarray] | None = None,
+    entity_vocabs: Mapping[str, np.ndarray] | None = None,
+    dtype=np.float32,
+    shard_dtypes: Mapping[str, torch.dtype] | None = None,
+    device=None,
+) -> GameDataset:
+    """Assemble a GameDataset from host arrays on ``device`` (CUDA unless
+    ``device="cpu"``).
+
+    entity_keys: RE type -> [n] per-sample entity key array; vocabs are built
+    from the observed keys unless provided (scoring held-out rows needs the
+    training vocab). Keys are canonically strings.
+
+    shard_dtypes: per-shard storage dtype (``torch.bfloat16`` rounds that
+    shard's block once on the way to the device); the host copy stays
+    ``dtype``.
+    """
+    device = resolve_device(device)
+    labels = np.asarray(labels, dtype=dtype)
+    n = len(labels)
+    offsets = np.zeros(n, dtype) if offsets is None else np.asarray(offsets, dtype)
+    weights = np.ones(n, dtype) if weights is None else np.asarray(weights, dtype)
+    unique_ids = np.arange(n, dtype=np.int64) if unique_ids is None else np.asarray(unique_ids)
+
+    vocabs: dict[str, np.ndarray] = {}
+    entity_idx: dict[str, torch.Tensor] = {}
+    host_idx: dict[str, np.ndarray] = {}
+    for re_type, keys in (entity_keys or {}).items():
+        keys = np.asarray(keys).astype(str)
+        if entity_vocabs is not None and re_type in entity_vocabs:
+            vocab = np.asarray(entity_vocabs[re_type]).astype(str)
+            idx = entity_index_of(keys, vocab)
+        else:
+            vocab, inverse = np.unique(keys, return_inverse=True)
+            idx = inverse.astype(np.int32)
+        vocabs[re_type] = vocab
+        entity_idx[re_type] = device_tensor(idx, torch.int32, device)
+        host_idx[re_type] = idx
+
+    solve = _NUMPY_TO_TORCH[np.dtype(dtype)]
+    host_shards = {k: np.asarray(v, dtype=dtype) for k, v in feature_shards.items()
+                   if not isinstance(v, SparseShard)}
+    device_shards: dict = {}
+    for k, v in feature_shards.items():
+        if isinstance(v, SparseShard):
+            device_shards[k] = v
+        else:
+            device_shards[k] = device_tensor(host_shards[k], (shard_dtypes or {}).get(k, solve),
+                                             device)
+    return GameDataset(
+        unique_ids=unique_ids,
+        labels=device_tensor(labels, solve, device),
+        offsets=device_tensor(offsets, solve, device),
+        weights=device_tensor(weights, solve, device),
+        feature_shards=device_shards,
+        entity_idx=entity_idx,
+        entity_vocabs=vocabs,
+        ids=dict(ids or {}),
+        host_cache={"labels": labels, "offsets": offsets, "weights": weights,
+                    **{f"shard/{k}": v for k, v in host_shards.items()},
+                    **{f"entity_idx/{t}": v for t, v in host_idx.items()}},
+    )

@@ -1,26 +1,52 @@
-"""Single-GLM training: the regularization path with warm starts.
+"""The training facades: ``GameEstimator`` and single-GLM ``train_glm``.
 
-Counterpart of ``train_glm`` and ``_objective_for_batch`` in
-``photon_ml_tpu/estimators.py``: dense and sparse batches train through
-the same path; reference photon-api
-ModelTraining.scala:55-228 (trainGeneralizedLinearModel, a foldLeft over
-sorted λs warm-starting each solve from the previous one).
+Counterpart of ``photon_ml_tpu/estimators.py``. ``GameEstimator.fit``
+(reference photon-api estimators/GameEstimator.scala) builds the
+per-coordinate datasets, the training-loss and validation evaluators and the
+per-shard normalization, then runs block coordinate descent; in the port it
+runs on one device, over a dense or sparse fixed effect and IDENTITY random
+effects on dense shards. ``train_glm`` (reference ModelTraining.scala:55-228)
+is the single-GLM regularization path with warm starts, for dense and sparse
+batches alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Sequence
 
+import numpy as np
 import torch
 
-from photon_ml_torch.data.batch import LabeledPointBatch
-from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch
+from photon_ml_torch.algorithm.coordinate_descent import (
+    CoordinateDescentResult,
+    run_coordinate_descent,
+)
+from photon_ml_torch.algorithm.coordinates import (
+    Coordinate,
+    CoordinateOptimizationConfig,
+    FixedEffectCoordinate,
+    ModelCoordinate,
+    RandomEffectCoordinate,
+)
+from photon_ml_torch.data.batch import LabeledPointBatch, summarize
+from photon_ml_torch.data.game_data import GameDataset, build_random_effect_dataset
+from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch, SparseShard
+from photon_ml_torch.evaluation.evaluators import (
+    EvaluationData,
+    default_evaluator_for_task,
+    parse_evaluator,
+)
+from photon_ml_torch.models.game import GameModel
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.glm import GeneralizedLinearModel
 from photon_ml_torch.ops.losses import loss_for_task
-from photon_ml_torch.ops.normalization import NormalizationContext
+from photon_ml_torch.ops.normalization import (
+    NormalizationContext,
+    NormalizationType,
+    build_normalization,
+)
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.sparse_objective import SparseGLMObjective
 from photon_ml_torch.ops.variance import (
@@ -38,6 +64,195 @@ from photon_ml_torch.optim.optimizer import (
 from photon_ml_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedEffectCoordinateConfig:
+    """Reference: FixedEffectDataConfiguration + optimization config."""
+
+    feature_shard_id: str
+    optimization: CoordinateOptimizationConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomEffectCoordinateConfig:
+    """Reference: RandomEffectDataConfiguration (RE type, shard, bounds) +
+    optimization config. ``projector_type`` other than "IDENTITY",
+    ``projected_dim`` and ``features_to_samples_ratio`` are carried so that a
+    configuration of the JAX package maps over; they are not ported yet."""
+
+    random_effect_type: str
+    feature_shard_id: str
+    optimization: CoordinateOptimizationConfig
+    active_data_upper_bound: int | None = None
+    active_data_lower_bound: int | None = None
+    projector_type: str = "IDENTITY"
+    projected_dim: int | None = None
+    features_to_samples_ratio: float | None = None
+    bucket_sizes: Sequence[int] = (8, 32, 128, 512, 2048)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatrixFactorizationCoordinateConfig:
+    """A matrix-factorization coordinate over a (row entity, col entity)
+    pair; carried as configuration, not ported yet."""
+
+    row_effect_type: str
+    col_effect_type: str
+    num_latent_factors: int
+    optimization: CoordinateOptimizationConfig
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
+
+
+@dataclasses.dataclass
+class GameEstimator:
+    """Trains a GAME model on one device: ordered coordinates, block
+    coordinate descent."""
+
+    task: TaskType
+    coordinate_configs: Mapping[str, object]
+    update_sequence: Sequence[str] | None = None
+    num_iterations: int = 1
+    normalization: NormalizationType = NormalizationType.NONE
+    validation_evaluators: Sequence[str] = ()
+    locked_coordinates: frozenset = frozenset()
+    #: shard id -> index of the intercept column (exempt from normalization,
+    #: absorbs the standardization margin shift)
+    intercept_indices: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    checkpointer: object | None = None
+    #: raise DivergenceError on non-finite coordinate updates
+    check_finite: bool = True
+    mesh: object | None = None
+    telemetry: object | None = None
+    #: evaluation path of the fixed-effect solves (ops/objective.py): None =
+    #: the packed kernel on a CUDA block, False = the closed form
+    use_kernel: bool | None = None
+    #: unit of the packed kernel's products ("fma" or "mma") and the form of
+    #: its label/offset/weight operand ("packed" or "columns")
+    kernel_unit: str = "fma"
+    kernel_aux: str = "packed"
+    #: called with (iteration, coordinate id, solver info) after each update
+    on_update: Callable | None = None
+
+    def fit(self, dataset: GameDataset, validation_dataset: GameDataset | None = None,
+            initial_model: GameModel | None = None) -> CoordinateDescentResult:
+        if self.mesh is not None:
+            raise _not_ported("the mesh path (_fit_distributed, GameTrainProgram)", 10)
+        if self.checkpointer is not None:
+            raise _not_ported("checkpoints in run_coordinate_descent", 16)
+        if self.telemetry is not None:
+            raise _not_ported("solver telemetry", 19)
+        sequence, coordinates = self._build_coordinates(dataset, initial_model)
+
+        def eval_data(ds):
+            return EvaluationData(labels=ds.host_array("labels"), offsets=ds.host_array("offsets"),
+                                  weights=ds.host_array("weights"), ids=ds.ids)
+
+        validation_scorer = None
+        validation_data = None
+        evaluators = [parse_evaluator(s) for s in self.validation_evaluators]
+        if validation_dataset is not None and evaluators:
+            validation_data = eval_data(validation_dataset)
+
+            def validation_scorer(model: GameModel):
+                return (model.score_dataset(validation_dataset)
+                        + validation_dataset.offsets).cpu().numpy()
+
+        initial_models = dict(initial_model.models) if initial_model is not None else None
+        return run_coordinate_descent(
+            coordinates, sequence, self.num_iterations,
+            initial_models=initial_models,
+            locked_coordinates=self.locked_coordinates,
+            training_evaluator=default_evaluator_for_task(self.task),
+            training_data=eval_data(dataset),
+            validation_evaluators=evaluators,
+            validation_scorer=validation_scorer,
+            validation_data=validation_data,
+            check_finite=self.check_finite,
+            on_update=self.on_update,
+        )
+
+    def _build_coordinates(self, dataset: GameDataset, initial_model: GameModel | None):
+        """(sequence, coordinate map), locked coordinates wrapped as
+        ModelCoordinates."""
+        sequence = list(self.update_sequence or self.coordinate_configs.keys())
+        norms = self._prepare_normalization(dataset)
+        coordinates: dict[str, Coordinate] = {}
+        for cid in sequence:
+            cfg = self.coordinate_configs[cid]
+            if cid in self.locked_coordinates:
+                if initial_model is None:
+                    raise ValueError(
+                        f"locked coordinate '{cid}' requires an initial model "
+                        "(partial retraining needs a pre-trained model)")
+                coordinates[cid] = ModelCoordinate(coordinate_id=cid, dataset=dataset,
+                                                   model=initial_model.get(cid))
+            elif isinstance(cfg, FixedEffectCoordinateConfig):
+                coordinates[cid] = FixedEffectCoordinate(
+                    coordinate_id=cid, dataset=dataset, feature_shard_id=cfg.feature_shard_id,
+                    task=self.task, config=cfg.optimization,
+                    normalization=norms.get(cfg.feature_shard_id),
+                    intercept_index=self.intercept_indices.get(cfg.feature_shard_id),
+                    use_kernel=self.use_kernel, kernel_unit=self.kernel_unit,
+                    kernel_aux=self.kernel_aux)
+            elif isinstance(cfg, MatrixFactorizationCoordinateConfig):
+                raise _not_ported(f"matrix-factorization coordinate '{cid}'", 13)
+            elif isinstance(cfg, RandomEffectCoordinateConfig):
+                projector = getattr(cfg.projector_type, "name", cfg.projector_type)
+                if projector != "IDENTITY" or cfg.projected_dim is not None \
+                        or cfg.features_to_samples_ratio is not None:
+                    raise _not_ported(
+                        f"random effect '{cid}': INDEX_MAP/RANDOM projectors, per-entity "
+                        "feature selection and their normalization", 12)
+                if isinstance(dataset.feature_shards[cfg.feature_shard_id], SparseShard):
+                    raise _not_ported(f"random effect '{cid}' on a sparse shard", 14)
+                if cfg.optimization.uses_owlqn or cfg.optimization.optimizer.optimizer_type in (
+                        OptimizerType.TRON, OptimizerType.LBFGSB):
+                    raise _not_ported(
+                        f"random effect '{cid}': OWL-QN (L1), TRON and LBFGSB lanes", 12)
+                if cfg.optimization.optimizer.scheduler is not None:
+                    raise _not_ported(f"random effect '{cid}': the lane scheduler", 18)
+                re_dataset = build_random_effect_dataset(
+                    dataset, cfg.random_effect_type, cfg.feature_shard_id,
+                    active_data_upper_bound=cfg.active_data_upper_bound,
+                    active_data_lower_bound=cfg.active_data_lower_bound,
+                    bucket_sizes=cfg.bucket_sizes)
+                coordinates[cid] = RandomEffectCoordinate(
+                    coordinate_id=cid, dataset=dataset, re_dataset=re_dataset, task=self.task,
+                    config=cfg.optimization, normalization=norms.get(cfg.feature_shard_id),
+                    intercept_index=self.intercept_indices.get(cfg.feature_shard_id))
+            else:
+                raise TypeError(f"coordinate '{cid}': unknown configuration {type(cfg).__name__}")
+        return sequence, coordinates
+
+    def _prepare_normalization(self, dataset: GameDataset) -> dict[str, NormalizationContext]:
+        """Per-feature-shard normalization from feature summaries (reference
+        GameTrainingDriver.prepareNormalizationContexts:545-562)."""
+        norms: dict[str, NormalizationContext] = {}
+        if self.normalization == NormalizationType.NONE:
+            return norms
+        weights = dataset.host_array("weights")
+        for shard_id, features in dataset.feature_shards.items():
+            intercept = self.intercept_indices.get(shard_id)
+            norm_type = self.normalization
+            if norm_type == NormalizationType.STANDARDIZATION and intercept is None:
+                # mean-shifting needs an intercept to absorb the margin shift
+                logger.warning(
+                    "shard '%s' has no intercept_indices entry; using "
+                    "SCALE_WITH_STANDARD_DEVIATION instead of STANDARDIZATION", shard_id)
+                norm_type = NormalizationType.SCALE_WITH_STANDARD_DEVIATION
+            if isinstance(features, SparseShard):
+                stats = features.summarize(weights)
+            else:
+                stats = summarize(dataset.host_array(f"shard/{shard_id}"), weights)
+            dtype = dataset.labels.dtype  # the solve dtype
+            stat = {k: torch.as_tensor(np.asarray(stats[k]), dtype=dtype, device=dataset.device)
+                    for k in ("mean", "variance", "max_magnitude")}
+            norms[shard_id] = build_normalization(norm_type, **stat, intercept_index=intercept)
+        return norms
 
 
 def _require_batch(batch) -> None:

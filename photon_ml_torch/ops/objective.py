@@ -24,6 +24,15 @@ package, with ``use_kernel`` in place of ``use_pallas``:
 One objective keeps one evaluation path for a whole solve: the kernel and
 the closed form differ by about 5e-6 relative in f32, enough to flip
 accept tests near an optimum.
+
+``bind_packed`` is the binding of a solve whose labels, offsets and weights
+stay fixed while the coefficients move (a GAME fixed-effect update): the
+three columns are packed once into the ``[n, 3]`` block of
+``ops/packed_glm.py`` and every kernel evaluation streams X and that block.
+``kernel_unit`` ("fma" or "mma") picks the unit of both products there, and
+``kernel_aux="columns"`` keeps the three columns separate (the same kernel
+source reading them one by one). The Hessian-vector product and the
+variances keep the closed forms.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from photon_ml_torch.data.batch import LabeledPointBatch
+from photon_ml_torch.ops import packed_glm
 from photon_ml_torch.ops.fused_glm import fused_value_and_gradient
 from photon_ml_torch.ops.losses import PointwiseLoss
 from photon_ml_torch.ops.normalization import NormalizationContext, no_normalization
@@ -73,11 +83,19 @@ class GLMObjective:
         l2_weight: float = 0.0,
         normalization: NormalizationContext | None = None,
         use_kernel: bool | None = None,
+        kernel_unit: str = "fma",
+        kernel_aux: str = "packed",
     ):
+        if kernel_unit not in packed_glm.UNITS:
+            raise ValueError(f"kernel_unit must be one of {packed_glm.UNITS}, got {kernel_unit!r}")
+        if kernel_aux not in ("packed", "columns"):
+            raise ValueError(f"kernel_aux must be 'packed' or 'columns', got {kernel_aux!r}")
         self.loss = loss
         self.l2_weight = float(l2_weight)
         self.normalization = normalization if normalization is not None else no_normalization()
         self.use_kernel = use_kernel
+        self.kernel_unit = kernel_unit
+        self.kernel_aux = kernel_aux
 
     # -- core scalar function ------------------------------------------------
 
@@ -171,6 +189,14 @@ class GLMObjective:
     def bind(self, batch: LabeledPointBatch) -> "BoundObjective":
         return BoundObjective(self, batch)
 
+    def bind_packed(self, batch: LabeledPointBatch) -> "BoundObjective":
+        """Bind for a solve over fixed labels/offsets/weights: with the
+        kernel on and a block it takes, evaluations go through
+        ``ops/packed_glm.py``; otherwise this is :meth:`bind`."""
+        if self._kernel_enabled(batch) and packed_glm.supports(batch.features):
+            return PackedBoundObjective(self, batch)
+        return BoundObjective(self, batch)
+
 
 class BoundObjective:
     """Objective closed over a fixed batch: functions of the coefficients,
@@ -191,3 +217,29 @@ class BoundObjective:
 
     def hessian_matrix(self, w: torch.Tensor) -> torch.Tensor:
         return self.objective.hessian_matrix(w, self.batch)
+
+
+class PackedBoundObjective(BoundObjective):
+    """A bound objective whose value+gradient streams X and the aux columns
+    packed once at binding (``kernel_aux="packed"``) or kept as three f32
+    columns (``"columns"``)."""
+
+    def __init__(self, objective: GLMObjective, batch: LabeledPointBatch):
+        super().__init__(objective, batch)
+        self.aux = None
+        if objective.kernel_aux == "packed":
+            self.aux = packed_glm.pack_aux(batch.labels, batch.offsets, batch.weights)
+        else:
+            self.columns = (batch.labels.float().contiguous(),
+                            batch.weights.float().contiguous(),
+                            batch.offsets.float().contiguous())
+
+    def value_and_grad(self, w: torch.Tensor):
+        o = self.objective
+        kw = dict(l2_weight=o.l2_weight, normalization=o.normalization,
+                  margin_unit=o.kernel_unit, grad_unit=o.kernel_unit)
+        if self.aux is not None:
+            return packed_glm.packed_value_and_gradient(o.loss, w, self.batch.features,
+                                                        self.aux, **kw)
+        return packed_glm.columns_value_and_gradient(o.loss, w, self.batch.features,
+                                                     *self.columns, **kw)

@@ -68,22 +68,23 @@ def inverse_of_diagonal(diag: torch.Tensor) -> torch.Tensor:
 
 
 def _inverse_cholesky_factor(h: torch.Tensor) -> torch.Tensor:
-    """L⁻¹ for H = LLᵀ; NaN wherever the factorization failed (H not
-    positive definite), as ``jnp.linalg.cholesky`` gives."""
+    """L⁻¹ for H = LLᵀ ([..., d, d], batched over leading axes); NaN in
+    every matrix whose factorization failed (H not positive definite), as
+    ``jnp.linalg.cholesky`` gives."""
     chol, info = torch.linalg.cholesky_ex(h)
-    if int(info) != 0:
-        chol = torch.full_like(h, float("nan"))
-    eye = torch.eye(h.shape[0], dtype=h.dtype, device=h.device)
-    return torch.linalg.solve_triangular(chol, eye, upper=False)
+    chol = torch.where((info != 0)[..., None, None], float("nan"), chol)
+    eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
+    return torch.linalg.solve_triangular(chol, eye.expand_as(h), upper=False)
 
 
 def diag_inverse_from_hessian(h: torch.Tensor) -> torch.Tensor:
-    """diag(H⁻¹) via Cholesky without forming H⁻¹. Entries that come out
-    non-finite (H not positive definite: λ=0 with collinear features)
-    fall back elementwise to the clamped 1/diag(H)."""
+    """diag(H⁻¹) via Cholesky without forming H⁻¹, for one [d, d] Hessian
+    or a stack [..., d, d]. Entries that come out non-finite (H not positive
+    definite: λ=0 with collinear features) fall back elementwise to the
+    clamped 1/diag(H)."""
     linv = _inverse_cholesky_factor(h)
-    full = torch.sum(linv * linv, dim=0)
-    approx = inverse_of_diagonal(torch.diagonal(h))
+    full = torch.sum(linv * linv, dim=-2)
+    approx = inverse_of_diagonal(torch.diagonal(h, dim1=-2, dim2=-1))
     return torch.where(torch.isfinite(full), full, approx)
 
 

@@ -72,6 +72,54 @@ class SolverResult:
         return "\n".join(lines)
 
 
+@dataclasses.dataclass
+class LaneResult:
+    """Final state of a lane-batched solve: one independent problem per row.
+
+    coefficients [lanes, d]; value, gradient_norm [lanes]; iterations and
+    reason [lanes] int32 (ConvergenceReason codes).
+    """
+
+    coefficients: torch.Tensor
+    value: torch.Tensor
+    gradient_norm: torch.Tensor
+    iterations: torch.Tensor
+    reason: torch.Tensor
+
+
+@dataclasses.dataclass
+class LaneTrace:
+    """Per-lane convergence scalars of a lane-batched solve (one entry per
+    random-effect entity), the skeleton of the reference's per-problem
+    OptimizationStatesTracker report. ``valid`` is False on padding lanes
+    (out-of-range entity rows solve all-zero-weight problems whose counts
+    and reasons must not enter any tally)."""
+
+    iterations: torch.Tensor  # [lanes] int32
+    reason: torch.Tensor  # [lanes] int32 ConvergenceReason codes
+    value: torch.Tensor  # [lanes]
+    gradient_norm: torch.Tensor  # [lanes]
+    valid: torch.Tensor  # [lanes] bool
+
+    def replace(self, **changes) -> "LaneTrace":
+        return dataclasses.replace(self, **changes)
+
+
+class LaneTraces:
+    """The per-bucket LaneTraces of one coordinate update, kept as the
+    device tensors the solves returned; a consumer merges them on the host."""
+
+    def __init__(self, buckets):
+        self.buckets: tuple[LaneTrace, ...] = tuple(buckets)
+
+
+def lane_trace_of(result: LaneResult, valid: torch.Tensor | None = None) -> LaneTrace:
+    if valid is None:
+        valid = torch.ones_like(result.iterations, dtype=torch.bool)
+    return LaneTrace(iterations=result.iterations, reason=result.reason, value=result.value,
+                     gradient_norm=result.gradient_norm, valid=valid)
+
+
 def new_history(max_iter: int, first: torch.Tensor) -> torch.Tensor:
     hist = torch.full((max_iter + 1,), float("nan"), dtype=first.dtype, device=first.device)
     hist[0] = first
@@ -108,6 +156,21 @@ def check_convergence(
     if func_ok:
         return int(ConvergenceReason.FUNCTION_VALUES_WITHIN_TOLERANCE)
     return int(ConvergenceReason.NOT_CONVERGED)
+
+
+def check_convergence_lanes(*, value, prev_value, grad_norm, initial_grad_norm,
+                            tolerance: float, rel_function_tolerance: float | None = None):
+    """:func:`check_convergence` per lane: an int32 [lanes] tensor of codes,
+    decided on the device."""
+    rel_delta = torch.abs(value - prev_value) / torch.clamp(
+        torch.maximum(torch.abs(value), torch.abs(prev_value)), min=1.0)
+    ftol = tolerance if rel_function_tolerance is None else rel_function_tolerance
+    grad_ok = grad_norm <= tolerance * torch.clamp(initial_grad_norm, min=1.0)
+    func_ok = rel_delta <= ftol
+    code = torch.where(func_ok, int(ConvergenceReason.FUNCTION_VALUES_WITHIN_TOLERANCE),
+                       int(ConvergenceReason.NOT_CONVERGED))
+    code = torch.where(grad_ok, int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE), code)
+    return code.to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -179,3 +242,55 @@ def update_history(s_hist, y_hist, rho, count: int, head: int, s, y, sy,
     y_hist[slot] = y
     rho[slot] = 1.0 / torch.clamp(sy, min=1e-30)
     return min(count + 1, m), slot
+
+
+def wolfe_line_search_lanes(
+    value_and_grad_fn,
+    w: torch.Tensor,
+    f0: torch.Tensor,
+    g0: torch.Tensor,
+    direction: torch.Tensor,
+    t_init: torch.Tensor,
+    active: torch.Tensor,
+    c1: float = 1e-4,
+    c2: float = 0.9,
+    max_steps: int = 25,
+):
+    """:func:`wolfe_line_search` over a leading [lanes] axis: every lane runs
+    its own bracketing search, in lock-step. A lane that is done (or not
+    ``active``) keeps its state while the others go on: each trial evaluates
+    all lanes and the finished ones discard the step by select. The loop ends
+    when no lane is searching (one host read per trial). Returns per-lane
+    (step, value, gradient, success)."""
+    col = lambda v: v.unsqueeze(-1)  # noqa: E731
+    dg0 = torch.sum(g0 * direction, dim=-1)
+    t = t_init.to(f0.dtype)
+    lo = torch.zeros_like(f0)
+    hi = torch.full_like(f0, float("inf"))
+    t_best, f_best, g_best = torch.zeros_like(f0), f0, g0
+    has_best = torch.zeros_like(f0, dtype=torch.bool)
+    done = torch.zeros_like(has_best)
+    for _ in range(max_steps):
+        live = active & ~done
+        if not bool(live.any()):
+            break
+        f_t, g_t = value_and_grad_fn(w + col(t) * direction)
+        armijo = (f_t <= f0 + c1 * t * dg0) & torch.isfinite(f_t)
+        curv = torch.sum(g_t * direction, dim=-1) >= c2 * dg0
+        better = live & armijo & (~has_best | (f_t < f_best))
+        t_best = torch.where(better, t, t_best)
+        f_best = torch.where(better, f_t, f_best)
+        g_best = torch.where(col(better), g_t, g_best)
+        has_best = has_best | (live & armijo)
+        new_hi = torch.where(~armijo, t, hi)
+        new_lo = torch.where(armijo & ~curv, t, lo)
+        mid = 0.5 * (new_lo + new_hi)
+        new_t = torch.where(
+            ~armijo, mid,
+            torch.where(~curv, torch.where(torch.isinf(new_hi), 2.0 * t, mid), t))
+        hi = torch.where(live, new_hi, hi)
+        lo = torch.where(live, new_lo, lo)
+        t = torch.where(live, new_t, t)
+        done = done | (live & armijo & curv)
+    success = has_best & (f_best < f0)
+    return t_best, f_best, g_best, success

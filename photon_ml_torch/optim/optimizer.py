@@ -14,8 +14,9 @@ import enum
 import torch
 
 from photon_ml_torch.ops.objective import BoundObjective
-from photon_ml_torch.optim.common import SolverResult
+from photon_ml_torch.optim.common import SolverResult, new_history
 from photon_ml_torch.optim.lbfgs import minimize_lbfgs
+from photon_ml_torch.optim.newton import minimize_newton
 from photon_ml_torch.optim.owlqn import minimize_owlqn
 from photon_ml_torch.optim.tron import minimize_tron
 
@@ -35,7 +36,7 @@ class OptimizerType(enum.Enum):
 @dataclasses.dataclass(frozen=True)
 class LaneSchedulerConfig:
     """Converged-lane scheduling for batched random-effect solves, carried
-    as plain configuration; the scheduler itself comes with the GAME slice.
+    as plain configuration; the scheduler itself is not ported yet.
 
     probe_iterations: every lane solves this many iterations before the
         lanes still at MAX_ITERATIONS are re-run with the remaining budget.
@@ -101,10 +102,7 @@ def solve(
             f"{t.name} (the reference projects in LBFGS, LBFGS.scala:70-76)"
         )
     if t == OptimizerType.NEWTON:
-        raise NotImplementedError(
-            "NEWTON is not ported yet: ROADMAP.md queue A, slice 2, item 8 "
-            "(optim/newton.py minimize_newton, with the batched RE solvers)"
-        )
+        return _solve_newton(config, objective, w0)
     if t in (OptimizerType.LBFGS, OptimizerType.LBFGSB):
         if t == OptimizerType.LBFGSB and lower_bounds is None and upper_bounds is None:
             raise ValueError("LBFGSB requires box constraints")
@@ -145,6 +143,43 @@ def solve(
             max_cg_iter=config.max_cg_iterations,
         )
     raise ValueError(f"Unknown optimizer type {t}")
+
+
+def _solve_newton(config: OptimizerConfig, objective: BoundObjective,
+                  w0: torch.Tensor) -> SolverResult:
+    """One dense problem through the lane-batched Newton solver as a single
+    lane (``optim/newton.py``); the histories hold the end points only."""
+    loss = objective.objective.loss
+    if not loss.twice_differentiable:
+        raise ValueError(
+            f"NEWTON requires a twice-differentiable loss, got {type(loss).__name__} "
+            "(same restriction as TRON)")
+    if not hasattr(objective.objective, "hessian_matrix"):
+        raise ValueError(
+            f"NEWTON needs an explicit [d, d] Hessian; {type(objective.objective).__name__} "
+            "does not expose one (NEWTON is meant for small-d dense solves)")
+
+    def value_and_grad(w):
+        f, g = objective.value_and_grad(w[0])
+        return f.reshape(1), g.unsqueeze(0)
+
+    def value(candidates):  # [1, a, d] -> [1, a]
+        return torch.stack([objective.value(c) for c in candidates[0]]).unsqueeze(0)
+
+    start_f, start_g = objective.value_and_grad(w0)
+    lanes = minimize_newton(
+        value_and_grad, lambda w: objective.hessian_matrix(w[0]).unsqueeze(0), w0.unsqueeze(0),
+        value_fn=value, max_iter=config.max_iterations, tolerance=config.tolerance,
+        rel_function_tolerance=config.rel_function_tolerance)
+    iterations = int(lanes.iterations[0])
+    value_history = new_history(config.max_iterations, start_f)
+    grad_norm_history = new_history(config.max_iterations, torch.linalg.norm(start_g))
+    value_history[iterations] = lanes.value[0]
+    grad_norm_history[iterations] = lanes.gradient_norm[0]
+    return SolverResult(coefficients=lanes.coefficients[0], value=lanes.value[0],
+                        gradient_norm=lanes.gradient_norm[0], iterations=iterations,
+                        reason=int(lanes.reason[0]), value_history=value_history,
+                        grad_norm_history=grad_norm_history)
 
 
 def resolve_auto_optimizer(

@@ -1,0 +1,228 @@
+"""The GAME slice as a whole: ``GameEstimator.fit`` in both packages on one
+numpy fixture (CPU, float64), the models carried across with
+``photon_ml_torch.convert``, scores on held-out rows with unseen entities
+equal at 1e-8; the evaluators; and the options outside the slice, which
+raise ``NotImplementedError`` naming their ROADMAP item."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu.evaluation import evaluators as jev
+from photon_ml_tpu.types import TaskType as JTask
+from photon_ml_torch import convert
+from photon_ml_torch import estimators as test_
+from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+from photon_ml_torch.data import game_data as tgd
+from photon_ml_torch.data.sparse_batch import SparseShard
+from photon_ml_torch.evaluation import evaluators as tev
+from photon_ml_torch.ops.normalization import NormalizationType
+from photon_ml_torch.optim.optimizer import LaneSchedulerConfig, OptimizerConfig, OptimizerType
+from photon_ml_torch.types import TaskType as TTask
+from tests.torch_game_parity import (
+    assert_models_close,
+    datasets,
+    estimator_pair,
+    game_arrays,
+    model_to_plain,
+)
+
+
+@pytest.mark.parametrize("lanes", ["LBFGS", "NEWTON", "AUTO"])
+@pytest.mark.parametrize("norm", ["NONE", "STANDARDIZATION"])
+def test_fit_and_held_out_scores_match(lanes, norm):
+    train, held = game_arrays(0, held_out=300)
+    jd, td = datasets(train)
+    jh, th = datasets(held, vocabs=jd.entity_vocabs)
+    je, te = estimator_pair(lanes=lanes, normalization=norm, upper_bound=60, lower_bound=2,
+                            compute_variance=True)
+    jr, tr = je.fit(jd), te.fit(td)
+    assert_models_close(jr.model, tr.model, rtol=1e-7)
+    for ref_ds, got_ds in ((jd, td), (jh, th)):
+        ref = np.asarray(jr.model.score_dataset(ref_ds))
+        got = tr.model.score(got_ds).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-8, atol=1e-8 * np.abs(ref).max())
+    assert int((th.entity_idx["user"] < 0).sum()) > 0
+    # the JAX model carried into the port scores the same rows the same way
+    carried = convert.game_model_from_numpy(model_to_plain(jr.model), device="cpu")
+    np.testing.assert_allclose(carried.score(th).numpy(),
+                               np.asarray(jr.model.score_dataset(jh)), rtol=1e-10, atol=1e-12)
+
+
+def test_fit_in_float32_runs_and_improves():
+    """The production dtype on the CPU: the closed form in f32."""
+    a = game_arrays(1)
+    _, td = datasets(a, dtype=np.float32)
+    _, te = estimator_pair(lanes="NEWTON")
+    tr = te.fit(td)
+    losses = [h["train:LOGISTIC_LOSS"] for h in tr.metric_history]
+    assert losses[-1] < losses[0] and tr.model.get("fixed").glm.coefficients.means.dtype == \
+        torch.float32
+
+
+def test_fit_with_a_sparse_fixed_effect_shard_matches():
+    from photon_ml_tpu import estimators as jest
+    from photon_ml_tpu.algorithm.coordinates import CoordinateOptimizationConfig as JCfg
+    from photon_ml_tpu.data import game_data as jgd
+    from photon_ml_tpu.data.sparse_batch import SparseShard as JShard
+    from photon_ml_tpu.optim.optimizer import OptimizerConfig as JOpt
+    from photon_ml_tpu.optim.optimizer import OptimizerType as JType
+
+    a = game_arrays(2, n=400)
+    rng = np.random.default_rng(4)
+    n, d = 400, 60
+    rows, cols = np.repeat(np.arange(n), 5), rng.integers(0, d, size=5 * n)
+    vals = rng.normal(size=5 * n)
+    kw = dict(labels=a["labels"], entity_keys={"user": a["users"]}, weights=a["weights"],
+              dtype=np.float64)
+    shard = dict(rows=rows, cols=cols, vals=vals, num_samples=n, feature_dim=d)
+    jd = jgd.build_game_dataset(feature_shards={"wide": JShard(**shard), "per_entity": a["xr"]},
+                                **kw)
+    td = tgd.build_game_dataset(feature_shards={"wide": SparseShard(**shard),
+                                                "per_entity": a["xr"]}, device="cpu", **kw)
+
+    def configs(est, cfg, opt, kind):
+        o = lambda t, it: cfg(optimizer=opt(optimizer_type=kind[t], max_iterations=it),  # noqa: E731
+                              l2_weight=1.0)
+        return {"fixed": est.FixedEffectCoordinateConfig("wide", o("LBFGS", 30)),
+                "per_user": est.RandomEffectCoordinateConfig("user", "per_entity",
+                                                             o("NEWTON", 10))}
+
+    jr = jest.GameEstimator(task=JTask.LOGISTIC_REGRESSION, num_iterations=2,
+                            coordinate_configs=configs(jest, JCfg, JOpt, JType)).fit(jd)
+    tr = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION, num_iterations=2,
+                             coordinate_configs=configs(test_, CoordinateOptimizationConfig,
+                                                        OptimizerConfig, OptimizerType)).fit(td)
+    assert_models_close(jr.model, tr.model)
+    np.testing.assert_allclose(tr.model.score(td).numpy(), np.asarray(jr.model.score_dataset(jd)),
+                               rtol=1e-8, atol=1e-9)
+
+
+def _re_config(**kw):
+    opt = kw.pop("optimization", CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(OptimizerType.LBFGS, max_iterations=3), l2_weight=1.0))
+    return test_.RandomEffectCoordinateConfig("user", "per_entity", opt, **kw)
+
+
+def _lbfgs(**kw):
+    return CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(OptimizerType.LBFGS, max_iterations=3, **kw), l2_weight=1.0)
+
+
+@pytest.mark.parametrize("config,item", [
+    (_re_config(projector_type="INDEX_MAP"), 12),
+    (_re_config(projector_type="RANDOM", projected_dim=2), 12),
+    (_re_config(features_to_samples_ratio=0.5), 12),
+    (_re_config(optimization=dataclasses.replace(_lbfgs(), l1_weight=0.1)), 12),
+    (_re_config(optimization=CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(OptimizerType.TRON), l2_weight=1.0)), 12),
+    (_re_config(optimization=CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(OptimizerType.OWLQN), l2_weight=1.0)), 12),
+    (_re_config(optimization=_lbfgs(scheduler=LaneSchedulerConfig())), 18),
+    (test_.MatrixFactorizationCoordinateConfig("user", "item", 4, _lbfgs()), 13),
+], ids=["index-map", "random-projection", "feature-selection", "l1-lanes", "tron-lanes",
+        "owlqn-lanes", "lane-scheduler", "matrix-factorization"])
+def test_coordinates_outside_the_slice_raise(config, item):
+    _, td = datasets(game_arrays(3, n=200))
+    est = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION,
+                              coordinate_configs={"fixed": test_.FixedEffectCoordinateConfig(
+                                  "global", _lbfgs()), "other": config})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+        est.fit(td)
+
+
+@pytest.mark.parametrize("field,item", [("mesh", 10), ("checkpointer", 16), ("telemetry", 19)])
+def test_estimator_options_outside_the_slice_raise(field, item):
+    _, td = datasets(game_arrays(4, n=200))
+    _, te = estimator_pair(lanes="NEWTON", num_iterations=1)
+    te = dataclasses.replace(te, **{field: object()})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+        te.fit(td)
+
+
+def test_sparse_random_effect_shard_raises():
+    a = game_arrays(5, n=60)
+    shard = SparseShard(rows=np.arange(60), cols=np.zeros(60, dtype=np.int64),
+                        vals=np.ones(60), num_samples=60, feature_dim=4)
+    td = tgd.build_game_dataset(labels=a["labels"], feature_shards={"wide": shard},
+                                entity_keys={"user": a["users"]}, dtype=np.float64,
+                                device="cpu")
+    est = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION, coordinate_configs={
+        "re": test_.RandomEffectCoordinateConfig("user", "wide", _lbfgs())})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 14"):
+        est.fit(td)
+    with pytest.raises(TypeError, match="unknown configuration"):
+        test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION,
+                            coordinate_configs={"x": object()}).fit(td)
+
+
+def test_standardization_without_an_intercept_falls_back_to_scaling():
+    _, td = datasets(game_arrays(6, n=200))
+    _, te = estimator_pair(normalization="STANDARDIZATION")
+    te = dataclasses.replace(te, intercept_indices={})
+    norms = te._prepare_normalization(td)
+    assert set(norms) == {"global", "per_entity"}
+    assert all(n.shifts is None and n.factors is not None for n in norms.values())
+    assert dataclasses.replace(te, normalization=NormalizationType.NONE) \
+        ._prepare_normalization(td) == {}
+
+
+def test_device_policy_of_the_game_entry_points(monkeypatch):
+    a = game_arrays(7, n=50)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgd.build_game_dataset(labels=a["labels"], feature_shards={"global": a["xg"]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.game_model_from_numpy({})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.game_dataset_from_numpy(unique_ids=np.arange(2), labels=np.zeros(2),
+                                        offsets=np.zeros(2), weights=np.ones(2),
+                                        feature_shards={}, entity_idx={}, entity_vocabs={})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.random_effect_dataset_from_numpy(random_effect_type="u", feature_shard_id="s",
+                                                 buckets=[], num_entities=0, dim=1)
+
+
+SPECS = ["AUC", "AUPR", "RMSE", "MAE", "LOGISTIC_LOSS", "SQUARED_LOSS", "POISSON_LOSS",
+         "SMOOTHED_HINGE_LOSS", "AUC:queryId", "RMSE:queryId", "PRECISION@3:queryId"]
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_evaluators_match(spec):
+    a = game_arrays(8)
+    rng = np.random.default_rng(0)
+    scores = rng.normal(size=len(a["labels"]))
+    data = dict(labels=a["labels"], offsets=a["offsets"], weights=a["weights"],
+                ids={"queryId": a["query"]})
+    ref, got = jev.parse_evaluator(spec), tev.parse_evaluator(spec)
+    assert (got.name, got.larger_is_better) == (ref.name, ref.larger_is_better)
+    np.testing.assert_allclose(got.evaluate(scores, tev.EvaluationData(**data)),
+                               ref.evaluate(scores, jev.EvaluationData(**data)), rtol=1e-12)
+    assert got.better_than(1.0, float("nan")) and not got.better_than(float("nan"), 1.0)
+    assert got.better_than(2.0, 1.0) == ref.better_than(2.0, 1.0)
+
+
+@pytest.mark.parametrize("spec,error", [("NOPE", "Unknown evaluator"), ("AUC:", "missing an id"),
+                                        ("MAE:queryId", "Unsupported per-query"),
+                                        ("PRECISION@0:queryId", "positive integer")])
+def test_bad_evaluator_specs_raise(spec, error):
+    with pytest.raises(ValueError, match=error):
+        tev.parse_evaluator(spec)
+
+
+def test_evaluator_helpers():
+    for task in ("LOGISTIC_REGRESSION", "LINEAR_REGRESSION", "POISSON_REGRESSION",
+                 "SMOOTHED_HINGE_LOSS_LINEAR_SVM"):
+        assert tev.default_evaluator_for_task(TTask[task]).name == \
+            jev.default_evaluator_for_task(JTask[task]).name
+    a = game_arrays(9, n=100)
+    data = tev.EvaluationData(labels=a["labels"], offsets=a["offsets"], weights=a["weights"])
+    with pytest.raises(KeyError, match="queryId"):
+        tev.parse_evaluator("AUC:queryId").evaluate(np.zeros(100), data)
+    one_class = tev.EvaluationData(labels=np.ones(100), offsets=a["offsets"],
+                                   weights=a["weights"], ids={"queryId": a["query"]})
+    assert np.isnan(tev.parse_evaluator("AUC:queryId").evaluate(np.zeros(100), one_class))
+    with pytest.raises(NotImplementedError):
+        tev.Evaluator().evaluate(np.zeros(1), data)

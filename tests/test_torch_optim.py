@@ -187,7 +187,7 @@ def test_solve_dispatch():
     w0 = torch.zeros(d, dtype=torch.float64)
     with pytest.raises(ValueError, match="resolve_auto_optimizer"):
         solve(OptimizerConfig(OptimizerType.AUTO), to, w0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="twice-differentiable"):
         solve(OptimizerConfig(OptimizerType.NEWTON), to, w0)
     with pytest.raises(ValueError, match="twice-differentiable"):
         solve(OptimizerConfig(OptimizerType.TRON), to, w0)
