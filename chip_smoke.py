@@ -45,7 +45,11 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    d=2^22; G2: 2^22 entries, d=2^21; limit ``1e-7 * sum|vals*w|``). The
    launch counter is set to 0 before each solve
    and read after it. A small standardized problem (n=4096, d=2^16, ELL and
-   column-sorted) solved on the card must agree with the CPU in f64.
+   column-sorted) solved on the card must agree with the CPU in f64, and
+   the card's ELL solve, run twice, must repeat bitwise; so must two sparse
+   gradients at the ELL shape (the transpose Xᵀr is the gather kernel again,
+   over a column-sorted plan of the entries, held against its plain version
+   at the ELL batch's d=10^7 columns).
 6. Times (CUDA events, median of 20 after warm-up): per-λ solve times, the
    device time of one sparse evaluation and its parts, and a
    ``{"kernels": ...}`` JSON line.
@@ -77,6 +81,31 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
       coefficients and tables within 1e-3 max|w|;
    f. a larger run (n=2^20, 16,000 users, 12,000 items, logistic, Newton
       lanes, 2 sweeps) whose times are printed.
+   The probe study of (a) also runs every variant of the three earliest
+   probes (P1-P3: separate columns without offsets or Σr, logistic loss),
+   each held against its plain version and timed, with ``STEPS`` gradient
+   steps per variant as their launches; the kernels line gains one P1, P2
+   and P3 entry.
+8. The drivers on the card, in a temporary directory (``DRIVERS`` gives the
+   row counts; rows are cut, never widths): TrainingExample Avro written with
+   the port's writer from ``--seed`` (GAME training and validation sets at
+   the flagship widths: a ``global`` bag of 255 features plus the intercept,
+   a ``perEntity`` bag of 16 for the per-user and per-item effects; a dense
+   GLM set at d=512); the GLM driver (L-BFGS, λ in {1, 10}, validation AUC;
+   B1 and its reduction launched once for every evaluation, the text model
+   reloads); the GAME training driver (a fixed effect plus per-user and
+   per-item Newton lanes, 2 sweeps, two λ values, validation AUC; every
+   fixed-effect update launched the packed kernel, once for every
+   evaluation, the best model's AUC above its fixed effect's alone); the
+   GAME scoring driver on the saved best model (the scores read back from
+   its Avro equal the loaded model's in-process scores bitwise, its AUC
+   within 1e-4 of the training driver's); then B1 on the GLM driver's batch
+   and the packed kernel on the GAME driver's fixed-effect inputs, both read
+   back from the Avro, at the trained coefficients: each held against its
+   plain version (twice bitwise equal; phase 3's f32 limits) with its
+   reduction, and timed (the kernels line's ``driver_path``); the time of
+   each stage, records per second of the Avro codec and peak device
+   memory.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -87,9 +116,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -368,6 +399,40 @@ def _gather_entry(torch, replaces: str, w, n: int, check: dict, ell=None, tail=N
             "bytes": nbytes}
 
 
+def _transpose_entry(torch, replaces: str, r, d: int, check: dict, plan) -> dict:
+    """The ``sparse_gather`` entry of the gradient's transpose: the kernel
+    over a batch's column-sorted plan (segments: the d columns; gathered:
+    ``r`` at each entry's row). ``library_ms`` is cuSPARSE's product of the
+    same entries as a CSR ``[d, n]`` matrix with ``r``; the bound counts
+    each entry, the column pointers and chunk plan, the output and each
+    distinct row of ``r`` once, and 2 operations per entry."""
+    from photon_ml_torch.ops import sparse_gather
+
+    vals, rows, cols, col_ptr, chunks = plan
+    stored = vals.numel()
+    nbytes = stored * (vals.element_size() + 4) + 4 * d + 4 * (d + 1)
+    nbytes += 4 * int(torch.unique(rows).numel())
+    if chunks is not None:
+        nbytes += 4 * (chunks[0].numel() + d + 1)
+    bound, by = _bound_ms(nbytes, 2.0 * stored)
+    csr = torch.sparse_csr_tensor(col_ptr, rows, vals, (d, r.shape[0]), check_invariants=False)
+
+    def kernel():
+        return sparse_gather.gather_sum(r, d, tail=plan[:4], chunks=chunks)
+
+    return {"name": "sparse_gather", "route": "cuda",
+            "source": "photon_ml_torch/csrc/sparse_gather.cu", "replaces": replaces,
+            "launches": None, "max_abs_err": check["max_abs_err"],
+            "ms": _device_ms(torch, kernel), "eager_ms": _eager_ms(torch, kernel),
+            "plain_ms": _device_ms(torch, lambda: sparse_gather.gather_sum_reference(
+                r, d, tail=plan[:4])),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": _device_ms(torch, lambda: csr @ r),
+            "shape": [d, stored], "layout": "transpose (column-sorted plan)",
+            "dtype": str(vals.dtype).replace("torch.", ""), "chunks": None if chunks is None
+            else int(chunks[0].numel()), "bytes": nbytes}
+
+
 def _one_segment(torch, sparse_gather, dev, seed: int, nnz: int, d: int):
     """G1/G2's case: one row holding ``nnz`` random entries, with its chunk plan."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -385,7 +450,12 @@ def _small_sparse_agreement(torch, np, seed: int, card) -> list[str]:
     f32 and on the CPU in f64, ELL and column-sorted: the coefficients agree
     within 1e-3 max|w|. (Values near 0 in a column seen once give it a huge
     standardization factor, and f32 prefix sums of the column-sorted view
-    then miss by more than that.)"""
+    then miss by more than that.) The card's ELL solve runs twice and must
+    repeat bitwise: the gradient's transpose sums each column in a fixed
+    order (``sparse_batch.tail_column_sums``). With float atomics
+    (``index_add_``) some addition orders made the f32 L-BFGS stop at a
+    failed line search a few iterations early (once 0.0175 from the f64
+    optimum, 5.6x the limit), so the check passed or failed by that draw."""
     from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch, summarize_sparse
     from photon_ml_torch.estimators import train_glm
     from photon_ml_torch.ops.normalization import NormalizationType, build_normalization
@@ -405,7 +475,10 @@ def _small_sparse_agreement(torch, np, seed: int, card) -> list[str]:
     lines = []
     for layout in ("ell", "column_sorted"):
         got = {}
-        for where, dtype in ((card, torch.float32), ("cpu", torch.float64)):
+        for where, dtype in ((card, torch.float32), ("cpu", torch.float64), ("again", None)):
+            if where == "again":  # the card's solve once more
+                where, dtype = card, torch.float32
+                got["first"] = got[card]
             batch = SparseLabeledPointBatch.from_coo(
                 rows, cols, vals, y, dim=d, dtype=dtype, device=where,
                 column_sorted_gradient=layout == "column_sorted")
@@ -420,9 +493,13 @@ def _small_sparse_agreement(torch, np, seed: int, card) -> list[str]:
             got[where] = models[1.0].coefficients.means.double().cpu()
         gap = float((got[card] - got["cpu"]).abs().max())
         scale = float(got["cpu"].abs().max())
+        repeat = bool(torch.equal(got["first"], got[card]))
         lines.append(f"small sparse problem n={n} d={d} {layout}: card f32 vs cpu f64 max |dw| "
-                     f"{gap:.3g} (max |w| {scale:.3g})")
+                     f"{gap:.3g} (max |w| {scale:.3g}); two card solves bitwise equal: {repeat}")
         assert gap <= 1e-3 * scale, lines[-1]
+        # the ELL scatters add in a fixed order; the column-sorted view's
+        # prefix sums are reported, not required, to repeat
+        assert repeat or layout != "ell", lines[-1]
     return lines
 
 
@@ -432,6 +509,7 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
     from photon_ml_torch.data.sparse_batch import (
         HybridPolicy,
         SparseLabeledPointBatch,
+        transpose_plan,
         sparse_column_sum,
         sparse_margins,
         summarize_sparse,
@@ -573,30 +651,36 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
     v2, g2 = obj.value_and_gradient(w_eval, ell)
     torch.cuda.synchronize()
     assert torch.equal(v1, v2), "the sparse value is not bitwise repeatable"
-    grad_bitwise = torch.equal(g1, g2)
+    assert torch.equal(g1, g2), \
+        f"the sparse gradient is not bitwise repeatable: {float((g1 - g2).abs().max())}"
     r = torch.rand(n, device=dev, generator=gen)
-    contrib = (r[:, None] * ell.ell_vals).reshape(-1)
-    flat_cols = ell.ell_cols.reshape(-1)
-    scratch = torch.zeros(d, device=dev)
     vg_ms = _device_ms(torch, lambda: obj.value_and_gradient(w_eval, ell))
     gather_ms = _device_ms(torch, lambda: sparse_gather.gather_sum(
         w_eval, n, ell=(ell.ell_vals, ell.ell_cols)))
     transpose_ms = _device_ms(torch, lambda: sparse_column_sum(ell, r))
-    index_add_ms = _device_ms(torch, lambda: scratch.index_add_(0, flat_cols, contrib))
+    index_add_ms = _device_ms(torch, lambda: sparse_column_sum(ell, r, use_kernel=False))
+    ell.__dict__.pop("_transpose_plan", None)  # time the plan's one-off build
+    t0 = time.perf_counter()
+    plan = transpose_plan(ell)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
     _log(
         f"ELL evaluation n={n} d={d} L={width} f32 ({card}): value_and_gradient {vg_ms:.4f} ms "
         f"(eager {_eager_ms(torch, lambda: obj.value_and_gradient(w_eval, ell)):.4f} ms); "
-        f"gather kernel {gather_ms:.4f} ms; gradient transpose {transpose_ms:.4f} ms, of it "
-        f"index_add_ alone {index_add_ms:.4f} ms; the rest {vg_ms - gather_ms - transpose_ms:.4f}"
-        f" ms; two gradients bitwise equal: {grad_bitwise} (max |g1 - g2| "
-        f"{float((g1 - g2).abs().max()):.3g}, values equal)")
+        f"gather kernel {gather_ms:.4f} ms; gradient transpose (the gather kernel over the "
+        f"column-sorted plan, a fixed order) {transpose_ms:.4f} ms; the plain index_add_ with "
+        f"float atomics, for comparison, {index_add_ms:.4f} ms; the rest "
+        f"{vg_ms - gather_ms - transpose_ms:.4f} ms; two gradients and values bitwise equal; "
+        f"the plan's build (once per batch) {plan_s:.3f} s")
     g1_replaces = "experiments/sparse_gather_probe.py:70"
     entries.append(_gather_entry(torch, g1_replaces, w_eval, n, checks[0],
                                  ell=(ell.ell_vals, ell.ell_cols)))
     entries.append(_gather_entry(torch, g1_replaces, w_eval, n, checks[1],
                                  ell=(ell16.ell_vals, ell16.ell_cols)))
-    del ell, ell16, held, models, plain_models, var_models, variances, obj, g1, g2, contrib
-    del flat_cols, scratch
+    checks.append(_gather_check(torch, "transpose of the ELL batch (segments: its columns)", r,
+                                d, tail=plan[:4], chunks=plan[4]))
+    entries.append(_transpose_entry(torch, g1_replaces, r, d, checks[-1], plan))
+    del ell, ell16, held, models, plain_models, var_models, variances, obj, g1, g2, plan
     torch.cuda.empty_cache()
 
     # b. hybrid at d=10^7 (bench_sparse_fe_hybrid)
@@ -624,23 +708,18 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
         w_eval, n, ell=(hyb.ell_vals, hyb.ell_cols), tail=tail, chunks=hyb.row_chunks))
     head_ms = _device_ms(torch, lambda: hyb.hot_vals @ w_eval[hyb.hot_col_ids.long()])
     transpose_ms = _device_ms(torch, lambda: sparse_column_sum(hyb, r))
-    # the ELL tail's scatter with and without its pad slots (value 0, column 0)
-    contrib = (r[:, None] * hyb.ell_vals).reshape(-1)
-    flat_cols = hyb.ell_cols.reshape(-1)
-    real = hyb.ell_vals.reshape(-1) != 0
-    real_cols, real_contrib = flat_cols[real], contrib[real]
-    scratch = torch.zeros(d, device=dev)
-    slots_ms = _device_ms(torch, lambda: scratch.index_add_(0, flat_cols, contrib))
-    real_ms = _device_ms(torch, lambda: scratch.index_add_(0, real_cols, real_contrib))
+    # the plain transpose: index_add_ of every ELL slot (pad slots, value 0,
+    # all in column 0) and of the flat tail
+    plain_ms = _device_ms(torch, lambda: sparse_column_sum(hyb, r, use_kernel=False))
     _log(
         f"hybrid evaluation n={n} d={d} ({card}): value_and_gradient {vg_ms:.4f} ms; gather "
         f"kernel (ELL+tail) {gather_ms:.4f} ms; head product {head_ms:.4f} ms; gradient "
-        f"transpose (head + scatters) {transpose_ms:.4f} ms; the rest "
-        f"{vg_ms - gather_ms - head_ms - transpose_ms:.4f} ms; index_add_ of the ELL tail's "
-        f"{flat_cols.numel()} slots {slots_ms:.4f} ms, of its {real_cols.numel()} nonzero "
-        f"entries alone {real_ms:.4f} ms")
-    del hyb, tail, obj, w_chk, w_eval, r, contrib, flat_cols, real, real_cols, real_contrib
-    del scratch
+        f"transpose (head + the gather kernel over the column-sorted plan of the "
+        f"{int(transpose_plan(hyb)[0].numel())} nonzero tail entries) {transpose_ms:.4f} ms; "
+        f"the rest {vg_ms - gather_ms - head_ms - transpose_ms:.4f} ms; the plain transpose "
+        f"(index_add_ of the ELL tail's {hyb.ell_vals.numel()} slots and the flat tail, float "
+        f"atomics), for comparison, {plain_ms:.4f} ms")
+    del hyb, tail, obj, w_chk, w_eval, r
     torch.cuda.empty_cache()
 
     # c. hybrid at d=10^8 with TRON (bench_sparse_fe_1e8)
@@ -947,30 +1026,59 @@ def _lane_loop_share(torch, estimator, dataset) -> dict:
 def _packed_entry(torch, name, replaces, launches, kernel, plain, library, x, n_aux_bytes,
                   limits, grad_scale=None, **extra):
     """One ``packed_glm`` entry of the kernels line at the GAME fixed-effect
-    shape: the kernel held against its plain version on the main path's
-    inputs (``limits``: value rel, gradient atol as a share of
-    ``grad_scale``, by default max|g|), their device times, and the bound from the bytes (X, the aux columns, w
-    in, the gradient, the value and Σr out) and 4 n d operations."""
+    shape: :func:`_path_check` on the main path's inputs, with the bound
+    from the bytes (X, the aux columns, w in, the gradient, the value and
+    Σr out) and 4 n d operations."""
     n, d = x.shape
-    v, g, _ = kernel()
-    vr, gr, _ = plain()
-    torch.cuda.synchronize()
-    vtol, gshare = limits
-    gmax = float(gr.abs().max())
-    assert abs(float(v - vr)) <= vtol * abs(float(vr)), f"{name}: value off its plain version"
-    assert torch.allclose(g, gr, rtol=1e-4, atol=gshare * (grad_scale or gmax)), \
-        f"{name}: gradient off its plain version by {float((g - gr).abs().max())} (max |g| " \
-        f"{gmax}, scale {grad_scale})"
     nbytes = n * d * x.element_size() + n_aux_bytes + 4 * d + 4 * d + 8
-    bound, by = _bound_ms(nbytes, 4.0 * n * d)
+    check = _path_check(torch, name, kernel, plain, library, limits, nbytes, x.shape,
+                        grad_scale=grad_scale)
     return {"name": name, "route": "cuda", "source": "photon_ml_torch/csrc/packed_glm.cu",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": float((g - gr).abs().max()), "max_abs_gradient": gmax,
-            "value_rel_err": abs(float(v - vr)) / abs(float(vr)),
-            "ms": _device_ms(torch, kernel), "plain_ms": _device_ms(torch, plain),
-            "bound_ms": bound, "bound_by": by, "library_ms": _device_ms(torch, library),
-            "eager_ms": _eager_ms(torch, kernel), "shape": [n, d],
-            "dtype": str(x.dtype).replace("torch.", ""), "bytes": nbytes, **extra}
+            "replaces": replaces, "launches": launches, **check,
+            "eager_ms": _eager_ms(torch, kernel), "dtype": str(x.dtype).replace("torch.", ""),
+            "bytes": nbytes, **extra}
+
+
+#: the form of each of probes 1-3 that its kernels-line entry times: the
+#: probe's baseline (P1), its bf16 tensor-core workaround with w and r in
+#: bf16 (P2) and its cast-up TF32 product (P3)
+PROBE_ENTRY_VARIANT = {"P1": "P1 vpu/vpu t1024 f32", "P2": "P2 mxu_w128/mxu_r128 t1024 bf16",
+                       "P3": "P3 mxu_cast/mxu_cast t512 bf16"}
+
+
+def _probe_entries(probe_rows) -> list:
+    """The P1, P2 and P3 entries of the kernels line from the probe study's
+    rows at [2^17, 512]: the entry variant's times, every variant's launches
+    (its gradient steps) summed, the worst gradient error over the probe's
+    variants and that error as a share of its limit. The bound counts X, y,
+    ws and w read once and the gradient and value written once."""
+    from dev import torch_kernel_probe
+
+    library = {r["dtype"]: r["library_ms"] for r in probe_rows if "library_ms" in r}
+    entries = []
+    for probe, replaces in torch_kernel_probe.PROBE_REPLACES.items():
+        rows = [r for r in probe_rows if r.get("kernel") == probe]
+        main = next(r for r in rows if r["variant"] == PROBE_ENTRY_VARIANT[probe])
+        n, d = main["shape"]
+        itemsize = 2 if main["dtype"] == "bfloat16" else 4
+        nbytes = n * d * itemsize + 8 * n + 8 * d + 4
+        bound, by = _bound_ms(nbytes, 4.0 * n * d)
+        worst = max(rows, key=lambda r: r["grad_over_max"]
+                    / torch_kernel_probe.limits(r["dtype"], r["margin_unit"], r["grad_unit"])[1])
+        share = worst["grad_over_max"] / torch_kernel_probe.limits(
+            worst["dtype"], worst["margin_unit"], worst["grad_unit"])[1]
+        entries.append({
+            "name": f"packed_glm[{probe}]", "route": "cuda",
+            "source": "photon_ml_torch/csrc/packed_glm.cu", "replaces": replaces,
+            "launches": sum(r["launches"] for r in rows),
+            "max_abs_err": max(r["grad_abs"] for r in rows),
+            "worst_err_share_of_limit": share, "worst_variant": worst["variant"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bound, "bound_by": by,
+            "library_ms": library[main["dtype"]], "shape": [n, d], "dtype": main["dtype"],
+            "form": f"{main['variant']}: columns, no o, no Σr, {main['margin_unit']}/"
+                    f"{main['grad_unit']}, w rounded {main['round_w']}",
+            "variants": len(rows), "bytes": nbytes})
+    return entries
 
 
 def _game_slice(torch, np, seed: int, dev, card: str) -> list:
@@ -1136,25 +1244,18 @@ def _game_slice(torch, np, seed: int, dev, card: str) -> list:
     ]
     parts = packed_glm.launch_partials(loss, x, aux, None, None, None, w, None, True, "fma",
                                        "fma")
-    red, red_ref = packed_glm.reduce_partials(*parts), packed_glm.reduce_partials_reference(*parts)
-    blocks, d = parts[2].shape
-    red_bound, red_by = _bound_ms(4.0 * (blocks + 1) * (d + 2), float(blocks * (d + 2)))
     entries.append({
         "name": "packed_glm_reduce", "route": "cuda",
         "source": "photon_ml_torch/csrc/packed_glm.cu", "replaces": p6,
         "launches": path_launches["reduce"],
-        "max_abs_err": max(float((red[1] - red_ref[1]).abs().max()),
-                           abs(float(red[0] - red_ref[0]))),
-        "ms": _device_ms(torch, lambda: packed_glm.reduce_partials(*parts)),
-        "plain_ms": _device_ms(torch, lambda: packed_glm.reduce_partials_reference(*parts)),
-        "bound_ms": red_bound, "bound_by": red_by,
-        "library_ms": _device_ms(torch, lambda: (torch.sum(parts[2], dim=0), torch.sum(parts[0]),
-                                                 torch.sum(parts[1]))),
+        **_reduce_check(torch, "packed_glm_reduce", packed_glm.reduce_partials,
+                        packed_glm.reduce_partials_reference, parts),
         "eager_ms": _eager_ms(torch, lambda: packed_glm.reduce_partials(*parts)),
-        "blocks": blocks})
+        "blocks": parts[2].shape[0]})
     keep = ("variant", "kernel", "dtype", "ms", "plain_ms", "frac")
     entries[0]["probe_shape_rows"] = [{k: r_[k] for k in keep if k in r_} for r_ in probe_rows
                                       if "ms" in r_]
+    entries.extend(_probe_entries(probe_rows))
     del fits, fe_only, data, held_ds, train, held, x, aux, parts
     torch.cuda.empty_cache()
 
@@ -1192,6 +1293,388 @@ def _game_slice(torch, np, seed: int, dev, card: str) -> list:
     del big, large
     torch.cuda.empty_cache()
     return entries
+
+
+#: phase 8's rows: the flagship GAME widths (bench.py:542-560) with the rows
+#: cut to 8,192 training and 2,048 validation rows, users and items cut to
+#: keep about the flagship's 66 and 87 rows per entity; the dense GLM width
+#: (bench.py:59, 511 features plus the intercept) with 4,096 training and
+#: 1,024 validation rows. The pure-Python Avro codec is the cost that cuts them.
+DRIVERS = dict(game_rows=8192, validation_rows=2048, users=125, items=95, d_fe=255, d_re=16,
+               glm_rows=4096, glm_validation_rows=1024, glm_d=512)
+
+
+def _game_avro_schema():
+    """TrainingExampleAvro with a second feature bag, ``perEntityFeatures``,
+    for the per-user and per-item effects."""
+    from photon_ml_torch.io import photon_schemas as schemas
+
+    feature = f"{schemas.NAMESPACE}.FeatureAvro"
+    return dict(schemas.TRAINING_EXAMPLE_AVRO, name="GameTrainingExampleAvro", fields=[
+        *schemas.TRAINING_EXAMPLE_AVRO["fields"],
+        {"name": "perEntityFeatures", "type": {"type": "array", "items": feature}}])
+
+
+def _write_avro(path, schema, rows: int, make) -> float:
+    """Write ``make(i)`` for i < rows into one container file; seconds."""
+    from photon_ml_torch.io import avro
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    avro.write_container(path, schema, (make(i) for i in range(rows)))
+    return time.perf_counter() - t0
+
+
+def _ntv(prefix, values):
+    return [{"name": f"{prefix}{j}", "term": "", "value": v} for j, v in enumerate(values)]
+
+
+def _path_check(torch, tag, kernel, plain, library, limits, nbytes: float, shape,
+                grad_scale=None) -> dict:
+    """A value + gradient kernel held against its plain version on a path's
+    own inputs: twice bitwise equal, the value within rel ``limits[0]``, the
+    gradient within rtol 1e-4 and atol ``limits[1]`` times ``grad_scale``
+    (by default max|g|). Returns the errors, the device times of kernel,
+    plain version and library call, and the bound (``nbytes`` moved, 4
+    operations per element of X)."""
+    v1, g1 = kernel()[:2]
+    v2, g2 = kernel()[:2]
+    vr, gr = plain()[:2]
+    torch.cuda.synchronize()
+    assert torch.equal(v1, v2) and torch.equal(g1, g2), f"{tag}: not bitwise repeatable"
+    vtol, gshare = limits
+    gmax = float(gr.abs().max())
+    value_rel = abs(float(v1 - vr)) / abs(float(vr))
+    err = float((g1 - gr).abs().max())
+    assert value_rel <= vtol, f"{tag}: value off its plain version by rel {value_rel} > {vtol}"
+    assert torch.allclose(g1, gr, rtol=1e-4, atol=gshare * (grad_scale or gmax)), \
+        f"{tag}: gradient off its plain version by {err} (max |g| {gmax}, scale {grad_scale})"
+    bound, by = _bound_ms(nbytes, 4.0 * shape[0] * shape[1])
+    return {"shape": list(shape), "max_abs_err": err, "max_abs_gradient": gmax,
+            "value_rel_err": value_rel, "limits": list(limits), "ms": _device_ms(torch, kernel),
+            "plain_ms": _device_ms(torch, plain), "bound_ms": bound, "bound_by": by,
+            "library_ms": _device_ms(torch, library)}
+
+
+def _reduce_check(torch, tag, reduce, reference, parts) -> dict:
+    """An ordered reduction of per-block partials (value, Σr, grad [blocks,
+    d]) held against its plain sums and timed, with its bound and the
+    library's sums. Near an optimum the gradient is what is left of a
+    cancellation, so each sum is held to the worst case of two f32 orders of
+    the same terms: 2·blocks·2^-24·Σ|terms|."""
+    got, want = reduce(*parts), reference(*parts)
+    torch.cuda.synchronize()
+    blocks, d = parts[2].shape
+    share = 2.0 * blocks * 2.0 ** -24
+    g_err = (got[1] - want[1]).abs()
+    v_err = abs(float(got[0] - want[0]))
+    assert bool((g_err <= share * parts[2].abs().sum(dim=0)).all()) \
+        and v_err <= share * float(parts[0].abs().sum()), \
+        f"{tag}: off its plain sums by {float(g_err.max())} (value {v_err})"
+    err = max(float(g_err.max()), v_err)
+    bound, by = _bound_ms(4.0 * (blocks + 1) * (d + 2), float(blocks * (d + 2)))
+    sums = [p for p in parts if p is not None]  # the same sums as PyTorch calls
+    return {"shape": [blocks, d], "max_abs_err": err,
+            "ms": _device_ms(torch, lambda: reduce(*parts)),
+            "plain_ms": _device_ms(torch, lambda: reference(*parts)), "bound_ms": bound,
+            "bound_by": by, "library_ms": _device_ms(torch, lambda: [torch.sum(p, dim=0)
+                                                                     for p in sums])}
+
+
+def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 8: the three drivers end to end on Avro, printing as it goes.
+    Returns, for each kernel this path runs, its launches there (the counts
+    set to 0 just before each driver and read just after), the evaluations
+    that launched it, and its check against its plain version on the
+    path's own inputs (read back from the Avro the phase wrote), with times."""
+    from dev import torch_kernel_probe
+    from photon_ml_torch.algorithm import coordinates
+    from photon_ml_torch.cli import game_scoring_driver, game_training_driver, glm_driver
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.evaluation import local_metrics
+    from photon_ml_torch.io import photon_schemas
+    from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
+    from photon_ml_torch.io.index_map import INTERCEPT_KEY, IndexMap, feature_key
+    from photon_ml_torch.io.model_io import load_game_model, read_scores
+    from photon_ml_torch.ops import fused_glm, objective, packed_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.util.timed import timing_summary
+
+    cfg = DRIVERS
+    _log(f"driver phase rows (cut from the flagship's, widths kept): GAME {cfg['game_rows']} "
+         f"training + {cfg['validation_rows']} validation rows (flagship 2^17), {cfg['users']} "
+         f"users and {cfg['items']} items (flagship 2000 and 1500); GLM {cfg['glm_rows']} + "
+         f"{cfg['glm_validation_rows']} rows (bench.py 2^18); widths global 255 + intercept, "
+         f"perEntity 16, GLM 511 + intercept")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # tensors earlier phases still hold
+    path = {}
+    evaluations = {"fused": 0, "packed": 0}
+    loss = LogisticLoss()
+    with tempfile.TemporaryDirectory(prefix="photon-drivers-") as tmp:
+        tmp = Path(tmp)
+        # a. TrainingExample Avro from --seed with the port's writer
+        n, nv = cfg["game_rows"], cfg["validation_rows"]
+        train, held = _game_arrays(np, seed + 3, n=n, d_fe=cfg["d_fe"], d_re=cfg["d_re"],
+                                   users=cfg["users"], items=cfg["items"], held_out=nv)
+        schema = _game_avro_schema()
+
+        def game_record(part, offset):
+            x_fe, x_re = part["x_fe"].tolist(), part["x_re"].tolist()
+            y = part["labels"]["LOGISTIC_REGRESSION"].tolist()
+            users, items = part["keys"]["user"].tolist(), part["keys"]["item"].tolist()
+            return lambda i: {"uid": str(offset + i), "label": y[i],
+                              "features": _ntv("g", x_fe[i]),
+                              "perEntityFeatures": _ntv("e", x_re[i]), "weight": 1.0,
+                              "offset": 0.0, "foldId": None,
+                              "metadataMap": {"userId": users[i], "itemId": items[i]}}
+
+        write_s = {"game training": _write_avro(tmp / "game/train/part-00000.avro", schema, n,
+                                                game_record(train, 0)),
+                   "game validation": _write_avro(tmp / "game/validation/part-00000.avro",
+                                                  schema, nv, game_record(held, n))}
+        ng, ngv, dg = cfg["glm_rows"], cfg["glm_validation_rows"], cfg["glm_d"]
+        x, y = _dataset(np, seed + 4, ng + ngv, dg)
+        xl, yl = x[:, :-1].tolist(), y.tolist()  # the last column is the driver's intercept
+
+        def glm_record(offset):
+            return lambda i: {"uid": str(offset + i), "label": yl[offset + i],
+                              "features": _ntv("f", xl[offset + i]), "weight": 1.0,
+                              "offset": 0.0, "foldId": None, "metadataMap": None}
+
+        te = photon_schemas.TRAINING_EXAMPLE_AVRO
+        write_s["glm training"] = _write_avro(tmp / "glm/train/part-00000.avro", te, ng,
+                                              glm_record(0))
+        write_s["glm validation"] = _write_avro(tmp / "glm/validation/part-00000.avro", te, ngv,
+                                                glm_record(ng))
+        rows_written = {"game training": n, "game validation": nv, "glm training": ng,
+                        "glm validation": ngv}
+        _log("Avro write (port's pure-Python codec): " + ", ".join(
+            f"{k} {rows_written[k]} records in {v:.2f} s ({rows_written[k] / v:.0f} records/s)"
+            for k, v in write_s.items()))
+        del train, held, x, y, xl, yl
+
+        # b. the GLM driver: B1 on every evaluation, the text model reloads
+        value_and_gradient = objective.GLMObjective.value_and_gradient
+
+        def counted_evaluation(self, coefficients, batch):
+            evaluations["fused"] += int(self._kernel_enabled(batch))
+            return value_and_gradient(self, coefficients, batch)
+
+        objective.GLMObjective.value_and_gradient = counted_evaluation
+        fused_glm.launches = fused_glm.reduce_launches = 0
+        t0 = time.perf_counter()
+        try:
+            glm = glm_driver.main([
+                "--input-data-path", str(tmp / "glm/train"),
+                "--validation-data-path", str(tmp / "glm/validation"),
+                "--output-dir", str(tmp / "glm/out"), "--task-type", "LOGISTIC_REGRESSION",
+                "--regularization-weights", "1,10", "--optimizer", "LBFGS",
+                "--max-iterations", "50"], device=dev)
+            torch.cuda.synchronize()
+        finally:
+            objective.GLMObjective.value_and_gradient = value_and_gradient
+        glm_s = time.perf_counter() - t0
+        glm_times = timing_summary()
+        fused_launches = {"fused_glm": fused_glm.launches,
+                          "fused_glm_reduce": fused_glm.reduce_launches}
+        assert fused_launches["fused_glm"] == evaluations["fused"] > 0 \
+            and fused_launches["fused_glm_reduce"] == evaluations["fused"], \
+            (fused_launches, evaluations)
+        assert glm.stage.name == "VALIDATED" and glm.best_lambda in (1.0, 10.0)
+        imap = IndexMap.from_keys({feature_key(f"f{j}", "") for j in range(dg - 1)},
+                                  add_intercept=True)
+        for lam, model in glm.models.items():
+            w = model.coefficients.means.cpu().numpy()
+            lines = (tmp / "glm/out/models-text" / f"{lam}.txt").read_text().splitlines()
+            assert len(lines) == dg == w.shape[0]
+            for line in lines:
+                name, term, value = line.split("\t")
+                assert float(value) == float(w[imap.get_index(feature_key(name, term))]), line
+        assert imap.get_index(INTERCEPT_KEY) == dg - 1
+        aucs = {lam: m["AUC"] for lam, m in glm.validation_metrics.items()}
+        assert all(0.6 < a <= 1.0 for a in aucs.values()), aucs
+        _log(f"GLM driver ({card}): {glm_s:.2f} s, {fused_launches['fused_glm']} fused_glm "
+             f"launches for {evaluations['fused']} evaluations, validation AUC "
+             f"{json.dumps(aucs)}, best λ {glm.best_lambda}; stages "
+             + json.dumps({k: round(v['total'], 4) for k, v in glm_times.items()}))
+
+        # B1 on the GLM driver's own batch, read back from its Avro, at each
+        # λ's trained coefficients
+        read = read_merged(tmp / "glm/train",
+                           {"features": FeatureShardConfiguration(feature_bags=("features",))},
+                           device=dev).dataset
+        batch = LabeledPointBatch(features=read.feature_shards["features"], labels=read.labels,
+                                  offsets=read.offsets, weights=read.weights)
+        x = batch.features
+        assert tuple(x.shape) == (ng, dg), x.shape
+        r = torch.rand(ng, device=dev)
+        for lam, model in sorted(glm.models.items()):
+            w = model.coefficients.means.float()
+            # the kernel computes the data term; the driver's L2 term is added
+            # after it, and at the optimum would cancel X'r down to noise
+            kw = dict(l2_weight=0.0)
+            check = _path_check(
+                torch, f"fused_glm on the GLM driver's batch, λ={lam}",
+                lambda: fused_glm.fused_value_and_gradient(loss, w, batch, **kw),
+                lambda: fused_glm.fused_value_and_gradient_reference(loss, w, batch, **kw),
+                lambda: (torch.matmul(x, w), torch.matmul(r, x)), (1e-5, 1e-4),
+                ng * dg * 4 + 12 * ng + 8 * dg + 8, x.shape)
+            _log(f"fused_glm on the GLM driver's batch [{ng}, {dg}] λ={lam} ({card}): "
+                 + json.dumps(check))
+            if lam == glm.best_lambda:
+                path["fused_glm"] = dict(check, launches=fused_launches["fused_glm"],
+                                         evaluations=evaluations["fused"], reg_weight=lam)
+                parts = fused_glm.fused_partials(loss, x, batch.labels.float(),
+                                                 batch.offsets.float(), batch.weights.float(),
+                                                 w, None)
+                path["fused_glm_reduce"] = dict(
+                    _reduce_check(torch, "fused_glm_reduce on the GLM driver's batch",
+                                  fused_glm.reduce_partials, fused_glm.reduce_partials_reference,
+                                  parts),
+                    launches=fused_launches["fused_glm_reduce"],
+                    evaluations=evaluations["fused"])
+        del read, batch, x, r, parts
+
+        # c. the GAME training driver: every fixed-effect update launches the
+        # packed kernel; the best model beats its fixed effect alone
+        for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
+            setattr(packed_glm, name, 0)
+        per_update = []
+        update = coordinates.FixedEffectCoordinate.update_model
+
+        def counted(self, *args, **kw):
+            before = packed_glm.packed_launches
+            out = update(self, *args, **kw)
+            per_update.append(packed_glm.packed_launches - before)
+            return out
+
+        packed_evaluation = objective.PackedBoundObjective.value_and_grad
+
+        def counted_packed(self, w):
+            evaluations["packed"] += int(self.aux is not None)
+            return packed_evaluation(self, w)
+
+        coordinates.FixedEffectCoordinate.update_model = counted
+        objective.PackedBoundObjective.value_and_grad = counted_packed
+        shards = ["--feature-shard-configurations",
+                  "name=global,feature.bags=features,intercept=true",
+                  "--feature-shard-configurations",
+                  "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+        re_spec = ("feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,max.iter=10,"
+                   "random.effect.type=")
+        t0 = time.perf_counter()
+        try:
+            game = game_training_driver.main([
+                "--input-data-path", str(tmp / "game/train"),
+                "--validation-data-path", str(tmp / "game/validation"),
+                "--root-output-dir", str(tmp / "game/out"), "--task-type",
+                "LOGISTIC_REGRESSION", *shards,
+                "--coordinate-configurations",
+                "name=fixed,feature.shard=global,reg.weights=1|10,max.iter=10",
+                "--coordinate-configurations", f"name=per_user,{re_spec}userId",
+                "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+                "--coordinate-descent-iterations", "2", "--evaluators", "AUC"], device=dev)
+            torch.cuda.synchronize()
+        finally:
+            coordinates.FixedEffectCoordinate.update_model = update
+            objective.PackedBoundObjective.value_and_grad = packed_evaluation
+        game_s = time.perf_counter() - t0
+        packed_launches = {"packed_glm": packed_glm.packed_launches,
+                           "packed_glm_reduce": packed_glm.reduce_launches}
+        assert len(per_update) == 2 * 2 and min(per_update) > 0, per_update
+        assert packed_launches["packed_glm"] == evaluations["packed"] == sum(per_update) \
+            and packed_launches["packed_glm_reduce"] == evaluations["packed"], \
+            (packed_launches, evaluations, per_update)
+        assert game["num_configurations"] == 2
+        # configuration 0 starts cold (the later one warm-starts from it), so
+        # its first update scores the fixed effect alone, random effects at 0
+        fe_alone = game["metric_history"][0]["metrics"][0]
+        assert fe_alone["iteration"] == 0 and fe_alone["coordinate"] == "fixed"
+        assert game["best_metric"] > fe_alone["validate:AUC"] > 0.5, (game["best_metric"],
+                                                                     fe_alone)
+        _log(f"GAME training driver ({card}): {game_s:.2f} s, fixed-effect updates launched "
+             f"{per_update} packed kernels ({evaluations['packed']} evaluations), validation AUC {game['best_metric']:.6f} (λ "
+             f"{game['best_reg_weights']}) against the fixed effect alone "
+             f"{fe_alone['validate:AUC']:.6f}; stages "
+             + json.dumps({k: round(v["total"], 4) for k, v in game["timings"].items()}))
+        read_s = game["timings"]["avro decode"]["total"]
+
+        # d. the scoring driver on the saved best model
+        t0 = time.perf_counter()
+        scored = game_scoring_driver.main([
+            "--input-data-path", str(tmp / "game/validation"),
+            "--model-input-dir", str(tmp / "game/out/best"),
+            "--output-dir", str(tmp / "game/scored"), "--evaluators", "AUC", *shards],
+            device=dev)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        score_times = timing_summary()
+        avro_scores = np.asarray([r["predictionScore"]
+                                  for r in read_scores(tmp / "game/scored/scores")])
+        maps = IndexMap.load_directory(tmp / "game/out/index-maps")
+        model = load_game_model(tmp / "game/out/best", maps, device=dev)
+        vocabs = {m.random_effect_type: m.entity_keys for m in model.models.values()
+                  if hasattr(m, "entity_keys")}
+        shard_cfg = {"global": FeatureShardConfiguration(feature_bags=("features",)),
+                     "per_entity": FeatureShardConfiguration(feature_bags=("perEntityFeatures",),
+                                                             has_intercept=False)}
+        ds = read_merged(tmp / "game/validation", shard_cfg, index_maps=maps,
+                         random_effect_id_columns=("itemId", "userId"), entity_vocabs=vocabs,
+                         device=dev).dataset
+        in_process = (model.score(ds) + ds.offsets).cpu().numpy()
+        assert avro_scores.shape == (nv,) and np.isfinite(avro_scores).all()
+        # the scores are written as the doubles their f32 values are: bitwise
+        assert np.array_equal(avro_scores, in_process.astype(np.float64)), \
+            float(np.abs(avro_scores - in_process).max())
+        auc_file = local_metrics.area_under_roc_curve(avro_scores, ds.host_array("labels"))
+        # the saved model drops coefficients under 1e-4 (the reference's
+        # sparsity threshold), so its AUC may move in the last digits
+        gap = abs(scored["evaluations"]["AUC"] - game["best_metric"])
+        assert gap <= 1e-4 and abs(auc_file - scored["evaluations"]["AUC"]) <= 1e-12, \
+            (scored["evaluations"], game["best_metric"], auc_file)
+        _log(f"GAME scoring driver ({card}): {score_s:.2f} s, {nv} scores bitwise equal to the "
+             f"loaded model's in-process scores, AUC {scored['evaluations']['AUC']:.6f} (training "
+             f"driver's validation AUC {game['best_metric']:.6f}, gap {gap:.3g}); stages "
+             + json.dumps({k: round(v["total"], 4) for k, v in score_times.items()}))
+
+        # the packed kernel on the GAME driver's fixed-effect inputs, read
+        # back from its training Avro, at the best model's coefficients with
+        # the random effects' scores as residual offsets (the last sweep's)
+        ds = read_merged(tmp / "game/train", shard_cfg, index_maps=maps,
+                         random_effect_id_columns=("itemId", "userId"), entity_vocabs=vocabs,
+                         device=dev).dataset
+        x = ds.feature_shards["global"]
+        assert tuple(x.shape) == (n, cfg["d_fe"] + 1), x.shape
+        w = model.get("fixed").glm.coefficients.means.float().contiguous()
+        aux = packed_glm.pack_aux(ds.labels, ds.offsets + model.score(ds) - x @ w, ds.weights)
+        r = torch.rand(n, device=dev)
+        check = _path_check(
+            torch, "packed_glm on the GAME driver's fixed effect",
+            lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False),
+            lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False),
+            lambda: (torch.matmul(x, w), torch.matmul(r, x)),
+            torch_kernel_probe.limits("float32", "fma", "fma"),
+            x.shape[0] * x.shape[1] * 4 + 12 * n + 8 * x.shape[1] + 8, x.shape)
+        path["packed_glm"] = dict(check, launches=packed_launches["packed_glm"],
+                                  evaluations=evaluations["packed"])
+        parts = packed_glm.launch_partials(loss, x, aux, None, None, None, w, None, False, "fma",
+                                           "fma")
+        path["packed_glm_reduce"] = dict(
+            _reduce_check(torch, "packed_glm_reduce on the GAME driver's fixed effect",
+                          packed_glm.reduce_partials, packed_glm.reduce_partials_reference,
+                          parts),
+            launches=packed_launches["packed_glm_reduce"], evaluations=evaluations["packed"])
+        _log(f"packed_glm on the GAME driver's fixed effect {list(x.shape)} ({card}): "
+             + json.dumps(path["packed_glm"]))
+        del ds, x, aux, r, parts
+        _log(f"driver phase ({card}): Avro decode {n / read_s:.0f} records/s ({n} GAME training "
+             f"records of 272 features in {read_s:.2f} s), write "
+             f"{rows_written['game training'] / write_s['game training']:.0f} records/s; peak "
+             f"device memory {(torch.cuda.max_memory_allocated() - resident) / 2**20:.1f} MiB "
+             f"above the {resident / 2**20:.1f} MiB earlier phases still hold")
+    return path
 
 
 def main(argv=None) -> int:
@@ -1345,11 +1828,6 @@ def main(argv=None) -> int:
         }
     parts = fused_glm.fused_partials(loss, batch.features, batch.labels, batch.offsets,
                                      batch.weights, w, None)
-    blocks = parts[2].shape[0]
-    red = fused_glm.reduce_partials(*parts)
-    red_ref = fused_glm.reduce_partials_reference(*parts)
-    red_err = max(float((red[1] - red_ref[1]).abs().max()), abs(float(red[0] - red_ref[0])))
-    red_bound, red_by = _bound_ms(4.0 * (blocks + 1) * (d + 2), float(blocks * (d + 2)))
     line = {"kernels": [
         {"name": "fused_glm", "route": "cuda", "source": "photon_ml_torch/csrc/fused_glm.cu",
          "replaces": "photon_ml_tpu/ops/pallas_glm.py:128", "launches": launches,
@@ -1358,15 +1836,10 @@ def main(argv=None) -> int:
         {"name": "fused_glm_reduce", "route": "cuda",
          "source": "photon_ml_torch/csrc/fused_glm.cu",
          "replaces": "photon_ml_tpu/ops/pallas_glm.py:128", "launches": reduce_launches,
-         "max_abs_err": red_err,
-         "ms": _device_ms(torch, lambda: fused_glm.reduce_partials(*parts)),
-         "plain_ms": _device_ms(torch, lambda: fused_glm.reduce_partials_reference(*parts)),
-         "bound_ms": red_bound, "bound_by": red_by,
-         # the same sums as PyTorch calls: over dim 0 of the partials, and the two scalars
-         "library_ms": _device_ms(torch, lambda: (torch.sum(parts[2], dim=0),
-                                                  torch.sum(parts[0]), torch.sum(parts[1]))),
+         **_reduce_check(torch, "fused_glm_reduce", fused_glm.reduce_partials,
+                         fused_glm.reduce_partials_reference, parts),
          "eager_ms": _eager_ms(torch, lambda: fused_glm.reduce_partials(*parts)),
-         "blocks": blocks},
+         "blocks": parts[2].shape[0]},
     ]}
     for s in solves:
         _log(f"solve {s['run']} λ={s['lambda']:g}: {s['iterations']} iterations, reason "
@@ -1386,6 +1859,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     line["kernels"].extend(_game_slice(torch, np, args.seed, dev, card))
     _log(f"GAME phases: {time.perf_counter() - t0:.2f} s")
+
+    # 8. the drivers: each kernel of that path with its launches there, and
+    # its check and times on that path's own inputs
+    t0 = time.perf_counter()
+    driver_path = _driver_slice(torch, np, args.seed, dev, card)
+    _log(f"driver phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in driver_path.items()}))
+    for entry in line["kernels"]:
+        if entry["name"] in driver_path:
+            entry["driver_path"] = driver_path[entry["name"]]
+    assert all(any(e["name"] == k for e in line["kernels"]) for k in driver_path)
     _log(card)
     _log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,246 @@
+"""GAME scoring driver: load a model, score a dataset, save scores (the port's).
+
+Counterpart of ``photon_ml_tpu/cli/game_scoring_driver.py`` on its
+single-device path; reference photon-client
+cli/game/scoring/GameScoringDriver.scala — run() (:133-194): prepare feature
+maps, read data, load the GAME model from the training output layout,
+GameTransformer.transform, optional evaluation, saveScoresToHDFS (:191-253,
+ScoringResultAvro records).
+
+    python -m photon_ml_torch.cli.game_scoring_driver --input-data-path val \\
+        --model-input-dir out/best --output-dir scored --evaluators AUC
+
+Runs on the CUDA device; ``main(argv, device="cpu")`` runs on the CPU. The
+outputs (``scores/part-NNNNN.avro``, ``scoring-summary.json``) keep the JAX
+driver's names and layout. Left out, each refused with
+``NotImplementedError`` naming its ROADMAP.md item before any data is read:
+``--distributed``/``--mesh`` (10), ``--partitioned-io`` (15),
+``--telemetry-dir`` and ``--trace-dir`` (19), LibSVM input (14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from photon_ml_torch.cli.configs import evaluation_id_columns, parse_feature_shard_config
+from photon_ml_torch.cli.game_training_driver import _json_safe
+from photon_ml_torch.device import resolve_device
+from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
+from photon_ml_torch.io.index_map import IndexMap
+from photon_ml_torch.io.model_io import (
+    DEFAULT_COMPACT_RE_THRESHOLD,
+    load_game_model,
+    load_game_model_and_index_maps,
+)
+from photon_ml_torch.io.score_writer import ShardedScoreWriter
+from photon_ml_torch.models.game import RandomEffectModel
+from photon_ml_torch.transformers import GameTransformer
+from photon_ml_torch.util import Timed
+from photon_ml_torch.util.timed import reset_timings
+
+logger = logging.getLogger(__name__)
+
+
+def _check_ported(*, input_format, distributed, partitioned_io, telemetry_dir,
+                  trace_dir) -> None:
+    left_out = (
+        (distributed, "--distributed/--mesh (mesh-sharded scoring)", 10),
+        (partitioned_io, "--partitioned-io (per-rank score shards)", 15),
+        (bool(telemetry_dir), "--telemetry-dir (run journal)", 19),
+        (bool(trace_dir), "--trace-dir (span tracing)", 19),
+        (input_format != "avro", f"--input-format {input_format}", 14),
+    )
+    for unported, what, item in left_out:
+        if unported:
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
+
+
+def run(
+    *,
+    input_data_path: "str | Sequence[str]",
+    model_input_dir: str,
+    output_dir: str,
+    feature_shards: dict | None = None,
+    index_maps_dir: str | None = None,
+    evaluators: Sequence[str] = (),
+    model_id: str = "",
+    input_format: str = "avro",
+    compact_random_effect_threshold: int = DEFAULT_COMPACT_RE_THRESHOLD,
+    on_corrupt: str = "raise",
+    distributed: bool = False,
+    partitioned_io: bool = False,
+    telemetry_dir: str | None = None,
+    trace_dir: str | None = None,
+    device=None,
+) -> dict:
+    """Score ``input_data_path`` with the model at ``model_input_dir`` on
+    ``device`` (CUDA unless "cpu").
+
+    input_data_path: one dataset path, or a sequence scored in one run with
+    the model parsed once; each dataset then writes under
+    ``output_dir/dataset-NNNN``. Index maps default to the ones the training
+    driver saved next to the model (<root>/index-maps); feature shard
+    configs default to one shard per saved index map using the bag of the
+    same name.
+    """
+    _check_ported(input_format=input_format, distributed=distributed,
+                  partitioned_io=partitioned_io, telemetry_dir=telemetry_dir,
+                  trace_dir=trace_dir)
+    if on_corrupt not in ("raise", "quarantine"):
+        raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
+    device = resolve_device(device)
+    reset_timings()
+    paths = ([input_data_path] if isinstance(input_data_path, (str, os.PathLike))
+             else list(input_data_path))
+    if not paths:
+        raise ValueError("input_data_path names no datasets")
+    os.makedirs(output_dir, exist_ok=True)
+    model, index_maps, feature_shards, entity_vocabs, re_columns = _load_scoring_model(
+        model_input_dir=model_input_dir, index_maps_dir=index_maps_dir,
+        feature_shards=feature_shards,
+        compact_random_effect_threshold=compact_random_effect_threshold, device=device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else None
+    transformer = GameTransformer(model=model, evaluator_specs=tuple(evaluators))
+    summaries: list[dict] = []
+    for di, path in enumerate(paths):
+        ds_output = output_dir if len(paths) == 1 else os.path.join(output_dir, f"dataset-{di:04d}")
+        os.makedirs(ds_output, exist_ok=True)
+        with Timed("read scoring data", sync=sync):
+            data = read_merged(path, feature_shards, index_maps=index_maps or None,
+                               random_effect_id_columns=re_columns,
+                               evaluation_id_columns=evaluation_id_columns(evaluators),
+                               entity_vocabs=entity_vocabs, on_corrupt=on_corrupt,
+                               device=device)
+        with Timed("score", sync=sync):
+            scored = transformer.transform(data.dataset)
+        summary = {"num_scored": int(len(scored.scores)), "evaluations": scored.evaluations}
+        with Timed("save scores"):
+            writer = ShardedScoreWriter(os.path.join(ds_output, "scores"))
+            writer.write(scored.scores, model_id=model_id, uids=scored.unique_ids,
+                         labels=data.dataset.host_array("labels"),
+                         weights=data.dataset.host_array("weights"))
+        if len(paths) > 1:
+            summary = dict(summary, input_data_path=str(path))
+        with open(os.path.join(ds_output, "scoring-summary.json"), "w") as f:
+            json.dump(_json_safe(summary), f, indent=2, default=float)
+        summaries.append(summary)
+    if len(paths) == 1:
+        return summaries[0]
+    combined = {"num_scored": int(sum(s["num_scored"] for s in summaries)),
+                "num_datasets": len(summaries), "datasets": summaries}
+    with open(os.path.join(output_dir, "scoring-summary.json"), "w") as f:
+        json.dump(_json_safe(combined), f, indent=2, default=float)
+    return combined
+
+
+def _load_scoring_model(*, model_input_dir: str, index_maps_dir: str | None,
+                        feature_shards: dict | None, compact_random_effect_threshold: int,
+                        device):
+    """Parse the model Avro + index maps once: (model, index_maps,
+    feature_shards, entity_vocabs, re_columns)."""
+    if index_maps_dir is None:
+        candidate = os.path.join(os.path.dirname(model_input_dir.rstrip("/")), "index-maps")
+        index_maps_dir = candidate if os.path.isdir(candidate) else None
+    index_maps = IndexMap.load_directory(index_maps_dir) if index_maps_dir else {}
+    if index_maps:
+        if feature_shards is None:
+            # shard name == bag name is the training driver's convention,
+            # only trustworthy for maps its stores produced
+            feature_shards = {shard: FeatureShardConfiguration(feature_bags=(shard, "features"))
+                              for shard in index_maps}
+        with Timed("load model"):
+            model = load_game_model(model_input_dir, index_maps,
+                                    compact_random_effect_threshold=compact_random_effect_threshold,
+                                    device=device)
+    else:
+        # no saved stores (a reference-written model): rebuild the maps from
+        # the model's own records while loading; the shard -> bag mapping
+        # cannot be guessed, so explicit shard configs are required
+        if feature_shards is None:
+            raise ValueError(
+                "no saved index-map stores next to this model: pass "
+                "--feature-shard-configurations mapping each model shard id to the data's "
+                "feature bags")
+        with Timed("load model"):
+            model, index_maps = load_game_model_and_index_maps(
+                model_input_dir,
+                compact_random_effect_threshold=compact_random_effect_threshold, device=device)
+    entity_vocabs: dict[str, np.ndarray] = {}
+    for m in model.models.values():
+        if isinstance(m, RandomEffectModel):
+            keys = np.asarray(m.entity_keys)
+            existing = entity_vocabs.get(m.random_effect_type)
+            if existing is not None and not np.array_equal(existing, keys):
+                # two sub-models disagreeing on a shared entity space would
+                # silently misalign one model's table rows
+                raise ValueError(
+                    f"sub-models disagree on entity keys for effect type "
+                    f"'{m.random_effect_type}' ({len(existing)} vs {len(keys)} keys); "
+                    "cannot build a consistent scoring vocab")
+            entity_vocabs[m.random_effect_type] = keys
+    return model, index_maps, feature_shards, entity_vocabs, tuple(sorted(entity_vocabs))
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="game_scoring_driver")
+    p.add_argument("--input-data-path", required=True, action="append",
+                   help="dataset to score; repeat to score several datasets in one run (the "
+                        "model is parsed once; each dataset writes under "
+                        "<output-dir>/dataset-NNNN)")
+    p.add_argument("--model-input-dir", required=True)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--feature-shard-configurations", action="append", default=None)
+    p.add_argument("--index-maps-dir")
+    p.add_argument("--evaluators", default="")
+    p.add_argument("--model-id", default="")
+    p.add_argument("--input-format", default="avro", choices=["avro", "libsvm"])
+    p.add_argument("--compact-random-effect-threshold", type=int,
+                   default=DEFAULT_COMPACT_RE_THRESHOLD,
+                   help="random-effect coordinates whose feature space exceeds this load as "
+                        "compact per-entity tables (never materializing [entities, dim])")
+    p.add_argument("--on-corrupt", default="raise", choices=["raise", "quarantine"],
+                   help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
+                        "(skip-and-count)")
+    p.add_argument("--distributed", action="store_true", help="not ported (item 10)")
+    p.add_argument("--mesh", default="", help="not ported (item 10)")
+    p.add_argument("--partitioned-io", action="store_true", help="not ported (item 15)")
+    p.add_argument("--telemetry-dir", help="not ported (item 19)")
+    p.add_argument("--trace-dir", help="not ported (item 19)")
+    return p
+
+
+def main(argv: Sequence[str] | None = None, *, device=None) -> dict:
+    logging.basicConfig(level=logging.INFO)
+    args = build_arg_parser().parse_args(argv)
+    shards = None
+    if args.feature_shard_configurations:
+        shards = dict(parse_feature_shard_config(s) for s in args.feature_shard_configurations)
+    paths = args.input_data_path
+    return run(
+        input_data_path=paths[0] if len(paths) == 1 else paths,
+        model_input_dir=args.model_input_dir,
+        output_dir=args.output_dir,
+        feature_shards=shards,
+        index_maps_dir=args.index_maps_dir,
+        evaluators=tuple(x.strip() for x in args.evaluators.split(",") if x.strip()),
+        model_id=args.model_id,
+        input_format=args.input_format,
+        compact_random_effect_threshold=args.compact_random_effect_threshold,
+        on_corrupt=args.on_corrupt,
+        distributed=args.distributed or bool(args.mesh),
+        partitioned_io=args.partitioned_io,
+        telemetry_dir=args.telemetry_dir,
+        trace_dir=args.trace_dir,
+        device=device,
+    )
+
+
+if __name__ == "__main__":
+    main()

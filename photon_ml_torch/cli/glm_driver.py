@@ -1,0 +1,310 @@
+"""Single-GLM training driver with the staged pipeline (the port's driver).
+
+Counterpart of ``photon_ml_tpu/cli/glm_driver.py`` on its in-core Avro path;
+reference photon-client Driver.scala — staged pipeline INIT -> PREPROCESSED
+-> TRAINED -> VALIDATED (:158-218), train via ModelTraining over the λ grid
+with warm starts (:334-368), validation metrics + best-model selection
+(:373-450, ModelSelection.scala), text model output (IOUtils
+writeModelsInText, :211-215).
+
+    python -m photon_ml_torch.cli.glm_driver --input-data-path train \\
+        --validation-data-path val --output-dir out \\
+        --task-type LOGISTIC_REGRESSION --regularization-weights 1,10
+
+Runs on the CUDA device; ``main(argv, device="cpu")`` runs on the CPU. The
+flags keep the JAX driver's names and meanings. Left out, each refused with
+``NotImplementedError`` naming its ROADMAP.md item before any data is read:
+``--streaming-chunks``, ``--checkpoint-dir`` and ``--max-restarts`` above 0
+(item 16; the port has no recovery layer, so its default is 0),
+``--grid-parallel`` and ``--search-rounds`` (18), ``--enable-diagnostics``,
+``--num-bootstraps``, ``--telemetry-dir`` and ``--trace-dir`` (19), LibSVM
+input (14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import enum
+import json
+import logging
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from photon_ml_torch.data.batch import LabeledPointBatch, summarize
+from photon_ml_torch.data.validators import DataValidationType, validate_arrays
+from photon_ml_torch.device import resolve_device
+from photon_ml_torch.diagnostics.metrics import METRIC_DIRECTIONS, evaluate_model
+from photon_ml_torch.estimators import train_glm
+from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
+from photon_ml_torch.io.model_io import write_glm_text
+from photon_ml_torch.ops.normalization import NormalizationType, build_normalization
+from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+from photon_ml_torch.types import TaskType
+from photon_ml_torch.util import PhotonLogger, Timed
+from photon_ml_torch.util.timed import reset_timings
+
+logger = logging.getLogger(__name__)
+
+
+class DriverStage(enum.Enum):
+    """Reference: DriverStage.scala."""
+
+    INIT = 0
+    PREPROCESSED = 1
+    TRAINED = 2
+    VALIDATED = 3
+    DIAGNOSED = 4
+
+
+#: model selection metric per task (reference ModelSelection.scala: best
+#: AUC for classification, best RMSE for regression)
+_SELECTION_METRIC = {
+    TaskType.LOGISTIC_REGRESSION: "AUC",
+    TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM: "AUC",
+    TaskType.LINEAR_REGRESSION: "RMSE",
+    TaskType.POISSON_REGRESSION: "POISSON_LOSS",
+}
+
+
+@dataclasses.dataclass
+class GLMDriverParams:
+    input_data_path: str
+    output_dir: str
+    task_type: TaskType
+    validation_data_path: str | None = None
+    regularization_weights: tuple[float, ...] = (0.0,)
+    elastic_net_alpha: float = 0.0
+    optimizer: OptimizerType = OptimizerType.LBFGS
+    max_iterations: int = 100
+    tolerance: float = 1e-7
+    normalization: NormalizationType = NormalizationType.NONE
+    data_validation: DataValidationType = DataValidationType.VALIDATE_DISABLED
+    compute_variance: bool = False
+    #: JSON constraint list (reference Params.constraintString): maps with
+    #: name/term (+ optional lowerBound/upperBound), "*" wildcards allowed
+    coefficient_box_constraints: str | None = None
+    input_format: str = "avro"
+    #: "raise" (strict) or "quarantine" (skip-and-count corrupt Avro blocks)
+    on_corrupt: str = "raise"
+    # not ported: each refused by check_ported() when set
+    enable_diagnostics: bool = False
+    num_bootstraps: int = 0
+    grid_parallel: bool = False
+    telemetry_dir: str | None = None
+    trace_dir: str | None = None
+    streaming_chunks: int = 0
+    checkpoint_dir: str | None = None
+    max_restarts: int = 0
+    search_rounds: int = 0
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError for the first option the port lacks,
+        before any data is read."""
+        left_out = (
+            (self.streaming_chunks > 0, "--streaming-chunks (out-of-core epochs)", 16),
+            (bool(self.checkpoint_dir), "--checkpoint-dir (crash-safe resume)", 16),
+            (self.max_restarts > 0, "--max-restarts (the recovery layer)", 16),
+            (self.grid_parallel, "--grid-parallel (vmapped λ lanes)", 18),
+            (self.search_rounds > 0, "--search-rounds (model search)", 18),
+            (self.enable_diagnostics or self.num_bootstraps > 0,
+             "--enable-diagnostics/--num-bootstraps (diagnostic reports)", 19),
+            (bool(self.telemetry_dir), "--telemetry-dir (run journal)", 19),
+            (bool(self.trace_dir), "--trace-dir (span tracing)", 19),
+            (self.input_format != "avro", f"--input-format {self.input_format}", 14),
+        )
+        for unported, what, item in left_out:
+            if unported:
+                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
+
+
+@dataclasses.dataclass
+class GLMDriverResult:
+    stage: DriverStage
+    models: dict
+    best_lambda: float | None
+    validation_metrics: dict
+    summary_path: str
+
+
+def _read_batch(path: str, shard_cfg, device, index_maps=None, on_corrupt: str = "raise"):
+    """(batch, dataset, index maps, intercept index) of one Avro input."""
+    result = read_merged(path, shard_cfg, index_maps=index_maps, on_corrupt=on_corrupt,
+                         device=device)
+    ds = result.dataset
+    batch = LabeledPointBatch(features=ds.feature_shards["features"], labels=ds.labels,
+                              offsets=ds.offsets, weights=ds.weights)
+    return batch, ds, result.index_maps, result.intercept_indices.get("features")
+
+
+def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
+    """The staged pipeline on ``device`` (CUDA unless "cpu")."""
+    params.check_ported()
+    device = resolve_device(device)
+    if params.coefficient_box_constraints and params.normalization != NormalizationType.NONE:
+        # bounds are stated in original feature space; the solvers work in
+        # normalized space (reference Params.scala:219)
+        raise ValueError(
+            "coefficient box constraints cannot combine with feature normalization (bounds "
+            "are stated in original feature space; the solvers work in normalized space) — "
+            "drop normalization.type or the box constraints")
+    os.makedirs(params.output_dir, exist_ok=True)
+    reset_timings()
+    sync = torch.cuda.synchronize if device.type == "cuda" else None
+    stage = DriverStage.INIT
+    shard_cfg = {"features": FeatureShardConfiguration(feature_bags=("features",))}
+
+    with PhotonLogger(os.path.join(params.output_dir, "driver.log")) as job_log:
+        # PREPROCESS
+        with Timed("glm preprocess", sync=sync):
+            batch, ds, index_maps, intercept_index = _read_batch(
+                params.input_data_path, shard_cfg, device, on_corrupt=params.on_corrupt)
+            validate_arrays(
+                labels=ds.host_array("labels"), task=params.task_type,
+                offsets=ds.host_array("offsets"), weights=ds.host_array("weights"),
+                feature_shards={"features": ds.host_array("shard/features")},
+                validation_type=params.data_validation)
+            norm = None
+            if params.normalization != NormalizationType.NONE:
+                stats = summarize(ds.host_array("shard/features"), ds.host_array("weights"))
+                stat = {k: torch.as_tensor(stats[k], dtype=batch.labels.dtype, device=device)
+                        for k in ("mean", "variance", "max_magnitude")}
+                norm = build_normalization(params.normalization, **stat,
+                                           intercept_index=intercept_index)
+        stage = DriverStage.PREPROCESSED
+        job_log.info("preprocessed %d samples, %d features", batch.num_samples, batch.dim)
+
+        # TRAIN
+        opt = OptimizerConfig(optimizer_type=params.optimizer,
+                              max_iterations=params.max_iterations, tolerance=params.tolerance)
+        lower_bounds = upper_bounds = None
+        if params.coefficient_box_constraints:
+            from photon_ml_torch.io.constraints import build_bound_arrays
+
+            lower_bounds, upper_bounds = build_bound_arrays(
+                params.coefficient_box_constraints, index_maps["features"])
+        with Timed("glm train", sync=sync):
+            models = train_glm(
+                batch, params.task_type, optimizer=opt,
+                regularization_weights=params.regularization_weights,
+                elastic_net_alpha=params.elastic_net_alpha, normalization=norm,
+                intercept_index=intercept_index, compute_variance=params.compute_variance,
+                lower_bounds=lower_bounds, upper_bounds=upper_bounds)
+        stage = DriverStage.TRAINED
+        with Timed("glm write models"):
+            write_glm_text(os.path.join(params.output_dir, "models-text"), models,
+                           index_maps["features"])
+
+        # VALIDATE
+        best_lambda = None
+        validation_metrics: dict = {}
+        if params.validation_data_path:
+            with Timed("glm validate", sync=sync):
+                val_batch, _, _, _ = _read_batch(params.validation_data_path, shard_cfg, device,
+                                                 index_maps, on_corrupt=params.on_corrupt)
+                metric = _SELECTION_METRIC[params.task_type]
+                larger = METRIC_DIRECTIONS[metric]
+                best_value = None
+                for lam, model in sorted(models.items()):
+                    m = evaluate_model(model, val_batch)
+                    validation_metrics[lam] = m
+                    value = m[metric]
+                    if np.isnan(value):  # a diverged model never wins
+                        continue
+                    if best_value is None or (value > best_value) == larger:
+                        best_value, best_lambda = value, lam
+            stage = DriverStage.VALIDATED
+            job_log.info("best λ=%s by %s=%s", best_lambda, metric, best_value)
+
+    summary_path = os.path.join(params.output_dir, "glm-summary.json")
+    summary = {
+        "stage": stage.name,
+        "lambdas": sorted(models),
+        "best_lambda": best_lambda,
+        "validation_metrics": {str(k): v for k, v in validation_metrics.items()},
+    }
+    with open(summary_path, "w") as f:
+        json.dump(summary, f, indent=2, default=float)
+    return GLMDriverResult(stage=stage, models=models, best_lambda=best_lambda,
+                           validation_metrics=validation_metrics, summary_path=summary_path)
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="glm_driver", description=__doc__.split("\n")[0])
+    p.add_argument("--input-data-path", required=True)
+    p.add_argument("--validation-data-path")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--task-type", required=True,
+                   choices=[t.name for t in TaskType if t != TaskType.NONE])
+    p.add_argument("--regularization-weights", default="0", help="comma-separated λ grid")
+    p.add_argument("--elastic-net-alpha", type=float, default=0.0)
+    p.add_argument("--optimizer", default="LBFGS", choices=[o.name for o in OptimizerType])
+    p.add_argument("--max-iterations", type=int, default=100)
+    p.add_argument("--tolerance", type=float, default=1e-7)
+    p.add_argument("--normalization", default="NONE",
+                   choices=[n.name for n in NormalizationType])
+    p.add_argument("--data-validation", default="VALIDATE_DISABLED",
+                   choices=[v.name for v in DataValidationType])
+    p.add_argument("--compute-variance", action="store_true")
+    p.add_argument("--coefficient-box-constraints",
+                   help='JSON constraint list, e.g. \'[{"name": "f0", "term": "", '
+                        '"lowerBound": 0}]\'; "*" wildcards match all features / all terms '
+                        "of a name")
+    p.add_argument("--input-format", default="avro", choices=["avro", "libsvm"])
+    p.add_argument("--on-corrupt", default="raise", choices=["raise", "quarantine"],
+                   help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
+                        "(skip-and-count)")
+    p.add_argument("--enable-diagnostics", action="store_true", help="not ported (item 19)")
+    p.add_argument("--num-bootstraps", type=int, default=0, help="not ported (item 19)")
+    p.add_argument("--grid-parallel", action="store_true", help="not ported (item 18)")
+    p.add_argument("--telemetry-dir", help="not ported (item 19)")
+    p.add_argument("--trace-dir", help="not ported (item 19)")
+    p.add_argument("--streaming-chunks", type=int, default=0, help="not ported (item 16)")
+    p.add_argument("--checkpoint-dir", help="not ported (item 16)")
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="restarts after a transient failure; the port has no recovery layer "
+                        "yet (item 16), so only 0 is taken")
+    p.add_argument("--search-rounds", type=int, default=0, help="not ported (item 18)")
+    return p
+
+
+def main(argv: Sequence[str] | None = None, *, device=None) -> GLMDriverResult:
+    logging.basicConfig(level=logging.INFO)
+    args = build_arg_parser().parse_args(argv)
+    return run(
+        GLMDriverParams(
+            input_data_path=args.input_data_path,
+            validation_data_path=args.validation_data_path,
+            output_dir=args.output_dir,
+            task_type=TaskType[args.task_type],
+            regularization_weights=tuple(
+                float(x) for x in args.regularization_weights.split(",") if x),
+            elastic_net_alpha=args.elastic_net_alpha,
+            optimizer=OptimizerType[args.optimizer],
+            max_iterations=args.max_iterations,
+            tolerance=args.tolerance,
+            normalization=NormalizationType[args.normalization],
+            data_validation=DataValidationType[args.data_validation],
+            compute_variance=args.compute_variance,
+            coefficient_box_constraints=args.coefficient_box_constraints,
+            input_format=args.input_format,
+            on_corrupt=args.on_corrupt,
+            enable_diagnostics=args.enable_diagnostics,
+            num_bootstraps=args.num_bootstraps,
+            grid_parallel=args.grid_parallel,
+            telemetry_dir=args.telemetry_dir,
+            trace_dir=args.trace_dir,
+            streaming_chunks=args.streaming_chunks,
+            checkpoint_dir=args.checkpoint_dir,
+            max_restarts=args.max_restarts,
+            search_rounds=args.search_rounds,
+        ),
+        device=device,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,7 @@
 // (sm_90a). Plain C interface, loaded with ctypes by
 // photon_ml_torch/ops/packed_glm.py.
 //
-// Replaces three TPU kernels of the operand-form study behind
+// Replaces six TPU kernels of the operand-form study behind
 // photon_ml_tpu/ops/pallas_glm.py:
 //
 // - experiments/kernel_probe6.py (`kernel`/`fused`): labels | offsets |
@@ -17,6 +17,15 @@
 //   the probe's `mxu`; for an f32 tile the operands are rounded to TF32).
 // - experiments/kernel_probe5.py (`local_kernel`/`local_fused`): separate
 //   y, ws and optional o columns, optional sum of residuals.
+// - experiments/kernel_probe.py, kernel_probe2.py and kernel_probe3.py
+//   (`make_kernel`/`fused`): the separate form with neither offsets nor the
+//   sum of residuals, logistic loss, each product on the matrix or the
+//   vector unit. Their bf16 products that promote an f32 operand (probe 1's
+//   `mxu` margins with an f32 w) or cast the tile up (probe 3's `mxu_cast`)
+//   compute f32 products on the widened tile: the "mma_tf32" unit, which
+//   widens the staged bf16 tile to f32 (exactly) and runs m16n8k8 TF32
+//   mma.sync with w and r rounded to TF32. Probes 2 and 3 also round w to
+//   the tile's type before the kernel; the wrapper does the same.
 //
 // For X [n, d] (f32 or bf16), coefficients w [d] (f32), a margin shift s:
 //
@@ -78,7 +87,9 @@ static_assert((kRows + 2 * kWarps + kWarps * kRows) * 4 <= kHeaderBytes, "header
 constexpr int kStageBytesMax = 192 * 1024;
 
 enum LossId { kLogistic = 0, kSquared = 1, kPoisson = 2, kSmoothedHinge = 3 };
-enum UnitId { kFma = 0, kMma = 1 };
+// kMmaTf32 on an f32 tile is kMma (both TF32); on a bf16 tile it is the TF32
+// product of the widened tile rather than the bf16 product.
+enum UnitId { kFma = 0, kMma = 1, kMmaTf32 = 2 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -191,6 +202,18 @@ __device__ __forceinline__ uint32_t tile_bits(const __nv_bfloat16* tile, int row
                                  : 0u;
 }
 
+// Tile element [row, col] as a TF32 operand: an f32 element rounds to TF32; a
+// bf16 element widens to f32, which TF32 holds exactly (8 mantissa bits).
+__device__ __forceinline__ uint32_t tf32_tile_bits(const float* tile, int row, int col, int rows,
+                                                   int d) {
+  return tile_bits(tile, row, col, rows, d);
+}
+__device__ __forceinline__ uint32_t tf32_tile_bits(const __nv_bfloat16* tile, int row, int col,
+                                                   int rows, int d) {
+  return (row < rows && col < d) ? __float_as_uint(__bfloat162float(tile[(int64_t)row * d + col]))
+                                 : 0u;
+}
+
 // Partial margins of 16 tile rows (a row block of the tile: ``rows`` counts the
 // valid ones from ``tile`` on) over this warp's share of the k chunks, left in
 // part[0..15] (part is this warp's row of shared memory at that row block).
@@ -221,18 +244,20 @@ __device__ __forceinline__ void margins_mma(const __nv_bfloat16* tile, const flo
   }
 }
 
-__device__ __forceinline__ void margins_mma(const float* tile, const float* __restrict__ w,
-                                            int rows, int d, int warp, int lane, float* part) {
+// The TF32 margin product (an f32 tile, or a bf16 tile widened to f32).
+template <typename T>
+__device__ __forceinline__ void margins_tf32(const T* tile, const float* __restrict__ w, int rows,
+                                             int d, int warp, int lane, float* part) {
   const int g = lane >> 2, tig = lane & 3;
   float c[4] = {0.f, 0.f, 0.f, 0.f};
   const int chunks = (d + 7) / 8;
   for (int ch = warp; ch < chunks; ch += kWarps) {
     const int k0 = ch * 8 + tig;
     uint32_t a[4], b[2];
-    a[0] = tile_bits(tile, g, k0, rows, d);
-    a[1] = tile_bits(tile, g + 8, k0, rows, d);
-    a[2] = tile_bits(tile, g, k0 + 4, rows, d);
-    a[3] = tile_bits(tile, g + 8, k0 + 4, rows, d);
+    a[0] = tf32_tile_bits(tile, g, k0, rows, d);
+    a[1] = tf32_tile_bits(tile, g + 8, k0, rows, d);
+    a[2] = tf32_tile_bits(tile, g, k0 + 4, rows, d);
+    a[3] = tf32_tile_bits(tile, g + 8, k0 + 4, rows, d);
     b[0] = k0 < d ? tf32_bits(__ldg(w + k0)) : 0u;
     b[1] = k0 + 4 < d ? tf32_bits(__ldg(w + k0 + 4)) : 0u;
     mma_tf32_m16n8k8(c, a, b);
@@ -275,8 +300,10 @@ __device__ __forceinline__ void gradient_mma(const __nv_bfloat16* tile, const fl
   }
 }
 
-__device__ __forceinline__ void gradient_mma(const float* tile, const float* r, int rows, int d,
-                                             int warp, int lane, float* gacc) {
+// The TF32 gradient product (an f32 tile, or a bf16 tile widened to f32).
+template <typename T>
+__device__ __forceinline__ void gradient_tf32(const T* tile, const float* r, int rows, int d,
+                                              int warp, int lane, float* gacc) {
   const int g = lane >> 2, tig = lane & 3;
   const int chunks = (d + 15) / 16;
   for (int ch = warp; ch < chunks; ch += kWarps) {
@@ -287,10 +314,10 @@ __device__ __forceinline__ void gradient_mma(const float* tile, const float* r, 
       uint32_t a[4], b[2];
       b[0] = tf32_bits(r[rb + tig]);
       b[1] = tf32_bits(r[rb + tig + 4]);
-      a[0] = tile_bits(tile, rb + tig, c0, rows, d);
-      a[1] = tile_bits(tile, rb + tig, c0 + 8, rows, d);
-      a[2] = tile_bits(tile, rb + tig + 4, c0, rows, d);
-      a[3] = tile_bits(tile, rb + tig + 4, c0 + 8, rows, d);
+      a[0] = tf32_tile_bits(tile, rb + tig, c0, rows, d);
+      a[1] = tf32_tile_bits(tile, rb + tig, c0 + 8, rows, d);
+      a[2] = tf32_tile_bits(tile, rb + tig + 4, c0, rows, d);
+      a[3] = tf32_tile_bits(tile, rb + tig + 4, c0 + 8, rows, d);
       mma_tf32_m16n8k8(c, a, b);
     }
     if (tig == 0) {
@@ -301,6 +328,11 @@ __device__ __forceinline__ void gradient_mma(const float* tile, const float* r, 
 }
 
 // ---- the partials kernel -----------------------------------------------------
+
+// A product in bf16 mma.sync: the "mma" unit on a bf16 tile. Every other
+// tensor-core product (an f32 tile, or "mma_tf32") runs in TF32.
+template <typename T, int UNIT>
+constexpr bool kBf16Mma = UNIT == kMma && sizeof(T) == 2;
 
 // aux != nullptr: the packed form, row i = (y, o, ws). Otherwise the separate
 // form: labels and weights, and offsets unless nullptr. part_rsum == nullptr:
@@ -346,18 +378,23 @@ packed_glm_partials_kernel(const T* __restrict__ x, const float* __restrict__ au
     cp_async_wait_prior_one();  // this thread's copies of tile t have landed
     __syncthreads();            // and everyone else's (and gacc is zeroed)
 
-    if (MUNIT == kMma) {
+    if (MUNIT != kFma) {
 #pragma unroll
-      for (int rb = 0; rb < kRows; rb += 16)
-        margins_mma(tile + (int64_t)rb * d, w, rows - rb, d, warp, lane,
-                    marg_s + warp * kRows + rb);
+      for (int rb = 0; rb < kRows; rb += 16) {
+        if constexpr (kBf16Mma<T, MUNIT>)
+          margins_mma(tile + (int64_t)rb * d, w, rows - rb, d, warp, lane,
+                      marg_s + warp * kRows + rb);
+        else
+          margins_tf32(tile + (int64_t)rb * d, w, rows - rb, d, warp, lane,
+                       marg_s + warp * kRows + rb);
+      }
       __syncthreads();
     }
     for (int i = warp; i < kRows; i += kWarps) {
       float r = 0.f;
       if (i < rows) {  // warp-uniform
         float acc = 0.f;
-        if (MUNIT == kMma) {
+        if (MUNIT != kFma) {
 #pragma unroll
           for (int q = 0; q < kWarps; ++q) acc += marg_s[q * kRows + i];
         } else {
@@ -390,8 +427,10 @@ packed_glm_partials_kernel(const T* __restrict__ x, const float* __restrict__ au
     }
     __syncthreads();
 
-    if (GUNIT == kMma) {
+    if constexpr (kBf16Mma<T, GUNIT>) {
       gradient_mma(tile, r_s, rows, d, warp, lane, gacc);
+    } else if constexpr (GUNIT != kFma) {
+      gradient_tf32(tile, r_s, rows, d, warp, lane, gacc);
     } else {
       for (int c = tid; c < d; c += kThreads) {
         float g = 0.f;
@@ -519,12 +558,33 @@ KernelOps ops_of() {
   return {launch_partials<LOSS, T, MUNIT, GUNIT>, occupancy<LOSS, T, MUNIT, GUNIT>};
 }
 
+// Units kFma, kMma and, on a bf16 tile with the logistic loss (the only loss
+// of the probes that use it), kMmaTf32; on an f32 tile the caller has already
+// mapped kMmaTf32 to kMma: both are TF32 there.
+template <int LOSS, typename T>
+constexpr bool kHasMmaTf32 = sizeof(T) == 2 && LOSS == kLogistic;
+
+template <int LOSS, typename T, int MUNIT>
+KernelOps ops_for_grad_unit(int gunit) {
+  if (gunit == kFma) return ops_of<LOSS, T, MUNIT, kFma>();
+  if (gunit == kMma) return ops_of<LOSS, T, MUNIT, kMma>();
+  if constexpr (kHasMmaTf32<LOSS, T>) {
+    if (gunit == kMmaTf32) return ops_of<LOSS, T, MUNIT, kMmaTf32>();
+  }
+  return {nullptr, nullptr};
+}
+
 template <int LOSS, typename T>
 KernelOps ops_for_units(int munit, int gunit) {
-  if (munit == kFma && gunit == kFma) return ops_of<LOSS, T, kFma, kFma>();
-  if (munit == kFma && gunit == kMma) return ops_of<LOSS, T, kFma, kMma>();
-  if (munit == kMma && gunit == kFma) return ops_of<LOSS, T, kMma, kFma>();
-  if (munit == kMma && gunit == kMma) return ops_of<LOSS, T, kMma, kMma>();
+  if (sizeof(T) == 4) {
+    if (munit == kMmaTf32) munit = kMma;
+    if (gunit == kMmaTf32) gunit = kMma;
+  }
+  if (munit == kFma) return ops_for_grad_unit<LOSS, T, kFma>(gunit);
+  if (munit == kMma) return ops_for_grad_unit<LOSS, T, kMma>(gunit);
+  if constexpr (kHasMmaTf32<LOSS, T>) {
+    if (munit == kMmaTf32) return ops_for_grad_unit<LOSS, T, kMmaTf32>(gunit);
+  }
   return {nullptr, nullptr};
 }
 

@@ -39,7 +39,14 @@
 //   is not left to one warp's serial loop: the wrapper passes a chunk plan,
 //   a first kernel gives each chunk its own warp and writes one partial per
 //   chunk, and the row kernel adds a row's partials in chunk order (as B1's
-//   reduce adds its partials in block order).
+//   reduce adds its partials in block order). Rows with no chunks in the
+//   plan (every row of kChunk entries or fewer) read their entries directly.
+// - Many short rows and no ELL block (the transpose X'r of a sparse batch:
+//   one row per column, about two entries each at d = 10^7) would leave a
+//   warp per row nearly idle and latency-bound, so there one thread takes a
+//   row and adds its entries in order (gather_segments_kernel); a long row
+//   still goes through its chunk partials. The wrapper picks this kernel
+//   when the rows hold fewer than 32 entries on average.
 // Later work, not done here: wider loads of the ELL rows (several rows per
 // warp when L is small; L = 36 leaves 28 lanes idle on the second stride),
 // L2 residency control for w, and rows sorted by length.
@@ -115,13 +122,34 @@ gather_rows_kernel(const V* __restrict__ ev, const int* __restrict__ ec, int wid
        row += warps) {
     float acc = 0.f;
     if (width > 0) acc = lane_dot(ev, ec, w, row * width, (row + 1) * width, lane, acc);
-    if (partials != nullptr) {
+    if (partials != nullptr && chunk_ptr[row + 1] > chunk_ptr[row]) {
       for (int c = chunk_ptr[row] + lane; c < chunk_ptr[row + 1]; c += 32) acc += partials[c];
     } else if (row_ptr != nullptr) {
       acc = lane_dot(tv, tc, w, row_ptr[row], row_ptr[row + 1], lane, acc);
     }
     acc = warp_sum(acc);
     if (lane == 0) out[row] = acc;
+  }
+}
+
+// One thread per tail row, its entries (or its chunk partials) in order.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+gather_segments_kernel(const V* __restrict__ tv, const int* __restrict__ tc,
+                       const int* __restrict__ row_ptr, const float* __restrict__ partials,
+                       const int* __restrict__ chunk_ptr, const float* __restrict__ w,
+                       long long n, float* __restrict__ out) {
+  const long long threads = (long long)gridDim.x * kThreads;
+  for (long long row = (long long)blockIdx.x * kThreads + threadIdx.x; row < n; row += threads) {
+    float acc = 0.f;
+    if (partials != nullptr && chunk_ptr[row + 1] > chunk_ptr[row]) {
+      for (int c = chunk_ptr[row]; c < chunk_ptr[row + 1]; ++c) acc += partials[c];
+    } else {
+      const int end = row_ptr[row + 1];
+      for (int k = row_ptr[row]; k < end; ++k)
+        acc = fmaf(to_float(tv[k]), __ldg(w + __ldg(tc + k)), acc);
+    }
+    out[row] = acc;
   }
 }
 
@@ -140,7 +168,7 @@ int sparse_gather_chunk() { return kChunk; }
 
 // out[n] = ELL row sums (ev/ec [n, width], width may be 0 with null arrays)
 // + tail row sums (tv/tc with row_ptr [n+1], or null). With partials and
-// chunk_ptr non-null, a row's tail sum is its chunk partials instead.
+// chunk_ptr non-null, a row with chunks takes its chunk partials instead.
 int sparse_gather_rows(int is_bf16, const void* ev, const void* ec, int width, const void* tv,
                        const void* tc, const void* row_ptr, const void* partials,
                        const void* chunk_ptr, const void* w, long long n, void* out,
@@ -157,6 +185,26 @@ int sparse_gather_rows(int is_bf16, const void* ev, const void* ec, int width, c
         (const float*)ev, (const int*)ec, width, (const float*)tv, (const int*)tc,
         (const int*)row_ptr, (const float*)partials, (const int*)chunk_ptr, (const float*)w, n,
         (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out[n] = tail row sums (tv/tc with row_ptr [n+1]), one thread per row; with
+// partials and chunk_ptr non-null, a row with chunks sums its partials.
+int sparse_gather_segments(int is_bf16, const void* tv, const void* tc, const void* row_ptr,
+                           const void* partials, const void* chunk_ptr, const void* w,
+                           long long n, void* out, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  long long b = (n + kThreads - 1) / kThreads;
+  const int blocks = b < 1 ? 1 : (b > kMaxBlocks ? (int)kMaxBlocks : (int)b);
+  if (is_bf16) {
+    gather_segments_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)tv, (const int*)tc, (const int*)row_ptr, (const float*)partials,
+        (const int*)chunk_ptr, (const float*)w, n, (float*)out);
+  } else {
+    gather_segments_kernel<float><<<blocks, kThreads, 0, s>>>(
+        (const float*)tv, (const int*)tc, (const int*)row_ptr, (const float*)partials,
+        (const int*)chunk_ptr, (const float*)w, n, (float*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,12 @@ only the finished arrays move to torch. Every margin goes through the
 gather-sum of ``ops/sparse_gather.py``: its CUDA kernel on the card, its
 plain version on the CPU. For that the batch also carries the flat tail's
 ``[n+1]`` row pointers (and, where a row is longer than one chunk, the
-chunk plan), built once from the sorted ``row_ids``.
+chunk plan), built once from the sorted ``row_ids``. Every transpose
+``Xᵀr`` of the ELL block and the flat tail is the same gather-sum over a
+column-sorted copy of their nonzero entries, built on the device at the
+first transpose and kept with the batch, so each column sums in a fixed
+order (``index_add_`` on the card adds with float atomics, and its sums,
+with any solver path that reads them, would change from run to run).
 
 A bf16 batch keeps its entry values (ELL, tail, hybrid head) in bf16;
 labels, offsets, weights and the solver's coefficients stay float32. The
@@ -325,7 +330,12 @@ class SparseLabeledPointBatch:
         resized = "labels" in changes and changes["labels"].shape[0] != self.num_samples
         if "row_ptr" not in changes and (resized or changes.keys() & _ENTRY_FIELDS):
             changes.update(row_ptr=None, row_chunks=None)
-        return dataclasses.replace(self, **changes)
+        out = dataclasses.replace(self, **changes)
+        plan = self.__dict__.get("_transpose_plan")
+        if plan is not None and changes.keys() <= {"labels", "offsets", "weights"} \
+                and not resized:  # the same entries: keep their column-sorted plan
+            object.__setattr__(out, "_transpose_plan", plan)
+        return out
 
     def with_offsets(self, offsets: torch.Tensor) -> "SparseLabeledPointBatch":
         return self.replace(offsets=offsets)
@@ -679,35 +689,87 @@ def sparse_margins(batch: SparseLabeledPointBatch, coefficients: torch.Tensor, *
     return feature_product(batch, coefficients, use_kernel=use_kernel) + batch.offsets
 
 
-def sparse_column_sum(batch: SparseLabeledPointBatch, row_weights: torch.Tensor,
-                      square_values: bool = False) -> torch.Tensor:
-    """Σ_i row_weights_i · x_ij (or x_ij²) per column j, by ``index_add_``:
-    the building block of Hessian diagonals. Pad slots (value 0) add 0."""
+def transpose_plan(batch: SparseLabeledPointBatch):
+    """The ELL block's and the flat tail's entries as one flat tail sorted
+    by column, for the gather kernel with the columns as its segments:
+    (vals, rows, cols, col_ptr, chunks). Stable, so a column's entries keep
+    their order (ELL rows, then tail rows); entries of value 0, the ELL pad
+    slots among them, add nothing and are left out. Built once per batch on
+    its device (one sort, a few syncs) and cached on it."""
+    plan = batch.__dict__.get("_transpose_plan")
+    if plan is not None:
+        return plan
+    vals, cols, rows = [], [], []
+    if batch.has_ell_view:
+        n, width = batch.ell_vals.shape
+        vals.append(batch.ell_vals.reshape(-1))
+        cols.append(batch.ell_cols.reshape(-1))
+        rows.append(torch.arange(n, dtype=torch.int32, device=batch.device)
+                    .repeat_interleave(width))
+    if batch.nnz:
+        vals.append(batch.values)
+        cols.append(batch.col_indices)
+        rows.append(batch.row_ids)
+    if vals:
+        vals, cols, rows = torch.cat(vals), torch.cat(cols), torch.cat(rows)
+        keep = vals != 0
+        vals, cols, rows = vals[keep], cols[keep], rows[keep]
+        cols, order = torch.sort(cols, stable=True)
+        vals, rows = vals[order].contiguous(), rows[order].contiguous()
+    else:
+        vals = batch.values
+        cols = rows = torch.zeros((0,), dtype=torch.int32, device=batch.device)
+    col_ptr, chunks = segment_plan(cols, batch.dim)
+    plan = (vals, rows, cols, col_ptr, chunks)
+    object.__setattr__(batch, "_transpose_plan", plan)
+    return plan
+
+
+def tail_column_sums(batch: SparseLabeledPointBatch, row_weights: torch.Tensor,
+                     square_values: bool = False, *,
+                     use_kernel: bool | None = None) -> torch.Tensor:
+    """Σ_i row_weights_i · x_ij (or x_ij²) per column j over the ELL block
+    and the flat tail: the gather-sum of ``ops/sparse_gather.py`` over their
+    column-sorted plan (:func:`transpose_plan`), whose kernel sums each
+    column in a fixed order, so the card's sums repeat bitwise
+    (``index_add_`` there adds with float atomics). ``use_kernel=False``
+    takes the plain ``index_add_`` on any device, as :func:`feature_product`
+    takes the gather's plain version."""
     dtype = torch.promote_types(row_weights.dtype, batch.values.dtype)
+    rw = row_weights.to(dtype)
+    if use_kernel is not False:
+        vals, rows, cols, col_ptr, chunks = transpose_plan(batch)
+        if square_values:
+            vals = vals.to(dtype) * vals.to(dtype)
+        return gather_sum(rw.contiguous(), batch.dim, tail=(vals, rows, cols, col_ptr),
+                          chunks=chunks)
     out = torch.zeros((batch.dim,), dtype=dtype, device=row_weights.device)
-    if batch.has_hybrid_view:
-        hot = batch.hot_vals.to(dtype)
-        out.index_add_(0, batch.hot_col_ids,
-                       row_weights.to(dtype) @ (hot * hot if square_values else hot))
-    return add_tail_column_sums(out, batch, row_weights, square_values)
-
-
-def add_tail_column_sums(out: torch.Tensor, batch: SparseLabeledPointBatch,
-                         row_weights: torch.Tensor, square_values: bool = False) -> torch.Tensor:
-    """Add the ELL block's and the flat tail's part of
-    :func:`sparse_column_sum` into ``out`` (in place, in its dtype)."""
-    dtype = out.dtype
 
     def values(v):
         v = v.to(dtype)
         return v * v if square_values else v
 
     if batch.has_ell_view:
-        contrib = row_weights.to(dtype)[:, None] * values(batch.ell_vals)
-        out.index_add_(0, batch.ell_cols.reshape(-1), contrib.reshape(-1))
+        out.index_add_(0, batch.ell_cols.reshape(-1),
+                       (rw[:, None] * values(batch.ell_vals)).reshape(-1))
     if batch.nnz:
-        contrib = row_weights.to(dtype)[batch.row_ids] * values(batch.values)
-        out.index_add_(0, batch.col_indices, contrib)
+        out.index_add_(0, batch.col_indices, rw[batch.row_ids] * values(batch.values))
+    return out
+
+
+def sparse_column_sum(batch: SparseLabeledPointBatch, row_weights: torch.Tensor,
+                      square_values: bool = False, *,
+                      use_kernel: bool | None = None) -> torch.Tensor:
+    """Σ_i row_weights_i · x_ij (or x_ij²) per column j: the transpose
+    behind every sparse gradient, Hessian-vector product and Hessian
+    diagonal. :func:`tail_column_sums`, plus the hybrid head's k_hot
+    columns, which are distinct, so their ``index_add_`` never adds two
+    values into one slot."""
+    out = tail_column_sums(batch, row_weights, square_values, use_kernel=use_kernel)
+    if batch.has_hybrid_view:
+        hot = batch.hot_vals.to(out.dtype)
+        out.index_add_(0, batch.hot_col_ids,
+                       row_weights.to(out.dtype) @ (hot * hot if square_values else hot))
     return out
 
 

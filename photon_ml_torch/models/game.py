@@ -5,7 +5,9 @@ model/FixedEffectModel.scala, model/RandomEffectModel.scala and photon-lib
 model/GameModel.scala (map CoordinateId -> DatumScoringModel, score = sum of
 sub-scores, GameModel.scala:101-107; type consistency check :163-169).
 
-A random-effect model is one dense [num_entities, dim] table; scoring is a
+A random-effect model is one dense [num_entities, dim] table, or for a very
+wide shard a compact [num_entities, K] table over each entity's sorted active
+columns (a model loaded past ``io.model_io``'s size threshold); scoring is a
 gather and a row-wise dot. Entities unseen at training time score 0.
 """
 
@@ -65,6 +67,11 @@ class RandomEffectModel(DatumScoringModel):
     feature_shard_id: str
     task: TaskType
     variances: torch.Tensor | None = None
+    #: compact mode: coefficients are [E, K] over each entity's sorted active
+    #: global columns (active_cols [E, K] int32 on the host, pad =
+    #: feature_dim, the true shard width)
+    active_cols: np.ndarray | None = None
+    feature_dim: int | None = None
 
     @property
     def num_entities(self) -> int:
@@ -72,6 +79,8 @@ class RandomEffectModel(DatumScoringModel):
 
     @property
     def dim(self) -> int:
+        if self.active_cols is not None:
+            return int(self.feature_dim)
         return self.coefficients.shape[1]
 
     def score_dataset(self, dataset) -> torch.Tensor:
@@ -82,7 +91,25 @@ class RandomEffectModel(DatumScoringModel):
                 "per-entity tables (ROADMAP.md item 14)"
             )
         entity_idx = dataset.entity_indices(self.random_effect_type)
+        if self.active_cols is not None:
+            return self._score_compact(features, entity_idx)
         return score_random_effect(self.coefficients, features, entity_idx)
+
+    def _score_compact(self, features: torch.Tensor, entity_idx: torch.Tensor) -> torch.Tensor:
+        """Each sample's entity's active columns gathered from the dense
+        shard: O(n K), no [E, d] table."""
+        dim = int(self.feature_dim)
+        if features.shape[1] != dim:
+            raise ValueError(
+                f"compact random-effect model '{self.random_effect_type}' lives in a "
+                f"{dim}-column feature space but the dense shard '{self.feature_shard_id}' "
+                f"has {features.shape[1]} columns")
+        idx = entity_idx.long()
+        safe = torch.clamp(idx, min=0)
+        cols = torch.as_tensor(self.active_cols, dtype=torch.long, device=features.device)[safe]
+        x = torch.gather(features.to(self.coefficients.dtype), 1, torch.clamp(cols, max=dim - 1))
+        scores = torch.sum(x * (cols < dim) * self.coefficients[safe], dim=-1)
+        return torch.where(idx >= 0, scores, torch.zeros_like(scores))
 
     def with_coefficients(self, coefficients: torch.Tensor) -> "RandomEffectModel":
         """New table, dropping any variances (they were computed at the old

@@ -29,7 +29,7 @@ accept tests near an optimum.
 stay fixed while the coefficients move (a GAME fixed-effect update): the
 three columns are packed once into the ``[n, 3]`` block of
 ``ops/packed_glm.py`` and every kernel evaluation streams X and that block.
-``kernel_unit`` ("fma" or "mma") picks the unit of both products there, and
+``kernel_unit`` (one of ``packed_glm.UNITS``) picks the unit of both products there, and
 ``kernel_aux="columns"`` keeps the three columns separate (the same kernel
 source reading them one by one). The Hessian-vector product and the
 variances keep the closed forms.
@@ -88,6 +88,7 @@ class GLMObjective:
     ):
         if kernel_unit not in packed_glm.UNITS:
             raise ValueError(f"kernel_unit must be one of {packed_glm.UNITS}, got {kernel_unit!r}")
+        packed_glm.check_units(loss, kernel_unit, kernel_unit)
         if kernel_aux not in ("packed", "columns"):
             raise ValueError(f"kernel_aux must be 'packed' or 'columns', got {kernel_aux!r}")
         self.loss = loss

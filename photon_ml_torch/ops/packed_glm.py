@@ -5,8 +5,11 @@ grew out of: ``experiments/kernel_probe6.py`` (labels | offsets | weights
 packed into one ``[n, 3]`` block), ``experiments/kernel_probe7.py`` (the
 same, each product on the matrix or the vector unit) and
 ``experiments/kernel_probe5.py`` (separate columns, optional offsets and
-optional Σr). The kernel is hand-written CUDA for Hopper,
-``csrc/packed_glm.cu``; its header states the bound and the design.
+optional Σr); and the three earlier probes ``experiments/kernel_probe.py``,
+``kernel_probe2.py`` and ``kernel_probe3.py``, which are the separate form
+with neither offsets nor Σr (logistic loss, each product on either unit).
+The kernel is hand-written CUDA for Hopper, ``csrc/packed_glm.cu``; its
+header states the bound and the design.
 
 In a GAME fixed-effect solve the three columns are constant through one
 ``update_model`` (the residual offsets change once per sweep, not per
@@ -21,6 +24,13 @@ Units, for the margin product and the gradient product independently:
   ``mxu`` mode); for an f32 tile the kernel rounds the operands to TF32,
   which the plain version does not repeat (it keeps f32, as the probe does
   in interpret mode), so the f32 ``mma`` kernel is held to a wider limit.
+- ``"mma_tf32"``: tensor-core ``mma.sync`` in TF32 on the tile widened to
+  f32 (exact for bf16), w and r rounded to TF32 — the function of a bf16
+  product that promotes an f32 operand or casts the tile up (probe 1's
+  ``mxu`` margins, probe 3's ``mxu_cast``). On an f32 tile it is ``"mma"``.
+  Its plain version is f32 on the widened tile, held to the f32 ``mma``
+  limit. It is built for the logistic loss only (the probes' loss), and the
+  wrappers refuse it for any other.
 
 On a CPU tensor the wrappers run the plain PyTorch versions; on a CUDA
 tensor they launch the kernel or raise.
@@ -45,7 +55,7 @@ columns_launches = 0
 #: launches of the ordered reduction kernel (one per evaluation)
 reduce_launches = 0
 
-UNITS = ("fma", "mma")
+UNITS = ("fma", "mma", "mma_tf32")
 
 #: rows per staged tile -> kernel source under csrc/ (the 16-row build is
 #: the one the training path uses; the 32-row build exists for comparison)
@@ -103,6 +113,14 @@ def _unit_id(unit: str) -> int:
     return UNITS.index(unit)
 
 
+def check_units(loss, margin_unit: str, grad_unit: str) -> None:
+    """Refuse a unit the kernel is not built for: ``mma_tf32`` exists for the
+    logistic loss only."""
+    _unit_id(margin_unit), _unit_id(grad_unit)
+    _require(loss.kernel_id == 0 or "mma_tf32" not in (margin_unit, grad_unit),
+             f"unit 'mma_tf32' is built for the logistic loss only, not {type(loss).__name__}")
+
+
 def pack_aux(labels: torch.Tensor, offsets: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """The ``[n, 3]`` f32 block, row i = (y_i, o_i, ws_i); f32 whatever X is."""
     return torch.stack([labels.float(), offsets.float(), weights.float()], dim=1).contiguous()
@@ -129,6 +147,7 @@ def launch_partials(loss, x, aux, labels, offsets, weights, eff, shift, with_rsu
     widest = max_staged_d(x.element_size(), rows_per_tile)
     _require(1 <= d <= widest, f"d={d} is wider than one staged pass ({widest})")
     _require(loss.kernel_id >= 0, f"{type(loss).__name__} has no kernel")
+    check_units(loss, margin_unit, grad_unit)
     munit, gunit = _unit_id(margin_unit), _unit_id(grad_unit)
     dev = x.device
     if aux is not None:
@@ -164,7 +183,7 @@ def launch_partials(loss, x, aux, labels, offsets, weights, eff, shift, with_rsu
             torch.cuda.current_stream(dev).cuda_stream), "packed_glm_partials")
         if aux is not None:
             packed_launches += 1
-            mma_launches += int(munit == 1 or gunit == 1)
+            mma_launches += int(munit > 0 or gunit > 0)
         else:
             columns_launches += 1
     return part_value, part_rsum, part_grad
@@ -210,8 +229,9 @@ def _launch(*args, **kw):
 
 def _plain(loss, x, labels, offsets, weights, eff, shift, with_rsum, margin_unit, grad_unit):
     """(value, X'r, Σr or None) in plain PyTorch with the kernel's f32
-    arithmetic; in ``mma`` mode on a bf16 block w and r round to bf16."""
-    _unit_id(margin_unit), _unit_id(grad_unit)
+    arithmetic; in ``mma`` mode on a bf16 block w and r round to bf16
+    (``mma_tf32`` keeps them f32, as ``fma`` does)."""
+    check_units(loss, margin_unit, grad_unit)
     x32 = x.float()
     bf16 = x.dtype == torch.bfloat16
     w = eff.to(torch.bfloat16).float() if bf16 and margin_unit == "mma" else eff

@@ -21,7 +21,11 @@ Two layouts, either or both in one call:
   are ``[row_ptr[i], row_ptr[i+1])``), the plain version ``row_ids``.
   ``chunks = (chunk_row, chunk_ptr)``, from :func:`segment_plan`, cuts rows
   longer than ``SEGMENT_CHUNK`` entries into chunks whose partial sums a
-  second pass adds in a fixed order.
+  second pass adds in a fixed order; shorter rows have no chunks.
+
+With a tail and no ELL block whose rows average fewer than 32 entries (the
+transpose of a sparse batch, one row per column) the kernel gives each row
+one thread instead of one warp.
 
 The kernel is hand-written CUDA for Hopper, ``csrc/sparse_gather.cu``; its
 header states the bound and the design. It reads f32 or bf16 values, int32
@@ -41,13 +45,16 @@ import torch
 from photon_ml_torch.build import check_cuda as _check
 from photon_ml_torch.build import on_device as _on
 
-#: launches of the row kernel (one per gather-sum on the card)
+#: launches of the row (or segment) kernel: one per gather-sum on the card
 launches = 0
 #: launches of the chunk kernel (only for rows longer than SEGMENT_CHUNK)
 chunk_launches = 0
 
 #: entries of one chunk of a long row; must equal kChunk in the CUDA source
 SEGMENT_CHUNK = 2048
+#: a tail without an ELL block whose rows average fewer entries than this
+#: (a warp's width) takes one thread per row instead of one warp
+SHORT_ROWS = 32
 
 _LIB = None
 _VP = ctypes.c_void_p
@@ -67,6 +74,9 @@ def _lib() -> ctypes.CDLL:
         lib.sparse_gather_chunks.argtypes = [
             ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP]
         lib.sparse_gather_chunks.restype = ctypes.c_int
+        lib.sparse_gather_segments.argtypes = [
+            ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP]
+        lib.sparse_gather_segments.restype = ctypes.c_int
         if lib.sparse_gather_chunk() != SEGMENT_CHUNK:
             raise RuntimeError("csrc/sparse_gather.cu kChunk differs from SEGMENT_CHUNK")
         _LIB = lib
@@ -81,8 +91,9 @@ def _require(cond: bool, msg: str) -> None:
 def segment_plan(row_ids: torch.Tensor, n: int):
     """(row_ptr [n+1] int32, chunks) of a row-sorted flat tail, on its
     device. ``chunks`` is None when no row is longer than SEGMENT_CHUNK,
-    else (chunk_row [C] int32, chunk_ptr [n+1] int32): chunk c covers
-    entries ``row_ptr[i] + (c - chunk_ptr[i])·SEGMENT_CHUNK`` onward of row
+    else (chunk_row [C] int32, chunk_ptr [n+1] int32) over the rows longer
+    than that (a shorter row has none): chunk c covers entries
+    ``row_ptr[i] + (c - chunk_ptr[i])·SEGMENT_CHUNK`` onward of row
     ``i = chunk_row[c]``. Built once per batch (one device sync)."""
     dev = row_ids.device
     bounds = torch.arange(n + 1, dtype=row_ids.dtype, device=dev)
@@ -92,7 +103,7 @@ def segment_plan(row_ids: torch.Tensor, n: int):
     lens = (row_ptr[1:] - row_ptr[:-1]).long()
     if int(lens.max()) <= SEGMENT_CHUNK:
         return row_ptr, None
-    per_row = (lens + SEGMENT_CHUNK - 1) // SEGMENT_CHUNK
+    per_row = torch.where(lens > SEGMENT_CHUNK, (lens + SEGMENT_CHUNK - 1) // SEGMENT_CHUNK, 0)
     chunk_ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     torch.cumsum(per_row, 0, out=chunk_ptr[1:])
     chunk_row = torch.repeat_interleave(torch.arange(n, device=dev), per_row)
@@ -191,7 +202,14 @@ def _launch(w, n, ell, tail, chunks):
             chunk_launches += 1
         else:
             chunk_ptr = None
-        if n:
+        if n and ell_vals is None and tail_vals is not None \
+                and tail_vals.shape[0] < SHORT_ROWS * n:
+            _check(lib.sparse_gather_segments(
+                int(bool(is_bf16)), tail_vals.data_ptr(), tail_cols.data_ptr(),
+                row_ptr.data_ptr(), ptr(partials), ptr(chunk_ptr), w.data_ptr(), n,
+                out.data_ptr(), stream), "sparse_gather_segments")
+            launches += 1
+        elif n:
             _check(lib.sparse_gather_rows(
                 int(bool(is_bf16)), ptr(ell_vals), ptr(ell_cols), width, ptr(tail_vals),
                 ptr(tail_cols), ptr(row_ptr), ptr(partials), ptr(chunk_ptr), w.data_ptr(), n,

@@ -14,11 +14,11 @@ with ``r = ws · dl/dz`` and effective coefficients ``f ⊙ w``,
     H v  = f ⊙ (Xᵀt − (Σt)·shifts) + λv
     t    = ws · d²l/dz² · (X(f⊙v) − (f⊙v)·shifts)
 
-``Xᵀr`` is a scatter (``index_add_``) over the ELL block, the flat tail and
-the hybrid head's k_hot columns, or, with the column-sorted view, sorted-run
-prefix sums with no scatter at all. On CUDA ``index_add_`` adds with float
-atomics, so a gradient may differ in its last bits from call to call; the
-value, which the line searches compare, comes from the kernel and does not.
+``Xᵀr`` (``data/sparse_batch.sparse_column_sum``) is the gather-sum again,
+over a column-sorted copy of the ELL block and the flat tail, plus a scatter
+of the hybrid head's k_hot columns; with the column-sorted view it is
+sorted-run prefix sums. Either way a column sums in a fixed order, so on the
+card a gradient, like the value, is bitwise the same from call to call.
 
 ``use_kernel`` has the meaning of ``ops/objective.py``: None (auto) and True
 take the gather kernel on a CUDA batch and its plain version on a CPU one;
@@ -31,9 +31,9 @@ import torch
 
 from photon_ml_torch.data.sparse_batch import (
     SparseLabeledPointBatch,
-    add_tail_column_sums,
     feature_product,
     sparse_column_sum,
+    tail_column_sums,
 )
 from photon_ml_torch.ops.losses import PointwiseLoss
 from photon_ml_torch.ops.normalization import NormalizationContext, no_normalization
@@ -120,21 +120,20 @@ class SparseGLMObjective:
 
     def _tail_gradient_update(self, g_eff: torch.Tensor, dzw: torch.Tensor,
                               batch: SparseLabeledPointBatch) -> torch.Tensor:
-        """Scatter the ELL block's and the flat tail's contributions
-        ``dzw_i · x_ij`` into ``g_eff`` (in place)."""
-        return add_tail_column_sums(g_eff, batch, dzw)
+        """``g_eff`` plus the ELL block's and the flat tail's contributions
+        ``dzw_i · x_ij``."""
+        return g_eff + tail_column_sums(batch, dzw, use_kernel=self.use_kernel)
 
     def _transpose(self, r: torch.Tensor, batch: SparseLabeledPointBatch) -> torch.Tensor:
         """Xᵀr in effective coordinates, by the batch's view: sorted runs of
-        the column-sorted view, else the hybrid head's product and the
-        ELL/flat scatters (``sparse_column_sum``)."""
+        the column-sorted view, else ``sparse_column_sum``."""
         if batch.has_column_sorted_view and not batch.has_hybrid_view:
             contrib = r[batch.rows_by_col] * batch.vals_by_col.to(r.dtype)
             if batch.col_bounds is not None:
                 return _sorted_run_sums(contrib, batch.col_bounds)
             out = torch.zeros((batch.dim,), dtype=r.dtype, device=r.device)
             return out.index_add_(0, batch.cols_sorted, contrib)
-        return sparse_column_sum(batch, r)
+        return sparse_column_sum(batch, r, use_kernel=self.use_kernel)
 
     def value_and_gradient(self, coefficients: torch.Tensor, batch: SparseLabeledPointBatch):
         margins = self.margins(coefficients, batch)
@@ -166,9 +165,10 @@ class SparseGLMObjective:
         shifts x'_ij = f_j (x_ij − s_j) expands into column sums."""
         d2 = self.loss.d2z(self.margins(coefficients, batch), batch.labels) * batch.weights
         f, s = self.normalization.factors, self.normalization.shifts
-        diag = sparse_column_sum(batch, d2, square_values=True)
+        diag = sparse_column_sum(batch, d2, square_values=True, use_kernel=self.use_kernel)
         if s is not None:
-            diag = diag - 2.0 * s * sparse_column_sum(batch, d2) + s * s * torch.sum(d2)
+            diag = diag - 2.0 * s * sparse_column_sum(batch, d2, use_kernel=self.use_kernel) \
+                + s * s * torch.sum(d2)
         if f is not None:
             diag = diag * f * f
         if self.l2_weight > 0.0:

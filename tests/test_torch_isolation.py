@@ -38,6 +38,11 @@ def _clean_env() -> dict:
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "photon_ml_torch.estimators" in mods and "photon_ml_torch.ops.fused_glm" in mods
+    # the driver slice's packages are in the scan: io, cli, util, diagnostics
+    for package in ("io", "cli", "util", "diagnostics"):
+        assert any(m.startswith(f"photon_ml_torch.{package}.") for m in mods), package
+    assert {"photon_ml_torch.cli.game_training_driver", "photon_ml_torch.io.avro",
+            "photon_ml_torch.io.model_io", "photon_ml_torch.transformers"} <= set(mods)
     script = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -40,9 +40,10 @@ def _case(n, d, binary, dtype, device, seed=0):
 
 def _limits(dtype, units):
     """(value rel, gradient atol as a share of max|g|): f32 1e-5 and 1e-4;
-    bf16 (the same rounded inputs on both sides) 1e-4; an f32 block with a
-    product in TF32 against the plain version's f32: 1e-4 and 5e-3."""
-    if dtype == torch.float32 and "mma" in units:
+    bf16 (the same rounded inputs on both sides) 1e-4; a product in TF32
+    (``mma`` on an f32 block, ``mma_tf32`` on either) against the plain
+    version's f32: 1e-4 and 5e-3."""
+    if "mma_tf32" in units or (dtype == torch.float32 and "mma" in units):
         return 1e-4, 5e-3
     return (1e-5 if dtype == torch.float32 else 1e-4), 1e-4
 
@@ -97,6 +98,41 @@ def test_columns_kernel_matches_plain(cuda, with_o, with_rsum):
     assert packed_glm.columns_launches == before + 2
 
 
+@pytest.mark.parametrize("n,d", [(1 << 14, 512), (1007, 123)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_probe_forms_match_plain(cuda, dtype, n, d):
+    """The form of experiments/kernel_probe.py, kernel_probe2.py and
+    kernel_probe3.py: separate columns with neither offsets nor Σr, every
+    unit pair (``mma_tf32`` included), both tile builds."""
+    loss = losses.LogisticLoss()
+    x, y, _, ws, w = _case(n, d, True, dtype, cuda, seed=3)
+    for units in [(mu, gu) for mu in packed_glm.UNITS for gu in packed_glm.UNITS]:
+        for rows in sorted(packed_glm.SOURCES):
+            before = packed_glm.columns_launches
+            kw = dict(with_rsum=False, margin_unit=units[0], grad_unit=units[1])
+            _check(lambda: packed_glm.columns_core(loss, x, y, ws, None, w, **kw),
+                   lambda: packed_glm.columns_core_reference(loss, x, y, ws, None, w, **kw),
+                   dtype, units)
+            assert packed_glm.columns_launches == before + 2
+
+
+def test_tf32_unit_on_a_bf16_block_widens_the_tile(cuda):
+    """On a bf16 block ``mma_tf32`` keeps w and r out of bf16: it lands
+    nearer the f32 product than the bf16 ``mma`` does, and on an f32 block
+    it is ``mma``, bit for bit."""
+    loss = losses.LogisticLoss()
+    x, y, o, ws, w = _case(4096, 256, True, torch.bfloat16, cuda, seed=4)
+    aux = packed_glm.pack_aux(y, o, ws)
+    plain = packed_glm.packed_core_reference(loss, x, aux, w)
+    tf32 = packed_glm.packed_core(loss, x, aux, w, margin_unit="mma_tf32", grad_unit="mma_tf32")
+    bf16 = packed_glm.packed_core(loss, x, aux, w, margin_unit="mma", grad_unit="mma")
+    assert float((tf32[1] - plain[1]).abs().max()) < float((bf16[1] - plain[1]).abs().max())
+    xf = x.float()
+    a = packed_glm.packed_core(loss, xf, aux, w, margin_unit="mma_tf32", grad_unit="mma_tf32")
+    b = packed_glm.packed_core(loss, xf, aux, w, margin_unit="mma", grad_unit="mma")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_wrapper_with_normalization_and_refusals(cuda):
     loss = losses.LogisticLoss()
     x, y, o, ws, w = _case(2000, 64, True, torch.float32, cuda, seed=2)
@@ -118,3 +154,6 @@ def test_wrapper_with_normalization_and_refusals(cuda):
         packed_glm.packed_core(loss, x, aux[:, :2].contiguous(), w)
     with pytest.raises(ValueError, match="contiguous"):
         packed_glm.packed_core(loss, x.t().contiguous().t(), aux, w)
+    with pytest.raises(ValueError, match="logistic loss only"):
+        packed_glm.packed_core(losses.SquaredLoss(), x.to(torch.bfloat16), aux, w,
+                               margin_unit="mma_tf32")

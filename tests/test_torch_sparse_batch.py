@@ -279,7 +279,8 @@ def test_row_pointers_and_chunk_plan(monkeypatch):
     monkeypatch.setattr(sparse_gather, "SEGMENT_CHUNK", 8)
     row_ptr, (chunk_row, chunk_ptr) = sparse_gather.segment_plan(batch.row_ids, N)
     _eq(row_ptr, batch.row_ptr)
-    per_row = -(-lens // 8)
+    per_row = np.where(lens > 8, -(-lens // 8), 0)  # rows of 8 entries or fewer: none
+    assert per_row.sum() > 0 and (per_row == 0).sum() > len(EMPTY_ROWS)
     _eq(chunk_ptr, np.concatenate([[0], np.cumsum(per_row)]))
     _eq(chunk_row, np.repeat(np.arange(N), per_row))
     assert chunk_row.dtype == chunk_ptr.dtype == row_ptr.dtype == torch.int32
@@ -368,3 +369,27 @@ def test_rejections():
         tsb.SparseLabeledPointBatch.from_shard(ts, labels, labels, labels, hybrid=True,
                                                column_sorted_gradient=True, device="cpu")
     assert not ts.rows.flags.writeable
+
+
+@pytest.mark.parametrize("layout", ["ell", "flat", "hybrid"])
+@pytest.mark.parametrize("square", [False, True])
+def test_column_sum_through_the_transpose_plan(layout, square):
+    """The transpose through the gather over the column-sorted plan (pad
+    slots and zero entries left out) equals the plain ``index_add_`` of
+    every entry, and ``replace`` keeps the plan only while the entries stay."""
+    rows, cols, vals, labels, offsets, weights = coo(seed=4)
+    kw = dict(ell=False) if layout == "flat" else {}
+    if layout == "hybrid":
+        kw = dict(hybrid=tsb.HybridPolicy(hot_cols=4))
+    batch = tsb.SparseLabeledPointBatch.from_coo(rows, cols, vals, labels, dim=D,
+                                                 offsets=offsets, weights=weights,
+                                                 dtype=torch.float64, device="cpu", **kw)
+    assert batch.has_ell_view == (layout != "flat")
+    r = torch.from_numpy(np.random.default_rng(5).normal(size=N))
+    got = tsb.sparse_column_sum(batch, r, square)
+    want = tsb.sparse_column_sum(batch, r, square, use_kernel=False)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+    plan = batch.__dict__["_transpose_plan"]
+    assert int((plan[0] == 0).sum()) == 0 and bool((plan[2][1:] >= plan[2][:-1]).all())
+    assert batch.with_offsets(batch.offsets + 1).__dict__["_transpose_plan"] is plan
+    assert "_transpose_plan" not in batch.replace(values=batch.values * 2).__dict__

@@ -11,7 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from photon_ml_torch.data.sparse_batch import HybridPolicy, SparseLabeledPointBatch, sparse_margins
+from photon_ml_torch.data.sparse_batch import (
+    HybridPolicy,
+    SparseLabeledPointBatch,
+    sparse_column_sum,
+    sparse_margins,
+)
 from photon_ml_torch.ops import sparse_gather
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +125,30 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         sparse_gather.gather_sum(w, n + 1, ell=(ev, ec))
     with pytest.raises(ValueError):
         sparse_gather.gather_sum(w, n, ell=(ev.t().contiguous().t(), ec))
+
+
+@pytest.mark.parametrize("layout", ["ell", "hybrid"])
+def test_transpose_repeats_bitwise(cuda, layout):
+    """The sparse transpose (the gradient's Xᵀr) on the card: the gather
+    kernel over the column-sorted plan (about four entries a column, so a
+    thread per column), twice bitwise equal, against the plain ``index_add_``
+    in f64 within 1e-5·Σ|r·x| per column; a long column (more than a chunk
+    of entries) included."""
+    n, d = 4096, 20000
+    rows, cols, vals = _coo(n, d, seed=6)
+    cols[::3] = 7  # one column of ~27,000 entries: chunked
+    kw = dict(hybrid=HybridPolicy(hot_cols=8)) if layout == "hybrid" else {}
+    y = np.zeros(n)
+    batch = SparseLabeledPointBatch.from_coo(rows, cols, vals, y, dim=d, device=cuda, **kw)
+    r = torch.randn(n, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    before = sparse_gather.launches
+    a = sparse_column_sum(batch, r)
+    b = sparse_column_sum(batch, r)
+    assert sparse_gather.launches == before + 2 and torch.equal(a, b)
+    batch64 = SparseLabeledPointBatch.from_coo(rows, cols, vals, y, dim=d, dtype=torch.float64,
+                                               device=cuda, **kw)
+    want = sparse_column_sum(batch64, r.double(), use_kernel=False)
+    abs64 = SparseLabeledPointBatch.from_coo(rows, cols, np.abs(vals), y, dim=d,
+                                             dtype=torch.float64, device=cuda, **kw)
+    scale = sparse_column_sum(abs64, r.double().abs(), use_kernel=False)
+    assert bool(((a.double() - want).abs() <= 1e-5 * scale + 1e-30).all())
