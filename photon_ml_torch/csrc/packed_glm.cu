@@ -38,30 +38,56 @@
 //
 // Bound on an H100 (3.35 TB/s): the bytes of X read once plus 12 n bytes of
 // aux over the memory rate: 0.080 ms at n = 2^17, d = 512 in f32, 0.040 ms
-// in bf16. The arithmetic (4 n d flops) is far below either unit's peak, so
-// the unit changes how many instructions a tile costs, not the bound.
+// in bf16. The arithmetic (4 n d flops, about 2 flops a byte in bf16) is
+// far below either unit's peak, so the unit changes how many instructions a
+// tile costs, not the bound.
 //
-// Design (that of csrc/fused_glm.cu, which this file does not change): the
-// TPU kernel's serialized grid with a first-step initialisation becomes a
-// persistent grid; a block stages tiles of kRows rows in shared memory with
-// 16-byte cp.async copies, two buffers deep, computes the tile's margins
-// and then its gradient contribution from the same staged tile, and owns
-// one row of per-block partials in which every column belongs to one
-// thread. A second kernel adds the partials in block order. No float
-// atomics: repeated calls are bitwise equal. Ragged n and d are masked
-// here; X is never copied or padded.
+// Design. A persistent grid; a block walks its tiles of kRows rows in
+// strided order and owns one row of per-block partials; a second kernel adds
+// the partials in block order. No float atomics: repeated calls are bitwise
+// equal. X is never copied or padded in device memory.
 //
-// mma.sync fragments (PTX ISA, m16n8k16 bf16 and m16n8k8 tf32): the margin
-// product takes the tile as A [16 rows, k] and w replicated across the 8
-// columns of B, each warp a strided share of the k chunks, the warps'
-// partial margins added in warp order through shared memory. The gradient
-// product takes the transposed tile as A [16 columns, 16 rows] and r
-// replicated across B; a warp owns a strided share of the column chunks.
+// - Staging: a ring of 2-4 stages in shared memory (as many as fit in
+//   kRingBytes, so that two blocks share an SM; two when both products are
+//   on the FMA unit, which leans on more resident blocks), filled with cp.async
+//   (16-byte copies where a row's bytes allow, else 8, 4, or plain 2-byte
+//   copies for a bf16 row of odd d). A staged row has the pitch
+//   round_up(d, 16) + 8 elements: the 8 extra elements shift successive rows
+//   by an odd number of 16-byte bank groups (bf16) or by 8 banks (f32), so
+//   every fragment load below is free of bank conflicts. The columns
+//   [d, round_up(d, 16)) are zeroed once per block and the rows past a
+//   ragged tile's end are zeroed when it is staged, so the inner loops carry
+//   no bounds checks. One barrier per tile hands a stage from its copies to
+//   its readers, a second one hands the margins to the loss.
+// - Margins: on the tensor cores each warp takes the 16-column chunks ch =
+//   warp, warp + 8, ... of every 16-row block of the tile; bf16 A fragments
+//   come from one ldmatrix.x4 each, TF32 fragments from 8-byte (f32) or
+//   4-byte (bf16, widened) vector loads, with the k order inside a chunk
+//   permuted so that each lane's two k values are adjacent (a dot product
+//   may take its terms in any fixed order). w's B fragments (bf16 pairs in
+//   fragment order, or TF32 bits) are built in shared memory once per block.
+//   The warps' partial margins meet in shared memory (double-buffered by
+//   tile parity) and every warp adds them in warp order. On the FMA unit a
+//   warp takes whole rows.
+// - Loss: every warp evaluates the loss of the tile's rows, one row a lane,
+//   so the residuals reach the gradient's B fragments by warp shuffles with
+//   no further barrier; warp 0 alone keeps the value and residual sums.
+// - Gradient: each warp owns the same column chunks for the whole kernel and
+//   carries their C fragments in registers across all its tiles (bf16 A
+//   fragments by ldmatrix.x4.trans, TF32 ones by vector loads with the
+//   column order inside a chunk permuted); on the FMA unit each thread owns
+//   the columns tid, tid + 256, ... in registers. The block's partial row is
+//   written once, at the end.
 //
-// One staged pass holds 2 * kRows * d * itemsize <= kStageBytesMax, i.e.
-// d <= 1536 for f32 and d <= 3072 for bf16 at 16 rows a tile (half that at
-// 32); wider blocks are refused (the separate-column kernel of
-// csrc/fused_glm.cu takes them).
+// mma.sync shapes (PTX ISA): m16n8k16 bf16 and m16n8k8 tf32, f32
+// accumulation. The margin product takes the tile as A [16 rows, k] and w
+// replicated across the 8 columns of B; the gradient product takes the
+// transposed tile as A [16 columns, rows] and r replicated across B.
+//
+// Width: the gradient registers hold kMaxChunks chunks a warp, so d <=
+// kWarps * kMaxChunks * 16 = 1536; two stages must fit in kStageBytesMax,
+// which at 32 rows a tile holds f32 rows up to d = 784. Wider blocks are
+// refused (the separate-column kernel of csrc/fused_glm.cu takes them).
 //
 // The kernel allocates nothing. Every entry point returns
 // cudaGetLastError() (0 on success).
@@ -74,17 +100,24 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Rows per staged tile: 16 unless the including file asks for another
-// multiple of 16 (packed_glm_r32.cu builds the 32-row variant of this source).
+constexpr unsigned kFull = 0xffffffffu;
+// Rows per staged tile: 16 unless the including file asks for 32
+// (packed_glm_r32.cu builds the 32-row variant of this source).
 #ifndef PACKED_GLM_ROWS
 #define PACKED_GLM_ROWS 16
 #endif
 constexpr int kRows = PACKED_GLM_ROWS;
-static_assert(kRows % 16 == 0 && kRows >= 16 && kRows <= 64, "tile rows: a multiple of 16");
-// r[kRows] | per-warp value and rsum | per-warp partial margins [kWarps][kRows]
-constexpr int kHeaderBytes = 4096;
-static_assert((kRows + 2 * kWarps + kWarps * kRows) * 4 <= kHeaderBytes, "header too small");
-constexpr int kStageBytesMax = 192 * 1024;
+static_assert(kRows == 16 || kRows == 32, "tile rows: 16 or 32 (one row a lane in the loss)");
+// Gradient column chunks of 16 a warp holds in registers, and the FMA
+// gradient's columns a thread holds: both cover d <= kMaxD.
+constexpr int kMaxChunks = 12;
+constexpr int kMaxD = kWarps * kMaxChunks * 16;
+constexpr int kMaxFmaCols = kMaxD / kThreads;
+// Two stages of the widest row must fit here; more stages only while the
+// ring stays within kRingBytes (two blocks to an SM).
+constexpr int kStageBytesMax = 200 * 1024;
+constexpr int kRingBytes = 104 * 1024;
+constexpr int kMaxStages = 4;
 
 enum LossId { kLogistic = 0, kSquared = 1, kPoisson = 2, kSmoothedHinge = 3 };
 // kMmaTf32 on an f32 tile is kMma (both TF32); on a bf16 tile it is the TF32
@@ -126,18 +159,61 @@ __device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& d
   }
 }
 
-template <typename T>
-__host__ __device__ constexpr size_t smem_bytes(int d) {
-  return kHeaderBytes + 2 * (size_t)kRows * d * sizeof(T);
+// ---- shared-memory geometry (host and device) --------------------------------
+
+__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+// Elements of one staged row: see the header.
+__host__ __device__ constexpr int pitch_of(int d) { return round_up(d, 16) + 8; }
+
+// marg[2][kWarps][kRows] f32 | w fragments (round_up(d, 16) x 4 bytes) | stages
+__host__ __device__ constexpr size_t marg_bytes() { return 2 * kWarps * kRows * 4; }
+__host__ __device__ constexpr size_t wfrag_bytes(int d) { return (size_t)round_up(d, 16) * 4; }
+__host__ __device__ constexpr size_t stage_bytes(int d, int itemsize) {
+  return (size_t)kRows * pitch_of(d) * itemsize;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+// Two stages when both products are on the FMA unit, which reads w and the
+// aux columns through L1, the other part of the SM's 256 KB: the ring of up
+// to four read 0.0806 ms against 0.0761 at [2^17, 512] bf16, and 0.0625
+// against 0.0598 at [2^17, 256] f32 (H100 80GB HBM3 at 700 W,
+// dev/torch_kernel_ab.py on that variant of this source).
+int stages_for(int d, int itemsize, bool fma_only) {
+  if (fma_only) return 2;
+  const int fit = (int)(kRingBytes / stage_bytes(d, itemsize));
+  return fit < 2 ? 2 : (fit > kMaxStages ? kMaxStages : fit);
+}
+
+size_t smem_bytes(int d, int itemsize, bool fma_only) {
+  return marg_bytes() + wfrag_bytes(d) +
+         stages_for(d, itemsize, fma_only) * stage_bytes(d, itemsize);
+}
+
+int max_staged_d(int itemsize) {
+  const int by_smem = (kStageBytesMax / (2 * kRows * itemsize) - 8) / 16 * 16;
+  return by_smem < kMaxD ? by_smem : kMaxD;
+}
+
+// ---- staging -------------------------------------------------------------------
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(gmem_src),
+                 "n"(BYTES));
+  }
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prior_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+// Wait until at most `pending` (0-2) of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::);
 }
 
 __device__ __forceinline__ int tile_rows(int64_t t, int64_t n) {
@@ -145,39 +221,80 @@ __device__ __forceinline__ int tile_rows(int64_t t, int64_t n) {
   return (int)(left < kRows ? left : kRows);
 }
 
-// Start copying tile t of x into buf: 16-byte cp.async copies, then the
-// sub-16-byte tail (only in a ragged last tile) with plain loads.
-template <typename T>
-__device__ __forceinline__ void stage_tile(T* buf, const T* x, int64_t t, int64_t n, int d,
-                                           int tid) {
-  const int64_t count = (int64_t)tile_rows(t, n) * d;
-  const T* src = x + t * kRows * (int64_t)d;
-  const int64_t vecs = count * (int64_t)sizeof(T) / 16;
-  const char* src_b = reinterpret_cast<const char*>(src);
-  char* dst_b = reinterpret_cast<char*>(buf);
-  for (int64_t i = tid; i < vecs; i += kThreads) cp_async16(dst_b + i * 16, src_b + i * 16);
-  for (int64_t i = vecs * 16 / (int64_t)sizeof(T) + tid; i < count; i += kThreads)
-    buf[i] = src[i];
+// Copy each row of the tile's `rows` rows to its pitched place in chunks of
+// BYTES (a divisor of the row's bytes; x and every row start are aligned).
+template <int BYTES>
+__device__ __forceinline__ void copy_rows(char* dst, const char* src, int rows, int row_bytes,
+                                          int pitch_bytes, int tid) {
+  const int per_row = row_bytes / BYTES;
+  for (int v = tid; v < rows * per_row; v += kThreads) {
+    const int i = v / per_row, j = v - i * per_row;
+    cp_async<BYTES>(dst + i * pitch_bytes + j * BYTES, src + (int64_t)i * row_bytes + j * BYTES);
+  }
 }
 
-// ---- tensor-core fragments -------------------------------------------------
+// Start staging tile t of x: its rows at pitch `pitch`, and zeros in the
+// rows past a ragged tile's end (the pad columns were zeroed at the start).
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* buf, const T* __restrict__ x, int64_t t, int64_t n,
+                                           int d, int pitch, int tid) {
+  const int rows = tile_rows(t, n);
+  const int row_bytes = d * (int)sizeof(T);
+  const int pitch_bytes = pitch * (int)sizeof(T);
+  const char* src = reinterpret_cast<const char*>(x + t * kRows * (int64_t)d);
+  char* dst = reinterpret_cast<char*>(buf);
+  if (row_bytes % 16 == 0) {
+    copy_rows<16>(dst, src, rows, row_bytes, pitch_bytes, tid);
+  } else if (row_bytes % 8 == 0) {
+    copy_rows<8>(dst, src, rows, row_bytes, pitch_bytes, tid);
+  } else if (row_bytes % 4 == 0) {
+    copy_rows<4>(dst, src, rows, row_bytes, pitch_bytes, tid);
+  } else {  // a bf16 row of odd d: plain 2-byte copies
+    const T* xs = x + t * kRows * (int64_t)d;
+    for (int v = tid; v < rows * d; v += kThreads) {
+      const int i = v / d, j = v - i * d;
+      buf[i * pitch + j] = xs[(int64_t)i * d + j];
+    }
+  }
+  if (rows < kRows) {
+    uint4* z = reinterpret_cast<uint4*>(dst + rows * pitch_bytes);
+    for (int v = tid; v < (kRows - rows) * pitch_bytes / 16; v += kThreads)
+      z[v] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ---- tensor-core fragments -------------------------------------------------------
 
 __device__ __forceinline__ void mma_bf16_m16n8k16(float (&c)[4], const uint32_t (&a)[4],
-                                                  const uint32_t (&b)[2]) {
+                                                  uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void mma_tf32_m16n8k8(float (&c)[4], const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[2]) {
+                                                 uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l & 7 of matrix l >> 3.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* smem_row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const void* smem_row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
 }
 
 __device__ __forceinline__ uint32_t tf32_bits(float v) {
@@ -189,272 +306,321 @@ __device__ __forceinline__ uint32_t tf32_bits(float v) {
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
-
-// Tile element [row, col] as mma operand bits, 0 outside the tile's rows and
-// the block's columns (a ragged tile's unused rows hold stale values).
-__device__ __forceinline__ uint32_t tile_bits(const float* tile, int row, int col, int rows,
-                                              int d) {
-  return (row < rows && col < d) ? tf32_bits(tile[(int64_t)row * d + col]) : 0u;
-}
-__device__ __forceinline__ uint32_t tile_bits(const __nv_bfloat16* tile, int row, int col,
-                                              int rows, int d) {
-  return (row < rows && col < d) ? (uint32_t)__bfloat16_as_ushort(tile[(int64_t)row * d + col])
-                                 : 0u;
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
 }
 
-// Tile element [row, col] as a TF32 operand: an f32 element rounds to TF32; a
-// bf16 element widens to f32, which TF32 holds exactly (8 mantissa bits).
-__device__ __forceinline__ uint32_t tf32_tile_bits(const float* tile, int row, int col, int rows,
-                                                   int d) {
-  return tile_bits(tile, row, col, rows, d);
+// Two adjacent tile elements as TF32 operands: f32 rounds to TF32; bf16
+// widens to f32, which TF32 holds exactly (8 mantissa bits).
+__device__ __forceinline__ void tf32_pair(const float* p, uint32_t& lo, uint32_t& hi) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  lo = tf32_bits(v.x);
+  hi = tf32_bits(v.y);
 }
-__device__ __forceinline__ uint32_t tf32_tile_bits(const __nv_bfloat16* tile, int row, int col,
-                                                   int rows, int d) {
-  return (row < rows && col < d) ? __float_as_uint(__bfloat162float(tile[(int64_t)row * d + col]))
-                                 : 0u;
+__device__ __forceinline__ void tf32_pair(const __nv_bfloat16* p, uint32_t& lo, uint32_t& hi) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  lo = v << 16;
+  hi = v & 0xffff0000u;
 }
 
-// Partial margins of 16 tile rows (a row block of the tile: ``rows`` counts the
-// valid ones from ``tile`` on) over this warp's share of the k chunks, left in
-// part[0..15] (part is this warp's row of shared memory at that row block).
-__device__ __forceinline__ void margins_mma(const __nv_bfloat16* tile, const float* __restrict__ w,
-                                            int rows, int d, int warp, int lane, float* part) {
+// A product in bf16 mma.sync: the "mma" unit on a bf16 tile. Every other
+// tensor-core product (an f32 tile, or "mma_tf32") runs in TF32.
+template <typename T, int UNIT>
+constexpr bool kBf16Mma = UNIT == kMma && sizeof(T) == 2;
+template <typename T, int UNIT>
+constexpr bool kTf32 = UNIT != kFma && !kBf16Mma<T, UNIT>;
+
+// w's margin-product B fragments for the whole block, zero past d: bf16
+// pairs in fragment order (chunk ch, lane tig: k = 16 ch + 2 tig, +1 and
+// +8, +9) for the bf16 product, TF32 bits in k order for the TF32 one.
+template <typename T, int MUNIT>
+__device__ __forceinline__ void build_w_fragments(uint32_t* wf, const float* __restrict__ w, int d,
+                                                  int tid) {
+  const int padded = round_up(d, 16);
+  auto wk = [&](int k) { return k < d ? __ldg(w + k) : 0.f; };
+  if constexpr (kBf16Mma<T, MUNIT>) {
+    for (int i = tid; i < padded / 4; i += kThreads) {
+      const int k = (i >> 2) * 16 + 2 * (i & 3);
+      wf[2 * i] = bf16_pair(wk(k), wk(k + 1));
+      wf[2 * i + 1] = bf16_pair(wk(k + 8), wk(k + 9));
+    }
+  } else if constexpr (kTf32<T, MUNIT>) {
+    for (int k = tid; k < padded; k += kThreads) wf[k] = tf32_bits(wk(k));
+  }
+}
+
+// This warp's partial margins of the tile's rows over its k chunks, in
+// c[m][0] (row 16 m + g) and c[m][2] (row 16 m + g + 8).
+template <typename T, int MUNIT>
+__device__ __forceinline__ void margins_mma(const T* tile, int pitch, const uint32_t* wf, int nch,
+                                            int warp, int lane, float (&c)[kRows / 16][4]) {
   const int g = lane >> 2, tig = lane & 3;
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  const int chunks = (d + 15) / 16;
-  for (int ch = warp; ch < chunks; ch += kWarps) {
-    const int k0 = ch * 16 + 2 * tig;
-    uint32_t a[4], b[2];
-    a[0] = tile_bits(tile, g, k0, rows, d) | (tile_bits(tile, g, k0 + 1, rows, d) << 16);
-    a[1] = tile_bits(tile, g + 8, k0, rows, d) | (tile_bits(tile, g + 8, k0 + 1, rows, d) << 16);
-    a[2] = tile_bits(tile, g, k0 + 8, rows, d) | (tile_bits(tile, g, k0 + 9, rows, d) << 16);
-    a[3] = tile_bits(tile, g + 8, k0 + 8, rows, d) |
-           (tile_bits(tile, g + 8, k0 + 9, rows, d) << 16);
-    const uint32_t w0 = k0 < d ? bf16_bits(__ldg(w + k0)) : 0u;
-    const uint32_t w1 = k0 + 1 < d ? bf16_bits(__ldg(w + k0 + 1)) : 0u;
-    const uint32_t w8 = k0 + 8 < d ? bf16_bits(__ldg(w + k0 + 8)) : 0u;
-    const uint32_t w9 = k0 + 9 < d ? bf16_bits(__ldg(w + k0 + 9)) : 0u;
-    b[0] = w0 | (w1 << 16);
-    b[1] = w8 | (w9 << 16);
-    mma_bf16_m16n8k16(c, a, b);
-  }
-  if (tig == 0) {
-    part[g] = c[0];
-    part[g + 8] = c[2];
-  }
-}
-
-// The TF32 margin product (an f32 tile, or a bf16 tile widened to f32).
-template <typename T>
-__device__ __forceinline__ void margins_tf32(const T* tile, const float* __restrict__ w, int rows,
-                                             int d, int warp, int lane, float* part) {
-  const int g = lane >> 2, tig = lane & 3;
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  const int chunks = (d + 7) / 8;
-  for (int ch = warp; ch < chunks; ch += kWarps) {
-    const int k0 = ch * 8 + tig;
-    uint32_t a[4], b[2];
-    a[0] = tf32_tile_bits(tile, g, k0, rows, d);
-    a[1] = tf32_tile_bits(tile, g + 8, k0, rows, d);
-    a[2] = tf32_tile_bits(tile, g, k0 + 4, rows, d);
-    a[3] = tf32_tile_bits(tile, g + 8, k0 + 4, rows, d);
-    b[0] = k0 < d ? tf32_bits(__ldg(w + k0)) : 0u;
-    b[1] = k0 + 4 < d ? tf32_bits(__ldg(w + k0 + 4)) : 0u;
-    mma_tf32_m16n8k8(c, a, b);
-  }
-  if (tig == 0) {
-    part[g] = c[0];
-    part[g + 8] = c[2];
-  }
-}
-
-// gacc[col] += sum_i r[i] * tile[i, col] over all kRows tile rows and this
-// warp's share of the column chunks; r holds 0 for a ragged tile's unused rows.
-__device__ __forceinline__ void gradient_mma(const __nv_bfloat16* tile, const float* r, int rows,
-                                             int d, int warp, int lane, float* gacc) {
-  const int g = lane >> 2, tig = lane & 3;
-  const int k0 = 2 * tig;
-  const int chunks = (d + 15) / 16;
-  for (int ch = warp; ch < chunks; ch += kWarps) {
-    const int c0 = ch * 16 + g;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int ch = warp; ch < nch; ch += kWarps) {
+    if constexpr (kBf16Mma<T, MUNIT>) {
+      const uint2 b = reinterpret_cast<const uint2*>(wf)[ch * 4 + tig];
+      const int q = lane >> 3;
+      const T* row = tile + ((q & 1) * 8 + (lane & 7)) * pitch + ch * 16 + (q >> 1) * 8;
 #pragma unroll
-    for (int rb = 0; rb < kRows; rb += 16) {  // 16 tile rows are one k step
-      uint32_t a[4], b[2];
-      b[0] = bf16_bits(r[rb + k0]) | (bf16_bits(r[rb + k0 + 1]) << 16);
-      b[1] = bf16_bits(r[rb + k0 + 8]) | (bf16_bits(r[rb + k0 + 9]) << 16);
-      a[0] = tile_bits(tile, rb + k0, c0, rows, d) |
-             (tile_bits(tile, rb + k0 + 1, c0, rows, d) << 16);
-      a[1] = tile_bits(tile, rb + k0, c0 + 8, rows, d) |
-             (tile_bits(tile, rb + k0 + 1, c0 + 8, rows, d) << 16);
-      a[2] = tile_bits(tile, rb + k0 + 8, c0, rows, d) |
-             (tile_bits(tile, rb + k0 + 9, c0, rows, d) << 16);
-      a[3] = tile_bits(tile, rb + k0 + 8, c0 + 8, rows, d) |
-             (tile_bits(tile, rb + k0 + 9, c0 + 8, rows, d) << 16);
-      mma_bf16_m16n8k16(c, a, b);
-    }
-    if (tig == 0) {
-      if (c0 < d) gacc[c0] += c[0];
-      if (c0 + 8 < d) gacc[c0 + 8] += c[2];
+      for (int m = 0; m < kRows / 16; ++m) {
+        uint32_t a[4];
+        ldmatrix_x4(a, row + m * 16 * pitch);
+        mma_bf16_m16n8k16(c[m], a, b.x, b.y);
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        // logical k tig, tig + 4 of the m16n8k8 step are columns k0 + 2 tig, +1
+        const int k0 = ch * 16 + s * 8 + 2 * tig;
+        const uint2 b = *reinterpret_cast<const uint2*>(wf + k0);
+#pragma unroll
+        for (int m = 0; m < kRows / 16; ++m) {
+          uint32_t a[4];
+          tf32_pair(tile + (m * 16 + g) * pitch + k0, a[0], a[2]);
+          tf32_pair(tile + (m * 16 + g + 8) * pitch + k0, a[1], a[3]);
+          mma_tf32_m16n8k8(c[m], a, b.x, b.y);
+        }
+      }
     }
   }
 }
 
-// The TF32 gradient product (an f32 tile, or a bf16 tile widened to f32).
-template <typename T>
-__device__ __forceinline__ void gradient_tf32(const T* tile, const float* r, int rows, int d,
-                                              int warp, int lane, float* gacc) {
-  const int g = lane >> 2, tig = lane & 3;
-  const int chunks = (d + 15) / 16;
-  for (int ch = warp; ch < chunks; ch += kWarps) {
-    const int c0 = ch * 16 + g;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+// The gradient product's B fragments of one tile from r (lane i holds row
+// i's residual): bf16 pairs of rows 2 tig, +1 and +8, +9 for each 16-row k
+// step, or TF32 bits for each 8-row k step (rows tig, tig + 4 for an f32
+// tile; 2 tig, 2 tig + 1 for a widened bf16 tile).
+template <typename T, int GUNIT>
+__device__ __forceinline__ void gradient_b(float r, int tig, uint32_t (&b)[kRows / 8][2]) {
+  if constexpr (kBf16Mma<T, GUNIT>) {
 #pragma unroll
-    for (int rb = 0; rb < kRows; rb += 8) {  // 8 tile rows are one k step
-      uint32_t a[4], b[2];
-      b[0] = tf32_bits(r[rb + tig]);
-      b[1] = tf32_bits(r[rb + tig + 4]);
-      a[0] = tf32_tile_bits(tile, rb + tig, c0, rows, d);
-      a[1] = tf32_tile_bits(tile, rb + tig, c0 + 8, rows, d);
-      a[2] = tf32_tile_bits(tile, rb + tig + 4, c0, rows, d);
-      a[3] = tf32_tile_bits(tile, rb + tig + 4, c0 + 8, rows, d);
-      mma_tf32_m16n8k8(c, a, b);
+    for (int k = 0; k < kRows / 16; ++k) {
+      const int r0 = 16 * k + 2 * tig;
+      b[k][0] = bf16_pair(__shfl_sync(kFull, r, r0), __shfl_sync(kFull, r, r0 + 1));
+      b[k][1] = bf16_pair(__shfl_sync(kFull, r, r0 + 8), __shfl_sync(kFull, r, r0 + 9));
     }
-    if (tig == 0) {
-      if (c0 < d) gacc[c0] += c[0];
-      if (c0 + 8 < d) gacc[c0 + 8] += c[2];
+  } else {
+    const int lo = sizeof(T) == 4 ? tig : 2 * tig, hi = sizeof(T) == 4 ? tig + 4 : 2 * tig + 1;
+#pragma unroll
+    for (int k = 0; k < kRows / 8; ++k) {
+      b[k][0] = tf32_bits(__shfl_sync(kFull, r, 8 * k + lo));
+      b[k][1] = tf32_bits(__shfl_sync(kFull, r, 8 * k + hi));
+    }
+  }
+}
+
+// c += (the tile's columns of chunk ch)' r for this warp's chunk ch. C rows
+// are columns 16 ch + g, + 8 (bf16) or 16 ch + 2 g, + 1 (TF32).
+template <typename T, int GUNIT>
+__device__ __forceinline__ void gradient_mma(const T* tile, int pitch, int ch, int lane,
+                                             const uint32_t (&b)[kRows / 8][2], float (&c)[4]) {
+  if constexpr (kBf16Mma<T, GUNIT>) {
+    const int q = lane >> 3;
+    const T* row = tile + ((q >> 1) * 8 + (lane & 7)) * pitch + ch * 16 + (q & 1) * 8;
+#pragma unroll
+    for (int k = 0; k < kRows / 16; ++k) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, row + k * 16 * pitch);
+      mma_bf16_m16n8k16(c, a, b[k][0], b[k][1]);
+    }
+  } else {
+    const int g = lane >> 2, tig = lane & 3;
+    const int lo = sizeof(T) == 4 ? tig : 2 * tig, hi = sizeof(T) == 4 ? tig + 4 : 2 * tig + 1;
+    const T* col = tile + ch * 16 + 2 * g;
+#pragma unroll
+    for (int k = 0; k < kRows / 8; ++k) {
+      uint32_t a[4];
+      tf32_pair(col + (8 * k + lo) * pitch, a[0], a[1]);
+      tf32_pair(col + (8 * k + hi) * pitch, a[2], a[3]);
+      mma_tf32_m16n8k8(c, a, b[k][0], b[k][1]);
     }
   }
 }
 
 // ---- the partials kernel -----------------------------------------------------
 
-// A product in bf16 mma.sync: the "mma" unit on a bf16 tile. Every other
-// tensor-core product (an f32 tile, or "mma_tf32") runs in TF32.
-template <typename T, int UNIT>
-constexpr bool kBf16Mma = UNIT == kMma && sizeof(T) == 2;
-
 // aux != nullptr: the packed form, row i = (y, o, ws). Otherwise the separate
 // form: labels and weights, and offsets unless nullptr. part_rsum == nullptr:
 // the sum of residuals is neither accumulated nor written.
+// Two blocks to an SM where the registers allow it; the 32-row build's
+// TF32 fragments need more than half of them.
 template <int LOSS, typename T, int MUNIT, int GUNIT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kRows == 16 ? 2 : 1)
 packed_glm_partials_kernel(const T* __restrict__ x, const float* __restrict__ aux,
                            const float* __restrict__ labels, const float* __restrict__ offsets,
                            const float* __restrict__ weights, const float* __restrict__ w,
-                           const float* __restrict__ shift, int64_t n, int d,
+                           const float* __restrict__ shift, int64_t n, int d, int stages,
                            float* __restrict__ part_value, float* __restrict__ part_rsum,
                            float* __restrict__ part_grad) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* r_s = reinterpret_cast<float*>(smem);           // [kRows]
-  float* red_s = r_s + kRows;                            // [2 * kWarps]
-  float* marg_s = red_s + 2 * kWarps;                    // [kWarps][kRows]
-  T* tiles = reinterpret_cast<T*>(smem + kHeaderBytes);  // 2 x [kRows, d]
+  float* marg_s = reinterpret_cast<float*>(smem);  // [2][kWarps][kRows]
+  uint32_t* wf_s = reinterpret_cast<uint32_t*>(smem + marg_bytes());
+  T* ring = reinterpret_cast<T*>(smem + marg_bytes() + wfrag_bytes(d));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  float* gacc = part_grad + (int64_t)blockIdx.x * d;
-  for (int c = tid; c < d; c += kThreads) gacc[c] = 0.f;
+  const int tig = lane & 3;
+  const int pitch = pitch_of(d);
+  const int nch = (d + 15) / 16;
+  const int stage_elems = kRows * pitch;
   const float s = shift != nullptr ? *shift : 0.f;
   const bool with_rsum = part_rsum != nullptr;
-  // every lane of a warp holds the same sums
-  float value_acc = 0.f;
-  float rsum_acc = 0.f;
-
   const int64_t ntiles = (n + kRows - 1) / kRows;
-  if ((int64_t)blockIdx.x < ntiles) stage_tile(tiles, x, blockIdx.x, n, d, tid);
-  cp_async_commit();
-  int k = 0;
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++k) {
+
+  // zero the pad columns [d, round_up(d, 16)) of every staged row, once
+  const int padw = round_up(d, 16) - d;
+  for (int v = tid; v < stages * kRows * padw; v += kThreads) {
+    const int row = v / padw;
+    const int at = row * pitch + d + (v - row * padw);
+    if constexpr (sizeof(T) == 2)
+      reinterpret_cast<uint16_t*>(ring)[at] = 0;
+    else
+      reinterpret_cast<uint32_t*>(ring)[at] = 0u;
+  }
+  build_w_fragments<T, MUNIT>(wf_s, w, d, tid);
+  for (int k = 0; k < stages - 1; ++k) {
+    const int64_t t = blockIdx.x + (int64_t)k * gridDim.x;
+    if (t < ntiles) stage_tile(ring + k * stage_elems, x, t, n, d, pitch, tid);
+    cp_async_commit();
+  }
+
+  // the gradient, in registers for the whole kernel
+  float cg[kBf16Mma<T, GUNIT> || kTf32<T, GUNIT> ? kMaxChunks : 1][4] = {};
+  float gf[GUNIT == kFma ? kMaxFmaCols : 1] = {};
+  // lanes of warp 0 keep the value and residual sums of their rows
+  float value_acc = 0.f, rsum_acc = 0.f;
+
+  int slot = 0;
+  int parity = 0;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    cp_async_wait(stages - 2);  // this thread's copies of tile t have landed
+    __syncthreads();            // everyone's, and every warp is done with the last tile
+    {
+      // refill the stage that the last tile used
+      const int64_t ahead = t + (int64_t)(stages - 1) * gridDim.x;
+      const int ahead_slot = slot == 0 ? stages - 1 : slot - 1;
+      if (ahead < ntiles) stage_tile(ring + ahead_slot * stage_elems, x, ahead, n, d, pitch, tid);
+      cp_async_commit();
+    }
+    const T* tile = ring + slot * stage_elems;
     const int64_t row0 = t * kRows;
     const int rows = tile_rows(t, n);
-    T* tile = tiles + (size_t)(k & 1) * kRows * d;
-    // the next tile's copy goes into the other buffer, which every thread
-    // left at the last barrier of the previous iteration
-    const int64_t next = t + gridDim.x;
-    if (next < ntiles) stage_tile(tiles + (size_t)((k + 1) & 1) * kRows * d, x, next, n, d, tid);
-    cp_async_commit();
-    cp_async_wait_prior_one();  // this thread's copies of tile t have landed
-    __syncthreads();            // and everyone else's (and gacc is zeroed)
 
-    if (MUNIT != kFma) {
-#pragma unroll
-      for (int rb = 0; rb < kRows; rb += 16) {
-        if constexpr (kBf16Mma<T, MUNIT>)
-          margins_mma(tile + (int64_t)rb * d, w, rows - rb, d, warp, lane,
-                      marg_s + warp * kRows + rb);
-        else
-          margins_tf32(tile + (int64_t)rb * d, w, rows - rb, d, warp, lane,
-                       marg_s + warp * kRows + rb);
+    // this lane's row: its aux, loaded while the margins are computed
+    float y = 0.f, o = 0.f, wt = 0.f;
+    const bool mine = lane < rows;
+    if (mine) {
+      const int64_t row = row0 + lane;
+      if (aux != nullptr) {
+        y = __ldg(aux + 3 * row);
+        o = __ldg(aux + 3 * row + 1);
+        wt = __ldg(aux + 3 * row + 2);
+      } else {
+        y = __ldg(labels + row);
+        o = offsets != nullptr ? __ldg(offsets + row) : 0.f;
+        wt = __ldg(weights + row);
       }
-      __syncthreads();
     }
-    for (int i = warp; i < kRows; i += kWarps) {
-      float r = 0.f;
-      if (i < rows) {  // warp-uniform
+
+    float* marg = marg_s + parity * kWarps * kRows;
+    if constexpr (MUNIT != kFma) {
+      float c[kRows / 16][4] = {};
+      margins_mma<T, MUNIT>(tile, pitch, wf_s, nch, warp, lane, c);
+      if (tig == 0) {
+#pragma unroll
+        for (int m = 0; m < kRows / 16; ++m) {
+          marg[warp * kRows + m * 16 + (lane >> 2)] = c[m][0];
+          marg[warp * kRows + m * 16 + (lane >> 2) + 8] = c[m][2];
+        }
+      }
+    } else {
+      for (int i = warp; i < rows; i += kWarps) {  // warp-uniform
+        const T* xr = tile + i * pitch;
         float acc = 0.f;
-        if (MUNIT != kFma) {
-#pragma unroll
-          for (int q = 0; q < kWarps; ++q) acc += marg_s[q * kRows + i];
-        } else {
-          const T* xr = tile + (int64_t)i * d;
 #pragma unroll 4
-          for (int c = lane; c < d; c += 32) acc += to_float(xr[c]) * __ldg(w + c);
+        for (int col = lane; col < d; col += 32) acc += to_float(xr[col]) * __ldg(w + col);
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        }
-        const int64_t row = row0 + i;
-        float y, o, wt;
-        if (aux != nullptr) {
-          const float* rec = aux + 3 * row;
-          y = __ldg(rec);
-          o = __ldg(rec + 1);
-          wt = __ldg(rec + 2);
-        } else {
-          y = __ldg(labels + row);
-          o = offsets != nullptr ? __ldg(offsets + row) : 0.f;
-          wt = __ldg(weights + row);
-        }
-        const float m = acc + (o - s);
-        float l, dz;
-        loss_and_dz<LOSS>(m, y, l, dz);
-        r = wt * dz;
+        for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+        if (lane == 0) marg[i] = acc;
+      }
+    }
+    __syncthreads();  // the margins are in marg
+
+    float r = 0.f;
+    if (mine) {
+      float m = 0.f;
+      if constexpr (MUNIT != kFma) {
+#pragma unroll
+        for (int q = 0; q < kWarps; ++q) m += marg[q * kRows + lane];
+      } else {
+        m = marg[lane];
+      }
+      float l, dz;
+      loss_and_dz<LOSS>(m + (o - s), y, l, dz);
+      r = wt * dz;
+      if (warp == 0) {
         value_acc += wt * l;
         if (with_rsum) rsum_acc += r;
       }
-      if (lane == 0) r_s[i] = r;
     }
-    __syncthreads();
 
-    if constexpr (kBf16Mma<T, GUNIT>) {
-      gradient_mma(tile, r_s, rows, d, warp, lane, gacc);
-    } else if constexpr (GUNIT != kFma) {
-      gradient_tf32(tile, r_s, rows, d, warp, lane, gacc);
+    if constexpr (GUNIT != kFma) {
+      uint32_t b[kRows / 8][2];
+      gradient_b<T, GUNIT>(r, tig, b);
+#pragma unroll
+      for (int j = 0; j < kMaxChunks; ++j) {
+        const int ch = warp + j * kWarps;
+        if (ch < nch) gradient_mma<T, GUNIT>(tile, pitch, ch, lane, b, cg[j]);
+      }
     } else {
-      for (int c = tid; c < d; c += kThreads) {
-        float g = 0.f;
-#pragma unroll 8
-        for (int i = 0; i < rows; ++i) g += r_s[i] * to_float(tile[(int64_t)i * d + c]);
-        gacc[c] += g;
+      float rr[kRows];  // rows past a ragged end are zero, and so is their r
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) rr[i] = __shfl_sync(kFull, r, i);
+#pragma unroll
+      for (int j = 0; j < kMaxFmaCols; ++j) {
+        const int col = tid + j * kThreads;
+        if (col < d) {
+          float acc = gf[j];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) acc += rr[i] * to_float(tile[i * pitch + col]);
+          gf[j] = acc;
+        }
       }
     }
-    __syncthreads();  // the next tile overwrites tile, r_s and marg_s
+    if (++slot == stages) slot = 0;
+    parity ^= 1;
   }
+  asm volatile("cp.async.wait_all;\n" ::);
 
-  if (lane == 0) {
-    red_s[warp] = value_acc;
-    red_s[kWarps + warp] = rsum_acc;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float v = 0.f, rs = 0.f;
-    for (int q = 0; q < kWarps; ++q) {
-      v += red_s[q];
-      rs += red_s[kWarps + q];
+  float* pg = part_grad + (int64_t)blockIdx.x * d;
+  if constexpr (GUNIT != kFma) {
+    const int g = lane >> 2;
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      const int ch = warp + j * kWarps;
+      if (ch < nch && tig == 0) {
+        const int c0 = kBf16Mma<T, GUNIT> ? ch * 16 + g : ch * 16 + 2 * g;
+        const int c1 = kBf16Mma<T, GUNIT> ? c0 + 8 : c0 + 1;
+        if (c0 < d) pg[c0] = cg[j][0];
+        if (c1 < d) pg[c1] = cg[j][2];
+      }
     }
-    part_value[blockIdx.x] = v;
-    if (with_rsum) part_rsum[blockIdx.x] = rs;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kMaxFmaCols; ++j) {
+      const int col = tid + j * kThreads;
+      if (col < d) pg[col] = gf[j];
+    }
+  }
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      value_acc += __shfl_xor_sync(kFull, value_acc, off);
+      rsum_acc += __shfl_xor_sync(kFull, rsum_acc, off);
+    }
+    if (lane == 0) {
+      part_value[blockIdx.x] = value_acc;
+      if (with_rsum) part_rsum[blockIdx.x] = rsum_acc;
+    }
   }
 }
 
@@ -533,20 +699,24 @@ cudaError_t set_smem(size_t bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int MUNIT, int GUNIT>
+constexpr bool kFmaOnly = MUNIT == kFma && GUNIT == kFma;
+
 template <int LOSS, typename T, int MUNIT, int GUNIT>
 cudaError_t launch_partials(const PartialsArgs& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<T>(a.d);
+  const size_t bytes = smem_bytes(a.d, sizeof(T), kFmaOnly<MUNIT, GUNIT>);
   cudaError_t err = set_smem<LOSS, T, MUNIT, GUNIT>(bytes);
   if (err != cudaSuccess) return err;
   packed_glm_partials_kernel<LOSS, T, MUNIT, GUNIT><<<a.blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(a.x), a.aux, a.labels, a.offsets, a.weights, a.w, a.shift, a.n, a.d,
-      a.part_value, a.part_rsum, a.part_grad);
+      stages_for(a.d, sizeof(T), kFmaOnly<MUNIT, GUNIT>), a.part_value, a.part_rsum,
+      a.part_grad);
   return cudaGetLastError();
 }
 
 template <int LOSS, typename T, int MUNIT, int GUNIT>
 cudaError_t occupancy(int* blocks_per_sm, int d) {
-  const size_t bytes = smem_bytes<T>(d);
+  const size_t bytes = smem_bytes(d, sizeof(T), kFmaOnly<MUNIT, GUNIT>);
   cudaError_t err = set_smem<LOSS, T, MUNIT, GUNIT>(bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -598,8 +768,6 @@ KernelOps ops_for_loss(int loss, int munit, int gunit) {
     default: return {nullptr, nullptr};
   }
 }
-
-int max_staged_d(int itemsize) { return kStageBytesMax / (2 * kRows * itemsize); }
 
 KernelOps select_ops(int loss, int is_bf16, int munit, int gunit, int d) {
   if (d < 1 || d > max_staged_d(is_bf16 ? 2 : 4)) return {nullptr, nullptr};

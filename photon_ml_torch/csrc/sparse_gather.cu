@@ -27,14 +27,35 @@
 // still costs a 32-byte sector for 4 useful bytes, which is why a gather of
 // random columns runs well short of the bound.
 //
-// What the design does about that bound (simple and right first):
-// - Entries are read once and coalesced: one warp per row, its 32 lanes
-//   stride the row's L ELL entries and then its tail entries, so a warp reads
-//   contiguous values and columns. w is read through the read-only path
-//   (__ldg).
-// - No float atomics: each lane keeps its own f32 sum, and the warp adds the
-//   32 lane sums by a shuffle tree in a fixed order. Two calls on the same
-//   inputs are bitwise equal, which the solvers' line searches rely on.
+// What the design does about that bound:
+// - ELL rows (the margins of every ELL batch): a group of G lanes per row
+//   (32 / G rows a warp). Each lane of a group takes the row's vectors of
+//   VEC consecutive entries j, j + G, ... (VEC = 4, 2 or 1, the widest that
+//   every row's start allows: at L = 36 that is 16-byte column and f32
+//   value loads, 8-byte bf16 value loads), so a warp reads its rows' bytes
+//   once, in contiguous runs. G = 4, 8 or 16, the fewest lanes that cover a
+//   row's vectors in one step (the wrapper's ell_plan): 16 at L = 36. A lane
+//   issues all the column and value loads of up to kBatch vectors, then all
+//   their w[col] loads, then the FMAs. The entries are read with the
+//   streaming hint (ld.global.cs); w through the read-only path (__ldg).
+// - What bounds it (H100 80GB HBM3 at 700 W, n = 2^19 rows of 36 random
+//   columns, dev/torch_kernel_ab.py): not the loads in flight but w's
+//   footprint in L2. At d = 10^7 (w 40 MB) every plan reads 0.25-0.28 ms in
+//   f32; at d = 2^22 (16 MB) the same rows read about 0.17. Each of the
+//   18.9M gathers costs a 32-byte L2 sector, and a w that does not stay in
+//   L2 costs DRAM sectors as well. Tried and dropped (a variant of this
+//   source built by that script with --other-flags): an access-policy
+//   window marking w persisting, the set-aside at its maximum, read 0.313
+//   ms against 0.281 without; an L2::evict_last hint on the w loads 0.297
+//   against 0.283.
+// - No float atomics: each lane adds its entries in order, the group adds
+//   its lanes by log2(G) xor-shuffle steps, and a warp stores its rows'
+//   sums with one coalesced store. Two calls on the same inputs are bitwise
+//   equal, which the solvers' line searches rely on.
+// - A flat tail (the hybrid layout's rows past the ELL width, or a batch
+//   with no ELL block) is summed by the whole warp, one of the warp's rows
+//   at a time, rows with no tail skipped; with no ELL block the wrapper
+//   passes G = 32, one row a warp.
 // - A row longer than kChunk tail entries (G1's one segment of 2^24 entries)
 //   is not left to one warp's serial loop: the wrapper passes a chunk plan,
 //   a first kernel gives each chunk its own warp and writes one partial per
@@ -47,9 +68,8 @@
 //   row and adds its entries in order (gather_segments_kernel); a long row
 //   still goes through its chunk partials. The wrapper picks this kernel
 //   when the rows hold fewer than 32 entries on average.
-// Later work, not done here: wider loads of the ELL rows (several rows per
-// warp when L is small; L = 36 leaves 28 lanes idle on the second stride),
-// L2 residency control for w, and rows sorted by length.
+// Later work, not done here: the transpose with lane groups, rows sorted by
+// length.
 //
 // The kernels allocate nothing; the wrapper passes outputs and partials.
 // Every entry point returns cudaGetLastError() (0 on success).
@@ -107,28 +127,133 @@ gather_chunks_kernel(const V* __restrict__ tv, const int* __restrict__ tc,
   }
 }
 
-// One warp per row: the ELL entries, then the tail entries (or, with a
-// chunk plan, the row's chunk partials in order).
-template <typename V>
+// Vectors of ELL entries a lane loads before it gathers their w.
+constexpr int kBatch = 4;
+
+// The low and the high bf16 of a 32-bit word, widened to f32.
+__device__ __forceinline__ float bf16_lo(unsigned bits) { return __uint_as_float(bits << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned bits) {
+  return __uint_as_float(bits & 0xffff0000u);
+}
+
+// VEC consecutive entries (values and columns) with streaming vector loads.
+template <int VEC>
+__device__ __forceinline__ void load_entries(const float* vals, const int* cols, float (&x)[VEC],
+                                             int (&c)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 ci = __ldcs(reinterpret_cast<const int4*>(cols));
+    const float4 xv = __ldcs(reinterpret_cast<const float4*>(vals));
+    c[0] = ci.x, c[1] = ci.y, c[2] = ci.z, c[3] = ci.w;
+    x[0] = xv.x, x[1] = xv.y, x[2] = xv.z, x[3] = xv.w;
+  } else if constexpr (VEC == 2) {
+    const int2 ci = __ldcs(reinterpret_cast<const int2*>(cols));
+    const float2 xv = __ldcs(reinterpret_cast<const float2*>(vals));
+    c[0] = ci.x, c[1] = ci.y;
+    x[0] = xv.x, x[1] = xv.y;
+  } else {
+    c[0] = __ldcs(cols);
+    x[0] = __ldcs(vals);
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void load_entries(const __nv_bfloat16* vals, const int* cols,
+                                             float (&x)[VEC], int (&c)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 ci = __ldcs(reinterpret_cast<const int4*>(cols));
+    const uint2 xv = __ldcs(reinterpret_cast<const uint2*>(vals));
+    c[0] = ci.x, c[1] = ci.y, c[2] = ci.z, c[3] = ci.w;
+    x[0] = bf16_lo(xv.x), x[1] = bf16_hi(xv.x), x[2] = bf16_lo(xv.y), x[3] = bf16_hi(xv.y);
+  } else if constexpr (VEC == 2) {
+    const int2 ci = __ldcs(reinterpret_cast<const int2*>(cols));
+    const unsigned xv = __ldcs(reinterpret_cast<const unsigned*>(vals));
+    c[0] = ci.x, c[1] = ci.y;
+    x[0] = bf16_lo(xv), x[1] = bf16_hi(xv);
+  } else {
+    c[0] = __ldcs(cols);
+    x[0] = bf16_lo(__ldcs(reinterpret_cast<const unsigned short*>(vals)));
+  }
+}
+
+// Lane j's share of one ELL row of nvec vectors: vectors j, j + G, ... in
+// order, kBatch at a time (loads, then gathers, then FMAs).
+template <typename V, int G, int VEC>
+__device__ __forceinline__ float ell_lane_dot(const V* __restrict__ vals,
+                                              const int* __restrict__ cols, int nvec,
+                                              const float* __restrict__ w, int j) {
+  float acc = 0.f;
+  for (int v0 = j; v0 < nvec; v0 += G * kBatch) {
+    float x[kBatch][VEC], wv[kBatch][VEC];
+    int c[kBatch][VEC];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int v = v0 + b * G;
+      if (v < nvec) load_entries<VEC>(vals + v * VEC, cols + v * VEC, x[b], c[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) wv[b][e] = v0 + b * G < nvec ? __ldg(w + c[b][e]) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (v0 + b * G < nvec) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc = fmaf(x[b][e], wv[b][e], acc);
+      }
+    }
+  }
+  return acc;
+}
+
+// Rows of 32 / G a warp: each row's ELL entries by its group of G lanes,
+// then each row's tail entries (or, with a chunk plan, its chunk partials
+// in order) by the whole warp.
+template <typename V, int G, int VEC>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const V* __restrict__ ev, const int* __restrict__ ec, int width,
                    const V* __restrict__ tv, const int* __restrict__ tc,
                    const int* __restrict__ row_ptr, const float* __restrict__ partials,
                    const int* __restrict__ chunk_ptr, const float* __restrict__ w, long long n,
                    float* __restrict__ out) {
+  constexpr int kRowsPerWarp = 32 / G;
   const int lane = threadIdx.x & 31;
-  const long long warps = (long long)gridDim.x * kWarpsPerBlock;
-  for (long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); row < n;
-       row += warps) {
+  const int q = lane / G, j = lane % G;
+  const int nvec = width / VEC;
+  const long long step = (long long)gridDim.x * kWarpsPerBlock * kRowsPerWarp;
+  const long long first = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  for (long long base = first * kRowsPerWarp; base < n; base += step) {
+    const long long row = base + q;
     float acc = 0.f;
-    if (width > 0) acc = lane_dot(ev, ec, w, row * width, (row + 1) * width, lane, acc);
-    if (partials != nullptr && chunk_ptr[row + 1] > chunk_ptr[row]) {
-      for (int c = chunk_ptr[row] + lane; c < chunk_ptr[row + 1]; c += 32) acc += partials[c];
-    } else if (row_ptr != nullptr) {
-      acc = lane_dot(tv, tc, w, row_ptr[row], row_ptr[row + 1], lane, acc);
+    if (nvec > 0 && row < n)
+      acc = ell_lane_dot<V, G, VEC>(ev + row * width, ec + row * width, nvec, w, j);
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+    if (row_ptr != nullptr) {
+      // lane k < kRowsPerWarp holds the tail bounds of row base + k
+      int tb = 0, te = 0, cb = 0, ce = 0;
+      if (lane < kRowsPerWarp && base + lane < n) {
+        tb = row_ptr[base + lane];
+        te = row_ptr[base + lane + 1];
+        if (partials != nullptr) {
+          cb = chunk_ptr[base + lane];
+          ce = chunk_ptr[base + lane + 1];
+        }
+      }
+      for (unsigned todo = __ballot_sync(kFull, te > tb); todo != 0; todo &= todo - 1) {
+        const int k = __ffs(todo) - 1;
+        const int c0 = __shfl_sync(kFull, cb, k), c1 = __shfl_sync(kFull, ce, k);
+        float t = 0.f;
+        if (c1 > c0) {
+          for (int c = c0 + lane; c < c1; c += 32) t += partials[c];
+        } else {
+          t = lane_dot(tv, tc, w, __shfl_sync(kFull, tb, k), __shfl_sync(kFull, te, k), lane, 0.f);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(kFull, t, off);
+        if (q == k) acc += t;
+      }
     }
-    acc = warp_sum(acc);
-    if (lane == 0) out[row] = acc;
+    if (j == 0 && row < n) out[row] = acc;
   }
 }
 
@@ -159,6 +284,41 @@ int blocks_for(long long items) {
   return b < 1 ? 1 : (int)b;
 }
 
+template <typename V, int G, int VEC>
+cudaError_t launch_rows(const void* ev, const void* ec, int width, const void* tv, const void* tc,
+                        const void* row_ptr, const void* partials, const void* chunk_ptr,
+                        const void* w, long long n, void* out, cudaStream_t s) {
+  gather_rows_kernel<V, G, VEC><<<blocks_for((n + 32 / G - 1) / (32 / G)), kThreads, 0, s>>>(
+      (const V*)ev, (const int*)ec, width, (const V*)tv, (const int*)tc, (const int*)row_ptr,
+      (const float*)partials, (const int*)chunk_ptr, (const float*)w, n, (float*)out);
+  return cudaGetLastError();
+}
+
+// The row kernel for G lanes a row and VEC entries a vector: G in {4, 8,
+// 16} with VEC in {4, 2, 1}, or G = 32 (no ELL block) with VEC = 1.
+template <typename V>
+cudaError_t rows_for(int lanes, int vec, const void* ev, const void* ec, int width, const void* tv,
+                     const void* tc, const void* row_ptr, const void* partials,
+                     const void* chunk_ptr, const void* w, long long n, void* out,
+                     cudaStream_t s) {
+#define PHOTON_ROWS(G, VEC)                                                                     \
+  if (lanes == G && vec == VEC)                                                                 \
+    return launch_rows<V, G, VEC>(ev, ec, width, tv, tc, row_ptr, partials, chunk_ptr, w, n, out, \
+                                  s);
+  PHOTON_ROWS(4, 4)
+  PHOTON_ROWS(4, 2)
+  PHOTON_ROWS(4, 1)
+  PHOTON_ROWS(8, 4)
+  PHOTON_ROWS(8, 2)
+  PHOTON_ROWS(8, 1)
+  PHOTON_ROWS(16, 4)
+  PHOTON_ROWS(16, 2)
+  PHOTON_ROWS(16, 1)
+  PHOTON_ROWS(32, 1)
+#undef PHOTON_ROWS
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -169,24 +329,18 @@ int sparse_gather_chunk() { return kChunk; }
 // out[n] = ELL row sums (ev/ec [n, width], width may be 0 with null arrays)
 // + tail row sums (tv/tc with row_ptr [n+1], or null). With partials and
 // chunk_ptr non-null, a row with chunks takes its chunk partials instead.
-int sparse_gather_rows(int is_bf16, const void* ev, const void* ec, int width, const void* tv,
-                       const void* tc, const void* row_ptr, const void* partials,
+// lanes (4, 8 or 16; 32 when width is 0) share a row's ELL entries, read vec
+// (4, 2 or 1, dividing width, each row's start aligned to it) at a time.
+int sparse_gather_rows(int is_bf16, int lanes, int vec, const void* ev, const void* ec, int width,
+                       const void* tv, const void* tc, const void* row_ptr, const void* partials,
                        const void* chunk_ptr, const void* w, long long n, void* out,
                        void* stream) {
+  if (width % vec != 0 || (width == 0) != (lanes == 32)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = blocks_for(n);
-  if (is_bf16) {
-    gather_rows_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)ev, (const int*)ec, width, (const __nv_bfloat16*)tv,
-        (const int*)tc, (const int*)row_ptr, (const float*)partials, (const int*)chunk_ptr,
-        (const float*)w, n, (float*)out);
-  } else {
-    gather_rows_kernel<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)ev, (const int*)ec, width, (const float*)tv, (const int*)tc,
-        (const int*)row_ptr, (const float*)partials, (const int*)chunk_ptr, (const float*)w, n,
-        (float*)out);
-  }
-  return (int)cudaGetLastError();
+  return (int)(is_bf16 ? rows_for<__nv_bfloat16>(lanes, vec, ev, ec, width, tv, tc, row_ptr,
+                                                 partials, chunk_ptr, w, n, out, s)
+                       : rows_for<float>(lanes, vec, ev, ec, width, tv, tc, row_ptr, partials,
+                                         chunk_ptr, w, n, out, s));
 }
 
 // out[n] = tail row sums (tv/tc with row_ptr [n+1]), one thread per row; with

@@ -91,10 +91,19 @@ def _lib(rows_per_tile: int = 16) -> ctypes.CDLL:
     return lib
 
 
+#: csrc/packed_glm.cu: the gradient's registers hold kMaxD columns, and two
+#: staged tiles of rows padded to round_up(d, 16) + 8 elements must fit in
+#: kStageBytesMax bytes
+MAX_D = 1536
+STAGE_BYTES_MAX = 200 * 1024
+
+
 def max_staged_d(itemsize: int, rows_per_tile: int = 16) -> int:
-    """Widest block the kernel stages in one pass (csrc/packed_glm.cu:
-    kStageBytesMax / (2 * kRows * itemsize))."""
-    return 192 * 1024 // (2 * rows_per_tile * itemsize)
+    """Widest block the kernel stages in one pass: ``MAX_D``, or less where
+    two padded tiles of ``rows_per_tile`` rows would not fit in
+    ``STAGE_BYTES_MAX`` (f32 at 32 rows a tile)."""
+    by_smem = (STAGE_BYTES_MAX // (2 * rows_per_tile * itemsize) - 8) // 16 * 16
+    return min(MAX_D, by_smem)
 
 
 def supports(x: torch.Tensor) -> bool:

@@ -23,9 +23,11 @@ Two layouts, either or both in one call:
   longer than ``SEGMENT_CHUNK`` entries into chunks whose partial sums a
   second pass adds in a fixed order; shorter rows have no chunks.
 
-With a tail and no ELL block whose rows average fewer than 32 entries (the
-transpose of a sparse batch, one row per column) the kernel gives each row
-one thread instead of one warp.
+The kernel gives an ELL row a group of 4, 8 or 16 lanes (:func:`ell_plan`),
+which read its entries in vectors of up to 4, and a row's flat tail the
+whole warp. With a tail and no ELL block whose rows average fewer than 32
+entries (the transpose of a sparse batch, one row per column) it gives each
+row one thread instead.
 
 The kernel is hand-written CUDA for Hopper, ``csrc/sparse_gather.cu``; its
 header states the bound and the design. It reads f32 or bf16 values, int32
@@ -68,8 +70,8 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("sparse_gather")
         lib.sparse_gather_chunk.restype = ctypes.c_int
         lib.sparse_gather_rows.argtypes = [
-            ctypes.c_int, _VP, _VP, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP,
-            ctypes.c_longlong, _VP, _VP]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP, ctypes.c_int, _VP, _VP, _VP, _VP,
+            _VP, _VP, ctypes.c_longlong, _VP, _VP]
         lib.sparse_gather_rows.restype = ctypes.c_int
         lib.sparse_gather_chunks.argtypes = [
             ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP]
@@ -86,6 +88,24 @@ def _lib() -> ctypes.CDLL:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"sparse_gather kernel: {msg}")
+
+
+def ell_plan(width: int, vals_ptr: int = 0, cols_ptr: int = 0,
+             itemsize: int = 4) -> tuple[int, int]:
+    """(lanes a row, entries a vector load) of the row kernel for an ELL
+    block ``width`` entries wide whose values (``itemsize`` bytes each) and
+    int32 columns start at ``vals_ptr`` and ``cols_ptr``: (32, 1) with no
+    ELL block; else the widest vector of 4, 2 or 1 entries that divides the
+    width and to which both starts are aligned (so that every row's start
+    is), and 4, 8 or 16 lanes, the fewest that cover a row's vectors in one
+    step (16 for more than 8 vectors; the fastest on an H100 at widths 1 to
+    64, see csrc/sparse_gather.cu)."""
+    if width == 0:
+        return 32, 1
+    vec = next(v for v in (4, 2, 1) if width % v == 0 and vals_ptr % (v * itemsize) == 0
+               and cols_ptr % (v * 4) == 0)
+    vectors = width // vec
+    return (4 if vectors <= 4 else 8 if vectors <= 8 else 16), vec
 
 
 def segment_plan(row_ids: torch.Tensor, n: int):
@@ -210,9 +230,11 @@ def _launch(w, n, ell, tail, chunks):
                 out.data_ptr(), stream), "sparse_gather_segments")
             launches += 1
         elif n:
+            lanes, vec = ell_plan(width, ptr(ell_vals) or 0, ptr(ell_cols) or 0,
+                                  2 if is_bf16 else 4)
             _check(lib.sparse_gather_rows(
-                int(bool(is_bf16)), ptr(ell_vals), ptr(ell_cols), width, ptr(tail_vals),
-                ptr(tail_cols), ptr(row_ptr), ptr(partials), ptr(chunk_ptr), w.data_ptr(), n,
-                out.data_ptr(), stream), "sparse_gather_rows")
+                int(bool(is_bf16)), lanes, vec, ptr(ell_vals), ptr(ell_cols), width,
+                ptr(tail_vals), ptr(tail_cols), ptr(row_ptr), ptr(partials), ptr(chunk_ptr),
+                w.data_ptr(), n, out.data_ptr(), stream), "sparse_gather_rows")
             launches += 1
     return out

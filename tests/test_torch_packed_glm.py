@@ -200,11 +200,12 @@ def test_bind_packed_dispatch():
 
 
 def test_wrapper_limits_and_counters():
-    assert packed_glm.max_staged_d(4) == 1536 and packed_glm.max_staged_d(2) == 3072
-    assert packed_glm.max_staged_d(4, 32) == 768
+    assert packed_glm.max_staged_d(4) == 1536 and packed_glm.max_staged_d(2) == 1536
+    assert packed_glm.max_staged_d(4, 32) == 784 and packed_glm.max_staged_d(2, 32) == 1536
     assert packed_glm.supports(torch.zeros((4, 1536)))
     assert not packed_glm.supports(torch.zeros((4, 1537)))
-    assert packed_glm.supports(torch.zeros((4, 3072), dtype=torch.bfloat16))
+    assert packed_glm.supports(torch.zeros((4, 1536), dtype=torch.bfloat16))
+    assert not packed_glm.supports(torch.zeros((4, 1537), dtype=torch.bfloat16))
     assert not packed_glm.supports(torch.zeros((4, 8), dtype=torch.float64))
     assert sorted(packed_glm.SOURCES) == [16, 32]
     for name in packed_glm.SOURCES.values():
@@ -218,6 +219,24 @@ def test_wrapper_limits_and_counters():
     with pytest.raises(ValueError, match="CUDA tensor"):
         packed_glm._launch(loss, torch.zeros((3, 2)), torch.zeros((3, 3)), None, None, None,
                            torch.zeros(2), None, True, "fma", "fma")
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [16, 32])
+def test_max_staged_d_is_the_widest_that_fits(itemsize, rows):
+    """The widest block: at most the gradient registers' MAX_D columns, and
+    two staged tiles of rows padded to round_up(d, 16) + 8 elements within
+    STAGE_BYTES_MAX, where one column more would not be."""
+    widest = packed_glm.max_staged_d(itemsize, rows)
+
+    def two_tiles(d):
+        return 2 * rows * ((d + 15) // 16 * 16 + 8) * itemsize
+
+    assert widest <= packed_glm.MAX_D and two_tiles(widest) <= packed_glm.STAGE_BYTES_MAX
+    assert widest == packed_glm.MAX_D or two_tiles(widest + 1) > packed_glm.STAGE_BYTES_MAX
+    src = (REPO / "photon_ml_torch" / "csrc" / "packed_glm.cu").read_text()
+    assert f"kStageBytesMax = {packed_glm.STAGE_BYTES_MAX // 1024} * 1024;" in src
+    assert "kMaxChunks = 12;" in src and packed_glm.MAX_D == 8 * 12 * 16
 
 
 def test_build_hashes_included_sources():

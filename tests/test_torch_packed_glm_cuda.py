@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from dev import torch_kernel_probe as tkp
 from photon_ml_torch.ops import losses, packed_glm
 from photon_ml_torch.ops.normalization import NormalizationContext
 
@@ -38,28 +39,17 @@ def _case(n, d, binary, dtype, device, seed=0):
     return x, y, o, t(ws), w
 
 
-def _limits(dtype, units):
-    """(value rel, gradient atol as a share of max|g|): f32 1e-5 and 1e-4;
-    bf16 (the same rounded inputs on both sides) 1e-4; a product in TF32
-    (``mma`` on an f32 block, ``mma_tf32`` on either) against the plain
-    version's f32: 1e-4 and 5e-3."""
-    if "mma_tf32" in units or (dtype == torch.float32 and "mma" in units):
-        return 1e-4, 5e-3
-    return (1e-5 if dtype == torch.float32 else 1e-4), 1e-4
-
-
-def _check(kernel, plain, dtype, units):
-    v1, g1, s1 = kernel()
-    v2, g2, s2 = kernel()
-    vr, gr, sr = plain()
-    torch.cuda.synchronize()
-    assert torch.equal(v1, v2) and torch.equal(g1, g2)  # bitwise repeatable
-    vtol, gshare = _limits(dtype, units)
-    assert abs(float(v1 - vr)) <= vtol * abs(float(vr))
-    assert torch.allclose(g1, gr, rtol=1e-4, atol=gshare * float(gr.abs().max()))
-    assert (s1 is None) == (sr is None)
-    if s1 is not None:
-        assert torch.equal(s1, s2)
+def _check(kernel, plain, dtype, units, loss=None, inputs=None):
+    """Twice bitwise equal, and within the f32 (value rel 1e-5, gradient
+    atol 1e-4 max|g|) or bf16 (1e-4, the same rounded inputs on both sides)
+    limits of the plain version, plus what a product in TF32 may move each
+    output by (``dev/torch_kernel_probe.tf32_slack`` over ``inputs`` =
+    (x, labels, offsets, weights, w, shift))."""
+    name = str(dtype).replace("torch.", "")
+    slack = None if inputs is None else tkp.tf32_slack(loss, *inputs, *units)
+    rsum_scale = 1.0 if inputs is None else float(inputs[3].abs().sum())
+    return tkp.compare(torch, f"{name} {units}", kernel, plain, *tkp.limits(name),
+                       rsum_scale, slack)
 
 
 @pytest.mark.parametrize("n,d", [(4096, 512), (1007, 123), (33, 1), (17, 1536)])
@@ -80,7 +70,7 @@ def test_packed_kernel_matches_plain(cuda, loss_name, dtype, n, d):
                 _check(lambda: packed_glm.packed_core(loss, x, aux, w, shift, rows_per_tile=rows,
                                                       **kw),
                        lambda: packed_glm.packed_core_reference(loss, x, aux, w, shift, **kw),
-                       dtype, units)
+                       dtype, units, loss, (x, y, o, ws, w, shift))
     assert packed_glm.packed_launches > before
 
 
@@ -94,7 +84,7 @@ def test_columns_kernel_matches_plain(cuda, with_o, with_rsum):
     _check(lambda: packed_glm.columns_core(loss, x, y, ws, off, w, with_rsum=with_rsum),
            lambda: packed_glm.columns_core_reference(loss, x, y, ws, off, w,
                                                      with_rsum=with_rsum),
-           torch.float32, ("fma", "fma"))
+           torch.float32, ("fma", "fma"), loss, (x, y, off, ws, w, None))
     assert packed_glm.columns_launches == before + 2
 
 
@@ -112,8 +102,52 @@ def test_probe_forms_match_plain(cuda, dtype, n, d):
             kw = dict(with_rsum=False, margin_unit=units[0], grad_unit=units[1])
             _check(lambda: packed_glm.columns_core(loss, x, y, ws, None, w, **kw),
                    lambda: packed_glm.columns_core_reference(loss, x, y, ws, None, w, **kw),
-                   dtype, units)
+                   dtype, units, loss, (x, y, None, ws, w, None))
             assert packed_glm.columns_launches == before + 2
+
+
+ALL_UNITS = [(mu, gu) for mu in packed_glm.UNITS for gu in packed_glm.UNITS]
+
+
+@pytest.mark.parametrize("d", [1, 123, 250, 513])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ragged_rows_and_widths_every_unit(cuda, dtype, d):
+    """n not a multiple of either tile's rows and d not a multiple of 8, 16
+    or 32: the staged rows' zero padding and the ragged last tile, every
+    unit pair (twice bitwise equal) at both tile builds."""
+    loss = losses.LogisticLoss()
+    x, y, o, ws, w = _case(1000 + 7, d, True, dtype, cuda, seed=5)
+    aux = packed_glm.pack_aux(y, o, ws)
+    shift = torch.tensor(-0.1, device=cuda)
+    for units in ALL_UNITS:
+        for rows in sorted(packed_glm.SOURCES):
+            kw = dict(margin_unit=units[0], grad_unit=units[1])
+            _check(lambda: packed_glm.packed_core(loss, x, aux, w, shift, rows_per_tile=rows,
+                                                  **kw),
+                   lambda: packed_glm.packed_core_reference(loss, x, aux, w, shift, **kw),
+                   dtype, units, loss, (x, y, o, ws, w, shift))
+
+
+@pytest.mark.parametrize("rows", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_widest_staged_block_and_one_wider(cuda, dtype, rows):
+    """d at ``max_staged_d`` runs (the library agrees on the width); one
+    column more is refused with its message."""
+    loss = losses.SquaredLoss()
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    widest = packed_glm.max_staged_d(itemsize, rows)
+    assert packed_glm._lib(rows).packed_glm_max_staged_d(itemsize) == widest
+    x, y, o, ws, w = _case(rows + 3, widest, False, dtype, cuda, seed=6)
+    aux = packed_glm.pack_aux(y, o, ws)
+    for units in (("fma", "fma"), ("mma", "mma")):
+        kw = dict(margin_unit=units[0], grad_unit=units[1])
+        _check(lambda: packed_glm.packed_core(loss, x, aux, w, rows_per_tile=rows, **kw),
+               lambda: packed_glm.packed_core_reference(loss, x, aux, w, **kw),
+               dtype, units, loss, (x, y, o, ws, w, None))
+    wider = torch.zeros((rows, widest + 1), dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match=f"d={widest + 1} is wider than one staged pass"):
+        packed_glm.packed_core(loss, wider, aux[:rows], torch.zeros(widest + 1, device=cuda),
+                               rows_per_tile=rows)
 
 
 def test_tf32_unit_on_a_bf16_block_widens_the_tile(cuda):

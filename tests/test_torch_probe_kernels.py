@@ -110,16 +110,18 @@ def test_plain_form_matches_probe(data, probe, variant):
 
 
 def test_forms_and_limits():
-    """The mapping's three rules, and the TF32 limit for ``mma_tf32``."""
+    """The mapping's three rules, and the base limits under every TF32 slack."""
     # probe 1 keeps w in f32: a bf16 block's mxu margins promote to f32
     assert tkp.probe_form("P1", "mxu", "mxu", True) == ("mma_tf32", "mma", False)
     assert tkp.probe_form("P1", "mxu", "mxu", False) == ("mma", "mma", False)
     # probes 2 and 3 round w to the block's type; mxu_cast casts the tile up
     assert tkp.probe_form("P2", "mxu_w128", "mxu_r128", True) == ("mma", "mma", True)
     assert tkp.probe_form("P3", "mxu_cast", "vpu", True) == ("mma_tf32", "fma", True)
-    assert tkp.limits("bfloat16", "mma_tf32", "fma") == (1e-4, 5e-3)
-    assert tkp.limits("bfloat16", "mma", "mma") == (1e-4, 1e-4)
-    assert tkp.limits("float32", "fma", "fma") == (1e-5, 1e-4)
+    assert tkp.limits("bfloat16") == (1e-4, 1e-4)
+    assert tkp.limits("float32") == (1e-5, 1e-4)
+    assert tkp.tf32_units("float32", "mma", "fma") == (True, False)
+    assert tkp.tf32_units("bfloat16", "mma", "mma_tf32") == (False, True)
+    assert tkp.tf32_units("bfloat16", "mma", "mma") == (False, False)
     assert set(tkp.MODES.values()) <= set(packed_glm.UNITS)
     assert set(tkp.PROBE_REPLACES) == set(PROBE_FILES)
 
@@ -166,3 +168,64 @@ def test_tf32_unit_is_logistic_only(data):
     with pytest.raises(ValueError, match="logistic loss only"):
         GLMObjective(SquaredLoss(), kernel_unit="mma_tf32")
     GLMObjective(LogisticLoss(), kernel_unit="mma_tf32")
+
+
+def _tf32(t):
+    """Round f32 to TF32 as cvt.rna does: to nearest, ties away from zero."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_emulation(x, y, ws, w, margin_unit, grad_unit):
+    """The kernel's function with TF32 operands, emulated on the CPU: (value,
+    gradient, None); every product in f64 so that only the roundings differ
+    from the plain version."""
+    loss = LogisticLoss()
+    tm, tg = tkp.tf32_units(str(x.dtype)[6:], margin_unit, grad_unit)
+    xm = (_tf32(x) if x.dtype == torch.float32 else x.float()).double()
+    m = (xm if tm else x.double()) @ (_tf32(w) if tm else w).double()
+    l, dz = loss.loss_and_dz(m, y.double())
+    r = (ws.double() * dz).float()
+    r = _tf32(r) if tg else (r.to(torch.bfloat16).float() if grad_unit == "mma" else r)
+    return ((ws.double() * l).sum().float(), (r.double() @ (xm if tg else x.double())).float(),
+            None)
+
+
+UNIT_FORMS = [(("mma", "mma"), False), (("mma", "fma"), False), (("fma", "mma"), False),
+              (("mma_tf32", "mma_tf32"), True), (("mma_tf32", "mma"), True),
+              (("fma", "mma_tf32"), True)]
+
+
+@pytest.mark.parametrize("units,bf16", UNIT_FORMS,
+                         ids=[f"{u[0]}-{u[1]}-{'bf16' if b else 'f32'}" for u, b in UNIT_FORMS])
+def test_tf32_limit_holds_rounding_and_catches_a_dropped_chunk(data, units, bf16):
+    """The derived TF32 limit (``tf32_slack`` over the f32 or bf16 limits):
+    the kernel's function with TF32 operands, emulated, stays within it; the
+    plain version with one 16-column k chunk of w dropped, fed to the check
+    in the kernel's place, misses it by more than 100x."""
+    x, y, w = data
+    tx = torch.from_numpy(x).to(torch.bfloat16) if bf16 else torch.from_numpy(x)
+    ty, tw, ones = torch.from_numpy(y), torch.from_numpy(w), torch.ones(N)
+    loss = LogisticLoss()
+    kw = dict(with_rsum=False, margin_unit=units[0], grad_unit=units[1])
+    plain = lambda: packed_glm.columns_core_reference(loss, tx, ty, ones, None, tw, **kw)  # noqa: E731
+    dropped = tw.clone()
+    dropped[16:32] = 0.0
+    name = str(tx.dtype)[6:]
+    slack = tkp.tf32_slack(loss, tx, ty, None, ones, tw, None, *units)
+    assert slack is not None
+    held = tkp.compare(torch, "emulated TF32", lambda: _tf32_emulation(tx, ty, ones, tw, *units),
+                       plain, *tkp.limits(name), float(N), slack)
+    assert held["limit_share"] < 1.0
+    with pytest.raises(AssertionError, match="off by"):
+        tkp.compare(torch, "dropped chunk", lambda: packed_glm.columns_core_reference(
+            loss, tx, ty, ones, None, dropped, **kw), plain, *tkp.limits(name), float(N),
+            slack)
+    vr, gr, _ = plain()
+    vf, gf, _ = packed_glm.columns_core_reference(loss, tx, ty, ones, None, dropped, **kw)
+    base_v, base_g = tkp.limits(name)
+    share = max(abs(float(vf - vr)) / (base_v * abs(float(vr)) + slack[0]),
+                float(((gf - gr).double().abs() / (1e-4 * gr.double().abs()
+                                                   + base_g * float(gr.abs().max())
+                                                   + slack[1])).max()))
+    assert share > 100.0, share

@@ -138,3 +138,28 @@ def test_wrapper_device_rules():
     assert sparse_gather.SEGMENT_CHUNK == 2048
     src = (REPO / "photon_ml_torch" / "csrc" / "sparse_gather.cu").read_text()
     assert f"kChunk = {sparse_gather.SEGMENT_CHUNK};" in src
+
+
+@pytest.mark.parametrize("width,itemsize,vals_ptr,cols_ptr,plan", [
+    (0, 4, 0, 0, (32, 1)),          # no ELL block: a warp a row for the tail
+    (36, 4, 0, 0, (16, 4)),         # 144-byte rows: 16-byte loads, 9 vectors
+    (36, 2, 0, 0, (16, 4)),         # bf16 72-byte rows: 8-byte value loads
+    (36, 2, 72, 144, (16, 4)),      # from row 1 of that block: 8-aligned, not 16
+    (18, 2, 36, 72, (16, 2)),       # bf16 rows 36 bytes apart: 4-byte loads
+    (35, 4, 0, 0, (16, 1)),         # odd width: scalar loads
+    (3, 4, 0, 0, (4, 1)),
+    (1, 2, 0, 0, (4, 1)),
+    (16, 4, 0, 0, (4, 4)),          # four vectors: four lanes
+    (32, 4, 0, 0, (8, 4)),
+    (8, 4, 4, 0, (8, 1)),           # values aligned to 4 bytes only
+    (64, 4, 8, 0, (16, 2)),         # values aligned to 8 bytes only
+])
+def test_ell_plan(width, itemsize, vals_ptr, cols_ptr, plan):
+    """The row kernel's lanes a row and entries a vector load, from the ELL
+    width and where the arrays start."""
+    assert sparse_gather.ell_plan(width, vals_ptr, cols_ptr, itemsize) == plan
+    lanes, vec = plan
+    assert width % vec == 0 and 32 % lanes == 0
+    assert vals_ptr % (vec * itemsize) == 0 and cols_ptr % (vec * 4) == 0
+    src = (REPO / "photon_ml_torch" / "csrc" / "sparse_gather.cu").read_text()
+    assert f"PHOTON_ROWS({lanes}, {vec})" in src  # the kernel is built for that plan

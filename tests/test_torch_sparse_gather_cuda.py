@@ -56,12 +56,13 @@ def _scale(w, n, ell=None, tail=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("layout", ["ell", "ell_tail", "flat", "flat_long_rows"])
+@pytest.mark.parametrize("layout", ["ell", "ell_tail", "flat", "flat_long_rows",
+                                    "ell_tail_long_rows"])
 def test_kernel_matches_plain_version(cuda, layout, dtype):
     n, d = 3000, 100_000
-    long_rows = (7, 1999) if layout == "flat_long_rows" else ()
+    long_rows = (7, 1999) if layout.endswith("long_rows") else ()
     rows, cols, vals = _coo(n, d, seed=1, long_rows=long_rows, long_len=5000)
-    ell = {"ell": 40, "ell_tail": 8}.get(layout, False)
+    ell = {"ell": 40, "ell_tail": 8, "ell_tail_long_rows": 8}.get(layout, False)
     batch = SparseLabeledPointBatch.from_coo(rows, cols, vals, np.zeros(n, np.float32), dim=d,
                                              dtype=dtype, ell=ell, device=cuda)
     assert (batch.row_chunks is not None) == bool(long_rows)
@@ -77,6 +78,32 @@ def test_kernel_matches_plain_version(cuda, layout, dtype):
     assert torch.equal(k1, k2)  # bitwise repeatable
     _check(k1, plain, _scale(w, n, e, t))
     assert bool((k1[::5] == 0).all())  # empty rows
+
+
+@pytest.mark.parametrize("width", [1, 3, 35, 36, 37, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ell_widths(cuda, dtype, width):
+    """ELL blocks of every lane-group and vector case (``ell_plan``), pad
+    slots (value 0, column 0) included: twice bitwise equal, within
+    1e-5·Σ|vals·w| of the plain version per row; and the same block from its
+    second row on, whose start is 4·width bytes (f32) or 2·width bytes
+    (bf16) past an aligned one, so narrower loads are taken."""
+    n, d = 3001, 50_000
+    g = torch.Generator(device=cuda).manual_seed(width)
+    vals = torch.randn(n, width, device=cuda, generator=g).to(dtype)
+    cols = torch.randint(0, d, (n, width), device=cuda, generator=g, dtype=torch.int32)
+    pad = torch.rand(n, width, device=cuda, generator=g) < 0.1
+    vals, cols = vals.masked_fill(pad, 0.0), cols.masked_fill(pad, 0)
+    w = torch.randn(d, device=cuda, generator=g)
+    for rows, ell in ((n, (vals, cols)), (n - 1, (vals[1:], cols[1:]))):
+        before = sparse_gather.launches
+        k1 = sparse_gather.gather_sum(w, rows, ell=ell)
+        k2 = sparse_gather.gather_sum(w, rows, ell=ell)
+        plain = sparse_gather.gather_sum_reference(w.double(), rows, ell=ell)
+        torch.cuda.synchronize()
+        assert sparse_gather.launches == before + 2
+        assert torch.equal(k1, k2)  # bitwise repeatable
+        _check(k1, plain, _scale(w, rows, ell))
 
 
 def test_one_segment_g1_shape(cuda):
