@@ -12,9 +12,10 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    ``build/torch_kernels/`` (one ``nvcc`` per source, all at once).
 3. Dense kernels against their plain versions, on the card: the fused GLM
    value+gradient (4 losses x {f32, bf16} x {no normalization, scaling,
-   standardization} at n=2^18, d=512, plus ragged n=1000/d=123 and the
-   two-read path at d=8192), zero-weight rows included, each called twice
-   and required bitwise equal; and the ordered reduction of its partials.
+   standardization} at n=2^18, d=512, plus ragged n=1000/d=123 and
+   n=1001/d=4099, the widest one-pass plan at d=8192 and the two-pass form
+   at d=8200), zero-weight rows included, each called twice and required
+   bitwise equal; and the ordered reduction of its partials.
 4. The dense slice: ``train_glm`` at n=2^18, d=512 on an f32 logistic
    dataset made with numpy from ``--seed``: an L-BFGS λ path with
    standardization, an elastic-net λ (OWL-QN), a TRON solve and an L-BFGS
@@ -47,12 +48,16 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    and read after it. A small standardized problem (n=4096, d=2^16, ELL and
    column-sorted) solved on the card must agree with the CPU in f64, and
    the card's ELL solve, run twice, must repeat bitwise; so must two sparse
-   gradients at the ELL shape (the transpose Xᵀr is the gather kernel again,
-   over a column-sorted plan of the entries, held against its plain version
-   at the ELL batch's d=10^7 columns).
+   gradients at the ELL shape (the transpose Xᵀr is the gather's segment
+   kernel over a column-sorted plan of the entries, held against its plain
+   version at the ELL batch's d=10^7 columns with f32 and bf16 values, and
+   on the tails of both hybrid batches; its launches are counted apart from
+   the margins' row kernel, and the plan's bytes are printed).
 6. Times (CUDA events, median of 20 after warm-up): per-λ solve times, the
-   device time of one sparse evaluation and its parts, and a
-   ``{"kernels": ...}`` JSON line.
+   device time of one sparse evaluation and its parts (the hybrid
+   transposes split into the segment kernel and the head), B1 at the wide
+   shapes [2^17, 2048] and [2^17, 4099] in f32 and bf16 (held against its
+   plain version), and a ``{"kernels": ...}`` JSON line.
 7. The GAME slice (``GameEstimator.fit``: a fixed effect plus per-user and
    per-item random effects by coordinate descent), data made with numpy from
    ``--seed``:
@@ -193,7 +198,9 @@ def _kernel_cases(torch, fused_glm, losses, LabeledPointBatch, NormalizationCont
     worst = {"value_rel": 0.0, "grad_rel_to_max": 0.0, "main_grad_abs": 0.0, "cases": 0}
     shapes = [(1 << 18, 512, ("NONE", "SCALE", "STANDARDIZATION")),
               (1000, 123, ("STANDARDIZATION",)),
-              (4096, 8192, ("STANDARDIZATION",))]
+              (1001, 4099, ("STANDARDIZATION",)),
+              (4096, 8192, ("STANDARDIZATION",)),
+              (4096, 8200, ("STANDARDIZATION",))]
     for n, d, norms in shapes:
         x = torch.randn(n, d, device=dev, generator=gen)
         y_bin = (torch.rand(n, device=dev, generator=gen) < 0.5).float()
@@ -239,6 +246,67 @@ def _kernel_cases(torch, fused_glm, losses, LabeledPointBatch, NormalizationCont
                     worst["cases"] += 1
         del x, batch
     return worst
+
+
+def _wide_b1_entries(torch, fused_glm, loss, seed: int, card: str) -> list:
+    """B1 at the wide shapes (n=2^17, d=2048 and a ragged 4099; f32 and
+    bf16; bf16 at 2048 is the width at which a GAME fixed effect falls back
+    from the packed kernel to B1): the kernel twice (bitwise equal) against
+    its plain version within phase 3's limits, its plan, and its time
+    beside the bound, the plain version's and the two products ``X@w``,
+    ``r'X`` in X's dtype. No path of this run solves at these widths, so
+    ``launches`` is 0."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    n = 1 << 17
+    entries = []
+    for d in (2048, 4099):
+        x32 = torch.randn(n, d, device=dev, generator=gen)
+        y = (torch.rand(n, device=dev, generator=gen) < 0.5).float()
+        o = 0.1 * torch.randn(n, device=dev, generator=gen)
+        ws = 0.2 + 1.8 * torch.rand(n, device=dev, generator=gen)
+        w = 0.3 * torch.randn(d, device=dev, generator=gen) / (d / 16) ** 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+
+            def kernel():
+                return fused_glm.reduce_partials(*fused_glm.fused_partials(loss, x, y, o, ws, w))
+
+            v1, g1, _ = kernel()
+            v2, g2, _ = kernel()
+            vr, gr, _ = fused_glm._plain_core(loss, x, y, o, ws, w, None)
+            torch.cuda.synchronize()
+            tag = f"B1 [{n}, {d}] {str(dtype)[6:]}"
+            assert torch.equal(v1, v2) and torch.equal(g1, g2), f"not bitwise: {tag}"
+            vtol = 1e-5 if dtype == torch.float32 else 1e-4
+            assert abs(float(v1 - vr)) <= vtol * abs(float(vr)), tag
+            gmax = float(gr.abs().max())
+            assert torch.allclose(g1, gr, rtol=1e-4, atol=1e-4 * gmax), tag
+            nbytes = n * d * x.element_size() + 12 * n + 4 * d + 4 * d + 8
+            bound, by = _bound_ms(nbytes, 4.0 * n * d)
+            wx, r = w.to(dtype), ws.to(dtype)
+            plan = fused_glm.tile_plan(d, dtype)
+            entry = {
+                "name": "fused_glm", "route": "cuda",
+                "source": "photon_ml_torch/csrc/fused_glm.cu",
+                "replaces": "photon_ml_tpu/ops/pallas_glm.py:128", "launches": 0,
+                "max_abs_err": float((g1 - gr).abs().max()),
+                "ms": _device_ms(torch, kernel),
+                "plain_ms": _device_ms(torch, lambda: fused_glm._plain_core(
+                    loss, x, y, o, ws, w, None)),
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": _device_ms(torch, lambda: (torch.matmul(x, wx),
+                                                         torch.matmul(r, x))),
+                "shape": [n, d], "dtype": str(dtype)[6:], "on_main_path": False,
+                "plan": [plan.rows, plan.stages, plan.phases, plan.vectors]}
+            _log(f"{tag} ({card}): {entry['ms']:.4f} ms (bound {bound:.4f}, plain "
+                 f"{entry['plain_ms']:.4f}, X@w + r'X {entry['library_ms']:.4f}), plan "
+                 f"{plan}, max |dg| {entry['max_abs_err']:.3g} of max |g| {gmax:.3g}")
+            entries.append(entry)
+            del x
+        del x32
+    torch.cuda.empty_cache()
+    return entries
 
 
 def _dataset(np, seed: int, n: int, d: int):
@@ -405,39 +473,65 @@ def _gather_entry(torch, replaces: str, w, n: int, check: dict, ell=None, tail=N
             "bytes": nbytes}
 
 
-def _transpose_entry(torch, replaces: str, r, d: int, check: dict, plan) -> dict:
-    """The ``sparse_gather`` entry of the gradient's transpose: the kernel
-    over a batch's column-sorted plan (segments: the d columns; gathered:
-    ``r`` at each entry's row). ``library_ms`` is cuSPARSE's product of the
-    same entries as a CSR ``[d, n]`` matrix with ``r``; the bound counts
-    each entry, the column pointers and chunk plan, the output and each
-    distinct row of ``r`` once, and 2 operations per entry."""
+def _transpose_entry(torch, replaces: str, r, d: int, check: dict, plan, layout: str,
+                     **extra) -> dict:
+    """The ``sparse_gather`` entry of the gradient's transpose: the segment
+    kernel over a batch's column-sorted plan (segments: the d columns;
+    gathered: ``r`` at each entry's row). ``library_ms`` is cuSPARSE's
+    product of the same entries as a CSR ``[d, n]`` matrix with ``r`` (bf16
+    values widened to f32 first, outside the timing: the same function; its
+    product with a bf16 ``r``, which rounds r, is ``library_bf16_r_ms``).
+    The bound counts what the function needs: each entry, the column
+    pointers, the output and each distinct row of ``r`` once (not the chunk
+    plan, which only this kernel reads), and 2 operations per entry. The
+    plain version's column ids are rebuilt from the pointers outside its
+    timing."""
     from photon_ml_torch.ops import sparse_gather
 
-    vals, rows, cols, col_ptr, chunks = plan
+    vals, rows, col_ptr, chunks = plan
+    cols = sparse_gather.segment_ids(col_ptr)
     stored = vals.numel()
     nbytes = stored * (vals.element_size() + 4) + 4 * d + 4 * (d + 1)
     nbytes += 4 * int(torch.unique(rows).numel())
-    if chunks is not None:
-        nbytes += 4 * (chunks[0].numel() + d + 1)
     bound, by = _bound_ms(nbytes, 2.0 * stored)
-    csr = torch.sparse_csr_tensor(col_ptr, rows, vals, (d, r.shape[0]), check_invariants=False)
+    csr = torch.sparse_csr_tensor(col_ptr, rows, vals.float(), (d, r.shape[0]),
+                                  check_invariants=False)
+    if vals.dtype != torch.float32:
+        csr_16 = torch.sparse_csr_tensor(col_ptr, rows, vals, (d, r.shape[0]),
+                                         check_invariants=False)
+        r_16 = r.to(vals.dtype)
+        extra["library_bf16_r_ms"] = _device_ms(torch, lambda: csr_16 @ r_16)
 
     def kernel():
-        return sparse_gather.gather_sum(r, d, tail=plan[:4], chunks=chunks)
+        return sparse_gather.gather_sum(r, d, tail=(vals, rows, None, col_ptr), chunks=chunks)
 
     return {"name": "sparse_gather", "route": "cuda",
             "source": "photon_ml_torch/csrc/sparse_gather.cu", "replaces": replaces,
             "launches": None, "max_abs_err": check["max_abs_err"],
             "ms": _device_ms(torch, kernel), "eager_ms": _eager_ms(torch, kernel),
             "plain_ms": _device_ms(torch, lambda: sparse_gather.gather_sum_reference(
-                r, d, tail=plan[:4])),
+                r, d, tail=(vals, rows, cols, col_ptr))),
             "bound_ms": bound, "bound_by": by,
             "library_ms": _device_ms(torch, lambda: csr @ r),
             "worst_err_share_of_limit": check["max_err_over_scale"] / check["rel_limit"],
-            "shape": [d, stored], "layout": "transpose (column-sorted plan)",
+            "shape": [d, stored], "layout": f"transpose (column-sorted plan), {layout}",
             "dtype": str(vals.dtype).replace("torch.", ""), "chunks": None if chunks is None
-            else int(chunks[0].numel()), "bytes": nbytes}
+            else int(chunks[0].numel()), "bytes": nbytes, **extra}
+
+
+def _plan_bytes(plan) -> int:
+    """Device bytes of a transpose plan (values, rows, pointers, chunk plan)."""
+    vals, rows, col_ptr, chunks = plan
+    parts = [vals, rows, col_ptr, *(chunks or ())]
+    return sum(t.numel() * t.element_size() for t in parts)
+
+
+def _transpose_head_ms(torch, batch, r) -> float:
+    """Device time of the hybrid head's share of the transpose: ``r'X_hot``
+    and its ``index_add_`` into the distinct hot columns."""
+    out = torch.zeros(batch.dim, device=r.device)
+    return _device_ms(torch, lambda: out.index_add_(0, batch.hot_col_ids,
+                                                    r @ batch.hot_vals.to(r.dtype)))
 
 
 def _one_segment(torch, sparse_gather, dev, seed: int, nnz: int, d: int):
@@ -531,35 +625,46 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
     from photon_ml_torch.types import TaskType
 
     checks, entries, solves = [], [], []
-    total = {"launches": 0, "chunk_launches": 0}
+    # launches of the row kernel (margins), the segment kernel (the
+    # transposes) and the chunk kernel over the path's solves
+    total = {"launches": 0, "segment_launches": 0, "chunk_launches": 0}
+
+    def take():
+        """The gather counters' launches since the last call (row, segment
+        and chunk kernels), added to the path's totals; the counters go to 0."""
+        got = {k: getattr(sparse_gather, k) for k in total}
+        for k, v in got.items():
+            total[k] += v
+            setattr(sparse_gather, k, 0)
+        return got
 
     def run(label, batch, use_kernel=None, **kw):
         """train_glm with the gather counters set to 0 before each λ's solve
         and read just after it; returns the models and the launches made
         after the last solve (the variances' Hessian diagonal)."""
         marks = {"t": time.perf_counter()}
-        sparse_gather.launches = sparse_gather.chunk_launches = 0
+        for k in total:
+            setattr(sparse_gather, k, 0)
 
         def on_solve(lam, result):
             torch.cuda.synchronize()
             now = time.perf_counter()
-            launches, sparse_gather.launches = sparse_gather.launches, 0
-            total["chunk_launches"] += sparse_gather.chunk_launches
-            sparse_gather.chunk_launches = 0
+            got = take()
             hist = result.value_history[: result.iterations + 1].double().cpu().numpy()
             solves.append({"run": label, "lambda": lam, "seconds": now - marks["t"],
-                           "launches": launches, "iterations": result.iterations,
+                           "launches": got["launches"] + got["segment_launches"],
+                           "margin_launches": got["launches"],
+                           "transpose_launches": got["segment_launches"],
+                           "iterations": result.iterations,
                            "reason": result.reason, "value": float(result.value),
                            "history": hist, "kernel": use_kernel is not False})
-            total["launches"] += launches
             marks["t"] = now
 
         models = train_glm(batch, TaskType.LOGISTIC_REGRESSION, use_kernel=use_kernel,
                            on_solve=on_solve, **kw)
         torch.cuda.synchronize()
-        after, sparse_gather.launches = sparse_gather.launches, 0
-        total["launches"] += after
-        return models, after
+        got = take()
+        return models, got["launches"] + got["segment_launches"]
 
     def timed(step, label, fn):
         t0 = time.perf_counter()
@@ -667,10 +772,15 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
     transpose_ms = _device_ms(torch, lambda: sparse_column_sum(ell, r))
     index_add_ms = _device_ms(torch, lambda: sparse_column_sum(ell, r, use_kernel=False))
     ell.__dict__.pop("_transpose_plan", None)  # time the plan's one-off build
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     plan = transpose_plan(ell)
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
+    plan_peak = torch.cuda.max_memory_allocated() - base
+    plan_bytes = _plan_bytes(plan)
     _log(
         f"ELL evaluation n={n} d={d} L={width} f32 ({card}): value_and_gradient {vg_ms:.4f} ms "
         f"(eager {_eager_ms(torch, lambda: obj.value_and_gradient(w_eval, ell)):.4f} ms); "
@@ -678,15 +788,24 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
         f"column-sorted plan, a fixed order) {transpose_ms:.4f} ms; the plain index_add_ with "
         f"float atomics, for comparison, {index_add_ms:.4f} ms; the rest "
         f"{vg_ms - gather_ms - transpose_ms:.4f} ms; two gradients and values bitwise equal; "
-        f"the plan's build (once per batch) {plan_s:.3f} s")
+        f"the plan's build (once per batch) {plan_s:.3f} s; the plan holds {plan_bytes} bytes "
+        f"(values, rows, column pointers: {plan_bytes / plan[0].numel():.3f} bytes an entry; "
+        f"with the sorted column ids it kept before, "
+        f"{plan_bytes + 4 * plan[0].numel()}), its build peaked {plan_peak} bytes above what "
+        f"the phase held")
     g1_replaces = "experiments/sparse_gather_probe.py:70"
     entries.append(_gather_entry(torch, g1_replaces, w_eval, n, checks[0],
                                  ell=(ell.ell_vals, ell.ell_cols)))
     entries.append(_gather_entry(torch, g1_replaces, w_eval, n, checks[1],
                                  ell=(ell16.ell_vals, ell16.ell_cols)))
-    checks.append(_gather_check(torch, "transpose of the ELL batch (segments: its columns)", r,
-                                d, tail=plan[:4], chunks=plan[4]))
-    entries.append(_transpose_entry(torch, g1_replaces, r, d, checks[-1], plan))
+    for batch, dtype in ((ell, "f32"), (ell16, "bf16")):
+        t_plan = transpose_plan(batch)
+        checks.append(_gather_check(
+            torch, f"transpose of the ELL batch, {dtype} values (segments: its columns)", r, d,
+            tail=(t_plan[0], t_plan[1], None, t_plan[2]), chunks=t_plan[3]))
+        entries.append(_transpose_entry(torch, g1_replaces, r, d, checks[-1], t_plan,
+                                        f"ELL [{n}, {width}]", plan_bytes=_plan_bytes(t_plan)))
+    del t_plan
     del ell, ell16, held, models, plain_models, var_models, variances, obj, g1, g2, plan
     torch.cuda.empty_cache()
 
@@ -715,18 +834,27 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
         w_eval, n, ell=(hyb.ell_vals, hyb.ell_cols), tail=tail, chunks=hyb.row_chunks))
     head_ms = _device_ms(torch, lambda: hyb.hot_vals @ w_eval[hyb.hot_col_ids.long()])
     transpose_ms = _device_ms(torch, lambda: sparse_column_sum(hyb, r))
+    t_plan = transpose_plan(hyb)
+    checks.append(_gather_check(torch, "transpose of the hybrid tail, d=10^7", r, d,
+                                tail=(t_plan[0], t_plan[1], None, t_plan[2]), chunks=t_plan[3]))
+    t_head = _transpose_head_ms(torch, hyb, r)
+    entries.append(_transpose_entry(torch, g1_replaces, r, d, checks[-1], t_plan,
+                                    f"hybrid tail d={d}", head_ms=t_head,
+                                    plan_bytes=_plan_bytes(t_plan)))
     # the plain transpose: index_add_ of every ELL slot (pad slots, value 0,
     # all in column 0) and of the flat tail
     plain_ms = _device_ms(torch, lambda: sparse_column_sum(hyb, r, use_kernel=False))
     _log(
         f"hybrid evaluation n={n} d={d} ({card}): value_and_gradient {vg_ms:.4f} ms; gather "
         f"kernel (ELL+tail) {gather_ms:.4f} ms; head product {head_ms:.4f} ms; gradient "
-        f"transpose (head + the gather kernel over the column-sorted plan of the "
-        f"{int(transpose_plan(hyb)[0].numel())} nonzero tail entries) {transpose_ms:.4f} ms; "
+        f"transpose (head + the segment kernel over the column-sorted plan of the "
+        f"{int(t_plan[0].numel())} nonzero tail entries) {transpose_ms:.4f} ms, of which the "
+        f"segment kernel {entries[-1]['ms']:.4f} ms and the head's r'X_hot and index_add_ "
+        f"{t_head:.4f} ms; "
         f"the rest {vg_ms - gather_ms - head_ms - transpose_ms:.4f} ms; the plain transpose "
         f"(index_add_ of the ELL tail's {hyb.ell_vals.numel()} slots and the flat tail, float "
         f"atomics), for comparison, {plain_ms:.4f} ms")
-    del hyb, tail, obj, w_chk, w_eval, r
+    del hyb, tail, obj, w_chk, w_eval, r, t_plan
     torch.cuda.empty_cache()
 
     # c. hybrid at d=10^8 with TRON (bench_sparse_fe_1e8)
@@ -747,7 +875,20 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
     del w_big
     tron = OptimizerConfig(OptimizerType.TRON, max_iterations=3, max_cg_iterations=2)
     run("hybrid_1e8_tron", big, optimizer=tron, regularization_weights=(0.1,))
-    del big
+    r = torch.rand(n, device=dev, generator=gen)
+    t_plan = transpose_plan(big)
+    checks.append(_gather_check(torch, "transpose of the hybrid tail, d=10^8", r, d,
+                                tail=(t_plan[0], t_plan[1], None, t_plan[2]), chunks=t_plan[3]))
+    t_head = _transpose_head_ms(torch, big, r)
+    entries.append(_transpose_entry(torch, g1_replaces, r, d, checks[-1], t_plan,
+                                    f"hybrid tail d={d}", head_ms=t_head,
+                                    plan_bytes=_plan_bytes(t_plan)))
+    _log(f"hybrid d={d} transpose ({card}): the segment kernel over {int(t_plan[0].numel())} "
+         f"nonzero tail entries {entries[-1]['ms']:.4f} ms (cuSPARSE "
+         f"{entries[-1]['library_ms']:.4f}, bound {entries[-1]['bound_ms']:.4f}); the head "
+         f"{t_head:.4f} ms; whole transpose "
+         f"{_device_ms(torch, lambda: sparse_column_sum(big, r)):.4f} ms")
+    del big, t_plan, r
     torch.cuda.empty_cache()
 
     # the path's counts: every kernel solve launched the gather kernel
@@ -758,8 +899,10 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
             assert s["launches"] >= max(s["iterations"], 1), f"too few launches: {s['run']}"
         else:
             assert s["launches"] == 0, f"the plain run launched the kernel: {s['run']}"
-    _log(f"sparse path: {len(solves)} solves, {total['launches']} sparse_gather "
-                 f"launches, {total['chunk_launches']} chunk launches")
+    _log(f"sparse path: {len(solves)} solves, {total['launches']} sparse_gather row-kernel "
+         f"launches (margins), {total['segment_launches']} segment-kernel launches (the "
+         f"transposes), {total['chunk_launches']} chunk launches")
+    assert total["launches"] > 0 and total["segment_launches"] > 0
 
     # d. ragged rows, G1 and G2
     n, d, width = (SPARSE["ragged"][k] for k in ("n", "d", "width"))
@@ -790,7 +933,8 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
     for text in _small_sparse_agreement(torch, np, seed, dev):
         _log(text)
     for entry in entries:
-        entry["launches"] = total["launches"]
+        transpose = entry["layout"].startswith("transpose")
+        entry["launches"] = total["segment_launches" if transpose else "launches"]
         entry["chunk_launches"] = total["chunk_launches"]
     for s in solves:
         rate = s["launches"] / s["seconds"]
@@ -1732,8 +1876,10 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     built = build.build_all()
-    _log(f"build: {json.dumps(built)} ({time.perf_counter() - t0:.2f} s); one staged pass "
-         f"holds d <= {fused_glm.max_staged_d(4)} (f32), {fused_glm.max_staged_d(2)} (bf16)")
+    _log(f"build: {json.dumps(built)} ({time.perf_counter() - t0:.2f} s); B1's tile plan at "
+         f"d=512: f32 {fused_glm.tile_plan(512, torch.float32)}, bf16 "
+         f"{fused_glm.tile_plan(512, torch.bfloat16)}; one pass to d=8192: "
+         f"{fused_glm.tile_plan(8192, torch.float32)}")
 
     # 3. kernels against their plain versions
     worst = _kernel_cases(torch, fused_glm, losses, LabeledPointBatch, NormalizationContext,
@@ -1859,6 +2005,7 @@ def main(argv=None) -> int:
          "eager_ms": _eager_ms(torch, lambda: fused_glm.reduce_partials(*parts)),
          "blocks": parts[2].shape[0]},
     ]}
+    line["kernels"].extend(_wide_b1_entries(torch, fused_glm, loss, args.seed, card))
     for s in solves:
         _log(f"solve {s['run']} λ={s['lambda']:g}: {s['iterations']} iterations, reason "
              f"{s['reason']}, {s['evaluations']} evaluations in {s['seconds']:.4f} s "

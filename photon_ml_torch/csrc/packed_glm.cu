@@ -47,7 +47,8 @@
 // the partials in block order. No float atomics: repeated calls are bitwise
 // equal. X is never copied or padded in device memory.
 //
-// - Staging: a ring of 2-4 stages in shared memory (as many as fit in
+// - Staging (the helpers in csrc/glm_tile.cuh, shared with B1 in
+//   csrc/fused_glm.cu): a ring of 2-4 stages in shared memory (as many as fit in
 //   kRingBytes, so that two blocks share an SM; two when both products are
 //   on the FMA unit, which leans on more resident blocks), filled with cp.async
 //   (16-byte copies where a row's bytes allow, else 8, 4, or plain 2-byte
@@ -92,15 +93,12 @@
 // The kernel allocates nothing. Every entry point returns
 // cudaGetLastError() (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "glm_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace glm_tile;
+
 // Rows per staged tile: 16 unless the including file asks for 32
 // (packed_glm_r32.cu builds the 32-row variant of this source).
 #ifndef PACKED_GLM_ROWS
@@ -119,51 +117,11 @@ constexpr int kStageBytesMax = 200 * 1024;
 constexpr int kRingBytes = 104 * 1024;
 constexpr int kMaxStages = 4;
 
-enum LossId { kLogistic = 0, kSquared = 1, kPoisson = 2, kSmoothedHinge = 3 };
 // kMmaTf32 on an f32 tile is kMma (both TF32); on a bf16 tile it is the TF32
 // product of the widened tile rather than the bf16 product.
 enum UnitId { kFma = 0, kMma = 1, kMmaTf32 = 2 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// The four losses of photon_ml_torch/ops/losses.py, in f32.
-template <int LOSS>
-__device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& dz) {
-  if (LOSS == kLogistic) {
-    l = fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))) - y * z;
-    dz = 1.f / (1.f + expf(-z)) - y;
-  } else if (LOSS == kSquared) {
-    const float diff = z - y;
-    l = 0.5f * diff * diff;
-    dz = diff;
-  } else if (LOSS == kPoisson) {
-    const float ez = expf(z);
-    l = ez - y * z;
-    dz = ez - y;
-  } else {
-    const float sgn = 2.f * y - 1.f;
-    const float t = sgn * z;
-    float dt;
-    if (t <= 0.f) {
-      l = 0.5f - t;
-      dt = -1.f;
-    } else if (t < 1.f) {
-      l = 0.5f * ((1.f - t) * (1.f - t));
-      dt = t - 1.f;
-    } else {
-      l = 0.f;
-      dt = 0.f;
-    }
-    dz = sgn * dt;
-  }
-}
-
 // ---- shared-memory geometry (host and device) --------------------------------
-
-__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
-// Elements of one staged row: see the header.
-__host__ __device__ constexpr int pitch_of(int d) { return round_up(d, 16) + 8; }
 
 // marg[2][kWarps][kRows] f32 | w fragments (round_up(d, 16) x 4 bytes) | stages
 __host__ __device__ constexpr size_t marg_bytes() { return 2 * kWarps * kRows * 4; }
@@ -195,42 +153,9 @@ int max_staged_d(int itemsize) {
 
 // ---- staging -------------------------------------------------------------------
 
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(gmem_src),
-                 "n"(BYTES));
-  }
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// Wait until at most `pending` (0-2) of this thread's copy groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  if (pending <= 0)
-    asm volatile("cp.async.wait_group 0;\n" ::);
-  else if (pending == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::);
-  else
-    asm volatile("cp.async.wait_group 2;\n" ::);
-}
-
 __device__ __forceinline__ int tile_rows(int64_t t, int64_t n) {
   const int64_t left = n - t * kRows;
   return (int)(left < kRows ? left : kRows);
-}
-
-// Copy each row of the tile's `rows` rows to its pitched place in chunks of
-// BYTES (a divisor of the row's bytes; x and every row start are aligned).
-template <int BYTES>
-__device__ __forceinline__ void copy_rows(char* dst, const char* src, int rows, int row_bytes,
-                                          int pitch_bytes, int tid) {
-  const int per_row = row_bytes / BYTES;
-  for (int v = tid; v < rows * per_row; v += kThreads) {
-    const int i = v / per_row, j = v - i * per_row;
-    cp_async<BYTES>(dst + i * pitch_bytes + j * BYTES, src + (int64_t)i * row_bytes + j * BYTES);
-  }
 }
 
 // Start staging tile t of x: its rows at pitch `pitch`, and zeros in the
@@ -238,29 +163,7 @@ __device__ __forceinline__ void copy_rows(char* dst, const char* src, int rows, 
 template <typename T>
 __device__ __forceinline__ void stage_tile(T* buf, const T* __restrict__ x, int64_t t, int64_t n,
                                            int d, int pitch, int tid) {
-  const int rows = tile_rows(t, n);
-  const int row_bytes = d * (int)sizeof(T);
-  const int pitch_bytes = pitch * (int)sizeof(T);
-  const char* src = reinterpret_cast<const char*>(x + t * kRows * (int64_t)d);
-  char* dst = reinterpret_cast<char*>(buf);
-  if (row_bytes % 16 == 0) {
-    copy_rows<16>(dst, src, rows, row_bytes, pitch_bytes, tid);
-  } else if (row_bytes % 8 == 0) {
-    copy_rows<8>(dst, src, rows, row_bytes, pitch_bytes, tid);
-  } else if (row_bytes % 4 == 0) {
-    copy_rows<4>(dst, src, rows, row_bytes, pitch_bytes, tid);
-  } else {  // a bf16 row of odd d: plain 2-byte copies
-    const T* xs = x + t * kRows * (int64_t)d;
-    for (int v = tid; v < rows * d; v += kThreads) {
-      const int i = v / d, j = v - i * d;
-      buf[i * pitch + j] = xs[(int64_t)i * d + j];
-    }
-  }
-  if (rows < kRows) {
-    uint4* z = reinterpret_cast<uint4*>(dst + rows * pitch_bytes);
-    for (int v = tid; v < (kRows - rows) * pitch_bytes / 16; v += kThreads)
-      z[v] = make_uint4(0u, 0u, 0u, 0u);
-  }
+  stage_rows(buf, x + t * kRows * (int64_t)d, tile_rows(t, n), kRows, d, pitch, tid);
 }
 
 // ---- tensor-core fragments -------------------------------------------------------
@@ -467,15 +370,7 @@ packed_glm_partials_kernel(const T* __restrict__ x, const float* __restrict__ au
   const int64_t ntiles = (n + kRows - 1) / kRows;
 
   // zero the pad columns [d, round_up(d, 16)) of every staged row, once
-  const int padw = round_up(d, 16) - d;
-  for (int v = tid; v < stages * kRows * padw; v += kThreads) {
-    const int row = v / padw;
-    const int at = row * pitch + d + (v - row * padw);
-    if constexpr (sizeof(T) == 2)
-      reinterpret_cast<uint16_t*>(ring)[at] = 0;
-    else
-      reinterpret_cast<uint32_t*>(ring)[at] = 0u;
-  }
+  zero_pad_columns(ring, stages * kRows, d, pitch, tid);
   build_w_fragments<T, MUNIT>(wf_s, w, d, tid);
   for (int k = 0; k < stages - 1; ++k) {
     const int64_t t = blockIdx.x + (int64_t)k * gridDim.x;

@@ -63,13 +63,24 @@
 //   reduce adds its partials in block order). Rows with no chunks in the
 //   plan (every row of kChunk entries or fewer) read their entries directly.
 // - Many short rows and no ELL block (the transpose X'r of a sparse batch:
-//   one row per column, about two entries each at d = 10^7) would leave a
-//   warp per row nearly idle and latency-bound, so there one thread takes a
-//   row and adds its entries in order (gather_segments_kernel); a long row
-//   still goes through its chunk partials. The wrapper picks this kernel
-//   when the rows hold fewer than 32 entries on average.
-// Later work, not done here: the transpose with lane groups, rows sorted by
-// length.
+//   one row per column, about two entries each at d = 10^7, most columns
+//   empty at d = 10^8): load by entry, add by row (gather_segments_kernel).
+//   A warp owns a run of 32 consecutive rows, reads their row pointers
+//   coalesced, and reads the run's entries once with coalesced loads, 64 at
+//   a time, gathering w at each; the (value, w) pairs go to shared memory,
+//   and each lane adds its own row's pairs in entry order with fmaf from 0
+//   -- the operations, in the order, of one thread walking its row, so the
+//   sums are bitwise those of a thread per row. A row with chunks adds its
+//   partials in order and its entries are not staged. An empty row costs its
+//   pointers and its output. The wrapper picks this kernel when the rows
+//   hold fewer than 32 entries on average.
+// - What bounds the transpose (H100 80GB HBM3 at 700 W, dev/torch_kernel_ab.py,
+//   the 18.9M entries of a [2^19, 36] ELL block at d = 10^7): the random
+//   gathers of r, a 32-byte L2 sector each for 4 useful bytes. This kernel
+//   and a thread per row both read about 0.18 ms there (cuSPARSE 0.20); the
+//   same entries gathering r from 64 KB read 0.11 and 0.09. The runs win
+//   where a warp's rows differ in length (a Zipf tail at d = 10^7: 0.15
+//   against 0.24), where a thread per row waits for the longest of 32.
 //
 // The kernels allocate nothing; the wrapper passes outputs and partials.
 // Every entry point returns cudaGetLastError() (0 on success).
@@ -257,24 +268,105 @@ gather_rows_kernel(const V* __restrict__ ev, const int* __restrict__ ec, int wid
   }
 }
 
-// One thread per tail row, its entries (or its chunk partials) in order.
+// Columns of one run (a warp's lanes) and entries a warp stages at a time
+// in the segment kernel.
+constexpr int kRunSegments = 32;
+constexpr int kPiece = 64;
+
+// Short segments (the transpose X'r: one segment a column, about two
+// entries each at d = 10^7): a warp owns a run of 32 consecutive segments,
+// lane l segment c0 + l. The warp loads the run's entries once, coalesced,
+// kPiece at a time, gathers w at each entry's index, and stages the
+// (value, w) pairs in shared memory; then each lane adds its own segment's
+// pairs in entry order with fmaf from 0, carrying its sum across pieces. A
+// segment with chunks (more than kChunk entries) adds its chunk partials in
+// order instead, and its entries are skipped: the run is staged as the
+// stretches of segments between such lanes. A run whose segments hold at
+// most one entry each (most runs of a d = 10^8 tail) is not staged: each
+// lane adds its own entry. The kernel is latency-bound, so it keeps to 32
+// registers a thread (eight blocks, a full SM, resident).
 template <typename V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
 gather_segments_kernel(const V* __restrict__ tv, const int* __restrict__ tc,
-                       const int* __restrict__ row_ptr, const float* __restrict__ partials,
+                       const int* __restrict__ seg_ptr, const float* __restrict__ partials,
                        const int* __restrict__ chunk_ptr, const float* __restrict__ w,
                        long long n, float* __restrict__ out) {
-  const long long threads = (long long)gridDim.x * kThreads;
-  for (long long row = (long long)blockIdx.x * kThreads + threadIdx.x; row < n; row += threads) {
-    float acc = 0.f;
-    if (partials != nullptr && chunk_ptr[row + 1] > chunk_ptr[row]) {
-      for (int c = chunk_ptr[row]; c < chunk_ptr[row + 1]; ++c) acc += partials[c];
-    } else {
-      const int end = row_ptr[row + 1];
-      for (int k = row_ptr[row]; k < end; ++k)
-        acc = fmaf(to_float(tv[k]), __ldg(w + __ldg(tc + k)), acc);
+  __shared__ float vals_s[kWarpsPerBlock][kPiece];
+  __shared__ float w_s[kWarpsPerBlock][kPiece];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* const sv = vals_s[warp];
+  float* const sw = w_s[warp];
+  // n < 2^31 (the wrapper checks it): segment indices fit in 32 bits
+  const unsigned nu = (unsigned)n;
+  const int runs = (int)((n + kRunSegments - 1) / kRunSegments);
+  const int warps = gridDim.x * kWarpsPerBlock;
+  for (int run = blockIdx.x * kWarpsPerBlock + warp; run < runs; run += warps) {
+    const unsigned seg = (unsigned)run * kRunSegments + lane;
+    // past the last segment: an empty range at the end of the entries
+    const int b = seg_ptr[seg < nu ? seg : nu];
+    const int e = seg_ptr[seg < nu ? seg + 1 : nu];
+    if (__all_sync(kFull, e - b <= 1)) {
+      // no segment of the run holds two entries (a chunked one holds more
+      // than kChunk): each lane adds its own entry, if any, without staging
+      float acc = 0.f;
+      if (e > b) acc = fmaf(to_float(tv[b]), __ldg(w + __ldg(tc + b)), 0.f);
+      if (seg < nu) out[seg] = acc;
+      continue;
     }
-    out[row] = acc;
+    const bool chunked =
+        partials != nullptr && seg < nu && chunk_ptr[seg + 1] > chunk_ptr[seg];
+    float acc = 0.f;
+    if (chunked) {
+      for (int c = chunk_ptr[seg]; c < chunk_ptr[seg + 1]; ++c) acc += partials[c];
+    }
+    // Stage and add the stretch of lanes [lo, hi), which holds no chunked lane.
+    auto stretch = [&](int lo, int hi) {
+      const int sb = __shfl_sync(kFull, b, lo), se = __shfl_sync(kFull, e, hi - 1);
+      const bool mine = lane >= lo && lane < hi;
+      for (int p = sb; p < se; p += kPiece) {
+        float x[kPiece / 32], wx[kPiece / 32];
+        int c[kPiece / 32];
+#pragma unroll
+        for (int j = 0; j < kPiece / 32; ++j) {
+          const int k = p + j * 32 + lane;
+          if (k < se) {
+            x[j] = to_float(tv[k]);
+            c[j] = __ldg(tc + k);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kPiece / 32; ++j)
+          if (p + j * 32 + lane < se) wx[j] = __ldg(w + c[j]);
+#pragma unroll
+        for (int j = 0; j < kPiece / 32; ++j) {
+          if (p + j * 32 + lane < se) {
+            sv[j * 32 + lane] = x[j];
+            sw[j * 32 + lane] = wx[j];
+          }
+        }
+        __syncwarp();
+        if (mine) {
+          const int kb = b > p ? b : p, ke = e < p + kPiece ? e : p + kPiece;
+#pragma unroll 4
+          for (int k = kb; k < ke; ++k) acc = fmaf(sv[k - p], sw[k - p], acc);
+        }
+        __syncwarp();
+      }
+    };
+    const unsigned skip = __ballot_sync(kFull, chunked);
+    if (skip == 0) {
+      stretch(0, kRunSegments);
+    } else {
+      for (int lo = 0; lo < kRunSegments;) {
+        // the stretch [lo, hi): lanes up to the next chunked one
+        const unsigned ahead = skip >> lo;
+        const int hi = ahead ? lo + __ffs(ahead) - 1 : kRunSegments;
+        if (hi > lo) stretch(lo, hi);
+        lo = hi + 1;
+      }
+    }
+    if (seg < nu) out[seg] = acc;
   }
 }
 
@@ -326,6 +418,9 @@ extern "C" {
 // Entries of one chunk of a long row (the wrapper checks it against its own).
 int sparse_gather_chunk() { return kChunk; }
 
+// The segment kernel's rows a run and entries a piece, as 1000 * rows + entries.
+int sparse_gather_segment_run() { return kRunSegments * 1000 + kPiece; }
+
 // out[n] = ELL row sums (ev/ec [n, width], width may be 0 with null arrays)
 // + tail row sums (tv/tc with row_ptr [n+1], or null). With partials and
 // chunk_ptr non-null, a row with chunks takes its chunk partials instead.
@@ -343,14 +438,14 @@ int sparse_gather_rows(int is_bf16, int lanes, int vec, const void* ev, const vo
                                          chunk_ptr, w, n, out, s));
 }
 
-// out[n] = tail row sums (tv/tc with row_ptr [n+1]), one thread per row; with
-// partials and chunk_ptr non-null, a row with chunks sums its partials.
+// out[n] = tail row sums (tv/tc with row_ptr [n+1]) of short rows, a warp a
+// run of 32 rows whose entries it stages; with partials and chunk_ptr
+// non-null, a row with chunks sums its partials.
 int sparse_gather_segments(int is_bf16, const void* tv, const void* tc, const void* row_ptr,
                            const void* partials, const void* chunk_ptr, const void* w,
                            long long n, void* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  long long b = (n + kThreads - 1) / kThreads;
-  const int blocks = b < 1 ? 1 : (b > kMaxBlocks ? (int)kMaxBlocks : (int)b);
+  const int blocks = blocks_for((n + kRunSegments - 1) / kRunSegments);
   if (is_bf16) {
     gather_segments_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
         (const __nv_bfloat16*)tv, (const int*)tc, (const int*)row_ptr, (const float*)partials,

@@ -692,10 +692,13 @@ def sparse_margins(batch: SparseLabeledPointBatch, coefficients: torch.Tensor, *
 def transpose_plan(batch: SparseLabeledPointBatch):
     """The ELL block's and the flat tail's entries as one flat tail sorted
     by column, for the gather kernel with the columns as its segments:
-    (vals, rows, cols, col_ptr, chunks). Stable, so a column's entries keep
-    their order (ELL rows, then tail rows); entries of value 0, the ELL pad
-    slots among them, add nothing and are left out. Built once per batch on
-    its device (one sort, a few syncs) and cached on it."""
+    (vals, rows, col_ptr, chunks), 8 bytes an entry (f32) plus ``[d+1]``
+    pointers; column j's entries are ``[col_ptr[j], col_ptr[j+1])`` (the
+    sorted column ids are not kept: ``sparse_gather.segment_ids(col_ptr)``
+    rebuilds them). Stable, so a column's entries keep their order (ELL
+    rows, then tail rows); entries of value 0, the ELL pad slots among them,
+    add nothing and are left out. Built once per batch on its device (one
+    sort, a few syncs) and cached on it."""
     plan = batch.__dict__.get("_transpose_plan")
     if plan is not None:
         return plan
@@ -720,7 +723,7 @@ def transpose_plan(batch: SparseLabeledPointBatch):
         vals = batch.values
         cols = rows = torch.zeros((0,), dtype=torch.int32, device=batch.device)
     col_ptr, chunks = segment_plan(cols, batch.dim)
-    plan = (vals, rows, cols, col_ptr, chunks)
+    plan = (vals, rows, col_ptr, chunks)
     object.__setattr__(batch, "_transpose_plan", plan)
     return plan
 
@@ -738,10 +741,10 @@ def tail_column_sums(batch: SparseLabeledPointBatch, row_weights: torch.Tensor,
     dtype = torch.promote_types(row_weights.dtype, batch.values.dtype)
     rw = row_weights.to(dtype)
     if use_kernel is not False:
-        vals, rows, cols, col_ptr, chunks = transpose_plan(batch)
+        vals, rows, col_ptr, chunks = transpose_plan(batch)
         if square_values:
             vals = vals.to(dtype) * vals.to(dtype)
-        return gather_sum(rw.contiguous(), batch.dim, tail=(vals, rows, cols, col_ptr),
+        return gather_sum(rw.contiguous(), batch.dim, tail=(vals, rows, None, col_ptr),
                           chunks=chunks)
     out = torch.zeros((batch.dim,), dtype=dtype, device=row_weights.device)
 

@@ -4,7 +4,11 @@ Counterpart of ``photon_ml_tpu/ops/pallas_glm.py`` (``fused_value_and_gradient``
 over the Pallas kernel ``_kernel``/``_fused_padded``). The kernel is
 hand-written CUDA for Hopper, ``csrc/fused_glm.cu``; its header states the
 bound and the design. Per evaluation on a CUDA tensor the wrapper launches
-two kernels: the per-block partials and their ordered reduction.
+two kernels: the per-block partials and their ordered reduction. The
+partials kernel stages row tiles of X in a ring in shared memory under a
+tile plan that it chooses from the width and the type (rows a tile, stages,
+row phases of the gradient; :func:`tile_plan` reads it); blocks wider than
+8192 take its two-pass form.
 
 The normalization algebra is that of the JAX wrapper
 (ValueAndGradientAggregator.scala:36-49): the kernel reads X with the
@@ -22,6 +26,7 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -46,8 +51,6 @@ def _lib() -> ctypes.CDLL:
         from photon_ml_torch import build
 
         lib = build.load("fused_glm")
-        lib.fused_glm_max_staged_d.argtypes = [ctypes.c_int]
-        lib.fused_glm_max_staged_d.restype = ctypes.c_int
         lib.fused_glm_grid_blocks.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int)]
@@ -63,10 +66,27 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def max_staged_d(itemsize: int) -> int:
-    """Largest d that one staged pass over X supports (4: f32, 2: bf16);
-    wider blocks read each row tile twice. Builds the kernel."""
-    return _lib().fused_glm_max_staged_d(itemsize)
+class TilePlan(NamedTuple):
+    """How the partials kernel walks X (chosen in ``csrc/fused_glm.cu`` from
+    the width and the type): ``rows`` a staged tile (0: the two-pass form),
+    ``stages`` in the ring, the gradient's row ``phases``, the 16-byte column
+    ``vectors`` a thread owns, and the ``smem_bytes`` it asks for."""
+
+    rows: int
+    stages: int
+    phases: int
+    vectors: int
+    smem_bytes: int
+
+
+def tile_plan(d: int, dtype: torch.dtype) -> TilePlan:
+    """The kernel's tile plan for a block ``d`` wide of ``dtype`` (f32 or
+    bf16) features, for logs and tests. Builds the kernel."""
+    lib = _lib()
+    lib.fused_glm_tile_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 5)()
+    _check(lib.fused_glm_tile_plan(int(dtype == torch.bfloat16), d, out), "fused_glm_tile_plan")
+    return TilePlan(*out)
 
 
 def _require(cond: bool, msg: str) -> None:

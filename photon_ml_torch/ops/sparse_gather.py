@@ -18,7 +18,8 @@ Two layouts, either or both in one call:
   value 0);
 - ``tail = (vals [nnz], cols [nnz], row_ids [nnz], row_ptr [n+1])``: a
   row-sorted flat COO tail; the kernel reads ``row_ptr`` (row i's entries
-  are ``[row_ptr[i], row_ptr[i+1])``), the plain version ``row_ids``.
+  are ``[row_ptr[i], row_ptr[i+1])``), the plain version ``row_ids``, which
+  may be None (it is then rebuilt from ``row_ptr``).
   ``chunks = (chunk_row, chunk_ptr)``, from :func:`segment_plan`, cuts rows
   longer than ``SEGMENT_CHUNK`` entries into chunks whose partial sums a
   second pass adds in a fixed order; shorter rows have no chunks.
@@ -26,8 +27,10 @@ Two layouts, either or both in one call:
 The kernel gives an ELL row a group of 4, 8 or 16 lanes (:func:`ell_plan`),
 which read its entries in vectors of up to 4, and a row's flat tail the
 whole warp. With a tail and no ELL block whose rows average fewer than 32
-entries (the transpose of a sparse batch, one row per column) it gives each
-row one thread instead.
+entries (the transpose of a sparse batch, one row per column) a second
+kernel, the segment kernel, gives a warp a run of 32 rows: it loads the
+run's entries once, 64 at a time, and each lane adds its own row's terms in
+entry order.
 
 The kernel is hand-written CUDA for Hopper, ``csrc/sparse_gather.cu``; its
 header states the bound and the design. It reads f32 or bf16 values, int32
@@ -47,8 +50,12 @@ import torch
 from photon_ml_torch.build import check_cuda as _check
 from photon_ml_torch.build import on_device as _on
 
-#: launches of the row (or segment) kernel: one per gather-sum on the card
+#: launches of the row kernel: one per gather-sum with an ELL block or long
+#: rows on the card (every sparse margin of an ELL or hybrid batch)
 launches = 0
+#: launches of the segment kernel: one per gather-sum of short rows with no
+#: ELL block (every transpose Xᵀr over a batch's column-sorted plan)
+segment_launches = 0
 #: launches of the chunk kernel (only for rows longer than SEGMENT_CHUNK)
 chunk_launches = 0
 
@@ -57,6 +64,10 @@ SEGMENT_CHUNK = 2048
 #: a tail without an ELL block whose rows average fewer entries than this
 #: (a warp's width) takes one thread per row instead of one warp
 SHORT_ROWS = 32
+#: the segment kernel's rows a warp (kRunSegments) and entries it stages at
+#: a time (kPiece); must equal the CUDA source's
+RUN_SEGMENTS = 32
+PIECE = 64
 
 _LIB = None
 _VP = ctypes.c_void_p
@@ -69,6 +80,8 @@ def _lib() -> ctypes.CDLL:
 
         lib = build.load("sparse_gather")
         lib.sparse_gather_chunk.restype = ctypes.c_int
+        lib.sparse_gather_segment_run.argtypes = []
+        lib.sparse_gather_segment_run.restype = ctypes.c_int
         lib.sparse_gather_rows.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP, ctypes.c_int, _VP, _VP, _VP, _VP,
             _VP, _VP, ctypes.c_longlong, _VP, _VP]
@@ -81,6 +94,9 @@ def _lib() -> ctypes.CDLL:
         lib.sparse_gather_segments.restype = ctypes.c_int
         if lib.sparse_gather_chunk() != SEGMENT_CHUNK:
             raise RuntimeError("csrc/sparse_gather.cu kChunk differs from SEGMENT_CHUNK")
+        if lib.sparse_gather_segment_run() != RUN_SEGMENTS * 1000 + PIECE:
+            raise RuntimeError("csrc/sparse_gather.cu kRunSegments or kPiece differs from "
+                               "RUN_SEGMENTS or PIECE")
         _LIB = lib
     return _LIB
 
@@ -130,11 +146,19 @@ def segment_plan(row_ids: torch.Tensor, n: int):
     return row_ptr, (chunk_row.to(torch.int32), chunk_ptr.to(torch.int32))
 
 
+def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
+    """The row of each entry of a row-sorted tail, from its ``row_ptr``."""
+    n = row_ptr.numel() - 1
+    lens = (row_ptr[1:] - row_ptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(n, dtype=torch.int32, device=row_ptr.device),
+                                   lens)
+
+
 def gather_sum_reference(w: torch.Tensor, n: int, *, ell=None, tail=None, chunks=None):
     """Plain PyTorch version of :func:`gather_sum` on any device, in the
     promoted dtype of the values and ``w``: the ELL row-sum and an
-    ``index_add_`` of the tail over its row ids. ``chunks`` changes no
-    result and is ignored."""
+    ``index_add_`` of the tail over its row ids (rebuilt from ``row_ptr``
+    where they are None). ``chunks`` changes no result and is ignored."""
     del chunks
     dtype = w.dtype
     if ell is not None:
@@ -146,7 +170,9 @@ def gather_sum_reference(w: torch.Tensor, n: int, *, ell=None, tail=None, chunks
         vals, cols = ell
         out = (vals.to(dtype) * w.to(dtype)[cols.long()]).sum(-1)
     if tail is not None and tail[0].numel():
-        vals, cols, row_ids, _ = tail
+        vals, cols, row_ids, row_ptr = tail
+        if row_ids is None:
+            row_ids = segment_ids(row_ptr)
         contrib = vals.to(dtype) * w.to(dtype)[cols.long()]
         out = out.index_add(0, row_ids.long(), contrib)
     return out
@@ -179,7 +205,7 @@ def gather_sum(w: torch.Tensor, n: int, *, ell=None, tail=None, chunks=None) -> 
 
 
 def _launch(w, n, ell, tail, chunks):
-    global launches, chunk_launches
+    global launches, segment_launches, chunk_launches
     _require(w.is_cuda, "w must be a CUDA tensor")
     dev = w.device
     _require(w.dtype == torch.float32 and w.dim() == 1 and w.is_contiguous(),
@@ -228,7 +254,7 @@ def _launch(w, n, ell, tail, chunks):
                 int(bool(is_bf16)), tail_vals.data_ptr(), tail_cols.data_ptr(),
                 row_ptr.data_ptr(), ptr(partials), ptr(chunk_ptr), w.data_ptr(), n,
                 out.data_ptr(), stream), "sparse_gather_segments")
-            launches += 1
+            segment_launches += 1
         elif n:
             lanes, vec = ell_plan(width, ptr(ell_vals) or 0, ptr(ell_cols) or 0,
                                   2 if is_bf16 else 4)

@@ -94,3 +94,29 @@ def test_reduce_partials_reference():
     pv, pr, pg = torch.arange(3.0), torch.ones(3), torch.arange(6.0).reshape(3, 2)
     v, g, r = fused_glm.reduce_partials_reference(pv, pr, pg)
     assert float(v) == 3.0 and float(r) == 3.0 and g.tolist() == [6.0, 9.0]
+
+
+#: the widths the card tests run B1 at (tests/test_torch_fused_glm_cuda.py):
+#: one to 16 rows a tile, 1-8 column vectors a thread, odd bf16 rows
+WIDE = [1, 15, 512, 1537, 2048, 3072, 4099]
+
+
+@pytest.mark.parametrize("d", WIDE)
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,binary", LOSSES, ids=[n for n, _ in LOSSES])
+def test_plain_version_matches_pallas_interpret_wide(name, binary, bf16, d):
+    """The widths the kernel's tile plan cuts differently (16 rows a tile at
+    512, 4 or 8 at 2048, 2 or 4 at a ragged 4099): the plain version against
+    the Pallas kernel in interpret mode, at a ragged n, standardized."""
+    n = 97
+    x, y, o, ws = make_data(d, n, d, binary, dtype=np.float32)
+    jb, tb = batches(x, y, o, ws, bf16=bf16)
+    jn, tn = normalizations("STANDARDIZATION", x, intercept_index=d - 1, dtype=np.float32)
+    w = (np.random.default_rng(d).normal(size=d) * 0.3 / np.sqrt(d / 16)).astype(np.float32)
+    jl, tl = loss_pair(name)
+    ref_v, ref_g = jax_fused(jl, jnp.asarray(w), jb, l2_weight=0.7, normalization=jn,
+                             interpret=True)
+    v, g = fused_glm.fused_value_and_gradient(tl, torch.from_numpy(w), tb, l2_weight=0.7,
+                                              normalization=tn)
+    np.testing.assert_allclose(float(v), float(ref_v), rtol=2e-5)
+    np.testing.assert_allclose(to_np(g), to_np(ref_g), rtol=2e-4, atol=2e-4)

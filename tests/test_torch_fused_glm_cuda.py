@@ -43,18 +43,15 @@ def _case(n, d, binary, dtype, device, seed=0):
     return batch, w, norm
 
 
-@pytest.mark.parametrize("shape", [(1000, 123), (4096, 512), (512, 8192), (7, 3)],
-                         ids=lambda s: f"n{s[0]}_d{s[1]}")
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", LOSS_NAMES)
-def test_kernel_matches_plain_version(cuda, name, dtype, shape):
-    loss = getattr(losses, name)()
-    batch, w, norm = _case(*shape, name in ("LogisticLoss", "SmoothedHingeLoss"), dtype, cuda)
+def _hold(loss, w, batch, norm):
+    """Kernel twice (bitwise equal, two launches) against the plain version
+    on the same (bf16-rounded) inputs: value rel 1e-5, gradient rtol 1e-4,
+    atol 1e-4·max|g|."""
     before = fused_glm.launches
-    v1, g1 = fused_glm.fused_value_and_gradient(loss, w, batch, l2_weight=0.5, normalization=norm)
-    v2, g2 = fused_glm.fused_value_and_gradient(loss, w, batch, l2_weight=0.5, normalization=norm)
-    vr, gr = fused_glm.fused_value_and_gradient_reference(loss, w, batch, l2_weight=0.5,
-                                                          normalization=norm)
+    kw = dict(l2_weight=0.5, normalization=norm)
+    v1, g1 = fused_glm.fused_value_and_gradient(loss, w, batch, **kw)
+    v2, g2 = fused_glm.fused_value_and_gradient(loss, w, batch, **kw)
+    vr, gr = fused_glm.fused_value_and_gradient_reference(loss, w, batch, **kw)
     torch.cuda.synchronize()
     assert fused_glm.launches == before + 2
     # deterministic reduction: repeated calls are bitwise equal
@@ -62,6 +59,72 @@ def test_kernel_matches_plain_version(cuda, name, dtype, shape):
     np.testing.assert_allclose(float(v1), float(vr), rtol=1e-5)
     scale = float(gr.abs().max())
     np.testing.assert_allclose(g1.cpu().numpy(), gr.cpu().numpy(), rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("shape", [(1000, 123), (4096, 512), (512, 8192), (7, 3),
+                                   (300, 8193)],
+                         ids=lambda s: f"n{s[0]}_d{s[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", LOSS_NAMES)
+def test_kernel_matches_plain_version(cuda, name, dtype, shape):
+    loss = getattr(losses, name)()
+    batch, w, norm = _case(*shape, name in ("LogisticLoss", "SmoothedHingeLoss"), dtype, cuda)
+    _hold(loss, w, batch, norm)
+
+
+@pytest.mark.parametrize("shift", [False, True], ids=["scaled", "shifted"])
+@pytest.mark.parametrize("d", [1, 15, 512, 1537, 2048, 3072, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", LOSS_NAMES)
+def test_one_pass_widths(cuda, name, dtype, d, shift):
+    """Every plan of the one-pass kernel (16 rows a tile down to 2, 2-4
+    stages, 1-16 row phases, 1-8 column vectors a thread) at a ragged n,
+    with the margin shift of a standardization or only its scaling."""
+    loss = getattr(losses, name)()
+    batch, w, norm = _case(1001, d, name in ("LogisticLoss", "SmoothedHingeLoss"), dtype, cuda,
+                           seed=d)
+    if not shift:
+        norm = NormalizationContext(norm.factors, None)
+    assert fused_glm.tile_plan(d, dtype).rows > 0
+    _hold(loss, w, batch, norm)
+
+
+@pytest.mark.parametrize("d", [1, 3, 15, 16, 17, 123, 512, 1536, 1537, 2048, 3072, 4099, 8191,
+                               8192, 8193, 10**5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tile_plan(cuda, d, dtype):
+    """The plan the library chooses: the most rows (a power of two up to 16)
+    whose two stages (plus a work tile for bf16 rows of odd d, staged raw)
+    fit in 96 KB, 2-4 stages, more than two only while they keep at most
+    48 KB in flight, at most 200 KB of shared memory, the most row phases
+    (up to the rows) that give every 16-byte column vector a thread, and at
+    most 32 gradient registers a thread; one pass to d = 8192, the
+    two-pass form (rows 0) above."""
+    plan = fused_glm.tile_plan(d, dtype)
+    if d > 8192:
+        assert plan == (0, 0, 0, 0, 0)
+        return
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    padded = -(-d // 16) * 16
+    raw = d * itemsize % 4 != 0
+    # a slot: the rows at the pitch and 32 bytes of slack for a raw span
+    stage = lambda rows: rows * (padded + 8) * itemsize + 32  # noqa: E731
+    assert plan.rows in (1, 2, 4, 8, 16) and 2 <= plan.stages <= 4
+    if plan.stages > 2:
+        assert plan.stages * stage(plan.rows) <= 48 * 1024
+    tiles = plan.stages + raw
+    assert plan.smem_bytes == 4 * padded + 2 * 16 * 4 + tiles * stage(plan.rows) <= 200 * 1024
+    if plan.rows > 1:
+        assert (2 + raw) * stage(plan.rows) <= tiles * stage(plan.rows) <= 96 * 1024
+    if plan.rows < 16:  # twice the rows would not fit
+        assert (2 + raw) * stage(2 * plan.rows) > 96 * 1024
+    nvec = padded * itemsize // 16
+    per_phase = 256 // plan.phases
+    assert plan.phases in (1, 2, 4, 8, 16) and plan.phases <= plan.rows
+    assert plan.vectors * per_phase >= nvec > (plan.vectors - 1) * per_phase
+    assert plan.vectors * (16 // itemsize) <= 32
+    if plan.phases < plan.rows:  # twice the phases would leave a vector without a thread
+        assert per_phase // 2 < nvec
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

@@ -390,6 +390,8 @@ def test_column_sum_through_the_transpose_plan(layout, square):
     want = tsb.sparse_column_sum(batch, r, square, use_kernel=False)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
     plan = batch.__dict__["_transpose_plan"]
+    # (vals, rows, col_ptr, chunks): no per-entry column ids are kept
+    assert len(plan) == 4 and plan[2].shape == (D + 1,) and plan[0].shape == plan[1].shape
     assert int((plan[0] == 0).sum()) == 0 and bool((plan[2][1:] >= plan[2][:-1]).all())
     assert batch.with_offsets(batch.offsets + 1).__dict__["_transpose_plan"] is plan
     assert "_transpose_plan" not in batch.replace(values=batch.values * 2).__dict__

@@ -69,12 +69,13 @@ def test_kernel_matches_plain_version(cuda, layout, dtype):
     w = torch.randn(d, device=cuda)
     e = (batch.ell_vals, batch.ell_cols) if batch.has_ell_view else None
     t = (batch.values, batch.col_indices, batch.row_ids, batch.row_ptr) if batch.nnz else None
-    before = sparse_gather.launches
+    before = sparse_gather.launches + sparse_gather.segment_launches
     k1 = sparse_gather.gather_sum(w, n, ell=e, tail=t, chunks=batch.row_chunks)
     k2 = sparse_gather.gather_sum(w, n, ell=e, tail=t, chunks=batch.row_chunks)
     plain = sparse_gather.gather_sum_reference(w.double(), n, ell=e, tail=t)
     torch.cuda.synchronize()
-    assert sparse_gather.launches == before + 2
+    # rows of an ELL block take the row kernel, short flat rows the segment kernel
+    assert sparse_gather.launches + sparse_gather.segment_launches == before + 2
     assert torch.equal(k1, k2)  # bitwise repeatable
     _check(k1, plain, _scale(w, n, e, t))
     assert bool((k1[::5] == 0).all())  # empty rows
@@ -157,8 +158,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("layout", ["ell", "hybrid"])
 def test_transpose_repeats_bitwise(cuda, layout):
     """The sparse transpose (the gradient's Xᵀr) on the card: the gather
-    kernel over the column-sorted plan (about four entries a column, so a
-    thread per column), twice bitwise equal, against the plain ``index_add_``
+    kernel over the column-sorted plan (about four entries a column, so the
+    segment kernel), twice bitwise equal, against the plain ``index_add_``
     in f64 within 1e-5·Σ|r·x| per column; a long column (more than a chunk
     of entries) included."""
     n, d = 4096, 20000
@@ -168,10 +169,10 @@ def test_transpose_repeats_bitwise(cuda, layout):
     y = np.zeros(n)
     batch = SparseLabeledPointBatch.from_coo(rows, cols, vals, y, dim=d, device=cuda, **kw)
     r = torch.randn(n, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
-    before = sparse_gather.launches
+    before = sparse_gather.segment_launches
     a = sparse_column_sum(batch, r)
     b = sparse_column_sum(batch, r)
-    assert sparse_gather.launches == before + 2 and torch.equal(a, b)
+    assert sparse_gather.segment_launches == before + 2 and torch.equal(a, b)
     batch64 = SparseLabeledPointBatch.from_coo(rows, cols, vals, y, dim=d, dtype=torch.float64,
                                                device=cuda, **kw)
     want = sparse_column_sum(batch64, r.double(), use_kernel=False)
@@ -179,3 +180,64 @@ def test_transpose_repeats_bitwise(cuda, layout):
                                              dtype=torch.float64, device=cuda, **kw)
     scale = sparse_column_sum(abs64, r.double().abs(), use_kernel=False)
     assert bool(((a.double() - want).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def _columns(lengths, n, seed):
+    """A column-sorted tail with the given entries a column (rows drawn at
+    random in [0, n)), as the transpose plan holds it, with its chunk plan."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths)
+    cols = np.repeat(np.arange(len(lengths)), lengths)
+    rows = rng.integers(0, n, size=len(cols)).astype(np.int32)
+    vals = rng.normal(size=len(cols)).astype(np.float32)
+    return cols, rows, vals
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["empty_columns", "longer_than_a_piece", "at_and_over_a_chunk",
+                                  "ragged_last_run"])
+def test_segment_kernel_columns(cuda, case, dtype):
+    """The segment kernel over column-sorted entries (the transpose's
+    layout): empty columns (most of a run, and whole runs), a column longer
+    than one staged piece of ``PIECE`` entries, columns of exactly
+    ``SEGMENT_CHUNK`` entries (staged) and one more (chunk partials) beside
+    short ones in the same run, and a last run that is not full; twice
+    bitwise equal and within 1e-5·Σ|v·r| of the plain version in f64 per
+    column."""
+    n = 5000
+    rng = np.random.default_rng(11)
+    if case == "empty_columns":
+        lengths = np.where(rng.uniform(size=4000) < 0.05, rng.integers(1, 4, size=4000), 0)
+        lengths[64:160] = 0  # three whole runs empty
+    elif case == "longer_than_a_piece":
+        lengths = rng.integers(0, 5, size=3000)
+        lengths[[5, 40, 41, 2999]] = [sparse_gather.PIECE + 1, 3 * sparse_gather.PIECE,
+                                      sparse_gather.PIECE, 1000]
+    elif case == "at_and_over_a_chunk":
+        lengths = rng.integers(0, 5, size=3000)
+        chunk = sparse_gather.SEGMENT_CHUNK
+        lengths[[3, 4, 70, 100, 127]] = [chunk, chunk + 1, chunk + 1, chunk, 5 * chunk + 7]
+    else:
+        lengths = rng.integers(0, 6, size=32 * 40 + 13)
+    cols, rows, vals = _columns(lengths, n, seed=12)
+    d = len(lengths)
+    t_cols = torch.tensor(cols, dtype=torch.int32, device=cuda)
+    col_ptr, chunks = sparse_gather.segment_plan(t_cols, d)
+    assert (chunks is not None) == (case == "at_and_over_a_chunk")
+    if chunks is not None:  # exactly SEGMENT_CHUNK entries: no chunks
+        per_col = (chunks[1][1:] - chunks[1][:-1]).cpu().numpy()
+        assert per_col[3] == 0 and per_col[100] == 0 and per_col[4] == 2 and per_col[127] == 6
+    tail = (torch.tensor(vals, device=cuda).to(dtype), torch.tensor(rows, device=cuda),
+            None, col_ptr)
+    r = torch.randn(n, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    before = (sparse_gather.segment_launches, sparse_gather.launches)
+    k1 = sparse_gather.gather_sum(r, d, tail=tail, chunks=chunks)
+    k2 = sparse_gather.gather_sum(r, d, tail=tail, chunks=chunks)
+    torch.cuda.synchronize()
+    assert (sparse_gather.segment_launches, sparse_gather.launches) == \
+        (before[0] + 2, before[1])
+    assert torch.equal(k1, k2)  # bitwise repeatable
+    wide = (tail[0].double(), tail[1], t_cols, col_ptr)
+    plain = sparse_gather.gather_sum_reference(r.double(), d, tail=wide)
+    _check(k1, plain, _scale(r, d, tail=wide))
+    assert bool((k1[torch.from_numpy(lengths == 0).to(cuda)] == 0).all())  # empty columns
