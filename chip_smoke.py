@@ -43,8 +43,12 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    ``|k - p| <= 1e-5 * sum|vals*w|``): ELL f32 and bf16, and the ELL+tail
    of both hybrid batches; then on empty and overlong rows, and at the
    shapes of the TPU kernels it replaces (G1: one segment of 2^24 entries,
-   d=2^22; G2: 2^22 entries, d=2^21; limit ``1e-7 * sum|vals*w|``). The
-   launch counter is set to 0 before each solve
+   d=2^22; G2: 2^22 entries, d=2^21; limit ``1e-7 * sum|vals*w|``); the
+   chunk kernel (rows of more than 2048 entries) alone at each of its
+   launch shapes (the planted transpose in f32 and bf16, the overlong rows,
+   G1, G2) against its plain version in f64 (per chunk, 1e-5), with its own
+   entries in the kernels line. The launch counter is set to 0 before each
+   solve
    and read after it. A small standardized problem (n=4096, d=2^16, ELL and
    column-sorted) solved on the card must agree with the CPU in f64, and
    the card's ELL solve, run twice, must repeat bitwise; so must two sparse
@@ -52,7 +56,8 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    kernel over a column-sorted plan of the entries, held against its plain
    version at the ELL batch's d=10^7 columns with f32 and bf16 values, and
    on the tails of both hybrid batches; its launches are counted apart from
-   the margins' row kernel, and the plan's bytes are printed).
+   the margins' row kernel, and the plan's bytes are printed, its compact
+   chunk plan apart).
 6. Times (CUDA events, median of 20 after warm-up): per-λ solve times, the
    device time of one sparse evaluation and its parts (the hybrid
    transposes split into the segment kernel and the head), B1 at the wide
@@ -437,7 +442,7 @@ def _gather_entry(torch, replaces: str, w, n: int, check: dict, ell=None, tail=N
     if tail is not None:
         nbytes += 4 * (n + 1)
         if chunks is not None:
-            nbytes += 4 * (chunks[0].numel() + n + 1)
+            nbytes += chunks.nbytes()
     bound, by = _bound_ms(nbytes, 2.0 * stored)
     w_lib = w.to(vals.dtype)
     flat_vals, flat_cols = vals.reshape(-1), cols.reshape(-1).long()
@@ -516,14 +521,86 @@ def _transpose_entry(torch, replaces: str, r, d: int, check: dict, plan, layout:
             "worst_err_share_of_limit": check["max_err_over_scale"] / check["rel_limit"],
             "shape": [d, stored], "layout": f"transpose (column-sorted plan), {layout}",
             "dtype": str(vals.dtype).replace("torch.", ""), "chunks": None if chunks is None
-            else int(chunks[0].numel()), "bytes": nbytes, **extra}
+            else chunks.count, "bytes": nbytes, **extra}
+
+
+def _chunk_csr(torch, tail, chunks, width: int):
+    """The chunk kernel's function as one CSR matrix ``[chunks.count,
+    width]`` and the tail positions of its entries: the long rows' entries
+    copied in order into contiguous arrays (bf16 values widened to f32),
+    one matrix row a chunk of the plan, so ``csr @ w`` is cuSPARSE's
+    per-chunk partials. Built once, outside any timing."""
+    from photon_ml_torch.ops import sparse_gather
+
+    vals, cols, _, row_ptr = tail
+    dev = vals.device
+    rows = chunks.rows.long()
+    starts, lens = row_ptr[rows].long(), (row_ptr[rows + 1] - row_ptr[rows]).long()
+    offsets = torch.cumsum(lens, 0) - lens  # each long row's start in the copy
+    of = torch.repeat_interleave(torch.arange(rows.numel(), device=dev), lens)
+    entry = starts[of] + torch.arange(of.numel(), device=dev) - offsets[of]
+    first = chunks.chunk_ptr[:-1].long()
+    r = torch.repeat_interleave(torch.arange(rows.numel(), device=dev), chunks.chunk_ptr[1:].long()
+                                - first)
+    begin = offsets[r] + (torch.arange(chunks.count, device=dev) - first[r]) \
+        * sparse_gather.SEGMENT_CHUNK
+    crow = torch.cat([begin, begin.new_full((1,), entry.numel())]).to(torch.int32)
+    csr = torch.sparse_csr_tensor(crow, cols[entry], vals[entry].float(), (chunks.count, width),
+                                  check_invariants=False)
+    return csr, entry
+
+
+def _chunk_entry(torch, replaces: str, w, tail, chunks, case: str) -> dict:
+    """The chunk kernel's entry of the kernels line
+    (``sparse_gather.chunk_partials``) at one of its launch shapes: held
+    against its plain version in f64 (every chunk within 1e-5·Σ|v·w| of its
+    chunk, twice bitwise equal) and timed beside it. The bound counts the
+    long rows' entries, the compact plan, the long rows' two pointers, the
+    partials written and each distinct column of w (or row of r) those
+    entries gather, once each, and 2 operations an entry. ``library_ms`` is
+    cuSPARSE's product of a CSR matrix whose rows are the chunks with w
+    (``_chunk_csr``), held to the same limit."""
+    from photon_ml_torch.ops import sparse_gather
+
+    vals, cols, _, row_ptr = tail
+    p1 = sparse_gather.chunk_partials(w, tail, chunks)
+    p2 = sparse_gather.chunk_partials(w, tail, chunks)
+    wide = (vals.double(), *tail[1:])
+    plain = sparse_gather.chunk_partials_reference(w.double(), wide, chunks)
+    scale = sparse_gather.chunk_partials_reference(w.double().abs(), (wide[0].abs(), *tail[1:]),
+                                                   chunks)
+    csr, entry = _chunk_csr(torch, tail, chunks, w.shape[0])
+    lib_share = float(((csr @ w).double() - plain).abs().div(1e-5 * scale + 1e-30).max())
+    torch.cuda.synchronize()
+    assert torch.equal(p1, p2), f"chunk kernel not bitwise repeatable: {case}"
+    err = (p1.double() - plain).abs()
+    share = float((err / (1e-5 * scale + 1e-30)).max())
+    assert share <= 1.0, f"chunk kernel off its plain version ({share} of the limit): {case}"
+    assert lib_share <= 1.0, f"the chunks' CSR product is another function: {case}"
+    nnz = entry.numel()
+    nbytes = nnz * (vals.element_size() + 4) + chunks.nbytes() + 8 * chunks.rows.numel() \
+        + 4 * chunks.count + 4 * int(torch.unique(cols[entry]).numel())
+    bound, by = _bound_ms(nbytes, 2.0 * nnz)
+    del entry
+    return {"name": "sparse_gather_chunks", "route": "cuda",
+            "source": "photon_ml_torch/csrc/sparse_gather.cu", "replaces": replaces,
+            "launches": None, "max_abs_err": float(err.max()),
+            "ms": _device_ms(torch, lambda: sparse_gather.chunk_partials(w, tail, chunks)),
+            "plain_ms": _device_ms(torch, lambda: sparse_gather.chunk_partials_reference(
+                w, tail, chunks), reps=5, calls=2),
+            "bound_ms": bound, "bound_by": by, "library_ms": _device_ms(torch, lambda: csr @ w),
+            "library_note": "cuSPARSE CSR [chunks, d] @ w, the long rows' entries copied "
+                            "contiguous outside the timing",
+            "worst_err_share_of_limit": share, "case": case, "chunks": chunks.count,
+            "long_rows": int(chunks.rows.numel()), "entries": nnz,
+            "dtype": str(vals.dtype).replace("torch.", ""), "bytes": nbytes}
 
 
 def _plan_bytes(plan) -> int:
     """Device bytes of a transpose plan (values, rows, pointers, chunk plan)."""
     vals, rows, col_ptr, chunks = plan
-    parts = [vals, rows, col_ptr, *(chunks or ())]
-    return sum(t.numel() * t.element_size() for t in parts)
+    return sum(t.numel() * t.element_size() for t in (vals, rows, col_ptr)) \
+        + (0 if chunks is None else chunks.nbytes())
 
 
 def _transpose_head_ms(torch, batch, r) -> float:
@@ -789,9 +866,10 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
         f"float atomics, for comparison, {index_add_ms:.4f} ms; the rest "
         f"{vg_ms - gather_ms - transpose_ms:.4f} ms; two gradients and values bitwise equal; "
         f"the plan's build (once per batch) {plan_s:.3f} s; the plan holds {plan_bytes} bytes "
-        f"(values, rows, column pointers: {plan_bytes / plan[0].numel():.3f} bytes an entry; "
-        f"with the sorted column ids it kept before, "
-        f"{plan_bytes + 4 * plan[0].numel()}), its build peaked {plan_peak} bytes above what "
+        f"(values and rows {plan[0].numel() * 8}, column pointers {4 * (d + 1)}, the chunk plan "
+        f"{0 if plan[3] is None else plan[3].nbytes()} for "
+        f"{0 if plan[3] is None else plan[3].rows.numel()} long columns; a [d+1] chunk-pointer "
+        f"array would add {4 * (d + 1)}), its build peaked {plan_peak} bytes above what "
         f"the phase held")
     g1_replaces = "experiments/sparse_gather_probe.py:70"
     entries.append(_gather_entry(torch, g1_replaces, w_eval, n, checks[0],
@@ -800,11 +878,15 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
                                  ell=(ell16.ell_vals, ell16.ell_cols)))
     for batch, dtype in ((ell, "f32"), (ell16, "bf16")):
         t_plan = transpose_plan(batch)
+        t_tail = (t_plan[0], t_plan[1], None, t_plan[2])
         checks.append(_gather_check(
             torch, f"transpose of the ELL batch, {dtype} values (segments: its columns)", r, d,
-            tail=(t_plan[0], t_plan[1], None, t_plan[2]), chunks=t_plan[3]))
+            tail=t_tail, chunks=t_plan[3]))
         entries.append(_transpose_entry(torch, g1_replaces, r, d, checks[-1], t_plan,
                                         f"ELL [{n}, {width}]", plan_bytes=_plan_bytes(t_plan)))
+        assert t_plan[3] is not None, "the planted columns should take the chunk kernel"
+        entries.append(_chunk_entry(torch, g1_replaces, r, t_tail, t_plan[3],
+                                    f"planted ELL transpose, {dtype} values"))
     del t_plan
     del ell, ell16, held, models, plain_models, var_models, variances, obj, g1, g2, plan
     torch.cuda.empty_cache()
@@ -916,12 +998,13 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
         np.zeros(n, np.float32), dim=d, ell=width, device=dev)
     assert ragged.row_chunks is not None and ragged.nnz > 0
     w = torch.randn(d, device=dev, generator=gen)
+    r_tail = (ragged.values, ragged.col_indices, ragged.row_ids, ragged.row_ptr)
     checks.append(_gather_check(
         torch, f"empty rows and rows of up to 20000 entries, ELL width {width}", w, n,
-        ell=(ragged.ell_vals, ragged.ell_cols),
-        tail=(ragged.values, ragged.col_indices, ragged.row_ids, ragged.row_ptr),
-        chunks=ragged.row_chunks))
-    del ragged
+        ell=(ragged.ell_vals, ragged.ell_cols), tail=r_tail, chunks=ragged.row_chunks))
+    entries.append(_chunk_entry(torch, g1_replaces, w, r_tail, ragged.row_chunks,
+                                "ragged rows of up to 20000 entries"))
+    del ragged, r_tail
     for key, replaces in (("g1", g1_replaces), ("g2", "experiments/sparse_gather_probe2.py:61")):
         nnz, d = SPARSE[key]["nnz"], SPARSE[key]["d"]
         w, tail, chunks = _one_segment(torch, sparse_gather, dev, seed + nnz, nnz, d)
@@ -929,10 +1012,19 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
                                     tail=tail, chunks=chunks, rel=1e-7))
         entries.append(_gather_entry(torch, replaces, w, 1, checks[-1], tail=tail,
                                      chunks=chunks))
+        entries.append(_chunk_entry(torch, replaces, w, tail, chunks,
+                                    f"{key.upper()} one segment nnz={nnz} d={d}"))
     _log(f"gather kernel checks: {json.dumps(checks)}")
     for text in _small_sparse_agreement(torch, np, seed, dev):
         _log(text)
     for entry in entries:
+        if entry["name"] == "sparse_gather_chunks":
+            entry["launches"] = total["chunk_launches"]
+            _log(f"chunk kernel, {entry['case']} ({card}): {entry['ms']:.4f} ms over "
+                 f"{entry['chunks']} chunks of {entry['long_rows']} long rows (bound "
+                 f"{entry['bound_ms']:.4f}, plain {entry['plain_ms']:.4f}, cuSPARSE CSR "
+                 f"{entry['library_ms']:.4f})")
+            continue
         transpose = entry["layout"].startswith("transpose")
         entry["launches"] = total["segment_launches" if transpose else "launches"]
         entry["chunk_launches"] = total["chunk_launches"]
@@ -1395,21 +1487,18 @@ def _game_slice(torch, np, seed: int, dev, card: str) -> list:
                       library, x, 12 * n, torch_kernel_probe.limits("float32"),
                       form="separate y, ws, o columns, no Σr"),
     ]
-    parts = packed_glm.launch_partials(loss, x, aux, None, None, None, w, None, True, "fma",
-                                       "fma")
+    p6_args = (loss, x, aux, None, None, None, w, None, True, "fma", "fma")
     entries.append({
         "name": "packed_glm_reduce", "route": "cuda",
-        "source": "photon_ml_torch/csrc/packed_glm.cu", "replaces": p6,
+        "source": "photon_ml_torch/csrc/glm_tile.cuh", "replaces": p6,
         "launches": path_launches["reduce"],
-        **_reduce_check(torch, "packed_glm_reduce", packed_glm.reduce_partials,
-                        packed_glm.reduce_partials_reference, parts),
-        "eager_ms": _eager_ms(torch, lambda: packed_glm.reduce_partials(*parts)),
-        "blocks": parts[2].shape[0]})
+        **_reduce_entry(torch, "packed_glm_reduce", lambda: packed_glm.launch_partials(*p6_args),
+                        packed_glm.reduce_partials, packed_glm.reduce_partials_reference)})
     keep = ("variant", "kernel", "dtype", "ms", "plain_ms", "frac")
     entries[0]["probe_shape_rows"] = [{k: r_[k] for k in keep if k in r_} for r_ in probe_rows
                                       if "ms" in r_]
     entries.extend(_probe_entries(probe_rows))
-    del fits, fe_only, data, held_ds, train, held, x, aux, parts
+    del fits, fe_only, data, held_ds, train, held, x, aux, p6_args
     torch.cuda.empty_cache()
 
     # e. a small problem on the card (f32, the kernel) against the CPU (f64)
@@ -1518,14 +1607,28 @@ def _path_check(torch, tag, kernel, plain, library, limits, nbytes: float, shape
             "bound_ms": bound, "bound_by": by, "library_ms": _device_ms(torch, library)}
 
 
-def _reduce_check(torch, tag, reduce, reference, parts) -> dict:
-    """An ordered reduction of per-block partials (value, Σr, grad [blocks,
-    d]) held against its plain sums and timed, with its bound and the
-    library's sums. Near an optimum the gradient is what is left of a
-    cancellation, so each sum is held to the worst case of two f32 orders of
-    the same terms: 2·blocks·2^-24·Σ|terms|."""
-    got, want = reduce(*parts), reference(*parts)
+def _reduce_entry(torch, tag, partials, reduce, reference) -> dict:
+    """The ordered reduction of per-block partials (value, Σr or None, grad
+    [blocks, d]): ``partials`` launches the partials kernel, ``reduce`` the
+    reduction kernel on what it wrote; an evaluation launches both. The
+    reduction's sums must be bitwise the order model's over those partials
+    (``fused_glm.reduce_partials_in_order``: f32 adds on the card in the
+    kernel's order), and within the worst case of two f32 orders of the same
+    terms, 2·blocks·2^-24·Σ|terms|, of the plain sums (near an optimum the
+    gradient is what is left of a cancellation). ``ms`` is the reduction's
+    own cost, the evaluation's time less the partials' (both by graph
+    replay), beside ``alone_ms``, the reduction kernel alone on fixed
+    partials; the bound, plain and library times are those of summing the
+    same partials."""
+    from photon_ml_torch.ops import fused_glm
+
+    parts = partials()
+    got = reduce(*parts)
+    order = fused_glm.reduce_partials_in_order(*parts)
+    want = reference(*parts)
     torch.cuda.synchronize()
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, order)), \
+        f"{tag}: the kernel's sums are not its order's"
     blocks, d = parts[2].shape
     share = 2.0 * blocks * 2.0 ** -24
     g_err = (got[1] - want[1]).abs()
@@ -1536,8 +1639,11 @@ def _reduce_check(torch, tag, reduce, reference, parts) -> dict:
     err = max(float(g_err.max()), v_err)
     bound, by = _bound_ms(4.0 * (blocks + 1) * (d + 2), float(blocks * (d + 2)))
     sums = [p for p in parts if p is not None]  # the same sums as PyTorch calls
-    return {"shape": [blocks, d], "max_abs_err": err,
-            "ms": _device_ms(torch, lambda: reduce(*parts)),
+    whole_ms = _device_ms(torch, lambda: reduce(*partials()))
+    partials_ms = _device_ms(torch, partials)
+    return {"shape": [blocks, d], "blocks": blocks, "max_abs_err": err, "order_bitwise": True,
+            "ms": whole_ms - partials_ms, "whole_ms": whole_ms, "partials_ms": partials_ms,
+            "alone_ms": _device_ms(torch, lambda: reduce(*parts)),
             "plain_ms": _device_ms(torch, lambda: reference(*parts)), "bound_ms": bound,
             "bound_by": by, "library_ms": _device_ms(torch, lambda: [torch.sum(p, dim=0)
                                                                      for p in sums])}
@@ -1688,16 +1794,16 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
             if lam == glm.best_lambda:
                 path["fused_glm"] = dict(check, launches=fused_launches["fused_glm"],
                                          evaluations=evaluations["fused"], reg_weight=lam)
-                parts = fused_glm.fused_partials(loss, x, batch.labels.float(),
-                                                 batch.offsets.float(), batch.weights.float(),
-                                                 w, None)
+                glm_args = (loss, x, batch.labels.float(), batch.offsets.float(),
+                            batch.weights.float(), w, None)
                 path["fused_glm_reduce"] = dict(
-                    _reduce_check(torch, "fused_glm_reduce on the GLM driver's batch",
-                                  fused_glm.reduce_partials, fused_glm.reduce_partials_reference,
-                                  parts),
+                    _reduce_entry(torch, "fused_glm_reduce on the GLM driver's batch",
+                                  lambda: fused_glm.fused_partials(*glm_args),
+                                  fused_glm.reduce_partials,
+                                  fused_glm.reduce_partials_reference),
                     launches=fused_launches["fused_glm_reduce"],
                     evaluations=evaluations["fused"])
-        del read, batch, x, r, parts
+        del read, batch, x, r, glm_args
 
         # c. the GAME training driver: every fixed-effect update launches the
         # packed kernel; the best model beats its fixed effect alone
@@ -1821,16 +1927,15 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
             x.shape[0] * x.shape[1] * 4 + 12 * n + 8 * x.shape[1] + 8, x.shape)
         path["packed_glm"] = dict(check, launches=packed_launches["packed_glm"],
                                   evaluations=evaluations["packed"])
-        parts = packed_glm.launch_partials(loss, x, aux, None, None, None, w, None, False, "fma",
-                                           "fma")
+        fe_args = (loss, x, aux, None, None, None, w, None, False, "fma", "fma")
         path["packed_glm_reduce"] = dict(
-            _reduce_check(torch, "packed_glm_reduce on the GAME driver's fixed effect",
-                          packed_glm.reduce_partials, packed_glm.reduce_partials_reference,
-                          parts),
+            _reduce_entry(torch, "packed_glm_reduce on the GAME driver's fixed effect",
+                          lambda: packed_glm.launch_partials(*fe_args),
+                          packed_glm.reduce_partials, packed_glm.reduce_partials_reference),
             launches=packed_launches["packed_glm_reduce"], evaluations=evaluations["packed"])
         _log(f"packed_glm on the GAME driver's fixed effect {list(x.shape)} ({card}): "
              + json.dumps(path["packed_glm"]))
-        del ds, x, aux, r, parts
+        del ds, x, aux, r, fe_args
         _log(f"driver phase ({card}): Avro decode {n / read_s:.0f} records/s ({n} GAME training "
              f"records of 272 features in {read_s:.2f} s), write "
              f"{rows_written['game training'] / write_s['game training']:.0f} records/s; peak "
@@ -1990,20 +2095,17 @@ def main(argv=None) -> int:
             "partials_ms": _device_ms(torch, lambda: fused_glm.fused_partials(
                 loss, x, b.labels, b.offsets, b.weights, w, None)),
         }
-    parts = fused_glm.fused_partials(loss, batch.features, batch.labels, batch.offsets,
-                                     batch.weights, w, None)
+    b1_args = (loss, batch.features, batch.labels, batch.offsets, batch.weights, w, None)
     line = {"kernels": [
         {"name": "fused_glm", "route": "cuda", "source": "photon_ml_torch/csrc/fused_glm.cu",
          "replaces": "photon_ml_tpu/ops/pallas_glm.py:128", "launches": launches,
          "max_abs_err": worst["main_grad_abs"], **timed["float32"], "shape": [n, d],
          "dtype": "float32", "bf16": timed["bfloat16"]},
         {"name": "fused_glm_reduce", "route": "cuda",
-         "source": "photon_ml_torch/csrc/fused_glm.cu",
+         "source": "photon_ml_torch/csrc/glm_tile.cuh",
          "replaces": "photon_ml_tpu/ops/pallas_glm.py:128", "launches": reduce_launches,
-         **_reduce_check(torch, "fused_glm_reduce", fused_glm.reduce_partials,
-                         fused_glm.reduce_partials_reference, parts),
-         "eager_ms": _eager_ms(torch, lambda: fused_glm.reduce_partials(*parts)),
-         "blocks": parts[2].shape[0]},
+         **_reduce_entry(torch, "fused_glm_reduce", lambda: fused_glm.fused_partials(*b1_args),
+                         fused_glm.reduce_partials, fused_glm.reduce_partials_reference)},
     ]}
     line["kernels"].extend(_wide_b1_entries(torch, fused_glm, loss, args.seed, card))
     for s in solves:
@@ -2011,7 +2113,7 @@ def main(argv=None) -> int:
              f"{s['reason']}, {s['evaluations']} evaluations in {s['seconds']:.4f} s "
              f"({s['evaluations'] / s['seconds']:.1f} evaluations/s), value {s['value']:.8g}")
     _log(f"AUC (λ=1, training data): {auc:.6f}")
-    del batch, batch16, parts, models, scores
+    del batch, batch16, b1_args, models, scores
     torch.cuda.empty_cache()
 
     # 5. the sparse slice (its times are device times, as above)

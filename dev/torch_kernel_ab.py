@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Compare other versions of the port's kernels with the ones in the repo, on one GPU.
 
-    python3 dev/torch_kernel_ab.py OTHER.cu [OTHER.cu ...] [--rounds 3] [--seed 0]
+    python3 dev/torch_kernel_ab.py OTHER.cu [OTHER.cu ...] [--rounds 3] [--chunk-rounds N] [--seed 0]
                                    [--other-flags=-DNAME ...]
 
 Each OTHER.cu is a variant of the repo's ``photon_ml_torch/csrc/<name>.cu``
 with the same file name (for example the parent commit's copy, written with
-``git show <parent>:photon_ml_torch/csrc/packed_glm.cu``): ``fused_glm.cu``,
-``packed_glm.cu`` or ``sparse_gather.cu``. ``--other-flags`` adds nvcc flags
-to the other build only (a variant of the repo's own source). Both builds
-use the port's nvcc flags, are checked against the plain PyTorch version on
-every case before they are timed, and are timed in alternating order
-(other, repo, repo, other, ...). One JSON line per case, build and round:
-device time ``ms`` (CUDA graph replay, ``chip_smoke._device_ms``), and for
-B1 the partials kernel's time and the eager time of one call.
+``git show <parent>:photon_ml_torch/csrc/packed_glm.cu``, beside that
+commit's ``glm_tile.cuh``, which it includes): ``fused_glm.cu``,
+``packed_glm.cu`` or ``sparse_gather.cu``. A source in the repo's interface
+or in the one before it (a gather whose chunk plan has ``[n+1]`` chunk
+pointers) is taken. ``--other-flags`` adds
+nvcc flags to the other build only (a variant of the repo's own source).
+Both builds use the port's nvcc flags, are checked against the plain
+PyTorch version on every case before they are timed, and are timed in
+alternating order (other, repo, repo, other, ...). One JSON line per case,
+build and round: device time ``ms`` (CUDA graph replay,
+``chip_smoke._device_ms``); for B1 and the packed kernel also the partials
+kernel alone (``partials_ms``) and, after the rounds, whether the two
+builds' outputs are bitwise equal. The reduction's cost is the core's time
+less the partials': the packed kernel's ``ms`` is its core; B1's core is
+``core_ms``, and its ``ms`` and ``eager_ms`` the whole wrapper
+(``fused_value_and_gradient``, normalization included).
 
 - fused_glm: n=2^18, d=512, logistic loss with a standardization context,
   f32 and bf16 feature blocks, and the wide blocks n=2^17, d=2048 and 4099;
@@ -26,21 +34,27 @@ B1 the partials kernel's time and the eager time of one call.
   no Σr, logistic: bf16 mma/mma with w rounded to bf16, mma_tf32 on both
   products, mma_tf32/mma, fma/fma; f32 fma/fma, mma/mma, mma/fma, fma/mma)
   and the GAME fixed effect's packed aux at [2^17, 256] f32 (fma/fma,
-  mma/mma), on the source's 16-row build (the training path's).
+  mma/mma; with Σr), on the source's 16-row build (the training path's).
 - sparse_gather: the ELL margins at [2^19, 36], d=10^7, f32 and bf16; an
   ELL+tail block ([2^19, 17] and 0-8 flat entries a row); long flat rows
   (2^16 rows of 48-80 entries, a warp a row); G1's one segment of 2^24
-  entries, d=2^22 (chunked); and the transposes (the segment kernel over a
-  column-sorted plan): of the ELL block with f32 and bf16 values, and of
-  chip_smoke.py's hybrid tails at d=10^7 and d=10^8, of two batches of few
-  rows at d=2^16 (chip_smoke.py's small problem, 4096 rows, and 2^14 rows of
-  32), and of the ELL block with its rows taken modulo 2^14 (r's gathers
-  then stay in 64 KB). Each transpose row says whether the two builds'
-  outputs are bitwise equal, and gives cuSPARSE's CSR ``[d, n] @ r`` of the
-  same entries (bf16 values widened to f32). Then the repo build alone: the
-  ELL kernel's plans (``GATHER_PLANS``) at [2^19, 36], d=10^7, and its chosen
-  plan there and over the same rows with columns taken modulo 2^22 (a 16 MB
-  w), each beside cuSPARSE's CSR product of the same entries.
+  entries, d=2^22, and G2's of 2^22, d=2^21 (chunked); the chunk kernel
+  alone over G1, G2 and the planted transpose's chunks (``--chunk-rounds``
+  alternating rounds, then cuSPARSE's product of a CSR matrix whose rows are
+  the chunks, ``chip_smoke._chunk_csr``); and the transposes
+  (the segment kernel over a column-sorted plan): of the ELL block with f32
+  and bf16 values, of the same block with its last 4 columns a row drawn
+  from a 256-column planted support (chip_smoke.py's ELL batch: about 1100
+  chunks), of chip_smoke.py's hybrid tails at d=10^7 and d=10^8, of two
+  batches of few rows at d=2^16 (chip_smoke.py's small problem, 4096 rows,
+  and 2^14 rows of 32), and of the ELL block with its rows taken modulo 2^14
+  (r's gathers then stay in 64 KB). Each transpose row says whether the two
+  builds' outputs are bitwise equal, and gives cuSPARSE's CSR ``[d, n] @ r``
+  of the same entries (bf16 values widened to f32). Then the repo build
+  alone: the ELL kernel's plans (``GATHER_PLANS``) at [2^19, 36], d=10^7,
+  and its chosen plan there and over the same rows with columns taken
+  modulo 2^22 (a 16 MB w), each beside cuSPARSE's CSR product of the same
+  entries.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = ("fused_glm", "packed_glm", "sparse_gather")
 #: (lanes a row, entries a vector) of the gather's ELL kernel timed at L = 36
 GATHER_PLANS = ((4, 4), (8, 4), (16, 4), (16, 2), (16, 1))
@@ -116,9 +131,11 @@ def _fused(torch, chip_smoke, libs, sweep, args):
             b = LabeledPointBatch.create(x, y, dtype=dtype, device=dev)
             vr, gr = fused_glm.fused_value_and_gradient_reference(loss, w, b, normalization=norm)
             vtol = 1e-5 if dtype == torch.float32 else 1e-4
+            outs = {}
             for which in _order(args.rounds):
                 use(which)
                 v, g = fused_glm.fused_value_and_gradient(loss, w, b, normalization=norm)
+                outs.setdefault(which, (v, g))
                 v2, g2 = fused_glm.fused_value_and_gradient(loss, w, b, normalization=norm)
                 ok = (abs(float(v - vr)) <= vtol * abs(float(vr))
                       and bool(torch.allclose(g, gr, rtol=1e-4,
@@ -130,9 +147,14 @@ def _fused(torch, chip_smoke, libs, sweep, args):
                     "build": which, "matches_plain": ok,
                     "partials_ms": chip_smoke._device_ms(torch, lambda: fused_glm.fused_partials(
                         loss, b.features, b.labels, b.offsets, b.weights, w, None)),
+                    "core_ms": chip_smoke._device_ms(torch, lambda: fused_glm._kernel_core(
+                        loss, b.features, b.labels, b.offsets, b.weights, w, None)),
                     "ms": chip_smoke._device_ms(torch, call),
                     "eager_ms": chip_smoke._eager_ms(torch, call),
                 }
+            yield {"kernel": "fused_glm", "shape": [n, d], "dtype": str(dtype)[6:],
+                   "build": "both", "bitwise_equal_builds": all(
+                       torch.equal(a, b_) for a, b_ in zip(outs["repo"], outs["other"]))}
             if d == 512:
                 # the repo build alone: the packed kernel's fma form of the same
                 # function, and B1's plans
@@ -163,11 +185,16 @@ def _packed(torch, chip_smoke, libs, args):
     from photon_ml_torch.ops import packed_glm
     from photon_ml_torch.ops.losses import LogisticLoss
 
-    def use(which):
-        build._LOADED["packed_glm"] = libs[which]
+    bound = {}
+    for which, lib in libs.items():
+        build._LOADED["packed_glm"] = lib
         packed_glm._LIBS.clear()
+        bound[which] = packed_glm._lib(16)
+
+    def use(which):
+        packed_glm._LIBS.clear()
+        packed_glm._LIBS[16] = bound[which]
         packed_glm._GRID.clear()
-        packed_glm._lib(16)
 
     loss = LogisticLoss()
     dev = torch.device("cuda")
@@ -188,57 +215,109 @@ def _packed(torch, chip_smoke, libs, args):
                       lambda xt=xt, wk=wk, kw=kw: packed_glm.columns_core(
                           loss, xt, y, ones, None, wk, **kw),
                       lambda xt=xt, wk=wk, kw=kw: packed_glm.columns_core_reference(
-                          loss, xt, y, ones, None, wk, **kw)))
-    xg, wg = x[:, :256].contiguous(), w[:256].contiguous()
+                          loss, xt, y, ones, None, wk, **kw),
+                      lambda xt=xt, wk=wk, units=units: packed_glm.launch_partials(
+                          loss, xt, None, y, None, ones, wk, None, False, *units)))
     aux = packed_glm.pack_aux(y, o, ws)
-    for units in (("fma", "fma"), ("mma", "mma")):
-        kw = dict(with_rsum=False, margin_unit=units[0], grad_unit=units[1])
-        cases.append((f"GAME packed aux [{tkp.N}, 256] {units[0]}/{units[1]}", xg, units,
-                      (xg, y, o, ws, wg, None),
-                      lambda kw=kw: packed_glm.packed_core(loss, xg, aux, wg, **kw),
-                      lambda kw=kw: packed_glm.packed_core_reference(loss, xg, aux, wg, **kw)))
-    for case, xt, units, inputs, kernel, plain in cases:
+    for width, units, with_rsum in ((256, ("fma", "fma"), False), (256, ("fma", "fma"), True),
+                                    (256, ("mma", "mma"), False), (512, ("fma", "fma"), False)):
+        xg, wg = x[:, :width].contiguous(), w[:width].contiguous()
+        kw = dict(with_rsum=with_rsum, margin_unit=units[0], grad_unit=units[1])
+        cases.append((f"GAME packed aux [{tkp.N}, {width}] {units[0]}/{units[1]}"
+                      + (" with Σr" if with_rsum else ""), xg, units, (xg, y, o, ws, wg, None),
+                      lambda xg=xg, wg=wg, kw=kw: packed_glm.packed_core(loss, xg, aux, wg, **kw),
+                      lambda xg=xg, wg=wg, kw=kw: packed_glm.packed_core_reference(
+                          loss, xg, aux, wg, **kw),
+                      lambda xg=xg, wg=wg, units=units, with_rsum=with_rsum:
+                          packed_glm.launch_partials(loss, xg, aux, None, None, None, wg, None,
+                                                     with_rsum, *units)))
+    for case, xt, units, inputs, kernel, plain, partials in cases:
         name = str(xt.dtype)[6:]
         slack = tkp.tf32_slack(loss, *inputs, *units)
+        outs = {}
         for which in _order(args.rounds):
             use(which)
             err = tkp.compare(torch, f"{which} {case}", kernel, plain, *tkp.limits(name),
                               float(inputs[3].sum()), slack)
+            outs.setdefault(which, [t for t in kernel() if t is not None])
             yield {"kernel": "packed_glm", "case": case, "dtype": name, "build": which,
-                   "limit_share": err["limit_share"], "ms": chip_smoke._device_ms(torch, kernel)}
+                   "limit_share": err["limit_share"], "ms": chip_smoke._device_ms(torch, kernel),
+                   "partials_ms": chip_smoke._device_ms(torch, partials)}
+        yield {"kernel": "packed_glm", "case": case, "build": "both", "bitwise_equal_builds": all(
+            torch.equal(a, b) for a, b in zip(outs["repo"], outs["other"]))}
 
 
-class _RowsShim:
-    """A sparse_gather library whose ``sparse_gather_rows`` predates the
-    lane-group plan: the wrapper's two plan arguments are dropped."""
+class _ChunkPointerGather:
+    """A sparse_gather library of the interface before the compact chunk
+    plan, whose chunk kernel and consumers read chunk_row [C] and chunk_ptr
+    [n+1]: ``launch`` is the wrapper that interface had (the plan built from
+    the tail's row pointers, once a case), ``chunk_partials`` its chunk
+    kernel alone."""
 
-    def __init__(self, lib):
-        self._lib = lib
-        vp = ctypes.c_void_p
-        lib.sparse_gather_rows.argtypes = [ctypes.c_int, vp, vp, ctypes.c_int, vp, vp, vp, vp, vp,
-                                           vp, ctypes.c_longlong, vp, vp]
-        lib.sparse_gather_rows.restype = ctypes.c_int
+    def __init__(self, lib, torch, sparse_gather):
+        self._lib, self._torch, self._sg, self._plans = lib, torch, sparse_gather, {}
+        lib.sparse_gather_rows.argtypes = [_I, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                                           _VP, _LL, _VP, _VP]
+        lib.sparse_gather_chunks.argtypes = [_I] + [_VP] * 6 + [_LL, _VP, _VP]
+        lib.sparse_gather_segments.argtypes = [_I] + [_VP] * 6 + [_LL, _VP, _VP]
 
-    def sparse_gather_rows(self, is_bf16, lanes, vec, *rest):
-        del lanes, vec
-        return self._lib.sparse_gather_rows(is_bf16, *rest)
+    def forget(self):
+        self._plans.clear()
 
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
+    def _plan(self, row_ptr, chunks):
+        """(chunk_row, chunk_ptr) of the tail, kept with the repo's plan."""
+        torch = self._torch
+        if id(chunks) not in self._plans:
+            k = self._sg.SEGMENT_CHUNK
+            lens = (row_ptr[1:] - row_ptr[:-1]).long()
+            per_row = torch.where(lens > k, (lens + k - 1) // k, 0)
+            chunk_ptr = torch.zeros(lens.numel() + 1, dtype=torch.int64, device=lens.device)
+            torch.cumsum(per_row, 0, out=chunk_ptr[1:])
+            chunk_row = torch.repeat_interleave(torch.arange(lens.numel(), device=lens.device),
+                                                per_row)
+            self._plans[id(chunks)] = (chunks, chunk_row.int(), chunk_ptr.int())
+        return self._plans[id(chunks)][1:]
 
+    def chunk_partials(self, w, tail, chunks):
+        torch = self._torch
+        vals, cols, _, row_ptr = tail
+        chunk_row, chunk_ptr = self._plan(row_ptr, chunks)
+        partials = torch.empty((chunk_row.numel(),), dtype=torch.float32, device=w.device)
+        err = self._lib.sparse_gather_chunks(
+            int(vals.dtype == torch.bfloat16), vals.data_ptr(), cols.data_ptr(),
+            row_ptr.data_ptr(), chunk_row.data_ptr(), chunk_ptr.data_ptr(), w.data_ptr(),
+            chunk_row.numel(), partials.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        return partials
 
-class _RunlessGather:
-    """A sparse_gather library from before the segment kernel's runs (a
-    thread a row): it reports the repo's run geometry, which its kernel does
-    not use, so the wrapper binds it."""
-
-    def __init__(self, lib, sparse_gather):
-        self._lib = lib
-        self.sparse_gather_segment_run = \
-            lambda: sparse_gather.RUN_SEGMENTS * 1000 + sparse_gather.PIECE
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
+    def launch(self, w, n, ell, tail, chunks):
+        torch, sg = self._torch, self._sg
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        ev = ec = tv = tc = row_ptr = partials = chunk_ptr = None
+        width, is_bf16 = 0, False
+        if ell is not None:
+            ev, ec = ell
+            width, is_bf16 = ev.shape[1], ev.dtype == torch.bfloat16
+        if tail is not None and tail[0].numel():
+            tv, tc, _, row_ptr = tail
+            is_bf16 = tv.dtype == torch.bfloat16
+            if chunks is not None:
+                partials = self.chunk_partials(w, tail, chunks)
+                chunk_ptr = self._plan(row_ptr, chunks)[1]
+        out = torch.empty((n,), dtype=torch.float32, device=w.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        if n and ev is None and tv is not None and tv.shape[0] < sg.SHORT_ROWS * n:
+            err = self._lib.sparse_gather_segments(
+                int(is_bf16), tv.data_ptr(), tc.data_ptr(), row_ptr.data_ptr(), ptr(partials),
+                ptr(chunk_ptr), w.data_ptr(), n, out.data_ptr(), stream)
+        else:
+            lanes, vec = sg.ell_plan(width, ptr(ev) or 0, ptr(ec) or 0, 2 if is_bf16 else 4)
+            err = self._lib.sparse_gather_rows(
+                int(is_bf16), lanes, vec, ptr(ev), ptr(ec), width, ptr(tv), ptr(tc),
+                ptr(row_ptr), ptr(partials), ptr(chunk_ptr), w.data_ptr(), n, out.data_ptr(),
+                stream)
+        assert err == 0, err
+        return out
 
 
 def _column_sorted(torch, sparse_gather, ev, ec, d):
@@ -253,9 +332,10 @@ def _column_sorted(torch, sparse_gather, ev, ec, d):
     return t_vals, t_rows, tptr, tchunks
 
 
-def _transpose_cases(torch, np, chip_smoke, sparse_gather, dev, ev, ec, n, d, seed):
+def _transpose_cases(torch, np, chip_smoke, sparse_gather, dev, ev, ec, ec_planted, n, d, seed):
     """(case, r, d, gather kwargs, CSR [d, n]) of the transposes: the ELL
-    block's (f32 and bf16 values), chip_smoke.py's two hybrid tails, and two
+    block's (f32 and bf16 values; random columns, then with the planted
+    support's columns, chunked), chip_smoke.py's two hybrid tails, and two
     with few rows, whose r stays in L1: chip_smoke.py's small problem
     (n=4096, d=2^16, 16 entries a row and an intercept column) and n=2^14
     rows of 32 at d=2^16."""
@@ -273,6 +353,10 @@ def _transpose_cases(torch, np, chip_smoke, sparse_gather, dev, ev, ec, n, d, se
              # the random gathers of r from L2 cost
              (f"transpose of the ELL block f32, rows modulo 2^14: [{d}] columns", r, d,
               (t_vals, t_rows % (1 << 14), tptr, tchunks))]
+    p_vals, p_rows, p_ptr, p_chunks = _column_sorted(torch, sparse_gather, ev, ec_planted, d)
+    for dtype in (torch.float32, torch.bfloat16):
+        plans.append((f"transpose of the planted ELL block {str(dtype)[6:]}: [{d}] columns",
+                      r, d, (p_vals.to(dtype), p_rows, p_ptr, p_chunks)))
     for key, seed_off in (("hybrid", 11), ("hybrid_1e8", 5)):
         cfg = chip_smoke.SPARSE[key]
         rows, cols, vals, y = chip_smoke._zipf_data(np, seed + seed_off, cfg["n"], cfg["d"],
@@ -312,20 +396,36 @@ def _gather(torch, chip_smoke, libs, sources, args):
     from photon_ml_torch import build
     from photon_ml_torch.ops import sparse_gather
 
-    bound = {}
+    launchers = {}
     for which, lib in libs.items():
-        text = Path(sources[which]).read_text()
-        if "sparse_gather_segment_run" not in text:
-            lib = _RunlessGather(lib, sparse_gather)
-        build._LOADED["sparse_gather"] = lib
-        sparse_gather._LIB = None
-        sparse_gather._lib()  # binds the repo's argtypes and checks the chunk size
-        planned = "int lanes, int vec" in text
-        bound[which] = sparse_gather._LIB if planned else _RowsShim(lib)
+        if "const void* chunk_row" in Path(sources[which]).read_text():
+            launchers[which] = _ChunkPointerGather(lib, torch, sparse_gather)
+        else:
+            build._LOADED["sparse_gather"] = lib
+            sparse_gather._LIB = None
+            launchers[which] = sparse_gather._lib()  # binds and checks the sizes
+    repo_launch, repo_chunks = sparse_gather._launch, sparse_gather.chunk_partials
 
     def use(which):
-        sparse_gather._LIB = bound[which]
+        got = launchers[which]
+        if isinstance(got, _ChunkPointerGather):
+            sparse_gather._launch, sparse_gather.chunk_partials = got.launch, got.chunk_partials
+        else:
+            sparse_gather._LIB = got
+            sparse_gather._launch, sparse_gather.chunk_partials = repo_launch, repo_chunks
 
+    def forget():
+        for got in launchers.values():
+            if isinstance(got, _ChunkPointerGather):
+                got.forget()
+
+    try:
+        yield from _gather_cases(torch, np, chip_smoke, sparse_gather, use, forget, args)
+    finally:
+        sparse_gather._launch, sparse_gather.chunk_partials = repo_launch, repo_chunks
+
+
+def _gather_cases(torch, np, chip_smoke, sparse_gather, use, forget, args):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n, d, width = 1 << 19, 10**7, 36
@@ -352,18 +452,48 @@ def _gather(torch, chip_smoke, libs, sources, args):
     lptr, lchunks = sparse_gather.segment_plan(lrow, m)
     cases.append((f"flat rows [{m}] of 48-80 entries d={d} f32", w, m,
                   dict(tail=(lv, lc, lrow, lptr), chunks=lchunks)))
-    # G1: one segment of 2^24 entries, chunked
-    nnz, dg = 1 << 24, 1 << 22
-    gi = torch.randint(0, dg, (nnz,), device=dev, generator=gen, dtype=torch.int32)
-    gvals = torch.randn(nnz, device=dev, generator=gen)
-    wg = torch.randn(dg, device=dev, generator=gen)
-    gz = torch.zeros(nnz, dtype=torch.int32, device=dev)
-    gptr, gchunks = sparse_gather.segment_plan(gz, 1)
-    cases.append((f"G1 one segment {nnz} d={dg} (chunked)", wg, 1,
-                  dict(tail=(gvals, gi, gz, gptr), chunks=gchunks)))
+    # G1 and G2: one segment each, chunked
+    singles = []
+    for key, (nnz, dg) in (("G1", (1 << 24, 1 << 22)), ("G2", (1 << 22, 1 << 21))):
+        gi = torch.randint(0, dg, (nnz,), device=dev, generator=gen, dtype=torch.int32)
+        gvals = torch.randn(nnz, device=dev, generator=gen)
+        wg = torch.randn(dg, device=dev, generator=gen)
+        gz = torch.zeros(nnz, dtype=torch.int32, device=dev)
+        gptr, gchunks = sparse_gather.segment_plan(gz, 1)
+        cases.append((f"{key} one segment {nnz} d={dg} (chunked)", wg, 1,
+                      dict(tail=(gvals, gi, gz, gptr), chunks=gchunks)))
+        singles.append((f"chunk kernel alone, {key}: {gchunks.count} chunks", wg,
+                        (gvals, gi, gz, gptr), gchunks))
     cases = [(*c, None) for c in cases]
-    cases.extend(_transpose_cases(torch, np, chip_smoke, sparse_gather, dev, ev, ec, n, d,
-                                  args.seed))
+    # the ELL block with 4 columns a row from a 256-column planted support
+    # (chip_smoke.py's planted batch): about 1100 chunks in its transpose
+    support = torch.randperm(d, device=dev, generator=gen)[:256].to(torch.int32)
+    ec_planted = ec.clone()
+    ec_planted[:, -4:] = support[torch.randint(0, 256, (n, 4), device=dev, generator=gen)]
+    for case, rk, dk, kw, csr in _transpose_cases(torch, np, chip_smoke, sparse_gather, dev, ev,
+                                                  ec, ec_planted, n, d, args.seed):
+        cases.append((case, rk, dk, kw, csr))
+        if kw["chunks"] is not None and "planted" in case:
+            singles.append((f"chunk kernel alone, {case}: {kw['chunks'].count} chunks", rk,
+                            kw["tail"], kw["chunks"]))
+    for case, vec, tail, plan in singles:
+        wide = (tail[0].double(), *tail[1:])
+        plain = sparse_gather.chunk_partials_reference(vec.double(), wide, plan)
+        scale = sparse_gather.chunk_partials_reference(vec.double().abs(),
+                                                       (wide[0].abs(), *tail[1:]), plan)
+        for which in _order(args.chunk_rounds or args.rounds):
+            use(which)
+            got = sparse_gather.chunk_partials(vec, tail, plan)
+            share = float(((got.double() - plain).abs() / (1e-5 * scale + 1e-30)).max())
+            yield {"kernel": "sparse_gather chunks", "case": case, "build": which,
+                   "matches_plain": share <= 1.0, "max_err_over_1e-5_scale": share,
+                   "ms": chip_smoke._device_ms(torch, lambda: sparse_gather.chunk_partials(
+                       vec, tail, plan))}
+        csr = chip_smoke._chunk_csr(torch, tail, plan, vec.shape[0])[0]
+        yield {"kernel": "sparse_gather chunks", "case": case, "build": "library",
+               "library_ms": chip_smoke._device_ms(torch, lambda: csr @ vec)}
+        forget()
+        del plain, scale, csr
     for case, vec, rows, kw, csr in cases:
         outs = {}
         for which in _order(args.rounds):
@@ -386,6 +516,7 @@ def _gather(torch, chip_smoke, libs, sources, args):
                    "max_diff_in_1e-5_scale": float((diff / (1e-5 * scale + 1e-30)).max()),
                    "library_ms": chip_smoke._device_ms(torch, lambda: csr @ vec)}
         del outs
+        forget()
     # the repo build alone: its ELL plans (lanes a row, entries a vector) at
     # the main shape, and the chosen plan over a w small enough to stay in L2
     use("repo")
@@ -421,6 +552,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("other", type=Path, nargs="+")
     parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--chunk-rounds", type=int, default=0,
+                        help="rounds of the chunk-kernel-alone cases (default: --rounds)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--other-flags", action="append", default=[])
     args = parser.parse_args(argv)

@@ -61,7 +61,8 @@
 // - The reduction is deterministic and uses no float atomics: each block
 //   owns one partial row (value, rsum, grad[d]), the rows, phases and
 //   vectors of a block are added in a fixed order, and a second kernel sums
-//   the partials in block order. Repeated calls on the same inputs give
+//   the partials in a fixed order (glm_tile.cuh, `reduce_partials_kernel`,
+//   shared with the packed kernel). Repeated calls on the same inputs give
 //   bitwise-equal results, which the solvers' line searches rely on.
 //
 // The kernel allocates nothing; the wrapper passes outputs and partials.
@@ -514,54 +515,6 @@ fused_glm_wide_kernel(const T* __restrict__ x, const float* __restrict__ labels,
   }
 }
 
-// Sums the per-block partials in a fixed order. A block owns 32 gradient
-// columns: warp k sums partial rows k, k + kReduceWarps, ... of its lane's
-// column (coalesced 128-byte rows), then warp 0 adds the warps' sums in warp
-// order. Warp 0 of block 0 also sums value and rsum (lane-strided, then a
-// xor-butterfly).
-constexpr int kReduceWarps = 32;
-
-__global__ void __launch_bounds__(kReduceWarps * 32)
-fused_glm_reduce_kernel(const float* __restrict__ part_value,
-                        const float* __restrict__ part_rsum,
-                        const float* __restrict__ part_grad, int blocks, int d,
-                        float* __restrict__ value, float* __restrict__ rsum,
-                        float* __restrict__ grad) {
-  __shared__ float sums[kReduceWarps][33];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;
-  float g = 0.f;
-  if (c < d) {
-#pragma unroll 4
-    for (int b = warp; b < blocks; b += kReduceWarps) g += part_grad[(int64_t)b * d + c];
-  }
-  sums[warp][lane] = g;
-  __syncthreads();
-  if (warp == 0 && c < d) {
-    float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < kReduceWarps; ++k) t += sums[k][lane];
-    grad[c] = t;
-  }
-  if (blockIdx.x == 0 && warp == 0) {
-    float v = 0.f, rs = 0.f;
-    for (int b = lane; b < blocks; b += 32) {
-      v += part_value[b];
-      rs += part_rsum[b];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-      rs += __shfl_xor_sync(0xffffffffu, rs, off);
-    }
-    if (lane == 0) {
-      *value = v;
-      *rsum = rs;
-    }
-  }
-}
-
 // ---- dispatch ------------------------------------------------------------------------
 
 struct PartialsArgs {
@@ -737,15 +690,15 @@ int fused_glm_partials(int loss, int is_bf16, const void* x, const void* labels,
   return (int)ops.launch(args, static_cast<cudaStream_t>(stream));
 }
 
-// value[1], rsum[1], grad[d] from the partials, summed in block order.
+// value[1], rsum[1], grad[d] from the partials, summed in the fixed order of
+// glm_tile.cuh's reduce_partials_kernel.
 int fused_glm_reduce(const void* part_value, const void* part_rsum, const void* part_grad,
                      int blocks, int d, void* value, void* rsum, void* grad, void* stream) {
-  const int grid = d > 0 ? (d + 31) / 32 : 1;
-  fused_glm_reduce_kernel<<<grid, kReduceWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_value), static_cast<const float*>(part_rsum),
-      static_cast<const float*>(part_grad), blocks, d, static_cast<float*>(value),
-      static_cast<float*>(rsum), static_cast<float*>(grad));
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(static_cast<const float*>(part_value),
+                            static_cast<const float*>(part_rsum),
+                            static_cast<const float*>(part_grad), blocks, d,
+                            static_cast<float*>(value), static_cast<float*>(rsum),
+                            static_cast<float*>(grad), static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

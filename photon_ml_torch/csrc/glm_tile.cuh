@@ -1,8 +1,10 @@
 // Helpers shared by the two fused GLM value+gradient kernels for Hopper
 // (sm_90a): csrc/fused_glm.cu (B1, separate label/offset/weight columns) and
 // csrc/packed_glm.cu (the packed-aux kernel). Both stage row tiles of X in a
-// cp.async ring in shared memory at a padded pitch and evaluate the same four
-// losses in f32; this header holds that staging and the losses.
+// cp.async ring in shared memory at a padded pitch, evaluate the same four
+// losses in f32, and write one row of partials a block, which one more
+// kernel sums in a fixed order; this header holds that staging, the losses,
+// and the ordered reduction.
 //
 // Everything here is inline device code or constexpr geometry; each .cu
 // that includes it builds its own copy into its own library.
@@ -151,6 +153,83 @@ __device__ __forceinline__ void zero_pad_columns(T* ring, int rows, int d, int p
     else
       reinterpret_cast<uint32_t*>(ring)[at] = 0u;
   }
+}
+
+// ---- the ordered reduction of the per-block partials ------------------------------
+//
+// A partials grid writes part_value [blocks], part_rsum [blocks] (or null),
+// part_grad [blocks, d], one row a block. reduce_partials_kernel sums them
+// in one fixed order: column c of the gradient is split into 32 strided
+// sums S_k = part_grad[k][c] + part_grad[k + 32][c] + ... (k < 32, warp k of
+// the column's block, each added from 0 in block order), and grad[c] = S_0 +
+// S_1 + ... + S_31, added from 0 by warp 0; value and rsum are summed by the
+// 32 lanes of block 0's warp 0, lane l adding blocks l, l + 32, ... from 0,
+// then a xor butterfly of offsets 16, 8, 4, 2, 1. No float atomics: two
+// calls on the same inputs are bitwise equal. Each library's reduce entry
+// point launches it through launch_reduce, after its partials kernel.
+//
+// Tried and dropped (PERF.md, Findings): the sums in the partials
+// kernel's own tail after a grid-wide barrier (a cooperative launch; the
+// grid is one wave), whose barrier alone cost about as much as this launch;
+// this kernel as a programmatic dependent launch of the partials kernel,
+// which saved nothing.
+
+constexpr int kReduceWarps = 32;
+
+// A block owns 32 gradient columns: warp k sums partial rows k, k +
+// kReduceWarps, ... of its lane's column (coalesced 128-byte rows), then warp
+// 0 adds the warps' sums in warp order. Warp 0 of block 0 also sums value
+// and, unless absent, rsum.
+__global__ void __launch_bounds__(kReduceWarps * 32)
+reduce_partials_kernel(const float* __restrict__ part_value, const float* __restrict__ part_rsum,
+                       const float* __restrict__ part_grad, int blocks, int d,
+                       float* __restrict__ value, float* __restrict__ rsum,
+                       float* __restrict__ grad) {
+  __shared__ float sums[kReduceWarps][33];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float g = 0.f;
+  if (c < d) {
+#pragma unroll 4
+    for (int b = warp; b < blocks; b += kReduceWarps) g += part_grad[(int64_t)b * d + c];
+  }
+  sums[warp][lane] = g;
+  __syncthreads();
+  if (warp == 0 && c < d) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < kReduceWarps; ++k) t += sums[k][lane];
+    grad[c] = t;
+  }
+  if (blockIdx.x == 0 && warp == 0) {
+    const bool with_rsum = part_rsum != nullptr;
+    float v = 0.f, rs = 0.f;
+    for (int b = lane; b < blocks; b += 32) {
+      v += part_value[b];
+      if (with_rsum) rs += part_rsum[b];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(kFull, v, off);
+      rs += __shfl_xor_sync(kFull, rs, off);
+    }
+    if (lane == 0) {
+      *value = v;
+      if (with_rsum) *rsum = rs;
+    }
+  }
+}
+
+// value[1], rsum[1] (or null with part_rsum), grad[d] from the partials of
+// `blocks` blocks, on `stream`.
+inline cudaError_t launch_reduce(const float* part_value, const float* part_rsum,
+                                 const float* part_grad, int blocks, int d, float* value,
+                                 float* rsum, float* grad, cudaStream_t stream) {
+  const int grid = d > 0 ? (d + 31) / 32 : 1;
+  reduce_partials_kernel<<<grid, kReduceWarps * 32, 0, stream>>>(
+      part_value, part_rsum, part_grad, blocks, d, value, rsum, grad);
+  return cudaGetLastError();
 }
 
 }  // namespace glm_tile

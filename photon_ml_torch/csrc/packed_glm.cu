@@ -44,8 +44,9 @@
 //
 // Design. A persistent grid; a block walks its tiles of kRows rows in
 // strided order and owns one row of per-block partials; a second kernel adds
-// the partials in block order. No float atomics: repeated calls are bitwise
-// equal. X is never copied or padded in device memory.
+// the partials in a fixed order (glm_tile.cuh, `reduce_partials_kernel`,
+// shared with B1). No float atomics: repeated calls are bitwise equal. X is
+// never copied or padded in device memory.
 //
 // - Staging (the helpers in csrc/glm_tile.cuh, shared with B1 in
 //   csrc/fused_glm.cu): a ring of 2-4 stages in shared memory (as many as fit in
@@ -519,54 +520,6 @@ packed_glm_partials_kernel(const T* __restrict__ x, const float* __restrict__ au
   }
 }
 
-// Sums the per-block partials in a fixed order: a block owns 32 gradient
-// columns, warp k sums partial rows k, k + kReduceWarps, ... of its lane's
-// column, then warp 0 adds the warps' sums in warp order. Warp 0 of block 0
-// also sums value and, unless absent, rsum.
-constexpr int kReduceWarps = 32;
-
-__global__ void __launch_bounds__(kReduceWarps * 32)
-packed_glm_reduce_kernel(const float* __restrict__ part_value,
-                         const float* __restrict__ part_rsum,
-                         const float* __restrict__ part_grad, int blocks, int d,
-                         float* __restrict__ value, float* __restrict__ rsum,
-                         float* __restrict__ grad) {
-  __shared__ float sums[kReduceWarps][33];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;
-  float g = 0.f;
-  if (c < d) {
-#pragma unroll 4
-    for (int b = warp; b < blocks; b += kReduceWarps) g += part_grad[(int64_t)b * d + c];
-  }
-  sums[warp][lane] = g;
-  __syncthreads();
-  if (warp == 0 && c < d) {
-    float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < kReduceWarps; ++k) t += sums[k][lane];
-    grad[c] = t;
-  }
-  if (blockIdx.x == 0 && warp == 0) {
-    const bool with_rsum = part_rsum != nullptr;
-    float v = 0.f, rs = 0.f;
-    for (int b = lane; b < blocks; b += 32) {
-      v += part_value[b];
-      if (with_rsum) rs += part_rsum[b];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-      rs += __shfl_xor_sync(0xffffffffu, rs, off);
-    }
-    if (lane == 0) {
-      *value = v;
-      if (with_rsum) *rsum = rs;
-    }
-  }
-}
-
 struct PartialsArgs {
   const void* x;
   const float* aux;
@@ -726,15 +679,14 @@ int packed_glm_partials(int loss, int is_bf16, int munit, int gunit, const void*
 }
 
 // value[1], grad[d] and, unless part_rsum is null, rsum[1] from the partials,
-// summed in block order.
+// summed in the fixed order of glm_tile.cuh's reduce_partials_kernel.
 int packed_glm_reduce(const void* part_value, const void* part_rsum, const void* part_grad,
                       int blocks, int d, void* value, void* rsum, void* grad, void* stream) {
-  const int grid = d > 0 ? (d + 31) / 32 : 1;
-  packed_glm_reduce_kernel<<<grid, kReduceWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_value), static_cast<const float*>(part_rsum),
-      static_cast<const float*>(part_grad), blocks, d, static_cast<float*>(value),
-      static_cast<float*>(rsum), static_cast<float*>(grad));
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(static_cast<const float*>(part_value),
+                            static_cast<const float*>(part_rsum),
+                            static_cast<const float*>(part_grad), blocks, d,
+                            static_cast<float*>(value), static_cast<float*>(rsum),
+                            static_cast<float*>(grad), static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -56,12 +56,34 @@
 //   with no ELL block) is summed by the whole warp, one of the warp's rows
 //   at a time, rows with no tail skipped; with no ELL block the wrapper
 //   passes G = 32, one row a warp.
-// - A row longer than kChunk tail entries (G1's one segment of 2^24 entries)
-//   is not left to one warp's serial loop: the wrapper passes a chunk plan,
-//   a first kernel gives each chunk its own warp and writes one partial per
-//   chunk, and the row kernel adds a row's partials in chunk order (as B1's
-//   reduce adds its partials in block order). Rows with no chunks in the
-//   plan (every row of kChunk entries or fewer) read their entries directly.
+// - A row longer than kChunk tail entries (G1's one segment of 2^24 entries,
+//   a planted column of a transpose) is not left to one warp's serial loop.
+//   The wrapper passes a compact chunk plan: the R long rows in order
+//   (long_rows [R]) and where each row's chunks start (long_chunk_ptr
+//   [R+1]); a kernel knows a row is long from its own pointers (e - b >
+//   kChunk), so nothing [n]-sized is read for chunks. The chunk kernel
+//   (gather_chunks_kernel) gives each chunk of kChunk entries a block of
+//   kChunkThreads threads, 32 entries a thread: 16-byte vector loads of the
+//   chunk's columns and values (a scalar head up to the first aligned
+//   entry, since a chunk starts wherever its row does), a batch of 16
+//   entries' loads issued before their gathers, as the ELL rows do; the
+//   block finds its row by a warp-wide search of the plan (32 probes a
+//   step). The consumer (the row kernel or the segment kernel) finds the
+//   row in the plan the same way and adds its partials with the whole warp,
+//   strided by lane, then by a xor butterfly. (A long row's sum therefore
+//   differs in its last bits from the warp-a-chunk design before it; rows
+//   of kChunk entries or fewer, and every batch with no long row, sum
+//   bitwise as before.) Rows of kChunk entries or fewer read their entries
+//   directly; a batch with no long row runs kernels built without
+//   the chunk code (the CHUNKED template flag).
+// - What bounds the chunk kernel (H100 80GB HBM3 at 700 W,
+//   dev/torch_kernel_ab.py): the rate of random gathers from L2, as for the
+//   rows and the transpose. The 1101 chunks (2.25M entries) of the planted
+//   transpose read 0.019 ms, about 118 G gathers/s, where a warp a chunk
+//   (64 entries a lane, one at a time) read 0.022; G1's 16.8M gathers 0.148
+//   against 0.147. The planted transpose (0.204 -> 0.179 ms) gained mostly
+//   from a plan with no [d+1] chunk pointers, which the segment kernel read
+//   for every staged run (40 MB at d = 10^7).
 // - Many short rows and no ELL block (the transpose X'r of a sparse batch:
 //   one row per column, about two entries each at d = 10^7, most columns
 //   empty at d = 10^8): load by entry, add by row (gather_segments_kernel).
@@ -70,8 +92,8 @@
 //   a time, gathering w at each; the (value, w) pairs go to shared memory,
 //   and each lane adds its own row's pairs in entry order with fmaf from 0
 //   -- the operations, in the order, of one thread walking its row, so the
-//   sums are bitwise those of a thread per row. A row with chunks adds its
-//   partials in order and its entries are not staged. An empty row costs its
+//   sums are bitwise those of a thread per row. A row with chunks takes the
+//   sum of its partials and its entries are not staged. An empty row costs its
 //   pointers and its output. The wrapper picks this kernel when the rows
 //   hold fewer than 32 entries on average.
 // - What bounds the transpose (H100 80GB HBM3 at 700 W, dev/torch_kernel_ab.py,
@@ -100,13 +122,6 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Sum of the 32 lanes' values in a fixed order; the result is in lane 0.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) v += __shfl_down_sync(kFull, v, offset);
-  return v;
-}
-
 // This lane's share of sum_{k in [begin, end)} vals[k] * w[cols[k]].
 template <typename V>
 __device__ __forceinline__ float lane_dot(const V* __restrict__ vals,
@@ -116,26 +131,6 @@ __device__ __forceinline__ float lane_dot(const V* __restrict__ vals,
   for (long long k = begin + lane; k < end; k += 32)
     acc = fmaf(to_float(vals[k]), __ldg(w + __ldg(cols + k)), acc);
   return acc;
-}
-
-// One partial per chunk of a long tail row.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gather_chunks_kernel(const V* __restrict__ tv, const int* __restrict__ tc,
-                     const int* __restrict__ row_ptr, const int* __restrict__ chunk_row,
-                     const int* __restrict__ chunk_ptr, const float* __restrict__ w,
-                     long long num_chunks, float* __restrict__ partials) {
-  const int lane = threadIdx.x & 31;
-  const long long warps = (long long)gridDim.x * kWarpsPerBlock;
-  for (long long c = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); c < num_chunks;
-       c += warps) {
-    const int row = chunk_row[c];
-    const long long begin = (long long)row_ptr[row] + (c - chunk_ptr[row]) * (long long)kChunk;
-    const long long row_end = row_ptr[row + 1];
-    const long long end = begin + kChunk < row_end ? begin + kChunk : row_end;
-    const float s = warp_sum(lane_dot(tv, tc, w, begin, end, lane, 0.f));
-    if (lane == 0) partials[c] = s;
-  }
 }
 
 // Vectors of ELL entries a lane loads before it gathers their w.
@@ -185,6 +180,144 @@ __device__ __forceinline__ void load_entries(const __nv_bfloat16* vals, const in
   }
 }
 
+// Threads of the chunk kernel's block (one block a chunk), and the vectors
+// of VEC entries each thread loads in its one batch. -DGATHER_CHUNK_THREADS
+// (a multiple of 32 up to 512) builds another count, for a same-run
+// comparison (dev/torch_kernel_ab.py --other-flags); the count fixes the
+// order of a chunk's sum.
+#ifndef GATHER_CHUNK_THREADS
+#define GATHER_CHUNK_THREADS 64
+#endif
+constexpr int kChunkThreads = GATHER_CHUNK_THREADS;
+static_assert(kChunkThreads % 32 == 0 && kChunkThreads <= 512, "GATHER_CHUNK_THREADS");
+template <int VEC>
+constexpr int kChunkVecs = kChunk / (VEC * kChunkThreads);
+
+// The last index i < size with a[i] <= key, where a ascends and a[0] <= key:
+// the warp probes 32 evenly spaced entries a step (two steps for R <= 1024).
+// Every lane passes the same key and gets the same index.
+__device__ __forceinline__ int warp_find(const int* __restrict__ a, int size, long long key,
+                                         int lane) {
+  int lo = 0, hi = size;  // the answer is in [lo, hi)
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) >> 5;
+    const int at = lo + lane * step;
+    // lane 0 probes lo, which holds: at least one bit is set
+    const unsigned le = __ballot_sync(kFull, at < hi && __ldg(a + at) <= key);
+    lo += (31 - __clz(le)) * step;
+    hi = lo + step < hi ? lo + step : hi;
+  }
+  return lo;
+}
+
+// The sum of long row `row`'s chunk partials (the chunk kernel's partials
+// and the plan it ran on), in every lane: lane l adds partials l, l + 32,
+// ... of the row from 0, then a xor butterfly adds the lanes. Warp-uniform.
+// (The consumers take the plan as separate __restrict__ arguments, not a
+// struct: through a struct's pointers their other loads lose the read-only
+// path.)
+__device__ __forceinline__ float row_partials(const float* __restrict__ partials,
+                                              const int* __restrict__ long_rows,
+                                              const int* __restrict__ long_chunk_ptr,
+                                              int num_long, long long row, int lane) {
+  const int r = warp_find(long_rows, num_long, row, lane);
+  const int c0 = __ldg(long_chunk_ptr + r), c1 = __ldg(long_chunk_ptr + r + 1);
+  float t = 0.f;
+  for (int c = c0 + lane; c < c1; c += 32) t += partials[c];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(kFull, t, off);
+  return t;
+}
+
+// Thread t's share of one chunk [begin, end) (at most kChunk entries), in
+// this order: with VEC = 4, the head entry begin + t if t is below the
+// entries before the first index that is a multiple of 4; then the
+// vectors t, t + kChunkThreads, ... of 4 entries from there, in batches of
+// 16 entries (a batch's loads first, then its gathers, then its FMAs); then
+// the tail entry past the last whole vector, if any. With VEC = 1 (arrays
+// not 16-byte aligned) the entries t, t + kChunkThreads, ... in the same
+// batches.
+template <typename V, int VEC>
+__device__ __forceinline__ float chunk_dot(const V* __restrict__ vals, const int* __restrict__ cols,
+                                           const float* __restrict__ w, long long begin,
+                                           long long end, int t) {
+  constexpr int NV = kChunkVecs<VEC>;
+  constexpr int NB = NV < 16 / VEC ? NV : 16 / VEC;  // vectors a batch: 16 entries
+  float acc = 0.f;
+  long long a = begin;
+  if constexpr (VEC > 1) {
+    const long long head = (VEC - (begin & (VEC - 1))) & (VEC - 1);
+    if (t < head && begin + t < end)
+      acc = fmaf(to_float(vals[begin + t]), __ldg(w + __ldg(cols + begin + t)), acc);
+    a = begin + head < end ? begin + head : end;
+  }
+  const int nv = (int)((end - a) / VEC);
+#pragma unroll
+  for (int b0 = 0; b0 < NV; b0 += NB) {
+    float x[NB][VEC], wv[NB][VEC];
+    int c[NB][VEC];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int v = t + (b0 + b) * kChunkThreads;
+      if (v < nv) load_entries<VEC>(vals + a + (long long)v * VEC, cols + a + (long long)v * VEC,
+                                    x[b], c[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        wv[b][e] = t + (b0 + b) * kChunkThreads < nv ? __ldg(w + c[b][e]) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (t + (b0 + b) * kChunkThreads < nv) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc = fmaf(x[b][e], wv[b][e], acc);
+      }
+    }
+  }
+  if constexpr (VEC > 1) {
+    const long long k = a + (long long)nv * VEC + t;
+    if (t < VEC && k < end) acc = fmaf(to_float(vals[k]), __ldg(w + __ldg(cols + k)), acc);
+  }
+  return acc;
+}
+
+// One partial per chunk of the long rows, a block a chunk: chunk c of the
+// plan is chunk c - long_chunk_ptr[r] of row long_rows[r], for the last r
+// with long_chunk_ptr[r] <= c. The partial is each thread's chunk_dot, the
+// lanes of a warp added by a xor butterfly, the warps added in warp order.
+template <typename V, int VEC>
+__global__ void __launch_bounds__(kChunkThreads)
+gather_chunks_kernel(const V* __restrict__ tv, const int* __restrict__ tc,
+                     const int* __restrict__ row_ptr, const int* __restrict__ long_rows,
+                     const int* __restrict__ long_chunk_ptr, int num_long,
+                     const float* __restrict__ w, long long num_chunks,
+                     float* __restrict__ partials) {
+  __shared__ float warp_s[kChunkThreads / 32];
+  const int t = threadIdx.x, lane = t & 31;
+  for (long long c = blockIdx.x; c < num_chunks; c += gridDim.x) {
+    const int r = warp_find(long_chunk_ptr, num_long, c, lane);
+    const int row = __ldg(long_rows + r);
+    const long long begin =
+        __ldg(row_ptr + row) + (c - __ldg(long_chunk_ptr + r)) * (long long)kChunk;
+    const long long row_end = __ldg(row_ptr + row + 1);
+    const long long end = begin + kChunk < row_end ? begin + kChunk : row_end;
+    float acc = chunk_dot<V, VEC>(tv, tc, w, begin, end, t);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+    if (lane == 0) warp_s[t >> 5] = acc;
+    __syncthreads();
+    if (t == 0) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < kChunkThreads / 32; ++q) s += warp_s[q];
+      partials[c] = s;
+    }
+    __syncthreads();  // the next chunk overwrites warp_s
+  }
+}
+
 // Lane j's share of one ELL row of nvec vectors: vectors j, j + G, ... in
 // order, kBatch at a time (loads, then gathers, then FMAs).
 template <typename V, int G, int VEC>
@@ -217,14 +350,18 @@ __device__ __forceinline__ float ell_lane_dot(const V* __restrict__ vals,
 }
 
 // Rows of 32 / G a warp: each row's ELL entries by its group of G lanes,
-// then each row's tail entries (or, with a chunk plan, its chunk partials
-// in order) by the whole warp.
-template <typename V, int G, int VEC>
+// then each row's tail entries (or, for a long row with a chunk plan, the
+// sum of its chunk partials) by the whole warp. CHUNKED: a chunk plan is
+// given; without one the kernel holds no code for it (compiled in, the
+// plan's search changed the register allocation of the rest, and the ELL
+// rows ran 1-3% slower).
+template <typename V, int G, int VEC, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const V* __restrict__ ev, const int* __restrict__ ec, int width,
                    const V* __restrict__ tv, const int* __restrict__ tc,
                    const int* __restrict__ row_ptr, const float* __restrict__ partials,
-                   const int* __restrict__ chunk_ptr, const float* __restrict__ w, long long n,
+                   const int* __restrict__ long_rows, const int* __restrict__ long_chunk_ptr,
+                   int num_long, const float* __restrict__ w, long long n,
                    float* __restrict__ out) {
   constexpr int kRowsPerWarp = 32 / G;
   const int lane = threadIdx.x & 31;
@@ -240,19 +377,25 @@ gather_rows_kernel(const V* __restrict__ ev, const int* __restrict__ ec, int wid
 #pragma unroll
     for (int off = G / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
     if (row_ptr != nullptr) {
-      // lane k < kRowsPerWarp holds the tail bounds of row base + k
+      // lane k < kRowsPerWarp holds the tail bounds of row base + k and, for
+      // a long row of the chunk plan, the range of its chunk partials
       int tb = 0, te = 0, cb = 0, ce = 0;
       if (lane < kRowsPerWarp && base + lane < n) {
         tb = row_ptr[base + lane];
         te = row_ptr[base + lane + 1];
-        if (partials != nullptr) {
-          cb = chunk_ptr[base + lane];
-          ce = chunk_ptr[base + lane + 1];
+      }
+      if constexpr (CHUNKED) {
+        for (unsigned todo = __ballot_sync(kFull, te - tb > kChunk); todo != 0;
+             todo &= todo - 1) {
+          const int k = __ffs(todo) - 1;
+          const int r = warp_find(long_rows, num_long, base + k, lane);
+          if (lane == k) cb = __ldg(long_chunk_ptr + r), ce = __ldg(long_chunk_ptr + r + 1);
         }
       }
       for (unsigned todo = __ballot_sync(kFull, te > tb); todo != 0; todo &= todo - 1) {
         const int k = __ffs(todo) - 1;
-        const int c0 = __shfl_sync(kFull, cb, k), c1 = __shfl_sync(kFull, ce, k);
+        int c0 = 0, c1 = 0;
+        if constexpr (CHUNKED) c0 = __shfl_sync(kFull, cb, k), c1 = __shfl_sync(kFull, ce, k);
         float t = 0.f;
         if (c1 > c0) {
           for (int c = c0 + lane; c < c1; c += 32) t += partials[c];
@@ -279,18 +422,21 @@ constexpr int kPiece = 64;
 // kPiece at a time, gathers w at each entry's index, and stages the
 // (value, w) pairs in shared memory; then each lane adds its own segment's
 // pairs in entry order with fmaf from 0, carrying its sum across pieces. A
-// segment with chunks (more than kChunk entries) adds its chunk partials in
-// order instead, and its entries are skipped: the run is staged as the
-// stretches of segments between such lanes. A run whose segments hold at
-// most one entry each (most runs of a d = 10^8 tail) is not staged: each
-// lane adds its own entry. The kernel is latency-bound, so it keeps to 32
-// registers a thread (eight blocks, a full SM, resident).
-template <typename V>
+// long segment (more than kChunk entries, with a chunk plan) takes the sum
+// of its chunk partials, added by the whole warp (row_partials), and its
+// entries are skipped: the run is staged as the stretches of segments
+// between such lanes. A run whose segments hold at most one entry each
+// (most runs of a d = 10^8 tail) is not staged: each lane adds its own
+// entry. The kernel is latency-bound, so it keeps to 32 registers a thread
+// (eight blocks, a full SM, resident). CHUNKED: a chunk plan is given (as
+// in the row kernel, without one the kernel holds no code for it).
+template <typename V, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads, 8)
 gather_segments_kernel(const V* __restrict__ tv, const int* __restrict__ tc,
                        const int* __restrict__ seg_ptr, const float* __restrict__ partials,
-                       const int* __restrict__ chunk_ptr, const float* __restrict__ w,
-                       long long n, float* __restrict__ out) {
+                       const int* __restrict__ long_rows, const int* __restrict__ long_chunk_ptr,
+                       int num_long, const float* __restrict__ w, long long n,
+                       float* __restrict__ out) {
   __shared__ float vals_s[kWarpsPerBlock][kPiece];
   __shared__ float w_s[kWarpsPerBlock][kPiece];
   const int lane = threadIdx.x & 31;
@@ -314,11 +460,15 @@ gather_segments_kernel(const V* __restrict__ tv, const int* __restrict__ tc,
       if (seg < nu) out[seg] = acc;
       continue;
     }
-    const bool chunked =
-        partials != nullptr && seg < nu && chunk_ptr[seg + 1] > chunk_ptr[seg];
+    const unsigned skip = CHUNKED ? __ballot_sync(kFull, e - b > kChunk) : 0u;
     float acc = 0.f;
-    if (chunked) {
-      for (int c = chunk_ptr[seg]; c < chunk_ptr[seg + 1]; ++c) acc += partials[c];
+    if constexpr (CHUNKED) {
+      for (unsigned todo = skip; todo != 0; todo &= todo - 1) {
+        const int k = __ffs(todo) - 1;
+        const float t = row_partials(partials, long_rows, long_chunk_ptr, num_long,
+                                     (long long)run * kRunSegments + k, lane);
+        if (lane == k) acc = t;
+      }
     }
     // Stage and add the stretch of lanes [lo, hi), which holds no chunked lane.
     auto stretch = [&](int lo, int hi) {
@@ -354,7 +504,6 @@ gather_segments_kernel(const V* __restrict__ tv, const int* __restrict__ tc,
         __syncwarp();
       }
     };
-    const unsigned skip = __ballot_sync(kFull, chunked);
     if (skip == 0) {
       stretch(0, kRunSegments);
     } else {
@@ -376,13 +525,31 @@ int blocks_for(long long items) {
   return b < 1 ? 1 : (int)b;
 }
 
+// What the consumers read of the chunk plan: the chunk kernel's partials
+// (null: no row is long, or no plan was given) and the long rows with where
+// their chunks start.
+struct Chunks {
+  const void* partials;
+  const void* long_rows;
+  const void* long_chunk_ptr;
+  int num_long;
+};
+
 template <typename V, int G, int VEC>
 cudaError_t launch_rows(const void* ev, const void* ec, int width, const void* tv, const void* tc,
-                        const void* row_ptr, const void* partials, const void* chunk_ptr,
-                        const void* w, long long n, void* out, cudaStream_t s) {
-  gather_rows_kernel<V, G, VEC><<<blocks_for((n + 32 / G - 1) / (32 / G)), kThreads, 0, s>>>(
-      (const V*)ev, (const int*)ec, width, (const V*)tv, (const int*)tc, (const int*)row_ptr,
-      (const float*)partials, (const int*)chunk_ptr, (const float*)w, n, (float*)out);
+                        const void* row_ptr, const Chunks& ch, const void* w, long long n,
+                        void* out, cudaStream_t s) {
+  const int blocks = blocks_for((n + 32 / G - 1) / (32 / G));
+  if (ch.partials != nullptr) {
+    gather_rows_kernel<V, G, VEC, true><<<blocks, kThreads, 0, s>>>(
+        (const V*)ev, (const int*)ec, width, (const V*)tv, (const int*)tc, (const int*)row_ptr,
+        (const float*)ch.partials, (const int*)ch.long_rows, (const int*)ch.long_chunk_ptr,
+        ch.num_long, (const float*)w, n, (float*)out);
+  } else {
+    gather_rows_kernel<V, G, VEC, false><<<blocks, kThreads, 0, s>>>(
+        (const V*)ev, (const int*)ec, width, (const V*)tv, (const int*)tc, (const int*)row_ptr,
+        nullptr, nullptr, nullptr, 0, (const float*)w, n, (float*)out);
+  }
   return cudaGetLastError();
 }
 
@@ -390,13 +557,11 @@ cudaError_t launch_rows(const void* ev, const void* ec, int width, const void* t
 // 16} with VEC in {4, 2, 1}, or G = 32 (no ELL block) with VEC = 1.
 template <typename V>
 cudaError_t rows_for(int lanes, int vec, const void* ev, const void* ec, int width, const void* tv,
-                     const void* tc, const void* row_ptr, const void* partials,
-                     const void* chunk_ptr, const void* w, long long n, void* out,
-                     cudaStream_t s) {
-#define PHOTON_ROWS(G, VEC)                                                                     \
-  if (lanes == G && vec == VEC)                                                                 \
-    return launch_rows<V, G, VEC>(ev, ec, width, tv, tc, row_ptr, partials, chunk_ptr, w, n, out, \
-                                  s);
+                     const void* tc, const void* row_ptr, const Chunks& chunks, const void* w,
+                     long long n, void* out, cudaStream_t s) {
+#define PHOTON_ROWS(G, VEC)         \
+  if (lanes == G && vec == VEC)     \
+    return launch_rows<V, G, VEC>(ev, ec, width, tv, tc, row_ptr, chunks, w, n, out, s);
   PHOTON_ROWS(4, 4)
   PHOTON_ROWS(4, 2)
   PHOTON_ROWS(4, 1)
@@ -411,6 +576,35 @@ cudaError_t rows_for(int lanes, int vec, const void* ev, const void* ec, int wid
   return cudaErrorInvalidValue;
 }
 
+template <typename V>
+cudaError_t launch_segments(const void* tv, const void* tc, const void* row_ptr,
+                            const Chunks& ch, const void* w, long long n, void* out,
+                            cudaStream_t s) {
+  const int blocks = blocks_for((n + kRunSegments - 1) / kRunSegments);
+  if (ch.partials != nullptr) {
+    gather_segments_kernel<V, true><<<blocks, kThreads, 0, s>>>(
+        (const V*)tv, (const int*)tc, (const int*)row_ptr, (const float*)ch.partials,
+        (const int*)ch.long_rows, (const int*)ch.long_chunk_ptr, ch.num_long, (const float*)w, n,
+        (float*)out);
+  } else {
+    gather_segments_kernel<V, false><<<blocks, kThreads, 0, s>>>(
+        (const V*)tv, (const int*)tc, (const int*)row_ptr, nullptr, nullptr, nullptr, 0,
+        (const float*)w, n, (float*)out);
+  }
+  return cudaGetLastError();
+}
+
+template <typename V, int VEC>
+cudaError_t launch_chunks(const void* tv, const void* tc, const void* row_ptr,
+                          const void* long_rows, const void* long_chunk_ptr, int num_long,
+                          const void* w, long long num_chunks, void* partials, cudaStream_t s) {
+  const int blocks = (int)(num_chunks < kMaxBlocks ? num_chunks : kMaxBlocks);
+  gather_chunks_kernel<V, VEC><<<blocks, kChunkThreads, 0, s>>>(
+      (const V*)tv, (const int*)tc, (const int*)row_ptr, (const int*)long_rows,
+      (const int*)long_chunk_ptr, num_long, (const float*)w, num_chunks, (float*)partials);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -422,58 +616,61 @@ int sparse_gather_chunk() { return kChunk; }
 int sparse_gather_segment_run() { return kRunSegments * 1000 + kPiece; }
 
 // out[n] = ELL row sums (ev/ec [n, width], width may be 0 with null arrays)
-// + tail row sums (tv/tc with row_ptr [n+1], or null). With partials and
-// chunk_ptr non-null, a row with chunks takes its chunk partials instead.
+// + tail row sums (tv/tc with row_ptr [n+1], or null). With partials non-null
+// (from sparse_gather_chunks over the plan long_rows [num_long],
+// long_chunk_ptr [num_long + 1]), a row of more than kChunk tail entries
+// takes the sum of its chunk partials instead of its entries.
 // lanes (4, 8 or 16; 32 when width is 0) share a row's ELL entries, read vec
 // (4, 2 or 1, dividing width, each row's start aligned to it) at a time.
 int sparse_gather_rows(int is_bf16, int lanes, int vec, const void* ev, const void* ec, int width,
                        const void* tv, const void* tc, const void* row_ptr, const void* partials,
-                       const void* chunk_ptr, const void* w, long long n, void* out,
-                       void* stream) {
+                       const void* long_rows, const void* long_chunk_ptr, int num_long,
+                       const void* w, long long n, void* out, void* stream) {
   if (width % vec != 0 || (width == 0) != (lanes == 32)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const Chunks chunks{partials, long_rows, long_chunk_ptr, num_long};
   return (int)(is_bf16 ? rows_for<__nv_bfloat16>(lanes, vec, ev, ec, width, tv, tc, row_ptr,
-                                                 partials, chunk_ptr, w, n, out, s)
-                       : rows_for<float>(lanes, vec, ev, ec, width, tv, tc, row_ptr, partials,
-                                         chunk_ptr, w, n, out, s));
+                                                 chunks, w, n, out, s)
+                       : rows_for<float>(lanes, vec, ev, ec, width, tv, tc, row_ptr, chunks, w,
+                                         n, out, s));
 }
 
 // out[n] = tail row sums (tv/tc with row_ptr [n+1]) of short rows, a warp a
-// run of 32 rows whose entries it stages; with partials and chunk_ptr
-// non-null, a row with chunks sums its partials.
+// run of 32 rows whose entries it stages; with partials non-null, a long
+// row sums its chunk partials (as in sparse_gather_rows).
 int sparse_gather_segments(int is_bf16, const void* tv, const void* tc, const void* row_ptr,
-                           const void* partials, const void* chunk_ptr, const void* w,
-                           long long n, void* out, void* stream) {
+                           const void* partials, const void* long_rows,
+                           const void* long_chunk_ptr, int num_long, const void* w, long long n,
+                           void* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = blocks_for((n + kRunSegments - 1) / kRunSegments);
-  if (is_bf16) {
-    gather_segments_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)tv, (const int*)tc, (const int*)row_ptr, (const float*)partials,
-        (const int*)chunk_ptr, (const float*)w, n, (float*)out);
-  } else {
-    gather_segments_kernel<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)tv, (const int*)tc, (const int*)row_ptr, (const float*)partials,
-        (const int*)chunk_ptr, (const float*)w, n, (float*)out);
-  }
-  return (int)cudaGetLastError();
+  const Chunks chunks{partials, long_rows, long_chunk_ptr, num_long};
+  return (int)(is_bf16 ? launch_segments<__nv_bfloat16>(tv, tc, row_ptr, chunks, w, n, out, s)
+                       : launch_segments<float>(tv, tc, row_ptr, chunks, w, n, out, s));
 }
 
-// partials[num_chunks]: one sum per chunk of the chunk plan.
-int sparse_gather_chunks(int is_bf16, const void* tv, const void* tc, const void* row_ptr,
-                         const void* chunk_row, const void* chunk_ptr, const void* w,
-                         long long num_chunks, void* partials, void* stream) {
+// partials[num_chunks]: one sum per chunk of the plan long_rows [num_long],
+// long_chunk_ptr [num_long + 1] (num_chunks = long_chunk_ptr[num_long]).
+// vec 4 reads 16-byte vectors (tc 16-byte aligned, tv aligned to 4 values);
+// vec 1 reads one entry at a time.
+int sparse_gather_chunks(int is_bf16, int vec, const void* tv, const void* tc,
+                         const void* row_ptr, const void* long_rows, const void* long_chunk_ptr,
+                         int num_long, const void* w, long long num_chunks, void* partials,
+                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = blocks_for(num_chunks);
-  if (is_bf16) {
-    gather_chunks_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)tv, (const int*)tc, (const int*)row_ptr, (const int*)chunk_row,
-        (const int*)chunk_ptr, (const float*)w, num_chunks, (float*)partials);
-  } else {
-    gather_chunks_kernel<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)tv, (const int*)tc, (const int*)row_ptr, (const int*)chunk_row,
-        (const int*)chunk_ptr, (const float*)w, num_chunks, (float*)partials);
+  if (num_chunks < 1 || num_long < 1) return (int)cudaErrorInvalidValue;
+#define PHOTON_CHUNKS(V, VEC)                                                             \
+  return (int)launch_chunks<V, VEC>(tv, tc, row_ptr, long_rows, long_chunk_ptr, num_long, w, \
+                                    num_chunks, partials, s);
+  if (vec == 4) {
+    if (is_bf16) PHOTON_CHUNKS(__nv_bfloat16, 4)
+    PHOTON_CHUNKS(float, 4)
   }
-  return (int)cudaGetLastError();
+  if (vec == 1) {
+    if (is_bf16) PHOTON_CHUNKS(__nv_bfloat16, 1)
+    PHOTON_CHUNKS(float, 1)
+  }
+#undef PHOTON_CHUNKS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

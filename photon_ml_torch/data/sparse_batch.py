@@ -15,7 +15,7 @@ only the finished arrays move to torch. Every margin goes through the
 gather-sum of ``ops/sparse_gather.py``: its CUDA kernel on the card, its
 plain version on the CPU. For that the batch also carries the flat tail's
 ``[n+1]`` row pointers (and, where a row is longer than one chunk, the
-chunk plan), built once from the sorted ``row_ids``. Every transpose
+chunk plan of those rows alone), built once from the sorted ``row_ids``. Every transpose
 ``Xᵀr`` of the ELL block and the flat tail is the same gather-sum over a
 column-sorted copy of their nonzero entries, built on the device at the
 first transpose and kept with the batch, so each column sums in a fixed
@@ -693,9 +693,11 @@ def transpose_plan(batch: SparseLabeledPointBatch):
     """The ELL block's and the flat tail's entries as one flat tail sorted
     by column, for the gather kernel with the columns as its segments:
     (vals, rows, col_ptr, chunks), 8 bytes an entry (f32) plus ``[d+1]``
-    pointers; column j's entries are ``[col_ptr[j], col_ptr[j+1])`` (the
-    sorted column ids are not kept: ``sparse_gather.segment_ids(col_ptr)``
-    rebuilds them). Stable, so a column's entries keep their order (ELL
+    pointers and, where a column holds more than ``SEGMENT_CHUNK`` entries,
+    the :class:`~photon_ml_torch.ops.sparse_gather.ChunkPlan` of those
+    columns (8 bytes a long column); column j's entries are ``[col_ptr[j],
+    col_ptr[j+1])`` (the sorted column ids are not kept:
+    ``sparse_gather.segment_ids(col_ptr)`` rebuilds them). Stable, so a column's entries keep their order (ELL
     rows, then tail rows); entries of value 0, the ELL pad slots among them,
     add nothing and are left out. Built once per batch on its device (one
     sort, a few syncs) and cached on it."""

@@ -4,7 +4,9 @@ Counterpart of ``photon_ml_tpu/ops/pallas_glm.py`` (``fused_value_and_gradient``
 over the Pallas kernel ``_kernel``/``_fused_padded``). The kernel is
 hand-written CUDA for Hopper, ``csrc/fused_glm.cu``; its header states the
 bound and the design. Per evaluation on a CUDA tensor the wrapper launches
-two kernels: the per-block partials and their ordered reduction. The
+two kernels: the per-block partials and their ordered reduction
+(``csrc/glm_tile.cuh``, shared with the packed kernel;
+:func:`reduce_partials_in_order` is its order in plain PyTorch). The
 partials kernel stages row tiles of X in a ring in shared memory under a
 tile plan that it chooses from the width and the type (rows a tile, stages,
 row phases of the gradient; :func:`tile_plan` reads it); blocks wider than
@@ -145,7 +147,8 @@ def fused_partials(loss: PointwiseLoss, x, labels, offsets, weights, eff, shift=
 
 
 def reduce_partials(part_value, part_rsum, part_grad):
-    """Launch the ordered reduction of the partials: (value, grad[d], Σr)."""
+    """Launch the ordered reduction of the partials: (value, grad[d], Σr),
+    summed in the order of :func:`reduce_partials_in_order`."""
     global reduce_launches
     _require(part_grad.is_cuda and part_grad.dim() == 2, "part_grad must be a 2-D CUDA tensor")
     blocks, d = part_grad.shape
@@ -168,8 +171,39 @@ def reduce_partials(part_value, part_rsum, part_grad):
 
 
 def reduce_partials_reference(part_value, part_rsum, part_grad):
-    """Plain PyTorch version of :func:`reduce_partials`."""
+    """Plain PyTorch version of :func:`reduce_partials` (sums in PyTorch's
+    own order)."""
     return part_value.sum(), part_grad.sum(dim=0), part_rsum.sum()
+
+
+def reduce_partials_in_order(part_value, part_rsum, part_grad):
+    """The kernel's reduction of its partials (``reduce_partials_kernel`` in
+    ``csrc/glm_tile.cuh``), in plain PyTorch with each f32 addition made
+    elementwise in the kernel's order, so on the same partials it is
+    bitwise the kernel's: (value, grad [d], Σr, or None with ``part_rsum``
+    None). Column c of the gradient is the sum of its 32 strided sums S_k
+    (blocks k, k + 32, ... added from 0), added from 0 in k order; value and
+    Σr are 32 lane sums (blocks l, l + 32, ...) added by a xor butterfly."""
+    blocks, d = part_grad.shape
+    pad = -blocks % 32
+    strided = torch.zeros((32, d), dtype=torch.float32, device=part_grad.device)
+    rows = torch.cat([part_grad, part_grad.new_zeros((pad, d))]).reshape(-1, 32, d)
+    for j in range(rows.shape[0]):  # S_k += row 32 j + k (adding a zero pad row is exact)
+        strided = strided + rows[j]
+    grad = torch.zeros((d,), dtype=torch.float32, device=part_grad.device)
+    for k in range(32):
+        grad = grad + strided[k]
+
+    def lanes(v):
+        acc = torch.zeros((32,), dtype=torch.float32, device=v.device)
+        for row in torch.cat([v, v.new_zeros(pad)]).reshape(-1, 32):
+            acc = acc + row
+        lane = torch.arange(32, device=v.device)
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[lane ^ off]
+        return acc[0]
+
+    return lanes(part_value), grad, None if part_rsum is None else lanes(part_rsum)
 
 
 def _plain_core(loss, x, labels, offsets, weights, eff, shift):

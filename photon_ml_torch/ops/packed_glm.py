@@ -200,7 +200,9 @@ def launch_partials(loss, x, aux, labels, offsets, weights, eff, shift, with_rsu
 
 def reduce_partials(part_value, part_rsum, part_grad):
     """Launch the ordered reduction of the partials: (value, grad [d], Σr or
-    None when ``part_rsum`` is None)."""
+    None when ``part_rsum`` is None), summed in the order of
+    ``fused_glm.reduce_partials_in_order`` (one kernel for both,
+    ``csrc/glm_tile.cuh``)."""
     global reduce_launches
     _require(part_grad.is_cuda and part_grad.dim() == 2 and part_grad.dtype == torch.float32
              and part_grad.is_contiguous(), "part_grad must be a contiguous 2-D float32 CUDA tensor")

@@ -20,9 +20,11 @@ Two layouts, either or both in one call:
   row-sorted flat COO tail; the kernel reads ``row_ptr`` (row i's entries
   are ``[row_ptr[i], row_ptr[i+1])``), the plain version ``row_ids``, which
   may be None (it is then rebuilt from ``row_ptr``).
-  ``chunks = (chunk_row, chunk_ptr)``, from :func:`segment_plan`, cuts rows
-  longer than ``SEGMENT_CHUNK`` entries into chunks whose partial sums a
-  second pass adds in a fixed order; shorter rows have no chunks.
+  ``chunks``, a :class:`ChunkPlan` from :func:`segment_plan`, cuts rows
+  longer than ``SEGMENT_CHUNK`` entries into chunks, whose partial sums the
+  chunk kernel writes and the row or segment kernel adds in a fixed order;
+  it lists the long rows only (a kernel knows a row is long from its own
+  pointers), so it costs nothing ``[n]``-sized.
 
 The kernel gives an ELL row a group of 4, 8 or 16 lanes (:func:`ell_plan`),
 which read its entries in vectors of up to 4, and a row's flat tail the
@@ -44,6 +46,7 @@ it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -56,7 +59,8 @@ launches = 0
 #: launches of the segment kernel: one per gather-sum of short rows with no
 #: ELL block (every transpose Xᵀr over a batch's column-sorted plan)
 segment_launches = 0
-#: launches of the chunk kernel (only for rows longer than SEGMENT_CHUNK)
+#: launches of the chunk kernel (one per gather-sum whose tail has rows
+#: longer than SEGMENT_CHUNK and a chunk plan)
 chunk_launches = 0
 
 #: entries of one chunk of a long row; must equal kChunk in the CUDA source
@@ -84,13 +88,15 @@ def _lib() -> ctypes.CDLL:
         lib.sparse_gather_segment_run.restype = ctypes.c_int
         lib.sparse_gather_rows.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP, ctypes.c_int, _VP, _VP, _VP, _VP,
-            _VP, _VP, ctypes.c_longlong, _VP, _VP]
+            _VP, _VP, ctypes.c_int, _VP, ctypes.c_longlong, _VP, _VP]
         lib.sparse_gather_rows.restype = ctypes.c_int
         lib.sparse_gather_chunks.argtypes = [
-            ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP]
+            ctypes.c_int, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP,
+            ctypes.c_longlong, _VP, _VP]
         lib.sparse_gather_chunks.restype = ctypes.c_int
         lib.sparse_gather_segments.argtypes = [
-            ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP]
+            ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP, ctypes.c_longlong,
+            _VP, _VP]
         lib.sparse_gather_segments.restype = ctypes.c_int
         if lib.sparse_gather_chunk() != SEGMENT_CHUNK:
             raise RuntimeError("csrc/sparse_gather.cu kChunk differs from SEGMENT_CHUNK")
@@ -124,26 +130,44 @@ def ell_plan(width: int, vals_ptr: int = 0, cols_ptr: int = 0,
     return (4 if vectors <= 4 else 8 if vectors <= 8 else 16), vec
 
 
+class ChunkPlan(NamedTuple):
+    """The chunks of a tail's long rows (more than ``SEGMENT_CHUNK``
+    entries): ``rows`` [R] int32, the long rows in order; ``chunk_ptr``
+    [R+1] int32, where each one's chunks start (chunk c of the plan covers
+    ``SEGMENT_CHUNK`` entries from ``row_ptr[rows[r]] + (c - chunk_ptr[r]) ·
+    SEGMENT_CHUNK`` for the last r with ``chunk_ptr[r] <= c``, the last
+    chunk of a row to its end); ``count``, the number of chunks."""
+
+    rows: torch.Tensor
+    chunk_ptr: torch.Tensor
+    count: int
+
+    def nbytes(self) -> int:
+        return 4 * (self.rows.numel() + self.chunk_ptr.numel())
+
+
 def segment_plan(row_ids: torch.Tensor, n: int):
     """(row_ptr [n+1] int32, chunks) of a row-sorted flat tail, on its
     device. ``chunks`` is None when no row is longer than SEGMENT_CHUNK,
-    else (chunk_row [C] int32, chunk_ptr [n+1] int32) over the rows longer
-    than that (a shorter row has none): chunk c covers entries
-    ``row_ptr[i] + (c - chunk_ptr[i])·SEGMENT_CHUNK`` onward of row
-    ``i = chunk_row[c]``. Built once per batch (one device sync)."""
+    else the :class:`ChunkPlan` of those rows. Built once per batch, with
+    one device sync."""
     dev = row_ids.device
     bounds = torch.arange(n + 1, dtype=row_ids.dtype, device=dev)
     row_ptr = torch.searchsorted(row_ids, bounds).to(torch.int32)
     if row_ids.numel() == 0:
         return row_ptr, None
-    lens = (row_ptr[1:] - row_ptr[:-1]).long()
-    if int(lens.max()) <= SEGMENT_CHUNK:
+    lens = row_ptr[1:] - row_ptr[:-1]
+    long = lens > SEGMENT_CHUNK
+    rank = torch.cumsum(long, 0, dtype=torch.int32)  # long rows up to and including each row
+    per_row = torch.where(long, (lens + SEGMENT_CHUNK - 1) // SEGMENT_CHUNK, 0)
+    num_long, count = torch.stack([rank[-1].long(), per_row.sum()]).tolist()
+    if num_long == 0:
         return row_ptr, None
-    per_row = torch.where(lens > SEGMENT_CHUNK, (lens + SEGMENT_CHUNK - 1) // SEGMENT_CHUNK, 0)
-    chunk_ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(per_row, 0, out=chunk_ptr[1:])
-    chunk_row = torch.repeat_interleave(torch.arange(n, device=dev), per_row)
-    return row_ptr, (chunk_row.to(torch.int32), chunk_ptr.to(torch.int32))
+    # the r-th long row is the first row whose rank reaches r + 1
+    rows = torch.searchsorted(rank, torch.arange(1, num_long + 1, dtype=torch.int32, device=dev))
+    chunk_ptr = torch.zeros(num_long + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(per_row[rows], 0, out=chunk_ptr[1:])
+    return row_ptr, ChunkPlan(rows.to(torch.int32), chunk_ptr, int(count))
 
 
 def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
@@ -178,6 +202,26 @@ def gather_sum_reference(w: torch.Tensor, n: int, *, ell=None, tail=None, chunks
     return out
 
 
+def chunk_partials_reference(w: torch.Tensor, tail, chunks: ChunkPlan) -> torch.Tensor:
+    """Plain PyTorch version of :func:`chunk_partials`: ``[chunks.count]``
+    sums, chunk c the sum of vals·w[cols] over its entries, in the promoted
+    dtype of the values and ``w`` (a masked ``[count, SEGMENT_CHUNK]``
+    gather, with no host sync)."""
+    vals, cols, _, row_ptr = tail
+    dev = w.device
+    c = torch.arange(chunks.count, device=dev)
+    r = torch.searchsorted(chunks.chunk_ptr, c.to(chunks.chunk_ptr.dtype), right=True) - 1
+    rows = chunks.rows.long()[r]
+    begin = row_ptr[rows].long() + (c - chunks.chunk_ptr[r].long()) * SEGMENT_CHUNK
+    end = torch.minimum(begin + SEGMENT_CHUNK, row_ptr[rows + 1].long())
+    at = begin[:, None] + torch.arange(SEGMENT_CHUNK, device=dev)
+    inside = at < end[:, None]
+    at = torch.where(inside, at, 0)
+    dtype = torch.promote_types(vals.dtype, w.dtype)
+    terms = vals[at].to(dtype) * w.to(dtype)[cols[at].long()]
+    return torch.where(inside, terms, 0).sum(dim=1)
+
+
 def _check_entries(vals, cols, shape, dev, name):
     _require(vals.device == dev and cols.device == dev, f"{name} arrays must be on {dev}")
     _require(vals.dtype in (torch.float32, torch.bfloat16),
@@ -204,15 +248,57 @@ def gather_sum(w: torch.Tensor, n: int, *, ell=None, tail=None, chunks=None) -> 
     return _launch(w, n, ell, tail, chunks)
 
 
-def _launch(w, n, ell, tail, chunks):
-    global launches, segment_launches, chunk_launches
+def _check_w(w):
     _require(w.is_cuda, "w must be a CUDA tensor")
-    dev = w.device
     _require(w.dtype == torch.float32 and w.dim() == 1 and w.is_contiguous(),
              "w must be a contiguous 1-D float32 tensor")
+
+
+def _check_tail(tail, n, dev):
+    """Check a tail's arrays for the kernels; whether its values are bf16."""
+    vals, cols, _, row_ptr = tail
+    _require(vals.dim() == 1, "tail values must be 1-D")
+    _check_entries(vals, cols, (vals.shape[0],), dev, "tail")
+    _require(vals.shape[0] < 2**31, "tail holds 2^31 entries or more")
+    _index_vector(row_ptr, n + 1, dev, "row_ptr")
+    return vals.dtype == torch.bfloat16
+
+
+def chunk_partials(w: torch.Tensor, tail, chunks: ChunkPlan) -> torch.Tensor:
+    """Launch the chunk kernel: ``[chunks.count]`` f32 partials, one per
+    chunk of the tail's long rows (the row kernel and the segment kernel
+    add them; :func:`gather_sum` launches both). CUDA tensors only: a CPU
+    tensor raises (:func:`chunk_partials_reference` is the plain version)."""
+    global chunk_launches
+    _check_w(w)
+    dev = w.device
+    vals, cols, _, row_ptr = tail
+    is_bf16 = _check_tail(tail, row_ptr.shape[0] - 1, dev)
+    long_rows, long_chunk_ptr, count = chunks
+    num_long = long_rows.shape[0]
+    _require(num_long >= 1 and count >= 1, "a chunk plan lists at least one long row")
+    _index_vector(long_rows, num_long, dev, "the chunk plan's rows")
+    _index_vector(long_chunk_ptr, num_long + 1, dev, "the chunk plan's chunk_ptr")
+    vec = 4 if cols.data_ptr() % 16 == 0 and vals.data_ptr() % (4 * vals.element_size()) == 0 \
+        else 1
+    with _on(dev):
+        partials = torch.empty((count,), dtype=torch.float32, device=dev)
+        _check(_lib().sparse_gather_chunks(
+            int(is_bf16), vec, vals.data_ptr(), cols.data_ptr(), row_ptr.data_ptr(),
+            long_rows.data_ptr(), long_chunk_ptr.data_ptr(), num_long, w.data_ptr(), count,
+            partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            "sparse_gather_chunks")
+        chunk_launches += 1
+    return partials
+
+
+def _launch(w, n, ell, tail, chunks):
+    global launches, segment_launches
+    _check_w(w)
+    dev = w.device
     _require(0 <= n < 2**31, f"n={n} out of range")
     is_bf16 = None
-    ell_vals = ell_cols = tail_vals = tail_cols = row_ptr = chunk_ptr = None
+    ell_vals = ell_cols = tail_vals = tail_cols = row_ptr = None
     width = 0
     if ell is not None:
         ell_vals, ell_cols = ell
@@ -222,11 +308,7 @@ def _launch(w, n, ell, tail, chunks):
         is_bf16 = ell_vals.dtype == torch.bfloat16
     if tail is not None and tail[0].numel():
         tail_vals, tail_cols, _, row_ptr = tail
-        _require(tail_vals.dim() == 1, "tail values must be 1-D")
-        _check_entries(tail_vals, tail_cols, (tail_vals.shape[0],), dev, "tail")
-        _require(tail_vals.shape[0] < 2**31, "tail holds 2^31 entries or more")
-        _index_vector(row_ptr, n + 1, dev, "row_ptr")
-        tail_bf16 = tail_vals.dtype == torch.bfloat16
+        tail_bf16 = _check_tail(tail, n, dev)
         _require(is_bf16 is None or is_bf16 == tail_bf16,
                  "ELL and tail values must have one dtype")
         is_bf16 = tail_bf16
@@ -235,32 +317,24 @@ def _launch(w, n, ell, tail, chunks):
     with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         out = torch.empty((n,), dtype=torch.float32, device=dev)
-        partials = None
+        plan = (None, None, None, 0)
         if tail_vals is not None and chunks is not None:
-            chunk_row, chunk_ptr = chunks
-            _index_vector(chunk_row, chunk_row.shape[0], dev, "chunk_row")
-            _index_vector(chunk_ptr, n + 1, dev, "chunk_ptr")
-            partials = torch.empty((chunk_row.shape[0],), dtype=torch.float32, device=dev)
-            _check(lib.sparse_gather_chunks(
-                int(is_bf16), tail_vals.data_ptr(), tail_cols.data_ptr(), row_ptr.data_ptr(),
-                chunk_row.data_ptr(), chunk_ptr.data_ptr(), w.data_ptr(),
-                chunk_row.shape[0], partials.data_ptr(), stream), "sparse_gather_chunks")
-            chunk_launches += 1
-        else:
-            chunk_ptr = None
+            partials = chunk_partials(w, tail, chunks)
+            plan = (partials.data_ptr(), chunks.rows.data_ptr(), chunks.chunk_ptr.data_ptr(),
+                    chunks.rows.shape[0])
         if n and ell_vals is None and tail_vals is not None \
                 and tail_vals.shape[0] < SHORT_ROWS * n:
             _check(lib.sparse_gather_segments(
                 int(bool(is_bf16)), tail_vals.data_ptr(), tail_cols.data_ptr(),
-                row_ptr.data_ptr(), ptr(partials), ptr(chunk_ptr), w.data_ptr(), n,
-                out.data_ptr(), stream), "sparse_gather_segments")
+                row_ptr.data_ptr(), *plan, w.data_ptr(), n, out.data_ptr(), stream),
+                "sparse_gather_segments")
             segment_launches += 1
         elif n:
             lanes, vec = ell_plan(width, ptr(ell_vals) or 0, ptr(ell_cols) or 0,
                                   2 if is_bf16 else 4)
             _check(lib.sparse_gather_rows(
                 int(bool(is_bf16)), lanes, vec, ptr(ell_vals), ptr(ell_cols), width,
-                ptr(tail_vals), ptr(tail_cols), ptr(row_ptr), ptr(partials), ptr(chunk_ptr),
-                w.data_ptr(), n, out.data_ptr(), stream), "sparse_gather_rows")
+                ptr(tail_vals), ptr(tail_cols), ptr(row_ptr), *plan, w.data_ptr(), n,
+                out.data_ptr(), stream), "sparse_gather_rows")
             launches += 1
     return out

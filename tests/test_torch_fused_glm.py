@@ -96,6 +96,43 @@ def test_reduce_partials_reference():
     assert float(v) == 3.0 and float(r) == 3.0 and g.tolist() == [6.0, 9.0]
 
 
+@pytest.mark.parametrize("blocks,d", [(1, 1), (31, 17), (32, 512), (264, 512), (265, 4099),
+                                      (132, 2048)])
+def test_reduce_order_model(blocks, d):
+    """The kernel's reduction order in plain f32 (``reduce_partials_in_order``):
+    within f32 rounding of ``sum(0)`` (2·blocks·2^-24·Σ|terms|, the limit
+    chip_smoke.py holds the card to); bitwise equal to it where every sum is
+    exact (small integers); each column's result is the f32 sum of its 32
+    strided sums, added in stride order; value and Σr as a xor butterfly
+    over 32 lane sums; a None Σr stays None."""
+    gen = torch.Generator().manual_seed(blocks * 7919 + d)
+    pg = torch.randn(blocks, d, generator=gen)
+    pv, pr = torch.randn(blocks, generator=gen), torch.randn(blocks, generator=gen)
+    v, g, r = fused_glm.reduce_partials_in_order(pv, pr, pg)
+    wv, wg, wr = fused_glm.reduce_partials_reference(pv, pr, pg)
+    share = 2.0 * blocks * 2.0 ** -24
+    assert bool(((g - wg).abs() <= share * pg.abs().sum(0) + 1e-30).all())
+    assert abs(float(v - wv)) <= share * float(pv.abs().sum()) + 1e-30
+    assert abs(float(r - wr)) <= share * float(pr.abs().sum()) + 1e-30
+    # the order itself, column 0 and value, as scalar f32 additions
+    col = [np.float32(0)] * 32
+    for b in range(blocks):
+        col[b % 32] = np.float32(col[b % 32] + np.float32(pg[b, 0]))
+    want = np.float32(0)
+    for k in range(32):
+        want = np.float32(want + col[k])
+    assert np.float32(g[0]) == want
+    lanes = np.zeros(32, np.float32)
+    for b in range(blocks):
+        lanes[b % 32] = np.float32(lanes[b % 32] + np.float32(pv[b]))
+    for off in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[np.arange(32) ^ off]).astype(np.float32)
+    assert np.float32(v) == lanes[0]
+    ints = torch.randint(-50, 50, (blocks, d), generator=gen).float()
+    assert torch.equal(fused_glm.reduce_partials_in_order(pv, None, ints)[1], ints.sum(0))
+    assert fused_glm.reduce_partials_in_order(pv, None, pg)[2] is None
+
+
 #: the widths the card tests run B1 at (tests/test_torch_fused_glm_cuda.py):
 #: one to 16 rows a tile, 1-8 column vectors a thread, odd bf16 rows
 WIDE = [1, 15, 512, 1537, 2048, 3072, 4099]

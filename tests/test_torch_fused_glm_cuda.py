@@ -140,3 +140,64 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused_glm.fused_partials(loss, x, v.double(), v, v, w)
     with pytest.raises(ValueError):
         fused_glm.fused_partials(loss, x, v, v, v, torch.zeros(5, device=cuda))
+
+
+def _graph_replay_equals_eager(fn):
+    """fn captured in a CUDA graph (after a warm-up on a side stream): two
+    replays give bitwise the eager call's tensors."""
+    eager = fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+@pytest.mark.parametrize("d", [17, 512, 2048, 4099, 8200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ordered_reduce_matches_the_order_model(cuda, dtype, d):
+    """The reduction kernel: value, gradient and Σr bitwise equal to the
+    plain f32 model of its order (``reduce_partials_in_order``, elementwise
+    f32 adds on the card) over the partials kernel's partials; an
+    evaluation (both kernels) captures into a CUDA graph and replays
+    bitwise; and two evaluations on two streams at once give the same sums
+    (no state is kept between calls). d=8200 is the two-pass form."""
+    n = 20_011
+    batch, w, _ = _case(n, d, True, dtype, cuda, seed=d)
+    loss = losses.LogisticLoss()
+    args = (loss, batch.features, batch.labels, batch.offsets, batch.weights, w)
+    before = (fused_glm.launches, fused_glm.reduce_launches)
+    parts = fused_glm.fused_partials(*args)
+    got = fused_glm.reduce_partials(*parts)
+    torch.cuda.synchronize()
+    assert (fused_glm.launches, fused_glm.reduce_launches) == (before[0] + 1, before[1] + 1)
+    assert parts[2].shape[0] > 32 or n // 16 < 64  # many blocks: every stride of the order
+    want = fused_glm.reduce_partials_in_order(*parts)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), (float((a - b).abs().max()))
+
+    def evaluate():
+        return fused_glm.reduce_partials(*fused_glm.fused_partials(*args))
+
+    got = evaluate()
+    _graph_replay_equals_eager(evaluate)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            outs.append(evaluate())
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    for out in outs:
+        assert all(torch.equal(a, b) for a, b in zip(out, got))

@@ -191,3 +191,60 @@ def test_wrapper_with_normalization_and_refusals(cuda):
     with pytest.raises(ValueError, match="logistic loss only"):
         packed_glm.packed_core(losses.SquaredLoss(), x.to(torch.bfloat16), aux, w,
                                margin_unit="mma_tf32")
+
+
+FORMS = ["packed fma Σr", "packed fma", "packed mma Σr", "columns fma o Σr", "columns fma",
+         "packed fma Σr rows=32"]
+
+
+@pytest.mark.parametrize("dtype,form", [(t, f) for t in (torch.float32, torch.bfloat16)
+                                        for f in FORMS] + [(torch.bfloat16, "columns mma_tf32")],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_ordered_reduce_matches_the_order_model(cuda, dtype, form):
+    """Every operand form's reduction: value, gradient and Σr (or None)
+    bitwise equal to the plain f32 model of its order
+    (``fused_glm.reduce_partials_in_order``) over the partials kernel's
+    partials; an evaluation (both kernels) captures into a CUDA graph and
+    replays bitwise."""
+    from photon_ml_torch.ops import fused_glm
+
+    n, d = 20_011, 256
+    loss = losses.LogisticLoss()
+    x, y, o, ws, w = _case(n, d, True, dtype, cuda, seed=3)
+    aux = packed_glm.pack_aux(y, o, ws)
+    unit = next(u for u in ("mma_tf32", "mma", "fma") if u in form)
+    with_rsum = "Σr" in form
+    rows = 32 if "rows=32" in form else 16
+    if form.startswith("packed"):
+        args = (loss, x, aux, None, None, None, w, None, with_rsum, unit, unit, rows)
+    else:
+        args = (loss, x, None, y, o if " o " in form else None, ws, w, None, with_rsum, unit,
+                unit, rows)
+    before = packed_glm.reduce_launches
+    parts = packed_glm.launch_partials(*args)
+    got = packed_glm.reduce_partials(*parts)
+    torch.cuda.synchronize()
+    assert packed_glm.reduce_launches == before + 1 and parts[2].shape[0] > 32
+    want = fused_glm.reduce_partials_in_order(*parts)
+    assert (got[2] is None) == (not with_rsum) == (want[2] is None)
+    for a, b in zip(got, want):
+        assert a is None or torch.equal(a, b)
+
+    def call():
+        return tuple(t for t in packed_glm.reduce_partials(*packed_glm.launch_partials(*args))
+                     if t is not None)
+
+    eager = call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for t in out:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))

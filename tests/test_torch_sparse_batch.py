@@ -277,13 +277,16 @@ def test_row_pointers_and_chunk_plan(monkeypatch):
     lens = np.diff(batch.row_ptr.numpy())
     assert all(lens[r] == 0 for r in EMPTY_ROWS)
     monkeypatch.setattr(sparse_gather, "SEGMENT_CHUNK", 8)
-    row_ptr, (chunk_row, chunk_ptr) = sparse_gather.segment_plan(batch.row_ids, N)
+    row_ptr, plan = sparse_gather.segment_plan(batch.row_ids, N)
     _eq(row_ptr, batch.row_ptr)
     per_row = np.where(lens > 8, -(-lens // 8), 0)  # rows of 8 entries or fewer: none
     assert per_row.sum() > 0 and (per_row == 0).sum() > len(EMPTY_ROWS)
-    _eq(chunk_ptr, np.concatenate([[0], np.cumsum(per_row)]))
-    _eq(chunk_row, np.repeat(np.arange(N), per_row))
-    assert chunk_row.dtype == chunk_ptr.dtype == row_ptr.dtype == torch.int32
+    # the plan lists the long rows alone, with where their chunks start
+    long_rows = np.flatnonzero(per_row)
+    _eq(plan.rows, long_rows)
+    _eq(plan.chunk_ptr, np.concatenate([[0], np.cumsum(per_row[long_rows])]))
+    assert plan.count == per_row.sum()
+    assert plan.rows.dtype == plan.chunk_ptr.dtype == row_ptr.dtype == torch.int32
 
 
 def test_shard_device_matvec_matches():
@@ -327,9 +330,10 @@ def test_replace_rebuilds_row_pointers(monkeypatch):
     monkeypatch.setattr(sparse_gather, "SEGMENT_CHUNK", 8)
     moved = b.replace(row_ids=torch.full_like(b.row_ids, N - 1))
     _eq(moved.row_ptr, np.r_[np.zeros(N, np.int64), b.nnz])
-    chunk_row, chunk_ptr = moved.row_chunks
-    _eq(chunk_row, np.full(-(-b.nnz // 8), N - 1))
-    _eq(chunk_ptr, np.r_[np.zeros(N, np.int64), len(chunk_row)])
+    plan = moved.row_chunks
+    _eq(plan.rows, [N - 1])
+    _eq(plan.chunk_ptr, [0, -(-b.nnz // 8)])
+    assert plan.count == -(-b.nnz // 8)
     # fewer entries: rebuilt from the new arrays, not carried over
     half = b.nnz // 2
     cut = b.replace(values=b.values[:half], col_indices=b.col_indices[:half],

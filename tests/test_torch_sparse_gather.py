@@ -165,22 +165,22 @@ def test_ell_plan(width, itemsize, vals_ptr, cols_ptr, plan):
     assert f"PHOTON_ROWS({lanes}, {vec})" in src  # the kernel is built for that plan
 
 
-def segment_runs(row_ptr, chunk_ptr=None):
+def segment_runs(row_ptr, long_rows=None):
     """The segment kernel's walk (``gather_segments_kernel`` in
     csrc/sparse_gather.cu), on the host (numpy arrays in, lists out): for
     each run of ``RUN_SEGMENTS`` consecutive rows, the stretches of rows
-    between rows with chunks (which add their partials and are not staged),
-    and for each stretch the pieces of at most ``PIECE`` entries it stages,
-    in order. Returns ``[(run, [(first_row, end_row, [(begin, end), ...]),
-    ...]), ...]``; the kernel adds each row's staged entries in that order.
-    (A run whose rows hold at most one entry each is not staged: each lane
-    adds its own entry, the same sum.)"""
+    between the long rows of the chunk plan (which take the sum of their
+    partials and are not staged), and for each stretch the pieces of at
+    most ``PIECE`` entries it stages, in order. Returns ``[(run,
+    [(first_row, end_row, [(begin, end), ...]), ...]), ...]``; the kernel
+    adds each row's staged entries in that order. (A run whose rows hold at
+    most one entry each is not staged: each lane adds its own entry, the
+    same sum.)"""
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
     n = len(row_ptr) - 1
     chunked = np.zeros(n, dtype=bool)
-    if chunk_ptr is not None:
-        chunk_ptr = np.asarray(chunk_ptr, dtype=np.int64)
-        chunked = chunk_ptr[1:] > chunk_ptr[:-1]
+    if long_rows is not None:
+        chunked[np.asarray(long_rows)] = True
     out = []
     for run in range(-(-n // sparse_gather.RUN_SEGMENTS)):
         r0, r1 = run * sparse_gather.RUN_SEGMENTS, min(n, (run + 1) * sparse_gather.RUN_SEGMENTS)
@@ -203,25 +203,103 @@ def _fmaf(a, b, c):
     return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
 
 
-def _segment_kernel_sums(vals, rows, col_ptr, chunk_ptr, r):
+def _xor_butterfly(lanes):
+    """A warp's xor-shuffle sum (offsets 16, 8, 4, 2, 1) of 32 f32 values:
+    every lane ends with the same value; returns it."""
+    v = np.asarray(lanes, dtype=np.float32)
+    for off in (16, 8, 4, 2, 1):
+        v = (v + v[np.arange(32) ^ off]).astype(np.float32)
+    assert np.all(v == v[0])
+    return v[0]
+
+
+#: threads of the chunk kernel's block (kChunkThreads in the CUDA source)
+CHUNK_THREADS = 64
+
+
+def warp_find(a, size, key):
+    """``warp_find`` of csrc/sparse_gather.cu: the last index i < size with
+    a[i] <= key (a ascending, a[0] <= key), 32 probes a step. Returns (index,
+    steps)."""
+    lo, hi, steps = 0, size, 0
+    while hi - lo > 1:
+        step = (hi - lo + 31) >> 5
+        hits = [lane for lane in range(32) if lo + lane * step < hi and a[lo + lane * step] <= key]
+        lo += hits[-1] * step
+        hi = min(hi, lo + step)
+        steps += 1
+    return lo, steps
+
+
+def chunk_walk(begin, end, vec, chunk=None):
+    """``chunk_dot`` of csrc/sparse_gather.cu for one chunk [begin, end): for
+    each thread of the block, the entries it adds, in its order (a head
+    entry before the first index that is a multiple of ``vec``, its vectors
+    t, t + CHUNK_THREADS, ... of ``vec`` entries, a tail entry past the last
+    whole vector)."""
+    chunk = sparse_gather.SEGMENT_CHUNK if chunk is None else chunk
+    per_thread = -(-chunk // (vec * CHUNK_THREADS))  # kChunkVecs (exact at the kernel's sizes)
+    walk = [[] for _ in range(CHUNK_THREADS)]
+    head = (vec - begin % vec) % vec
+    a = min(begin + head, end)
+    for t in range(min(head, end - begin)):
+        walk[t].append(begin + t)
+    nv = (end - a) // vec
+    for t in range(CHUNK_THREADS):
+        for b in range(per_thread):
+            v = t + b * CHUNK_THREADS
+            if v < nv:
+                walk[t].extend(range(a + v * vec, a + (v + 1) * vec))
+    for t in range(end - a - nv * vec):
+        walk[t].append(a + nv * vec + t)
+    return walk
+
+
+def chunk_partial(terms_of, begin, end, vec, chunk=None):
+    """The chunk kernel's f32 partial of [begin, end): each thread's fmaf
+    chain over its walk, each warp's xor butterfly, the warps in order.
+    ``terms_of(k)`` gives entry k's (value, gathered) pair."""
+    sums = []
+    for t, entries in enumerate(chunk_walk(begin, end, vec, chunk)):
+        acc = np.float32(0)
+        for k in entries:
+            acc = _fmaf(*terms_of(k), acc)
+        sums.append(acc)
+    total = np.float32(0)
+    for q in range(CHUNK_THREADS // 32):
+        total = np.float32(total + _xor_butterfly(sums[32 * q:32 * q + 32]))
+    return total
+
+
+def long_row_sum(partials):
+    """``row_partials`` of csrc/sparse_gather.cu: lane l adds partials l, l +
+    32, ... from 0, then the warp's xor butterfly."""
+    lanes = [np.float32(0)] * 32
+    for c, p in enumerate(partials):
+        lanes[c % 32] = np.float32(lanes[c % 32] + np.float32(p))
+    return _xor_butterfly(lanes)
+
+
+def _segment_kernel_sums(vals, rows, col_ptr, chunks, r, vec=4):
     """The segment kernel's sums, emulated on the host along
-    :func:`segment_runs`: each staged row (column) adds its
-    entries in entry order with fmaf from 0; a row with chunks adds one f32
-    sum per chunk of ``SEGMENT_CHUNK`` entries, in chunk order. Also
-    returns each row's visited entries, in the order visited."""
+    :func:`segment_runs`: each staged row (column) adds its entries in entry
+    order with fmaf from 0; a long row of the chunk plan adds its chunk
+    kernel partials (:func:`chunk_partial`, chunks of ``SEGMENT_CHUNK``
+    entries) as :func:`long_row_sum` does. Also returns each row's visited
+    entries, in the order visited."""
     d = len(col_ptr) - 1
     out = np.zeros(d, dtype=np.float32)
     seen = [[] for _ in range(d)]
-    chunked = np.zeros(d, bool) if chunk_ptr is None else chunk_ptr[1:] > chunk_ptr[:-1]
-    for j in np.flatnonzero(chunked):
-        acc = np.float32(0)
+    long_rows = None if chunks is None else chunks.rows.numpy()
+    terms_of = lambda k: (vals[k], r[rows[k]])  # noqa: E731
+    for j in [] if long_rows is None else long_rows:
+        parts = []
         for c0 in range(col_ptr[j], col_ptr[j + 1], sparse_gather.SEGMENT_CHUNK):
             c1 = min(c0 + sparse_gather.SEGMENT_CHUNK, col_ptr[j + 1])
-            acc = np.float32(acc + np.float32(np.dot(vals[c0:c1].astype(np.float64),
-                                                      r[rows[c0:c1]].astype(np.float64))))
-            seen[j].extend(range(c0, c1))
-        out[j] = acc
-    for _, stretches in segment_runs(col_ptr, chunk_ptr):
+            parts.append(chunk_partial(terms_of, c0, c1, vec))
+            seen[j].extend(sorted(k for w in chunk_walk(c0, c1, vec) for k in w))
+        out[j] = long_row_sum(parts)
+    for _, stretches in segment_runs(col_ptr, long_rows):
         for first, end, pieces in stretches:
             for p0, p1 in pieces:
                 for j in range(first, end):
@@ -237,9 +315,11 @@ def _segment_kernel_sums(vals, rows, col_ptr, chunk_ptr, r):
 def test_segment_kernel_walk_covers_each_entry_once_in_order(monkeypatch, layout, piece, chunk):
     """The segment kernel's walk over a batch's column-sorted plan (runs of
     32 columns, stretches between chunked columns, pieces of PIECE entries;
-    shrunk here so a small fixture has many pieces and chunked columns)
-    visits every entry of the plan once, each column's entries in their
-    order; the column-ordered f32 sums it gives equal the gather's plain
+    shrunk here so a small fixture has many pieces and chunked columns, whose
+    chunks the chunk kernel's walk covers) visits every entry of the plan
+    once, each column's entries in their order; the f32 sums it gives
+    (entry order for a staged column, the chunk kernel's and the consumer's
+    order for a chunked one) equal the gather's plain
     version and, on the same numpy fixture, the JAX package's
     ``sparse_column_sum``, within 1e-5·Σ|v·r| per column."""
     monkeypatch.setattr(sparse_gather, "PIECE", piece)
@@ -253,11 +333,10 @@ def test_segment_kernel_walk_covers_each_entry_once_in_order(monkeypatch, layout
                                                dtype=np.float32, **_policy(jsb, kw))
     t_vals, t_rows, col_ptr, chunks = (a.numpy() if isinstance(a, torch.Tensor) else a
                                        for a in tsb.transpose_plan(port))
-    chunk_ptr = None if chunks is None else chunks[1].numpy()
     if chunk < 2048 and layout != "hybrid":  # the head holds the long columns
-        assert chunk_ptr is not None and (chunk_ptr[1:] > chunk_ptr[:-1]).any()
+        assert chunks is not None and chunks.count > 0
     r = np.random.default_rng(3).uniform(0.1, 1.0, size=N).astype(np.float32)
-    got, seen = _segment_kernel_sums(t_vals, t_rows, col_ptr, chunk_ptr, r)
+    got, seen = _segment_kernel_sums(t_vals, t_rows, col_ptr, chunks, r)
     for j in range(200):
         assert seen[j] == list(range(col_ptr[j], col_ptr[j + 1])), j
     assert sum(map(len, seen)) == len(t_vals)
@@ -276,12 +355,14 @@ def test_segment_kernel_walk_covers_each_entry_once_in_order(monkeypatch, layout
 
 
 def test_segment_runs_split_at_chunked_columns():
-    """Runs of RUN_SEGMENTS columns; a chunked column ends a stretch and is
-    in none; a last run that is not full ends at d; empty stretches stage
-    nothing."""
+    """Runs of RUN_SEGMENTS columns; a long column of the chunk plan ends a
+    stretch and is in none; a last run that is not full ends at d; empty
+    stretches stage nothing."""
     col_ptr = np.r_[0, np.cumsum([3, 0, 5000, 1, 0] + [2] * 30)]
-    chunk_ptr = np.r_[0, np.cumsum([0, 0, 3, 0, 0] + [0] * 30)]
-    runs = segment_runs(col_ptr, chunk_ptr)
+    _, plan = sparse_gather.segment_plan(
+        torch.from_numpy(np.repeat(np.arange(35), np.diff(col_ptr)).astype(np.int32)), 35)
+    assert plan.rows.tolist() == [2] and plan.chunk_ptr.tolist() == [0, 3] and plan.count == 3
+    runs = segment_runs(col_ptr, plan.rows.numpy())
     assert [r for r, _ in runs] == [0, 1]
     (first, end0, p0), (second, end1, p1) = runs[0][1]
     assert (first, end0) == (0, 2) and p0 == [(0, 3)]
@@ -294,3 +375,169 @@ def test_segment_runs_split_at_chunked_columns():
     src = (REPO / "photon_ml_torch" / "csrc" / "sparse_gather.cu").read_text()
     assert f"kRunSegments = {sparse_gather.RUN_SEGMENTS};" in src
     assert f"kPiece = {sparse_gather.PIECE};" in src
+
+
+def _rows_for_plan():
+    """Row lengths around the chunk size (K - 1, K, K + 1, 3K + 5 and
+    longer), empty rows among them, and short rows of 1-3 entries before
+    each long one so that long rows start at every alignment mod 4."""
+    k = sparse_gather.SEGMENT_CHUNK
+    lengths = []
+    for shift, long_len in zip(range(8), (k - 1, k, k + 1, 3 * k + 5, k + 1, 2 * k, 5 * k + 3,
+                                          k + 2)):
+        lengths += [shift % 4, 0, long_len, 0, 7]
+    return np.asarray(lengths)
+
+
+def test_chunk_plan_lists_long_rows_only():
+    """segment_plan's chunk plan: exactly the rows of more than
+    SEGMENT_CHUNK entries, in order, each with ceil(len / SEGMENT_CHUNK)
+    chunks; nothing [n]-sized; None when no row is long; the source's sizes
+    are the wrapper's."""
+    k = sparse_gather.SEGMENT_CHUNK
+    lengths = _rows_for_plan()
+    row_ids = torch.from_numpy(np.repeat(np.arange(len(lengths)), lengths).astype(np.int32))
+    row_ptr, plan = sparse_gather.segment_plan(row_ids, len(lengths))
+    assert row_ptr.tolist() == np.r_[0, np.cumsum(lengths)].tolist()
+    want_rows = np.flatnonzero(lengths > k)
+    assert plan.rows.dtype == torch.int32 and plan.chunk_ptr.dtype == torch.int32
+    assert plan.rows.tolist() == want_rows.tolist()
+    per = -(-lengths[want_rows] // k)
+    assert plan.chunk_ptr.tolist() == np.r_[0, np.cumsum(per)].tolist() and plan.count == per.sum()
+    assert plan.nbytes() == 4 * (2 * len(want_rows) + 1)
+    assert {lengths[r] for r in want_rows} >= {k + 1, 3 * k + 5} and k not in lengths[want_rows]
+    assert {int(row_ptr[r]) % 4 for r in want_rows} == {0, 1, 2, 3}
+    short = torch.from_numpy(np.repeat(np.arange(4), [k, 0, k - 1, 3]).astype(np.int32))
+    assert sparse_gather.segment_plan(short, 4)[1] is None
+    assert sparse_gather.segment_plan(torch.zeros(0, dtype=torch.int32), 3)[1] is None
+    src = (REPO / "photon_ml_torch" / "csrc" / "sparse_gather.cu").read_text()
+    assert f"#define GATHER_CHUNK_THREADS {CHUNK_THREADS}\n" in src
+    assert k % (4 * CHUNK_THREADS) == 0  # every thread loads whole vectors
+
+
+@pytest.mark.parametrize("size", [1, 2, 31, 32, 33, 256, 1025, 40000])
+def test_warp_find_is_the_last_entry_at_most_the_key(size):
+    """The kernels' search of the plan (32 probes a step) against bisect,
+    at every key of a random ascending array: two steps up to 1024 rows."""
+    import bisect
+
+    a = np.cumsum(np.random.default_rng(size).integers(1, 5, size=size)) - 1
+    keys = np.unique(np.r_[a, a + 1, a[-1] + 10])
+    for key in keys[:: max(1, len(keys) // 500)]:
+        got, steps = warp_find(a, size, int(key))
+        assert got == bisect.bisect_right(a, key) - 1
+        assert steps <= (0 if size == 1 else 1 if size <= 32 else 2 if size <= 1024 else 4)
+
+
+@pytest.mark.parametrize("vec", [4, 1], ids=["vectors", "scalar"])
+def test_chunk_kernel_walk_covers_each_entry_once_in_order(vec):
+    """The chunk kernel's walk over the plan of rows around the chunk size,
+    starting at every alignment mod 4: chunk c finds its row with
+    warp_find; the chunks of a long row cover its entries once and in
+    order; inside a chunk each entry is one thread's, each thread's
+    entries ascend, a thread takes at most one head and one tail entry and
+    its vectors start at multiples of 4; and the f32 sums in the kernel's
+    order (chunk partials, then the consumer's lanes) are within 1e-6 of
+    the f64 row sums relative to Σ|v·w|."""
+    k = sparse_gather.SEGMENT_CHUNK
+    lengths = _rows_for_plan()
+    row_ptr, plan = sparse_gather.segment_plan(
+        torch.from_numpy(np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)),
+        len(lengths))
+    row_ptr, rows, chunk_ptr = (t.numpy().astype(np.int64) for t in (row_ptr, *plan[:2]))
+    rng = np.random.default_rng(4)
+    vals = rng.normal(size=row_ptr[-1]).astype(np.float32)
+    wv = rng.normal(size=row_ptr[-1]).astype(np.float32)  # the gathered w of each entry
+    covered = {int(r): [] for r in rows}
+    partials = []
+    for c in range(plan.count):
+        r, _ = warp_find(chunk_ptr, len(rows), c)
+        row = rows[r]
+        begin = row_ptr[row] + (c - chunk_ptr[r]) * k
+        end = min(begin + k, row_ptr[row + 1])
+        walk = chunk_walk(begin, end, vec)
+        for t, entries in enumerate(walk):
+            assert entries == sorted(entries)
+            if vec == 4:
+                a = min(begin + (4 - begin % 4) % 4, end)
+                body_end = a + (end - a) // 4 * 4
+                body = [e for e in entries if a <= e < body_end]
+                assert all(body[i:i + 4] == list(range(body[i], body[i] + 4)) and body[i] % 4 == 0
+                           for i in range(0, len(body), 4))
+                assert sum(e < a for e in entries) <= 1 and sum(e >= body_end for e in entries) <= 1
+        flat = sorted(e for entries in walk for e in entries)
+        assert flat == list(range(begin, end))
+        covered[int(row)].extend(flat)
+        partials.append(chunk_partial(lambda e: (vals[e], wv[e]), begin, end, vec))
+    for r, row in enumerate(rows):
+        assert covered[int(row)] == list(range(row_ptr[row], row_ptr[row + 1]))
+        got = long_row_sum(partials[chunk_ptr[r]:chunk_ptr[r + 1]])
+        lo, hi = row_ptr[row], row_ptr[row + 1]
+        exact = np.dot(vals[lo:hi].astype(np.float64), wv[lo:hi])
+        scale = np.abs(vals[lo:hi].astype(np.float64) * wv[lo:hi]).sum()
+        assert abs(float(got) - exact) <= 1e-6 * scale
+
+
+def test_chunk_partials_plain_version():
+    """The chunk kernel's plain version: one sum per chunk of the plan, each
+    over SEGMENT_CHUNK entries of its row from the row's start (the last
+    chunk to the row's end), in the inputs' dtype; the chunks of a row add
+    up to its sum. The launcher refuses CPU tensors (no fallback)."""
+    k = sparse_gather.SEGMENT_CHUNK
+    lengths = _rows_for_plan()
+    n = len(lengths)
+    row_ids = torch.from_numpy(np.repeat(np.arange(n), lengths).astype(np.int32))
+    row_ptr, plan = sparse_gather.segment_plan(row_ids, n)
+    rng = np.random.default_rng(5)
+    vals = torch.from_numpy(rng.normal(size=len(row_ids)))
+    cols = torch.from_numpy(rng.integers(0, 300, size=len(row_ids)).astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=300))
+    tail = (vals, cols, row_ids, row_ptr)
+    got = sparse_gather.chunk_partials_reference(w, tail, plan)
+    assert got.dtype == torch.float64 and got.shape == (plan.count,)
+    ptr, prod = row_ptr.numpy(), (vals * w[cols.long()]).numpy()
+    want = []
+    for row in plan.rows.tolist():
+        want += [prod[b:min(b + k, ptr[row + 1])].sum() for b in range(ptr[row], ptr[row + 1], k)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    rows_sum = sparse_gather.gather_sum_reference(w, n, tail=tail)[plan.rows.long()]
+    per_row = [got[a:b].sum() for a, b in zip(plan.chunk_ptr[:-1], plan.chunk_ptr[1:])]
+    np.testing.assert_allclose(per_row, rows_sum.numpy(), rtol=1e-12, atol=1e-9)
+    before = sparse_gather.chunk_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_gather.chunk_partials(w.float(), (vals.float(), cols, row_ids, row_ptr), plan)
+    assert sparse_gather.chunk_launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_chunk_csr_is_the_chunk_kernels_function(dtype):
+    """chip_smoke.py's library yardstick for the chunk kernel: a CSR matrix
+    whose rows are the plan's chunks (the long rows' entries copied
+    contiguous, bf16 values widened) times w gives every chunk's partial,
+    equal to the plain version's in f64; its entries are the long rows'
+    entries, in order, each once."""
+    import chip_smoke
+
+    lengths = _rows_for_plan()
+    n = len(lengths)
+    row_ids = torch.from_numpy(np.repeat(np.arange(n), lengths).astype(np.int32))
+    row_ptr, plan = sparse_gather.segment_plan(row_ids, n)
+    rng = np.random.default_rng(6)
+    vals = torch.from_numpy(rng.normal(size=len(row_ids)).astype(np.float32)).to(dtype)
+    cols = torch.from_numpy(rng.integers(0, 300, size=len(row_ids)).astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=300).astype(np.float32))
+    tail = (vals, cols, row_ids, row_ptr)
+    csr, entry = chip_smoke._chunk_csr(torch, tail, plan, w.shape[0])
+    ptr = row_ptr.numpy()
+    want_entry = np.concatenate([np.arange(ptr[r], ptr[r + 1]) for r in plan.rows.tolist()])
+    assert entry.tolist() == want_entry.tolist()
+    assert csr.shape == (plan.count, 300) and csr.values().dtype == torch.float32
+    wide = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(), csr.values().double(),
+                                   csr.shape)
+    got = wide @ w.double()
+    want = sparse_gather.chunk_partials_reference(w.double(), (vals.double(), *tail[1:]), plan)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+    f32 = csr @ w
+    scale = sparse_gather.chunk_partials_reference(w.double().abs(),
+                                                   (vals.double().abs(), *tail[1:]), plan)
+    assert bool(((f32.double() - want).abs() <= 1e-5 * scale + 1e-30).all())

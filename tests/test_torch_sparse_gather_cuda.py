@@ -116,7 +116,8 @@ def test_one_segment_g1_shape(cuda):
     w = torch.randn(d, device=cuda, generator=g)
     row_ids = torch.zeros(nnz, dtype=torch.int32, device=cuda)
     row_ptr, chunks = sparse_gather.segment_plan(row_ids, 1)
-    assert chunks is not None and chunks[0].numel() == nnz // sparse_gather.SEGMENT_CHUNK
+    assert chunks is not None and chunks.count == nnz // sparse_gather.SEGMENT_CHUNK
+    assert chunks.rows.tolist() == [0] and chunks.chunk_ptr.tolist() == [0, chunks.count]
     tail = (vals, idx, row_ids, row_ptr)
     before = sparse_gather.chunk_launches
     k1 = sparse_gather.gather_sum(w, 1, tail=tail, chunks=chunks)
@@ -225,8 +226,8 @@ def test_segment_kernel_columns(cuda, case, dtype):
     col_ptr, chunks = sparse_gather.segment_plan(t_cols, d)
     assert (chunks is not None) == (case == "at_and_over_a_chunk")
     if chunks is not None:  # exactly SEGMENT_CHUNK entries: no chunks
-        per_col = (chunks[1][1:] - chunks[1][:-1]).cpu().numpy()
-        assert per_col[3] == 0 and per_col[100] == 0 and per_col[4] == 2 and per_col[127] == 6
+        assert chunks.rows.tolist() == [4, 70, 127]
+        assert chunks.chunk_ptr.tolist() == [0, 2, 4, 10] and chunks.count == 10
     tail = (torch.tensor(vals, device=cuda).to(dtype), torch.tensor(rows, device=cuda),
             None, col_ptr)
     r = torch.randn(n, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
@@ -241,3 +242,95 @@ def test_segment_kernel_columns(cuda, case, dtype):
     plain = sparse_gather.gather_sum_reference(r.double(), d, tail=wide)
     _check(k1, plain, _scale(r, d, tail=wide))
     assert bool((k1[torch.from_numpy(lengths == 0).to(cuda)] == 0).all())  # empty columns
+
+
+CHUNK_CASES = ["g1", "g2", "ragged", "planted_transpose", "alignments", "unaligned"]
+
+
+def _long_rows_case(case, cuda, dtype):
+    """(w, tail, chunks, n) of one chunk-kernel case: G1 and G2's one
+    segment, the ragged rows of chip_smoke.py (rows of up to 20,000
+    entries), a planted transpose (256 columns of about 8,800 entries among
+    short ones, as the ELL batch's planted columns are), long rows starting
+    at every alignment mod 4, and the same rows read from a view one entry
+    into the arrays (no 16-byte alignment: the kernel's scalar loads)."""
+    g = torch.Generator(device=cuda).manual_seed(CHUNK_CASES.index(case))
+    rng = np.random.default_rng(CHUNK_CASES.index(case))
+    k = sparse_gather.SEGMENT_CHUNK
+    if case in ("g1", "g2"):
+        nnz, d = {"g1": (1 << 24, 1 << 22), "g2": (1 << 22, 1 << 21)}[case]
+        lengths = np.array([nnz])
+    elif case == "ragged":
+        lengths = rng.integers(0, 40, size=50_000)
+        lengths[::7] = 0
+        lengths[[3, 25_000, 49_998]] = [5000, 20000, 3000]
+        d = 100_000
+    elif case == "planted_transpose":
+        lengths = rng.integers(0, 5, size=200_000)
+        lengths[rng.choice(200_000, 256, replace=False)] = rng.integers(8000, 9600, size=256)
+        d = 1 << 19  # the transpose gathers r, one per row of the batch
+    else:
+        lengths = np.concatenate([[s % 4, 0, k + 1 + 3 * s, 5] for s in range(16)])
+        d = 10_000
+    nnz = int(lengths.sum())
+    skip = 1 if case == "unaligned" else 0
+    vals = torch.randn(nnz + skip, device=cuda, generator=g).to(dtype)[skip:]
+    cols = torch.randint(0, d, (nnz + skip,), device=cuda, generator=g, dtype=torch.int32)[skip:]
+    row_ids = torch.from_numpy(np.repeat(np.arange(len(lengths)), lengths).astype(np.int32))
+    row_ptr, chunks = sparse_gather.segment_plan(row_ids.to(cuda), len(lengths))
+    assert chunks is not None
+    return torch.randn(d, device=cuda, generator=g), (vals, cols, None, row_ptr), chunks, \
+        len(lengths)
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_chunk_kernel_matches_plain_version(cuda, case, dtype):
+    """The chunk kernel alone against its plain version in f64: every
+    chunk's partial within 1e-5·Σ|v·w| of its chunk, twice bitwise equal,
+    one launch a call; then the whole gather-sum over those rows (chunk
+    kernel, then the row or segment kernel adding the partials) within
+    1e-7·Σ|v·w| per row for G1 and G2's one segment and 1e-5 for the
+    rest."""
+    w, tail, chunks, n = _long_rows_case(case, cuda, dtype)
+    before = sparse_gather.chunk_launches
+    p1 = sparse_gather.chunk_partials(w, tail, chunks)
+    p2 = sparse_gather.chunk_partials(w, tail, chunks)
+    wide = (tail[0].double(), *tail[1:])
+    plain = sparse_gather.chunk_partials_reference(w.double(), wide, chunks)
+    scale = sparse_gather.chunk_partials_reference(w.double().abs(), (wide[0].abs(), *tail[1:]),
+                                                   chunks)
+    torch.cuda.synchronize()
+    assert sparse_gather.chunk_launches == before + 2
+    assert p1.dtype == torch.float32 and p1.shape == (chunks.count,) and torch.equal(p1, p2)
+    assert bool(((p1.double() - plain).abs() <= 1e-5 * scale + 1e-30).all())
+    k1 = sparse_gather.gather_sum(w, n, tail=tail, chunks=chunks)
+    k2 = sparse_gather.gather_sum(w, n, tail=tail, chunks=chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+    rel = 1e-7 if case in ("g1", "g2") else 1e-5
+    want = sparse_gather.gather_sum_reference(w.double(), n, tail=wide)
+    assert bool(((k1.double() - want).abs() <= rel * _scale(w, n, tail=tail) + 1e-30).all())
+
+
+@pytest.mark.parametrize("case", ["planted_transpose", "ragged", "g2"])
+def test_chunked_gather_captures_into_a_graph(cuda, case):
+    """The chunk kernel and its consumer (the segment kernel for the
+    transpose's short columns, the row kernel for the rest) captured in a
+    CUDA graph: each replay equals the eager call bitwise."""
+    w, tail, chunks, n = _long_rows_case(case, cuda, torch.float32)
+    eager = sparse_gather.gather_sum(w, n, tail=tail, chunks=chunks)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        sparse_gather.gather_sum(w, n, tail=tail, chunks=chunks)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sparse_gather.gather_sum(w, n, tail=tail, chunks=chunks)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
