@@ -96,6 +96,30 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    each held against its plain version and timed, with ``STEPS`` gradient
    steps per variant as their launches; the kernels line gains one P1, P2
    and P3 entry.
+7b. The projected GAME slice (``PROJECTED``): bench.py's flagship GAME shape
+   with the per-user effect on a wider shard, ``per_user_wide`` (d=512,
+   column 0 an intercept, each user owning 8-32 of columns 1-511, N(0,1)
+   values there), the per-item effect IDENTITY on ``per_entity`` d=16,
+   logistic labels from a planted fixed effect, per-user and per-item
+   models, 4 sweeps through ``GameEstimator.fit`` with the fixed effect on
+   the packed kernel: (a) INDEX_MAP with Newton lanes against IDENTITY over
+   the 512 columns (one per-user update of each from the same model and
+   residuals: training losses within rel 1e-5; the 4-sweep fits' final
+   losses within rel 1e-4; on-support coefficients within 1e-3 max|w|,
+   off-support ones exactly 0); (b) INDEX_MAP with
+   STANDARDIZATION and full variances (finite and positive on each support,
+   NaN off it); (c) RANDOM, projected_dim 64, scaled, L-BFGS lanes, full and
+   diagonal variances (finite and positive); (d) INDEX_MAP with
+   features_to_samples_ratio 0.25, the kernel's products on the tensor
+   cores; (e) on ``per_entity``: Newton, TRON (through the separate-column
+   form; final loss within rel 1e-3 of Newton's) and elastic-net OWL-QN
+   lanes (L1 0.1). Every fit: training loss non-increasing, held-out AUC
+   above the fixed effect's alone, the packed kernel launched on every
+   fixed-effect evaluation. Printed: each bucket's bytes, seconds per sweep
+   by coordinate, lane iteration histograms, one update's wall and device
+   ms, kernels and host reads per lane kind; the packed kernel (P6, P7, P5)
+   and its reduce held against their plain versions on this path's own
+   fixed-effect inputs (the kernels line's ``projected_path``).
 8. The drivers on the card, in a temporary directory (``DRIVERS`` gives the
    row counts; rows are cut, never widths): TrainingExample Avro written with
    the port's writer from ``--seed`` (GAME training and validation sets at
@@ -109,7 +133,10 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    evaluation, the best model's AUC above its fixed effect's alone); the
    GAME scoring driver on the saved best model (the scores read back from
    its Avro equal the loaded model's in-process scores bitwise, its AUC
-   within 1e-4 of the training driver's); then B1 on the GLM driver's batch
+   within 1e-4 of the training driver's); the GAME training driver again
+   with the per-user effect at ``projector=INDEX_MAP`` and ``reg.alpha`` 0.5
+   (elastic-net lanes) and the scoring driver on its model (the same
+   checks); then B1 on the GLM driver's batch
    and the packed kernel on the GAME driver's fixed-effect inputs, both read
    back from the Avro, at the trained coefficients: each held against its
    plain version (twice bitwise equal; phase 3's f32 limits) with its
@@ -1537,6 +1564,336 @@ def _game_slice(torch, np, seed: int, dev, card: str) -> list:
     return entries
 
 
+#: the projected GAME slice: bench.py's flagship GAME shape with the per-user
+#: effect on a wider shard, ``per_user_wide`` (d=512, column 0 an intercept,
+#: each user owning 8-32 of columns 1-511)
+PROJECTED = dict(n=1 << 17, d_fe=256, d_wide=512, d_re=16, users=2000, items=1500,
+                 held_out=1 << 15, sweeps=4, owned=(8, 32), projected_dim=64, ratio=0.25,
+                 l1=0.1)
+
+
+def _projected_arrays(np, seed: int, n: int, d_fe: int, d_wide: int, d_re: int, users: int,
+                      items: int, held_out: int, owned, **_):
+    """:func:`_game_arrays`' layout plus ``per_user_wide``: each user owns
+    ``owned`` columns of 1..d_wide-1 (drawn from ``seed``), its rows hold
+    N(0, 1) values there, zeros elsewhere, 1 in column 0. Logistic labels
+    from a planted fixed effect, a per-user model over each user's columns
+    and a per-item effect on ``per_entity``; ``held_out`` more rows, a
+    quarter of them of unseen users."""
+    rng = np.random.default_rng(seed)
+    total = n + held_out
+    user_idx = rng.integers(0, users, size=total)
+    item_idx = rng.integers(0, items, size=total)
+    support = np.zeros((users, d_wide), dtype=bool)
+    support[:, 0] = True
+    for u in range(users):
+        cols = rng.choice(d_wide - 1, size=int(rng.integers(owned[0], owned[1] + 1)),
+                          replace=False)
+        support[u, 1 + cols] = True
+    x_wide = rng.standard_normal((total, d_wide), dtype=np.float32)
+    x_wide *= support[user_idx]
+    x_wide[:, 0] = 1.0
+    x_fe = rng.standard_normal((total, d_fe), dtype=np.float32)
+    x_re = rng.standard_normal((total, d_re), dtype=np.float32)
+    w_fe = rng.normal(size=d_fe).astype(np.float32) / np.sqrt(d_fe)
+    w_user = (0.5 * rng.normal(size=(users, d_wide)) * support).astype(np.float32)
+    w_item = (0.5 * rng.normal(size=(items, d_re))).astype(np.float32)
+    z = x_fe @ w_fe + np.einsum("nd,nd->n", x_wide, w_user[user_idx]) \
+        + np.einsum("nd,nd->n", x_re, w_item[item_idx])
+    y = (rng.uniform(size=total) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    keys = user_idx.copy()
+    if held_out:
+        keys[n + 3 * held_out // 4:] += users
+    keys = {"user": np.char.add("u", keys.astype(str)),
+            "item": np.char.add("i", item_idx.astype(str))}
+
+    def part(lo, hi):
+        return dict(shards={"global": x_fe[lo:hi], "per_user_wide": x_wide[lo:hi],
+                            "per_entity": x_re[lo:hi]}, labels=y[lo:hi],
+                    keys={t: k[lo:hi] for t, k in keys.items()})
+
+    return part(0, n), part(n, total), support
+
+
+def _projected_estimator(lanes: str, user_shard: str, sweeps: int, *, l1: float = 0.0,
+                         max_iterations: int = 10, compute_variance: bool = False,
+                         variance_mode: str = "auto", normalization: str = "NONE",
+                         random_effects: bool = True, kernel_unit: str = "fma",
+                         kernel_aux: str = "packed", **user):
+    """bench.py's GAME configuration (``_game_estimator``) with the per-user
+    effect on ``user_shard`` under ``user`` options (projector, width,
+    Pearson ratio) and an L1 weight ``l1`` on both random effects."""
+    from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+    from photon_ml_torch.estimators import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_ml_torch.ops.normalization import NormalizationType
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.types import TaskType
+
+    def opt(kind, **kw):
+        return CoordinateOptimizationConfig(
+            optimizer=OptimizerConfig(OptimizerType[kind], max_iterations=max_iterations
+                                      if kind == lanes else 10), l2_weight=1.0, **kw)
+
+    re_opt = dict(l1_weight=l1, compute_variance=compute_variance, variance_mode=variance_mode)
+    configs = {"fixed": FixedEffectCoordinateConfig("global", opt("LBFGS"))}
+    if random_effects:
+        configs["per_user"] = RandomEffectCoordinateConfig(
+            "user", user_shard, opt(lanes, **re_opt), bucket_sizes=(GAME["cap"],), **user)
+        configs["per_item"] = RandomEffectCoordinateConfig(
+            "item", "per_entity", opt(lanes, l1_weight=l1), bucket_sizes=(GAME["cap"],))
+    return GameEstimator(task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=configs,
+                         num_iterations=sweeps, normalization=NormalizationType[normalization],
+                         intercept_indices={"per_user_wide": 0}, kernel_unit=kernel_unit,
+                         kernel_aux=kernel_aux)
+
+
+def _bucket_bytes(torch, estimator, dataset) -> dict:
+    """Bytes of the per-user coordinate's bucket tensors as this estimator
+    builds them, with the bucket shapes and the build's seconds."""
+    t0 = time.perf_counter()
+    _, coordinates = estimator._build_coordinates(dataset, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    re = coordinates["per_user"].re_dataset
+    fields = ("features", "labels", "weights", "entity_rows", "sample_rows", "col_index")
+    total = sum(getattr(b, f).numel() * getattr(b, f).element_size() for b in re.buckets
+                for f in fields if getattr(b, f) is not None)
+    return {"projector": re.projector_type.value, "bytes": total,
+            "shapes": [list(b.features.shape) for b in re.buckets], "build_seconds": seconds}
+
+
+def _per_user_update(torch, estimator, dataset, model):
+    """One update of ``estimator``'s per-user coordinate from ``model``'s
+    per-user table with the residuals of ``model``'s other coordinates:
+    (the training loss of the model it gives, the new table)."""
+    from photon_ml_torch.evaluation.evaluators import EvaluationData, default_evaluator_for_task
+
+    _, coordinates = estimator._build_coordinates(dataset, None)
+    coord = coordinates["per_user"]
+    others = model.get("fixed").score_dataset(dataset) + model.get("per_item").score_dataset(
+        dataset)
+    new, _ = coord.update_model(model.get("per_user"), others)
+    total = (others + coord.score(new)).cpu().numpy() + dataset.host_array("offsets")
+    data = EvaluationData(labels=dataset.host_array("labels"),
+                          offsets=dataset.host_array("offsets"),
+                          weights=dataset.host_array("weights"), ids=dataset.ids)
+    return default_evaluator_for_task(estimator.task).evaluate(total, data), new.coefficients
+
+
+def _projected_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """The projected GAME slice at the flagship shape: INDEX_MAP, RANDOM,
+    Pearson selection, normalization and variances on the per-user effect,
+    and OWL-QN and TRON lanes, each through ``GameEstimator.fit`` with the
+    fixed effect on the packed kernel. Returns, for each kernel this path
+    runs, its launches here and its check on the path's own fixed-effect
+    inputs."""
+    from dev import torch_kernel_probe
+    from photon_ml_torch.data.game_data import build_game_dataset
+    from photon_ml_torch.evaluation import local_metrics
+    from photon_ml_torch.ops import packed_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.optim import common
+
+    shape = PROJECTED
+    sweeps = shape["sweeps"]
+    t0 = time.perf_counter()
+    train, held, support = _projected_arrays(np, seed + 5, **shape)
+    t_arrays = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = build_game_dataset(labels=train["labels"], feature_shards=train["shards"],
+                            entity_keys=train["keys"], device=dev)
+    held_ds = build_game_dataset(labels=held["labels"], feature_shards=held["shards"],
+                                 entity_keys=held["keys"], entity_vocabs=ds.entity_vocabs,
+                                 device=dev)
+    torch.cuda.synchronize()
+    owned = support.sum(axis=1) - 1
+    _log(f"projected GAME data n={shape['n']} (+{shape['held_out']} held out) global "
+         f"d={shape['d_fe']} per_user_wide d={shape['d_wide']} (each user owns {owned.min()}-"
+         f"{owned.max()} columns, mean {owned.mean():.1f}, plus the intercept) per_entity "
+         f"d={shape['d_re']} users={shape['users']} items={shape['items']}: numpy "
+         f"{t_arrays:.2f} s, build_game_dataset x2 {time.perf_counter() - t0:.2f} s")
+    del train, held
+
+    # bucket bytes of the per-user coordinate under each projector
+    buckets = {name: _bucket_bytes(torch, _projected_estimator("NEWTON", "per_user_wide", 1,
+                                                               **kw), ds)
+               for name, kw in (("IDENTITY", {}), ("INDEX_MAP", {"projector_type": "INDEX_MAP"}),
+                                ("RANDOM", {"projector_type": "RANDOM",
+                                            "projected_dim": shape["projected_dim"]}))}
+    _log(f"per-user bucket bytes [{shape['users']} users, {GAME['cap']} slots] ({card}): "
+         + json.dumps(buckets))
+    torch.cuda.empty_cache()
+
+    wide, im = "per_user_wide", {"projector_type": "INDEX_MAP"}
+    rnd = {"projector_type": "RANDOM", "projected_dim": shape["projected_dim"]}
+    # warm up outside the times (cuSOLVER and cuBLAS handles, the kernels)
+    _projected_estimator("NEWTON", wide, 1, **im).fit(ds)
+    _projected_estimator("TRON", "per_entity", 1).fit(ds)
+    plan = {
+        "a. index-map newton": ("NEWTON", wide, im),
+        "a. identity d=512 newton": ("NEWTON", wide, {}),
+        "b. index-map standardized, full variances": (
+            "NEWTON", wide, dict(im, normalization="STANDARDIZATION", compute_variance=True,
+                                 variance_mode="full")),
+        "c. random k=64 scaled lbfgs, full variances": (
+            "LBFGS", wide, dict(rnd, normalization="SCALE_WITH_STANDARD_DEVIATION",
+                                compute_variance=True, variance_mode="full")),
+        "c. random k=64 scaled lbfgs, diagonal variances": (
+            "LBFGS", wide, dict(rnd, normalization="SCALE_WITH_STANDARD_DEVIATION",
+                                compute_variance=True, variance_mode="diagonal")),
+        "d. index-map pearson 0.25, mma": (
+            "NEWTON", wide, dict(im, features_to_samples_ratio=shape["ratio"],
+                                 kernel_unit="mma")),
+        "e. per_entity newton": ("NEWTON", "per_entity", {}),
+        "e. per_entity tron, columns": ("TRON", "per_entity", {"kernel_aux": "columns"}),
+        "e. per_entity elastic-net owlqn": ("OWLQN", "per_entity", {"l1": shape["l1"]}),
+    }
+    fits = {}
+    for label, (lanes, shard, kw) in plan.items():
+        fits[label] = _game_fit(torch, label, _projected_estimator(lanes, shard, sweeps, **kw),
+                                ds, sweeps)
+        torch.cuda.empty_cache()
+    fe_only = _game_fit(torch, "projected: fixed effect only", _projected_estimator(
+        "NEWTON", wide, 1, random_effects=False), ds, 1)
+
+    def final(label):
+        return fits[label]["loss_per_sweep"][-1]
+
+    def user_table(label):
+        return fits[label]["result"].model.get("per_user")
+
+    # a. INDEX_MAP against IDENTITY over the same 512 columns: the whole
+    # fits, and one per-user update of each from the same model and residuals
+    gap = _rel_gap(final("a. index-map newton"), final("a. identity d=512 newton"))
+    t_im = user_table("a. index-map newton").coefficients.double().cpu().numpy()
+    t_id = user_table("a. identity d=512 newton").coefficients.double().cpu().numpy()
+    rows = np.array([int(k[1:]) for k in user_table("a. identity d=512 newton").entity_keys])
+    on = support[rows]
+    coef_gap = float(np.abs(t_im - t_id)[on].max())
+    scale = float(np.abs(t_id).max())
+    off_zero = bool((t_id[~on] == 0.0).all() and (t_im[~on] == 0.0).all())
+    start = fits["a. identity d=512 newton"]["result"].model
+    one = {name: _per_user_update(torch, _projected_estimator("NEWTON", wide, 1, **kw), ds, start)
+           for name, kw in (("INDEX_MAP", im), ("IDENTITY", {}))}
+    one_gap = _rel_gap(one["INDEX_MAP"][0], one["IDENTITY"][0])
+    one_w = {k: v[1].double().cpu().numpy() for k, v in one.items()}
+    one_coef_gap = float(np.abs(one_w["INDEX_MAP"] - one_w["IDENTITY"])[on].max())
+    one_off_zero = bool((one_w["IDENTITY"][~on] == 0.0).all()
+                        and (one_w["INDEX_MAP"][~on] == 0.0).all())
+    _log(f"a. INDEX_MAP vs IDENTITY d={shape['d_wide']} ({card}): one per-user update from the "
+         f"same model and residuals: training loss rel gap {one_gap:.3g} (limit 1e-5), "
+         f"on-support coefficients max |dw| {one_coef_gap:.3g}; the {sweeps}-sweep fits: final "
+         f"training loss rel gap {gap:.3g} (limit 1e-4: the fixed effect's L-BFGS stops at its "
+         f"function tolerance, 1e-7, one iteration apart on f32-different residuals; "
+         f"iterations {fits['a. index-map newton']['fe_iterations_per_solve']} and "
+         f"{fits['a. identity d=512 newton']['fe_iterations_per_solve']}), on-support "
+         f"coefficients max |dw| {coef_gap:.3g} (limit 1e-3 · max|w| = {1e-3 * scale:.3g}), "
+         f"off-support coefficients exactly 0: {off_zero and one_off_zero}")
+    assert one_gap <= 1e-5 and one_coef_gap <= 1e-3 * scale and one_off_zero
+    assert gap <= 1e-4 and coef_gap <= 1e-3 * scale and off_zero
+
+    # b. variances finite and positive on each support, NaN off it
+    var_b = user_table("b. index-map standardized, full variances").variances
+    var_b = var_b.double().cpu().numpy()
+    assert np.isfinite(var_b[on]).all() and (var_b[on] > 0).all() and np.isnan(var_b[~on]).all()
+    # c. RANDOM variances finite and positive, full and diagonal
+    var_c = {mode: user_table(f"c. random k=64 scaled lbfgs, {mode} variances").variances
+             .double().cpu().numpy() for mode in ("full", "diagonal")}
+    for mode, v in var_c.items():
+        assert np.isfinite(v).all() and (v > 0).all(), mode
+    _log(f"b./c. variances ({card}): INDEX_MAP full on support {var_b[on].min():.4g}-"
+         f"{var_b[on].max():.4g}, NaN off it; RANDOM full {var_c['full'].min():.4g}-"
+         f"{var_c['full'].max():.4g}, diagonal {var_c['diagonal'].min():.4g}-"
+         f"{var_c['diagonal'].max():.4g}")
+    # e. TRON against Newton lanes
+    gap_e = _rel_gap(final("e. per_entity tron, columns"), final("e. per_entity newton"))
+    _log(f"e. TRON vs Newton lanes final training loss rel gap {gap_e:.3g} (limit 1e-3)")
+    assert gap_e <= 1e-3
+
+    held_y = held_ds.host_array("labels")
+    aucs = {label: local_metrics.area_under_roc_curve(
+        f["result"].model.score(held_ds), held_y) for label, f in fits.items()}
+    fe_auc = local_metrics.area_under_roc_curve(fe_only["result"].model.score(held_ds), held_y)
+    _log(f"projected GAME held-out AUC on {shape['held_out']} rows ({card}): "
+         + json.dumps(aucs) + f"; fixed effect alone {fe_auc:.6f}")
+    assert all(a > fe_auc > 0.5 for a in aucs.values()), (aucs, fe_auc)
+    for label, f in fits.items():
+        _log(f"projected fit {label} ({card}): seconds per sweep {f['seconds_per_sweep']:.4f}, "
+             f"by coordinate {json.dumps(f['per_sweep'])}, rescoring "
+             f"{f['rescoring_per_sweep']:.4f}, host rest {f['host_rest_per_sweep']:.4f}; lane "
+             f"iterations {json.dumps(f['lane_iteration_histogram'])}")
+
+    # the lanes' wall and device time per update, with kernels and host reads
+    for label, (lanes, shard, kw) in plan.items():
+        if "identity" in label or "diagonal" in label:
+            continue
+        reads = common.lane_host_reads
+        est = _projected_estimator(lanes, shard, 1, **{k: v for k, v in kw.items()
+                                                       if k not in ("kernel_unit",
+                                                                    "kernel_aux")})
+        share = _lane_loop_share(torch, est, ds)
+        # _lane_loop_share runs three updates: the host reads of one
+        share["host_reads"] = (common.lane_host_reads - reads) // 3
+        _log(f"lane loop, one per-user update, {label} ({card}): {json.dumps(share)}")
+
+    # the kernels on this path's own fixed-effect inputs (fit a's model)
+    model = fits["a. index-map newton"]["result"].model
+    x = ds.feature_shards["global"]
+    w = model.get("fixed").glm.coefficients.means.float().contiguous()
+    o = (ds.offsets + model.score(ds) - x @ w).contiguous()
+    aux = packed_glm.pack_aux(ds.labels, o, ds.weights)
+    loss = LogisticLoss()
+    n = x.shape[0]
+    r = torch.rand(n, device=dev)
+    library = lambda: (torch.matmul(x, w), torch.matmul(r, x))  # noqa: E731
+    nbytes = n * x.shape[1] * 4 + 12 * n + 8 * x.shape[1] + 8
+    limits = torch_kernel_probe.limits("float32")
+    tf32 = torch_kernel_probe.tf32_slack(loss, x, ds.labels, o, ds.weights, w, None, "mma",
+                                         "mma")
+    launches = {k: sum(f["launches"][k] for f in fits.values())
+                for k in ("packed_launches", "mma_launches", "columns_launches",
+                          "reduce_launches")}
+    path = {
+        "packed_glm": dict(_path_check(
+            torch, "packed_glm on the projected slice's fixed effect",
+            lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False),
+            lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False),
+            library, limits, nbytes, x.shape),
+            launches=launches["packed_launches"] - launches["mma_launches"]),
+        "packed_glm[mma]": dict(_path_check(
+            torch, "packed_glm[mma] on the projected slice's fixed effect",
+            lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False, margin_unit="mma",
+                                           grad_unit="mma"),
+            lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False,
+                                                     margin_unit="mma", grad_unit="mma"),
+            library, limits, nbytes, x.shape, tf32), launches=launches["mma_launches"]),
+        "packed_glm[columns]": dict(_path_check(
+            torch, "packed_glm[columns] on the projected slice's fixed effect",
+            lambda: packed_glm.columns_core(loss, x, ds.labels, ds.weights, o, w,
+                                            with_rsum=False),
+            lambda: packed_glm.columns_core_reference(loss, x, ds.labels, ds.weights, o, w,
+                                                      with_rsum=False),
+            library, limits, nbytes, x.shape), launches=launches["columns_launches"]),
+    }
+    fe_args = (loss, x, aux, None, None, None, w, None, False, "fma", "fma")
+    path["packed_glm_reduce"] = dict(
+        _reduce_entry(torch, "packed_glm_reduce on the projected slice's fixed effect",
+                      lambda: packed_glm.launch_partials(*fe_args), packed_glm.reduce_partials,
+                      packed_glm.reduce_partials_reference),
+        launches=launches["reduce_launches"])
+    assert all(v["launches"] > 0 for v in path.values()), {k: v["launches"]
+                                                           for k, v in path.items()}
+    _log(f"kernels on the projected slice's fixed effect {list(x.shape)} ({card}): "
+         + json.dumps(path))
+    del fits, fe_only, ds, held_ds, x, aux, model, fe_args
+    torch.cuda.empty_cache()
+    return path
+
+
 #: phase 8's rows: the flagship GAME widths (bench.py:542-560) with the rows
 #: cut to 8,192 training and 2,048 validation rows, users and items cut to
 #: keep about the flagship's 66 and 87 rows per entity; the dense GLM width
@@ -1907,6 +2264,58 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
              f"driver's validation AUC {game['best_metric']:.6f}, gap {gap:.3g}); stages "
              + json.dumps({k: round(v["total"], 4) for k, v in score_times.items()}))
 
+        # e. the GAME training driver again, the per-user effect projected
+        # (INDEX_MAP) with elastic-net (OWL-QN) lanes, and the scoring driver
+        # on its saved model: the same checks as the run above
+        for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
+            setattr(packed_glm, name, 0)
+        t0 = time.perf_counter()
+        proj = game_training_driver.main([
+            "--input-data-path", str(tmp / "game/train"),
+            "--validation-data-path", str(tmp / "game/validation"),
+            "--root-output-dir", str(tmp / "game/out-projected"), "--task-type",
+            "LOGISTIC_REGRESSION", *shards,
+            "--coordinate-configurations",
+            "name=fixed,feature.shard=global,reg.weights=1|10,max.iter=10",
+            "--coordinate-configurations",
+            "name=per_user,feature.shard=per_entity,reg.weights=1,max.iter=10,"
+            "projector=INDEX_MAP,reg.alpha=0.5,random.effect.type=userId",
+            "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+            "--coordinate-descent-iterations", "2", "--evaluators", "AUC"], device=dev)
+        torch.cuda.synchronize()
+        proj_s = time.perf_counter() - t0
+        proj_launches = {"packed_glm": packed_glm.packed_launches,
+                         "packed_glm_reduce": packed_glm.reduce_launches}
+        assert proj_launches["packed_glm"] > 0 \
+            and proj_launches["packed_glm_reduce"] == proj_launches["packed_glm"], proj_launches
+        proj_fe = proj["metric_history"][0]["metrics"][0]
+        assert proj_fe["coordinate"] == "fixed" and proj["best_metric"] > \
+            proj_fe["validate:AUC"] > 0.5, (proj["best_metric"], proj_fe)
+        game_scoring_driver.main([
+            "--input-data-path", str(tmp / "game/validation"),
+            "--model-input-dir", str(tmp / "game/out-projected/best"),
+            "--output-dir", str(tmp / "game/scored-projected"), "--evaluators", "AUC",
+            *shards], device=dev)
+        proj_scores = np.asarray([r["predictionScore"]
+                                  for r in read_scores(tmp / "game/scored-projected/scores")])
+        proj_maps = IndexMap.load_directory(tmp / "game/out-projected/index-maps")
+        proj_model = load_game_model(tmp / "game/out-projected/best", proj_maps, device=dev)
+        proj_ds = read_merged(tmp / "game/validation", shard_cfg, index_maps=proj_maps,
+                              random_effect_id_columns=("itemId", "userId"),
+                              entity_vocabs={m.random_effect_type: m.entity_keys
+                                             for m in proj_model.models.values()
+                                             if hasattr(m, "entity_keys")},
+                              device=dev).dataset
+        proj_in_process = (proj_model.score(proj_ds) + proj_ds.offsets).cpu().numpy()
+        assert np.array_equal(proj_scores, proj_in_process.astype(np.float64)), \
+            float(np.abs(proj_scores - proj_in_process).max())
+        _log(f"GAME training driver, per-user INDEX_MAP with elastic-net lanes ({card}): "
+             f"{proj_s:.2f} s, {proj_launches['packed_glm']} packed kernels, validation AUC "
+             f"{proj['best_metric']:.6f} (λ {proj['best_reg_weights']}) against the fixed "
+             f"effect alone {proj_fe['validate:AUC']:.6f}; its {nv} Avro scores bitwise equal "
+             f"to the loaded model's in-process scores")
+        del proj_model, proj_ds
+
         # the packed kernel on the GAME driver's fixed-effect inputs, read
         # back from its training Avro, at the best model's coefficients with
         # the random effects' scores as residual offsets (the last sweep's)
@@ -1926,13 +2335,15 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
             torch_kernel_probe.limits("float32"),
             x.shape[0] * x.shape[1] * 4 + 12 * n + 8 * x.shape[1] + 8, x.shape)
         path["packed_glm"] = dict(check, launches=packed_launches["packed_glm"],
-                                  evaluations=evaluations["packed"])
+                                  evaluations=evaluations["packed"],
+                                  projected_run_launches=proj_launches["packed_glm"])
         fe_args = (loss, x, aux, None, None, None, w, None, False, "fma", "fma")
         path["packed_glm_reduce"] = dict(
             _reduce_entry(torch, "packed_glm_reduce on the GAME driver's fixed effect",
                           lambda: packed_glm.launch_partials(*fe_args),
                           packed_glm.reduce_partials, packed_glm.reduce_partials_reference),
-            launches=packed_launches["packed_glm_reduce"], evaluations=evaluations["packed"])
+            launches=packed_launches["packed_glm_reduce"], evaluations=evaluations["packed"],
+            projected_run_launches=proj_launches["packed_glm_reduce"])
         _log(f"packed_glm on the GAME driver's fixed effect {list(x.shape)} ({card}): "
              + json.dumps(path["packed_glm"]))
         del ds, x, aux, r, fe_args
@@ -2127,16 +2538,23 @@ def main(argv=None) -> int:
     line["kernels"].extend(_game_slice(torch, np, args.seed, dev, card))
     _log(f"GAME phases: {time.perf_counter() - t0:.2f} s")
 
+    # 7b. the projected GAME slice, its launches and kernel checks as its own path
+    t0 = time.perf_counter()
+    projected_path = _projected_slice(torch, np, args.seed, dev, card)
+    _log(f"projected GAME phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in projected_path.items()}))
+
     # 8. the drivers: each kernel of that path with its launches there, and
     # its check and times on that path's own inputs
     t0 = time.perf_counter()
     driver_path = _driver_slice(torch, np, args.seed, dev, card)
     _log(f"driver phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in driver_path.items()}))
-    for entry in line["kernels"]:
-        if entry["name"] in driver_path:
-            entry["driver_path"] = driver_path[entry["name"]]
-    assert all(any(e["name"] == k for e in line["kernels"]) for k in driver_path)
+    for key, path in (("projected_path", projected_path), ("driver_path", driver_path)):
+        for entry in line["kernels"]:
+            if entry["name"] in path:
+                entry[key] = path[entry["name"]]
+        assert all(any(e["name"] == k for e in line["kernels"]) for k in path), key
     _log(card)
     _log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ sparse batches with the L-BFGS / LBFGSB / OWL-QN / TRON / Newton solvers,
 normalization, variances, the four pointwise losses and GLM scoring; in-core
 GAME training on one device (``estimators.GameEstimator``: a fixed effect
 plus per-entity random effects by block coordinate descent, lane-batched
-L-BFGS and Newton solves); and the hand-written kernels under ``csrc/``
+L-BFGS, Newton, OWL-QN and TRON solves, IDENTITY, INDEX_MAP and RANDOM
+projections, ``projector/projectors.py``); and the hand-written kernels under ``csrc/``
 (``ops/fused_glm.py``, ``ops/packed_glm.py``, ``ops/sparse_gather.py``).
 
 Entry points run on the CUDA device unless the caller passes

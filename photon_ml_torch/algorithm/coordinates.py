@@ -16,9 +16,15 @@ the locked-model coordinates and algorithm/CoordinateFactory.scala:50-111.
   table rows; results scatter back into the [E, d] table.
 - Residual offsets arrive as ``extra_offsets`` (the partial-score mechanism
   of coordinate descent, reference Coordinate.scala:60-63).
+- Projected random effects (``projector/projectors.py``): an INDEX_MAP
+  bucket gathers each entity's warm start through its column index from an
+  ``[E, d+1]`` table (the last column a scratch slot for pad slots) and
+  scatters the solve back; a RANDOM bucket warm-starts from ``table[rows] @ P``
+  and back-projects with ``solved @ Pᵀ``. Pre-normalized blocks solve on a
+  plain objective.
 
-In this slice a random effect is an IDENTITY projection on a dense shard,
-solved by L-BFGS or Newton lanes.
+A random effect lives on a dense shard; its lanes are L-BFGS, Newton,
+OWL-QN (with an L1 weight) or TRON.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ from photon_ml_torch.ops.normalization import NormalizationContext, no_normaliza
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.sparse_objective import SparseGLMObjective
 from photon_ml_torch.ops.variance import (
+    FULL_VARIANCE_MAX_DIM,
     coefficient_variances,
     diag_inverse_from_hessian,
+    full_inverse_from_hessian,
     inverse_of_diagonal,
     resolve_variance_mode,
     resolve_variance_mode_for,
@@ -50,12 +58,15 @@ from photon_ml_torch.ops.variance import (
 from photon_ml_torch.optim.common import LaneTrace, LaneTraces, lane_trace_of
 from photon_ml_torch.optim.lanes import minimize_lbfgs_lanes
 from photon_ml_torch.optim.newton import minimize_newton
+from photon_ml_torch.optim.owlqn import minimize_owlqn_lanes
+from photon_ml_torch.optim.tron import minimize_tron_lanes
 from photon_ml_torch.optim.optimizer import (
     OptimizerConfig,
     OptimizerType,
     resolve_auto_optimizer,
     solve,
 )
+from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.sampling.down_sampler import down_sampler_for_task
 from photon_ml_torch.types import TaskType
 
@@ -204,28 +215,44 @@ def _lane_objective(objective: GLMObjective, features, labels, weights, offsets)
 
 def _solve_bucket_entities(objective: GLMObjective, opt: OptimizerConfig, features, labels,
                            weights, offsets, w0s) -> tuple[torch.Tensor, LaneTrace]:
-    """Lane-batched per-entity solves: ([e, k] solved coefficients, [e] trace)."""
+    """Lane-batched per-entity solves: ([e, k] solved coefficients, [e] trace),
+    with the single-problem ``solve``'s dispatch and refusals (no box
+    constraints reach a random effect, so LBFGSB raises as it does there)."""
     lanes = _lane_objective(objective, features, labels, weights, offsets)
     t = opt.optimizer_type
     if t == OptimizerType.AUTO:
         raise ValueError("OptimizerType.AUTO must be resolved before the bucket solve")
+    loss_name = type(objective.loss).__name__
     if t == OptimizerType.LBFGS:
         result = minimize_lbfgs_lanes(
             lanes.value_and_grad, w0s, max_iter=opt.max_iterations, history=opt.history,
             tolerance=opt.tolerance, rel_function_tolerance=opt.rel_function_tolerance)
+    elif t == OptimizerType.LBFGSB:
+        raise ValueError("LBFGSB requires box constraints")
+    elif t == OptimizerType.OWLQN:
+        result = minimize_owlqn_lanes(
+            lanes.value_and_grad, w0s, l1_weight=opt.l1_weight, max_iter=opt.max_iterations,
+            history=opt.history, tolerance=opt.tolerance,
+            rel_function_tolerance=opt.rel_function_tolerance)
+    elif t == OptimizerType.TRON:
+        if not objective.loss.twice_differentiable:
+            raise ValueError(f"TRON requires a twice-differentiable loss, got {loss_name}"
+                             " (reference restricts smoothed-hinge to the LBFGS family)")
+        result = minimize_tron_lanes(
+            lanes.value_and_grad, lanes.hessian_vector_at, w0s, max_iter=opt.max_iterations,
+            tolerance=opt.tolerance, rel_function_tolerance=opt.rel_function_tolerance,
+            max_cg_iter=opt.max_cg_iterations)
     elif t == OptimizerType.NEWTON:
         if not objective.loss.twice_differentiable:
             raise ValueError(
-                f"NEWTON requires a twice-differentiable loss, got "
-                f"{type(objective.loss).__name__} (same restriction as TRON)")
+                f"NEWTON requires a twice-differentiable loss, got {loss_name} "
+                "(same restriction as TRON)")
         result = minimize_newton(
             lanes.value_and_grad, lanes.hessian_matrix, w0s, value_fn=lanes.value,
             max_iter=opt.max_iterations, tolerance=opt.tolerance,
             rel_function_tolerance=opt.rel_function_tolerance)
     else:
-        raise NotImplementedError(
-            f"{t.name} lanes (a random effect with L1, box constraints or a trust region) "
-            "are not ported yet: ROADMAP.md item 12; use LBFGS or NEWTON")
+        raise ValueError(f"Unknown optimizer type {t}")
     return result.coefficients, lane_trace_of(result)
 
 
@@ -269,18 +296,141 @@ def solve_entity_bucket(objective, opt, features, labels, weights, sample_rows, 
                                       entity_rows, full_offsets, table)[0]
 
 
+def _lane_variances(lanes: LaneObjective, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """diag(H⁻¹) by one batched Cholesky ("full"), or 1/diag(H)."""
+    if mode == "full":
+        return diag_inverse_from_hessian(lanes.hessian_matrix(w))
+    return inverse_of_diagonal(lanes.hessian_diagonal(w))
+
+
 def bucket_variances(objective: GLMObjective, bucket, full_offsets, table, var_table,
                      mode: str) -> torch.Tensor:
     """Per-entity variances at the solved coefficients written into a copy of
     ``var_table``: diag(H⁻¹) by one batched Cholesky ("full"), or 1/diag(H)."""
     offsets = _bucket_offsets(bucket.sample_rows, full_offsets)
     lanes = _lane_objective(objective, bucket.features, bucket.labels, bucket.weights, offsets)
-    w = _gather_rows(table, bucket.entity_rows)
+    return _scatter_rows(var_table, bucket.entity_rows,
+                         _lane_variances(lanes, _gather_rows(table, bucket.entity_rows), mode))
+
+
+def _gather_cells(table_ext: torch.Tensor, entity_rows: torch.Tensor,
+                  col_index: torch.Tensor) -> torch.Tensor:
+    """table_ext[entity_rows[:, None], col_index]: [e, k], out-of-range rows
+    clamped like :func:`_gather_rows`."""
+    rows = torch.clamp(entity_rows.long(), min=0, max=max(table_ext.shape[0] - 1, 0))
+    return table_ext[rows.unsqueeze(1), col_index.long()]
+
+
+def _scatter_cells(table_ext: torch.Tensor, entity_rows: torch.Tensor, col_index: torch.Tensor,
+                   values: torch.Tensor) -> torch.Tensor:
+    """A copy of ``table_ext`` with ``values`` [e, k] written at
+    (entity_rows, col_index); padding lanes are dropped. Pad slots all write
+    the scratch column, whose value is then arbitrary: the caller re-zeroes
+    or drops it before any read."""
+    rows = entity_rows.long()
+    valid = (rows >= 0) & (rows < table_ext.shape[0])
+    cols = col_index.long()[valid]
+    out = table_ext.clone()
+    out[rows[valid].unsqueeze(1).expand_as(cols), cols] = values[valid].to(out.dtype)
+    return out
+
+
+def _with_scratch_column(table: torch.Tensor) -> torch.Tensor:
+    """[E, d] -> [E, d+1], the last column zero: the slot every INDEX_MAP pad
+    slot gathers from and scatters to."""
+    return torch.cat([table, torch.zeros((table.shape[0], 1), dtype=table.dtype,
+                                         device=table.device)], dim=1)
+
+
+def solve_entity_bucket_indexmap_traced(objective: GLMObjective, opt: OptimizerConfig, features,
+                                        labels, weights, sample_rows, entity_rows, col_index,
+                                        full_offsets, table_ext
+                                        ) -> tuple[torch.Tensor, LaneTrace]:
+    """An index-map-projected bucket solve: each entity's warm start gathered
+    through its column index from the ``[E, d+1]`` table, the solve in the
+    projected space, the result scattered back and the scratch column
+    re-zeroed; returns the table with the per-lane trace."""
+    offsets = _bucket_offsets(sample_rows, full_offsets)
+    solved, trace = _solve_bucket_entities(objective, opt, features, labels, weights, offsets,
+                                           _gather_cells(table_ext, entity_rows, col_index))
+    trace = _mask_padding_lanes(trace, entity_rows, table_ext.shape[0])
+    table_ext = _scatter_cells(table_ext, entity_rows, col_index, solved)
+    table_ext[:, -1] = 0.0
+    return table_ext, trace
+
+
+def solve_entity_bucket_indexmap(objective, opt, features, labels, weights, sample_rows,
+                                 entity_rows, col_index, full_offsets, table_ext) -> torch.Tensor:
+    return solve_entity_bucket_indexmap_traced(objective, opt, features, labels, weights,
+                                               sample_rows, entity_rows, col_index,
+                                               full_offsets, table_ext)[0]
+
+
+def solve_entity_bucket_random_traced(objective: GLMObjective, opt: OptimizerConfig, features,
+                                      labels, weights, sample_rows, entity_rows, matrix,
+                                      full_offsets, table) -> tuple[torch.Tensor, LaneTrace]:
+    """A random-projected bucket solve: warm start Pᵀw (the adjoint, close to
+    the projected coefficients since E[PᵀP] = I), back-projection P w_k."""
+    offsets = _bucket_offsets(sample_rows, full_offsets)
+    solved, trace = _solve_bucket_entities(objective, opt, features, labels, weights, offsets,
+                                           _gather_rows(table, entity_rows) @ matrix)
+    trace = _mask_padding_lanes(trace, entity_rows, table.shape[0])
+    return _scatter_rows(table, entity_rows, solved @ matrix.T), trace
+
+
+def solve_entity_bucket_random(objective, opt, features, labels, weights, sample_rows,
+                               entity_rows, matrix, full_offsets, table) -> torch.Tensor:
+    return solve_entity_bucket_random_traced(objective, opt, features, labels, weights,
+                                             sample_rows, entity_rows, matrix, full_offsets,
+                                             table)[0]
+
+
+def bucket_variances_indexmap(objective: GLMObjective, bucket, full_offsets, table_ext, var_ext,
+                              mode: str) -> torch.Tensor:
+    """Per-entity variances in the projected space (H over the entity's
+    active columns), scattered back through its column index into a copy of
+    ``var_ext`` [E, d+1]; the scratch column holds pad slots' values."""
+    offsets = _bucket_offsets(bucket.sample_rows, full_offsets)
+    lanes = _lane_objective(objective, bucket.features, bucket.labels, bucket.weights, offsets)
+    w = _gather_cells(table_ext, bucket.entity_rows, bucket.col_index)
+    return _scatter_cells(var_ext, bucket.entity_rows, bucket.col_index,
+                          _lane_variances(lanes, w, mode))
+
+
+def _recover_sketch_coefficients(rows: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """The exact solve-space coefficients of back-projected table rows:
+    rows hold w = P w_k, so w_k = (PᵀP)⁻¹ Pᵀ w, one shared [k, k] Gram solve.
+    The adjoint Pᵀw is off w_k by about sqrt(k/d) relative, which would bias
+    a coefficient-dependent Hessian (logistic, Poisson) evaluated there."""
+    gram = matrix.T @ matrix
+    return torch.linalg.solve(gram, (rows @ matrix).T).T
+
+
+def bucket_variances_random(objective: GLMObjective, bucket, full_offsets, matrix, table,
+                            var_table, mode: str) -> torch.Tensor:
+    """Original-space variances of a random-projected solve, w = P w_k:
+    "full" propagates the covariance, var(w) = diag(P H_k⁻¹ Pᵀ); "diagonal"
+    takes (P∘P) @ 1/diag(H_k). Written into a copy of ``var_table``."""
+    offsets = _bucket_offsets(bucket.sample_rows, full_offsets)
+    lanes = _lane_objective(objective, bucket.features, bucket.labels, bucket.weights, offsets)
+    wks = _recover_sketch_coefficients(_gather_rows(table, bucket.entity_rows), matrix)
     if mode == "full":
-        vs = diag_inverse_from_hessian(lanes.hessian_matrix(w))
+        h_inv = full_inverse_from_hessian(lanes.hessian_matrix(wks))
+        vs = torch.einsum("dk,lkj,dj->ld", matrix, h_inv, matrix)
     else:
-        vs = inverse_of_diagonal(lanes.hessian_diagonal(w))
+        vs = inverse_of_diagonal(lanes.hessian_diagonal(wks)) @ (matrix * matrix).T
     return _scatter_rows(var_table, bucket.entity_rows, vs)
+
+
+def random_variance_mode(mode: str, d: int, k: int, num_problems: int) -> str:
+    """"auto" for the random-projection variances: the full propagation
+    holds a [d, k] product per entity of a bucket, num_problems·d·k values,
+    so the budget covers that stack as well as the e·k² Hessians."""
+    resolved = resolve_variance_mode(mode, k, num_problems=num_problems)
+    if mode == "auto" and resolved == "full" \
+            and num_problems * d * k > FULL_VARIANCE_MAX_DIM * FULL_VARIANCE_MAX_DIM:
+        return "diagonal"
+    return resolved
 
 
 @dataclasses.dataclass
@@ -308,43 +458,118 @@ class RandomEffectCoordinate(Coordinate):
         )
 
     def _prepare_solve(self, model: RandomEffectModel, extra_offsets: torch.Tensor | None):
-        """(objective, full_offsets, norm, table in solve space)."""
+        """Checks the projector/normalization composition and returns
+        (objective, projector, full_offsets, norm, table in solve space)."""
+        re = self.re_dataset
+        projector = re.projector_type
+        if projector == ProjectorType.RANDOM and self.normalization is not None \
+                and not re.pre_normalized:
+            # normalization goes before the sketch, at dataset build: a
+            # context cannot be folded through P afterwards
+            raise ValueError(
+                "RANDOM-projected coordinate with normalization: the "
+                "RandomEffectDataset must be built with the same "
+                "normalization (build_random_effect_dataset(normalization=...)) "
+                "so features are normalized before sketching"
+            )
+        if projector == ProjectorType.INDEX_MAP and self.normalization is not None \
+                and not re.pre_normalized:
+            raise ValueError(
+                "INDEX_MAP coordinate with normalization: the "
+                "RandomEffectDataset must be built with the same "
+                "normalization (build_random_effect_dataset(normalization=...)) "
+                "so entity blocks are pre-normalized"
+            )
+        if re.pre_normalized and self.normalization is None:
+            raise ValueError(
+                "this RandomEffectDataset was built pre-normalized but the "
+                "coordinate has no normalization context — its solved "
+                "tables would be emitted as model-space coefficients while "
+                "actually living in normalized space"
+            )
+        # pre-normalized projected blocks already hold x' = (x - shift)·factor:
+        # the solve runs plain; the table conversions keep the context
+        projected = projector in (ProjectorType.INDEX_MAP, ProjectorType.RANDOM)
         objective = GLMObjective(loss_for_task(self.task), l2_weight=self.config.l2_weight,
-                                 normalization=self.normalization, use_kernel=False)
+                                 normalization=None if projected else self.normalization,
+                                 use_kernel=False)
         full_offsets = self.dataset.offsets
         if extra_offsets is not None:
             full_offsets = full_offsets + extra_offsets
         norm = self.normalization if self.normalization is not None else no_normalization()
         table = norm.from_model_space(model.coefficients, self.intercept_index)
-        return objective, full_offsets, norm, table
+        return objective, projector, full_offsets, norm, table
+
+    def _projection_matrix(self, table: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(self.re_dataset.projection.matrix, dtype=table.dtype,
+                               device=table.device)
 
     def update_model(self, model: RandomEffectModel, extra_offsets: torch.Tensor | None = None):
-        objective, full_offsets, norm, table = self._prepare_solve(model, extra_offsets)
+        objective, projector, full_offsets, norm, table = self._prepare_solve(model,
+                                                                              extra_offsets)
         opt = _solve_config(self.config, loss=objective.loss, small_dense=True)
         if opt.scheduler is not None:
             raise NotImplementedError(
                 "the lane scheduler (probe/rescue, cross-sweep freezing) is not ported yet: "
                 "ROADMAP.md item 18; drop OptimizerConfig.scheduler")
+        buckets = self.re_dataset.buckets
         traces: list[LaneTrace] = []
-        for bucket in self.re_dataset.buckets:
-            table, trace = solve_entity_bucket_traced(
-                objective, opt, bucket.features, bucket.labels, bucket.weights,
-                bucket.sample_rows, bucket.entity_rows, full_offsets, table)
-            traces.append(trace)
+        if projector == ProjectorType.INDEX_MAP:
+            table_ext = _with_scratch_column(table)
+            for b in buckets:
+                table_ext, trace = solve_entity_bucket_indexmap_traced(
+                    objective, opt, b.features, b.labels, b.weights, b.sample_rows,
+                    b.entity_rows, b.col_index, full_offsets, table_ext)
+                traces.append(trace)
+            table = table_ext[:, :-1]
+        elif projector == ProjectorType.RANDOM:
+            matrix = self._projection_matrix(table)
+            for b in buckets:
+                table, trace = solve_entity_bucket_random_traced(
+                    objective, opt, b.features, b.labels, b.weights, b.sample_rows,
+                    b.entity_rows, matrix, full_offsets, table)
+                traces.append(trace)
+        else:
+            for b in buckets:
+                table, trace = solve_entity_bucket_traced(
+                    objective, opt, b.features, b.labels, b.weights, b.sample_rows,
+                    b.entity_rows, full_offsets, table)
+                traces.append(trace)
         variances = None
         if self.config.compute_variance:
-            # entities in no bucket keep NaN: no variance computed
-            max_bucket = max((b.num_entities for b in self.re_dataset.buckets), default=1)
-            mode = resolve_variance_mode(self.config.variance_mode, self.re_dataset.dim,
-                                         num_problems=max_bucket)
-            var_table = torch.full_like(table, float("nan"))
-            for bucket in self.re_dataset.buckets:
-                var_table = bucket_variances(objective, bucket, full_offsets, table, var_table,
-                                             mode)
-            variances = norm.variances_to_model_space(var_table)
+            variances = norm.variances_to_model_space(
+                self._variances(objective, projector, full_offsets, table))
         table = norm.to_model_space(table, self.intercept_index)
         info = LaneTraces(traces) if traces else None
         return dataclasses.replace(model, coefficients=table, variances=variances), info
+
+    def _variances(self, objective, projector, full_offsets, table) -> torch.Tensor:
+        """Solve-space variances at the solved table, NaN where none was
+        computed: entities in no bucket, and an INDEX_MAP entity's columns
+        off its support. "auto" budgets for the largest bucket's stack."""
+        buckets, mode = self.re_dataset.buckets, self.config.variance_mode
+        max_bucket = max((b.num_entities for b in buckets), default=1)
+        var_table = torch.full_like(table, float("nan"))
+        if projector == ProjectorType.RANDOM:
+            matrix = self._projection_matrix(table)
+            resolved = random_variance_mode(mode, self.re_dataset.dim, matrix.shape[1],
+                                            max_bucket)
+            for b in buckets:
+                var_table = bucket_variances_random(objective, b, full_offsets, matrix, table,
+                                                    var_table, resolved)
+            return var_table
+        if projector == ProjectorType.INDEX_MAP:
+            width = max((b.features.shape[2] for b in buckets), default=1)
+            resolved = resolve_variance_mode(mode, width, num_problems=max_bucket)
+            table_ext, var_ext = _with_scratch_column(table), _with_scratch_column(var_table)
+            for b in buckets:
+                var_ext = bucket_variances_indexmap(objective, b, full_offsets, table_ext,
+                                                    var_ext, resolved)
+            return var_ext[:, :-1]
+        resolved = resolve_variance_mode(mode, self.re_dataset.dim, num_problems=max_bucket)
+        for b in buckets:
+            var_table = bucket_variances(objective, b, full_offsets, table, var_table, resolved)
+        return var_table
 
     def score(self, model: RandomEffectModel) -> torch.Tensor:
         return model.score_dataset(self.dataset)

@@ -32,16 +32,7 @@ from photon_ml_torch.optim.optimizer import (
     OptimizerConfig,
     OptimizerType,
 )
-
-
-class ProjectorType(enum.Enum):
-    """Reference: projector/ProjectorType.scala. The port trains IDENTITY
-    random effects; the others map over and are refused by the estimator
-    (ROADMAP.md item 12)."""
-
-    IDENTITY = "IDENTITY"
-    INDEX_MAP = "INDEX_MAP"
-    RANDOM = "RANDOM"
+from photon_ml_torch.projector.projectors import ProjectorType  # noqa: F401 (re-exported)
 
 
 class ModelOutputMode(enum.Enum):

@@ -27,8 +27,7 @@ ROADMAP.md item before any data is read: ``--distributed``/``--mesh`` (10),
 ``--checkpoint-dir`` and ``--max-restarts`` above 0 (16; the port's default
 is 0), ``--incremental-refresh``, hyperparameter tuning, the lane scheduler
 (18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir`` (19),
-matrix-factorization coordinates (13), INDEX_MAP/RANDOM projectors and
-OWL-QN/TRON/LBFGSB random-effect lanes (12), sparse shards and LibSVM input
+matrix-factorization coordinates (13), sparse shards and LibSVM input
 (14), date ranges (queue A).
 """
 
@@ -47,7 +46,6 @@ import torch
 from photon_ml_torch.cli.configs import (
     CoordinateCliConfig,
     ModelOutputMode,
-    ProjectorType,
     estimator_coordinate_configs,
     evaluation_id_columns,
     expand_reg_weight_grid,
@@ -69,7 +67,6 @@ from photon_ml_torch.io.model_io import (
     write_feature_stats,
 )
 from photon_ml_torch.ops.normalization import NormalizationType
-from photon_ml_torch.optim.optimizer import OptimizerType
 from photon_ml_torch.types import TaskType
 from photon_ml_torch.util import PhotonLogger, Timed
 from photon_ml_torch.util.timed import reset_timings, timing_summary
@@ -154,17 +151,6 @@ class GameTrainingParams:
                 raise NotImplementedError(
                     f"matrix-factorization coordinate '{name}' is not ported yet: "
                     "ROADMAP.md item 13")
-            if cfg.is_random_effect and (cfg.projector != ProjectorType.IDENTITY
-                                         or cfg.projected_dim is not None
-                                         or cfg.features_to_samples_ratio is not None):
-                raise NotImplementedError(
-                    f"random effect '{name}': INDEX_MAP/RANDOM projectors and per-entity "
-                    "feature selection are not ported yet: ROADMAP.md item 12")
-            if cfg.is_random_effect and (cfg.reg_alpha > 0.0 or cfg.optimizer in (
-                    OptimizerType.OWLQN, OptimizerType.TRON, OptimizerType.LBFGSB)):
-                raise NotImplementedError(
-                    f"random effect '{name}': OWL-QN (L1), TRON and LBFGSB lanes are not "
-                    "ported yet: ROADMAP.md item 12")
             if cfg.scheduler:
                 raise NotImplementedError(
                     f"coordinate '{name}': the lane scheduler (scheduler=true) is not ported "

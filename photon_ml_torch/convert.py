@@ -19,6 +19,7 @@ from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_torch.models.glm import GeneralizedLinearModel
 from photon_ml_torch.ops.normalization import NormalizationContext
+from photon_ml_torch.projector.projectors import ProjectorType, RandomProjectionMatrix
 from photon_ml_torch.types import TaskType
 
 
@@ -107,23 +108,34 @@ def game_dataset_from_numpy(*, unique_ids, labels, offsets, weights, feature_sha
 
 
 def random_effect_dataset_from_numpy(*, random_effect_type: str, feature_shard_id: str, buckets,
-                                     num_entities: int, dim: int,
+                                     num_entities: int, dim: int, projector_type="IDENTITY",
+                                     projection_matrix=None, pre_normalized: bool = False,
                                      device=None) -> RandomEffectDataset:
     """A RandomEffectDataset from bucket fields as numpy arrays: ``buckets``
-    is a sequence of mappings with features [e, cap, d], labels, weights
-    [e, cap], entity_rows [e] and sample_rows [e, cap]."""
+    is a sequence of mappings with features [e, cap, k], labels, weights
+    [e, cap], entity_rows [e], sample_rows [e, cap] and, for INDEX_MAP,
+    col_index [e, k]. ``projector_type`` is a ProjectorType, its name, or an
+    enum whose value is the name; ``projection_matrix`` is RANDOM's [d, k]."""
     device = resolve_device(device)
     out = []
     for b in buckets:
+        col_index = b.get("col_index")
         out.append(EntityBucket(
             features=device_tensor(np.array(b["features"]), None, device),
             labels=device_tensor(np.array(b["labels"]), None, device),
             weights=device_tensor(np.array(b["weights"]), None, device),
             entity_rows=device_tensor(np.array(b["entity_rows"]), torch.int32, device),
-            sample_rows=device_tensor(np.array(b["sample_rows"]), torch.int32, device)))
+            sample_rows=device_tensor(np.array(b["sample_rows"]), torch.int32, device),
+            col_index=None if col_index is None
+            else device_tensor(np.array(col_index), torch.int32, device)))
+    projection = None if projection_matrix is None \
+        else RandomProjectionMatrix(matrix=np.array(projection_matrix))
     return RandomEffectDataset(random_effect_type=random_effect_type,
                                feature_shard_id=feature_shard_id, buckets=out,
-                               num_entities=int(num_entities), dim=int(dim))
+                               num_entities=int(num_entities), dim=int(dim),
+                               projector_type=ProjectorType(
+                                   getattr(projector_type, "value", projector_type)),
+                               projection=projection, pre_normalized=bool(pre_normalized))
 
 
 def game_model_from_numpy(models, *, device=None) -> GameModel:

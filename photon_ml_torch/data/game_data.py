@@ -11,7 +11,11 @@ lower bounds).
   labels/offsets/weights, and per random-effect type an [n] entity index.
 - Random-effect training data is size-bucketed padded blocks: entities
   bucketed by sample count, each bucket an [entities, cap, d] tensor that
-  the lane-batched solvers consume.
+  the lane-batched solvers consume. A projector (``projector/projectors.py``)
+  narrows d: INDEX_MAP to each bucket's widest per-entity support (with the
+  per-entity column index beside the block), RANDOM to the sketch width; a
+  per-entity Pearson filter (``features_to_samples_ratio``) zeroes the
+  columns an entity does not keep.
 - Scoring always runs over the full sample axis through an entity-indexed
   gather (models/game.py), so samples left out of training (reservoir cap,
   lower bound) are still scored.
@@ -31,6 +35,8 @@ import torch
 from photon_ml_torch.data.batch import LabeledPointBatch, device_tensor
 from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch, SparseShard
 from photon_ml_torch.device import resolve_device
+from photon_ml_torch.ops.normalization import host_factors, host_shifts
+from photon_ml_torch.projector.projectors import ProjectorType, RandomProjectionMatrix
 from photon_ml_torch.sampling.down_sampler import stable_uniform
 
 _NUMPY_TO_TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
@@ -179,10 +185,15 @@ def pad_game_dataset(dataset: GameDataset, multiple: int) -> tuple[GameDataset, 
 class EntityBucket:
     """One size-bucket of random-effect training data.
 
-    features:    [e, cap, d]
+    features:    [e, cap, d]; d is the bucket's width: the shard width for
+                 IDENTITY, the bucket's widest active-column count for
+                 INDEX_MAP, the projected width for RANDOM
     labels/weights: [e, cap] (weight 0 marks padding)
     entity_rows: [e] int32, row of each entity in the RE type's vocab
     sample_rows: [e, cap] int32, global sample row of each slot, -1 pad
+    col_index:   [e, d] int32, INDEX_MAP only: the original column of each
+                 projected slot; pad slots hold the shard width (the scratch
+                 column)
     """
 
     features: torch.Tensor
@@ -190,6 +201,7 @@ class EntityBucket:
     weights: torch.Tensor
     entity_rows: torch.Tensor
     sample_rows: torch.Tensor
+    col_index: torch.Tensor | None = None
 
     @property
     def num_entities(self) -> int:
@@ -208,14 +220,21 @@ class EntityBucket:
 
 @dataclasses.dataclass
 class RandomEffectDataset:
-    """Bucketed per-entity training view for one RE coordinate (identity
-    projection on a dense shard: the table is [num_entities, dim])."""
+    """Bucketed per-entity training view for one RE coordinate on a dense
+    shard. ``dim`` is the shard width and the table is [num_entities, dim]
+    in original space; projected buckets carry narrower features."""
 
     random_effect_type: str
     feature_shard_id: str
     buckets: list
     num_entities: int  # size of the entity vocab
     dim: int
+    projector_type: ProjectorType = ProjectorType.IDENTITY
+    projection: RandomProjectionMatrix | None = None
+    #: the projected blocks were rewritten to normalized space at build time
+    #: (``build_random_effect_dataset(normalization=...)``): the solves then
+    #: run on a plain objective while the table conversions keep the context
+    pre_normalized: bool = False
 
     @property
     def num_trained_entities(self) -> int:
@@ -299,6 +318,135 @@ def pack_bucket_lanes(
     return entity_rows, rows_concat, lane, slot
 
 
+def _pearson_keep_mask(x: np.ndarray, y: np.ndarray, num_keep: int) -> np.ndarray:
+    """Boolean [d] mask of the ``num_keep`` columns of x most correlated
+    (|Pearson|) with y, for one entity. Zero-variance nonzero columns (an
+    intercept) score +inf and are always kept; all-zero columns rank last
+    (reference LocalDataSet.scala:221-280). The grouped form below is the
+    builder's; this one is its yardstick."""
+    d = x.shape[1]
+    if num_keep >= d:
+        return np.ones(d, dtype=bool)
+    # f64 scores are the defined semantics: f32 inputs rank alike in this
+    # and the grouped form
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    xc = x - x.mean(axis=0)
+    yc = y - y.mean()
+    var_x = (xc * xc).sum(axis=0)
+    var_y = float(yc @ yc)
+    all_zero = ~np.any(x != 0.0, axis=0)
+    const_nonzero = (var_x == 0.0) & ~all_zero  # intercept-like
+    if var_y == 0.0:
+        # constant labels carry no correlation signal: prefer active,
+        # high-variance columns
+        score = var_x.astype(np.float64)
+    else:
+        denom = np.sqrt(var_x * var_y)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            score = np.abs(xc.T @ yc) / denom
+        score = np.where(var_x == 0.0, 0.0, score)
+    score = np.where(const_nonzero, np.inf, score)
+    score = np.where(all_zero, -np.inf, score)
+    keep = np.argsort(-_quantize_scores(score), kind="stable")[:num_keep]
+    mask = np.zeros(d, dtype=bool)
+    mask[keep] = True
+    return mask
+
+
+def _quantize_scores(score: np.ndarray) -> np.ndarray:
+    """Selection scores rounded to 9 decimals before ranking: columns whose
+    scores are equal in exact arithmetic (|corr| = 1 for every doubly-active
+    column of a 2-sample entity) then tie exactly in both forms, whose sums
+    differ in the last ulp, and the stable argsort breaks the tie by column."""
+    return np.round(score, 9)
+
+
+def _pearson_keep_masks_grouped(x: np.ndarray, y: np.ndarray, lane: np.ndarray, e: int,
+                                ratio: float) -> np.ndarray:
+    """Per-entity Pearson selection as grouped reductions over ``lane``:
+    [e, d] keep masks, each entity keeping ceil(ratio · its sample count)
+    columns (at least one), with :func:`_pearson_keep_mask`'s semantics."""
+    d = x.shape[1]
+    counts = np.bincount(lane, minlength=e).astype(np.float64)
+    num_keep = np.maximum(1, np.ceil(ratio * counts)).astype(np.int64)
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    sum_x = np.zeros((e, d))
+    np.add.at(sum_x, lane, x)
+    mean_x = sum_x / counts[:, None]
+    xc = x - mean_x[lane]
+    mean_y = np.bincount(lane, weights=y, minlength=e) / counts
+    yc = y - mean_y[lane]
+    var_x = np.zeros((e, d))
+    np.add.at(var_x, lane, xc * xc)
+    var_y = np.bincount(lane, weights=yc * yc, minlength=e)
+    cov = np.zeros((e, d))
+    np.add.at(cov, lane, xc * yc[:, None])
+    all_zero = ~_grouped_active_mask(x, lane, e, d)
+    const_nonzero = (var_x == 0.0) & ~all_zero
+    with np.errstate(divide="ignore", invalid="ignore"):
+        corr = np.abs(cov) / np.sqrt(var_x * var_y[:, None])
+    score = np.where(var_x == 0.0, 0.0, corr)
+    score = np.where((var_y == 0.0)[:, None], var_x, score)
+    score = np.where(const_nonzero, np.inf, score)
+    score = np.where(all_zero, -np.inf, score)
+    order = np.argsort(-_quantize_scores(score), axis=1, kind="stable")
+    ranked_keep = np.arange(d)[None, :] < num_keep[:, None]
+    keep = np.zeros((e, d), dtype=bool)
+    np.put_along_axis(keep, order, ranked_keep, axis=1)
+    return keep
+
+
+def _grouped_active_mask(x: np.ndarray, lane: np.ndarray, e: int, d: int) -> np.ndarray:
+    """[e, d] boolean: does entity (lane) have a nonzero in column j."""
+    mask = np.zeros((e, d), dtype=bool)
+    t_idx, col = np.nonzero(x)
+    mask[lane[t_idx], col] = True
+    return mask
+
+
+def _pack_index_projected(x: np.ndarray, lane: np.ndarray, slot: np.ndarray, e: int, cap: int,
+                          dim: int) -> tuple[np.ndarray, np.ndarray]:
+    """Index-map packing of one bucket: each entity's active columns
+    compacted to the left in ascending order, pad slots holding ``dim`` (the
+    scratch column); an entity with no active column keeps column 0. Returns
+    (features [e, cap, k], col_index [e, k]), k the widest support."""
+    any_nonzero = _grouped_active_mask(x, lane, e, dim)
+    any_nonzero[~any_nonzero.any(axis=1), 0] = True
+    counts = any_nonzero.sum(axis=1)
+    bdim = int(counts.max())
+    le, ce = np.nonzero(any_nonzero)  # lane-major, column-ascending
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(len(le)) - starts[le]
+    bc = np.full((e, bdim), dim, dtype=np.int32)
+    bc[le, pos] = ce
+    safe = np.minimum(bc, dim - 1)
+    vals = x[np.arange(x.shape[0])[:, None], safe[lane]]  # [T, k]
+    vals = vals * (bc[lane] < dim)
+    bf = np.zeros((e, cap, bdim), dtype=x.dtype)
+    bf[lane, slot] = vals
+    return bf, bc
+
+
+def _normalize_projected_block(bf, bc, bs, normalization, dim):
+    """An index-projected [e, cap, k] block rewritten to normalized space,
+    x' = (x - shift)·factor over each entity's gathered columns, on valid
+    slots only; the scratch column maps to factor 1 and shift 0, so padding
+    stays exactly zero."""
+    out = bf
+    valid = (bs >= 0)[:, :, None]
+    shifts = host_shifts(normalization)
+    if shifts is not None:
+        shift_ext = np.append(shifts.astype(bf.dtype), bf.dtype.type(0))
+        out = out - shift_ext[bc][:, None, :] * valid
+    factors = host_factors(normalization)
+    if factors is not None:
+        fac_ext = np.append(factors.astype(bf.dtype), bf.dtype.type(1))
+        out = out * fac_ext[bc][:, None, :]
+    return out
+
+
 def build_random_effect_dataset(
     dataset: GameDataset,
     re_type: str,
@@ -308,17 +456,40 @@ def build_random_effect_dataset(
     active_data_lower_bound: int | None = None,
     bucket_sizes: Sequence[int] = (8, 32, 128, 512, 2048),
     seed: int = 0,
+    projector_type: ProjectorType = ProjectorType.IDENTITY,
+    projected_dim: int | None = None,
+    features_to_samples_ratio: float | None = None,
+    normalization=None,
 ) -> RandomEffectDataset:
     """Group samples by entity into padded, size-bucketed blocks on the
-    dataset's device (identity projection on a dense shard).
+    dataset's device (a dense shard).
 
     - upper bound: per-entity reservoir cap (stable-id keyed sampling).
     - lower bound: entities with fewer samples are left out of training
       (still scored through the gather path).
     - buckets: entities padded to the smallest bucket capacity >= their
       (capped) sample count.
+    - projector: INDEX_MAP packs each entity's active columns with their
+      column index; RANDOM sketches the shard through one Gaussian
+      ``[dim, projected_dim]`` matrix drawn from ``seed``.
+    - features_to_samples_ratio: an entity with c samples keeps its
+      ceil(ratio·c) columns best correlated (|Pearson|) with the label; the
+      others are zeroed in its block, and so leave its INDEX_MAP support
+      (reference LocalDataSet.scala:221-280).
+    - normalization (INDEX_MAP and RANDOM): the context the blocks are
+      rewritten with at build time, x' = (x - shift)·factor; RANDOM
+      normalizes before sketching, which is exact.
+
+    Host work is numpy; only the finished bucket tensors go to the device.
     """
     shard = dataset.feature_shards[shard_id]
+    if normalization is not None and projector_type == ProjectorType.IDENTITY \
+            and not isinstance(shard, SparseShard):
+        raise ValueError(
+            "build_random_effect_dataset(normalization=...) pre-normalizes "
+            "PROJECTED entity blocks (INDEX_MAP/RANDOM/compact); IDENTITY "
+            "coordinates normalize through the objective's context"
+        )
     if isinstance(shard, SparseShard):
         raise NotImplementedError(
             f"random-effect coordinate on the sparse shard '{shard_id}': compact "
@@ -333,6 +504,21 @@ def build_random_effect_dataset(
     num_entities = len(dataset.entity_vocabs[re_type])
     device = dataset.device
 
+    projection = None
+    if projector_type == ProjectorType.RANDOM:
+        if projected_dim is None:
+            raise ValueError("RANDOM projection requires projected_dim")
+        projection = RandomProjectionMatrix.create(dim, projected_dim, seed)
+        if normalization is not None:
+            # normalize before sketching (exact); the solves then run plain
+            shifts = host_shifts(normalization)
+            if shifts is not None:
+                features = features - shifts.astype(features.dtype)
+            factors = host_factors(normalization)
+            if factors is not None:
+                features = features * factors.astype(features.dtype)
+        features = projection.project_features(features).astype(features.dtype)
+
     per_bucket = group_entities_into_buckets(
         entity_idx,
         unique_ids,
@@ -341,6 +527,12 @@ def build_random_effect_dataset(
         active_data_lower_bound=active_data_lower_bound,
         seed=seed,
     )
+    if features_to_samples_ratio is not None and projector_type == ProjectorType.RANDOM:
+        raise ValueError(
+            "features_to_samples_ratio (Pearson selection) operates on "
+            "original feature columns and cannot combine with RANDOM "
+            "projection; use IDENTITY or INDEX_MAP"
+        )
     buckets: list[EntityBucket] = []
     for cap, members in per_bucket.items():
         if not members:
@@ -353,8 +545,21 @@ def build_random_effect_dataset(
         bl[lane, slot] = labels[rows_concat]
         bw[lane, slot] = weights[rows_concat]
         bs[lane, slot] = rows_concat
-        bf = np.zeros((e, cap, dim), dtype=features.dtype)
-        bf[lane, slot] = features[rows_concat]
+        # one gather of the bucket's samples; the per-entity work below is
+        # grouped reductions over `lane`
+        x = features[rows_concat]
+        if features_to_samples_ratio is not None:
+            keep = _pearson_keep_masks_grouped(x, labels[rows_concat], lane, e,
+                                               features_to_samples_ratio)
+            x = x * keep[lane]
+        bc = None
+        if projector_type == ProjectorType.INDEX_MAP:
+            bf, bc = _pack_index_projected(x, lane, slot, e, cap, dim)
+            if normalization is not None:
+                bf = _normalize_projected_block(bf, bc, bs, normalization, dim)
+        else:
+            bf = np.zeros((e, cap, x.shape[1]), dtype=features.dtype)
+            bf[lane, slot] = x
         buckets.append(
             EntityBucket(
                 features=device_tensor(bf, shard.dtype, device),
@@ -362,6 +567,7 @@ def build_random_effect_dataset(
                 weights=device_tensor(bw, None, device),
                 entity_rows=device_tensor(be, torch.int32, device),
                 sample_rows=device_tensor(bs, torch.int32, device),
+                col_index=None if bc is None else device_tensor(bc, torch.int32, device),
             )
         )
     return RandomEffectDataset(
@@ -370,6 +576,9 @@ def build_random_effect_dataset(
         buckets=buckets,
         num_entities=num_entities,
         dim=dim,
+        projector_type=projector_type,
+        projection=projection,
+        pre_normalized=normalization is not None,
     )
 
 

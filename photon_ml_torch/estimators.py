@@ -4,8 +4,9 @@ Counterpart of ``photon_ml_tpu/estimators.py``. ``GameEstimator.fit``
 (reference photon-api estimators/GameEstimator.scala) builds the
 per-coordinate datasets, the training-loss and validation evaluators and the
 per-shard normalization, then runs block coordinate descent; in the port it
-runs on one device, over a dense or sparse fixed effect and IDENTITY random
-effects on dense shards. ``train_glm`` (reference ModelTraining.scala:55-228)
+runs on one device, over a dense or sparse fixed effect and random effects
+on dense shards (IDENTITY, INDEX_MAP or RANDOM projection, optional
+per-entity Pearson feature selection). ``train_glm`` (reference ModelTraining.scala:55-228)
 is the single-GLM regularization path with warm starts, for dense and sparse
 batches alike.
 """
@@ -61,6 +62,7 @@ from photon_ml_torch.optim.optimizer import (
     resolve_auto_optimizer,
     solve,
 )
+from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -77,19 +79,26 @@ class FixedEffectCoordinateConfig:
 @dataclasses.dataclass(frozen=True)
 class RandomEffectCoordinateConfig:
     """Reference: RandomEffectDataConfiguration (RE type, shard, bounds) +
-    optimization config. ``projector_type`` other than "IDENTITY",
-    ``projected_dim`` and ``features_to_samples_ratio`` are carried so that a
-    configuration of the JAX package maps over; they are not ported yet."""
+    optimization config."""
 
     random_effect_type: str
     feature_shard_id: str
     optimization: CoordinateOptimizationConfig
     active_data_upper_bound: int | None = None
     active_data_lower_bound: int | None = None
-    projector_type: str = "IDENTITY"
-    projected_dim: int | None = None
+    #: reference projector/ProjectorType.scala: INDEX_MAP trains each entity
+    #: on its observed columns, RANDOM on a shared Gaussian sketch (a name
+    #: is taken too)
+    projector_type: ProjectorType = ProjectorType.IDENTITY
+    projected_dim: int | None = None  # RANDOM only
+    #: per-entity Pearson feature selection: an entity with c samples keeps
+    #: its ceil(ratio·c) best columns (LocalDataSet.scala:221-280)
     features_to_samples_ratio: float | None = None
     bucket_sizes: Sequence[int] = (8, 32, 128, 512, 2048)
+
+    def __post_init__(self):
+        object.__setattr__(self, "projector_type", ProjectorType(
+            getattr(self.projector_type, "value", self.projector_type)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,25 +210,21 @@ class GameEstimator:
             elif isinstance(cfg, MatrixFactorizationCoordinateConfig):
                 raise _not_ported(f"matrix-factorization coordinate '{cid}'", 13)
             elif isinstance(cfg, RandomEffectCoordinateConfig):
-                projector = getattr(cfg.projector_type, "name", cfg.projector_type)
-                if projector != "IDENTITY" or cfg.projected_dim is not None \
-                        or cfg.features_to_samples_ratio is not None:
-                    raise _not_ported(
-                        f"random effect '{cid}': INDEX_MAP/RANDOM projectors, per-entity "
-                        "feature selection and their normalization", 12)
                 if isinstance(dataset.feature_shards[cfg.feature_shard_id], SparseShard):
                     raise _not_ported(f"random effect '{cid}' on a sparse shard", 14)
-                if cfg.optimization.uses_owlqn or cfg.optimization.optimizer.optimizer_type in (
-                        OptimizerType.TRON, OptimizerType.LBFGSB):
-                    raise _not_ported(
-                        f"random effect '{cid}': OWL-QN (L1), TRON and LBFGSB lanes", 12)
                 if cfg.optimization.optimizer.scheduler is not None:
                     raise _not_ported(f"random effect '{cid}': the lane scheduler", 18)
                 re_dataset = build_random_effect_dataset(
                     dataset, cfg.random_effect_type, cfg.feature_shard_id,
                     active_data_upper_bound=cfg.active_data_upper_bound,
                     active_data_lower_bound=cfg.active_data_lower_bound,
-                    bucket_sizes=cfg.bucket_sizes)
+                    bucket_sizes=cfg.bucket_sizes,
+                    projector_type=cfg.projector_type,
+                    projected_dim=cfg.projected_dim,
+                    features_to_samples_ratio=cfg.features_to_samples_ratio,
+                    # projected entity blocks are rewritten to normalized
+                    # space at build time (IndexMapProjectorRDD.scala:134-147)
+                    normalization=_build_normalization_for(cfg, norms))
                 coordinates[cid] = RandomEffectCoordinate(
                     coordinate_id=cid, dataset=dataset, re_dataset=re_dataset, task=self.task,
                     config=cfg.optimization, normalization=norms.get(cfg.feature_shard_id),
@@ -253,6 +258,17 @@ class GameEstimator:
                     for k in ("mean", "variance", "max_magnitude")}
             norms[shard_id] = build_normalization(norm_type, **stat, intercept_index=intercept)
         return norms
+
+
+def _build_normalization_for(cfg: RandomEffectCoordinateConfig,
+                             norms) -> NormalizationContext | None:
+    """The context an RE coordinate's entity blocks are pre-normalized with
+    at dataset build: INDEX_MAP and RANDOM coordinates (RANDOM normalizes
+    before sketching, which is exact). IDENTITY coordinates normalize
+    through the objective's context instead."""
+    if cfg.projector_type in (ProjectorType.INDEX_MAP, ProjectorType.RANDOM):
+        return norms.get(cfg.feature_shard_id)
+    return None
 
 
 def _require_batch(batch) -> None:

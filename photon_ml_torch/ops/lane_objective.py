@@ -94,6 +94,18 @@ class LaneObjective:
             h = h + self.l2_weight * torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
         return h
 
+    def hessian_vector_at(self, w: torch.Tensor):
+        """The per-lane Hessian-vector product at w, v [lanes, k] ->
+        X'ᵀ D X' v + l2·v [lanes, k], with D computed once for every
+        product at this w (TRON's CG makes many)."""
+        x, curvature = self._normalized_features(), self._curvature(w)
+
+        def hv(v: torch.Tensor) -> torch.Tensor:
+            out = torch.einsum("lc,lck->lk", curvature * torch.einsum("lck,lk->lc", x, v), x)
+            return out + self.l2_weight * v if self.l2_weight > 0.0 else out
+
+        return hv
+
     def hessian_diagonal(self, w: torch.Tensor) -> torch.Tensor:
         x = self._normalized_features()
         diag = torch.einsum("lc,lck,lck->lk", self._curvature(w), x, x)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import numpy as np
 import torch
 
 
@@ -96,6 +97,17 @@ class NormalizationContext:
         if self.factors is None:
             return variances
         return variances * self.factors * self.factors
+
+
+def host_factors(ctx: NormalizationContext) -> np.ndarray | None:
+    """Host copy of ``ctx.factors`` (None when identity), for the builders
+    that rewrite projected entity blocks into normalized space."""
+    return None if ctx.factors is None else ctx.factors.detach().cpu().numpy()
+
+
+def host_shifts(ctx: NormalizationContext) -> np.ndarray | None:
+    """Host copy of ``ctx.shifts`` (None when there are none)."""
+    return None if ctx.shifts is None else ctx.shifts.detach().cpu().numpy()
 
 
 _NO_NORMALIZATION = NormalizationContext(factors=None, shifts=None)

@@ -89,13 +89,15 @@ def diag_inverse_from_hessian(h: torch.Tensor) -> torch.Tensor:
 
 
 def full_inverse_from_hessian(h: torch.Tensor) -> torch.Tensor:
-    """Full H⁻¹ via Cholesky; a non-PD H falls back to the clamped
+    """Full H⁻¹ via Cholesky, for one [d, d] Hessian or a stack
+    [..., d, d] (the propagation of a variance through a projection needs
+    the off-diagonal entries); a non-PD H falls back to the clamped
     diagonal-only inverse as a whole."""
     linv = _inverse_cholesky_factor(h)
-    full = linv.T @ linv
-    if bool(torch.isfinite(full).all()):
-        return full
-    return torch.diag(inverse_of_diagonal(torch.diagonal(h)))
+    full = linv.mT @ linv
+    approx = torch.diag_embed(inverse_of_diagonal(torch.diagonal(h, dim1=-2, dim2=-1)))
+    finite = torch.isfinite(full).flatten(-2).all(dim=-1)
+    return torch.where(finite[..., None, None], full, approx)
 
 
 def coefficient_variances(objective, coefficients: torch.Tensor, batch,

@@ -34,6 +34,18 @@ def flags(*conditions: torch.Tensor) -> list[bool]:
     return torch.stack(conditions).tolist()
 
 
+#: host reads of a lane mask made by the lane solvers (each one waits for
+#: the device): read by ``chip_smoke.py`` beside the kernels an update issues
+lane_host_reads = 0
+
+
+def any_lane(mask: torch.Tensor) -> bool:
+    """Whether any lane of ``mask`` is set: the lane loops' one host read."""
+    global lane_host_reads
+    lane_host_reads += 1
+    return bool(mask.any())
+
+
 @dataclasses.dataclass
 class SolverResult:
     """Final state + per-iteration history of one solve.
@@ -272,7 +284,7 @@ def wolfe_line_search_lanes(
     done = torch.zeros_like(has_best)
     for _ in range(max_steps):
         live = active & ~done
-        if not bool(live.any()):
+        if not any_lane(live):
             break
         f_t, g_t = value_and_grad_fn(w + col(t) * direction)
         armijo = (f_t <= f0 + c1 * t * dg0) & torch.isfinite(f_t)

@@ -18,6 +18,7 @@ import torch
 from photon_ml_torch.optim.common import (
     ConvergenceReason,
     LaneResult,
+    any_lane,
     check_convergence_lanes,
     wolfe_line_search_lanes,
 )
@@ -95,7 +96,7 @@ def minimize_lbfgs_lanes(
 
     for step in range(max_iter):
         active = (iteration < max_iter) & (reason == _NOT_CONVERGED)
-        if not bool(active.any()):
+        if not any_lane(active):
             break
         direction = two_loop_direction_lanes(g, s_hist, y_hist, rho, count, head, min(step, m))
         # not a descent direction: steepest descent

@@ -25,7 +25,7 @@ from typing import Callable
 
 import torch
 
-from photon_ml_torch.optim.common import ConvergenceReason, LaneResult
+from photon_ml_torch.optim.common import ConvergenceReason, LaneResult, any_lane
 
 #: fixed step candidates: the current point (the baseline every accept and
 #: convergence decision compares against, through the same value path), a
@@ -100,7 +100,7 @@ def minimize_newton(
 
     for _ in range(max_iter):
         active = (iteration < max_iter) & (reason == _NOT_CONVERGED)
-        if not bool(active.any()):
+        if not any_lane(active):
             break
         h = hessian_matrix_fn(w)
         # trace-scaled Levenberg jitter plus the adaptive damping; the scale

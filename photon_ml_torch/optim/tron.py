@@ -4,6 +4,13 @@ Counterpart of ``photon_ml_tpu/optim/tron.py``; reference photon-lib
 optimization/TRON.scala (a LIBLINEAR port): the trust-region loop with its
 eta/sigma update rules (TRON.scala:152-253) and truncated CG calling the
 Hessian-vector product once per step (TRON.scala:278-338).
+
+:func:`minimize_tron_lanes` is the lane form (``jax.vmap`` over
+``minimize_tron`` in the JAX package): every state field carries a leading
+``[lanes]`` axis and per-lane masks freeze finished lanes, in the outer loop
+and in the truncated CG, so each lane follows the iteration it would follow
+alone. The host reads one flag per outer iteration; the CG runs its cap of
+steps with finished lanes frozen, which changes no lane's result.
 """
 
 from __future__ import annotations
@@ -12,7 +19,14 @@ from typing import Callable
 
 import torch
 
-from photon_ml_torch.optim.common import ConvergenceReason, SolverResult, flags, new_history
+from photon_ml_torch.optim.common import (
+    ConvergenceReason,
+    LaneResult,
+    SolverResult,
+    any_lane,
+    flags,
+    new_history,
+)
 
 # LIBLINEAR trust-region constants (TRON.scala:168-175)
 ETA0, ETA1, ETA2 = 1e-4, 0.25, 0.75
@@ -160,3 +174,136 @@ def minimize_tron(
         value_history=value_history,
         grad_norm_history=grad_norm_history,
     )
+
+
+def _boundary_step_lanes(z, dvec, delta):
+    """:func:`_boundary_step` per lane: z, dvec [lanes, d], delta [lanes]."""
+    zz = torch.sum(z * z, dim=-1)
+    zd = torch.sum(z * dvec, dim=-1)
+    dd = torch.clamp(torch.sum(dvec * dvec, dim=-1), min=1e-30)
+    rad = torch.sqrt(torch.clamp(zd * zd + dd * (delta * delta - zz), min=0.0))
+    tau = (-zd + rad) / dd
+    return z + tau.unsqueeze(-1) * dvec
+
+
+def _truncated_cg_lanes(hv_fn, g, delta, max_cg: int, cg_tol, active):
+    """:func:`_truncated_cg` per lane, ``max_cg`` steps with a lane frozen
+    from the step after it hits the boundary or converges (and throughout
+    when not ``active``). Returns (z, hit_boundary) per lane."""
+    col = lambda v: v.unsqueeze(-1)  # noqa: E731
+    z = torch.zeros_like(g)
+    r = -g
+    dvec = -g
+    hit = torch.zeros_like(active)
+    done = ~active
+    for _ in range(max_cg):
+        live = ~done
+        hd = hv_fn(dvec)
+        dhd = torch.sum(dvec * hd, dim=-1)
+        rr = torch.sum(r * r, dim=-1)
+        # negative curvature (non-convex edge case) or leaving the region:
+        # go to the boundary
+        alpha = rr / torch.clamp(dhd, min=1e-30)
+        z_try = z + col(alpha) * dvec
+        take_boundary = (dhd <= 0.0) | (torch.linalg.norm(z_try, dim=-1) >= delta)
+        z_new = torch.where(col(take_boundary), _boundary_step_lanes(z, dvec, delta), z_try)
+        r_new = r - col(alpha) * hd
+        rr_new = torch.sum(r_new * r_new, dim=-1)
+        converged = torch.sqrt(rr_new) <= cg_tol
+        d_new = r_new + col(rr_new / torch.clamp(rr, min=1e-30)) * dvec
+        z = torch.where(col(live), z_new, z)
+        r = torch.where(col(live), r_new, r)
+        dvec = torch.where(col(live), d_new, dvec)
+        hit = torch.where(live, take_boundary, hit)
+        done = done | (live & (take_boundary | converged))
+    return z, hit
+
+
+def minimize_tron_lanes(
+    value_and_grad_fn: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
+    hessian_vector_at: Callable[[torch.Tensor], Callable[[torch.Tensor], torch.Tensor]],
+    w0: torch.Tensor,
+    *,
+    max_iter: int = 15,
+    tolerance: float = 1e-5,
+    rel_function_tolerance: float | None = None,
+    max_cg_iter: int = 20,
+    cg_forcing: float = 0.1,
+) -> LaneResult:
+    """Minimize ``lanes`` twice-differentiable convex objectives with TRON.
+    ``value_and_grad_fn`` maps [lanes, d] to ([lanes], [lanes, d]);
+    ``hessian_vector_at(w)`` returns the map v -> H(w) v over [lanes, d].
+    Convergence and the radius rules are :func:`minimize_tron`'s, per lane."""
+    col = lambda v: v.unsqueeze(-1)  # noqa: E731
+    w = w0
+    f, g = value_and_grad_fn(w)
+    g0_norm = torch.linalg.norm(g, dim=-1)
+    delta = g0_norm
+    iteration = torch.zeros(g0_norm.shape, dtype=torch.int32, device=w0.device)
+    # warm starts may arrive stationary: stop before paying a CG loop
+    reason = torch.where(g0_norm <= tolerance, int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE),
+                         int(ConvergenceReason.NOT_CONVERGED)).to(torch.int32)
+
+    for _ in range(max_iter):
+        active = (iteration < max_iter) & (reason == ConvergenceReason.NOT_CONVERGED)
+        if not any_lane(active):
+            break
+        gnorm = torch.linalg.norm(g, dim=-1)
+        hv = hessian_vector_at(w)
+        step, hit_boundary = _truncated_cg_lanes(hv, g, delta, max_cg_iter, cg_forcing * gnorm,
+                                                 active)
+        gs = torch.sum(g * step, dim=-1)
+        shs = torch.sum(step * hv(step), dim=-1)
+        prered = -(gs + 0.5 * shs)
+        f_new, g_new = value_and_grad_fn(w + step)
+        actred = f - f_new
+        snorm = torch.linalg.norm(step, dim=-1)
+        # interpolation factor for severe failures
+        alpha = torch.where(
+            f_new - f - gs <= 0.0, SIGMA3,
+            torch.clamp(-0.5 * (gs / torch.clamp(f_new - f - gs, max=-1e-30)), min=SIGMA1))
+        # trust-region radius update (LIBLINEAR-style, TRON.scala:214-236)
+        new_delta = torch.where(
+            actred < ETA0 * prered,
+            torch.minimum(torch.clamp(alpha, min=SIGMA1) * snorm, SIGMA2 * delta),
+            torch.where(
+                actred < ETA1 * prered,
+                torch.maximum(SIGMA1 * delta, torch.minimum(alpha * snorm, SIGMA2 * delta)),
+                torch.where(
+                    actred < ETA2 * prered,
+                    torch.maximum(SIGMA1 * delta, torch.minimum(alpha * snorm, SIGMA3 * delta)),
+                    torch.where(
+                        hit_boundary,
+                        torch.minimum(SIGMA3 * delta, torch.maximum(delta, snorm)),
+                        torch.maximum(delta, torch.minimum(alpha * snorm, SIGMA3 * delta))))))
+        accept = (actred > ETA0 * prered) & torch.isfinite(f_new)
+        w_acc = torch.where(col(accept), w + step, w)
+        f_acc = torch.where(accept, f_new, f)
+        g_acc = torch.where(col(accept), g_new, g)
+        gnorm_acc = torch.linalg.norm(g_acc, dim=-1)
+        new_reason = torch.where(
+            gnorm_acc <= tolerance * torch.clamp(g0_norm, min=1e-30),
+            int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE),
+            int(ConvergenceReason.NOT_CONVERGED))
+        # a collapsed trust region means no further progress is possible
+        new_reason = torch.where(new_delta < 1e-12,
+                                 int(ConvergenceReason.FUNCTION_VALUES_WITHIN_TOLERANCE),
+                                 new_reason)
+        if rel_function_tolerance is not None:
+            rel_delta = torch.abs(f_acc - f) / torch.clamp(
+                torch.maximum(torch.abs(f_acc), torch.abs(f)), min=1.0)
+            new_reason = torch.where(
+                accept & (rel_delta <= rel_function_tolerance)
+                & (new_reason == ConvergenceReason.NOT_CONVERGED),
+                int(ConvergenceReason.FUNCTION_VALUES_WITHIN_TOLERANCE), new_reason)
+        w = torch.where(col(active), w_acc, w)
+        f = torch.where(active, f_acc, f)
+        g = torch.where(col(active), g_acc, g)
+        delta = torch.where(active, new_delta, delta)
+        reason = torch.where(active, new_reason.to(torch.int32), reason)
+        iteration = iteration + active.to(torch.int32)
+
+    reason = torch.where(reason == ConvergenceReason.NOT_CONVERGED,
+                         int(ConvergenceReason.MAX_ITERATIONS), reason).to(torch.int32)
+    return LaneResult(coefficients=w, value=f, gradient_norm=torch.linalg.norm(g, dim=-1),
+                      iterations=iteration, reason=reason)

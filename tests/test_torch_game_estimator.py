@@ -1,8 +1,9 @@
 """The GAME slice as a whole: ``GameEstimator.fit`` in both packages on one
 numpy fixture (CPU, float64), the models carried across with
 ``photon_ml_torch.convert``, scores on held-out rows with unseen entities
-equal at 1e-8; the evaluators; and the options outside the slice, which
-raise ``NotImplementedError`` naming their ROADMAP item."""
+equal at 1e-8, projected random effects and elastic-net and TRON lanes
+included; the evaluators; and the options outside the slice, which raise
+``NotImplementedError`` naming their ROADMAP item."""
 
 import dataclasses
 
@@ -27,6 +28,7 @@ from tests.torch_game_parity import (
     estimator_pair,
     game_arrays,
     model_to_plain,
+    projected_arrays,
 )
 
 
@@ -49,6 +51,95 @@ def test_fit_and_held_out_scores_match(lanes, norm):
     carried = convert.game_model_from_numpy(model_to_plain(jr.model), device="cpu")
     np.testing.assert_allclose(carried.score(th).numpy(),
                                np.asarray(jr.model.score_dataset(jh)), rtol=1e-10, atol=1e-12)
+
+
+def _projected_estimators(lanes: str, norm: str, *, l1: float = 0.0, tolerance: float = 1e-7,
+                          compute_variance: bool = False, **user):
+    """The same GAME configuration in both packages on ``projected_arrays``:
+    a fixed effect on "global", a per-user effect on "per_entity" with
+    ``user`` options (projector, width, Pearson ratio) and ``lanes``, and an
+    IDENTITY per-item effect with Newton lanes."""
+    from photon_ml_tpu import estimators as jest
+    from photon_ml_tpu.algorithm.coordinates import CoordinateOptimizationConfig as JCfg
+    from photon_ml_tpu.ops.normalization import NormalizationType as JNorm
+    from photon_ml_tpu.optim.optimizer import OptimizerConfig as JOpt
+    from photon_ml_tpu.optim.optimizer import OptimizerType as JType
+    from photon_ml_tpu.projector.projectors import ProjectorType as JProj
+
+    def configs(est, cfg, opt, kind, proj):
+        def o(t, it, **kw):
+            return cfg(optimizer=opt(optimizer_type=kind[t], max_iterations=it,
+                                     tolerance=tolerance if t == lanes else 1e-7),
+                       l2_weight=1.0, compute_variance=compute_variance, **kw)
+
+        kw = dict(user)
+        if "projector_type" in kw:
+            kw["projector_type"] = proj[kw["projector_type"]]
+        return {"fixed": est.FixedEffectCoordinateConfig("global", o("LBFGS", 30)),
+                "per_user": est.RandomEffectCoordinateConfig(
+                    "user", "per_entity", o(lanes, 10, l1_weight=l1), active_data_lower_bound=2,
+                    **kw),
+                "per_item": est.RandomEffectCoordinateConfig("item", "per_entity",
+                                                             o("NEWTON", 10))}
+
+    common = dict(num_iterations=2, intercept_indices={"global": 4, "per_entity": 0})
+    from photon_ml_torch.projector.projectors import ProjectorType as TProj
+    je = jest.GameEstimator(task=JTask.LOGISTIC_REGRESSION, normalization=JNorm[norm],
+                            coordinate_configs=configs(jest, JCfg, JOpt, JType, JProj),
+                            use_pallas=False, **common)
+    te = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION, normalization=NormalizationType[norm],
+                             coordinate_configs=configs(test_, CoordinateOptimizationConfig,
+                                                        OptimizerConfig, OptimizerType, TProj),
+                             **common)
+    return je, te
+
+
+PROJECTED_FITS = {
+    "index-map-standardized-variances": dict(lanes="NEWTON", norm="STANDARDIZATION",
+                                             compute_variance=True, projector_type="INDEX_MAP"),
+    "random-scaled": dict(lanes="LBFGS", norm="SCALE_WITH_STANDARD_DEVIATION",
+                          projector_type="RANDOM", projected_dim=5),
+    "index-map-pearson": dict(lanes="NEWTON", norm="NONE", projector_type="INDEX_MAP",
+                              features_to_samples_ratio=0.5),
+    "identity-pearson": dict(lanes="LBFGS", norm="NONE", features_to_samples_ratio=0.5),
+    "elastic-net-lanes": dict(lanes="LBFGS", norm="NONE", l1=0.05),
+    "owlqn-index-map": dict(lanes="OWLQN", norm="STANDARDIZATION", l1=0.02,
+                            projector_type="INDEX_MAP"),
+    "tron-lanes": dict(lanes="TRON", norm="NONE", tolerance=1e-5),
+    "tron-random": dict(lanes="TRON", norm="STANDARDIZATION", tolerance=1e-5,
+                        projector_type="RANDOM", projected_dim=6),
+}
+
+
+@pytest.mark.parametrize("name", list(PROJECTED_FITS))
+def test_projected_and_other_lane_fits_match(name):
+    """A 2-sweep fit with a projected per-user effect, elastic-net (OWL-QN)
+    or TRON lanes: models (variances included) within 1e-7 relative, scores
+    on training and held-out rows (unseen users among them) within 1e-8."""
+    train, held = projected_arrays(6, held_out=200)
+    jd, td = datasets(train)
+    jh, th = datasets(held, vocabs=jd.entity_vocabs)
+    je, te = _projected_estimators(**PROJECTED_FITS[name])
+    jr, tr = je.fit(jd), te.fit(td)
+    assert_models_close(jr.model, tr.model, rtol=1e-7)
+    for ref_ds, got_ds in ((jd, td), (jh, th)):
+        ref = np.asarray(jr.model.score_dataset(ref_ds))
+        np.testing.assert_allclose(tr.model.score(got_ds).numpy(), ref, rtol=1e-8,
+                                   atol=1e-8 * np.abs(ref).max())
+    losses = [h["train:LOGISTIC_LOSS"] for h in tr.metric_history]
+    assert losses == pytest.approx([h["train:LOGISTIC_LOSS"] for h in jr.metric_history],
+                                   rel=1e-9)
+    assert int((th.entity_idx["user"] < 0).sum()) > 0
+
+
+def test_lbfgsb_random_effect_fit_raises_the_references_error():
+    _, td = datasets(projected_arrays(7, n=200))
+    jd, _ = datasets(projected_arrays(7, n=200))
+    je, te = _projected_estimators("LBFGSB", "NONE")
+    with pytest.raises(ValueError, match="^LBFGSB requires box constraints"):
+        je.fit(jd)  # under jit the JAX package appends a traceback note
+    with pytest.raises(ValueError, match="^LBFGSB requires box constraints$"):
+        te.fit(td)
 
 
 def test_fit_in_float32_runs_and_improves():
@@ -112,18 +203,9 @@ def _lbfgs(**kw):
 
 
 @pytest.mark.parametrize("config,item", [
-    (_re_config(projector_type="INDEX_MAP"), 12),
-    (_re_config(projector_type="RANDOM", projected_dim=2), 12),
-    (_re_config(features_to_samples_ratio=0.5), 12),
-    (_re_config(optimization=dataclasses.replace(_lbfgs(), l1_weight=0.1)), 12),
-    (_re_config(optimization=CoordinateOptimizationConfig(
-        optimizer=OptimizerConfig(OptimizerType.TRON), l2_weight=1.0)), 12),
-    (_re_config(optimization=CoordinateOptimizationConfig(
-        optimizer=OptimizerConfig(OptimizerType.OWLQN), l2_weight=1.0)), 12),
     (_re_config(optimization=_lbfgs(scheduler=LaneSchedulerConfig())), 18),
     (test_.MatrixFactorizationCoordinateConfig("user", "item", 4, _lbfgs()), 13),
-], ids=["index-map", "random-projection", "feature-selection", "l1-lanes", "tron-lanes",
-        "owlqn-lanes", "lane-scheduler", "matrix-factorization"])
+], ids=["lane-scheduler", "matrix-factorization"])
 def test_coordinates_outside_the_slice_raise(config, item):
     _, td = datasets(game_arrays(3, n=200))
     est = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION,

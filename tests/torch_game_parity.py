@@ -67,6 +67,51 @@ def game_arrays(seed: int = 0, *, n: int = 700, d_fe: int = 6, d_re: int = 3, n_
     return ({k: v[:n] for k, v in arrays.items()}, {k: v[n:] for k, v in arrays.items()})
 
 
+def projected_arrays(seed: int = 0, *, n: int = 600, d_fe: int = 5, d_re: int = 12,
+                     n_users: int = 20, n_items: int = 6, task: str = "LOGISTIC_REGRESSION",
+                     held_out: int = 0):
+    """:func:`game_arrays`' layout with a wide per-entity shard in which each
+    user owns a few columns: column 0 a constant-1 intercept, each user 2-5
+    of columns 1..d_re-1 with N(0, 1) values there and zeros elsewhere;
+    skewed user counts (several buckets, two users with two samples each);
+    labels from a planted fixed effect plus a per-user model over its
+    columns. The per-item effect reads the same shard. With ``held_out`` > 0
+    the last rows are split off, half of them of unseen users."""
+    rng = np.random.default_rng(seed)
+    total = n + held_out
+    users = rng.choice(n_users, size=total, p=rng.dirichlet(np.full(n_users, 0.5)))
+    users[:2], users[2:4] = n_users, n_users + 1  # two 2-sample users
+    users[4:n][np.isin(users[4:n], (n_users, n_users + 1))] = 0
+    n_all = n_users + 2
+    items = rng.integers(0, n_items, size=total)
+    support = np.zeros((n_all, d_re), dtype=bool)
+    support[:, 0] = True
+    for u in range(n_all):
+        support[u, 1 + rng.choice(d_re - 1, size=rng.integers(2, 6), replace=False)] = True
+    xr = rng.normal(size=(total, d_re)) * support[users]
+    xr[:, 0] = 1.0
+    xg = rng.normal(size=(total, d_fe))
+    xg[:, -1] = 1.0
+    w_g = rng.normal(size=d_fe) / np.sqrt(d_fe)
+    w_u = rng.normal(size=(n_all, d_re)) * support
+    z = xg @ w_g + np.einsum("nd,nd->n", xr, w_u[users])
+    if task == "LOGISTIC_REGRESSION":
+        y = (rng.uniform(size=total) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    else:
+        y = z + 0.1 * rng.normal(size=total)
+    weights = rng.uniform(0.5, 1.5, size=total)
+    keys = users.copy()
+    if held_out:
+        keys[n + held_out // 2:] += n_all  # unseen at training time
+    arrays = dict(labels=y, xg=xg, xr=xr, users=np.array([f"u{u}" for u in keys]),
+                  items=np.array([f"i{i}" for i in items]), offsets=0.05 * rng.normal(size=total),
+                  weights=weights, query=rng.integers(0, 9, size=total),
+                  unique_ids=rng.permutation(total).astype(np.int64) + 1000)
+    if not held_out:
+        return arrays
+    return ({k: v[:n] for k, v in arrays.items()}, {k: v[n:] for k, v in arrays.items()})
+
+
 def datasets(a, vocabs=None, dtype=np.float64):
     """(JAX GameDataset, port GameDataset on the CPU) of one array dict."""
     kw = dict(labels=a["labels"], feature_shards={"global": a["xg"], "per_entity": a["xr"]},
