@@ -142,7 +142,47 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    plain version (twice bitwise equal; phase 3's f32 limits) with its
    reduction, and timed (the kernels line's ``driver_path``); the time of
    each stage, records per second of the Avro codec and peak device
-   memory.
+   memory. Then the sparse drivers (``SPARSE_DRIVERS``): (i) Avro whose
+   ``features`` bag is a name-term bag at phase 9's distribution (rows cut
+   to 8,192 + 2,048, users to 250), its index maps from the port's feature
+   indexing driver (``--index-maps-dir``), the GAME training driver with a
+   fixed effect and a compact per-user effect on that one sparse shard, and
+   the scoring driver on its model loaded compact (Avro scores bitwise the
+   loaded model's in-process scores); (ii) the GLM driver on LibSVM at
+   LIBSVM a1a's widths (123 features, 14 a row, 1,605 rows; validation AUC
+   above 0.6); (iii) the GAME training driver on pre-indexed LibSVM at full
+   width (d=10^6, 2^16 rows of 16 entries), with the parse's records per
+   second. On each GAME run's own data, after its launches are read, G1 is
+   held against its plain version (per row 1e-5 Σ|v·w| in f64, twice
+   bitwise equal): the training runs' fixed-effect margins and transposes
+   (with their chunk plans) on the driver's training batch at its fitted
+   coefficients and its compact scores, the scoring run's margins and
+   compact scores on the validation rows. Their launches and checks join
+   the kernels line's ``driver_path``.
+9. The sparse GAME slice at bench.py:721's shapes (``SPARSE_GAME``, none
+   cut): n=2^16 rows of 16 Zipf columns (γ=24) over d=10^6, values
+   N(0,1)/4, 2000 users, linear labels, 2^14 held-out rows; a fixed effect
+   (L-BFGS, 10 iterations, L2 1) and a per-user random effect on the same
+   sparse shard, so compact (``[2000, K]`` over each user's active
+   columns). Fits of 4 sweeps: (a) ELL fixed effect and L-BFGS lanes,
+   twice (bitwise equal tables and scores); (b) a hybrid fixed effect (a
+   256-column head) and Newton lanes; (c) SCALE_WITH_MAX_MAGNITUDE
+   (pre-normalized compact blocks) and full variances (finite and positive
+   on each support, NaN off it), L-BFGS lanes. Every fit: the training
+   loss and the coordinate-descent objective non-increasing; the unscaled
+   fits' held-out RMSE below the fixed effect's alone, the scaled fit's
+   within 1% of the JAX package's at this size (``SCALED_FIT_REFERENCE``:
+   its blocks overfit this data's rare columns there too).
+   STANDARDIZATION on the compact effect is refused; a small problem's
+   per-user Newton update on the card agrees with the CPU in f64 (1e-3
+   max|w|). G1 is held against its plain version in f64 on the phase's own
+   inputs (per row 1e-5 Σ|v·w|, twice bitwise equal): the fixed effect's
+   margins and transposes (Zipf-hot columns through the chunk kernel) on
+   fits a's and b's batches, and compact scoring on fit a's table and
+   entries, which is also timed beside cuSPARSE (its own kernels-line
+   entry; the path's launches and checks under ``sparse_game_path``). Printed: K and the bucket bytes, the host build
+   seconds, seconds a sweep by coordinate, one lane update's wall and
+   device ms and kernels.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2352,7 +2392,791 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
              f"{rows_written['game training'] / write_s['game training']:.0f} records/s; peak "
              f"device memory {(torch.cuda.max_memory_allocated() - resident) / 2**20:.1f} MiB "
              f"above the {resident / 2**20:.1f} MiB earlier phases still hold")
+
+        # f. the sparse drivers: sparse Avro with a compact random effect,
+        # LibSVM into the GLM and GAME drivers
+        t0 = time.perf_counter()
+        sparse = _sparse_driver_slice(torch, np, seed, dev, tmp, card)
+        _log(f"sparse drivers: {time.perf_counter() - t0:.2f} s")
+    path["fused_glm"]["libsvm_run_launches"] = sparse["GLM, LibSVM"]["fused_glm"]
+    path["fused_glm_reduce"]["libsvm_run_launches"] = sparse["GLM, LibSVM"]["fused_glm_reduce"]
+    # each run's launches and the checks of G1 on its own inputs; the row and
+    # segment counters include compact scoring's launches, which stand apart
+    gather = {k: v for k, v in sparse.items() if "compact" in v}
+    path["sparse_gather"] = {
+        "launches": sum(v["rows"] + v["segments"] - v["compact"] for v in gather.values()),
+        "runs": {k: {c: v[c] for c in ("rows", "segments", "compact")} for k, v in
+                 gather.items()},
+        "checks": [c for v in gather.values() for c in v["checks"]]}
+    path["sparse_gather_chunks"] = {
+        "launches": sum(v["chunks"] for v in gather.values()),
+        "checks": [c for v in gather.values() for c in v["checks"] if c["chunk_rows"]]}
+    path["sparse_gather_compact"] = {
+        "launches": sum(v["compact"] for v in gather.values()),
+        "checks": [v["compact_check"] for v in gather.values() if "compact_check" in v]}
     return path
+
+
+#: phase 9's shapes: bench.py:721 (bench_game_sweep_composed), none cut: n = 2^16 rows of
+#: 16 Zipf columns (γ = 24) over d = 10^6, values N(0,1)/4, 2000 users, linear labels
+#: (row sum + 0.1 noise), 2^14 held-out rows over the same users; the per-user effect
+#: lives on the same sparse shard as the fixed effect, so it is compact. ``small`` is
+#: the card-vs-CPU problem.
+SPARSE_GAME = dict(n=1 << 16, d=1_000_000, per_row=16, users=2000, held_out=1 << 14,
+                   hot_cols=256, sweeps=4, small=dict(n=4096, d=1 << 16, users=64))
+#: the scaled fit's held-out RMSE after its last sweep and after its first
+#: update (the fixed effect alone) in the JAX package on the CPU at this
+#: phase's full size, float32, by seed (``python -m tests.torch_sparse_game_witness``):
+#: the fit overfits there too, its RMSE ending above the fixed effect's
+SCALED_FIT_REFERENCE = {0: dict(held_out_rmse=5.0303113442097045,
+                                fe_alone_held_out_rmse=4.851650575806711)}
+
+
+def _sparse_game_arrays(np, seed: int, n: int, d: int, per_row: int, users: int,
+                        held_out: int = 0):
+    """bench.py:721's data from ``seed + 13`` (bench.py's own seed at seed 0):
+    (train, held) dicts of COO entries, labels and user keys."""
+    rng = np.random.default_rng(seed + 13)
+    total = n + held_out
+    cols = _zipf_cols(np, rng, total * per_row, d)
+    vals = (rng.normal(size=total * per_row) / np.sqrt(per_row)).astype(np.float32)
+    y = vals.reshape(total, per_row).sum(axis=1) + 0.1 * rng.normal(size=total).astype(
+        np.float32)
+    keys = np.array([f"u{i}" for i in rng.integers(0, users, size=total)])
+
+    def part(lo, hi):
+        sl = slice(lo * per_row, hi * per_row)
+        return {"rows": np.repeat(np.arange(hi - lo), per_row), "cols": cols[sl],
+                "vals": vals[sl], "labels": y[lo:hi], "users": keys[lo:hi], "n": hi - lo}
+
+    return part(0, n), part(n, total)
+
+
+def _sparse_game_dataset(part, d: int, device, dtype=None, vocabs=None, policy=None):
+    import numpy as np
+
+    from photon_ml_torch.data.game_data import build_game_dataset
+    from photon_ml_torch.data.sparse_batch import SparseShard
+
+    dtype = dtype or np.float32
+    shard = SparseShard(rows=part["rows"].astype(np.int64), cols=part["cols"].astype(np.int64),
+                        vals=part["vals"].astype(dtype), num_samples=part["n"], feature_dim=d,
+                        hybrid_policy=policy)
+    return build_game_dataset(labels=part["labels"], feature_shards={"global": shard},
+                              entity_keys={"user": part["users"]}, entity_vocabs=vocabs,
+                              dtype=dtype, device=device)
+
+
+def _sparse_game_estimator(lanes: str, sweeps: int, *, normalization: str = "NONE",
+                           compute_variance: bool = False, evaluators=("RMSE",)):
+    """Phase 9's GAME model: a fixed effect (L-BFGS, 10 iterations) and a
+    per-user random effect (``lanes``, 10 iterations), both on ``global``,
+    L2 weight 1, linear regression."""
+    from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+    from photon_ml_torch.estimators import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_ml_torch.ops.normalization import NormalizationType
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.types import TaskType
+
+    def opt(kind, **kw):
+        return CoordinateOptimizationConfig(
+            optimizer=OptimizerConfig(OptimizerType[kind], max_iterations=10), l2_weight=1.0,
+            **kw)
+
+    return GameEstimator(
+        task=TaskType.LINEAR_REGRESSION,
+        coordinate_configs={
+            "fixed": FixedEffectCoordinateConfig("global", opt("LBFGS")),
+            "per_user": RandomEffectCoordinateConfig(
+                "user", "global", opt(lanes, compute_variance=compute_variance,
+                                      variance_mode="full"))},
+        num_iterations=sweeps, normalization=NormalizationType[normalization],
+        validation_evaluators=tuple(evaluators))
+
+
+def _gather_counts():
+    from photon_ml_torch.models import game
+    from photon_ml_torch.ops import sparse_gather
+
+    return {"rows": sparse_gather.launches, "segments": sparse_gather.segment_launches,
+            "chunks": sparse_gather.chunk_launches, "compact": game.compact_launches}
+
+
+def _reset_gather_counts():
+    from photon_ml_torch.models import game
+    from photon_ml_torch.ops import sparse_gather
+
+    sparse_gather.launches = sparse_gather.segment_launches = sparse_gather.chunk_launches = 0
+    game.compact_launches = 0
+
+
+class _SweepModels:
+    """The models each coordinate's ``update_model`` returns during one fit,
+    by wrapping the port's methods (restored on exit): after each sweep, the
+    fixed and per-user models and their coordinates."""
+
+    def __init__(self):
+        self.sweeps: list = []
+        self._saved = []
+
+    def __enter__(self):
+        from photon_ml_torch.algorithm import coordinates
+
+        latest = {}
+        for cls in (coordinates.FixedEffectCoordinate, coordinates.RandomEffectCoordinate):
+            fn = cls.update_model
+
+            def recorded(coord, *args, _fn=fn, **kw):
+                out = _fn(coord, *args, **kw)
+                latest[coord.coordinate_id] = (coord, out[0])
+                if coord.coordinate_id == "per_user":  # the last of a sweep
+                    self.sweeps.append(dict(latest))
+                return out
+
+            self._saved.append((cls, fn))
+            cls.update_model = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fn in self._saved:
+            cls.update_model = fn
+
+
+def _cd_objective(torch, sweep: dict, dataset) -> float:
+    """The objective block coordinate descent lowers, in f64: the weighted
+    squared loss of the whole model plus each coordinate's L2 penalty on its
+    coefficients in the space it solves in (normalized for a normalized
+    fit). Each update lowers its own block's part from its warm start, so
+    the sum does not rise over the sweeps."""
+    from photon_ml_torch.ops.normalization import no_normalization
+
+    (fe_coord, fe), (re_coord, re) = sweep["fixed"], sweep["per_user"]
+    margins = (fe.score_dataset(dataset) + re.score_dataset(dataset)).double() \
+        + dataset.offsets.double()
+    data = float((dataset.weights.double() * 0.5 * (margins - dataset.labels.double()) ** 2)
+                 .sum())
+    fe_norm = fe_coord.normalization or no_normalization()
+    re_norm = re_coord.normalization or no_normalization()
+    w = fe_norm.from_model_space(fe.glm.coefficients.means, fe_coord.intercept_index).double()
+    t = re_norm.from_model_space_compact(re.coefficients, torch.as_tensor(
+        re.active_cols, device=re.coefficients.device)).double()
+    return data + 0.5 * fe_coord.config.l2_weight * float(w @ w) \
+        + 0.5 * re_coord.config.l2_weight * float((t * t).sum())
+
+
+def _sparse_game_fit(torch, label: str, estimator, dataset, held, sweeps: int,
+                     reference: dict | None = None) -> dict:
+    """One ``GameEstimator.fit`` of phase 9 with the gather counters set to 0
+    just before and read just after: the training loss and the
+    coordinate-descent objective (:func:`_cd_objective`) non-increasing over
+    the sweeps; the held-out RMSE of the whole model below that of its first
+    update (the fixed effect alone, the random effect at 0), or, given a
+    ``reference`` (the JAX package's two RMSEs for this fit), each within 1%
+    of it; seconds a sweep by coordinate.
+
+    The scaled fit takes a reference: its blocks are regularized in
+    normalized space, where this data's rare columns get large factors, so
+    it fits the training rows far more closely than it predicts held-out
+    ones and its held-out RMSE ends above the fixed effect's, in the JAX
+    package as in the port (``SCALED_FIT_REFERENCE``)."""
+    _reset_gather_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _GameTimers(torch) as timers, _SweepModels() as recorded:
+        result = estimator.fit(dataset, validation_dataset=held)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _gather_counts()
+    history = result.metric_history
+    loss_name = next(k for k in history[0] if k.startswith("train:"))
+    last = [h[loss_name] for h in history if h["coordinate"] == history[-1]["coordinate"]]
+    assert len(last) == sweeps and all(math.isfinite(v) for v in last), f"{label}: {last}"
+    assert all(b <= a * (1 + 1e-5) for a, b in zip(last, last[1:])), \
+        f"{label}: training loss rose over the sweeps: {last}"
+    objective = [_cd_objective(torch, sweep, dataset) for sweep in recorded.sweeps]
+    assert len(objective) == sweeps and all(b <= a * (1 + 1e-5) for a, b in
+                                            zip(objective, objective[1:])), \
+        f"{label}: the coordinate-descent objective rose over the sweeps: {objective}"
+    fe_alone = history[0]
+    assert fe_alone["iteration"] == 0 and fe_alone["coordinate"] == "fixed"
+    rmse = history[-1]["validate:RMSE"]
+    assert math.isfinite(rmse), (label, rmse)
+    if reference is None:
+        assert rmse < fe_alone["validate:RMSE"], (label, rmse, fe_alone["validate:RMSE"])
+    else:
+        got = {"held_out_rmse": rmse, "fe_alone_held_out_rmse": fe_alone["validate:RMSE"]}
+        for key, want in reference.items():
+            assert abs(got[key] - want) <= 0.01 * want, (label, key, got[key], want)
+    assert launches["compact"] > 0 and launches["rows"] + launches["segments"] > 0, launches
+    known = sum(v for k, v in timers.seconds.items() if k.startswith("solve ")) \
+        + timers.seconds.get("rescoring", 0.0) + timers.seconds.get("bucket builder", 0.0)
+    out = {"fit": label, "seconds": seconds, "sweeps": sweeps,
+           "seconds_per_sweep": (seconds - timers.seconds.get("bucket builder", 0.0)) / sweeps,
+           "fe_per_sweep": timers.seconds.get("solve fixed", 0.0) / sweeps,
+           "re_per_sweep": timers.seconds.get("solve per_user", 0.0) / sweeps,
+           "rescoring_per_sweep": timers.seconds.get("rescoring", 0.0) / sweeps,
+           "host_rest_per_sweep": (seconds - known) / sweeps,
+           "bucket_builder_seconds": timers.seconds.get("bucket builder", 0.0),
+           "loss_per_sweep": last, "objective_per_sweep": objective, "held_out_rmse": rmse,
+           "fe_alone_held_out_rmse": fe_alone["validate:RMSE"], "launches": launches}
+    _log(f"sparse GAME fit {json.dumps(out)}")
+    out["result"] = result
+    return out
+
+
+def _compact_entry(torch, replaces: str, entries, table, check: dict) -> dict:
+    """The kernels-line entry of compact scoring (G1 over the flattened
+    [E, K+1] table): device and eager time of the scoring as the path calls
+    it, its plain version's (a gather and an ``index_add_``), cuSPARSE's CSR
+    product over the flat slots (``library_ms``, bf16 never: f32 values),
+    and the bound from the bytes the function needs (each entry's value and
+    slot, the row pointers, the output and each distinct slot of the table
+    once) and 2 operations an entry."""
+    from photon_ml_torch.models.game import score_random_effect_compact_reference
+
+    e, k = table.shape
+    flat, row_ptr, _ = entries.plan(e, k)
+    n, nnz = entries.num_samples, entries.vals.numel()
+    nbytes = nnz * (entries.vals.element_size() + 4) + 4 * (n + 1) + 4 * n \
+        + 4 * int(torch.unique(flat).numel())
+    bound, by = _bound_ms(nbytes, 2.0 * nnz)
+    csr = torch.sparse_csr_tensor(row_ptr, flat, entries.vals.float(), (n, e * (k + 1)),
+                                  check_invariants=False)
+
+    def library():
+        return csr @ torch.cat([table, table.new_zeros((e, 1))], dim=1).reshape(-1)
+
+    lib = library()
+    torch.cuda.synchronize()
+    assert float((lib.double() - entries.score(table).double()).abs().max()) \
+        <= 1e-5 * check["scale_max"] + 1e-30
+    return {"name": "sparse_gather_compact", "route": "cuda",
+            "source": "photon_ml_torch/csrc/sparse_gather.cu", "replaces": replaces,
+            "launches": None, "max_abs_err": check["max_abs_err"],
+            "ms": _device_ms(torch, lambda: entries.score(table)),
+            "eager_ms": _eager_ms(torch, lambda: entries.score(table)),
+            "plain_ms": _device_ms(torch, lambda: score_random_effect_compact_reference(
+                table, entries.ent, entries.pos, entries.rows, entries.vals, n)),
+            "bound_ms": bound, "bound_by": by, "library_ms": _device_ms(torch, library),
+            "worst_err_share_of_limit": check["max_err_over_scale"] / check["rel_limit"],
+            "shape": [n, nnz], "table": [e, k], "layout": "compact scoring (segment kernel)",
+            "dtype": "float32", "bytes": nbytes}
+
+
+def _compact_check(torch, tag: str, entries, table, rel: float = 1e-5) -> dict:
+    """Compact scoring through the gather kernel, twice (bitwise equal),
+    against its plain version in f64 on the same entries and table: per row
+    |k - p| <= rel * sum|v * t|."""
+    from photon_ml_torch.models.game import score_random_effect_compact_reference
+
+    k1, k2 = entries.score(table), entries.score(table)
+    args = (entries.ent, entries.pos, entries.rows)
+    n = entries.num_samples
+    plain = score_random_effect_compact_reference(table.double(), *args,
+                                                  entries.vals.double(), n)
+    scale = score_random_effect_compact_reference(table.double().abs(), *args,
+                                                  entries.vals.double().abs(), n)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2), f"compact scoring not bitwise repeatable: {tag}"
+    assert k1.dtype == torch.float32 and bool(torch.isfinite(k1).all()), tag
+    err = (k1.double() - plain).abs()
+    bad = int((err > rel * scale + 1e-30).sum())
+    assert bad == 0, f"compact scoring off its plain version in {bad} of {n} rows: {tag}"
+    return {"case": tag, "rows": n, "rel_limit": rel, "max_abs_err": float(err.max()),
+            "max_err_over_scale": float((err / (scale + 1e-30)).max()),
+            "scale_max": float(scale.max())}
+
+
+def _batch_gather_args(batch) -> dict:
+    """The ELL block, flat tail and chunk plan of a sparse batch, as its
+    margins pass them to ``gather_sum``."""
+    return dict(ell=(batch.ell_vals, batch.ell_cols) if batch.has_ell_view else None,
+                tail=(batch.values, batch.col_indices, batch.row_ids, batch.row_ptr)
+                if batch.nnz else None, chunks=batch.row_chunks)
+
+
+def _fe_gather_checks(torch, tag: str, batch, w) -> list:
+    """G1 as a sparse fixed effect calls it on ``batch`` (a path's own
+    training batch at its fitted coefficients ``w``), each held against its
+    plain version by :func:`_gather_check` (twice, bitwise equal; per row
+    |k - p| <= 1e-5 sum|v w| in f64): the margins X w over the ELL block and
+    flat tail with the batch's chunk plan, and the transpose Xᵀr over the
+    column-sorted plan with its chunk plan (Zipf-hot columns run the chunk
+    kernel), r being the squared loss's row weights at w. A hybrid batch's
+    head is a dense product and not G1's, so it is not part of these."""
+    from photon_ml_torch.data.sparse_batch import feature_product, transpose_plan
+
+    n = batch.num_samples
+    w = w.float().contiguous()
+    margins = _gather_check(torch, f"{tag}: margins X w", w, n, **_batch_gather_args(batch))
+    r = (batch.weights * (feature_product(batch, w) + batch.offsets - batch.labels)) \
+        .float().contiguous()
+    vals, rows, col_ptr, chunks = transpose_plan(batch)
+    transpose = _gather_check(torch, f"{tag}: transpose Xᵀr", r, batch.dim,
+                              tail=(vals, rows, None, col_ptr), chunks=chunks)
+    layout = "hybrid" if batch.has_hybrid_view else "ell" if batch.has_ell_view else "flat"
+    return [dict(margins, layout=layout, chunk_rows=0 if batch.row_chunks is None
+                 else int(batch.row_chunks.rows.numel())),
+            dict(transpose, layout="column-sorted plan", chunk_rows=0 if chunks is None
+                 else int(chunks.rows.numel()))]
+
+
+class _FitCapture:
+    """The dataset and result of every ``GameEstimator.fit`` while open (a
+    driver's own training data, for the checks on its inputs), by wrapping
+    the method (restored on exit)."""
+
+    def __init__(self):
+        self.fits: list = []
+
+    def __enter__(self):
+        from photon_ml_torch.estimators import GameEstimator
+
+        self._fit = fit = GameEstimator.fit
+
+        def recorded(est, dataset, *args, **kw):
+            out = fit(est, dataset, *args, **kw)
+            self.fits.append((dataset, out))
+            return out
+
+        GameEstimator.fit = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from photon_ml_torch.estimators import GameEstimator
+
+        GameEstimator.fit = self._fit
+
+
+def _driver_gather_checks(torch, tag: str, capture: _FitCapture, run: dict) -> None:
+    """G1 on a driver's own training data, into ``run`` (its launch counts):
+    ``checks``, :func:`_fe_gather_checks` on the last fit's batch of the
+    ``global`` shard at its fixed effect's coefficients, and, where the
+    model has a compact per-user effect, ``compact_check``
+    (:func:`_compact_check` of its table on the training rows). A run that
+    launched the chunk kernel must have had it checked."""
+    from photon_ml_torch.models.game import compact_entries
+
+    dataset, result = capture.fits[-1]
+    w = result.model.get("fixed").glm.coefficients.means
+    run["checks"] = _fe_gather_checks(torch, tag, dataset.fixed_effect_batch("global"), w)
+    assert not run["chunks"] or any(c["chunk_rows"] for c in run["checks"]), run
+    user = result.model.models.get("per_user")
+    if user is not None:
+        entries = compact_entries(
+            dataset.feature_shards[user.feature_shard_id],
+            dataset.host_array(f"entity_idx/{user.random_effect_type}"), user.active_cols,
+            user.coefficients.device)
+        run["compact_check"] = _compact_check(torch, f"{tag}: compact scores", entries,
+                                              user.coefficients.float().contiguous())
+
+
+def _small_compact_agreement(torch, np, seed: int, dev, card: str) -> None:
+    """One per-user update (Newton lanes, from zero) of a small compact
+    problem on the card in f32 against the CPU in f64: tables within
+    1e-3 max|w|."""
+    s = SPARSE_GAME["small"]
+    part, _ = _sparse_game_arrays(np, seed + 1, s["n"], s["d"], SPARSE_GAME["per_row"],
+                                  s["users"])
+    tables = {}
+    for where, dtype in ((dev, np.float32), (torch.device("cpu"), np.float64)):
+        ds = _sparse_game_dataset(part, s["d"], where, dtype=dtype)
+        _, coords = _sparse_game_estimator("NEWTON", 1)._build_coordinates(ds, None)
+        coord = coords["per_user"]
+        new, _ = coord.update_model(coord.initial_model(), None)
+        tables[where.type] = new.coefficients.double().cpu()
+        shape = list(new.coefficients.shape)
+    gap = float((tables[dev.type] - tables["cpu"]).abs().max())
+    scale = float(tables["cpu"].abs().max())
+    _log(f"small compact problem n={s['n']} d={s['d']} users={s['users']} table {shape}: one "
+         f"per-user Newton update, card f32 vs cpu f64 max |dw| {gap:.3g} (limit 1e-3 · max|w| "
+         f"= {1e-3 * scale:.3g}) ({card})")
+    assert gap <= 1e-3 * scale
+
+
+def _sparse_game_slice(torch, np, seed: int, dev, card: str) -> tuple[dict, dict]:
+    """Phase 9, the sparse GAME slice at bench.py:721's shapes (none cut): a
+    fixed effect and a compact per-user random effect on one sparse shard,
+    through ``GameEstimator.fit``. Returns (the path: for each kernel this
+    path runs, its launches here and its checks on the path's own inputs,
+    the fixed effect's margins and transposes over fits a's and b's batches
+    and compact scoring over fit a's table; the kernels-line entry of
+    compact scoring). The path's ``sparse_gather`` launches are the fixed
+    effect's; compact scoring's row or segment launches stand apart."""
+    import dataclasses
+
+    from photon_ml_torch.data.game_data import build_random_effect_dataset
+    from photon_ml_torch.data.sparse_batch import HybridPolicy
+    from photon_ml_torch.models import game
+    from photon_ml_torch.ops.normalization import NormalizationType, build_normalization
+
+    cfg = SPARSE_GAME
+    sweeps = cfg["sweeps"]
+    t0 = time.perf_counter()
+    train, held = _sparse_game_arrays(np, seed, cfg["n"], cfg["d"], cfg["per_row"],
+                                      cfg["users"], cfg["held_out"])
+    t_arrays = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = _sparse_game_dataset(train, cfg["d"], dev)
+    held_ds = _sparse_game_dataset(held, cfg["d"], dev, vocabs=ds.entity_vocabs)
+    torch.cuda.synchronize()
+    rows_per_user = np.bincount(ds.host_array("entity_idx/user"))
+    shard = ds.feature_shards["global"]
+    _log(f"sparse GAME data (bench.py:721, none cut) n={cfg['n']} (+{cfg['held_out']} held "
+         f"out) d={cfg['d']}, {cfg['per_row']} Zipf columns a row ({shard.nnz} entries, "
+         f"{len(shard.coalesced()[0])} after duplicates add up), {cfg['users']} users with "
+         f"{rows_per_user.min()}-{rows_per_user.max()} rows (mean {rows_per_user.mean():.1f}): "
+         f"numpy {t_arrays:.2f} s, build_game_dataset x2 {time.perf_counter() - t0:.2f} s")
+
+    # the host builders: the compact buckets and the entries' table slots
+    t0 = time.perf_counter()
+    re_ds = build_random_effect_dataset(ds, "user", "global")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k = re_ds.table_width
+    support = (re_ds.active_cols < cfg["d"]).sum(axis=1)
+    fields = ("features", "labels", "weights", "entity_rows", "sample_rows", "col_index")
+    bucket_bytes = sum(getattr(b, f).numel() * getattr(b, f).element_size()
+                       for b in re_ds.buckets for f in fields)
+    t0 = time.perf_counter()
+    game.compact_entry_positions(shard, ds.host_array("entity_idx/user"), re_ds.active_cols)
+    positions_s = time.perf_counter() - t0
+    _log(f"compact per-user effect ({card}): K = {k} (active columns a user {support.min()}-"
+         f"{support.max()}, mean {support.mean():.1f}), buckets "
+         f"{[list(b.features.shape) for b in re_ds.buckets]}, {bucket_bytes} bytes (a dense "
+         f"[{cfg['users']}, {cfg['d']}] f32 table alone would be "
+         f"{4 * cfg['users'] * cfg['d']} bytes); host build: "
+         f"_build_sparse_random_effect_dataset {build_s:.3f} s, compact_entry_positions "
+         f"{positions_s:.3f} s")
+    del re_ds
+
+    # STANDARDIZATION has mean shifts, which would densify the shard: refused
+    stats = shard.summarize(ds.host_array("weights"))
+    stat = {key: torch.as_tensor(np.asarray(stats[key]), dtype=torch.float32, device=dev)
+            for key in ("mean", "variance", "max_magnitude")}
+    standard = build_normalization(NormalizationType.STANDARDIZATION, **stat, intercept_index=0)
+    try:
+        build_random_effect_dataset(ds, "user", "global", normalization=standard)
+        raise AssertionError("STANDARDIZATION on a compact random effect was not refused")
+    except ValueError as e:
+        assert "SCALE-only" in str(e), e
+    del stat, standard
+
+    _sparse_game_estimator("NEWTON", 1).fit(ds)  # warm up outside the times
+    hybrid = dataclasses.replace(shard, hybrid_policy=HybridPolicy(hot_cols=cfg["hot_cols"],
+                                                                   label="sparse_game"))
+    ds_hybrid = dataclasses.replace(ds, feature_shards={"global": hybrid}, _sparse_batches={})
+    plan = {
+        "a. ELL, compact L-BFGS lanes": (ds, "LBFGS", {}),
+        "a. ELL, compact L-BFGS lanes, again": (ds, "LBFGS", {}),
+        "b. hybrid 256-column head, compact Newton lanes": (ds_hybrid, "NEWTON", {}),
+        "c. scaled, compact L-BFGS lanes, full variances": (
+            ds, "LBFGS", dict(normalization="SCALE_WITH_MAX_MAGNITUDE",
+                              compute_variance=True)),
+    }
+    fits = {}
+    for label, (data, lanes, kw) in plan.items():
+        reference = SCALED_FIT_REFERENCE.get(seed) if "normalization" in kw else None
+        if "normalization" in kw and reference is None:
+            _log(f"no JAX reference for the scaled fit at seed {seed}: its held-out RMSE is "
+                 "printed, not held")
+            reference = {}
+        fits[label] = _sparse_game_fit(torch, label, _sparse_game_estimator(lanes, sweeps, **kw),
+                                       data, held_ds, sweeps, reference)
+        torch.cuda.empty_cache()
+
+    # a. twice: bitwise equal tables and scores
+    runs = [fits[label]["result"].model for label in list(plan)[:2]]
+    for cid in ("fixed", "per_user"):
+        m1, m2 = runs[0].get(cid), runs[1].get(cid)
+        t1 = m1.glm.coefficients.means if cid == "fixed" else m1.coefficients
+        t2 = m2.glm.coefficients.means if cid == "fixed" else m2.coefficients
+        assert torch.equal(t1, t2), f"fit a's two runs differ in {cid}"
+    assert torch.equal(runs[0].score(held_ds), runs[1].score(held_ds))
+    # c. variances finite and positive on each user's support, NaN off it
+    user = fits["c. scaled, compact L-BFGS lanes, full variances"]["result"].model.get("per_user")
+    var = user.variances.double().cpu().numpy()
+    on = user.active_cols < cfg["d"]
+    assert np.isfinite(var[on]).all() and (var[on] > 0).all() and np.isnan(var[~on]).all()
+    _log(f"sparse GAME checks ({card}): fit a's two runs bitwise equal (tables, coefficients, "
+         f"held-out scores); variances on support {var[on].min():.4g}-{var[on].max():.4g}, NaN "
+         f"off it; held-out RMSE " + json.dumps(
+             {label: [f["held_out_rmse"], f["fe_alone_held_out_rmse"]]
+              for label, f in fits.items()}) + " (GAME, fixed effect alone)")
+    del user, var, runs
+
+    _small_compact_agreement(torch, np, seed, dev, card)
+
+    # one lane update's wall and device time, with kernels
+    for lanes in ("LBFGS", "NEWTON"):
+        share = _lane_loop_share(torch, _sparse_game_estimator(lanes, 1, evaluators=()), ds)
+        _log(f"lane loop, one compact per-user update, {lanes} lanes ({card}): "
+             + json.dumps(share))
+
+    # compact scoring on this path's own inputs (fit a's table on the
+    # training rows): through G1 against its plain version in f64
+    model = fits["a. ELL, compact L-BFGS lanes"]["result"].model.get("per_user")
+    table = model.coefficients.float().contiguous()
+    entries = game.compact_entries(shard, ds.host_array("entity_idx/user"), model.active_cols,
+                                   dev)
+    check = _compact_check(torch, "compact scoring on the sparse GAME training rows", entries,
+                           table)
+    _reset_gather_counts()
+    entry = _compact_entry(torch, "experiments/sparse_gather_probe.py:70", entries, table, check)
+    _log(f"compact scoring through G1 [{entries.num_samples} rows, {entries.vals.numel()} "
+         f"entries] table {list(table.shape)} ({card}): " + json.dumps(check) + " "
+         + json.dumps(entry))
+    # the fixed effect's gathers on this path's own inputs: fit a's ELL
+    # batch and fit b's hybrid batch at their fitted coefficients
+    fe_checks = []
+    for label, data in (("a. ELL, compact L-BFGS lanes", ds),
+                        ("b. hybrid 256-column head, compact Newton lanes", ds_hybrid)):
+        w = fits[label]["result"].model.get("fixed").glm.coefficients.means
+        fe_checks += _fe_gather_checks(torch, f"sparse GAME fit {label}",
+                                       data.fixed_effect_batch("global"), w)
+    _log(f"the fixed effect's gathers on the sparse GAME training batches ({card}): "
+         + json.dumps(fe_checks))
+    chunked = [c for c in fe_checks if c["chunk_rows"]]
+    assert chunked, "the Zipf-hot columns should take the chunk kernel"
+    launches = {key: sum(f["launches"][key] for f in fits.values())
+                for key in ("rows", "segments", "chunks", "compact")}
+    entry["launches"] = launches["compact"]
+    # the row and segment counters include compact scoring's launches
+    fe_launches = launches["rows"] + launches["segments"] - launches["compact"]
+    path = {"sparse_gather": {"launches": fe_launches, "row_kernel": launches["rows"],
+                              "segment_kernel": launches["segments"],
+                              "compact_scoring": launches["compact"], "checks": fe_checks},
+            "sparse_gather_chunks": {"launches": launches["chunks"], "checks": chunked},
+            "sparse_gather_compact": dict(check, launches=launches["compact"])}
+    for label, f in fits.items():
+        _log(f"sparse GAME fit {label} ({card}): seconds a sweep {f['seconds_per_sweep']:.4f} "
+             f"(fixed effect {f['fe_per_sweep']:.4f}, per-user {f['re_per_sweep']:.4f}, "
+             f"rescoring {f['rescoring_per_sweep']:.4f}, host rest "
+             f"{f['host_rest_per_sweep']:.4f}); launches {json.dumps(f['launches'])}")
+    assert all(v["launches"] > 0 for v in path.values()), path
+    del fits, ds, held_ds, ds_hybrid, model, table, entries
+    torch.cuda.empty_cache()
+    return path, entry
+
+
+#: phase 8's sparse drivers: GAME on sparse Avro at phase 9's distribution
+#: (name-term bag over d = 10^6 Zipf columns, 16 a row), rows cut to 8,192 +
+#: 2,048 as the dense drivers' are (the pure-Python codec) and users to 250,
+#: so a user keeps about phase 9's 33 rows; the GLM driver on LibSVM at
+#: LIBSVM a1a's widths (123 binary features, 14 a row, 1,605 training rows;
+#: validation as many); the GAME driver on LibSVM at phase 9's full width
+#: and rows (pre-indexed, d = 10^6, 2^16 rows of 16 entries), fixed effect
+#: only (LibSVM carries no id columns).
+SPARSE_DRIVERS = dict(game_rows=8192, validation_rows=2048, users=250, d=1_000_000,
+                      a1a_rows=1605, a1a_d=123, a1a_per_row=14, libsvm_rows=1 << 16)
+
+
+def _write_libsvm(np, path, labels, rows, cols, vals, n: int) -> float:
+    """LibSVM text of row-sorted entries, 1-based indices, one line a row;
+    seconds."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    starts = [0, *np.cumsum(np.bincount(rows, minlength=n)).tolist()]
+    with open(path, "w") as f:
+        for i in range(n):
+            feats = " ".join(f"{c + 1}:{v!r}" for c, v in
+                             zip(cols[starts[i]:starts[i + 1]].tolist(),
+                                 vals[starts[i]:starts[i + 1]].tolist()))
+            f.write(f"{labels[i]!r} {feats}\n")
+    return time.perf_counter() - t0
+
+
+def _sparse_driver_slice(torch, np, seed: int, dev, tmp: Path, card: str) -> dict:
+    """Phase 8's sparse drivers (``SPARSE_DRIVERS``): (i) the GAME training
+    driver on sparse Avro with a compact per-user effect on the fixed
+    effect's shard, its index maps from the port's feature indexing driver,
+    then the scoring driver on its model (Avro scores bitwise the loaded
+    model's in-process scores); (ii) the GLM driver on LibSVM (validation AUC
+    above 0.6); (iii) the GAME training driver on pre-indexed LibSVM at full
+    width. Returns each run's kernel launches (counters set to 0 before it)."""
+    from photon_ml_torch.cli import (
+        feature_indexing_driver,
+        game_scoring_driver,
+        game_training_driver,
+        glm_driver,
+    )
+    from photon_ml_torch.io import photon_schemas
+    from photon_ml_torch.io.data_reader import read_merged
+    from photon_ml_torch.io.index_map import IndexMap
+    from photon_ml_torch.io.model_io import load_game_model, read_scores
+    from photon_ml_torch.cli.configs import parse_feature_shard_config
+    from photon_ml_torch.models.game import compact_entries
+    from photon_ml_torch.ops import fused_glm
+
+    cfg = SPARSE_DRIVERS
+    launches = {}
+    # (i) GAME on sparse Avro, a name-term bag
+    n, nv = cfg["game_rows"], cfg["validation_rows"]
+    train, held = _sparse_game_arrays(np, seed + 6, n, cfg["d"], SPARSE_GAME["per_row"],
+                                      cfg["users"], nv)
+
+    def record(part, offset):
+        cols, vals = part["cols"].tolist(), part["vals"].tolist()
+        y, users, per_row = part["labels"].tolist(), part["users"].tolist(), \
+            SPARSE_GAME["per_row"]
+        return lambda i: {
+            "uid": str(offset + i), "label": y[i], "weight": 1.0, "offset": 0.0,
+            "foldId": None, "metadataMap": {"userId": users[i]},
+            "features": [{"name": "w", "term": str(c), "value": v} for c, v in
+                         zip(cols[i * per_row:(i + 1) * per_row],
+                             vals[i * per_row:(i + 1) * per_row])]}
+
+    te = photon_schemas.TRAINING_EXAMPLE_AVRO
+    write_s = _write_avro(tmp / "sparse/train/part-00000.avro", te, n, record(train, 0))
+    _write_avro(tmp / "sparse/validation/part-00000.avro", te, nv, record(held, n))
+    spec = "name=global,feature.bags=features,intercept=true,sparse=true"
+    t0 = time.perf_counter()
+    sizes = feature_indexing_driver.main([
+        "--input-data-path", str(tmp / "sparse/train"), "--output-dir",
+        str(tmp / "sparse/index-maps"), "--feature-shard-configurations", spec])
+    index_s = time.perf_counter() - t0
+    _reset_gather_counts()
+    t0 = time.perf_counter()
+    with _FitCapture() as capture:
+        game = game_training_driver.main([
+            "--input-data-path", str(tmp / "sparse/train"),
+            "--validation-data-path", str(tmp / "sparse/validation"),
+            "--root-output-dir", str(tmp / "sparse/out"), "--task-type", "LINEAR_REGRESSION",
+            "--index-maps-dir", str(tmp / "sparse/index-maps"),
+            "--feature-shard-configurations", spec,
+            "--coordinate-configurations",
+            "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+            "--coordinate-configurations",
+            "name=per_user,feature.shard=global,reg.weights=1,max.iter=10,"
+            "random.effect.type=userId",
+            "--coordinate-descent-iterations", "2", "--evaluators", "RMSE"], device=dev)
+        torch.cuda.synchronize()
+    game_s = time.perf_counter() - t0
+    launches["GAME training, sparse Avro"] = _gather_counts()
+    # G1 on the driver's own training batch, after its launches were read
+    _driver_gather_checks(torch, "GAME training driver, sparse Avro", capture,
+                          launches["GAME training, sparse Avro"])
+    del capture
+    fe_alone = game["metric_history"][0]["metrics"][0]
+    assert fe_alone["coordinate"] == "fixed" and game["best_metric"] < fe_alone["validate:RMSE"], \
+        (game["best_metric"], fe_alone)
+    run = launches["GAME training, sparse Avro"]
+    assert run["compact"] > 0 and run["rows"] + run["segments"] > 0, run
+    _reset_gather_counts()
+    scored = game_scoring_driver.main([
+        "--input-data-path", str(tmp / "sparse/validation"),
+        "--model-input-dir", str(tmp / "sparse/out/best"),
+        "--output-dir", str(tmp / "sparse/scored"), "--evaluators", "RMSE",
+        "--feature-shard-configurations", spec, "--compact-random-effect-threshold", "0"],
+        device=dev)
+    torch.cuda.synchronize()
+    launches["GAME scoring, sparse Avro"] = _gather_counts()
+    assert launches["GAME scoring, sparse Avro"]["compact"] > 0
+    avro_scores = np.asarray([r["predictionScore"]
+                              for r in read_scores(tmp / "sparse/scored/scores")])
+    maps = IndexMap.load_directory(tmp / "sparse/out/index-maps")
+    model = load_game_model(tmp / "sparse/out/best", maps, compact_random_effect_threshold=0,
+                            device=dev)
+    assert model.get("per_user").is_compact
+    ds = read_merged(tmp / "sparse/validation", dict([parse_feature_shard_config(spec)]),
+                     index_maps=maps, random_effect_id_columns=("userId",),
+                     entity_vocabs={"userId": model.get("per_user").entity_keys},
+                     device=dev).dataset
+    in_process = (model.score(ds) + ds.offsets).cpu().numpy()
+    assert avro_scores.shape == (nv,) and np.array_equal(avro_scores,
+                                                         in_process.astype(np.float64)), \
+        float(np.abs(avro_scores - in_process).max())
+    # G1 on the scoring run's own inputs: the loaded model's margins and
+    # compact scores over the validation rows
+    user = model.get("per_user")
+    table = user.coefficients
+    scoring = launches["GAME scoring, sparse Avro"]
+    batch = ds.fixed_effect_batch("global")
+    scoring["checks"] = [dict(_gather_check(
+        torch, "GAME scoring driver, sparse Avro: margins X w",
+        model.get("fixed").glm.coefficients.means.float().contiguous(), nv,
+        **_batch_gather_args(batch)), chunk_rows=0 if batch.row_chunks is None
+        else int(batch.row_chunks.rows.numel()))]
+    scoring["compact_check"] = _compact_check(
+        torch, "GAME scoring driver, sparse Avro: compact scores", compact_entries(
+            ds.feature_shards["global"], ds.host_array(f"entity_idx/{user.random_effect_type}"),
+            user.active_cols, dev), table.float().contiguous())
+    _log(f"GAME drivers on sparse Avro ({card}): {n} + {nv} rows of a name-term bag (written "
+         f"at {n / write_s:.0f} records/s), feature indexing driver {index_s:.2f} s ({sizes}), "
+         f"training {game_s:.2f} s, validation RMSE {game['best_metric']:.6f} against the fixed "
+         f"effect alone {fe_alone['validate:RMSE']:.6f}, compact per-user table "
+         f"{list(table.shape)}; scoring driver RMSE {scored['evaluations']['RMSE']:.6f}, its "
+         f"{nv} Avro scores bitwise equal to the loaded model's in-process scores; launches "
+         + json.dumps(launches) + "; stages "
+         + json.dumps({k: round(v["total"], 4) for k, v in game["timings"].items()}))
+    del model, ds, table, user, batch
+
+    # (ii) the GLM driver on LibSVM at a1a's widths
+    rng = np.random.default_rng(seed + 8)
+    na, da, pa = cfg["a1a_rows"], cfg["a1a_d"], cfg["a1a_per_row"]
+    w_true = rng.normal(size=da)
+    for name in ("train", "validation"):
+        cols = np.sort(np.argsort(rng.random((na, da)), axis=1)[:, :pa], axis=1)
+        margin = w_true[cols].sum(axis=1) / np.sqrt(pa)
+        y = np.where(rng.uniform(size=na) < 1.0 / (1.0 + np.exp(-margin)), 1, -1)
+        _write_libsvm(np, tmp / f"a1a/{name}.txt", y.tolist(), np.repeat(np.arange(na), pa),
+                      cols.ravel(), np.ones(na * pa), na)
+    fused_glm.launches = fused_glm.reduce_launches = 0
+    t0 = time.perf_counter()
+    glm = glm_driver.main([
+        "--input-data-path", str(tmp / "a1a/train.txt"),
+        "--validation-data-path", str(tmp / "a1a/validation.txt"),
+        "--output-dir", str(tmp / "a1a/out"), "--task-type", "LOGISTIC_REGRESSION",
+        "--regularization-weights", "1,10", "--input-format", "libsvm"],
+        device=dev)
+    torch.cuda.synchronize()
+    glm_s = time.perf_counter() - t0
+    launches["GLM, LibSVM"] = {"fused_glm": fused_glm.launches,
+                               "fused_glm_reduce": fused_glm.reduce_launches}
+    aucs = {lam: m["AUC"] for lam, m in glm.validation_metrics.items()}
+    assert launches["GLM, LibSVM"]["fused_glm"] > 0 and glm.stage.name == "VALIDATED"
+    assert aucs[glm.best_lambda] > 0.6, aucs
+    _log(f"GLM driver on LibSVM at a1a's widths ({na} + {na} rows, {da} features, {pa} a row) "
+         f"({card}): {glm_s:.2f} s, validation AUC {json.dumps(aucs)}, best λ "
+         f"{glm.best_lambda}, launches {json.dumps(launches['GLM, LibSVM'])}")
+
+    # (iii) the GAME driver on pre-indexed LibSVM at full width
+    nl = cfg["libsvm_rows"]
+    part, _ = _sparse_game_arrays(np, seed + 7, nl, cfg["d"], SPARSE_GAME["per_row"],
+                                  SPARSE_GAME["users"])
+    text_s = _write_libsvm(np, tmp / "libsvm/train.txt", part["labels"].tolist(), part["rows"],
+                           part["cols"], part["vals"], nl)
+    _reset_gather_counts()
+    t0 = time.perf_counter()
+    with _FitCapture() as capture:
+        pre = game_training_driver.main([
+            "--input-data-path", str(tmp / "libsvm/train.txt"), "--input-format", "libsvm",
+            "--root-output-dir", str(tmp / "libsvm/out"), "--task-type", "LINEAR_REGRESSION",
+            "--feature-shard-configurations",
+            f"name=global,feature.bags=features,intercept=false,pre.indexed=true,"
+            f"dimension={cfg['d']},sparse=true",
+            "--coordinate-configurations",
+            "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+            "--model-output-mode", "BEST"], device=dev)
+        torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    launches["GAME training, pre-indexed LibSVM"] = _gather_counts()
+    run = launches["GAME training, pre-indexed LibSVM"]
+    assert run["rows"] + run["segments"] > 0, run
+    _driver_gather_checks(torch, "GAME training driver, pre-indexed LibSVM", capture, run)
+    del capture
+    parse_s = pre["timings"]["libsvm parse"]["total"]
+    loss = [h["metrics"] for h in pre["metric_history"]][0]
+    _log(f"GAME driver on pre-indexed LibSVM, d={cfg['d']}, {nl} rows of "
+         f"{SPARSE_GAME['per_row']} entries ({card}): {pre_s:.2f} s; LibSVM text written in "
+         f"{text_s:.2f} s, parsed at {nl / parse_s:.0f} records/s ({parse_s:.2f} s); training "
+         f"loss {json.dumps(loss)}; launches {json.dumps(run)}; stages "
+         + json.dumps({k: round(v["total"], 4) for k, v in pre["timings"].items()}))
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2398,13 +3222,14 @@ def main(argv=None) -> int:
          f"{fused_glm.tile_plan(8192, torch.float32)}")
 
     # 3. kernels against their plain versions
+    t0 = time.perf_counter()
     worst = _kernel_cases(torch, fused_glm, losses, LabeledPointBatch, NormalizationContext,
                           args.seed)
-    _log(f"kernel checks: {json.dumps(worst)}")
+    _log(f"kernel checks: {json.dumps(worst)} ({time.perf_counter() - t0:.2f} s)")
 
     # 4. the slice at n=2^18, d=512
     n, d = 1 << 18, 512
-    t0 = time.perf_counter()
+    t_dense = t0 = time.perf_counter()
     x_np, y_np = _dataset(np, args.seed, n, d)
     batch = LabeledPointBatch.create(x_np, y_np, device=dev)
     batch16 = LabeledPointBatch.create(x_np, y_np, dtype=torch.bfloat16, device=dev)
@@ -2524,6 +3349,7 @@ def main(argv=None) -> int:
              f"{s['reason']}, {s['evaluations']} evaluations in {s['seconds']:.4f} s "
              f"({s['evaluations'] / s['seconds']:.1f} evaluations/s), value {s['value']:.8g}")
     _log(f"AUC (λ=1, training data): {auc:.6f}")
+    _log(f"dense phases (4 and 6): {time.perf_counter() - t_dense:.2f} s")
     del batch, batch16, b1_args, models, scores
     torch.cuda.empty_cache()
 
@@ -2550,7 +3376,16 @@ def main(argv=None) -> int:
     driver_path = _driver_slice(torch, np, args.seed, dev, card)
     _log(f"driver phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in driver_path.items()}))
-    for key, path in (("projected_path", projected_path), ("driver_path", driver_path)):
+
+    # 9. the sparse GAME slice: its launches, and compact scoring held on its
+    # own inputs as a kernels-line entry of its own
+    t0 = time.perf_counter()
+    sparse_game_path, compact_entry = _sparse_game_slice(torch, np, args.seed, dev, card)
+    line["kernels"].append(compact_entry)
+    _log(f"sparse GAME phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in sparse_game_path.items()}))
+    for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
+                      ("sparse_game_path", sparse_game_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

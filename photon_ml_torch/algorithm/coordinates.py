@@ -23,8 +23,11 @@ the locked-model coordinates and algorithm/CoordinateFactory.scala:50-111.
   and back-projects with ``solved @ Pᵀ``. Pre-normalized blocks solve on a
   plain objective.
 
-A random effect lives on a dense shard; its lanes are L-BFGS, Newton,
-OWL-QN (with an L1 weight) or TRON.
+A random effect on a sparse shard is compact: its table is ``[E, K]`` over
+each entity's active columns and its buckets' column index holds table
+positions (pad = K), so the INDEX_MAP bucket solve runs on it unchanged and
+normalization converts it through the ``*_compact`` context methods. The
+lanes are L-BFGS, Newton, OWL-QN (with an L1 weight) or TRON.
 """
 
 from __future__ import annotations
@@ -455,11 +458,15 @@ class RandomEffectCoordinate(Coordinate):
             random_effect_type=re.random_effect_type,
             feature_shard_id=re.feature_shard_id,
             task=self.task,
+            active_cols=re.active_cols,
+            feature_dim=re.dim if re.is_compact else None,
         )
 
     def _prepare_solve(self, model: RandomEffectModel, extra_offsets: torch.Tensor | None):
         """Checks the projector/normalization composition and returns
-        (objective, projector, full_offsets, norm, table in solve space)."""
+        (objective, projector, full_offsets, norm, compact_cols, table in
+        solve space); compact_cols is the [E, K] active-column table of a
+        compact coordinate, else None."""
         re = self.re_dataset
         projector = re.projector_type
         if projector == ProjectorType.RANDOM and self.normalization is not None \
@@ -471,6 +478,13 @@ class RandomEffectCoordinate(Coordinate):
                 "RandomEffectDataset must be built with the same "
                 "normalization (build_random_effect_dataset(normalization=...)) "
                 "so features are normalized before sketching"
+            )
+        if re.is_compact and self.normalization is not None \
+                and self.normalization.shifts is not None:
+            raise ValueError(
+                "compact (sparse-shard) random-effect coordinates support "
+                "SCALE-only normalization; mean shifts (STANDARDIZATION) "
+                "would densify the feature space"
             )
         if projector == ProjectorType.INDEX_MAP and self.normalization is not None \
                 and not re.pre_normalized:
@@ -497,16 +511,22 @@ class RandomEffectCoordinate(Coordinate):
         if extra_offsets is not None:
             full_offsets = full_offsets + extra_offsets
         norm = self.normalization if self.normalization is not None else no_normalization()
-        table = norm.from_model_space(model.coefficients, self.intercept_index)
-        return objective, projector, full_offsets, norm, table
+        compact_cols = None
+        if re.is_compact:
+            # compact tables convert per entity through gathered factors
+            compact_cols = re.active_cols_on(model.coefficients.device)
+            table = norm.from_model_space_compact(model.coefficients, compact_cols)
+        else:
+            table = norm.from_model_space(model.coefficients, self.intercept_index)
+        return objective, projector, full_offsets, norm, compact_cols, table
 
     def _projection_matrix(self, table: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(self.re_dataset.projection.matrix, dtype=table.dtype,
                                device=table.device)
 
     def update_model(self, model: RandomEffectModel, extra_offsets: torch.Tensor | None = None):
-        objective, projector, full_offsets, norm, table = self._prepare_solve(model,
-                                                                              extra_offsets)
+        objective, projector, full_offsets, norm, compact_cols, table = self._prepare_solve(
+            model, extra_offsets)
         opt = _solve_config(self.config, loss=objective.loss, small_dense=True)
         if opt.scheduler is not None:
             raise NotImplementedError(
@@ -537,9 +557,11 @@ class RandomEffectCoordinate(Coordinate):
                 traces.append(trace)
         variances = None
         if self.config.compute_variance:
-            variances = norm.variances_to_model_space(
-                self._variances(objective, projector, full_offsets, table))
-        table = norm.to_model_space(table, self.intercept_index)
+            var_table = self._variances(objective, projector, full_offsets, table)
+            variances = (norm.variances_to_model_space(var_table) if compact_cols is None
+                         else norm.variances_to_model_space_compact(var_table, compact_cols))
+        table = (norm.to_model_space(table, self.intercept_index) if compact_cols is None
+                 else norm.to_model_space_compact(table, compact_cols))
         info = LaneTraces(traces) if traces else None
         return dataclasses.replace(model, coefficients=table, variances=variances), info
 

@@ -88,8 +88,7 @@ def parse_feature_shard_config(spec: str) -> tuple[str, FeatureShardConfiguratio
     sparse = _bool(kv.pop("sparse", "false"))
     pre_indexed = _bool(kv.pop("pre.indexed", "false"))
     dimension = kv.pop("dimension", None)
-    # hybrid dense-head/sparse-tail layout (sparse shards only; the port's
-    # reader refuses it, ROADMAP.md item 14)
+    # hybrid dense-head/sparse-tail layout (sparse shards only)
     hybrid = _bool(kv.pop("hybrid", "false"))
     hybrid_hot_cols = kv.pop("hybrid.hot.cols", None)
     hybrid_coverage = kv.pop("hybrid.coverage", None)

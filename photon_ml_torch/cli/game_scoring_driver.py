@@ -15,7 +15,11 @@ outputs (``scores/part-NNNNN.avro``, ``scoring-summary.json``) keep the JAX
 driver's names and layout. Left out, each refused with
 ``NotImplementedError`` naming its ROADMAP.md item before any data is read:
 ``--distributed``/``--mesh`` (10), ``--partitioned-io`` (15),
-``--telemetry-dir`` and ``--trace-dir`` (19), LibSVM input (14).
+``--telemetry-dir`` and ``--trace-dir`` (19). ``--input-format libsvm``
+reads LibSVM text. A compact random-effect model scores a sparse shard
+(``sparse=true`` in its ``--feature-shard-configurations``) through the
+gather kernel; a model is loaded compact when its feature space exceeds
+``--compact-random-effect-threshold``.
 """
 
 from __future__ import annotations
@@ -48,14 +52,12 @@ from photon_ml_torch.util.timed import reset_timings
 logger = logging.getLogger(__name__)
 
 
-def _check_ported(*, input_format, distributed, partitioned_io, telemetry_dir,
-                  trace_dir) -> None:
+def _check_ported(*, distributed, partitioned_io, telemetry_dir, trace_dir) -> None:
     left_out = (
         (distributed, "--distributed/--mesh (mesh-sharded scoring)", 10),
         (partitioned_io, "--partitioned-io (per-rank score shards)", 15),
         (bool(telemetry_dir), "--telemetry-dir (run journal)", 19),
         (bool(trace_dir), "--trace-dir (span tracing)", 19),
-        (input_format != "avro", f"--input-format {input_format}", 14),
     )
     for unported, what, item in left_out:
         if unported:
@@ -90,9 +92,8 @@ def run(
     configs default to one shard per saved index map using the bag of the
     same name.
     """
-    _check_ported(input_format=input_format, distributed=distributed,
-                  partitioned_io=partitioned_io, telemetry_dir=telemetry_dir,
-                  trace_dir=trace_dir)
+    _check_ported(distributed=distributed, partitioned_io=partitioned_io,
+                  telemetry_dir=telemetry_dir, trace_dir=trace_dir)
     if on_corrupt not in ("raise", "quarantine"):
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
     device = resolve_device(device)
@@ -116,8 +117,8 @@ def run(
             data = read_merged(path, feature_shards, index_maps=index_maps or None,
                                random_effect_id_columns=re_columns,
                                evaluation_id_columns=evaluation_id_columns(evaluators),
-                               entity_vocabs=entity_vocabs, on_corrupt=on_corrupt,
-                               device=device)
+                               entity_vocabs=entity_vocabs, fmt=input_format,
+                               on_corrupt=on_corrupt, device=device)
         with Timed("score", sync=sync):
             scored = transformer.transform(data.dataset)
         summary = {"num_scored": int(len(scored.scores)), "evaluations": scored.evaluations}

@@ -27,8 +27,9 @@ ROADMAP.md item before any data is read: ``--distributed``/``--mesh`` (10),
 ``--checkpoint-dir`` and ``--max-restarts`` above 0 (16; the port's default
 is 0), ``--incremental-refresh``, hyperparameter tuning, the lane scheduler
 (18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir`` (19),
-matrix-factorization coordinates (13), sparse shards and LibSVM input
-(14), date ranges (queue A).
+matrix-factorization coordinates (13), date ranges (queue A).
+Sparse, hybrid and pre-indexed shards and ``--input-format libsvm`` are
+taken; a random effect on a sparse shard trains and saves a compact model.
 """
 
 from __future__ import annotations
@@ -54,12 +55,13 @@ from photon_ml_torch.cli.configs import (
     parse_feature_shard_config,
 )
 from photon_ml_torch.data.batch import summarize
+from photon_ml_torch.data.sparse_batch import SparseShard
 from photon_ml_torch.data.validators import DataValidationType, validate_game_dataset
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.estimators import GameEstimator
 from photon_ml_torch.evaluation.evaluators import parse_evaluator
 from photon_ml_torch.io.data_reader import read_merged
-from photon_ml_torch.io.index_map import IndexMap
+from photon_ml_torch.io.index_map import IdentityIndexMap, IndexMap
 from photon_ml_torch.io.model_io import (
     DEFAULT_COMPACT_RE_THRESHOLD,
     load_game_model,
@@ -138,7 +140,6 @@ class GameTrainingParams:
             (bool(self.telemetry_dir), "--telemetry-dir (run journal)", 19),
             (bool(self.trace_dir), "--trace-dir (span tracing)", 19),
             (bool(self.profile_dir), "--profile-dir (device traces)", 19),
-            (self.input_format != "avro", f"--input-format {self.input_format}", 14),
         )
         for unported, what, item in left_out:
             if unported:
@@ -155,8 +156,6 @@ class GameTrainingParams:
                 raise NotImplementedError(
                     f"coordinate '{name}': the lane scheduler (scheduler=true) is not ported "
                     "yet: ROADMAP.md item 18")
-        for shard, cfg in self.feature_shards.items():
-            cfg.check_ported(shard)
 
     def validate(self) -> None:
         """Cross-parameter checks (reference validateParams:196-298)."""
@@ -241,8 +240,8 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dic
     with Timed("read training data", sync=sync):
         train = read_merged(params.input_data_path, params.feature_shards,
                             index_maps=prebuilt_maps, random_effect_id_columns=re_columns,
-                            evaluation_id_columns=eval_columns, on_corrupt=params.on_corrupt,
-                            device=device)
+                            evaluation_id_columns=eval_columns, fmt=params.input_format,
+                            on_corrupt=params.on_corrupt, device=device)
     job_log.info("read %d training samples, shards %s", train.dataset.num_samples,
                  {k: v.size for k, v in train.index_maps.items()})
 
@@ -253,7 +252,7 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dic
                 params.validation_data_path, params.feature_shards,
                 index_maps=train.index_maps, random_effect_id_columns=re_columns,
                 evaluation_id_columns=eval_columns, entity_vocabs=train.dataset.entity_vocabs,
-                on_corrupt=params.on_corrupt, device=device)
+                fmt=params.input_format, on_corrupt=params.on_corrupt, device=device)
 
     with Timed("validate data"):
         validate_game_dataset(train.dataset, params.task_type, params.data_validation)
@@ -262,10 +261,19 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dic
 
     with Timed("feature shard stats"):
         weights = train.dataset.host_array("weights")
-        for shard_id in train.dataset.feature_shards:
-            stats = summarize(train.dataset.host_array(f"shard/{shard_id}"), weights)
+        for shard_id, features in train.dataset.feature_shards.items():
+            imap = train.index_maps[shard_id]
+            if isinstance(imap, IdentityIndexMap) and imap.size > (1 << 20):
+                # a pre-indexed giant space: its stats file would be d records
+                logger.info("skipping feature stats for pre-indexed shard '%s' (d=%d)",
+                            shard_id, imap.size)
+                continue
+            if isinstance(features, SparseShard):
+                stats = features.summarize(weights)
+            else:
+                stats = summarize(train.dataset.host_array(f"shard/{shard_id}"), weights)
             write_feature_stats(os.path.join(out, "feature-stats", shard_id, "part-00000.avro"),
-                                stats, train.index_maps[shard_id])
+                                stats, imap)
 
     initial_model = None
     if params.model_input_dir:

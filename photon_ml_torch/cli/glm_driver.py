@@ -17,8 +17,8 @@ flags keep the JAX driver's names and meanings. Left out, each refused with
 ``--streaming-chunks``, ``--checkpoint-dir`` and ``--max-restarts`` above 0
 (item 16; the port has no recovery layer, so its default is 0),
 ``--grid-parallel`` and ``--search-rounds`` (18), ``--enable-diagnostics``,
-``--num-bootstraps``, ``--telemetry-dir`` and ``--trace-dir`` (19), LibSVM
-input (14).
+``--num-bootstraps``, ``--telemetry-dir`` and ``--trace-dir`` (19).
+``--input-format libsvm`` reads LibSVM text (``io/libsvm.py``).
 """
 
 from __future__ import annotations
@@ -114,7 +114,6 @@ class GLMDriverParams:
              "--enable-diagnostics/--num-bootstraps (diagnostic reports)", 19),
             (bool(self.telemetry_dir), "--telemetry-dir (run journal)", 19),
             (bool(self.trace_dir), "--trace-dir (span tracing)", 19),
-            (self.input_format != "avro", f"--input-format {self.input_format}", 14),
         )
         for unported, what, item in left_out:
             if unported:
@@ -130,9 +129,10 @@ class GLMDriverResult:
     summary_path: str
 
 
-def _read_batch(path: str, shard_cfg, device, index_maps=None, on_corrupt: str = "raise"):
-    """(batch, dataset, index maps, intercept index) of one Avro input."""
-    result = read_merged(path, shard_cfg, index_maps=index_maps, on_corrupt=on_corrupt,
+def _read_batch(path: str, fmt: str, shard_cfg, device, index_maps=None,
+                on_corrupt: str = "raise"):
+    """(batch, dataset, index maps, intercept index) of one Avro or LibSVM input."""
+    result = read_merged(path, shard_cfg, index_maps=index_maps, fmt=fmt, on_corrupt=on_corrupt,
                          device=device)
     ds = result.dataset
     batch = LabeledPointBatch(features=ds.feature_shards["features"], labels=ds.labels,
@@ -161,7 +161,8 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
         # PREPROCESS
         with Timed("glm preprocess", sync=sync):
             batch, ds, index_maps, intercept_index = _read_batch(
-                params.input_data_path, shard_cfg, device, on_corrupt=params.on_corrupt)
+                params.input_data_path, params.input_format, shard_cfg, device,
+                on_corrupt=params.on_corrupt)
             validate_arrays(
                 labels=ds.host_array("labels"), task=params.task_type,
                 offsets=ds.host_array("offsets"), weights=ds.host_array("weights"),
@@ -203,7 +204,8 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
         validation_metrics: dict = {}
         if params.validation_data_path:
             with Timed("glm validate", sync=sync):
-                val_batch, _, _, _ = _read_batch(params.validation_data_path, shard_cfg, device,
+                val_batch, _, _, _ = _read_batch(params.validation_data_path,
+                                                 params.input_format, shard_cfg, device,
                                                  index_maps, on_corrupt=params.on_corrupt)
                 metric = _SELECTION_METRIC[params.task_type]
                 larger = METRIC_DIRECTIONS[metric]

@@ -110,12 +110,13 @@ def game_dataset_from_numpy(*, unique_ids, labels, offsets, weights, feature_sha
 def random_effect_dataset_from_numpy(*, random_effect_type: str, feature_shard_id: str, buckets,
                                      num_entities: int, dim: int, projector_type="IDENTITY",
                                      projection_matrix=None, pre_normalized: bool = False,
-                                     device=None) -> RandomEffectDataset:
+                                     active_cols=None, device=None) -> RandomEffectDataset:
     """A RandomEffectDataset from bucket fields as numpy arrays: ``buckets``
     is a sequence of mappings with features [e, cap, k], labels, weights
     [e, cap], entity_rows [e], sample_rows [e, cap] and, for INDEX_MAP,
     col_index [e, k]. ``projector_type`` is a ProjectorType, its name, or an
-    enum whose value is the name; ``projection_matrix`` is RANDOM's [d, k]."""
+    enum whose value is the name; ``projection_matrix`` is RANDOM's [d, k];
+    ``active_cols`` [E, K] makes the dataset compact."""
     device = resolve_device(device)
     out = []
     for b in buckets:
@@ -135,7 +136,9 @@ def random_effect_dataset_from_numpy(*, random_effect_type: str, feature_shard_i
                                num_entities=int(num_entities), dim=int(dim),
                                projector_type=ProjectorType(
                                    getattr(projector_type, "value", projector_type)),
-                               projection=projection, pre_normalized=bool(pre_normalized))
+                               projection=projection, pre_normalized=bool(pre_normalized),
+                               active_cols=None if active_cols is None
+                               else np.asarray(active_cols, dtype=np.int32))
 
 
 def game_model_from_numpy(models, *, device=None) -> GameModel:
@@ -143,7 +146,8 @@ def game_model_from_numpy(models, *, device=None) -> GameModel:
     fixed effect is ``{"kind": "fixed", "means", "variances", "task",
     "feature_shard_id"}``, a random effect ``{"kind": "random",
     "coefficients", "variances", "entity_keys", "random_effect_type",
-    "feature_shard_id", "task"}``."""
+    "feature_shard_id", "task"}``, plus ``"active_cols"`` and ``"feature_dim"``
+    for a compact one."""
     device = resolve_device(device)
     out = {}
     for cid, m in models.items():
@@ -157,7 +161,10 @@ def game_model_from_numpy(models, *, device=None) -> GameModel:
                 variances=_opt_tensor(m.get("variances"), device),
                 entity_keys=np.asarray(m["entity_keys"]),
                 random_effect_type=m["random_effect_type"],
-                feature_shard_id=m["feature_shard_id"], task=_task(m["task"]))
+                feature_shard_id=m["feature_shard_id"], task=_task(m["task"]),
+                active_cols=None if m.get("active_cols") is None
+                else np.asarray(m["active_cols"], dtype=np.int32),
+                feature_dim=m.get("feature_dim"))
         else:
             raise ValueError(f"coordinate '{cid}': unknown model kind {m['kind']!r}")
     return GameModel(models=out)
@@ -181,6 +188,9 @@ def game_model_to_numpy(model: GameModel) -> dict:
                         "variances": arr(m.variances), "entity_keys": np.asarray(m.entity_keys),
                         "random_effect_type": m.random_effect_type,
                         "feature_shard_id": m.feature_shard_id, "task": m.task.value}
+            if m.is_compact:
+                out[cid].update(active_cols=np.asarray(m.active_cols),
+                                feature_dim=int(m.feature_dim))
         else:
             raise TypeError(f"coordinate '{cid}': cannot convert {type(m).__name__}")
     return out

@@ -7,7 +7,7 @@ data/RandomEffectDataSet.scala (grouping per entity with reservoir caps and
 lower bounds).
 
 - One feature block per feature shard (a dense [n, d_shard] tensor, or a
-  ``SparseShard`` for a fixed effect too wide to densify), [n]
+  ``SparseShard`` for a shard too wide to densify), [n]
   labels/offsets/weights, and per random-effect type an [n] entity index.
 - Random-effect training data is size-bucketed padded blocks: entities
   bucketed by sample count, each bucket an [entities, cap, d] tensor that
@@ -15,7 +15,9 @@ lower bounds).
   narrows d: INDEX_MAP to each bucket's widest per-entity support (with the
   per-entity column index beside the block), RANDOM to the sketch width; a
   per-entity Pearson filter (``features_to_samples_ratio``) zeroes the
-  columns an entity does not keep.
+  columns an entity does not keep. On a sparse shard the view is compact:
+  each entity's block covers its active columns, gathered from the COO
+  entries without ever forming [E, d].
 - Scoring always runs over the full sample axis through an entity-indexed
   gather (models/game.py), so samples left out of training (reservoir cap,
   lower bound) are still scored.
@@ -220,9 +222,12 @@ class EntityBucket:
 
 @dataclasses.dataclass
 class RandomEffectDataset:
-    """Bucketed per-entity training view for one RE coordinate on a dense
-    shard. ``dim`` is the shard width and the table is [num_entities, dim]
-    in original space; projected buckets carry narrower features."""
+    """Bucketed per-entity training view for one RE coordinate. ``dim`` is
+    the shard width and the table is [num_entities, dim] in original space;
+    projected buckets carry narrower features. On a sparse shard the view is
+    compact: ``active_cols`` [E, K] holds each entity's sorted active global
+    columns (pad = dim), the table is [E, K] over them, and the buckets'
+    ``col_index`` holds table positions (pad = K)."""
 
     random_effect_type: str
     feature_shard_id: str
@@ -235,14 +240,30 @@ class RandomEffectDataset:
     #: (``build_random_effect_dataset(normalization=...)``): the solves then
     #: run on a plain objective while the table conversions keep the context
     pre_normalized: bool = False
+    active_cols: np.ndarray | None = None
 
     @property
     def num_trained_entities(self) -> int:
         return sum(b.num_entities for b in self.buckets)
 
     @property
+    def is_compact(self) -> bool:
+        return self.active_cols is not None
+
+    @property
     def table_width(self) -> int:
-        return self.dim
+        """Second axis of the coefficient table: K in compact mode, the
+        shard width otherwise."""
+        return self.dim if self.active_cols is None else int(self.active_cols.shape[1])
+
+    def active_cols_on(self, device) -> torch.Tensor:
+        """``active_cols`` on ``device``, uploaded once per device (the
+        compact table conversions of every update read it)."""
+        cache = self.__dict__.setdefault("_active_cols_device", {})
+        device = torch.device(device)
+        if device not in cache:
+            cache[device] = torch.as_tensor(self.active_cols, device=device)
+        return cache[device]
 
 
 def _stable_priorities(sample_ids: np.ndarray, seed: int) -> np.ndarray:
@@ -491,10 +512,28 @@ def build_random_effect_dataset(
             "coordinates normalize through the objective's context"
         )
     if isinstance(shard, SparseShard):
-        raise NotImplementedError(
-            f"random-effect coordinate on the sparse shard '{shard_id}': compact "
-            "per-entity tables are not ported yet (ROADMAP.md item 14)"
-        )
+        if normalization is not None and normalization.shifts is not None:
+            raise ValueError(
+                "sparse (compact) random-effect shards support SCALE-only "
+                "normalization; mean shifts (STANDARDIZATION) would densify "
+                "the feature space"
+            )
+        if projector_type not in (ProjectorType.IDENTITY, ProjectorType.INDEX_MAP):
+            raise ValueError(
+                f"sparse random-effect shard '{shard_id}': only "
+                "IDENTITY/INDEX_MAP projectors are supported (the compact "
+                "representation IS an index-map projection)"
+            )
+        if features_to_samples_ratio is not None:
+            raise ValueError(
+                "features_to_samples_ratio (Pearson selection) is not "
+                "supported on sparse random-effect shards"
+            )
+        return _build_sparse_random_effect_dataset(
+            dataset, re_type, shard_id, shard,
+            active_data_upper_bound=active_data_upper_bound,
+            active_data_lower_bound=active_data_lower_bound,
+            bucket_sizes=bucket_sizes, seed=seed, normalization=normalization)
     entity_idx = dataset.host_array(f"entity_idx/{re_type}")
     features = dataset.host_array(f"shard/{shard_id}")
     labels = dataset.host_array("labels")
@@ -579,6 +618,117 @@ def build_random_effect_dataset(
         projector_type=projector_type,
         projection=projection,
         pre_normalized=normalization is not None,
+    )
+
+
+def _build_sparse_random_effect_dataset(
+    dataset: GameDataset,
+    re_type: str,
+    shard_id: str,
+    shard: SparseShard,
+    *,
+    active_data_upper_bound: int | None,
+    active_data_lower_bound: int | None,
+    bucket_sizes: Sequence[int],
+    seed: int,
+    normalization=None,
+) -> RandomEffectDataset:
+    """Compact per-entity blocks from a sparse shard, never ``[E, dim]``.
+
+    Each entity's active columns are the union of nonzero columns over its
+    kept samples (reference IndexMapProjectorRDD.scala:218-257); its block
+    is ``[cap, bdim]`` over them and the table ``[E, K]``, K the widest
+    support. Bucket ``col_index`` holds table positions (pad = K), so the
+    INDEX_MAP bucket solve runs unchanged on an ``[E, K+1]`` table with its
+    scratch column. A SCALE context multiplies the entries' values by their
+    column's factor before the gather (the blocks are pre-normalized).
+    """
+    entity_idx = dataset.host_array(f"entity_idx/{re_type}")
+    labels = dataset.host_array("labels")
+    weights = dataset.host_array("weights")
+    unique_ids = np.asarray(dataset.unique_ids)
+    n = dataset.num_samples
+    dim = int(shard.feature_dim)
+    num_entities = len(dataset.entity_vocabs[re_type])
+    device = dataset.device
+
+    rows_s, cols_s, vals_s = (np.asarray(a) for a in shard.coalesced())
+    factors = None if normalization is None else host_factors(normalization)
+    if factors is not None:
+        vals_s = vals_s * factors.astype(vals_s.dtype)[cols_s]
+    row_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows_s, minlength=n), out=row_ptr[1:])
+
+    per_bucket = group_entities_into_buckets(
+        entity_idx, unique_ids, bucket_sizes=bucket_sizes,
+        active_data_upper_bound=active_data_upper_bound,
+        active_data_lower_bound=active_data_lower_bound, seed=seed)
+
+    # pass 1: each bucket's entries and its lanes' sorted active columns
+    staged = []
+    for cap, members in per_bucket.items():
+        if not members:
+            continue
+        e = len(members)
+        be, rows_concat, lane, slot = pack_bucket_lanes(members)
+        bl = np.zeros((e, cap), dtype=labels.dtype)
+        bw = np.zeros((e, cap), dtype=weights.dtype)
+        bs = np.full((e, cap), -1, dtype=np.int32)
+        bl[lane, slot] = labels[rows_concat]
+        bw[lane, slot] = weights[rows_concat]
+        bs[lane, slot] = rows_concat
+
+        # the kept samples' entries, sliced from the row pointers
+        cnt = row_ptr[rows_concat + 1] - row_ptr[rows_concat]
+        total = int(cnt.sum())
+        base = np.repeat(row_ptr[rows_concat], cnt)
+        eidx = base + np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        ecol = cols_s[eidx].astype(np.int64)
+        evals = vals_s[eidx]
+        elane = np.repeat(lane, cnt)
+        eslot = np.repeat(slot, cnt)
+
+        key = elane * (dim + 1) + ecol
+        uniq = np.unique(key)
+        ulane, ucol = uniq // (dim + 1), uniq % (dim + 1)
+        counts = np.bincount(ulane, minlength=e)
+        bdim = max(int(counts.max(initial=0)), 1)
+        starts = np.zeros(e + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        bc = np.full((e, bdim), dim, dtype=np.int32)  # pad = dim (global)
+        bc[ulane, np.arange(len(uniq)) - starts[ulane]] = ucol
+        # each entry's position in its lane's active list
+        epos = np.searchsorted(uniq, key) - starts[elane]
+        bf = np.zeros((e, cap, bdim), dtype=vals_s.dtype)
+        bf[elane, eslot, epos] = evals
+        staged.append((e, be, bl, bw, bs, bc, bf, bdim))
+
+    k_width = max((bdim for *_, bdim in staged), default=1)
+    active_cols = np.full((num_entities, k_width), dim, dtype=np.int32)
+    buckets: list[EntityBucket] = []
+    for e, be, bl, bw, bs, bc, bf, bdim in staged:
+        active_cols[be, :bdim] = bc
+        # an entity lives in one bucket, so its slot p is table position p;
+        # pads point at the scratch column K
+        local = np.broadcast_to(np.arange(bdim, dtype=np.int32), (e, bdim)).copy()
+        local[bc >= dim] = k_width
+        buckets.append(EntityBucket(
+            features=device_tensor(bf, None, device),
+            labels=device_tensor(bl, None, device),
+            weights=device_tensor(bw, None, device),
+            entity_rows=device_tensor(be, torch.int32, device),
+            sample_rows=device_tensor(bs, torch.int32, device),
+            col_index=device_tensor(local, torch.int32, device),
+        ))
+    return RandomEffectDataset(
+        random_effect_type=re_type,
+        feature_shard_id=shard_id,
+        buckets=buckets,
+        num_entities=num_entities,
+        dim=dim,
+        projector_type=ProjectorType.INDEX_MAP,
+        pre_normalized=normalization is not None,
+        active_cols=active_cols,
     )
 
 

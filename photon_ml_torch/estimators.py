@@ -6,7 +6,8 @@ per-coordinate datasets, the training-loss and validation evaluators and the
 per-shard normalization, then runs block coordinate descent; in the port it
 runs on one device, over a dense or sparse fixed effect and random effects
 on dense shards (IDENTITY, INDEX_MAP or RANDOM projection, optional
-per-entity Pearson feature selection). ``train_glm`` (reference ModelTraining.scala:55-228)
+per-entity Pearson feature selection) or on sparse shards (compact ``[E, K]``
+tables over each entity's active columns). ``train_glm`` (reference ModelTraining.scala:55-228)
 is the single-GLM regularization path with warm starts, for dense and sparse
 batches alike.
 """
@@ -210,8 +211,6 @@ class GameEstimator:
             elif isinstance(cfg, MatrixFactorizationCoordinateConfig):
                 raise _not_ported(f"matrix-factorization coordinate '{cid}'", 13)
             elif isinstance(cfg, RandomEffectCoordinateConfig):
-                if isinstance(dataset.feature_shards[cfg.feature_shard_id], SparseShard):
-                    raise _not_ported(f"random effect '{cid}' on a sparse shard", 14)
                 if cfg.optimization.optimizer.scheduler is not None:
                     raise _not_ported(f"random effect '{cid}': the lane scheduler", 18)
                 re_dataset = build_random_effect_dataset(
@@ -222,9 +221,10 @@ class GameEstimator:
                     projector_type=cfg.projector_type,
                     projected_dim=cfg.projected_dim,
                     features_to_samples_ratio=cfg.features_to_samples_ratio,
-                    # projected entity blocks are rewritten to normalized
-                    # space at build time (IndexMapProjectorRDD.scala:134-147)
-                    normalization=_build_normalization_for(cfg, norms))
+                    # projected and compact entity blocks are rewritten to
+                    # normalized space at build time
+                    # (IndexMapProjectorRDD.scala:134-147)
+                    normalization=_build_normalization_for(cfg, dataset, norms))
                 coordinates[cid] = RandomEffectCoordinate(
                     coordinate_id=cid, dataset=dataset, re_dataset=re_dataset, task=self.task,
                     config=cfg.optimization, normalization=norms.get(cfg.feature_shard_id),
@@ -260,13 +260,15 @@ class GameEstimator:
         return norms
 
 
-def _build_normalization_for(cfg: RandomEffectCoordinateConfig,
+def _build_normalization_for(cfg: RandomEffectCoordinateConfig, dataset: GameDataset,
                              norms) -> NormalizationContext | None:
     """The context an RE coordinate's entity blocks are pre-normalized with
     at dataset build: INDEX_MAP and RANDOM coordinates (RANDOM normalizes
-    before sketching, which is exact). IDENTITY coordinates normalize
-    through the objective's context instead."""
-    if cfg.projector_type in (ProjectorType.INDEX_MAP, ProjectorType.RANDOM):
+    before sketching, which is exact), and sparse shards (which coerce to
+    the compact INDEX_MAP form). IDENTITY coordinates on a dense shard
+    normalize through the objective's context instead."""
+    if cfg.projector_type in (ProjectorType.INDEX_MAP, ProjectorType.RANDOM) \
+            or isinstance(dataset.feature_shards[cfg.feature_shard_id], SparseShard):
         return norms.get(cfg.feature_shard_id)
     return None
 

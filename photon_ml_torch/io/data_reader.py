@@ -12,10 +12,11 @@ in the storage dtype, a bfloat16 shard rounded once from the finished f32
 block), so a dataset read here equals the JAX package's element for element;
 only the finished arrays move to the device (``build_game_dataset``).
 
-Left out (``NotImplementedError``, ROADMAP.md item 14): sparse and
-pre-indexed shards, the hybrid layout and LibSVM input. The JAX package's
-native C++ decoder is host code the port does not load; a port-owned copy is
-queued (ROADMAP.md queue A).
+A sparse shard stays COO triples end to end (a ``SparseShard``, with its
+hybrid policy); a pre-indexed shard (LibSVM integer columns) uses column j as
+feature j through an ``IdentityIndexMap``. The JAX package's native C++
+decoders (Avro and LibSVM) are host code the port does not load; port-owned
+copies are queued (ROADMAP.md host items).
 """
 
 from __future__ import annotations
@@ -30,8 +31,10 @@ import numpy as np
 import torch
 
 from photon_ml_torch.data.game_data import GameDataset, build_game_dataset
+from photon_ml_torch.data.sparse_batch import HybridPolicy, SparseShard
 from photon_ml_torch.io import avro as avro_io
-from photon_ml_torch.io.index_map import INTERCEPT_KEY, IndexMap, feature_key
+from photon_ml_torch.io.index_map import INTERCEPT_KEY, IdentityIndexMap, IndexMap, feature_key
+from photon_ml_torch.io.libsvm import concat_libsvm, parse_libsvm
 from photon_ml_torch.util.timed import Timed
 
 #: Standard column names (reference data/InputColumnsNames.scala).
@@ -50,9 +53,10 @@ class FeatureShardConfiguration:
 
     ``dtype`` is the storage type of the dense block, "float32" or
     "bfloat16" (rounded once on the host from the assembled f32 block).
-    ``sparse``, ``pre_indexed``/``dimension`` and the ``hybrid*`` fields are
-    carried so that a configuration of the JAX package maps over; the port's
-    reader does not take them yet (ROADMAP.md item 14)."""
+    ``sparse`` keeps the shard as COO triples (a ``SparseShard``), for
+    feature spaces too wide to densify; ``hybrid*`` give it a dense head
+    (``data/sparse_batch.HybridPolicy``). ``pre_indexed`` with ``dimension``
+    takes LibSVM's integer columns as the feature ids (LibSVM input only)."""
 
     feature_bags: tuple[str, ...]
     has_intercept: bool = True
@@ -77,18 +81,46 @@ class FeatureShardConfiguration:
         if not self.hybrid and (self.hybrid_hot_cols is not None
                                 or self.hybrid_coverage is not None):
             raise ValueError("hybrid.hot.cols / hybrid.coverage require hybrid=true")
+        # range checks are HybridPolicy's, so the CLI and programmatic paths agree
+        self.hybrid_policy()
 
-    def check_ported(self, shard: str) -> None:
-        """Raise NotImplementedError for a shard form the port cannot read."""
-        if self.sparse or self.pre_indexed or self.hybrid:
-            raise NotImplementedError(
-                f"feature shard '{shard}': sparse, pre-indexed and hybrid shards are "
-                "not read by the port yet: ROADMAP.md item 14")
+    def hybrid_policy(self, label: str = "sparse") -> HybridPolicy | None:
+        """The shard's HybridPolicy (None when hybrid is off)."""
+        if not self.hybrid:
+            return None
+        return HybridPolicy(hot_cols=self.hybrid_hot_cols, coverage=self.hybrid_coverage,
+                            label=label)
 
 
 def read_avro_records(path: str | os.PathLike, *, on_corrupt: str = "raise") -> Iterator[dict]:
     """Iterate training records from an Avro file or directory of part files."""
     return avro_io.read_directory(path, on_corrupt=on_corrupt)
+
+
+def read_libsvm(path: str | os.PathLike, *, zero_based: bool = False) -> Iterator[dict]:
+    """Read LibSVM text into TrainingExample-shaped dicts: feature name =
+    str(0-based index), term = "", ±1 labels mapped to {0, 1} and any other
+    label kept as a regression target."""
+    with open(path, encoding="utf-8") as f:
+        for i, line in enumerate(f):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            raw_label = float(parts[0])
+            label = (1.0 if raw_label > 0 else 0.0) if raw_label in (-1.0, 1.0) else raw_label
+            features = []
+            for tok in parts[1:]:
+                if tok.startswith("#"):
+                    break  # trailing comment
+                idx_s, _, val_s = tok.partition(":")
+                idx = int(idx_s) - (0 if zero_based else 1)
+                if idx < 0:
+                    # a 0 index in a 1-based file is an error, as in the CSR parser
+                    raise ValueError(f"feature index out of range at line {i + 1}: {tok!r}")
+                features.append({"name": str(idx), "term": "", "value": float(val_s)})
+            yield {"uid": str(i), "label": label, "features": features, "weight": 1.0,
+                   "offset": 0.0, "metadataMap": None}
 
 
 def _record_bags(record: dict) -> dict[str, list[dict]]:
@@ -144,6 +176,26 @@ def _scatter_dense(n: int, d: int, row_idx: np.ndarray, col_idx: np.ndarray, val
     return x
 
 
+def _assemble_sparse_shard(n: int, imap: IndexMap, cfg: FeatureShardConfiguration,
+                           triples: np.ndarray, dtype, shard: str,
+                           intercept_indices: dict[str, int]) -> SparseShard:
+    """COO shard assembly, never densified: the intercept column becomes n
+    explicit (i, intercept, 1.0) entries; duplicate (row, col) pairs add up
+    when the shard coalesces."""
+    row_idx = triples[:, 0].astype(np.int64)
+    col_idx = triples[:, 1].astype(np.int64)
+    vals = triples[:, 2].astype(dtype)
+    if cfg.has_intercept:
+        ii = imap.get_index(INTERCEPT_KEY)
+        if ii >= 0:
+            row_idx = np.concatenate([row_idx, np.arange(n, dtype=np.int64)])
+            col_idx = np.concatenate([col_idx, np.full(n, ii, dtype=np.int64)])
+            vals = np.concatenate([vals, np.ones(n, dtype=dtype)])
+            intercept_indices[shard] = ii
+    return SparseShard(rows=row_idx, cols=col_idx, vals=vals, num_samples=n,
+                       feature_dim=imap.size, hybrid_policy=cfg.hybrid_policy(label=shard))
+
+
 def _apply_intercept(x: np.ndarray, imap: IndexMap, shard: str,
                      intercept_indices: dict[str, int]) -> None:
     """Set the intercept column to 1 and record its index, if the map has one."""
@@ -179,8 +231,6 @@ def records_to_game_dataset(
     record's metadataMap first, then from top-level record fields — the
     reference's idTagToValueMap extraction (GameConverters.scala).
     """
-    for shard, cfg in shard_configs.items():
-        cfg.check_ported(shard)
     labels: list[float] = []
     offsets: list[float] = []
     weights: list[float] = []
@@ -225,11 +275,15 @@ def records_to_game_dataset(
                         rows[shard].append((n, j, float(feat["value"])))
         n += 1
 
-    feature_shards: dict[str, np.ndarray] = {}
+    feature_shards: dict[str, object] = {}
     intercept_indices: dict[str, int] = {}
     for shard, cfg in shard_configs.items():
         imap = index_maps[shard]
         triples = np.asarray(rows[shard], dtype=np.float64) if rows[shard] else np.zeros((0, 3))
+        if cfg.sparse:
+            feature_shards[shard] = _assemble_sparse_shard(n, imap, cfg, triples, dtype, shard,
+                                                           intercept_indices)
+            continue
         x = _scatter_dense(n, imap.size, triples[:, 0], triples[:, 1], triples[:, 2], dtype)
         if cfg.has_intercept:
             _apply_intercept(x, imap, shard, intercept_indices)
@@ -245,12 +299,15 @@ def records_to_game_dataset(
         ids={c: np.asarray(id_cols[c]) for c in evaluation_id_columns},
         entity_vocabs=entity_vocabs,
         dtype=dtype,
-        shard_dtypes={s: torch.bfloat16 for s, c in shard_configs.items()
-                      if c.dtype == "bfloat16"},
+        shard_dtypes=_shard_dtypes(shard_configs),
         device=device,
     )
     return ReadResult(dataset=dataset, index_maps=dict(index_maps),
                       intercept_indices=intercept_indices)
+
+
+def _shard_dtypes(shard_configs: Mapping[str, FeatureShardConfiguration]) -> dict:
+    return {s: torch.bfloat16 for s, c in shard_configs.items() if c.dtype == "bfloat16"}
 
 
 def read_merged(
@@ -270,20 +327,34 @@ def read_merged(
     (reference DataReader.readMerged). ``path`` may be a list of paths,
     read in order as one dataset.
 
-    on_corrupt: "raise" (default, strict) or "quarantine": corrupt container
-    blocks are skipped and counted (``avro.quarantined_blocks``).
+    on_corrupt: "raise" (default, strict) or "quarantine" (Avro only):
+    corrupt container blocks are skipped and counted
+    (``avro.quarantined_blocks``). ``fmt="libsvm"`` reads LibSVM text
+    (:func:`_read_merged_libsvm`).
     """
     paths = [path] if isinstance(path, (str, os.PathLike)) else list(path)
     if not paths:
         raise ValueError("read_merged needs at least one input path")
     if on_corrupt not in ("raise", "quarantine"):
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
+    if on_corrupt == "quarantine" and fmt != "avro":
+        raise ValueError(
+            f"on_corrupt={on_corrupt!r} supports fmt='avro' only (LibSVM "
+            "text has no block framing to quarantine)")
+    pre_idx = [s for s, c in shard_configs.items() if c.pre_indexed]
+    if pre_idx and fmt != "libsvm":
+        raise ValueError(
+            f"pre-indexed shards {pre_idx} require the libsvm input format "
+            "(avro features are name-term keyed; index them with feature "
+            "maps instead)")
+    if fmt == "libsvm":
+        return _read_merged_libsvm(
+            paths, shard_configs, index_maps=index_maps,
+            random_effect_id_columns=random_effect_id_columns,
+            evaluation_id_columns=evaluation_id_columns, entity_vocabs=entity_vocabs,
+            dtype=dtype, device=device)
     if fmt != "avro":
-        raise NotImplementedError(
-            f"input format {fmt!r}: the port reads Avro only; LibSVM input is ROADMAP.md "
-            "item 14")
-    for shard, cfg in shard_configs.items():
-        cfg.check_ported(shard)
+        raise ValueError(f"unknown format {fmt!r}")
 
     def records():
         return itertools.chain.from_iterable(
@@ -303,3 +374,126 @@ def read_merged(
         random_effect_id_columns=random_effect_id_columns,
         evaluation_id_columns=evaluation_id_columns,
         entity_vocabs=entity_vocabs, dtype=dtype, device=device)
+
+
+def _libsvm_files(paths: Sequence[str | os.PathLike]) -> list:
+    """Each path, a directory expanded to its sorted regular files (the
+    part-file convention of the Avro path)."""
+    def expand(p):
+        if os.path.isdir(p):
+            return [os.path.join(p, f) for f in sorted(os.listdir(p))
+                    if not f.startswith(("_", ".")) and os.path.isfile(os.path.join(p, f))]
+        return [p]
+
+    files = [f for p in paths for f in expand(p)]
+    if not files:
+        raise ValueError(f"no LibSVM files found under {list(paths)}")
+    return files
+
+
+def _libsvm_index_maps(shard_configs: Mapping[str, FeatureShardConfiguration],
+                       distinct: np.ndarray) -> dict[str, IndexMap]:
+    """Index maps of a LibSVM read: an ``IdentityIndexMap`` of the declared
+    dimension for a pre-indexed shard, else the distinct indices' names."""
+    index_maps: dict[str, IndexMap] = {}
+    for shard, cfg in shard_configs.items():
+        if cfg.pre_indexed:
+            if cfg.dimension is None:
+                raise ValueError(f"pre-indexed shard '{shard}' needs a dimension")
+            if cfg.dimension > np.iinfo(np.int32).max:
+                # the gather kernels take int32 column ids
+                raise ValueError(
+                    f"pre-indexed shard '{shard}': dimension {cfg.dimension} exceeds "
+                    "int32; the port's sparse kernels take int32 column ids")
+            if cfg.has_intercept:
+                raise ValueError(
+                    f"pre-indexed shard '{shard}': intercept=false required (an "
+                    "appended intercept would change the declared dimension; include "
+                    "it in the data)")
+            index_maps[shard] = IdentityIndexMap(cfg.dimension)
+        else:
+            index_maps[shard] = IndexMap.from_keys(
+                {feature_key(str(int(j)), "") for j in distinct}
+                if "features" in cfg.feature_bags else set(),
+                add_intercept=cfg.has_intercept)
+    return index_maps
+
+
+def _read_merged_libsvm(
+    paths: Sequence[str | os.PathLike],
+    shard_configs: Mapping[str, FeatureShardConfiguration],
+    *,
+    index_maps: Mapping[str, IndexMap] | None,
+    random_effect_id_columns: Sequence[str],
+    evaluation_id_columns: Sequence[str],
+    entity_vocabs: Mapping[str, np.ndarray] | None,
+    dtype,
+    device=None,
+) -> ReadResult:
+    """Vectorized LibSVM read with the record path's semantics: feature name
+    = str(0-based index), term = "", one bag called "features"; LibSVM
+    carries no id or metadata columns, so every id is "". A pre-indexed shard
+    takes the columns as they are against its dimension: sparse, it keeps
+    the COO triples; dense, it is scattered. Any other shard maps columns
+    through its index map and is assembled dense."""
+    with Timed("libsvm parse"):
+        data = concat_libsvm([parse_libsvm(p) for p in _libsvm_files(paths)])
+    n = data.num_rows
+    distinct = np.unique(data.cols) if data.nnz else np.asarray([], dtype=np.uint32)
+    if index_maps is None:
+        index_maps = _libsvm_index_maps(shard_configs, distinct)
+
+    row_idx = data.row_ids()
+    feature_shards: dict[str, object] = {}
+    intercept_indices: dict[str, int] = {}
+    for shard, cfg in shard_configs.items():
+        imap = index_maps[shard]
+        if cfg.pre_indexed and "features" in cfg.feature_bags:
+            dim = int(imap.size)
+            oob = int((data.cols >= dim).sum()) if data.nnz else 0
+            if oob:
+                raise ValueError(
+                    f"pre-indexed shard '{shard}': {oob} entries have column >= "
+                    f"dimension {dim}")
+            if cfg.sparse:
+                feature_shards[shard] = SparseShard(
+                    rows=row_idx.astype(np.int64), cols=data.cols.astype(np.int64),
+                    vals=data.vals.astype(dtype), num_samples=n, feature_dim=dim,
+                    hybrid_policy=cfg.hybrid_policy(label=shard))
+            else:
+                feature_shards[shard] = _round_to(
+                    _scatter_dense(n, dim, row_idx, data.cols.astype(np.int64), data.vals,
+                                   dtype), cfg.dtype)
+            continue
+        if "features" in cfg.feature_bags and data.nnz:
+            # a column j maps through the index map of its name; searchsorted
+            # over the distinct indices keeps memory O(distinct)
+            mapped_distinct = np.asarray(
+                [imap.get_index(feature_key(str(int(j)), "")) for j in distinct],
+                dtype=np.int64)
+            mapped = mapped_distinct[np.searchsorted(distinct, data.cols)]
+            keep = mapped >= 0
+            x = _scatter_dense(n, imap.size, row_idx[keep], mapped[keep], data.vals[keep],
+                               dtype)
+        else:
+            x = np.zeros((n, imap.size), dtype=dtype)
+        if cfg.has_intercept:
+            _apply_intercept(x, imap, shard, intercept_indices)
+        feature_shards[shard] = _round_to(x, cfg.dtype)
+
+    empty_ids = np.full(n, "", dtype=object)
+    dataset = build_game_dataset(
+        labels=data.mapped_labels(),
+        feature_shards=feature_shards,
+        entity_keys={c: empty_ids for c in random_effect_id_columns},
+        offsets=np.zeros(n),
+        weights=np.ones(n),
+        unique_ids=np.arange(n, dtype=np.int64),
+        ids={c: empty_ids for c in evaluation_id_columns},
+        entity_vocabs=entity_vocabs,
+        dtype=dtype,
+        shard_dtypes=_shard_dtypes(shard_configs),
+        device=device,
+    )
+    return ReadResult(dataset=dataset, index_maps=dict(index_maps),
+                      intercept_indices=intercept_indices)

@@ -7,8 +7,14 @@ sub-scores, GameModel.scala:101-107; type consistency check :163-169).
 
 A random-effect model is one dense [num_entities, dim] table, or for a very
 wide shard a compact [num_entities, K] table over each entity's sorted active
-columns (a model loaded past ``io.model_io``'s size threshold); scoring is a
-gather and a row-wise dot. Entities unseen at training time score 0.
+columns (a random effect trained on a sparse shard, or a model loaded past
+``io.model_io``'s size threshold). On a dense shard scoring is a gather and
+a row-wise dot. On a sparse shard a compact model maps each COO entry to its
+table slot once (:func:`compact_entry_positions`, host numpy; the device
+copy is cached on the shard, :func:`compact_entries`) and scores by a gather-sum over the flattened ``[E, K+1]`` table: on
+the card that is the gather kernel of ``ops/sparse_gather.py`` (G1) over the
+row-sorted entries, whose sums are in a fixed order, so repeated scorings
+are bitwise equal. Entities unseen at training time score 0.
 """
 
 from __future__ import annotations
@@ -19,9 +25,17 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from photon_ml_torch.data.batch import device_tensor
 from photon_ml_torch.data.sparse_batch import SparseShard
 from photon_ml_torch.models.glm import GeneralizedLinearModel
+from photon_ml_torch.ops import sparse_gather
+from photon_ml_torch.ops.sparse_gather import gather_sum, segment_plan
 from photon_ml_torch.types import TaskType
+
+#: launches of the gather's row or segment kernel made by compact scoring
+#: (the change in ``sparse_gather.launches + segment_launches`` across its
+#: gather; those counters include them, the chunk kernel's stay apart)
+compact_launches = 0
 
 
 class DatumScoringModel:
@@ -83,13 +97,23 @@ class RandomEffectModel(DatumScoringModel):
             return int(self.feature_dim)
         return self.coefficients.shape[1]
 
+    @property
+    def is_compact(self) -> bool:
+        return self.active_cols is not None
+
     def score_dataset(self, dataset) -> torch.Tensor:
         features = dataset.shard_features(self.feature_shard_id)
+        if self.active_cols is not None and isinstance(features, SparseShard):
+            entries = compact_entries(
+                features, dataset.host_array(f"entity_idx/{self.random_effect_type}"),
+                self.active_cols, self.coefficients.device)
+            return entries.score(self.coefficients)
         if isinstance(features, SparseShard):
-            raise NotImplementedError(
-                "scoring a random effect on a sparse shard needs the compact "
-                "per-entity tables (ROADMAP.md item 14)"
-            )
+            raise ValueError(
+                f"random-effect model '{self.random_effect_type}' holds a dense "
+                f"[E, d] table but shard '{self.feature_shard_id}' is sparse: a random "
+                "effect on a sparse shard is trained compact (load its model compact: "
+                "compact_random_effect_threshold below the shard width)")
         entity_idx = dataset.entity_indices(self.random_effect_type)
         if self.active_cols is not None:
             return self._score_compact(features, entity_idx)
@@ -126,6 +150,164 @@ def score_random_effect(table: torch.Tensor, features: torch.Tensor,
     rows = table[torch.clamp(idx, min=0)]
     scores = torch.sum(features.to(table.dtype) * rows, dim=-1)
     return torch.where(idx >= 0, scores, torch.zeros_like(scores))
+
+
+def match_active_positions(ent: np.ndarray, cols: np.ndarray, active_cols: np.ndarray,
+                           dim: int) -> np.ndarray:
+    """Position of each (entity, global column) query in the entity's sorted
+    active-column list, or K (the scratch slot) when absent.
+
+    (entity, col) encodes as entity·(dim+1)+col, globally non-decreasing
+    over the flattened lists because each row of ``active_cols`` is sorted
+    with pads == dim; a binary search finds each query. Pad queries (col >=
+    dim) and negative entities resolve to K."""
+    e, k = active_cols.shape
+    dimp = int(dim) + 1
+    ent = np.asarray(ent, dtype=np.int64)
+    valid = (ent >= 0) & (np.asarray(cols) < dim)
+    ent_safe = np.where(ent >= 0, ent, 0)
+    keys = ent_safe * dimp + np.asarray(cols, dtype=np.int64)
+    flat = ((np.arange(e, dtype=np.int64) * dimp)[:, None]
+            + np.asarray(active_cols, dtype=np.int64)).ravel()
+    idx = np.clip(np.searchsorted(flat, keys), 0, max(e * k - 1, 0))
+    hit = (flat[idx] == keys) if e * k else np.zeros(len(keys), bool)
+    return np.where(hit & valid, idx - ent_safe * k, k).astype(np.int32)
+
+
+def compact_entry_positions(shard: SparseShard, entity_idx: np.ndarray,
+                            active_cols: np.ndarray) -> tuple:
+    """Each coalesced COO entry of ``shard`` mapped to its slot in its
+    sample's entity's active-column list (host numpy).
+
+    Returns (ent [nnz] int32, pos [nnz] int32, rows [nnz] int32, vals
+    [nnz]), row-sorted: entry k of sample i with column j scores
+    vals·table[ent, pos]; pos = K (the zero scratch slot) when j is not
+    among the entity's active columns or the sample's entity is unseen
+    (idx < 0), so such entries contribute 0. :func:`compact_entries` keeps
+    their device copy."""
+    rows_s, cols_s, vals_s = (np.asarray(a) for a in shard.coalesced())
+    ent = np.asarray(entity_idx)[rows_s].astype(np.int64)
+    pos = match_active_positions(ent, cols_s, active_cols, shard.feature_dim)
+    return (np.where(ent >= 0, ent, 0).astype(np.int32), pos, rows_s.astype(np.int32),
+            vals_s)
+
+
+def _flat_slots(ent: torch.Tensor, pos: torch.Tensor, num_entities: int,
+                width: int) -> torch.Tensor:
+    """ent·(K+1)+pos as int32, the column ids of the gather over the
+    flattened [E, K+1] table; the kernel takes int32 ids, so a table of
+    2^31 slots or more raises."""
+    if num_entities * (width + 1) >= 2**31:
+        raise ValueError(
+            f"compact table [{num_entities}, {width}+1] has 2^31 slots or more; the "
+            "gather kernel takes int32 column ids")
+    return (ent.long() * (width + 1) + pos.long()).to(torch.int32)
+
+
+def score_random_effect_compact_reference(table: torch.Tensor, ent: torch.Tensor,
+                                          pos: torch.Tensor, rows: torch.Tensor,
+                                          vals: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`score_random_effect_compact`, on any
+    device: a gather of each entry's slot and an ``index_add_`` over the
+    row-sorted entries (in order on the CPU), in the promoted dtype of the
+    values and the table."""
+    dtype = torch.promote_types(vals.dtype, table.dtype)
+    out = torch.zeros((n,), dtype=dtype, device=table.device)
+    if table.shape[0] == 0 or ent.numel() == 0:
+        return out
+    table_ext = torch.cat([table, table.new_zeros((table.shape[0], 1))], dim=1).to(dtype)
+    contrib = vals.to(dtype) * table_ext[ent.long(), pos.long()]
+    return out.index_add_(0, rows.long(), contrib)
+
+
+def score_random_effect_compact(table: torch.Tensor, ent: torch.Tensor, pos: torch.Tensor,
+                                rows: torch.Tensor, vals: torch.Tensor, n: int,
+                                plan: tuple | None = None) -> torch.Tensor:
+    """Scores from a compact [E, K] table: Σ vals·table[ent, pos] over each
+    row's entries, O(nnz), nothing of size d_re.
+
+    A CPU table runs :func:`score_random_effect_compact_reference`. A CUDA
+    table runs the gather kernel (f32 ``[n]`` out) over the row-sorted
+    entries with the flat slot ent·(K+1)+pos as column ids and the
+    flattened ``[E, K+1]`` table (its scratch column zero) as ``w``, or
+    raises. ``plan`` = (flat slots, row_ptr, chunk plan), built here when
+    None (:class:`CompactEntries` keeps it)."""
+    global compact_launches
+    if table.device.type == "cpu":
+        return score_random_effect_compact_reference(table, ent, pos, rows, vals, n)
+    e, k = table.shape
+    if e == 0:
+        return torch.zeros((n,), dtype=torch.float32, device=table.device)
+    if plan is None:
+        plan = (_flat_slots(ent, pos, e, k), *segment_plan(rows, n))
+    flat, row_ptr, chunks = plan
+    table_ext = torch.cat([table, table.new_zeros((e, 1))], dim=1)
+    before = sparse_gather.launches + sparse_gather.segment_launches
+    out = gather_sum(table_ext.reshape(-1), n, tail=(vals, flat, rows, row_ptr), chunks=chunks)
+    compact_launches += sparse_gather.launches + sparse_gather.segment_launches - before
+    return out
+
+
+@dataclasses.dataclass
+class CompactEntries:
+    """One shard's entries mapped to compact table slots (the arrays of
+    :func:`compact_entry_positions`) on one device, with the gather plan
+    per table shape, so repeated scorings upload and plan nothing. It keeps
+    the entity map and active columns it was built from (``key``), which
+    :func:`compact_entries` matches."""
+
+    key: tuple = dataclasses.field(repr=False)
+    ent: torch.Tensor
+    pos: torch.Tensor
+    rows: torch.Tensor
+    vals: torch.Tensor
+    num_samples: int
+    _plans: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def plan(self, num_entities: int, width: int) -> tuple:
+        """(flat slots, row_ptr, chunk plan) of the gather over an [E, K+1]
+        table."""
+        if (num_entities, width) not in self._plans:
+            self._plans[(num_entities, width)] = (
+                _flat_slots(self.ent, self.pos, num_entities, width),
+                *segment_plan(self.rows, self.num_samples))
+        return self._plans[(num_entities, width)]
+
+    def score(self, table: torch.Tensor) -> torch.Tensor:
+        plan = None if table.device.type == "cpu" or table.shape[0] == 0 \
+            else self.plan(*table.shape)
+        return score_random_effect_compact(table, self.ent, self.pos, self.rows, self.vals,
+                                           self.num_samples, plan)
+
+
+def _same(a: np.ndarray, b: np.ndarray) -> bool:
+    return a is b or (a.shape == b.shape and np.array_equal(a, b))
+
+
+def compact_entries(shard: SparseShard, entity_idx: np.ndarray, active_cols: np.ndarray,
+                    device) -> CompactEntries:
+    """:func:`compact_entry_positions` on ``device``, cached on the shard
+    (one copy per device, as ``SparseShard.device`` keeps its arrays, and
+    per entity map and active columns: one shard can sit in datasets with
+    different sample-to-entity mappings). A scoring with the arrays it was
+    built from finds it by identity; equal copies (a reloaded model) by
+    comparison."""
+    device = torch.device(device)
+    cache = shard.__dict__.setdefault("_compact_entries", [])
+    for entries in cache:
+        dev, idx, cols = entries.key
+        if dev == device and _same(idx, entity_idx) and _same(cols, active_cols):
+            return entries
+    ent, pos, rows, vals = compact_entry_positions(shard, entity_idx, active_cols)
+    entries = CompactEntries(
+        key=(device, entity_idx, active_cols),
+        ent=device_tensor(ent, torch.int32, device),
+        pos=device_tensor(pos, torch.int32, device),
+        rows=device_tensor(rows, torch.int32, device),
+        vals=device_tensor(vals, shard.dtype, device),
+        num_samples=int(shard.num_samples))
+    cache.append(entries)
+    return entries
 
 
 @dataclasses.dataclass(frozen=True)

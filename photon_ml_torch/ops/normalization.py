@@ -98,6 +98,46 @@ class NormalizationContext:
             return variances
         return variances * self.factors * self.factors
 
+    # -- compact ([E, K] active-column) table variants -----------------------
+    # Compact coordinates store per-entity tables over active_cols [E, K]
+    # (pad = dim); the [dim] factor vector is gathered per slot. SCALE-only:
+    # mean shifts would densify a sparse shard.
+
+    def _compact_factors(self, active_cols: torch.Tensor) -> torch.Tensor:
+        fac = torch.cat([self.factors, self.factors.new_ones(1)])
+        # the pad slot (col == dim) keeps factor 1
+        return fac[torch.clamp(active_cols.long(), max=self.factors.shape[0])]
+
+    def _check_compact(self):
+        if self.shifts is not None:
+            raise ValueError(
+                "compact (sparse-shard) coordinates support SCALE-only "
+                "normalization; mean shifts (STANDARDIZATION) would densify "
+                "the feature space"
+            )
+
+    def to_model_space_compact(self, table: torch.Tensor,
+                               active_cols: torch.Tensor) -> torch.Tensor:
+        self._check_compact()
+        if self.factors is None:
+            return table
+        return table * self._compact_factors(active_cols)
+
+    def from_model_space_compact(self, table: torch.Tensor,
+                                 active_cols: torch.Tensor) -> torch.Tensor:
+        self._check_compact()
+        if self.factors is None:
+            return table
+        return table / self._compact_factors(active_cols)
+
+    def variances_to_model_space_compact(self, variances: torch.Tensor,
+                                         active_cols: torch.Tensor) -> torch.Tensor:
+        self._check_compact()
+        if self.factors is None:
+            return variances
+        f = self._compact_factors(active_cols)
+        return variances * f * f
+
 
 def host_factors(ctx: NormalizationContext) -> np.ndarray | None:
     """Host copy of ``ctx.factors`` (None when identity), for the builders

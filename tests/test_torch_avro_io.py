@@ -167,12 +167,16 @@ def test_index_maps_persist_the_same_files(tmp_path):
 
 
 def test_reader_refuses_what_is_not_ported(music):
-    sparse = {"global": treader.FeatureShardConfiguration(feature_bags=("features",),
-                                                          sparse=True)}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        treader.read_merged(str(music / "train"), sparse, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Sparse shards and LibSVM input are read now; what the reader still
+    refuses is what the JAX package refuses: pre-indexed shards on Avro and
+    quarantine on LibSVM."""
+    pre = {"global": treader.FeatureShardConfiguration(feature_bags=("features",), sparse=True,
+                                                       pre_indexed=True, dimension=10,
+                                                       has_intercept=False)}
+    with pytest.raises(ValueError, match="require the libsvm input format"):
+        treader.read_merged(str(music / "train"), pre, device="cpu")
+    with pytest.raises(ValueError, match="supports fmt='avro' only"):
         treader.read_merged(str(music / "train"), _configs(treader), fmt="libsvm",
-                            device="cpu")
+                            on_corrupt="quarantine", device="cpu")
     with pytest.raises(ValueError, match="bfloat16"):
         treader.FeatureShardConfiguration(feature_bags=("f",), dtype="float16")

@@ -267,12 +267,11 @@ GAME_LEFT_OUT = [
     (["--max-restarts", "2"], "item 16"), (["--incremental-refresh"], "item 18"),
     (["--hyperparameter-tuning", "BAYESIAN"], "item 18"), (["--telemetry-dir", "t"], "item 19"),
     (["--trace-dir", "t"], "item 19"), (["--profile-dir", "t"], "item 19"),
-    (["--input-format", "libsvm"], "item 14"), (["--input-date-range", "1-2"], "queue A"),
+    (["--input-format", "libsvm"], None), (["--input-date-range", "1-2"], "queue A"),
     (["--coordinate-configurations",
       "name=mf,mf.row.effect.type=userId,mf.col.effect.type=songId,mf.latent.factors=2"],
      "item 13"),
-    (["--feature-shard-configurations", "name=sp,feature.bags=features,sparse=true"],
-     "item 14"),
+    (["--feature-shard-configurations", "name=sp,feature.bags=features,sparse=true"], None),
     (["--coordinate-configurations",
       "name=s,feature.shard=userShard,random.effect.type=userId,scheduler=true"], "item 18"),
 ]
@@ -282,11 +281,22 @@ GAME_LEFT_OUT = [
                          ids=[" ".join(e)[:40] for e, _ in GAME_LEFT_OUT])
 def test_game_training_driver_refuses_what_is_not_ported(tmp_path, extra, item):
     """Each left-out flag fails before any data is read (the input path
-    does not even exist) and names its ROADMAP.md item."""
+    does not even exist) and names its ROADMAP.md item; a flag ported since
+    (item None) gets past every refusal and fails on the missing input."""
     args = P.training_args(tmp_path / "no-such-input", tmp_path / "o", P.FE_ARGS + extra,
                            validation=False)
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(args, device="cpu")
+    _raises_for(item, lambda: ttrain.main(args, device="cpu"))
+
+
+def _raises_for(item, run, missing=FileNotFoundError, match=None):
+    """``run`` raises NotImplementedError naming ``item``; with item None
+    (ported) it gets past every refusal and raises ``missing`` instead."""
+    if item is None:
+        with pytest.raises(missing, match=match):
+            run()
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            run()
 
 
 GLM_LEFT_OUT = [
@@ -294,7 +304,7 @@ GLM_LEFT_OUT = [
     (["--max-restarts", "1"], "item 16"), (["--grid-parallel"], "item 18"),
     (["--search-rounds", "2"], "item 18"), (["--enable-diagnostics"], "item 19"),
     (["--num-bootstraps", "3"], "item 19"), (["--telemetry-dir", "t"], "item 19"),
-    (["--trace-dir", "t"], "item 19"), (["--input-format", "libsvm"], "item 14"),
+    (["--trace-dir", "t"], "item 19"), (["--input-format", "libsvm"], None),
 ]
 
 
@@ -302,13 +312,12 @@ GLM_LEFT_OUT = [
 def test_glm_driver_refuses_what_is_not_ported(tmp_path, extra, item):
     args = ["--input-data-path", str(tmp_path / "none"), "--output-dir", str(tmp_path / "o"),
             "--task-type", "LOGISTIC_REGRESSION", *extra]
-    with pytest.raises(NotImplementedError, match=item):
-        tglm.main(args, device="cpu")
+    _raises_for(item, lambda: tglm.main(args, device="cpu"))
 
 
 SCORING_LEFT_OUT = [(["--distributed"], "item 10"), (["--partitioned-io"], "item 15"),
                     (["--telemetry-dir", "t"], "item 19"), (["--trace-dir", "t"], "item 19"),
-                    (["--input-format", "libsvm"], "item 14")]
+                    (["--input-format", "libsvm"], None)]
 
 
 @pytest.mark.parametrize("extra,item", SCORING_LEFT_OUT,
@@ -316,8 +325,9 @@ SCORING_LEFT_OUT = [(["--distributed"], "item 10"), (["--partitioned-io"], "item
 def test_scoring_driver_refuses_what_is_not_ported(tmp_path, extra, item):
     args = ["--input-data-path", str(tmp_path / "none"), "--model-input-dir",
             str(tmp_path / "m"), "--output-dir", str(tmp_path / "o"), *extra]
-    with pytest.raises(NotImplementedError, match=item):
-        tscore.main(args, device="cpu")
+    # the model is read before the data: a ported flag fails on the missing model
+    _raises_for(item, lambda: tscore.main(args, device="cpu"), missing=ValueError,
+                match="no saved index-map stores")
 
 
 def test_drivers_run_on_cuda_unless_asked(music, tmp_path):
@@ -334,3 +344,209 @@ def test_drivers_run_on_cuda_unless_asked(music, tmp_path):
         tscore.main(["--input-data-path", str(music / "test"), "--model-input-dir",
                      str(tmp_path / "m"), "--output-dir", str(tmp_path / "c")])
     assert not (tmp_path / "a").exists()
+
+
+SPARSE_SHARD = "name=global,feature.bags=features,intercept=true,sparse=true"
+SPARSE_ARGS = ["--feature-shard-configurations", SPARSE_SHARD,
+               "--coordinate-configurations",
+               "name=fe,feature.shard=global,reg.weights=1,max.iter=30",
+               "--coordinate-configurations",
+               "name=per-user,feature.shard=global,random.effect.type=userId,reg.weights=1,"
+               "max.iter=20", "--coordinate-descent-iterations", "2"]
+
+
+@pytest.fixture(scope="module")
+def sparse_data(tmp_path_factory):
+    base = tmp_path_factory.mktemp("sparse")
+    P.write_sparse(str(base))
+    return base
+
+
+def _sparse_training_args(base, out, extra=()):
+    return ["--input-data-path", str(base / "train"), "--validation-data-path",
+            str(base / "test"), "--root-output-dir", str(out), "--task-type",
+            "LINEAR_REGRESSION", "--evaluators", "RMSE", *SPARSE_ARGS, *extra]
+
+
+def test_sparse_game_training_and_scoring_match_the_jax_drivers(sparse_data, tmp_path):
+    """A fixed effect and a compact per-user effect on one sparse name-term
+    shard, through both training drivers (the maps from the port's feature
+    indexing driver, ``--index-maps-dir``), then both scoring drivers on the
+    JAX driver's model loaded compact: validation RMSE within rel 1e-3, the
+    files that hold no f32 solver output byte-identical, the compact tables
+    within 1e-3 max|w|, scores of the same model within 1e-4 max|score|."""
+    from photon_ml_tpu.cli import feature_indexing_driver as jindexing
+    from photon_ml_torch import convert
+    from photon_ml_torch.cli import feature_indexing_driver as tindexing
+    from photon_ml_torch.io.index_map import IndexMap
+    from photon_ml_torch.io.model_io import load_game_model
+
+    spec = ["--input-data-path", str(sparse_data / "train"),
+            "--feature-shard-configurations", SPARSE_SHARD]
+    jindexing.main(spec + ["--output-dir", str(tmp_path / "jmaps")])
+    tindexing.main(spec + ["--output-dir", str(tmp_path / "tmaps")])
+    assert _files(tmp_path / "tmaps") == _files(tmp_path / "jmaps")
+    jdir, tdir = tmp_path / "j", tmp_path / "t"
+    jsum = jtrain.main(_sparse_training_args(sparse_data, jdir))
+    tsum = ttrain.main(_sparse_training_args(sparse_data, tdir, [
+        "--index-maps-dir", str(tmp_path / "tmaps")]), device="cpu")
+    assert tsum["best_metric"] == pytest.approx(jsum["best_metric"], rel=1e-3)
+    fe_alone = tsum["metric_history"][0]["metrics"][0]
+    assert tsum["best_metric"] < fe_alone["validate:RMSE"]
+    assert _files(tdir) == _files(jdir)
+    for f in _files(jdir):
+        if f.startswith(("index-maps", "feature-stats")) or f.endswith(
+                ("model-metadata.json", "id-info")):
+            assert (tdir / f).read_bytes() == (jdir / f).read_bytes(), f
+    maps = IndexMap.load_directory(jdir / "index-maps")
+    models = [load_game_model(d / "best", maps, compact_random_effect_threshold=0,
+                              device="cpu") for d in (jdir, tdir)]
+    users = [m.get("per-user") for m in models]
+    assert users[0].is_compact and np.array_equal(users[0].active_cols, users[1].active_cols)
+    plain = [convert.game_model_to_numpy(m) for m in models]
+    for cid, key in (("fe", "means"), ("per-user", "coefficients")):
+        ref, got = plain[0][cid][key], plain[1][cid][key]
+        assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max(), cid
+    shard = ["--feature-shard-configurations", SPARSE_SHARD, "--compact-random-effect-threshold",
+             "0"]
+    for mod, out, kw in ((jscore, "js", {}), (tscore, "ts", {"device": "cpu"})):
+        mod.main(["--input-data-path", str(sparse_data / "test"), "--model-input-dir",
+                  str(jdir / "best"), "--output-dir", str(tmp_path / out), "--evaluators",
+                  "RMSE", *shard], **kw)
+    sj, st = _scores(tmp_path / "js" / "scores"), _scores(tmp_path / "ts" / "scores")
+    assert sj.shape == st.shape == (300,)
+    assert np.abs(st - sj).max() <= 1e-4 * np.abs(sj).max()
+
+
+@pytest.fixture(scope="module")
+def libsvm_data(tmp_path_factory):
+    base = tmp_path_factory.mktemp("libsvm")
+    for task, tag in (("LOGISTIC_REGRESSION", "logistic"), ("LINEAR_REGRESSION", "linear")):
+        P.write_libsvm(str(base / tag / "train.txt"), 500, 1, task=task)
+        P.write_libsvm(str(base / tag / "test.txt"), 200, 2, task=task)
+    return base
+
+
+def test_glm_driver_on_libsvm_matches_the_jax_driver(libsvm_data, tmp_path):
+    def args(out):
+        return ["--input-data-path", str(libsvm_data / "logistic" / "train.txt"),
+                "--validation-data-path", str(libsvm_data / "logistic" / "test.txt"),
+                "--output-dir", str(out), "--task-type", "LOGISTIC_REGRESSION",
+                "--regularization-weights", "0.1,10", "--input-format", "libsvm"]
+
+    j = jglm.main(args(tmp_path / "j"))
+    t = tglm.main(args(tmp_path / "t"), device="cpu")
+    for lam in j.models:
+        wj = np.asarray(j.models[lam].coefficients.means, np.float64)
+        wt = t.models[lam].coefficients.means.double().numpy()
+        assert wt.shape == wj.shape == (121,)  # 120 features and the intercept
+        assert np.abs(wj - wt).max() <= 1e-3 * np.abs(wj).max(), lam
+        assert t.validation_metrics[lam]["AUC"] == pytest.approx(
+            j.validation_metrics[lam]["AUC"], abs=1e-3)
+    assert t.best_lambda == j.best_lambda and t.validation_metrics[t.best_lambda]["AUC"] > 0.6
+    for name in os.listdir(tmp_path / "j" / "models-text"):
+        jl = (tmp_path / "j" / "models-text" / name).read_text().splitlines()
+        tl = (tmp_path / "t" / "models-text" / name).read_text().splitlines()
+        # the same features (their order follows f32 magnitudes, which may tie)
+        assert sorted(line.split("\t")[:2] for line in tl) == \
+            sorted(line.split("\t")[:2] for line in jl)
+
+
+LIBSVM_GAME = {
+    "pre-indexed-sparse": "name=global,feature.bags=features,intercept=false,pre.indexed=true,"
+                          "dimension=200,sparse=true",
+    "pre-indexed-hybrid": "name=global,feature.bags=features,intercept=false,pre.indexed=true,"
+                          "dimension=200,sparse=true,hybrid=true,hybrid.hot.cols=16",
+    "by-name-dense": "name=global,feature.bags=features,intercept=true",
+}
+
+
+@pytest.mark.parametrize("name", list(LIBSVM_GAME))
+def test_game_driver_on_libsvm_matches_the_jax_driver(libsvm_data, tmp_path, name):
+    """The GAME training driver on LibSVM (a fixed effect: LibSVM carries no
+    id columns), pre-indexed or by name: validation RMSE within rel 1e-3,
+    index maps and feature statistics byte-identical."""
+    def args(out):
+        return ["--input-data-path", str(libsvm_data / "linear" / "train.txt"),
+                "--validation-data-path", str(libsvm_data / "linear" / "test.txt"),
+                "--root-output-dir", str(out), "--task-type", "LINEAR_REGRESSION",
+                "--input-format", "libsvm", "--evaluators", "RMSE",
+                "--feature-shard-configurations", LIBSVM_GAME[name],
+                "--coordinate-configurations",
+                "name=fe,feature.shard=global,reg.weights=1,max.iter=30"]
+
+    j = jtrain.main(args(tmp_path / "j"))
+    t = ttrain.main(args(tmp_path / "t"), device="cpu")
+    assert t["best_metric"] == pytest.approx(j["best_metric"], rel=1e-3)
+    assert _files(tmp_path / "t") == _files(tmp_path / "j")
+    for f in _files(tmp_path / "j"):
+        if f.startswith(("index-maps", "feature-stats")) or f.endswith("model-metadata.json"):
+            assert (tmp_path / "t" / f).read_bytes() == (tmp_path / "j" / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("zero_based", [False, True])
+def test_libsvm_to_avro_is_byte_identical(libsvm_data, tmp_path, zero_based):
+    from photon_ml_tpu.cli import libsvm_to_avro as jconv
+    from photon_ml_torch.cli import libsvm_to_avro as tconv
+
+    src = str(libsvm_data / "logistic" / "train.txt")
+    flag = ["--zero-based"] if zero_based else []
+    nj = jconv.main(["--input", src, "--output", str(tmp_path / "j" / "part.avro"), *flag])
+    nt = tconv.main(["--input", src, "--output", str(tmp_path / "t" / "part.avro"), *flag])
+    assert nt == nj == 500
+    assert (tmp_path / "t" / "part.avro").read_bytes() == \
+        (tmp_path / "j" / "part.avro").read_bytes()
+
+
+@pytest.mark.parametrize("source", ["avro", "libsvm"])
+def test_name_term_feature_bags_driver_matches(music, libsvm_data, tmp_path, source):
+    from photon_ml_tpu.cli import name_term_feature_bags_driver as jbags
+    from photon_ml_torch.cli import name_term_feature_bags_driver as tbags
+
+    if source == "avro":
+        args = ["--input-data-path", str(music / "train"), "--feature-bags",
+                "features,userFeatures,missing"]
+    else:
+        args = ["--input-data-path", str(libsvm_data / "linear" / "train.txt"),
+                "--feature-bags", "features", "--input-format", "libsvm"]
+    cj = jbags.main(args + ["--output-dir", str(tmp_path / "j")])
+    ct = tbags.main(args + ["--output-dir", str(tmp_path / "t")])
+    assert ct == cj and _files(tmp_path / "t") == _files(tmp_path / "j")
+    for f in _files(tmp_path / "j"):
+        assert (tmp_path / "t" / f).read_bytes() == (tmp_path / "j" / f).read_bytes(), f
+
+
+INDEXING = {
+    "avro": (["--feature-shard-configurations", "name=global,feature.bags=features",
+              "--feature-shard-configurations",
+              "name=entity,feature.bags=userFeatures|songFeatures,intercept=false"], "avro"),
+    "avro-sparse": (["--feature-shard-configurations", SPARSE_SHARD], "sparse"),
+    "libsvm": (["--feature-shard-configurations", "name=global,feature.bags=features",
+                "--input-format", "libsvm"], "libsvm"),
+}
+
+
+@pytest.mark.parametrize("name", list(INDEXING))
+def test_feature_indexing_driver_is_byte_identical(music, sparse_data, libsvm_data, tmp_path,
+                                                   name):
+    from photon_ml_tpu.cli import feature_indexing_driver as jindexing
+    from photon_ml_torch.cli import feature_indexing_driver as tindexing
+
+    extra, source = INDEXING[name]
+    path = {"avro": music / "train", "sparse": sparse_data / "train",
+            "libsvm": libsvm_data / "linear" / "train.txt"}[source]
+    args = ["--input-data-path", str(path), *extra]
+    sj = jindexing.main(args + ["--output-dir", str(tmp_path / "j")])
+    st = tindexing.main(args + ["--output-dir", str(tmp_path / "t")])
+    assert st == sj and _files(tmp_path / "t") == _files(tmp_path / "j")
+    for f in _files(tmp_path / "j"):
+        assert (tmp_path / "t" / f).read_bytes() == (tmp_path / "j" / f).read_bytes(), f
+
+
+def test_feature_indexing_driver_refuses_off_heap_stores(music, tmp_path):
+    from photon_ml_torch.cli import feature_indexing_driver as tindexing
+
+    with pytest.raises(NotImplementedError, match="queue A"):
+        tindexing.main(["--input-data-path", str(music / "train"), "--output-dir",
+                        str(tmp_path / "o"), "--feature-shard-configurations",
+                        "name=global,feature.bags=features", "--index-store-format", "offheap"])

@@ -151,11 +151,14 @@ def test_pad_game_dataset_sparse_shard():
     assert tp.fixed_effect_batch("wide").num_samples == 64
     with pytest.raises(TypeError, match="sparse"):
         td.host_array("shard/wide")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tgd.build_random_effect_dataset(
-            tgd.build_game_dataset(labels=a["labels"], feature_shards={"wide": shard},
-                                   entity_keys={"user": a["users"]}, dtype=np.float64,
-                                   device="cpu"), "user", "wide")
+    # a random effect on the sparse shard is compact: [E, K] over each
+    # entity's active columns (here both of the shard's columns)
+    red = tgd.build_random_effect_dataset(
+        tgd.build_game_dataset(labels=a["labels"], feature_shards={"wide": shard},
+                               entity_keys={"user": a["users"]}, dtype=np.float64,
+                               device="cpu"), "user", "wide")
+    assert red.is_compact and red.table_width == 2 and red.dim == 5
+    assert (red.active_cols == np.array([0, 3], dtype=np.int32)).all()
 
 
 def test_fixed_effect_batch_and_host_arrays():

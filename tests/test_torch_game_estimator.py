@@ -225,6 +225,8 @@ def test_estimator_options_outside_the_slice_raise(field, item):
 
 
 def test_sparse_random_effect_shard_raises():
+    """A random effect on a sparse shard trains compact; a RANDOM projection
+    of it is refused as the JAX package refuses it."""
     a = game_arrays(5, n=60)
     shard = SparseShard(rows=np.arange(60), cols=np.zeros(60, dtype=np.int64),
                         vals=np.ones(60), num_samples=60, feature_dim=4)
@@ -232,8 +234,9 @@ def test_sparse_random_effect_shard_raises():
                                 entity_keys={"user": a["users"]}, dtype=np.float64,
                                 device="cpu")
     est = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION, coordinate_configs={
-        "re": test_.RandomEffectCoordinateConfig("user", "wide", _lbfgs())})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 14"):
+        "re": test_.RandomEffectCoordinateConfig("user", "wide", _lbfgs(),
+                                                 projector_type="RANDOM", projected_dim=2)})
+    with pytest.raises(ValueError, match="IDENTITY/INDEX_MAP"):
         est.fit(td)
     with pytest.raises(TypeError, match="unknown configuration"):
         test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION,

@@ -124,5 +124,6 @@ def test_fixed_effect_model_scores_a_sparse_shard():
     re = tgame.RandomEffectModel(torch.zeros((4, d), dtype=torch.float64),
                                  td.entity_vocabs["user"], "user", "wide",
                                  TTask.LINEAR_REGRESSION)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # a dense [E, d] table cannot score a sparse shard: it is trained compact
+    with pytest.raises(ValueError, match="trained compact"):
         re.score_dataset(td)

@@ -148,3 +148,58 @@ def write_logistic(base, n_train=600, n_test=300, d=12) -> None:
         os.makedirs(os.path.join(base, split), exist_ok=True)
         avro_io.write_container(os.path.join(base, split, "part-00000.avro"),
                                 schemas.TRAINING_EXAMPLE_AVRO, make_logistic_records(n, d, seed))
+
+
+def make_sparse_records(n: int, seed: int, *, d: int = 3000, users: int = 20,
+                        per_row: int = 8) -> list[dict]:
+    """TrainingExampleAvro rows whose ``features`` bag is a name-term bag
+    over a power-law column space of ``d`` terms (the hot terms in most
+    rows, repeated terms adding up), linear labels from a planted global
+    model plus per-user effects on each user's terms, user ids."""
+    truth = np.random.default_rng(31)
+    w = truth.normal(size=d)
+    w_user = 0.5 * truth.normal(size=(users, d))
+    rng = np.random.default_rng(seed)
+    records = []
+    for i in range(n):
+        cols = ((rng.random(per_row) ** 4 * d).astype(np.int64) * 7919) % d
+        vals = rng.normal(size=per_row) / np.sqrt(per_row)
+        u = int(rng.integers(0, users))
+        y = vals @ (w[cols] + w_user[u, cols]) + 0.1 * rng.normal()
+        records.append({
+            "uid": str(i), "label": float(y),
+            "features": [{"name": "term", "term": str(c), "value": float(v)}
+                         for c, v in zip(cols, vals)],
+            "weight": 1.0, "offset": 0.0, "foldId": None,
+            "metadataMap": {"userId": f"user{u}"}})
+    return records
+
+
+def write_sparse(base, n_train=900, n_test=300) -> None:
+    """``base/train`` and ``base/test`` of :func:`make_sparse_records`."""
+    for split, n, seed in (("train", n_train, 21), ("test", n_test, 22)):
+        os.makedirs(os.path.join(base, split), exist_ok=True)
+        avro_io.write_container(os.path.join(base, split, "part-00000.avro"),
+                                schemas.TRAINING_EXAMPLE_AVRO, make_sparse_records(n, seed))
+
+
+def write_libsvm(path, n: int, seed: int, *, d: int = 120, per_row: int = 14,
+                 task: str = "LOGISTIC_REGRESSION") -> None:
+    """LibSVM text of a planted model over ``d`` features, ``per_row`` of them
+    a row (1-based indices): ±1 labels for a logistic task, real ones else."""
+    truth = np.random.default_rng(41)
+    w = truth.normal(size=d)
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("# planted model\n")
+        for _ in range(n):
+            cols = np.sort(rng.choice(d, size=per_row, replace=False))
+            vals = np.round(rng.normal(size=per_row), 4)
+            z = vals @ w[cols]
+            if task == "LOGISTIC_REGRESSION":
+                label = "+1" if rng.uniform() < 1.0 / (1.0 + np.exp(-z)) else "-1"
+            else:
+                label = repr(float(np.round(z + 0.1 * rng.normal(), 6)))
+            f.write(label + " " + " ".join(f"{c + 1}:{float(v)!r}" for c, v in zip(cols, vals))
+                    + "\n")
