@@ -158,7 +158,18 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    (with their chunk plans) on the driver's training batch at its fitted
    coefficients and its compact scores, the scoring run's margins and
    compact scores on the validation rows. Their launches and checks join
-   the kernels line's ``driver_path``.
+   the kernels line's ``driver_path``. Every read of the phase takes the
+   port's native Avro decoder (``avro_native.fallbacks`` must stay 0); the
+   GAME and GLM training sets are read again with the Python codec
+   (``PHOTON_NO_NATIVE_AVRO=1``) and must give equal arrays, with each
+   codec's records per second; a GAME training driver run adds an MF
+   coordinate (userId × itemId, k=16) and the scoring driver scores its
+   model (Avro scores bitwise the in-process ones); a run with
+   ``--input-date-range`` over two daily directories must write the
+   one-directory run's model files byte for byte; and one GAME training run
+   at the flagship's rows, uncut (2^17 + 2^15, the Avro written by a pool of
+   the port's pure-Python writers, one part file each), prints its stages,
+   with the packed kernel held on its own fixed-effect inputs.
 9. The sparse GAME slice at bench.py:721's shapes (``SPARSE_GAME``, none
    cut): n=2^16 rows of 16 Zipf columns (γ=24) over d=10^6, values
    N(0,1)/4, 2000 users, linear labels, 2^14 held-out rows; a fixed effect
@@ -183,6 +194,26 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    entry; the path's launches and checks under ``sparse_game_path``). Printed: K and the bucket bytes, the host build
    seconds, seconds a sweep by coordinate, one lane update's wall and
    device ms and kernels.
+10. Matrix factorization through ``GameEstimator.fit`` (``MF``), the fixed
+   effect on the packed kernel, data from ``--seed``: (a) the flagship
+   widths with a user × item MF coordinate (k=16, 2 alternations, L2 10)
+   beside the fixed effect and the per-user effect, linear labels with a
+   planted rank-16 user·item term, 4 sweeps with Newton MF lanes (twice:
+   bitwise equal models), with L-BFGS MF lanes (final loss within rel 1e-3
+   of Newton's) and without MF (the products on the tensor cores): training
+   loss non-increasing, held-out RMSE (2^15 rows, a quarter of unseen users,
+   whose MF scores must be exactly 0) below the fit's without MF; the packed
+   kernel and its reduce held on the path's own [2^17, 256] inputs (the
+   kernels line's ``mf_path``); (b) MovieLens-1M's published widths, none
+   cut (6,040 users with Zipf-like counts of 20-2,314 ratings, 3,706
+   movies, 1,000,209 ratings 1-5 from a planted rank-32 model; ``global``
+   the one-hot of its attributes, d=49), fixed effect plus MF k=32, Newton,
+   4 sweeps: loss non-increasing, held-out RMSE below the fixed effect's
+   alone; printed: the MF buckets' shapes and bytes, the host builder's
+   seconds, seconds a sweep by coordinate, one half-step's wall and device
+   ms, kernels and host reads; (c) one MF update of a small problem (n=4096,
+   k=4) from the same factors, card f32 against CPU f64 within
+   1e-3·max|factor|.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -194,6 +225,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1214,12 +1246,14 @@ class _GameTimers:
 
     def __enter__(self):
         from photon_ml_torch import estimators
-        from photon_ml_torch.algorithm import coordinates
+        from photon_ml_torch.algorithm import coordinates, mf_coordinate
 
-        for cls in (coordinates.FixedEffectCoordinate, coordinates.RandomEffectCoordinate):
+        for cls in (coordinates.FixedEffectCoordinate, coordinates.RandomEffectCoordinate,
+                    mf_coordinate.MatrixFactorizationCoordinate):
             self._wrap(cls, "update_model", lambda self_, *a, **k: f"solve {self_.coordinate_id}")
             self._wrap(cls, "score", lambda self_, *a, **k: "rescoring")
-        self._wrap(estimators, "build_random_effect_dataset", lambda *a, **k: "bucket builder")
+        for builder in ("build_random_effect_dataset", "build_mf_dataset"):
+            self._wrap(estimators, builder, lambda *a, **k: "bucket builder")
         return self
 
     def __exit__(self, *exc):
@@ -1304,33 +1338,43 @@ def _rel_gap(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _lane_loop_share(torch, estimator, dataset) -> dict:
-    """Where one random-effect update's wall time goes: the wall clock of one
-    ``update_model`` of the per-user coordinate (synchronized) beside the sum
-    of its kernels' device time from ``torch.profiler``; the rest is time the
-    card waits for the host."""
-    sequence, coordinates = estimator._build_coordinates(dataset, None)
-    coord = coordinates["per_user"]
-    model = coord.initial_model()
-    coord.update_model(model, None)  # warm up
+def _profiled(torch, fn) -> dict:
+    """Wall ms of ``fn()`` (synchronized, after one warm-up call), beside the
+    device ms and kernel count of a third call under ``torch.profiler``, and
+    the lane loops' host reads of one call."""
+    from photon_ml_torch.optim import common
+
+    fn()
     torch.cuda.synchronize()
+    reads = common.lane_host_reads
     t0 = time.perf_counter()
-    coord.update_model(model, None)
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    reads = common.lane_host_reads - reads
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        coord.update_model(model, None)
+        fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    device_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                    for e in events)
-    kernels = sum(e.count for e in events
-                  if getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) > 0)
-    out = {"wall_ms": wall * 1e3, "device_ms": device_us / 1e3 if device_us else None,
-           "device_events": kernels}
-    out["host_share"] = None if not device_us else max(0.0, 1.0 - device_us / 1e6 / wall)
-    return out
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    total = sum(device_us(e) for e in events)
+    return {"wall_ms": wall * 1e3, "device_ms": total / 1e3 if total else None,
+            "kernels": sum(e.count for e in events if device_us(e) > 0), "host_reads": reads,
+            "host_share": None if not total else max(0.0, 1.0 - total / 1e6 / wall)}
+
+
+def _lane_loop_share(torch, estimator, dataset) -> dict:
+    """Where one random-effect update's wall time goes: :func:`_profiled`
+    over one ``update_model`` of the per-user coordinate from its initial
+    model."""
+    _, coordinates = estimator._build_coordinates(dataset, None)
+    coord = coordinates["per_user"]
+    model = coord.initial_model()
+    return _profiled(torch, lambda: coord.update_model(model, None))
 
 
 def _packed_entry(torch, name, replaces, launches, kernel, plain, library, x, n_aux_bytes,
@@ -1736,7 +1780,6 @@ def _projected_slice(torch, np, seed: int, dev, card: str) -> dict:
     from photon_ml_torch.evaluation import local_metrics
     from photon_ml_torch.ops import packed_glm
     from photon_ml_torch.ops.losses import LogisticLoss
-    from photon_ml_torch.optim import common
 
     shape = PROJECTED
     sweeps = shape["sweeps"]
@@ -1871,13 +1914,10 @@ def _projected_slice(torch, np, seed: int, dev, card: str) -> dict:
     for label, (lanes, shard, kw) in plan.items():
         if "identity" in label or "diagonal" in label:
             continue
-        reads = common.lane_host_reads
         est = _projected_estimator(lanes, shard, 1, **{k: v for k, v in kw.items()
                                                        if k not in ("kernel_unit",
                                                                     "kernel_aux")})
         share = _lane_loop_share(torch, est, ds)
-        # _lane_loop_share runs three updates: the host reads of one
-        share["host_reads"] = (common.lane_host_reads - reads) // 3
         _log(f"lane loop, one per-user update, {label} ({card}): {json.dumps(share)}")
 
     # the kernels on this path's own fixed-effect inputs (fit a's model)
@@ -1966,6 +2006,51 @@ def _write_avro(path, schema, rows: int, make) -> float:
 
 def _ntv(prefix, values):
     return [{"name": f"{prefix}{j}", "term": "", "value": v} for j, v in enumerate(values)]
+
+
+def _write_game_part(args) -> float:
+    """Write one GAME part file of ``_game_arrays`` rows (logistic labels,
+    ``global`` and ``perEntityFeatures`` bags, user and item ids in the
+    metadata map) with the port's pure-Python writer; seconds. A module
+    function, so a process pool can run it."""
+    path, x_fe, x_re, y, users, items, offset = args
+    x_fe, x_re, y = x_fe.tolist(), x_re.tolist(), y.tolist()
+    users, items = users.tolist(), items.tolist()
+    return _write_avro(path, _game_avro_schema(), len(y), lambda i: {
+        "uid": str(offset + i), "label": y[i], "features": _ntv("g", x_fe[i]),
+        "perEntityFeatures": _ntv("e", x_re[i]), "weight": 1.0, "offset": 0.0, "foldId": None,
+        "metadataMap": {"userId": users[i], "itemId": items[i]}})
+
+
+def _game_parts(part, directory, offset: int, parts: int) -> list:
+    """The pool arguments writing ``part``'s rows as ``parts`` part files
+    of ``directory`` (row order kept across the sorted part names)."""
+    n = len(part["labels"]["LOGISTIC_REGRESSION"])
+    bounds = [n * i // parts for i in range(parts + 1)]
+    return [(os.path.join(directory, f"part-{i:05d}.avro"), part["x_fe"][lo:hi],
+             part["x_re"][lo:hi], part["labels"]["LOGISTIC_REGRESSION"][lo:hi],
+             part["keys"]["user"][lo:hi], part["keys"]["item"][lo:hi], offset + lo)
+            for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))]
+
+
+def _same_read(torch, np, a, b) -> None:
+    """Two reads of the same files hold equal arrays (labels, offsets,
+    weights, uids, shards, entity indices and vocabs, id columns, index maps
+    and intercepts)."""
+    da, db = a.dataset, b.dataset
+    for name in ("labels", "offsets", "weights"):
+        assert torch.equal(getattr(da, name), getattr(db, name)), name
+    assert np.array_equal(da.unique_ids, db.unique_ids)
+    assert set(da.feature_shards) == set(db.feature_shards)
+    for k, v in da.feature_shards.items():
+        assert torch.equal(v, db.feature_shards[k]), k
+    assert set(da.entity_idx) == set(db.entity_idx)
+    for t, v in da.entity_idx.items():
+        assert torch.equal(v, db.entity_idx[t]) and np.array_equal(
+            da.entity_vocabs[t], db.entity_vocabs[t]), t
+    assert {k: list(v) for k, v in a.index_maps.items()} == \
+        {k: list(v) for k, v in b.index_maps.items()}
+    assert a.intercept_indices == b.intercept_indices
 
 
 def _path_check(torch, tag, kernel, plain, library, limits, nbytes: float, shape,
@@ -2057,7 +2142,7 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
     from photon_ml_torch.cli import game_scoring_driver, game_training_driver, glm_driver
     from photon_ml_torch.data.batch import LabeledPointBatch
     from photon_ml_torch.evaluation import local_metrics
-    from photon_ml_torch.io import photon_schemas
+    from photon_ml_torch.io import avro_native, photon_schemas
     from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
     from photon_ml_torch.io.index_map import INTERCEPT_KEY, IndexMap, feature_key
     from photon_ml_torch.io.model_io import load_game_model, read_scores
@@ -2077,28 +2162,19 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
     path = {}
     evaluations = {"fused": 0, "packed": 0}
     loss = LogisticLoss()
+    avro_native.fallbacks = 0  # every driver read below must take the native decoder
     with tempfile.TemporaryDirectory(prefix="photon-drivers-") as tmp:
         tmp = Path(tmp)
         # a. TrainingExample Avro from --seed with the port's writer
         n, nv = cfg["game_rows"], cfg["validation_rows"]
         train, held = _game_arrays(np, seed + 3, n=n, d_fe=cfg["d_fe"], d_re=cfg["d_re"],
                                    users=cfg["users"], items=cfg["items"], held_out=nv)
-        schema = _game_avro_schema()
-
-        def game_record(part, offset):
-            x_fe, x_re = part["x_fe"].tolist(), part["x_re"].tolist()
-            y = part["labels"]["LOGISTIC_REGRESSION"].tolist()
-            users, items = part["keys"]["user"].tolist(), part["keys"]["item"].tolist()
-            return lambda i: {"uid": str(offset + i), "label": y[i],
-                              "features": _ntv("g", x_fe[i]),
-                              "perEntityFeatures": _ntv("e", x_re[i]), "weight": 1.0,
-                              "offset": 0.0, "foldId": None,
-                              "metadataMap": {"userId": users[i], "itemId": items[i]}}
-
-        write_s = {"game training": _write_avro(tmp / "game/train/part-00000.avro", schema, n,
-                                                game_record(train, 0)),
-                   "game validation": _write_avro(tmp / "game/validation/part-00000.avro",
-                                                  schema, nv, game_record(held, n))}
+        # the training set in two part files: the date-range run reads one a day
+        write_s = {"game training": sum(map(_write_game_part,
+                                            _game_parts(train, tmp / "game/train", 0, 2))),
+                   "game validation": sum(map(_write_game_part,
+                                              _game_parts(held, tmp / "game/validation", n,
+                                                          1)))}
         ng, ngv, dg = cfg["glm_rows"], cfg["glm_validation_rows"], cfg["glm_d"]
         x, y = _dataset(np, seed + 4, ng + ngv, dg)
         xl, yl = x[:, :-1].tolist(), y.tolist()  # the last column is the driver's intercept
@@ -2393,11 +2469,127 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
              f"device memory {(torch.cuda.max_memory_allocated() - resident) / 2**20:.1f} MiB "
              f"above the {resident / 2**20:.1f} MiB earlier phases still hold")
 
+        # g. the native decoder against the Python codec on the same files:
+        # array for array, with each codec's records per second
+        game_cfg = {"global": FeatureShardConfiguration(feature_bags=("features",)),
+                    "per_entity": FeatureShardConfiguration(
+                        feature_bags=("perEntityFeatures",), has_intercept=False)}
+        glm_cfg = {"features": FeatureShardConfiguration(feature_bags=("features",))}
+        codec_rates = {}
+        for label, where, cfgs, ids, rows in (
+                ("GAME training", tmp / "game/train", game_cfg, ("itemId", "userId"), n),
+                ("GLM training", tmp / "glm/train", glm_cfg, (), ng)):
+            reads, seconds = [], []
+            for native in (True, False):
+                if not native:
+                    os.environ["PHOTON_NO_NATIVE_AVRO"] = "1"
+                t0 = time.perf_counter()
+                try:
+                    reads.append(read_merged(where, cfgs, random_effect_id_columns=ids,
+                                             device=dev))
+                finally:
+                    os.environ.pop("PHOTON_NO_NATIVE_AVRO", None)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            _same_read(torch, np, *reads)
+            codec_rates[label] = {"native_records_per_s": rows / seconds[0],
+                                  "python_records_per_s": rows / seconds[1],
+                                  "native_s": seconds[0], "python_s": seconds[1]}
+            del reads
+        assert avro_native.fallbacks == 0, avro_native.fallbacks
+        _log(f"Avro read, native decoder against the Python codec ({card}): the datasets equal "
+             f"array for array; " + json.dumps(codec_rates))
+
+        # h. the GAME training driver with an MF coordinate (user × item, k=16)
+        # beside the fixed effect, then the scoring driver on its saved model
+        for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
+            setattr(packed_glm, name, 0)
+        t0 = time.perf_counter()
+        mf_run = game_training_driver.main([
+            "--input-data-path", str(tmp / "game/train"),
+            "--validation-data-path", str(tmp / "game/validation"),
+            "--root-output-dir", str(tmp / "game/out-mf"), "--task-type", "LOGISTIC_REGRESSION",
+            *shards, "--coordinate-configurations",
+            "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+            "--coordinate-configurations",
+            "name=mf,mf.row.effect.type=userId,mf.col.effect.type=itemId,mf.latent.factors=16,"
+            "reg.weights=10,max.iter=10",
+            "--coordinate-descent-iterations", "2", "--evaluators", "AUC"], device=dev)
+        torch.cuda.synchronize()
+        mf_s = time.perf_counter() - t0
+        mf_launches = {"packed_glm": packed_glm.packed_launches,
+                       "packed_glm_reduce": packed_glm.reduce_launches}
+        assert mf_launches["packed_glm"] > 0 \
+            and mf_launches["packed_glm_reduce"] == mf_launches["packed_glm"], mf_launches
+        assert os.path.isdir(tmp / "game/out-mf/best/matrix-factorization/mf/row-latent-factors")
+        game_scoring_driver.main([
+            "--input-data-path", str(tmp / "game/validation"),
+            "--model-input-dir", str(tmp / "game/out-mf/best"),
+            "--output-dir", str(tmp / "game/scored-mf"), "--evaluators", "AUC", *shards],
+            device=dev)
+        mf_scores = np.asarray([r["predictionScore"]
+                                for r in read_scores(tmp / "game/scored-mf/scores")])
+        mf_maps = IndexMap.load_directory(tmp / "game/out-mf/index-maps")
+        mf_model = load_game_model(tmp / "game/out-mf/best", mf_maps, device=dev)
+        mf_sub = mf_model.get("mf")
+        mf_ds = read_merged(tmp / "game/validation", shard_cfg, index_maps=mf_maps,
+                            random_effect_id_columns=("itemId", "userId"),
+                            entity_vocabs={"userId": mf_sub.row_keys, "itemId": mf_sub.col_keys},
+                            device=dev).dataset
+        mf_in_process = (mf_model.score(mf_ds) + mf_ds.offsets).cpu().numpy()
+        assert np.array_equal(mf_scores, mf_in_process.astype(np.float64)), \
+            float(np.abs(mf_scores - mf_in_process).max())
+        _log(f"GAME training driver with an MF coordinate (userId × itemId, k=16) ({card}): "
+             f"{mf_s:.2f} s, {mf_launches['packed_glm']} packed kernels, validation AUC "
+             f"{mf_run['best_metric']:.6f}, factors {list(mf_sub.row_factors.shape)} and "
+             f"{list(mf_sub.col_factors.shape)}; the scoring driver's {nv} Avro scores bitwise "
+             f"equal to the loaded model's in-process scores; stages "
+             + json.dumps({k: round(v["total"], 4) for k, v in mf_run["timings"].items()}))
+        del mf_model, mf_ds, mf_sub
+
+        # i. --input-date-range over two daily directories equals the same
+        # part files read as one directory
+        for day, part in ((1, "part-00000.avro"), (2, "part-00001.avro")):
+            daily = tmp / f"game/days/daily/2026/01/{day:02d}"
+            daily.mkdir(parents=True)
+            shutil.copy(tmp / "game/train" / part, daily / part)
+        dated = {}
+        for label, extra in (("one directory", ["--input-data-path", str(tmp / "game/train")]),
+                             ("date range", ["--input-data-path", str(tmp / "game/days"),
+                                             "--input-date-range", "20260101-20260102"])):
+            dated[label] = game_training_driver.main([
+                *extra, "--validation-data-path", str(tmp / "game/validation"),
+                "--root-output-dir", str(tmp / f"game/out-{label.replace(' ', '-')}"),
+                "--task-type", "LOGISTIC_REGRESSION", *shards, "--coordinate-configurations",
+                "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+                "--coordinate-configurations", f"name=per_user,{re_spec}userId",
+                "--coordinate-descent-iterations", "2", "--evaluators", "AUC"], device=dev)
+        best_files = sorted(p.relative_to(tmp / "game/out-one-directory/best")
+                            for p in (tmp / "game/out-one-directory/best").rglob("*")
+                            if p.is_file())
+        for f in best_files:
+            assert (tmp / "game/out-one-directory/best" / f).read_bytes() == \
+                (tmp / "game/out-date-range/best" / f).read_bytes(), f
+        assert dated["date range"]["best_metric"] == dated["one directory"]["best_metric"]
+        _log(f"GAME training driver with --input-date-range 20260101-20260102 over two daily "
+             f"directories ({card}): validation AUC {dated['date range']['best_metric']:.6f}, "
+             f"its {len(best_files)} model files byte-identical to the one-directory run's")
+        assert avro_native.fallbacks == 0, avro_native.fallbacks
+
+        # j. the GAME training driver at the flagship's rows, uncut: Avro
+        # written by a pool of the port's pure-Python writers, one part each
+        path["packed_glm"].update(mf_run_launches=mf_launches["packed_glm"])
+        path["packed_glm_reduce"].update(mf_run_launches=mf_launches["packed_glm_reduce"])
+        path["packed_glm"]["flagship_run"] = _flagship_driver_run(
+            torch, np, seed, dev, tmp, card, shards, re_spec)
+        assert avro_native.fallbacks == 0, avro_native.fallbacks
+
         # f. the sparse drivers: sparse Avro with a compact random effect,
         # LibSVM into the GLM and GAME drivers
         t0 = time.perf_counter()
         sparse = _sparse_driver_slice(torch, np, seed, dev, tmp, card)
         _log(f"sparse drivers: {time.perf_counter() - t0:.2f} s")
+    assert avro_native.fallbacks == 0, f"{avro_native.fallbacks} reads left the native decoder"
     path["fused_glm"]["libsvm_run_launches"] = sparse["GLM, LibSVM"]["fused_glm"]
     path["fused_glm_reduce"]["libsvm_run_launches"] = sparse["GLM, LibSVM"]["fused_glm_reduce"]
     # each run's launches and the checks of G1 on its own inputs; the row and
@@ -2415,6 +2607,97 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
         "launches": sum(v["compact"] for v in gather.values()),
         "checks": [v["compact_check"] for v in gather.values() if "compact_check" in v]}
     return path
+
+
+def _flagship_driver_run(torch, np, seed: int, dev, tmp: Path, card: str, shards,
+                         re_spec: str) -> dict:
+    """Phase 8's GAME training driver at the flagship's rows, uncut (2^17
+    training and 2^15 validation rows at the flagship widths): the Avro
+    written by a pool of processes, each running the port's pure-Python
+    writer on one part file; the driver's stages printed (``util/timed``);
+    the packed kernel held against its plain version on the run's own
+    fixed-effect inputs, read back from its Avro. Returns that check with
+    the run's launches."""
+    import multiprocessing
+
+    from dev import torch_kernel_probe
+    from photon_ml_torch.cli import game_training_driver
+    from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
+    from photon_ml_torch.io.index_map import IndexMap
+    from photon_ml_torch.io.model_io import load_game_model
+    from photon_ml_torch.ops import packed_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+
+    # the global bag one narrower than the flagship's d = 256: the driver
+    # appends the intercept, as the 8,192-row runs' 255 features do
+    shape = dict(GAME["flagship"], d_fe=GAME["flagship"]["d_fe"] - 1)
+    n, nv = shape["n"], shape["held_out"]
+    train, held = _game_arrays(np, seed + 12, **shape)
+    workers = min(8, os.cpu_count() or 1)
+    jobs = _game_parts(train, tmp / "flagship/train", 0, 2 * workers) \
+        + _game_parts(held, tmp / "flagship/validation", n, workers)
+    del train, held
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pool.map(_write_game_part, jobs)
+    write_s = time.perf_counter() - t0
+    del jobs
+    for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
+        setattr(packed_glm, name, 0)
+    t0 = time.perf_counter()
+    run = game_training_driver.main([
+        "--input-data-path", str(tmp / "flagship/train"),
+        "--validation-data-path", str(tmp / "flagship/validation"),
+        "--root-output-dir", str(tmp / "flagship/out"), "--task-type", "LOGISTIC_REGRESSION",
+        *shards, "--coordinate-configurations",
+        "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+        "--coordinate-configurations", f"name=per_user,{re_spec}userId",
+        "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+        "--coordinate-descent-iterations", "2", "--evaluators", "AUC"], device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"packed_glm": packed_glm.packed_launches,
+                "packed_glm_reduce": packed_glm.reduce_launches}
+    assert launches["packed_glm"] > 0 \
+        and launches["packed_glm_reduce"] == launches["packed_glm"], launches
+    fe_alone = run["metric_history"][0]["metrics"][0]
+    assert fe_alone["coordinate"] == "fixed" and run["best_metric"] > \
+        fe_alone["validate:AUC"] > 0.5, (run["best_metric"], fe_alone)
+    decode = run["timings"]["avro decode"]["total"]
+    _log(f"GAME training driver at the flagship's rows, uncut ({card}): {n} training + {nv} "
+         f"validation rows written in {write_s:.2f} s by {workers} processes of the port's "
+         f"pure-Python writer ({(n + nv) / write_s:.0f} records/s), training run "
+         f"{run_s:.2f} s, {launches['packed_glm']} packed kernels, validation AUC "
+         f"{run['best_metric']:.6f} against the fixed effect alone "
+         f"{fe_alone['validate:AUC']:.6f}; native Avro decode {(n + nv) / decode:.0f} records/s; "
+         f"stages " + json.dumps({k: round(v["total"], 4) for k, v in run["timings"].items()}))
+    maps = IndexMap.load_directory(tmp / "flagship/out/index-maps")
+    model = load_game_model(tmp / "flagship/out/best", maps, device=dev)
+    cfg = {"global": FeatureShardConfiguration(feature_bags=("features",)),
+           "per_entity": FeatureShardConfiguration(feature_bags=("perEntityFeatures",),
+                                                   has_intercept=False)}
+    ds = read_merged(tmp / "flagship/train", cfg, index_maps=maps,
+                     random_effect_id_columns=("itemId", "userId"),
+                     entity_vocabs={m.random_effect_type: m.entity_keys
+                                    for m in model.models.values() if hasattr(m, "entity_keys")},
+                     device=dev).dataset
+    x = ds.feature_shards["global"]
+    assert tuple(x.shape) == (n, shape["d_fe"] + 1), x.shape
+    w = model.get("fixed").glm.coefficients.means.float().contiguous()
+    aux = packed_glm.pack_aux(ds.labels, ds.offsets + model.score(ds) - x @ w, ds.weights)
+    loss = LogisticLoss()
+    r = torch.rand(n, device=dev)
+    check = _path_check(
+        torch, "packed_glm on the flagship driver run's fixed effect",
+        lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False),
+        lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False),
+        lambda: (torch.matmul(x, w), torch.matmul(r, x)), torch_kernel_probe.limits("float32"),
+        x.shape[0] * x.shape[1] * 4 + 12 * n + 8 * x.shape[1] + 8, x.shape)
+    _log(f"packed_glm on the flagship driver run's fixed effect {list(x.shape)} ({card}): "
+         + json.dumps(check))
+    return dict(check, launches=launches["packed_glm"],
+                reduce_launches=launches["packed_glm_reduce"], write_seconds=write_s,
+                run_seconds=run_s, timings={k: v["total"] for k, v in run["timings"].items()})
 
 
 #: phase 9's shapes: bench.py:721 (bench_game_sweep_composed), none cut: n = 2^16 rows of
@@ -3179,6 +3462,370 @@ def _sparse_driver_slice(torch, np, seed: int, dev, tmp: Path, card: str) -> dic
     return launches
 
 
+#: phase 10, matrix factorization (ROADMAP item 13): (a) bench.py's flagship
+#: GAME widths (bench.py:542-560) with a user × item MF coordinate (k = 16,
+#: 2 alternations) beside the fixed effect and the per-user effect, linear
+#: labels carrying a planted rank-16 user·item term; (b) MovieLens-1M's
+#: published widths (GroupLens ml-1m: 6,040 users, 3,706 movies, 1,000,209
+#: ratings, at least 20 a user), none cut: the ``global`` shard is the
+#: one-hot of its own attributes (intercept, gender 2, age 7, occupation 21,
+#: genres 18: d = 49), k = 32; (c) a small problem on the card against the CPU.
+MF = {
+    "flagship": dict(GAME["flagship"], k=16, alternations=2),
+    "movielens": dict(users=6040, movies=3706, ratings=1_000_209, min_count=20,
+                      max_count=2314, held_out=1 << 16, k=32, sweeps=4, genders=2, ages=7,
+                      occupations=21, genres=18),
+    "small": dict(GAME["small"], k=4),
+}
+
+
+def _planted_mf(np, seed: int, part, users: int, items: int, k: int, scale: float = 0.5):
+    """``part``'s linear labels plus a planted rank-k term u_user · v_item
+    (u, v ~ N(0, scale²), so the term's variance is k·scale⁴); the user rows
+    cover the held-out users never trained on too."""
+    rng = np.random.default_rng(seed)
+    u = (scale * rng.normal(size=(2 * users, k))).astype(np.float32)
+    v = (scale * rng.normal(size=(items, k))).astype(np.float32)
+    ui = np.char.lstrip(part["keys"]["user"], "u").astype(np.int64)
+    ii = np.char.lstrip(part["keys"]["item"], "i").astype(np.int64)
+    part["labels"]["LINEAR_REGRESSION"] = part["labels"]["LINEAR_REGRESSION"] + np.einsum(
+        "nk,nk->n", u[ui], v[ii]).astype(np.float32)
+    return part
+
+
+def _mf_estimator(sweeps: int, *, k: int, mf_lanes: str = "AUTO", mf: bool = True,
+                  per_user: bool = True, alternations: int = 2, mf_l2: float = 10.0, **kw):
+    """The flagship configuration of ``_game_estimator`` with the per-user
+    effect only, plus (``mf``) a user × item MF coordinate with ``mf_lanes``
+    (AUTO resolves to Newton lanes), 10 iterations, L2 weight ``mf_l2``: at
+    weight 1 the factors of an entity's 66-87 rows fit its noise (held-out
+    RMSE above the fit without MF, by a CPU rehearsal at a sixteenth of the
+    rows); at 30 they shrink to the zero saddle."""
+    from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+    from photon_ml_torch.estimators import MatrixFactorizationCoordinateConfig
+
+    est = _game_estimator("LINEAR_REGRESSION", "NEWTON", sweeps, **kw)
+    configs = {c: v for c, v in est.coordinate_configs.items()
+               if c == "fixed" or (per_user and c == "per_user")}
+    if mf:
+        from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+
+        configs["mf"] = MatrixFactorizationCoordinateConfig(
+            "user", "item", num_latent_factors=k, num_alternations=alternations,
+            optimization=CoordinateOptimizationConfig(
+                optimizer=OptimizerConfig(OptimizerType[mf_lanes], max_iterations=10),
+                l2_weight=mf_l2))
+    est.coordinate_configs = configs
+    return est
+
+
+def _rmse(torch, np, model, dataset) -> float:
+    scores = (model.score(dataset) + dataset.offsets).double().cpu().numpy()
+    assert np.isfinite(scores).all()
+    return float(np.sqrt(np.mean((scores - dataset.host_array("labels")) ** 2)))
+
+
+def _mf_buckets(mf_dataset, k: int) -> dict:
+    """Each side's bucket shapes and bytes (labels, weights, entity and
+    sample rows), and the bytes of the [e, cap, k] f32 features one solve
+    gathers."""
+    out = {}
+    for side in ("row", "col"):
+        buckets = getattr(mf_dataset, f"{side}_buckets")
+        out[side] = {
+            "shapes": [[b.num_entities, int(b.labels.shape[1])] for b in buckets],
+            "bytes": sum(getattr(b, f).numel() * getattr(b, f).element_size() for b in buckets
+                         for f in ("labels", "weights", "entity_rows", "sample_rows")),
+            "feature_bytes_per_solve": [b.num_entities * int(b.labels.shape[1]) * k * 4
+                                        for b in buckets]}
+    return out
+
+
+def _mf_half_step(coord, model):
+    """A callable running one MF half-step of ``coord`` from ``model``: every
+    row bucket's lane solve against the fixed column factors."""
+    from photon_ml_torch.algorithm.coordinates import _solve_config
+    from photon_ml_torch.algorithm.mf_coordinate import solve_mf_side_bucket
+    from photon_ml_torch.ops.losses import loss_for_task
+    from photon_ml_torch.ops.objective import GLMObjective
+
+    objective = GLMObjective(loss_for_task(coord.task), l2_weight=coord.config.l2_weight,
+                             use_kernel=False)
+    opt = _solve_config(coord.config, loss=objective.loss, small_dense=True)
+    col_idx = coord.dataset.entity_idx[coord.mf_dataset.col_effect_type]
+
+    def run():
+        rows = model.row_factors
+        for b in coord.mf_dataset.row_buckets:
+            rows, _ = solve_mf_side_bucket(objective, opt, b.labels, b.weights, b.entity_rows,
+                                           b.sample_rows, col_idx, model.col_factors,
+                                           coord.dataset.offsets, rows)
+        return rows
+
+    return run
+
+
+def _movielens_arrays(np, seed: int, users: int, movies: int, ratings: int, min_count: int,
+                      max_count: int, held_out: int, k: int, genders: int, ages: int,
+                      occupations: int, genres: int, **_):
+    """Ratings at MovieLens-1M's published widths from ``seed``: per-user
+    counts Zipf-like from ``min_count`` to ``max_count`` summing to
+    ``ratings``, each user's movies drawn without replacement by a Zipf
+    popularity; user attributes (gender, age, occupation) and 1-3 genres a
+    movie one-hot in the ``global`` shard with an intercept; ratings 1-5
+    from a planted model (attribute effects plus a rank-k user·movie term)
+    plus noise, rounded and clipped. ``held_out`` more ratings of the same
+    model follow (users and movies all seen)."""
+    rng = np.random.default_rng(seed)
+    rank = np.arange(1, users + 1, dtype=np.float64)
+    lo, hi = 1e-3, 3.0  # the Zipf exponent whose counts sum to ``ratings``
+
+    def counts_for(s):  # min_count at the last rank, max_count at the first
+        tail = users ** -s
+        return min_count + np.floor((max_count - min_count) * (rank ** -s - tail)
+                                    / (1.0 - tail) + 1e-9).astype(np.int64)
+
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if counts_for(mid).sum() > ratings else (lo, mid)
+    counts = counts_for(hi)
+    short = ratings - int(counts.sum())
+    counts[np.argsort(counts)[:short]] += 1  # the smallest users take the rest
+    assert counts.sum() == ratings and counts.min() >= min_count and counts.max() == max_count
+    counts = rng.permutation(counts)
+    pop = 1.0 / np.arange(1, movies + 1) ** 0.9
+    pop /= pop.sum()
+    movie_perm = rng.permutation(movies)
+    total = ratings + held_out
+    extra = rng.integers(0, users, size=held_out)
+    per_user = counts + np.bincount(extra, minlength=users)
+    user_idx = np.repeat(np.arange(users), per_user)
+    movie_idx = np.concatenate([movie_perm[rng.choice(movies, size=c, replace=False, p=pop)]
+                                for c in per_user])
+    gender = rng.integers(0, genders, size=users)
+    age = rng.integers(0, ages, size=users)
+    occupation = rng.integers(0, occupations, size=users)
+    movie_genres = np.zeros((movies, genres), dtype=np.float32)
+    for m in range(movies):
+        movie_genres[m, rng.choice(genres, size=rng.integers(1, 4), replace=False)] = 1.0
+    d = 1 + genders + ages + occupations + genres
+    x = np.zeros((total, d), dtype=np.float32)
+    x[:, 0] = 1.0
+    rows = np.arange(total)
+    x[rows, 1 + gender[user_idx]] = 1.0
+    x[rows, 1 + genders + age[user_idx]] = 1.0
+    x[rows, 1 + genders + ages + occupation[user_idx]] = 1.0
+    x[:, 1 + genders + ages + occupations:] = movie_genres[movie_idx]
+    w = np.concatenate([[3.58], 0.3 * rng.normal(size=d - 1)])
+    u = 0.45 * rng.normal(size=(users, k))
+    v = 0.45 * rng.normal(size=(movies, k))
+    z = x @ w + np.einsum("nk,nk->n", u[user_idx], v[movie_idx]) \
+        + 0.5 * rng.normal(size=total)
+    y = np.clip(np.rint(z), 1, 5).astype(np.float32)
+    order = rng.permutation(total)
+    held = order[:held_out]
+    train = np.sort(order[held_out:])
+    keys = {"user": np.char.add("u", user_idx.astype(str)),
+            "item": np.char.add("m", movie_idx.astype(str))}
+
+    def part(sel):
+        return dict(x=x[sel], labels=y[sel], keys={t: v_[sel] for t, v_ in keys.items()})
+
+    return part(train), part(held), counts
+
+
+def _mf_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 10: matrix factorization through ``GameEstimator.fit`` (``MF``),
+    printing as it goes. Returns, for each kernel this path runs, its
+    launches here and its check on the path's own fixed-effect inputs."""
+    from dev import torch_kernel_probe
+    from photon_ml_torch import convert
+    from photon_ml_torch.algorithm import mf_coordinate
+    from photon_ml_torch.data.game_data import build_game_dataset
+    from photon_ml_torch.models.game import GameModel
+    from photon_ml_torch.ops import packed_glm
+    from photon_ml_torch.ops.losses import SquaredLoss
+
+    # a. the flagship widths with a planted rank-16 user·item term
+    shape = MF["flagship"]
+    sweeps, k = shape["sweeps"], shape["k"]
+    t0 = time.perf_counter()
+    train, held = _game_arrays(np, seed + 7, **shape)
+    train = _planted_mf(np, seed + 8, train, shape["users"], shape["items"], k)
+    held = _planted_mf(np, seed + 8, held, shape["users"], shape["items"], k)
+    lin = "LINEAR_REGRESSION"
+    ds = _game_dataset(train, lin, dev)
+    held_ds = _game_dataset(held, lin, dev, vocabs=ds.entity_vocabs)
+    torch.cuda.synchronize()
+    unseen = (held_ds.entity_idx["user"] < 0).cpu().numpy()
+    assert unseen.any()
+    _log(f"MF GAME data n={shape['n']} (+{shape['held_out']} held out, {int(unseen.sum())} of "
+         f"unseen users) global d={shape['d_fe']} per_entity d={shape['d_re']} "
+         f"users={shape['users']} items={shape['items']}, linear labels plus a planted rank-{k} "
+         f"user·item term: {time.perf_counter() - t0:.2f} s")
+    del train, held
+    alt = shape["alternations"]
+    # warm up outside the times
+    _mf_estimator(1, k=k, alternations=alt).fit(ds)
+    fits = {}
+    for label, kw in (("a. fixed + per-user + mf, newton mf lanes", {}),
+                      ("a. the same fit again", {}),
+                      ("a. mf with l-bfgs lanes", {"mf_lanes": "LBFGS"}),
+                      ("a. fixed + per-user, no mf, mma", {"mf": False, "kernel_unit": "mma"})):
+        fits[label] = _game_fit(torch, label, _mf_estimator(sweeps, k=k, alternations=alt, **kw),
+                                ds, sweeps)
+        torch.cuda.empty_cache()
+    main_fit = fits["a. fixed + per-user + mf, newton mf lanes"]
+    model = main_fit["result"].model
+    again = fits["a. the same fit again"]["result"].model
+    plain_model, plain_again = (convert.game_model_to_numpy(m) for m in (model, again))
+    bitwise = all(np.array_equal(v, plain_again[c][f], equal_nan=True)
+                  for c, m in plain_model.items() for f, v in m.items()
+                  if isinstance(v, np.ndarray))
+    gap = _rel_gap(fits["a. mf with l-bfgs lanes"]["loss_per_sweep"][-1],
+                   main_fit["loss_per_sweep"][-1])
+    rmse = {label: _rmse(torch, np, f["result"].model, held_ds) for label, f in fits.items()}
+    mf_held = model.get("mf").score_dataset(held_ds).cpu().numpy()
+    _log(f"a. MF flagship ({card}): held-out RMSE {json.dumps(rmse)}; L-BFGS against Newton MF "
+         f"lanes final training loss rel gap {gap:.3g} (limit 1e-3); the Newton fit twice "
+         f"bitwise equal: {bitwise}; MF scores of the {int(unseen.sum())} unseen users all 0: "
+         f"{bool((mf_held[unseen] == 0).all())}")
+    for label, f in fits.items():
+        _log(f"MF fit {label} ({card}): seconds per sweep {f['seconds_per_sweep']:.4f}, by "
+             f"coordinate {json.dumps(f['per_sweep'])}, rescoring "
+             f"{f['rescoring_per_sweep']:.4f}, host rest {f['host_rest_per_sweep']:.4f}, bucket "
+             f"builders {f['bucket_builder_seconds']:.3f} s; lane iterations "
+             f"{json.dumps(f['lane_iteration_histogram'])}")
+    assert bitwise, "the Newton MF fit did not repeat bitwise"
+    assert gap <= 1e-3, f"L-BFGS MF lanes off Newton's by {gap}"
+    assert bool((mf_held[unseen] == 0).all()), "an unseen user's MF score is not 0"
+    no_mf = rmse["a. fixed + per-user, no mf, mma"]
+    assert all(v < no_mf for label, v in rmse.items() if "no mf" not in label), rmse
+
+    # the kernels on this path's own fixed-effect inputs (the main fit's model)
+    x = ds.feature_shards["global"]
+    w = model.get("fixed").glm.coefficients.means.float().contiguous()
+    o = (ds.offsets + model.score(ds) - x @ w).contiguous()
+    aux = packed_glm.pack_aux(ds.labels, o, ds.weights)
+    loss = SquaredLoss()
+    n = x.shape[0]
+    r = torch.rand(n, device=dev)
+    library = lambda: (torch.matmul(x, w), torch.matmul(r, x))  # noqa: E731
+    nbytes = n * x.shape[1] * 4 + 12 * n + 8 * x.shape[1] + 8
+    limits = torch_kernel_probe.limits("float32")
+    tf32 = torch_kernel_probe.tf32_slack(loss, x, ds.labels, o, ds.weights, w, None, "mma", "mma")
+    launches = {c: sum(f["launches"][c] for f in fits.values())
+                for c in ("packed_launches", "mma_launches", "reduce_launches")}
+    path = {
+        "packed_glm": dict(_path_check(
+            torch, "packed_glm on the MF slice's fixed effect",
+            lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False),
+            lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False),
+            library, limits, nbytes, x.shape),
+            launches=launches["packed_launches"] - launches["mma_launches"]),
+        "packed_glm[mma]": dict(_path_check(
+            torch, "packed_glm[mma] on the MF slice's fixed effect",
+            lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False, margin_unit="mma",
+                                           grad_unit="mma"),
+            lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False,
+                                                     margin_unit="mma", grad_unit="mma"),
+            library, limits, nbytes, x.shape, tf32), launches=launches["mma_launches"]),
+    }
+    fe_args = (loss, x, aux, None, None, None, w, None, False, "fma", "fma")
+    path["packed_glm_reduce"] = dict(
+        _reduce_entry(torch, "packed_glm_reduce on the MF slice's fixed effect",
+                      lambda: packed_glm.launch_partials(*fe_args), packed_glm.reduce_partials,
+                      packed_glm.reduce_partials_reference),
+        launches=launches["reduce_launches"])
+    assert all(v["launches"] > 0 for v in path.values()), {c: v["launches"]
+                                                           for c, v in path.items()}
+    _log(f"kernels on the MF slice's fixed effect {list(x.shape)} ({card}): "
+         + json.dumps(path))
+    del fits, main_fit, model, again, ds, held_ds, x, aux, o, r, fe_args
+    torch.cuda.empty_cache()
+
+    # b. MovieLens-1M's widths, nothing cut
+    ml = MF["movielens"]
+    t0 = time.perf_counter()
+    train, held, counts = _movielens_arrays(np, seed + 9, **ml)
+    t_arrays = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mds = build_game_dataset(labels=train["labels"], feature_shards={"global": train["x"]},
+                             entity_keys=train["keys"], device=dev)
+    mheld = build_game_dataset(labels=held["labels"], feature_shards={"global": held["x"]},
+                               entity_keys=held["keys"], entity_vocabs=mds.entity_vocabs,
+                               device=dev)
+    torch.cuda.synchronize()
+    _log(f"b. MovieLens-1M widths: {mds.num_samples} ratings (+{mheld.num_samples} held out) of "
+         f"{len(mds.entity_vocabs['user'])} users ({counts.min()}-{counts.max()} ratings each) "
+         f"and {len(mds.entity_vocabs['item'])} movies, global d={train['x'].shape[1]}, "
+         f"ratings 1-5 (mean {train['labels'].mean():.3f}): numpy {t_arrays:.2f} s, "
+         f"build_game_dataset x2 {time.perf_counter() - t0:.2f} s")
+    del train, held
+    t0 = time.perf_counter()
+    built = mf_coordinate.build_mf_dataset(mds, "user", "item")
+    torch.cuda.synchronize()
+    builder_s = time.perf_counter() - t0
+    buckets = _mf_buckets(built, ml["k"])
+    _log(f"MovieLens MF buckets ({card}): host builder {builder_s:.3f} s; " + json.dumps(buckets))
+    del built
+    kw = dict(k=ml["k"], per_user=False, alternations=2)
+    _mf_estimator(1, **kw).fit(mds)  # warm up
+    ml_fits = {"b. movielens fixed + mf k=32": _game_fit(
+        torch, "b. movielens fixed + mf k=32", _mf_estimator(ml["sweeps"], **kw), mds,
+        ml["sweeps"])}
+    torch.cuda.empty_cache()
+    ml_fits["b. movielens fixed effect only"] = _game_fit(
+        torch, "b. movielens fixed effect only", _mf_estimator(1, mf=False, **kw), mds, 1)
+    ml_rmse = {label: _rmse(torch, np, f["result"].model, mheld) for label, f in ml_fits.items()}
+    ml_main = ml_fits["b. movielens fixed + mf k=32"]
+    _log(f"b. MovieLens MF ({card}): seconds per sweep {ml_main['seconds_per_sweep']:.4f}, by "
+         f"coordinate {json.dumps(ml_main['per_sweep'])}, rescoring "
+         f"{ml_main['rescoring_per_sweep']:.4f}, host rest {ml_main['host_rest_per_sweep']:.4f}, "
+         f"bucket builders {ml_main['bucket_builder_seconds']:.3f} s; held-out RMSE "
+         + json.dumps(ml_rmse))
+    assert ml_rmse["b. movielens fixed + mf k=32"] < ml_rmse["b. movielens fixed effect only"], \
+        ml_rmse
+    _, coords = _mf_estimator(1, **kw)._build_coordinates(mds, None)
+    coord = coords["mf"]
+    half = _profiled(torch, _mf_half_step(coord, ml_main["result"].model.get("mf")))
+    _log(f"MovieLens MF half-step, the {len(coord.mf_dataset.row_buckets)} user buckets' Newton "
+         f"lanes at k={ml['k']} ({card}): " + json.dumps(half))
+    for label, f in ml_fits.items():
+        path["packed_glm"].setdefault("movielens_launches", 0)
+        path["packed_glm"]["movielens_launches"] += f["launches"]["packed_launches"]
+        path["packed_glm_reduce"].setdefault("movielens_launches", 0)
+        path["packed_glm_reduce"]["movielens_launches"] += f["launches"]["reduce_launches"]
+    del ml_fits, ml_main, mds, mheld, coord, coords
+    torch.cuda.empty_cache()
+
+    # c. a small problem: one MF update from the same factors, card f32
+    # against CPU f64
+    small = MF["small"]
+    arrays, _ = _game_arrays(np, seed + 10, **small)
+    arrays = _planted_mf(np, seed + 11, arrays, small["users"], small["items"], small["k"])
+    got, start = {}, None
+    for where, dtype in ((dev, None), ("cpu", np.float64)):
+        sds = _game_dataset(arrays, lin, where, dtype=dtype)
+        _, coords = _mf_estimator(1, k=small["k"], per_user=False)._build_coordinates(sds, None)
+        coord = coords["mf"]
+        init = coord.initial_model()
+        if start is None:
+            start = convert.game_model_to_numpy(GameModel(models={"mf": init}))["mf"]
+        carried = convert.game_model_from_numpy({"mf": dict(start)}, device=where).get("mf")
+        carried = carried.with_factors(carried.row_factors.to(init.row_factors.dtype),
+                                       carried.col_factors.to(init.col_factors.dtype))
+        new, _ = coord.update_model(carried)
+        got[str(where)] = torch.cat([new.row_factors.double().cpu().reshape(-1),
+                                     new.col_factors.double().cpu().reshape(-1)])
+    gap = float((got[str(dev)] - got["cpu"]).abs().max())
+    scale = float(got["cpu"].abs().max())
+    _log(f"c. small MF problem n={small['n']} k={small['k']}: one update, card f32 vs cpu f64 "
+         f"max |d factor| {gap:.3g} (max |factor| {scale:.3g}, limit 1e-3·max)")
+    assert gap <= 1e-3 * scale
+    return path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3384,8 +4031,14 @@ def main(argv=None) -> int:
     line["kernels"].append(compact_entry)
     _log(f"sparse GAME phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in sparse_game_path.items()}))
+
+    # 10. matrix factorization: its launches and kernel checks as its own path
+    t0 = time.perf_counter()
+    mf_path = _mf_slice(torch, np, args.seed, dev, card)
+    _log(f"MF GAME phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in mf_path.items()}))
     for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
-                      ("sparse_game_path", sparse_game_path)):
+                      ("sparse_game_path", sparse_game_path), ("mf_path", mf_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

@@ -10,7 +10,10 @@ normalization, variances, the four pointwise losses and GLM scoring; in-core
 GAME training on one device (``estimators.GameEstimator``: a fixed effect
 plus per-entity random effects by block coordinate descent, lane-batched
 L-BFGS, Newton, OWL-QN and TRON solves, IDENTITY, INDEX_MAP and RANDOM
-projections, ``projector/projectors.py``); and the hand-written kernels under ``csrc/``
+projections, ``projector/projectors.py``, and matrix-factorization
+coordinates, ``algorithm/mf_coordinate.py``); the three drivers and the host
+tools on Avro (through the columnar C++ decoder under ``native/``) and LibSVM
+(its C++ parser); and the hand-written kernels under ``csrc/``
 (``ops/fused_glm.py``, ``ops/packed_glm.py``, ``ops/sparse_gather.py``).
 
 Entry points run on the CUDA device unless the caller passes

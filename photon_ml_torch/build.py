@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels from ``photon_ml_torch/csrc`` at first use.
+"""Build the port's CUDA kernels and host libraries at first use.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface (loaded with ``ctypes``) under ``build/torch_kernels/`` of
@@ -11,12 +11,18 @@ built at import time: the CPU tests import every module without ``nvcc``.
 them; ``load(name)`` builds one source if needed and returns its library.
 ``on_device`` and ``check_cuda`` are the two steps every wrapper takes around
 a launch.
+
+The host libraries (``native/<name>.cpp``: the columnar Avro decoder and the
+LibSVM parser) build the same way with ``g++`` into ``build/torch_native/``:
+``load_host(name, configure)``. A build that fails raises ``RuntimeError``
+with the compiler's output; nothing falls back on its own.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import ctypes.util
 import hashlib
 import os
 import shutil
@@ -32,7 +38,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+NATIVE = Path(__file__).resolve().parent / "native"
+HOST_BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_native"
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+#: per-source link flags: only the Avro decoder needs zlib (deflate blocks)
+HOST_LINK = {"avro_decoder": ("-lz",)}
+
 _LOADED: dict[str, ctypes.CDLL] = {}
+_HOST_LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -127,4 +140,57 @@ def load(name: str) -> ctypes.CDLL:
         started, out = _start(name)
         _finish(name, started, out)
         lib = _LOADED[name] = ctypes.CDLL(str(out))
+    return lib
+
+
+def host_library_path(name: str) -> Path:
+    src = (NATIVE / f"{name}.cpp").read_bytes()
+    flags = " ".join(HOST_FLAGS + HOST_LINK.get(name, ()))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
+    return HOST_BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _gxx() -> str:
+    path = shutil.which("g++") or shutil.which("c++")
+    if path is None:
+        raise RuntimeError("no C++ compiler (g++) found: the host libraries of "
+                           "photon_ml_torch/native are built with one")
+    return path
+
+
+def _build_host(name: str, out: Path) -> None:
+    """Compile native/<name>.cpp into ``out`` through a temporary file
+    (several processes may build at once). A zlib that ``-lz`` does not
+    find (no development link) is linked by its library name."""
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = list(HOST_LINK.get(name, ()))
+    attempts = [link]
+    zlib = ctypes.util.find_library("z")
+    if "-lz" in link and zlib:
+        attempts.append([f if f != "-lz" else f"-l:{zlib}" for f in link])
+    log = ""
+    for flags in attempts:
+        cmd = [_gxx(), *HOST_FLAGS, str(NATIVE / f"{name}.cpp"), "-o", str(tmp), *flags]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+            return
+        log += f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    with contextlib.suppress(FileNotFoundError):
+        tmp.unlink()
+    raise RuntimeError(f"g++ failed for photon_ml_torch/native/{name}.cpp:\n{log}")
+
+
+def load_host(name: str, configure) -> ctypes.CDLL:
+    """The loaded host library of ``native/<name>.cpp``, built first if
+    needed; ``configure(lib)`` declares its functions' types once."""
+    lib = _HOST_LOADED.get(name)
+    if lib is None:
+        out = host_library_path(name)
+        if not out.exists():
+            _build_host(name, out)
+        lib = ctypes.CDLL(str(out))
+        configure(lib)
+        _HOST_LOADED[name] = lib
     return lib

@@ -23,6 +23,7 @@ from typing import Mapping, Sequence
 from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
 from photon_ml_torch.estimators import (
     FixedEffectCoordinateConfig,
+    MatrixFactorizationCoordinateConfig,
     RandomEffectCoordinateConfig,
 )
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration
@@ -134,7 +135,7 @@ class CoordinateCliConfig:
     feature_shard: str
     #: LBFGS (default) | OWLQN | LBFGSB | TRON (the reference's set,
     #: OptimizerType.scala) | NEWTON (batched small-d solver,
-    #: optim/newton.py — the fast choice for RE coordinates)
+    #: optim/newton.py — the fast choice for RE/MF coordinates)
     optimizer: OptimizerType = OptimizerType.LBFGS
     max_iterations: int = 100
     tolerance: float = 1e-7
@@ -208,8 +209,14 @@ class CoordinateCliConfig:
 
     def estimator_config(self, reg_weight: float):
         if self.is_matrix_factorization:
-            raise NotImplementedError(f"matrix-factorization coordinate '{self.name}' is not "
-                                      "ported yet: ROADMAP.md item 13")
+            return MatrixFactorizationCoordinateConfig(
+                row_effect_type=self.mf_row_effect_type,
+                col_effect_type=self.mf_col_effect_type,
+                num_latent_factors=self.mf_latent_factors,
+                optimization=self.optimization_config(reg_weight),
+                num_alternations=self.mf_alternations,
+                active_data_upper_bound=self.active_data_upper_bound,
+            )
         if self.is_random_effect:
             return RandomEffectCoordinateConfig(
                 random_effect_type=self.random_effect_type,

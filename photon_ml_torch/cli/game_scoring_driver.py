@@ -45,6 +45,7 @@ from photon_ml_torch.io.model_io import (
 )
 from photon_ml_torch.io.score_writer import ShardedScoreWriter
 from photon_ml_torch.models.game import RandomEffectModel
+from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_torch.transformers import GameTransformer
 from photon_ml_torch.util import Timed
 from photon_ml_torch.util.timed import reset_timings
@@ -174,18 +175,25 @@ def _load_scoring_model(*, model_input_dir: str, index_maps_dir: str | None,
                 model_input_dir,
                 compact_random_effect_threshold=compact_random_effect_threshold, device=device)
     entity_vocabs: dict[str, np.ndarray] = {}
+
+    def set_vocab(effect_type: str, keys) -> None:
+        keys = np.asarray(keys)
+        existing = entity_vocabs.get(effect_type)
+        if existing is not None and not np.array_equal(existing, keys):
+            # two sub-models disagreeing on a shared entity space would
+            # silently misalign one model's table rows
+            raise ValueError(
+                f"sub-models disagree on entity keys for effect type "
+                f"'{effect_type}' ({len(existing)} vs {len(keys)} keys); "
+                "cannot build a consistent scoring vocab")
+        entity_vocabs[effect_type] = keys
+
     for m in model.models.values():
         if isinstance(m, RandomEffectModel):
-            keys = np.asarray(m.entity_keys)
-            existing = entity_vocabs.get(m.random_effect_type)
-            if existing is not None and not np.array_equal(existing, keys):
-                # two sub-models disagreeing on a shared entity space would
-                # silently misalign one model's table rows
-                raise ValueError(
-                    f"sub-models disagree on entity keys for effect type "
-                    f"'{m.random_effect_type}' ({len(existing)} vs {len(keys)} keys); "
-                    "cannot build a consistent scoring vocab")
-            entity_vocabs[m.random_effect_type] = keys
+            set_vocab(m.random_effect_type, m.entity_keys)
+        elif isinstance(m, MatrixFactorizationModel):
+            set_vocab(m.row_effect_type, m.row_keys)
+            set_vocab(m.col_effect_type, m.col_keys)
     return model, index_maps, feature_shards, entity_vocabs, tuple(sorted(entity_vocabs))
 
 

@@ -26,10 +26,12 @@ ROADMAP.md item before any data is read: ``--distributed``/``--mesh`` (10),
 ``--partitioned-io`` (15), ``--streaming-chunks`` and its DuHL riders,
 ``--checkpoint-dir`` and ``--max-restarts`` above 0 (16; the port's default
 is 0), ``--incremental-refresh``, hyperparameter tuning, the lane scheduler
-(18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir`` (19),
-matrix-factorization coordinates (13), date ranges (queue A).
+(18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir`` (19).
 Sparse, hybrid and pre-indexed shards and ``--input-format libsvm`` are
-taken; a random effect on a sparse shard trains and saves a compact model.
+taken; a random effect on a sparse shard trains and saves a compact model;
+matrix-factorization coordinates read both their entity columns;
+``--input-date-range``/``--validation-data-date-range`` read the
+``<path>/daily/yyyy/MM/dd`` directories inside the range.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from photon_ml_torch.io.model_io import (
 from photon_ml_torch.ops.normalization import NormalizationType
 from photon_ml_torch.types import TaskType
 from photon_ml_torch.util import PhotonLogger, Timed
+from photon_ml_torch.util.date_range import parse_date_or_days_range, resolve_input_paths
 from photon_ml_torch.util.timed import reset_timings, timing_summary
 
 logger = logging.getLogger(__name__)
@@ -107,9 +110,10 @@ class GameTrainingParams:
     compact_random_effect_threshold: int = DEFAULT_COMPACT_RE_THRESHOLD
     #: "raise" (strict) or "quarantine" (skip-and-count corrupt Avro blocks)
     on_corrupt: str = "raise"
-    # not ported: each refused by check_ported() when set
+    #: "yyyyMMdd-yyyyMMdd" or "N-M" days ago: read <path>/daily/yyyy/MM/dd
     input_date_range: str | None = None
     validation_data_date_range: str | None = None
+    # not ported: each refused by check_ported() when set
     hyperparameter_tuning: str = "NONE"
     hyperparameter_prior_json: str | None = None
     checkpoint_dir: str | None = None
@@ -144,14 +148,7 @@ class GameTrainingParams:
         for unported, what, item in left_out:
             if unported:
                 raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
-        if self.input_date_range or self.validation_data_date_range:
-            raise NotImplementedError(
-                "date-range inputs (util/date_range.py) are not ported yet: ROADMAP.md queue A")
         for name, cfg in self.coordinates.items():
-            if cfg.is_matrix_factorization:
-                raise NotImplementedError(
-                    f"matrix-factorization coordinate '{name}' is not ported yet: "
-                    "ROADMAP.md item 13")
             if cfg.scheduler:
                 raise NotImplementedError(
                     f"coordinate '{name}': the lane scheduler (scheduler=true) is not ported "
@@ -227,18 +224,31 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
         return _run_inner(params, job_log, device)
 
 
+def _resolve(path: str, range_spec: str | None):
+    """The input path, or the daily directories under it within the range."""
+    if not range_spec:
+        return path
+    return resolve_input_paths([path], parse_date_or_days_range(range_spec))
+
+
 def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dict:
     out = params.root_output_dir
     sync = torch.cuda.synchronize if device.type == "cuda" else None
-    re_columns = tuple(sorted({c.random_effect_type for c in params.coordinates.values()
-                               if c.random_effect_type}))
+    entity_columns = {c.random_effect_type for c in params.coordinates.values()
+                      if c.random_effect_type}
+    for c in params.coordinates.values():
+        # an MF coordinate reads two entity id columns (row and col)
+        if c.is_matrix_factorization:
+            entity_columns.update((c.mf_row_effect_type, c.mf_col_effect_type))
+    re_columns = tuple(sorted(entity_columns))
     eval_columns = evaluation_id_columns(params.evaluators)
     prebuilt_maps = None
     if params.index_maps_dir:
         prebuilt_maps = IndexMap.load_directory(params.index_maps_dir)
 
     with Timed("read training data", sync=sync):
-        train = read_merged(params.input_data_path, params.feature_shards,
+        train = read_merged(_resolve(params.input_data_path, params.input_date_range),
+                            params.feature_shards,
                             index_maps=prebuilt_maps, random_effect_id_columns=re_columns,
                             evaluation_id_columns=eval_columns, fmt=params.input_format,
                             on_corrupt=params.on_corrupt, device=device)
@@ -249,7 +259,8 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dic
     if params.validation_data_path:
         with Timed("read validation data", sync=sync):
             validation = read_merged(
-                params.validation_data_path, params.feature_shards,
+                _resolve(params.validation_data_path, params.validation_data_date_range),
+                params.feature_shards,
                 index_maps=train.index_maps, random_effect_id_columns=re_columns,
                 evaluation_id_columns=eval_columns, entity_vocabs=train.dataset.entity_vocabs,
                 fmt=params.input_format, on_corrupt=params.on_corrupt, device=device)
@@ -353,9 +364,11 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dic
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="game_training_driver", description=__doc__.split("\n")[0])
     p.add_argument("--input-data-path", required=True)
-    p.add_argument("--input-date-range", help="not ported (ROADMAP.md queue A)")
+    p.add_argument("--input-date-range",
+                   help="yyyyMMdd-yyyyMMdd or N-M (days ago): read <path>/daily/yyyy/MM/dd")
     p.add_argument("--validation-data-path")
-    p.add_argument("--validation-data-date-range", help="not ported (ROADMAP.md queue A)")
+    p.add_argument("--validation-data-date-range",
+                   help="yyyyMMdd-yyyyMMdd or N-M (days ago), as --input-date-range")
     p.add_argument("--root-output-dir", required=True)
     p.add_argument("--feature-shard-configurations", action="append", required=True,
                    help="name=NAME,feature.bags=BAG|BAG,intercept=true (repeatable)")

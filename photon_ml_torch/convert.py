@@ -18,6 +18,7 @@ from photon_ml_torch.device import resolve_device
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_torch.models.glm import GeneralizedLinearModel
+from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_torch.ops.normalization import NormalizationContext
 from photon_ml_torch.projector.projectors import ProjectorType, RandomProjectionMatrix
 from photon_ml_torch.types import TaskType
@@ -147,7 +148,9 @@ def game_model_from_numpy(models, *, device=None) -> GameModel:
     "feature_shard_id"}``, a random effect ``{"kind": "random",
     "coefficients", "variances", "entity_keys", "random_effect_type",
     "feature_shard_id", "task"}``, plus ``"active_cols"`` and ``"feature_dim"``
-    for a compact one."""
+    for a compact one, a matrix factorization ``{"kind": "matrix_factorization",
+    "row_factors", "col_factors", "row_effect_type", "col_effect_type",
+    "row_keys", "col_keys", "task"}``."""
     device = resolve_device(device)
     out = {}
     for cid, m in models.items():
@@ -165,6 +168,13 @@ def game_model_from_numpy(models, *, device=None) -> GameModel:
                 active_cols=None if m.get("active_cols") is None
                 else np.asarray(m["active_cols"], dtype=np.int32),
                 feature_dim=m.get("feature_dim"))
+        elif m["kind"] == "matrix_factorization":
+            out[cid] = MatrixFactorizationModel(
+                row_factors=_opt_tensor(m["row_factors"], device),
+                col_factors=_opt_tensor(m["col_factors"], device),
+                row_effect_type=m["row_effect_type"], col_effect_type=m["col_effect_type"],
+                row_keys=np.asarray(m["row_keys"]), col_keys=np.asarray(m["col_keys"]),
+                task=_task(m["task"]))
         else:
             raise ValueError(f"coordinate '{cid}': unknown model kind {m['kind']!r}")
     return GameModel(models=out)
@@ -191,6 +201,11 @@ def game_model_to_numpy(model: GameModel) -> dict:
             if m.is_compact:
                 out[cid].update(active_cols=np.asarray(m.active_cols),
                                 feature_dim=int(m.feature_dim))
+        elif isinstance(m, MatrixFactorizationModel):
+            out[cid] = {"kind": "matrix_factorization", "row_factors": arr(m.row_factors),
+                        "col_factors": arr(m.col_factors), "row_effect_type": m.row_effect_type,
+                        "col_effect_type": m.col_effect_type, "row_keys": np.asarray(m.row_keys),
+                        "col_keys": np.asarray(m.col_keys), "task": m.task.value}
         else:
             raise TypeError(f"coordinate '{cid}': cannot convert {type(m).__name__}")
     return out

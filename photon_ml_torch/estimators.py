@@ -4,10 +4,11 @@ Counterpart of ``photon_ml_tpu/estimators.py``. ``GameEstimator.fit``
 (reference photon-api estimators/GameEstimator.scala) builds the
 per-coordinate datasets, the training-loss and validation evaluators and the
 per-shard normalization, then runs block coordinate descent; in the port it
-runs on one device, over a dense or sparse fixed effect and random effects
+runs on one device, over a dense or sparse fixed effect, random effects
 on dense shards (IDENTITY, INDEX_MAP or RANDOM projection, optional
 per-entity Pearson feature selection) or on sparse shards (compact ``[E, K]``
-tables over each entity's active columns). ``train_glm`` (reference ModelTraining.scala:55-228)
+tables over each entity's active columns), and matrix-factorization
+coordinates (``algorithm/mf_coordinate.py``). ``train_glm`` (reference ModelTraining.scala:55-228)
 is the single-GLM regularization path with warm starts, for dense and sparse
 batches alike.
 """
@@ -32,6 +33,7 @@ from photon_ml_torch.algorithm.coordinates import (
     ModelCoordinate,
     RandomEffectCoordinate,
 )
+from photon_ml_torch.algorithm.mf_coordinate import MatrixFactorizationCoordinate, build_mf_dataset
 from photon_ml_torch.data.batch import LabeledPointBatch, summarize
 from photon_ml_torch.data.game_data import GameDataset, build_random_effect_dataset
 from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch, SparseShard
@@ -104,13 +106,17 @@ class RandomEffectCoordinateConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MatrixFactorizationCoordinateConfig:
-    """A matrix-factorization coordinate over a (row entity, col entity)
-    pair; carried as configuration, not ported yet."""
+    """An MF coordinate over a (row entity, col entity) pair: the model
+    family the reference declares (README.md:92-95, LatentFactorAvro.avsc)
+    but never implemented. It takes no feature shard."""
 
     row_effect_type: str
     col_effect_type: str
     num_latent_factors: int
     optimization: CoordinateOptimizationConfig
+    num_alternations: int = 2
+    active_data_upper_bound: int | None = None
+    seed: int = 0
 
 
 def _not_ported(what: str, item: int):
@@ -209,7 +215,14 @@ class GameEstimator:
                     use_kernel=self.use_kernel, kernel_unit=self.kernel_unit,
                     kernel_aux=self.kernel_aux)
             elif isinstance(cfg, MatrixFactorizationCoordinateConfig):
-                raise _not_ported(f"matrix-factorization coordinate '{cid}'", 13)
+                coordinates[cid] = MatrixFactorizationCoordinate(
+                    coordinate_id=cid, dataset=dataset,
+                    mf_dataset=build_mf_dataset(
+                        dataset, cfg.row_effect_type, cfg.col_effect_type,
+                        active_data_upper_bound=cfg.active_data_upper_bound, seed=cfg.seed),
+                    task=self.task, config=cfg.optimization,
+                    num_latent_factors=cfg.num_latent_factors,
+                    num_alternations=cfg.num_alternations, seed=cfg.seed)
             elif isinstance(cfg, RandomEffectCoordinateConfig):
                 if cfg.optimization.optimizer.scheduler is not None:
                     raise _not_ported(f"random effect '{cid}': the lane scheduler", 18)

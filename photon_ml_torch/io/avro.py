@@ -562,6 +562,145 @@ def _read_container_quarantine(path: str | os.PathLike) -> Iterator[dict]:
             yield from records
 
 
+def validate_container(
+    path: str | os.PathLike,
+) -> list[tuple[int, int, int, str]]:
+    """Framing-only corruption scan: [(block_index, byte_start, byte_end,
+    reason), ...] — empty means every block's length bounds and trailing
+    sync marker check out. Cost is the header decode + one seek and a
+    16-byte read per block (never a payload read), so the native decode
+    path can gate on it cheaply before trusting a file
+    (io/data_reader._read_merged_avro_native under quarantine)."""
+    problems: list[tuple[int, int, int, str]] = []
+    file_size = os.path.getsize(path)
+    with open(path, "rb") as inp:
+        _, _, codec, sync = _read_header(inp, path)
+        if codec not in ("null", "deflate"):
+            raise AvroError(f"{path}: unsupported codec {codec!r}")
+        block_index = 0
+        while True:
+            block_start = inp.tell()
+            if block_start >= file_size:
+                return problems
+            try:
+                n_records = read_long(inp)
+                size = read_long(inp)
+                if not _plausible(n_records, file_size) or not _plausible(
+                    size, file_size - inp.tell()
+                ):
+                    raise AvroError(
+                        f"implausible block framing (count={n_records}, "
+                        f"size={size})"
+                    )
+                inp.seek(size, os.SEEK_CUR)
+                trailer = inp.read(16)
+                if trailer != sync:
+                    raise AvroError("sync marker mismatch")
+            except EOFError:
+                if block_start >= file_size:
+                    return problems
+                problems.append(
+                    (block_index, block_start, file_size,
+                     "truncated final block")
+                )
+                return problems
+            except AvroError as e:
+                nxt = _resync(inp, sync, block_start + 1)
+                end = file_size if nxt is None else nxt
+                problems.append((block_index, block_start, end, str(e)))
+                block_index += 1
+                if nxt is None:
+                    return problems
+                inp.seek(nxt)
+                continue
+            block_index += 1
+
+
+def scan_block_index(
+    path: str | os.PathLike, *, on_corrupt: str = "raise"
+) -> list[tuple[int, int, int]]:
+    """The container's block index: [(record_count, payload_bytes,
+    payload_offset), ...] — scanned by SEEKING past every payload, so the
+    cost is header decode + one seek per block, not a data read. This is
+    what makes block-level partitioned ingestion cheap to plan.
+
+    on_corrupt="quarantine" additionally VALIDATES each block's framing
+    (length bounds + trailing sync marker — a 16-byte read per block) and
+    drops corrupt spans from the index, counting each in
+    ``quarantined_blocks``; the default scan stays the seek-only fast path."""
+    _check_on_corrupt(on_corrupt)
+    if on_corrupt == "quarantine":
+        return _scan_block_index_quarantine(path)
+    blocks: list[tuple[int, int, int]] = []
+    with open(path, "rb") as inp:
+        if inp.read(4) != MAGIC:
+            raise AvroError(f"{path}: not an Avro container file")
+        BinaryDecoder(inp, SchemaRegistry()).read(_META_SCHEMA)
+        inp.read(16)  # sync
+        while True:
+            try:
+                n_records = read_long(inp)
+            except EOFError:
+                return blocks
+            size = read_long(inp)
+            blocks.append((n_records, size, inp.tell()))
+            inp.seek(size + 16, os.SEEK_CUR)  # payload + sync
+
+
+def _scan_block_index_quarantine(
+    path: str | os.PathLike,
+) -> list[tuple[int, int, int]]:
+    """Framing-validated block index: corrupt spans are skipped and counted
+    here, so a reader of the listed blocks only ever decodes framing-intact
+    ones."""
+    file_size = os.path.getsize(path)
+    blocks: list[tuple[int, int, int]] = []
+    with open(path, "rb") as inp:
+        _, _, codec, sync = _read_header(inp, path)
+        if codec not in ("null", "deflate"):
+            raise AvroError(f"{path}: unsupported codec {codec!r}")
+        block_index = 0
+        while True:
+            block_start = inp.tell()
+            if block_start >= file_size:
+                return blocks
+            try:
+                n_records = read_long(inp)
+                size = read_long(inp)
+                if not _plausible(n_records, file_size) or not _plausible(
+                    size, file_size - inp.tell()
+                ):
+                    raise AvroError(
+                        f"implausible block framing (count={n_records}, "
+                        f"size={size})"
+                    )
+                payload_offset = inp.tell()
+                inp.seek(size, os.SEEK_CUR)
+                if inp.read(16) != sync:
+                    raise AvroError("sync marker mismatch")
+            except EOFError:
+                if block_start >= file_size:
+                    return blocks
+                _record_quarantined_block(
+                    str(path), block_index, block_start, file_size,
+                    "truncated final block",
+                )
+                return blocks
+            except AvroError as e:
+                nxt = _resync(inp, sync, block_start + 1)
+                end = file_size if nxt is None else nxt
+                _record_quarantined_block(
+                    str(path), block_index, block_start, end, str(e)
+                )
+                block_index += 1
+                if nxt is None:
+                    return blocks
+                inp.seek(nxt)
+                continue
+            blocks.append((n_records, size, payload_offset))
+            block_index += 1
+
+
 def read_container_schema(path: str | os.PathLike) -> dict:
     with open(path, "rb") as inp:
         if inp.read(4) != MAGIC:

@@ -1,6 +1,6 @@
 """Avro training data -> GameDataset (the port's reader).
 
-Counterpart of ``photon_ml_tpu/io/data_reader.py`` on its pure-Python path;
+Counterpart of ``photon_ml_tpu/io/data_reader.py``;
 reference photon-client data/avro/AvroDataReader.scala (reads Avro records,
 merges feature bags into per-shard vectors via index maps, :165-200),
 data/DataReader.scala (readMerged) and GameConverters (row -> GameDatum keyed
@@ -14,9 +14,11 @@ only the finished arrays move to the device (``build_game_dataset``).
 
 A sparse shard stays COO triples end to end (a ``SparseShard``, with its
 hybrid policy); a pre-indexed shard (LibSVM integer columns) uses column j as
-feature j through an ``IdentityIndexMap``. The JAX package's native C++
-decoders (Avro and LibSVM) are host code the port does not load; port-owned
-copies are queued (ROADMAP.md host items).
+feature j through an ``IdentityIndexMap``. Avro reads through the port's
+columnar C++ decoder (``io/avro_native.py``) unless ``PHOTON_NO_NATIVE_AVRO=1``
+asks for the Python codec; an input outside the decoder's subset reads with
+the Python codec and is counted (``avro_native.fallbacks``). LibSVM parses
+with the port's C++ parser (``io/libsvm.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import itertools
+import logging
 import os
 from typing import Iterable, Iterator, Mapping, Sequence
 
@@ -33,9 +36,12 @@ import torch
 from photon_ml_torch.data.game_data import GameDataset, build_game_dataset
 from photon_ml_torch.data.sparse_batch import HybridPolicy, SparseShard
 from photon_ml_torch.io import avro as avro_io
+from photon_ml_torch.io import avro_native as av
 from photon_ml_torch.io.index_map import INTERCEPT_KEY, IdentityIndexMap, IndexMap, feature_key
 from photon_ml_torch.io.libsvm import concat_libsvm, parse_libsvm
 from photon_ml_torch.util.timed import Timed
+
+logger = logging.getLogger(__name__)
 
 #: Standard column names (reference data/InputColumnsNames.scala).
 UID = "uid"
@@ -355,6 +361,16 @@ def read_merged(
             dtype=dtype, device=device)
     if fmt != "avro":
         raise ValueError(f"unknown format {fmt!r}")
+    if os.environ.get("PHOTON_NO_NATIVE_AVRO") != "1":
+        try:
+            return _read_merged_avro_native(
+                paths, shard_configs, index_maps=index_maps,
+                random_effect_id_columns=random_effect_id_columns,
+                evaluation_id_columns=evaluation_id_columns, entity_vocabs=entity_vocabs,
+                dtype=dtype, on_corrupt=on_corrupt, device=device)
+        except _AvroNativeFallback as e:
+            av.fallbacks += 1
+            logger.info("native Avro decode not used (%s); reading with the Python codec", e)
 
     def records():
         return itertools.chain.from_iterable(
@@ -374,6 +390,293 @@ def read_merged(
         random_effect_id_columns=random_effect_id_columns,
         evaluation_id_columns=evaluation_id_columns,
         entity_vocabs=entity_vocabs, dtype=dtype, device=device)
+
+
+class _AvroNativeFallback(Exception):
+    """The native Avro path cannot read this input: use the Python codec."""
+
+
+def _read_merged_avro_native(
+    paths: Sequence[str | os.PathLike],
+    shard_configs: Mapping[str, FeatureShardConfiguration],
+    *,
+    index_maps: Mapping[str, IndexMap] | None,
+    random_effect_id_columns: Sequence[str],
+    evaluation_id_columns: Sequence[str],
+    entity_vocabs: Mapping[str, np.ndarray] | None,
+    dtype,
+    on_corrupt: str = "raise",
+    device=None,
+) -> ReadResult:
+    """Vectorized Avro read over the native columnar decoder
+    (``io/avro_native.py``).
+
+    Same semantics as ``records_to_game_dataset`` over the Python decode —
+    label/response precedence, offset/weight defaults, uid hashing,
+    metadataMap-then-top-level id lookup, per-shard bag merging with the
+    one shared duplicate-accumulation rule; held equal by
+    tests/test_torch_avro_native.py. Raises :class:`_AvroNativeFallback`
+    whenever any input is outside the native subset; a decoder that does not
+    build raises its ``RuntimeError``.
+
+    Under ``on_corrupt="quarantine"`` every file is framing-validated
+    first (length bounds + sync markers — header decode plus one seek and
+    a 16-byte read per block, no payload reads); a file with ANY corrupt
+    block falls back to the Python quarantine reader, which owns the
+    skip-and-count semantics. Clean files keep the native decode.
+    """
+    av.load_avro_library()
+    with Timed("avro decode"):
+        decoded = _decode_native(paths, on_corrupt)
+    return _native_dataset(decoded, shard_configs, index_maps=index_maps,
+                           random_effect_id_columns=random_effect_id_columns,
+                           evaluation_id_columns=evaluation_id_columns,
+                           entity_vocabs=entity_vocabs, dtype=dtype, device=device)
+
+
+def _decode_native(paths, on_corrupt: str):
+    """(columns of every part file, the first file's plan)."""
+    try:
+        files: list[str] = []
+        for p in paths:
+            files += avro_io.list_avro_files(p)
+        if on_corrupt == "quarantine":
+            for f in files:
+                problems = avro_io.validate_container(f)
+                if problems:
+                    raise _AvroNativeFallback(
+                        f"{f}: {len(problems)} corrupt block span(s); "
+                        "quarantining via the Python reader"
+                    )
+        parts = []
+        plan0: "av.AvroPlan | None" = None
+        for f in files:
+            plan = av.compile_plan(avro_io.read_container_schema(f))
+            if plan0 is None:
+                plan0 = plan
+            elif not plan.same_semantics(plan0):
+                # schema evolution between part files: the faithfulness
+                # guards are per-plan, so a later part could bypass them
+                raise av.AvroNativeUnsupported(
+                    f"part file {f} has a different schema"
+                )
+            parts.append(av.decode_columns(f, plan))
+        cols = av.concat_columns(parts)
+    except avro_io.AvroError as e:
+        # AvroNativeUnsupported, and values the native tables cannot render
+        # (e.g. a double metadataMap entry): the Python reader is
+        # authoritative for both the data and any error message
+        raise _AvroNativeFallback(str(e)) from e
+    return cols, plan0
+
+
+def _native_dataset(decoded, shard_configs, *, index_maps, random_effect_id_columns,
+                    evaluation_id_columns, entity_vocabs, dtype, device) -> ReadResult:
+    """The GameDataset of natively decoded columns (Python reader semantics)."""
+    cols, plan0 = decoded
+    n = cols.n
+
+    # requested bags that exist in the schema but were not bag-shaped have
+    # uncertain record-level semantics — let the Python path decide
+    for cfg in shard_configs.values():
+        for bag in cfg.feature_bags:
+            if bag in plan0.all_fields and bag not in cols.bags:
+                raise _AvroNativeFallback(
+                    f"field '{bag}' is not a feature-bag shape"
+                )
+
+    def numcol(name, default):
+        if name in plan0.all_fields and name not in cols.num:
+            # e.g. a string-typed offset: Python parses/raises; a silent
+            # default would diverge
+            raise _AvroNativeFallback(
+                f"field '{name}' has a non-numeric schema shape"
+            )
+        col = cols.num.get(name)
+        if col is None:
+            return np.full(n, default, dtype=np.float64)
+        null = cols.num_null[name]
+        if name in plan0.strnum_fields and np.isnan(col[~null]).any():
+            # a non-null NaN under a string union is an unparseable string
+            # — Python raises there; let it
+            raise _AvroNativeFallback(
+                f"field '{name}' has unparseable string values"
+            )
+        # nulls take the default (Python's `if value is None`); genuine NaN
+        # doubles propagate, exactly like float(nan)
+        return np.where(null, default, col)
+
+    # Python precedence: label first (whatever its type), then response —
+    # a label field the native path could not collect numerically must not
+    # silently yield to response
+    if "label" in plan0.all_fields and "label" not in cols.num:
+        raise _AvroNativeFallback("label field has an uncollectable shape")
+    if "label" in cols.num:
+        labels = cols.num["label"]
+        if cols.num_null["label"].any():
+            raise _AvroNativeFallback("null label values")
+    elif RESPONSE in cols.num:
+        labels = cols.num[RESPONSE]
+    elif RESPONSE in plan0.all_fields:
+        raise _AvroNativeFallback("response field has an uncollectable shape")
+    else:
+        raise ValueError("record has neither 'label' nor 'response'")
+    if np.isnan(labels).any():
+        # null labels error identically on the Python path; non-numeric
+        # string labels are its call too
+        raise _AvroNativeFallback("null or non-numeric label values")
+    offsets = numcol(OFFSET, 0.0)
+    weights = numcol(WEIGHT, 1.0)
+
+    # uid -> stable int64 ids (same rules as records_to_game_dataset)
+    if UID in cols.num:
+        uid_col = cols.num[UID]
+        uids = np.where(
+            np.isnan(uid_col), np.arange(n, dtype=np.float64), uid_col
+        ).astype(np.int64)
+    elif UID in cols.str_ids:
+        table = cols.str_tables[UID]
+        mapped = np.empty(len(table), dtype=np.int64)
+        for i, s in enumerate(table):
+            try:
+                mapped[i] = int(s)
+            except ValueError:
+                digest = hashlib.blake2b(s.encode(), digest_size=8).digest()
+                hashed = int.from_bytes(digest, "little") & ((1 << 62) - 1)
+                mapped[i] = hashed | (1 << 62)
+        ids = cols.str_ids[UID]
+        uids = np.where(
+            ids == av.NULL_ID,
+            np.arange(n, dtype=np.int64),
+            mapped[np.minimum(ids.astype(np.int64), len(table) - 1)]
+            if table else 0,
+        )
+    else:
+        uids = np.arange(n, dtype=np.int64)
+
+    # id columns: metadataMap first (key PRESENT wins even with null value),
+    # then a top-level field, else ""
+    id_cols: dict[str, np.ndarray] = {}
+    meta = cols.maps.get(META_DATA_MAP)
+    mkeys = cols.map_key_tables.get(META_DATA_MAP, [])
+    mvals = np.asarray(
+        cols.map_val_tables.get(META_DATA_MAP, []) + [""], dtype=object
+    )
+    wanted = set(random_effect_id_columns) | set(evaluation_id_columns)
+    if wanted and META_DATA_MAP in plan0.all_fields and meta is None:
+        raise _AvroNativeFallback(
+            "metadataMap has an uncollectable shape but id columns are "
+            "requested"
+        )
+    for col in wanted:
+        out = np.full(n, "", dtype=object)
+        seen = np.zeros(n, dtype=bool)
+        if meta is not None and col in mkeys:
+            kid = mkeys.index(col)
+            rows, kids, vids = meta
+            sel = kids == kid
+            rsel = rows[sel].astype(np.int64)
+            v = vids[sel].astype(np.int64)
+            v = np.where(v == np.int64(av.NULL_ID), len(mvals) - 1, v)
+            out[rsel] = mvals[v]
+            seen[rsel] = True
+        if (
+            col not in cols.str_ids and col not in cols.num
+            and col in plan0.all_fields and not seen.all()
+        ):
+            # e.g. an enum-typed id column: Python renders str(value);
+            # silently collapsing every entity into "" would be far worse
+            raise _AvroNativeFallback(
+                f"id column '{col}' has an uncollectable schema shape"
+            )
+        if col in cols.str_ids:
+            table = np.asarray(cols.str_tables[col] + [""], dtype=object)
+            ids = cols.str_ids[col].astype(np.int64)
+            ids = np.where(ids == np.int64(av.NULL_ID), len(table) - 1, ids)
+            fill = ~seen
+            out[fill] = table[ids[fill]]
+        elif col in cols.num:
+            vals = cols.num[col]
+            fill = ~seen & ~np.isnan(vals)
+            if fill.any() and col in plan0.unfaithful_id_fields:
+                # float/bool-typed id columns can't reproduce Python's
+                # str() rendering from an f64 column
+                raise _AvroNativeFallback(
+                    f"id column '{col}' has a float/bool-typed schema"
+                )
+            # pure int columns render like Python ints (vectorized)
+            out[fill] = vals[fill].astype(np.int64).astype(str)
+        id_cols[col] = out.astype(str)
+
+    # feature bags -> per-shard triples through the index maps
+    if index_maps is None:
+        with Timed("build index maps"):
+            built: dict[str, IndexMap] = {}
+            for shard, cfg in shard_configs.items():
+                keys: set[str] = set()
+                for bag in cfg.feature_bags:
+                    keys.update(cols.bag_tables.get(bag, []))
+                built[shard] = IndexMap.from_keys(keys, add_intercept=cfg.has_intercept)
+            index_maps = built
+
+    feature_shards: dict[str, object] = {}
+    intercept_indices: dict[str, int] = {}
+    for shard, cfg in shard_configs.items():
+        imap = index_maps[shard]
+        rows_l, cols_l, vals_l = [], [], []
+        for bag in cfg.feature_bags:
+            if bag not in cols.bags:
+                continue
+            br, bk, bv = cols.bags[bag]
+            table = cols.bag_tables[bag]
+            idx = np.asarray(
+                [imap.get_index(k) for k in table], dtype=np.int64
+            )
+            j = idx[bk.astype(np.int64)] if len(table) else np.zeros(0, np.int64)
+            keep = j >= 0
+            rows_l.append(br.astype(np.int64)[keep])
+            cols_l.append(j[keep])
+            vals_l.append(bv[keep])
+        if rows_l:
+            triples = np.stack(
+                [
+                    np.concatenate(rows_l).astype(np.float64),
+                    np.concatenate(cols_l).astype(np.float64),
+                    np.concatenate(vals_l),
+                ],
+                axis=1,
+            )
+        else:
+            triples = np.zeros((0, 3))
+        if cfg.sparse:
+            feature_shards[shard] = _assemble_sparse_shard(
+                n, imap, cfg, triples, dtype, shard, intercept_indices
+            )
+            continue
+        x = _scatter_dense(
+            n, imap.size, triples[:, 0], triples[:, 1], triples[:, 2], dtype
+        )
+        if cfg.has_intercept:
+            _apply_intercept(x, imap, shard, intercept_indices)
+        feature_shards[shard] = _round_to(x, cfg.dtype)
+
+    dataset = build_game_dataset(
+        labels=labels,
+        feature_shards=feature_shards,
+        entity_keys={
+            c: id_cols[c] for c in random_effect_id_columns
+        },
+        offsets=offsets,
+        weights=weights,
+        unique_ids=uids,
+        ids={c: id_cols[c] for c in evaluation_id_columns},
+        entity_vocabs=entity_vocabs,
+        dtype=dtype,
+        shard_dtypes=_shard_dtypes(shard_configs),
+        device=device,
+    )
+    return ReadResult(dataset=dataset, index_maps=dict(index_maps),
+                      intercept_indices=intercept_indices)
 
 
 def _libsvm_files(paths: Sequence[str | os.PathLike]) -> list:

@@ -1,20 +1,25 @@
 """LibSVM text -> CSR arrays (the port's parser).
 
-Counterpart of ``photon_ml_tpu/io/libsvm_native.py`` on its pure-Python
-path; reference photon-client io/deprecated/LibSVMInputDataFormat.scala.
+Counterpart of ``photon_ml_tpu/io/libsvm_native.py``; reference
+photon-client io/deprecated/LibSVMInputDataFormat.scala. A file parses
+with the C++ tokenizer ``photon_ml_torch/native/libsvm_loader.cpp`` (built by
+``photon_ml_torch.build.load_host``; a failed build raises), or with the
+pure-Python parser when ``force_python=True``; the two give equal arrays.
 Conventions: 1-based indices by default (a 0 index in a 1-based file is an
 error), ``#`` comments, ±1 labels mapped to {0, 1} by
 :meth:`LibSVMData.mapped_labels`, any other label kept as a regression
-target. The JAX package's native C++ tokenizer is host code the port does
-not load (ROADMAP.md host items).
+target.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 
 import numpy as np
+
+from photon_ml_torch.build import load_host
 
 
 @dataclasses.dataclass
@@ -65,11 +70,42 @@ class LibSVMData:
         return x
 
 
-def parse_libsvm(path: str | os.PathLike, *, zero_based: bool = False) -> LibSVMData:
-    """Parse one LibSVM file to CSR."""
-    path = str(path)
-    if os.path.isdir(path):
-        raise IsADirectoryError(f"expected a LibSVM file, got directory: {path}")
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.lsvm_parse.restype = ctypes.c_void_p
+    lib.lsvm_parse.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_uint64]
+    for fn in (lib.lsvm_num_rows, lib.lsvm_nnz, lib.lsvm_max_index):
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_void_p]
+    lib.lsvm_export.restype = None
+    lib.lsvm_export.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_double),
+                                ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32),
+                                ctypes.POINTER(ctypes.c_double)]
+    lib.lsvm_free.restype = None
+    lib.lsvm_free.argtypes = [ctypes.c_void_p]
+
+
+def _parse_native(path: str, zero_based: bool) -> LibSVMData:
+    lib = load_host("libsvm_loader", _configure)
+    err = ctypes.create_string_buffer(512)
+    handle = lib.lsvm_parse(os.fsencode(path), int(zero_based), err, ctypes.c_uint64(len(err)))
+    if not handle:
+        raise ValueError(f"libsvm parse failed: {err.value.decode()}")
+    try:
+        n, nnz = lib.lsvm_num_rows(handle), lib.lsvm_nnz(handle)
+        labels = np.empty(n, dtype=np.float64)
+        row_offsets = np.empty(n + 1, dtype=np.uint64)
+        cols = np.empty(nnz, dtype=np.uint32)
+        vals = np.empty(nnz, dtype=np.float64)
+        lib.lsvm_export(handle, labels.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                        row_offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                        cols.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                        vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        return LibSVMData(labels, row_offsets, cols, vals)
+    finally:
+        lib.lsvm_free(handle)
+
+
+def _parse_python(path: str, zero_based: bool) -> LibSVMData:
     labels: list[float] = []
     offsets: list[int] = [0]
     cols: list[int] = []
@@ -100,6 +136,19 @@ def parse_libsvm(path: str | os.PathLike, *, zero_based: bool = False) -> LibSVM
         cols=np.asarray(cols, dtype=np.uint32),
         vals=np.asarray(vals, dtype=np.float64),
     )
+
+
+def parse_libsvm(path: str | os.PathLike, *, zero_based: bool = False,
+                 force_python: bool = False) -> LibSVMData:
+    """Parse one LibSVM file to CSR (the C++ parser unless ``force_python``)."""
+    path = str(path)
+    if os.path.isdir(path):
+        raise IsADirectoryError(f"expected a LibSVM file, got directory: {path}")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no LibSVM file at {path}")
+    if force_python:
+        return _parse_python(path, zero_based)
+    return _parse_native(path, zero_based)
 
 
 def concat_libsvm(parts: list[LibSVMData]) -> LibSVMData:

@@ -10,6 +10,9 @@ photon-client data/avro/ModelProcessingUtils.scala — save (:75-128) / load
     <dir>/fixed-effect/<name>/coefficients/*.avro  BayesianLinearModelAvro
     <dir>/random-effect/<name>/id-info             [reType, featureShardId]
     <dir>/random-effect/<name>/coefficients/*.avro one record per entity
+    <dir>/matrix-factorization/<name>/id-info      [rowEffectType, colEffectType]
+    <dir>/matrix-factorization/<name>/{row,col}-latent-factors/*.avro
+                                                   LatentFactorAvro, one per entity
 
 plus the text model writer (photon-client util/IOUtils writeModelsInText),
 the feature-stats writer (:515-586, FeatureSummarizationResultAvro), and the
@@ -17,8 +20,7 @@ score writer (ScoreProcessingUtils.scala, ScoringResultAvro).
 
 Coefficients leave the device as numpy arrays of the tensor's own dtype
 (f32 values are written as the doubles they are), so the Avro bytes match
-the JAX package's for the same model. Matrix-factorization coordinates are
-not ported (ROADMAP.md item 13).
+the JAX package's for the same model.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from photon_ml_torch.io.index_map import IndexMap, feature_key, split_feature_ke
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_torch.models.glm import GeneralizedLinearModel
+from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -54,6 +57,8 @@ def _host(a) -> np.ndarray:
 FIXED_EFFECT = "fixed-effect"
 RANDOM_EFFECT = "random-effect"
 MATRIX_FACTORIZATION = "matrix-factorization"
+ROW_LATENT_FACTORS = "row-latent-factors"
+COL_LATENT_FACTORS = "col-latent-factors"
 ID_INFO = "id-info"
 COEFFICIENTS = "coefficients"
 METADATA_FILE = "model-metadata.json"
@@ -385,8 +390,39 @@ def save_game_model(
                 records(),
                 random_effect_records_per_file,
             )
+        elif isinstance(model, MatrixFactorizationModel):
+            # LatentFactorAvro (the reference's declared-but-unimplemented MF
+            # wire format): effectId + latentFactor
+            base = os.path.join(output_dir, MATRIX_FACTORIZATION, name)
+            os.makedirs(base, exist_ok=True)
+            with open(os.path.join(base, ID_INFO), "w") as f:
+                f.write(model.row_effect_type + "\n")
+                f.write(model.col_effect_type + "\n")
+            for sub, factors, keys in ((ROW_LATENT_FACTORS, model.row_factors, model.row_keys),
+                                       (COL_LATENT_FACTORS, model.col_factors, model.col_keys)):
+                os.makedirs(os.path.join(base, sub), exist_ok=True)
+                _write_chunked(os.path.join(base, sub), schemas.LATENT_FACTOR_AVRO,
+                               _latent_factor_records(_host(factors), keys),
+                               random_effect_records_per_file)
         else:
             raise TypeError(f"cannot save coordinate '{name}' of type {type(model)}")
+
+
+def _latent_factor_records(table: np.ndarray, keys) -> Iterable[dict]:
+    for i, key in enumerate(str(k) for k in np.asarray(keys).tolist()):
+        yield {"effectId": key, "latentFactor": [float(v) for v in table[i]]}
+
+
+def _read_latent_factors(directory: str, dtype) -> tuple[np.ndarray, np.ndarray]:
+    """([E, k] table, [E] keys) of one LatentFactorAvro directory, rows in
+    sorted key order."""
+    recs = list(avro_io.read_directory(directory))
+    keys = sorted(r["effectId"] for r in recs)
+    row_of = {k: i for i, k in enumerate(keys)}
+    table = np.zeros((len(keys), len(recs[0]["latentFactor"]) if recs else 0), dtype=dtype)
+    for r in recs:
+        table[row_of[r["effectId"]]] = r["latentFactor"]
+    return table, np.asarray(keys)
 
 
 def load_game_model(
@@ -428,10 +464,6 @@ def load_game_model_and_index_maps(
     model's feature space) avoid a second decode pass."""
     device = resolve_device(device)
     models_dir = str(models_dir)
-    if os.path.isdir(os.path.join(models_dir, MATRIX_FACTORIZATION)):
-        raise NotImplementedError(
-            f"{models_dir} holds matrix-factorization coordinates, which are not "
-            "ported yet: ROADMAP.md item 13")
 
     def tensor(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
@@ -543,6 +575,22 @@ def load_game_model_and_index_maps(
                 task=model_task,
                 variances=None if var_table is None else tensor(var_table),
             )
+
+    mf_dir = os.path.join(models_dir, MATRIX_FACTORIZATION)
+    if os.path.isdir(mf_dir):
+        for name in _coordinate_dirs(mf_dir):
+            if coordinates_to_load is not None and name not in coordinates_to_load:
+                continue
+            base = os.path.join(mf_dir, name)
+            row_type, col_type = _read_id_info(base, 2)[:2]
+            row_table, row_keys = _read_latent_factors(os.path.join(base, ROW_LATENT_FACTORS),
+                                                       dtype)
+            col_table, col_keys = _read_latent_factors(os.path.join(base, COL_LATENT_FACTORS),
+                                                       dtype)
+            models[name] = MatrixFactorizationModel(
+                row_factors=tensor(row_table), col_factors=tensor(col_table),
+                row_effect_type=row_type, col_effect_type=col_type, row_keys=row_keys,
+                col_keys=col_keys, task=task)
 
     if not models:
         raise ValueError(f"No models could be loaded from given path: {models_dir}")

@@ -267,10 +267,10 @@ GAME_LEFT_OUT = [
     (["--max-restarts", "2"], "item 16"), (["--incremental-refresh"], "item 18"),
     (["--hyperparameter-tuning", "BAYESIAN"], "item 18"), (["--telemetry-dir", "t"], "item 19"),
     (["--trace-dir", "t"], "item 19"), (["--profile-dir", "t"], "item 19"),
-    (["--input-format", "libsvm"], None), (["--input-date-range", "1-2"], "queue A"),
+    (["--input-format", "libsvm"], None), (["--input-date-range", "1-2"], ValueError),
     (["--coordinate-configurations",
       "name=mf,mf.row.effect.type=userId,mf.col.effect.type=songId,mf.latent.factors=2"],
-     "item 13"),
+     None),
     (["--feature-shard-configurations", "name=sp,feature.bags=features,sparse=true"], None),
     (["--coordinate-configurations",
       "name=s,feature.shard=userShard,random.effect.type=userId,scheduler=true"], "item 18"),
@@ -290,8 +290,13 @@ def test_game_training_driver_refuses_what_is_not_ported(tmp_path, extra, item):
 
 def _raises_for(item, run, missing=FileNotFoundError, match=None):
     """``run`` raises NotImplementedError naming ``item``; with item None
-    (ported) it gets past every refusal and raises ``missing`` instead."""
-    if item is None:
+    (ported) it gets past every refusal and raises ``missing`` instead; with
+    an exception class (ported) it rejects the flag's malformed value with
+    that exception, as the JAX driver does."""
+    if isinstance(item, type):
+        with pytest.raises(item):
+            run()
+    elif item is None:
         with pytest.raises(missing, match=match):
             run()
     else:
@@ -550,3 +555,127 @@ def test_feature_indexing_driver_refuses_off_heap_stores(music, tmp_path):
         tindexing.main(["--input-data-path", str(music / "train"), "--output-dir",
                         str(tmp_path / "o"), "--feature-shard-configurations",
                         "name=global,feature.bags=features", "--index-store-format", "offheap"])
+
+
+MF_ARGS = ["--coordinate-configurations",
+           "name=mf,mf.row.effect.type=userId,mf.col.effect.type=songId,mf.latent.factors=3,"
+           "reg.weights=1,max.iter=20"]
+
+
+def _initial_mf_model(directory) -> None:
+    """An MF-only warm-start model saved by the JAX package: its own
+    ``init_factors`` over the music fixture's sorted user and song keys (the
+    training vocabs), so both drivers start from the same factors."""
+    from photon_ml_tpu.io import model_io as jio
+    from photon_ml_tpu.models.game import GameModel as JGameModel
+    from photon_ml_tpu.models.matrix_factorization import MatrixFactorizationModel, init_factors
+    from photon_ml_tpu.types import TaskType as JTask
+
+    users = np.unique([f"user{i}" for i in range(P.N_USERS)])
+    songs = np.unique([f"song{i}" for i in range(P.N_SONGS)])
+    rows, cols = init_factors(len(users), len(songs), 3, seed=5)
+    mf = MatrixFactorizationModel(row_factors=rows, col_factors=cols, row_effect_type="userId",
+                                  col_effect_type="songId", row_keys=users, col_keys=songs,
+                                  task=JTask.LINEAR_REGRESSION)
+    jio.save_game_model(directory, JGameModel(models={"mf": mf}), {})
+
+
+@pytest.fixture(scope="module")
+def music_mf(tmp_path_factory):
+    """The music fixture with a planted rank-3 user·song term."""
+    base = tmp_path_factory.mktemp("music_mf")
+    P.write_music(str(base), mf_rank=3)
+    return base
+
+
+@pytest.mark.parametrize("lanes", ["LBFGS", "AUTO"])
+def test_mf_game_training_and_scoring_match_the_jax_drivers(music_mf, tmp_path, lanes):
+    """A fixed effect plus a user × song MF coordinate through both training
+    drivers, warm-started from the same saved MF model, then both scoring
+    drivers on the JAX driver's model: validation RMSE within rel 1e-3 (and
+    below the fixed effect's alone), metadata, id-info, index maps and
+    feature statistics byte-identical, the same files, scores within
+    1e-4 max|score|; the port's Avro scores equal its in-process scores of
+    the loaded model."""
+    from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
+    from photon_ml_torch.io.index_map import IndexMap
+    from photon_ml_torch.io.model_io import load_game_model
+    from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
+    from photon_ml_torch.transformers import GameTransformer
+
+    _initial_mf_model(tmp_path / "init")
+    mf_args = [MF_ARGS[0], MF_ARGS[1] + f",optimizer={lanes}"]
+    extra = P.FE_ARGS + mf_args + ["--coordinate-descent-iterations", "3", "--model-input-dir",
+                                   str(tmp_path / "init")]
+    jdir, tdir = tmp_path / "j", tmp_path / "t"
+    jsum = jtrain.main(P.training_args(music_mf, jdir, extra))
+    tsum = ttrain.main(P.training_args(music_mf, tdir, extra), device="cpu")
+    assert tsum["best_metric"] == pytest.approx(jsum["best_metric"], rel=1e-3)
+    fe_only = ttrain.main(P.training_args(music_mf, tmp_path / "fe", P.FE_ARGS), device="cpu")
+    assert tsum["best_metric"] < 0.8 * fe_only["best_metric"]
+    assert _files(tdir) == _files(jdir)
+    assert "best/matrix-factorization/mf/row-latent-factors/part-00000.avro" in _files(tdir)
+    for f in _files(jdir):
+        if f.startswith(("index-maps", "feature-stats")) or f.endswith(
+                ("model-metadata.json", "id-info")):
+            assert (tdir / f).read_bytes() == (jdir / f).read_bytes(), f
+    maps = IndexMap.load_directory(jdir / "index-maps")
+    loaded = load_game_model(jdir / "best", maps, device="cpu")
+    assert isinstance(loaded.get("mf"), MatrixFactorizationModel)
+    args = ["--input-data-path", str(music_mf / "test"), "--model-input-dir", str(jdir / "best"),
+            "--evaluators", "RMSE", *P.SHARD_ARGS]
+    j = jscore.main(args + ["--output-dir", str(tmp_path / "sj")])
+    t = tscore.main(args + ["--output-dir", str(tmp_path / "st")], device="cpu")
+    sj, st = _scores(tmp_path / "sj" / "scores"), _scores(tmp_path / "st" / "scores")
+    assert t["num_scored"] == j["num_scored"] == 400
+    assert np.abs(sj - st).max() <= 1e-4 * np.abs(sj).max()
+    assert t["evaluations"]["RMSE"] == pytest.approx(j["evaluations"]["RMSE"], rel=1e-4)
+    shards = {name: FeatureShardConfiguration(feature_bags=(bag,), has_intercept=icpt)
+              for name, bag, icpt in (("global", "features", True),
+                                      ("userShard", "userFeatures", False),
+                                      ("songShard", "songFeatures", False))}
+    mf = loaded.get("mf")
+    test = read_merged(music_mf / "test", shards, index_maps=maps,
+                       random_effect_id_columns=("songId", "userId"),
+                       entity_vocabs={"userId": mf.row_keys, "songId": mf.col_keys},
+                       device="cpu")
+    in_process = GameTransformer(model=loaded).transform(test.dataset).scores
+    assert np.array_equal(st, np.asarray(in_process, dtype=np.float64))
+
+
+def test_date_range_input_equals_the_single_directory(music, tmp_path):
+    """--input-date-range and --validation-data-date-range over daily
+    directories (<base>/daily/yyyy/MM/dd) train the same model as the same
+    records passed as one directory, in the port and in the JAX driver."""
+    from photon_ml_torch.io import avro as tavro
+    from photon_ml_torch.util.date_range import DateRange, daily_path
+
+    recs = list(tavro.read_directory(music / "train"))
+    base = tmp_path / "days"
+    for day, part in ((1, recs[:700]), (3, recs[700:])):
+        d = daily_path(base, DateRange.parse("20260101-20260101").start.replace(day=day))
+        os.makedirs(d)
+        tavro.write_container(os.path.join(d, "part-00000.avro"), P.MUSIC_SCHEMA, part)
+    os.makedirs(daily_path(base / "val", DateRange.parse("20260102-20260102").start))
+    tavro.write_container(os.path.join(daily_path(base / "val", DateRange.parse(
+        "20260102-20260102").start), "part-00000.avro"), P.MUSIC_SCHEMA,
+        list(tavro.read_directory(music / "test")))
+    extra = P.FE_ARGS + P.PER_USER_ARGS + ["--coordinate-descent-iterations", "2"]
+    one = ttrain.main(P.training_args(music, tmp_path / "one", extra), device="cpu")
+    ranged_args = P.training_args(music, tmp_path / "ranged", extra)
+    ranged_args[ranged_args.index("--input-data-path") + 1] = str(base)
+    ranged_args[ranged_args.index("--validation-data-path") + 1] = str(base / "val")
+    ranged_args += ["--input-date-range", "20260101-20260104",
+                    "--validation-data-date-range", "20260102-20260102"]
+    ranged = ttrain.main(ranged_args, device="cpu")
+    assert ranged["best_metric"] == one["best_metric"]
+    for f in _files(tmp_path / "one" / "best"):
+        assert (tmp_path / "ranged" / "best" / f).read_bytes() == \
+            (tmp_path / "one" / "best" / f).read_bytes(), f
+    jranged = jtrain.main([a.replace(str(tmp_path / "ranged"), str(tmp_path / "jranged"))
+                           for a in ranged_args])
+    assert ranged["best_metric"] == pytest.approx(jranged["best_metric"], rel=1e-3)
+    bad = ranged_args[:]
+    bad[bad.index("--input-date-range") + 1] = "20270101-20270102"
+    with pytest.raises(FileNotFoundError, match="no daily input"):
+        ttrain.main(bad + ["--override-output"], device="cpu")

@@ -202,15 +202,17 @@ def _lbfgs(**kw):
         optimizer=OptimizerConfig(OptimizerType.LBFGS, max_iterations=3, **kw), l2_weight=1.0)
 
 
-@pytest.mark.parametrize("config,item", [
-    (_re_config(optimization=_lbfgs(scheduler=LaneSchedulerConfig())), 18),
-    (test_.MatrixFactorizationCoordinateConfig("user", "item", 4, _lbfgs()), 13),
+@pytest.mark.parametrize("config,options,item", [
+    (_re_config(optimization=_lbfgs(scheduler=LaneSchedulerConfig())), {}, 18),
+    # MF trains on one device; under the mesh program it waits with item 10
+    (test_.MatrixFactorizationCoordinateConfig("user", "item", 4, _lbfgs()),
+     {"mesh": object()}, 10),
 ], ids=["lane-scheduler", "matrix-factorization"])
-def test_coordinates_outside_the_slice_raise(config, item):
+def test_coordinates_outside_the_slice_raise(config, options, item):
     _, td = datasets(game_arrays(3, n=200))
     est = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION,
                               coordinate_configs={"fixed": test_.FixedEffectCoordinateConfig(
-                                  "global", _lbfgs()), "other": config})
+                                  "global", _lbfgs()), "other": config}, **options)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         est.fit(td)
 

@@ -46,7 +46,11 @@ def test_importing_every_port_module_loads_no_jax():
             # the sparse slice's own copies of the JAX package's host-only modules
             "photon_ml_torch.io.libsvm", "photon_ml_torch.cli.libsvm_to_avro",
             "photon_ml_torch.cli.name_term_feature_bags_driver",
-            "photon_ml_torch.cli.feature_indexing_driver"} <= set(mods)
+            "photon_ml_torch.cli.feature_indexing_driver",
+            # matrix factorization, the host decoders and date ranges
+            "photon_ml_torch.models.matrix_factorization",
+            "photon_ml_torch.algorithm.mf_coordinate", "photon_ml_torch.io.avro_native",
+            "photon_ml_torch.util.date_range"} <= set(mods)
     script = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -72,6 +76,28 @@ def test_no_forbidden_import_in_source(path):
             names = [node.module]
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_host_libraries_build_from_the_ports_own_sources():
+    """The port's build code and chip_smoke.py never name the JAX package's
+    native directory (its sources or its prebuilt libraries); the C++
+    sources the port builds sit in photon_ml_torch/native and every host
+    library the port loads is one of them."""
+    from photon_ml_torch import build
+
+    for path in [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py"]:
+        text = path.read_text()
+        assert "photon_ml_tpu/native" not in text and "photon_ml_tpu.native" not in text, path
+    assert build.NATIVE == PORT / "native"
+    sources = {p.stem for p in (PORT / "native").glob("*.cpp")}
+    assert sources == {"avro_decoder", "libsvm_loader"}
+    loaded = set()
+    for path in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "load_host":
+                loaded.add(node.args[0].value)
+    assert loaded == sources
+    assert build.HOST_BUILD_DIR == REPO / "build" / "torch_native"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -222,7 +222,71 @@ def test_text_model_and_feature_stats_match(tmp_path):
 
 
 def test_matrix_factorization_is_refused(tmp_path):
+    """Matrix-factorization coordinates load now; one whose directory lacks
+    its id-info is refused as the JAX loader refuses it."""
     jio.save_game_model(tmp_path / "m", _jax_model(np.float32), _maps(jindex))
     os.makedirs(tmp_path / "m" / "matrix-factorization" / "mf")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(FileNotFoundError, match="id-info"):
+        jio.load_game_model(tmp_path / "m", _maps(jindex))
+    with pytest.raises(FileNotFoundError, match="id-info"):
         tio.load_game_model(tmp_path / "m", _maps(tindex), device="cpu")
+
+
+def _jax_mf_game(dtype, seed=1):
+    """A JAX GameModel with the fixed and random effects of ``_jax_model``
+    and an MF coordinate (an all-zero row: an untrained vocab entity)."""
+    from photon_ml_tpu.models import matrix_factorization as jmf
+
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(7, 3)).astype(dtype)
+    rows[4] = 0.0
+    mf = jmf.MatrixFactorizationModel(
+        row_factors=jnp.asarray(rows), col_factors=jnp.asarray(rng.normal(size=(5, 3)).astype(dtype)),
+        row_effect_type="user", col_effect_type="item",
+        row_keys=np.asarray([f"e{i:02d}" for i in range(7)]),
+        col_keys=np.asarray([f"i{i}" for i in range(5)]), task=JTask.LOGISTIC_REGRESSION)
+    return jgame.GameModel(models={**_jax_model(dtype).models, "mf": mf})
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_matrix_factorization_files_are_the_references(tmp_path, dtype):
+    """The same MF factors (carried across by ``convert``) save to the JAX
+    package's bytes, LatentFactorAvro part files split at the same record
+    counts; each package loads the other's directory to equal factors, keys
+    and scores."""
+    jmodel = _jax_mf_game(dtype)
+    tmodel = convert.game_model_from_numpy(model_to_plain(jmodel), device="cpu")
+    jio.save_game_model(tmp_path / "j", jmodel, _maps(jindex), random_effect_records_per_file=3)
+    tio.save_game_model(tmp_path / "t", tmodel, _maps(tindex), random_effect_records_per_file=3)
+    jf, tf = _files(tmp_path / "j"), _files(tmp_path / "t")
+    assert sorted(jf) == sorted(tf)
+    assert "matrix-factorization/mf/row-latent-factors/part-00002.avro" in tf
+    for name in jf:
+        assert tf[name] == jf[name], name
+    loaded = tio.load_game_model(tmp_path / "j", _maps(tindex), dtype=dtype, device="cpu")
+    mf, ref = loaded.get("mf"), jmodel.get("mf")
+    assert (mf.row_effect_type, mf.col_effect_type, mf.task.value) == (
+        "user", "item", ref.task.value)
+    assert mf.row_factors.dtype == torch.from_numpy(np.zeros(0, dtype)).dtype
+    np.testing.assert_array_equal(mf.row_factors.numpy(), np.asarray(ref.row_factors))
+    np.testing.assert_array_equal(mf.col_factors.numpy(), np.asarray(ref.col_factors))
+    np.testing.assert_array_equal(mf.row_keys, ref.row_keys)
+    np.testing.assert_array_equal(mf.col_keys, ref.col_keys)
+    back = jio.load_game_model(tmp_path / "t", _maps(jindex), dtype=dtype)
+    np.testing.assert_array_equal(np.asarray(back.get("mf").row_factors),
+                                  np.asarray(ref.row_factors))
+    rng = np.random.default_rng(2)
+    kw = dict(labels=np.zeros(N), feature_shards={"global": rng.normal(size=(N, D_FE)),
+                                                  "per_entity": rng.normal(size=(N, D_RE))},
+              entity_keys={"user": np.asarray([f"e{i:02d}" for i in rng.integers(0, 9, N)]),
+                           "item": np.asarray([f"i{i}" for i in rng.integers(0, 6, N)])},
+              entity_vocabs={"user": np.asarray(ref.row_keys), "item": np.asarray(ref.col_keys)},
+              dtype=np.float64)
+    jds, tds = jgd.build_game_dataset(**kw), tgd.build_game_dataset(**kw, device="cpu")
+    # both loaded from the JAX package's files (coefficients below the
+    # sparsity threshold were not written)
+    expect = np.asarray(jio.load_game_model(tmp_path / "j", _maps(jindex),
+                                            dtype=dtype).score_dataset(jds))
+    tol = 1e-12 if dtype == np.float64 else 1e-6  # an f32 table scores in f32 in the port
+    np.testing.assert_allclose(loaded.score(tds).numpy(), expect, rtol=tol,
+                               atol=tol * np.abs(expect).max())

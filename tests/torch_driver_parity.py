@@ -46,12 +46,16 @@ MUSIC_SCHEMA = {
 }
 
 
-def make_music_records(n, seed):
-    """Deterministic synthetic ratings. Ground truth fixed across splits."""
+def make_music_records(n, seed, mf_rank: int = 0):
+    """Deterministic synthetic ratings. Ground truth fixed across splits.
+    ``mf_rank`` > 0 adds a planted user·song term of that rank (the MF
+    coordinate's signal)."""
     truth = np.random.default_rng(20260730)
     w_global = truth.normal(size=D_GLOBAL)
     w_user = truth.normal(scale=0.8, size=(N_USERS, D_ENTITY))
     w_song = truth.normal(scale=0.6, size=(N_SONGS, D_ENTITY))
+    u_user = truth.normal(scale=1.2, size=(N_USERS, mf_rank))
+    v_song = truth.normal(scale=1.2, size=(N_SONGS, mf_rank))
 
     rng = np.random.default_rng(seed)
     records = []
@@ -62,6 +66,7 @@ def make_music_records(n, seed):
         xu = rng.normal(size=D_ENTITY)
         xs = rng.normal(size=D_ENTITY)
         y = xg @ w_global + xu @ w_user[ui] + xs @ w_song[si] + NOISE * rng.normal()
+        y += u_user[ui] @ v_song[si]
         records.append({
             "uid": str(i),
             "label": float(y),
@@ -79,12 +84,12 @@ def make_music_records(n, seed):
     return records
 
 
-def write_music(base) -> None:
+def write_music(base, mf_rank: int = 0) -> None:
     """``base/train`` (1500 rows) and ``base/test`` (400 rows)."""
     for split, n, seed in (("train", 1500, 1), ("test", 400, 2)):
         os.makedirs(os.path.join(base, split), exist_ok=True)
         avro_io.write_container(os.path.join(base, split, "part-00000.avro"), MUSIC_SCHEMA,
-                                make_music_records(n, seed))
+                                make_music_records(n, seed, mf_rank))
 
 
 SHARD_ARGS = [

@@ -11,6 +11,7 @@ from photon_ml_tpu import estimators as jest
 from photon_ml_tpu.algorithm import coordinates as jcoord
 from photon_ml_tpu.data import game_data as jgd
 from photon_ml_tpu.models import game as jgame
+from photon_ml_tpu.models import matrix_factorization as jmf
 from photon_ml_tpu.ops.normalization import NormalizationType as JNormType
 from photon_ml_tpu.optim.optimizer import OptimizerConfig as JOptConfig
 from photon_ml_tpu.optim.optimizer import OptimizerType as JOptType
@@ -171,6 +172,12 @@ def model_to_plain(jmodel) -> dict:
             out[cid] = {"kind": "fixed", "means": np.asarray(c.means),
                         "variances": None if c.variances is None else np.asarray(c.variances),
                         "task": m.task.value, "feature_shard_id": m.feature_shard_id}
+        elif isinstance(m, jmf.MatrixFactorizationModel):
+            out[cid] = {"kind": "matrix_factorization", "row_factors": np.asarray(m.row_factors),
+                        "col_factors": np.asarray(m.col_factors),
+                        "row_effect_type": m.row_effect_type, "col_effect_type": m.col_effect_type,
+                        "row_keys": np.asarray(m.row_keys), "col_keys": np.asarray(m.col_keys),
+                        "task": m.task.value}
         else:
             out[cid] = {"kind": "random", "coefficients": np.asarray(m.coefficients),
                         "variances": None if m.variances is None else np.asarray(m.variances),
@@ -186,7 +193,7 @@ def assert_models_close(jmodel, tmodel, rtol=1e-8):
     ref, got = model_to_plain(jmodel), convert.game_model_to_numpy(tmodel)
     assert list(ref) == list(got)
     for cid in ref:
-        for key in ("means", "coefficients", "variances"):
+        for key in ("means", "coefficients", "variances", "row_factors", "col_factors"):
             r, g = ref[cid].get(key), got[cid].get(key)
             assert (r is None) == (g is None), (cid, key)
             if r is not None:
