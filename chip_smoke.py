@@ -214,6 +214,33 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    ms, kernels and host reads; (c) one MF update of a small problem (n=4096,
    k=4) from the same factors, card f32 against CPU f64 within
    1e-3·max|factor|.
+11. The fused GAME training program (``parallel/distributed.train_distributed``,
+   ``FUSED``), data from ``--seed``: (a) the flagship widths (bench.py:542-560,
+   none cut, logistic) with a fixed effect (L-BFGS), per-user and per-item
+   effects (AUTO lanes, which resolve to Newton) and phase 10's MF
+   coordinate (k=16, 2 alternations, L2 10), 4 fused sweeps: per sweep its
+   seconds, training loss, block coordinate descent's objective (both
+   non-increasing), the fixed effect's evaluations and B1's launches (one
+   per evaluation); one sweep under ``torch.profiler`` (wall and device ms,
+   kernels, the device's idle share); ``GameEstimator.fit`` of the same
+   model on the same data, its seconds a sweep beside the fused ones;
+   held-out AUC (2^15 rows, a quarter of unseen users) above the fixed
+   effect's alone; the state through ``state_to_game_model``, model I/O and
+   ``game_model_to_state`` back bitwise, and a warm-started sweep from it;
+   B1 and its reduce held against their plain versions on the fused step's
+   own fixed-effect batch (the trained coefficients, the residual offsets),
+   twice bitwise, at phase 3's f32 limits. (b) Phase 9's shapes (n=2^16 rows
+   of 16 Zipf columns over d=10^6, 2000 users, linear): a sparse fixed effect
+   with a compact per-user effect on the same shard, and with an INDEX_MAP
+   per-user effect on a dense [2^16, 16] shard half zero (the dry run's
+   second program at full width), 4 sweeps each, the objective
+   non-increasing; G1's rows, chunks and segments (the fixed effect's
+   margins and transposes) and compact scoring held against their plain
+   versions on each program's own inputs (per row 1e-5·Σ|v·w| in f64, twice
+   bitwise). (c) A small fused sweep (n=4096, fixed + per-user + MF k=4)
+   from the same state on the card in f32 and on the CPU in f64: the whole
+   state within 1e-3·max|w|. The launches and checks join the kernels
+   line's ``fused_path``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3826,6 +3853,371 @@ def _mf_slice(torch, np, seed: int, dev, card: str) -> dict:
     return path
 
 
+#: phase 11, the fused GAME training program: bench.py's flagship widths
+#: with phase 10's MF coordinate, phase 9's sparse shapes, and a small
+#: problem for the card against the CPU
+FUSED = {"flagship": dict(GAME["flagship"], k=16, alternations=2, mf_l2=10.0),
+         "sparse": dict(SPARSE_GAME, dense_d=16, zero_share=0.5),
+         "small": dict(GAME["small"], k=4)}
+
+
+def _fused_program(*, k: int | None, alternations: int = 2, mf_l2: float = 10.0,
+                   re_types=("user", "item"), fe_shard: str = "global", re_shard: str = "per_entity",
+                   projector: str = "IDENTITY", task: str = "LOGISTIC_REGRESSION"):
+    """The fused program of ``_game_estimator`` plus phase 10's MF
+    coordinate: the fixed effect on L-BFGS (10 iterations, L2 1), AUTO
+    lanes (Newton; 10 iterations, L2 1) on each random effect, and with ``k``
+    a user × item MF coordinate (AUTO lanes, L2 ``mf_l2``)."""
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.projector.projectors import ProjectorType
+    from photon_ml_torch.types import TaskType
+
+    lbfgs = OptimizerConfig(OptimizerType.LBFGS, max_iterations=10)
+    auto = OptimizerConfig(OptimizerType.AUTO, max_iterations=10)
+    mfs = () if k is None else (dist.MatrixFactorizationStepSpec(
+        "mf", "user", "item", k, auto, l2_weight=mf_l2, num_alternations=alternations),)
+    return dist.GameTrainProgram(
+        TaskType[task], dist.FixedEffectStepSpec(fe_shard, lbfgs, l2_weight=1.0),
+        tuple(dist.RandomEffectStepSpec(t, re_shard, auto, l2_weight=1.0,
+                                        projector=ProjectorType[projector]) for t in re_types),
+        mf_specs=mfs)
+
+
+def _fused_objective(torch, program, data, state) -> float:
+    """The objective the fused sweep's block coordinate descent lowers, in
+    f64: the weighted loss of the whole model plus each coordinate's L2
+    penalty on its coefficients (the state's space; these programs carry no
+    normalization). Each solve lowers its own block's part from its warm
+    start, so the sum does not rise over the sweeps."""
+    margins = program.score(data, state).double()
+    total = float(torch.sum(data["weights"].double()
+                            * program._loss.loss(margins, data["labels"].double())))
+
+    def sq(t):
+        return float((t.double() ** 2).sum())
+
+    total += 0.5 * program.fe.l2_weight * sq(state.fe_coefficients)
+    total += sum(0.5 * s.l2_weight * sq(state.re_tables[s.re_type]) for s in program.re_specs)
+    total += sum(0.5 * m.l2_weight * (sq(state.mf_rows[m.name]) + sq(state.mf_cols[m.name]))
+                 for m in program.mf_specs)
+    return total
+
+
+def _fused_run(torch, label: str, program, dataset, re_datasets, mf_datasets, sweeps: int,
+               state=None, loss_falls: bool = True) -> dict:
+    """``train_distributed`` with the launch counters set to 0 just before
+    and read just after; per sweep its seconds, training loss, objective
+    (:func:`_fused_objective`, computed after the run), the fixed effect's
+    evaluations and B1's launches. The objective must not rise, nor, with
+    ``loss_falls``, the training loss."""
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.parallel import distributed as dist
+
+    evaluations = []
+    objective = program._fe_objective
+    inner = objective.value_and_gradient
+
+    def counted(*args, **kw):
+        evaluations.append(1)
+        return inner(*args, **kw)
+
+    objective.value_and_gradient = counted
+    stepped = []
+    step = program.step
+
+    def recorded(data, buckets, state_):
+        out = step(data, buckets, state_)
+        stepped.append((data, out[0]))
+        return out
+
+    program.step = recorded
+    marks = []
+
+    def on_sweep(done, total, loss):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), len(evaluations), fused_glm.launches, loss))
+
+    fused_glm.launches = fused_glm.reduce_launches = 0
+    _reset_gather_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = dist.train_distributed(program, dataset, re_datasets, mf_datasets=mf_datasets,
+                                        num_iterations=sweeps, state=state, on_sweep=on_sweep)
+    finally:
+        del objective.value_and_gradient, program.step
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"fused_glm": fused_glm.launches, "fused_glm_reduce": fused_glm.reduce_launches,
+                **_gather_counts()}
+    losses = result.losses
+    objectives = [_fused_objective(torch, program, data, s) for data, s in stepped]
+    stepped.clear()
+    assert len(losses) == sweeps and all(math.isfinite(v) for v in losses), f"{label}: {losses}"
+    assert all(b <= a * (1 + 1e-5) for a, b in zip(objectives, objectives[1:])), \
+        f"{label}: the objective rose over the sweeps: {objectives}"
+    assert not loss_falls or all(b <= a * (1 + 1e-5) for a, b in zip(losses, losses[1:])), \
+        f"{label}: training loss rose over the sweeps: {losses}"
+    rows, last = [], (t0, 0, 0)
+    for (t, ev, b1, loss), obj in zip(marks, objectives):
+        rows.append({"seconds": t - last[0], "fe_evaluations": ev - last[1],
+                     "b1_launches": b1 - last[2], "loss": loss, "objective": obj})
+        last = (t, ev, b1)
+    out = {"run": label, "seconds": seconds, "seconds_per_sweep": seconds / sweeps,
+           "sweeps": rows, "losses": losses, "launches": launches,
+           "fe_evaluations": len(evaluations)}
+    _log(f"fused run {json.dumps(out)}")
+    out["result"] = result
+    return out
+
+
+def _fused_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 11, the fused GAME training program (``parallel/distributed``),
+    printing as it goes. Returns, for each kernel this path runs, its
+    launches here and its checks on the path's own inputs."""
+    from photon_ml_torch import convert
+    from photon_ml_torch.algorithm.mf_coordinate import build_mf_dataset
+    from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.data.game_data import build_game_dataset, build_random_effect_dataset
+    from photon_ml_torch.data.sparse_batch import SparseShard
+    from photon_ml_torch.estimators import MatrixFactorizationCoordinateConfig
+    from photon_ml_torch.evaluation import local_metrics
+    from photon_ml_torch.io.index_map import IndexMap, feature_key
+    from photon_ml_torch.io.model_io import load_game_model, save_game_model
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.projector.projectors import ProjectorType
+
+    # a. the dense flagship: fixed effect, per-user and per-item effects and
+    # a user × item MF coordinate, widths of bench.py:542-560 none cut
+    shape = FUSED["flagship"]
+    sweeps, k = shape["sweeps"], shape["k"]
+    t0 = time.perf_counter()
+    train, held = _game_arrays(np, seed + 20, **shape)
+    task = "LOGISTIC_REGRESSION"
+    ds = _game_dataset(train, task, dev)
+    held_ds = _game_dataset(held, task, dev, vocabs=ds.entity_vocabs)
+    del train, held
+    re_ds = {t: build_random_effect_dataset(ds, t, "per_entity", bucket_sizes=(GAME["cap"],))
+             for t in ("user", "item")}
+    mf_ds = {"mf": build_mf_dataset(ds, "user", "item")}
+    torch.cuda.synchronize()
+    _log(f"a. fused flagship data n={shape['n']} (+{shape['held_out']} held out) global "
+         f"d={shape['d_fe']} per_entity d={shape['d_re']} users={shape['users']} "
+         f"items={shape['items']}, logistic; the buckets and MF buckets built: "
+         f"{time.perf_counter() - t0:.2f} s")
+    program = _fused_program(k=k, alternations=shape["alternations"], mf_l2=shape["mf_l2"])
+    assert [s.optimizer.optimizer_type.name for s in (*program.re_specs, *program.mf_specs)] \
+        == ["NEWTON"] * 3, "AUTO lanes did not resolve to Newton"
+    _fused_run(torch, "a. warm-up", program, ds, re_ds, mf_ds, 1)
+    main = _fused_run(torch, "a. fused flagship", program, ds, re_ds, mf_ds, sweeps)
+    state = main["result"].state
+    per_sweep = main["sweeps"]
+    assert all(r["b1_launches"] == r["fe_evaluations"] > 0 for r in per_sweep), per_sweep
+    assert main["launches"]["fused_glm_reduce"] == main["launches"]["fused_glm"]
+
+    # one sweep under the profiler: wall and device ms, kernels, idle share
+    data, buckets = program.prepare_inputs(ds, re_ds, mf_ds)
+    profiled = _profiled(torch, lambda: program.step(data, buckets, state))
+    _log(f"a. one fused sweep profiled ({card}): " + json.dumps(profiled))
+
+    # GameEstimator.fit on the same data, same coordinates in the same order
+    est = _game_estimator(task, "AUTO", sweeps)
+    est.coordinate_configs = dict(est.coordinate_configs, mf=MatrixFactorizationCoordinateConfig(
+        "user", "item", num_latent_factors=k, num_alternations=shape["alternations"],
+        optimization=CoordinateOptimizationConfig(
+            optimizer=OptimizerConfig(OptimizerType.AUTO, max_iterations=10),
+            l2_weight=shape["mf_l2"])))
+    warm_est = _game_estimator(task, "AUTO", 1)
+    warm_est.coordinate_configs = est.coordinate_configs
+    warm_est.fit(ds)  # warm up outside the times
+    cd = _game_fit(torch, "a. the same model through GameEstimator.fit", est, ds, sweeps)
+    _log(f"a. seconds a sweep ({card}): fused {main['seconds_per_sweep']:.4f} "
+         f"({json.dumps([round(r['seconds'], 4) for r in per_sweep])}), GameEstimator.fit "
+         f"{cd['seconds_per_sweep']:.4f} (solves {json.dumps(cd['per_sweep'])}, rescoring "
+         f"{cd['rescoring_per_sweep']:.4f}, host rest {cd['host_rest_per_sweep']:.4f}); "
+         f"final training loss fused {main['losses'][-1]:.8g}, CD {cd['loss_per_sweep'][-1]:.8g}")
+
+    # held-out AUC of the whole model above the fixed effect's alone
+    model = dist.state_to_game_model(program, state, ds, re_datasets=re_ds)
+    labels = held_ds.host_array("labels")
+    full = (model.score(held_ds) + held_ds.offsets).double().cpu().numpy()
+    fe_only = (model.get("global").score_dataset(held_ds) + held_ds.offsets).double().cpu().numpy()
+    aucs = {"model": local_metrics.area_under_roc_curve(full, labels),
+            "fixed effect alone": local_metrics.area_under_roc_curve(fe_only, labels)}
+    _log(f"a. held-out AUC ({card}): " + json.dumps(aucs))
+    assert np.isfinite(full).all() and aucs["model"] > aucs["fixed effect alone"], aucs
+
+    # the state through model I/O and back, bitwise; a warm-started sweep
+    with tempfile.TemporaryDirectory(prefix="fused-", dir=Path(__file__).resolve().parent
+                                     / "build") as tmp:
+        maps = {shard: IndexMap({feature_key(f"{shard}{j}"): j for j in range(x.shape[1])})
+                for shard, x in ds.feature_shards.items()}
+        t0 = time.perf_counter()
+        save_game_model(tmp, model, maps, sparsity_threshold=0.0)
+        loaded = load_game_model(tmp, maps, dtype=np.float32, device=dev)
+        io_s = time.perf_counter() - t0
+    back = dist.game_model_to_state(program, loaded, ds, re_datasets=re_ds, mf_datasets=mf_ds)
+    tensors = {"fe": (state.fe_coefficients, back.fe_coefficients)}
+    for group in ("re_tables", "mf_rows", "mf_cols"):
+        for name, v in getattr(state, group).items():
+            tensors[f"{group}/{name}"] = (v, getattr(back, group)[name])
+    bitwise = {key: bool(torch.equal(a, b)) for key, (a, b) in tensors.items()}
+    _log(f"a. state -> model_io save -> load -> state in {io_s:.2f} s, bitwise: "
+         + json.dumps(bitwise))
+    assert all(bitwise.values()), bitwise
+    warm = _fused_run(torch, "a. warm-started sweep from the reloaded state", program, ds,
+                      re_ds, mf_ds, 1, state=back)
+    assert warm["losses"][0] <= main["losses"][-1] * (1 + 1e-5), (warm["losses"], main["losses"])
+
+    # B1 and its reduce on the fused step's own fixed-effect batch: the
+    # trained coefficients, the residual offsets of every other coordinate
+    scores = program._coordinate_scores(data, state)
+    offsets = program._sum_scores(data["offsets"], scores, "global").contiguous()
+    x = data["features"]["global"]
+    batch = LabeledPointBatch(features=x, labels=data["labels"], offsets=offsets,
+                              weights=data["weights"])
+    w = state.fe_coefficients.contiguous()
+    n, d = x.shape
+    loss = LogisticLoss()
+    r = torch.rand(n, device=dev)
+    # the data term: at the optimum the L2 term would cancel X'r to noise
+    kw = dict(l2_weight=0.0)
+    path = {"fused_glm": dict(_path_check(
+        torch, "fused_glm on the fused step's fixed effect",
+        lambda: fused_glm.fused_value_and_gradient(loss, w, batch, **kw),
+        lambda: fused_glm.fused_value_and_gradient_reference(loss, w, batch, **kw),
+        lambda: (torch.matmul(x, w), torch.matmul(r, x)), (1e-5, 1e-4),
+        n * d * 4 + 12 * n + 8 * d + 8, x.shape),
+        launches=main["launches"]["fused_glm"], evaluations=main["fe_evaluations"],
+        per_sweep=[r_["b1_launches"] for r_ in per_sweep])}
+    b1_args = (loss, x, batch.labels, batch.offsets, batch.weights, w, None)
+    path["fused_glm_reduce"] = dict(
+        _reduce_entry(torch, "fused_glm_reduce on the fused step's fixed effect",
+                      lambda: fused_glm.fused_partials(*b1_args), fused_glm.reduce_partials,
+                      fused_glm.reduce_partials_reference),
+        launches=main["launches"]["fused_glm_reduce"])
+    _log(f"a. B1 on the fused step's fixed effect [{n}, {d}] ({card}): "
+         + json.dumps({key: {f: v[f] for f in ("max_abs_err", "worst_err_share_of_limit", "ms",
+                                               "plain_ms", "bound_ms", "library_ms")}
+                       for key, v in path.items() if "worst_err_share_of_limit" in v}))
+    fused_summary = {"seconds_per_sweep": main["seconds_per_sweep"],
+                     "cd_seconds_per_sweep": cd["seconds_per_sweep"], "profiled_sweep": profiled}
+    del main, cd, warm, model, loaded, back, data, buckets, state, scores, offsets, batch
+    del ds, held_ds, re_ds, mf_ds, x, r, b1_args
+    torch.cuda.empty_cache()
+
+    # b. the sparse program at phase 9's shapes: a sparse fixed effect with a
+    # compact per-user effect on the same shard, then (the dry run's second
+    # program at full width) with an INDEX_MAP per-user effect on a dense
+    # shard whose entries are half zero
+    cfg = FUSED["sparse"]
+    t0 = time.perf_counter()
+    part, _ = _sparse_game_arrays(np, seed, cfg["n"], cfg["d"], cfg["per_row"], cfg["users"])
+    rng = np.random.default_rng(seed + 21)
+    dense = rng.standard_normal((cfg["n"], cfg["dense_d"]), dtype=np.float32)
+    dense[rng.uniform(size=dense.shape) < cfg["zero_share"]] = 0.0
+    shard = SparseShard(rows=part["rows"].astype(np.int64), cols=part["cols"].astype(np.int64),
+                        vals=part["vals"], num_samples=part["n"], feature_dim=cfg["d"])
+    sds = build_game_dataset(labels=part["labels"],
+                             feature_shards={"global": shard, "per_entity": dense},
+                             entity_keys={"user": part["users"]}, device=dev)
+    del part, dense
+    programs = {
+        "b. sparse fixed effect + compact per-user": (
+            _fused_program(k=None, re_types=("user",), re_shard="global", projector="INDEX_MAP",
+                           task="LINEAR_REGRESSION"),
+            {"user": build_random_effect_dataset(sds, "user", "global")}),
+        "b. sparse fixed effect + INDEX_MAP per-user on a dense shard": (
+            _fused_program(k=None, re_types=("user",), projector="INDEX_MAP",
+                           task="LINEAR_REGRESSION"),
+            {"user": build_random_effect_dataset(sds, "user", "per_entity",
+                                                 projector_type=ProjectorType.INDEX_MAP)}),
+    }
+    torch.cuda.synchronize()
+    _log(f"b. fused sparse data n={cfg['n']} d={cfg['d']}, {cfg['per_row']} Zipf columns a "
+         f"row, {cfg['users']} users, a dense [{cfg['n']}, {cfg['dense_d']}] shard half zero; "
+         f"compact K = {programs['b. sparse fixed effect + compact per-user'][1]['user'].table_width}"
+         f": {time.perf_counter() - t0:.2f} s")
+    sparse_runs, checks, compact_checks = {}, [], []
+    for label, (prog, res) in programs.items():
+        _fused_run(torch, f"{label}, warm-up", prog, sds, res, None, 1)
+        # phase 9's model at this size: its objective falls, its training
+        # loss need not (the compact blocks' penalty trades against it)
+        run = sparse_runs[label] = _fused_run(torch, label, prog, sds, res, None, cfg["sweeps"],
+                                              loss_falls=False)
+        state = run["result"].state
+        data, _ = prog.prepare_inputs(sds, res)
+        off = prog._sum_scores(data["offsets"], prog._coordinate_scores(data, state), "global")
+        fe_batch, _ = prog._primary_fe_batch(data, off, data["weights"])
+        checks += _fe_gather_checks(torch, f"fused {label}", fe_batch, state.fe_coefficients)
+        if "re_sparse" in data:
+            compact_checks.append(_compact_check(
+                torch, f"fused {label}: compact scores", data["re_sparse"]["user"],
+                state.re_tables["user"].float().contiguous()))
+        del state, data, off, fe_batch
+    launches = {key: sum(r["launches"][key] for r in sparse_runs.values())
+                for key in ("rows", "segments", "chunks", "compact")}
+    _log(f"b. the gathers on the fused sparse programs' own inputs ({card}): "
+         + json.dumps(checks + compact_checks))
+    for label, run in sparse_runs.items():
+        _log(f"{label} ({card}): seconds a sweep {run['seconds_per_sweep']:.4f}, launches "
+             + json.dumps(run["launches"]))
+    chunked = [c for c in checks if c["chunk_rows"]]
+    assert chunked, "the Zipf-hot columns should take the chunk kernel"
+    path["sparse_gather"] = {
+        "launches": launches["rows"] + launches["segments"] - launches["compact"],
+        "row_kernel": launches["rows"], "segment_kernel": launches["segments"],
+        "compact_scoring": launches["compact"], "checks": checks}
+    path["sparse_gather_chunks"] = {"launches": launches["chunks"], "checks": chunked}
+    path["sparse_gather_compact"] = {"launches": launches["compact"], "checks": compact_checks}
+    fused_summary["sparse_seconds_per_sweep"] = {label: run["seconds_per_sweep"]
+                                                 for label, run in sparse_runs.items()}
+    del sparse_runs, programs, sds, shard
+    torch.cuda.empty_cache()
+
+    # c. a small fused sweep on the card in f32 against the CPU in f64, from
+    # the same state
+    small = FUSED["small"]
+    arrays, _ = _game_arrays(np, seed + 22, **small)
+    start, got = None, {}
+    for where, dtype in ((dev, None), (torch.device("cpu"), np.float64)):
+        sds = _game_dataset(arrays, task, where, dtype=dtype)
+        res = {"user": build_random_effect_dataset(sds, "user", "per_entity",
+                                                   bucket_sizes=(GAME["cap"],))}
+        mfs = {"mf": build_mf_dataset(sds, "user", "item")}
+        prog = _fused_program(k=small["k"], re_types=("user",))
+        if start is None:
+            start = convert.train_state_to_numpy(prog.init_state(sds, res, mfs))
+        state = convert.train_state_from_numpy(
+            {key: ({n_: a.astype(dtype or np.float32) for n_, a in v.items()}
+                   if isinstance(v, dict) else v.astype(dtype or np.float32))
+             for key, v in start.items()}, device=where)
+        out = dist.train_distributed(prog, sds, res, mf_datasets=mfs, num_iterations=1,
+                                     state=state).state
+        got[where.type] = convert.train_state_to_numpy(out)
+    gaps = {}
+    for key in ("fe_coefficients", "re_tables/user", "mf_rows/mf", "mf_cols/mf"):
+        group, _, name = key.partition("/")
+        a, b = (got[w_][group][name] if name else got[w_][group] for w_ in (dev.type, "cpu"))
+        gaps[key] = (float(np.abs(a - b).max()), float(np.abs(b).max()))
+    # phase 7e's measure: the largest difference over the whole state
+    # against 1e-3 of its largest coefficient
+    gap, scale = max(g for g, _ in gaps.values()), max(s for _, s in gaps.values())
+    _log(f"c. small fused sweep n={small['n']} (FE + per-user + MF k={small['k']}): card f32 "
+         f"vs cpu f64 max |dw| {gap:.3g} (max |w| {scale:.3g}, limit 1e-3·max|w|); by tensor "
+         f"(max |d|, max |w|) {json.dumps(gaps)}")
+    assert gap <= 1e-3 * scale, gaps
+    assert all(v["launches"] > 0 for v in path.values()), {key: v["launches"]
+                                                           for key, v in path.items()}
+    path["fused_glm"]["summary"] = fused_summary
+    return path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4037,8 +4429,15 @@ def main(argv=None) -> int:
     mf_path = _mf_slice(torch, np, args.seed, dev, card)
     _log(f"MF GAME phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in mf_path.items()}))
+    # 11. the fused GAME training program: its launches and kernel checks as
+    # its own path
+    t0 = time.perf_counter()
+    fused_path = _fused_slice(torch, np, args.seed, dev, card)
+    _log(f"fused GAME phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in fused_path.items()}))
     for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
-                      ("sparse_game_path", sparse_game_path), ("mf_path", mf_path)):
+                      ("sparse_game_path", sparse_game_path), ("mf_path", mf_path),
+                      ("fused_path", fused_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

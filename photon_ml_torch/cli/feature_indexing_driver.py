@@ -4,9 +4,10 @@
 Counterpart of ``photon_ml_tpu/cli/feature_indexing_driver.py``; reference
 photon-client index/FeatureIndexingDriver.scala:177-290: scan the data once,
 collect the distinct (name, term) keys of each shard and save its index map
-as a plain ``<shard>.keys`` store, which the GAME training driver reads back
-through ``--index-maps-dir``. Host only. The off-heap store format is
-refused (``NotImplementedError``, ROADMAP.md queue A, host items).
+as a plain ``<shard>.keys`` store or, with ``--index-store-format offheap``,
+as ``--num-partitions`` native off-heap stores (``io/offheap_index_map.py``,
+the reference's partitioned PalDB layout). The GAME training and scoring
+drivers read either back through ``--index-maps-dir``. Host only.
 
     python -m photon_ml_torch.cli.feature_indexing_driver \\
         --input-data-path data/train --output-dir index-maps \\
@@ -21,6 +22,7 @@ from typing import Sequence
 
 from photon_ml_torch.cli.configs import parse_feature_shard_config
 from photon_ml_torch.io.data_reader import build_index_maps, read_avro_records, read_libsvm
+from photon_ml_torch.io.offheap_index_map import build_offheap_store
 
 logger = logging.getLogger(__name__)
 
@@ -28,16 +30,14 @@ logger = logging.getLogger(__name__)
 def run(*, input_data_path: str, output_dir: str, feature_shards: dict,
         input_format: str = "avro", store_format: str = "plain",
         num_partitions: int = 1) -> dict[str, int]:
-    if store_format != "plain":
-        raise NotImplementedError(
-            f"--index-store-format {store_format} (partitioned off-heap stores) is not "
-            "ported yet: ROADMAP.md queue A")
-    del num_partitions  # a plain store is one file
     records = (read_avro_records(input_data_path) if input_format == "avro"
                else read_libsvm(input_data_path))
     sizes = {}
     for shard_id, imap in build_index_maps(records, feature_shards).items():
-        imap.save(output_dir, shard_id)
+        if store_format == "offheap":
+            build_offheap_store(output_dir, imap, num_partitions=num_partitions, name=shard_id)
+        else:
+            imap.save(output_dir, shard_id)
         sizes[shard_id] = imap.size
         logger.info("shard '%s': %d features indexed", shard_id, imap.size)
     return sizes
@@ -51,7 +51,8 @@ def main(argv: Sequence[str] | None = None) -> dict[str, int]:
     p.add_argument("--feature-shard-configurations", action="append", required=True)
     p.add_argument("--input-format", default="avro", choices=["avro", "libsvm"])
     p.add_argument("--index-store-format", default="plain", choices=["plain", "offheap"],
-                   help="offheap (partitioned native stores) is not ported")
+                   help="offheap = partitioned native mmap stores (the reference's "
+                        "PalDB layout)")
     p.add_argument("--num-partitions", type=int, default=1)
     args = p.parse_args(argv)
     shards = dict(parse_feature_shard_config(s) for s in args.feature_shard_configurations)

@@ -55,7 +55,7 @@ logger = logging.getLogger(__name__)
 
 def _check_ported(*, distributed, partitioned_io, telemetry_dir, trace_dir) -> None:
     left_out = (
-        (distributed, "--distributed/--mesh (mesh-sharded scoring)", 10),
+        (distributed, "--distributed/--mesh (mesh-sharded scoring)", "10, step 2 (the mesh)"),
         (partitioned_io, "--partitioned-io (per-rank score shards)", 15),
         (bool(telemetry_dir), "--telemetry-dir (run journal)", 19),
         (bool(trace_dir), "--trace-dir (span tracing)", 19),

@@ -132,7 +132,7 @@ class GameTrainingParams:
         port lacks, before any data is read."""
         left_out = (
             (self.distributed,
-             "--distributed/--mesh (the mesh path, GameTrainProgram)", 10),
+             "--distributed/--mesh (the mesh path)", "10, step 2 (the mesh)"),
             (self.partitioned_io, "--partitioned-io (multi-process ingestion)", 15),
             (self.streaming_chunks > 0 or self.duhl_working_set > 0,
              "--streaming-chunks and the DuHL schedule (out-of-core GAME)", 16),
@@ -294,9 +294,11 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dic
                 compact_random_effect_threshold=params.compact_random_effect_threshold,
                 device=device)
 
-    # index maps beside the models, so scoring is self-contained
+    # plain index maps beside the models, so scoring is self-contained;
+    # off-heap stores stay where they are (scoring takes --index-maps-dir)
     for shard_id, imap in train.index_maps.items():
-        imap.save(os.path.join(out, "index-maps"), shard_id)
+        if isinstance(imap, IndexMap):
+            imap.save(os.path.join(out, "index-maps"), shard_id)
 
     def make_estimator(reg_weights) -> GameEstimator:
         return GameEstimator(
@@ -391,7 +393,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="not ported beyond NONE (item 18)")
     p.add_argument("--hyperparameter-prior-json", help="not ported (item 18)")
     p.add_argument("--input-format", default="avro", choices=["avro", "libsvm"])
-    p.add_argument("--index-maps-dir", help="reuse plain .keys index stores")
+    p.add_argument("--index-maps-dir",
+                   help="reuse index stores built by the feature indexing driver (plain "
+                        ".keys or off-heap .photonix)")
     p.add_argument("--override-output", action="store_true")
     p.add_argument("--checkpoint-dir", help="not ported (item 16)")
     p.add_argument("--profile-dir", help="not ported (item 19)")

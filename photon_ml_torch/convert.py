@@ -8,6 +8,8 @@ their fields. Every converter takes ``device=`` with the port's policy
 
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import numpy as np
 import torch
 
@@ -20,6 +22,7 @@ from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffec
 from photon_ml_torch.models.glm import GeneralizedLinearModel
 from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_torch.ops.normalization import NormalizationContext
+from photon_ml_torch.parallel.distributed import GameTrainState
 from photon_ml_torch.projector.projectors import ProjectorType, RandomProjectionMatrix
 from photon_ml_torch.types import TaskType
 
@@ -209,3 +212,31 @@ def game_model_to_numpy(model: GameModel) -> dict:
         else:
             raise TypeError(f"coordinate '{cid}': cannot convert {type(m).__name__}")
     return out
+
+
+#: the tensor groups of a GameTrainState, each a name -> array mapping
+_STATE_GROUPS = ("re_tables", "mf_rows", "mf_cols", "extra_fe")
+
+
+def train_state_from_numpy(state, *, device=None) -> GameTrainState:
+    """The fused program's state (``parallel.distributed.GameTrainState``)
+    from ``fe_coefficients`` and the name -> array groups ``re_tables``,
+    ``mf_rows``, ``mf_cols``, ``extra_fe``: a mapping with those keys or any
+    object with those attributes (a JAX package GameTrainState), each array
+    taken through ``np.asarray``."""
+    device = resolve_device(device)
+
+    def field(name):
+        return state[name] if isinstance(state, Mapping) else getattr(state, name)
+
+    return GameTrainState(
+        fe_coefficients=_opt_tensor(field("fe_coefficients"), device),
+        **{g: {k: _opt_tensor(v, device) for k, v in (field(g) or {}).items()}
+           for g in _STATE_GROUPS})
+
+
+def train_state_to_numpy(state: GameTrainState) -> dict:
+    """The inverse of :func:`train_state_from_numpy`: a dict of numpy arrays."""
+    return {"fe_coefficients": state.fe_coefficients.detach().cpu().numpy(),
+            **{g: {k: v.detach().cpu().numpy() for k, v in getattr(state, g).items()}
+               for g in _STATE_GROUPS}}

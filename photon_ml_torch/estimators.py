@@ -119,7 +119,14 @@ class MatrixFactorizationCoordinateConfig:
     seed: int = 0
 
 
-def _not_ported(what: str, item: int):
+CoordinateConfig = (
+    FixedEffectCoordinateConfig
+    | RandomEffectCoordinateConfig
+    | MatrixFactorizationCoordinateConfig
+)
+
+
+def _not_ported(what: str, item: "int | str"):
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
 
 
@@ -156,7 +163,8 @@ class GameEstimator:
     def fit(self, dataset: GameDataset, validation_dataset: GameDataset | None = None,
             initial_model: GameModel | None = None) -> CoordinateDescentResult:
         if self.mesh is not None:
-            raise _not_ported("the mesh path (_fit_distributed, GameTrainProgram)", 10)
+            raise _not_ported("the mesh path (_fit_distributed, shard_inputs)",
+                              "10, step 2 (the mesh)")
         if self.checkpointer is not None:
             raise _not_ported("checkpoints in run_coordinate_descent", 16)
         if self.telemetry is not None:

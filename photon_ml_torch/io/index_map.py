@@ -6,16 +6,17 @@ index/IndexMap.scala, DefaultIndexMap(Loader), and the client's Constants
 Constants.scala:31-42).
 
 The index map is host metadata; it never reaches the device. Persistence is
-a sorted key file + JSON metadata, the format the JAX package writes. Its
-off-heap stores (``.photonix``) and reference PalDB stores are not read by
-the port yet (ROADMAP.md queue A).
+a sorted key file + JSON metadata, the format the JAX package writes; a
+stores directory may also hold partitioned off-heap stores
+(``io/offheap_index_map.py``, ``<shard>.photonix.json``) and the
+reference's PalDB partitions (``io/paldb.py``), which ``load_directory``
+reads too.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import re
 from typing import Iterable, Iterator, Mapping
 
 DELIMITER = ""
@@ -35,10 +36,6 @@ def split_feature_key(key: str) -> tuple[str, str]:
 
 INTERCEPT_KEY = feature_key(INTERCEPT_NAME, INTERCEPT_TERM)
 
-#: file names of the stores the port does not read: the JAX package's
-#: native off-heap stores and the reference's PalDB partitions
-_OFF_HEAP_SUFFIX = ".photonix.json"
-_PALDB_RE = re.compile(r"^paldb-partition-(?P<ns>.+)-(?P<idx>\d+)\.dat$")
 
 
 class IndexMap(Mapping[str, int]):
@@ -95,28 +92,42 @@ class IndexMap(Mapping[str, int]):
             mapping[INTERCEPT_KEY] = len(mapping)
         return cls(mapping)
 
+    @classmethod
+    def from_name_terms(cls, pairs: Iterable[tuple[str, str]], *,
+                        add_intercept: bool = False) -> "IndexMap":
+        """:meth:`from_keys` over (name, term) pairs."""
+        return cls.from_keys((feature_key(n, t) for n, t in pairs), add_intercept=add_intercept)
+
     # Persistence ------------------------------------------------------------
     @staticmethod
     def list_directory(directory: str | os.PathLike) -> set[str]:
         """Shard names present in a stores directory, from filenames alone —
         no store is opened (cheap existence/coverage validation)."""
+        from photon_ml_torch.io.offheap_index_map import META_SUFFIX
+        from photon_ml_torch.io.paldb import PARTITION_RE
+
         shards: set[str] = set()
         for fname in os.listdir(str(directory)):
             if fname.endswith(".keys"):
                 shards.add(fname[: -len(".keys")])
             elif fname.endswith(".identity.json"):
                 shards.add(fname[: -len(".identity.json")])
-            elif fname.endswith(_OFF_HEAP_SUFFIX):
-                shards.add(fname[: -len(_OFF_HEAP_SUFFIX)])
-            elif m := _PALDB_RE.match(fname):
+            elif fname.endswith(META_SUFFIX):
+                shards.add(fname[: -len(META_SUFFIX)])
+            elif m := PARTITION_RE.match(fname):
                 shards.add(m.group("ns"))
         return shards
 
     @staticmethod
     def load_directory(directory: str | os.PathLike) -> dict[str, "IndexMap"]:
-        """Load every index map in a directory: plain ``<shard>.keys`` files
-        and ``<shard>.identity.json`` markers. Off-heap and PalDB stores
-        raise ``NotImplementedError``."""
+        """Load every index map in a directory: plain ``<shard>.keys`` files,
+        ``<shard>.identity.json`` markers, partitioned off-heap stores
+        (``<shard>.photonix.json``, an ``OffHeapIndexMap``) and reference
+        PalDB stores (``paldb-partition-<shard>-<i>.dat``, read into an
+        ``IndexMap``). Returns shard id -> Mapping."""
+        from photon_ml_torch.io.offheap_index_map import META_SUFFIX, OffHeapIndexMap
+        from photon_ml_torch.io.paldb import PARTITION_RE, load_paldb_index_map
+
         maps: dict[str, IndexMap] = {}
         directory = str(directory)
         for fname in sorted(os.listdir(directory)):
@@ -132,11 +143,14 @@ class IndexMap(Mapping[str, int]):
                 shard = fname[: -len(".keys")]
                 if shard not in maps:
                     maps[shard] = IndexMap.load(directory, shard)
-            elif fname.endswith(_OFF_HEAP_SUFFIX) or _PALDB_RE.match(fname):
-                raise NotImplementedError(
-                    f"{os.path.join(directory, fname)}: off-heap (.photonix) and "
-                    "PalDB index stores are not read by the port yet (ROADMAP.md "
-                    "queue A); save the maps as plain .keys files")
+            elif fname.endswith(META_SUFFIX):
+                shard = fname[: -len(META_SUFFIX)]
+                if shard not in maps:
+                    maps[shard] = OffHeapIndexMap(directory, shard)
+            elif m := PARTITION_RE.match(fname):
+                shard = m.group("ns")
+                if shard not in maps:
+                    maps[shard] = load_paldb_index_map(directory, shard)
         return maps
 
     def save(self, directory: str | os.PathLike, name: str = "index") -> str:

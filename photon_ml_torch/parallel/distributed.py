@@ -1,0 +1,1165 @@
+"""The fused GAME training program: one call is one whole block-coordinate-
+descent sweep, on one device.
+
+Counterpart of ``photon_ml_tpu/parallel/distributed.py`` with ``mesh=None``;
+reference photon-api algorithm/FixedEffectCoordinate.scala:91-165,
+algorithm/RandomEffectCoordinate.scala:104-153 and photon-lib
+algorithm/CoordinateDescent.scala:198-255 (the residual choreography). One
+``step``:
+
+    FE solve -> its score -> extra FE solves -> per-RE-type lane-batched
+    entity solves -> MF alternations -> the training loss
+
+in the configured ``update_order``, each coordinate solving against the
+latest scores of all the others (Gauss-Seidel). The state stays in the
+solves' space (normalized coefficients) between sweeps, and the training
+loss is computed on the device; no host evaluator runs between coordinates.
+Unlike ``GameEstimator.fit`` (``algorithm/coordinate_descent.py``) there is
+no model object per coordinate inside the sweep: the state is plain tensors
+(:class:`GameTrainState`) and the data and buckets are plain dicts of
+tensors, built once by :meth:`GameTrainProgram.prepare_inputs`.
+
+Kernels. ``use_kernel_fe`` is the evaluation path of the fixed effects'
+solves (the JAX program's ``use_pallas_fe``): None (the default) runs the
+fused GLM kernel B1 (``ops/fused_glm.py``) on every evaluation of a dense
+fixed effect on a CUDA block, and the gather kernel (``ops/sparse_gather.py``)
+on a sparse one; False takes the closed forms. The packed-aux kernel of
+``ops/packed_glm.py`` is the coordinate-descent path's
+(``FixedEffectCoordinate``), not this program's. Compact random effects on a
+sparse shard score through the gather kernel over their flattened table
+(``models/game.CompactEntries``).
+
+The mesh (``shard_inputs``, multi-process placement), checkpoints and the
+lane scheduler are not ported yet: ROADMAP.md items 10 (step 2), 16 and 18.
+Nothing is compiled: each coordinate's solve runs its lane loops as
+``GameEstimator.fit`` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from photon_ml_torch.algorithm.coordinate_descent import DivergenceError
+from photon_ml_torch.algorithm.coordinates import (
+    _with_scratch_column,
+    bucket_variances,
+    bucket_variances_indexmap,
+    bucket_variances_random,
+    random_variance_mode,
+    solve_entity_bucket,
+    solve_entity_bucket_indexmap,
+    solve_entity_bucket_random,
+)
+from photon_ml_torch.algorithm.mf_coordinate import MFDataset, solve_mf_side_bucket
+from photon_ml_torch.data.batch import LabeledPointBatch, device_tensor, solve_dtype_of
+from photon_ml_torch.data.game_data import GameDataset, RandomEffectDataset
+from photon_ml_torch.data.sparse_batch import SparseShard, feature_product
+from photon_ml_torch.estimators import _not_ported
+from photon_ml_torch.models.coefficients import Coefficients
+from photon_ml_torch.models.game import (
+    CompactEntries,
+    FixedEffectModel,
+    GameModel,
+    RandomEffectModel,
+    compact_entry_positions,
+    match_active_positions,
+    score_random_effect,
+)
+from photon_ml_torch.models.glm import GeneralizedLinearModel
+from photon_ml_torch.models.matrix_factorization import (
+    MatrixFactorizationModel,
+    init_factors,
+    score_matrix_factorization,
+)
+from photon_ml_torch.ops.losses import loss_for_task
+from photon_ml_torch.ops.normalization import NormalizationContext, host_factors
+from photon_ml_torch.ops.objective import GLMObjective
+from photon_ml_torch.ops.sparse_objective import SparseGLMObjective
+from photon_ml_torch.ops.variance import (
+    coefficient_variances,
+    resolve_variance_mode,
+    validate_variance_mode,
+)
+from photon_ml_torch.optim.optimizer import OptimizerConfig, resolve_auto_optimizer, solve
+from photon_ml_torch.projector.projectors import ProjectorType
+from photon_ml_torch.types import TaskType
+
+#: the ROADMAP item of the mesh path, named by its refusals
+_MESH_ITEM = "10, step 2 (the mesh)"
+
+
+@dataclasses.dataclass
+class GameTrainState:
+    """The model state of one training step, as tensors on one device.
+
+    fe_coefficients: [d_fe], the primary fixed effect in normalized space.
+    re_tables: RE type -> [num_entities, d_re] coefficient table ([E, K]
+        over each entity's active columns for a compact coordinate).
+    mf_rows / mf_cols: MF coordinate name -> [num_entities, k] factors.
+    extra_fe: feature shard id -> [d] vector of each additional (dense)
+        fixed effect, in its normalized space.
+    """
+
+    fe_coefficients: torch.Tensor
+    re_tables: dict
+    mf_rows: dict = dataclasses.field(default_factory=dict)
+    mf_cols: dict = dataclasses.field(default_factory=dict)
+    extra_fe: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomEffectStepSpec:
+    """One RE coordinate of the step. ``projector`` must match the
+    RandomEffectDataset's: INDEX_MAP solves each entity over its observed
+    columns through the scratch-column gather/scatter, RANDOM in the sketch
+    and back-projects; the table is [E, dim] in original space either way."""
+
+    re_type: str
+    feature_shard_id: str
+    optimizer: OptimizerConfig
+    l2_weight: float = 0.0
+    projector: ProjectorType = ProjectorType.IDENTITY
+    #: intercept column of the shard: required when the coordinate's
+    #: normalization has shifts (STANDARDIZATION), whose margin shift the
+    #: intercept absorbs in model space
+    intercept_index: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedEffectStepSpec:
+    """The fixed-effect coordinate. ``down_sampling_rate`` < 1 trains the
+    solve on down-sampled weights (reference
+    DistributedOptimizationProblem.runWithSampling:145-160): ``train_distributed``
+    draws a per-sweep multiplier with the coordinate-descent path's
+    splitmix64 sampler; scoring and the training loss cover every sample."""
+
+    feature_shard_id: str
+    optimizer: OptimizerConfig
+    l2_weight: float = 0.0
+    down_sampling_rate: float = 1.0
+    #: intercept column of an additional (extra) fixed effect whose
+    #: normalization has shifts; the primary's rides the ``intercept_index``
+    #: argument of state_to_game_model / game_model_to_state
+    intercept_index: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MatrixFactorizationStepSpec:
+    """One MF coordinate of the step (``algorithm/mf_coordinate.py``)."""
+
+    name: str
+    row_effect_type: str
+    col_effect_type: str
+    num_latent_factors: int
+    optimizer: OptimizerConfig
+    l2_weight: float = 0.0
+    num_alternations: int = 1
+    seed: int = 0
+
+
+def _data_pytree(dataset: GameDataset, re_specs: Sequence[RandomEffectStepSpec], fe_shard: str,
+                 mf_specs: Sequence[MatrixFactorizationStepSpec] = (),
+                 extra_fe_shards: Sequence[str] = ()) -> dict:
+    """The sample-axis inputs of the step: labels, offsets, weights, the
+    dense feature blocks, the entity indices, and a sparse primary fixed
+    effect's batch (zero offsets: its margins are the pure product)."""
+    shards = {fe_shard} | {s.feature_shard_id for s in re_specs} | set(extra_fe_shards)
+    id_types = {s.re_type for s in re_specs}
+    for m in mf_specs:
+        id_types |= {m.row_effect_type, m.col_effect_type}
+    re_shards = {s.feature_shard_id for s in re_specs}
+    for k in shards:
+        if isinstance(dataset.feature_shards[k], SparseShard) and k != fe_shard:
+            # sparse RE shards ride as compact entry mappings; the extra-FE
+            # solves read dense blocks only
+            if k in extra_fe_shards or k not in re_shards:
+                raise ValueError(
+                    f"feature shard '{k}' is sparse (giant-d) but is not "
+                    "the PRIMARY fixed-effect shard or a random-effect "
+                    "shard (additional fixed effects are dense-only; make "
+                    "the sparse one the primary)"
+                )
+    data = {
+        "labels": dataset.labels,
+        "offsets": dataset.offsets,
+        "weights": dataset.weights,
+        "features": {k: dataset.feature_shards[k] for k in sorted(shards)
+                     if not isinstance(dataset.feature_shards[k], SparseShard)},
+        "entity_idx": {t: dataset.entity_idx[t] for t in sorted(id_types)},
+    }
+    if isinstance(dataset.feature_shards[fe_shard], SparseShard):
+        base = dataset.fixed_effect_batch(fe_shard)
+        data["fe_sparse_batch"] = base.with_offsets(torch.zeros_like(base.offsets))
+    return data
+
+
+def _buckets_pytree(re_datasets: Mapping[str, RandomEffectDataset],
+                    re_specs: Sequence[RandomEffectStepSpec] = (),
+                    normalized_re_types: "set[str]" = frozenset()) -> dict:
+    """RE type -> list of bucket dicts, and ``__projections__`` (RE type ->
+    the [d, k] matrix) for RANDOM coordinates; checks each dataset's
+    projector and pre-normalization against the specs."""
+    spec_projector = {s.re_type: s.projector for s in re_specs}
+    for k, ds in re_datasets.items():
+        if (k in normalized_re_types
+                and ds.projector_type in (ProjectorType.INDEX_MAP, ProjectorType.RANDOM)
+                and not ds.pre_normalized):
+            raise ValueError(
+                f"random-effect coordinate '{k}': projected coordinates "
+                "with normalization require the RandomEffectDataset to be "
+                "built with the same normalization "
+                "(build_random_effect_dataset(normalization=...))"
+            )
+        if ds.pre_normalized and k not in normalized_re_types:
+            raise ValueError(
+                f"random-effect coordinate '{k}': the RandomEffectDataset "
+                "was built pre-normalized but the program spec carries no "
+                "normalization context for it — tables would leave the "
+                "step in normalized space unconverted"
+            )
+        expected = spec_projector.get(k, ProjectorType.IDENTITY)
+        if ds.projector_type != expected:
+            raise ValueError(
+                f"random-effect dataset '{k}' uses projector "
+                f"{ds.projector_type.name} but the step spec declares "
+                f"{expected.name} — the step's solve/scatter logic is "
+                "chosen per projector, so they must match"
+            )
+
+    def bucket_dict(b, ds) -> dict:
+        out = {"features": b.features, "labels": b.labels, "weights": b.weights,
+               "sample_rows": b.sample_rows, "entity_rows": b.entity_rows}
+        if ds.projector_type == ProjectorType.INDEX_MAP:
+            out["col_index"] = b.col_index
+        return out
+
+    out: dict = {k: [bucket_dict(b, ds) for b in ds.buckets] for k, ds in re_datasets.items()}
+    projections = {k: ds.projection.matrix for k, ds in re_datasets.items()
+                   if ds.projector_type == ProjectorType.RANDOM}
+    if projections:
+        out["__projections__"] = projections
+    return out
+
+
+class GameTrainProgram:
+    """A full-GAME training step bound to static specs, on one device.
+
+    Build once per (task, coordinate specs), prepare the inputs once, then
+    call :meth:`step` once a sweep.
+    """
+
+    def __init__(
+        self,
+        task: TaskType,
+        fe: FixedEffectStepSpec,
+        re_specs: Sequence[RandomEffectStepSpec] = (),
+        *,
+        mf_specs: Sequence[MatrixFactorizationStepSpec] = (),
+        extra_fes: Sequence[FixedEffectStepSpec] = (),
+        update_order: Sequence[str] | None = None,
+        normalization: NormalizationContext | None = None,
+        re_normalizations: Mapping[str, NormalizationContext] | None = None,
+        extra_fe_normalizations: Mapping[str, NormalizationContext] | None = None,
+        use_kernel_fe: bool | None = None,
+        mesh=None,
+        fe_feature_sharded: bool = False,
+    ):
+        if mesh is not None or fe_feature_sharded:
+            raise _not_ported("GameTrainProgram over a mesh (mesh, fe_feature_sharded)",
+                              _MESH_ITEM)
+        self.task = task
+        loss = loss_for_task(task)
+        self._loss = loss
+
+        # AUTO resolves once, here: FE coordinates take LBFGS; RE and MF
+        # coordinates (small dense lane problems) take NEWTON when the loss
+        # allows it. Explicit configs pass through untouched.
+        def resolved(spec, small_dense):
+            opt = resolve_auto_optimizer(spec.optimizer, loss=loss, small_dense=small_dense)
+            return spec if opt is spec.optimizer else dataclasses.replace(spec, optimizer=opt)
+
+        self.fe = fe = resolved(fe, False)
+        self.re_specs = tuple(resolved(s, True) for s in re_specs)
+        self.mf_specs = tuple(resolved(s, True) for s in mf_specs)
+        self.extra_fes = tuple(resolved(s, False) for s in extra_fes)
+        # one namespace: residual keys and the GameModel coordinate ids of
+        # state_to_game_model (each FE coordinate named after its shard)
+        names = ([fe.feature_shard_id] + [s.feature_shard_id for s in self.extra_fes]
+                 + [s.re_type for s in self.re_specs] + [m.name for m in self.mf_specs])
+        dupes = {n for n in names if names.count(n) > 1}
+        if dupes:
+            raise ValueError(
+                f"coordinate names must be unique across the FE feature "
+                f"shards, RE types, and MF names (duplicates: {sorted(dupes)})"
+            )
+        # the configured order is semantic (CoordinateDescent.scala:198-255);
+        # default: primary FE, extra FEs, REs, MFs
+        if update_order is None:
+            self.update_order: tuple[str, ...] = tuple(names)
+        else:
+            if sorted(update_order) != sorted(names):
+                raise ValueError(
+                    f"update_order must be a permutation of the coordinate "
+                    f"names {sorted(names)}; got {list(update_order)}"
+                )
+            self.update_order = tuple(update_order)
+        self._kind = {fe.feature_shard_id: "fe"}
+        self._kind.update({s.feature_shard_id: "extra_fe" for s in self.extra_fes})
+        self._kind.update({s.re_type: "re" for s in self.re_specs})
+        self._kind.update({m.name: "mf" for m in self.mf_specs})
+        self._extra_fe_by_name = {s.feature_shard_id: s for s in self.extra_fes}
+        self._re_by_name = {s.re_type: s for s in self.re_specs}
+        self._mf_by_name = {m.name: m for m in self.mf_specs}
+        reserved = {"__mf__", "__projections__"} & set(names)
+        if reserved:
+            raise ValueError(
+                f"{sorted(reserved)} are reserved (internal bucket-group "
+                "keys); rename the coordinate"
+            )
+        self.normalization = normalization
+        self._fe_objective = GLMObjective(loss, l2_weight=fe.l2_weight,
+                                          normalization=normalization, use_kernel=use_kernel_fe)
+        self._fe_sparse_objective = SparseGLMObjective(
+            loss, l2_weight=fe.l2_weight, normalization=normalization, use_kernel=use_kernel_fe)
+        extra_fe_normalizations = dict(extra_fe_normalizations or {})
+        for s in self.extra_fes:
+            ctx = extra_fe_normalizations.get(s.feature_shard_id)
+            if ctx is not None and ctx.shifts is not None and s.intercept_index is None:
+                raise ValueError(
+                    f"fixed-effect coordinate '{s.feature_shard_id}': "
+                    "normalization with shifts (STANDARDIZATION) requires "
+                    "the spec's intercept_index"
+                )
+        self._extra_fe_objectives = {
+            s.feature_shard_id: GLMObjective(
+                loss, l2_weight=s.l2_weight,
+                normalization=extra_fe_normalizations.get(s.feature_shard_id),
+                use_kernel=use_kernel_fe)
+            for s in self.extra_fes
+        }
+        # RE normalization: factors scale the effective coefficients, shifts
+        # subtract each entity's margin-shift scalar in scoring and are
+        # absorbed into the shard's intercept on model-space conversion
+        re_normalizations = dict(re_normalizations or {})
+        for s in self.re_specs:
+            ctx = re_normalizations.get(s.re_type)
+            if ctx is not None and ctx.shifts is not None and s.intercept_index is None:
+                raise ValueError(
+                    f"random-effect coordinate '{s.re_type}': normalization "
+                    "with shifts (STANDARDIZATION) requires the spec's "
+                    "intercept_index (the intercept absorbs each entity's "
+                    "margin shift in model space)"
+                )
+        self._re_objectives = {
+            s.re_type: GLMObjective(loss, l2_weight=s.l2_weight,
+                                    normalization=re_normalizations.get(s.re_type),
+                                    use_kernel=False)
+            for s in self.re_specs
+        }
+        # projected (INDEX_MAP/RANDOM) + normalization: the entity blocks
+        # arrive pre-normalized, so their solves use a plain objective;
+        # scoring and the table conversions keep the context
+        self._re_solve_objectives = {
+            s.re_type: (
+                GLMObjective(loss, l2_weight=s.l2_weight, use_kernel=False)
+                if s.projector in (ProjectorType.INDEX_MAP, ProjectorType.RANDOM)
+                and re_normalizations.get(s.re_type) is not None
+                else self._re_objectives[s.re_type])
+            for s in self.re_specs
+        }
+        self._mf_objectives = {m.name: GLMObjective(loss, l2_weight=m.l2_weight, use_kernel=False)
+                               for m in self.mf_specs}
+
+    def fe_coefficients_model_space(self, state: GameTrainState,
+                                    intercept_index: int | None = None) -> torch.Tensor:
+        """The state's normalized-space FE vector in original feature space."""
+        return self._fe_objective.normalization.to_model_space(state.fe_coefficients,
+                                                               intercept_index)
+
+    # -- state / input preparation ------------------------------------------
+
+    def init_state(self, dataset: GameDataset, re_datasets: Mapping[str, RandomEffectDataset],
+                   mf_datasets: Mapping[str, MFDataset] | None = None,
+                   dtype: torch.dtype | None = None) -> GameTrainState:
+        """Zero coefficients, and MF factors from ``init_factors`` with the
+        rows of entities no bucket trains zeroed (their random draws would
+        leak noise into their scores)."""
+        device = dataset.device
+        shard = dataset.feature_shards[self.fe.feature_shard_id]
+        dtype = solve_dtype_of(dtype or shard.dtype)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        mf_rows, mf_cols = {}, {}
+        for m in self.mf_specs:
+            mf = (mf_datasets or {})[m.name]
+            row, col = init_factors(mf.num_row_entities, mf.num_col_entities,
+                                    m.num_latent_factors, seed=m.seed, dtype=dtype, device=device)
+            row_mask, col_mask = (torch.from_numpy(mask).to(device).unsqueeze(1)
+                                  for mask in mf.trained_masks())
+            mf_rows[m.name] = torch.where(row_mask, row, torch.zeros_like(row))
+            mf_cols[m.name] = torch.where(col_mask, col, torch.zeros_like(col))
+        return GameTrainState(
+            fe_coefficients=zeros(shard.shape[1]),
+            re_tables={s.re_type: zeros(re_datasets[s.re_type].num_entities,
+                                        re_datasets[s.re_type].table_width)
+                       for s in self.re_specs},
+            mf_rows=mf_rows, mf_cols=mf_cols,
+            extra_fe={s.feature_shard_id: zeros(dataset.feature_shards[s.feature_shard_id].shape[1])
+                      for s in self.extra_fes},
+        )
+
+    def _attach_re_sparse(self, data: dict, dataset: GameDataset,
+                          re_datasets: Mapping[str, RandomEffectDataset]) -> dict:
+        """Compact (sparse-shard) RE coordinates: each entry's (entity, table
+        position, row, value) against the TRAINING active-column lists, for
+        O(nnz) scoring inside the step (``data["re_sparse"]``)."""
+        for s in self.re_specs:
+            shard = dataset.feature_shards[s.feature_shard_id]
+            if not isinstance(shard, SparseShard):
+                continue
+            ds = re_datasets.get(s.re_type) if re_datasets else None
+            if ds is None or ds.active_cols is None:
+                raise ValueError(
+                    f"random-effect coordinate '{s.re_type}' uses a sparse "
+                    "feature shard; its RandomEffectDataset (with "
+                    "active_cols) is required to prepare inputs"
+                )
+            ent, pos, rows, vals = compact_entry_positions(
+                shard, dataset.host_array(f"entity_idx/{s.re_type}"), ds.active_cols)
+            norm = self._re_objectives[s.re_type].normalization
+            if norm.factors is not None:
+                # the table lives in normalized space, so the entries take
+                # x' = x·factor[col] (SCALE only), in coalesced order
+                _, cols_s, _ = shard.coalesced()
+                vals = vals * host_factors(norm).astype(vals.dtype)[np.asarray(cols_s)]
+            device = dataset.device
+            data.setdefault("re_sparse", {})[s.re_type] = CompactEntries(
+                key=(device, None, None),
+                ent=device_tensor(ent, torch.int32, device),
+                pos=device_tensor(pos, torch.int32, device),
+                rows=device_tensor(rows, torch.int32, device),
+                vals=device_tensor(vals, shard.dtype, device),
+                num_samples=dataset.num_samples)
+        return data
+
+    def prepare_inputs(self, dataset: GameDataset,
+                       re_datasets: Mapping[str, RandomEffectDataset],
+                       mf_datasets: Mapping[str, MFDataset] | None = None):
+        """(data, buckets) of :meth:`step`."""
+        data = _data_pytree(dataset, self.re_specs, self.fe.feature_shard_id, self.mf_specs,
+                            extra_fe_shards=tuple(self._extra_fe_by_name))
+        data = self._attach_re_sparse(data, dataset, re_datasets)
+        buckets = _buckets_pytree(
+            {s.re_type: re_datasets[s.re_type] for s in self.re_specs}, self.re_specs,
+            normalized_re_types={k for k in self._re_solve_objectives
+                                 if self._re_solve_objectives[k] is not self._re_objectives[k]})
+        buckets["__mf__"] = {
+            m.name: {
+                side: [{"labels": b.labels, "weights": b.weights, "sample_rows": b.sample_rows,
+                        "entity_rows": b.entity_rows} for b in side_buckets]
+                for side, side_buckets in (("row", (mf_datasets or {})[m.name].row_buckets),
+                                           ("col", (mf_datasets or {})[m.name].col_buckets))
+            }
+            for m in self.mf_specs
+        }
+        return data, buckets
+
+    # -- the fused step ------------------------------------------------------
+
+    def step(self, data, buckets, state: GameTrainState):
+        """One full CD sweep. Returns (new_state, training_loss), the loss a
+        0-dim tensor on the device."""
+        labels, weights = data["labels"], data["weights"]
+        base_offsets = data["offsets"]
+        # `scores` holds each coordinate's score at its LATEST coefficients,
+        # so a coordinate solved later in the sweep sees the residuals of
+        # the ones already updated
+        scores = self._coordinate_scores(data, state)
+
+        def offsets_excluding(skip=None):
+            return self._sum_scores(base_offsets, scores, skip)
+
+        fe_w = state.fe_coefficients
+        extra_fe = dict(state.extra_fe)
+        tables = dict(state.re_tables)
+        mf_rows = dict(state.mf_rows)
+        mf_cols = dict(state.mf_cols)
+        for name in self.update_order:
+            kind = self._kind[name]
+            if kind == "fe":
+                fe_w = self._solve_primary_fe(data, offsets_excluding(name), weights, fe_w)
+                scores[name] = self._fe_margin_score(data, fe_w)
+            elif kind == "extra_fe":
+                extra_fe[name] = self._solve_extra_fe(data, name, offsets_excluding(name),
+                                                      labels, weights, extra_fe[name])
+                scores[name] = self._extra_fe_margin(data, name, extra_fe[name])
+            elif kind == "re":
+                tables[name] = self._solve_re(data, buckets, name, offsets_excluding(name),
+                                              tables[name])
+                scores[name] = self._re_coordinate_score(
+                    data, name, tables[name], self._re_by_name[name].feature_shard_id)
+            else:  # mf
+                mf_rows[name], mf_cols[name], scores[name] = self._solve_mf(
+                    data, buckets, name, offsets_excluding(name), mf_rows[name], mf_cols[name])
+        train_loss = self._weighted_loss(labels, weights, offsets_excluding())
+        new_state = GameTrainState(fe_coefficients=fe_w, re_tables=tables, mf_rows=mf_rows,
+                                   mf_cols=mf_cols, extra_fe=extra_fe)
+        return new_state, train_loss
+
+    def _weighted_loss(self, labels, weights, total_margin) -> torch.Tensor:
+        losses = self._loss.loss(total_margin, labels)
+        wsum = torch.clamp(torch.sum(weights), min=1.0)
+        return torch.sum(weights * losses) / wsum
+
+    @staticmethod
+    def _sum_scores(base, scores, skip=None):
+        """base + every coordinate score except ``skip``: the residual
+        offsets of the CD recursion."""
+        total = base
+        for k, v in scores.items():
+            if k != skip:
+                total = total + v
+        return total
+
+    # -- whole-model scoring (validation / best-state tracking) --------------
+
+    def prepare_scoring_inputs(self, dataset: GameDataset,
+                               re_datasets: Mapping[str, RandomEffectDataset] | None = None
+                               ) -> dict:
+        """Data for :meth:`score` over any dataset (a validation split); no
+        buckets. Compact RE coordinates need ``re_datasets`` (the TRAINING
+        datasets: their active-column lists define the tables' layout)."""
+        data = _data_pytree(dataset, self.re_specs, self.fe.feature_shard_id, self.mf_specs,
+                            extra_fe_shards=tuple(self._extra_fe_by_name))
+        return self._attach_re_sparse(data, dataset, re_datasets or {})
+
+    def score(self, data, state: GameTrainState) -> torch.Tensor:
+        """[n] total scores (margins including the data offsets) at ``state``
+        (reference GameModel.scoreAndValidate, CoordinateDescent.scala:291-356)."""
+        total = data["offsets"]
+        for v in self._coordinate_scores(data, state).values():
+            total = total + v
+        return total
+
+    # -- scoring helpers shared by the step and the variances ----------------
+
+    def _re_coordinate_score(self, data, k: str, table: torch.Tensor,
+                             shard_id: str) -> torch.Tensor:
+        """An RE coordinate's scores from its (normalized-space) table: the
+        effective coefficients, less each entity's margin shift when the
+        coordinate is standardized; a compact table through its entries
+        (both the table and the entry values in normalized space, so no
+        shift term)."""
+        entries = data.get("re_sparse", {}).get(k)
+        if entries is not None:
+            return entries.score(table)
+        norm = self._re_objectives[k].normalization
+        eff = norm.effective_coefficients(table)
+        idx = data["entity_idx"][k]
+        scores = score_random_effect(eff, data["features"][shard_id], idx)
+        if norm.shifts is not None and eff.shape[0]:
+            ent_shift = eff @ norm.shifts
+            safe = torch.clamp(idx.long(), min=0)
+            scores = scores - torch.where(idx >= 0, ent_shift[safe], torch.zeros_like(scores))
+        return scores
+
+    def _fe_margin_score(self, data, fe_w: torch.Tensor) -> torch.Tensor:
+        """The primary FE's pure margin (no offsets) from normalized-space
+        coefficients, dense or sparse."""
+        fe_sparse = data.get("fe_sparse_batch")
+        if fe_sparse is not None:
+            objective = self._fe_sparse_objective
+            eff = objective.normalization.effective_coefficients(fe_w)
+            return feature_product(fe_sparse, eff, use_kernel=objective.use_kernel) \
+                - objective.normalization.margin_shift(eff)
+        norm = self._fe_objective.normalization
+        eff = norm.effective_coefficients(fe_w)
+        x = data["features"][self.fe.feature_shard_id]
+        return x.to(eff.dtype) @ eff - norm.margin_shift(eff)
+
+    def _extra_fe_margin(self, data, shard_id: str, w: torch.Tensor) -> torch.Tensor:
+        """Pure margin of an additional (dense) FE coordinate."""
+        norm = self._extra_fe_objectives[shard_id].normalization
+        eff = norm.effective_coefficients(w)
+        return data["features"][shard_id].to(eff.dtype) @ eff - norm.margin_shift(eff)
+
+    def _coordinate_scores(self, data, state: GameTrainState) -> dict:
+        """name -> score of every coordinate at the state, in canonical
+        order (FEs, REs, MFs), so residual sums add in a fixed order."""
+        scores = {self.fe.feature_shard_id: self._fe_margin_score(data, state.fe_coefficients)}
+        for s in self.extra_fes:
+            scores[s.feature_shard_id] = self._extra_fe_margin(
+                data, s.feature_shard_id, state.extra_fe[s.feature_shard_id])
+        for s in self.re_specs:
+            scores[s.re_type] = self._re_coordinate_score(
+                data, s.re_type, state.re_tables[s.re_type], s.feature_shard_id)
+        for m in self.mf_specs:
+            scores[m.name] = score_matrix_factorization(
+                state.mf_rows[m.name], state.mf_cols[m.name],
+                data["entity_idx"][m.row_effect_type], data["entity_idx"][m.col_effect_type])
+        return scores
+
+    # -- the coordinates' solves ---------------------------------------------
+
+    def _primary_fe_batch(self, data, offsets, weights):
+        """The primary FE's batch at ``offsets`` and ``weights``, with its
+        objective."""
+        fe_sparse = data.get("fe_sparse_batch")
+        if fe_sparse is not None:
+            return fe_sparse.replace(offsets=offsets, weights=weights), self._fe_sparse_objective
+        return LabeledPointBatch(features=data["features"][self.fe.feature_shard_id],
+                                 labels=data["labels"], offsets=offsets,
+                                 weights=weights), self._fe_objective
+
+    def _solve_primary_fe(self, data, fe_offsets, weights, fe_w0):
+        """The primary FE solve. Down-sampling multiplies only this solve's
+        weights (0 = dropped, 1/rate = kept negative). The result stays in
+        normalized space."""
+        mult = data.get("fe_weight_multiplier")
+        batch, objective = self._primary_fe_batch(
+            data, fe_offsets, weights if mult is None else weights * mult)
+        return solve(self.fe.optimizer, objective.bind(batch), fe_w0).coefficients
+
+    def _solve_extra_fe(self, data, name, full_offsets, labels, weights, w0):
+        """An additional (dense) FE coordinate, with the primary's residual
+        and down-sampling contract."""
+        mult = data.get("extra_fe_weight_multipliers", {}).get(name)
+        batch = LabeledPointBatch(features=data["features"][name], labels=labels,
+                                  offsets=full_offsets,
+                                  weights=weights if mult is None else weights * mult)
+        spec = self._extra_fe_by_name[name]
+        return solve(spec.optimizer, self._extra_fe_objectives[name].bind(batch),
+                     w0).coefficients
+
+    def _solve_re(self, data, buckets, k, full_offsets, table):
+        """One RE coordinate: a lane-batched solve per bucket."""
+        spec = self._re_by_name[k]
+        objective = self._re_solve_objectives[k]
+        opt = spec.optimizer
+        if spec.projector == ProjectorType.INDEX_MAP:
+            # scratch-column solve in each entity's observed columns
+            # (IndexMapProjectorRDD.scala:218-257)
+            table_ext = _with_scratch_column(table)
+            for b in buckets[k]:
+                table_ext = solve_entity_bucket_indexmap(
+                    objective, opt, b["features"], b["labels"], b["weights"], b["sample_rows"],
+                    b["entity_rows"], b["col_index"], full_offsets, table_ext)
+            return table_ext[:, :-1]
+        if spec.projector == ProjectorType.RANDOM:
+            matrix = torch.as_tensor(buckets["__projections__"][k], dtype=table.dtype,
+                                     device=table.device)
+            for b in buckets[k]:
+                table = solve_entity_bucket_random(
+                    objective, opt, b["features"], b["labels"], b["weights"], b["sample_rows"],
+                    b["entity_rows"], matrix, full_offsets, table)
+            return table
+        for b in buckets[k]:
+            table = solve_entity_bucket(objective, opt, b["features"], b["labels"],
+                                        b["weights"], b["sample_rows"], b["entity_rows"],
+                                        full_offsets, table)
+        return table
+
+    def _solve_mf(self, data, buckets, name, full_offsets, rows, cols):
+        """One MF coordinate's alternating half-steps. Returns (rows, cols,
+        score)."""
+        m = self._mf_by_name[name]
+        row_idx = data["entity_idx"][m.row_effect_type]
+        col_idx = data["entity_idx"][m.col_effect_type]
+        objective = self._mf_objectives[name]
+        mf_buckets = buckets["__mf__"][name]
+        for _ in range(m.num_alternations):
+            for b in mf_buckets["row"]:
+                rows, _ = solve_mf_side_bucket(objective, m.optimizer, b["labels"], b["weights"],
+                                               b["entity_rows"], b["sample_rows"], col_idx, cols,
+                                               full_offsets, rows)
+            for b in mf_buckets["col"]:
+                cols, _ = solve_mf_side_bucket(objective, m.optimizer, b["labels"], b["weights"],
+                                               b["entity_rows"], b["sample_rows"], row_idx, rows,
+                                               full_offsets, cols)
+        return rows, cols, score_matrix_factorization(rows, cols, row_idx, col_idx)
+
+
+def compute_state_variances(
+    program: GameTrainProgram,
+    state: GameTrainState,
+    dataset: GameDataset,
+    re_datasets: Mapping[str, RandomEffectDataset] | None = None,
+    *,
+    variance_mode: str = "auto",
+    re_types: "set[str] | None" = None,
+) -> tuple[torch.Tensor, dict, dict]:
+    """Post-hoc coefficient variances of a fused-trained state:
+    (fe_variances, {re_type: [E, d] table}, {extra_fe_shard: [d]}), in
+    original model space, NaN rows for entities no bucket trained.
+
+    Each coordinate's Hessian is evaluated at the state with every other
+    coordinate's score as residual offset (the reference computes them
+    inside each optimization problem at the optimum). ``re_types`` selects
+    the RE coordinates (None = all). INDEX_MAP and compact variances are
+    computed in the solve space and scattered back through the column
+    index; RANDOM ones propagate through the sketch as diag(P H_k⁻¹ Pᵀ).
+    """
+    validate_variance_mode(variance_mode)
+    selected = [s for s in program.re_specs if re_types is None or s.re_type in re_types]
+    if program.re_specs:
+        missing = [s.re_type for s in program.re_specs
+                   if re_datasets is None or s.re_type not in re_datasets]
+        if missing:
+            raise ValueError(
+                "compute_state_variances needs re_datasets entries for the "
+                f"program's random-effect coordinates; missing: {missing}"
+            )
+    data = program.prepare_scoring_inputs(dataset, re_datasets)
+    base_offsets, weights = data["offsets"], data["weights"]
+    scores = program._coordinate_scores(data, state)
+
+    def offsets_excluding(skip=None):
+        return program._sum_scores(base_offsets, scores, skip)
+
+    fe_batch, fe_objective = program._primary_fe_batch(
+        data, offsets_excluding(program.fe.feature_shard_id), weights)
+    fe_variances = fe_objective.normalization.variances_to_model_space(
+        coefficient_variances(fe_objective, state.fe_coefficients, fe_batch, mode=variance_mode))
+    extra_fe_variances: dict = {}
+    for s in program.extra_fes:
+        k = s.feature_shard_id
+        objective = program._extra_fe_objectives[k]
+        batch = LabeledPointBatch(features=data["features"][k], labels=data["labels"],
+                                  offsets=offsets_excluding(k), weights=weights)
+        extra_fe_variances[k] = objective.normalization.variances_to_model_space(
+            coefficient_variances(objective, state.extra_fe[k], batch, mode=variance_mode))
+
+    re_variances: dict = {}
+    for spec in selected:
+        ds = re_datasets[spec.re_type]
+        table = state.re_tables[spec.re_type]
+        full_offsets = offsets_excluding(spec.re_type)
+        max_bucket = max((b.num_entities for b in ds.buckets), default=1)
+        norm = program._re_objectives[spec.re_type].normalization
+        objective = program._re_solve_objectives[spec.re_type]
+        var_table = torch.full_like(table, float("nan"))
+        if spec.projector == ProjectorType.RANDOM:
+            matrix = torch.as_tensor(ds.projection.matrix, dtype=table.dtype, device=table.device)
+            mode = random_variance_mode(variance_mode, ds.dim, matrix.shape[1], max_bucket)
+            for b in ds.buckets:
+                var_table = bucket_variances_random(objective, b, full_offsets, matrix, table,
+                                                    var_table, mode)
+        elif spec.projector == ProjectorType.INDEX_MAP:
+            width = max((int(b.features.shape[2]) for b in ds.buckets), default=1)
+            mode = resolve_variance_mode(variance_mode, width, num_problems=max_bucket)
+            table_ext, var_ext = _with_scratch_column(table), _with_scratch_column(var_table)
+            for b in ds.buckets:
+                var_ext = bucket_variances_indexmap(objective, b, full_offsets, table_ext,
+                                                    var_ext, mode)
+            var_table = var_ext[:, :-1]
+            if ds.is_compact:
+                re_variances[spec.re_type] = norm.variances_to_model_space_compact(
+                    var_table, ds.active_cols_on(table.device))
+                continue
+        else:
+            mode = resolve_variance_mode(variance_mode, ds.dim, num_problems=max_bucket)
+            for b in ds.buckets:
+                var_table = bucket_variances(objective, b, full_offsets, table, var_table, mode)
+        re_variances[spec.re_type] = norm.variances_to_model_space(var_table)
+    return fe_variances, re_variances, extra_fe_variances
+
+
+def state_to_game_model(
+    program: GameTrainProgram,
+    state: GameTrainState,
+    dataset: GameDataset,
+    *,
+    intercept_index: int | None = None,
+    compute_variance: bool = False,
+    variance_mode: str = "auto",
+    re_datasets: Mapping[str, RandomEffectDataset] | None = None,
+    variance_re_types: "set[str] | None" = None,
+) -> GameModel:
+    """A fused-trained state as a ``GameModel`` in original space, for
+    ``io/model_io`` and ``GameTransformer``. The FE coordinate is named after
+    its shard, RE coordinates after their type, MF coordinates after their
+    spec name. ``compute_variance`` attaches :func:`compute_state_variances`."""
+    fe_variances = None
+    re_variances: dict = {}
+    extra_fe_variances: dict = {}
+    if compute_variance:
+        fe_variances, re_variances, extra_fe_variances = compute_state_variances(
+            program, state, dataset, re_datasets, variance_mode=variance_mode,
+            re_types=variance_re_types)
+    task = program.task
+    models: dict = {program.fe.feature_shard_id: FixedEffectModel(
+        glm=GeneralizedLinearModel(Coefficients(
+            means=program.fe_coefficients_model_space(state, intercept_index),
+            variances=fe_variances), task),
+        feature_shard_id=program.fe.feature_shard_id)}
+    for s in program.extra_fes:
+        k = s.feature_shard_id
+        norm = program._extra_fe_objectives[k].normalization
+        models[k] = FixedEffectModel(
+            glm=GeneralizedLinearModel(Coefficients(
+                means=norm.to_model_space(state.extra_fe[k], s.intercept_index),
+                variances=extra_fe_variances.get(k)), task),
+            feature_shard_id=k)
+    for spec in program.re_specs:
+        # tables leave in original space (factors only for a compact one)
+        re_norm = program._re_objectives[spec.re_type].normalization
+        ds = (re_datasets or {}).get(spec.re_type)
+        is_compact = ds is not None and ds.active_cols is not None
+        if isinstance(dataset.feature_shards[spec.feature_shard_id], SparseShard) \
+                and not is_compact:
+            raise ValueError(
+                f"random-effect coordinate '{spec.re_type}' trained on a "
+                "sparse shard; pass its RandomEffectDataset via re_datasets "
+                "so the compact model keeps its active-column lists"
+            )
+        table = state.re_tables[spec.re_type]
+        models[spec.re_type] = RandomEffectModel(
+            coefficients=(re_norm.to_model_space_compact(table, ds.active_cols_on(table.device))
+                          if is_compact else re_norm.to_model_space(table, spec.intercept_index)),
+            entity_keys=dataset.entity_vocabs[spec.re_type],
+            random_effect_type=spec.re_type,
+            feature_shard_id=spec.feature_shard_id,
+            task=task,
+            variances=re_variances.get(spec.re_type),
+            active_cols=ds.active_cols if is_compact else None,
+            feature_dim=ds.dim if is_compact else None,
+        )
+    for m in program.mf_specs:
+        models[m.name] = MatrixFactorizationModel(
+            row_factors=state.mf_rows[m.name], col_factors=state.mf_cols[m.name],
+            row_effect_type=m.row_effect_type, col_effect_type=m.col_effect_type,
+            row_keys=dataset.entity_vocabs[m.row_effect_type],
+            col_keys=dataset.entity_vocabs[m.col_effect_type], task=task)
+    return GameModel(models=models)
+
+
+def _remap_compact_rows(values: np.ndarray, model_cols: np.ndarray | None,
+                        target_cols: np.ndarray, dim: int) -> np.ndarray:
+    """Re-key per-entity coefficient rows onto new active-column lists.
+
+    values: [E, Km] compact (with model_cols [E, Km], sorted, pad=dim) or
+    [E, dim] dense (model_cols None). target_cols: [E, Kt] sorted pad=dim.
+    Returns [E, Kt]; columns absent from the source row are 0.
+    """
+    e, kt = target_cols.shape
+    if model_cols is None:  # dense source: a plain per-row gather
+        safe = np.minimum(target_cols, dim - 1)
+        out = values[np.arange(e)[:, None], safe]
+        return (out * (target_cols < dim)).astype(values.dtype)
+    ent = np.repeat(np.arange(e, dtype=np.int64), kt)
+    pos = match_active_positions(ent, target_cols.ravel(), model_cols, dim)
+    vals_ext = np.concatenate([values, np.zeros((e, 1), values.dtype)], axis=1)
+    return vals_ext[ent, pos].reshape(e, kt).astype(values.dtype)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def game_model_to_state(
+    program: GameTrainProgram,
+    model: GameModel,
+    dataset: GameDataset,
+    *,
+    intercept_index: int | None = None,
+    missing_ok: bool = False,
+    re_datasets: Mapping[str, RandomEffectDataset] | None = None,
+    mf_datasets: Mapping[str, MFDataset] | None = None,
+) -> GameTrainState:
+    """Inverse of :func:`state_to_game_model`: warm-start the step from a
+    (possibly loaded) GameModel on the dataset's device.
+
+    Tables are re-aligned to the dataset's entity vocabs by key, so a model
+    saved against one dataset warm-starts another whose vocab order
+    differs; entities absent from the model start at zero. The FE vector
+    goes into normalized space. ``missing_ok`` cold-starts any coordinate
+    the model lacks (zeros, fresh factors) instead of raising (reference
+    GameEstimator.getInitialModel); it needs ``re_datasets`` /
+    ``mf_datasets`` for those coordinates' shapes.
+    """
+    device = dataset.device
+
+    def coordinate_model(cid: str):
+        try:
+            return model.get(cid)
+        except KeyError:
+            if missing_ok:
+                return None
+            raise
+
+    def tensor(a) -> torch.Tensor:
+        return torch.as_tensor(a, device=device)
+
+    norm = program._fe_objective.normalization
+    fe_model = coordinate_model(program.fe.feature_shard_id)
+    fe_shard = dataset.feature_shards[program.fe.feature_shard_id]
+    if fe_model is None:
+        fe_w = torch.zeros((fe_shard.shape[1],), dtype=solve_dtype_of(fe_shard.dtype),
+                           device=device)
+    else:
+        fe_w = norm.from_model_space(fe_model.glm.coefficients.means.to(device),
+                                     intercept_index)
+    dtype = fe_w.dtype
+    extra_fe: dict = {}
+    for s in program.extra_fes:
+        k = s.feature_shard_id
+        m = coordinate_model(k)
+        if m is None:
+            extra_fe[k] = torch.zeros((dataset.feature_shards[k].shape[1],), dtype=dtype,
+                                      device=device)
+        else:
+            extra_fe[k] = program._extra_fe_objectives[k].normalization.from_model_space(
+                m.glm.coefficients.means.to(device), s.intercept_index)
+
+    def align(table, model_keys, vocab, coordinate: str) -> np.ndarray:
+        table = _host(table)
+        row_of = {k: i for i, k in enumerate(np.asarray(model_keys).tolist())}
+        pairs = [(i, row_of[key]) for i, key in enumerate(np.asarray(vocab).tolist())
+                 if key in row_of]
+        if not pairs and len(row_of) and len(vocab):
+            # a warm start that matches nothing is almost certainly the wrong
+            # model/vocab pairing: fail loudly, not to a silent cold start
+            raise ValueError(
+                f"warm-start model for coordinate '{coordinate}' shares no "
+                f"entity keys with the dataset vocab ({len(row_of)} model "
+                f"keys vs {len(vocab)} vocab keys) — wrong model directory "
+                "or entity namespace?"
+            )
+        out = np.zeros((len(vocab), table.shape[1]), dtype=table.dtype)
+        if pairs:
+            vi, mi = (np.asarray(p, dtype=np.intp) for p in zip(*pairs))
+            out[vi] = table[mi]
+        return out
+
+    re_tables: dict = {}
+    for spec in program.re_specs:
+        m = coordinate_model(spec.re_type)
+        ds = (re_datasets or {}).get(spec.re_type)
+        ds_compact = ds is not None and ds.active_cols is not None
+        vocab = dataset.entity_vocabs[spec.re_type]
+        if m is None:
+            if ds is None:
+                raise ValueError(
+                    f"missing_ok warm start: coordinate '{spec.re_type}' is "
+                    "absent from the model AND re_datasets — cannot size the "
+                    "cold-start table"
+                )
+            re_tables[spec.re_type] = torch.zeros((ds.num_entities, ds.table_width),
+                                                  dtype=dtype, device=device)
+            continue
+        aligned = align(m.coefficients, m.entity_keys, vocab, spec.re_type)
+        model_compact = getattr(m, "active_cols", None) is not None
+        if model_compact and not ds_compact:
+            # a compact model warm-starting a DENSE dataset: expand each
+            # entity's active columns into a dense row
+            mc = align(m.active_cols, m.entity_keys, vocab, spec.re_type).astype(np.int64)
+            e_rows = np.repeat(np.arange(aligned.shape[0]), mc.shape[1])
+            flat_cols = mc.ravel()
+            dim = int(dataset.feature_shards[spec.feature_shard_id].shape[1])
+            live = flat_cols < dim
+            dense = np.zeros((aligned.shape[0], dim), dtype=aligned.dtype)
+            dense[e_rows[live], flat_cols[live]] = aligned.ravel()[live]
+            aligned = dense
+        elif ds_compact or model_compact:
+            # compact layouts re-key per entity from the model's active
+            # columns to the dataset's (columns absent from the new list are
+            # dropped, new ones start at 0)
+            model_cols = None
+            if model_compact:
+                model_cols = align(m.active_cols, m.entity_keys, vocab,
+                                   spec.re_type).astype(np.int64)
+                # rows absent from the model aligned to zeros: make them
+                # all pads so nothing matches
+                absent = ~np.isin(np.asarray(vocab).astype(str),
+                                  np.asarray(m.entity_keys).astype(str))
+                model_cols[absent] = ds.dim
+            aligned = _remap_compact_rows(aligned, model_cols,
+                                          np.asarray(ds.active_cols, dtype=np.int64), ds.dim)
+        re_norm = program._re_objectives[spec.re_type].normalization
+        re_tables[spec.re_type] = (
+            re_norm.from_model_space_compact(tensor(aligned), ds.active_cols_on(device))
+            if ds_compact else re_norm.from_model_space(tensor(aligned), spec.intercept_index))
+    mf_rows: dict = {}
+    mf_cols: dict = {}
+    for spec in program.mf_specs:
+        m = coordinate_model(spec.name)
+        if m is None:
+            mf = (mf_datasets or {}).get(spec.name)
+            if mf is None:
+                raise ValueError(
+                    f"missing_ok warm start: MF coordinate '{spec.name}' is "
+                    "absent from the model AND mf_datasets — cannot size the "
+                    "cold-start factors"
+                )
+            row, col = init_factors(mf.num_row_entities, mf.num_col_entities,
+                                    spec.num_latent_factors, seed=spec.seed, dtype=dtype,
+                                    device=device)
+            row_mask, col_mask = (torch.from_numpy(mask).to(device).unsqueeze(1)
+                                  for mask in mf.trained_masks())
+            mf_rows[spec.name] = torch.where(row_mask, row, torch.zeros_like(row))
+            mf_cols[spec.name] = torch.where(col_mask, col, torch.zeros_like(col))
+            continue
+        model_k = int(m.row_factors.shape[1])
+        if model_k != spec.num_latent_factors:
+            raise ValueError(
+                f"warm-start MF model for coordinate '{spec.name}' has "
+                f"latent dimension {model_k} but the spec configures "
+                f"num_latent_factors={spec.num_latent_factors} — retrain or "
+                "match the spec to the saved model"
+            )
+        mf_rows[spec.name] = tensor(align(m.row_factors, m.row_keys,
+                                          dataset.entity_vocabs[spec.row_effect_type], spec.name))
+        mf_cols[spec.name] = tensor(align(m.col_factors, m.col_keys,
+                                          dataset.entity_vocabs[spec.col_effect_type], spec.name))
+    return GameTrainState(fe_coefficients=fe_w, re_tables=re_tables, mf_rows=mf_rows,
+                          mf_cols=mf_cols, extra_fe=extra_fe)
+
+
+@dataclasses.dataclass
+class DistributedTrainResult:
+    """Result of :func:`train_distributed`; unpacks as ``(state, losses)``.
+    ``best_state``/``best_metric``/``metric_history`` are set when
+    validation evaluators were given (reference CoordinateDescent best-model
+    tracking, :183-192, :323-356); ``best_state`` None means the final state
+    is the best."""
+
+    state: GameTrainState
+    losses: list
+    best_state: GameTrainState | None = None
+    best_metric: float = float("nan")
+    metric_history: list = dataclasses.field(default_factory=list)
+
+    def __iter__(self):
+        return iter((self.state, self.losses))
+
+
+def _host_scores(scores: torch.Tensor, n: int) -> np.ndarray:
+    return scores.detach().cpu().numpy()[:n]
+
+
+def train_distributed(
+    program: GameTrainProgram,
+    dataset: GameDataset,
+    re_datasets: Mapping[str, RandomEffectDataset],
+    *,
+    mf_datasets: Mapping[str, MFDataset] | None = None,
+    mesh=None,
+    num_iterations: int = 1,
+    fe_feature_sharded: bool = False,
+    state: GameTrainState | None = None,
+    checkpointer=None,
+    checkpoint_every: int = 1,
+    resume: bool = True,
+    put_fn=None,
+    validation_dataset: GameDataset | None = None,
+    validation_evaluators: Sequence = (),
+    validation_eval_data=None,
+    training_evaluator=None,
+    training_eval_data=None,
+    down_sampling_seed: int = 0,
+    check_finite: bool = True,
+    on_sweep=None,
+) -> DistributedTrainResult:
+    """Run ``num_iterations`` fused sweeps on the dataset's device.
+
+    state: a warm start (``game_model_to_state``); else ``init_state``.
+    Validation (reference CoordinateDescent.scala:183-192, 291-356): with
+    ``validation_dataset``, ``validation_evaluators`` and
+    ``validation_eval_data`` (an ``evaluation.EvaluationData``), each sweep
+    scores the validation split, evaluates every evaluator on the host and
+    tracks the best state by the FIRST evaluator's ``better_than``.
+    ``training_evaluator`` + ``training_eval_data`` add a per-sweep
+    ``train:<name>`` metric. on_sweep: observer ``(sweeps_done,
+    num_iterations, loss)`` called at the end of every sweep.
+
+    ``mesh``, ``fe_feature_sharded`` and ``put_fn`` (ROADMAP.md item 10,
+    step 2), ``checkpointer`` (item 16) and a spec with a lane scheduler
+    (item 18) raise ``NotImplementedError`` before any data is prepared.
+    """
+    del checkpoint_every, resume  # only read with a checkpointer
+    if mesh is not None or fe_feature_sharded or put_fn is not None:
+        raise _not_ported("train_distributed over a mesh (mesh, fe_feature_sharded, put_fn)",
+                          _MESH_ITEM)
+    if checkpointer is not None:
+        raise _not_ported("checkpoints of train_distributed (checkpointer)", 16)
+    scheduled = [s.re_type for s in program.re_specs if s.optimizer.scheduler is not None]
+    if scheduled:
+        raise _not_ported(f"the lane scheduler (step_scheduled) on {scheduled}", 18)
+
+    n_train = dataset.num_samples
+    data, buckets = program.prepare_inputs(dataset, re_datasets, mf_datasets)
+    if state is None:
+        state = program.init_state(dataset, re_datasets, mf_datasets)
+
+    # per-sweep FE down-sampling multipliers (stable-id splitmix64, the
+    # coordinate-descent path's sampler); keyed per FE coordinate ("" =
+    # the primary)
+    from photon_ml_torch.sampling.down_sampler import down_sampler_for_task
+
+    samplers = {key: down_sampler_for_task(program.task, spec.down_sampling_rate)
+                for key, spec in [("", program.fe)]
+                + [(s.feature_shard_id, s) for s in program.extra_fes]
+                if spec.down_sampling_rate < 1.0}
+    if samplers:
+        samp_labels = dataset.host_array("labels")
+        samp_weights = dataset.host_array("weights")
+        samp_uids = np.asarray(dataset.unique_ids)
+
+    def sweep_multiplier(sampler, sweep: int) -> torch.Tensor:
+        new_w = sampler.down_sample_weights(samp_labels, samp_weights, samp_uids,
+                                            seed=down_sampling_seed + sweep)
+        kept = samp_weights > 0
+        mult = np.where(kept, new_w / np.where(kept, samp_weights, 1.0), 0.0)
+        return device_tensor(mult.astype(samp_weights.dtype), data["weights"].dtype,
+                             dataset.device)
+
+    evaluators = list(validation_evaluators)
+    val_data = None
+    n_val = 0
+    if validation_dataset is not None and evaluators and validation_eval_data is not None:
+        val_data = program.prepare_scoring_inputs(validation_dataset, re_datasets)
+        n_val = validation_dataset.num_samples
+
+    best_state: GameTrainState | None = None
+    best_metric = float("nan")
+    history: list[dict] = []
+    losses: list[float] = []
+    for sweep in range(num_iterations):
+        for key, sampler in samplers.items():
+            mult = sweep_multiplier(sampler, sweep)
+            if key == "":
+                data["fe_weight_multiplier"] = mult
+            else:
+                data.setdefault("extra_fe_weight_multipliers", {})[key] = mult
+        state, loss = program.step(data, buckets, state)
+        losses.append(float(loss))
+        if check_finite and not np.isfinite(losses[-1]):
+            raise DivergenceError(
+                f"fused training step produced non-finite loss {losses[-1]} at sweep {sweep}")
+        metrics: dict[str, float] = {}
+        if training_evaluator is not None and training_eval_data is not None:
+            train_scores = _host_scores(program.score(data, state), n_train)
+            metrics[f"train:{training_evaluator.name}"] = float(
+                training_evaluator.evaluate(train_scores, training_eval_data))
+        if val_data is not None:
+            val_scores = _host_scores(program.score(val_data, state), n_val)
+            for i, ev in enumerate(evaluators):
+                v = float(ev.evaluate(val_scores, validation_eval_data))
+                metrics[f"validate:{ev.name}"] = v
+                if i == 0 and (best_state is None or ev.better_than(v, best_metric)):
+                    best_state, best_metric = state, v
+        if metrics:
+            history.append({"iteration": sweep, "coordinate": "fused_sweep", **metrics})
+        if on_sweep is not None:
+            on_sweep(sweep + 1, num_iterations, losses[-1] if losses else None)
+    return DistributedTrainResult(
+        state=state, losses=losses,
+        # best == final collapses to None ("treat final as best")
+        best_state=None if best_state is None or best_state is state else best_state,
+        best_metric=best_metric, metric_history=history)

@@ -161,9 +161,14 @@ def test_index_maps_persist_the_same_files(tmp_path):
     back = jindex.IndexMap.load_directory(tmp_path / "t")["ident"]
     assert back.size == 40 and back.intercept_index == 39
     assert tindex.split_feature_key(keys[1]) == jindex.split_feature_key(keys[1])
-    (tmp_path / "t" / "z.photonix.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        tindex.IndexMap.load_directory(tmp_path / "t")
+    # an off-heap store beside them loads in both packages (it was refused
+    # before the port had the store)
+    from photon_ml_torch.io.offheap_index_map import build_offheap_store
+
+    build_offheap_store(tmp_path / "t", tm, num_partitions=2, name="z")
+    for mod in (jindex, tindex):
+        loaded = mod.IndexMap.load_directory(tmp_path / "t")
+        assert sorted(loaded) == ["ident", "s", "z"] and dict(loaded["z"]) == dict(jm)
 
 
 def test_reader_refuses_what_is_not_ported(music):

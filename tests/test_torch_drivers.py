@@ -528,6 +528,10 @@ INDEXING = {
     "avro-sparse": (["--feature-shard-configurations", SPARSE_SHARD], "sparse"),
     "libsvm": (["--feature-shard-configurations", "name=global,feature.bags=features",
                 "--input-format", "libsvm"], "libsvm"),
+    "avro-offheap": (["--feature-shard-configurations", "name=global,feature.bags=features",
+                      "--feature-shard-configurations",
+                      "name=entity,feature.bags=userFeatures|songFeatures,intercept=false",
+                      "--index-store-format", "offheap", "--num-partitions", "3"], "avro"),
 }
 
 
@@ -548,13 +552,48 @@ def test_feature_indexing_driver_is_byte_identical(music, sparse_data, libsvm_da
         assert (tmp_path / "t" / f).read_bytes() == (tmp_path / "j" / f).read_bytes(), f
 
 
-def test_feature_indexing_driver_refuses_off_heap_stores(music, tmp_path):
+def test_feature_indexing_driver_refuses_off_heap_stores(music, trained, tmp_path):
+    """The off-heap store format was refused before the port had the store;
+    now the port's indexing driver writes it (the JAX driver's files byte
+    for byte, P=1) and the GAME training driver trains from it
+    (``--index-maps-dir``) the same model as from the maps it builds itself;
+    the scoring driver reads the store too."""
+    from photon_ml_tpu.cli import feature_indexing_driver as jindexing
     from photon_ml_torch.cli import feature_indexing_driver as tindexing
+    from photon_ml_torch.io.index_map import IndexMap
+    from photon_ml_torch.io.offheap_index_map import OffHeapIndexMap
 
-    with pytest.raises(NotImplementedError, match="queue A"):
-        tindexing.main(["--input-data-path", str(music / "train"), "--output-dir",
-                        str(tmp_path / "o"), "--feature-shard-configurations",
-                        "name=global,feature.bags=features", "--index-store-format", "offheap"])
+    spec = ["--input-data-path", str(music / "train"),
+            "--feature-shard-configurations", "name=global,feature.bags=features",
+            "--feature-shard-configurations",
+            "name=userShard,feature.bags=userFeatures,intercept=false",
+            "--feature-shard-configurations",
+            "name=songShard,feature.bags=songFeatures,intercept=false",
+            "--index-store-format", "offheap"]
+    jindexing.main(spec + ["--output-dir", str(tmp_path / "jmaps")])
+    tindexing.main(spec + ["--output-dir", str(tmp_path / "tmaps")])
+    assert _files(tmp_path / "tmaps") == _files(tmp_path / "jmaps")
+    for f in _files(tmp_path / "jmaps"):
+        assert (tmp_path / "tmaps" / f).read_bytes() == (tmp_path / "jmaps" / f).read_bytes(), f
+    maps = IndexMap.load_directory(tmp_path / "tmaps")
+    assert all(isinstance(m, OffHeapIndexMap) for m in maps.values()) and len(maps) == 3
+    extra, _ = CONFIGS["fixed-and-per-user"]
+    _, reference, _, refdir = trained["fixed-and-per-user"]
+    s = ttrain.main(P.training_args(music, tmp_path / "o", extra + [
+        "--index-maps-dir", str(tmp_path / "tmaps")]), device="cpu")
+    assert s["best_metric"] == pytest.approx(reference["best_metric"], rel=1e-9)
+    # off-heap stores stay where they are: no plain copy beside the models
+    assert not (tmp_path / "o" / "index-maps").exists()
+    for f in _files(refdir / "best"):
+        assert (tmp_path / "o" / "best" / f).read_bytes() == (refdir / "best" / f).read_bytes(), f
+    tscore.main(["--input-data-path", str(music / "test"), "--model-input-dir",
+                 str(tmp_path / "o" / "best"), "--index-maps-dir", str(tmp_path / "tmaps"),
+                 "--output-dir", str(tmp_path / "s"), "--evaluators", "RMSE"], device="cpu")
+    tscore.main(["--input-data-path", str(music / "test"), "--model-input-dir",
+                 str(refdir / "best"), "--output-dir", str(tmp_path / "r"), "--evaluators",
+                 "RMSE"], device="cpu")
+    np.testing.assert_array_equal(_scores(tmp_path / "s" / "scores"),
+                                  _scores(tmp_path / "r" / "scores"))
 
 
 MF_ARGS = ["--coordinate-configurations",

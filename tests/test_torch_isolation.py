@@ -50,7 +50,10 @@ def test_importing_every_port_module_loads_no_jax():
             # matrix factorization, the host decoders and date ranges
             "photon_ml_torch.models.matrix_factorization",
             "photon_ml_torch.algorithm.mf_coordinate", "photon_ml_torch.io.avro_native",
-            "photon_ml_torch.util.date_range"} <= set(mods)
+            "photon_ml_torch.util.date_range",
+            # the fused training program and the off-heap and PalDB index stores
+            "photon_ml_torch.parallel", "photon_ml_torch.parallel.distributed",
+            "photon_ml_torch.io.offheap_index_map", "photon_ml_torch.io.paldb"} <= set(mods)
     script = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -90,7 +93,7 @@ def test_host_libraries_build_from_the_ports_own_sources():
         assert "photon_ml_tpu/native" not in text and "photon_ml_tpu.native" not in text, path
     assert build.NATIVE == PORT / "native"
     sources = {p.stem for p in (PORT / "native").glob("*.cpp")}
-    assert sources == {"avro_decoder", "libsvm_loader"}
+    assert sources == {"avro_decoder", "libsvm_loader", "offheap_store"}
     loaded = set()
     for path in sorted(PORT.rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -98,6 +101,31 @@ def test_host_libraries_build_from_the_ports_own_sources():
                 loaded.add(node.args[0].value)
     assert loaded == sources
     assert build.HOST_BUILD_DIR == REPO / "build" / "torch_native"
+
+
+def test_offheap_store_loads_only_the_ports_library(tmp_path):
+    """Building and reading an off-heap store through the port, in a fresh
+    process, maps no shared library of the JAX package's native directory
+    (its checked-in or cached builds) and imports no JAX."""
+    script = (
+        "import json, sys\n"
+        "from photon_ml_torch.io.offheap_index_map import OffHeapIndexMap, build_offheap_store\n"
+        "from photon_ml_torch.io.index_map import IndexMap\n"
+        f"build_offheap_store({str(tmp_path)!r}, {{'a': 0, 'b': 1}}, num_partitions=2)\n"
+        f"m = IndexMap.load_directory({str(tmp_path)!r})['index']\n"
+        "assert isinstance(m, OffHeapIndexMap) and m.get_index('b') == 1\n"
+        "maps = [line.split()[-1] for line in open('/proc/self/maps') if '.so' in line]\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps({'libs': sorted(set(maps)), 'bad': bad}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=_clean_env(), cwd=str(REPO), timeout=120)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    ours = [p for p in result["libs"] if "liboffheap_store-" in p]
+    assert ours and all(p.startswith(str(REPO / "build" / "torch_native")) for p in ours)
+    assert not [p for p in result["libs"] if "photon_ml_tpu" in p], result["libs"]
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
