@@ -241,6 +241,24 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    from the same state on the card in f32 and on the CPU in f64: the whole
    state within 1e-3·max|w|. The launches and checks join the kernels
    line's ``fused_path``.
+12. The fused program over a data-axis mesh (``torch.distributed``, phase
+   11's flagship data, none cut): (a) a one-rank NCCL group, 4 sweeps held
+   against the same sweeps with ``mesh=None`` (state within 1e-4·max|w|,
+   loss 1e-5 rel; whether bitwise is printed), per sweep its seconds, loss,
+   objective, FE evaluations, B1 launches and collectives with their bytes,
+   one profiled sweep, and B1 and its reduce on the rank's own block; (b)
+   two ranks, NCCL over two cards where there are two, else two processes
+   on the one card over gloo with CUDA tensors: the state within
+   1e-3·max|w| of (a) (the f32 sums change order), two runs bitwise, B1 on
+   rank 0's block; (c) ``GameTransformer(mesh=...)`` on the 2^15 held-out
+   rows within 1e-5 rel of the one-device transform, the device AUC within
+   1e-6 of the host's and above the fixed effect's; phase 11's sparse
+   program over the one-rank mesh (G1's rows, segments, chunks and compact
+   scoring held on its own inputs); (d) the GAME training and scoring
+   drivers with and without ``--distributed`` at phase 8's flagship rows:
+   index maps, metadata and id-info byte-identical, coefficients within
+   1e-3·max|w|, the written scores bitwise the in-process ones. The
+   launches and checks join the kernels line's ``mesh_path``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3863,7 +3881,7 @@ FUSED = {"flagship": dict(GAME["flagship"], k=16, alternations=2, mf_l2=10.0),
 
 def _fused_program(*, k: int | None, alternations: int = 2, mf_l2: float = 10.0,
                    re_types=("user", "item"), fe_shard: str = "global", re_shard: str = "per_entity",
-                   projector: str = "IDENTITY", task: str = "LOGISTIC_REGRESSION"):
+                   projector: str = "IDENTITY", task: str = "LOGISTIC_REGRESSION", mesh=None):
     """The fused program of ``_game_estimator`` plus phase 10's MF
     coordinate: the fixed effect on L-BFGS (10 iterations, L2 1), AUTO
     lanes (Newton; 10 iterations, L2 1) on each random effect, and with ``k``
@@ -3881,7 +3899,7 @@ def _fused_program(*, k: int | None, alternations: int = 2, mf_l2: float = 10.0,
         TaskType[task], dist.FixedEffectStepSpec(fe_shard, lbfgs, l2_weight=1.0),
         tuple(dist.RandomEffectStepSpec(t, re_shard, auto, l2_weight=1.0,
                                         projector=ProjectorType[projector]) for t in re_types),
-        mf_specs=mfs)
+        mf_specs=mfs, mesh=mesh)
 
 
 def _fused_objective(torch, program, data, state) -> float:
@@ -3891,8 +3909,11 @@ def _fused_objective(torch, program, data, state) -> float:
     normalization). Each solve lowers its own block's part from its warm
     start, so the sum does not rise over the sweeps."""
     margins = program.score(data, state).double()
-    total = float(torch.sum(data["weights"].double()
-                            * program._loss.loss(margins, data["labels"].double())))
+    total = torch.sum(data["weights"].double()
+                      * program._loss.loss(margins, data["labels"].double()))
+    if "mesh" in data:  # a rank's rows: the sum over the data axis
+        total = data["mesh"].total(total.reshape(1))[0]
+    total = float(total)
 
     def sq(t):
         return float((t.double() ** 2).sum())
@@ -3905,17 +3926,19 @@ def _fused_objective(torch, program, data, state) -> float:
 
 
 def _fused_run(torch, label: str, program, dataset, re_datasets, mf_datasets, sweeps: int,
-               state=None, loss_falls: bool = True) -> dict:
+               state=None, loss_falls: bool = True, mesh=None) -> dict:
     """``train_distributed`` with the launch counters set to 0 just before
     and read just after; per sweep its seconds, training loss, objective
     (:func:`_fused_objective`, computed after the run), the fixed effect's
-    evaluations and B1's launches. The objective must not rise, nor, with
-    ``loss_falls``, the training loss."""
+    evaluations and B1's launches, and over a ``mesh`` the collectives and
+    their bytes. The objective must not rise, nor, with ``loss_falls``, the
+    training loss."""
     from photon_ml_torch.ops import fused_glm
     from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.parallel import mesh as mesh_ops
 
     evaluations = []
-    objective = program._fe_objective
+    objective = program._mesh_objectives["dense"] if mesh is not None else program._fe_objective
     inner = objective.value_and_gradient
 
     def counted(*args, **kw):
@@ -3936,19 +3959,23 @@ def _fused_run(torch, label: str, program, dataset, re_datasets, mf_datasets, sw
 
     def on_sweep(done, total, loss):
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), len(evaluations), fused_glm.launches, loss))
+        marks.append((time.perf_counter(), len(evaluations), fused_glm.launches, loss,
+                      mesh_ops.counts.snapshot()))
 
     fused_glm.launches = fused_glm.reduce_launches = 0
     _reset_gather_counts()
+    mesh_ops.counts.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         result = dist.train_distributed(program, dataset, re_datasets, mf_datasets=mf_datasets,
-                                        num_iterations=sweeps, state=state, on_sweep=on_sweep)
+                                        num_iterations=sweeps, state=state, on_sweep=on_sweep,
+                                        mesh=mesh)
     finally:
         del objective.value_and_gradient, program.step
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    collectives = mesh_ops.counts.snapshot()
     launches = {"fused_glm": fused_glm.launches, "fused_glm_reduce": fused_glm.reduce_launches,
                 **_gather_counts()}
     losses = result.losses
@@ -3959,14 +3986,21 @@ def _fused_run(torch, label: str, program, dataset, re_datasets, mf_datasets, sw
         f"{label}: the objective rose over the sweeps: {objectives}"
     assert not loss_falls or all(b <= a * (1 + 1e-5) for a, b in zip(losses, losses[1:])), \
         f"{label}: training loss rose over the sweeps: {losses}"
-    rows, last = [], (t0, 0, 0)
-    for (t, ev, b1, loss), obj in zip(marks, objectives):
-        rows.append({"seconds": t - last[0], "fe_evaluations": ev - last[1],
-                     "b1_launches": b1 - last[2], "loss": loss, "objective": obj})
-        last = (t, ev, b1)
+    rows, last = [], (t0, 0, 0, {})
+    for (t, ev, b1, loss, coll), obj in zip(marks, objectives):
+        row = {"seconds": t - last[0], "fe_evaluations": ev - last[1],
+               "b1_launches": b1 - last[2], "loss": loss, "objective": obj}
+        if mesh is not None:
+            row["collectives"] = {
+                op: {k: v[k] - last[3].get(op, {}).get(k, 0) for k in ("calls", "bytes")}
+                for op, v in coll.items()}
+        rows.append(row)
+        last = (t, ev, b1, coll)
     out = {"run": label, "seconds": seconds, "seconds_per_sweep": seconds / sweeps,
            "sweeps": rows, "losses": losses, "launches": launches,
            "fe_evaluations": len(evaluations)}
+    if mesh is not None:
+        out["collectives"] = collectives
     _log(f"fused run {json.dumps(out)}")
     out["result"] = result
     return out
@@ -4218,6 +4252,416 @@ def _fused_slice(torch, np, seed: int, dev, card: str) -> dict:
     return path
 
 
+#: phase 12, the fused program over a data-axis mesh (``torch.distributed``):
+#: phase 11's flagship (bench.py:541-560 widths, none cut, with phase 10's MF
+#: k=16 coordinate), phase 11's sparse program, and the GAME drivers at phase
+#: 8's flagship rows
+MESH = dict(FUSED["flagship"], sparse_sweeps=2, rank_timeout_s=420)
+
+
+def _mesh_b1_checks(torch, tag: str, program, data, state) -> dict:
+    """B1 and its reduce on a rank's own block of the fused step's fixed
+    effect (the trained coefficients, the residual offsets), against their
+    plain versions, twice bitwise, at phase 3's f32 limits."""
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+
+    scores = program._coordinate_scores(data, state)
+    offsets = program._sum_scores(data["offsets"], scores, "global").contiguous()
+    x = data["features"]["global"]
+    batch = LabeledPointBatch(features=x, labels=data["labels"], offsets=offsets,
+                              weights=data["weights"])
+    w = state.fe_coefficients.contiguous()
+    n, d = x.shape
+    loss = LogisticLoss()
+    r = torch.rand(n, device=x.device)
+    kw = dict(l2_weight=0.0)
+    out = {"fused_glm": _path_check(
+        torch, f"{tag}: fused_glm on the rank's block",
+        lambda: fused_glm.fused_value_and_gradient(loss, w, batch, **kw),
+        lambda: fused_glm.fused_value_and_gradient_reference(loss, w, batch, **kw),
+        lambda: (torch.matmul(x, w), torch.matmul(r, x)), (1e-5, 1e-4),
+        n * d * 4 + 12 * n + 8 * d + 8, x.shape)}
+    args = (loss, x, batch.labels, batch.offsets, batch.weights, w, None)
+    out["fused_glm_reduce"] = _reduce_entry(
+        torch, f"{tag}: fused_glm_reduce on the rank's block",
+        lambda: fused_glm.fused_partials(*args), fused_glm.reduce_partials,
+        fused_glm.reduce_partials_reference)
+    return out
+
+
+def _mesh_flagship(np, seed: int, dev):
+    """Phase 11's flagship data on ``dev``: (dataset, held-out dataset,
+    re_datasets, mf_datasets)."""
+    from photon_ml_torch.algorithm.mf_coordinate import build_mf_dataset
+    from photon_ml_torch.data.game_data import build_random_effect_dataset
+
+    train, held = _game_arrays(np, seed + 20, **MESH)
+    ds = _game_dataset(train, "LOGISTIC_REGRESSION", dev)
+    held_ds = _game_dataset(held, "LOGISTIC_REGRESSION", dev, vocabs=ds.entity_vocabs)
+    re_ds = {t: build_random_effect_dataset(ds, t, "per_entity", bucket_sizes=(GAME["cap"],))
+             for t in ("user", "item")}
+    return ds, held_ds, re_ds, {"mf": build_mf_dataset(ds, "user", "item")}
+
+
+def _mesh_rank_main(rank: int, world: int, tmp: str, seed: int, backend: str,
+                    device_type: str, device_index: int) -> None:
+    """One rank of phase 12(b): the flagship mesh program twice (4 sweeps
+    each, the training loss non-increasing), B1 and its reduce on rank 0's
+    own block; writes its results to ``tmp/rank<r>.json`` and the state to
+    ``tmp/state<r>.npz``. A module function, so a spawned process runs it."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from photon_ml_torch import convert
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.parallel.mesh import make_mesh
+
+    try:
+        dev = torch.device(device_type, device_index) if device_type == "cuda" \
+            else torch.device(device_type)
+        multihost.initialize(f"file://{tmp}/rendezvous", world, rank, local_rank=device_index,
+                             device=dev, backend=backend,
+                             timeout=datetime.timedelta(seconds=MESH["rank_timeout_s"]))
+        mesh = make_mesh()
+        ds, _, re_ds, mf_ds = _mesh_flagship(np, seed, dev)
+        program = _fused_program(k=MESH["k"], alternations=MESH["alternations"],
+                                 mf_l2=MESH["mf_l2"], mesh=mesh)
+        _fused_run(torch, f"b. rank {rank} warm-up", program, ds, re_ds, mf_ds, 1, mesh=mesh)
+        runs = [_fused_run(torch, f"b. rank {rank}/{world} {backend} run {i}", program, ds,
+                           re_ds, mf_ds, MESH["sweeps"], mesh=mesh) for i in (1, 2)]
+        states = [convert.train_state_to_numpy(r.pop("result").state) for r in runs]
+        flat = [_flat_state(s) for s in states]
+        bitwise = all(np.array_equal(flat[0][k], flat[1][k]) for k in flat[0])
+        out = {"rank": rank, "backend": backend, "device": str(dev), "bitwise_repeat": bitwise,
+               "runs": runs}
+        if rank == 0:
+            data, buckets = program.prepare_inputs(ds, re_ds, mf_ds)
+            state = convert.train_state_from_numpy(states[0], device=dev)
+            data, _, state = program.shard_inputs(mesh, data, buckets, state)
+            out["checks"] = _mesh_b1_checks(torch, f"b. rank 0 of {world}", program, data,
+                                            state)
+        np.savez(Path(tmp) / f"state{rank}.npz", **flat[0])
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out, default=float))
+    finally:
+        multihost.shutdown()
+
+
+def _flat_state(state: dict) -> dict:
+    out = {"fe_coefficients": state["fe_coefficients"]}
+    for group in ("re_tables", "mf_rows", "mf_cols", "extra_fe"):
+        out.update({f"{group}/{k}": v for k, v in state[group].items()})
+    return out
+
+
+def _state_gap(np, a: dict, b: dict) -> tuple[float, float, bool]:
+    """(max |a - b| over the state, max |b|, bitwise equal)."""
+    gap = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+    scale = max(float(np.abs(b[k]).max()) for k in b)
+    return gap, scale, all(np.array_equal(a[k], b[k]) for k in b)
+
+
+def _two_ranks(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 12(b): two ranks of the flagship mesh program, NCCL on two
+    cards where there are two, else two processes on the one card over gloo
+    with CUDA tensors (NCCL refuses two ranks on one device)."""
+    import multiprocessing
+
+    two_cards = dev.type == "cuda" and torch.cuda.device_count() >= 2
+    backend = "nccl" if two_cards else "gloo"
+    with tempfile.TemporaryDirectory(prefix="mesh-", dir=Path(__file__).resolve().parent
+                                     / "build") as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank_main,
+                             args=(r, 2, tmp, seed, backend, dev.type, r if two_cards else 0))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(MESH["rank_timeout_s"])
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(30)
+        assert not alive, f"b. {len(alive)} ranks still running after {MESH['rank_timeout_s']} s"
+        assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+        seconds = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(2)]
+        states = [dict(np.load(Path(tmp) / f"state{r}.npz")) for r in range(2)]
+    return {"backend": backend, "two_cards": two_cards, "seconds": seconds, "ranks": ranks,
+            "states": states}
+
+
+def _mesh_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """Phase 12(d): the GAME training and scoring drivers with and without
+    ``--distributed`` (one process: a group of one) on Avro at phase 8's
+    flagship rows. Index maps, metadata and id-info byte-identical;
+    coefficients within 1e-3 of their largest (the one path's packed kernel
+    against the other's B1, in f32); the written scores bitwise equal to the
+    same model's in-process scores."""
+    import multiprocessing
+
+    from photon_ml_torch.cli import game_scoring_driver, game_training_driver
+    from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
+    from photon_ml_torch.io.index_map import IndexMap
+    from photon_ml_torch.io.model_io import load_game_model, read_scores
+    from photon_ml_torch.transformers import GameTransformer
+
+    shape = dict(GAME["flagship"], d_fe=GAME["flagship"]["d_fe"] - 1)
+    n, nv = shape["n"], shape["held_out"]
+    train, held = _game_arrays(np, seed + 12, **shape)
+    workers = min(8, os.cpu_count() or 1)
+    jobs = _game_parts(train, tmp / "train", 0, 2 * workers) \
+        + _game_parts(held, tmp / "validation", n, workers)
+    del train, held
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pool.map(_write_game_part, jobs)
+    write_s = time.perf_counter() - t0
+    shards = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",
+              "--feature-shard-configurations",
+              "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+    re_spec = "feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,max.iter=10," \
+              "random.effect.type="
+    runs, seconds = {}, {}
+    for name, extra in (("plain", []), ("distributed", ["--distributed"])):
+        t0 = time.perf_counter()
+        # no validation evaluators: the coordinate-descent path tracks its
+        # best model per coordinate update and the fused one per sweep, so
+        # both save their final models only when nothing is tracked
+        runs[name] = game_training_driver.main([
+            "--input-data-path", str(tmp / "train"),
+            "--root-output-dir", str(tmp / name), "--task-type", "LOGISTIC_REGRESSION", *shards,
+            "--coordinate-configurations",
+            "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+            "--coordinate-configurations", f"name=per_user,{re_spec}userId",
+            "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+            "--coordinate-descent-iterations", "2", *extra],
+            device=None if dev.type == "cuda" else dev)
+        torch.cuda.synchronize()
+        seconds[f"train {name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        game_scoring_driver.main([
+            "--input-data-path", str(tmp / "validation"), "--model-input-dir",
+            str(tmp / name / "best"), "--output-dir", str(tmp / f"scores-{name}"), *shards,
+            "--evaluators", "AUC", *extra], device=None if dev.type == "cuda" else dev)
+        torch.cuda.synchronize()
+        seconds[f"score {name}"] = time.perf_counter() - t0
+    assert runs["distributed"]["distributed"] and not runs["plain"]["distributed"]
+    # the files that do not hold coefficients are byte-identical
+    same = {}
+    for sub in ("index-maps", "best"):
+        for f in sorted((tmp / "plain" / sub).rglob("*")):
+            rel = f.relative_to(tmp / "plain")
+            if f.is_file() and (sub == "index-maps" or f.name in ("id-info",
+                                                                  "model-metadata.json")):
+                same[str(rel)] = (tmp / "distributed" / rel).read_bytes() == f.read_bytes()
+    assert same and all(same.values()), same
+    maps = IndexMap.load_directory(tmp / "plain" / "index-maps")
+    models = {name: load_game_model(tmp / name / "best", maps, device=dev) for name in runs}
+    gaps = {}
+    for cid, m in models["plain"].models.items():
+        a = models["distributed"].get(cid)
+        t_plain = m.glm.coefficients.means if hasattr(m, "glm") else m.coefficients
+        t_dist = a.glm.coefficients.means if hasattr(a, "glm") else a.coefficients
+        gaps[cid] = (float((t_dist.double() - t_plain.double()).abs().max()),
+                     float(t_plain.double().abs().max()))
+    assert all(g <= 1e-3 * s for g, s in gaps.values()), gaps
+    # the scores written by the distributed scoring run against the same
+    # model scored in process
+    cfg = {"global": FeatureShardConfiguration(feature_bags=("features",)),
+           "per_entity": FeatureShardConfiguration(feature_bags=("perEntityFeatures",),
+                                                   has_intercept=False)}
+    model = models["distributed"]
+    val = read_merged(tmp / "validation", cfg, index_maps=maps,
+                      random_effect_id_columns=("itemId", "userId"),
+                      entity_vocabs={m.random_effect_type: m.entity_keys
+                                     for m in model.models.values()
+                                     if hasattr(m, "entity_keys")}, device=dev).dataset
+    in_process = GameTransformer(model).transform(val).scores
+    got = np.asarray([r["predictionScore"]
+                      for r in read_scores(tmp / "scores-distributed" / "scores")])
+    bitwise = bool(np.array_equal(got.astype(in_process.dtype), in_process))
+    out = {"rows": [n, nv], "write_seconds": write_s, "seconds": seconds,
+           "best_metric": {k: r["best_metric"] for k, r in runs.items()},
+           "byte_identical": len(same), "coefficient_gaps": gaps,
+           "written_scores_bitwise": bitwise}
+    _log(f"d. the GAME drivers with and without --distributed at {n} + {nv} rows ({card}): "
+         + json.dumps(out))
+    assert bitwise, "the distributed scoring run's scores differ from the in-process ones"
+    return out
+
+
+def _mesh_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 12, the fused program over a data-axis mesh, printing as it
+    goes. Returns, for each kernel this path runs, its launches here and its
+    checks on the path's own inputs."""
+    from photon_ml_torch import convert
+    from photon_ml_torch.data.game_data import build_game_dataset, build_random_effect_dataset
+    from photon_ml_torch.data.sparse_batch import SparseShard
+    from photon_ml_torch.evaluation import local_metrics
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.parallel.mesh import make_mesh
+    from photon_ml_torch.parallel.scoring import DistributedScorer
+    from photon_ml_torch.transformers import GameTransformer
+
+    # a. one rank: a group of one over NCCL, the same data as phase 11(a)
+    info = multihost.initialize(device=None if dev.type == "cuda" else dev)
+    assert info.world_size == 1 and info.backend == ("nccl" if dev.type == "cuda" else "gloo"), \
+        info
+    mesh = make_mesh()
+    t0 = time.perf_counter()
+    ds, held_ds, re_ds, mf_ds = _mesh_flagship(np, seed, dev)
+    torch.cuda.synchronize()
+    _log(f"a. mesh flagship data (phase 11's) built: {time.perf_counter() - t0:.2f} s; "
+         f"rank {info.rank}/{info.world_size} {info.backend} on {info.device}")
+    program = _fused_program(k=MESH["k"], alternations=MESH["alternations"],
+                             mf_l2=MESH["mf_l2"], mesh=mesh)
+    one_device = _fused_program(k=MESH["k"], alternations=MESH["alternations"],
+                                mf_l2=MESH["mf_l2"])
+    _fused_run(torch, "a. mesh warm-up", program, ds, re_ds, mf_ds, 1, mesh=mesh)
+    main = _fused_run(torch, "a. mesh flagship, one rank", program, ds, re_ds, mf_ds,
+                      MESH["sweeps"], mesh=mesh)
+    ref = _fused_run(torch, "a. the same model, mesh=None", one_device, ds, re_ds, mf_ds,
+                     MESH["sweeps"])
+    state = main.pop("result").state
+    ref_state = ref.pop("result").state
+    flat = _flat_state(convert.train_state_to_numpy(state))
+    flat_ref = _flat_state(convert.train_state_to_numpy(ref_state))
+    gap, scale, bitwise = _state_gap(np, flat, flat_ref)
+    loss_gap = max(_rel_gap(a, b) for a, b in zip(main["losses"], ref["losses"]))
+    per_sweep = main["sweeps"]
+    assert all(r["b1_launches"] == r["fe_evaluations"] > 0 for r in per_sweep), per_sweep
+    _log(f"a. one rank against mesh=None ({card}): state max |dw| {gap:.3g} (max |w| "
+         f"{scale:.3g}, limit 1e-4·max|w|), training loss max rel gap {loss_gap:.3g} (limit "
+         f"1e-5), bitwise {bitwise}; seconds a sweep mesh {main['seconds_per_sweep']:.4f}, "
+         f"mesh=None {ref['seconds_per_sweep']:.4f}; collectives a sweep "
+         + json.dumps([r["collectives"] for r in per_sweep]))
+    assert gap <= 1e-4 * scale and loss_gap <= 1e-5, (gap, scale, loss_gap)
+    data, buckets = program.prepare_inputs(ds, re_ds, mf_ds)
+    data, buckets, _ = program.shard_inputs(mesh, data, buckets, state)
+    profiled = _profiled(torch, lambda: program.step(data, buckets, state))
+    _log(f"a. one mesh sweep profiled ({card}): " + json.dumps(profiled))
+    checks = _mesh_b1_checks(torch, "a. one rank", program, data, state)
+    path = {"fused_glm": dict(checks["fused_glm"], launches=main["launches"]["fused_glm"],
+                              evaluations=main["fe_evaluations"],
+                              per_sweep=[r["b1_launches"] for r in per_sweep]),
+            "fused_glm_reduce": dict(checks["fused_glm_reduce"],
+                                     launches=main["launches"]["fused_glm_reduce"])}
+    _log(f"a. B1 on the rank's block ({card}): " + json.dumps(
+        {k: {f: v.get(f) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+         for k, v in checks.items()}))
+    summary = {"seconds_per_sweep": main["seconds_per_sweep"],
+               "one_device_seconds_per_sweep": ref["seconds_per_sweep"],
+               "bitwise_one_device": bitwise, "state_gap": gap,
+               "collectives_per_sweep": per_sweep[-1]["collectives"], "profiled_sweep": profiled}
+    del data, buckets
+
+    # b. two ranks
+    two = _two_ranks(torch, np, seed, dev, card)
+    states = two.pop("states")
+    gap2, _, _ = _state_gap(np, states[0], flat)
+    ranks_equal = all(np.array_equal(states[0][k], states[1][k]) for k in states[0])
+    for r in two["ranks"]:
+        for run in r["runs"]:
+            losses = run["losses"]
+            assert all(b <= a * (1 + 1e-5) for a, b in zip(losses, losses[1:])), losses
+    repeat = all(r["bitwise_repeat"] for r in two["ranks"])
+    b1 = two["ranks"][0]["checks"]
+    # the f32 sum order changes with the rank count: each L-BFGS and lane
+    # solve amplifies the last-bit differences, as the card against the CPU
+    # does (phase 11(c)), so the two-rank state is held at 1e-3·max|w|
+    _log(f"b. two ranks, backend={two['backend']} ({'two cards' if two['two_cards'] else 'both on the one card'}; "
+         f"{card}): state against (a) max |dw| {gap2:.3g} (limit 1e-3·max|w| = "
+         f"{1e-3 * scale:.3g}), ranks' states equal {ranks_equal}, two runs bitwise "
+         f"{repeat}, {two['seconds']:.2f} s with process start; seconds a sweep "
+         + json.dumps([run["seconds_per_sweep"] for r in two["ranks"] for run in r["runs"]])
+         + "; collectives a sweep (rank 0) "
+         + json.dumps(two["ranks"][0]["runs"][0]["sweeps"][-1]["collectives"])
+         + "; B1 on rank 0's block " + json.dumps(
+             {k: {f: v.get(f) for f in ("max_abs_err", "ms", "plain_ms")}
+              for k, v in b1.items()}))
+    assert gap2 <= 1e-3 * scale and ranks_equal and repeat, (gap2, ranks_equal, repeat)
+    summary["two_ranks"] = {"backend": two["backend"], "two_cards": two["two_cards"],
+                            "state_gap": gap2, "bitwise_repeat": repeat,
+                            "seconds_per_sweep": [run["seconds_per_sweep"]
+                                                  for run in two["ranks"][0]["runs"]]}
+    path["fused_glm"]["two_ranks_rank0"] = b1["fused_glm"]
+
+    # c. scoring: GameTransformer(mesh=...) on the held-out rows
+    model = dist.state_to_game_model(program, state, ds, re_datasets=re_ds)
+    one = GameTransformer(model).transform(held_ds).scores
+    on_mesh = GameTransformer(model, mesh=mesh).transform(held_ds).scores
+    score_gap = float(np.abs(on_mesh - one).max() / np.abs(one).max())
+    labels = held_ds.host_array("labels")
+    device_auc = DistributedScorer(model, mesh).evaluate_dataset(held_ds, ["AUC"])["AUC"]
+    host_auc = local_metrics.area_under_roc_curve(on_mesh, labels)
+    fe_only = (model.get("global").score_dataset(held_ds) + held_ds.offsets).cpu().numpy()
+    fe_auc = local_metrics.area_under_roc_curve(fe_only, labels)
+    _log(f"c. mesh scoring of {held_ds.num_samples} held-out rows, a quarter of unseen users "
+         f"({card}): max rel gap to the one-device transform {score_gap:.3g} (limit 1e-5); "
+         f"device AUC {device_auc:.8f}, host AUC {host_auc:.8f} (limit 1e-6), fixed effect "
+         f"alone {fe_auc:.6f}")
+    assert score_gap <= 1e-5 and abs(device_auc - host_auc) <= 1e-6 and host_auc > fe_auc, \
+        (score_gap, device_auc, host_auc, fe_auc)
+    summary["scoring"] = {"rel_gap": score_gap, "device_auc": device_auc, "host_auc": host_auc}
+    del program, one_device, state, ref_state, model, ds, held_ds, re_ds, mf_ds
+    torch.cuda.empty_cache()
+
+    # the sparse program of phase 11(b) over the one-rank mesh: G1 on the
+    # rank's rows and compact scoring
+    cfg = FUSED["sparse"]
+    part, _ = _sparse_game_arrays(np, seed, cfg["n"], cfg["d"], cfg["per_row"], cfg["users"])
+    shard = SparseShard(rows=part["rows"].astype(np.int64), cols=part["cols"].astype(np.int64),
+                        vals=part["vals"], num_samples=part["n"], feature_dim=cfg["d"])
+    sds = build_game_dataset(labels=part["labels"], feature_shards={"global": shard},
+                             entity_keys={"user": part["users"]}, device=dev)
+    del part
+    prog = _fused_program(k=None, re_types=("user",), re_shard="global", projector="INDEX_MAP",
+                          task="LINEAR_REGRESSION", mesh=mesh)
+    res = {"user": build_random_effect_dataset(sds, "user", "global")}
+    label = "a. sparse fixed effect + compact per-user over the mesh"
+    _fused_run(torch, f"{label}, warm-up", prog, sds, res, None, 1, loss_falls=False, mesh=mesh)
+    run = _fused_run(torch, label, prog, sds, res, None, MESH["sparse_sweeps"], loss_falls=False,
+                     mesh=mesh)
+    sstate = run.pop("result").state
+    data, buckets = prog.prepare_inputs(sds, res)
+    data, _, _ = prog.shard_inputs(mesh, data, buckets, sstate)
+    off = prog._sum_scores(data["offsets"], prog._coordinate_scores(data, sstate), "global")
+    fe_batch, _ = prog._primary_fe_batch(data, off, data["weights"])
+    gchecks = _fe_gather_checks(torch, label, fe_batch, sstate.fe_coefficients)
+    cchecks = [_compact_check(torch, f"{label}: compact scores", data["re_sparse"]["user"],
+                              sstate.re_tables["user"].float().contiguous())]
+    launches = run["launches"]
+    _log(f"{label} ({card}): seconds a sweep {run['seconds_per_sweep']:.4f}, launches "
+         + json.dumps(launches) + ", collectives " + json.dumps(run["collectives"]))
+    path["sparse_gather"] = {
+        "launches": launches["rows"] + launches["segments"] - launches["compact"],
+        "row_kernel": launches["rows"], "segment_kernel": launches["segments"],
+        "compact_scoring": launches["compact"], "checks": gchecks}
+    path["sparse_gather_chunks"] = {"launches": launches["chunks"],
+                                    "checks": [c for c in gchecks if c["chunk_rows"]]}
+    path["sparse_gather_compact"] = {"launches": launches["compact"], "checks": cchecks}
+    summary["sparse_seconds_per_sweep"] = run["seconds_per_sweep"]
+    del prog, res, sds, shard, data, buckets, sstate, fe_batch, off
+    torch.cuda.empty_cache()
+
+    # d. the drivers
+    with tempfile.TemporaryDirectory(prefix="mesh-drivers-",
+                                     dir=Path(__file__).resolve().parent / "build") as tmp:
+        summary["drivers"] = _mesh_drivers(torch, np, seed, dev, card, Path(tmp))
+    multihost.shutdown()
+    assert all(v["launches"] > 0 for v in path.values()), {k: v["launches"]
+                                                           for k, v in path.items()}
+    path["fused_glm"]["summary"] = summary
+    return path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4435,9 +4879,15 @@ def main(argv=None) -> int:
     fused_path = _fused_slice(torch, np, args.seed, dev, card)
     _log(f"fused GAME phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in fused_path.items()}))
+    # 12. the fused program over a data-axis mesh: one rank, two ranks,
+    # scoring and the drivers; its launches and kernel checks as its own path
+    t0 = time.perf_counter()
+    mesh_path = _mesh_slice(torch, np, args.seed, dev, card)
+    _log(f"mesh phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in mesh_path.items()}))
     for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
                       ("sparse_game_path", sparse_game_path), ("mf_path", mf_path),
-                      ("fused_path", fused_path)):
+                      ("fused_path", fused_path), ("mesh_path", mesh_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

@@ -1,7 +1,7 @@
 """GAME scoring driver: load a model, score a dataset, save scores (the port's).
 
 Counterpart of ``photon_ml_tpu/cli/game_scoring_driver.py`` on its
-single-device path; reference photon-client
+one-device and mesh paths; reference photon-client
 cli/game/scoring/GameScoringDriver.scala — run() (:133-194): prepare feature
 maps, read data, load the GAME model from the training output layout,
 GameTransformer.transform, optional evaluation, saveScoresToHDFS (:191-253,
@@ -12,10 +12,14 @@ ScoringResultAvro records).
 
 Runs on the CUDA device; ``main(argv, device="cpu")`` runs on the CPU. The
 outputs (``scores/part-NNNNN.avro``, ``scoring-summary.json``) keep the JAX
-driver's names and layout. Left out, each refused with
+driver's names and layout. ``--distributed`` (or ``--mesh data=N``) scores
+each rank's rows through ``parallel/scoring.DistributedScorer`` over a mesh
+of every rank (``torchrun --nproc-per-node N``, or one process alone) and
+gathers them; rank 0 writes, the other ranks write into
+``<output-dir>/.worker-<rank>``. Left out, each refused with
 ``NotImplementedError`` naming its ROADMAP.md item before any data is read:
-``--distributed``/``--mesh`` (10), ``--partitioned-io`` (15),
-``--telemetry-dir`` and ``--trace-dir`` (19). ``--input-format libsvm``
+``--mesh model>1`` and ``--partitioned-io`` (15), ``--telemetry-dir`` and
+``--trace-dir`` (19). ``--input-format libsvm``
 reads LibSVM text. A compact random-effect model scores a sparse shard
 (``sparse=true`` in its ``--feature-shard-configurations``) through the
 gather kernel; a model is loaded compact when its feature space exceeds
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch.cli.configs import evaluation_id_columns, parse_feature_shard_config
-from photon_ml_torch.cli.game_training_driver import _json_safe
+from photon_ml_torch.cli.game_training_driver import _json_safe, parse_mesh_shape
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
 from photon_ml_torch.io.index_map import IndexMap
@@ -46,6 +50,7 @@ from photon_ml_torch.io.model_io import (
 from photon_ml_torch.io.score_writer import ShardedScoreWriter
 from photon_ml_torch.models.game import RandomEffectModel
 from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
+from photon_ml_torch.parallel import multihost
 from photon_ml_torch.transformers import GameTransformer
 from photon_ml_torch.util import Timed
 from photon_ml_torch.util.timed import reset_timings
@@ -53,9 +58,9 @@ from photon_ml_torch.util.timed import reset_timings
 logger = logging.getLogger(__name__)
 
 
-def _check_ported(*, distributed, partitioned_io, telemetry_dir, trace_dir) -> None:
+def _check_ported(*, mesh_shape, partitioned_io, telemetry_dir, trace_dir) -> None:
     left_out = (
-        (distributed, "--distributed/--mesh (mesh-sharded scoring)", "10, step 2 (the mesh)"),
+        ((mesh_shape or {}).get("model", 1) > 1, "--mesh model>1 (the model axis)", 15),
         (partitioned_io, "--partitioned-io (per-rank score shards)", 15),
         (bool(telemetry_dir), "--telemetry-dir (run journal)", 19),
         (bool(trace_dir), "--trace-dir (span tracing)", 19),
@@ -78,6 +83,7 @@ def run(
     compact_random_effect_threshold: int = DEFAULT_COMPACT_RE_THRESHOLD,
     on_corrupt: str = "raise",
     distributed: bool = False,
+    mesh_shape: dict | None = None,
     partitioned_io: bool = False,
     telemetry_dir: str | None = None,
     trace_dir: str | None = None,
@@ -93,10 +99,35 @@ def run(
     configs default to one shard per saved index map using the bag of the
     same name.
     """
-    _check_ported(distributed=distributed, partitioned_io=partitioned_io,
+    _check_ported(mesh_shape=mesh_shape, partitioned_io=partitioned_io,
                   telemetry_dir=telemetry_dir, trace_dir=trace_dir)
     if on_corrupt not in ("raise", "quarantine"):
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
+    distributed = distributed or bool(mesh_shape)
+    created = distributed and not torch.distributed.is_initialized()
+    mesh = None
+    try:
+        if distributed:
+            info = multihost.initialize(device=device)
+            if info.rank > 0:
+                output_dir = os.path.join(output_dir, f".worker-{info.rank}")
+            shape = dict(mesh_shape or {})
+            mesh = multihost.make_hybrid_mesh(data=shape.get("data"),
+                                              model=shape.get("model", 1))
+        return _run(input_data_path=input_data_path, model_input_dir=model_input_dir,
+                    output_dir=output_dir, feature_shards=feature_shards,
+                    index_maps_dir=index_maps_dir, evaluators=evaluators, model_id=model_id,
+                    input_format=input_format,
+                    compact_random_effect_threshold=compact_random_effect_threshold,
+                    on_corrupt=on_corrupt, mesh=mesh, device=device)
+    finally:
+        if created:
+            multihost.shutdown()
+
+
+def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_maps_dir,
+         evaluators, model_id, input_format, compact_random_effect_threshold, on_corrupt, mesh,
+         device) -> dict:
     device = resolve_device(device)
     reset_timings()
     paths = ([input_data_path] if isinstance(input_data_path, (str, os.PathLike))
@@ -109,7 +140,7 @@ def run(
         feature_shards=feature_shards,
         compact_random_effect_threshold=compact_random_effect_threshold, device=device)
     sync = torch.cuda.synchronize if device.type == "cuda" else None
-    transformer = GameTransformer(model=model, evaluator_specs=tuple(evaluators))
+    transformer = GameTransformer(model=model, evaluator_specs=tuple(evaluators), mesh=mesh)
     summaries: list[dict] = []
     for di, path in enumerate(paths):
         ds_output = output_dir if len(paths) == 1 else os.path.join(output_dir, f"dataset-{di:04d}")
@@ -217,8 +248,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--on-corrupt", default="raise", choices=["raise", "quarantine"],
                    help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
                         "(skip-and-count)")
-    p.add_argument("--distributed", action="store_true", help="not ported (item 10)")
-    p.add_argument("--mesh", default="", help="not ported (item 10)")
+    p.add_argument("--distributed", action="store_true",
+                   help="score each rank's rows over a data-axis mesh of every rank")
+    p.add_argument("--mesh", default="",
+                   help="data=N[,model=1]: the mesh's shape (implies --distributed; model>1 "
+                        "is not ported, item 15)")
     p.add_argument("--partitioned-io", action="store_true", help="not ported (item 15)")
     p.add_argument("--telemetry-dir", help="not ported (item 19)")
     p.add_argument("--trace-dir", help="not ported (item 19)")
@@ -244,6 +278,7 @@ def main(argv: Sequence[str] | None = None, *, device=None) -> dict:
         compact_random_effect_threshold=args.compact_random_effect_threshold,
         on_corrupt=args.on_corrupt,
         distributed=args.distributed or bool(args.mesh),
+        mesh_shape=parse_mesh_shape(args.mesh),
         partitioned_io=args.partitioned_io,
         telemetry_dir=args.telemetry_dir,
         trace_dir=args.trace_dir,

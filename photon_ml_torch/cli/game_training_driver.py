@@ -1,7 +1,8 @@
 """GAME training driver: the flagship end-to-end CLI entry point (the port's).
 
-Counterpart of ``photon_ml_tpu/cli/game_training_driver.py`` on its in-core,
-one-device path; reference photon-client
+Counterpart of ``photon_ml_tpu/cli/game_training_driver.py`` on its in-core
+paths, one device or a data-axis mesh (``--distributed``); reference
+photon-client
 cli/game/training/GameTrainingDriver.scala — params (:78-166), run()
 pipeline (:335-471): read + validate data, feature stats, normalization
 contexts, λ-grid expansion (:612-621), GameEstimator fit per configuration
@@ -21,9 +22,17 @@ the JAX driver's names and meanings, and its outputs (``models/<i>``,
 ``best``, ``index-maps``, ``feature-stats``, ``training-summary.json``) keep
 their names and layout. The summary leaves out what only the JAX run fills:
 the telemetry journal, the program ledger and the streaming and refresh
-sections. Left out, each refused with ``NotImplementedError`` naming its
-ROADMAP.md item before any data is read: ``--distributed``/``--mesh`` (10),
-``--partitioned-io`` (15), ``--streaming-chunks`` and its DuHL riders,
+sections.
+
+``--distributed`` (or ``--mesh data=N``) trains through the fused program
+over a mesh of every rank: run it under ``torchrun --nproc-per-node N``
+(NCCL, one card a rank), or in one process alone (a group of one). Every
+rank reads the same inputs; rank 0 writes the outputs and the other ranks
+write into ``<root-output-dir>/.worker-<rank>``.
+
+Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
+item before any data is read: ``--mesh model>1`` and ``--partitioned-io``
+(15), ``--streaming-chunks`` and its DuHL riders,
 ``--checkpoint-dir`` and ``--max-restarts`` above 0 (16; the port's default
 is 0), ``--incremental-refresh``, hyperparameter tuning, the lane scheduler
 (18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir`` (19).
@@ -71,6 +80,7 @@ from photon_ml_torch.io.model_io import (
     write_feature_stats,
 )
 from photon_ml_torch.ops.normalization import NormalizationType
+from photon_ml_torch.parallel import multihost
 from photon_ml_torch.types import TaskType
 from photon_ml_torch.util import PhotonLogger, Timed
 from photon_ml_torch.util.date_range import parse_date_or_days_range, resolve_input_paths
@@ -121,7 +131,11 @@ class GameTrainingParams:
     profile_dir: str | None = None
     telemetry_dir: str | None = None
     trace_dir: str | None = None
+    #: train through the fused program over a data-axis mesh (one process
+    #: per rank: ``torchrun --nproc-per-node N``, or one process alone);
+    #: ``mesh_shape`` {"data": N, "model": M}, None = every rank on "data"
     distributed: bool = False
+    mesh_shape: dict | None = None
     partitioned_io: bool = False
     streaming_chunks: int = 0
     duhl_working_set: int = 0
@@ -131,8 +145,8 @@ class GameTrainingParams:
         """Raise NotImplementedError for the first option or coordinate the
         port lacks, before any data is read."""
         left_out = (
-            (self.distributed,
-             "--distributed/--mesh (the mesh path)", "10, step 2 (the mesh)"),
+            ((self.mesh_shape or {}).get("model", 1) > 1,
+             "--mesh model>1 (the model axis)", 15),
             (self.partitioned_io, "--partitioned-io (multi-process ingestion)", 15),
             (self.streaming_chunks > 0 or self.duhl_working_set > 0,
              "--streaming-chunks and the DuHL schedule (out-of-core GAME)", 16),
@@ -214,14 +228,42 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
     returns the summary dict written to ``training-summary.json``."""
     params.validate()
     params.check_ported()
-    device = resolve_device(device)
-    out = params.root_output_dir
-    if os.path.isdir(out) and os.listdir(out) and not params.override_output:
-        raise ValueError(f"output dir {out!r} is non-empty (pass --override-output to replace)")
-    os.makedirs(out, exist_ok=True)
-    reset_timings()
-    with PhotonLogger(os.path.join(out, "driver.log")) as job_log:
-        return _run_inner(params, job_log, device)
+    created = False
+    if params.distributed:
+        # every rank reads the same inputs and joins every collective; the
+        # files are rank 0's, the other ranks write into a scratch directory
+        created = not torch.distributed.is_initialized()
+        info = multihost.initialize(device=device)
+        if info.rank > 0:
+            params = dataclasses.replace(
+                params, root_output_dir=os.path.join(params.root_output_dir,
+                                                     f".worker-{info.rank}"),
+                override_output=True)
+    elif torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+        raise ValueError("multi-process runs require --distributed or --mesh (the fused "
+                         "program over the mesh); the coordinate-descent path has no "
+                         "cross-rank coordination")
+    try:
+        device = resolve_device(device)
+        out = params.root_output_dir
+        # a faster rank may create its .worker-N directory first
+        existing = [e for e in os.listdir(out) if not e.startswith(".worker-")] \
+            if os.path.isdir(out) else []
+        if existing and not params.override_output:
+            raise ValueError(f"output dir {out!r} is non-empty (pass --override-output to "
+                             "replace)")
+        mesh = None
+        if params.distributed:
+            shape = dict(params.mesh_shape or {})
+            mesh = multihost.make_hybrid_mesh(data=shape.get("data"),
+                                              model=shape.get("model", 1))
+        os.makedirs(out, exist_ok=True)
+        reset_timings()
+        with PhotonLogger(os.path.join(out, "driver.log")) as job_log:
+            return _run_inner(params, job_log, device, mesh)
+    finally:
+        if created:
+            multihost.shutdown()
 
 
 def _resolve(path: str, range_spec: str | None):
@@ -231,8 +273,10 @@ def _resolve(path: str, range_spec: str | None):
     return resolve_input_paths([path], parse_date_or_days_range(range_spec))
 
 
-def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dict:
+def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=None) -> dict:
     out = params.root_output_dir
+    if mesh is not None:
+        job_log.info("distributed mode: mesh data=%d, model=%d", mesh.size(0), mesh.size(1))
     sync = torch.cuda.synchronize if device.type == "cuda" else None
     entity_columns = {c.random_effect_type for c in params.coordinates.values()
                       if c.random_effect_type}
@@ -310,6 +354,7 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dic
             validation_evaluators=params.evaluators,
             locked_coordinates=frozenset(params.partial_retrain_locked_coordinates),
             intercept_indices=train.intercept_indices,
+            mesh=mesh,
         )
 
     grid = expand_reg_weight_grid(params.coordinates)
@@ -342,7 +387,7 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device) -> dic
                                 optimization_configurations={"regWeights": reg_weights})
 
     summary: dict = {
-        "distributed": False,
+        "distributed": mesh is not None,
         "num_configurations": len(grid),
         "effective_coordinate_configurations": {
             name: format_coordinate_config(cfg) for name, cfg in params.coordinates.items()},
@@ -405,8 +450,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    default=DEFAULT_COMPACT_RE_THRESHOLD,
                    help="warm-start RE models over this feature-space size load as compact "
                         "per-entity tables")
-    p.add_argument("--distributed", action="store_true", help="not ported (item 10)")
-    p.add_argument("--mesh", default="", help="not ported (item 10)")
+    p.add_argument("--distributed", action="store_true",
+                   help="train through the fused program over a data-axis mesh of every rank "
+                        "(torchrun --nproc-per-node N, or one process alone)")
+    p.add_argument("--mesh", default="",
+                   help="data=N[,model=1]: the mesh's shape (implies --distributed; model>1 "
+                        "is not ported, item 15)")
     p.add_argument("--partitioned-io", action="store_true", help="not ported (item 15)")
     p.add_argument("--on-corrupt", default="raise", choices=["raise", "quarantine"],
                    help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
@@ -461,6 +510,7 @@ def parse_args(argv: Sequence[str] | None = None) -> GameTrainingParams:
         trace_dir=args.trace_dir,
         compact_random_effect_threshold=args.compact_random_effect_threshold,
         distributed=args.distributed or bool(args.mesh),
+        mesh_shape=parse_mesh_shape(args.mesh),
         partitioned_io=args.partitioned_io,
         on_corrupt=args.on_corrupt,
         max_restarts=args.max_restarts,
@@ -468,6 +518,23 @@ def parse_args(argv: Sequence[str] | None = None) -> GameTrainingParams:
         duhl_working_set=args.duhl_working_set,
         incremental_refresh=args.incremental_refresh,
     )
+
+
+def parse_mesh_shape(spec: str) -> dict[str, int] | None:
+    """'data=8,model=1' -> {"data": 8, "model": 1}; '' -> None."""
+    if not spec:
+        return None
+    out: dict[str, int] = {}
+    for part in spec.split(","):
+        if not part.strip():
+            continue
+        key, _, value = part.partition("=")
+        key = key.strip()
+        if key not in ("data", "model") or not value.strip().isdigit() or int(value) < 1:
+            raise ValueError(f"bad --mesh component {part!r}; expected data=N,model=M with "
+                             "N,M >= 1")
+        out[key] = int(value)
+    return out
 
 
 def main(argv: Sequence[str] | None = None, *, device=None) -> dict:

@@ -135,9 +135,22 @@ def pad_game_dataset(dataset: GameDataset, multiple: int) -> tuple[GameDataset, 
     dataset itself when already divisible.
     """
     n = dataset.num_samples
-    pad = (-n) % max(1, int(multiple))
+    return _pad_game_dataset_rows(dataset, (-n) % max(1, int(multiple))), n
+
+
+def pad_game_dataset_to(dataset: GameDataset, length: int) -> tuple[GameDataset, int]:
+    """Pad the sample axis with zero-weight rows to exactly ``length`` rows
+    (the padding contract of :func:`pad_game_dataset`). Returns (padded
+    dataset, original sample count)."""
+    n = dataset.num_samples
+    if length < n:
+        raise ValueError(f"cannot pad a {n}-row dataset down to {length} rows")
+    return _pad_game_dataset_rows(dataset, length - n), n
+
+
+def _pad_game_dataset_rows(dataset: GameDataset, pad: int) -> GameDataset:
     if pad == 0:
-        return dataset, n
+        return dataset
     device = dataset.device
 
     def padded_vec(name: str):
@@ -180,7 +193,37 @@ def pad_game_dataset(dataset: GameDataset, multiple: int) -> tuple[GameDataset, 
         unique_ids=unique_ids, labels=labels_d, offsets=offsets_d, weights=weights_d,
         feature_shards=shards, entity_idx=entity_idx, entity_vocabs=dataset.entity_vocabs,
         ids=ids, host_cache=host_cache,
-    ), n
+    )
+
+
+def sparse_shard_rows(shard: SparseShard, rows: slice) -> SparseShard:
+    """The entries of rows ``[rows.start, rows.stop)`` of a sparse shard, as
+    a shard of those rows (its layout policy kept)."""
+    r, c, v = (np.asarray(a) for a in shard.coalesced())
+    lo, hi = np.searchsorted(r, [rows.start, rows.stop])
+    return SparseShard(rows=r[lo:hi] - rows.start, cols=c[lo:hi], vals=v[lo:hi],
+                       num_samples=rows.stop - rows.start, feature_dim=shard.feature_dim,
+                       hybrid_policy=shard.hybrid_policy, ell_width=shard.ell_width)
+
+
+def game_dataset_rows(dataset: GameDataset, rows: slice, device=None) -> GameDataset:
+    """The rows ``[rows.start, rows.stop)`` of a dataset, on ``device``
+    (the dataset's by default): a rank's block of the sample axis. Entity
+    vocabularies stay whole, so entity indices keep their meaning."""
+    device = dataset.device if device is None else torch.device(device)
+
+    def take(t: torch.Tensor) -> torch.Tensor:
+        return t[rows].to(device).contiguous()
+
+    host_cache = {k: v[rows] for k, v in dataset.host_cache.items()}
+    shards = {k: sparse_shard_rows(v, rows) if isinstance(v, SparseShard) else take(v)
+              for k, v in dataset.feature_shards.items()}
+    return GameDataset(
+        unique_ids=np.asarray(dataset.unique_ids)[rows], labels=take(dataset.labels),
+        offsets=take(dataset.offsets), weights=take(dataset.weights), feature_shards=shards,
+        entity_idx={k: take(v) for k, v in dataset.entity_idx.items()},
+        entity_vocabs=dataset.entity_vocabs,
+        ids={k: np.asarray(v)[rows] for k, v in dataset.ids.items()}, host_cache=host_cache)
 
 
 @dataclasses.dataclass
@@ -218,6 +261,39 @@ class EntityBucket:
         rows = self.sample_rows.long()
         gathered = full_offsets[torch.clamp(rows, min=0)]
         return torch.where(rows >= 0, gathered, torch.zeros_like(gathered))
+
+
+#: the entity row of a padding lane: out of range of every table, so its
+#: (all-zero-weight) solve is dropped by the scatter
+PAD_ENTITY_ROW = np.iinfo(np.int32).max
+
+
+def pad_lane_fields(fields: dict, multiple: int) -> dict:
+    """Bucket tensors (``features`` [e, cap, d], ``labels``/``weights``/
+    ``sample_rows`` [e, cap], ``entity_rows`` [e], optional ``col_index``
+    [e, k]) with the lane axis padded to a multiple of ``multiple``. Pad
+    lanes carry weight 0, sample rows -1 (zero offsets), entity row
+    :data:`PAD_ENTITY_ROW` (no table row is written) and zero features."""
+    e = int(fields["entity_rows"].shape[0])
+    pad = (-e) % max(1, int(multiple))
+    if not pad:
+        return dict(fields)
+    fill = {"sample_rows": -1, "entity_rows": int(PAD_ENTITY_ROW)}
+    out = {}
+    for k, v in fields.items():
+        if v is None:
+            out[k] = None
+            continue
+        extra = torch.full((pad,) + tuple(v.shape[1:]), fill.get(k, 0), dtype=v.dtype,
+                           device=v.device)
+        out[k] = torch.cat([v, extra])
+    return out
+
+
+def pad_bucket_lanes(bucket: "EntityBucket", multiple: int) -> "EntityBucket":
+    """:func:`pad_lane_fields` of an EntityBucket."""
+    return EntityBucket(**pad_lane_fields(
+        {f.name: getattr(bucket, f.name) for f in dataclasses.fields(bucket)}, multiple))
 
 
 @dataclasses.dataclass
@@ -481,9 +557,14 @@ def build_random_effect_dataset(
     projected_dim: int | None = None,
     features_to_samples_ratio: float | None = None,
     normalization=None,
+    lane_multiple: int = 1,
 ) -> RandomEffectDataset:
     """Group samples by entity into padded, size-bucketed blocks on the
     dataset's device (a dense shard).
+
+    - lane_multiple: each bucket's lane count is padded to a multiple of it
+      with lanes that train nothing (:func:`pad_bucket_lanes`), so the
+      lanes split evenly over a mesh's data axis.
 
     - upper bound: per-entity reservoir cap (stable-id keyed sampling).
     - lower bound: entities with fewer samples are left out of training
@@ -503,6 +584,14 @@ def build_random_effect_dataset(
 
     Host work is numpy; only the finished bucket tensors go to the device.
     """
+    if lane_multiple > 1:
+        ds = build_random_effect_dataset(
+            dataset, re_type, shard_id, active_data_upper_bound=active_data_upper_bound,
+            active_data_lower_bound=active_data_lower_bound, bucket_sizes=bucket_sizes,
+            seed=seed, projector_type=projector_type, projected_dim=projected_dim,
+            features_to_samples_ratio=features_to_samples_ratio, normalization=normalization)
+        return dataclasses.replace(
+            ds, buckets=[pad_bucket_lanes(b, lane_multiple) for b in ds.buckets])
     shard = dataset.feature_shards[shard_id]
     if normalization is not None and projector_type == ProjectorType.IDENTITY \
             and not isinstance(shard, SparseShard):

@@ -12,7 +12,10 @@ its matrix unit with f32 accumulation).
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -22,8 +25,10 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     """The device an entry point runs on.
 
     ``None`` means the CUDA device, and raises ``RuntimeError`` when
-    ``torch.cuda.is_available()`` is False. ``"cpu"`` (or any explicit
-    device) is taken as given.
+    ``torch.cuda.is_available()`` is False. Under an initialized process
+    group it is the rank's own card, ``cuda:{LOCAL_RANK}`` (the launcher's
+    variable, 0 without one), so ranks of one host never share card 0.
+    ``"cpu"`` (or any explicit device) is taken as given.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -31,5 +36,7 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run on "
                 "the CPU explicitly"
             )
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         return torch.device("cuda")
     return torch.device(device)

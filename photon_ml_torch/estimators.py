@@ -3,8 +3,10 @@
 Counterpart of ``photon_ml_tpu/estimators.py``. ``GameEstimator.fit``
 (reference photon-api estimators/GameEstimator.scala) builds the
 per-coordinate datasets, the training-loss and validation evaluators and the
-per-shard normalization, then runs block coordinate descent; in the port it
-runs on one device, over a dense or sparse fixed effect, random effects
+per-shard normalization, then runs block coordinate descent; with ``mesh``
+it trains through the fused program over the mesh's data axis instead
+(``_fit_distributed``, ``parallel/distributed.py``). One device runs it over
+a dense or sparse fixed effect, random effects
 on dense shards (IDENTITY, INDEX_MAP or RANDOM projection, optional
 per-entity Pearson feature selection) or on sparse shards (compact ``[E, K]``
 tables over each entity's active columns), and matrix-factorization
@@ -148,7 +150,12 @@ class GameEstimator:
     checkpointer: object | None = None
     #: raise DivergenceError on non-finite coordinate updates
     check_finite: bool = True
+    #: a data-axis DeviceMesh (``parallel/mesh.make_mesh``): fit() trains
+    #: through the fused program over it (every rank calls fit with the same
+    #: datasets) instead of the coordinate-descent loop
     mesh: object | None = None
+    #: the model axis: not ported (ROADMAP.md item 15)
+    fe_feature_sharded: bool = False
     telemetry: object | None = None
     #: evaluation path of the fixed-effect solves (ops/objective.py): None =
     #: the packed kernel on a CUDA block, False = the closed form
@@ -162,13 +169,17 @@ class GameEstimator:
 
     def fit(self, dataset: GameDataset, validation_dataset: GameDataset | None = None,
             initial_model: GameModel | None = None) -> CoordinateDescentResult:
-        if self.mesh is not None:
-            raise _not_ported("the mesh path (_fit_distributed, shard_inputs)",
-                              "10, step 2 (the mesh)")
+        if self.fe_feature_sharded:
+            raise _not_ported("GameEstimator(fe_feature_sharded=True) (the model axis)", 15)
         if self.checkpointer is not None:
             raise _not_ported("checkpoints in run_coordinate_descent", 16)
         if self.telemetry is not None:
             raise _not_ported("solver telemetry", 19)
+        if self.mesh is not None:
+            from photon_ml_torch.parallel.mesh import check_data_mesh
+
+            check_data_mesh(self.mesh)
+            return self._fit_distributed(dataset, validation_dataset, initial_model)
         sequence, coordinates = self._build_coordinates(dataset, initial_model)
 
         def eval_data(ds):
@@ -198,6 +209,220 @@ class GameEstimator:
             check_finite=self.check_finite,
             on_update=self.on_update,
         )
+
+    def _fit_distributed(self, dataset: GameDataset,
+                         validation_dataset: GameDataset | None = None,
+                         initial_model: GameModel | None = None) -> CoordinateDescentResult:
+        """fit() through the fused program over the mesh (JAX
+        ``estimators.py:461-955``): one step per sweep over every coordinate
+        in the configured order, per-sweep validation and best-model
+        tracking, the same CoordinateDescentResult.
+
+        As in the JAX package: the first trainable fixed effect of the
+        sequence is the primary (the only one that may be sparse), further
+        fixed effects train as dense extra coordinates inside the step, a
+        fit without one carries a zero-width placeholder, locked
+        coordinates add their fixed scores to the offsets and pass through,
+        and variances are computed after training at the final and best
+        states."""
+        from photon_ml_torch.algorithm.coordinates import _solve_config
+        from photon_ml_torch.parallel.distributed import (
+            FixedEffectStepSpec,
+            GameTrainProgram,
+            MatrixFactorizationStepSpec,
+            RandomEffectStepSpec,
+            game_model_to_state,
+            state_to_game_model,
+            train_distributed,
+        )
+
+        sequence = list(self.update_sequence or self.coordinate_configs.keys())
+        task_loss = loss_for_task(self.task)
+        locked = set(self.locked_coordinates)
+        if locked and initial_model is None:
+            raise ValueError("locked coordinates require an initial model "
+                             "(partial retraining needs a pre-trained model)")
+        fe_ids = [cid for cid in sequence if cid not in locked
+                  and isinstance(self.coordinate_configs[cid], FixedEffectCoordinateConfig)]
+        if fe_ids:
+            fe_cid = fe_ids[0]
+            fe_cfg = self.coordinate_configs[fe_cid]
+            fe_shard = fe_cfg.feature_shard_id
+        else:
+            # the step always carries a fixed effect: a zero-width one, whose
+            # solve is a no-op and whose (empty) model is dropped on output
+            fe_cid = None
+            fe_shard = "__no_fe__"
+            while fe_shard in dataset.feature_shards:
+                fe_shard = "_" + fe_shard
+            fe_cfg = FixedEffectCoordinateConfig(fe_shard, CoordinateOptimizationConfig(
+                optimizer=OptimizerConfig(max_iterations=1)))
+
+            def with_empty_shard(ds):
+                empty = torch.zeros((ds.num_samples, 0), dtype=ds.labels.dtype,
+                                    device=ds.device)
+                return dataclasses.replace(ds, feature_shards={**ds.feature_shards,
+                                                               fe_shard: empty})
+
+            dataset = with_empty_shard(dataset)
+            if validation_dataset is not None:
+                validation_dataset = with_empty_shard(validation_dataset)
+        fe_intercept = self.intercept_indices.get(fe_shard)
+        norms = self._prepare_normalization(dataset)
+
+        re_specs, re_datasets, re_cid_of_type = [], {}, {}
+        mf_specs, mf_datasets = [], {}
+        re_normalizations: dict[str, NormalizationContext] = {}
+        extra_fe_specs, extra_fe_cid_of_shard = [], {}
+        for cid in sequence:
+            if cid in locked or cid == fe_cid:
+                continue
+            cfg = self.coordinate_configs[cid]
+            if isinstance(cfg, FixedEffectCoordinateConfig):
+                if cfg.feature_shard_id in extra_fe_cid_of_shard or cfg.feature_shard_id == fe_shard:
+                    raise ValueError(
+                        f"distributed training: fixed-effect coordinates '{cid}' and another "
+                        f"share feature shard '{cfg.feature_shard_id}' — the fused step keys FE "
+                        "coordinates by feature shard; merge or rename")
+                extra_fe_cid_of_shard[cfg.feature_shard_id] = cid
+                extra_fe_specs.append(FixedEffectStepSpec(
+                    feature_shard_id=cfg.feature_shard_id,
+                    optimizer=_solve_config(cfg.optimization, loss=task_loss),
+                    l2_weight=cfg.optimization.l2_weight,
+                    down_sampling_rate=cfg.optimization.down_sampling_rate,
+                    intercept_index=self.intercept_indices.get(cfg.feature_shard_id)))
+                continue
+            if isinstance(cfg, MatrixFactorizationCoordinateConfig):
+                mf_datasets[cid] = build_mf_dataset(
+                    dataset, cfg.row_effect_type, cfg.col_effect_type,
+                    active_data_upper_bound=cfg.active_data_upper_bound, seed=cfg.seed)
+                mf_specs.append(MatrixFactorizationStepSpec(
+                    name=cid, row_effect_type=cfg.row_effect_type,
+                    col_effect_type=cfg.col_effect_type,
+                    num_latent_factors=cfg.num_latent_factors,
+                    optimizer=_solve_config(cfg.optimization, loss=task_loss, small_dense=True),
+                    l2_weight=cfg.optimization.l2_weight,
+                    num_alternations=cfg.num_alternations, seed=cfg.seed))
+                continue
+            re_type = cfg.random_effect_type
+            if re_type in re_cid_of_type:
+                raise ValueError(
+                    f"distributed training: coordinates '{re_cid_of_type[re_type]}' and "
+                    f"'{cid}' share random effect type '{re_type}' — the fused step keys its "
+                    "coefficient tables by RE type; merge or rename")
+            re_cid_of_type[re_type] = cid
+            re_datasets[re_type] = build_random_effect_dataset(
+                dataset, re_type, cfg.feature_shard_id,
+                active_data_upper_bound=cfg.active_data_upper_bound,
+                active_data_lower_bound=cfg.active_data_lower_bound,
+                bucket_sizes=cfg.bucket_sizes, projector_type=cfg.projector_type,
+                projected_dim=cfg.projected_dim,
+                features_to_samples_ratio=cfg.features_to_samples_ratio,
+                normalization=_build_normalization_for(cfg, dataset, norms))
+            if norms.get(cfg.feature_shard_id) is not None:
+                re_normalizations[re_type] = norms[cfg.feature_shard_id]
+            re_specs.append(RandomEffectStepSpec(
+                re_type=re_type, feature_shard_id=cfg.feature_shard_id,
+                optimizer=_solve_config(cfg.optimization, loss=task_loss, small_dense=True),
+                l2_weight=cfg.optimization.l2_weight,
+                # the dataset's projector: sparse shards coerce to compact
+                # INDEX_MAP
+                projector=re_datasets[re_type].projector_type,
+                intercept_index=self.intercept_indices.get(cfg.feature_shard_id)))
+
+        cid_to_name: dict[str, str] = {} if fe_cid is None else {fe_cid: fe_shard}
+        cid_to_name.update({cid: sh for sh, cid in extra_fe_cid_of_shard.items()})
+        cid_to_name.update({cid: t for t, cid in re_cid_of_type.items()})
+        cid_to_name.update({m.name: m.name for m in mf_specs})
+        update_order = [cid_to_name[cid] for cid in sequence if cid not in locked]
+        if fe_cid is None:
+            update_order = [fe_shard] + update_order
+        program = GameTrainProgram(
+            self.task,
+            FixedEffectStepSpec(feature_shard_id=fe_shard,
+                                optimizer=_solve_config(fe_cfg.optimization, loss=task_loss),
+                                l2_weight=fe_cfg.optimization.l2_weight,
+                                down_sampling_rate=fe_cfg.optimization.down_sampling_rate),
+            tuple(re_specs), mf_specs=tuple(mf_specs), extra_fes=tuple(extra_fe_specs),
+            update_order=update_order, normalization=norms.get(fe_shard),
+            re_normalizations=re_normalizations,
+            extra_fe_normalizations={sh: norms[sh] for sh in extra_fe_cid_of_shard
+                                     if sh in norms},
+            use_kernel_fe=self.use_kernel, mesh=self.mesh)
+
+        # locked coordinates: fixed offsets and pass-through models
+        locked_models: dict = {}
+        train_ds, val_ds = dataset, validation_dataset
+        if locked:
+            def locked_total(ds) -> torch.Tensor:
+                total = torch.zeros_like(ds.offsets)
+                for cid in sequence:
+                    if cid in locked:
+                        m = initial_model.get(cid)
+                        locked_models[cid] = m
+                        total = total + ModelCoordinate(cid, ds, m).score(m)
+                return total
+
+            def with_extra_offsets(ds, extra):
+                new_off = ds.offsets + extra
+                return dataclasses.replace(ds, offsets=new_off, host_cache={
+                    **ds.host_cache, "offsets": new_off.detach().cpu().numpy()})
+
+            train_ds = with_extra_offsets(dataset, locked_total(dataset))
+            if validation_dataset is not None:
+                val_ds = with_extra_offsets(validation_dataset, locked_total(validation_dataset))
+
+        warm_state = None
+        if initial_model is not None:
+            # model keys are coordinate ids; the program keys the FE by shard
+            # and REs by effect type
+            program_key = {} if fe_cid is None else {fe_cid: fe_shard}
+            program_key.update({cid: sh for sh, cid in extra_fe_cid_of_shard.items()})
+            program_key.update({cid: t for t, cid in re_cid_of_type.items()})
+            remapped = {program_key.get(cid, cid): m for cid, m in initial_model.models.items()}
+            warm_state = game_model_to_state(
+                program, GameModel(models=remapped), train_ds, intercept_index=fe_intercept,
+                missing_ok=True, re_datasets=re_datasets, mf_datasets=mf_datasets)
+
+        def eval_data(ds):
+            return EvaluationData(labels=ds.host_array("labels"), offsets=ds.host_array("offsets"),
+                                  weights=ds.host_array("weights"), ids=ds.ids)
+
+        evaluators = [parse_evaluator(s) for s in self.validation_evaluators]
+        val_eval_data = (eval_data(validation_dataset)
+                         if validation_dataset is not None and evaluators else None)
+        result = train_distributed(
+            program, train_ds, re_datasets, mf_datasets=mf_datasets, mesh=self.mesh,
+            num_iterations=self.num_iterations, state=warm_state,
+            validation_dataset=val_ds if val_eval_data is not None else None,
+            validation_evaluators=evaluators, validation_eval_data=val_eval_data,
+            training_evaluator=default_evaluator_for_task(self.task),
+            training_eval_data=eval_data(dataset), check_finite=self.check_finite)
+
+        trainable_cids = {} if fe_cid is None else {fe_shard: fe_cid}
+        trainable_cids.update(extra_fe_cid_of_shard)
+        trainable_cids.update({t: cid for t, cid in re_cid_of_type.items()})
+        compute_var = any(self.coordinate_configs[cid].optimization.compute_variance
+                          for cid in sequence if cid not in locked)
+        variance_re_types = {t for t, cid in re_cid_of_type.items()
+                             if self.coordinate_configs[cid].optimization.compute_variance}
+
+        def to_game_model(state) -> GameModel:
+            m = state_to_game_model(
+                program, state, train_ds, intercept_index=fe_intercept,
+                compute_variance=compute_var, variance_mode=fe_cfg.optimization.variance_mode,
+                re_datasets=re_datasets, variance_re_types=variance_re_types)
+            renamed = {trainable_cids.get(k, k): v for k, v in m.models.items()
+                       if not (fe_cid is None and k == fe_shard)}
+            renamed.update(locked_models)
+            return GameModel(models={cid: renamed[cid] for cid in sequence if cid in renamed})
+
+        final_model = to_game_model(result.state)
+        best_model = (to_game_model(result.best_state) if result.best_state is not None
+                      else final_model)
+        return CoordinateDescentResult(model=final_model, best_model=best_model,
+                                       best_metric=result.best_metric,
+                                       metric_history=result.metric_history)
 
     def _build_coordinates(self, dataset: GameDataset, initial_model: GameModel | None):
         """(sequence, coordinate map), locked coordinates wrapped as

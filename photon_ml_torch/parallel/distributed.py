@@ -29,10 +29,27 @@ on a sparse one; False takes the closed forms. The packed-aux kernel of
 sparse shard score through the gather kernel over their flattened table
 (``models/game.CompactEntries``).
 
-The mesh (``shard_inputs``, multi-process placement), checkpoints and the
-lane scheduler are not ported yet: ROADMAP.md items 10 (step 2), 16 and 18.
-Nothing is compiled: each coordinate's solve runs its lane loops as
-``GameEstimator.fit`` does.
+The mesh (``mesh=``, a ``parallel/mesh.make_mesh`` DeviceMesh) runs the
+same sweep data-parallel, one process per rank: :meth:`GameTrainProgram.
+shard_inputs` keeps this rank's block of rows and of each bucket's entity
+lanes, and every collective is explicit and in the same order on every
+rank (``parallel/mesh.py`` counts them):
+
+- a fixed effect's solve: each evaluation sums the ranks' partials with one
+  ``all_reduce`` (``parallel/sharded_dense.py``; B1 or G1 on each rank's
+  rows);
+- a random-effect or MF coordinate: one ``all_gather`` of the residual
+  offsets (bucket ``sample_rows`` index the whole sample axis), each rank
+  solves its lanes, then one ``all_gather`` of the solved table rows per
+  table (per MF half-step), so every rank holds the whole table again;
+- the training loss: one ``all_reduce`` of (Σw·l, Σw).
+
+The state stays replicated, and every rank holds the full [n] entity
+indices of MF coordinates (the other side's factor rows of a lane's
+samples). The model axis (``fe_feature_sharded``, ``model > 1``),
+checkpoints and the lane scheduler are not ported yet: ROADMAP.md items 15,
+16 and 18. Nothing is compiled: each coordinate's solve runs its lane loops
+as ``GameEstimator.fit`` does.
 """
 
 from __future__ import annotations
@@ -56,8 +73,18 @@ from photon_ml_torch.algorithm.coordinates import (
 )
 from photon_ml_torch.algorithm.mf_coordinate import MFDataset, solve_mf_side_bucket
 from photon_ml_torch.data.batch import LabeledPointBatch, device_tensor, solve_dtype_of
-from photon_ml_torch.data.game_data import GameDataset, RandomEffectDataset
-from photon_ml_torch.data.sparse_batch import SparseShard, feature_product
+from photon_ml_torch.data.game_data import (
+    GameDataset,
+    RandomEffectDataset,
+    pad_game_dataset,
+    pad_lane_fields,
+    sparse_shard_rows,
+)
+from photon_ml_torch.data.sparse_batch import (
+    SparseLabeledPointBatch,
+    SparseShard,
+    feature_product,
+)
 from photon_ml_torch.estimators import _not_ported
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.game import (
@@ -85,11 +112,16 @@ from photon_ml_torch.ops.variance import (
     validate_variance_mode,
 )
 from photon_ml_torch.optim.optimizer import OptimizerConfig, resolve_auto_optimizer, solve
+from photon_ml_torch.parallel import mesh as mesh_ops
+from photon_ml_torch.parallel.sharded_dense import (
+    ShardedDenseGLMObjective,
+    ShardedSparseGLMObjective,
+)
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.types import TaskType
 
-#: the ROADMAP item of the mesh path, named by its refusals
-_MESH_ITEM = "10, step 2 (the mesh)"
+#: the ROADMAP item of the model axis and partitioned I/O, named by refusals
+_MODEL_AXIS_ITEM = "15 (the model axis)"
 
 
 @dataclasses.dataclass
@@ -194,7 +226,41 @@ def _data_pytree(dataset: GameDataset, re_specs: Sequence[RandomEffectStepSpec],
     if isinstance(dataset.feature_shards[fe_shard], SparseShard):
         base = dataset.fixed_effect_batch(fe_shard)
         data["fe_sparse_batch"] = base.with_offsets(torch.zeros_like(base.offsets))
+        data["fe_sparse_shard"] = dataset.feature_shards[fe_shard]
     return data
+
+
+@dataclasses.dataclass
+class MeshLayout:
+    """This rank's place in a mesh-sharded data pytree (``data["mesh"]``):
+    its rows of the padded sample axis and, per exchanged table (an RE type,
+    ``"<mf name>/row"``, ``"<mf name>/col"``), the entity rows its lanes own
+    ([L], pads out of range) and every rank's owned rows in rank order
+    ([R·L])."""
+
+    mesh: object
+    rows: slice
+    num_rows: int
+    owned: dict = dataclasses.field(default_factory=dict)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's [n/R] slice of a sample-axis vector -> the whole [n]."""
+        return mesh_ops.all_gather_rows(local, self.mesh)
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        return mesh_ops.all_reduce_sum(t, self.mesh)
+
+    def share(self, key: str, table: torch.Tensor) -> torch.Tensor:
+        """``table`` with every rank's solved rows for ``key``: this rank's
+        rows are gathered from all ranks and written in place of the stale
+        ones (rows that no lane owns are equal on every rank already)."""
+        mine, every = self.owned[key]
+        if mine.numel() == 0:
+            return table
+        n = table.shape[0]
+        got = mesh_ops.all_gather_rows(table[torch.clamp(mine, max=max(n - 1, 0))], self.mesh)
+        valid = every < n
+        return table.index_copy(0, every[valid], got[valid])
 
 
 def _buckets_pytree(re_datasets: Mapping[str, RandomEffectDataset],
@@ -268,9 +334,11 @@ class GameTrainProgram:
         mesh=None,
         fe_feature_sharded: bool = False,
     ):
-        if mesh is not None or fe_feature_sharded:
-            raise _not_ported("GameTrainProgram over a mesh (mesh, fe_feature_sharded)",
-                              _MESH_ITEM)
+        if fe_feature_sharded:
+            raise _not_ported("GameTrainProgram with fe_feature_sharded", _MODEL_AXIS_ITEM)
+        if mesh is not None:
+            mesh_ops.check_data_mesh(mesh)
+        self.mesh = mesh
         self.task = task
         loss = loss_for_task(task)
         self._loss = loss
@@ -373,6 +441,24 @@ class GameTrainProgram:
         }
         self._mf_objectives = {m.name: GLMObjective(loss, l2_weight=m.l2_weight, use_kernel=False)
                                for m in self.mf_specs}
+        # the fixed effects' solves over a mesh: each rank's rows, summed by
+        # one all-reduce an evaluation (the objectives above keep serving
+        # scoring, variances and model conversion over whole datasets)
+        self._mesh_objectives: dict = {}
+        if mesh is not None:
+            self._mesh_objectives = {
+                "dense": ShardedDenseGLMObjective(loss, mesh, l2_weight=fe.l2_weight,
+                                                  normalization=normalization,
+                                                  use_kernel=use_kernel_fe),
+                "sparse": ShardedSparseGLMObjective(loss, mesh, l2_weight=fe.l2_weight,
+                                                    normalization=normalization,
+                                                    use_kernel=use_kernel_fe),
+            }
+            for s in self.extra_fes:
+                self._mesh_objectives[s.feature_shard_id] = ShardedDenseGLMObjective(
+                    loss, mesh, l2_weight=s.l2_weight,
+                    normalization=extra_fe_normalizations.get(s.feature_shard_id),
+                    use_kernel=use_kernel_fe)
 
     def fe_coefficients_model_space(self, state: GameTrainState,
                                     intercept_index: int | None = None) -> torch.Tensor:
@@ -470,6 +556,99 @@ class GameTrainProgram:
         }
         return data, buckets
 
+    # -- the mesh layout -----------------------------------------------------
+
+    def _shard_data(self, mesh, data, *, put_fn=None) -> dict:
+        """This rank's rows of a data pytree (training or scoring) whose
+        sample axis divides the mesh's data axis (``pad_game_dataset``)."""
+        mesh_ops.check_data_mesh(mesh)
+        n = int(data["labels"].shape[0])
+        rows = mesh_ops.row_block(n, mesh)
+        device = data["labels"].device
+        put = put_fn if put_fn is not None else mesh_ops.default_put(device)
+        out = {
+            "labels": put(data["labels"], rows),
+            "offsets": put(data["offsets"], rows),
+            "weights": put(data["weights"], rows),
+            "features": {k: put(v, rows) for k, v in data["features"].items()},
+            "entity_idx": {k: put(v, rows) for k, v in data["entity_idx"].items()},
+            "mesh": MeshLayout(mesh=mesh, rows=rows, num_rows=n),
+        }
+        mf_types = {t for m in self.mf_specs for t in (m.row_effect_type, m.col_effect_type)}
+        if mf_types:
+            # a lane's samples lie on every rank: the other side's entity of
+            # each sample is read from the whole [n] index vector
+            out["entity_idx_full"] = {t: data["entity_idx"][t].to(device) for t in mf_types}
+        if "fe_sparse_shard" in data:
+            local = sparse_shard_rows(data["fe_sparse_shard"], rows)
+            out["fe_sparse_shard"] = local
+            out["fe_sparse_batch"] = SparseLabeledPointBatch.from_shard(
+                local, out["labels"], torch.zeros_like(out["offsets"]), out["weights"],
+                device=device)
+        if "re_sparse" in data:
+            out["re_sparse"] = {k: _entries_rows(e, rows) for k, e in data["re_sparse"].items()}
+        return out
+
+    def shard_inputs(self, mesh, data, buckets, state: GameTrainState, *,
+                     fe_feature_sharded: bool = False, put_fn=None):
+        """(data, buckets, state) of this rank: its rows of the sample axis,
+        its block of each bucket's entity lanes (each bucket padded first to
+        a multiple of the data axis with lanes that train nothing), and the
+        whole state on its device. ``data`` must come from a dataset padded
+        to a multiple of the data axis (``train_distributed`` pads).
+
+        put_fn: (tensor, rows) -> this rank's block of those rows on its
+        device (``parallel/mesh.default_put``)."""
+        if fe_feature_sharded:
+            raise _not_ported("shard_inputs(fe_feature_sharded=True)", _MODEL_AXIS_ITEM)
+        out = self._shard_data(mesh, data, put_fn=put_fn)
+        layout: MeshLayout = out["mesh"]
+        device = out["labels"].device
+        put = put_fn if put_fn is not None else mesh_ops.default_put(device)
+        size, rank = mesh_ops.data_size(mesh), mesh_ops.data_rank(mesh)
+
+        def split(bucket_list, key):
+            mine, every = [], [[] for _ in range(size)]
+            local = []
+            for b in bucket_list:
+                b = pad_lane_fields(b, size)
+                per = int(b["entity_rows"].shape[0]) // size
+                lanes = slice(rank * per, (rank + 1) * per)
+                local.append({k: None if v is None else put(v, lanes) for k, v in b.items()})
+                rows = b["entity_rows"].long().cpu()
+                for r in range(size):
+                    every[r].append(rows[r * per:(r + 1) * per])
+                mine.append(rows[lanes])
+            cat = (lambda parts: torch.cat(parts).to(device)
+                   if parts else torch.zeros((0,), dtype=torch.long, device=device))
+            layout.owned[key] = (cat(mine), cat([t for r in every for t in r]))
+            return local
+
+        sharded = {k: split(bs, k) for k, bs in buckets.items()
+                   if k not in ("__mf__", "__projections__")}
+        if "__projections__" in buckets:
+            sharded["__projections__"] = {k: torch.as_tensor(v, device=device)
+                                          for k, v in buckets["__projections__"].items()}
+        if "__mf__" in buckets:
+            sharded["__mf__"] = {name: {side: split(bs, f"{name}/{side}")
+                                        for side, bs in sides.items()}
+                                 for name, sides in buckets["__mf__"].items()}
+        state = GameTrainState(
+            fe_coefficients=state.fe_coefficients.to(device),
+            re_tables={k: v.to(device) for k, v in state.re_tables.items()},
+            mf_rows={k: v.to(device) for k, v in state.mf_rows.items()},
+            mf_cols={k: v.to(device) for k, v in state.mf_cols.items()},
+            extra_fe={k: v.to(device) for k, v in state.extra_fe.items()})
+        return out, sharded, state
+
+    def shard_scoring_inputs(self, mesh, data, *, fe_feature_sharded: bool = False,
+                             put_fn=None) -> dict:
+        """This rank's rows of :meth:`prepare_scoring_inputs`' data."""
+        if fe_feature_sharded:
+            raise _not_ported("shard_scoring_inputs(fe_feature_sharded=True)",
+                              _MODEL_AXIS_ITEM)
+        return self._shard_data(mesh, data, put_fn=put_fn)
+
     # -- the fused step ------------------------------------------------------
 
     def step(self, data, buckets, state: GameTrainState):
@@ -477,6 +656,7 @@ class GameTrainProgram:
         0-dim tensor on the device."""
         labels, weights = data["labels"], data["weights"]
         base_offsets = data["offsets"]
+        layout: MeshLayout | None = data.get("mesh")
         # `scores` holds each coordinate's score at its LATEST coefficients,
         # so a coordinate solved later in the sweep sees the residuals of
         # the ones already updated
@@ -500,22 +680,31 @@ class GameTrainProgram:
                                                       labels, weights, extra_fe[name])
                 scores[name] = self._extra_fe_margin(data, name, extra_fe[name])
             elif kind == "re":
-                tables[name] = self._solve_re(data, buckets, name, offsets_excluding(name),
-                                              tables[name])
+                full_offsets = offsets_excluding(name)
+                if layout is not None:
+                    full_offsets = layout.gather(full_offsets)
+                tables[name] = self._solve_re(data, buckets, name, full_offsets, tables[name])
+                if layout is not None:
+                    tables[name] = layout.share(name, tables[name])
                 scores[name] = self._re_coordinate_score(
                     data, name, tables[name], self._re_by_name[name].feature_shard_id)
             else:  # mf
+                full_offsets = offsets_excluding(name)
+                if layout is not None:
+                    full_offsets = layout.gather(full_offsets)
                 mf_rows[name], mf_cols[name], scores[name] = self._solve_mf(
-                    data, buckets, name, offsets_excluding(name), mf_rows[name], mf_cols[name])
-        train_loss = self._weighted_loss(labels, weights, offsets_excluding())
+                    data, buckets, name, full_offsets, mf_rows[name], mf_cols[name])
+        train_loss = self._weighted_loss(labels, weights, offsets_excluding(), layout)
         new_state = GameTrainState(fe_coefficients=fe_w, re_tables=tables, mf_rows=mf_rows,
                                    mf_cols=mf_cols, extra_fe=extra_fe)
         return new_state, train_loss
 
-    def _weighted_loss(self, labels, weights, total_margin) -> torch.Tensor:
+    def _weighted_loss(self, labels, weights, total_margin, layout=None) -> torch.Tensor:
         losses = self._loss.loss(total_margin, labels)
-        wsum = torch.clamp(torch.sum(weights), min=1.0)
-        return torch.sum(weights * losses) / wsum
+        wl, ws = torch.sum(weights * losses), torch.sum(weights)
+        if layout is not None:
+            wl, ws = layout.total(torch.stack([wl, ws]))
+        return wl / torch.clamp(ws, min=1.0)
 
     @staticmethod
     def _sum_scores(base, scores, skip=None):
@@ -541,7 +730,8 @@ class GameTrainProgram:
 
     def score(self, data, state: GameTrainState) -> torch.Tensor:
         """[n] total scores (margins including the data offsets) at ``state``
-        (reference GameModel.scoreAndValidate, CoordinateDescent.scala:291-356)."""
+        (reference GameModel.scoreAndValidate, CoordinateDescent.scala:291-356);
+        over a mesh, the scores of this rank's rows."""
         total = data["offsets"]
         for v in self._coordinate_scores(data, state).values():
             total = total + v
@@ -611,11 +801,13 @@ class GameTrainProgram:
         """The primary FE's batch at ``offsets`` and ``weights``, with its
         objective."""
         fe_sparse = data.get("fe_sparse_batch")
+        on_mesh = "mesh" in data
         if fe_sparse is not None:
-            return fe_sparse.replace(offsets=offsets, weights=weights), self._fe_sparse_objective
+            return fe_sparse.replace(offsets=offsets, weights=weights), (
+                self._mesh_objectives["sparse"] if on_mesh else self._fe_sparse_objective)
         return LabeledPointBatch(features=data["features"][self.fe.feature_shard_id],
-                                 labels=data["labels"], offsets=offsets,
-                                 weights=weights), self._fe_objective
+                                 labels=data["labels"], offsets=offsets, weights=weights), (
+            self._mesh_objectives["dense"] if on_mesh else self._fe_objective)
 
     def _solve_primary_fe(self, data, fe_offsets, weights, fe_w0):
         """The primary FE solve. Down-sampling multiplies only this solve's
@@ -634,8 +826,9 @@ class GameTrainProgram:
                                   offsets=full_offsets,
                                   weights=weights if mult is None else weights * mult)
         spec = self._extra_fe_by_name[name]
-        return solve(spec.optimizer, self._extra_fe_objectives[name].bind(batch),
-                     w0).coefficients
+        objective = (self._mesh_objectives[name] if "mesh" in data
+                     else self._extra_fe_objectives[name])
+        return solve(spec.optimizer, objective.bind(batch), w0).coefficients
 
     def _solve_re(self, data, buckets, k, full_offsets, table):
         """One RE coordinate: a lane-batched solve per bucket."""
@@ -671,17 +864,26 @@ class GameTrainProgram:
         m = self._mf_by_name[name]
         row_idx = data["entity_idx"][m.row_effect_type]
         col_idx = data["entity_idx"][m.col_effect_type]
+        layout: MeshLayout | None = data.get("mesh")
+        # the lanes' samples index the whole sample axis
+        full_idx = data.get("entity_idx_full", data["entity_idx"])
         objective = self._mf_objectives[name]
         mf_buckets = buckets["__mf__"][name]
         for _ in range(m.num_alternations):
             for b in mf_buckets["row"]:
                 rows, _ = solve_mf_side_bucket(objective, m.optimizer, b["labels"], b["weights"],
-                                               b["entity_rows"], b["sample_rows"], col_idx, cols,
+                                               b["entity_rows"], b["sample_rows"],
+                                               full_idx[m.col_effect_type], cols,
                                                full_offsets, rows)
+            if layout is not None:
+                rows = layout.share(f"{name}/row", rows)
             for b in mf_buckets["col"]:
                 cols, _ = solve_mf_side_bucket(objective, m.optimizer, b["labels"], b["weights"],
-                                               b["entity_rows"], b["sample_rows"], row_idx, rows,
+                                               b["entity_rows"], b["sample_rows"],
+                                               full_idx[m.row_effect_type], rows,
                                                full_offsets, cols)
+            if layout is not None:
+                cols = layout.share(f"{name}/col", cols)
         return rows, cols, score_matrix_factorization(rows, cols, row_idx, col_idx)
 
 
@@ -837,6 +1039,18 @@ def state_to_game_model(
             row_keys=dataset.entity_vocabs[m.row_effect_type],
             col_keys=dataset.entity_vocabs[m.col_effect_type], task=task)
     return GameModel(models=models)
+
+
+def _entries_rows(entries: CompactEntries, rows: slice) -> CompactEntries:
+    """The entries of rows ``[rows.start, rows.stop)`` (entries are
+    row-sorted), with rows counted from ``rows.start``."""
+    bounds = torch.tensor([rows.start, rows.stop], dtype=entries.rows.dtype,
+                          device=entries.rows.device)
+    lo, hi = (int(i) for i in torch.searchsorted(entries.rows, bounds))
+    return CompactEntries(
+        key=entries.key, ent=entries.ent[lo:hi], pos=entries.pos[lo:hi],
+        rows=entries.rows[lo:hi] - rows.start, vals=entries.vals[lo:hi],
+        num_samples=rows.stop - rows.start)
 
 
 def _remap_compact_rows(values: np.ndarray, model_cols: np.ndarray | None,
@@ -1039,7 +1253,11 @@ class DistributedTrainResult:
         return iter((self.state, self.losses))
 
 
-def _host_scores(scores: torch.Tensor, n: int) -> np.ndarray:
+def _host_scores(scores: torch.Tensor, n: int, layout: MeshLayout | None = None) -> np.ndarray:
+    """The first ``n`` scores on the host; over a mesh, every rank's rows
+    gathered first (a collective: every rank calls it)."""
+    if layout is not None:
+        scores = layout.gather(scores)
     return scores.detach().cpu().numpy()[:n]
 
 
@@ -1078,14 +1296,28 @@ def train_distributed(
     ``train:<name>`` metric. on_sweep: observer ``(sweeps_done,
     num_iterations, loss)`` called at the end of every sweep.
 
-    ``mesh``, ``fe_feature_sharded`` and ``put_fn`` (ROADMAP.md item 10,
-    step 2), ``checkpointer`` (item 16) and a spec with a lane scheduler
-    (item 18) raise ``NotImplementedError`` before any data is prepared.
+    mesh: a data-axis mesh (``parallel/mesh.make_mesh``), whose ranks all
+    call this with the same whole datasets. Both are padded with zero-weight
+    rows to a multiple of the data axis, each rank keeps its rows and lanes
+    (:meth:`GameTrainProgram.shard_inputs`, ``put_fn`` its placement), the
+    validation metrics reduce on the device (``evaluation/sharded.py``) and
+    every rank returns the whole state. The program must be built with the
+    same mesh.
+
+    ``fe_feature_sharded`` (the model axis, ROADMAP.md item 15),
+    ``checkpointer`` (item 16) and a spec with a lane scheduler (item 18)
+    raise ``NotImplementedError`` before any data is prepared.
     """
     del checkpoint_every, resume  # only read with a checkpointer
-    if mesh is not None or fe_feature_sharded or put_fn is not None:
-        raise _not_ported("train_distributed over a mesh (mesh, fe_feature_sharded, put_fn)",
-                          _MESH_ITEM)
+    if fe_feature_sharded:
+        raise _not_ported("train_distributed(fe_feature_sharded=True)", _MODEL_AXIS_ITEM)
+    if mesh is not None:
+        mesh_ops.check_data_mesh(mesh)
+    if mesh is not None and program.mesh is not mesh:
+        raise ValueError("train_distributed(mesh=...) needs the program built with the same "
+                         "mesh: GameTrainProgram(..., mesh=mesh)")
+    if mesh is None and put_fn is not None:
+        raise ValueError("put_fn places a rank's block and needs mesh=")
     if checkpointer is not None:
         raise _not_ported("checkpoints of train_distributed (checkpointer)", 16)
     scheduled = [s.re_type for s in program.re_specs if s.optimizer.scheduler is not None]
@@ -1093,9 +1325,20 @@ def train_distributed(
         raise _not_ported(f"the lane scheduler (step_scheduled) on {scheduled}", 18)
 
     n_train = dataset.num_samples
+    n_val = validation_dataset.num_samples if validation_dataset is not None else 0
+    if mesh is not None:
+        # buckets index sample rows, which appended rows leave intact: pad
+        # after the caller built re_datasets
+        data_axis = mesh_ops.data_size(mesh)
+        dataset, n_train = pad_game_dataset(dataset, data_axis)
+        if validation_dataset is not None:
+            validation_dataset, n_val = pad_game_dataset(validation_dataset, data_axis)
     data, buckets = program.prepare_inputs(dataset, re_datasets, mf_datasets)
     if state is None:
         state = program.init_state(dataset, re_datasets, mf_datasets)
+    if mesh is not None:
+        data, buckets, state = program.shard_inputs(mesh, data, buckets, state, put_fn=put_fn)
+    layout: MeshLayout | None = data.get("mesh")
 
     # per-sweep FE down-sampling multipliers (stable-id splitmix64, the
     # coordinate-descent path's sampler); keyed per FE coordinate ("" =
@@ -1116,15 +1359,25 @@ def train_distributed(
                                             seed=down_sampling_seed + sweep)
         kept = samp_weights > 0
         mult = np.where(kept, new_w / np.where(kept, samp_weights, 1.0), 0.0)
+        if layout is not None:
+            mult = mult[layout.rows]
         return device_tensor(mult.astype(samp_weights.dtype), data["weights"].dtype,
-                             dataset.device)
+                             data["weights"].device)
 
     evaluators = list(validation_evaluators)
     val_data = None
-    n_val = 0
+    device_evals: list = [None] * len(evaluators)
     if validation_dataset is not None and evaluators and validation_eval_data is not None:
         val_data = program.prepare_scoring_inputs(validation_dataset, re_datasets)
-        n_val = validation_dataset.num_samples
+        if mesh is not None:
+            from photon_ml_torch.evaluation.sharded import prepare_device_evaluators
+
+            val_data = program.shard_scoring_inputs(mesh, val_data, put_fn=put_fn)
+            # the metrics reduce on the device from the gathered score
+            # vector; only scalars reach the host
+            device_evals = prepare_device_evaluators(
+                evaluators, validation_eval_data, n_pad=validation_dataset.num_samples,
+                device=val_data["labels"].device)
 
     best_state: GameTrainState | None = None
     best_metric = float("nan")
@@ -1144,13 +1397,18 @@ def train_distributed(
                 f"fused training step produced non-finite loss {losses[-1]} at sweep {sweep}")
         metrics: dict[str, float] = {}
         if training_evaluator is not None and training_eval_data is not None:
-            train_scores = _host_scores(program.score(data, state), n_train)
+            train_scores = _host_scores(program.score(data, state), n_train, layout)
             metrics[f"train:{training_evaluator.name}"] = float(
                 training_evaluator.evaluate(train_scores, training_eval_data))
         if val_data is not None:
-            val_scores = _host_scores(program.score(val_data, state), n_val)
-            for i, ev in enumerate(evaluators):
-                v = float(ev.evaluate(val_scores, validation_eval_data))
+            from photon_ml_torch.evaluation.sharded import evaluate_prepared
+
+            val_scores = program.score(val_data, state)
+            values = evaluate_prepared(
+                evaluators, device_evals, val_scores, validation_eval_data,
+                lambda: _host_scores(val_scores, n_val, val_data.get("mesh")),
+                layout=val_data.get("mesh"))
+            for i, (ev, v) in enumerate(zip(evaluators, values)):
                 metrics[f"validate:{ev.name}"] = v
                 if i == 0 and (best_state is None or ev.better_than(v, best_metric)):
                     best_state, best_metric = state, v

@@ -1,10 +1,12 @@
-"""GameTransformer: the scoring facade (the port's single-device form).
+"""GameTransformer: the scoring facade.
 
-Counterpart of ``photon_ml_tpu/transformers.py``'s single-device branch;
-reference photon-api transformers/GameTransformer.scala:156-298 — score a
-GAME dataset with a GameModel (sum of sub-model scores) plus the dataset's
-offsets, then run the evaluators on the host. The mesh-sharded scorer is
-the multi-GPU slice's (ROADMAP.md item 15).
+Counterpart of ``photon_ml_tpu/transformers.py``; reference photon-api
+transformers/GameTransformer.scala:156-298 — score a GAME dataset with a
+GameModel (sum of sub-model scores) plus the dataset's offsets, then run the
+evaluators on the host. ``mesh=`` scores each rank's rows through
+``parallel/scoring.DistributedScorer`` and gathers them; every rank of the
+mesh calls ``transform`` with the same dataset. ``fe_feature_sharded`` (the
+model axis) is not ported: ROADMAP.md item 15.
 """
 
 from __future__ import annotations
@@ -32,11 +34,29 @@ class ScoredDataset:
 class GameTransformer:
     model: GameModel
     evaluator_specs: Sequence[str] = ()
+    #: a data-axis DeviceMesh (``parallel/mesh.make_mesh``): score through
+    #: DistributedScorer instead of the one-device path
+    mesh: object | None = None
+    fe_feature_sharded: "bool | str" = False
+    #: the DistributedScorer, built on first use and kept across transforms;
+    #: ``dataclasses.replace`` builds a new one
+    _scorer: object | None = dataclasses.field(default=None, init=False, repr=False,
+                                               compare=False)
 
     def transform(self, dataset: GameDataset) -> ScoredDataset:
-        scores = (self.model.score_dataset(dataset) + dataset.offsets).detach().cpu().numpy()
         evaluations: dict[str, float] = {}
-        if self.evaluator_specs:
+        if self.mesh is not None or self.fe_feature_sharded:
+            from photon_ml_torch.parallel.scoring import DistributedScorer
+
+            if self._scorer is None:
+                self._scorer = DistributedScorer(self.model, self.mesh,
+                                                 fe_feature_sharded=self.fe_feature_sharded)
+            # the scores are gathered anyway (they are the product), so the
+            # metrics are the exact host evaluators'
+            scores, evaluations = self._scorer.score_and_evaluate(dataset, self.evaluator_specs)
+        else:
+            scores = (self.model.score_dataset(dataset) + dataset.offsets).detach().cpu().numpy()
+        if self.evaluator_specs and not evaluations:
             data = EvaluationData(
                 labels=dataset.host_array("labels"),
                 offsets=dataset.host_array("offsets"),

@@ -2,7 +2,7 @@
 every ValueError of its input preparation (``_data_pytree``,
 ``_buckets_pytree``, the compact entry mappings) and of
 ``GameTrainProgram.__init__`` with the JAX message's key words; the parts
-not ported yet (the mesh, checkpoints, the lane scheduler) raising
+not ported yet (the model axis, checkpoints, the lane scheduler) raising
 ``NotImplementedError`` with their ROADMAP item before any data is touched;
 ``DivergenceError`` on a non-finite loss; AUTO resolution; and the
 observers of ``train_distributed`` (``on_sweep``, the training evaluator)."""
@@ -170,9 +170,21 @@ class _Untouchable:
         raise AssertionError(f"the dataset was used ({name}) before the refusal")
 
 
-REFUSALS = [({"mesh": object()}, "item 10, step 2"), ({"fe_feature_sharded": True},
-                                                      "item 10, step 2"),
-            ({"put_fn": lambda a, s: a}, "item 10, step 2"),
+class _ModelAxisMesh:
+    """A ("data", "model") mesh with a model axis of 2: the model axis is
+    not ported (ROADMAP.md item 15)."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim=None):
+        return 2
+
+
+# the data-axis mesh and put_fn are ported (tests/test_torch_mesh_*.py): a
+# model-axis mesh and fe_feature_sharded wait with item 15, and put_fn
+# without a mesh is refused as a usage error
+REFUSALS = [({"mesh": _ModelAxisMesh()}, "item 15"), ({"fe_feature_sharded": True}, "item 15"),
+            ({"put_fn": lambda a, s: a}, ValueError),
             ({"checkpointer": object()}, "item 16"), ("scheduler", "item 18")]
 
 
@@ -189,14 +201,18 @@ def test_refusals_come_before_any_data(option, item):
     prog = tdist.GameTrainProgram(
         TTask.LOGISTIC_REGRESSION, tdist.FixedEffectStepSpec("global", opt),
         (tdist.RandomEffectStepSpec("user", "per_entity", opt),))
+    if isinstance(item, type):
+        with pytest.raises(item, match="put_fn"):
+            tdist.train_distributed(prog, _Untouchable(), _Untouchable(), **kw)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tdist.train_distributed(prog, _Untouchable(), _Untouchable(), **kw)
 
 
-@pytest.mark.parametrize("option", [{"mesh": object()}, {"fe_feature_sharded": True}])
+@pytest.mark.parametrize("option", [{"mesh": _ModelAxisMesh()}, {"fe_feature_sharded": True}])
 def test_program_over_a_mesh_is_refused(option):
     opt = optimizer_pair("LBFGS", 3)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10, step 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15"):
         tdist.GameTrainProgram(TTask.LOGISTIC_REGRESSION,
                                tdist.FixedEffectStepSpec("global", opt), **option)
 

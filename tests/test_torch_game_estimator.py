@@ -197,6 +197,15 @@ def _re_config(**kw):
     return test_.RandomEffectCoordinateConfig("user", "per_entity", opt, **kw)
 
 
+class _ModelAxisMesh:
+    """A ("data", "model") mesh with a model axis of 2 (ROADMAP.md item 15)."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim=None):
+        return 2
+
+
 def _lbfgs(**kw):
     return CoordinateOptimizationConfig(
         optimizer=OptimizerConfig(OptimizerType.LBFGS, max_iterations=3, **kw), l2_weight=1.0)
@@ -204,9 +213,10 @@ def _lbfgs(**kw):
 
 @pytest.mark.parametrize("config,options,item", [
     (_re_config(optimization=_lbfgs(scheduler=LaneSchedulerConfig())), {}, 18),
-    # MF trains on one device; under the mesh program it waits with item 10
+    # MF trains on one device and over a data-axis mesh; a model-axis mesh
+    # waits with item 15
     (test_.MatrixFactorizationCoordinateConfig("user", "item", 4, _lbfgs()),
-     {"mesh": object()}, 10),
+     {"mesh": _ModelAxisMesh()}, 15),
 ], ids=["lane-scheduler", "matrix-factorization"])
 def test_coordinates_outside_the_slice_raise(config, options, item):
     _, td = datasets(game_arrays(3, n=200))
@@ -217,11 +227,11 @@ def test_coordinates_outside_the_slice_raise(config, options, item):
         est.fit(td)
 
 
-@pytest.mark.parametrize("field,item", [("mesh", 10), ("checkpointer", 16), ("telemetry", 19)])
+@pytest.mark.parametrize("field,item", [("mesh", 15), ("checkpointer", 16), ("telemetry", 19)])
 def test_estimator_options_outside_the_slice_raise(field, item):
     _, td = datasets(game_arrays(4, n=200))
     _, te = estimator_pair(lanes="NEWTON", num_iterations=1)
-    te = dataclasses.replace(te, **{field: object()})
+    te = dataclasses.replace(te, **{field: _ModelAxisMesh() if field == "mesh" else object()})
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         te.fit(td)
 

@@ -53,7 +53,14 @@ def test_importing_every_port_module_loads_no_jax():
             "photon_ml_torch.util.date_range",
             # the fused training program and the off-heap and PalDB index stores
             "photon_ml_torch.parallel", "photon_ml_torch.parallel.distributed",
-            "photon_ml_torch.io.offheap_index_map", "photon_ml_torch.io.paldb"} <= set(mods)
+            "photon_ml_torch.io.offheap_index_map", "photon_ml_torch.io.paldb",
+            # the mesh: process groups, collectives, the sharded objectives,
+            # scoring and device evaluators
+            "photon_ml_torch.parallel.multihost", "photon_ml_torch.parallel.mesh",
+            "photon_ml_torch.parallel.sharded_dense", "photon_ml_torch.parallel.scoring",
+            "photon_ml_torch.evaluation.sharded"} <= set(mods)
+    # the mesh tests' rank processes import the port only
+    mods = mods + ["tests.torch_mesh_worker"]
     script = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -68,7 +75,7 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py", "tests/torch_mesh_worker.py"])
 def test_no_forbidden_import_in_source(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):

@@ -1,0 +1,386 @@
+"""Rank processes of the port's mesh tests: spawned gloo ranks on the CPU.
+
+This module imports no JAX and nothing of the JAX package: the tests build
+numpy fixtures (and the JAX package's results) in their own process, hand
+each task to :func:`spawn_ranks` as plain data, and compare what the ranks
+write back. Every rank joins a ``file://`` rendezvous with a group timeout;
+the parent joins every rank with a timeout and fails when one passes, so a
+hung collective fails a test instead of stalling the suite.
+
+A task is a dict with a ``kind`` (the ``_task_*`` functions below); each
+rank returns a dict, and :func:`spawn_ranks` returns the list of them in
+rank order.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import traceback
+from pathlib import Path
+
+import numpy as np
+
+#: collective deadline of the test groups, and the parent's join deadline
+GROUP_TIMEOUT_S = 60
+JOIN_TIMEOUT_S = 120
+
+
+def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TIMEOUT_S
+                ) -> list:
+    """Run ``tasks`` in ``world`` spawned CPU ranks; returns per task the
+    list of the ranks' results. Raises if a rank fails or outlives
+    ``timeout_s``."""
+    import multiprocessing as mp
+
+    tmp = Path(tmp_path)
+    job = tmp / "job.pkl"
+    job.write_bytes(pickle.dumps(tasks))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, world, str(tmp)), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout_s)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(10)
+    if alive:
+        raise TimeoutError(f"{len(alive)} of {world} ranks still running after {timeout_s} s")
+    errors = [(tmp / f"error{r}.txt") for r in range(world)]
+    for r, e in enumerate(errors):
+        if e.exists():
+            raise RuntimeError(f"rank {r} failed:\n{e.read_text()}")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"rank exit codes {codes}")
+    per_rank = [pickle.loads((tmp / f"out{r}.pkl").read_bytes()) for r in range(world)]
+    return [[per_rank[r][i] for r in range(world)] for i in range(len(tasks))]
+
+
+def _rank_main(rank: int, world: int, tmp: str) -> None:
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    import torch
+
+    torch.set_num_threads(1)
+    from photon_ml_torch.parallel import multihost
+
+    try:
+        multihost.initialize(f"file://{tmp}/rendezvous", world, rank, device="cpu",
+                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        tasks = pickle.loads(Path(tmp, "job.pkl").read_bytes())
+        out = [TASKS[t["kind"]](t, rank, world, Path(tmp)) for t in tasks]
+        Path(tmp, f"out{rank}.pkl").write_bytes(pickle.dumps(out))
+    except BaseException:
+        Path(tmp, f"error{rank}.txt").write_text(traceback.format_exc())
+        raise
+    finally:
+        multihost.shutdown()
+
+
+# -- builders (port side, from numpy) ----------------------------------------
+
+
+def _opt(spec):
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+
+    kind, iters, kw = spec
+    return OptimizerConfig(optimizer_type=OptimizerType[kind], max_iterations=iters, **kw)
+
+
+def _shards(shards: dict) -> dict:
+    from photon_ml_torch.data.sparse_batch import SparseShard
+
+    out = {}
+    for k, v in shards.items():
+        if isinstance(v, dict):  # COO
+            out[k] = SparseShard(**v)
+        else:
+            out[k] = v
+    return out
+
+
+def build_dataset(a: dict, vocabs=None):
+    from photon_ml_torch.data import game_data as tgd
+
+    kw = dict(labels=a["labels"], feature_shards=_shards(a["shards"]),
+              entity_keys=a["entity_keys"], dtype=a.get("dtype", np.float64), device="cpu")
+    for k in ("offsets", "weights", "unique_ids", "ids"):
+        if a.get(k) is not None:
+            kw[k] = a[k]
+    if vocabs is not None:
+        kw["entity_vocabs"] = vocabs
+    return tgd.build_game_dataset(**kw)
+
+
+def build_program(p: dict, mesh):
+    from photon_ml_torch.parallel import distributed as tdist
+    from photon_ml_torch.projector.projectors import ProjectorType
+    from photon_ml_torch.types import TaskType
+
+    fe = tdist.FixedEffectStepSpec(p["fe_shard"], _opt(p["fe_opt"]), l2_weight=p["fe_l2"],
+                                   down_sampling_rate=p.get("rate", 1.0))
+    res = tuple(tdist.RandomEffectStepSpec(
+        r["type"], r["shard"], _opt(r["opt"]), l2_weight=r["l2"],
+        projector=ProjectorType[r.get("projector", "IDENTITY")]) for r in p.get("res", ()))
+    mfs = tuple(tdist.MatrixFactorizationStepSpec(
+        m["name"], m["row"], m["col"], num_latent_factors=m["k"], optimizer=_opt(m["opt"]),
+        l2_weight=m["l2"], num_alternations=m.get("alternations", 1)) for m in p.get("mfs", ()))
+    extra = tuple(tdist.FixedEffectStepSpec(e["shard"], _opt(e["opt"]), l2_weight=e["l2"])
+                  for e in p.get("extra_fes", ()))
+    return tdist.GameTrainProgram(TaskType[p["task"]], fe, res, mf_specs=mfs, extra_fes=extra,
+                                  update_order=p.get("update_order"), mesh=mesh,
+                                  use_kernel_fe=p.get("use_kernel_fe"))
+
+
+def build_inputs(p: dict, ds):
+    from photon_ml_torch.algorithm import mf_coordinate as tmfc
+    from photon_ml_torch.data import game_data as tgd
+    from photon_ml_torch.projector.projectors import ProjectorType
+
+    b = tuple(p.get("bucket_sizes", (8, 32, 128)))
+    re_ds = {}
+    for r in p.get("res", ()):
+        kw = dict(bucket_sizes=b)
+        if r.get("projector", "IDENTITY") != "IDENTITY" and "sparse" not in r:
+            kw["projector_type"] = ProjectorType[r["projector"]]
+        if r.get("projected_dim"):
+            kw["projected_dim"] = r["projected_dim"]
+        re_ds[r["type"]] = tgd.build_random_effect_dataset(ds, r["type"], r["shard"], **kw)
+    mf_ds = {m["name"]: tmfc.build_mf_dataset(ds, m["row"], m["col"], bucket_sizes=b)
+             for m in p.get("mfs", ())}
+    return re_ds, mf_ds
+
+
+def state_numpy(state) -> dict:
+    from photon_ml_torch import convert
+
+    return convert.train_state_to_numpy(state)
+
+
+# -- tasks -------------------------------------------------------------------
+
+
+def _task_train(t, rank, world, tmp):
+    """train_distributed over a data=world mesh from the task's state."""
+    from photon_ml_torch import convert
+    from photon_ml_torch.evaluation import evaluators as tev
+    from photon_ml_torch.parallel import distributed as tdist
+    from photon_ml_torch.parallel import mesh as M
+
+    mesh = M.make_mesh()
+    ds = build_dataset(t["data"])
+    prog = build_program(t["program"], mesh)
+    re_ds, mf_ds = build_inputs(t["program"], ds)
+    state = convert.train_state_from_numpy(t["state"], device="cpu") if t.get("state") \
+        else None
+    kw = dict(t.get("train_kw", {}))
+    if t.get("validation"):
+        val = build_dataset(t["validation"], vocabs=ds.entity_vocabs)
+        kw.update(validation_dataset=val,
+                  validation_evaluators=[tev.parse_evaluator(s) for s in t["evaluators"]],
+                  validation_eval_data=tev.EvaluationData(
+                      labels=val.host_array("labels"), offsets=val.host_array("offsets"),
+                      weights=val.host_array("weights"), ids=val.ids))
+    M.counts.reset()
+    res = tdist.train_distributed(prog, ds, re_ds, mf_datasets=mf_ds or None, mesh=mesh,
+                                  num_iterations=t.get("sweeps", 3), state=state, **kw)
+    out = {"losses": res.losses, "state": state_numpy(res.state),
+           "metric_history": res.metric_history, "best_metric": res.best_metric,
+           "collectives": M.counts.snapshot()}
+    if t.get("score"):
+        model = tdist.state_to_game_model(prog, res.state, ds, re_datasets=re_ds)
+        out["scores"] = _score_model(model, t, mesh)
+    return out
+
+
+def _score_model(model, t, mesh) -> dict:
+    from photon_ml_torch.parallel.scoring import DistributedScorer
+    from photon_ml_torch.transformers import GameTransformer
+
+    val = build_dataset(t["score"]["data"], vocabs=None)
+    scorer = DistributedScorer(model, mesh)
+    evs = t["score"]["evaluators"]
+    return {
+        "mesh": scorer.score_dataset(val),
+        "one_device": GameTransformer(model).transform(val).scores,
+        "evaluate": scorer.evaluate_dataset(val, evs),
+        "transform": GameTransformer(model, evs, mesh=mesh).transform(val).evaluations,
+    }
+
+
+def _task_objective(t, rank, world, tmp):
+    """ShardedDenseGLMObjective on this rank's rows against nothing: the
+    parent holds the results against the JAX package's."""
+    import torch
+
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.ops.losses import loss_for_task
+    from photon_ml_torch.parallel import mesh as M
+    from photon_ml_torch.parallel.sharded_dense import ShardedDenseGLMObjective
+    from photon_ml_torch.types import TaskType
+
+    mesh = M.make_mesh()
+    dtype = getattr(torch, t.get("dtype", "float64"))
+    batch = LabeledPointBatch(features=torch.as_tensor(t["x"]).to(dtype),
+                              labels=torch.as_tensor(t["y"]), offsets=torch.as_tensor(t["o"]),
+                              weights=torch.as_tensor(t["w"]))
+    local = M.shard_batch(batch, mesh)
+    obj = ShardedDenseGLMObjective(loss_for_task(TaskType[t["task"]]), mesh,
+                                   l2_weight=t["l2"], use_kernel=t.get("use_kernel"))
+    w = torch.as_tensor(t["coef"])
+    v = torch.as_tensor(t["vec"])
+    value, grad = obj.value_and_gradient(w, local)
+    return {"value": float(value), "grad": grad.numpy(), "value_only": float(obj.value(w, local)),
+            "hv": obj.hessian_vector(w, v, local).numpy(), "rows": local.num_samples}
+
+
+def _task_evaluators(t, rank, world, tmp):
+    """Device evaluators over this rank's block of a padded score vector."""
+    import torch
+
+    from photon_ml_torch.evaluation import evaluators as tev
+    from photon_ml_torch.evaluation import sharded as tsh
+    from photon_ml_torch.parallel import mesh as M
+    from photon_ml_torch.parallel.distributed import MeshLayout
+
+    mesh = M.make_mesh()
+    scores = np.asarray(t["scores"])
+    n = len(scores)
+    n_pad = n + (-n) % world
+    padded = np.concatenate([scores, np.full(n_pad - n, t.get("pad_score", 0.0))])
+    rows = M.row_block(n_pad, mesh)
+    data = tev.EvaluationData(labels=t["labels"], offsets=np.zeros(n), weights=t["weights"],
+                              ids=t.get("ids", {}))
+    evs = [tev.parse_evaluator(s) for s in t["evaluators"]]
+    devs = tsh.prepare_device_evaluators(evs, data, n_pad=n_pad, device="cpu")
+    layout = MeshLayout(mesh=mesh, rows=rows, num_rows=n_pad)
+    values = tsh.evaluate_prepared(evs, devs, torch.as_tensor(padded[rows]), data,
+                                   lambda: padded[:n], layout=layout)
+    return dict(zip(t["evaluators"], values))
+
+
+def _task_estimator(t, rank, world, tmp):
+    """GameEstimator(mesh=...).fit, its models as numpy."""
+    from photon_ml_torch import estimators as test_
+    from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+    from photon_ml_torch.parallel import mesh as M
+    from photon_ml_torch.types import TaskType
+
+    mesh = M.make_mesh()
+    ds = build_dataset(t["data"])
+    val = build_dataset(t["validation"], vocabs=ds.entity_vocabs) if t.get("validation") \
+        else None
+    configs = {}
+    for cid, c in t["coordinates"].items():
+        opt = CoordinateOptimizationConfig(optimizer=_opt(c["opt"]), l2_weight=c["l2"],
+                                           down_sampling_rate=c.get("rate", 1.0),
+                                           compute_variance=c.get("variance", False))
+        if c["kind"] == "fe":
+            configs[cid] = test_.FixedEffectCoordinateConfig(c["shard"], opt)
+        elif c["kind"] == "re":
+            configs[cid] = test_.RandomEffectCoordinateConfig(
+                c["type"], c["shard"], opt, active_data_upper_bound=c.get("upper"),
+                active_data_lower_bound=c.get("lower"))
+        else:
+            configs[cid] = test_.MatrixFactorizationCoordinateConfig(
+                c["row"], c["col"], c["k"], opt, num_alternations=c.get("alternations", 2))
+    initial = None
+    if t.get("initial"):
+        initial = _model_from_numpy(t["initial"], ds)
+    est = test_.GameEstimator(TaskType[t["task"]], configs, num_iterations=t["sweeps"],
+                              validation_evaluators=tuple(t.get("evaluators", ())),
+                              locked_coordinates=frozenset(t.get("locked", ())), mesh=mesh)
+    res = est.fit(ds, validation_dataset=val, initial_model=initial)
+    return {"model": _model_numpy(res.model), "best": _model_numpy(res.best_model),
+            "best_metric": res.best_metric, "history": res.metric_history}
+
+
+def _model_numpy(model) -> dict:
+    out = {}
+    for cid, m in model.models.items():
+        if hasattr(m, "glm"):
+            c = m.glm.coefficients
+            out[cid] = {"means": c.means.numpy(),
+                        "variances": None if c.variances is None else c.variances.numpy()}
+        elif hasattr(m, "row_factors"):
+            out[cid] = {"rows": m.row_factors.numpy(), "cols": m.col_factors.numpy(),
+                        "row_keys": np.asarray(m.row_keys), "col_keys": np.asarray(m.col_keys)}
+        else:
+            out[cid] = {"table": m.coefficients.numpy(), "keys": np.asarray(m.entity_keys)}
+    return out
+
+
+def _model_from_numpy(spec: dict, ds):
+    """A GameModel from ``{cid: {"kind": "fe"|"re", ...}}`` numpy arrays."""
+    import torch
+
+    from photon_ml_torch.models.coefficients import Coefficients
+    from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
+    from photon_ml_torch.models.glm import GeneralizedLinearModel
+    from photon_ml_torch.types import TaskType
+
+    task = TaskType[spec.pop("__task__")]
+    models = {}
+    for cid, m in spec.items():
+        if m["kind"] == "fe":
+            models[cid] = FixedEffectModel(
+                glm=GeneralizedLinearModel(Coefficients(means=torch.as_tensor(m["means"])), task),
+                feature_shard_id=m["shard"])
+        else:
+            models[cid] = RandomEffectModel(
+                coefficients=torch.as_tensor(m["table"]), entity_keys=np.asarray(m["keys"]),
+                random_effect_type=m["type"], feature_shard_id=m["shard"], task=task)
+    return GameModel(models=models)
+
+
+def _task_driver(t, rank, world, tmp):
+    """The GAME training and scoring drivers with --distributed (rank 0
+    writes the outputs; other ranks write into a scratch directory)."""
+    from photon_ml_torch.cli import game_scoring_driver, game_training_driver
+
+    train = game_training_driver.main(t["train_args"], device="cpu")
+    score = game_scoring_driver.main(t["score_args"], device="cpu") if t.get("score_args") \
+        else None
+    return {"train": _plain(train), "score": _plain(score)}
+
+
+def _plain(obj):
+    """A pickle-safe copy of a driver summary (numbers, strings, lists)."""
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    return repr(obj)
+
+
+def _task_refusals(t, rank, world, tmp):
+    """The model axis and partitioned I/O refuse, naming ROADMAP item 15."""
+    from photon_ml_torch.parallel import mesh as M
+    from photon_ml_torch.parallel import multihost
+
+    out = {}
+    for name, fn in (("model_axis", lambda: M.make_mesh(model=2)),
+                     ("hybrid_model_axis", lambda: multihost.make_hybrid_mesh(model=world)),
+                     ("default_exchange", multihost.default_exchange)):
+        try:
+            fn()
+            out[name] = "no error"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+TASKS = {
+    "train": _task_train,
+    "objective": _task_objective,
+    "evaluators": _task_evaluators,
+    "estimator": _task_estimator,
+    "driver": _task_driver,
+    "refusals": _task_refusals,
+}
