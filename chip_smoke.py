@@ -258,7 +258,29 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    drivers with and without ``--distributed`` at phase 8's flagship rows:
    index maps, metadata and id-info byte-identical, coefficients within
    1e-3·max|w|, the written scores bitwise the in-process ones. The
-   launches and checks join the kernels line's ``mesh_path``.
+   launches and checks join the kernels line's ``mesh_path``. Phase 8
+   writes the flagship's Avro once (16 training parts clustered by user);
+   phases 12(d) and 13 read it.
+13. Partitioned I/O (``io/partitioned_reader.py``, ``train_partitioned``):
+   one NCCL rank, whose partitioned read is the full read, trains bit for bit
+   as the full read's ``train_distributed(mesh=)``; then two ranks on the
+   card (gloo with CUDA tensors), each decoding about half of every input
+   (bytes, seconds and records/s per rank against the full read printed):
+   (a) the flagship Avro, FE + per-user 4 sweeps within 1e-3·max|w| and
+   1e-5 rel loss of the full read, twice bitwise, then FE + per-user +
+   per-item with the items spanning the ranks (gap printed, no bound); (b)
+   phase 9's sparse shape as Avro with a dense 16-wide per-user shard, an ELL
+   and then a hybrid (256-column head) fixed effect: the agreed ELL width,
+   flat block and hot ids the full read's, the state within 1e-3·max|w|;
+   (c) two part files as one container (blocks mode, the Python codec)
+   array for array the files mode's; (d) ``score_partitioned`` of the 2^15
+   held-out rows, the ranks' rows bitwise the one-rank scorer's; (e) the
+   GAME drivers with ``--partitioned-io --distributed`` on two ranks:
+   index maps, metadata and id-info byte-identical to ``--distributed``'s,
+   coefficients within 1e-3·max|w|, the two score parts exactly the
+   one-rank scores. B1 and its reduce, and G1's rows, chunks and segments,
+   held on rank 0's own partitioned blocks, join the kernels line's
+   ``partitioned_path``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -267,6 +289,7 @@ The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
 import os
@@ -2067,15 +2090,63 @@ def _write_game_part(args) -> float:
         "metadataMap": {"userId": users[i], "itemId": items[i]}})
 
 
-def _game_parts(part, directory, offset: int, parts: int) -> list:
+def _game_parts(part, directory, offset: int, parts: int, cluster: bool = False) -> list:
     """The pool arguments writing ``part``'s rows as ``parts`` part files
-    of ``directory`` (row order kept across the sorted part names)."""
+    of ``directory`` (row order kept across the sorted part names; with
+    ``cluster`` the rows sorted by user first and each file ending where a
+    user's rows end, so every user's rows are in one file)."""
+    import numpy as np
+
     n = len(part["labels"]["LOGISTIC_REGRESSION"])
+    order = np.argsort(part["keys"]["user"], kind="stable") if cluster else slice(None)
+    x_fe, x_re = part["x_fe"][order], part["x_re"][order]
+    y = part["labels"]["LOGISTIC_REGRESSION"][order]
+    users, items = part["keys"]["user"][order], part["keys"]["item"][order]
     bounds = [n * i // parts for i in range(parts + 1)]
-    return [(os.path.join(directory, f"part-{i:05d}.avro"), part["x_fe"][lo:hi],
-             part["x_re"][lo:hi], part["labels"]["LOGISTIC_REGRESSION"][lo:hi],
-             part["keys"]["user"][lo:hi], part["keys"]["item"][lo:hi], offset + lo)
+    if cluster:
+        starts = np.append(np.flatnonzero(np.r_[True, users[1:] != users[:-1]]), n)
+        bounds = [int(starts[np.searchsorted(starts, b)]) for b in bounds]
+    return [(os.path.join(directory, f"part-{i:05d}.avro"), x_fe[lo:hi], x_re[lo:hi],
+             y[lo:hi], users[lo:hi], items[lo:hi], offset + lo)
             for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))]
+
+
+#: a directory that phases share files through, kept to the end of the run
+_SHARED: dict = {}
+
+
+def _flagship_avro(np, seed: int, fallback: Path) -> dict:
+    """The flagship's rows as Avro, written once a run (phase 8's uncut
+    driver run writes them; phases 12(d) and 13 read them): 2^17 training
+    rows at the flagship widths (255 global features, the drivers add the
+    intercept; 16 per-entity; 2000 users, 1500 items) as 16 part files
+    clustered by user, so that a partitioned read keeps each user on one
+    rank while items span the ranks, and 2^15 validation rows as 8 part
+    files, a quarter of them of unseen users. In ``_SHARED["dir"]``, else in
+    ``fallback``. Returns {"train", "validation", "n", "held_out",
+    "write_seconds", "workers"}."""
+    import multiprocessing
+
+    base = Path(_SHARED.get("dir", fallback)) / "flagship"
+    cached = _SHARED.get("flagship")
+    if cached is not None and cached["seed"] == seed and Path(cached["train"]).is_dir():
+        return cached
+    shape = dict(GAME["flagship"], d_fe=GAME["flagship"]["d_fe"] - 1)
+    n, nv = shape["n"], shape["held_out"]
+    train, held = _game_arrays(np, seed + 12, **shape)
+    workers = min(8, os.cpu_count() or 1)
+    jobs = _game_parts(train, base / "train", 0, 16, cluster=True) \
+        + _game_parts(held, base / "validation", n, 8)
+    del train, held
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pool.map(_write_game_part, jobs)
+    out = {"seed": seed, "train": base / "train", "validation": base / "validation", "n": n,
+           "held_out": nv, "write_seconds": time.perf_counter() - t0, "workers": workers,
+           "d_fe": shape["d_fe"]}
+    if "dir" in _SHARED:
+        _SHARED["flagship"] = out
+    return out
 
 
 def _same_read(torch, np, a, b) -> None:
@@ -2663,8 +2734,6 @@ def _flagship_driver_run(torch, np, seed: int, dev, tmp: Path, card: str, shards
     the packed kernel held against its plain version on the run's own
     fixed-effect inputs, read back from its Avro. Returns that check with
     the run's launches."""
-    import multiprocessing
-
     from dev import torch_kernel_probe
     from photon_ml_torch.cli import game_training_driver
     from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
@@ -2675,24 +2744,14 @@ def _flagship_driver_run(torch, np, seed: int, dev, tmp: Path, card: str, shards
 
     # the global bag one narrower than the flagship's d = 256: the driver
     # appends the intercept, as the 8,192-row runs' 255 features do
-    shape = dict(GAME["flagship"], d_fe=GAME["flagship"]["d_fe"] - 1)
-    n, nv = shape["n"], shape["held_out"]
-    train, held = _game_arrays(np, seed + 12, **shape)
-    workers = min(8, os.cpu_count() or 1)
-    jobs = _game_parts(train, tmp / "flagship/train", 0, 2 * workers) \
-        + _game_parts(held, tmp / "flagship/validation", n, workers)
-    del train, held
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        pool.map(_write_game_part, jobs)
-    write_s = time.perf_counter() - t0
-    del jobs
+    avro = _flagship_avro(np, seed, tmp)
+    n, nv, workers, write_s = avro["n"], avro["held_out"], avro["workers"], avro["write_seconds"]
     for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
         setattr(packed_glm, name, 0)
     t0 = time.perf_counter()
     run = game_training_driver.main([
-        "--input-data-path", str(tmp / "flagship/train"),
-        "--validation-data-path", str(tmp / "flagship/validation"),
+        "--input-data-path", str(avro["train"]),
+        "--validation-data-path", str(avro["validation"]),
         "--root-output-dir", str(tmp / "flagship/out"), "--task-type", "LOGISTIC_REGRESSION",
         *shards, "--coordinate-configurations",
         "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
@@ -2721,13 +2780,13 @@ def _flagship_driver_run(torch, np, seed: int, dev, tmp: Path, card: str, shards
     cfg = {"global": FeatureShardConfiguration(feature_bags=("features",)),
            "per_entity": FeatureShardConfiguration(feature_bags=("perEntityFeatures",),
                                                    has_intercept=False)}
-    ds = read_merged(tmp / "flagship/train", cfg, index_maps=maps,
+    ds = read_merged(avro["train"], cfg, index_maps=maps,
                      random_effect_id_columns=("itemId", "userId"),
                      entity_vocabs={m.random_effect_type: m.entity_keys
                                     for m in model.models.values() if hasattr(m, "entity_keys")},
                      device=dev).dataset
     x = ds.feature_shards["global"]
-    assert tuple(x.shape) == (n, shape["d_fe"] + 1), x.shape
+    assert tuple(x.shape) == (n, avro["d_fe"] + 1), x.shape
     w = model.get("fixed").glm.coefficients.means.float().contiguous()
     aux = packed_glm.pack_aux(ds.labels, ds.offsets + model.score(ds) - x @ w, ds.weights)
     loss = LogisticLoss()
@@ -4402,26 +4461,15 @@ def _mesh_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
     flagship rows. Index maps, metadata and id-info byte-identical;
     coefficients within 1e-3 of their largest (the one path's packed kernel
     against the other's B1, in f32); the written scores bitwise equal to the
-    same model's in-process scores."""
-    import multiprocessing
-
+    same model's in-process scores. The Avro is phase 8's (``_flagship_avro``)."""
     from photon_ml_torch.cli import game_scoring_driver, game_training_driver
     from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
     from photon_ml_torch.io.index_map import IndexMap
     from photon_ml_torch.io.model_io import load_game_model, read_scores
     from photon_ml_torch.transformers import GameTransformer
 
-    shape = dict(GAME["flagship"], d_fe=GAME["flagship"]["d_fe"] - 1)
-    n, nv = shape["n"], shape["held_out"]
-    train, held = _game_arrays(np, seed + 12, **shape)
-    workers = min(8, os.cpu_count() or 1)
-    jobs = _game_parts(train, tmp / "train", 0, 2 * workers) \
-        + _game_parts(held, tmp / "validation", n, workers)
-    del train, held
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        pool.map(_write_game_part, jobs)
-    write_s = time.perf_counter() - t0
+    avro = _flagship_avro(np, seed, tmp)
+    n, nv, write_s = avro["n"], avro["held_out"], avro["write_seconds"]
     shards = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",
               "--feature-shard-configurations",
               "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
@@ -4434,7 +4482,7 @@ def _mesh_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
         # best model per coordinate update and the fused one per sweep, so
         # both save their final models only when nothing is tracked
         runs[name] = game_training_driver.main([
-            "--input-data-path", str(tmp / "train"),
+            "--input-data-path", str(avro["train"]),
             "--root-output-dir", str(tmp / name), "--task-type", "LOGISTIC_REGRESSION", *shards,
             "--coordinate-configurations",
             "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
@@ -4446,7 +4494,7 @@ def _mesh_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
         seconds[f"train {name}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         game_scoring_driver.main([
-            "--input-data-path", str(tmp / "validation"), "--model-input-dir",
+            "--input-data-path", str(avro["validation"]), "--model-input-dir",
             str(tmp / name / "best"), "--output-dir", str(tmp / f"scores-{name}"), *shards,
             "--evaluators", "AUC", *extra], device=None if dev.type == "cuda" else dev)
         torch.cuda.synchronize()
@@ -4477,7 +4525,7 @@ def _mesh_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
            "per_entity": FeatureShardConfiguration(feature_bags=("perEntityFeatures",),
                                                    has_intercept=False)}
     model = models["distributed"]
-    val = read_merged(tmp / "validation", cfg, index_maps=maps,
+    val = read_merged(avro["validation"], cfg, index_maps=maps,
                       random_effect_id_columns=("itemId", "userId"),
                       entity_vocabs={m.random_effect_type: m.entity_keys
                                      for m in model.models.values()
@@ -4656,6 +4704,661 @@ def _mesh_slice(torch, np, seed: int, dev, card: str) -> dict:
                                      dir=Path(__file__).resolve().parent / "build") as tmp:
         summary["drivers"] = _mesh_drivers(torch, np, seed, dev, card, Path(tmp))
     multihost.shutdown()
+    assert all(v["launches"] > 0 for v in path.values()), {k: v["launches"]
+                                                           for k, v in path.items()}
+    path["fused_glm"]["summary"] = summary
+    return path
+
+
+#: phase 13, partitioned I/O (``io/partitioned_reader.py``): two ranks on the
+#: one card (gloo with CUDA tensors), each decoding about half of (a) the
+#: flagship's Avro (``_flagship_avro``: 2^17 rows, users clustered by file,
+#: items spanning the ranks), (b) phase 9's sparse shape written as Avro (n =
+#: 2^16 rows of 16 Zipf columns over d = 10^6, a dense [2^16, 16] per-user
+#: shard, users clustered), (c) two of the flagship's part files (2^14 rows)
+#: as one container, the blocks mode, (d) the 2^15 held-out rows; (e) the
+#: GAME drivers with ``--partitioned-io`` at the flagship's rows
+PARTITIONED = dict(sweeps=4, sparse_sweeps=2, cap=128, hot_cols=256, sparse_parts=8,
+                   rank_timeout_s=600)
+
+
+def _partitioned_cfg(kind: str) -> dict:
+    """The shard configurations of phase 13: the flagship's dense ``global``
+    (the reader adds the intercept) or phase 9's sparse one as an ELL or a
+    hybrid (256-column head) shard, each with the dense ``per_entity``."""
+    from photon_ml_torch.io.data_reader import FeatureShardConfiguration
+
+    glob = {"flagship": FeatureShardConfiguration(feature_bags=("features",)),
+            "ell": FeatureShardConfiguration(feature_bags=("features",), sparse=True),
+            "hybrid": FeatureShardConfiguration(feature_bags=("features",), sparse=True,
+                                                hybrid=True,
+                                                hybrid_hot_cols=PARTITIONED["hot_cols"])}[kind]
+    return {"global": glob, "per_entity": FeatureShardConfiguration(
+        feature_bags=("perEntityFeatures",), has_intercept=False)}
+
+
+def _write_sparse_part(args) -> float:
+    """One part file of phase 13(b)'s sparse Avro (name-term ``features``,
+    16 ``perEntityFeatures``, the user id in the metadata map); seconds. A
+    module function, so a process pool can run it."""
+    path, cols, vals, x_re, y, users, offset = args
+    cols, vals, x_re = cols.tolist(), vals.tolist(), x_re.tolist()
+    y, users = y.tolist(), users.tolist()
+    return _write_avro(path, _game_avro_schema(), len(y), lambda i: {
+        "uid": str(offset + i), "label": y[i],
+        "features": [{"name": f"c{c}", "term": "", "value": v}
+                     for c, v in zip(cols[i], vals[i])],
+        "perEntityFeatures": _ntv("e", x_re[i]), "weight": 1.0, "offset": 0.0,
+        "foldId": None, "metadataMap": {"userId": users[i]}})
+
+
+def _sparse_avro(np, seed: int, base: Path) -> dict:
+    """Phase 9's training rows (bench.py:721's shape, none cut) as Avro with a
+    dense 16-wide per-user shard and a planted per-user term in the labels,
+    rows sorted by user into ``PARTITIONED["sparse_parts"]`` files, each
+    user's rows in one file."""
+    import multiprocessing
+
+    cfg = SPARSE_GAME
+    part, _ = _sparse_game_arrays(np, seed, cfg["n"], cfg["d"], cfg["per_row"], cfg["users"])
+    n, k = part["n"], cfg["per_row"]
+    rng = np.random.default_rng(seed + 31)
+    x_re = rng.standard_normal((n, 16), dtype=np.float32)
+    users = part["users"]
+    vocab, uidx = np.unique(users, return_inverse=True)
+    w_user = (0.5 * rng.normal(size=(len(vocab), 16))).astype(np.float32)
+    y = part["labels"] + np.einsum("nd,nd->n", x_re, w_user[uidx])
+    order = np.argsort(users, kind="stable")
+    cols, vals = part["cols"].reshape(n, k)[order], part["vals"].reshape(n, k)[order]
+    x_re, y, users = x_re[order], y[order], users[order]
+    parts = PARTITIONED["sparse_parts"]
+    starts = np.append(np.flatnonzero(np.r_[True, users[1:] != users[:-1]]), n)
+    bounds = [int(starts[np.searchsorted(starts, n * i // parts)]) for i in range(parts + 1)]
+    jobs = [(os.path.join(base, f"part-{i:05d}.avro"), cols[lo:hi], vals[lo:hi], x_re[lo:hi],
+             y[lo:hi], users[lo:hi], lo) for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(min(parts, os.cpu_count() or 1)) as pool:
+        pool.map(_write_sparse_part, jobs)
+    return {"path": base, "n": n, "write_seconds": time.perf_counter() - t0}
+
+
+def _blocks_container(src_files, dst: Path) -> dict:
+    """``src_files``' container blocks copied, in order, into one file (the
+    payloads inflated and deflated again, no record re-encoded)."""
+    import zlib
+
+    from photon_ml_torch.io import avro
+
+    schema = avro.read_container_schema(src_files[0])
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    blocks = []
+    for f in src_files:
+        with open(f, "rb") as inp:
+            for count, size, offset in avro.scan_block_index(f):
+                inp.seek(offset)
+                blocks.append((count, zlib.decompress(inp.read(size), -15)))
+    records = avro.write_container_blocks(dst, schema, blocks)
+    return {"file": dst, "records": records, "blocks": len(blocks)}
+
+
+def _partitioned_run(torch, label: str, program, parts, mesh, world: int, sweeps: int,
+                     exchange) -> dict:
+    """``train_partitioned`` with the launch and collective counters set to
+    0 just before and read just after: seconds, losses (each finite and, the
+    sweeps' training loss, non-increasing), launches and collectives."""
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.parallel import mesh as mesh_ops
+
+    fused_glm.launches = fused_glm.reduce_launches = 0
+    _reset_gather_counts()
+    mesh_ops.counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = dist.train_partitioned(program, parts, mesh, world, num_iterations=sweeps,
+                                    exchange=exchange)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = result.losses
+    assert len(losses) == sweeps and all(math.isfinite(v) for v in losses), (label, losses)
+    return {"run": label, "seconds": seconds, "seconds_per_sweep": seconds / sweeps,
+            "losses": losses, "collectives": mesh_ops.counts.snapshot(),
+            "launches": {"fused_glm": fused_glm.launches,
+                         "fused_glm_reduce": fused_glm.reduce_launches, **_gather_counts()},
+            "state": result.state}
+
+
+def _timed(torch, fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _host_rows(np, part) -> dict:
+    """A partitioned read's true rows, on the host (blocks against files)."""
+    ds, n = part.result.dataset, part.partition.local_n
+    out = {"labels": ds.host_array("labels")[:n], "offsets": ds.host_array("offsets")[:n],
+           "weights": ds.host_array("weights")[:n], "uids": ds.unique_ids[:n]}
+    out.update({f"shard/{k}": ds.host_array(f"shard/{k}")[:n] for k in ds.feature_shards})
+    out.update({f"entity_idx/{k}": ds.host_array(f"entity_idx/{k}")[:n] for k in ds.entity_idx})
+    out.update({f"vocab/{k}": np.asarray(v).astype(str) for k, v in ds.entity_vocabs.items()})
+    return out
+
+
+def _partitioned_paths(torch, np, rank: int, world: int, tmp: Path, dev, job: dict) -> dict:
+    """Phase 13 (a)-(d) on one rank of a group of ``world``; writes what the
+    parent compares into ``tmp`` and returns the rank's report."""
+    from photon_ml_torch import convert
+    from photon_ml_torch.data.game_data import (
+        build_random_effect_dataset,
+        build_random_effect_dataset_partitioned,
+    )
+    from photon_ml_torch.io.data_reader import read_merged
+    from photon_ml_torch.io.model_io import save_game_model
+    from photon_ml_torch.io.partitioned_reader import read_partitioned
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.parallel.mesh import make_mesh
+    from photon_ml_torch.parallel.scoring import DistributedScorer
+
+    mesh = make_mesh()
+    ex = multihost.default_exchange()
+    report: dict = {"rank": rank, "reads": {}, "runs": {}, "checks": {}}
+    cap = (PARTITIONED["cap"],)
+
+    def read(label, path, cfg, re_cols, **kw):
+        part, seconds = _timed(torch, lambda: read_partitioned(
+            path, cfg, exchange=ex, random_effect_id_columns=re_cols, tag=label, device=dev,
+            **kw))
+        report["reads"][label] = {
+            "mode": part.mode, "rows": part.partition.local_n,
+            "bytes_decoded": part.bytes_decoded, "input_bytes_total": part.input_bytes_total,
+            "seconds": seconds, "records_per_s": part.partition.local_n / seconds,
+            "local_rows": list(part.partition.local_rows),
+            "spanning": {k: int((v > 1).sum()) for k, v in part.entity_rank_presence.items()}}
+        return part
+
+    def full_read(label, path, cfg, re_cols):
+        full, seconds = _timed(torch, lambda: read_merged(
+            path, cfg, random_effect_id_columns=re_cols, device=dev))
+        report["reads"][label].update(full_seconds=seconds,
+                                      full_records_per_s=full.dataset.num_samples / seconds)
+        return full
+
+    def builders(part, re_types, tag):
+        return {t: build_random_effect_dataset_partitioned(
+            part.result.dataset, t, "per_entity", partition=part.partition, exchange=ex,
+            bucket_sizes=cap, entity_rank_presence=part.entity_rank_presence.get(t),
+            tag=f"{tag}/{t}") for t in re_types}
+
+    def full_train(program, full, re_types, sweeps):
+        res = {t: build_random_effect_dataset(full.dataset, t, "per_entity", bucket_sizes=cap)
+               for t in re_types}
+        return dist.train_distributed(program, full.dataset, res, mesh=mesh,
+                                      num_iterations=sweeps)
+
+    # a. the flagship: FE + per-user (twice, and the full read), then FE +
+    # per-user + per-item (items span the ranks)
+    cfg = _partitioned_cfg("flagship")
+    re_cols = ("itemId", "userId")
+    part = read("flagship", job["train"], cfg, re_cols)
+    full = full_read("flagship", job["train"], cfg, re_cols)
+    sweeps = PARTITIONED["sweeps"]
+    for label, re_types in (("user", ("userId",)), ("user+item", ("userId", "itemId"))):
+        program = _fused_program(k=None, re_types=re_types, mesh=mesh)
+        res = builders(part, re_types, label)
+        parts = {rank: (part.result.dataset, res)}
+        runs = [_partitioned_run(torch, f"a. {label} run {i}", program, parts, mesh, world,
+                                 sweeps, ex) for i in (1, 2) if i == 1 or label == "user"]
+        states = [r.pop("state") for r in runs]
+        flat = [_flat_state(convert.train_state_to_numpy(st)) for st in states]
+        ref = full_train(program, full, re_types, sweeps)
+        flat_ref = _flat_state(convert.train_state_to_numpy(ref.state))
+        gap, scale, _ = _state_gap(np, flat[0], flat_ref)
+        report["runs"][label] = dict(
+            runs[0], bitwise_repeat=(len(flat) < 2 or all(np.array_equal(flat[0][k], flat[1][k])
+                                                          for k in flat[0])),
+            full_losses=ref.losses, state_gap=gap, state_scale=scale,
+            loss_gaps=[_rel_gap(a, b) for a, b in zip(runs[0]["losses"], ref.losses)],
+            seconds_per_sweep_runs=[r["seconds_per_sweep"] for r in runs])
+        np.savez(tmp / f"state-{label}-{rank}.npz", **flat[0])
+        if label == "user":
+            data, _, state = dist.prepare_partitioned_inputs(program, parts, mesh, world,
+                                                             state=states[0], exchange=ex)
+            if rank == 0:
+                report["checks"]["b1"] = _mesh_b1_checks(
+                    torch, "13a. rank 0's partitioned block", program, data, state)
+            model = dist.state_to_game_model(program, state, part.result.dataset,
+                                             re_datasets=res)
+            del data
+    del full
+    torch.cuda.empty_cache()
+
+    # d. scoring the held-out rows with the FE + per-user model: each rank
+    # its own block, no gather
+    held = read("held-out", job["validation"], cfg, ("userId",),
+                index_maps=part.result.index_maps, entity_vocabs=part.result.dataset.entity_vocabs)
+    scorer = DistributedScorer(model, mesh)
+    scores, seconds = _timed(torch, lambda: scorer.score_partitioned(
+        {rank: held.result.dataset}, held.partition, exchange=ex)[rank])
+    n_local = held.partition.local_n
+    np.savez(tmp / f"scores-{rank}.npz", scores=scores,
+             uids=held.result.dataset.unique_ids[:n_local])
+    report["score_seconds"] = seconds
+    if rank == 0:
+        save_game_model(tmp / "model", model, part.result.index_maps, sparsity_threshold=0.0)
+        for shard, imap in part.result.index_maps.items():
+            imap.save(tmp / "index-maps", shard)
+    del part, held, model, scorer
+    torch.cuda.empty_cache()
+
+    # b. phase 9's sparse shape: an ELL fixed effect, then a hybrid one
+    report["layouts"] = {}
+    gather_checks: list = []
+    for kind in ("ell", "hybrid"):
+        cfg = _partitioned_cfg(kind)
+        part = read(f"sparse {kind}", job["sparse"], cfg, ("userId",))
+        full = full_read(f"sparse {kind}", job["sparse"], cfg, ("userId",))
+        shard = part.result.dataset.feature_shards["global"]
+        policy = shard.hybrid_policy
+        report["layouts"][kind] = {
+            "ell_width": shard.ell_width, "flat_block_nnz": shard.flat_block_nnz,
+            "hot_ids": None if policy is None else list(policy.hot_ids),
+            "dim": shard.feature_dim, "local_rows": list(part.partition.local_rows)}
+        if rank == 0:
+            report["layouts"][kind]["full"] = _full_read_layout(
+                np, full.dataset.feature_shards["global"], part.partition, world)
+        program = _fused_program(k=None, re_types=("userId",), task="LINEAR_REGRESSION",
+                                 mesh=mesh)
+        res = builders(part, ("userId",), f"sparse {kind}")
+        parts = {rank: (part.result.dataset, res)}
+        run = _partitioned_run(torch, f"b. sparse {kind}", program, parts, mesh, world,
+                               PARTITIONED["sparse_sweeps"], ex)
+        state = run.pop("state")
+        ref = full_train(program, full, ("userId",), PARTITIONED["sparse_sweeps"])
+        gap, scale, _ = _state_gap(np, _flat_state(convert.train_state_to_numpy(state)),
+                                   _flat_state(convert.train_state_to_numpy(ref.state)))
+        report["runs"][f"sparse {kind}"] = dict(run, state_gap=gap, state_scale=scale,
+                                                full_losses=ref.losses)
+        data, _, state = dist.prepare_partitioned_inputs(program, parts, mesh, world,
+                                                         state=state, exchange=ex)
+        if rank == 0:
+            off = program._sum_scores(data["offsets"], program._coordinate_scores(data, state),
+                                      "global")
+            batch, _ = program._primary_fe_batch(data, off, data["weights"])
+            gather_checks += _fe_gather_checks(torch, f"13b. rank 0's {kind} block", batch,
+                                               state.fe_coefficients)
+        del data, part, full, res, state, ref
+        torch.cuda.empty_cache()
+    report["checks"]["gather"] = gather_checks
+
+    # c. blocks mode: two part files as one container, against the files mode
+    cfg = _partitioned_cfg("flagship")
+    for label, path in (("blocks", job["blocks_file"]), ("blocks as files",
+                                                         job["blocks_files"])):
+        part = read(label, path, cfg, ("userId",))
+        rows = _host_rows(np, part)
+        np.savez(tmp / f"rows-{label.replace(' ', '-')}-{rank}.npz", **rows)
+        (tmp / f"maps-{label.replace(' ', '-')}-{rank}.json").write_text(json.dumps(
+            {k: list(v) for k, v in part.result.index_maps.items()}))
+    return report
+
+
+def _full_read_layout(np, shard, partition, world: int) -> dict:
+    """The layout a full read of the whole input gives the sparse shard over
+    a mesh of ``world`` ranks: the hot ids it ranks, the ELL auto width of
+    its rows padded to the data axis, and the largest overflow beyond that
+    width over the partition's row ranges (the flat block every rank pads
+    to)."""
+    from photon_ml_torch.data.sparse_batch import _ell_auto_width, rank_hot_columns
+
+    rows, cols, _ = (np.asarray(a) for a in shard.coalesced())
+    policy = shard.hybrid_policy
+    hot = None
+    if policy is not None:
+        uniq, cnt = np.unique(cols, return_counts=True)
+        hot = rank_hot_columns(uniq, cnt, len(cols), policy)
+        pos = np.minimum(np.searchsorted(hot, cols), len(hot) - 1)
+        rows = rows[hot[pos] != cols]
+    n = int(shard.num_samples)
+    counts = np.bincount(rows, minlength=n)
+    padded = np.concatenate([counts, np.zeros((-n) % world, counts.dtype)])
+    width = _ell_auto_width(padded, len(padded), int(counts.sum()))
+    bounds = np.concatenate([[0], np.cumsum(partition.local_rows)])
+    flat = max(int(np.maximum(counts[lo:hi] - width, 0).sum())
+               for lo, hi in zip(bounds[:-1], bounds[1:]))
+    return {"ell_width": int(width), "flat_block_nnz": flat,
+            "hot_ids": None if hot is None else [int(c) for c in hot]}
+
+
+def _partitioned_drivers(rank: int, tmp: Path, job: dict) -> dict:
+    """Phase 13(e) on one rank: the GAME training driver with
+    ``--partitioned-io --distributed`` at the flagship's rows, then the
+    scoring driver the same way on the held-out rows (each rank its part)."""
+    from photon_ml_torch.cli import game_scoring_driver, game_training_driver
+
+    t0 = time.perf_counter()
+    train = game_training_driver.main([
+        "--input-data-path", job["train"], "--root-output-dir", str(tmp / "part"),
+        "--task-type", "LOGISTIC_REGRESSION", *job["shards"], *job["coordinates"],
+        "--coordinate-descent-iterations", "2", "--partitioned-io", "--distributed"],
+        device=job["device"])
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    score = game_scoring_driver.main([
+        "--input-data-path", job["validation"], "--model-input-dir", str(tmp / "part" / "best"),
+        "--output-dir", str(tmp / "scores-part"), *job["shards"], "--partitioned-io",
+        "--distributed"], device=job["device"])
+    return {"rank": rank, "train_seconds": train_s, "score_seconds": time.perf_counter() - t0,
+            "timings": {k: v["total"] for k, v in train["timings"].items()},
+            "score": {k: v for k, v in score.items() if k != "evaluations"}}
+
+
+def _partitioned_rank_main(rank: int, world: int, tmp: str, seed: int, device_type: str,
+                           device_index: int, job: dict) -> None:
+    """One rank of phase 13 (``job["what"]``: "paths" for (a)-(d), "drivers"
+    for (e)) in a gloo group of ``world`` with CUDA tensors; writes its
+    report to ``tmp/rank<r>.json``. A module function, so a spawned process
+    runs it."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from photon_ml_torch.parallel import multihost
+
+    try:
+        dev = torch.device(device_type, device_index) if device_type == "cuda" \
+            else torch.device(device_type)
+        multihost.initialize(f"file://{tmp}/rendezvous", world, rank, local_rank=device_index,
+                             device=dev, backend="gloo",
+                             timeout=datetime.timedelta(seconds=PARTITIONED["rank_timeout_s"]))
+        if job["what"] == "paths":
+            out = _partitioned_paths(torch, np, rank, world, Path(tmp), dev, job)
+        else:
+            out = _partitioned_drivers(rank, Path(tmp), job)
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out, default=float))
+    finally:
+        multihost.shutdown()
+
+
+def _spawn_partitioned(torch, dev, tmp: Path, seed: int, job: dict, label: str) -> tuple:
+    """Two ranks of ``job`` on the card (gloo, CUDA tensors; NCCL over two
+    cards where there are two), joined within ``rank_timeout_s``: (reports,
+    seconds with process start)."""
+    import multiprocessing
+
+    two_cards = dev.type == "cuda" and torch.cuda.device_count() >= 2
+    tmp.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_partitioned_rank_main,
+                         args=(r, 2, str(tmp), seed, dev.type, r if two_cards else 0, job))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(PARTITIONED["rank_timeout_s"])
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(30)
+    assert not alive, f"{label}: {len(alive)} ranks still running"
+    assert all(p.exitcode == 0 for p in procs), (label, [p.exitcode for p in procs])
+    return ([json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)],
+            time.perf_counter() - t0)
+
+
+def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 13, partitioned I/O, printing as it goes. Returns, for each
+    kernel this path runs, its launches on rank 0 of the partitioned runs and
+    its checks on rank 0's own block."""
+    from photon_ml_torch import convert
+    from photon_ml_torch.cli import game_scoring_driver, game_training_driver
+    from photon_ml_torch.data.game_data import (
+        build_random_effect_dataset,
+        build_random_effect_dataset_partitioned,
+    )
+    from photon_ml_torch.io.data_reader import read_merged
+    from photon_ml_torch.io.index_map import IndexMap
+    from photon_ml_torch.io.model_io import load_game_model, read_scores
+    from photon_ml_torch.io.partitioned_reader import read_partitioned
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.parallel.mesh import make_mesh
+    from photon_ml_torch.parallel.scoring import DistributedScorer
+
+    summary: dict = {}
+    with tempfile.TemporaryDirectory(prefix="partitioned-",
+                                     dir=Path(__file__).resolve().parent / "build") as tmp:
+        tmp = Path(tmp)
+        avro = _flagship_avro(np, seed, tmp)
+        sparse = _sparse_avro(np, seed, tmp / "sparse")
+        train_files = sorted(Path(avro["train"]).glob("part-*.avro"))
+        blocks = _blocks_container(train_files[:2], tmp / "blocks" / "one.avro")
+        (tmp / "blocks-files").mkdir()
+        for f in train_files[:2]:
+            os.symlink(f, tmp / "blocks-files" / f.name)
+        _log(f"13. inputs: flagship {avro['n']} + {avro['held_out']} rows "
+             f"({len(train_files)} training parts clustered by user), sparse {sparse['n']} "
+             f"rows written in {sparse['write_seconds']:.2f} s, one container of "
+             f"{blocks['records']} rows in {blocks['blocks']} blocks")
+
+        # a. one NCCL rank: the partitioned path's one-rank read is the full
+        # read, and its training the full read's bit for bit
+        info = multihost.initialize(device=None if dev.type == "cuda" else dev)
+        mesh = make_mesh()
+        ex = multihost.default_exchange()
+        cfg = _partitioned_cfg("flagship")
+        part = read_partitioned(avro["train"], cfg, exchange=ex,
+                                random_effect_id_columns=("userId",), device=dev)
+        assert part.mode == "single"
+        program = _fused_program(k=None, re_types=("userId",), mesh=mesh)
+        res = {"userId": build_random_effect_dataset_partitioned(
+            part.result.dataset, "userId", "per_entity", partition=part.partition, exchange=ex,
+            bucket_sizes=(PARTITIONED["cap"],))}
+        one = _partitioned_run(torch, "a. one rank", program, {0: (part.result.dataset, res)},
+                               mesh, 1, PARTITIONED["sweeps"], ex)
+        ref = dist.train_distributed(program, part.result.dataset, {
+            "userId": build_random_effect_dataset(part.result.dataset, "userId", "per_entity",
+                                                  bucket_sizes=(PARTITIONED["cap"],))},
+            mesh=mesh, num_iterations=PARTITIONED["sweeps"])
+        gap, scale, bitwise = _state_gap(
+            np, _flat_state(convert.train_state_to_numpy(one.pop("state"))),
+            _flat_state(convert.train_state_to_numpy(ref.state)))
+        _log(f"13a. one {info.backend} rank ({card}): train_partitioned against the full "
+             f"read's train_distributed(mesh=): bitwise {bitwise} (max |dw| {gap:.3g}), losses "
+             f"{one['losses']} / {ref.losses}, seconds a sweep {one['seconds_per_sweep']:.4f}, "
+             "launches " + json.dumps(one["launches"]))
+        assert bitwise and one["losses"] == ref.losses, (gap, one["losses"], ref.losses)
+        summary["one_rank"] = {k: one[k] for k in ("seconds_per_sweep", "launches", "losses")}
+        del part, res, ref
+        torch.cuda.empty_cache()
+
+        # a-d on two ranks
+        job = {"what": "paths", "train": str(avro["train"]),
+               "validation": str(avro["validation"]), "sparse": str(sparse["path"]),
+               "blocks_file": str(blocks["file"]), "blocks_files": str(tmp / "blocks-files")}
+        ranks, seconds = _spawn_partitioned(torch, dev, tmp / "paths", seed, job, "13a-d")
+        r0, r1 = ranks
+        for r in ranks:
+            for label, read in r["reads"].items():
+                _log(f"13. rank {r['rank']} read {label} ({read['mode']} mode; {card}): "
+                     f"{read['bytes_decoded']} of {read['input_bytes_total']} bytes "
+                     f"({read['bytes_decoded'] / read['input_bytes_total']:.3f}), "
+                     f"{read['rows']} rows in {read['seconds']:.2f} s "
+                     f"({read['records_per_s']:.0f} records/s)"
+                     + (f" against the full read's {read['full_seconds']:.2f} s "
+                        f"({read['full_records_per_s']:.0f} records/s)"
+                        if "full_seconds" in read else "")
+                     + (f"; entities on both ranks {read['spanning']}" if read["spanning"]
+                        else ""))
+        for label in ("flagship", "sparse ell", "sparse hybrid", "held-out"):
+            share = r0["reads"][label]["bytes_decoded"] / r0["reads"][label]["input_bytes_total"]
+            assert 0.3 < share < 0.7, (label, share)
+        # a. the flagship on two ranks against the full read
+        for label in ("user", "user+item"):
+            run = r0["runs"][label]
+            states = [dict(np.load(tmp / "paths" / f"state-{label}-{r}.npz")) for r in (0, 1)]
+            ranks_equal = all(np.array_equal(states[0][k], states[1][k]) for k in states[0])
+            _log(f"13a. FE + {label}, two ranks ({card}): state against the full read max "
+                 f"|dw| {run['state_gap']:.3g} (max |w| {run['state_scale']:.3g}"
+                 + (", limit 1e-3·max|w|" if label == "user" else
+                    f", no bound: {r0['reads']['flagship']['spanning']} entities span the "
+                    "ranks") + "), training loss rel gap a sweep "
+                 + json.dumps([float(f"{g:.3g}") for g in run["loss_gaps"]]) + ", bitwise repeat "
+                 f"{run['bitwise_repeat']}, ranks' states equal {ranks_equal}; seconds a sweep "
+                 + json.dumps(run["seconds_per_sweep_runs"]) + "; launches "
+                 + json.dumps(run["launches"]) + "; collectives " + json.dumps(run["collectives"]))
+            assert ranks_equal and run["bitwise_repeat"], label
+            if label == "user":
+                # the f32 sums over other row blocks move each sweep's L-BFGS
+                # solve: the losses meet as the sweeps converge, the final one
+                # within 1e-5
+                assert r0["reads"]["flagship"]["spanning"].get("userId", 0) == 0
+                assert run["state_gap"] <= 1e-3 * run["state_scale"] \
+                    and run["loss_gaps"][-1] <= 1e-5, run
+        assert r0["reads"]["flagship"]["spanning"].get("itemId", 0) > 0
+        # b. the sparse layouts against the full read's, the states within 1e-3
+        for kind in ("ell", "hybrid"):
+            layout = r0["layouts"][kind]
+            run = r0["runs"][f"sparse {kind}"]
+            want = layout["full"]
+            _log(f"13b. sparse {kind} ({card}): agreed ELL width {layout['ell_width']}, flat "
+                 f"block {layout['flat_block_nnz']}, {len(layout['hot_ids'] or [])} hot ids; "
+                 f"the full read's {want['ell_width']}, {want['flat_block_nnz']}, "
+                 f"{len(want['hot_ids'] or [])}; state against the full read max |dw| "
+                 f"{run['state_gap']:.3g} (limit 1e-3·max|w| = {1e-3 * run['state_scale']:.3g}); "
+                 f"seconds a sweep {run['seconds_per_sweep']:.4f}; launches "
+                 + json.dumps(run["launches"]))
+            assert layout["ell_width"] == want["ell_width"] \
+                and layout["flat_block_nnz"] == want["flat_block_nnz"] \
+                and layout["hot_ids"] == want["hot_ids"], (kind, layout, want)
+            assert all(layout[k] == r1["layouts"][kind][k] for k in r1["layouts"][kind]), kind
+            assert run["state_gap"] <= 1e-3 * run["state_scale"], (kind, run["state_gap"])
+        # c. blocks mode: array for array the files mode's
+        rows = {mode: [dict(np.load(tmp / "paths" / f"rows-{mode}-{r}.npz")) for r in (0, 1)]
+                for mode in ("blocks", "blocks-as-files")}
+        for k in rows["blocks"][0]:
+            if k.startswith("vocab/"):
+                assert all(np.array_equal(rows["blocks"][r][k], rows["blocks-as-files"][r][k])
+                           for r in (0, 1)), k
+            else:
+                assert np.array_equal(
+                    np.concatenate([rows["blocks"][r][k] for r in (0, 1)]),
+                    np.concatenate([rows["blocks-as-files"][r][k] for r in (0, 1)])), k
+        for r in (0, 1):
+            assert (tmp / "paths" / f"maps-blocks-{r}.json").read_text() == \
+                (tmp / "paths" / f"maps-blocks-as-files-{r}.json").read_text()
+        _log(f"13c. blocks mode ({card}): {blocks['records']} rows read as one container "
+             f"({r0['reads']['blocks']['mode']}, Python codec) array for array the files "
+             f"mode's ({r0['reads']['blocks as files']['mode']}, native decoder): records/s "
+             + json.dumps({lab: [round(r["reads"][lab]["records_per_s"], 1) for r in ranks]
+                           for lab in ("blocks", "blocks as files")}))
+        assert r0["reads"]["blocks"]["mode"] == "blocks"
+        # d. the ranks' score parts against the one-rank scorer's scores
+        maps = IndexMap.load_directory(tmp / "paths" / "index-maps")
+        model = load_game_model(tmp / "paths" / "model", maps, device=dev)
+        vocabs = {m.random_effect_type: m.entity_keys for m in model.models.values()
+                  if hasattr(m, "entity_keys")}
+        val = read_merged(avro["validation"], cfg, index_maps=maps,
+                          random_effect_id_columns=("userId",), entity_vocabs=vocabs,
+                          device=dev).dataset
+        whole = DistributedScorer(model, mesh).score_dataset(val)
+        got = [dict(np.load(tmp / "paths" / f"scores-{r}.npz")) for r in (0, 1)]
+        union = np.concatenate([g["scores"] for g in got])
+        score_bitwise = bool(np.array_equal(union, whole)) and np.array_equal(
+            np.concatenate([g["uids"] for g in got]), val.unique_ids)
+        _log(f"13d. score_partitioned of {len(whole)} held-out rows ({card}): the ranks' "
+             f"{[len(g['scores']) for g in got]} rows against the one-rank scorer's: bitwise "
+             f"{score_bitwise} (max |ds| {float(np.abs(union - whole).max()):.3g}); seconds "
+             + json.dumps([r["score_seconds"] for r in ranks]))
+        assert score_bitwise
+        summary["two_ranks"] = {"seconds": seconds, "reads": {r["rank"]: r["reads"]
+                                                             for r in ranks},
+                                "runs": {k: {f: v[f] for f in ("seconds_per_sweep", "launches",
+                                                               "collectives", "state_gap",
+                                                               "state_scale")}
+                                         for k, v in r0["runs"].items()},
+                                "layouts": r0["layouts"]}
+        del model, val, whole
+
+        # e. the drivers at the flagship's rows
+        shards = ["--feature-shard-configurations",
+                  "name=global,feature.bags=features,intercept=true",
+                  "--feature-shard-configurations",
+                  "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+        coordinates = ["--coordinate-configurations",
+                       "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+                       "--coordinate-configurations",
+                       "name=per_user,feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,"
+                       "max.iter=10,random.effect.type=userId"]
+        device = None if dev.type == "cuda" else dev
+        t0 = time.perf_counter()
+        game_training_driver.main([
+            "--input-data-path", str(avro["train"]), "--root-output-dir", str(tmp / "full"),
+            "--task-type", "LOGISTIC_REGRESSION", *shards, *coordinates,
+            "--coordinate-descent-iterations", "2", "--distributed"], device=device)
+        full_s = time.perf_counter() - t0
+        job = {"what": "drivers", "train": str(avro["train"]),
+               "validation": str(avro["validation"]), "shards": shards,
+               "coordinates": coordinates, "device": device}
+        drivers, seconds = _spawn_partitioned(torch, dev, tmp / "drivers", seed, job, "13e")
+        out = tmp / "drivers"
+        game_scoring_driver.main([
+            "--input-data-path", str(avro["validation"]), "--model-input-dir",
+            str(out / "part" / "best"), "--output-dir", str(tmp / "scores-one"), *shards,
+            "--distributed"], device=device)
+        same = {}
+        for f in sorted((tmp / "full").rglob("*")):
+            rel = f.relative_to(tmp / "full")
+            if f.is_file() and ("index-maps" in rel.parts or f.name in ("id-info",
+                                                                        "model-metadata.json")):
+                same[str(rel)] = (out / "part" / rel).read_bytes() == f.read_bytes()
+        assert same and all(same.values()), same
+        maps = IndexMap.load_directory(tmp / "full" / "index-maps")
+        a, b = (load_game_model(d / "best", maps, device=dev) for d in (tmp / "full",
+                                                                      out / "part"))
+        gaps = {}
+        for cid, m in a.models.items():
+            x = m.glm.coefficients.means if hasattr(m, "glm") else m.coefficients
+            other = b.get(cid)
+            y = other.glm.coefficients.means if hasattr(other, "glm") else other.coefficients
+            gaps[cid] = (float((y.double() - x.double()).abs().max()),
+                         float(x.double().abs().max()))
+        parts = sorted(os.listdir(tmp / "drivers" / "scores-part" / "scores"))
+        got = [r for p in parts for r in read_scores(tmp / "drivers" / "scores-part" / "scores"
+                                                     / p)]
+        want = list(read_scores(tmp / "scores-one" / "scores"))
+        _log(f"13e. the GAME drivers with --partitioned-io --distributed on two ranks at "
+             f"{avro['n']} + {avro['held_out']} rows ({card}): {len(same)} files without "
+             f"coefficients byte-identical to the --distributed run's, coefficient gaps "
+             + json.dumps(gaps) + f", score parts {parts} hold the one-rank scores exactly "
+             f"{got == want}; seconds: --distributed training {full_s:.2f}, partitioned "
+             + json.dumps({r["rank"]: {"train": round(r["train_seconds"], 2),
+                                       "score": round(r["score_seconds"], 2),
+                                       "read": round(r["timings"].get("read training data", 0),
+                                                     2)} for r in drivers})
+             + f", {seconds:.2f} with process start")
+        assert all(g <= 1e-3 * s for g, s in gaps.values()), gaps
+        assert parts == ["part-00000.avro", "part-00001.avro"] and got == want
+        summary["drivers"] = {"coefficient_gaps": gaps, "byte_identical": len(same),
+                              "seconds": seconds, "full_training_seconds": full_s}
+    multihost.shutdown()
+    launches = r0["runs"]["user"]["launches"]
+    sparse_launches = [r0["runs"][f"sparse {k}"]["launches"] for k in ("ell", "hybrid")]
+    checks = r0["checks"]
+    path = {"fused_glm": dict(checks["b1"]["fused_glm"], launches=launches["fused_glm"]),
+            "fused_glm_reduce": dict(checks["b1"]["fused_glm_reduce"],
+                                     launches=launches["fused_glm_reduce"]),
+            "sparse_gather": {"launches": sum(x["rows"] + x["segments"] for x in sparse_launches),
+                              "row_kernel": sum(x["rows"] for x in sparse_launches),
+                              "segment_kernel": sum(x["segments"] for x in sparse_launches),
+                              "checks": checks["gather"]},
+            "sparse_gather_chunks": {"launches": sum(x["chunks"] for x in sparse_launches),
+                                     "checks": [c for c in checks["gather"] if c["chunk_rows"]]}}
     assert all(v["launches"] > 0 for v in path.values()), {k: v["launches"]
                                                            for k, v in path.items()}
     path["fused_glm"]["summary"] = summary
@@ -4853,6 +5556,13 @@ def main(argv=None) -> int:
     _log(f"projected GAME phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in projected_path.items()}))
 
+    # the flagship's Avro, written once by phase 8 and read by phases 12 and 13
+    os.makedirs(Path(__file__).resolve().parent / "build", exist_ok=True)
+    shared = Path(tempfile.mkdtemp(prefix="shared-", dir=Path(__file__).resolve().parent
+                                   / "build"))
+    atexit.register(shutil.rmtree, shared, True)
+    _SHARED["dir"] = shared
+
     # 8. the drivers: each kernel of that path with its launches there, and
     # its check and times on that path's own inputs
     t0 = time.perf_counter()
@@ -4885,9 +5595,16 @@ def main(argv=None) -> int:
     mesh_path = _mesh_slice(torch, np, args.seed, dev, card)
     _log(f"mesh phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in mesh_path.items()}))
+    # 13. partitioned I/O: each rank decodes its slice and trains and scores
+    # its own block; its launches and kernel checks as its own path
+    t0 = time.perf_counter()
+    partitioned_path = _partitioned_slice(torch, np, args.seed, dev, card)
+    _log(f"partitioned phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in partitioned_path.items()}))
     for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
                       ("sparse_game_path", sparse_game_path), ("mf_path", mf_path),
-                      ("fused_path", fused_path), ("mesh_path", mesh_path)):
+                      ("fused_path", fused_path), ("mesh_path", mesh_path),
+                      ("partitioned_path", partitioned_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

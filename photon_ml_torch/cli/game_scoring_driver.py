@@ -16,10 +16,15 @@ driver's names and layout. ``--distributed`` (or ``--mesh data=N``) scores
 each rank's rows through ``parallel/scoring.DistributedScorer`` over a mesh
 of every rank (``torchrun --nproc-per-node N``, or one process alone) and
 gathers them; rank 0 writes, the other ranks write into
-``<output-dir>/.worker-<rank>``. Left out, each refused with
-``NotImplementedError`` naming its ROADMAP.md item before any data is read:
-``--mesh model>1`` and ``--partitioned-io`` (15), ``--telemetry-dir`` and
-``--trace-dir`` (19). ``--input-format libsvm``
+``<output-dir>/.worker-<rank>``. With ``--partitioned-io`` (which needs
+``--distributed`` or ``--mesh`` and takes no ``--evaluators``) each rank of a
+group of several decodes only its slice of the input
+(``io/partitioned_reader.py``), scores its own rows
+(``DistributedScorer.score_partitioned``) and writes them as its own part,
+``scores/part-{rank:05d}.avro`` (``io/score_writer.ShardedScoreWriter``).
+Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
+item before any data is read: ``--mesh model>1`` (15), ``--telemetry-dir``
+and ``--trace-dir`` (19). ``--input-format libsvm``
 reads LibSVM text. A compact random-effect model scores a sparse shard
 (``sparse=true`` in its ``--feature-shard-configurations``) through the
 gather kernel; a model is loaded compact when its feature space exceeds
@@ -40,17 +45,19 @@ import torch
 from photon_ml_torch.cli.configs import evaluation_id_columns, parse_feature_shard_config
 from photon_ml_torch.cli.game_training_driver import _json_safe, parse_mesh_shape
 from photon_ml_torch.device import resolve_device
-from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
+from photon_ml_torch.io.data_reader import FeatureShardConfiguration
 from photon_ml_torch.io.index_map import IndexMap
 from photon_ml_torch.io.model_io import (
     DEFAULT_COMPACT_RE_THRESHOLD,
     load_game_model,
     load_game_model_and_index_maps,
 )
+from photon_ml_torch.io.partitioned_reader import read_partitioned
 from photon_ml_torch.io.score_writer import ShardedScoreWriter
 from photon_ml_torch.models.game import RandomEffectModel
 from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_torch.parallel import multihost
+from photon_ml_torch.parallel.scoring import DistributedScorer
 from photon_ml_torch.transformers import GameTransformer
 from photon_ml_torch.util import Timed
 from photon_ml_torch.util.timed import reset_timings
@@ -58,10 +65,9 @@ from photon_ml_torch.util.timed import reset_timings
 logger = logging.getLogger(__name__)
 
 
-def _check_ported(*, mesh_shape, partitioned_io, telemetry_dir, trace_dir) -> None:
+def _check_ported(*, mesh_shape, telemetry_dir, trace_dir) -> None:
     left_out = (
         ((mesh_shape or {}).get("model", 1) > 1, "--mesh model>1 (the model axis)", 15),
-        (partitioned_io, "--partitioned-io (per-rank score shards)", 15),
         (bool(telemetry_dir), "--telemetry-dir (run journal)", 19),
         (bool(trace_dir), "--trace-dir (span tracing)", 19),
     )
@@ -99,17 +105,25 @@ def run(
     configs default to one shard per saved index map using the bag of the
     same name.
     """
-    _check_ported(mesh_shape=mesh_shape, partitioned_io=partitioned_io,
-                  telemetry_dir=telemetry_dir, trace_dir=trace_dir)
+    _check_ported(mesh_shape=mesh_shape, telemetry_dir=telemetry_dir, trace_dir=trace_dir)
     if on_corrupt not in ("raise", "quarantine"):
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
     distributed = distributed or bool(mesh_shape)
+    if partitioned_io and not distributed:
+        raise ValueError(
+            "--partitioned-io requires --distributed or --mesh (the "
+            "partitioned blocks feed a mesh's addressable shards)"
+        )
     created = distributed and not torch.distributed.is_initialized()
     mesh = None
+    exchange = None
     try:
         if distributed:
             info = multihost.initialize(device=device)
-            if info.rank > 0:
+            if partitioned_io and info.world_size > 1:
+                # every rank writes its own part into the one output directory
+                exchange = multihost.default_exchange()
+            elif info.rank > 0:
                 output_dir = os.path.join(output_dir, f".worker-{info.rank}")
             shape = dict(mesh_shape or {})
             mesh = multihost.make_hybrid_mesh(data=shape.get("data"),
@@ -119,7 +133,7 @@ def run(
                     index_maps_dir=index_maps_dir, evaluators=evaluators, model_id=model_id,
                     input_format=input_format,
                     compact_random_effect_threshold=compact_random_effect_threshold,
-                    on_corrupt=on_corrupt, mesh=mesh, device=device)
+                    on_corrupt=on_corrupt, mesh=mesh, exchange=exchange, device=device)
     finally:
         if created:
             multihost.shutdown()
@@ -127,49 +141,88 @@ def run(
 
 def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_maps_dir,
          evaluators, model_id, input_format, compact_random_effect_threshold, on_corrupt, mesh,
-         device) -> dict:
+         device, exchange=None) -> dict:
     device = resolve_device(device)
     reset_timings()
+    if exchange is not None and evaluators:
+        raise ValueError(
+            "--partitioned-io does not support --evaluators yet; evaluate "
+            "through the non-partitioned scoring path"
+        )
     paths = ([input_data_path] if isinstance(input_data_path, (str, os.PathLike))
              else list(input_data_path))
     if not paths:
         raise ValueError("input_data_path names no datasets")
-    os.makedirs(output_dir, exist_ok=True)
+    writes = exchange is None or exchange.rank == 0  # the shared directory is rank 0's
+    if writes:
+        os.makedirs(output_dir, exist_ok=True)
+    if exchange is not None:
+        exchange.barrier("scoring/output_dir")
     model, index_maps, feature_shards, entity_vocabs, re_columns = _load_scoring_model(
         model_input_dir=model_input_dir, index_maps_dir=index_maps_dir,
         feature_shards=feature_shards,
         compact_random_effect_threshold=compact_random_effect_threshold, device=device)
     sync = torch.cuda.synchronize if device.type == "cuda" else None
     transformer = GameTransformer(model=model, evaluator_specs=tuple(evaluators), mesh=mesh)
+    part_scorer = None
     summaries: list[dict] = []
     for di, path in enumerate(paths):
         ds_output = output_dir if len(paths) == 1 else os.path.join(output_dir, f"dataset-{di:04d}")
-        os.makedirs(ds_output, exist_ok=True)
+        if ds_output != output_dir:
+            if writes:
+                os.makedirs(ds_output, exist_ok=True)
+            if exchange is not None:
+                exchange.barrier(f"scoring/output_dir/{di}")
+        # no retry around the read: a partitioned read is collective
         with Timed("read scoring data", sync=sync):
-            data = read_merged(path, feature_shards, index_maps=index_maps or None,
-                               random_effect_id_columns=re_columns,
-                               evaluation_id_columns=evaluation_id_columns(evaluators),
-                               entity_vocabs=entity_vocabs, fmt=input_format,
-                               on_corrupt=on_corrupt, device=device)
-        with Timed("score", sync=sync):
-            scored = transformer.transform(data.dataset)
-        summary = {"num_scored": int(len(scored.scores)), "evaluations": scored.evaluations}
-        with Timed("save scores"):
-            writer = ShardedScoreWriter(os.path.join(ds_output, "scores"))
-            writer.write(scored.scores, model_id=model_id, uids=scored.unique_ids,
-                         labels=data.dataset.host_array("labels"),
-                         weights=data.dataset.host_array("weights"))
+            part = read_partitioned(path, feature_shards, exchange=exchange,
+                                    index_maps=index_maps or None,
+                                    random_effect_id_columns=re_columns,
+                                    evaluation_id_columns=evaluation_id_columns(evaluators),
+                                    entity_vocabs=entity_vocabs, fmt=input_format,
+                                    pad_multiple=1, on_corrupt=on_corrupt, device=device)
+            data = part.result
+        partition = part.partition
+        if partition.num_ranks > 1:
+            # each rank scores and writes its own rows: no gather, no rank-0
+            # encode of the whole output
+            with Timed("score", sync=sync):
+                if part_scorer is None:
+                    part_scorer = DistributedScorer(model, mesh)
+                local_scores = part_scorer.score_partitioned(
+                    {partition.rank: data.dataset}, partition, exchange=exchange)[partition.rank]
+            n_local = partition.local_n
+            with Timed("save scores"):
+                ShardedScoreWriter(os.path.join(ds_output, "scores"), exchange=exchange).write(
+                    local_scores, model_id=model_id,
+                    uids=np.asarray(data.dataset.unique_ids)[:n_local],
+                    labels=data.dataset.host_array("labels")[:n_local],
+                    weights=data.dataset.host_array("weights")[:n_local])
+            summary = {"num_scored": partition.total_true_rows, "num_scored_local": n_local,
+                       "bytes_decoded_local": part.bytes_decoded,
+                       "input_bytes_total": part.input_bytes_total, "evaluations": {}}
+        else:
+            with Timed("score", sync=sync):
+                scored = transformer.transform(data.dataset)
+            summary = {"num_scored": int(len(scored.scores)), "evaluations": scored.evaluations}
+            with Timed("save scores"):
+                writer = ShardedScoreWriter(os.path.join(ds_output, "scores"))
+                writer.write(scored.scores, model_id=model_id, uids=scored.unique_ids,
+                             labels=data.dataset.host_array("labels"),
+                             weights=data.dataset.host_array("weights"))
         if len(paths) > 1:
             summary = dict(summary, input_data_path=str(path))
-        with open(os.path.join(ds_output, "scoring-summary.json"), "w") as f:
-            json.dump(_json_safe(summary), f, indent=2, default=float)
+        if writes:
+            with open(os.path.join(ds_output, "scoring-summary.json"), "w") as f:
+                json.dump(_json_safe(summary), f, indent=2, default=float)
         summaries.append(summary)
     if len(paths) == 1:
         return summaries[0]
     combined = {"num_scored": int(sum(s["num_scored"] for s in summaries)),
                 "num_datasets": len(summaries), "datasets": summaries}
-    with open(os.path.join(output_dir, "scoring-summary.json"), "w") as f:
-        json.dump(_json_safe(combined), f, indent=2, default=float)
+    if writes:
+        with open(os.path.join(output_dir, "scoring-summary.json"), "w") as f:
+            json.dump(_json_safe(combined), f, indent=2, default=float)
     return combined
 
 
@@ -253,7 +306,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default="",
                    help="data=N[,model=1]: the mesh's shape (implies --distributed; model>1 "
                         "is not ported, item 15)")
-    p.add_argument("--partitioned-io", action="store_true", help="not ported (item 15)")
+    p.add_argument("--partitioned-io", action="store_true",
+                   help="each rank decodes ~1/P of the input and writes its own score part "
+                        "(needs --distributed or --mesh; no --evaluators)")
     p.add_argument("--telemetry-dir", help="not ported (item 19)")
     p.add_argument("--trace-dir", help="not ported (item 19)")
     return p

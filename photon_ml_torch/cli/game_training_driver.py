@@ -28,11 +28,16 @@ sections.
 over a mesh of every rank: run it under ``torchrun --nproc-per-node N``
 (NCCL, one card a rank), or in one process alone (a group of one). Every
 rank reads the same inputs; rank 0 writes the outputs and the other ranks
-write into ``<root-output-dir>/.worker-<rank>``.
+write into ``<root-output-dir>/.worker-<rank>``. With ``--partitioned-io``
+each rank of a group of several decodes only its slice of the training
+input (``io/partitioned_reader.py``) and trains through
+``train_partitioned``; it needs ``--distributed`` or ``--mesh``, takes no
+validation data and writes no feature statistics (they would summarize one
+rank's rows). A group of one reads in full.
 
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--mesh model>1`` and ``--partitioned-io``
-(15), ``--streaming-chunks`` and its DuHL riders,
+item before any data is read: ``--mesh model>1`` (15), ``--streaming-chunks``
+and its DuHL riders,
 ``--checkpoint-dir`` and ``--max-restarts`` above 0 (16; the port's default
 is 0), ``--incremental-refresh``, hyperparameter tuning, the lane scheduler
 (18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir`` (19).
@@ -69,9 +74,10 @@ from photon_ml_torch.data.batch import summarize
 from photon_ml_torch.data.sparse_batch import SparseShard
 from photon_ml_torch.data.validators import DataValidationType, validate_game_dataset
 from photon_ml_torch.device import resolve_device
-from photon_ml_torch.estimators import GameEstimator
+from photon_ml_torch.estimators import GameEstimator, TrainPartition
 from photon_ml_torch.evaluation.evaluators import parse_evaluator
 from photon_ml_torch.io.data_reader import read_merged
+from photon_ml_torch.io.partitioned_reader import read_partitioned
 from photon_ml_torch.io.index_map import IdentityIndexMap, IndexMap
 from photon_ml_torch.io.model_io import (
     DEFAULT_COMPACT_RE_THRESHOLD,
@@ -147,7 +153,6 @@ class GameTrainingParams:
         left_out = (
             ((self.mesh_shape or {}).get("model", 1) > 1,
              "--mesh model>1 (the model axis)", 15),
-            (self.partitioned_io, "--partitioned-io (multi-process ingestion)", 15),
             (self.streaming_chunks > 0 or self.duhl_working_set > 0,
              "--streaming-chunks and the DuHL schedule (out-of-core GAME)", 16),
             (bool(self.checkpoint_dir), "--checkpoint-dir and resume", 16),
@@ -228,6 +233,11 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
     returns the summary dict written to ``training-summary.json``."""
     params.validate()
     params.check_ported()
+    if params.partitioned_io and not params.distributed:
+        raise ValueError(
+            "--partitioned-io requires --distributed or --mesh (the "
+            "partitioned blocks feed a mesh's addressable shards)"
+        )
     created = False
     if params.distributed:
         # every rank reads the same inputs and joins every collective; the
@@ -290,14 +300,38 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
     if params.index_maps_dir:
         prebuilt_maps = IndexMap.load_directory(params.index_maps_dir)
 
+    # partitioned I/O: each rank of a group of several decodes about 1/P of
+    # the input; a group of one (and every other run) reads in full
+    exchange = None
+    pad_multiple = 1
+    if params.partitioned_io and mesh is not None and mesh.size(0) * mesh.size(1) > 1:
+        exchange = multihost.default_exchange()
+        data_axis = mesh.size(0)
+        if data_axis % exchange.num_ranks:
+            raise ValueError(f"--partitioned-io: mesh data axis {data_axis} must be a multiple "
+                             f"of the process count {exchange.num_ranks}")
+        pad_multiple = data_axis // exchange.num_ranks
+        if params.validation_data_path:
+            raise ValueError(
+                "--partitioned-io does not support validation data yet; "
+                "score + evaluate with the partitioned scoring driver"
+            )
+
+    # no retry around the read: a partitioned read is collective, and one
+    # rank retrying would desynchronize its exchanges
     with Timed("read training data", sync=sync):
-        train = read_merged(_resolve(params.input_data_path, params.input_date_range),
-                            params.feature_shards,
-                            index_maps=prebuilt_maps, random_effect_id_columns=re_columns,
-                            evaluation_id_columns=eval_columns, fmt=params.input_format,
-                            on_corrupt=params.on_corrupt, device=device)
-    job_log.info("read %d training samples, shards %s", train.dataset.num_samples,
-                 {k: v.size for k, v in train.index_maps.items()})
+        train_part = read_partitioned(
+            _resolve(params.input_data_path, params.input_date_range), params.feature_shards,
+            exchange=exchange, index_maps=prebuilt_maps, random_effect_id_columns=re_columns,
+            evaluation_id_columns=eval_columns, fmt=params.input_format,
+            pad_multiple=pad_multiple, tag="train", on_corrupt=params.on_corrupt, device=device)
+        train = train_part.result
+    partition = train_part.partition
+    job_log.info(
+        "read %d training samples%s, shards %s", train.dataset.num_samples,
+        (f" (rank {partition.rank}/{partition.num_ranks}, {train_part.bytes_decoded}/"
+         f"{train_part.input_bytes_total} bytes decoded)" if partition.num_ranks > 1 else ""),
+        {k: v.size for k, v in train.index_maps.items()})
 
     validation = None
     if params.validation_data_path:
@@ -316,7 +350,11 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
 
     with Timed("feature shard stats"):
         weights = train.dataset.host_array("weights")
-        for shard_id, features in train.dataset.feature_shards.items():
+        if partition.num_ranks > 1:
+            # a rank's statistics would summarize 1/P of the rows
+            logger.info("partitioned ingest: skipping feature stats (rank-local rows)")
+        for shard_id, features in ({} if partition.num_ranks > 1
+                                   else train.dataset.feature_shards).items():
             imap = train.index_maps[shard_id]
             if isinstance(imap, IdentityIndexMap) and imap.size > (1 << 20):
                 # a pre-indexed giant space: its stats file would be d records
@@ -344,6 +382,12 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
         if isinstance(imap, IndexMap):
             imap.save(os.path.join(out, "index-maps"), shard_id)
 
+    estimator_partition = None
+    if partition.num_ranks > 1:
+        estimator_partition = TrainPartition(
+            info=partition, exchange=exchange, lane_multiple=pad_multiple,
+            entity_rank_presence=train_part.entity_rank_presence)
+
     def make_estimator(reg_weights) -> GameEstimator:
         return GameEstimator(
             task=params.task_type,
@@ -355,6 +399,7 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             locked_coordinates=frozenset(params.partial_retrain_locked_coordinates),
             intercept_indices=train.intercept_indices,
             mesh=mesh,
+            partition=estimator_partition,
         )
 
     grid = expand_reg_weight_grid(params.coordinates)
@@ -456,7 +501,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default="",
                    help="data=N[,model=1]: the mesh's shape (implies --distributed; model>1 "
                         "is not ported, item 15)")
-    p.add_argument("--partitioned-io", action="store_true", help="not ported (item 15)")
+    p.add_argument("--partitioned-io", action="store_true",
+                   help="each rank decodes ~1/P of the input bytes (per-rank partitioned Avro "
+                        "ingestion; needs --distributed or --mesh, no validation data)")
     p.add_argument("--on-corrupt", default="raise", choices=["raise", "quarantine"],
                    help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
                         "(skip-and-count)")

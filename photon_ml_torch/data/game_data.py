@@ -275,7 +275,15 @@ def pad_lane_fields(fields: dict, multiple: int) -> dict:
     lanes carry weight 0, sample rows -1 (zero offsets), entity row
     :data:`PAD_ENTITY_ROW` (no table row is written) and zero features."""
     e = int(fields["entity_rows"].shape[0])
-    pad = (-e) % max(1, int(multiple))
+    return pad_lanes_to(fields, e + (-e) % max(1, int(multiple)))
+
+
+def pad_lanes_to(fields: dict, lanes: int) -> dict:
+    """:func:`pad_lane_fields` to exactly ``lanes`` lanes."""
+    e = int(fields["entity_rows"].shape[0])
+    pad = int(lanes) - e
+    if pad < 0:
+        raise ValueError(f"cannot pad {e} lanes down to {lanes}")
     if not pad:
         return dict(fields)
     fill = {"sample_rows": -1, "entity_rows": int(PAD_ENTITY_ROW)}
@@ -708,6 +716,94 @@ def build_random_effect_dataset(
         projection=projection,
         pre_normalized=normalization is not None,
     )
+
+
+def build_random_effect_dataset_partitioned(
+    dataset: GameDataset,
+    re_type: str,
+    shard_id: str,
+    *,
+    partition,
+    exchange,
+    active_data_upper_bound: int | None = None,
+    active_data_lower_bound: int | None = None,
+    bucket_sizes: Sequence[int] = (8, 32, 128, 512, 2048),
+    seed: int = 0,
+    lane_multiple: int = 1,
+    entity_rank_presence: np.ndarray | None = None,
+    tag: str | None = None,
+) -> RandomEffectDataset:
+    """Rank-local random-effect view over a partitioned read.
+
+    ``dataset`` is this rank's padded block from ``io/partitioned_reader.py``
+    (entity indices in the global vocab; pad rows carry entity -1 and are
+    left out as everywhere). Buckets are built from the local samples only;
+    one allgather of per-capacity entity counts agrees the structure:
+
+    - every rank takes the same capacity list and pads each capacity's lanes
+      to the common count (pad lanes: weight 0, entity row out of range), so
+      the ranks' lane blocks concatenate to one global bucket;
+    - ``sample_rows`` shift by the rank's base row, so they index the global
+      sample axis, as the step's gathered residual offsets do.
+
+    An entity whose samples span ranks gets one lane a rank, each solving on
+    that rank's samples only, and the last lane's solve (in bucket order,
+    then rank order) wins the table row; the full read gives it one lane.
+    Entity-clustered inputs keep every entity on one rank and match the full
+    read; ``entity_rank_presence`` (from the reader) warns when they do not.
+    Dense IDENTITY coordinates only."""
+    shard = dataset.feature_shards[shard_id]
+    if isinstance(shard, SparseShard):
+        raise ValueError(
+            f"random-effect coordinate '{re_type}': sparse (compact) "
+            "shards are not supported by the partitioned path; use the "
+            "full reader"
+        )
+    if entity_rank_presence is not None:
+        spanning = int(np.sum(np.asarray(entity_rank_presence) > 1))
+        if spanning:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "random-effect coordinate '%s': %d entities have samples on multiple ranks; "
+                "their per-rank partial solves deviate from the full-read result "
+                "(entity-cluster the input for exact parity)", re_type, spanning)
+
+    local = build_random_effect_dataset(
+        dataset, re_type, shard_id, active_data_upper_bound=active_data_upper_bound,
+        active_data_lower_bound=active_data_lower_bound, bucket_sizes=bucket_sizes, seed=seed)
+    by_cap = {b.capacity: b for b in local.buckets}
+    gathered = exchange.allgather(f"re_partitioned/{tag or re_type}",
+                                  {str(cap): b.num_entities for cap, b in by_cap.items()})
+    all_caps = sorted({int(c) for g in gathered for c in g},
+                      key=lambda c: (list(bucket_sizes).index(c) if c in bucket_sizes
+                                     else len(bucket_sizes), c))
+    dim = local.dim
+    base_row = partition.base_row
+    device = dataset.device
+    buckets: list[EntityBucket] = []
+    for cap in all_caps:
+        e_max = max(int(g.get(str(cap), 0)) for g in gathered)
+        e_pad = -(-e_max // max(1, lane_multiple)) * max(1, lane_multiple)
+        b = by_cap.get(cap)
+        if b is not None:
+            fields = {f.name: getattr(b, f.name) for f in dataclasses.fields(b)}
+        else:
+            fields = dict(
+                features=torch.zeros((0, cap, dim), dtype=shard.dtype, device=device),
+                labels=torch.zeros((0, cap), dtype=dataset.labels.dtype, device=device),
+                weights=torch.zeros((0, cap), dtype=dataset.weights.dtype, device=device),
+                entity_rows=torch.zeros((0,), dtype=torch.int32, device=device),
+                sample_rows=torch.full((0, cap), -1, dtype=torch.int32, device=device),
+                col_index=None)
+        fields = pad_lanes_to(fields, e_pad)
+        rows = fields["sample_rows"]
+        fields["sample_rows"] = torch.where(rows >= 0, rows + base_row,
+                                            torch.full_like(rows, -1)).to(torch.int32)
+        buckets.append(EntityBucket(**fields))
+    return RandomEffectDataset(random_effect_type=re_type, feature_shard_id=shard_id,
+                               buckets=buckets, num_entities=local.num_entities, dim=dim,
+                               projector_type=ProjectorType.IDENTITY)
 
 
 def _build_sparse_random_effect_dataset(

@@ -5,7 +5,9 @@ Counterpart of ``photon_ml_tpu/estimators.py``. ``GameEstimator.fit``
 per-coordinate datasets, the training-loss and validation evaluators and the
 per-shard normalization, then runs block coordinate descent; with ``mesh``
 it trains through the fused program over the mesh's data axis instead
-(``_fit_distributed``, ``parallel/distributed.py``). One device runs it over
+(``_fit_distributed``, ``parallel/distributed.py``), and with ``partition``
+(:class:`TrainPartition`) on this rank's block of a partitioned read
+(``train_partitioned``). One device runs it over
 a dense or sparse fixed effect, random effects
 on dense shards (IDENTITY, INDEX_MAP or RANDOM projection, optional
 per-entity Pearson feature selection) or on sparse shards (compact ``[E, K]``
@@ -37,7 +39,11 @@ from photon_ml_torch.algorithm.coordinates import (
 )
 from photon_ml_torch.algorithm.mf_coordinate import MatrixFactorizationCoordinate, build_mf_dataset
 from photon_ml_torch.data.batch import LabeledPointBatch, summarize
-from photon_ml_torch.data.game_data import GameDataset, build_random_effect_dataset
+from photon_ml_torch.data.game_data import (
+    GameDataset,
+    build_random_effect_dataset,
+    build_random_effect_dataset_partitioned,
+)
 from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch, SparseShard
 from photon_ml_torch.evaluation.evaluators import (
     EvaluationData,
@@ -133,6 +139,26 @@ def _not_ported(what: str, item: "int | str"):
 
 
 @dataclasses.dataclass
+class TrainPartition:
+    """Partitioned-read context of ``GameEstimator``: ``fit`` receives this
+    rank's padded block from ``io/partitioned_reader.read_partitioned``
+    instead of the whole dataset.
+
+    info: the reader's PartitionInfo (the rank geometry).
+    exchange: the run's MetadataExchange (the RE bucket structure rides it).
+    lane_multiple: devices a rank along the mesh's "data" axis (1 in the
+        port, one process a device).
+    entity_rank_presence: the reader's RE type -> ranks-per-entity, for the
+        rank-local RE builder's warning about entities that span ranks.
+    """
+
+    info: object
+    exchange: object
+    lane_multiple: int = 1
+    entity_rank_presence: Mapping[str, np.ndarray] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class GameEstimator:
     """Trains a GAME model on one device: ordered coordinates, block
     coordinate descent."""
@@ -166,6 +192,11 @@ class GameEstimator:
     kernel_aux: str = "packed"
     #: called with (iteration, coordinate id, solver info) after each update
     on_update: Callable | None = None
+    #: partitioned-read context (TrainPartition): fit() receives this rank's
+    #: block and trains through train_partitioned over ``mesh``; a dense or
+    #: sparse primary FE and dense IDENTITY REs, without normalization or
+    #: validation (``_check_partition_supported``)
+    partition: "TrainPartition | None" = None
 
     def fit(self, dataset: GameDataset, validation_dataset: GameDataset | None = None,
             initial_model: GameModel | None = None) -> CoordinateDescentResult:
@@ -175,6 +206,13 @@ class GameEstimator:
             raise _not_ported("checkpoints in run_coordinate_descent", 16)
         if self.telemetry is not None:
             raise _not_ported("solver telemetry", 19)
+        if self.partition is not None and self.mesh is None:
+            # the coordinate-descent path would train a whole model on this
+            # rank's 1/P block
+            raise ValueError(
+                "partitioned training requires a mesh (the per-rank blocks "
+                "feed its addressable shards); pass GameEstimator(mesh=...)"
+            )
         if self.mesh is not None:
             from photon_ml_torch.parallel.mesh import check_data_mesh
 
@@ -210,6 +248,58 @@ class GameEstimator:
             on_update=self.on_update,
         )
 
+    def _check_partition_supported(self, sequence, locked, dataset, validation_dataset) -> None:
+        """The partitioned-training surface (a dense or sparse primary FE and
+        dense IDENTITY REs, no global-statistics riders): anything outside it
+        raises before any rank-local work could diverge from the full read."""
+        problems: list[str] = []
+        if self.mesh is None:
+            problems.append("a mesh is required")
+        if locked:
+            problems.append("locked coordinates")
+        if validation_dataset is not None:
+            problems.append(
+                "validation datasets (score + evaluate partitioned via "
+                "parallel/scoring.py instead)"
+            )
+        if self.normalization != NormalizationType.NONE:
+            problems.append(
+                "normalization (feature stats would be rank-local)"
+            )
+        # the primary FE (the first trainable fixed effect) may be sparse:
+        # the partitioned reader agreed its hybrid head and ELL width
+        primary_fe = next((cid for cid in sequence if cid not in locked and isinstance(
+            self.coordinate_configs[cid], FixedEffectCoordinateConfig)), None)
+        for cid in sequence:
+            cfg = self.coordinate_configs[cid]
+            if isinstance(cfg, MatrixFactorizationCoordinateConfig):
+                problems.append(f"matrix-factorization coordinate '{cid}'")
+                continue
+            if isinstance(cfg, RandomEffectCoordinateConfig) and (
+                cfg.projector_type != ProjectorType.IDENTITY
+                or cfg.features_to_samples_ratio is not None
+            ):
+                problems.append(
+                    f"projected/feature-selected random effect '{cid}'"
+                )
+            if cfg.optimization.down_sampling_rate < 1.0:
+                problems.append(f"down-sampling on '{cid}'")
+            if cfg.optimization.compute_variance:
+                problems.append(f"compute_variance on '{cid}'")
+            if cid != primary_fe and isinstance(
+                dataset.feature_shards.get(cfg.feature_shard_id), SparseShard
+            ):
+                problems.append(
+                    f"sparse feature shard on '{cid}' (only the primary "
+                    "fixed effect may be sparse)"
+                )
+        if problems:
+            raise ValueError(
+                "partitioned training does not support: "
+                + "; ".join(sorted(set(problems)))
+                + " — use the full-read path for these"
+            )
+
     def _fit_distributed(self, dataset: GameDataset,
                          validation_dataset: GameDataset | None = None,
                          initial_model: GameModel | None = None) -> CoordinateDescentResult:
@@ -234,6 +324,7 @@ class GameEstimator:
             game_model_to_state,
             state_to_game_model,
             train_distributed,
+            train_partitioned,
         )
 
         sequence = list(self.update_sequence or self.coordinate_configs.keys())
@@ -242,6 +333,9 @@ class GameEstimator:
         if locked and initial_model is None:
             raise ValueError("locked coordinates require an initial model "
                              "(partial retraining needs a pre-trained model)")
+        partition = self.partition
+        if partition is not None:
+            self._check_partition_supported(sequence, locked, dataset, validation_dataset)
         fe_ids = [cid for cid in sequence if cid not in locked
                   and isinstance(self.coordinate_configs[cid], FixedEffectCoordinateConfig)]
         if fe_ids:
@@ -311,14 +405,25 @@ class GameEstimator:
                     f"'{cid}' share random effect type '{re_type}' — the fused step keys its "
                     "coefficient tables by RE type; merge or rename")
             re_cid_of_type[re_type] = cid
-            re_datasets[re_type] = build_random_effect_dataset(
-                dataset, re_type, cfg.feature_shard_id,
-                active_data_upper_bound=cfg.active_data_upper_bound,
-                active_data_lower_bound=cfg.active_data_lower_bound,
-                bucket_sizes=cfg.bucket_sizes, projector_type=cfg.projector_type,
-                projected_dim=cfg.projected_dim,
-                features_to_samples_ratio=cfg.features_to_samples_ratio,
-                normalization=_build_normalization_for(cfg, dataset, norms))
+            if partition is not None:
+                # rank-local buckets with an exchanged global structure (the
+                # guard limited the surface to dense IDENTITY)
+                re_datasets[re_type] = build_random_effect_dataset_partitioned(
+                    dataset, re_type, cfg.feature_shard_id, partition=partition.info,
+                    exchange=partition.exchange,
+                    active_data_upper_bound=cfg.active_data_upper_bound,
+                    active_data_lower_bound=cfg.active_data_lower_bound,
+                    bucket_sizes=cfg.bucket_sizes, lane_multiple=partition.lane_multiple,
+                    entity_rank_presence=partition.entity_rank_presence.get(re_type), tag=cid)
+            else:
+                re_datasets[re_type] = build_random_effect_dataset(
+                    dataset, re_type, cfg.feature_shard_id,
+                    active_data_upper_bound=cfg.active_data_upper_bound,
+                    active_data_lower_bound=cfg.active_data_lower_bound,
+                    bucket_sizes=cfg.bucket_sizes, projector_type=cfg.projector_type,
+                    projected_dim=cfg.projected_dim,
+                    features_to_samples_ratio=cfg.features_to_samples_ratio,
+                    normalization=_build_normalization_for(cfg, dataset, norms))
             if norms.get(cfg.feature_shard_id) is not None:
                 re_normalizations[re_type] = norms[cfg.feature_shard_id]
             re_specs.append(RandomEffectStepSpec(
@@ -391,13 +496,22 @@ class GameEstimator:
         evaluators = [parse_evaluator(s) for s in self.validation_evaluators]
         val_eval_data = (eval_data(validation_dataset)
                          if validation_dataset is not None and evaluators else None)
-        result = train_distributed(
-            program, train_ds, re_datasets, mf_datasets=mf_datasets, mesh=self.mesh,
-            num_iterations=self.num_iterations, state=warm_state,
-            validation_dataset=val_ds if val_eval_data is not None else None,
-            validation_evaluators=evaluators, validation_eval_data=val_eval_data,
-            training_evaluator=default_evaluator_for_task(self.task),
-            training_eval_data=eval_data(dataset), check_finite=self.check_finite)
+        if partition is not None:
+            # this rank feeds only its block; no validation or metric riders
+            # (the guard refused them)
+            result = train_partitioned(
+                program, {partition.info.rank: (train_ds, re_datasets)}, self.mesh,
+                partition.info.num_ranks, num_iterations=self.num_iterations,
+                state=warm_state, check_finite=self.check_finite,
+                exchange=partition.exchange)
+        else:
+            result = train_distributed(
+                program, train_ds, re_datasets, mf_datasets=mf_datasets, mesh=self.mesh,
+                num_iterations=self.num_iterations, state=warm_state,
+                validation_dataset=val_ds if val_eval_data is not None else None,
+                validation_evaluators=evaluators, validation_eval_data=val_eval_data,
+                training_evaluator=default_evaluator_for_task(self.task),
+                training_eval_data=eval_data(dataset), check_finite=self.check_finite)
 
         trainable_cids = {} if fe_cid is None else {fe_shard: fe_cid}
         trainable_cids.update(extra_fe_cid_of_shard)

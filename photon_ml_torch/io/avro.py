@@ -701,6 +701,73 @@ def _scan_block_index_quarantine(
             block_index += 1
 
 
+def read_container_block_range(
+    path: str | os.PathLike, start_block: int, num_blocks: int,
+    index: "list[tuple[int, int, int]] | None" = None,
+    *, on_corrupt: str = "raise",
+) -> Iterator[dict]:
+    """The records of blocks [start_block, start_block + num_blocks) only:
+    a rank's block assignment in the partitioned reader's blocks mode. Seeks
+    straight to each selected payload through the block index (``index``
+    from a prior :func:`scan_block_index` skips the re-scan).
+
+    on_corrupt="quarantine": a block whose payload fails to decompress or
+    decode is skipped and counted (``quarantined_blocks``) instead of
+    raising; framing corruption is the quarantining index scan's to skip, so
+    pass an index scanned in the same mode."""
+    _check_on_corrupt(on_corrupt)
+    if num_blocks <= 0:
+        return
+    if index is None:
+        index = scan_block_index(path, on_corrupt=on_corrupt)
+    selected = index[start_block:start_block + num_blocks]
+    if len(selected) != num_blocks:
+        raise AvroError(
+            f"{path}: block range [{start_block}, "
+            f"{start_block + num_blocks}) exceeds {len(index)} blocks"
+        )
+    with open(path, "rb") as inp:
+        inp.seek(4)
+        meta = BinaryDecoder(inp, SchemaRegistry()).read(_META_SCHEMA)
+        schema, registry = parse_schema(meta["avro.schema"].decode("utf-8"))
+        codec = meta.get("avro.codec", b"null").decode("utf-8")
+        for bi, (n_records, size, offset) in enumerate(selected):
+            inp.seek(offset)
+            payload = inp.read(size)
+            if on_corrupt == "quarantine":
+                records: list[dict] = []
+                try:
+                    if len(payload) != size:
+                        raise AvroError("truncated block payload")
+                    if codec == "deflate":
+                        payload = zlib.decompress(payload, -15)
+                    elif codec != "null":
+                        raise AvroError(f"unsupported codec {codec!r}")
+                    buf = _io.BytesIO(payload)
+                    dec = BinaryDecoder(buf, registry)
+                    for _ in range(n_records):
+                        records.append(dec.read(schema))
+                    if buf.read(1):
+                        raise AvroError("trailing bytes after last record")
+                except (AvroError, EOFError, zlib.error, struct.error,
+                        ValueError, IndexError, KeyError,
+                        UnicodeDecodeError) as e:
+                    _record_quarantined_block(
+                        str(path), start_block + bi, offset, offset + size,
+                        f"{type(e).__name__}: {e}",
+                    )
+                    continue
+                yield from records
+                continue
+            if codec == "deflate":
+                payload = zlib.decompress(payload, -15)
+            elif codec != "null":
+                raise AvroError(f"unsupported codec {codec!r}")
+            dec = BinaryDecoder(_io.BytesIO(payload), registry)
+            for _ in range(n_records):
+                yield dec.read(schema)
+
+
 def read_container_schema(path: str | os.PathLike) -> dict:
     with open(path, "rb") as inp:
         if inp.read(4) != MAGIC:

@@ -313,7 +313,22 @@ def records_to_game_dataset(
 
 
 def _shard_dtypes(shard_configs: Mapping[str, FeatureShardConfiguration]) -> dict:
+    """Per-shard torch storage dtypes (``build_game_dataset(shard_dtypes=)``)."""
     return {s: torch.bfloat16 for s, c in shard_configs.items() if c.dtype == "bfloat16"}
+
+
+def shard_np_dtypes(
+    shard_configs: Mapping[str, FeatureShardConfiguration],
+) -> dict[str, object] | None:
+    """Per-shard numpy storage dtypes from the shard configs (``ml_dtypes.
+    bfloat16`` for a bfloat16 shard), None when every shard keeps the
+    reader's dtype. The port's reader stores through :func:`_shard_dtypes`'
+    torch dtypes; this is the JAX package's name for the same decision."""
+    if not any(c.dtype == "bfloat16" for c in shard_configs.values()):
+        return None
+    import ml_dtypes
+
+    return {s: ml_dtypes.bfloat16 for s, c in shard_configs.items() if c.dtype == "bfloat16"}
 
 
 def read_merged(

@@ -46,7 +46,17 @@ rank (``parallel/mesh.py`` counts them):
 
 The state stays replicated, and every rank holds the full [n] entity
 indices of MF coordinates (the other side's factor rows of a lane's
-samples). The model axis (``fe_feature_sharded``, ``model > 1``),
+samples). Where several lanes solve one entity (a partitioned read's
+entities on several ranks), the last lane in bucket order, then rank order,
+writes its table row (:class:`MeshLayout`).
+
+:func:`train_partitioned` runs the same step on each rank's own block of a
+partitioned read (``io/partitioned_reader.py``): no rank holds the whole
+sample axis, and the rank-local buckets
+(``build_random_effect_dataset_partitioned``) index it through their
+shifted ``sample_rows``.
+
+The model axis (``fe_feature_sharded``, ``model > 1``),
 checkpoints and the lane scheduler are not ported yet: ROADMAP.md items 15,
 16 and 18. Nothing is compiled: each coordinate's solve runs its lane loops
 as ``GameEstimator.fit`` does.
@@ -74,6 +84,7 @@ from photon_ml_torch.algorithm.coordinates import (
 from photon_ml_torch.algorithm.mf_coordinate import MFDataset, solve_mf_side_bucket
 from photon_ml_torch.data.batch import LabeledPointBatch, device_tensor, solve_dtype_of
 from photon_ml_torch.data.game_data import (
+    PAD_ENTITY_ROW,
     GameDataset,
     RandomEffectDataset,
     pad_game_dataset,
@@ -120,7 +131,7 @@ from photon_ml_torch.parallel.sharded_dense import (
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.types import TaskType
 
-#: the ROADMAP item of the model axis and partitioned I/O, named by refusals
+#: the ROADMAP item of the model axis, named by refusals
 _MODEL_AXIS_ITEM = "15 (the model axis)"
 
 
@@ -236,12 +247,23 @@ class MeshLayout:
     its rows of the padded sample axis and, per exchanged table (an RE type,
     ``"<mf name>/row"``, ``"<mf name>/col"``), the entity rows its lanes own
     ([L], pads out of range) and every rank's owned rows in rank order
-    ([R·L])."""
+    ([R·L]).
+
+    ``keep`` (per key) lists the positions of ``every`` that are written:
+    where an entity has lanes on several ranks (a partitioned read's
+    spanning entities), only its last lane in bucket order, then rank
+    order, the order of the JAX package's global scatter. ``per_bucket``
+    (per key) holds the same three for each bucket alone, for a key whose
+    entity has lanes in more than one bucket: the table is then shared after
+    every bucket, so a later bucket's lanes start from the earlier one's
+    solve, as in the JAX package's global table."""
 
     mesh: object
     rows: slice
     num_rows: int
     owned: dict = dataclasses.field(default_factory=dict)
+    keep: dict = dataclasses.field(default_factory=dict)
+    per_bucket: dict = dataclasses.field(default_factory=dict)
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """This rank's [n/R] slice of a sample-axis vector -> the whole [n]."""
@@ -255,12 +277,65 @@ class MeshLayout:
         rows are gathered from all ranks and written in place of the stale
         ones (rows that no lane owns are equal on every rank already)."""
         mine, every = self.owned[key]
+        return self._share(table, mine, every, self.keep.get(key))
+
+    def share_bucket(self, key: str, i: int, table: torch.Tensor) -> torch.Tensor:
+        """:meth:`share` of bucket ``i``'s lanes alone (``per_bucket``)."""
+        return self._share(table, *self.per_bucket[key][i])
+
+    def _share(self, table, mine, every, keep) -> torch.Tensor:
         if mine.numel() == 0:
             return table
         n = table.shape[0]
         got = mesh_ops.all_gather_rows(table[torch.clamp(mine, max=max(n - 1, 0))], self.mesh)
-        valid = every < n
-        return table.index_copy(0, every[valid], got[valid])
+        if keep is None:
+            keep = every < n
+        else:
+            keep = keep[every[keep] < n]
+        # the written rows are distinct: a row copied twice lands in an
+        # unspecified order on CUDA
+        return table.index_copy(0, every[keep], got[keep])
+
+
+def last_lane_positions(rows: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """Ascending positions of ``rows`` to write: for each entity row the one
+    whose ``order`` is largest; pad rows (out of the int32 range of a table,
+    or negative) are dropped."""
+    rows = np.asarray(rows, dtype=np.int64)
+    idx = np.flatnonzero((rows >= 0) & (rows < int(PAD_ENTITY_ROW)))
+    if not len(idx):
+        return idx
+    by = idx[np.lexsort((np.asarray(order)[idx], rows[idx]))]
+    last = np.ones(len(by), dtype=bool)
+    last[:-1] = rows[by][1:] != rows[by][:-1]
+    return np.sort(by[last])
+
+
+def _lane_owners(layout: MeshLayout, key: str, rows, rank: int, device) -> None:
+    """Set ``layout``'s owners of ``key`` from ``rows[r][b]``, rank r's
+    entity rows of bucket b (each bucket has one lane count on every
+    rank)."""
+    size, lens = len(rows), [int(t.shape[0]) for t in rows[0]]
+    # each lane's place in the global scatter order: bucket, then rank
+    starts = np.concatenate([[0], np.cumsum(lens)]) * size
+    order = np.concatenate([starts[b] + r * lens[b] + np.arange(lens[b])
+                            for r in range(size) for b in range(len(lens))] or [np.zeros(0)])
+    every = np.concatenate([t.numpy() for r in range(size) for t in rows[r]]
+                           or [np.zeros(0)]).astype(np.int64)
+
+    def on(a):
+        return torch.as_tensor(a, dtype=torch.long, device=device)
+
+    layout.owned[key] = (on(torch.cat(rows[rank]) if lens else torch.zeros(0)), on(every))
+    layout.keep[key] = on(last_lane_positions(every, order))
+    per_bucket = [np.concatenate([rows[r][b].numpy() for r in range(size)]).astype(np.int64)
+                  for b in range(len(lens))]
+    entities = np.concatenate([np.unique(e[(e >= 0) & (e < int(PAD_ENTITY_ROW))])
+                               for e in per_bucket] or [np.zeros(0)])
+    if len(entities) != len(np.unique(entities)):  # an entity in two buckets
+        layout.per_bucket[key] = [
+            (on(rows[rank][b]), on(e), on(last_lane_positions(e, np.arange(len(e)))))
+            for b, e in enumerate(per_bucket)]
 
 
 def _buckets_pytree(re_datasets: Mapping[str, RandomEffectDataset],
@@ -608,7 +683,7 @@ class GameTrainProgram:
         size, rank = mesh_ops.data_size(mesh), mesh_ops.data_rank(mesh)
 
         def split(bucket_list, key):
-            mine, every = [], [[] for _ in range(size)]
+            every = [[] for _ in range(size)]
             local = []
             for b in bucket_list:
                 b = pad_lane_fields(b, size)
@@ -618,10 +693,7 @@ class GameTrainProgram:
                 rows = b["entity_rows"].long().cpu()
                 for r in range(size):
                     every[r].append(rows[r * per:(r + 1) * per])
-                mine.append(rows[lanes])
-            cat = (lambda parts: torch.cat(parts).to(device)
-                   if parts else torch.zeros((0,), dtype=torch.long, device=device))
-            layout.owned[key] = (cat(mine), cat([t for r in every for t in r]))
+            _lane_owners(layout, key, every, rank, device)
             return local
 
         sharded = {k: split(bs, k) for k, bs in buckets.items()
@@ -683,8 +755,9 @@ class GameTrainProgram:
                 full_offsets = offsets_excluding(name)
                 if layout is not None:
                     full_offsets = layout.gather(full_offsets)
-                tables[name] = self._solve_re(data, buckets, name, full_offsets, tables[name])
-                if layout is not None:
+                tables[name] = self._solve_re(data, buckets, name, full_offsets, tables[name],
+                                              layout)
+                if layout is not None and name not in layout.per_bucket:
                     tables[name] = layout.share(name, tables[name])
                 scores[name] = self._re_coordinate_score(
                     data, name, tables[name], self._re_by_name[name].feature_shard_id)
@@ -830,8 +903,9 @@ class GameTrainProgram:
                      else self._extra_fe_objectives[name])
         return solve(spec.optimizer, objective.bind(batch), w0).coefficients
 
-    def _solve_re(self, data, buckets, k, full_offsets, table):
-        """One RE coordinate: a lane-batched solve per bucket."""
+    def _solve_re(self, data, buckets, k, full_offsets, table, layout=None):
+        """One RE coordinate: a lane-batched solve per bucket (over a mesh
+        whose key shares per bucket, each bucket's rows shared after it)."""
         spec = self._re_by_name[k]
         objective = self._re_solve_objectives[k]
         opt = spec.optimizer
@@ -852,10 +926,13 @@ class GameTrainProgram:
                     objective, opt, b["features"], b["labels"], b["weights"], b["sample_rows"],
                     b["entity_rows"], matrix, full_offsets, table)
             return table
-        for b in buckets[k]:
+        per_bucket = layout is not None and k in layout.per_bucket
+        for i, b in enumerate(buckets[k]):
             table = solve_entity_bucket(objective, opt, b["features"], b["labels"],
                                         b["weights"], b["sample_rows"], b["entity_rows"],
                                         full_offsets, table)
+            if per_bucket:
+                table = layout.share_bucket(k, i, table)
         return table
 
     def _solve_mf(self, data, buckets, name, full_offsets, rows, cols):
@@ -1421,3 +1498,231 @@ def train_distributed(
         # best == final collapses to None ("treat final as best")
         best_state=None if best_state is None or best_state is state else best_state,
         best_metric=best_metric, metric_history=history)
+
+
+# ---------------------------------------------------------------------------
+# Partitioned training: each rank feeds only its own block of a partitioned read
+# ---------------------------------------------------------------------------
+
+
+def _partitioned_guards(program: GameTrainProgram, prepared: dict) -> None:
+    """The partitioned surface: a dense or sparse (hybrid too) primary fixed
+    effect, dense extra fixed effects and IDENTITY random effects. The rest
+    trains through the full read."""
+    if program.mf_specs:
+        raise ValueError(
+            "partitioned training does not support matrix-factorization "
+            "coordinates; use the full-read path"
+        )
+    for data, buckets in prepared.values():
+        if "re_sparse" in data:
+            raise ValueError(
+                "partitioned training does not support sparse RANDOM-"
+                "EFFECT shards (the primary fixed effect may be sparse); "
+                "use the full-read path"
+            )
+        if "__projections__" in buckets:
+            raise ValueError(
+                "partitioned training does not support projected random "
+                "effects; use the full-read path"
+            )
+
+
+def _assemble_sparse_fe(data: dict, rank: int, exchange, tag: str) -> SparseLabeledPointBatch:
+    """The rank's sparse fixed-effect batch, its layout checked against every
+    rank's: the ELL width, the flat overflow's length (``SparseShard.
+    flat_block_nnz``: pads carry value 0, column 0 and the rank's last
+    overflow row) and the hybrid hot ids must be the ones
+    ``io/partitioned_reader.read_partitioned`` agreed. The batch's row ids
+    stay rank-local: ``parallel/sharded_dense.ShardedSparseGLMObjective``
+    sums each rank's rows, as it does over a full read's blocks."""
+    import hashlib
+
+    sb = data["fe_sparse_batch"]
+    if not sb.has_ell_view:
+        raise ValueError(
+            f"rank {rank}: the sparse FE batch has no ELL view; "
+            "partitioned sparse training rides the fixed-width ELL "
+            "layout (read through read_partitioned)"
+        )
+    hot = (hashlib.sha256(sb.hot_col_ids.cpu().numpy().astype(np.int64).tobytes())
+           .hexdigest()[:16] if sb.has_hybrid_view else None)
+    mine = {"dim": int(sb.dim), "ell": list(sb.ell_vals.shape), "nnz": int(sb.nnz), "hot": hot}
+    for r, g in enumerate(exchange.allgather(f"partitioned_sparse_fe/{tag}", mine)):
+        if (g["dim"], g["ell"], g["nnz"]) != (mine["dim"], mine["ell"], mine["nnz"]):
+            raise ValueError(
+                f"rank {r}: sparse FE batch shapes disagree across ranks "
+                f"(dim {g['dim']} vs {mine['dim']}, ELL {g['ell']} vs {mine['ell']}, flat "
+                f"{g['nnz']} vs {mine['nnz']}) — ingest through "
+                "io/partitioned_reader.read_partitioned, which agrees the "
+                "global layout"
+            )
+        if g["hot"] != mine["hot"]:
+            raise ValueError(
+                f"rank {r}: hybrid hot heads disagree across ranks — the "
+                "hot ranking must be resolved globally "
+                "(read_partitioned's hybrid_hot exchange)"
+            )
+    return sb
+
+
+def prepare_partitioned_inputs(
+    program: GameTrainProgram,
+    parts: "Mapping[int, tuple[GameDataset, Mapping[str, RandomEffectDataset]]]",
+    mesh,
+    num_ranks: int,
+    *,
+    fe_feature_sharded: bool = False,
+    state: GameTrainState | None = None,
+    exchange=None,
+    tag: str = "train",
+):
+    """(data, buckets, state) of :meth:`GameTrainProgram.step` from this
+    rank's own block of a partitioned read (``io/partitioned_reader.py``:
+    ``num_ranks`` equal blocks, pad rows and lanes inert), with no array of
+    global size on any host.
+
+    parts: ``{rank: (padded local GameDataset, RE datasets from
+    build_random_effect_dataset_partitioned)}``, this process's rank only
+    (one process a rank, the mesh's data axis ``num_ranks`` wide). The
+    blocks' shapes are checked against every rank's through ``exchange``
+    (``parallel/multihost.assemble_partitioned``; the run's exchange by
+    default), and each RE coordinate's owned entity rows of every rank come
+    from one all-gather of the padded bucket lanes' entity rows. The state
+    (zeros, or a warm start equal on every rank) stays whole on every rank.
+    """
+    from photon_ml_torch.parallel import multihost
+
+    if fe_feature_sharded:
+        raise _not_ported("prepare_partitioned_inputs(fe_feature_sharded=True)",
+                           _MODEL_AXIS_ITEM)
+    mesh_ops.check_data_mesh(mesh)
+    if mesh_ops.data_size(mesh) != num_ranks:
+        raise ValueError(f"the mesh's data axis ({mesh_ops.data_size(mesh)}) must have one "
+                         f"rank a partition ({num_ranks})")
+    rank = mesh_ops.data_rank(mesh)
+    if set(parts) != {rank}:
+        raise ValueError(f"parts must hold this rank's block only ({{{rank}: (dataset, "
+                         f"re_datasets)}}), got ranks {sorted(parts)}")
+    if exchange is None:
+        exchange = multihost.default_exchange()
+    ds, res = parts[rank]
+    data, buckets = program.prepare_inputs(ds, res, None)
+    _partitioned_guards(program, {rank: (data, buckets)})
+    device = ds.device
+    n = ds.num_samples
+    blocks = {"labels": data["labels"], "offsets": data["offsets"], "weights": data["weights"],
+              "features": data["features"], "entity_idx": data["entity_idx"],
+              "buckets": {k: v for k, v in buckets.items() if k != "__mf__"}}
+    multihost.assemble_partitioned(blocks, exchange, device=device, tag=tag)
+    layout = MeshLayout(mesh=mesh, rows=slice(rank * n, (rank + 1) * n), num_rows=num_ranks * n)
+    data = dict(data, mesh=layout)
+    if "fe_sparse_batch" in data:
+        data["fe_sparse_batch"] = _assemble_sparse_fe(data, rank, exchange, tag)
+    # every rank's lanes' entity rows: one all-gather of all coordinates'
+    keys = [s.re_type for s in program.re_specs]
+    lens = [[int(b["entity_rows"].shape[0]) for b in buckets[k]] for k in keys]
+    mine = [b["entity_rows"].long() for k in keys for b in buckets[k]]
+    every = (mesh_ops.all_gather_rows(torch.cat(mine), mesh).cpu() if mine
+             else torch.zeros((0,), dtype=torch.long))
+    block = sum(sum(x) for x in lens)
+    for i, k in enumerate(keys):
+        start = sum(sum(x) for x in lens[:i])
+        rows = [list(torch.split(every[r * block + start: r * block + start + sum(lens[i])],
+                                 lens[i])) for r in range(num_ranks)]
+        _lane_owners(layout, k, rows, rank, device)
+    if state is None:
+        state = program.init_state(ds, res, None)
+    state = GameTrainState(
+        fe_coefficients=torch.as_tensor(state.fe_coefficients).to(device),
+        re_tables={k: torch.as_tensor(v).to(device) for k, v in state.re_tables.items()},
+        extra_fe={k: torch.as_tensor(v).to(device) for k, v in state.extra_fe.items()})
+    return data, buckets, state
+
+
+def _partition_fingerprint(program: GameTrainProgram, parts, num_ranks: int) -> dict:
+    """What a partitioned run's state is valid under: the rank geometry, the
+    agreed global sparse layout (hybrid hot head, ELL width, flat overflow)
+    and the coordinates. Read from one rank's part: these quantities are
+    equal on every rank by the reader's exchange."""
+    import hashlib
+
+    r0 = sorted(parts)[0]
+    ds, res = parts[r0]
+    fe_shard = ds.feature_shards[program.fe.feature_shard_id]
+    if isinstance(fe_shard, SparseShard):
+        policy = fe_shard.hybrid_policy
+        hot = tuple(policy.hot_ids) if policy is not None and policy.hot_ids else ()
+        layout = {
+            "dim": int(fe_shard.feature_dim),
+            "ell_width": None if fe_shard.ell_width is None else int(fe_shard.ell_width),
+            "flat_block_nnz": (None if fe_shard.flat_block_nnz is None
+                               else int(fe_shard.flat_block_nnz)),
+            "k_hot": len(hot),
+            "hot_hash": hashlib.sha256(np.asarray(hot, np.int64).tobytes()).hexdigest()[:16],
+        }
+    else:
+        layout = {"dim": int(fe_shard.shape[1])}
+    return {
+        "num_ranks": int(num_ranks),
+        "block_rows": int(ds.num_samples),
+        "fe_shard": program.fe.feature_shard_id,
+        "fe_layout": layout,
+        "re_entities": {s.re_type: int(res[s.re_type].num_entities) for s in program.re_specs},
+        "extra_fe": sorted(s.feature_shard_id for s in program.extra_fes),
+    }
+
+
+def train_partitioned(
+    program: GameTrainProgram,
+    parts: "Mapping[int, tuple[GameDataset, Mapping[str, RandomEffectDataset]]]",
+    mesh,
+    num_ranks: int,
+    *,
+    num_iterations: int = 1,
+    state: GameTrainState | None = None,
+    fe_feature_sharded: bool = False,
+    check_finite: bool = True,
+    schedulers: "Mapping[str, object] | None" = None,
+    checkpointer=None,
+    checkpoint_every: int = 1,
+    resume: bool = True,
+    exchange=None,
+    resume_step: "int | None" = None,
+) -> DistributedTrainResult:
+    """``train_distributed`` over a partitioned read: each rank feeds only
+    its block of the data and bucket lanes (each decoded about 1/P of the
+    input; ``io/partitioned_reader.py``) and the fused step runs unchanged
+    over the mesh (B1 or G1 on the rank's rows, one all-reduce an
+    evaluation; the residual offsets and the solved table rows all-gathered).
+    The state is whole on every rank after each sweep, so the returned state
+    needs no gather. Scope: a dense or sparse (hybrid too) primary fixed
+    effect, dense extra fixed effects and dense IDENTITY random effects, no
+    validation (score and evaluate through ``parallel/scoring.py``).
+
+    ``fe_feature_sharded`` (the model axis, ROADMAP.md item 15),
+    ``checkpointer``, ``checkpoint_every``, ``resume`` and ``resume_step``
+    (item 16) and ``schedulers`` (item 18) raise ``NotImplementedError``
+    before any data is touched."""
+    if fe_feature_sharded:
+        raise _not_ported("train_partitioned(fe_feature_sharded=True)", _MODEL_AXIS_ITEM)
+    if checkpointer is not None or resume is not True or resume_step is not None \
+            or checkpoint_every != 1:
+        raise _not_ported("checkpoints and resume of train_partitioned (checkpointer, "
+                          "checkpoint_every, resume, resume_step)", 16)
+    if schedulers:
+        raise _not_ported(f"the lane scheduler of train_partitioned (schedulers on "
+                          f"{sorted(schedulers)})", 18)
+    if program.mesh is not mesh:
+        raise ValueError("train_partitioned needs the program built with the same mesh: "
+                         "GameTrainProgram(..., mesh=mesh)")
+    data, buckets, st = prepare_partitioned_inputs(program, parts, mesh, num_ranks, state=state,
+                                                   exchange=exchange)
+    losses: list[float] = []
+    for sweep in range(num_iterations):
+        st, loss = program.step(data, buckets, st)
+        losses.append(float(loss))
+        if check_finite and not np.isfinite(losses[-1]):
+            raise DivergenceError(f"partitioned training step produced non-finite loss "
+                                  f"{losses[-1]} at sweep {sweep}")
+    return DistributedTrainResult(state=st, losses=losses)

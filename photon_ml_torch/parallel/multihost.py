@@ -18,19 +18,31 @@ ranks started by the caller) and every collective is an explicit
   explicit ``backend="gloo"`` (two ranks on one card, which NCCL refuses).
 - :func:`make_hybrid_mesh` builds the mesh; ``model > 1`` (the model axis)
   is not ported: ROADMAP.md item 15.
+- The metadata exchanges carry small host payloads between ranks before any
+  device work (partitioned I/O's feature keys, vocabularies, row counts and
+  layout histograms): :class:`InProcessExchange` (virtual ranks on threads)
+  and :class:`DistributedKVExchange` (the key-value store of the process
+  group, which :func:`initialize` builds and keeps). A missed deadline raises
+  ``TimeoutError`` naming the key and the rank that should have published
+  it. Fencing, abort markers and retries are item 16's.
 
 The JAX package's ``default_put``/``global_put`` have no counterpart: the
 port places no global arrays. Its ``put_fn`` hook is "(tensor, rows) -> this
-rank's block" (``parallel/mesh.default_put``).
+rank's block" (``parallel/mesh.default_put``), and
+:func:`assemble_partitioned` is "this rank's block on this rank's device".
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import json
 import logging
 import os
+import threading
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -38,11 +50,14 @@ from photon_ml_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-#: the ROADMAP item of what stays on the model axis and partitioned I/O
+#: the ROADMAP item of the model axis
 ITEM_15 = 15
 
 #: default deadline of the group's collectives and its rendezvous
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
+
+#: default deadline of one metadata exchange, in seconds (the JAX package's)
+DEFAULT_EXCHANGE_TIMEOUT = 120.0
 
 _LAUNCHER_VARS = ("RANK", "WORLD_SIZE")
 
@@ -82,6 +97,10 @@ def process_info() -> ProcessInfo:
 #: the device initialize() gave this process's rank
 _RANK_DEVICE: dict = {}
 
+#: the key-value store initialize() built for the group (the metadata
+#: exchange's transport)
+_STORE: dict = {}
+
 
 def initialize(
     init_method: str | None = None,
@@ -97,7 +116,10 @@ def initialize(
 
     init_method: ``tcp://host:port`` or ``file://path``; None takes
     ``MASTER_ADDR``/``MASTER_PORT`` under a launcher (``env://``) and an
-    in-memory store for a group of one. device: the rank's device (None is
+    in-memory store for a group of one. The store is built here and kept
+    (:func:`group_store`): ``tcp://`` and ``env://`` give a ``TCPStore``,
+    ``file://`` a ``FileStore``, a group of one a ``HashStore``; the group
+    and the metadata exchange share it. device: the rank's device (None is
     ``cuda:{local_rank}``; ``"cpu"`` runs a gloo group on the CPU; an
     explicit ``cuda:i`` pins it, as two ranks on one card need). Raises when
     a cluster environment or explicit arguments are present and the group
@@ -117,14 +139,7 @@ def initialize(
     dev = (torch.device("cuda", local_rank) if device is None and torch.cuda.is_available()
            else resolve_device(device))
     backend = _backend_for(dev, backend)
-    kwargs = dict(backend=backend, rank=rank, world_size=world, timeout=timeout)
-    if init_method is not None:
-        kwargs["init_method"] = init_method
-    elif launched:
-        kwargs["init_method"] = "env://"
-    elif world == 1:
-        kwargs["store"] = dist.HashStore()
-    else:
+    if init_method is None and not launched and world > 1:
         raise ValueError(f"a group of {world} ranks needs init_method or a launcher's "
                          "MASTER_ADDR/MASTER_PORT")
     if dev.type == "cuda":
@@ -134,7 +149,11 @@ def initialize(
     _RANK_DEVICE.update(device=dev, local_rank_env=env.get("LOCAL_RANK"))
     env["LOCAL_RANK"] = str(local_rank)
     try:
-        dist.init_process_group(**kwargs)
+        store = _build_store(init_method if init_method is not None
+                             else "env://" if launched else None, rank, world, timeout)
+        _STORE["store"] = store
+        dist.init_process_group(backend=backend, store=store, rank=rank, world_size=world,
+                                timeout=timeout)
     except BaseException:
         shutdown()
         raise
@@ -144,8 +163,30 @@ def initialize(
     return info
 
 
+def _build_store(url: str | None, rank: int, world: int, timeout: datetime.timedelta):
+    """The group's key-value store: a ``HashStore`` without a URL (a group of
+    one), else the rendezvous store of ``tcp://`` / ``env://`` (a
+    ``TCPStore``, rank 0 its server unless a launcher's agent hosts it) or
+    ``file://`` (a ``FileStore``)."""
+    if url is None:
+        return dist.HashStore()
+    if not url.startswith(("tcp://", "env://", "file://")):
+        raise ValueError(f"init_method must be tcp://, env:// or file://, got {url!r}")
+    store, _, _ = next(dist.rendezvous(url, rank, world, timeout=timeout))
+    store.set_timeout(timeout)
+    return store
+
+
+def group_store():
+    """The key-value store of the initialized group (:func:`initialize`)."""
+    if "store" not in _STORE or not dist.is_initialized():
+        raise RuntimeError("no process group is initialized; call multihost.initialize()")
+    return _STORE["store"]
+
+
 def shutdown() -> None:
     """Destroy the process group, if one exists (every rank calls it)."""
+    _STORE.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
     if "local_rank_env" in _RANK_DEVICE:
@@ -193,13 +234,168 @@ class SingleProcessExchange(MetadataExchange):
         return None
 
 
-def default_exchange() -> MetadataExchange:
-    """The exchange of the current run: the single-process one. A group of
-    more than one rank needs the key-value exchange of partitioned I/O,
-    which is not ported (ROADMAP.md item 15), and raises rather than hand
-    each rank an exchange that sees only itself."""
+def _timeout_error(tag: str, key, missing, rank: int, timeout: float,
+                   detail: str = "") -> TimeoutError:
+    """A missed exchange deadline, naming the key and the ranks that never
+    published."""
+    msg = f"exchange {tag!r}"
+    if key is not None:
+        msg += f": key {key!r} was never published"
+    msg += "; rank(s) %s did not participate" % ",".join(map(str, missing))
+    msg += f" (observed on rank {rank} after {timeout:g} s)"
+    return TimeoutError(msg + (f"; {detail}" if detail else ""))
+
+
+class InProcessExchange(MetadataExchange):
+    """N virtual ranks inside one process (threads): the test transport,
+    which runs partitioned readers and writers of several ranks in one
+    process. A per-instance sequence keeps repeated exchanges under one tag
+    apart (every rank makes the same calls, so the sequences agree)."""
+
+    def __init__(self, store: dict, rank: int, num_ranks: int,
+                 timeout: float = DEFAULT_EXCHANGE_TIMEOUT):
+        self._store = store
+        self.rank = rank
+        self.num_ranks = num_ranks
+        self.timeout = float(timeout)
+        self._seq = 0
+
+    @classmethod
+    def create_group(cls, num_ranks: int, timeout: float = DEFAULT_EXCHANGE_TIMEOUT
+                     ) -> "list[InProcessExchange]":
+        store = {"cond": threading.Condition(), "gather": {}, "reads": {}}
+        return [cls(store, r, num_ranks, timeout=timeout) for r in range(num_ranks)]
+
+    def allgather(self, tag: str, payload) -> list:
+        key = (self._seq, tag)
+        self._seq += 1
+        cond, slot = self._store["cond"], self._store["gather"]
+        with cond:
+            entry = slot.setdefault(key, {})
+            entry[self.rank] = payload
+            cond.notify_all()
+            cond.wait_for(lambda: len(slot[key]) == self.num_ranks, timeout=self.timeout)
+            if len(slot[key]) != self.num_ranks:
+                missing = [r for r in range(self.num_ranks) if r not in slot[key]]
+                raise _timeout_error(tag, None, missing, self.rank, self.timeout,
+                                     f"{len(slot[key])}/{self.num_ranks} ranks published")
+            out = [slot[key][r] for r in range(self.num_ranks)]
+            # the slot goes once every rank has read it
+            reads = self._store["reads"]
+            reads[key] = reads.get(key, 0) + 1
+            if reads[key] == self.num_ranks:
+                del slot[key], reads[key]
+            return out
+
+    def barrier(self, tag: str) -> None:
+        self.allgather(f"__barrier__/{tag}", None)
+
+
+#: process-global sequence of key-value exchange keys: two exchange
+#: instances in one process never reuse a key (every rank makes its
+#: exchanges in the same order, so the counters agree across ranks)
+_kv_seq = itertools.count().__next__
+
+
+class DistributedKVExchange(MetadataExchange):
+    """The multi-process exchange over the key-value store of the
+    ``torch.distributed`` group (:func:`initialize` builds it): host-side
+    only, so partitioned ingestion's metadata moves before any device
+    collective. Payloads are JSON. Each rank publishes its payload under a
+    key of its own and reads every rank's; the last reader deletes the keys.
+    A key that does not appear within ``timeout`` seconds raises
+    ``TimeoutError`` naming it and the rank that should have published it.
+
+    ``store``/``rank``/``num_ranks`` are injectable (tests); by default the
+    group's store and place."""
+
+    def __init__(self, timeout: float = DEFAULT_EXCHANGE_TIMEOUT, *, store=None,
+                 rank: int | None = None, num_ranks: int | None = None):
+        self._store = dist.PrefixStore("photon/xchg", store if store is not None
+                                       else group_store())
+        self.timeout = float(timeout)
+        self.rank = dist.get_rank() if rank is None else int(rank)
+        self.num_ranks = dist.get_world_size() if num_ranks is None else int(num_ranks)
+
+    def _get(self, key: str, tag: str, expected_rank: int) -> bytes:
+        try:
+            self._store.wait([key], datetime.timedelta(seconds=self.timeout))
+        except RuntimeError as e:  # DistStoreError and the FileStore's RuntimeError
+            if "timeout" not in str(e).lower() and "timed out" not in str(e).lower():
+                raise
+            raise _timeout_error(tag, key, [expected_rank], self.rank, self.timeout) from e
+        return self._store.get(key)
+
+    def allgather(self, tag: str, payload) -> list:
+        seq = _kv_seq()
+        keys = [f"{seq}/{tag}/{r}" for r in range(self.num_ranks)]
+        self._store.set(keys[self.rank], json.dumps(payload))
+        out = [json.loads(self._get(k, tag, r)) for r, k in enumerate(keys)]
+        # the last rank to finish reading reclaims the payloads (feature-key
+        # lists can be megabytes); reclamation failing fails nothing
+        if self._store.add(f"{seq}/{tag}/reads", 1) == self.num_ranks:
+            try:
+                for k in keys + [f"{seq}/{tag}/reads"]:
+                    self._store.delete_key(k)
+            except RuntimeError as e:
+                logger.warning("exchange %r: reclaiming its keys failed: %s", tag, e)
+        return out
+
+    def barrier(self, tag: str) -> None:
+        self.allgather(f"__barrier__/{tag}", None)
+
+
+def default_exchange(timeout: float = DEFAULT_EXCHANGE_TIMEOUT) -> MetadataExchange:
+    """The exchange of the current run: the key-value exchange over the
+    group's store when the group has more than one rank, the single-process
+    one otherwise."""
     if dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "the multi-rank metadata exchange (DistributedKVExchange) is not ported yet: "
-            f"ROADMAP.md item {ITEM_15}")
+        return DistributedKVExchange(timeout)
     return SingleProcessExchange()
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
+def _placed(tree, device):
+    if isinstance(tree, dict):
+        return {k: _placed(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_placed(v, device) for v in tree)
+    if tree is None:
+        return None
+    t = tree if isinstance(tree, torch.Tensor) else torch.as_tensor(np.asarray(tree))
+    return t.to(device).contiguous()
+
+
+def assemble_partitioned(blocks, exchange: MetadataExchange, *, device=None,
+                         tag: str = "assemble"):
+    """This rank's block of partitioned arrays, on this rank's device.
+
+    The JAX package assembles a global array from per-rank blocks; the
+    port's ranks hold only their own rows, so ``blocks`` (a tensor, array,
+    or a dict/list tree of them) is this rank's, and what remains of the
+    assembly is its check: every rank's blocks must have the same shapes and
+    dtypes, agreed by one small allgather through ``exchange``, or it raises
+    ``ValueError`` naming the first block and the ranks that disagree."""
+    leaves = list(_leaves(blocks))
+    mine = [[path, list(np.shape(v)), str(v.dtype).replace("torch.", "")]
+            for path, v in leaves]
+    gathered = exchange.allgather(f"assemble_partitioned/{tag}", mine)
+    for r, theirs in enumerate(gathered):
+        if theirs != mine:
+            diff = next(((a, b) for a, b in zip(mine, theirs) if a != b),
+                        (mine[len(theirs):len(theirs) + 1], theirs[len(mine):len(mine) + 1]))
+            raise ValueError(
+                f"assemble_partitioned({tag!r}): rank {r}'s blocks differ from rank "
+                f"{exchange.rank}'s ({diff[1]} against {diff[0]}); every rank's block must "
+                "have one shape and dtype (read through io/partitioned_reader.read_partitioned)")
+    return _placed(blocks, device)

@@ -11,11 +11,14 @@ device. Every rank holds the whole model: the JAX package keeps entity
 tables entity-sharded and rotates them around the ring, which the port's
 data axis does not need.
 
-``score_partitioned`` (partitioned I/O) and ``fe_feature_sharded`` (the
-model axis) are not ported: ROADMAP.md item 15.
+``score_partitioned`` scores a partitioned read's blocks (partitioned I/O):
+each rank its own block, with no gather. ``fe_feature_sharded`` (the model
+axis) is not ported: ROADMAP.md item 15.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -223,8 +226,101 @@ class DistributedScorer:
         return host, self._evaluate_scores(None, dataset, evaluator_specs, data, n_true,
                                            lambda: host, use_device_forms=False)
 
-    def score_partitioned(self, parts, partition, exchange=None):
-        """Scores of per-rank partitioned inputs: not ported (ROADMAP.md
-        item 15, partitioned I/O)."""
-        raise NotImplementedError("DistributedScorer.score_partitioned (partitioned I/O) is "
-                                  f"not ported yet: ROADMAP.md item {ITEM_15}")
+    # -- partitioned scoring: each rank keeps its rows ------------------------
+
+    def score_partitioned(self, parts, partition, exchange=None) -> "dict[int, np.ndarray]":
+        """Scores of a partitioned read's blocks: each rank scores its own
+        block (``io/partitioned_reader.py`` layout) and gets back only its
+        true rows, offsets included; no score vector of global size is built
+        or gathered (``io/score_writer.ShardedScoreWriter`` then writes each
+        rank's part).
+
+        parts: ``{rank: local padded GameDataset}``, this process's rank only.
+        partition: the reader's PartitionInfo. A sparse fixed-effect
+        coordinate scores over entry blocks of one agreed length (one
+        allgather through ``exchange``, the run's MetadataExchange, which a
+        run of several ranks must pass). Compact random-effect coordinates
+        on sparse shards are not supported; use score_dataset."""
+        if self.mesh is None:
+            raise ValueError("score_partitioned requires a mesh")
+        data_axis = mesh_ops.data_size(self.mesh)
+        if partition.global_rows % data_axis:
+            raise ValueError(
+                f"partitioned sample axis {partition.global_rows} does not "
+                f"divide the mesh data axis {data_axis}; "
+                "read with pad_multiple = data_axis // num_ranks"
+            )
+        rank = mesh_ops.data_rank(self.mesh)
+        for r in parts:
+            if r != rank:
+                start = r * partition.block_rows
+                raise ValueError(
+                    f"rank {r}: rows [{start}, {start + int(partition.local_rows[r])}) are not "
+                    "fully addressable from this process — each rank may only extract its "
+                    "own block")
+        from photon_ml_torch.parallel.distributed import MeshLayout
+
+        dataset = parts[rank]
+        layouts = self._layouts(dataset)
+        for cid, kind in layouts.items():
+            if kind == "entries":
+                raise ValueError(
+                    f"coordinate '{cid}': compact random-effect "
+                    "coordinates are not supported by partitioned "
+                    "scoring; use score_dataset"
+                )
+        shards = dict(dataset.feature_shards)
+        for cid, kind in sorted(layouts.items()):
+            if kind == "sparse":
+                shard_id = self.model.models[cid].feature_shard_id
+                shards[shard_id] = self._assemble_sparse_coord(
+                    cid, shards[shard_id], partition, exchange)
+        dataset = dataclasses.replace(dataset, feature_shards=shards, _sparse_batches={})
+        rows = slice(partition.base_row, partition.base_row + partition.block_rows)
+        data = {"dataset": dataset, "mesh": MeshLayout(mesh=self.mesh, rows=rows,
+                                                       num_rows=partition.global_rows)}
+        scores = self._score_prepared(data, self.params_for_layouts(layouts))
+        return {rank: self._extract_rank_rows(scores, partition, rank)}
+
+    def _assemble_sparse_coord(self, cid, shard: SparseShard, partition,
+                               exchange) -> SparseShard:
+        """One sparse FE coordinate's entries of this rank's block, padded to
+        the ranks' agreed entry-block length (the largest, rounded up to the
+        data axis; pads carry value 0, column 0 and the block's last row, or
+        row 0 of an empty block). Rows stay rank-local: each rank scores its
+        own block."""
+        rows, cols, vals = (np.asarray(a) for a in shard.coalesced())
+        local_nnz = int(vals.shape[0])
+        if partition.num_ranks == 1:
+            block_nnz = local_nnz
+        else:
+            if exchange is None:
+                raise ValueError(
+                    f"coordinate '{cid}': multi-process partitioned "
+                    "scoring of a sparse shard needs the run's "
+                    "MetadataExchange (pass score_partitioned("
+                    "exchange=...)) so ranks agree on the entry-block "
+                    "length"
+                )
+            block_nnz = max(int(g) for g in exchange.allgather(f"score_sparse_nnz/{cid}",
+                                                               local_nnz))
+        data_axis = mesh_ops.data_size(self.mesh)
+        block_nnz = max(-(-block_nnz // data_axis) * data_axis, data_axis)
+        pad = block_nnz - local_nnz
+        last = rows[-1:] if local_nnz else np.zeros(1, rows.dtype)
+        padded = (np.concatenate([rows, np.broadcast_to(last, (pad,))]),
+                  np.concatenate([cols, np.zeros(pad, cols.dtype)]),
+                  np.concatenate([vals, np.zeros(pad, vals.dtype)]))
+        # the padded triple is the shard's entry list as it stands (its pads
+        # must not coalesce away)
+        return SparseShard(rows=padded[0], cols=padded[1], vals=padded[2],
+                           num_samples=shard.num_samples, feature_dim=shard.feature_dim,
+                           _coalesced=padded)
+
+    @staticmethod
+    def _extract_rank_rows(scores: torch.Tensor, partition, rank: int) -> np.ndarray:
+        """The rank's true (unpadded) rows of its block's scores, on the host."""
+        if int(scores.shape[0]) != partition.block_rows:
+            raise ValueError(f"rank {rank}: {int(scores.shape[0])} scores for a block of "
+                             f"{partition.block_rows} rows")
+        return scores[: int(partition.local_rows[rank])].detach().cpu().numpy()

@@ -266,7 +266,11 @@ GAME_LEFT_OUT = [
     # refused as a shape error; the model axis waits with item 15
     (["--distributed"], None), (["--mesh", "data=8,model=1"], ValueError),
     (["--mesh", "data=1,model=2"], "item 15"),
-    (["--partitioned-io"], "item 15"), (["--streaming-chunks", "64"], "item 16"),
+    # partitioned I/O is ported: it needs --distributed (or --mesh), and
+    # with it gets past every refusal; a checkpoint directory still waits
+    (["--partitioned-io"], ValueError), (["--partitioned-io", "--distributed"], None),
+    (["--partitioned-io", "--distributed", "--checkpoint-dir", "ck"], "item 16"),
+    (["--streaming-chunks", "64"], "item 16"),
     (["--duhl-working-set", "2"], "item 16"), (["--checkpoint-dir", "ck"], "item 16"),
     (["--max-restarts", "2"], "item 16"), (["--incremental-refresh"], "item 18"),
     (["--hyperparameter-tuning", "BAYESIAN"], "item 18"), (["--telemetry-dir", "t"], "item 19"),
@@ -325,7 +329,8 @@ def test_glm_driver_refuses_what_is_not_ported(tmp_path, extra, item):
 
 
 SCORING_LEFT_OUT = [(["--distributed"], None), (["--mesh", "model=2"], "item 15"),
-                    (["--partitioned-io"], "item 15"),
+                    (["--partitioned-io"], ValueError),
+                    (["--partitioned-io", "--distributed"], None),
                     (["--telemetry-dir", "t"], "item 19"), (["--trace-dir", "t"], "item 19"),
                     (["--input-format", "libsvm"], None)]
 

@@ -58,7 +58,9 @@ def test_importing_every_port_module_loads_no_jax():
             # scoring and device evaluators
             "photon_ml_torch.parallel.multihost", "photon_ml_torch.parallel.mesh",
             "photon_ml_torch.parallel.sharded_dense", "photon_ml_torch.parallel.scoring",
-            "photon_ml_torch.evaluation.sharded"} <= set(mods)
+            "photon_ml_torch.evaluation.sharded",
+            # partitioned I/O: each rank's slice of the input
+            "photon_ml_torch.io.partitioned_reader"} <= set(mods)
     # the mesh tests' rank processes import the port only
     mods = mods + ["tests.torch_mesh_worker"]
     script = (

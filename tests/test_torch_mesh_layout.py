@@ -5,8 +5,8 @@ Padded bucket lanes carry out-of-range entity rows: with non-zero values
 planted in them they still write no table row, in the random-effect, the
 INDEX_MAP and the MF solves and in the table exchange. Padded rows carry
 weight 0 and query code Q: planted with large scores they move no metric.
-What is not ported (the model axis, partitioned I/O) refuses naming ROADMAP
-item 15 before any data is read.
+What is not ported (the model axis) refuses naming ROADMAP item 15 before
+any data is read.
 """
 
 import dataclasses
@@ -243,6 +243,8 @@ def _model():
                                   "train_distributed", "shard_batch", "scorer", "transformer",
                                   "score_partitioned", "estimator"])
 def test_what_is_not_ported_names_item_15(what):
+    """The model axis refuses naming ROADMAP item 15; score_partitioned is
+    ported and, without a mesh, raises the JAX package's ValueError."""
     from photon_ml_torch import estimators as test_
 
     model, ds = _model()
@@ -262,8 +264,20 @@ def test_what_is_not_ported_names_item_15(what):
         "estimator": lambda: test_.GameEstimator(TaskType.LOGISTIC_REGRESSION, {},
                                                  fe_feature_sharded=True).fit(None),
     }
+    if what == "score_partitioned":
+        with pytest.raises(ValueError, match="^score_partitioned requires a mesh$"):
+            calls[what]()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 15"):
         calls[what]()
+
+
+def test_default_exchange_in_a_group_of_two(tmp_path):
+    """A group of two gets the key-value exchange over the group's store (a
+    group of one keeps the single-process one, above)."""
+    got = W.spawn_ranks(2, [dict(kind="exchange", timeout=1.0)], tmp_path)[0]
+    assert [g["type"] for g in got] == ["DistributedKVExchange"] * 2
+    assert got[1]["second"] == [0, 10]
 
 
 def test_scorer_swaps_a_model_of_the_same_layout_only():

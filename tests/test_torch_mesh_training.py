@@ -260,8 +260,8 @@ def test_distributed_scorer_matches_the_jax_scorer(runs, world):
 
 
 def test_refusals_name_item_15_in_a_group(runs):
-    """In a group of 2: a model axis and the multi-rank metadata exchange
-    (partitioned I/O) refuse naming ROADMAP.md item 15."""
+    """In a group of 2: a model axis refuses naming ROADMAP.md item 15 (the
+    multi-rank metadata exchange is ported with partitioned I/O)."""
     for r in runs["results"][2]["refusals"]:
         for name, message in r.items():
             assert "ROADMAP.md item 15" in message, (name, message)

@@ -14,6 +14,7 @@ rank order.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
@@ -27,10 +28,11 @@ GROUP_TIMEOUT_S = 60
 JOIN_TIMEOUT_S = 120
 
 
-def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TIMEOUT_S
-                ) -> list:
-    """Run ``tasks`` in ``world`` spawned CPU ranks; returns per task the
-    list of the ranks' results. Raises if a rank fails or outlives
+def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TIMEOUT_S,
+                device: str = "cpu") -> list:
+    """Run ``tasks`` in ``world`` spawned ranks (gloo, on the CPU, or with
+    ``device="cuda"`` every rank on card 0 with CUDA tensors); returns per
+    task the list of the ranks' results. Raises if a rank fails or outlives
     ``timeout_s``."""
     import multiprocessing as mp
 
@@ -38,7 +40,7 @@ def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TI
     job = tmp / "job.pkl"
     job.write_bytes(pickle.dumps(tasks))
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, str(tmp)), daemon=True)
+    procs = [ctx.Process(target=_rank_main, args=(r, world, str(tmp), device), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -61,7 +63,7 @@ def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TI
     return [[per_rank[r][i] for r in range(world)] for i in range(len(tasks))]
 
 
-def _rank_main(rank: int, world: int, tmp: str) -> None:
+def _rank_main(rank: int, world: int, tmp: str, device: str = "cpu") -> None:
     os.environ.setdefault("OMP_NUM_THREADS", "1")
     import torch
 
@@ -69,7 +71,9 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
     from photon_ml_torch.parallel import multihost
 
     try:
-        multihost.initialize(f"file://{tmp}/rendezvous", world, rank, device="cpu",
+        dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+        multihost.initialize(f"file://{tmp}/rendezvous", world, rank, device=dev,
+                             backend="gloo", local_rank=0 if device == "cuda" else None,
                              timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
         tasks = pickle.loads(Path(tmp, "job.pkl").read_bytes())
         out = [TASKS[t["kind"]](t, rank, world, Path(tmp)) for t in tasks]
@@ -360,19 +364,207 @@ def _plain(obj):
 
 
 def _task_refusals(t, rank, world, tmp):
-    """The model axis and partitioned I/O refuse, naming ROADMAP item 15."""
+    """The model axis refuses, naming ROADMAP item 15."""
     from photon_ml_torch.parallel import mesh as M
     from photon_ml_torch.parallel import multihost
 
     out = {}
     for name, fn in (("model_axis", lambda: M.make_mesh(model=2)),
-                     ("hybrid_model_axis", lambda: multihost.make_hybrid_mesh(model=world)),
-                     ("default_exchange", multihost.default_exchange)):
+                     ("hybrid_model_axis", lambda: multihost.make_hybrid_mesh(model=world))):
         try:
             fn()
             out[name] = "no error"
         except NotImplementedError as e:
             out[name] = str(e)
+    return out
+
+
+# -- partitioned I/O -----------------------------------------------------------
+
+
+def shard_configs(spec: dict) -> dict:
+    """FeatureShardConfigurations from ``{name: kwargs}``."""
+    from photon_ml_torch.io.data_reader import FeatureShardConfiguration
+
+    return {k: FeatureShardConfiguration(**v) for k, v in spec.items()}
+
+
+def read_numpy(part) -> dict:
+    """A PartitionedReadResult (or ReadResult) as numpy: its dataset's
+    arrays, each sparse shard's coalesced triple and agreed layout, the
+    index maps, vocabularies and the partition."""
+    result = getattr(part, "result", part)
+    ds = result.dataset
+    out = {"labels": ds.host_array("labels"), "offsets": ds.host_array("offsets"),
+           "weights": ds.host_array("weights"), "unique_ids": np.asarray(ds.unique_ids),
+           "vocabs": {k: np.asarray(v) for k, v in ds.entity_vocabs.items()},
+           "entity_idx": {k: ds.host_array(f"entity_idx/{k}") for k in ds.entity_idx},
+           "ids": {k: np.asarray(v) for k, v in ds.ids.items()},
+           "maps": {k: dict(m) for k, m in result.index_maps.items()},
+           "intercepts": dict(result.intercept_indices), "shards": {}, "sparse": {}}
+    for k, v in ds.feature_shards.items():
+        if hasattr(v, "coalesced"):
+            r, c, x = (np.asarray(a) for a in v.coalesced())
+            policy = v.hybrid_policy
+            out["sparse"][k] = {"rows": r, "cols": c, "vals": x, "n": v.num_samples,
+                                "dim": v.feature_dim, "ell_width": v.ell_width,
+                                "flat_block_nnz": v.flat_block_nnz,
+                                "hot_ids": None if policy is None else policy.hot_ids}
+        else:
+            out["shards"][k] = ds.host_array(f"shard/{k}")
+    if hasattr(part, "partition"):
+        out.update(partition=dataclasses.astuple(part.partition), mode=part.mode,
+                   bytes_decoded=part.bytes_decoded, input_bytes_total=part.input_bytes_total,
+                   local_files=[os.path.basename(f) for f in part.local_files],
+                   presence={k: np.asarray(v) for k, v in part.entity_rank_presence.items()})
+    return out
+
+
+def _rank_device():
+    from photon_ml_torch.parallel import multihost
+
+    return multihost.process_info().device
+
+
+def _read_part(t, exchange):
+    from photon_ml_torch.io.partitioned_reader import read_partitioned
+
+    return read_partitioned(t["path"], shard_configs(t["configs"]), exchange=exchange,
+                            random_effect_id_columns=tuple(t.get("re_columns", ())),
+                            dtype=np.dtype(t.get("dtype", "float64")), device=_rank_device(),
+                            tag=t.get("tag", "read"))
+
+
+def _task_exchange(t, rank, world, tmp):
+    """DistributedKVExchange over the group's store: allgather order,
+    repeated tags kept apart, a barrier, then ranks whose calls diverge
+    (rank 0 gathers "lonely", rank 1 "elsewhere"): each misses its deadline
+    on the other's key."""
+    from photon_ml_torch.parallel import multihost
+
+    ex = multihost.default_exchange()
+    out = {"type": type(ex).__name__,
+           "first": ex.allgather("same", {"rank": rank, "x": [rank] * (rank + 1)}),
+           "second": ex.allgather("same", rank * 10)}
+    ex.barrier("b")
+    short = multihost.DistributedKVExchange(timeout=t.get("timeout", 2.0))
+    try:
+        short.allgather("lonely" if rank == 0 else "elsewhere", rank)
+        out["timeout"] = "no error"
+    except TimeoutError as e:
+        out["timeout"] = str(e)
+    ex.barrier("after")
+    return out
+
+
+def _task_partitioned_read(t, rank, world, tmp):
+    """read_partitioned through the group's key-value exchange."""
+    from photon_ml_torch.parallel import multihost
+
+    return read_numpy(_read_part(t, multihost.default_exchange()))
+
+
+def _partitioned_inputs(t, exchange, part):
+    from photon_ml_torch.data.game_data import build_random_effect_dataset_partitioned
+
+    b = tuple(t["program"].get("bucket_sizes", (8, 32, 128)))
+    return {r["type"]: build_random_effect_dataset_partitioned(
+        part.result.dataset, r["type"], r["shard"], partition=part.partition,
+        exchange=exchange, bucket_sizes=b,
+        entity_rank_presence=part.entity_rank_presence.get(r["type"]))
+        for r in t["program"].get("res", ())}
+
+
+def _task_partitioned_train(t, rank, world, tmp):
+    """read_partitioned -> build_random_effect_dataset_partitioned ->
+    train_partitioned; beside it (``full``) the same program through the
+    full read and train_distributed(mesh=), and (``estimator``)
+    GameEstimator(partition=).fit."""
+    from photon_ml_torch import estimators as test_
+    from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+    from photon_ml_torch.io.data_reader import read_merged
+    from photon_ml_torch.parallel import distributed as tdist
+    from photon_ml_torch.parallel import mesh as M
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.types import TaskType
+
+    mesh = M.make_mesh()
+    ex = multihost.default_exchange()
+    part = _read_part(t, ex)
+    res = _partitioned_inputs(t, ex, part)
+    prog = build_program(t["program"], mesh)
+    M.counts.reset()
+    out = {"read": read_numpy(part)}
+    result = tdist.train_partitioned(prog, {rank: (part.result.dataset, res)}, mesh, world,
+                                     num_iterations=t.get("sweeps", 2), exchange=ex)
+    out.update(losses=result.losses, state=state_numpy(result.state),
+               collectives=M.counts.snapshot(),
+               buckets={k: [{"entity_rows": b.entity_rows.cpu().numpy(),
+                             "sample_rows": b.sample_rows.cpu().numpy(),
+                             "weights": b.weights.cpu().numpy()} for b in v.buckets]
+                        for k, v in res.items()},
+               fingerprint=tdist._partition_fingerprint(prog, {rank: (part.result.dataset,
+                                                                      res)}, world))
+    if t.get("full"):
+        full = read_merged(t["path"], shard_configs(t["configs"]),
+                           random_effect_id_columns=tuple(t.get("re_columns", ())),
+                           dtype=np.dtype(t.get("dtype", "float64")),
+                           device=_rank_device()).dataset
+        fprog = build_program(t["program"], mesh)
+        fres, _ = build_inputs(t["program"], full)
+        fr = tdist.train_distributed(fprog, full, fres, mesh=mesh,
+                                     num_iterations=t.get("sweeps", 2))
+        out["full"] = {"losses": fr.losses, "state": state_numpy(fr.state)}
+    if t.get("estimator"):
+        p = t["program"]
+        configs = {"fixed": test_.FixedEffectCoordinateConfig(
+            p["fe_shard"], CoordinateOptimizationConfig(optimizer=_opt(p["fe_opt"]),
+                                                        l2_weight=p["fe_l2"]))}
+        for r in p.get("res", ()):
+            configs[r["type"]] = test_.RandomEffectCoordinateConfig(
+                r["type"], r["shard"], CoordinateOptimizationConfig(optimizer=_opt(r["opt"]),
+                                                                    l2_weight=r["l2"]),
+                bucket_sizes=tuple(p.get("bucket_sizes", (8, 32, 128))))
+        est = test_.GameEstimator(
+            TaskType[p["task"]], configs, num_iterations=t.get("sweeps", 2), mesh=mesh,
+            partition=test_.TrainPartition(info=part.partition, exchange=ex,
+                                           entity_rank_presence=part.entity_rank_presence))
+        out["estimator"] = _model_numpy(est.fit(part.result.dataset).model)
+        out["program_model"] = _model_numpy(tdist.state_to_game_model(
+            prog, result.state, part.result.dataset, re_datasets=res))
+    if t.get("score"):
+        from photon_ml_torch.parallel.scoring import DistributedScorer
+
+        model = tdist.state_to_game_model(prog, result.state, part.result.dataset,
+                                          re_datasets=res)
+        from photon_ml_torch.io.partitioned_reader import read_partitioned
+
+        # the held-out rows in the model's feature and entity spaces
+        val = read_partitioned(t["score"]["path"], shard_configs(t["configs"]), exchange=ex,
+                               index_maps=part.result.index_maps,
+                               random_effect_id_columns=tuple(t.get("re_columns", ())),
+                               entity_vocabs=part.result.dataset.entity_vocabs,
+                               dtype=np.dtype(t.get("dtype", "float64")),
+                               device=_rank_device(), tag="score")
+        scorer = DistributedScorer(model, mesh)
+        out["scores"] = scorer.score_partitioned({rank: val.result.dataset}, val.partition,
+                                                 exchange=ex)[rank]
+        out["score_read"] = read_numpy(val)
+    return out
+
+
+def _task_driver_runs(t, rank, world, tmp):
+    """Driver runs in order, ``("train" | "score", argv)`` each; a run that
+    raises ValueError records its message and the next runs go on."""
+    from photon_ml_torch.cli import game_scoring_driver, game_training_driver
+
+    drivers = {"train": game_training_driver, "score": game_scoring_driver}
+    out = []
+    for which, argv in t["runs"]:
+        try:
+            out.append({"summary": _plain(drivers[which].main(argv, device="cpu"))})
+        except ValueError as e:
+            out.append({"error": str(e)})
     return out
 
 
@@ -383,4 +575,8 @@ TASKS = {
     "estimator": _task_estimator,
     "driver": _task_driver,
     "refusals": _task_refusals,
+    "exchange": _task_exchange,
+    "partitioned_read": _task_partitioned_read,
+    "partitioned_train": _task_partitioned_train,
+    "driver_runs": _task_driver_runs,
 }
