@@ -12,19 +12,21 @@ ScoringResultAvro records).
 
 Runs on the CUDA device; ``main(argv, device="cpu")`` runs on the CPU. The
 outputs (``scores/part-NNNNN.avro``, ``scoring-summary.json``) keep the JAX
-driver's names and layout. ``--distributed`` (or ``--mesh data=N``) scores
-each rank's rows through ``parallel/scoring.DistributedScorer`` over a mesh
-of every rank (``torchrun --nproc-per-node N``, or one process alone) and
-gathers them; rank 0 writes, the other ranks write into
-``<output-dir>/.worker-<rank>``. With ``--partitioned-io`` (which needs
-``--distributed`` or ``--mesh`` and takes no ``--evaluators``) each rank of a
-group of several decodes only its slice of the input
-(``io/partitioned_reader.py``), scores its own rows
+driver's names and layout. ``--distributed`` (or ``--mesh data=N[,model=M]``)
+scores each rank's rows through ``parallel/scoring.DistributedScorer`` over a
+mesh of every rank (``torchrun --nproc-per-node N·M``, or one process alone)
+and gathers them; rank 0 writes, the other ranks write into
+``<output-dir>/.worker-<rank>``. A model axis wider than 1 feature-shards
+the model's fixed effect over it (the JAX driver's rule). With
+``--partitioned-io`` (which needs ``--distributed`` or ``--mesh`` and takes
+no ``--evaluators``) each data rank of a group of several decodes only its
+slice of the input (``io/partitioned_reader.py``), scores its own rows
 (``DistributedScorer.score_partitioned``) and writes them as its own part,
-``scores/part-{rank:05d}.avro`` (``io/score_writer.ShardedScoreWriter``).
-Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--mesh model>1`` (15), ``--telemetry-dir``
-and ``--trace-dir`` (19). ``--input-format libsvm``
+``scores/part-{rank:05d}.avro`` (``io/score_writer.ShardedScoreWriter``);
+the other ranks of its data row write the same part into their
+``.worker-<rank>`` directory. Left out, each refused with
+``NotImplementedError`` naming its ROADMAP.md item before any data is read:
+``--telemetry-dir`` and ``--trace-dir`` (19). ``--input-format libsvm``
 reads LibSVM text. A compact random-effect model scores a sparse shard
 (``sparse=true`` in its ``--feature-shard-configurations``) through the
 gather kernel; a model is loaded compact when its feature space exceeds
@@ -65,9 +67,8 @@ from photon_ml_torch.util.timed import reset_timings
 logger = logging.getLogger(__name__)
 
 
-def _check_ported(*, mesh_shape, telemetry_dir, trace_dir) -> None:
+def _check_ported(*, telemetry_dir, trace_dir) -> None:
     left_out = (
-        ((mesh_shape or {}).get("model", 1) > 1, "--mesh model>1 (the model axis)", 15),
         (bool(telemetry_dir), "--telemetry-dir (run journal)", 19),
         (bool(trace_dir), "--trace-dir (span tracing)", 19),
     )
@@ -105,7 +106,7 @@ def run(
     configs default to one shard per saved index map using the bag of the
     same name.
     """
-    _check_ported(mesh_shape=mesh_shape, telemetry_dir=telemetry_dir, trace_dir=trace_dir)
+    _check_ported(telemetry_dir=telemetry_dir, trace_dir=trace_dir)
     if on_corrupt not in ("raise", "quarantine"):
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
     distributed = distributed or bool(mesh_shape)
@@ -117,23 +118,31 @@ def run(
     created = distributed and not torch.distributed.is_initialized()
     mesh = None
     exchange = None
+    own_dir = False
     try:
         if distributed:
             info = multihost.initialize(device=device)
-            if partitioned_io and info.world_size > 1:
-                # every rank writes its own part into the one output directory
-                exchange = multihost.default_exchange()
-            elif info.rank > 0:
-                output_dir = os.path.join(output_dir, f".worker-{info.rank}")
             shape = dict(mesh_shape or {})
             mesh = multihost.make_hybrid_mesh(data=shape.get("data"),
                                               model=shape.get("model", 1))
+            if partitioned_io and mesh.size(0) > 1:
+                # every data rank writes its own part into the one output
+                # directory; the others of its data row into their own
+                exchange = multihost.default_exchange()
+                if mesh.size(1) > 1:
+                    exchange = multihost.DataAxisExchange(exchange, mesh)
+                    own_dir = mesh.get_local_rank("model") > 0
+            else:
+                own_dir = info.rank > 0
+            if own_dir:
+                output_dir = os.path.join(output_dir, f".worker-{info.rank}")
         return _run(input_data_path=input_data_path, model_input_dir=model_input_dir,
                     output_dir=output_dir, feature_shards=feature_shards,
                     index_maps_dir=index_maps_dir, evaluators=evaluators, model_id=model_id,
                     input_format=input_format,
                     compact_random_effect_threshold=compact_random_effect_threshold,
-                    on_corrupt=on_corrupt, mesh=mesh, exchange=exchange, device=device)
+                    on_corrupt=on_corrupt, mesh=mesh, exchange=exchange, device=device,
+                    own_dir=own_dir)
     finally:
         if created:
             multihost.shutdown()
@@ -141,7 +150,7 @@ def run(
 
 def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_maps_dir,
          evaluators, model_id, input_format, compact_random_effect_threshold, on_corrupt, mesh,
-         device, exchange=None) -> dict:
+         device, exchange=None, own_dir: bool = False) -> dict:
     device = resolve_device(device)
     reset_timings()
     if exchange is not None and evaluators:
@@ -153,7 +162,8 @@ def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_
              else list(input_data_path))
     if not paths:
         raise ValueError("input_data_path names no datasets")
-    writes = exchange is None or exchange.rank == 0  # the shared directory is rank 0's
+    # the shared directory is rank 0's; a worker directory its process's
+    writes = exchange is None or exchange.rank == 0 or own_dir
     if writes:
         os.makedirs(output_dir, exist_ok=True)
     if exchange is not None:
@@ -163,7 +173,10 @@ def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_
         feature_shards=feature_shards,
         compact_random_effect_threshold=compact_random_effect_threshold, device=device)
     sync = torch.cuda.synchronize if device.type == "cuda" else None
-    transformer = GameTransformer(model=model, evaluator_specs=tuple(evaluators), mesh=mesh)
+    # a model axis feature-shards the model's fixed effect (the JAX driver's rule)
+    fe_feature_sharded = mesh is not None and mesh.size(1) > 1
+    transformer = GameTransformer(model=model, evaluator_specs=tuple(evaluators), mesh=mesh,
+                                  fe_feature_sharded=fe_feature_sharded)
     part_scorer = None
     summaries: list[dict] = []
     for di, path in enumerate(paths):
@@ -188,10 +201,13 @@ def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_
             # encode of the whole output
             with Timed("score", sync=sync):
                 if part_scorer is None:
-                    part_scorer = DistributedScorer(model, mesh)
+                    part_scorer = DistributedScorer(model, mesh,
+                                                    fe_feature_sharded=fe_feature_sharded)
                 local_scores = part_scorer.score_partitioned(
                     {partition.rank: data.dataset}, partition, exchange=exchange)[partition.rank]
             n_local = partition.local_n
+            if own_dir:
+                os.makedirs(os.path.join(ds_output, "scores"), exist_ok=True)
             with Timed("save scores"):
                 ShardedScoreWriter(os.path.join(ds_output, "scores"), exchange=exchange).write(
                     local_scores, model_id=model_id,
@@ -302,10 +318,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
                         "(skip-and-count)")
     p.add_argument("--distributed", action="store_true",
-                   help="score each rank's rows over a data-axis mesh of every rank")
+                   help="score each rank's rows over a mesh of every rank")
     p.add_argument("--mesh", default="",
-                   help="data=N[,model=1]: the mesh's shape (implies --distributed; model>1 "
-                        "is not ported, item 15)")
+                   help="data=N[,model=M]: the mesh's shape (implies --distributed; "
+                        "model>1 feature-shards the fixed effect)")
     p.add_argument("--partitioned-io", action="store_true",
                    help="each rank decodes ~1/P of the input and writes its own score part "
                         "(needs --distributed or --mesh; no --evaluators)")

@@ -24,20 +24,22 @@ their names and layout. The summary leaves out what only the JAX run fills:
 the telemetry journal, the program ledger and the streaming and refresh
 sections.
 
-``--distributed`` (or ``--mesh data=N``) trains through the fused program
-over a mesh of every rank: run it under ``torchrun --nproc-per-node N``
-(NCCL, one card a rank), or in one process alone (a group of one). Every
-rank reads the same inputs; rank 0 writes the outputs and the other ranks
-write into ``<root-output-dir>/.worker-<rank>``. With ``--partitioned-io``
-each rank of a group of several decodes only its slice of the training
-input (``io/partitioned_reader.py``) and trains through
-``train_partitioned``; it needs ``--distributed`` or ``--mesh``, takes no
-validation data and writes no feature statistics (they would summarize one
-rank's rows). A group of one reads in full.
+``--distributed`` (or ``--mesh data=N[,model=M]``) trains through the fused
+program over a mesh of every rank: run it under ``torchrun --nproc-per-node
+N·M`` (NCCL, one card a rank), or in one process alone (a group of one).
+Every rank reads the same inputs; rank 0 writes the outputs and the other
+ranks write into ``<root-output-dir>/.worker-<rank>``. A model axis wider
+than 1 feature-shards the primary fixed effect over it
+(``fe_feature_sharded``, the JAX driver's rule). With ``--partitioned-io``
+each data rank of a group of several decodes only its slice of the
+training input (``io/partitioned_reader.py``; the ranks of one data row
+each read the same slice) and trains through ``train_partitioned``; it
+needs ``--distributed`` or ``--mesh``, takes no validation data and writes
+no feature statistics (they would summarize one rank's rows). A data axis
+of one reads in full.
 
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--mesh model>1`` (15), ``--streaming-chunks``
-and its DuHL riders,
+item before any data is read: ``--streaming-chunks`` and its DuHL riders,
 ``--checkpoint-dir`` and ``--max-restarts`` above 0 (16; the port's default
 is 0), ``--incremental-refresh``, hyperparameter tuning, the lane scheduler
 (18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir`` (19).
@@ -151,8 +153,6 @@ class GameTrainingParams:
         """Raise NotImplementedError for the first option or coordinate the
         port lacks, before any data is read."""
         left_out = (
-            ((self.mesh_shape or {}).get("model", 1) > 1,
-             "--mesh model>1 (the model axis)", 15),
             (self.streaming_chunks > 0 or self.duhl_working_set > 0,
              "--streaming-chunks and the DuHL schedule (out-of-core GAME)", 16),
             (bool(self.checkpoint_dir), "--checkpoint-dir and resume", 16),
@@ -304,8 +304,11 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
     # the input; a group of one (and every other run) reads in full
     exchange = None
     pad_multiple = 1
-    if params.partitioned_io and mesh is not None and mesh.size(0) * mesh.size(1) > 1:
+    if params.partitioned_io and mesh is not None and mesh.size(0) > 1:
+        # the partition's ranks are the data ranks: one data row reads one slice
         exchange = multihost.default_exchange()
+        if mesh.size(1) > 1:
+            exchange = multihost.DataAxisExchange(exchange, mesh)
         data_axis = mesh.size(0)
         if data_axis % exchange.num_ranks:
             raise ValueError(f"--partitioned-io: mesh data axis {data_axis} must be a multiple "
@@ -399,6 +402,7 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             locked_coordinates=frozenset(params.partial_retrain_locked_coordinates),
             intercept_indices=train.intercept_indices,
             mesh=mesh,
+            fe_feature_sharded=mesh is not None and mesh.size(1) > 1,
             partition=estimator_partition,
         )
 
@@ -499,8 +503,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="train through the fused program over a data-axis mesh of every rank "
                         "(torchrun --nproc-per-node N, or one process alone)")
     p.add_argument("--mesh", default="",
-                   help="data=N[,model=1]: the mesh's shape (implies --distributed; model>1 "
-                        "is not ported, item 15)")
+                   help="data=N[,model=M]: the mesh's shape (implies --distributed; "
+                        "model>1 feature-shards the primary fixed effect)")
     p.add_argument("--partitioned-io", action="store_true",
                    help="each rank decodes ~1/P of the input bytes (per-rank partitioned Avro "
                         "ingestion; needs --distributed or --mesh, no validation data)")

@@ -218,25 +218,43 @@ def game_model_to_numpy(model: GameModel) -> dict:
 _STATE_GROUPS = ("re_tables", "mf_rows", "mf_cols", "extra_fe")
 
 
-def train_state_from_numpy(state, *, device=None) -> GameTrainState:
+def train_state_from_numpy(state, *, device=None, fe_columns: tuple | None = None
+                           ) -> GameTrainState:
     """The fused program's state (``parallel.distributed.GameTrainState``)
     from ``fe_coefficients`` and the name -> array groups ``re_tables``,
     ``mf_rows``, ``mf_cols``, ``extra_fe``: a mapping with those keys or any
     object with those attributes (a JAX package GameTrainState), each array
-    taken through ``np.asarray``."""
+    taken through ``np.asarray``. A mapping's ``fe_columns`` entry (or the
+    argument, ``parallel.column_sharded.fe_columns_of``) keeps, of a whole FE
+    vector, the rank's model-axis block (``column_sharded.split_fe``); a
+    block already is one when the mapping says so."""
+    from photon_ml_torch.parallel.column_sharded import split_fe
+
     device = resolve_device(device)
 
     def field(name):
         return state[name] if isinstance(state, Mapping) else getattr(state, name)
 
+    held = state.get("fe_columns") if isinstance(state, Mapping) else None
+    fe = _opt_tensor(field("fe_coefficients"), device)
+    columns = tuple(held) if held is not None else fe_columns
+    if fe_columns is not None and held is None:
+        fe = split_fe(fe, tuple(fe_columns))
+    elif fe_columns is not None and tuple(fe_columns) != columns:
+        raise ValueError(f"the state holds FE block {columns}, not {tuple(fe_columns)}")
     return GameTrainState(
-        fe_coefficients=_opt_tensor(field("fe_coefficients"), device),
+        fe_coefficients=fe,
         **{g: {k: _opt_tensor(v, device) for k, v in (field(g) or {}).items()}
-           for g in _STATE_GROUPS})
+           for g in _STATE_GROUPS},
+        fe_columns=columns)
 
 
 def train_state_to_numpy(state: GameTrainState) -> dict:
-    """The inverse of :func:`train_state_from_numpy`: a dict of numpy arrays."""
-    return {"fe_coefficients": state.fe_coefficients.detach().cpu().numpy(),
-            **{g: {k: v.detach().cpu().numpy() for k, v in getattr(state, g).items()}
-               for g in _STATE_GROUPS}}
+    """The inverse of :func:`train_state_from_numpy`: a dict of numpy arrays
+    (and a model-axis block's ``fe_columns``)."""
+    out = {"fe_coefficients": state.fe_coefficients.detach().cpu().numpy(),
+           **{g: {k: v.detach().cpu().numpy() for k, v in getattr(state, g).items()}
+              for g in _STATE_GROUPS}}
+    if state.fe_columns is not None:
+        out["fe_columns"] = tuple(state.fe_columns)
+    return out

@@ -4,8 +4,10 @@ Counterpart of ``photon_ml_tpu/estimators.py``. ``GameEstimator.fit``
 (reference photon-api estimators/GameEstimator.scala) builds the
 per-coordinate datasets, the training-loss and validation evaluators and the
 per-shard normalization, then runs block coordinate descent; with ``mesh``
-it trains through the fused program over the mesh's data axis instead
-(``_fit_distributed``, ``parallel/distributed.py``), and with ``partition``
+it trains through the fused program over the mesh instead
+(``_fit_distributed``, ``parallel/distributed.py``; ``fe_feature_sharded``
+lays the primary fixed effect's columns over the mesh's "model" axis), and
+with ``partition``
 (:class:`TrainPartition`) on this rank's block of a partitioned read
 (``train_partitioned``). One device runs it over
 a dense or sparse fixed effect, random effects
@@ -50,7 +52,7 @@ from photon_ml_torch.evaluation.evaluators import (
     default_evaluator_for_task,
     parse_evaluator,
 )
-from photon_ml_torch.models.game import GameModel
+from photon_ml_torch.models.game import FixedEffectModel, GameModel
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.glm import GeneralizedLinearModel
 from photon_ml_torch.ops.losses import loss_for_task
@@ -180,7 +182,9 @@ class GameEstimator:
     #: through the fused program over it (every rank calls fit with the same
     #: datasets) instead of the coordinate-descent loop
     mesh: object | None = None
-    #: the model axis: not ported (ROADMAP.md item 15)
+    #: lay the primary fixed effect's feature axis over the mesh's "model"
+    #: axis (its dimension padded with zero columns to a multiple of it;
+    #: the padding's coefficients stay 0 and are sliced off on output)
     fe_feature_sharded: bool = False
     telemetry: object | None = None
     #: evaluation path of the fixed-effect solves (ops/objective.py): None =
@@ -200,8 +204,8 @@ class GameEstimator:
 
     def fit(self, dataset: GameDataset, validation_dataset: GameDataset | None = None,
             initial_model: GameModel | None = None) -> CoordinateDescentResult:
-        if self.fe_feature_sharded:
-            raise _not_ported("GameEstimator(fe_feature_sharded=True) (the model axis)", 15)
+        if self.fe_feature_sharded and self.mesh is None:
+            raise ValueError("fe_feature_sharded requires a mesh (GameEstimator(mesh=...))")
         if self.checkpointer is not None:
             raise _not_ported("checkpoints in run_coordinate_descent", 16)
         if self.telemetry is not None:
@@ -362,6 +366,32 @@ class GameEstimator:
             if validation_dataset is not None:
                 validation_dataset = with_empty_shard(validation_dataset)
         fe_intercept = self.intercept_indices.get(fe_shard)
+
+        # the model axis wants the FE dimension divisible by it: pad with zero
+        # columns, whose coefficients stay exactly 0 (zero data and L2) and
+        # are sliced off again on output
+        fe_pad = 0
+        if self.fe_feature_sharded and fe_cid is not None:
+            from photon_ml_torch.parallel.mesh import model_size
+
+            fe_pad = (-int(dataset.feature_shards[fe_shard].shape[1])) % model_size(self.mesh)
+        if fe_pad:
+            def with_padded_fe(ds):
+                shard = ds.feature_shards[fe_shard]
+                host_cache = dict(ds.host_cache)
+                if isinstance(shard, SparseShard):
+                    shard = dataclasses.replace(shard, feature_dim=shard.feature_dim + fe_pad,
+                                                _device={}, _hybrid_cache=None)
+                else:
+                    shard = torch.nn.functional.pad(shard, (0, fe_pad))
+                    host_cache.pop(f"shard/{fe_shard}", None)
+                return dataclasses.replace(ds, feature_shards={**ds.feature_shards,
+                                                               fe_shard: shard},
+                                           host_cache=host_cache, _sparse_batches={})
+
+            dataset = with_padded_fe(dataset)
+            if validation_dataset is not None:
+                validation_dataset = with_padded_fe(validation_dataset)
         norms = self._prepare_normalization(dataset)
 
         re_specs, re_datasets, re_cid_of_type = [], {}, {}
@@ -453,7 +483,8 @@ class GameEstimator:
             re_normalizations=re_normalizations,
             extra_fe_normalizations={sh: norms[sh] for sh in extra_fe_cid_of_shard
                                      if sh in norms},
-            use_kernel_fe=self.use_kernel, mesh=self.mesh)
+            use_kernel_fe=self.use_kernel, mesh=self.mesh,
+            fe_feature_sharded=self.fe_feature_sharded)
 
         # locked coordinates: fixed offsets and pass-through models
         locked_models: dict = {}
@@ -485,6 +516,12 @@ class GameEstimator:
             program_key.update({cid: sh for sh, cid in extra_fe_cid_of_shard.items()})
             program_key.update({cid: t for t, cid in re_cid_of_type.items()})
             remapped = {program_key.get(cid, cid): m for cid, m in initial_model.models.items()}
+            if fe_pad and fe_shard in remapped:
+                c = remapped[fe_shard].glm.coefficients
+                remapped[fe_shard] = FixedEffectModel(
+                    glm=GeneralizedLinearModel(Coefficients(
+                        means=torch.nn.functional.pad(c.means, (0, fe_pad))), self.task),
+                    feature_shard_id=fe_shard)
             warm_state = game_model_to_state(
                 program, GameModel(models=remapped), train_ds, intercept_index=fe_intercept,
                 missing_ok=True, re_datasets=re_datasets, mf_datasets=mf_datasets)
@@ -503,11 +540,12 @@ class GameEstimator:
                 program, {partition.info.rank: (train_ds, re_datasets)}, self.mesh,
                 partition.info.num_ranks, num_iterations=self.num_iterations,
                 state=warm_state, check_finite=self.check_finite,
-                exchange=partition.exchange)
+                exchange=partition.exchange, fe_feature_sharded=self.fe_feature_sharded)
         else:
             result = train_distributed(
                 program, train_ds, re_datasets, mf_datasets=mf_datasets, mesh=self.mesh,
                 num_iterations=self.num_iterations, state=warm_state,
+                fe_feature_sharded=self.fe_feature_sharded,
                 validation_dataset=val_ds if val_eval_data is not None else None,
                 validation_evaluators=evaluators, validation_eval_data=val_eval_data,
                 training_evaluator=default_evaluator_for_task(self.task),
@@ -526,7 +564,18 @@ class GameEstimator:
                 program, state, train_ds, intercept_index=fe_intercept,
                 compute_variance=compute_var, variance_mode=fe_cfg.optimization.variance_mode,
                 re_datasets=re_datasets, variance_re_types=variance_re_types)
-            renamed = {trainable_cids.get(k, k): v for k, v in m.models.items()
+            models = dict(m.models)
+            if fe_pad:
+                # the padding columns' zero coefficients come off (saved
+                # models keep the true dimension)
+                c = models[fe_shard].glm.coefficients
+                models[fe_shard] = FixedEffectModel(
+                    glm=GeneralizedLinearModel(Coefficients(
+                        means=c.means[:-fe_pad],
+                        variances=None if c.variances is None else c.variances[:-fe_pad]),
+                        self.task),
+                    feature_shard_id=fe_shard)
+            renamed = {trainable_cids.get(k, k): v for k, v in models.items()
                        if not (fe_cid is None and k == fe_shard)}
             renamed.update(locked_models)
             return GameModel(models={cid: renamed[cid] for cid in sequence if cid in renamed})

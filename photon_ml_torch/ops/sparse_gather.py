@@ -156,18 +156,28 @@ def segment_plan(row_ids: torch.Tensor, n: int):
     row_ptr = torch.searchsorted(row_ids, bounds).to(torch.int32)
     if row_ids.numel() == 0:
         return row_ptr, None
+    return row_ptr, pointer_chunks(row_ptr)
+
+
+def pointer_chunks(row_ptr: torch.Tensor) -> ChunkPlan | None:
+    """The :class:`ChunkPlan` of the rows longer than SEGMENT_CHUNK of a
+    tail given by its int32 ``[n+1]`` pointers (None when there is none),
+    with one device sync."""
+    dev = row_ptr.device
+    if row_ptr.numel() < 2:
+        return None
     lens = row_ptr[1:] - row_ptr[:-1]
     long = lens > SEGMENT_CHUNK
     rank = torch.cumsum(long, 0, dtype=torch.int32)  # long rows up to and including each row
     per_row = torch.where(long, (lens + SEGMENT_CHUNK - 1) // SEGMENT_CHUNK, 0)
     num_long, count = torch.stack([rank[-1].long(), per_row.sum()]).tolist()
     if num_long == 0:
-        return row_ptr, None
+        return None
     # the r-th long row is the first row whose rank reaches r + 1
     rows = torch.searchsorted(rank, torch.arange(1, num_long + 1, dtype=torch.int32, device=dev))
     chunk_ptr = torch.zeros(num_long + 1, dtype=torch.int32, device=dev)
     torch.cumsum(per_row[rows], 0, out=chunk_ptr[1:])
-    return row_ptr, ChunkPlan(rows.to(torch.int32), chunk_ptr, int(count))
+    return ChunkPlan(rows.to(torch.int32), chunk_ptr, int(count))
 
 
 def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,15 @@ The solvers are Python loops over tensors on the batch's device: the shape
 of the JAX package's host-loop mode (``run_while(host=True)``), with the same
 per-iteration arithmetic. Scalars stay 0-dim tensors in the solve dtype;
 only the branch decisions come back to the host.
+
+Every reduction the single-vector solvers take over the coefficient vector
+(inner products, norms, the L1 sum) goes through one :class:`VectorOps`,
+which the bound objective supplies (``vector_ops``). :data:`LOCAL` is the
+plain ``torch.dot``/``torch.linalg.norm`` of a vector held whole; over a
+model-sharded vector (``parallel/column_sharded.ModelAxisOps``) each is the
+rank's local reduction plus one all-reduce over the mesh's "model" axis, so
+every rank of the model group receives the same bits and takes the same
+branches. Elementwise work stays local.
 """
 
 from __future__ import annotations
@@ -27,6 +36,26 @@ class ConvergenceReason(enum.IntEnum):
     FUNCTION_VALUES_WITHIN_TOLERANCE = 2
     GRADIENT_WITHIN_TOLERANCE = 3
     LINE_SEARCH_FAILED = 4
+
+
+class VectorOps:
+    """The reductions of a solver over a coefficient vector held whole."""
+
+    @staticmethod
+    def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.dot(a, b)
+
+    @staticmethod
+    def norm(a: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.norm(a)
+
+    @staticmethod
+    def abs_sum(a: torch.Tensor) -> torch.Tensor:
+        return torch.sum(torch.abs(a))
+
+
+#: the reductions of a vector held whole on this rank
+LOCAL = VectorOps()
 
 
 def flags(*conditions: torch.Tensor) -> list[bool]:
@@ -203,6 +232,7 @@ def wolfe_line_search(
     c1: float = 1e-4,
     c2: float = 0.9,
     max_steps: int = 25,
+    ops: VectorOps = LOCAL,
 ) -> LineSearchResult:
     """Weak-Wolfe bisection line search.
 
@@ -212,7 +242,7 @@ def wolfe_line_search(
     Replaces breeze's StrongWolfeLineSearch used by the reference's LBFGS
     (optimization/LBFGS.scala:97-107).
     """
-    dg0 = torch.dot(g0, direction)
+    dg0 = ops.dot(g0, direction)
     zero = torch.zeros((), dtype=f0.dtype, device=f0.device)
     t = t_init.to(f0.dtype)
     lo, hi = zero, None  # hi None: no upper bracket yet (+inf)
@@ -222,7 +252,7 @@ def wolfe_line_search(
         armijo, finite, curv, lower = flags(
             f_t <= f0 + c1 * t * dg0,
             torch.isfinite(f_t),
-            torch.dot(g_t, direction) >= c2 * dg0,
+            ops.dot(g_t, direction) >= c2 * dg0,
             f_t < f_best,
         )
         armijo = armijo and finite

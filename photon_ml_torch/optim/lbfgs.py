@@ -12,7 +12,9 @@ from typing import Callable
 import torch
 
 from photon_ml_torch.optim.common import (
+    LOCAL,
     ConvergenceReason,
+    VectorOps,
     SolverResult,
     check_convergence,
     flags,
@@ -26,29 +28,30 @@ DEFAULT_HISTORY = 10
 DEFAULT_TOLERANCE = 1e-7
 
 
-def two_loop_direction(g, s_hist, y_hist, rho, count: int, head: int) -> torch.Tensor:
+def two_loop_direction(g, s_hist, y_hist, rho, count: int, head: int,
+                       ops: VectorOps = LOCAL) -> torch.Tensor:
     """L-BFGS two-loop recursion over a circular history buffer.
 
     s_hist/y_hist: [m, d]; rho: [m] (1/sᵀy); count: number of valid pairs;
-    head: slot of the most recent pair.
+    head: slot of the most recent pair; ``ops`` the vector's reductions.
     """
     m = s_hist.shape[0]
     q = g
     alphas = {}
     for i in range(count):
         idx = (head - i) % m
-        alpha = rho[idx] * torch.dot(s_hist[idx], q)
+        alpha = rho[idx] * ops.dot(s_hist[idx], q)
         q = q - alpha * y_hist[idx]
         alphas[idx] = alpha
     if count > 0:
-        gamma = torch.dot(s_hist[head], y_hist[head]) / torch.clamp(
-            torch.dot(y_hist[head], y_hist[head]), min=1e-30)
+        gamma = ops.dot(s_hist[head], y_hist[head]) / torch.clamp(
+            ops.dot(y_hist[head], y_hist[head]), min=1e-30)
         r = gamma * q
     else:
         r = q
     for i in range(count):  # oldest to newest
         idx = (head - (count - 1 - i)) % m
-        beta = rho[idx] * torch.dot(y_hist[idx], r)
+        beta = rho[idx] * ops.dot(y_hist[idx], r)
         r = r + (alphas[idx] - beta) * s_hist[idx]
     return -r
 
@@ -64,13 +67,16 @@ def minimize_lbfgs(
     lower_bounds: torch.Tensor | None = None,
     upper_bounds: torch.Tensor | None = None,
     max_line_search_steps: int = 25,
+    ops: VectorOps = LOCAL,
 ) -> SolverResult:
     """Minimize a smooth function with L-BFGS.
 
     With ``lower_bounds``/``upper_bounds`` set, iterates are projected onto
     the box after every accepted step, the search is projected Armijo
     backtracking, and convergence is tested on the projected gradient (the
-    reference's scheme, LBFGS.scala:70-76; the LBFGSB entry point).
+    reference's scheme, LBFGS.scala:70-76; the LBFGSB entry point). ``ops``
+    takes every inner product and norm over the vector (a model-sharded one
+    over its mesh axis, ``optim/common.py``).
     """
     dtype, device = w0.dtype, w0.device
     d = w0.shape[0]
@@ -86,9 +92,9 @@ def minimize_lbfgs(
 
     def projected_grad_norm(w, g):
         if not has_box:
-            return torch.linalg.norm(g)
+            return ops.norm(g)
         # norm of P(w - g) - w: zero iff w is box-stationary
-        return torch.linalg.norm(project(w - g) - w)
+        return ops.norm(project(w - g) - w)
 
     w = project(w0.to(dtype))
     f, g = value_and_grad_fn(w)
@@ -104,7 +110,7 @@ def minimize_lbfgs(
         reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE)
 
     while iteration < max_iter and reason == ConvergenceReason.NOT_CONVERGED:
-        direction = two_loop_direction(g, s_hist, y_hist, rho, count, head)
+        direction = two_loop_direction(g, s_hist, y_hist, rho, count, head, ops)
         if has_box:
             # active-set masking: don't push into an active bound
             eps_b = 1e-10
@@ -114,13 +120,13 @@ def minimize_lbfgs(
             sd = -g
             sd = torch.where((at_lo & (sd < 0.0)) | (at_hi & (sd > 0.0)),
                              torch.zeros_like(sd), sd)
-            if bool(torch.dot(g, direction) >= 0.0):
+            if bool(ops.dot(g, direction) >= 0.0):
                 direction = sd
-        elif bool(torch.dot(g, direction) >= 0.0):
+        elif bool(ops.dot(g, direction) >= 0.0):
             direction = -g  # not a descent direction: steepest descent
 
         if count == 0:
-            t_init = 1.0 / torch.clamp(torch.linalg.norm(g), min=1.0)
+            t_init = 1.0 / torch.clamp(ops.norm(g), min=1.0)
         else:
             t_init = torch.ones((), dtype=dtype, device=device)
 
@@ -133,7 +139,7 @@ def minimize_lbfgs(
             for _ in range(max_line_search_steps):
                 w_new = project(w + t * direction)
                 f_new, g_new = value_and_grad_fn(w_new)
-                decrease = torch.dot(g, w_new - w)
+                decrease = ops.dot(g, w_new - w)
                 ls_success = all(flags(f_new <= f + c1 * decrease,
                                        torch.isfinite(f_new), f_new < f))
                 t = t * 0.5
@@ -141,14 +147,14 @@ def minimize_lbfgs(
                     break
         else:
             ls = wolfe_line_search(value_and_grad_fn, w, f, g, direction, t_init,
-                                   max_steps=max_line_search_steps)
+                                   max_steps=max_line_search_steps, ops=ops)
             w_new = w + ls.step * direction
             f_new, g_new = ls.value, ls.gradient
             ls_success = ls.success
 
         s = w_new - w
         y = g_new - g
-        sy = torch.dot(s, y)
+        sy = ops.dot(s, y)
         keep_pair = ls_success and bool(sy > 1e-10)
         count, head = update_history(s_hist, y_hist, rho, count, head, s, y, sy, keep_pair)
 

@@ -14,7 +14,7 @@ import enum
 import torch
 
 from photon_ml_torch.ops.objective import BoundObjective
-from photon_ml_torch.optim.common import SolverResult, new_history
+from photon_ml_torch.optim.common import LOCAL, SolverResult, new_history
 from photon_ml_torch.optim.lbfgs import minimize_lbfgs
 from photon_ml_torch.optim.newton import minimize_newton
 from photon_ml_torch.optim.owlqn import minimize_owlqn
@@ -86,8 +86,11 @@ def solve(
     lower_bounds: torch.Tensor | None = None,
     upper_bounds: torch.Tensor | None = None,
 ) -> SolverResult:
-    """Run the configured solver on a bound objective."""
+    """Run the configured solver on a bound objective. The solver's inner
+    products and norms are the objective's ``vector_ops`` (a model-sharded
+    vector's, ``parallel/column_sharded.py``), plain ones by default."""
     t = config.optimizer_type
+    ops = getattr(objective.objective, "vector_ops", LOCAL)
     if t == OptimizerType.AUTO:
         raise ValueError(
             "OptimizerType.AUTO must be resolved before solve() — call "
@@ -115,6 +118,7 @@ def solve(
             rel_function_tolerance=config.rel_function_tolerance,
             lower_bounds=lower_bounds,
             upper_bounds=upper_bounds,
+            ops=ops,
         )
     if t == OptimizerType.OWLQN:
         return minimize_owlqn(
@@ -125,6 +129,7 @@ def solve(
             history=config.history,
             tolerance=config.tolerance,
             rel_function_tolerance=config.rel_function_tolerance,
+            ops=ops,
         )
     if t == OptimizerType.TRON:
         loss = objective.objective.loss
@@ -141,6 +146,7 @@ def solve(
             tolerance=config.tolerance,
             rel_function_tolerance=config.rel_function_tolerance,
             max_cg_iter=config.max_cg_iterations,
+            ops=ops,
         )
     raise ValueError(f"Unknown optimizer type {t}")
 

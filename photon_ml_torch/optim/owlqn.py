@@ -20,7 +20,9 @@ from typing import Callable
 import torch
 
 from photon_ml_torch.optim.common import (
+    LOCAL,
     ConvergenceReason,
+    VectorOps,
     LaneResult,
     SolverResult,
     any_lane,
@@ -58,21 +60,23 @@ def minimize_owlqn(
     tolerance: float = 1e-7,
     rel_function_tolerance: float | None = None,
     max_line_search_steps: int = 30,
+    ops: VectorOps = LOCAL,
 ) -> SolverResult:
     """Minimize smooth(w) + l1_weight * ‖w‖₁; ``value_and_grad_fn`` covers
-    only the smooth part (loss + optional L2)."""
+    only the smooth part (loss + optional L2). ``ops`` takes the vector's
+    inner products, norms and the L1 sum (``optim/common.py``)."""
     dtype, device = w0.dtype, w0.device
     d = w0.shape[0]
     m = history
     l1 = torch.tensor(l1_weight, dtype=dtype, device=device)
 
     def full_value(w, smooth_f):
-        return smooth_f + l1 * torch.sum(torch.abs(w))
+        return smooth_f + l1 * ops.abs_sum(w)
 
     w = w0.to(dtype)
     sf0, g = value_and_grad_fn(w)
     f = full_value(w, sf0)
-    g0_norm = torch.linalg.norm(pseudo_gradient(w, g, l1))
+    g0_norm = ops.norm(pseudo_gradient(w, g, l1))
     value_history = new_history(max_iter, f)
     grad_norm_history = new_history(max_iter, g0_norm)
     s_hist = torch.zeros((m, d), dtype=dtype, device=device)
@@ -85,16 +89,16 @@ def minimize_owlqn(
 
     while iteration < max_iter and reason == ConvergenceReason.NOT_CONVERGED:
         pg = pseudo_gradient(w, g, l1)
-        direction = two_loop_direction(pg, s_hist, y_hist, rho, count, head)
+        direction = two_loop_direction(pg, s_hist, y_hist, rho, count, head, ops)
         # constrain the direction to the descent orthant of -pg
         direction = torch.where(direction * (-pg) > 0.0, direction, torch.zeros_like(direction))
-        if bool(torch.dot(direction, pg) >= 0.0):
+        if bool(ops.dot(direction, pg) >= 0.0):
             direction = -pg  # degenerate: steepest descent on the pseudo-gradient
         # orthant of the search: sign(w), or sign(-pg) where w == 0
         xi = torch.where(w != 0.0, torch.sign(w), torch.sign(-pg))
 
         if count == 0:
-            t = 1.0 / torch.clamp(torch.linalg.norm(pg), min=1.0)
+            t = 1.0 / torch.clamp(ops.norm(pg), min=1.0)
         else:
             t = torch.ones((), dtype=dtype, device=device)
 
@@ -109,7 +113,7 @@ def minimize_owlqn(
             w_new = torch.where(cand * xi > 0.0, cand, torch.zeros_like(cand))
             sf, g_new = value_and_grad_fn(w_new)
             f_new = full_value(w_new, sf)
-            decrease = torch.dot(pg, w_new - w)
+            decrease = ops.dot(pg, w_new - w)
             ls_ok = all(flags(f_new <= f + c1 * decrease, torch.isfinite(f_new), f_new < f))
             t = t * 0.5
             if ls_ok:
@@ -117,11 +121,11 @@ def minimize_owlqn(
 
         s = w_new - w
         y = g_new - g  # smooth gradients, per Andrew & Gao
-        sy = torch.dot(s, y)
+        sy = ops.dot(s, y)
         keep_pair = ls_ok and bool(sy > 1e-10)
         count, head = update_history(s_hist, y_hist, rho, count, head, s, y, sy, keep_pair)
 
-        gnorm = torch.linalg.norm(pseudo_gradient(w_new, g_new, l1))
+        gnorm = ops.norm(pseudo_gradient(w_new, g_new, l1))
         if ls_ok:
             reason = check_convergence(
                 value=f_new, prev_value=f, grad_norm=gnorm, initial_grad_norm=g0_norm,
@@ -138,7 +142,7 @@ def minimize_owlqn(
     return SolverResult(
         coefficients=w,
         value=f,
-        gradient_norm=torch.linalg.norm(pseudo_gradient(w, g, l1)),
+        gradient_norm=ops.norm(pseudo_gradient(w, g, l1)),
         iterations=iteration,
         reason=reason,
         value_history=value_history,

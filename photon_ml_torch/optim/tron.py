@@ -20,7 +20,9 @@ from typing import Callable
 import torch
 
 from photon_ml_torch.optim.common import (
+    LOCAL,
     ConvergenceReason,
+    VectorOps,
     LaneResult,
     SolverResult,
     any_lane,
@@ -33,17 +35,17 @@ ETA0, ETA1, ETA2 = 1e-4, 0.25, 0.75
 SIGMA1, SIGMA2, SIGMA3 = 0.25, 0.5, 4.0
 
 
-def _boundary_step(z, dvec, delta):
+def _boundary_step(z, dvec, delta, ops: VectorOps = LOCAL):
     """z + tau*d with tau >= 0 and ‖z + tau*d‖ = delta."""
-    zz = torch.dot(z, z)
-    zd = torch.dot(z, dvec)
-    dd = torch.clamp(torch.dot(dvec, dvec), min=1e-30)
+    zz = ops.dot(z, z)
+    zd = ops.dot(z, dvec)
+    dd = torch.clamp(ops.dot(dvec, dvec), min=1e-30)
     rad = torch.sqrt(torch.clamp(zd * zd + dd * (delta * delta - zz), min=0.0))
     tau = (-zd + rad) / dd
     return z + tau * dvec
 
 
-def _truncated_cg(hv_fn, g, delta, max_cg: int, cg_tol):
+def _truncated_cg(hv_fn, g, delta, max_cg: int, cg_tol, ops: VectorOps = LOCAL):
     """Solve H z ≈ -g within the trust region ‖z‖ <= delta (Steihaug-Toint,
     reference TRON.truncatedConjugateGradientMethod, TRON.scala:278-338).
     Returns (z, hit_boundary, cg_iters)."""
@@ -54,18 +56,18 @@ def _truncated_cg(hv_fn, g, delta, max_cg: int, cg_tol):
     i = 0
     while i < max_cg:
         hd = hv_fn(dvec)
-        dhd = torch.dot(dvec, hd)
-        rr = torch.dot(r, r)
+        dhd = ops.dot(dvec, hd)
+        rr = ops.dot(r, r)
         alpha = rr / torch.clamp(dhd, min=1e-30)
         z_try = z + alpha * dvec
         r_new = r - alpha * hd
-        rr_new = torch.dot(r_new, r_new)
+        rr_new = ops.dot(r_new, r_new)
         neg_curv, outside, converged = flags(
-            dhd <= 0.0, torch.linalg.norm(z_try) >= delta, torch.sqrt(rr_new) <= cg_tol)
+            dhd <= 0.0, ops.norm(z_try) >= delta, torch.sqrt(rr_new) <= cg_tol)
         # negative curvature (non-convex edge case) or leaving the region:
         # go to the boundary
         hit = neg_curv or outside
-        z = _boundary_step(z, dvec, delta) if hit else z_try
+        z = _boundary_step(z, dvec, delta, ops) if hit else z_try
         beta = rr_new / torch.clamp(rr, min=1e-30)
         dvec = r_new + beta * dvec
         r = r_new
@@ -85,18 +87,20 @@ def minimize_tron(
     rel_function_tolerance: float | None = None,
     max_cg_iter: int = 20,
     cg_forcing: float = 0.1,
+    ops: VectorOps = LOCAL,
 ) -> SolverResult:
     """Minimize a twice-differentiable convex objective with TRON.
 
     ``hessian_vector_fn(w, v)`` returns H(w) @ v. Convergence when
     ‖g‖ <= tolerance * ‖g0‖ (LIBLINEAR's test, TRON.scala:208).
     ``rel_function_tolerance`` (None = no function test): relative
-    function-decrease stop on accepted rounds.
+    function-decrease stop on accepted rounds. ``ops`` takes the vector's
+    inner products and norms (``optim/common.py``).
     """
     dtype = w0.dtype
     w = w0.to(dtype)
     f, g = value_and_grad_fn(w)
-    g0_norm = torch.linalg.norm(g)
+    g0_norm = ops.norm(g)
     delta = g0_norm
     value_history = new_history(max_iter, f)
     grad_norm_history = new_history(max_iter, g0_norm)
@@ -107,17 +111,18 @@ def minimize_tron(
         reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE)
 
     while iteration < max_iter and reason == ConvergenceReason.NOT_CONVERGED:
-        gnorm = torch.linalg.norm(g)
+        gnorm = ops.norm(g)
         w_cur = w
         hv = lambda v: hessian_vector_fn(w_cur, v)  # noqa: E731
-        step, hit_boundary, _ = _truncated_cg(hv, g, delta, max_cg_iter, cg_forcing * gnorm)
+        step, hit_boundary, _ = _truncated_cg(hv, g, delta, max_cg_iter, cg_forcing * gnorm,
+                                              ops)
 
-        gs = torch.dot(g, step)
-        shs = torch.dot(step, hv(step))
+        gs = ops.dot(g, step)
+        shs = ops.dot(step, hv(step))
         prered = -(gs + 0.5 * shs)
         f_new, g_new = value_and_grad_fn(w + step)
         actred = f - f_new
-        snorm = torch.linalg.norm(step)
+        snorm = ops.norm(step)
 
         below0, below1, below2, no_interp, gain, finite = flags(
             actred < ETA0 * prered, actred < ETA1 * prered, actred < ETA2 * prered,
@@ -143,7 +148,7 @@ def minimize_tron(
         f_prev = f
         if accept:
             w, f, g = w + step, f_new, g_new
-        gnorm_acc = torch.linalg.norm(g)
+        gnorm_acc = ops.norm(g)
         grad_ok, collapsed = flags(
             gnorm_acc <= tolerance * torch.clamp(grad_norm_history[0], min=1e-30),
             delta < 1e-12)
@@ -168,7 +173,7 @@ def minimize_tron(
     return SolverResult(
         coefficients=w,
         value=f,
-        gradient_norm=torch.linalg.norm(g),
+        gradient_norm=ops.norm(g),
         iterations=iteration,
         reason=reason,
         value_history=value_history,

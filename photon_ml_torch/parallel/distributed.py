@@ -56,10 +56,26 @@ sample axis, and the rank-local buckets
 (``build_random_effect_dataset_partitioned``) index it through their
 shifted ``sample_rows``.
 
-The model axis (``fe_feature_sharded``, ``model > 1``),
-checkpoints and the lane scheduler are not ported yet: ROADMAP.md items 15,
-16 and 18. Nothing is compiled: each coordinate's solve runs its lane loops
-as ``GameEstimator.fit`` does.
+The model axis (``fe_feature_sharded`` over a mesh with ``model > 1``):
+each rank holds its rows and its ``ceil(d/M)`` columns of the primary fixed
+effect, dense (``[n/D, d/M]``) or as a sparse column block
+(``parallel/column_sharded.py``), and ``state.fe_coefficients`` is that
+block (``GameTrainState.fe_columns`` says which), so the coefficients, the
+gradient and the solver's history are ``d/M`` long on every rank. One FE
+evaluation computes the partial margins of the rank's columns and
+all-reduces them over "model", takes the loss on the rank's rows, forms the
+rank's gradient block and all-reduces it over "data"; the solver's inner
+products are all-reduced over "model" (``optim/common.VectorOps``). The
+random effects, MF coordinates and extra fixed effects shard over "data"
+and are replicated across "model": their exchanges run on the data group,
+as without a model axis. The whole FE vector is gathered only where the
+JAX package materializes it: the model on output and the FE variances
+(:meth:`GameTrainProgram.whole_state`). With a model axis of 1 the flag
+changes nothing.
+
+Checkpoints and the lane scheduler are not ported yet: ROADMAP.md items 16
+and 18. Nothing is compiled: each coordinate's solve runs its lane loops as
+``GameEstimator.fit`` does.
 """
 
 from __future__ import annotations
@@ -124,16 +140,21 @@ from photon_ml_torch.ops.variance import (
 )
 from photon_ml_torch.optim.optimizer import OptimizerConfig, resolve_auto_optimizer, solve
 from photon_ml_torch.parallel import mesh as mesh_ops
+from photon_ml_torch.parallel.column_sharded import (
+    ColumnShardedGLMObjective,
+    FeatureShardedDenseGLMObjective,
+    block_normalization,
+    build_column_sharded_batch,
+    fe_columns_of,
+    feature_block,
+    split_fe,
+)
 from photon_ml_torch.parallel.sharded_dense import (
     ShardedDenseGLMObjective,
     ShardedSparseGLMObjective,
 )
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.types import TaskType
-
-#: the ROADMAP item of the model axis, named by refusals
-_MODEL_AXIS_ITEM = "15 (the model axis)"
-
 
 @dataclasses.dataclass
 class GameTrainState:
@@ -145,6 +166,10 @@ class GameTrainState:
     mf_rows / mf_cols: MF coordinate name -> [num_entities, k] factors.
     extra_fe: feature shard id -> [d] vector of each additional (dense)
         fixed effect, in its normalized space.
+    fe_columns: None when ``fe_coefficients`` is the whole vector; over a
+        model axis ``(start, block, dim)``: it is the rank's ``[block]``
+        slice of a ``dim``-wide vector from column ``start`` (lanes past
+        ``dim`` are padding, pinned at 0).
     """
 
     fe_coefficients: torch.Tensor
@@ -152,6 +177,9 @@ class GameTrainState:
     mf_rows: dict = dataclasses.field(default_factory=dict)
     mf_cols: dict = dataclasses.field(default_factory=dict)
     extra_fe: dict = dataclasses.field(default_factory=dict)
+    fe_columns: tuple | None = None
+
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -409,11 +437,16 @@ class GameTrainProgram:
         mesh=None,
         fe_feature_sharded: bool = False,
     ):
-        if fe_feature_sharded:
-            raise _not_ported("GameTrainProgram with fe_feature_sharded", _MODEL_AXIS_ITEM)
         if mesh is not None:
             mesh_ops.check_data_mesh(mesh)
         self.mesh = mesh
+        #: the primary FE is feature-sharded over the mesh's model axis
+        #: (with no mesh, or a model axis of 1, there is one column block)
+        self.fe_feature_sharded = bool(fe_feature_sharded)
+        self._model_axis = (self.fe_feature_sharded and mesh is not None
+                            and mesh_ops.model_size(mesh) > 1)
+        #: (kind, columns) -> the model-axis FE objective of that block
+        self._model_objectives: dict = {}
         self.task = task
         loss = loss_for_task(task)
         self._loss = loss
@@ -537,9 +570,59 @@ class GameTrainProgram:
 
     def fe_coefficients_model_space(self, state: GameTrainState,
                                     intercept_index: int | None = None) -> torch.Tensor:
-        """The state's normalized-space FE vector in original feature space."""
-        return self._fe_objective.normalization.to_model_space(state.fe_coefficients,
+        """The state's normalized-space FE vector in original feature space
+        (over a model axis gathered first: a collective)."""
+        return self._fe_objective.normalization.to_model_space(self.whole_fe(state),
                                                                intercept_index)
+
+    def whole_fe(self, state: GameTrainState) -> torch.Tensor:
+        """The whole FE vector of ``state``: the rank's block gathered over
+        the model axis (every rank of the model group calls it) when the
+        state holds a block."""
+        if state.fe_columns is None:
+            return state.fe_coefficients
+        if self.mesh is None:
+            raise ValueError("a state holding an FE column block needs the program's mesh")
+        whole = mesh_ops.all_gather_rows(state.fe_coefficients, self.mesh, axis="model")
+        return whole[:state.fe_columns[2]]
+
+    def whole_state(self, state: GameTrainState) -> GameTrainState:
+        """``state`` with its whole FE vector (:meth:`whole_fe`)."""
+        if state.fe_columns is None:
+            return state
+        return dataclasses.replace(state, fe_coefficients=self.whole_fe(state), fe_columns=None)
+
+    def _split_state(self, state: GameTrainState, dim: int) -> GameTrainState:
+        """``state`` with the rank's FE block, on a model axis (a whole
+        vector is split, a block must be this rank's)."""
+        if not self._model_axis:
+            if state.fe_columns is not None:
+                raise ValueError("the state holds an FE column block but the program runs no "
+                                 "model axis (GameTrainProgram(fe_feature_sharded=True) over a "
+                                 "mesh with model > 1)")
+            return state
+        columns = fe_columns_of(dim, self.mesh)
+        if state.fe_columns is not None:
+            if tuple(state.fe_columns) != columns:
+                raise ValueError(f"the state's FE block {state.fe_columns} is not this rank's "
+                                 f"{columns}")
+            return state
+        return dataclasses.replace(state, fe_coefficients=split_fe(state.fe_coefficients,
+                                                                   columns),
+                                   fe_columns=columns)
+
+    def _model_objective(self, kind: str, columns: tuple):
+        """The model-axis objective of the primary FE's rank block
+        (``"dense"`` or ``"sparse"``), built once per block."""
+        key = (kind, columns)
+        if key not in self._model_objectives:
+            cls = FeatureShardedDenseGLMObjective if kind == "dense" \
+                else ColumnShardedGLMObjective
+            self._model_objectives[key] = cls(
+                self._loss, self.mesh, l2_weight=self.fe.l2_weight,
+                normalization=block_normalization(self.normalization, columns),
+                use_kernel=self._fe_objective.use_kernel)
+        return self._model_objectives[key]
 
     # -- state / input preparation ------------------------------------------
 
@@ -633,10 +716,46 @@ class GameTrainProgram:
 
     # -- the mesh layout -----------------------------------------------------
 
-    def _shard_data(self, mesh, data, *, put_fn=None) -> dict:
+    def _check_feature_sharded(self, mesh, fe_feature_sharded: bool) -> bool:
+        """Whether the inputs lay the FE out over the model axis; the
+        program must have been built for the same layout."""
+        sharded = bool(fe_feature_sharded) and mesh_ops.model_size(mesh) > 1
+        if sharded != self._model_axis or (self.mesh is not None and self.mesh is not mesh):
+            raise ValueError(
+                f"inputs with fe_feature_sharded={fe_feature_sharded} over a mesh with "
+                f"model={mesh_ops.model_size(mesh)} need the program built with the same mesh "
+                f"and flag: GameTrainProgram(..., mesh=mesh, fe_feature_sharded="
+                f"{fe_feature_sharded})")
+        return sharded
+
+    def _shard_fe_columns(self, out: dict, mesh, rows: slice) -> None:
+        """The rank's FE column block (``out["fe_columns"]``): a dense block
+        padded with zero columns to the model axis, or the sparse shard's
+        rows grouped into column blocks of which the rank keeps its own."""
+        fe = self.fe.feature_shard_id
+        device = out["labels"].device
+        if "fe_sparse_shard" in out:
+            local = sparse_shard_rows(out["fe_sparse_shard"], rows)
+            columns = fe_columns_of(int(local.feature_dim), mesh)
+            out["fe_column_batch"] = build_column_sharded_batch(
+                local, out["labels"].cpu().numpy(), mesh_ops.model_size(mesh),
+                offsets=np.zeros(local.num_samples), weights=out["weights"].cpu().numpy(),
+                only_block=mesh_ops.model_rank(mesh), device=device)
+            out.pop("fe_sparse_batch", None)
+            out.pop("fe_sparse_shard", None)
+        else:
+            x = out["features"][fe]
+            columns = fe_columns_of(int(x.shape[1]), mesh)
+            out["features"][fe] = feature_block(x, columns)
+        out["fe_columns"] = columns
+
+    def _shard_data(self, mesh, data, *, put_fn=None, fe_feature_sharded: bool = False) -> dict:
         """This rank's rows of a data pytree (training or scoring) whose
-        sample axis divides the mesh's data axis (``pad_game_dataset``)."""
+        sample axis divides the mesh's data axis (``pad_game_dataset``);
+        with ``fe_feature_sharded`` over a model axis, the rank's FE
+        columns of those rows."""
         mesh_ops.check_data_mesh(mesh)
+        sharded = self._check_feature_sharded(mesh, fe_feature_sharded)
         n = int(data["labels"].shape[0])
         rows = mesh_ops.row_block(n, mesh)
         device = data["labels"].device
@@ -654,7 +773,11 @@ class GameTrainProgram:
             # a lane's samples lie on every rank: the other side's entity of
             # each sample is read from the whole [n] index vector
             out["entity_idx_full"] = {t: data["entity_idx"][t].to(device) for t in mf_types}
-        if "fe_sparse_shard" in data:
+        if sharded:
+            if "fe_sparse_shard" in data:
+                out["fe_sparse_shard"] = data["fe_sparse_shard"]
+            self._shard_fe_columns(out, mesh, rows)
+        elif "fe_sparse_shard" in data:
             local = sparse_shard_rows(data["fe_sparse_shard"], rows)
             out["fe_sparse_shard"] = local
             out["fe_sparse_batch"] = SparseLabeledPointBatch.from_shard(
@@ -669,14 +792,14 @@ class GameTrainProgram:
         """(data, buckets, state) of this rank: its rows of the sample axis,
         its block of each bucket's entity lanes (each bucket padded first to
         a multiple of the data axis with lanes that train nothing), and the
-        whole state on its device. ``data`` must come from a dataset padded
-        to a multiple of the data axis (``train_distributed`` pads).
+        whole state on its device (over a model axis, with
+        ``fe_feature_sharded``, the rank's FE columns and FE block). ``data``
+        must come from a dataset padded to a multiple of the data axis
+        (``train_distributed`` pads).
 
         put_fn: (tensor, rows) -> this rank's block of those rows on its
         device (``parallel/mesh.default_put``)."""
-        if fe_feature_sharded:
-            raise _not_ported("shard_inputs(fe_feature_sharded=True)", _MODEL_AXIS_ITEM)
-        out = self._shard_data(mesh, data, put_fn=put_fn)
+        out = self._shard_data(mesh, data, put_fn=put_fn, fe_feature_sharded=fe_feature_sharded)
         layout: MeshLayout = out["mesh"]
         device = out["labels"].device
         put = put_fn if put_fn is not None else mesh_ops.default_put(device)
@@ -710,16 +833,17 @@ class GameTrainProgram:
             re_tables={k: v.to(device) for k, v in state.re_tables.items()},
             mf_rows={k: v.to(device) for k, v in state.mf_rows.items()},
             mf_cols={k: v.to(device) for k, v in state.mf_cols.items()},
-            extra_fe={k: v.to(device) for k, v in state.extra_fe.items()})
+            extra_fe={k: v.to(device) for k, v in state.extra_fe.items()},
+            fe_columns=state.fe_columns)
+        if "fe_columns" in out:
+            state = self._split_state(state, out["fe_columns"][2])
         return out, sharded, state
 
     def shard_scoring_inputs(self, mesh, data, *, fe_feature_sharded: bool = False,
                              put_fn=None) -> dict:
-        """This rank's rows of :meth:`prepare_scoring_inputs`' data."""
-        if fe_feature_sharded:
-            raise _not_ported("shard_scoring_inputs(fe_feature_sharded=True)",
-                              _MODEL_AXIS_ITEM)
-        return self._shard_data(mesh, data, put_fn=put_fn)
+        """This rank's rows of :meth:`prepare_scoring_inputs`' data (and its
+        FE columns over a model axis)."""
+        return self._shard_data(mesh, data, put_fn=put_fn, fe_feature_sharded=fe_feature_sharded)
 
     # -- the fused step ------------------------------------------------------
 
@@ -769,7 +893,8 @@ class GameTrainProgram:
                     data, buckets, name, full_offsets, mf_rows[name], mf_cols[name])
         train_loss = self._weighted_loss(labels, weights, offsets_excluding(), layout)
         new_state = GameTrainState(fe_coefficients=fe_w, re_tables=tables, mf_rows=mf_rows,
-                                   mf_cols=mf_cols, extra_fe=extra_fe)
+                                   mf_cols=mf_cols, extra_fe=extra_fe,
+                                   fe_columns=state.fe_columns)
         return new_state, train_loss
 
     def _weighted_loss(self, labels, weights, total_margin, layout=None) -> torch.Tensor:
@@ -834,7 +959,11 @@ class GameTrainProgram:
 
     def _fe_margin_score(self, data, fe_w: torch.Tensor) -> torch.Tensor:
         """The primary FE's pure margin (no offsets) from normalized-space
-        coefficients, dense or sparse."""
+        coefficients, dense or sparse (over a model axis: the rank's
+        columns' partial margins, all-reduced over "model")."""
+        if "fe_columns" in data:
+            batch, objective = self._model_axis_batch(data)
+            return objective.product(fe_w, batch)
         fe_sparse = data.get("fe_sparse_batch")
         if fe_sparse is not None:
             objective = self._fe_sparse_objective
@@ -870,9 +999,24 @@ class GameTrainProgram:
 
     # -- the coordinates' solves ---------------------------------------------
 
+    def _model_axis_batch(self, data):
+        """(the rank's FE column block as a batch, its objective)."""
+        columns = data["fe_columns"]
+        if "fe_column_batch" in data:
+            return data["fe_column_batch"], self._model_objective("sparse", columns)
+        return LabeledPointBatch(
+            features=data["features"][self.fe.feature_shard_id], labels=data["labels"],
+            offsets=data["offsets"], weights=data["weights"]), \
+            self._model_objective("dense", columns)
+
     def _primary_fe_batch(self, data, offsets, weights):
         """The primary FE's batch at ``offsets`` and ``weights``, with its
         objective."""
+        if "fe_columns" in data:
+            batch, objective = self._model_axis_batch(data)
+            if isinstance(batch, LabeledPointBatch):
+                return dataclasses.replace(batch, offsets=offsets, weights=weights), objective
+            return batch.replace(offsets=offsets, weights=weights), objective
         fe_sparse = data.get("fe_sparse_batch")
         on_mesh = "mesh" in data
         if fe_sparse is not None:
@@ -994,6 +1138,7 @@ def compute_state_variances(
                 "compute_state_variances needs re_datasets entries for the "
                 f"program's random-effect coordinates; missing: {missing}"
             )
+    state = program.whole_state(state)
     data = program.prepare_scoring_inputs(dataset, re_datasets)
     base_offsets, weights = data["offsets"], data["weights"]
     scores = program._coordinate_scores(data, state)
@@ -1063,7 +1208,10 @@ def state_to_game_model(
     """A fused-trained state as a ``GameModel`` in original space, for
     ``io/model_io`` and ``GameTransformer``. The FE coordinate is named after
     its shard, RE coordinates after their type, MF coordinates after their
-    spec name. ``compute_variance`` attaches :func:`compute_state_variances`."""
+    spec name. ``compute_variance`` attaches :func:`compute_state_variances`.
+    A state holding an FE column block is gathered first (a collective over
+    the model axis: every rank calls this)."""
+    state = program.whole_state(state)
     fe_variances = None
     re_variances: dict = {}
     extra_fe_variances: dict = {}
@@ -1308,8 +1456,10 @@ def game_model_to_state(
                                           dataset.entity_vocabs[spec.row_effect_type], spec.name))
         mf_cols[spec.name] = tensor(align(m.col_factors, m.col_keys,
                                           dataset.entity_vocabs[spec.col_effect_type], spec.name))
-    return GameTrainState(fe_coefficients=fe_w, re_tables=re_tables, mf_rows=mf_rows,
-                          mf_cols=mf_cols, extra_fe=extra_fe)
+    state = GameTrainState(fe_coefficients=fe_w, re_tables=re_tables, mf_rows=mf_rows,
+                           mf_cols=mf_cols, extra_fe=extra_fe)
+    # over a model axis the rank keeps its FE block
+    return program._split_state(state, int(fe_w.shape[0]))
 
 
 @dataclasses.dataclass
@@ -1381,15 +1531,19 @@ def train_distributed(
     every rank returns the whole state. The program must be built with the
     same mesh.
 
-    ``fe_feature_sharded`` (the model axis, ROADMAP.md item 15),
-    ``checkpointer`` (item 16) and a spec with a lane scheduler (item 18)
-    raise ``NotImplementedError`` before any data is prepared.
+    ``fe_feature_sharded`` over a mesh with a model axis wider than 1 lays
+    the primary FE's columns over "model" (the program must be built with
+    the same flag): every rank then returns its FE block
+    (``state.fe_columns``), and ``state_to_game_model`` gathers it.
+    Without a mesh, or with a model axis of 1, the flag changes nothing.
+
+    ``checkpointer`` (ROADMAP.md item 16) and a spec with a lane scheduler
+    (item 18) raise ``NotImplementedError`` before any data is prepared.
     """
     del checkpoint_every, resume  # only read with a checkpointer
-    if fe_feature_sharded:
-        raise _not_ported("train_distributed(fe_feature_sharded=True)", _MODEL_AXIS_ITEM)
     if mesh is not None:
         mesh_ops.check_data_mesh(mesh)
+        program._check_feature_sharded(mesh, fe_feature_sharded)
     if mesh is not None and program.mesh is not mesh:
         raise ValueError("train_distributed(mesh=...) needs the program built with the same "
                          "mesh: GameTrainProgram(..., mesh=mesh)")
@@ -1414,7 +1568,8 @@ def train_distributed(
     if state is None:
         state = program.init_state(dataset, re_datasets, mf_datasets)
     if mesh is not None:
-        data, buckets, state = program.shard_inputs(mesh, data, buckets, state, put_fn=put_fn)
+        data, buckets, state = program.shard_inputs(mesh, data, buckets, state, put_fn=put_fn,
+                                                    fe_feature_sharded=fe_feature_sharded)
     layout: MeshLayout | None = data.get("mesh")
 
     # per-sweep FE down-sampling multipliers (stable-id splitmix64, the
@@ -1449,7 +1604,8 @@ def train_distributed(
         if mesh is not None:
             from photon_ml_torch.evaluation.sharded import prepare_device_evaluators
 
-            val_data = program.shard_scoring_inputs(mesh, val_data, put_fn=put_fn)
+            val_data = program.shard_scoring_inputs(mesh, val_data, put_fn=put_fn,
+                                                    fe_feature_sharded=fe_feature_sharded)
             # the metrics reduce on the device from the gathered score
             # vector; only scalars reach the host
             device_evals = prepare_device_evaluators(
@@ -1590,13 +1746,17 @@ def prepare_partitioned_inputs(
     default), and each RE coordinate's owned entity rows of every rank come
     from one all-gather of the padded bucket lanes' entity rows. The state
     (zeros, or a warm start equal on every rank) stays whole on every rank.
+
+    Over a mesh with a model axis the partition's ranks are the data ranks:
+    the ranks of one data row each read (and pass here) the same block, the
+    default exchange is narrowed to the data axis
+    (``multihost.DataAxisExchange``: one payload a data rank), and with
+    ``fe_feature_sharded`` each keeps its FE columns and FE block.
     """
     from photon_ml_torch.parallel import multihost
 
-    if fe_feature_sharded:
-        raise _not_ported("prepare_partitioned_inputs(fe_feature_sharded=True)",
-                           _MODEL_AXIS_ITEM)
     mesh_ops.check_data_mesh(mesh)
+    sharded = program._check_feature_sharded(mesh, fe_feature_sharded)
     if mesh_ops.data_size(mesh) != num_ranks:
         raise ValueError(f"the mesh's data axis ({mesh_ops.data_size(mesh)}) must have one "
                          f"rank a partition ({num_ranks})")
@@ -1606,6 +1766,8 @@ def prepare_partitioned_inputs(
                          f"re_datasets)}}), got ranks {sorted(parts)}")
     if exchange is None:
         exchange = multihost.default_exchange()
+        if mesh_ops.model_size(mesh) > 1:
+            exchange = multihost.DataAxisExchange(exchange, mesh)
     ds, res = parts[rank]
     data, buckets = program.prepare_inputs(ds, res, None)
     _partitioned_guards(program, {rank: (data, buckets)})
@@ -1617,7 +1779,10 @@ def prepare_partitioned_inputs(
     multihost.assemble_partitioned(blocks, exchange, device=device, tag=tag)
     layout = MeshLayout(mesh=mesh, rows=slice(rank * n, (rank + 1) * n), num_rows=num_ranks * n)
     data = dict(data, mesh=layout)
-    if "fe_sparse_batch" in data:
+    if sharded:
+        # the rank's rows are the whole block: keep its FE columns
+        program._shard_fe_columns(data, mesh, slice(0, n))
+    elif "fe_sparse_batch" in data:
         data["fe_sparse_batch"] = _assemble_sparse_fe(data, rank, exchange, tag)
     # every rank's lanes' entity rows: one all-gather of all coordinates'
     keys = [s.re_type for s in program.re_specs]
@@ -1636,7 +1801,10 @@ def prepare_partitioned_inputs(
     state = GameTrainState(
         fe_coefficients=torch.as_tensor(state.fe_coefficients).to(device),
         re_tables={k: torch.as_tensor(v).to(device) for k, v in state.re_tables.items()},
-        extra_fe={k: torch.as_tensor(v).to(device) for k, v in state.extra_fe.items()})
+        extra_fe={k: torch.as_tensor(v).to(device) for k, v in state.extra_fe.items()},
+        fe_columns=state.fe_columns)
+    if sharded:
+        state = program._split_state(state, data["fe_columns"][2])
     return data, buckets, state
 
 
@@ -1696,16 +1864,15 @@ def train_partitioned(
     over the mesh (B1 or G1 on the rank's rows, one all-reduce an
     evaluation; the residual offsets and the solved table rows all-gathered).
     The state is whole on every rank after each sweep, so the returned state
-    needs no gather. Scope: a dense or sparse (hybrid too) primary fixed
-    effect, dense extra fixed effects and dense IDENTITY random effects, no
-    validation (score and evaluate through ``parallel/scoring.py``).
+    needs no gather (with ``fe_feature_sharded`` over a model axis, every
+    rank returns its FE block, as ``train_distributed`` does). Scope: a
+    dense or sparse (hybrid too) primary fixed effect, dense extra fixed
+    effects and dense IDENTITY random effects, no validation (score and
+    evaluate through ``parallel/scoring.py``).
 
-    ``fe_feature_sharded`` (the model axis, ROADMAP.md item 15),
     ``checkpointer``, ``checkpoint_every``, ``resume`` and ``resume_step``
-    (item 16) and ``schedulers`` (item 18) raise ``NotImplementedError``
-    before any data is touched."""
-    if fe_feature_sharded:
-        raise _not_ported("train_partitioned(fe_feature_sharded=True)", _MODEL_AXIS_ITEM)
+    (ROADMAP.md item 16) and ``schedulers`` (item 18) raise
+    ``NotImplementedError`` before any data is touched."""
     if checkpointer is not None or resume is not True or resume_step is not None \
             or checkpoint_every != 1:
         raise _not_ported("checkpoints and resume of train_partitioned (checkpointer, "
@@ -1717,7 +1884,8 @@ def train_partitioned(
         raise ValueError("train_partitioned needs the program built with the same mesh: "
                          "GameTrainProgram(..., mesh=mesh)")
     data, buckets, st = prepare_partitioned_inputs(program, parts, mesh, num_ranks, state=state,
-                                                   exchange=exchange)
+                                                   exchange=exchange,
+                                                   fe_feature_sharded=fe_feature_sharded)
     losses: list[float] = []
     for sweep in range(num_iterations):
         st, loss = program.step(data, buckets, st)

@@ -12,8 +12,14 @@ Padding contract (the JAX package's): rows appended to make the sample axis
 divide the data axis carry weight 0, entity index -1 and zero features, so
 they contribute nothing.
 
-Only the data axis is ported: ``model > 1`` raises naming ROADMAP.md item
-15. The counts in :data:`counts` (calls and bytes per collective) are what
+Rank r of a ``data x model`` mesh sits at ``(r // model, r % model)``: the
+model index varies fastest, as in the JAX grid's ``reshape(data, model)``.
+The ranks of one data row hold the same sample rows and split a
+feature-sharded fixed effect's columns (``parallel/column_sharded.py``);
+the ranks of one model column hold the same coefficient block. Every
+collective below takes ``axis="data"`` (the default) or ``axis="model"``
+and runs over this rank's group along that axis. The counts in
+:data:`counts` (calls and bytes per collective and axis) are what
 ``chip_smoke.py`` reports per sweep.
 """
 
@@ -29,7 +35,9 @@ from photon_ml_torch.data.batch import LabeledPointBatch
 
 @dataclasses.dataclass
 class CollectiveCounts:
-    """Calls and payload bytes of each collective, since the last reset."""
+    """Calls and payload bytes of each collective, since the last reset, one
+    tally per axis: a data-axis op is keyed by its name (``"all_reduce"``),
+    a model-axis op by ``"model/<name>"``."""
 
     calls: dict = dataclasses.field(default_factory=dict)
     bytes: dict = dataclasses.field(default_factory=dict)
@@ -38,12 +46,21 @@ class CollectiveCounts:
         self.calls.clear()
         self.bytes.clear()
 
-    def record(self, op: str, nbytes: int) -> None:
-        self.calls[op] = self.calls.get(op, 0) + 1
-        self.bytes[op] = self.bytes.get(op, 0) + int(nbytes)
+    def record(self, op: str, nbytes: int, axis: str = "data") -> None:
+        key = op if axis == "data" else f"{axis}/{op}"
+        self.calls[key] = self.calls.get(key, 0) + 1
+        self.bytes[key] = self.bytes.get(key, 0) + int(nbytes)
 
     def snapshot(self) -> dict:
         return {op: {"calls": self.calls[op], "bytes": self.bytes[op]} for op in sorted(self.calls)}
+
+    def by_axis(self) -> dict:
+        """``{axis: {op: {"calls", "bytes"}}}`` of :meth:`snapshot`."""
+        out: dict = {}
+        for key, v in self.snapshot().items():
+            axis, _, op = key.rpartition("/")
+            out.setdefault(axis or "data", {})[op] = v
+        return out
 
 
 #: the collectives issued by this process (payload bytes of this rank's input)
@@ -52,16 +69,15 @@ counts = CollectiveCounts()
 
 def make_mesh(data: int | None = None, model: int = 1):
     """A ("data", "model") DeviceMesh over the initialized group's ranks
-    (``multihost.initialize``); all ranks on "data" by default."""
+    (``multihost.initialize``); all ranks on "data" by default. Rank r sits
+    at ``(r // model, r % model)``."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    from photon_ml_torch.parallel.multihost import ITEM_15, process_info
+    from photon_ml_torch.parallel.multihost import process_info
 
-    if model != 1:
-        raise NotImplementedError(
-            f"a mesh with model={model} (the model axis: feature-sharded fixed effects, "
-            f"parallel/column_sharded.py) is not ported yet: ROADMAP.md item {ITEM_15}")
     info = process_info()
+    if model < 1:
+        raise ValueError(f"the model axis must be at least 1, got {model}")
     if data is None:
         data = info.world_size // model
     if data * model != info.world_size:
@@ -71,18 +87,11 @@ def make_mesh(data: int | None = None, model: int = 1):
 
 
 def check_data_mesh(mesh) -> None:
-    """Refuse a mesh the port cannot run: dims other than ("data",
-    "model"), or a model axis wider than 1 (ROADMAP.md item 15)."""
-    from photon_ml_torch.parallel.multihost import ITEM_15
-
+    """Refuse anything but a DeviceMesh with dims ("data", "model")."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
     if names != ("data", "model"):
         raise ValueError(f"a mesh is a DeviceMesh with dims ('data', 'model') "
                          f"(parallel/mesh.make_mesh), got {mesh!r}")
-    if mesh.size(1) != 1:
-        raise NotImplementedError(
-            f"a mesh with model={mesh.size(1)} (the model axis) is not ported yet: "
-            f"ROADMAP.md item {ITEM_15}")
 
 
 def data_rank(mesh) -> int:
@@ -93,34 +102,45 @@ def data_size(mesh) -> int:
     return mesh.size(0)
 
 
-def _group(mesh):
-    return mesh.get_group("data")
+def model_rank(mesh) -> int:
+    return mesh.get_local_rank("model")
 
 
-def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The elementwise sum of ``t`` over the data axis (a new tensor; every
-    rank receives the same bits)."""
+def model_size(mesh) -> int:
+    return mesh.size(1)
+
+
+def _group(mesh, axis: str = "data"):
+    if axis not in ("data", "model"):
+        raise ValueError(f"axis must be 'data' or 'model', got {axis!r}")
+    return mesh.get_group(axis)
+
+
+def all_reduce_sum(t: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
+    """The elementwise sum of ``t`` over the mesh axis ``axis`` (a new
+    tensor; every rank of the axis group receives the same bits)."""
     out = t.contiguous().clone()
-    counts.record("all_reduce", out.numel() * out.element_size())
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(mesh))
+    counts.record("all_reduce", out.numel() * out.element_size(), axis)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(mesh, axis))
     return out
 
 
-def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's equal-shaped ``t`` concatenated along axis 0, in rank
-    order."""
+def all_gather_rows(t: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
+    """Every rank's equal-shaped ``t`` along ``axis`` concatenated along
+    dimension 0, in rank order."""
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(data_size(mesh))]
-    counts.record("all_gather", t.numel() * t.element_size())
-    dist.all_gather(parts, t, group=_group(mesh))
+    parts = [torch.empty_like(t) for _ in range(mesh.size(0 if axis == "data" else 1))]
+    counts.record("all_gather", t.numel() * t.element_size(), axis)
+    dist.all_gather(parts, t, group=_group(mesh, axis))
     return torch.cat(parts)
 
 
-def broadcast(t: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
-    """Data rank ``src``'s ``t`` on every rank (a new tensor)."""
+def broadcast(t: torch.Tensor, mesh, src: int = 0, axis: str = "data") -> torch.Tensor:
+    """Rank ``src``'s ``t`` along ``axis`` on every rank of the axis group
+    (a new tensor)."""
     out = t.contiguous().clone()
-    counts.record("broadcast", out.numel() * out.element_size())
-    group = _group(mesh)
+    counts.record("broadcast", out.numel() * out.element_size(), axis)
+    group = _group(mesh, axis)
     dist.broadcast(out, src=dist.get_global_rank(group, src), group=group)
     return out
 
@@ -159,17 +179,19 @@ def replicate(tree, mesh):
 def shard_batch(batch: LabeledPointBatch, mesh, *,
                 feature_sharded: bool = False) -> LabeledPointBatch:
     """This rank's rows of ``batch``, padded first with zero-weight rows to
-    a multiple of the data axis."""
-    if feature_sharded:
-        from photon_ml_torch.parallel.multihost import ITEM_15
-
-        raise NotImplementedError("shard_batch(feature_sharded=True) (the model axis) is not "
-                                  f"ported yet: ROADMAP.md item {ITEM_15}")
+    a multiple of the data axis; with ``feature_sharded`` its ``[n/D, d/M]``
+    block, the feature axis padded with zero columns to a multiple of the
+    model axis (the JAX package's ``P("data", "model")``)."""
     check_data_mesh(mesh)
     n = batch.num_samples
     batch = batch.pad_to(n + (-n) % data_size(mesh))
     rows = row_block(batch.num_samples, mesh)
-    return LabeledPointBatch(features=batch.features[rows].contiguous(),
+    features = batch.features[rows]
+    if feature_sharded:
+        from photon_ml_torch.parallel.column_sharded import fe_columns_of, feature_block
+
+        features = feature_block(features, fe_columns_of(int(features.shape[1]), mesh))
+    return LabeledPointBatch(features=features.contiguous(),
                              labels=batch.labels[rows], offsets=batch.offsets[rows],
                              weights=batch.weights[rows])
 

@@ -16,15 +16,16 @@ ranks started by the caller) and every collective is an explicit
   no single-process fallback.
 - NCCL is the backend for CUDA ranks; gloo serves ``device="cpu"`` or an
   explicit ``backend="gloo"`` (two ranks on one card, which NCCL refuses).
-- :func:`make_hybrid_mesh` builds the mesh; ``model > 1`` (the model axis)
-  is not ported: ROADMAP.md item 15.
+- :func:`make_hybrid_mesh` builds the ("data", "model") mesh.
 - The metadata exchanges carry small host payloads between ranks before any
   device work (partitioned I/O's feature keys, vocabularies, row counts and
   layout histograms): :class:`InProcessExchange` (virtual ranks on threads)
   and :class:`DistributedKVExchange` (the key-value store of the process
   group, which :func:`initialize` builds and keeps). A missed deadline raises
   ``TimeoutError`` naming the key and the rank that should have published
-  it. Fencing, abort markers and retries are item 16's.
+  it. :class:`DataAxisExchange` narrows an exchange to the mesh's data
+  axis (a partitioned read over a mesh with a model axis). Fencing, abort
+  markers and retries are item 16's.
 
 The JAX package's ``default_put``/``global_put`` have no counterpart: the
 port places no global arrays. Its ``put_fn`` hook is "(tensor, rows) -> this
@@ -49,9 +50,6 @@ import torch.distributed as dist
 from photon_ml_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
-
-#: the ROADMAP item of the model axis
-ITEM_15 = 15
 
 #: default deadline of the group's collectives and its rendezvous
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
@@ -200,8 +198,10 @@ def shutdown() -> None:
 
 def make_hybrid_mesh(data: int | None = None, model: int = 1):
     """The ("data", "model") mesh over the group's ranks. The JAX package
-    lays the model axis inside a slice; the port's mesh is data-parallel
-    only, so ``model > 1`` raises naming ROADMAP.md item 15."""
+    lays the model axis inside a slice (ICI) and the data axis across
+    slices; here the model index varies fastest over the ranks, so a
+    launcher that numbers a host's ranks together (``torchrun``) keeps each
+    model group inside a host."""
     from photon_ml_torch.parallel.mesh import make_mesh
 
     return make_mesh(data=data, model=model)
@@ -222,6 +222,29 @@ class MetadataExchange:
     def barrier(self, tag: str) -> None:
         """Block until every rank reaches this barrier."""
         raise NotImplementedError
+
+
+class DataAxisExchange(MetadataExchange):
+    """``base`` seen along a mesh's data axis: ``rank``/``num_ranks`` are the
+    data rank and the data axis, and :meth:`allgather` returns one payload
+    per data rank (that of its model rank 0). Every process of the group
+    still makes every call, so the ranks of one data row (which read the
+    same block of a partitioned input) stay in step, and no row of the input
+    is counted more than once."""
+
+    def __init__(self, base: MetadataExchange, mesh):
+        from photon_ml_torch.parallel.mesh import data_rank, data_size, model_size
+
+        self.base = base
+        self.rank = data_rank(mesh)
+        self.num_ranks = data_size(mesh)
+        self._stride = model_size(mesh)
+
+    def allgather(self, tag: str, payload) -> list:
+        return self.base.allgather(tag, payload)[::self._stride]
+
+    def barrier(self, tag: str) -> None:
+        self.base.barrier(tag)
 
 
 class SingleProcessExchange(MetadataExchange):

@@ -12,8 +12,14 @@ tables entity-sharded and rotates them around the ring, which the port's
 data axis does not need.
 
 ``score_partitioned`` scores a partitioned read's blocks (partitioned I/O):
-each rank its own block, with no gather. ``fe_feature_sharded`` (the model
-axis) is not ported: ROADMAP.md item 15.
+each rank its own block, with no gather.
+
+``fe_feature_sharded`` (True, or a fixed-effect coordinate id) lays that
+coordinate's feature axis over the mesh's "model" axis, padded with zero
+columns to a multiple of it (the training estimator's ``fe_pad``): each
+rank keeps a dense ``[n/D, d/M]`` block or a sparse column block of its
+rows, scores it against its ``d/M`` coefficients, and the partial scores
+are all-reduced over "model" (``parallel/column_sharded.block_scores``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,6 @@ from photon_ml_torch.data.sparse_batch import SparseShard
 from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_torch.parallel import mesh as mesh_ops
-from photon_ml_torch.parallel.multihost import ITEM_15
 
 
 def params_layout_fingerprint(model: GameModel) -> dict:
@@ -88,18 +93,36 @@ def _model_kinds(model: GameModel) -> dict[str, str]:
 
 
 class DistributedScorer:
-    """Scores a GameModel over a data-axis mesh (or on one device with
-    ``mesh=None``)."""
+    """Scores a GameModel over a ("data", "model") mesh (or on one device
+    with ``mesh=None``).
+
+    fe_feature_sharded: shard the named FE coordinate's feature axis (and
+    its coefficient vector) over the mesh's "model" axis: True picks the
+    single FE coordinate (an error if there are several), or pass the
+    coordinate id."""
 
     def __init__(self, model: GameModel, mesh=None, *, fe_feature_sharded: "bool | str" = False):
-        if fe_feature_sharded:
-            raise NotImplementedError("DistributedScorer(fe_feature_sharded=...) (the model "
-                                      f"axis) is not ported yet: ROADMAP.md item {ITEM_15}")
         if mesh is not None:
             mesh_ops.check_data_mesh(mesh)
         self.model = model
         self.mesh = mesh
         self._kinds = _model_kinds(model)
+        fe_cids = [c for c, k in self._kinds.items() if k == "fe"]
+        if fe_feature_sharded is True:
+            if len(fe_cids) != 1:
+                raise ValueError(
+                    "fe_feature_sharded=True needs exactly one fixed-effect coordinate to "
+                    f"pick; model has {fe_cids}. Pass the coordinate id instead.")
+            self.fe_sharded_cid: str | None = fe_cids[0]
+        elif fe_feature_sharded:
+            if self._kinds.get(fe_feature_sharded) != "fe":
+                raise ValueError(f"fe_feature_sharded={fe_feature_sharded!r} is not a "
+                                 f"fixed-effect coordinate of the model ({fe_cids})")
+            self.fe_sharded_cid = str(fe_feature_sharded)
+        else:
+            self.fe_sharded_cid = None
+        if self.fe_sharded_cid is not None and mesh is None:
+            raise ValueError("fe_feature_sharded requires a mesh")
         #: layout signature -> the sub-models that score it
         self._params_cache: dict = {}
 
@@ -119,7 +142,39 @@ class DistributedScorer:
             layout = MeshLayout(mesh=self.mesh, rows=rows, num_rows=dataset.num_samples)
             dataset = game_dataset_rows(dataset, rows)
         data = {"dataset": dataset, "mesh": layout}
+        self._attach_feature_block(data)
         return data, self.params_for_layouts(self._layouts(dataset)), n_true
+
+    def _sharded(self) -> bool:
+        """Whether a coordinate scores over the model axis (a model axis of
+        1 holds one column block: the plain path)."""
+        return self.fe_sharded_cid is not None and mesh_ops.model_size(self.mesh) > 1
+
+    def _attach_feature_block(self, data: dict) -> None:
+        """The sharded coordinate's column block of the rank's rows and its
+        ``d/M`` coefficients (``data["fe_block"]``)."""
+        if not self._sharded():
+            return
+        from photon_ml_torch.parallel.column_sharded import (
+            build_column_sharded_batch,
+            feature_block,
+            fe_columns_of,
+            split_fe,
+        )
+
+        m = self.model.models[self.fe_sharded_cid]
+        dataset = data["dataset"]
+        means = m.glm.coefficients.means
+        columns = fe_columns_of(int(means.shape[0]), self.mesh)
+        feats = dataset.shard_features(m.feature_shard_id)
+        if isinstance(feats, SparseShard):
+            zeros = np.zeros(dataset.num_samples)
+            block = build_column_sharded_batch(
+                feats, zeros, mesh_ops.model_size(self.mesh), offsets=zeros, weights=zeros,
+                hybrid=False, only_block=mesh_ops.model_rank(self.mesh), device=means.device)
+        else:
+            block = feature_block(feats, columns)
+        data["fe_block"] = (self.fe_sharded_cid, block, split_fe(means, columns))
 
     def _layouts(self, dataset: GameDataset) -> dict[str, str]:
         """Each coordinate's layout over this dataset: "dense"/"sparse" FE,
@@ -164,9 +219,15 @@ class DistributedScorer:
     def _score_prepared(self, data, params) -> torch.Tensor:
         """This rank's scores, offsets included."""
         dataset = data["dataset"]
+        block = data.get("fe_block")
         total = None
-        for m in params.values():
-            s = m.score_dataset(dataset)
+        for cid, m in params.items():
+            if block is not None and cid == block[0]:
+                from photon_ml_torch.parallel.column_sharded import block_scores
+
+                s = block_scores(block[2], block[1], self.mesh)
+            else:
+                s = m.score_dataset(dataset)
             total = s if total is None else total + s
         if total is None:
             raise ValueError("GameModel has no sub-models")
@@ -279,6 +340,7 @@ class DistributedScorer:
         rows = slice(partition.base_row, partition.base_row + partition.block_rows)
         data = {"dataset": dataset, "mesh": MeshLayout(mesh=self.mesh, rows=rows,
                                                        num_rows=partition.global_rows)}
+        self._attach_feature_block(data)
         scores = self._score_prepared(data, self.params_for_layouts(layouts))
         return {rank: self._extract_rank_rows(scores, partition, rank)}
 

@@ -5,8 +5,9 @@ transformers/GameTransformer.scala:156-298 — score a GAME dataset with a
 GameModel (sum of sub-model scores) plus the dataset's offsets, then run the
 evaluators on the host. ``mesh=`` scores each rank's rows through
 ``parallel/scoring.DistributedScorer`` and gathers them; every rank of the
-mesh calls ``transform`` with the same dataset. ``fe_feature_sharded`` (the
-model axis) is not ported: ROADMAP.md item 15.
+mesh calls ``transform`` with the same dataset. ``fe_feature_sharded`` lays
+the fixed effect's feature axis over the mesh's "model" axis (True, or the
+coordinate id; it requires a mesh).
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ class ScoredDataset:
 class GameTransformer:
     model: GameModel
     evaluator_specs: Sequence[str] = ()
-    #: a data-axis DeviceMesh (``parallel/mesh.make_mesh``): score through
-    #: DistributedScorer instead of the one-device path
+    #: a ("data", "model") DeviceMesh (``parallel/mesh.make_mesh``): score
+    #: through DistributedScorer instead of the one-device path
     mesh: object | None = None
+    #: the fixed effect whose feature axis shards over "model" (True: the
+    #: only one)
     fe_feature_sharded: "bool | str" = False
     #: the DistributedScorer, built on first use and kept across transforms;
     #: ``dataclasses.replace`` builds a new one

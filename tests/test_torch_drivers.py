@@ -261,11 +261,12 @@ def test_glm_driver_box_constraints(tmp_path):
 
 
 GAME_LEFT_OUT = [
-    # the mesh is ported: a one-process --distributed run makes a group of
-    # one and fails on the missing input; --mesh data=8 in a group of one is
-    # refused as a shape error; the model axis waits with item 15
+    # the mesh is ported, its model axis too: a one-process --distributed
+    # run makes a group of one and fails on the missing input, as does a 1x1
+    # mesh; --mesh data=8 or model=2 in a group of one is refused as a shape
+    # error (tests/test_torch_model_axis_io.py runs the model axis)
     (["--distributed"], None), (["--mesh", "data=8,model=1"], ValueError),
-    (["--mesh", "data=1,model=2"], "item 15"),
+    (["--mesh", "data=1,model=2"], ValueError), (["--mesh", "data=1,model=1"], None),
     # partitioned I/O is ported: it needs --distributed (or --mesh), and
     # with it gets past every refusal; a checkpoint directory still waits
     (["--partitioned-io"], ValueError), (["--partitioned-io", "--distributed"], None),
@@ -328,7 +329,8 @@ def test_glm_driver_refuses_what_is_not_ported(tmp_path, extra, item):
     _raises_for(item, lambda: tglm.main(args, device="cpu"))
 
 
-SCORING_LEFT_OUT = [(["--distributed"], None), (["--mesh", "model=2"], "item 15"),
+SCORING_LEFT_OUT = [(["--distributed"], None), (["--mesh", "model=2"], ValueError),
+                    (["--mesh", "data=1,model=1"], None),
                     (["--partitioned-io"], ValueError),
                     (["--partitioned-io", "--distributed"], None),
                     (["--telemetry-dir", "t"], "item 19"), (["--trace-dir", "t"], "item 19"),

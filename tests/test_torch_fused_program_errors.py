@@ -171,20 +171,24 @@ class _Untouchable:
 
 
 class _ModelAxisMesh:
-    """A ("data", "model") mesh with a model axis of 2: the model axis is
-    not ported (ROADMAP.md item 15)."""
+    """A ("data", "model") mesh shape with a model axis of 2 (no group: the
+    checks below come before any collective)."""
 
     mesh_dim_names = ("data", "model")
 
     def size(self, dim=None):
         return 2
 
+    def get_local_rank(self, name):
+        return 0
 
-# the data-axis mesh and put_fn are ported (tests/test_torch_mesh_*.py): a
-# model-axis mesh and fe_feature_sharded wait with item 15, and put_fn
-# without a mesh is refused as a usage error
-REFUSALS = [({"mesh": _ModelAxisMesh()}, "item 15"), ({"fe_feature_sharded": True}, "item 15"),
-            ({"put_fn": lambda a, s: a}, ValueError),
+
+# a model-axis mesh the program was not built for, fe_feature_sharded that
+# the program was not built with, and put_fn without a mesh are usage
+# errors; checkpoints and the lane scheduler wait with items 16 and 18
+REFUSALS = [({"mesh": _ModelAxisMesh()}, "the same mesh"),
+            ({"mesh": _ModelAxisMesh(), "fe_feature_sharded": True}, "the same mesh and flag"),
+            ({"put_fn": lambda a, s: a}, "put_fn"),
             ({"checkpointer": object()}, "item 16"), ("scheduler", "item 18")]
 
 
@@ -201,20 +205,26 @@ def test_refusals_come_before_any_data(option, item):
     prog = tdist.GameTrainProgram(
         TTask.LOGISTIC_REGRESSION, tdist.FixedEffectStepSpec("global", opt),
         (tdist.RandomEffectStepSpec("user", "per_entity", opt),))
-    if isinstance(item, type):
-        with pytest.raises(item, match="put_fn"):
+    if not item.startswith("item"):
+        with pytest.raises(ValueError, match=item):
             tdist.train_distributed(prog, _Untouchable(), _Untouchable(), **kw)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tdist.train_distributed(prog, _Untouchable(), _Untouchable(), **kw)
 
 
-@pytest.mark.parametrize("option", [{"mesh": _ModelAxisMesh()}, {"fe_feature_sharded": True}])
-def test_program_over_a_mesh_is_refused(option):
+@pytest.mark.parametrize("option,model_axis", [
+    ({"mesh": _ModelAxisMesh()}, False), ({"fe_feature_sharded": True}, False),
+    ({"mesh": _ModelAxisMesh(), "fe_feature_sharded": True}, True)])
+def test_program_over_a_model_axis_mesh_builds(option, model_axis):
+    """A program over a mesh with a model axis builds; it lays the fixed
+    effect over that axis only with fe_feature_sharded (without a mesh the
+    flag leaves one column block)."""
     opt = optimizer_pair("LBFGS", 3)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15"):
-        tdist.GameTrainProgram(TTask.LOGISTIC_REGRESSION,
-                               tdist.FixedEffectStepSpec("global", opt), **option)
+    prog = tdist.GameTrainProgram(TTask.LOGISTIC_REGRESSION,
+                                  tdist.FixedEffectStepSpec("global", opt), **option)
+    assert prog._model_axis is model_axis
+    assert prog.fe_feature_sharded is bool(option.get("fe_feature_sharded"))
 
 
 def test_non_finite_loss_raises_divergence(small):

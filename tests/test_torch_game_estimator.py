@@ -197,15 +197,6 @@ def _re_config(**kw):
     return test_.RandomEffectCoordinateConfig("user", "per_entity", opt, **kw)
 
 
-class _ModelAxisMesh:
-    """A ("data", "model") mesh with a model axis of 2 (ROADMAP.md item 15)."""
-
-    mesh_dim_names = ("data", "model")
-
-    def size(self, dim=None):
-        return 2
-
-
 def _lbfgs(**kw):
     return CoordinateOptimizationConfig(
         optimizer=OptimizerConfig(OptimizerType.LBFGS, max_iterations=3, **kw), l2_weight=1.0)
@@ -213,11 +204,7 @@ def _lbfgs(**kw):
 
 @pytest.mark.parametrize("config,options,item", [
     (_re_config(optimization=_lbfgs(scheduler=LaneSchedulerConfig())), {}, 18),
-    # MF trains on one device and over a data-axis mesh; a model-axis mesh
-    # waits with item 15
-    (test_.MatrixFactorizationCoordinateConfig("user", "item", 4, _lbfgs()),
-     {"mesh": _ModelAxisMesh()}, 15),
-], ids=["lane-scheduler", "matrix-factorization"])
+], ids=["lane-scheduler"])
 def test_coordinates_outside_the_slice_raise(config, options, item):
     _, td = datasets(game_arrays(3, n=200))
     est = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION,
@@ -227,13 +214,27 @@ def test_coordinates_outside_the_slice_raise(config, options, item):
         est.fit(td)
 
 
-@pytest.mark.parametrize("field,item", [("mesh", 15), ("checkpointer", 16), ("telemetry", 19)])
+@pytest.mark.parametrize("field,item", [("checkpointer", 16), ("telemetry", 19)])
 def test_estimator_options_outside_the_slice_raise(field, item):
     _, td = datasets(game_arrays(4, n=200))
     _, te = estimator_pair(lanes="NEWTON", num_iterations=1)
-    te = dataclasses.replace(te, **{field: _ModelAxisMesh() if field == "mesh" else object()})
+    te = dataclasses.replace(te, **{field: object()})
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         te.fit(td)
+
+
+@pytest.mark.parametrize("other", ["random-effect", "matrix-factorization"])
+def test_feature_sharded_fit_needs_a_mesh(other):
+    """fe_feature_sharded lays the fixed effect over a mesh's model axis
+    (tests/test_torch_model_axis.py fits it over 1x2 and 2x2 meshes):
+    without a mesh it is refused before any data is read."""
+    config = (_re_config() if other == "random-effect"
+              else test_.MatrixFactorizationCoordinateConfig("user", "item", 4, _lbfgs()))
+    est = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION, fe_feature_sharded=True,
+                              coordinate_configs={"fixed": test_.FixedEffectCoordinateConfig(
+                                  "global", _lbfgs()), "other": config})
+    with pytest.raises(ValueError, match="^fe_feature_sharded requires a mesh"):
+        est.fit(None)
 
 
 def test_sparse_random_effect_shard_raises():

@@ -5,8 +5,8 @@ Padded bucket lanes carry out-of-range entity rows: with non-zero values
 planted in them they still write no table row, in the random-effect, the
 INDEX_MAP and the MF solves and in the table exchange. Padded rows carry
 weight 0 and query code Q: planted with large scores they move no metric.
-What is not ported (the model axis) refuses naming ROADMAP item 15 before
-any data is read.
+The model axis's entry points in a group of one train, lay out or refuse as
+the JAX package's do.
 """
 
 import dataclasses
@@ -23,6 +23,7 @@ from photon_ml_torch.algorithm.coordinates import (
 )
 from photon_ml_torch.algorithm.mf_coordinate import build_mf_dataset, solve_mf_side_bucket
 from photon_ml_torch.data import game_data as tgd
+from photon_ml_torch.data.batch import LabeledPointBatch as TBatch
 from photon_ml_torch.evaluation import evaluators as tev
 from photon_ml_torch.evaluation import sharded as tsh
 from photon_ml_torch.models.game import GameModel
@@ -242,33 +243,51 @@ def _model():
 @pytest.mark.parametrize("what", ["make_mesh(model=2)", "hybrid mesh model=2", "program",
                                   "train_distributed", "shard_batch", "scorer", "transformer",
                                   "score_partitioned", "estimator"])
-def test_what_is_not_ported_names_item_15(what):
-    """The model axis refuses naming ROADMAP item 15; score_partitioned is
-    ported and, without a mesh, raises the JAX package's ValueError."""
+def test_model_axis_entry_points_in_a_group_of_one(what, group_of_one):
+    """The model axis's entry points in a group of one: a model axis wider
+    than the group is a shape error; the program and train_distributed with
+    ``fe_feature_sharded`` and no model axis train as without it (one column
+    block); shard_batch's feature block of a 1x1 mesh is the whole batch;
+    the scorer, the transformer and the estimator raise the JAX package's
+    ValueError without a mesh, as score_partitioned does."""
     from photon_ml_torch import estimators as test_
 
     model, ds = _model()
     fe = tdist.FixedEffectStepSpec("global", OPT)
+    if what in ("make_mesh(model=2)", "hybrid mesh model=2"):
+        build = M.make_mesh if what.startswith("make_mesh") else multihost.make_hybrid_mesh
+        with pytest.raises(ValueError, match="needs 2 ranks, the group has 1"):
+            build(data=1, model=2)
+        mesh = build(data=1, model=1)
+        assert (M.data_size(mesh), M.model_size(mesh), M.model_rank(mesh)) == (1, 1, 0)
+        return
+    if what in ("program", "train_distributed"):
+        plain = tdist.train_distributed(tdist.GameTrainProgram(TaskType.LOGISTIC_REGRESSION, fe),
+                                        ds, {}, num_iterations=1)
+        prog = tdist.GameTrainProgram(TaskType.LOGISTIC_REGRESSION, fe,
+                                      fe_feature_sharded=what == "program")
+        got = tdist.train_distributed(prog, ds, {}, num_iterations=1, fe_feature_sharded=True)
+        assert got.losses == plain.losses and got.state.fe_columns is None
+        assert torch.equal(got.state.fe_coefficients, plain.state.fe_coefficients)
+        return
+    if what == "shard_batch":
+        x = torch.as_tensor(np.arange(12.0).reshape(4, 3))
+        batch = TBatch(features=x, labels=torch.zeros(4), offsets=torch.zeros(4),
+                       weights=torch.ones(4))
+        local = M.shard_batch(batch, group_of_one, feature_sharded=True)
+        assert torch.equal(local.features, x)
+        return
     calls = {
-        "make_mesh(model=2)": lambda: M.make_mesh(data=1, model=2),
-        "hybrid mesh model=2": lambda: multihost.make_hybrid_mesh(model=2),
-        "program": lambda: tdist.GameTrainProgram(TaskType.LOGISTIC_REGRESSION, fe,
-                                                  fe_feature_sharded=True),
-        "train_distributed": lambda: tdist.train_distributed(
-            tdist.GameTrainProgram(TaskType.LOGISTIC_REGRESSION, fe), None, None,
-            fe_feature_sharded=True),
-        "shard_batch": lambda: M.shard_batch(None, None, feature_sharded=True),
         "scorer": lambda: DistributedScorer(model, None, fe_feature_sharded=True),
         "transformer": lambda: GameTransformer(model, fe_feature_sharded=True).transform(ds),
         "score_partitioned": lambda: DistributedScorer(model).score_partitioned({}, None),
         "estimator": lambda: test_.GameEstimator(TaskType.LOGISTIC_REGRESSION, {},
                                                  fe_feature_sharded=True).fit(None),
     }
-    if what == "score_partitioned":
-        with pytest.raises(ValueError, match="^score_partitioned requires a mesh$"):
-            calls[what]()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15"):
+    message = {"score_partitioned": "^score_partitioned requires a mesh$",
+               "estimator": "^fe_feature_sharded requires a mesh"}.get(
+        what, "^fe_feature_sharded requires a mesh$")
+    with pytest.raises(ValueError, match=message):
         calls[what]()
 
 

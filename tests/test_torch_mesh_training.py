@@ -104,7 +104,7 @@ def runs(tmp_path_factory):
     trains = _train_tasks()
     objectives = _objective_tasks()
     groups = {2: {**trains, **{f"objective_{k}": v for k, v in objectives.items()},
-                  "evaluators": _evaluator_task(), "refusals": dict(kind="refusals")},
+                  "evaluators": _evaluator_task(), "mesh_axes": dict(kind="mesh_axes")},
               4: {"dense_all": trains["dense_all"], "objective_f64": objectives["f64"],
                   "evaluators": _evaluator_task()}}
     out = {}
@@ -259,12 +259,18 @@ def test_distributed_scorer_matches_the_jax_scorer(runs, world):
         assert got["evaluate"][spec] == pytest.approx(got["transform"][spec], rel=1e-10)
 
 
-def test_refusals_name_item_15_in_a_group(runs):
-    """In a group of 2: a model axis refuses naming ROADMAP.md item 15 (the
-    multi-rank metadata exchange is ported with partitioned I/O)."""
-    for r in runs["results"][2]["refusals"]:
-        for name, message in r.items():
-            assert "ROADMAP.md item 15" in message, (name, message)
+def test_model_axis_mesh_in_a_group(runs):
+    """In a group of 2, make_mesh and make_hybrid_mesh build a 1x2 mesh:
+    rank r sits at (0, r); a model-axis all-reduce sums both ranks, a
+    data-axis one only the rank itself; each rank's feature block of 7
+    columns is ceil(7/2) wide, the last one padded."""
+    got = runs["results"][2]["mesh_axes"]
+    for r, ranks in enumerate(got):
+        for name, v in ranks.items():
+            assert v["place"] == [0, r, 1, 2] or v["place"] == (0, r, 1, 2), (name, v)
+            assert v["model_sum"] == 3.0 and v["data_sum"] == r + 1.0
+            assert v["model_gather"] == [1.0, 2.0]
+            assert tuple(v["columns"]) == (4 * r, 4, 7)
 
 
 def test_ranks_in_a_group_hold_one_model(runs):

@@ -14,6 +14,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from photon_ml_tpu import estimators as jest
 from photon_ml_tpu.algorithm.coordinates import CoordinateOptimizationConfig as JCoordOpt
@@ -235,7 +236,7 @@ def test_partitioned_guards_match_the_jax_package():
         assert messages[0] == messages[1]
 
 
-REFUSALS = [("fe_feature_sharded", True, "item 15"), ("checkpointer", object(), "item 16"),
+REFUSALS = [("checkpointer", object(), "item 16"),
             ("resume", False, "item 16"), ("resume_step", 3, "item 16"),
             ("checkpoint_every", 2, "item 16"), ("schedulers", {"userId": object()}, "item 18")]
 
@@ -247,6 +248,24 @@ def test_train_partitioned_refuses_before_any_data(group_of_one, option, value, 
     prog = W.build_program(PP.program(), group_of_one)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tdist.train_partitioned(prog, None, group_of_one, 1, **{option: value})
+
+
+def test_train_partitioned_with_one_column_block(tmp_path, group_of_one):
+    """fe_feature_sharded over a model axis of 1 is one column block: the
+    partitioned program trains as without it (tests/test_torch_model_axis_io.py
+    runs a model axis of 2); a program built without the flag refuses inputs
+    laid out with it over a model axis only."""
+    path = PP.write_input(tmp_path / "in", num_files=2)
+    parts, ex = PP.tread_ranks(path, PP.CONFIGS["dense"], 1)
+    ds = parts[0].result.dataset
+    runs = []
+    for flag in (False, True):
+        prog = W.build_program(PP.program(res=False), group_of_one, flag)
+        runs.append(tdist.train_partitioned(prog, {0: (ds, {})}, group_of_one, 1,
+                                            num_iterations=1, exchange=ex[0],
+                                            fe_feature_sharded=flag))
+    assert runs[0].losses == runs[1].losses and runs[1].state.fe_columns is None
+    assert torch.equal(runs[0].state.fe_coefficients, runs[1].state.fe_coefficients)
 
 
 def test_prepare_partitioned_inputs_takes_this_ranks_block_only(tmp_path, group_of_one):

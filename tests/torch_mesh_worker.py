@@ -96,12 +96,15 @@ def _opt(spec):
 
 
 def _shards(shards: dict) -> dict:
-    from photon_ml_torch.data.sparse_batch import SparseShard
+    from photon_ml_torch.data.sparse_batch import HybridPolicy, SparseShard
 
     out = {}
     for k, v in shards.items():
-        if isinstance(v, dict):  # COO
-            out[k] = SparseShard(**v)
+        if isinstance(v, dict):  # COO, with an optional HybridPolicy spec
+            v = dict(v)
+            hybrid = v.pop("hybrid", None)
+            out[k] = SparseShard(**v, hybrid_policy=None if hybrid is None
+                                 else HybridPolicy(**hybrid))
         else:
             out[k] = v
     return out
@@ -120,7 +123,7 @@ def build_dataset(a: dict, vocabs=None):
     return tgd.build_game_dataset(**kw)
 
 
-def build_program(p: dict, mesh):
+def build_program(p: dict, mesh, fe_feature_sharded: bool = False):
     from photon_ml_torch.parallel import distributed as tdist
     from photon_ml_torch.projector.projectors import ProjectorType
     from photon_ml_torch.types import TaskType
@@ -137,7 +140,28 @@ def build_program(p: dict, mesh):
                   for e in p.get("extra_fes", ()))
     return tdist.GameTrainProgram(TaskType[p["task"]], fe, res, mf_specs=mfs, extra_fes=extra,
                                   update_order=p.get("update_order"), mesh=mesh,
-                                  use_kernel_fe=p.get("use_kernel_fe"))
+                                  use_kernel_fe=p.get("use_kernel_fe"),
+                                  normalization=_normalization(p.get("normalization")),
+                                  fe_feature_sharded=fe_feature_sharded)
+
+
+def _normalization(spec):
+    """A NormalizationContext from ``{"factors": [...], "shifts": [...]}``."""
+    if not spec:
+        return None
+    from photon_ml_torch import convert
+
+    return convert.normalization_from_numpy(spec.get("factors"), spec.get("shifts"),
+                                            device="cpu")
+
+
+def make_task_mesh(t: dict):
+    """The task's ("data", "model") mesh: ``t["mesh"]`` = (data, model), or
+    every rank on "data"."""
+    from photon_ml_torch.parallel import mesh as M
+
+    data, model = t.get("mesh", (None, 1))
+    return M.make_mesh(data=data, model=model)
 
 
 def build_inputs(p: dict, ds):
@@ -169,15 +193,20 @@ def state_numpy(state) -> dict:
 
 
 def _task_train(t, rank, world, tmp):
-    """train_distributed over a data=world mesh from the task's state."""
+    """train_distributed over the task's mesh (data=world by default) from
+    the task's state; ``fe_feature_sharded`` lays the FE over "model", and
+    the result then also holds the rank's FE block (``block``) and the
+    solver's per-iteration values of every FE solve (``fe_values``)."""
     from photon_ml_torch import convert
     from photon_ml_torch.evaluation import evaluators as tev
+    from photon_ml_torch.optim import optimizer as topt
     from photon_ml_torch.parallel import distributed as tdist
     from photon_ml_torch.parallel import mesh as M
 
-    mesh = M.make_mesh()
+    mesh = make_task_mesh(t)
+    sharded = t.get("fe_feature_sharded", False)
     ds = build_dataset(t["data"])
-    prog = build_program(t["program"], mesh)
+    prog = build_program(t["program"], mesh, sharded)
     re_ds, mf_ds = build_inputs(t["program"], ds)
     state = convert.train_state_from_numpy(t["state"], device="cpu") if t.get("state") \
         else None
@@ -189,30 +218,54 @@ def _task_train(t, rank, world, tmp):
                   validation_eval_data=tev.EvaluationData(
                       labels=val.host_array("labels"), offsets=val.host_array("offsets"),
                       weights=val.host_array("weights"), ids=val.ids))
+    fe_values = []
+    solve = topt.solve
+
+    def recording_solve(config, objective, w0, **skw):
+        result = solve(config, objective, w0, **skw)
+        if objective.batch is not None and getattr(objective.objective, "mesh", None) is mesh \
+                and config is prog.fe.optimizer:
+            fe_values.append({"values": result.value_history.numpy(),
+                              "iterations": result.iterations, "reason": result.reason,
+                              "length": int(w0.shape[0]),
+                              "solution": int(result.coefficients.shape[0])})
+        return result
+
+    tdist.solve = recording_solve
     M.counts.reset()
-    res = tdist.train_distributed(prog, ds, re_ds, mf_datasets=mf_ds or None, mesh=mesh,
-                                  num_iterations=t.get("sweeps", 3), state=state, **kw)
-    out = {"losses": res.losses, "state": state_numpy(res.state),
+    try:
+        res = tdist.train_distributed(prog, ds, re_ds, mf_datasets=mf_ds or None, mesh=mesh,
+                                      num_iterations=t.get("sweeps", 3), state=state,
+                                      fe_feature_sharded=sharded, **kw)
+    finally:
+        tdist.solve = solve
+    out = {"losses": res.losses, "state": state_numpy(prog.whole_state(res.state)),
            "metric_history": res.metric_history, "best_metric": res.best_metric,
-           "collectives": M.counts.snapshot()}
+           "collectives": M.counts.snapshot(), "by_axis": M.counts.by_axis(),
+           "block": state_numpy(res.state) if sharded else None, "fe_values": fe_values}
     if t.get("score"):
         model = tdist.state_to_game_model(prog, res.state, ds, re_datasets=re_ds)
-        out["scores"] = _score_model(model, t, mesh)
+        out["scores"] = _score_model(model, t, mesh, sharded)
+        if sharded:
+            out["warm_block"] = state_numpy(tdist.game_model_to_state(prog, model, ds,
+                                                                      re_datasets=re_ds))
     return out
 
 
-def _score_model(model, t, mesh) -> dict:
+def _score_model(model, t, mesh, fe_feature_sharded: bool = False) -> dict:
     from photon_ml_torch.parallel.scoring import DistributedScorer
     from photon_ml_torch.transformers import GameTransformer
 
     val = build_dataset(t["score"]["data"], vocabs=None)
-    scorer = DistributedScorer(model, mesh)
+    scorer = DistributedScorer(model, mesh, fe_feature_sharded=fe_feature_sharded)
     evs = t["score"]["evaluators"]
     return {
         "mesh": scorer.score_dataset(val),
         "one_device": GameTransformer(model).transform(val).scores,
         "evaluate": scorer.evaluate_dataset(val, evs),
-        "transform": GameTransformer(model, evs, mesh=mesh).transform(val).evaluations,
+        "transform": GameTransformer(model, evs, mesh=mesh,
+                                     fe_feature_sharded=fe_feature_sharded
+                                     ).transform(val).evaluations,
     }
 
 
@@ -271,10 +324,10 @@ def _task_estimator(t, rank, world, tmp):
     """GameEstimator(mesh=...).fit, its models as numpy."""
     from photon_ml_torch import estimators as test_
     from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
-    from photon_ml_torch.parallel import mesh as M
+    from photon_ml_torch.ops.normalization import NormalizationType
     from photon_ml_torch.types import TaskType
 
-    mesh = M.make_mesh()
+    mesh = make_task_mesh(t)
     ds = build_dataset(t["data"])
     val = build_dataset(t["validation"], vocabs=ds.entity_vocabs) if t.get("validation") \
         else None
@@ -297,7 +350,10 @@ def _task_estimator(t, rank, world, tmp):
         initial = _model_from_numpy(t["initial"], ds)
     est = test_.GameEstimator(TaskType[t["task"]], configs, num_iterations=t["sweeps"],
                               validation_evaluators=tuple(t.get("evaluators", ())),
-                              locked_coordinates=frozenset(t.get("locked", ())), mesh=mesh)
+                              locked_coordinates=frozenset(t.get("locked", ())), mesh=mesh,
+                              fe_feature_sharded=t.get("fe_feature_sharded", False),
+                              normalization=NormalizationType[t.get("normalization", "NONE")],
+                              intercept_indices=t.get("intercepts", {}))
     res = est.fit(ds, validation_dataset=val, initial_model=initial)
     return {"model": _model_numpy(res.model), "best": _model_numpy(res.best_model),
             "best_metric": res.best_metric, "history": res.metric_history}
@@ -363,19 +419,94 @@ def _plain(obj):
     return repr(obj)
 
 
-def _task_refusals(t, rank, world, tmp):
-    """The model axis refuses, naming ROADMAP item 15."""
+def _task_mesh_axes(t, rank, world, tmp):
+    """A 1 x world mesh (make_mesh and make_hybrid_mesh): each rank's place
+    and the collectives along each axis."""
+    import torch
+
     from photon_ml_torch.parallel import mesh as M
     from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.parallel.column_sharded import fe_columns_of
 
     out = {}
-    for name, fn in (("model_axis", lambda: M.make_mesh(model=2)),
-                     ("hybrid_model_axis", lambda: multihost.make_hybrid_mesh(model=world))):
-        try:
-            fn()
-            out[name] = "no error"
-        except NotImplementedError as e:
-            out[name] = str(e)
+    for name, build in (("make_mesh", M.make_mesh), ("hybrid", multihost.make_hybrid_mesh)):
+        mesh = build(data=1, model=world)
+        x = torch.tensor([float(rank + 1)], dtype=torch.float64)
+        out[name] = {
+            "place": (M.data_rank(mesh), M.model_rank(mesh), M.data_size(mesh),
+                      M.model_size(mesh)),
+            "model_sum": float(M.all_reduce_sum(x, mesh, axis="model")[0]),
+            "data_sum": float(M.all_reduce_sum(x, mesh)[0]),
+            "model_gather": M.all_gather_rows(x, mesh, axis="model").tolist(),
+            "columns": fe_columns_of(7, mesh)}
+    return out
+
+
+def _task_column_objective(t, rank, world, tmp):
+    """ColumnShardedGLMObjective over a (1, world) mesh: value, gradient and
+    Hv at the task's vectors (whole -> the rank's block), the gradient at a
+    vector with non-zero padding lanes, L-BFGS and TRON solves from the
+    rank's zero block (with the shapes of the L-BFGS history written), and
+    the refusal of a batch of other column blocks."""
+    import torch
+
+    from photon_ml_torch.ops.losses import loss_for_task
+    from photon_ml_torch.optim import lbfgs as tlbfgs
+    from photon_ml_torch.optim import optimizer as topt
+    from photon_ml_torch.parallel import column_sharded as CS
+    from photon_ml_torch.parallel import mesh as M
+    from photon_ml_torch.types import TaskType
+
+    mesh = make_task_mesh(t)
+    shard = _shards({"x": t["shard"]})["x"]
+    d = shard.feature_dim
+
+    def build(blocks):
+        return CS.build_column_sharded_batch(shard, t["y"], blocks, offsets=t["o"],
+                                             weights=t["w"], hybrid=t.get("hybrid"),
+                                             device="cpu")
+
+    batch = build(M.model_size(mesh))
+    local = CS.shard_column_batch(batch, mesh)
+    obj = CS.ColumnShardedGLMObjective(loss_for_task(TaskType[t["task"]]), mesh,
+                                       l2_weight=t["l2"])
+    cols = slice(local.block_index * local.block, (local.block_index + 1) * local.block)
+
+    def block(v, pad_value=0.0):
+        padded = np.full(batch.padded_dim, pad_value)
+        padded[:d] = v
+        return torch.as_tensor(padded[cols])
+
+    w, v = block(t["coef"]), block(t["vec"])
+    value, grad = obj.value_and_gradient(w, local)
+    out = {"value": float(value), "value_only": float(obj.value(w, local)),
+           "grad": grad.numpy(), "hv": obj.hessian_vector(w, v, local).numpy(),
+           "columns": (cols.start, cols.stop), "padded_dim": batch.padded_dim,
+           "has_hot_head": local.has_hot_head, "block_w_pad": block(t["coef"], 0.3).numpy()}
+    out["pad_grad"] = obj.value_and_gradient(block(t["coef"], 0.3), local)[1].numpy()
+    shapes = []
+    update = tlbfgs.update_history
+
+    def spy(s_hist, y_hist, *args):
+        shapes.append((tuple(s_hist.shape), tuple(y_hist.shape)))
+        return update(s_hist, y_hist, *args)
+
+    tlbfgs.update_history = spy
+    try:
+        for kind in t.get("solvers", ()):
+            cfg = topt.OptimizerConfig(optimizer_type=topt.OptimizerType[kind],
+                                       max_iterations=40)
+            r = topt.solve(cfg, obj.bind(local), CS.init_column_sharded_coefficients(local, mesh))
+            out[kind] = {"coef": r.coefficients.numpy(), "iterations": r.iterations,
+                         "reason": r.reason, "values": r.value_history.numpy()}
+    finally:
+        tlbfgs.update_history = update
+    out["history_shapes"] = sorted(set(shapes))
+    try:
+        obj.value_and_gradient(w, build(2 * M.model_size(mesh)))
+        out["mismatch"] = "no error"
+    except ValueError as e:
+        out["mismatch"] = str(e)
     return out
 
 
@@ -479,7 +610,9 @@ def _task_partitioned_train(t, rank, world, tmp):
     """read_partitioned -> build_random_effect_dataset_partitioned ->
     train_partitioned; beside it (``full``) the same program through the
     full read and train_distributed(mesh=), and (``estimator``)
-    GameEstimator(partition=).fit."""
+    GameEstimator(partition=).fit. Over the task's mesh (``t["mesh"]``)
+    the partition's ranks are the data ranks, and ``fe_feature_sharded``
+    lays the FE over the model axis everywhere."""
     from photon_ml_torch import estimators as test_
     from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
     from photon_ml_torch.io.data_reader import read_merged
@@ -488,16 +621,22 @@ def _task_partitioned_train(t, rank, world, tmp):
     from photon_ml_torch.parallel import multihost
     from photon_ml_torch.types import TaskType
 
-    mesh = M.make_mesh()
+    mesh = make_task_mesh(t)
+    sharded = t.get("fe_feature_sharded", False)
     ex = multihost.default_exchange()
+    if M.model_size(mesh) > 1:
+        ex = multihost.DataAxisExchange(ex, mesh)
+    rank, world = M.data_rank(mesh), M.data_size(mesh)
     part = _read_part(t, ex)
     res = _partitioned_inputs(t, ex, part)
-    prog = build_program(t["program"], mesh)
+    prog = build_program(t["program"], mesh, sharded)
     M.counts.reset()
     out = {"read": read_numpy(part)}
     result = tdist.train_partitioned(prog, {rank: (part.result.dataset, res)}, mesh, world,
-                                     num_iterations=t.get("sweeps", 2), exchange=ex)
-    out.update(losses=result.losses, state=state_numpy(result.state),
+                                     num_iterations=t.get("sweeps", 2), exchange=ex,
+                                     fe_feature_sharded=sharded)
+    out.update(losses=result.losses, state=state_numpy(prog.whole_state(result.state)),
+               block=state_numpy(result.state) if sharded else None,
                collectives=M.counts.snapshot(),
                buckets={k: [{"entity_rows": b.entity_rows.cpu().numpy(),
                              "sample_rows": b.sample_rows.cpu().numpy(),
@@ -510,11 +649,12 @@ def _task_partitioned_train(t, rank, world, tmp):
                            random_effect_id_columns=tuple(t.get("re_columns", ())),
                            dtype=np.dtype(t.get("dtype", "float64")),
                            device=_rank_device()).dataset
-        fprog = build_program(t["program"], mesh)
+        fprog = build_program(t["program"], mesh, sharded)
         fres, _ = build_inputs(t["program"], full)
         fr = tdist.train_distributed(fprog, full, fres, mesh=mesh,
-                                     num_iterations=t.get("sweeps", 2))
-        out["full"] = {"losses": fr.losses, "state": state_numpy(fr.state)}
+                                     num_iterations=t.get("sweeps", 2),
+                                     fe_feature_sharded=sharded)
+        out["full"] = {"losses": fr.losses, "state": state_numpy(fprog.whole_state(fr.state))}
     if t.get("estimator"):
         p = t["program"]
         configs = {"fixed": test_.FixedEffectCoordinateConfig(
@@ -527,6 +667,7 @@ def _task_partitioned_train(t, rank, world, tmp):
                 bucket_sizes=tuple(p.get("bucket_sizes", (8, 32, 128))))
         est = test_.GameEstimator(
             TaskType[p["task"]], configs, num_iterations=t.get("sweeps", 2), mesh=mesh,
+            fe_feature_sharded=sharded,
             partition=test_.TrainPartition(info=part.partition, exchange=ex,
                                            entity_rank_presence=part.entity_rank_presence))
         out["estimator"] = _model_numpy(est.fit(part.result.dataset).model)
@@ -546,7 +687,7 @@ def _task_partitioned_train(t, rank, world, tmp):
                                entity_vocabs=part.result.dataset.entity_vocabs,
                                dtype=np.dtype(t.get("dtype", "float64")),
                                device=_rank_device(), tag="score")
-        scorer = DistributedScorer(model, mesh)
+        scorer = DistributedScorer(model, mesh, fe_feature_sharded=sharded)
         out["scores"] = scorer.score_partitioned({rank: val.result.dataset}, val.partition,
                                                  exchange=ex)[rank]
         out["score_read"] = read_numpy(val)
@@ -574,7 +715,8 @@ TASKS = {
     "evaluators": _task_evaluators,
     "estimator": _task_estimator,
     "driver": _task_driver,
-    "refusals": _task_refusals,
+    "mesh_axes": _task_mesh_axes,
+    "column_objective": _task_column_objective,
     "exchange": _task_exchange,
     "partitioned_read": _task_partitioned_read,
     "partitioned_train": _task_partitioned_train,
