@@ -305,6 +305,33 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    byte-identical, coefficients within 1e-3·max|w|, the written scores
    bitwise the in-process feature-sharded ones. The launches and checks
    join the kernels line's ``model_path``.
+15. Streamed GLM solves, checkpoints and recovery (``STREAM``): (a) phase 4's
+   ``[2^18, 512]`` logistic problem in 8 chunks of 2^15 rows
+   (``ArrayChunkSource``, standardization from ``streaming_summarize``): an
+   L-BFGS λ path {1, 10} (again with prefetch off at λ=1), a TRON solve and
+   L-BFGS at λ=1 cut at 5 iterations, streamed and in core: where both run
+   their budget the same
+   iterations and coefficients within 1e-4·max|w|; where a stopping test
+   fires at the objective's f32 resolution, final values within 1e-6 rel and
+   iterations at most one apart; one streamed evaluation within f32 rounding
+   of the in-core one (value 1e-5 rel, gradient 1e-4·max|g|), prefetch on
+   and off bitwise, B1 and its reduce launched once a chunk an evaluation and
+   held against their plain versions on one chunk; an epoch split into
+   decode, wait, copy and accumulation, with the bytes copied; (b) phase 5's
+   ELL in 4 chunks of 2^17 rows (``SparseArrayChunkSource``), L-BFGS at λ=1
+   for 20 iterations within 1e-3·max|w| of phase 5's in-core solve, G1's
+   launches a chunk, the chunk's transpose plan rebuilt, G1 held on one
+   chunk's margins and transpose; (c) a transient ``OSError(EIO)`` mid-epoch
+   in (a)'s second λ through ``run_with_recovery`` and a ``SolverCheckpointer``
+   (bitwise (a)'s models, one restore), (b)'s solver saves every 5 iterations
+   (bytes and seconds), phase 7's flagship ``GameEstimator.fit`` stopped after
+   update 5 and resumed, phase 11's flagship with MF through a one-rank NCCL
+   ``train_distributed`` resumed from sweep 2 (both bitwise), a sticky CUDA
+   error not retried; (d) the GLM driver with ``--streaming-chunks`` on 512
+   of phase 8's rows against in core (1e-3 rel; prefetch on and off
+   byte-identical models) with the Python codec's stream decode rate, and the
+   GAME driver with ``--checkpoint-dir`` run twice (byte-identical models).
+   The launches and checks join the kernels line's ``stream_path``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -314,6 +341,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import errno
 import json
 import math
 import os
@@ -6070,6 +6098,696 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
     return path
 
 
+
+#: phase 15, streamed GLM solves, checkpoints and recovery (ROADMAP item 16
+#: step 1): phase 4's dense problem in chunks of 2^15 rows, phase 5's ELL in
+#: chunks of 2^17 rows (L-BFGS at λ=1, phase 14's 20-iteration budget,
+#: checkpointed every 5 iterations), phase 7's and 11's flagships resumed
+#: from checkpoints, and the drivers' streaming and checkpoint flags. The
+#: GLM driver streams 512 of phase 8's 4096 training rows (the Python codec
+#: decodes each epoch again); the GAME driver reads 2048 flagship-width rows.
+STREAM = dict(dense_chunk=1 << 15, lbfgs_iterations=20, tron_iterations=5, budget_iterations=5,
+              sparse_chunk=1 << 17, sparse_iterations=20, save_every=5,
+              driver_rows=512, driver_validation_rows=1024, driver_chunk=256,
+              driver_iterations=3, game_rows=2048, game_validation_rows=512, sweeps=4)
+
+
+def _stream_counts():
+    from photon_ml_torch.ops import fused_glm, packed_glm, sparse_gather
+
+    return {"fused_glm": fused_glm.launches, "fused_glm_reduce": fused_glm.reduce_launches,
+            "rows": sparse_gather.launches, "segments": sparse_gather.segment_launches,
+            "chunks": sparse_gather.chunk_launches,
+            "packed_glm": packed_glm.packed_launches + packed_glm.columns_launches,
+            "packed_glm_reduce": packed_glm.reduce_launches}
+
+
+def _reset_stream_counts() -> None:
+    from photon_ml_torch.ops import fused_glm, packed_glm, sparse_gather
+
+    fused_glm.launches = fused_glm.reduce_launches = 0
+    sparse_gather.launches = sparse_gather.segment_launches = sparse_gather.chunk_launches = 0
+    for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
+        setattr(packed_glm, name, 0)
+
+
+class _ValueGradEpochs:
+    """Counts the value+gradient epochs of streamed objectives while open
+    (TRON's Hessian-vector epochs are counted apart), by wrapping the
+    methods; restored on exit."""
+
+    def __enter__(self):
+        from photon_ml_torch.algorithm.streaming import StreamingGLMObjective
+
+        self.value_grad = self.hessian_vector = 0
+        self._saved = (StreamingGLMObjective.value_and_grad, StreamingGLMObjective.hessian_vector)
+        vg, hv = self._saved
+
+        def value_and_grad(obj, w):
+            self.value_grad += 1
+            return vg(obj, w)
+
+        def hessian_vector(obj, w, v):
+            self.hessian_vector += 1
+            return hv(obj, w, v)
+
+        StreamingGLMObjective.value_and_grad = value_and_grad
+        StreamingGLMObjective.hessian_vector = hessian_vector
+        return self
+
+    def __exit__(self, *exc):
+        from photon_ml_torch.algorithm.streaming import StreamingGLMObjective
+
+        StreamingGLMObjective.value_and_grad, StreamingGLMObjective.hessian_vector = self._saved
+
+
+def _streamed(torch, label: str, source, optimizer, lams, *, solves: list, **kw) -> dict:
+    """``train_glm_streaming`` with the launch counters set to 0 just before
+    and read just after; per λ its seconds, iterations and epochs. Returns
+    the models, the launches and the epochs' totals."""
+    from photon_ml_torch.estimators import train_glm_streaming
+    from photon_ml_torch.types import TaskType
+
+    marks = {"t": time.perf_counter()}
+    totals: dict = {}
+
+    def on_solve(lam, result, objective):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        solves.append({"run": label, "lambda": lam, "seconds": now - marks["t"],
+                       "iterations": result.iterations, "reason": result.reason,
+                       "value": float(result.value), "epochs": objective.epochs})
+        for k, v in objective.totals.items():
+            totals[k] = totals.get(k, 0.0) + v
+        marks["t"] = now
+
+    _reset_stream_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _ValueGradEpochs() as epochs:
+        models = train_glm_streaming(source, TaskType.LOGISTIC_REGRESSION, optimizer=optimizer,
+                                     regularization_weights=lams, on_solve=on_solve, **kw)
+    torch.cuda.synchronize()
+    return {"models": models, "launches": _stream_counts(), "seconds": time.perf_counter() - t0,
+            "value_grad_epochs": epochs.value_grad, "hv_epochs": epochs.hessian_vector,
+            "totals": totals}
+
+
+def _means(models) -> dict:
+    return {lam: m.coefficients.means.double().cpu() for lam, m in models.items()}
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    return all(a[k].equal(b[k]) for k in b)
+
+
+def _stream_dense(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """15(a) and the streamed half of 15(c)."""
+    from photon_ml_torch.algorithm.streaming import StreamingGLMObjective, streaming_summarize
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.estimators import train_glm
+    from photon_ml_torch.io.checkpoint import SolverCheckpointer
+    from photon_ml_torch.io.stream_reader import ArrayChunkSource
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.ops.normalization import (
+        NormalizationContext,
+        NormalizationType,
+        build_normalization,
+    )
+    from photon_ml_torch.ops.objective import GLMObjective
+    from photon_ml_torch.optim.common import ConvergenceReason
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.resilience import RetryPolicy, recovery, run_with_recovery
+    from photon_ml_torch.types import TaskType
+
+    n, d = STREAM.get("dense_n", 1 << 18), STREAM.get("dense_d", 512)
+    chunk = STREAM["dense_chunk"]
+    t0 = time.perf_counter()
+    x_np, y_np = _dataset(np, seed, n, d)  # phase 4's data
+    source = ArrayChunkSource(x_np, y_np, chunk_rows=chunk)
+    stats = streaming_summarize(source)
+    norm = build_normalization(
+        NormalizationType.STANDARDIZATION,
+        **{k: torch.as_tensor(stats[k], dtype=torch.float64, device=dev)
+           for k in ("mean", "variance", "max_magnitude")}, intercept_index=d - 1)
+    norm = NormalizationContext(norm.factors.float(), norm.shifts.float())
+    batch = LabeledPointBatch.create(x_np, y_np, device=dev)
+    torch.cuda.synchronize()
+    summarize_s = time.perf_counter() - t0
+    _log(f"15a. phase 4's data [{n}, {d}] f32 in {source.num_chunks} chunks of {chunk} rows "
+         f"({chunk * d * 4 / 2**20:.0f} MiB of features a chunk); streaming_summarize and the "
+         f"in-core batch: {summarize_s:.2f} s")
+    # phase 4's L-BFGS and TRON budgets
+    lbfgs = OptimizerConfig(OptimizerType.LBFGS, max_iterations=STREAM["lbfgs_iterations"])
+    tron = OptimizerConfig(OptimizerType.TRON, max_iterations=STREAM["tron_iterations"],
+                           tolerance=1e-5)
+    common = dict(normalization=norm, intercept_index=d - 1)
+    solves: list = []
+
+    def in_core(label, optimizer, lams):
+        marks = {"t": time.perf_counter()}
+
+        def on_solve(lam, result):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            solves.append({"run": label, "lambda": lam, "seconds": now - marks["t"],
+                           "iterations": result.iterations, "reason": result.reason,
+                           "value": float(result.value)})
+            marks["t"] = now
+
+        return train_glm(batch, TaskType.LOGISTIC_REGRESSION, optimizer=optimizer,
+                         regularization_weights=lams, on_solve=on_solve, **common)
+
+    # a budget short of the λ=1 solve's f32 resolution, where no stopping test
+    # decides at the last ulp of the objective
+    budget = OptimizerConfig(OptimizerType.LBFGS, max_iterations=STREAM["budget_iterations"])
+    in_core("warm-up", lbfgs, (1.0,))  # the kernels' first calls outside the times
+    ref = {"lbfgs": in_core("in-core lbfgs", lbfgs, (1.0, 10.0)),
+           "tron": in_core("in-core tron", tron, (1.0,)),
+           "budget": in_core("in-core budget", budget, (1.0,))}
+    runs = {"lbfgs": _streamed(torch, "streamed lbfgs", source, lbfgs, (1.0, 10.0),
+                               solves=solves, device=dev, **common),
+            "lbfgs_off": _streamed(torch, "streamed lbfgs, prefetch off", source, lbfgs, (1.0,),
+                                   solves=solves, device=dev, prefetch=False, **common),
+            "tron": _streamed(torch, "streamed tron", source, tron, (1.0,), solves=solves,
+                              device=dev, **common),
+            "budget": _streamed(torch, "streamed budget", source, budget, (1.0,),
+                                solves=solves, device=dev, **common)}
+    ref["closed_form"] = train_glm(batch, TaskType.LOGISTIC_REGRESSION, optimizer=lbfgs,
+                                   regularization_weights=(1.0, 10.0), use_kernel=False,
+                                   **common)
+    by = {(s["run"], s["lambda"]): s for s in solves}
+    gaps = {}
+    problems = []
+    budget_stop = int(ConvergenceReason.MAX_ITERATIONS)
+    for kind, lams in (("lbfgs", (1.0, 10.0)), ("tron", (1.0,)), ("budget", (1.0,))):
+        want, got = _means(ref[kind]), _means(runs[kind]["models"])
+        for lam in lams:
+            a, b = by[(f"in-core {kind}", lam)], by[(f"streamed {kind}", lam)]
+            gap = float((got[lam] - want[lam]).abs().max())
+            scale = float(want[lam].abs().max())
+            value_rel = abs(a["value"] - b["value"]) / abs(a["value"])
+            gaps[f"{kind} λ={lam:g}"] = {
+                "iterations": [a["iterations"], b["iterations"]],
+                "reasons": [a["reason"], b["reason"]], "max_dw": gap, "max_w": scale,
+                "value_rel": value_rel}
+            if kind == "lbfgs":
+                cf = _means(ref["closed_form"])[lam]
+                gaps[f"{kind} λ={lam:g}"]["closed_form_max_dw"] = float((cf - want[lam]).abs().max())
+            if a["reason"] == b["reason"] == budget_stop:
+                # both ran their budget: the same iterations, the same point
+                if a["iterations"] != b["iterations"] or gap > 1e-4 * scale:
+                    problems.append(("budget", kind, lam, gaps[f"{kind} λ={lam:g}"]))
+            elif value_rel > 1e-6 or abs(a["iterations"] - b["iterations"]) > 1:
+                # a stopping test fired at the objective's f32 resolution (the
+                # relative decrease test at 1e-7, a line search finding no
+                # lower f32 value): the same value, an iteration apart at most
+                problems.append(("resolution", kind, lam, gaps[f"{kind} λ={lam:g}"]))
+    _log("15a. streamed against in core, the closed form's gap to the kernel beside it "
+         f"({card}): " + json.dumps(gaps))
+    assert not problems, problems
+    lb = runs["lbfgs"]
+    assert _means(lb["models"])[1.0].equal(_means(runs["lbfgs_off"]["models"])[1.0]), \
+        "prefetch on and off differ"
+    for kind, run in runs.items():
+        want = source.num_chunks * run["value_grad_epochs"]
+        assert run["launches"]["fused_glm"] == run["launches"]["fused_glm_reduce"] == want > 0, \
+            (kind, run["launches"], want)
+    _log(f"15a. ({card}) prefetch on and off bitwise equal (two streamed runs: (c) repeats "
+         "the path, bitwise); "
+         "B1 launches = chunks x "
+         "value+gradient epochs: " + json.dumps(
+             {k: [r["launches"]["fused_glm"], source.num_chunks, r["value_grad_epochs"],
+                  r["hv_epochs"]] for k, r in runs.items()}))
+    for s in solves:
+        if s["run"] != "warm-up":
+            _log(f"15a. {s['run']} λ={s['lambda']:g} ({card}): {s['seconds']:.4f} s, "
+                 f"{s['iterations']} iterations" + (f", {s['epochs']} epochs, "
+                                                    f"{s['seconds'] / s['epochs']:.4f} s an epoch"
+                                                    if "epochs" in s else ""))
+    # one streamed evaluation against the in-core one at the same point (half
+    # the λ=1 optimum, where the gradient is no cancellation): the chunked
+    # epoch computes the same function up to f32 summation order
+    w_eval = 0.5 * norm.from_model_space(_means(lb["models"])[1.0].float().to(dev), d - 1)
+    obj = StreamingGLMObjective(source, LogisticLoss(), l2_weight=1.0, normalization=norm,
+                                device=dev)
+    sv, sg = obj.value_and_grad(w_eval)
+    iv, ig = GLMObjective(LogisticLoss(), 1.0, normalization=norm).value_and_gradient(w_eval,
+                                                                                      batch)
+    eval_value_rel = abs(float(sv) - float(iv)) / abs(float(iv))
+    eval_grad = float((sg.double() - ig.double()).abs().max())
+    gmax = float(ig.abs().max())
+    _log(f"15a. one streamed evaluation against the in-core one at half the streamed λ=1 "
+         f"optimum ({card}): value {eval_value_rel:.3g} rel, gradient max |dg| {eval_grad:.3g} "
+         f"(max |g| {gmax:.3g})")
+    assert eval_value_rel <= 1e-5 and eval_grad <= 1e-4 * gmax, (eval_value_rel, eval_grad)
+    # the split of an epoch: decode (the decode thread), the consumer's waits,
+    # host-to-device copy and accumulation, once unsynchronized (the overlap)
+    # and once with the device synchronized after each copy and accumulation
+    loss = LogisticLoss()
+    w = _means(lb["models"])[1.0].float().to(dev)
+    w = norm.from_model_space(w, d - 1)
+    split = {}
+    for label, sync in (("overlapped", False), ("synchronized", True)):
+        obj = StreamingGLMObjective(source, loss, l2_weight=1.0, normalization=norm, device=dev,
+                                    sync_timing=sync)
+        obj.value_and_grad(w)
+        rows = []
+        for _ in range(3):
+            obj.value_and_grad(w)
+            torch.cuda.synchronize()
+            rows.append(dict(obj.last_epoch))
+        split[label] = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    sync = split["synchronized"]
+    copy_rate = sync["bytes"] / sync["copy"] / 1e9
+    _log(f"15a. one epoch ({card}): " + json.dumps(split) + f"; {sync['bytes'] / 2**20:.1f} MiB "
+         f"copied an epoch at {copy_rate:.2f} GB/s (pageable, synchronous); B1 a chunk "
+         f"{sync['accumulate'] / sync['chunks'] * 1e3:.3f} ms of host-timed accumulation")
+
+    # B1 and its reduce held on one chunk, at the streamed λ=1 coefficients
+    cb = source.load(source.specs[0]).to_device(dev)
+    xc = cb.features
+    r = torch.rand(xc.shape[0], device=dev)
+    kw = dict(l2_weight=0.0, normalization=norm)
+    check = _path_check(
+        torch, "15a. fused_glm on one chunk",
+        lambda: fused_glm.fused_value_and_gradient(loss, w, cb, **kw),
+        lambda: fused_glm.fused_value_and_gradient_reference(loss, w, cb, **kw),
+        lambda: (torch.matmul(xc, w), torch.matmul(r, xc)), (1e-5, 1e-4),
+        xc.shape[0] * xc.shape[1] * 4 + 12 * xc.shape[0] + 8 * d + 8, xc.shape)
+    b1_args = (loss, xc, cb.labels, cb.offsets, cb.weights, w, None)
+    reduce = _reduce_entry(torch, "15a. fused_glm_reduce on one chunk",
+                           lambda: fused_glm.fused_partials(*b1_args), fused_glm.reduce_partials,
+                           fused_glm.reduce_partials_reference)
+    _log(f"15a. fused_glm on one chunk [{chunk}, {d}] ({card}): " + json.dumps(check))
+
+    # 15c, streaming: one transient OSError(EIO) from the decode, mid-epoch in
+    # the second λ, past a one-attempt retry policy; run_with_recovery
+    # resumes from the solver checkpoint to run (a)'s bits
+    first = by[("streamed lbfgs", 1.0)]["epochs"]
+    fire_at = source.num_chunks * (first + 3) + source.num_chunks // 2
+    loads = {"n": 0, "fired": False}
+
+    def hook():
+        loads["n"] += 1
+        if loads["n"] == fire_at and not loads["fired"]:
+            loads["fired"] = True
+            raise OSError(errno.EIO, "Input/output error")
+
+    flaky = ArrayChunkSource(x_np, y_np, chunk_rows=chunk, decode_hook=hook)
+    ck = SolverCheckpointer(tmp / "dense-ck")
+    recovery.reset_counts()
+    t0 = time.perf_counter()
+    _reset_stream_counts()
+    models = run_with_recovery(
+        lambda restart: _streamed(torch, f"recovered (restart {restart})", flaky, lbfgs,
+                                  (1.0, 10.0), solves=[], device=dev, checkpointer=ck,
+                                  retry_policy=RetryPolicy(max_attempts=1), **common)["models"],
+        max_restarts=1, checkpointer=ck)
+    recovered_s = time.perf_counter() - t0
+    assert loads["fired"] and recovery.counts["checkpoint_restores"] == 1, (loads, recovery.counts)
+    # the λ=1 solve ran whole before the failure: a second streamed run of
+    # it; λ=10 resumed from the solver checkpoint
+    assert _bitwise(_means(lb["models"]), _means(models)), "the recovered run differs"
+    save_s = [s for _, s in ck.saves]
+    _log(f"15c. streaming recovery ({card}): EIO at decode {fire_at} (λ=10, mid-epoch), one "
+         f"restart, {recovery.counts['checkpoint_restores']} restore, "
+         f"{recovery.counts['epochs_resumed']} epochs not redone, models bitwise run (a)'s; "
+         f"{recovered_s:.2f} s with {len(ck.saves)} saves of {ck.saves[-1][0]} bytes "
+         f"({statistics.median(save_s) * 1e3:.2f} ms each)")
+    launches = {k: sum(run["launches"][k] for run in runs.values())
+                for k in ("fused_glm", "fused_glm_reduce")}
+    del batch, source, flaky, x_np
+    torch.cuda.empty_cache()
+    return {"fused_glm": dict(check, launches=launches["fused_glm"], chunk_shape=[chunk, d],
+                              by_run={k: r["launches"]["fused_glm"] for k, r in runs.items()},
+                              epoch=split, copy_GBps=copy_rate,
+                              seconds={"in_core": {f"{s['run']} {s['lambda']:g}": s["seconds"]
+                                                   for s in solves if "epochs" not in s},
+                                       "streamed": {f"{s['run']} {s['lambda']:g}": s["seconds"]
+                                                    for s in solves if "epochs" in s}}),
+            "fused_glm_reduce": dict(reduce, launches=launches["fused_glm_reduce"])}
+
+
+def _stream_sparse(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """15(b) and the sparse saves of 15(c)."""
+    from photon_ml_torch.data.sparse_batch import transpose_plan
+    from photon_ml_torch.io.checkpoint import SolverCheckpointer
+    from photon_ml_torch.io.stream_reader import SparseArrayChunkSource
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+
+    n, d, per_row, n_held = (SPARSE["ell"][k] for k in ("n", "d", "per_row", "held_out"))
+    chunk = STREAM["sparse_chunk"]
+    t0 = time.perf_counter()
+    (rows, cols, vals, y), _ = _planted_ell_data(np, seed, n, d, per_row, n_held)
+    source = SparseArrayChunkSource(rows, cols, vals, y, dim=d, chunk_rows=chunk,
+                                    dtype=np.float32)
+    del rows, cols, vals
+    _log(f"15b. phase 5's ELL [{n} rows, d={d}] in {source.num_chunks} chunks of {chunk} rows, "
+         f"ELL width {source.ell_width}: {time.perf_counter() - t0:.2f} s")
+    lbfgs = OptimizerConfig(OptimizerType.LBFGS, max_iterations=STREAM["sparse_iterations"])
+    ck = SolverCheckpointer(tmp / "sparse-ck", max_to_keep=1, save_every=STREAM["save_every"])
+    solves: list = []
+    run = _streamed(torch, "streamed ell lbfgs", source, lbfgs, (1.0,), solves=solves,
+                    device=dev, checkpointer=ck)
+    s = solves[-1]
+    w = run["models"][1.0].coefficients.means.float()
+    ref = _SHARED.get("ell_lbfgs")
+    gap = scale = None
+    if ref is not None:  # phase 5's in-core solve of the same problem
+        want = torch.as_tensor(ref["w"], device=dev).double()
+        gap, scale = float((w.double() - want).abs().max()), float(want.abs().max())
+    launches = run["launches"]
+    per_chunk = {k: launches[k] / (source.num_chunks * s["epochs"])
+                 for k in ("rows", "segments", "chunks")}
+    assert launches["rows"] + launches["segments"] > 0 and launches["fused_glm"] == 0, launches
+    # the column-sorted plan of one chunk, rebuilt as every epoch rebuilds it
+    cb = source.load(source.specs[0]).to_device(dev)
+    plan_ms = []
+    for _ in range(3):
+        fresh = source.load(source.specs[0]).to_device(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        transpose_plan(fresh)
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t1) * 1e3)
+    checks = _fe_gather_checks(torch, "15b. chunk 0", cb, w)
+    _log(f"15b. streamed ELL λ=1 ({card}): {s['iterations']} iterations, {s['epochs']} epochs in "
+         f"{s['seconds']:.3f} s ({s['seconds'] / s['epochs']:.4f} s an epoch; phase 5 in core "
+         f"{ref['solve']['seconds'] if ref else 'not run'} s), against phase 5's in-core "
+         f"solve max |dw| {gap} (max |w| {scale}); G1 launches a chunk-epoch "
+         + json.dumps(per_chunk) + f"; the chunk's transpose plan rebuilt in "
+         f"{statistics.median(plan_ms):.3f} ms; epoch totals " + json.dumps(run["totals"]))
+    assert gap is None or gap <= 1e-3 * scale, (gap, scale)
+    _log(f"15c. sparse solver checkpoints every {ck.save_every} iterations ({card}): "
+         + json.dumps([{"bytes": b, "seconds": round(sec, 4)} for b, sec in ck.saves]))
+    assert len(ck.saves) >= 2
+    del source, cb
+    torch.cuda.empty_cache()
+    out = {"sparse_gather": {"launches": launches["rows"] + launches["segments"],
+                             "row_kernel": launches["rows"], "segment_kernel": launches["segments"],
+                             "per_chunk_epoch": per_chunk, "plan_rebuild_ms": plan_ms,
+                             "checks": [{k: v for k, v in c.items() if k != "chunks"}
+                                        for c in checks],
+                             "saves": ck.saves}}
+    # the chunk kernel runs where a chunk's column holds more than
+    # SEGMENT_CHUNK entries (the planted support's columns, about 2^17·4/256
+    # entries a chunk): on this path only when the data puts one there
+    if launches["chunks"]:
+        out["sparse_gather_chunks"] = {"launches": launches["chunks"],
+                                       "checks": [c["chunks"] for c in checks if "chunks" in c]}
+    return out
+
+
+def _stream_resumes(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """15(c): GameEstimator.fit and train_distributed resumed bitwise, and a
+    sticky CUDA error not retried."""
+    import dataclasses
+
+    from photon_ml_torch import convert
+    from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+    from photon_ml_torch.ops import packed_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.parallel.mesh import make_mesh
+    from photon_ml_torch.resilience import TransientError, recovery, run_with_recovery
+
+    # GameEstimator.fit: phase 7's flagship, L-BFGS lanes, a transient error
+    # after update 5, resumed from the per-update checkpoints
+    shape = GAME["flagship"]
+    sweeps = STREAM["sweeps"]
+    train, _ = _game_arrays(np, seed, **dict(shape, held_out=0))
+    ds = _game_dataset(train, "LOGISTIC_REGRESSION", dev)
+    del train
+    est = _game_estimator("LOGISTIC_REGRESSION", "LBFGS", sweeps)
+    t0 = time.perf_counter()
+    whole = est.fit(ds)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    ck = TrainingCheckpointer(tmp / "cd-ck")
+    updates = {"n": 0}
+
+    def stop(iteration, cid, info):
+        updates["n"] += 1
+        if updates["n"] == 5:
+            raise TransientError("stopped after update 5")
+
+    recovery.reset_counts()
+    _reset_stream_counts()
+    t0 = time.perf_counter()
+    resumed = run_with_recovery(
+        lambda restart: dataclasses.replace(est, checkpointer=ck, on_update=stop).fit(ds),
+        max_restarts=1, checkpointer=ck)
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    cd_launches = _stream_counts()
+    a, b = convert.game_model_to_numpy(whole.model), convert.game_model_to_numpy(resumed.model)
+    same = all(np.array_equal(a[c][k], b[c][k]) for c in a for k in a[c]
+               if isinstance(a[c][k], np.ndarray))
+    assert same and recovery.counts["checkpoint_restores"] == 1, recovery.counts
+    assert cd_launches["packed_glm"] == cd_launches["packed_glm_reduce"] > 0, cd_launches
+    _log(f"15c. GameEstimator.fit, phase 7's flagship, {sweeps} sweeps ({card}): stopped after "
+         f"update 5 and resumed, models bitwise the uninterrupted fit's; {whole_s:.2f} s "
+         f"uninterrupted, {resumed_s:.2f} s stopped and resumed with {len(ck.steps())} steps "
+         f"kept (last {ck.latest_step()}, {ck.last_save['bytes']} bytes, "
+         f"{ck.last_save['seconds'] * 1e3:.2f} ms); launches " + json.dumps(cd_launches))
+    # the packed kernel on the resumed fit's fixed effect
+    loss = LogisticLoss()
+    x = ds.feature_shards["global"]
+    fixed = resumed.model.get("fixed")
+    w = fixed.glm.coefficients.means.float().contiguous()
+    aux = packed_glm.pack_aux(ds.labels, ds.offsets + resumed.model.score(ds) - x @ w, ds.weights)
+    n = x.shape[0]
+    r = torch.rand(n, device=dev)
+    packed = _path_check(
+        torch, "15c. packed_glm on the resumed fit's fixed effect",
+        lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False),
+        lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False),
+        lambda: (torch.matmul(x, w), torch.matmul(r, x)), (1e-5, 1e-4),
+        x.shape[0] * x.shape[1] * 4 + 12 * n + 8 * x.shape[1] + 8, x.shape)
+    fe_args = (loss, x, aux, None, None, None, w, None, False, "fma", "fma")
+    packed_reduce = _reduce_entry(torch, "15c. packed_glm_reduce on the resumed fit",
+                                  lambda: packed_glm.launch_partials(*fe_args),
+                                  packed_glm.reduce_partials, packed_glm.reduce_partials_reference)
+    del ds, x, aux, whole, resumed
+    torch.cuda.empty_cache()
+
+    # train_distributed: phase 11's fused flagship with MF over a one-rank
+    # NCCL mesh, two sweeps checkpointed, then the four-sweep run resumed
+    info = multihost.initialize(device=None if dev.type == "cuda" else dev)
+    try:
+        mesh = make_mesh()
+        ds, _, re_ds, mf_ds = _mesh_flagship(np, seed, dev)
+        program = _fused_program(k=MESH["k"], alternations=MESH["alternations"],
+                                 mf_l2=MESH["mf_l2"], mesh=mesh)
+        kw = dict(mf_datasets=mf_ds, mesh=mesh)
+        t0 = time.perf_counter()
+        whole = dist.train_distributed(program, ds, re_ds, num_iterations=sweeps, **kw)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        fck = TrainingCheckpointer(tmp / "fused-ck")
+        dist.train_distributed(program, ds, re_ds, num_iterations=sweeps // 2,
+                               checkpointer=fck, **kw)
+        recovery.reset_counts()
+        _reset_stream_counts()
+        t0 = time.perf_counter()
+        resumed = dist.train_distributed(program, ds, re_ds, num_iterations=sweeps,
+                                         checkpointer=fck, **kw)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        fused_launches = _stream_counts()
+        fa = _flat_state(convert.train_state_to_numpy(whole.state))
+        fb = _flat_state(convert.train_state_to_numpy(resumed.state))
+        gap, scale, bitwise = _state_gap(np, fa, fb)
+        assert bitwise and resumed.losses == whole.losses, (gap, scale)
+        assert recovery.counts["checkpoint_restores"] == 1
+        assert fused_launches["fused_glm"] == fused_launches["fused_glm_reduce"] > 0
+        _log(f"15c. train_distributed, phase 11's flagship with MF on a one-rank "
+             f"{info.backend} mesh ({card}): {sweeps // 2} sweeps checkpointed, the "
+             f"{sweeps}-sweep run resumed from step {sweeps // 2}: state and losses bitwise the "
+             f"uninterrupted run's; {whole_s:.2f} s uninterrupted, {resumed_s:.2f} s for the "
+             f"resumed half; checkpoint {fck.last_save['bytes']} bytes in "
+             f"{fck.last_save['seconds'] * 1e3:.2f} ms; launches " + json.dumps(fused_launches))
+        del ds, re_ds, mf_ds, whole, resumed
+    finally:
+        multihost.shutdown()
+    torch.cuda.empty_cache()
+
+    # a sticky CUDA error is fatal: run_with_recovery makes no second attempt
+    attempts = []
+
+    def sticky(restart):
+        attempts.append(restart)
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    try:
+        run_with_recovery(sticky, max_restarts=3)
+    except RuntimeError as e:
+        assert "illegal memory access" in str(e)
+    assert attempts == [0], attempts
+    _log("15c. a sticky CUDA error (illegal memory access) was not retried: 1 attempt")
+    return {"packed_glm": dict(packed, launches=cd_launches["packed_glm"]),
+            "packed_glm_reduce": dict(packed_reduce, launches=cd_launches["packed_glm_reduce"]),
+            "fused_glm": fused_launches["fused_glm"],
+            "fused_glm_reduce": fused_launches["fused_glm_reduce"]}
+
+
+def _stream_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """15(d): the GLM driver streamed against in core, prefetch on against
+    off; the GAME driver with --checkpoint-dir run twice."""
+    from photon_ml_torch.cli import game_training_driver, glm_driver
+    from photon_ml_torch.io import avro, photon_schemas
+    from photon_ml_torch.io.data_reader import FeatureShardConfiguration
+    from photon_ml_torch.io.stream_reader import (
+        AvroChunkSource,
+        ChunkPrefetcher,
+        DenseRecordAssembler,
+        build_streaming_index_maps,
+    )
+    from photon_ml_torch.resilience import recovery
+
+    ng, nv, dg = STREAM["driver_rows"], STREAM["driver_validation_rows"], DRIVERS["glm_d"]
+    x, y = _dataset(np, seed + 4, DRIVERS["glm_rows"] + DRIVERS["glm_validation_rows"], dg)
+    xl, yl = x[:, :-1].tolist(), y.tolist()  # phase 8's rows; the last column is the intercept
+    vlo = DRIVERS["glm_rows"]
+
+    def records(lo, count):
+        return ({"uid": str(lo + i), "label": yl[lo + i], "features": _ntv("f", xl[lo + i]),
+                 "weight": 1.0, "offset": 0.0, "foldId": None, "metadataMap": None}
+                for i in range(count))
+
+    te = photon_schemas.TRAINING_EXAMPLE_AVRO
+    for split, lo, count in (("train", 0, ng), ("validation", vlo, nv)):
+        os.makedirs(tmp / "glm" / split, exist_ok=True)
+        avro.write_container(tmp / "glm" / split / "part-00000.avro", te, records(lo, count),
+                             block_records=STREAM["driver_chunk"])
+    del x, y, xl, yl
+    # the stream decode's rate (the Python codec, one pass)
+    cfg = {"features": FeatureShardConfiguration(feature_bags=("features",))}
+    files = [str(tmp / "glm/train/part-00000.avro")]
+    maps = build_streaming_index_maps(files, cfg)
+    src = AvroChunkSource(files, DenseRecordAssembler(maps["features"], cfg["features"]),
+                          chunk_records=STREAM["driver_chunk"])
+    with ChunkPrefetcher(src, prefetch=False) as it:
+        for _ in it:
+            pass
+        decode_s = it.decode_seconds
+    rate = src.total_records / decode_s
+
+    def glm(out, *extra):
+        _reset_stream_counts()
+        t0 = time.perf_counter()
+        result = glm_driver.main([
+            "--input-data-path", str(tmp / "glm/train"), "--validation-data-path",
+            str(tmp / "glm/validation"), "--output-dir", str(tmp / "glm" / out),
+            "--task-type", "LOGISTIC_REGRESSION", "--regularization-weights", "1",
+            "--max-iterations", str(STREAM["driver_iterations"]), *extra], device=dev)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, _stream_counts()
+
+    chunks = ("--streaming-chunks", str(STREAM["driver_chunk"]))
+    in_core, in_core_s, _ = glm("in-core")
+    on, on_s, on_launches = glm("streamed", *chunks)
+    off, off_s, _ = glm("streamed-off", *chunks, "--no-streaming-prefetch")
+    wa = in_core.models[1.0].coefficients.means.double()
+    wb = on.models[1.0].coefficients.means.double()
+    gap = float((wa - wb).abs().max()) / float(wa.abs().max())
+    text = {k: (tmp / "glm" / k / "models-text" / "1.0.txt").read_bytes()
+            for k in ("streamed", "streamed-off")}
+    assert gap <= 1e-3 and text["streamed"] == text["streamed-off"], gap
+    assert on_launches["fused_glm"] > 0 and on.stage.name == "VALIDATED"
+    _log(f"15d. GLM driver on {ng} of phase 8's rows, d={dg}, --streaming-chunks "
+         f"{STREAM['driver_chunk']} ({src.num_chunks} chunks) ({card}): coefficients {gap:.3g} "
+         f"rel of the in-core run's, prefetch on and off byte-identical models; seconds in core "
+         f"{in_core_s:.2f}, streamed {on_s:.2f}, prefetch off {off_s:.2f}; stream decode "
+         f"{rate:.0f} records/s (Python codec); B1 launches {on_launches['fused_glm']}")
+
+    # the GAME training driver with --checkpoint-dir, run twice
+    shape = dict(GAME["flagship"], n=STREAM["game_rows"], held_out=STREAM["game_validation_rows"])
+    train, held = _game_arrays(np, seed + 5, **shape)
+    for args in _game_parts(train, tmp / "game/train", 0, 1) \
+            + _game_parts(held, tmp / "game/validation", shape["n"], 1):
+        _write_game_part(args)
+    del train, held
+    shards = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",
+              "--feature-shard-configurations",
+              "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+    re_spec = "feature.shard=per_entity,reg.weights=1,max.iter=10,random.effect.type="
+
+    def game(out):
+        _reset_stream_counts()
+        t0 = time.perf_counter()
+        summary = game_training_driver.main([
+            "--input-data-path", str(tmp / "game/train"), "--validation-data-path",
+            str(tmp / "game/validation"), "--root-output-dir", str(tmp / "game" / out),
+            "--task-type", "LOGISTIC_REGRESSION", *shards, "--coordinate-configurations",
+            "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+            "--coordinate-configurations", f"name=per_user,{re_spec}userId",
+            "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+            "--coordinate-descent-iterations", "2", "--evaluators", "AUC",
+            "--checkpoint-dir", str(tmp / "game/ck")], device=dev)
+        torch.cuda.synchronize()
+        return summary, time.perf_counter() - t0, _stream_counts()
+
+    first, first_s, first_launches = game("first")
+    recovery.reset_counts()
+    again, again_s, _ = game("again")
+
+    def model_files(root):
+        return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+                if p.is_file() and str(p.relative_to(root)).startswith(("models", "best"))}
+
+    same = model_files(tmp / "game/first") == model_files(tmp / "game/again")
+    assert same and recovery.counts["checkpoint_restores"] == 1, recovery.counts
+    assert first_launches["packed_glm"] > 0, first_launches
+    _log(f"15d. GAME driver with --checkpoint-dir on {shape['n']} flagship-width rows ({card}): "
+         f"{first_s:.2f} s, then again {again_s:.2f} s resuming at the last step "
+         f"({recovery.counts['checkpoint_restores']} restore), byte-identical model files "
+         f"({len(model_files(tmp / 'game/first'))}); best AUC {first['best_metric']:.6f}")
+    return {"fused_glm": on_launches["fused_glm"], "fused_glm_reduce": on_launches["fused_glm_reduce"],
+            "packed_glm": first_launches["packed_glm"],
+            "packed_glm_reduce": first_launches["packed_glm_reduce"]}
+
+
+def _stream_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 15: streamed GLM solves, checkpoints and recovery, printing as
+    it goes. Returns, for each kernel this path runs, its launches here and
+    its checks on the path's own inputs (chunk-sized for B1 and G1)."""
+    t_phase = time.perf_counter()
+    base = Path(tempfile.mkdtemp(prefix="stream-", dir=Path(__file__).resolve().parent / "build"))
+    try:
+        times = {}
+        t0 = time.perf_counter()
+        path = _stream_dense(torch, np, seed, dev, card, base)
+        times["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path.update(_stream_sparse(torch, np, seed, dev, card, base))
+        times["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumes = _stream_resumes(torch, np, seed, dev, card, base)
+        times["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drivers = _stream_drivers(torch, np, seed, dev, card, base)
+        times["d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    for name in ("fused_glm", "fused_glm_reduce"):
+        path[name]["launches"] += resumes[name] + drivers[name]
+        path[name]["resumed_fused_run"], path[name]["driver"] = resumes[name], drivers[name]
+    for name in ("packed_glm", "packed_glm_reduce"):
+        path[name] = dict(resumes[name], driver=drivers[name])
+        path[name]["launches"] += drivers[name]
+    assert all(v["launches"] > 0 for v in path.values()), {k: v["launches"]
+                                                           for k, v in path.items()}
+    seconds = time.perf_counter() - t_phase
+    path["fused_glm"]["phase_seconds"] = seconds
+    _log(f"15. stream phase ({card}): {seconds:.2f} s (a {times['a']:.2f}, b {times['b']:.2f}, "
+         f"c {times['c']:.2f}, d {times['d']:.2f})")
+    return path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6313,10 +7031,17 @@ def main(argv=None) -> int:
     model_path = _model_axis_slice(torch, np, args.seed, dev, card)
     _log(f"model-axis phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in model_path.items()}))
+    # 15. streamed GLM solves, checkpoints and recovery: its launches and its
+    # kernel checks on chunk inputs as its own path
+    t0 = time.perf_counter()
+    stream_path = _stream_slice(torch, np, args.seed, dev, card)
+    _log(f"stream phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in stream_path.items()}))
     for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
                       ("sparse_game_path", sparse_game_path), ("mf_path", mf_path),
                       ("fused_path", fused_path), ("mesh_path", mesh_path),
-                      ("partitioned_path", partitioned_path), ("model_path", model_path)):
+                      ("partitioned_path", partitioned_path), ("model_path", model_path),
+                      ("stream_path", stream_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

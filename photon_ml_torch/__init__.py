@@ -13,7 +13,10 @@ L-BFGS, Newton, OWL-QN and TRON solves, IDENTITY, INDEX_MAP and RANDOM
 projections, ``projector/projectors.py``, and matrix-factorization
 coordinates, ``algorithm/mf_coordinate.py``); the three drivers and the host
 tools on Avro (through the columnar C++ decoder under ``native/``) and LibSVM
-(its C++ parser); and the hand-written kernels under ``csrc/``
+(its C++ parser); streamed out-of-core GLM solves
+(``estimators.train_glm_streaming``), checkpoints and resume
+(``io/checkpoint.py``) and restarts after a transient failure
+(``resilience/``); and the hand-written kernels under ``csrc/``
 (``ops/fused_glm.py``, ``ops/packed_glm.py``, ``ops/sparse_gather.py``).
 
 Entry points run on the CUDA device unless the caller passes

@@ -9,7 +9,10 @@ first validation evaluator (:183-192, :323-356); locked coordinates never
 retrain (:44-49).
 
 Scores are [n] tensors on the dataset's device; the residual update is one
-elementwise subtract. Checkpoints and telemetry are not ported yet.
+elementwise subtract. With a checkpointer, coordinate-descent progress is
+saved every ``checkpoint_every`` updates and at the last one
+(``io/checkpoint.pack_cd_state``), and a resumed run skips the updates the
+checkpoint holds. Solver telemetry is ROADMAP.md item 19.
 """
 
 from __future__ import annotations
@@ -23,14 +26,16 @@ import torch
 
 from photon_ml_torch.algorithm.coordinates import Coordinate
 from photon_ml_torch.evaluation.evaluators import EvaluationData, Evaluator
+from photon_ml_torch.io.checkpoint import (  # noqa: F401  (DivergenceError re-exported)
+    DivergenceError,
+    commit_checkpoint,
+    pack_cd_state,
+    unpack_cd_state,
+)
 from photon_ml_torch.models.game import DatumScoringModel, GameModel
+from photon_ml_torch.resilience import recovery
 
 logger = logging.getLogger(__name__)
-
-
-class DivergenceError(RuntimeError):
-    """A coordinate update produced non-finite scores or a non-finite
-    objective value."""
 
 
 @dataclasses.dataclass
@@ -59,6 +64,8 @@ def run_coordinate_descent(
     validation_scorer=None,
     validation_data: EvaluationData | None = None,
     checkpointer=None,
+    checkpoint_every: int = 1,
+    resume: bool = True,
     check_finite: bool = True,
     telemetry=None,
     on_update: Callable[[int, str, object], None] | None = None,
@@ -69,6 +76,12 @@ def run_coordinate_descent(
     scores; the FIRST validation evaluator selects the best model across
     updates, as in the reference (:183-192).
 
+    checkpointer: an ``io/checkpoint.TrainingCheckpointer``. Progress (the
+    current models, the best model, the metric history) is saved every
+    ``checkpoint_every`` coordinate updates and at the last update; with
+    ``resume=True`` the newest checkpoint is restored and the updates it
+    holds are skipped. A checkpoint of another update sequence is refused.
+
     check_finite: raise :class:`DivergenceError` the moment a coordinate
     update produces non-finite scores, instead of training on.
 
@@ -76,9 +89,6 @@ def run_coordinate_descent(
     each update: a SolverResult for a fixed effect, LaneTraces for a random
     effect.
     """
-    if checkpointer is not None:
-        raise NotImplementedError(
-            "checkpoints in run_coordinate_descent are not ported yet: ROADMAP.md item 16")
     if telemetry is not None:
         raise NotImplementedError(
             "solver telemetry is not ported yet: ROADMAP.md item 19; use on_update")
@@ -88,10 +98,35 @@ def run_coordinate_descent(
     best_model: GameModel | None = None
     best_metric = float("nan")
     history: list[dict] = []
+    start_slot = 0  # the global update counter: iteration * len(sequence) + position
+
+    restored = None
+    if checkpointer is not None and resume:
+        ckpt = checkpointer.restore()
+        if ckpt is not None:
+            saved_order = ckpt.meta.get("model", {}).get("order")
+            # the fast-forward maps the checkpoint's step onto this sequence's
+            # slots, so the order must match exactly
+            if saved_order is not None and list(saved_order) != list(update_sequence):
+                raise ValueError(
+                    "checkpoint is incompatible with this run: it holds "
+                    f"coordinates {saved_order} but the update sequence is "
+                    f"{list(update_sequence)}; pass resume=False or a fresh "
+                    "checkpoint directory")
+            device = getattr(getattr(coordinates[update_sequence[0]], "dataset", None),
+                             "device", None)
+            restored_model, best_model, best_metric, history = unpack_cd_state(ckpt,
+                                                                               device=device)
+            restored = restored_model.models
+            start_slot = int(ckpt.step)
+            recovery.counts["checkpoint_restores"] += 1
+            logger.info("Resuming coordinate descent from checkpoint step %d", start_slot)
 
     for cid in update_sequence:
         coord = coordinates[cid]
-        if initial_models and cid in initial_models:
+        if restored is not None and cid in restored:
+            models[cid] = restored[cid]
+        elif initial_models and cid in initial_models:
             models[cid] = initial_models[cid]
         else:
             models[cid] = coord.initial_model()
@@ -104,10 +139,18 @@ def run_coordinate_descent(
             total = total + s
         return total
 
+    n_seq = len(update_sequence)
+    # the last slot that updates (locked coordinates never reach the save)
+    unlocked = [i for i, c in enumerate(update_sequence) if c not in locked_coordinates]
+    final_update_slot = (num_iterations - 1) * n_seq + max(unlocked) if unlocked else -1
     for iteration in range(num_iterations):
-        for cid in update_sequence:
+        for position, cid in enumerate(update_sequence):
+            slot = iteration * n_seq + position
             coord = coordinates[cid]
             if cid in locked_coordinates:
+                continue
+            if slot < start_slot:
+                coord.skip_update()  # done before the restored checkpoint
                 continue
             # partial score = everything except this coordinate
             partial = full_score() - scores[cid]
@@ -124,7 +167,9 @@ def run_coordinate_descent(
                 if not finite:
                     raise DivergenceError(
                         f"coordinate '{cid}' produced non-finite scores at CD "
-                        f"iteration {iteration}")
+                        f"iteration {iteration}"
+                        + (f"; last good checkpoint: step {checkpointer.latest_step()} in "
+                           f"{checkpointer.directory}" if checkpointer is not None else ""))
 
             metrics: dict[str, float] = {}
             if training_evaluator is not None and training_data is not None:
@@ -148,6 +193,11 @@ def run_coordinate_descent(
                 history.append({"iteration": iteration, "coordinate": cid, **metrics})
             if on_update is not None:
                 on_update(iteration, cid, info)
+            if checkpointer is not None and (
+                    (slot + 1) % max(1, checkpoint_every) == 0 or slot == final_update_slot):
+                arrays, meta = pack_cd_state(GameModel(models=dict(models)), best_model,
+                                             best_metric, history)
+                commit_checkpoint(checkpointer, slot + 1, arrays, meta)
 
     final = GameModel(models=dict(models))
     if best_model is None:

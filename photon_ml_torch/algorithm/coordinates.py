@@ -109,6 +109,11 @@ class Coordinate:
     def initial_model(self) -> DatumScoringModel:
         raise NotImplementedError
 
+    def skip_update(self) -> None:
+        """Account for an update a restored checkpoint already holds (a
+        resumed coordinate descent skips it), so per-update state such as a
+        down-sampling seed continues where the interrupted run left it."""
+
 
 def _make_objective(task: TaskType, cfg: CoordinateOptimizationConfig,
                     normalization: NormalizationContext | None, sparse: bool = False,
@@ -166,6 +171,10 @@ class FixedEffectCoordinate(Coordinate):
                             device=self.dataset.device)
         return FixedEffectModel(glm=GeneralizedLinearModel(Coefficients(means=means), self.task),
                                 feature_shard_id=self.feature_shard_id)
+
+    def skip_update(self) -> None:
+        if self.config.down_sampling_rate < 1.0:
+            self._update_count += 1  # the seed the skipped update used
 
     def update_model(self, model: FixedEffectModel, extra_offsets: torch.Tensor | None = None):
         batch = self.dataset.fixed_effect_batch(self.feature_shard_id, extra_offsets)

@@ -38,11 +38,22 @@ needs ``--distributed`` or ``--mesh``, takes no validation data and writes
 no feature statistics (they would summarize one rank's rows). A data axis
 of one reads in full.
 
+``--checkpoint-dir`` keeps one checkpoint directory per configuration of
+the λ grid, named by its index and a digest of its regularization weights
+(``config_<i>_<digest>``, the JAX driver's), saved every
+``--checkpoint-every`` coordinate updates (fused sweeps with
+``--distributed``); a rerun resumes from it unless ``--no-resume``.
+``--max-restarts`` restarts a configuration after a transient failure or a
+divergence with a checkpoint to fall back to (``resilience/recovery.py``),
+and a restart resumes even under ``--no-resume``. The port's default for
+``--max-restarts`` is 0 (the JAX driver's is 2), and a run of several ranks
+takes only 0 (coordinated recovery is ROADMAP.md item 16 step 2).
+
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--streaming-chunks`` and its DuHL riders,
-``--checkpoint-dir`` and ``--max-restarts`` above 0 (16; the port's default
-is 0), ``--incremental-refresh``, hyperparameter tuning, the lane scheduler
-(18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir`` (19).
+item before any data is read: ``--streaming-chunks`` and its DuHL riders
+(16, step 2), ``--incremental-refresh``, hyperparameter tuning, the lane
+scheduler (18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir``
+(19).
 Sparse, hybrid and pre-indexed shards and ``--input-format libsvm`` are
 taken; a random effect on a sparse shard trains and saves a compact model;
 matrix-factorization coordinates read both their entity columns;
@@ -54,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import logging
 import os
@@ -78,6 +90,7 @@ from photon_ml_torch.data.validators import DataValidationType, validate_game_da
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.estimators import GameEstimator, TrainPartition
 from photon_ml_torch.evaluation.evaluators import parse_evaluator
+from photon_ml_torch.io.checkpoint import TrainingCheckpointer
 from photon_ml_torch.io.data_reader import read_merged
 from photon_ml_torch.io.partitioned_reader import read_partitioned
 from photon_ml_torch.io.index_map import IdentityIndexMap, IndexMap
@@ -89,6 +102,7 @@ from photon_ml_torch.io.model_io import (
 )
 from photon_ml_torch.ops.normalization import NormalizationType
 from photon_ml_torch.parallel import multihost
+from photon_ml_torch.resilience import run_with_recovery
 from photon_ml_torch.types import TaskType
 from photon_ml_torch.util import PhotonLogger, Timed
 from photon_ml_torch.util.date_range import parse_date_or_days_range, resolve_input_paths
@@ -131,11 +145,17 @@ class GameTrainingParams:
     #: "yyyyMMdd-yyyyMMdd" or "N-M" days ago: read <path>/daily/yyyy/MM/dd
     input_date_range: str | None = None
     validation_data_date_range: str | None = None
+    #: one checkpoint directory per configuration under it (None: none)
+    checkpoint_dir: str | None = None
+    #: coordinate updates (fused sweeps) between checkpoints
+    checkpoint_every: int = 1
+    #: False ignores existing checkpoints on the first attempt
+    resume: bool = True
+    #: restarts of a configuration after a transient failure
+    max_restarts: int = 0
     # not ported: each refused by check_ported() when set
     hyperparameter_tuning: str = "NONE"
     hyperparameter_prior_json: str | None = None
-    checkpoint_dir: str | None = None
-    max_restarts: int = 0
     profile_dir: str | None = None
     telemetry_dir: str | None = None
     trace_dir: str | None = None
@@ -154,9 +174,7 @@ class GameTrainingParams:
         port lacks, before any data is read."""
         left_out = (
             (self.streaming_chunks > 0 or self.duhl_working_set > 0,
-             "--streaming-chunks and the DuHL schedule (out-of-core GAME)", 16),
-            (bool(self.checkpoint_dir), "--checkpoint-dir and resume", 16),
-            (self.max_restarts > 0, "--max-restarts (the recovery layer)", 16),
+             "--streaming-chunks and the DuHL schedule (out-of-core GAME)", "16 (step 2)"),
             (self.incremental_refresh, "--incremental-refresh", 18),
             (self.hyperparameter_tuning != "NONE" or bool(self.hyperparameter_prior_json),
              "hyperparameter tuning", 18),
@@ -181,6 +199,8 @@ class GameTrainingParams:
                             f"{self.on_corrupt!r}")
         if self.max_restarts < 0:
             problems.append("--max-restarts must be >= 0")
+        if self.checkpoint_every < 1:
+            problems.append("--checkpoint-every must be >= 1")
         sequence = self.update_sequence or tuple(self.coordinates.keys())
         for cid in sequence:
             if cid not in self.coordinates:
@@ -244,6 +264,12 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
         # files are rank 0's, the other ranks write into a scratch directory
         created = not torch.distributed.is_initialized()
         info = multihost.initialize(device=device)
+        if params.max_restarts > 0 and info.world_size > 1:
+            if created:
+                multihost.shutdown()
+            raise NotImplementedError(
+                "--max-restarts above 0 on a run of several ranks (coordinated recovery) is "
+                "not ported yet: ROADMAP.md item 16 (step 2)")
         if info.rank > 0:
             params = dataclasses.replace(
                 params, root_output_dir=os.path.join(params.root_output_dir,
@@ -391,7 +417,7 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             info=partition, exchange=exchange, lane_multiple=pad_multiple,
             entity_rank_presence=train_part.entity_rank_presence)
 
-    def make_estimator(reg_weights) -> GameEstimator:
+    def make_estimator(reg_weights, checkpointer=None, resume=True) -> GameEstimator:
         return GameEstimator(
             task=params.task_type,
             coordinate_configs=estimator_coordinate_configs(params.coordinates, reg_weights),
@@ -401,6 +427,9 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             validation_evaluators=params.evaluators,
             locked_coordinates=frozenset(params.partial_retrain_locked_coordinates),
             intercept_indices=train.intercept_indices,
+            checkpointer=checkpointer,
+            checkpoint_every=params.checkpoint_every,
+            resume=resume,
             mesh=mesh,
             fe_feature_sharded=mesh is not None and mesh.size(1) > 1,
             partition=estimator_partition,
@@ -410,15 +439,33 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
     job_log.info("expanded λ grid to %d configurations", len(grid))
     first_evaluator = parse_evaluator(params.evaluators[0]) if params.evaluators else None
 
+    def make_checkpointer(config_index: int, reg_weights):
+        if not params.checkpoint_dir:
+            return None
+        # keyed by the configuration's content, not only its grid position:
+        # an edited λ grid never resumes another configuration's checkpoint
+        digest = hashlib.sha256(
+            json.dumps(sorted(reg_weights.items()), default=float).encode()).hexdigest()[:12]
+        return TrainingCheckpointer(
+            os.path.join(params.checkpoint_dir, f"config_{config_index}_{digest}"))
+
     results = []
     warm_model = initial_model
     best_index, best_metric = -1, float("nan")
     for i, reg_weights in enumerate(grid):
+        ckpt = make_checkpointer(i, reg_weights)
+
+        def attempt(restart: int, _rw=reg_weights, _ck=ckpt, _init=warm_model):
+            # a restart resumes even under --no-resume: that is what the
+            # checkpoint is for
+            est = make_estimator(_rw, _ck, resume=params.resume or restart > 0)
+            return est.fit(train.dataset,
+                           validation_dataset=None if validation is None else validation.dataset,
+                           initial_model=_init)
+
         with Timed(f"train config {i}", sync=sync):
-            result = make_estimator(reg_weights).fit(
-                train.dataset,
-                validation_dataset=None if validation is None else validation.dataset,
-                initial_model=warm_model)
+            result = run_with_recovery(attempt, max_restarts=params.max_restarts,
+                                       checkpointer=ckpt, description=f"train config {i}")
         # warm start the next grid point (reference GameEstimator.fit:352-366)
         warm_model = result.model
         results.append((reg_weights, result))
@@ -491,7 +538,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="reuse index stores built by the feature indexing driver (plain "
                         ".keys or off-heap .photonix)")
     p.add_argument("--override-output", action="store_true")
-    p.add_argument("--checkpoint-dir", help="not ported (item 16)")
+    p.add_argument("--checkpoint-dir",
+                   help="checkpoints, one directory per configuration; a rerun resumes")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="save every N coordinate updates (fused sweeps with --distributed)")
+    p.add_argument("--resume", action=argparse.BooleanOptionalAction, default=True,
+                   help="resume from existing checkpoints (--no-resume: a fresh run)")
     p.add_argument("--profile-dir", help="not ported (item 19)")
     p.add_argument("--telemetry-dir", help="not ported (item 19)")
     p.add_argument("--trace-dir", help="not ported (item 19)")
@@ -512,10 +564,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
                         "(skip-and-count)")
     p.add_argument("--max-restarts", type=int, default=0,
-                   help="restarts after a divergence or transient failure; the port has no "
-                        "recovery layer yet (item 16), so only 0 is taken")
-    p.add_argument("--streaming-chunks", type=int, default=0, help="not ported (item 16)")
-    p.add_argument("--duhl-working-set", type=int, default=0, help="not ported (item 16)")
+                   help="restarts of a configuration after a divergence (with a checkpoint) "
+                        "or a transient failure; one process only (the JAX driver's default "
+                        "is 2)")
+    p.add_argument("--streaming-chunks", type=int, default=0,
+                   help="not ported (item 16, step 2)")
+    p.add_argument("--duhl-working-set", type=int, default=0,
+                   help="not ported (item 16, step 2)")
     p.add_argument("--incremental-refresh", action="store_true", help="not ported (item 18)")
     return p
 
@@ -556,6 +611,8 @@ def parse_args(argv: Sequence[str] | None = None) -> GameTrainingParams:
         index_maps_dir=args.index_maps_dir,
         override_output=args.override_output,
         checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
         profile_dir=args.profile_dir,
         telemetry_dir=args.telemetry_dir,
         trace_dir=args.trace_dir,

@@ -12,13 +12,20 @@ writeModelsInText, :211-215).
         --task-type LOGISTIC_REGRESSION --regularization-weights 1,10
 
 Runs on the CUDA device; ``main(argv, device="cpu")`` runs on the CPU. The
-flags keep the JAX driver's names and meanings. Left out, each refused with
-``NotImplementedError`` naming its ROADMAP.md item before any data is read:
-``--streaming-chunks``, ``--checkpoint-dir`` and ``--max-restarts`` above 0
-(item 16; the port has no recovery layer, so its default is 0),
-``--grid-parallel`` and ``--search-rounds`` (18), ``--enable-diagnostics``,
-``--num-bootstraps``, ``--telemetry-dir`` and ``--trace-dir`` (19).
-``--input-format libsvm`` reads LibSVM text (``io/libsvm.py``).
+flags keep the JAX driver's names and meanings. ``--streaming-chunks N``
+trains out of core: the data is never read whole, and every objective
+evaluation is one chunked epoch over the Avro blocks
+(``estimators.train_glm_streaming``), with ``--no-streaming-prefetch``
+decoding inline. ``--checkpoint-dir`` (streaming only) saves the solver's
+state every ``--checkpoint-every`` iterations and at each λ, and a rerun
+resumes from it; ``--max-restarts`` restarts the stages after a transient
+failure (``resilience/recovery.py``), resuming from the checkpoint. The
+port's default for ``--max-restarts`` is 0 (the JAX driver's is 2).
+Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
+item before any data is read: ``--grid-parallel`` and ``--search-rounds``
+(18), ``--enable-diagnostics``, ``--num-bootstraps``, ``--telemetry-dir`` and
+``--trace-dir`` (19). ``--input-format libsvm`` reads LibSVM text
+(``io/libsvm.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from photon_ml_torch.data.batch import LabeledPointBatch, summarize
 from photon_ml_torch.data.validators import DataValidationType, validate_arrays
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.diagnostics.metrics import METRIC_DIRECTIONS, evaluate_model
-from photon_ml_torch.estimators import train_glm
+from photon_ml_torch.estimators import train_glm, train_glm_streaming
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
 from photon_ml_torch.io.model_io import write_glm_text
 from photon_ml_torch.ops.normalization import NormalizationType, build_normalization
@@ -90,24 +97,29 @@ class GLMDriverParams:
     input_format: str = "avro"
     #: "raise" (strict) or "quarantine" (skip-and-count corrupt Avro blocks)
     on_corrupt: str = "raise"
+    #: out-of-core epochs: records per chunk (> 0 opts in; 0 reads in core)
+    streaming_chunks: int = 0
+    #: False decodes the chunks inline (no background decode thread)
+    streaming_prefetch: bool = True
+    #: streamed solves' checkpoints (io/checkpoint.SolverCheckpointer);
+    #: needs streaming_chunks
+    checkpoint_dir: str | None = None
+    #: iterations between mid-solve checkpoints (λ boundaries always save)
+    checkpoint_every: int = 1
+    #: restarts after a transient failure (resilience/recovery.py)
+    max_restarts: int = 0
     # not ported: each refused by check_ported() when set
     enable_diagnostics: bool = False
     num_bootstraps: int = 0
     grid_parallel: bool = False
     telemetry_dir: str | None = None
     trace_dir: str | None = None
-    streaming_chunks: int = 0
-    checkpoint_dir: str | None = None
-    max_restarts: int = 0
     search_rounds: int = 0
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for the first option the port lacks,
         before any data is read."""
         left_out = (
-            (self.streaming_chunks > 0, "--streaming-chunks (out-of-core epochs)", 16),
-            (bool(self.checkpoint_dir), "--checkpoint-dir (crash-safe resume)", 16),
-            (self.max_restarts > 0, "--max-restarts (the recovery layer)", 16),
             (self.grid_parallel, "--grid-parallel (vmapped λ lanes)", 18),
             (self.search_rounds > 0, "--search-rounds (model search)", 18),
             (self.enable_diagnostics or self.num_bootstraps > 0,
@@ -140,9 +152,90 @@ def _read_batch(path: str, fmt: str, shard_cfg, device, index_maps=None,
     return batch, ds, result.index_maps, result.intercept_indices.get("features")
 
 
+def _check_streaming_supported(params: GLMDriverParams) -> None:
+    """The streamed path never holds the whole batch: refuse, before any data
+    is read, the stages that need it."""
+    if params.input_format != "avro":
+        raise ValueError(
+            "--streaming-chunks streams Avro container blocks; for "
+            "libsvm inputs drop --streaming-chunks (or convert with "
+            "cli/libsvm_to_avro.py and stream the result)")
+    if params.compute_variance:
+        raise ValueError(
+            "coefficient variances decompose the in-core Hessian; drop "
+            "--compute-variance or run without --streaming-chunks")
+    if params.optimizer == OptimizerType.NEWTON:
+        raise ValueError(
+            "NEWTON needs the dense [d, d] Hessian; use --optimizer TRON "
+            "for streamed second-order solves")
+
+
+def _check_checkpoint_supported(params: GLMDriverParams) -> None:
+    if params.checkpoint_dir and params.streaming_chunks <= 0:
+        raise ValueError(
+            "--checkpoint-dir resumes STREAMING solves (epoch-granular "
+            "solver state; io/checkpoint.SolverCheckpointer) — pass "
+            "--streaming-chunks N to opt in, or drop --checkpoint-dir "
+            "(the in-core path re-runs from scratch under --max-restarts)")
+    if params.max_restarts < 0:
+        raise ValueError("--max-restarts must be >= 0")
+    if params.checkpoint_every < 1:
+        raise ValueError("--checkpoint-every must be >= 1")
+
+
+def _prepare_streaming(params: GLMDriverParams, shard_cfg, device):
+    """The streamed PREPROCESS: the index map from one pass that keeps no
+    record, the chunk source over the block plan, per-chunk validation, and
+    the normalization statistics from one streamed pass."""
+    from photon_ml_torch.algorithm.streaming import streaming_summarize
+    from photon_ml_torch.io.avro import list_avro_files
+    from photon_ml_torch.io.index_map import INTERCEPT_KEY
+    from photon_ml_torch.io.stream_reader import (
+        AvroChunkSource,
+        ChunkPrefetcher,
+        DenseRecordAssembler,
+        build_streaming_index_maps,
+    )
+    from photon_ml_torch.resilience import default_io_policy
+
+    files = list_avro_files(params.input_data_path)
+    index_maps = default_io_policy().call(
+        lambda: build_streaming_index_maps(files, shard_cfg, on_corrupt=params.on_corrupt),
+        description=f"streaming vocab pass over {params.input_data_path}")
+    imap = index_maps["features"]
+    intercept_index = imap.get_index(INTERCEPT_KEY)
+    if intercept_index < 0:
+        intercept_index = None
+    source = AvroChunkSource(files, DenseRecordAssembler(imap, shard_cfg["features"]),
+                             chunk_records=params.streaming_chunks,
+                             on_corrupt=params.on_corrupt)
+    if params.data_validation != DataValidationType.VALIDATE_DISABLED:
+        # the true rows of each chunk (the zero-weight padding is layout)
+        with ChunkPrefetcher(source, prefetch=False) as chunks:
+            for chunk, spec in zip(chunks, source.specs):
+                n = spec.num_records
+                validate_arrays(labels=chunk.labels[:n], task=params.task_type,
+                                offsets=chunk.offsets[:n], weights=chunk.weights[:n],
+                                feature_shards={"features": chunk.features[:n]},
+                                validation_type=params.data_validation)
+    norm = None
+    if params.normalization != NormalizationType.NONE:
+        stats = streaming_summarize(source, prefetch=params.streaming_prefetch)
+        stat = {k: torch.as_tensor(stats[k], dtype=torch.float32, device=device)
+                for k in ("mean", "variance", "max_magnitude")}
+        norm = build_normalization(params.normalization, **stat, intercept_index=intercept_index)
+    return source, index_maps, intercept_index, norm
+
+
 def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
-    """The staged pipeline on ``device`` (CUDA unless "cpu")."""
+    """The staged pipeline on ``device`` (CUDA unless "cpu"), restarted up
+    to ``max_restarts`` times after a transient failure."""
+    from photon_ml_torch.resilience import run_with_recovery
+
     params.check_ported()
+    if params.streaming_chunks > 0:
+        _check_streaming_supported(params)
+    _check_checkpoint_supported(params)
     device = resolve_device(device)
     if params.coefficient_box_constraints and params.normalization != NormalizationType.NONE:
         # bounds are stated in original feature space; the solvers work in
@@ -152,31 +245,54 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
             "are stated in original feature space; the solvers work in normalized space) — "
             "drop normalization.type or the box constraints")
     os.makedirs(params.output_dir, exist_ok=True)
+    checkpointer = None
+    if params.checkpoint_dir:
+        from photon_ml_torch.io.checkpoint import SolverCheckpointer
+
+        checkpointer = SolverCheckpointer(params.checkpoint_dir,
+                                          save_every=params.checkpoint_every)
+    return run_with_recovery(lambda restart: _run_stages(params, device, checkpointer),
+                             max_restarts=params.max_restarts, checkpointer=checkpointer,
+                             description="glm training")
+
+
+def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResult:
     reset_timings()
     sync = torch.cuda.synchronize if device.type == "cuda" else None
     stage = DriverStage.INIT
     shard_cfg = {"features": FeatureShardConfiguration(feature_bags=("features",))}
+    streaming = params.streaming_chunks > 0
 
     with PhotonLogger(os.path.join(params.output_dir, "driver.log")) as job_log:
         # PREPROCESS
         with Timed("glm preprocess", sync=sync):
-            batch, ds, index_maps, intercept_index = _read_batch(
-                params.input_data_path, params.input_format, shard_cfg, device,
-                on_corrupt=params.on_corrupt)
-            validate_arrays(
-                labels=ds.host_array("labels"), task=params.task_type,
-                offsets=ds.host_array("offsets"), weights=ds.host_array("weights"),
-                feature_shards={"features": ds.host_array("shard/features")},
-                validation_type=params.data_validation)
-            norm = None
-            if params.normalization != NormalizationType.NONE:
-                stats = summarize(ds.host_array("shard/features"), ds.host_array("weights"))
-                stat = {k: torch.as_tensor(stats[k], dtype=batch.labels.dtype, device=device)
-                        for k in ("mean", "variance", "max_magnitude")}
-                norm = build_normalization(params.normalization, **stat,
-                                           intercept_index=intercept_index)
+            if streaming:
+                source, index_maps, intercept_index, norm = _prepare_streaming(
+                    params, shard_cfg, device)
+            else:
+                batch, ds, index_maps, intercept_index = _read_batch(
+                    params.input_data_path, params.input_format, shard_cfg, device,
+                    on_corrupt=params.on_corrupt)
+                validate_arrays(
+                    labels=ds.host_array("labels"), task=params.task_type,
+                    offsets=ds.host_array("offsets"), weights=ds.host_array("weights"),
+                    feature_shards={"features": ds.host_array("shard/features")},
+                    validation_type=params.data_validation)
+                norm = None
+                if params.normalization != NormalizationType.NONE:
+                    stats = summarize(ds.host_array("shard/features"), ds.host_array("weights"))
+                    stat = {k: torch.as_tensor(stats[k], dtype=batch.labels.dtype,
+                                               device=device)
+                            for k in ("mean", "variance", "max_magnitude")}
+                    norm = build_normalization(params.normalization, **stat,
+                                               intercept_index=intercept_index)
         stage = DriverStage.PREPROCESSED
-        job_log.info("preprocessed %d samples, %d features", batch.num_samples, batch.dim)
+        if streaming:
+            job_log.info("preprocessed %d samples, %d features (streaming: %d chunks of <=%d "
+                         "records)", source.total_records, source.dim, source.num_chunks,
+                         params.streaming_chunks)
+        else:
+            job_log.info("preprocessed %d samples, %d features", batch.num_samples, batch.dim)
 
         # TRAIN
         opt = OptimizerConfig(optimizer_type=params.optimizer,
@@ -188,12 +304,21 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
             lower_bounds, upper_bounds = build_bound_arrays(
                 params.coefficient_box_constraints, index_maps["features"])
         with Timed("glm train", sync=sync):
-            models = train_glm(
-                batch, params.task_type, optimizer=opt,
-                regularization_weights=params.regularization_weights,
-                elastic_net_alpha=params.elastic_net_alpha, normalization=norm,
-                intercept_index=intercept_index, compute_variance=params.compute_variance,
-                lower_bounds=lower_bounds, upper_bounds=upper_bounds)
+            if streaming:
+                models = train_glm_streaming(
+                    source, params.task_type, optimizer=opt,
+                    regularization_weights=params.regularization_weights,
+                    elastic_net_alpha=params.elastic_net_alpha, normalization=norm,
+                    intercept_index=intercept_index, prefetch=params.streaming_prefetch,
+                    lower_bounds=lower_bounds, upper_bounds=upper_bounds,
+                    checkpointer=checkpointer, device=device)
+            else:
+                models = train_glm(
+                    batch, params.task_type, optimizer=opt,
+                    regularization_weights=params.regularization_weights,
+                    elastic_net_alpha=params.elastic_net_alpha, normalization=norm,
+                    intercept_index=intercept_index, compute_variance=params.compute_variance,
+                    lower_bounds=lower_bounds, upper_bounds=upper_bounds)
         stage = DriverStage.TRAINED
         with Timed("glm write models"):
             write_glm_text(os.path.join(params.output_dir, "models-text"), models,
@@ -264,11 +389,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--grid-parallel", action="store_true", help="not ported (item 18)")
     p.add_argument("--telemetry-dir", help="not ported (item 19)")
     p.add_argument("--trace-dir", help="not ported (item 19)")
-    p.add_argument("--streaming-chunks", type=int, default=0, help="not ported (item 16)")
-    p.add_argument("--checkpoint-dir", help="not ported (item 16)")
+    p.add_argument("--streaming-chunks", type=int, default=0,
+                   help="out-of-core epochs: records per chunk (0 reads the data in core)")
+    p.add_argument("--no-streaming-prefetch", action="store_true",
+                   help="decode each chunk inline instead of in a background thread")
+    p.add_argument("--checkpoint-dir",
+                   help="checkpoints of --streaming-chunks solves: a rerun resumes from them")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="solver iterations between mid-solve checkpoints (λ boundaries "
+                        "always save)")
     p.add_argument("--max-restarts", type=int, default=0,
-                   help="restarts after a transient failure; the port has no recovery layer "
-                        "yet (item 16), so only 0 is taken")
+                   help="restarts after a transient failure, resuming from --checkpoint-dir "
+                        "(the JAX driver's default is 2)")
     p.add_argument("--search-rounds", type=int, default=0, help="not ported (item 18)")
     return p
 
@@ -300,7 +432,9 @@ def main(argv: Sequence[str] | None = None, *, device=None) -> GLMDriverResult:
             telemetry_dir=args.telemetry_dir,
             trace_dir=args.trace_dir,
             streaming_chunks=args.streaming_chunks,
+            streaming_prefetch=not args.no_streaming_prefetch,
             checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
             max_restarts=args.max_restarts,
             search_rounds=args.search_rounds,
         ),

@@ -463,41 +463,63 @@ class SparseLabeledPointBatch:
         and no ELL. hybrid: the dense-head view (HybridPolicy/True).
         """
         device = resolve_device(device)
-        policy = resolve_hybrid_policy(hybrid)
-        if policy is not None and column_sorted_gradient:
-            raise ValueError(
-                "hybrid and column_sorted_gradient are mutually exclusive "
-                "layouts (the hybrid tail rides the ELL view)"
-            )
-        host = _host_dtype(dtype)
-        rows = np.asarray(rows, dtype=np.int64)
-        cols = np.asarray(cols, dtype=np.int64)
-        vals = np.asarray(vals, dtype=host)
-        labels = np.asarray(labels, dtype=host)
-        n = labels.shape[0]
-        _check_index_ranges(rows, cols, n, dim)
-        rows, cols, vals = coalesce_coo(rows, cols, vals)
-        extra, layout = {}, None
-        if policy is not None:
-            layout = {}
-            hot_vals, hot_ids, rows, cols, vals = _hybrid_arrays(rows, cols, vals, n, dim,
-                                                                 policy, layout=layout)
-            extra.update(hot_vals=hot_vals, hot_col_ids=hot_ids)
-        if ell and not column_sorted_gradient:
-            ev, ec, rows, cols, vals = _ell_arrays(
-                rows, cols, vals, n, None if ell == "auto" or ell is True else int(ell))
-            extra.update(ell_vals=ev, ell_cols=ec)
-        nnz = len(vals)
-        target = max(pad_nnz_to or 0, nnz)
-        if target > nnz:
-            pad_row = int(rows[-1]) if nnz else 0
-            rows = np.pad(rows, (0, target - nnz), constant_values=pad_row)
-            cols = np.pad(cols, (0, target - nnz))
-            vals = np.pad(vals, (0, target - nnz))
-        if column_sorted_gradient:
-            extra.update(_column_sorted_arrays(rows, cols, vals, len(vals), dim=dim))
-        return cls._assemble(rows, cols, vals, labels, offsets, weights, dim=dim, dtype=dtype,
-                             device=device, extra=extra, layout=layout)
+        return cls.from_host(coo_host_arrays(
+            rows, cols, vals, labels, dim=dim, offsets=offsets, weights=weights, dtype=dtype,
+            pad_nnz_to=pad_nnz_to, column_sorted_gradient=column_sorted_gradient, ell=ell,
+            hybrid=hybrid), device=device)
+
+    @classmethod
+    def from_host(cls, host: dict, *, device) -> "SparseLabeledPointBatch":
+        """The batch of :func:`coo_host_arrays`' host arrays on ``device``."""
+        return cls._assemble(host["rows"], host["cols"], host["vals"], host["labels"],
+                             host["offsets"], host["weights"], dim=host["dim"],
+                             dtype=host["dtype"], device=device, extra=host["extra"],
+                             layout=host["layout"])
+
+
+def coo_host_arrays(rows, cols, vals, labels, *, dim: int, offsets=None, weights=None,
+                    dtype: torch.dtype = torch.float32, pad_nnz_to: int | None = None,
+                    column_sorted_gradient: bool = False, ell: bool | int | str = "auto",
+                    hybrid: HybridPolicy | bool | None = None) -> dict:
+    """The host (numpy) arrays of ``SparseLabeledPointBatch.from_coo``: the
+    coalesced flat tail, the ELL/hybrid/column-sorted views and the
+    per-sample columns, before any copy to a device (a streamed chunk's
+    decode thread builds these and touches no device)."""
+    policy = resolve_hybrid_policy(hybrid)
+    if policy is not None and column_sorted_gradient:
+        raise ValueError(
+            "hybrid and column_sorted_gradient are mutually exclusive "
+            "layouts (the hybrid tail rides the ELL view)"
+        )
+    host = _host_dtype(dtype)
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    vals = np.asarray(vals, dtype=host)
+    labels = np.asarray(labels, dtype=host)
+    n = labels.shape[0]
+    _check_index_ranges(rows, cols, n, dim)
+    rows, cols, vals = coalesce_coo(rows, cols, vals)
+    extra, layout = {}, None
+    if policy is not None:
+        layout = {}
+        hot_vals, hot_ids, rows, cols, vals = _hybrid_arrays(rows, cols, vals, n, dim,
+                                                             policy, layout=layout)
+        extra.update(hot_vals=hot_vals, hot_col_ids=hot_ids)
+    if ell and not column_sorted_gradient:
+        ev, ec, rows, cols, vals = _ell_arrays(
+            rows, cols, vals, n, None if ell == "auto" or ell is True else int(ell))
+        extra.update(ell_vals=ev, ell_cols=ec)
+    nnz = len(vals)
+    target = max(pad_nnz_to or 0, nnz)
+    if target > nnz:
+        pad_row = int(rows[-1]) if nnz else 0
+        rows = np.pad(rows, (0, target - nnz), constant_values=pad_row)
+        cols = np.pad(cols, (0, target - nnz))
+        vals = np.pad(vals, (0, target - nnz))
+    if column_sorted_gradient:
+        extra.update(_column_sorted_arrays(rows, cols, vals, len(vals), dim=dim))
+    return dict(rows=rows, cols=cols, vals=vals, labels=labels, offsets=offsets,
+                weights=weights, dim=int(dim), dtype=dtype, extra=extra, layout=layout)
 
 
 def _ell_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n: int,

@@ -16,13 +16,17 @@ per-entity Pearson feature selection) or on sparse shards (compact ``[E, K]``
 tables over each entity's active columns), and matrix-factorization
 coordinates (``algorithm/mf_coordinate.py``). ``train_glm`` (reference ModelTraining.scala:55-228)
 is the single-GLM regularization path with warm starts, for dense and sparse
-batches alike.
+batches alike; ``train_glm_streaming`` is the same path over an out-of-core
+chunk source (``io/stream_reader.py``), checkpointed through
+``io/checkpoint.SolverCheckpointer``. A ``GameEstimator`` with a checkpointer
+saves and resumes its coordinate descent or fused program.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Callable, Mapping, Sequence
 
 import numpy as np
@@ -47,6 +51,7 @@ from photon_ml_torch.data.game_data import (
     build_random_effect_dataset_partitioned,
 )
 from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch, SparseShard
+from photon_ml_torch.device import resolve_device
 from photon_ml_torch.evaluation.evaluators import (
     EvaluationData,
     default_evaluator_for_task,
@@ -175,7 +180,15 @@ class GameEstimator:
     #: shard id -> index of the intercept column (exempt from normalization,
     #: absorbs the standardization margin shift)
     intercept_indices: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    #: an io/checkpoint.TrainingCheckpointer: coordinate-descent progress (or,
+    #: over a mesh, the fused program's state) is saved every
+    #: ``checkpoint_every`` updates (sweeps) and at the last one
     checkpointer: object | None = None
+    checkpoint_every: int = 1
+    #: False ignores an existing checkpoint (a fresh fit)
+    resume: bool = True
+    #: a partitioned fit's restore pinned to one step (0: from scratch)
+    resume_step: int | None = None
     #: raise DivergenceError on non-finite coordinate updates
     check_finite: bool = True
     #: a data-axis DeviceMesh (``parallel/mesh.make_mesh``): fit() trains
@@ -206,8 +219,6 @@ class GameEstimator:
             initial_model: GameModel | None = None) -> CoordinateDescentResult:
         if self.fe_feature_sharded and self.mesh is None:
             raise ValueError("fe_feature_sharded requires a mesh (GameEstimator(mesh=...))")
-        if self.checkpointer is not None:
-            raise _not_ported("checkpoints in run_coordinate_descent", 16)
         if self.telemetry is not None:
             raise _not_ported("solver telemetry", 19)
         if self.partition is not None and self.mesh is None:
@@ -248,6 +259,9 @@ class GameEstimator:
             validation_evaluators=evaluators,
             validation_scorer=validation_scorer,
             validation_data=validation_data,
+            checkpointer=self.checkpointer,
+            checkpoint_every=self.checkpoint_every,
+            resume=self.resume,
             check_finite=self.check_finite,
             on_update=self.on_update,
         )
@@ -540,7 +554,9 @@ class GameEstimator:
                 program, {partition.info.rank: (train_ds, re_datasets)}, self.mesh,
                 partition.info.num_ranks, num_iterations=self.num_iterations,
                 state=warm_state, check_finite=self.check_finite,
-                exchange=partition.exchange, fe_feature_sharded=self.fe_feature_sharded)
+                exchange=partition.exchange, fe_feature_sharded=self.fe_feature_sharded,
+                checkpointer=self.checkpointer, checkpoint_every=self.checkpoint_every,
+                resume=self.resume, resume_step=self.resume_step)
         else:
             result = train_distributed(
                 program, train_ds, re_datasets, mf_datasets=mf_datasets, mesh=self.mesh,
@@ -549,7 +565,9 @@ class GameEstimator:
                 validation_dataset=val_ds if val_eval_data is not None else None,
                 validation_evaluators=evaluators, validation_eval_data=val_eval_data,
                 training_evaluator=default_evaluator_for_task(self.task),
-                training_eval_data=eval_data(dataset), check_finite=self.check_finite)
+                training_eval_data=eval_data(dataset), check_finite=self.check_finite,
+                checkpointer=self.checkpointer, checkpoint_every=self.checkpoint_every,
+                resume=self.resume)
 
         trainable_cids = {} if fe_cid is None else {fe_shard: fe_cid}
         trainable_cids.update(extra_fe_cid_of_shard)
@@ -776,4 +794,195 @@ def train_glm(
         models[lam] = GeneralizedLinearModel(Coefficients(means=means, variances=variances), task)
         logger.info("trained λ=%g: value=%g iters=%d", lam, float(result.value),
                     result.iterations)
+    return models
+
+
+def _normalization_digest(norm) -> str | None:
+    """16-hex digest of a NormalizationContext's factor and shift arrays
+    (None without normalization): the streamed checkpoint's fingerprint
+    field, the JAX package's digest of the same bytes."""
+    if norm is None:
+        return None
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in (norm.factors, norm.shifts):
+        if part is None:
+            h.update(b"none")
+        else:
+            h.update(np.ascontiguousarray(part.detach().cpu().numpy()).tobytes())
+    return h.hexdigest()[:16]
+
+
+def train_glm_streaming(
+    source,
+    task: TaskType,
+    *,
+    optimizer: OptimizerConfig | None = None,
+    regularization_weights: Sequence[float] = (0.0,),
+    elastic_net_alpha: float = 0.0,
+    normalization: NormalizationContext | None = None,
+    intercept_index: int | None = None,
+    telemetry=None,
+    mesh=None,
+    exchange=None,
+    prefetch: bool = True,
+    retry_policy=None,
+    chunk_timeout: float | None = None,
+    lower_bounds=None,
+    upper_bounds=None,
+    checkpointer=None,
+    use_kernel: bool | None = None,
+    device=None,
+    on_solve: Callable | None = None,
+) -> dict[float, GeneralizedLinearModel]:
+    """The warm-started λ path of :func:`train_glm` over an out-of-core chunk
+    source (``io/stream_reader.ChunkSource``), on ``device`` (CUDA unless
+    ``"cpu"``). Every objective evaluation is one exact chunked epoch
+    (``algorithm/streaming.StreamingGLMObjective``), with the next chunk's
+    decode behind the current one's copy and accumulation
+    (``prefetch=False`` decodes inline). L-BFGS, LBFGSB, OWL-QN and TRON
+    only: NEWTON needs the dense [d, d] Hessian.
+
+    ``checkpointer``: an ``io/checkpoint.SolverCheckpointer``. Every
+    ``save_every`` outer iterations and at each λ boundary it saves the
+    solver state, the λ-grid position, the epoch cursor and the finished
+    λs' coefficients; a restarted run skips the finished λs and re-enters
+    the solve in flight from its state, bitwise where it left off. A
+    checkpoint written under another λ grid, optimizer or input fails fast
+    naming the fields that differ. The fingerprint and the saved fields are
+    the JAX package's, so either package resumes the other's checkpoints.
+
+    on_solve: called with (λ, SolverResult, the λ's StreamingGLMObjective)
+    after each λ's solve. ``telemetry`` is ROADMAP.md item 19; ``mesh`` and
+    an ``exchange`` of several ranks are item 16 step 2: they raise before
+    any data is read.
+    """
+    from photon_ml_torch.algorithm.streaming import StreamingGLMObjective, check_single_process
+    from photon_ml_torch.io.checkpoint import host_array
+    from photon_ml_torch.io.stream_reader import DEFAULT_CHUNK_TIMEOUT
+    from photon_ml_torch.optim.optimizer import solver_state_class
+    from photon_ml_torch.resilience import recovery
+
+    check_single_process(mesh, exchange)
+    if telemetry is not None:
+        raise _not_ported("solver telemetry of train_glm_streaming", 19)
+    device = resolve_device(device)
+    optimizer = resolve_auto_optimizer(optimizer or OptimizerConfig())
+    if optimizer.optimizer_type == OptimizerType.NEWTON:
+        raise ValueError("NEWTON cannot stream (dense [d, d] Hessian); use TRON for "
+                         "streamed second-order solves")
+    has_bounds = lower_bounds is not None or upper_bounds is not None
+    if has_bounds and (elastic_net_alpha > 0.0 or optimizer.optimizer_type
+                       not in (OptimizerType.LBFGS, OptimizerType.LBFGSB)):
+        raise ValueError("box constraints require the LBFGS family without L1 "
+                         "(elastic_net_alpha must be 0)")
+    loss = loss_for_task(task)
+    solve_dtype = torch.from_numpy(np.zeros(0, dtype=np.dtype(source.dtype))).dtype
+    lams = sorted(float(lam) for lam in regularization_weights)
+
+    def bound_tensor(b):
+        return None if b is None else torch.as_tensor(b, dtype=solve_dtype, device=device)
+
+    fingerprint = None
+    start_index = 0
+    completed: list[tuple[float, np.ndarray]] = []
+    resume_state_arrays = None
+    epochs_total = 0
+    resume_epochs_lambda = 0
+    if checkpointer is not None:
+        # everything a restored state is valid under (the JAX package's fields)
+        fingerprint = {
+            "kind": "glm_streaming",
+            "task": task.name,
+            "lambdas": lams,
+            "optimizer": optimizer.optimizer_type.name,
+            "max_iterations": int(optimizer.max_iterations),
+            "history": int(optimizer.history),
+            "tolerance": float(optimizer.tolerance),
+            "rel_function_tolerance": (None if optimizer.rel_function_tolerance is None
+                                       else float(optimizer.rel_function_tolerance)),
+            "max_cg_iterations": int(optimizer.max_cg_iterations),
+            "elastic_net_alpha": float(elastic_net_alpha),
+            "normalization": _normalization_digest(normalization),
+            "intercept_index": None if intercept_index is None else int(intercept_index),
+            "bounded": bool(has_bounds),
+            "dim": int(source.dim),
+            "num_chunks": int(source.num_chunks),
+            "total_records": int(source.total_records),
+            "num_ranks": 1,
+            "input": (None if getattr(source, "files", None) is None
+                      else [[os.path.basename(f), int(os.path.getsize(f))]
+                            for f in source.files]),
+        }
+        progress = checkpointer.restore_progress(fingerprint)
+        if progress is not None:
+            start_index = progress.lam_index
+            completed = list(progress.completed)
+            resume_state_arrays = progress.state_arrays
+            epochs_total = progress.epochs_total
+            resume_epochs_lambda = progress.epochs_lambda
+            recovery.counts["checkpoint_restores"] += 1
+            recovery.counts["epochs_resumed"] += progress.epochs_total + progress.epochs_lambda
+            logger.info("resuming streaming solve from checkpoint: λ %d/%d, iteration %d "
+                        "(%d epochs not redone)", start_index, len(lams), progress.iteration,
+                        progress.epochs_total + progress.epochs_lambda)
+
+    models: dict[float, GeneralizedLinearModel] = {}
+    w = torch.zeros((source.dim,), dtype=solve_dtype, device=device)
+    for li, lam in enumerate(lams):
+        l1 = elastic_net_alpha * lam
+        l2 = (1.0 - elastic_net_alpha) * lam
+        objective = StreamingGLMObjective(
+            source, loss, l2_weight=l2, normalization=normalization, prefetch=prefetch,
+            retry_policy=retry_policy,
+            chunk_timeout=DEFAULT_CHUNK_TIMEOUT if chunk_timeout is None else chunk_timeout,
+            use_kernel=use_kernel, device=device)
+        norm = objective.objective.normalization
+        if li < start_index:
+            # finished before the restored checkpoint: its saved solve-space
+            # coefficients are the model and the next λ's warm start
+            w = torch.as_tensor(completed[li][1], device=device).to(solve_dtype)
+            models[lam] = GeneralizedLinearModel(
+                Coefficients(means=norm.to_model_space(w, intercept_index)), task)
+            continue
+        opt = optimizer
+        if l1 > 0.0:
+            opt = dataclasses.replace(optimizer.with_l1(l1), optimizer_type=OptimizerType.OWLQN)
+        resume_state = None
+        if li == start_index and resume_state_arrays is not None:
+            resume_state = solver_state_class(opt).from_arrays(
+                resume_state_arrays, dtype=solve_dtype, device=device)
+            objective.epochs = resume_epochs_lambda
+        state_observer = None
+        if checkpointer is not None:
+            def state_observer(state, _li=li, _obj=objective, _mi=opt.max_iterations):
+                if state.iteration % checkpointer.save_every:
+                    return
+                if state.reason != 0 or state.iteration >= _mi:
+                    # the loop ends on this state: the λ-boundary save covers it
+                    return
+                checkpointer.save_progress(
+                    fingerprint=fingerprint, lam_index=_li, iteration=state.iteration,
+                    epochs_total=epochs_total, epochs_lambda=_obj.epochs,
+                    completed=completed, solver_state=state)
+
+        result = solve(opt, objective, w, lower_bounds=bound_tensor(lower_bounds),
+                       upper_bounds=bound_tensor(upper_bounds), state_observer=state_observer,
+                       resume_state=resume_state)
+        w = result.coefficients
+        if checkpointer is not None:
+            completed.append((lam, host_array(w)))
+            epochs_total += objective.epochs
+            # λ boundary: a failure between λs resumes with this λ done
+            checkpointer.save_progress(
+                fingerprint=fingerprint, lam_index=li + 1, iteration=0,
+                epochs_total=epochs_total, epochs_lambda=0, completed=completed,
+                solver_state=None)
+        if on_solve is not None:
+            on_solve(lam, result, objective)
+        models[lam] = GeneralizedLinearModel(
+            Coefficients(means=norm.to_model_space(w, intercept_index)), task)
+        logger.info("streamed λ=%g: value=%g iters=%d epochs=%d", lam, float(result.value),
+                    result.iterations, objective.epochs)
     return models

@@ -75,6 +75,52 @@ def any_lane(mask: torch.Tensor) -> bool:
     return bool(mask.any())
 
 
+class SolverState:
+    """The loop state of a single-vector solver (``optim/lbfgs.LBFGSState``,
+    ``owlqn.OWLQNState``, ``tron.TRONState``), with the field names of the
+    JAX package's state structs: the (de)serialization contract of
+    ``io/checkpoint.SolverCheckpointer``, in either direction. Integer
+    fields are Python ints here and int32 scalars on disk; the others are
+    tensors in the solve dtype."""
+
+    INT_FIELDS = ("count", "head", "iteration", "reason")
+
+    def to_arrays(self) -> dict[str, np.ndarray]:
+        """Every field as a host numpy copy (the next step updates the
+        history buffers in place)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out[f.name] = (np.asarray(v, dtype=np.int32) if f.name in self.INT_FIELDS
+                           else v.detach().to("cpu", copy=True).numpy())
+        return out
+
+    @classmethod
+    def from_arrays(cls, arrays, *, dtype: torch.dtype, device) -> "SolverState":
+        """A state from :meth:`to_arrays` output, or from a JAX-written one."""
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            v = np.asarray(arrays[f.name])
+            kwargs[f.name] = (int(v) if f.name in cls.INT_FIELDS
+                              else torch.as_tensor(v, device=device).to(dtype).clone())
+        return cls(**kwargs)
+
+
+def run_while(cond, body, init, *, observer=None):
+    """``state = body(state)`` while ``cond(state)``: the solvers' outer loop
+    (the JAX package's ``run_while(host=True)``). ``observer`` is called
+    with the state after every body step, the hook of solver-state
+    checkpoints; it observes and never rewrites, so a solve with one is
+    bitwise the solve without. The history buffers of a state are updated
+    in place by the next step: an observer copies what it keeps."""
+    state = init
+    while cond(state):
+        state = body(state)
+        if observer is not None:
+            observer(state)
+    return state
+
+
 @dataclasses.dataclass
 class SolverResult:
     """Final state + per-iteration history of one solve.

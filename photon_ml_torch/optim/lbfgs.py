@@ -7,6 +7,7 @@ LBFGS.scala:152-157; box projection after each step, LBFGS.scala:70-76).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -14,11 +15,13 @@ import torch
 from photon_ml_torch.optim.common import (
     LOCAL,
     ConvergenceReason,
-    VectorOps,
     SolverResult,
+    SolverState,
+    VectorOps,
     check_convergence,
     flags,
     new_history,
+    run_while,
     update_history,
     wolfe_line_search,
 )
@@ -56,6 +59,27 @@ def two_loop_direction(g, s_hist, y_hist, rho, count: int, head: int,
     return -r
 
 
+@dataclasses.dataclass
+class LBFGSState(SolverState):
+    """The L-BFGS loop state: the fields of the JAX package's ``_LBFGSState``
+    (``photon_ml_tpu/optim/lbfgs.py:80-95``)."""
+
+    w: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    s_hist: torch.Tensor
+    y_hist: torch.Tensor
+    rho: torch.Tensor
+    count: int
+    head: int
+    iteration: int
+    reason: int
+    prev_f: torch.Tensor
+    g0_norm: torch.Tensor
+    value_history: torch.Tensor
+    grad_norm_history: torch.Tensor
+
+
 def minimize_lbfgs(
     value_and_grad_fn: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
     w0: torch.Tensor,
@@ -68,6 +92,8 @@ def minimize_lbfgs(
     upper_bounds: torch.Tensor | None = None,
     max_line_search_steps: int = 25,
     ops: VectorOps = LOCAL,
+    state_observer=None,
+    resume_state: LBFGSState | None = None,
 ) -> SolverResult:
     """Minimize a smooth function with L-BFGS.
 
@@ -77,6 +103,10 @@ def minimize_lbfgs(
     reference's scheme, LBFGS.scala:70-76; the LBFGSB entry point). ``ops``
     takes every inner product and norm over the vector (a model-sharded one
     over its mesh axis, ``optim/common.py``).
+
+    ``state_observer`` sees the :class:`LBFGSState` after every outer
+    iteration; ``resume_state`` re-enters the loop from a saved state
+    without evaluating the start point again (``optim/common.run_while``).
     """
     dtype, device = w0.dtype, w0.device
     d = w0.shape[0]
@@ -96,21 +126,32 @@ def minimize_lbfgs(
         # norm of P(w - g) - w: zero iff w is box-stationary
         return ops.norm(project(w - g) - w)
 
-    w = project(w0.to(dtype))
-    f, g = value_and_grad_fn(w)
-    g0_norm = projected_grad_norm(w, g)
-    value_history = new_history(max_iter, f)
-    grad_norm_history = new_history(max_iter, g0_norm)
-    s_hist = torch.zeros((m, d), dtype=dtype, device=device)
-    y_hist = torch.zeros((m, d), dtype=dtype, device=device)
-    rho = torch.zeros((m,), dtype=dtype, device=device)
-    count = head = iteration = 0
-    reason = int(ConvergenceReason.NOT_CONVERGED)
-    if bool(g0_norm <= tolerance):  # already stationary at the start
-        reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE)
+    if resume_state is not None:
+        init = resume_state
+    else:
+        w = project(w0.to(dtype))
+        f, g = value_and_grad_fn(w)
+        g0_norm = projected_grad_norm(w, g)
+        reason = int(ConvergenceReason.NOT_CONVERGED)
+        if bool(g0_norm <= tolerance):  # already stationary at the start
+            reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE)
+        init = LBFGSState(
+            w=w, f=f, g=g,
+            s_hist=torch.zeros((m, d), dtype=dtype, device=device),
+            y_hist=torch.zeros((m, d), dtype=dtype, device=device),
+            rho=torch.zeros((m,), dtype=dtype, device=device),
+            count=0, head=0, iteration=0, reason=reason,
+            prev_f=torch.full((), float("inf"), dtype=dtype, device=device),
+            g0_norm=g0_norm,
+            value_history=new_history(max_iter, f),
+            grad_norm_history=new_history(max_iter, g0_norm))
 
-    while iteration < max_iter and reason == ConvergenceReason.NOT_CONVERGED:
-        direction = two_loop_direction(g, s_hist, y_hist, rho, count, head, ops)
+    def cond(st: LBFGSState) -> bool:
+        return st.iteration < max_iter and st.reason == ConvergenceReason.NOT_CONVERGED
+
+    def body(st: LBFGSState) -> LBFGSState:
+        w, f, g = st.w, st.f, st.g
+        direction = two_loop_direction(g, st.s_hist, st.y_hist, st.rho, st.count, st.head, ops)
         if has_box:
             # active-set masking: don't push into an active bound
             eps_b = 1e-10
@@ -125,7 +166,7 @@ def minimize_lbfgs(
         elif bool(ops.dot(g, direction) >= 0.0):
             direction = -g  # not a descent direction: steepest descent
 
-        if count == 0:
+        if st.count == 0:
             t_init = 1.0 / torch.clamp(ops.norm(g), min=1.0)
         else:
             t_init = torch.ones((), dtype=dtype, device=device)
@@ -156,28 +197,33 @@ def minimize_lbfgs(
         y = g_new - g
         sy = ops.dot(s, y)
         keep_pair = ls_success and bool(sy > 1e-10)
-        count, head = update_history(s_hist, y_hist, rho, count, head, s, y, sy, keep_pair)
+        count, head = update_history(st.s_hist, st.y_hist, st.rho, st.count, st.head, s, y, sy,
+                                     keep_pair)
 
         gnorm = projected_grad_norm(w_new, g_new)
         if ls_success:
             reason = check_convergence(
-                value=f_new, prev_value=f, grad_norm=gnorm, initial_grad_norm=g0_norm,
+                value=f_new, prev_value=f, grad_norm=gnorm, initial_grad_norm=st.g0_norm,
                 tolerance=tolerance, rel_function_tolerance=rel_function_tolerance)
             w, f, g = w_new, f_new, g_new
         else:
             reason = int(ConvergenceReason.LINE_SEARCH_FAILED)
-        iteration += 1
-        value_history[iteration] = f
-        grad_norm_history[iteration] = gnorm
+        iteration = st.iteration + 1
+        st.value_history[iteration] = f
+        st.grad_norm_history[iteration] = gnorm
+        return dataclasses.replace(st, w=w, f=f, g=g, count=count, head=head,
+                                   iteration=iteration, reason=reason, prev_f=st.f)
 
+    final = run_while(cond, body, init, observer=state_observer)
+    reason = final.reason
     if reason == ConvergenceReason.NOT_CONVERGED:
         reason = int(ConvergenceReason.MAX_ITERATIONS)
     return SolverResult(
-        coefficients=w,
-        value=f,
-        gradient_norm=projected_grad_norm(w, g),
-        iterations=iteration,
+        coefficients=final.w,
+        value=final.f,
+        gradient_norm=projected_grad_norm(final.w, final.g),
+        iterations=final.iteration,
         reason=reason,
-        value_history=value_history,
-        grad_norm_history=grad_norm_history,
+        value_history=final.value_history,
+        grad_norm_history=final.grad_norm_history,
     )

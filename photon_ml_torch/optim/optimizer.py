@@ -85,10 +85,18 @@ def solve(
     *,
     lower_bounds: torch.Tensor | None = None,
     upper_bounds: torch.Tensor | None = None,
+    state_observer=None,
+    resume_state=None,
 ) -> SolverResult:
     """Run the configured solver on a bound objective. The solver's inner
     products and norms are the objective's ``vector_ops`` (a model-sharded
-    vector's, ``parallel/column_sharded.py``), plain ones by default."""
+    vector's, ``parallel/column_sharded.py``), plain ones by default.
+
+    ``state_observer`` / ``resume_state`` (L-BFGS, LBFGSB, OWL-QN, TRON):
+    the solver-state checkpoint hooks (``io/checkpoint.SolverCheckpointer``):
+    the observer sees the solver's state after every outer iteration, and
+    ``resume_state`` re-enters from a restored one. The state's class is
+    :func:`solver_state_class`."""
     t = config.optimizer_type
     ops = getattr(objective.objective, "vector_ops", LOCAL)
     if t == OptimizerType.AUTO:
@@ -104,6 +112,11 @@ def solve(
             f"box constraints are only supported by the LBFGS family, not "
             f"{t.name} (the reference projects in LBFGS, LBFGS.scala:70-76)"
         )
+    if (state_observer is not None or resume_state is not None) and t == OptimizerType.NEWTON:
+        raise ValueError(
+            "state_observer/resume_state cover the LBFGS/OWLQN/TRON solvers only "
+            "(streaming solver checkpointing)")
+    hooks = dict(state_observer=state_observer, resume_state=resume_state)
     if t == OptimizerType.NEWTON:
         return _solve_newton(config, objective, w0)
     if t in (OptimizerType.LBFGS, OptimizerType.LBFGSB):
@@ -119,6 +132,7 @@ def solve(
             lower_bounds=lower_bounds,
             upper_bounds=upper_bounds,
             ops=ops,
+            **hooks,
         )
     if t == OptimizerType.OWLQN:
         return minimize_owlqn(
@@ -130,6 +144,7 @@ def solve(
             tolerance=config.tolerance,
             rel_function_tolerance=config.rel_function_tolerance,
             ops=ops,
+            **hooks,
         )
     if t == OptimizerType.TRON:
         loss = objective.objective.loss
@@ -147,6 +162,7 @@ def solve(
             rel_function_tolerance=config.rel_function_tolerance,
             max_cg_iter=config.max_cg_iterations,
             ops=ops,
+            **hooks,
         )
     raise ValueError(f"Unknown optimizer type {t}")
 
@@ -214,6 +230,26 @@ def resolve_auto_optimizer(
         )
         resolved = OptimizerType.NEWTON if eligible else OptimizerType.LBFGS
     return dataclasses.replace(config, optimizer_type=resolved)
+
+
+def solver_state_class(config: OptimizerConfig):
+    """The state class ``solve(config, ...)`` hands a ``state_observer``: the
+    (de)serialization contract of ``io/checkpoint.SolverCheckpointer``. An
+    elastic-net λ solves with OWL-QN, which ``optimizer_type`` says."""
+    from photon_ml_torch.optim.lbfgs import LBFGSState
+    from photon_ml_torch.optim.owlqn import OWLQNState
+    from photon_ml_torch.optim.tron import TRONState
+
+    t = config.optimizer_type
+    if t in (OptimizerType.LBFGS, OptimizerType.LBFGSB):
+        return LBFGSState
+    if t == OptimizerType.OWLQN:
+        return OWLQNState
+    if t == OptimizerType.TRON:
+        return TRONState
+    raise ValueError(
+        f"{t.name} has no host-loop (streaming) mode, so no checkpointable "
+        "solver state")
 
 
 def default_config_for(optimizer_type: OptimizerType) -> OptimizerConfig:

@@ -15,6 +15,7 @@ follow alone.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -25,11 +26,13 @@ from photon_ml_torch.optim.common import (
     VectorOps,
     LaneResult,
     SolverResult,
+    SolverState,
     any_lane,
     check_convergence,
     check_convergence_lanes,
     flags,
     new_history,
+    run_while,
     update_history,
 )
 from photon_ml_torch.optim.lanes import two_loop_direction_lanes
@@ -50,6 +53,27 @@ def pseudo_gradient(w: torch.Tensor, g: torch.Tensor, l1: torch.Tensor) -> torch
     )
 
 
+@dataclasses.dataclass
+class OWLQNState(SolverState):
+    """The OWL-QN loop state: the fields of the JAX package's
+    ``_OWLQNState`` (``f`` is the smooth + L1 value, ``g`` the smooth
+    gradient)."""
+
+    w: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    s_hist: torch.Tensor
+    y_hist: torch.Tensor
+    rho: torch.Tensor
+    count: int
+    head: int
+    iteration: int
+    reason: int
+    g0_norm: torch.Tensor
+    value_history: torch.Tensor
+    grad_norm_history: torch.Tensor
+
+
 def minimize_owlqn(
     value_and_grad_fn: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
     w0: torch.Tensor,
@@ -61,10 +85,13 @@ def minimize_owlqn(
     rel_function_tolerance: float | None = None,
     max_line_search_steps: int = 30,
     ops: VectorOps = LOCAL,
+    state_observer=None,
+    resume_state: OWLQNState | None = None,
 ) -> SolverResult:
     """Minimize smooth(w) + l1_weight * ‖w‖₁; ``value_and_grad_fn`` covers
     only the smooth part (loss + optional L2). ``ops`` takes the vector's
-    inner products, norms and the L1 sum (``optim/common.py``)."""
+    inner products, norms and the L1 sum (``optim/common.py``).
+    ``state_observer``/``resume_state``: as in ``minimize_lbfgs``."""
     dtype, device = w0.dtype, w0.device
     d = w0.shape[0]
     m = history
@@ -73,23 +100,33 @@ def minimize_owlqn(
     def full_value(w, smooth_f):
         return smooth_f + l1 * ops.abs_sum(w)
 
-    w = w0.to(dtype)
-    sf0, g = value_and_grad_fn(w)
-    f = full_value(w, sf0)
-    g0_norm = ops.norm(pseudo_gradient(w, g, l1))
-    value_history = new_history(max_iter, f)
-    grad_norm_history = new_history(max_iter, g0_norm)
-    s_hist = torch.zeros((m, d), dtype=dtype, device=device)
-    y_hist = torch.zeros((m, d), dtype=dtype, device=device)
-    rho = torch.zeros((m,), dtype=dtype, device=device)
-    count = head = iteration = 0
-    reason = int(ConvergenceReason.NOT_CONVERGED)
-    if bool(g0_norm <= tolerance):
-        reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE)
+    if resume_state is not None:
+        init = resume_state
+    else:
+        w = w0.to(dtype)
+        sf0, g = value_and_grad_fn(w)
+        f = full_value(w, sf0)
+        g0_norm = ops.norm(pseudo_gradient(w, g, l1))
+        reason = int(ConvergenceReason.NOT_CONVERGED)
+        if bool(g0_norm <= tolerance):
+            reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE)
+        init = OWLQNState(
+            w=w, f=f, g=g,
+            s_hist=torch.zeros((m, d), dtype=dtype, device=device),
+            y_hist=torch.zeros((m, d), dtype=dtype, device=device),
+            rho=torch.zeros((m,), dtype=dtype, device=device),
+            count=0, head=0, iteration=0, reason=reason, g0_norm=g0_norm,
+            value_history=new_history(max_iter, f),
+            grad_norm_history=new_history(max_iter, g0_norm))
 
-    while iteration < max_iter and reason == ConvergenceReason.NOT_CONVERGED:
+    def cond(st: OWLQNState) -> bool:
+        return st.iteration < max_iter and st.reason == ConvergenceReason.NOT_CONVERGED
+
+    def body(st: OWLQNState) -> OWLQNState:
+        w, f, g = st.w, st.f, st.g
         pg = pseudo_gradient(w, g, l1)
-        direction = two_loop_direction(pg, s_hist, y_hist, rho, count, head, ops)
+        direction = two_loop_direction(pg, st.s_hist, st.y_hist, st.rho, st.count, st.head,
+                                       ops)
         # constrain the direction to the descent orthant of -pg
         direction = torch.where(direction * (-pg) > 0.0, direction, torch.zeros_like(direction))
         if bool(ops.dot(direction, pg) >= 0.0):
@@ -97,7 +134,7 @@ def minimize_owlqn(
         # orthant of the search: sign(w), or sign(-pg) where w == 0
         xi = torch.where(w != 0.0, torch.sign(w), torch.sign(-pg))
 
-        if count == 0:
+        if st.count == 0:
             t = 1.0 / torch.clamp(ops.norm(pg), min=1.0)
         else:
             t = torch.ones((), dtype=dtype, device=device)
@@ -123,30 +160,35 @@ def minimize_owlqn(
         y = g_new - g  # smooth gradients, per Andrew & Gao
         sy = ops.dot(s, y)
         keep_pair = ls_ok and bool(sy > 1e-10)
-        count, head = update_history(s_hist, y_hist, rho, count, head, s, y, sy, keep_pair)
+        count, head = update_history(st.s_hist, st.y_hist, st.rho, st.count, st.head, s, y, sy,
+                                     keep_pair)
 
         gnorm = ops.norm(pseudo_gradient(w_new, g_new, l1))
         if ls_ok:
             reason = check_convergence(
-                value=f_new, prev_value=f, grad_norm=gnorm, initial_grad_norm=g0_norm,
+                value=f_new, prev_value=f, grad_norm=gnorm, initial_grad_norm=st.g0_norm,
                 tolerance=tolerance, rel_function_tolerance=rel_function_tolerance)
             w, f, g = w_new, f_new, g_new
         else:
             reason = int(ConvergenceReason.LINE_SEARCH_FAILED)
-        iteration += 1
-        value_history[iteration] = f
-        grad_norm_history[iteration] = gnorm
+        iteration = st.iteration + 1
+        st.value_history[iteration] = f
+        st.grad_norm_history[iteration] = gnorm
+        return dataclasses.replace(st, w=w, f=f, g=g, count=count, head=head,
+                                   iteration=iteration, reason=reason)
 
+    final = run_while(cond, body, init, observer=state_observer)
+    reason = final.reason
     if reason == ConvergenceReason.NOT_CONVERGED:
         reason = int(ConvergenceReason.MAX_ITERATIONS)
     return SolverResult(
-        coefficients=w,
-        value=f,
-        gradient_norm=ops.norm(pseudo_gradient(w, g, l1)),
-        iterations=iteration,
+        coefficients=final.w,
+        value=final.f,
+        gradient_norm=ops.norm(pseudo_gradient(final.w, final.g, l1)),
+        iterations=final.iteration,
         reason=reason,
-        value_history=value_history,
-        grad_norm_history=grad_norm_history,
+        value_history=final.value_history,
+        grad_norm_history=final.grad_norm_history,
     )
 
 

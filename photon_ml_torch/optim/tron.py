@@ -15,6 +15,7 @@ steps with finished lanes frozen, which changes no lane's result.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -25,9 +26,11 @@ from photon_ml_torch.optim.common import (
     VectorOps,
     LaneResult,
     SolverResult,
+    SolverState,
     any_lane,
     flags,
     new_history,
+    run_while,
 )
 
 # LIBLINEAR trust-region constants (TRON.scala:168-175)
@@ -77,6 +80,21 @@ def _truncated_cg(hv_fn, g, delta, max_cg: int, cg_tol, ops: VectorOps = LOCAL):
     return z, hit, i
 
 
+@dataclasses.dataclass
+class TRONState(SolverState):
+    """The TRON loop state: the fields of the JAX package's ``_TRONState``
+    (the initial gradient norm is ``grad_norm_history[0]``)."""
+
+    w: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    delta: torch.Tensor
+    iteration: int
+    reason: int
+    value_history: torch.Tensor
+    grad_norm_history: torch.Tensor
+
+
 def minimize_tron(
     value_and_grad_fn: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
     hessian_vector_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
@@ -88,6 +106,8 @@ def minimize_tron(
     max_cg_iter: int = 20,
     cg_forcing: float = 0.1,
     ops: VectorOps = LOCAL,
+    state_observer=None,
+    resume_state: TRONState | None = None,
 ) -> SolverResult:
     """Minimize a twice-differentiable convex objective with TRON.
 
@@ -96,21 +116,28 @@ def minimize_tron(
     ``rel_function_tolerance`` (None = no function test): relative
     function-decrease stop on accepted rounds. ``ops`` takes the vector's
     inner products and norms (``optim/common.py``).
+    ``state_observer``/``resume_state``: as in ``minimize_lbfgs``.
     """
     dtype = w0.dtype
-    w = w0.to(dtype)
-    f, g = value_and_grad_fn(w)
-    g0_norm = ops.norm(g)
-    delta = g0_norm
-    value_history = new_history(max_iter, f)
-    grad_norm_history = new_history(max_iter, g0_norm)
-    iteration = 0
-    reason = int(ConvergenceReason.NOT_CONVERGED)
-    if bool(g0_norm <= tolerance):
-        # warm starts may arrive stationary: stop before paying a CG loop
-        reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE)
+    if resume_state is not None:
+        init = resume_state
+    else:
+        w = w0.to(dtype)
+        f, g = value_and_grad_fn(w)
+        g0_norm = ops.norm(g)
+        reason = int(ConvergenceReason.NOT_CONVERGED)
+        if bool(g0_norm <= tolerance):
+            # warm starts may arrive stationary: stop before paying a CG loop
+            reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE)
+        init = TRONState(w=w, f=f, g=g, delta=g0_norm, iteration=0, reason=reason,
+                         value_history=new_history(max_iter, f),
+                         grad_norm_history=new_history(max_iter, g0_norm))
 
-    while iteration < max_iter and reason == ConvergenceReason.NOT_CONVERGED:
+    def cond(st: TRONState) -> bool:
+        return st.iteration < max_iter and st.reason == ConvergenceReason.NOT_CONVERGED
+
+    def body(st: TRONState) -> TRONState:
+        w, f, g, delta = st.w, st.f, st.g, st.delta
         gnorm = ops.norm(g)
         w_cur = w
         hv = lambda v: hessian_vector_fn(w_cur, v)  # noqa: E731
@@ -150,7 +177,7 @@ def minimize_tron(
             w, f, g = w + step, f_new, g_new
         gnorm_acc = ops.norm(g)
         grad_ok, collapsed = flags(
-            gnorm_acc <= tolerance * torch.clamp(grad_norm_history[0], min=1e-30),
+            gnorm_acc <= tolerance * torch.clamp(st.grad_norm_history[0], min=1e-30),
             delta < 1e-12)
         reason = int(ConvergenceReason.GRADIENT_WITHIN_TOLERANCE if grad_ok
                      else ConvergenceReason.NOT_CONVERGED)
@@ -164,20 +191,24 @@ def minimize_tron(
             if bool(rel_delta <= rel_function_tolerance):
                 reason = int(ConvergenceReason.FUNCTION_VALUES_WITHIN_TOLERANCE)
 
-        iteration += 1
-        value_history[iteration] = f
-        grad_norm_history[iteration] = gnorm_acc
+        iteration = st.iteration + 1
+        st.value_history[iteration] = f
+        st.grad_norm_history[iteration] = gnorm_acc
+        return dataclasses.replace(st, w=w, f=f, g=g, delta=delta, iteration=iteration,
+                                   reason=reason)
 
+    final = run_while(cond, body, init, observer=state_observer)
+    reason = final.reason
     if reason == ConvergenceReason.NOT_CONVERGED:
         reason = int(ConvergenceReason.MAX_ITERATIONS)
     return SolverResult(
-        coefficients=w,
-        value=f,
-        gradient_norm=ops.norm(g),
-        iterations=iteration,
+        coefficients=final.w,
+        value=final.f,
+        gradient_norm=ops.norm(final.g),
+        iterations=final.iteration,
         reason=reason,
-        value_history=value_history,
-        grad_norm_history=grad_norm_history,
+        value_history=final.value_history,
+        grad_norm_history=final.grad_norm_history,
     )
 
 

@@ -86,7 +86,6 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from photon_ml_torch.algorithm.coordinate_descent import DivergenceError
 from photon_ml_torch.algorithm.coordinates import (
     _with_scratch_column,
     bucket_variances,
@@ -113,6 +112,12 @@ from photon_ml_torch.data.sparse_batch import (
     feature_product,
 )
 from photon_ml_torch.estimators import _not_ported
+from photon_ml_torch.io.checkpoint import (
+    DivergenceError,
+    commit_checkpoint,
+    fingerprint_mismatch,
+    host_array,
+)
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.game import (
     CompactEntries,
@@ -154,6 +159,7 @@ from photon_ml_torch.parallel.sharded_dense import (
     ShardedSparseGLMObjective,
 )
 from photon_ml_torch.projector.projectors import ProjectorType
+from photon_ml_torch.resilience import recovery
 from photon_ml_torch.types import TaskType
 
 @dataclasses.dataclass
@@ -1488,6 +1494,61 @@ def _host_scores(scores: torch.Tensor, n: int, layout: MeshLayout | None = None)
     return scores.detach().cpu().numpy()[:n]
 
 
+_STATE_GROUPS = ("re_tables", "mf_rows", "mf_cols", "extra_fe")
+
+
+def _state_arrays(state: GameTrainState, prefix: str = "") -> dict:
+    """A whole state's host arrays under the JAX package's checkpoint keys
+    (``fe_coefficients``, ``re_tables/<type>``, ``mf_rows/<name>``, ...)."""
+    arrays = {prefix + "fe_coefficients": host_array(state.fe_coefficients)}
+    for group in _STATE_GROUPS:
+        for k, v in getattr(state, group).items():
+            arrays[f"{prefix}{group}/{k}"] = host_array(v)
+    return arrays
+
+
+def _state_from_arrays(arrays: Mapping[str, np.ndarray], device, prefix: str = ""
+                       ) -> GameTrainState:
+    def group(name):
+        head = f"{prefix}{name}/"
+        return {k[len(head):]: torch.as_tensor(v, device=device) for k, v in arrays.items()
+                if k.startswith(head) and "/" not in k[len(head):]}
+
+    return GameTrainState(
+        fe_coefficients=torch.as_tensor(arrays[prefix + "fe_coefficients"], device=device),
+        **{name: group(name) for name in _STATE_GROUPS})
+
+
+def _state_to(state: GameTrainState, device) -> GameTrainState:
+    return GameTrainState(fe_coefficients=state.fe_coefficients.to(device),
+                          **{name: {k: v.to(device) for k, v in getattr(state, name).items()}
+                             for name in _STATE_GROUPS})
+
+
+def _restore_train_state(program: GameTrainProgram, ckpt, directory: str):
+    """(state, best state or None) of a fused-program checkpoint on the CPU,
+    checked against the program's coordinates."""
+    if "fe_coefficients" not in ckpt.arrays:
+        raise ValueError(
+            f"checkpoint at {directory} is not a distributed-training checkpoint (no "
+            f"'fe_coefficients' array; found keys like {sorted(ckpt.arrays)[:3]}). Pass "
+            "resume=False or use a fresh checkpoint directory.")
+    state = _state_from_arrays(ckpt.arrays, "cpu")
+    expected = {"re_tables": {s.re_type for s in program.re_specs},
+                "mf_rows": {m.name for m in program.mf_specs},
+                "mf_cols": {m.name for m in program.mf_specs},
+                "extra_fe": {s.feature_shard_id for s in program.extra_fes}}
+    found = {name: set(getattr(state, name)) for name in _STATE_GROUPS}
+    if expected != found:
+        raise ValueError(
+            f"checkpoint at {directory} is incompatible with the program's coordinate specs: "
+            f"checkpoint has {found}, program expects {expected}. Pass resume=False or use a "
+            "fresh checkpoint directory.")
+    best = (_state_from_arrays(ckpt.arrays, "cpu", "best/")
+            if "best/fe_coefficients" in ckpt.arrays else None)
+    return state, best
+
+
 def train_distributed(
     program: GameTrainProgram,
     dataset: GameDataset,
@@ -1537,10 +1598,17 @@ def train_distributed(
     (``state.fe_columns``), and ``state_to_game_model`` gathers it.
     Without a mesh, or with a model axis of 1, the flag changes nothing.
 
-    ``checkpointer`` (ROADMAP.md item 16) and a spec with a lane scheduler
-    (item 18) raise ``NotImplementedError`` before any data is prepared.
+    checkpointer: an ``io/checkpoint.TrainingCheckpointer``. Every
+    ``checkpoint_every`` sweeps and at the last one the whole state (the FE
+    block gathered over a model axis by :meth:`GameTrainProgram.whole_state`,
+    which every rank joins) is saved through ``commit_checkpoint`` (rank 0
+    writes), with the JAX package's keys; with ``resume=True`` and no
+    ``state`` the newest checkpoint is restored, re-laid over the mesh by
+    :meth:`GameTrainProgram.shard_inputs`, and its sweeps are skipped.
+
+    A spec with a lane scheduler (ROADMAP.md item 18) raises
+    ``NotImplementedError`` before any data is prepared.
     """
-    del checkpoint_every, resume  # only read with a checkpointer
     if mesh is not None:
         mesh_ops.check_data_mesh(mesh)
         program._check_feature_sharded(mesh, fe_feature_sharded)
@@ -1549,11 +1617,29 @@ def train_distributed(
                          "mesh: GameTrainProgram(..., mesh=mesh)")
     if mesh is None and put_fn is not None:
         raise ValueError("put_fn places a rank's block and needs mesh=")
-    if checkpointer is not None:
-        raise _not_ported("checkpoints of train_distributed (checkpointer)", 16)
     scheduled = [s.re_type for s in program.re_specs if s.optimizer.scheduler is not None]
     if scheduled:
         raise _not_ported(f"the lane scheduler (step_scheduled) on {scheduled}", 18)
+
+    start_sweep = 0
+    prior_losses: list[float] = []
+    best_state: GameTrainState | None = None
+    best_metric = float("nan")
+    history: list[dict] = []
+    # an explicit warm start takes precedence over a checkpoint
+    if checkpointer is not None and resume and state is None:
+        ckpt = checkpointer.restore()
+        if ckpt is not None:
+            state, best_state = _restore_train_state(program, ckpt, checkpointer.directory)
+            state = _state_to(state, dataset.device)
+            if best_state is not None:
+                best_state = _state_to(best_state, dataset.device)
+            best_metric = float(ckpt.meta.get("best_metric", float("nan")))
+            recovery.counts["checkpoint_restores"] += 1
+            start_sweep = min(int(ckpt.step), num_iterations)
+            prior_losses = [float(x) for x in ckpt.meta.get("losses", [])][:start_sweep]
+            history = [h for h in ckpt.meta.get("metric_history", [])
+                       if int(h.get("iteration", 0)) < start_sweep]
 
     n_train = dataset.num_samples
     n_val = validation_dataset.num_samples if validation_dataset is not None else 0
@@ -1612,11 +1698,8 @@ def train_distributed(
                 evaluators, validation_eval_data, n_pad=validation_dataset.num_samples,
                 device=val_data["labels"].device)
 
-    best_state: GameTrainState | None = None
-    best_metric = float("nan")
-    history: list[dict] = []
-    losses: list[float] = []
-    for sweep in range(num_iterations):
+    losses: list[float] = list(prior_losses)
+    for sweep in range(start_sweep, num_iterations):
         for key, sampler in samplers.items():
             mult = sweep_multiplier(sampler, sweep)
             if key == "":
@@ -1647,6 +1730,15 @@ def train_distributed(
                     best_state, best_metric = state, v
         if metrics:
             history.append({"iteration": sweep, "coordinate": "fused_sweep", **metrics})
+        if checkpointer is not None and (
+                (sweep + 1) % max(1, checkpoint_every) == 0 or sweep + 1 == num_iterations):
+            # every rank joins the FE block's gather; rank 0 writes
+            arrays = _state_arrays(program.whole_state(state))
+            if best_state is not None:
+                arrays.update(_state_arrays(program.whole_state(best_state), "best/"))
+            commit_checkpoint(checkpointer, sweep + 1, arrays,
+                              {"losses": losses, "metric_history": history,
+                               "best_metric": best_metric})
         if on_sweep is not None:
             on_sweep(sweep + 1, num_iterations, losses[-1] if losses else None)
     return DistributedTrainResult(
@@ -1870,27 +1962,70 @@ def train_partitioned(
     effects and dense IDENTITY random effects, no validation (score and
     evaluate through ``parallel/scoring.py``).
 
-    ``checkpointer``, ``checkpoint_every``, ``resume`` and ``resume_step``
-    (ROADMAP.md item 16) and ``schedulers`` (item 18) raise
-    ``NotImplementedError`` before any data is touched."""
-    if checkpointer is not None or resume is not True or resume_step is not None \
-            or checkpoint_every != 1:
-        raise _not_ported("checkpoints and resume of train_partitioned (checkpointer, "
-                          "checkpoint_every, resume, resume_step)", 16)
+    checkpointer: an ``io/checkpoint.TrainingCheckpointer``. Every
+    ``checkpoint_every`` sweeps and at the last one the whole state (the FE
+    block gathered over a model axis) is committed through
+    ``commit_checkpoint`` (every rank calls; with ``exchange``, between two
+    barriers, so a step exists only when every rank completed it), with the
+    partition's fingerprint (``_partition_fingerprint``) in ``meta.json``;
+    a resume under another fingerprint fails fast naming the fields that
+    differ, and one whose step lies past ``num_iterations`` is refused. An
+    explicit ``state`` takes precedence over a checkpoint. ``resume_step``
+    pins the restore to one step (0: start from scratch).
+
+    ``schedulers`` (ROADMAP.md item 18) raise ``NotImplementedError`` before
+    any data is touched."""
     if schedulers:
         raise _not_ported(f"the lane scheduler of train_partitioned (schedulers on "
                           f"{sorted(schedulers)})", 18)
     if program.mesh is not mesh:
         raise ValueError("train_partitioned needs the program built with the same mesh: "
                          "GameTrainProgram(..., mesh=mesh)")
+    fingerprint = None
+    start_sweep = 0
+    losses: list[float] = []
+    if resume_step == 0:
+        resume = False
+    if checkpointer is not None:
+        fingerprint = _partition_fingerprint(program, parts, num_ranks)
+        if resume and state is None:
+            ckpt = checkpointer.restore(step=resume_step if resume_step else None)
+            if ckpt is not None:
+                mismatch = fingerprint_mismatch(ckpt.meta.get("partition_fingerprint"),
+                                                fingerprint)
+                if mismatch is not None:
+                    raise ValueError(
+                        f"partitioned checkpoint at {checkpointer.directory} was written "
+                        f"under a different partition fingerprint ({mismatch}) — a restored "
+                        "table row would map onto a different rank block / sparse layout; "
+                        "resume with the original rank count and layout agreement, or use a "
+                        "fresh checkpoint directory")
+                if int(ckpt.step) > num_iterations:
+                    raise ValueError(
+                        f"partitioned checkpoint at {checkpointer.directory} is at sweep "
+                        f"{int(ckpt.step)}, beyond this run's num_iterations={num_iterations}; "
+                        "raise num_iterations to continue training, or use a fresh "
+                        "checkpoint directory")
+                state = _state_from_arrays(ckpt.arrays, "cpu")
+                start_sweep = int(ckpt.step)
+                losses = [float(x) for x in ckpt.meta.get("losses", [])][:start_sweep]
+                recovery.counts["checkpoint_restores"] += 1
+                recovery.counts["epochs_resumed"] += start_sweep
     data, buckets, st = prepare_partitioned_inputs(program, parts, mesh, num_ranks, state=state,
                                                    exchange=exchange,
                                                    fe_feature_sharded=fe_feature_sharded)
-    losses: list[float] = []
-    for sweep in range(num_iterations):
+    for sweep in range(start_sweep, num_iterations):
         st, loss = program.step(data, buckets, st)
         losses.append(float(loss))
         if check_finite and not np.isfinite(losses[-1]):
-            raise DivergenceError(f"partitioned training step produced non-finite loss "
-                                  f"{losses[-1]} at sweep {sweep}")
+            raise DivergenceError(
+                f"partitioned training step produced non-finite loss {losses[-1]} at sweep "
+                f"{sweep}" + (f"; last good checkpoint: step {checkpointer.latest_step()} in "
+                              f"{checkpointer.directory}" if checkpointer is not None else ""))
+        if checkpointer is not None and (
+                (sweep + 1) % max(1, checkpoint_every) == 0 or sweep + 1 == num_iterations):
+            arrays = _state_arrays(program.whole_state(st))
+            commit_checkpoint(checkpointer, sweep + 1, arrays,
+                              {"partition_fingerprint": fingerprint, "losses": losses},
+                              exchange=exchange)
     return DistributedTrainResult(state=st, losses=losses)

@@ -22,10 +22,11 @@ ranks started by the caller) and every collective is an explicit
   layout histograms): :class:`InProcessExchange` (virtual ranks on threads)
   and :class:`DistributedKVExchange` (the key-value store of the process
   group, which :func:`initialize` builds and keeps). A missed deadline raises
-  ``TimeoutError`` naming the key and the rank that should have published
-  it. :class:`DataAxisExchange` narrows an exchange to the mesh's data
-  axis (a partitioned read over a mesh with a model axis). Fencing, abort
-  markers and retries are item 16's.
+  ``resilience.ExchangeTimeout`` (a ``TimeoutError``, classified fatal)
+  naming the key and the rank that should have published it.
+  :class:`DataAxisExchange` narrows an exchange to the mesh's data axis (a
+  partitioned read over a mesh with a model axis). Fencing, abort markers
+  and retries are item 16's step 2.
 
 The JAX package's ``default_put``/``global_put`` have no counterpart: the
 port places no global arrays. Its ``put_fn`` hook is "(tensor, rows) -> this
@@ -260,13 +261,19 @@ class SingleProcessExchange(MetadataExchange):
 def _timeout_error(tag: str, key, missing, rank: int, timeout: float,
                    detail: str = "") -> TimeoutError:
     """A missed exchange deadline, naming the key and the ranks that never
-    published."""
+    published: a ``resilience.ExchangeTimeout``, which the recovery layer
+    classifies fatal (the deadline already waited)."""
+    from photon_ml_torch.resilience.errors import ExchangeTimeout
+
     msg = f"exchange {tag!r}"
     if key is not None:
         msg += f": key {key!r} was never published"
     msg += "; rank(s) %s did not participate" % ",".join(map(str, missing))
     msg += f" (observed on rank {rank} after {timeout:g} s)"
-    return TimeoutError(msg + (f"; {detail}" if detail else ""))
+    err = ExchangeTimeout(tag, missing_ranks=missing, key=key, rank=rank, timeout=timeout,
+                          detail=detail)
+    err.args = (msg + (f"; {detail}" if detail else ""),)
+    return err
 
 
 class InProcessExchange(MetadataExchange):

@@ -113,7 +113,18 @@ def test_non_finite_update_raises():
 
 
 @pytest.mark.parametrize("kw,item", [({"checkpointer": object()}, 16), ({"telemetry": object()}, 19)])
-def test_checkpoints_and_telemetry_raise(kw, item):
+def test_checkpoints_and_telemetry_raise(kw, item, tmp_path):
+    """Telemetry (item 19) raises before any work. Checkpoints (item 16) are
+    ported: a checkpoint of another update sequence raises instead
+    (tests/test_torch_checkpoint.py resumes them)."""
+    if item == 16:
+        from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+
+        ck = TrainingCheckpointer(tmp_path)
+        ck.save(1, {}, {"model": {"order": ["other"]}})
+        with pytest.raises(ValueError, match="incompatible"):
+            tcd.run_coordinate_descent({"fixed": None}, ["fixed"], 1, checkpointer=ck)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         tcd.run_coordinate_descent({}, [], 1, **kw)
 

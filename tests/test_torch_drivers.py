@@ -268,12 +268,12 @@ GAME_LEFT_OUT = [
     (["--distributed"], None), (["--mesh", "data=8,model=1"], ValueError),
     (["--mesh", "data=1,model=2"], ValueError), (["--mesh", "data=1,model=1"], None),
     # partitioned I/O is ported: it needs --distributed (or --mesh), and
-    # with it gets past every refusal; a checkpoint directory still waits
+    # with it gets past every refusal, as do checkpoints and restarts
     (["--partitioned-io"], ValueError), (["--partitioned-io", "--distributed"], None),
-    (["--partitioned-io", "--distributed", "--checkpoint-dir", "ck"], "item 16"),
+    (["--partitioned-io", "--distributed", "--checkpoint-dir", "ck"], None),
     (["--streaming-chunks", "64"], "item 16"),
-    (["--duhl-working-set", "2"], "item 16"), (["--checkpoint-dir", "ck"], "item 16"),
-    (["--max-restarts", "2"], "item 16"), (["--incremental-refresh"], "item 18"),
+    (["--duhl-working-set", "2"], "item 16"), (["--checkpoint-dir", "ck"], None),
+    (["--max-restarts", "2"], None), (["--incremental-refresh"], "item 18"),
     (["--hyperparameter-tuning", "BAYESIAN"], "item 18"), (["--telemetry-dir", "t"], "item 19"),
     (["--trace-dir", "t"], "item 19"), (["--profile-dir", "t"], "item 19"),
     (["--input-format", "libsvm"], None), (["--input-date-range", "1-2"], ValueError),
@@ -314,8 +314,9 @@ def _raises_for(item, run, missing=FileNotFoundError, match=None):
 
 
 GLM_LEFT_OUT = [
-    (["--streaming-chunks", "8"], "item 16"), (["--checkpoint-dir", "c"], "item 16"),
-    (["--max-restarts", "1"], "item 16"), (["--grid-parallel"], "item 18"),
+    # streaming, checkpoints (streaming only) and restarts are ported
+    (["--streaming-chunks", "8"], None), (["--checkpoint-dir", "c"], ValueError),
+    (["--max-restarts", "1"], None), (["--grid-parallel"], "item 18"),
     (["--search-rounds", "2"], "item 18"), (["--enable-diagnostics"], "item 19"),
     (["--num-bootstraps", "3"], "item 19"), (["--telemetry-dir", "t"], "item 19"),
     (["--trace-dir", "t"], "item 19"), (["--input-format", "libsvm"], None),

@@ -2,8 +2,9 @@
 every ValueError of its input preparation (``_data_pytree``,
 ``_buckets_pytree``, the compact entry mappings) and of
 ``GameTrainProgram.__init__`` with the JAX message's key words; the parts
-not ported yet (the model axis, checkpoints, the lane scheduler) raising
-``NotImplementedError`` with their ROADMAP item before any data is touched;
+not ported yet (the lane scheduler) raising ``NotImplementedError`` with
+their ROADMAP item, and a foreign checkpoint refused, before any data is
+touched;
 ``DivergenceError`` on a non-finite loss; AUTO resolution; and the
 observers of ``train_distributed`` (``on_sweep``, the training evaluator)."""
 
@@ -184,22 +185,28 @@ class _ModelAxisMesh:
 
 
 # a model-axis mesh the program was not built for, fe_feature_sharded that
-# the program was not built with, and put_fn without a mesh are usage
-# errors; checkpoints and the lane scheduler wait with items 16 and 18
+# the program was not built with, put_fn without a mesh, and a checkpoint
+# that is not the fused program's (checkpoints are ported, item 16) are
+# usage errors; the lane scheduler waits with item 18
 REFUSALS = [({"mesh": _ModelAxisMesh()}, "the same mesh"),
             ({"mesh": _ModelAxisMesh(), "fe_feature_sharded": True}, "the same mesh and flag"),
             ({"put_fn": lambda a, s: a}, "put_fn"),
-            ({"checkpointer": object()}, "item 16"), ("scheduler", "item 18")]
+            ("checkpointer", "not a distributed-training checkpoint"), ("scheduler", "item 18")]
 
 
 @pytest.mark.parametrize("option,item", REFUSALS,
                          ids=["mesh", "fe_feature_sharded", "put_fn", "checkpointer",
                               "scheduler"])
-def test_refusals_come_before_any_data(option, item):
+def test_refusals_come_before_any_data(option, item, tmp_path):
     opt = optimizer_pair("LBFGS", 3)[1]
     kw = {}
     if option == "scheduler":
         opt = dataclasses.replace(opt, scheduler=TLaneSched())
+    elif option == "checkpointer":
+        from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+
+        kw = {"checkpointer": TrainingCheckpointer(tmp_path)}
+        kw["checkpointer"].save(1, {"model/fixed/means": np.zeros(2)}, {})
     else:
         kw = option
     prog = tdist.GameTrainProgram(

@@ -215,9 +215,19 @@ def test_coordinates_outside_the_slice_raise(config, options, item):
 
 
 @pytest.mark.parametrize("field,item", [("checkpointer", 16), ("telemetry", 19)])
-def test_estimator_options_outside_the_slice_raise(field, item):
+def test_estimator_options_outside_the_slice_raise(field, item, tmp_path):
+    """Telemetry (item 19) raises before any data is read. Checkpoints (item
+    16) are ported: one of another update sequence is refused."""
     _, td = datasets(game_arrays(4, n=200))
     _, te = estimator_pair(lanes="NEWTON", num_iterations=1)
+    if field == "checkpointer":
+        from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+
+        ck = TrainingCheckpointer(tmp_path)
+        ck.save(1, {}, {"model": {"order": ["other"]}})
+        with pytest.raises(ValueError, match="incompatible"):
+            dataclasses.replace(te, checkpointer=ck).fit(td)
+        return
     te = dataclasses.replace(te, **{field: object()})
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         te.fit(td)

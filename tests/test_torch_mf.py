@@ -3,8 +3,8 @@ package on the CPU in float64: scoring, the side buckets (arrays equal), one
 alternating half-step (lane iterations and reasons equal), whole
 ``GameEstimator.fit`` runs from the JAX package's initial factors carried
 across by ``photon_ml_torch.convert``, the CLI grammar and LatentFactorAvro
-I/O; and every case of ``tests/test_mf.py`` but its checkpoint round trip
-(checkpoints are ROADMAP item 16)."""
+I/O; and every case of ``tests/test_mf.py`` but its checkpoint round trip,
+which ``tests/test_torch_checkpoint.py`` runs through both packages."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -236,16 +236,31 @@ def test_partitioned_guards_match_the_jax_package():
         assert messages[0] == messages[1]
 
 
-REFUSALS = [("checkpointer", object(), "item 16"),
-            ("resume", False, "item 16"), ("resume_step", 3, "item 16"),
-            ("checkpoint_every", 2, "item 16"), ("schedulers", {"userId": object()}, "item 18")]
+#: checkpoints and resume are ported (item 16): each option now trains
+REFUSALS = [("checkpointer", "a checkpointer", None),
+            ("resume", False, None), ("resume_step", 3, None),
+            ("checkpoint_every", 2, None), ("schedulers", {"userId": object()}, "item 18")]
 
 
 @pytest.mark.parametrize("option,value,item", REFUSALS, ids=[r[0] for r in REFUSALS])
-def test_train_partitioned_refuses_before_any_data(group_of_one, option, value, item):
+def test_train_partitioned_refuses_before_any_data(group_of_one, option, value, item,
+                                                   tmp_path):
     """What is not ported raises NotImplementedError naming its ROADMAP item
-    before any data is touched (the parts are None)."""
+    before any data is touched (the parts are None); the checkpoint options
+    (item None) train a sweep (tests/test_torch_checkpoint.py resumes)."""
     prog = W.build_program(PP.program(), group_of_one)
+    if item is None:
+        from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+
+        if option == "checkpointer":
+            value = TrainingCheckpointer(tmp_path / "ck")
+        path = PP.write_input(tmp_path / "in", num_files=2)
+        parts, ex = PP.tread_ranks(path, PP.CONFIGS["dense"], 1)
+        prog = W.build_program(PP.program(res=False), group_of_one)
+        result = tdist.train_partitioned(prog, {0: (parts[0].result.dataset, {})}, group_of_one,
+                                         1, num_iterations=1, exchange=ex[0], **{option: value})
+        assert len(result.losses) == 1 and np.isfinite(result.losses[0])
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tdist.train_partitioned(prog, None, group_of_one, 1, **{option: value})
 

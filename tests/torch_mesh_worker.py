@@ -644,6 +644,22 @@ def _task_partitioned_train(t, rank, world, tmp):
                         for k, v in res.items()},
                fingerprint=tdist._partition_fingerprint(prog, {rank: (part.result.dataset,
                                                                       res)}, world))
+    if t.get("checkpoint"):
+        # one sweep checkpointed into a directory every rank sees, then the
+        # whole run resumed from it (rank 0 writes, between barriers)
+        from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+
+        ck = TrainingCheckpointer(tmp / "partitioned-ck")
+        parts = {rank: (part.result.dataset, res)}
+        tdist.train_partitioned(build_program(t["program"], mesh, sharded), parts, mesh, world,
+                                num_iterations=1, exchange=ex, fe_feature_sharded=sharded,
+                                checkpointer=ck)
+        rprog = build_program(t["program"], mesh, sharded)
+        again = tdist.train_partitioned(rprog, parts, mesh, world,
+                                        num_iterations=t.get("sweeps", 2), exchange=ex,
+                                        fe_feature_sharded=sharded, checkpointer=ck)
+        out["resumed"] = {"losses": again.losses, "steps": ck.steps(),
+                          "state": state_numpy(rprog.whole_state(again.state))}
     if t.get("full"):
         full = read_merged(t["path"], shard_configs(t["configs"]),
                            random_effect_id_columns=tuple(t.get("re_columns", ())),
