@@ -1,7 +1,6 @@
 """Out-of-core streamed epochs: exact chunked GLM objectives.
 
-Counterpart of ``photon_ml_tpu/algorithm/streaming.py`` for one process.
-The reference computes value, gradient and Hessian-vector products as an
+Counterpart of ``photon_ml_tpu/algorithm/streaming.py``. The reference computes value, gradient and Hessian-vector products as an
 ``RDD.treeAggregate`` over partitions (photon-lib
 DistributedGLMLossFunction.scala:91-135). A GLM objective is a sum over
 samples, so one epoch over fixed-shape chunks accumulates the exact value,
@@ -18,14 +17,24 @@ Each sparse chunk is a new ``SparseLabeledPointBatch``, so its row plan and
 its column-sorted transpose plan are built again for every chunk in every
 epoch: a streamed source holds no data across epochs.
 
-Several ranks (``mesh=``, an ``exchange`` of more than one rank) are
-ROADMAP.md item 16 step 2.
+Several ranks: with an ``exchange`` of more than one rank, each rank
+streams its own chunks and the epoch's value, gradient or Hv accumulators
+are summed across ranks in rank order, in f64, through the metadata
+exchange (:func:`cross_rank_sum`); every rank then holds the same global
+sum, so the solver takes the same steps everywhere. The sample axis never
+crosses the exchange, and the L2 term is added once, after the sum.
+``mesh=`` takes the port's data-axis mesh (one process per rank,
+``parallel/mesh.make_mesh``): its data group is the exchange's ranks, and
+without an ``exchange`` the group's key-value exchange along the data axis
+is used. The JAX package's single-process multi-device mesh, which places
+each chunk over the devices of one process, has no counterpart here.
 """
 
 from __future__ import annotations
 
+import base64
 import time
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -36,15 +45,62 @@ from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.sparse_objective import SparseGLMObjective
 
 #: the parts of an epoch's wall time that :attr:`StreamingGLMObjective.totals` sums
-EPOCH_PARTS = ("seconds", "decode", "wait", "copy", "accumulate", "bytes", "chunks")
+EPOCH_PARTS = ("seconds", "decode", "wait", "copy", "accumulate", "exchange", "bytes",
+               "chunks")
 
 
-def check_single_process(mesh, exchange) -> None:
-    """The streamed solves of this package run in one process."""
-    if mesh is not None or (exchange is not None and getattr(exchange, "num_ranks", 1) > 1):
-        raise NotImplementedError(
-            "streamed solves over several ranks (mesh=, exchange= with more than one rank) "
-            "are not ported yet: ROADMAP.md item 16 (step 2)")
+def _pack_f64(a: np.ndarray) -> str:
+    return base64.b64encode(np.ascontiguousarray(a, dtype="<f8").tobytes()).decode("ascii")
+
+
+def _unpack_f64(s: str) -> np.ndarray:
+    return np.frombuffer(base64.b64decode(s), dtype="<f8")
+
+
+def cross_rank_sum(exchange, arrays: Sequence[np.ndarray], tag: str = "stream_accumulator"
+                   ) -> list[np.ndarray]:
+    """Model-sized host arrays summed over the exchange's ranks in rank
+    order, in f64: every rank computes the same sum."""
+    shapes = [np.shape(a) for a in arrays]
+    flat = np.concatenate([np.asarray(a, dtype=np.float64).ravel() for a in arrays])
+    gathered = exchange.allgather(tag, {"acc": _pack_f64(flat)})
+    total = np.zeros_like(flat)
+    for g in gathered:  # rank order, the exchange's contract
+        total = total + _unpack_f64(g["acc"])
+    out, pos = [], 0
+    for shape in shapes:
+        size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        out.append(total[pos:pos + size].reshape(shape))
+        pos += size
+    return out
+
+
+def resolve_rank_exchange(mesh, exchange):
+    """The exchange a streamed objective sums over: ``exchange``, or, for a
+    port mesh without one, the group's key-value exchange along its data
+    axis. A mesh must be the port's data-axis ``DeviceMesh`` whose data axis
+    is the exchange's ranks."""
+    if mesh is None:
+        return exchange
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise ValueError(
+            "mesh= takes the port's data-axis mesh (parallel/mesh.make_mesh: one process per "
+            "rank); a single-process multi-device mesh has no counterpart here — run one "
+            f"process per rank (got {type(mesh).__name__})")
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.parallel.mesh import data_size, model_size
+
+    if exchange is None:
+        exchange = multihost.default_exchange()
+        if model_size(mesh) > 1:
+            exchange = multihost.DataAxisExchange(exchange, mesh)
+    if exchange.num_ranks != data_size(mesh):
+        raise ValueError(f"the exchange has {exchange.num_ranks} ranks but the mesh's data "
+                         f"axis has {data_size(mesh)}; pass the exchange of the mesh's data "
+                         "group")
+    return exchange
 
 
 class StreamingGLMObjective:
@@ -62,16 +118,22 @@ class StreamingGLMObjective:
     default). ``last_epoch`` and ``totals`` hold the seconds of the epoch
     (``seconds``), of decoding (``decode``, in the decode thread), of the
     consumer's waits for a chunk (``wait``), of host-to-device copies
-    (``copy``) and of accumulation (``accumulate``), the bytes copied and
-    the chunks; ``last_epoch["overlap"]`` is the share of decode time hidden
-    behind the consumer.
+    (``copy``), of accumulation (``accumulate``) and of the cross-rank sum
+    (``exchange``), the bytes copied and the chunks;
+    ``last_epoch["overlap"]`` is the share of decode time hidden behind the
+    consumer.
+
+    exchange: a ``MetadataExchange`` of several ranks sums each epoch's
+    accumulators across them (:func:`cross_rank_sum`); mesh: the port's
+    data-axis mesh (:func:`resolve_rank_exchange`).
     """
 
     def __init__(self, source: ChunkSource, loss, *, l2_weight: float = 0.0,
                  normalization=None, mesh=None, exchange=None, prefetch: bool = True,
                  retry_policy=None, chunk_timeout: float = DEFAULT_CHUNK_TIMEOUT,
                  use_kernel: bool | None = None, device=None, sync_timing: bool = False):
-        check_single_process(mesh, exchange)
+        self.exchange = resolve_rank_exchange(mesh, exchange)
+        self.mesh = mesh
         self.source = source
         self.l2_weight = float(l2_weight)
         cls = SparseGLMObjective if source.sparse else GLMObjective
@@ -110,11 +172,23 @@ class StreamingGLMObjective:
         self.epochs += 1
         self.last_epoch = dict(seconds=time.perf_counter() - t_start,
                                decode=stream.decode_seconds, wait=stream.wait_seconds,
-                               copy=copy_s, accumulate=acc_s, bytes=nbytes, chunks=chunks,
-                               overlap=stream.overlap_fraction)
+                               copy=copy_s, accumulate=acc_s, exchange=0.0, bytes=nbytes,
+                               chunks=chunks, overlap=stream.overlap_fraction)
+        return carry
+
+    def _close_epoch(self, tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """The epoch's accumulators summed across ranks (as they are with one
+        rank), then the epoch's parts added to :attr:`totals`."""
+        if self.exchange is not None and self.exchange.num_ranks > 1:
+            t0 = time.perf_counter()
+            summed = cross_rank_sum(self.exchange, [t.detach().cpu().numpy() for t in tensors])
+            tensors = [torch.as_tensor(a, dtype=t.dtype).reshape(t.shape).to(t.device)
+                       for a, t in zip(summed, tensors)]
+            self.last_epoch["exchange"] = time.perf_counter() - t0
+            self.last_epoch["seconds"] += self.last_epoch["exchange"]
         for key in EPOCH_PARTS:
             self.totals[key] += self.last_epoch[key]
-        return carry
+        return list(tensors)
 
     # -- bound-objective interface --------------------------------------------
 
@@ -123,8 +197,8 @@ class StreamingGLMObjective:
             value, grad = self.objective.value_and_gradient(w, batch)
             return carry[0] + value, carry[1] + grad
 
-        acc_f, acc_g = self._epoch(fold, (torch.zeros((), dtype=w.dtype, device=w.device),
-                                          torch.zeros_like(w)))
+        acc_f, acc_g = self._close_epoch(self._epoch(
+            fold, (torch.zeros((), dtype=w.dtype, device=w.device), torch.zeros_like(w))))
         if self.l2_weight > 0.0:
             acc_f = acc_f + 0.5 * self.l2_weight * torch.dot(w, w)
             acc_g = acc_g + self.l2_weight * w
@@ -134,8 +208,9 @@ class StreamingGLMObjective:
         return self.value_and_grad(w)[0]
 
     def hessian_vector(self, w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        acc = self._epoch(lambda carry, batch: carry + self.objective.hessian_vector(w, v, batch),
-                          torch.zeros_like(w))
+        (acc,) = self._close_epoch([self._epoch(
+            lambda carry, batch: carry + self.objective.hessian_vector(w, v, batch),
+            torch.zeros_like(w))])
         if self.l2_weight > 0.0:
             acc = acc + self.l2_weight * v
         return acc

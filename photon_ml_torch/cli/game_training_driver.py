@@ -21,8 +21,7 @@ Runs on the CUDA device (the fixed effects through the packed kernel);
 the JAX driver's names and meanings, and its outputs (``models/<i>``,
 ``best``, ``index-maps``, ``feature-stats``, ``training-summary.json``) keep
 their names and layout. The summary leaves out what only the JAX run fills:
-the telemetry journal, the program ledger and the streaming and refresh
-sections.
+the telemetry journal, the program ledger and the refresh section.
 
 ``--distributed`` (or ``--mesh data=N[,model=M]``) trains through the fused
 program over a mesh of every rank: run it under ``torchrun --nproc-per-node
@@ -43,17 +42,31 @@ the λ grid, named by its index and a digest of its regularization weights
 (``config_<i>_<digest>``, the JAX driver's), saved every
 ``--checkpoint-every`` coordinate updates (fused sweeps with
 ``--distributed``); a rerun resumes from it unless ``--no-resume``.
-``--max-restarts`` restarts a configuration after a transient failure or a
-divergence with a checkpoint to fall back to (``resilience/recovery.py``),
-and a restart resumes even under ``--no-resume``. The port's default for
-``--max-restarts`` is 0 (the JAX driver's is 2), and a run of several ranks
-takes only 0 (coordinated recovery is ROADMAP.md item 16 step 2).
+``--max-restarts`` (default 2, the JAX driver's) restarts a configuration
+after a transient failure or a divergence with a checkpoint to fall back to
+(``resilience/recovery.py``), and a restart resumes even under
+``--no-resume``. A run of several ranks (``--distributed``, partitioned or
+not) attaches a ``resilience.CoordinatedRecovery`` to its exchange: one
+rank's failure rolls every rank back to the last barrier-committed
+checkpoint on a new process group, within one budget shared by the ranks.
+
+``--streaming-chunks N`` trains out of core (``_run_streaming``): one
+streaming scan builds the index maps, entity vocabularies and per-sample
+scalars, the input streams in entity-clustered chunks of about N records
+(``io/stream_reader.GameAvroChunkSource``) and
+``algorithm/streaming_game.StreamingGameProgram`` sweeps them; validation
+data is scored chunk by chunk (``score_game_stream``).
+``--duhl-working-set B`` (with ``--duhl-tail-chunks t``) takes the DuHL
+schedule. With ``--partitioned-io`` in a group of several ranks (the
+launcher's, or one ``initialize`` joins), each rank streams its own slice
+of the chunks (``plan_partitioned_game_stream``) under coordinated recovery.
+The surface is the JAX driver's: Avro, one dense fixed effect first in the
+update sequence, IDENTITY random effects, one λ each, no normalization.
 
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--streaming-chunks`` and its DuHL riders
-(16, step 2), ``--incremental-refresh``, hyperparameter tuning, the lane
-scheduler (18), ``--telemetry-dir``, ``--trace-dir``, ``--profile-dir``
-(19).
+item before any data is read: ``--incremental-refresh``, hyperparameter
+tuning, the lane scheduler (18), ``--telemetry-dir``, ``--trace-dir``,
+``--profile-dir`` (19).
 Sparse, hybrid and pre-indexed shards and ``--input-format libsvm`` are
 taken; a random effect on a sparse shard trains and saves a compact model;
 matrix-factorization coordinates read both their entity columns;
@@ -101,8 +114,10 @@ from photon_ml_torch.io.model_io import (
     write_feature_stats,
 )
 from photon_ml_torch.ops.normalization import NormalizationType
+from photon_ml_torch.optim.optimizer import OptimizerType
 from photon_ml_torch.parallel import multihost
-from photon_ml_torch.resilience import run_with_recovery
+from photon_ml_torch.projector.projectors import ProjectorType
+from photon_ml_torch.resilience import CoordinatedRecovery, run_with_recovery
 from photon_ml_torch.types import TaskType
 from photon_ml_torch.util import PhotonLogger, Timed
 from photon_ml_torch.util.date_range import parse_date_or_days_range, resolve_input_paths
@@ -152,7 +167,7 @@ class GameTrainingParams:
     #: False ignores existing checkpoints on the first attempt
     resume: bool = True
     #: restarts of a configuration after a transient failure
-    max_restarts: int = 0
+    max_restarts: int = 2
     # not ported: each refused by check_ported() when set
     hyperparameter_tuning: str = "NONE"
     hyperparameter_prior_json: str | None = None
@@ -165,16 +180,19 @@ class GameTrainingParams:
     distributed: bool = False
     mesh_shape: dict | None = None
     partitioned_io: bool = False
+    #: out-of-core streamed GAME: records per entity-clustered chunk (0: in core)
     streaming_chunks: int = 0
+    #: decode the next chunk behind the current one (False: inline)
+    streaming_prefetch: bool = True
+    #: DuHL working set (pinned chunks; 0: uniform order) and cold chunks a sweep
     duhl_working_set: int = 0
+    duhl_tail_chunks: int = 1
     incremental_refresh: bool = False
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for the first option or coordinate the
         port lacks, before any data is read."""
         left_out = (
-            (self.streaming_chunks > 0 or self.duhl_working_set > 0,
-             "--streaming-chunks and the DuHL schedule (out-of-core GAME)", "16 (step 2)"),
             (self.incremental_refresh, "--incremental-refresh", 18),
             (self.hyperparameter_tuning != "NONE" or bool(self.hyperparameter_prior_json),
              "hyperparameter tuning", 18),
@@ -233,8 +251,76 @@ class GameTrainingParams:
                                     f"for shards {sorted(missing)}")
             except OSError as e:
                 problems.append(f"cannot read --index-maps-dir {self.index_maps_dir!r}: {e}")
+        if self.streaming_chunks > 0:
+            self._validate_streaming(problems)
+        elif self.duhl_working_set > 0:
+            problems.append("--duhl-working-set schedules streamed chunks; pass "
+                            "--streaming-chunks N to opt into the streamed GAME path")
         if problems:
             raise ValueError("invalid driver parameters: " + "; ".join(problems))
+
+    def _validate_streaming(self, problems: list) -> None:
+        """The streamed-GAME surface (the JAX driver's checks and messages):
+        one dense primary FE and IDENTITY random effects over an
+        entity-sorted Avro input, in one process or over ranks with
+        --partitioned-io."""
+        if self.input_format != "avro":
+            problems.append("--streaming-chunks streams Avro container blocks; for libsvm "
+                            "inputs drop --streaming-chunks (or convert with "
+                            "cli.libsvm_to_avro)")
+        if self.input_date_range:
+            problems.append("--streaming-chunks streams one input directory; drop "
+                            "--input-date-range (pass the resolved daily dir directly)")
+        if self.validation_data_date_range:
+            problems.append("--streaming-chunks streams one validation directory; drop "
+                            "--validation-data-date-range (pass the resolved dir directly)")
+        if self.distributed or self.mesh_shape:
+            problems.append("--streaming-chunks is the host-loop out-of-core GAME path; drop "
+                            "--distributed/--mesh (for multi-process streamed GAME use "
+                            "--partitioned-io, which partitions chunks across ranks instead "
+                            "of meshing devices)")
+        if self.normalization != NormalizationType.NONE:
+            problems.append("--streaming-chunks trains un-normalized; use --normalization NONE "
+                            "or run in-core")
+        for spec in self.evaluators:
+            if ":" in str(spec):
+                problems.append(f"evaluator '{spec}': per-query evaluators need evaluation id "
+                                "columns the chunk stream does not decode; use a global "
+                                "evaluator or score with the scoring driver")
+        if self.hyperparameter_tuning != "NONE":
+            problems.append("--streaming-chunks trains one configuration; drop "
+                            "--hyperparameter-tuning")
+        if self.data_validation != DataValidationType.VALIDATE_DISABLED:
+            problems.append("--streaming-chunks has no chunked validation pass yet; use "
+                            "--data-validation VALIDATE_DISABLED or run in-core")
+        if self.model_input_dir or self.partial_retrain_locked_coordinates:
+            problems.append("--streaming-chunks does not warm-start from --model-input-dir "
+                            "yet; drop it or train in-core")
+        if self.duhl_working_set < 0 or self.duhl_tail_chunks < 1:
+            problems.append("--duhl-working-set must be >= 0 and --duhl-tail-chunks >= 1")
+        fe_coords = [n for n, c in self.coordinates.items()
+                     if not c.is_random_effect and not c.is_matrix_factorization]
+        if len(fe_coords) != 1:
+            problems.append("--streaming-chunks needs exactly one fixed-effect coordinate "
+                            f"(got {fe_coords}); train other layouts in-core")
+        sequence = self.update_sequence or tuple(self.coordinates.keys())
+        if fe_coords and sequence and sequence[0] != fe_coords[0]:
+            problems.append("--streaming-chunks trains the fixed effect first; put "
+                            f"'{fe_coords[0]}' first in --update-sequence")
+        for name, c in self.coordinates.items():
+            if c.is_matrix_factorization:
+                problems.append(f"coordinate '{name}': matrix factorization does not stream; "
+                                "drop --streaming-chunks or the MF coordinate")
+            if (not c.is_random_effect and not c.is_matrix_factorization
+                    and c.optimizer == OptimizerType.NEWTON):
+                problems.append(f"coordinate '{name}': NEWTON cannot stream the fixed effect "
+                                "(dense [d, d] Hessian); use TRON or LBFGS")
+            if c.is_random_effect and c.projector != ProjectorType.IDENTITY:
+                problems.append(f"coordinate '{name}': projector {c.projector.name} does not "
+                                "stream; use IDENTITY or train in-core")
+            if len(c.reg_weights) != 1:
+                problems.append(f"coordinate '{name}': --streaming-chunks trains one λ per "
+                                "coordinate; pass a single reg.weights value")
 
 
 def _json_safe(obj):
@@ -253,32 +339,28 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
     returns the summary dict written to ``training-summary.json``."""
     params.validate()
     params.check_ported()
-    if params.partitioned_io and not params.distributed:
+    streamed_ranks = params.streaming_chunks > 0 and params.partitioned_io
+    if params.partitioned_io and not params.distributed and not streamed_ranks:
         raise ValueError(
             "--partitioned-io requires --distributed or --mesh (the "
             "partitioned blocks feed a mesh's addressable shards)"
         )
     created = False
-    if params.distributed:
+    rank = 0
+    if params.distributed or streamed_ranks:
         # every rank reads the same inputs and joins every collective; the
         # files are rank 0's, the other ranks write into a scratch directory
         created = not torch.distributed.is_initialized()
-        info = multihost.initialize(device=device)
-        if params.max_restarts > 0 and info.world_size > 1:
-            if created:
-                multihost.shutdown()
-            raise NotImplementedError(
-                "--max-restarts above 0 on a run of several ranks (coordinated recovery) is "
-                "not ported yet: ROADMAP.md item 16 (step 2)")
-        if info.rank > 0:
-            params = dataclasses.replace(
-                params, root_output_dir=os.path.join(params.root_output_dir,
-                                                     f".worker-{info.rank}"),
-                override_output=True)
+        rank = multihost.initialize(device=device).rank
     elif torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
         raise ValueError("multi-process runs require --distributed or --mesh (the fused "
-                         "program over the mesh); the coordinate-descent path has no "
-                         "cross-rank coordination")
+                         "program over the mesh) or --streaming-chunks with --partitioned-io "
+                         "(the partitioned streamed GAME path); the coordinate-descent path "
+                         "has no cross-rank coordination")
+    if rank > 0:
+        params = dataclasses.replace(
+            params, root_output_dir=os.path.join(params.root_output_dir, f".worker-{rank}"),
+            override_output=True)
     try:
         device = resolve_device(device)
         out = params.root_output_dir
@@ -296,6 +378,10 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
         os.makedirs(out, exist_ok=True)
         reset_timings()
         with PhotonLogger(os.path.join(out, "driver.log")) as job_log:
+            if params.streaming_chunks > 0:
+                # the streamed path scans the input itself: the full read
+                # would build what it exists to avoid
+                return _run_streaming(params, job_log, device)
             return _run_inner(params, job_log, device, mesh)
     finally:
         if created:
@@ -329,12 +415,19 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
     # partitioned I/O: each rank of a group of several decodes about 1/P of
     # the input; a group of one (and every other run) reads in full
     exchange = None
+    coordinator = None
     pad_multiple = 1
     if params.partitioned_io and mesh is not None and mesh.size(0) > 1:
         # the partition's ranks are the data ranks: one data row reads one slice
         exchange = multihost.default_exchange()
         if mesh.size(1) > 1:
             exchange = multihost.DataAxisExchange(exchange, mesh)
+        # coordinated recovery: the run's one exchange is fenced into restart
+        # generations, and a rank's failure rolls every rank back to the last
+        # barrier-committed checkpoint within one budget (host-side only: no
+        # device collective is added or moved)
+        coordinator = CoordinatedRecovery(exchange, max_restarts=params.max_restarts,
+                                          description="partitioned game train")
         data_axis = mesh.size(0)
         if data_axis % exchange.num_ranks:
             raise ValueError(f"--partitioned-io: mesh data axis {data_axis} must be a multiple "
@@ -345,6 +438,13 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
                 "--partitioned-io does not support validation data yet; "
                 "score + evaluate with the partitioned scoring driver"
             )
+    elif mesh is not None and multihost.process_info().world_size > 1:
+        # every rank reads in full; the exchange only fences the checkpoint
+        # commits and carries the coordinated restart, so a rank that fails
+        # never re-enters the fused program's collectives out of step
+        coordinator = CoordinatedRecovery(multihost.default_exchange(),
+                                          max_restarts=params.max_restarts,
+                                          description="distributed game train")
 
     # no retry around the read: a partitioned read is collective, and one
     # rank retrying would desynchronize its exchanges
@@ -417,7 +517,11 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             info=partition, exchange=exchange, lane_multiple=pad_multiple,
             entity_rank_presence=train_part.entity_rank_presence)
 
+    # the mesh of the current attempt: a coordinated restart joins a new group
+    live = {"mesh": mesh}
+
     def make_estimator(reg_weights, checkpointer=None, resume=True) -> GameEstimator:
+        mesh = live["mesh"]
         return GameEstimator(
             task=params.task_type,
             coordinate_configs=estimator_coordinate_configs(params.coordinates, reg_weights),
@@ -457,15 +561,30 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
 
         def attempt(restart: int, _rw=reg_weights, _ck=ckpt, _init=warm_model):
             # a restart resumes even under --no-resume: that is what the
-            # checkpoint is for
+            # checkpoint is for; a coordinated one restores the published step
+            # on a new group (a rank that failed inside a collective leaves
+            # the old group's operation sequence out of step)
+            if restart > 0 and coordinator is not None:
+                multihost.reinitialize(f"restart/{coordinator.exchange.fence_namespace()}")
+                shape = dict(params.mesh_shape or {})
+                live["mesh"] = multihost.make_hybrid_mesh(data=shape.get("data"),
+                                                          model=shape.get("model", 1))
             est = make_estimator(_rw, _ck, resume=params.resume or restart > 0)
+            if coordinator is not None:
+                est.resume_step = coordinator.resume_step
+                if estimator_partition is None:
+                    est.exchange = coordinator.exchange
             return est.fit(train.dataset,
                            validation_dataset=None if validation is None else validation.dataset,
                            initial_model=_init)
 
+        if coordinator is not None:
+            # this configuration's directory; forget the previous one's step
+            coordinator.rebind(ckpt)
         with Timed(f"train config {i}", sync=sync):
             result = run_with_recovery(attempt, max_restarts=params.max_restarts,
-                                       checkpointer=ckpt, description=f"train config {i}")
+                                       checkpointer=ckpt, description=f"train config {i}",
+                                       coordinator=coordinator)
         # warm start the next grid point (reference GameEstimator.fit:352-366)
         warm_model = result.model
         results.append((reg_weights, result))
@@ -498,6 +617,208 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             save_game_model(os.path.join(out, "best"), results[best_index][1].best_model,
                             train.index_maps,
                             optimization_configurations={"regWeights": grid[best_index]})
+    summary["timings"] = timing_summary()
+    with open(os.path.join(out, "training-summary.json"), "w") as f:
+        json.dump(_json_safe(summary), f, indent=2, default=float)
+    return summary
+
+
+def _run_streaming(params: GameTrainingParams, job_log: PhotonLogger, device) -> dict:
+    """The ``--streaming-chunks`` GAME pipeline: one streaming scan (index
+    maps, entity vocabularies, cluster keys and per-sample scalars; records
+    dropped), an entity-clustered chunk source and ``StreamingGameProgram``
+    sweeps, so the input never sits in memory whole. With
+    ``--partitioned-io`` in a group of several ranks, the chunk plan is
+    agreed over the exchange, each rank streams its slice, and the sweeps
+    recover through the coordinated rollback. ``validate`` has restricted
+    the surface (one dense FE and IDENTITY random effects, one λ each)."""
+    from photon_ml_torch.algorithm.streaming_game import (
+        DuHLChunkSchedule,
+        DuHLScheduleConfig,
+        StreamingGameProgram,
+        score_game_stream,
+    )
+    from photon_ml_torch.io import avro as avro_io
+    from photon_ml_torch.io.stream_reader import (
+        GameAvroChunkSource,
+        plan_partitioned_game_stream,
+        scan_game_stream,
+    )
+    from photon_ml_torch.models.coefficients import Coefficients
+    from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
+    from photon_ml_torch.models.glm import GeneralizedLinearModel
+    from photon_ml_torch.parallel.distributed import FixedEffectStepSpec, RandomEffectStepSpec
+
+    out = params.root_output_dir
+    sequence = tuple(params.update_sequence or params.coordinates.keys())
+    fe_name = next(n for n in sequence if not params.coordinates[n].is_random_effect)
+    fe_cfg = params.coordinates[fe_name]
+    re_names = [n for n in sequence if n != fe_name]
+    cluster_by = params.coordinates[re_names[0]].random_effect_type if re_names else None
+    shard_ids = {fe_cfg.feature_shard} | {params.coordinates[n].feature_shard for n in re_names}
+    shard_configs = {s: params.feature_shards[s] for s in shard_ids}
+    re_columns = tuple(sorted(params.coordinates[n].random_effect_type for n in re_names))
+
+    exchange = None
+    coordinator = None
+    partition = None
+    scalars = None
+    if params.partitioned_io and torch.distributed.get_world_size() > 1:
+        if cluster_by is None:
+            raise ValueError("--partitioned-io streamed GAME needs at least one random-effect "
+                             "coordinate (its entities define the chunk partition); drop "
+                             "--partitioned-io or add one")
+        if params.validation_data_path:
+            raise ValueError("--partitioned-io streamed GAME has no multi-rank validation "
+                             "pass; drop --validation-data-path and score with the scoring "
+                             "driver")
+        exchange = multihost.default_exchange()
+        schedule_budget = ({"working_set": params.duhl_working_set,
+                            "tail_chunks": params.duhl_tail_chunks}
+                           if params.duhl_working_set > 0 else None)
+        with Timed("streaming scan"):
+            source, index_maps, vocabs, partition = plan_partitioned_game_stream(
+                params.input_data_path, shard_configs, re_columns, exchange=exchange,
+                chunk_records=params.streaming_chunks, cluster_by=cluster_by,
+                schedule_budget=schedule_budget, on_corrupt=params.on_corrupt)
+        job_log.info("partitioned streamed plan %s: rank %d/%d holds chunks [%d, %d) of %d "
+                     "(payload %d/%d input bytes)", partition.fingerprint, partition.rank,
+                     partition.num_ranks, *partition.chunk_range(), partition.num_chunks,
+                     partition.payload_bytes[partition.rank], partition.input_bytes)
+        # a preempted rank becomes a rollback of every rank to the last
+        # barrier-committed sweep (host-side key-value traffic only)
+        coordinator = CoordinatedRecovery(exchange, max_restarts=params.max_restarts,
+                                          description="partitioned streamed game train")
+    else:
+        files = avro_io.list_avro_files(params.input_data_path)
+        with Timed("streaming scan"):
+            index_maps, vocabs, cluster_keys, indexes, scalars = scan_game_stream(
+                files, shard_configs, re_columns, cluster_by=cluster_by,
+                on_corrupt=params.on_corrupt)
+        source = GameAvroChunkSource(
+            files, shard_configs, index_maps, chunk_records=params.streaming_chunks,
+            random_effect_id_columns=re_columns, entity_vocabs=vocabs, cluster_by=cluster_by,
+            cluster_keys=cluster_keys, indexes=indexes, on_corrupt=params.on_corrupt)
+    job_log.info("streaming scan: %d files, shards %s, entities %s", len(source.files),
+                 {k: v.size for k, v in index_maps.items()},
+                 {k: len(v) for k, v in vocabs.items()})
+    for shard_id, imap in index_maps.items():
+        if isinstance(imap, IndexMap):
+            imap.save(os.path.join(out, "index-maps"), shard_id)
+    job_log.info("planned %d entity-clustered chunks (<=%d records requested, chunk_rows=%d)",
+                 source.num_chunks, params.streaming_chunks, source.chunk_rows)
+
+    def opt_config(cfg):
+        return cfg.optimization_config(cfg.reg_weights[0])
+
+    fe_opt = opt_config(fe_cfg)
+    fe_spec = FixedEffectStepSpec(feature_shard_id=fe_cfg.feature_shard,
+                                  optimizer=fe_opt.optimizer, l2_weight=fe_opt.l2_weight)
+    re_specs = []
+    for n in re_names:
+        cfg = params.coordinates[n]
+        o = opt_config(cfg)
+        re_specs.append(RandomEffectStepSpec(re_type=cfg.random_effect_type,
+                                             feature_shard_id=cfg.feature_shard,
+                                             optimizer=o.optimizer, l2_weight=o.l2_weight))
+    schedule = None
+    if params.duhl_working_set > 0:
+        # over ranks, the one schedule spans the global chunks
+        schedule = DuHLChunkSchedule(
+            DuHLScheduleConfig(working_set_chunks=params.duhl_working_set,
+                               tail_chunks_per_sweep=params.duhl_tail_chunks),
+            partition.num_chunks if partition is not None else source.num_chunks)
+    checkpointer = (TrainingCheckpointer(os.path.join(params.checkpoint_dir, "streaming-game"))
+                    if params.checkpoint_dir else None)
+    sync = torch.cuda.synchronize if device.type == "cuda" else None
+
+    def attempt(restart: int):
+        program = StreamingGameProgram(
+            params.task_type, source, fe_spec, tuple(re_specs),
+            num_entities={t: len(vocabs[t]) for t in re_columns}, schedule=schedule,
+            prefetch=params.streaming_prefetch, exchange=exchange, partition=partition,
+            scalars=scalars, device=device)
+        return program.train(
+            num_sweeps=params.coordinate_descent_iterations, checkpointer=checkpointer,
+            checkpoint_every=params.checkpoint_every, resume=params.resume or restart > 0,
+            # a coordinated restart restores the published step on every rank
+            resume_step=coordinator.resume_step if coordinator is not None else None)
+
+    if coordinator is not None:
+        coordinator.rebind(checkpointer)
+    with Timed("streamed game train", sync=sync):
+        result = run_with_recovery(attempt, max_restarts=params.max_restarts,
+                                   checkpointer=checkpointer,
+                                   description="streamed game train", coordinator=coordinator)
+
+    state = result.state
+    models: dict = {fe_name: FixedEffectModel(
+        glm=GeneralizedLinearModel(Coefficients(means=state.fe_coefficients), params.task_type),
+        feature_shard_id=fe_cfg.feature_shard)}
+    for n, spec in zip(re_names, re_specs):
+        models[n] = RandomEffectModel(
+            coefficients=state.re_tables[spec.re_type], entity_keys=vocabs[spec.re_type],
+            random_effect_type=spec.re_type, feature_shard_id=spec.feature_shard_id,
+            task=params.task_type)
+    model = GameModel(models=models)
+    reg_weights = {n: params.coordinates[n].reg_weights[0] for n in sequence}
+    if params.model_output_mode != ModelOutputMode.NONE:
+        with Timed("save model"):
+            save_game_model(os.path.join(out, "best"), model, index_maps,
+                            optimization_configurations={"regWeights": reg_weights})
+
+    best_metric = float("nan")
+    validation_metrics: dict = {}
+    if params.validation_data_path:
+        from photon_ml_torch.evaluation.evaluators import EvaluationData
+
+        with Timed("streamed validation scoring", sync=sync):
+            val_source = GameAvroChunkSource(
+                avro_io.list_avro_files(params.validation_data_path), shard_configs,
+                index_maps, chunk_records=params.streaming_chunks,
+                random_effect_id_columns=re_columns, entity_vocabs=vocabs,
+                on_corrupt=params.on_corrupt)
+            val_scores, val_scalars = score_game_stream(
+                state, val_source, params.task_type, fe_cfg.feature_shard,
+                {spec.re_type: spec.feature_shard_id for spec in re_specs},
+                prefetch=params.streaming_prefetch, return_scalars=True)
+        val_data = EvaluationData(labels=val_scalars["labels"], offsets=val_scalars["offsets"],
+                                  weights=val_scalars["weights"], ids={})
+        for spec_str in params.evaluators:
+            validation_metrics[spec_str] = float(
+                parse_evaluator(spec_str).evaluate(val_scores, val_data))
+        if params.evaluators:
+            best_metric = validation_metrics[params.evaluators[0]]
+        job_log.info("streamed validation: %d records, metrics %s", val_source.total_records,
+                     validation_metrics)
+
+    summary: dict = {
+        "distributed": False,
+        "streaming": {
+            "chunks": partition.num_chunks if partition is not None else source.num_chunks,
+            "chunk_rows": source.chunk_rows,
+            "records": (partition.total_records if partition is not None
+                        else source.total_records),
+            "schedule": "duhl" if schedule is not None else "uniform",
+            "chunk_loads": result.chunk_loads,
+            "chunk_visits": result.chunk_visits,
+            "sweeps": result.sweeps,
+            **({} if partition is None else {"partitioned": {
+                "plan": partition.fingerprint, "rank": partition.rank,
+                "num_ranks": partition.num_ranks, "chunk_range": list(partition.chunk_range()),
+                "rank_records": source.total_records, "bytes_decoded": source.bytes_decoded,
+                "input_bytes": partition.input_bytes}}),
+        },
+        "num_configurations": 1,
+        "effective_coordinate_configurations": {
+            name: format_coordinate_config(cfg) for name, cfg in params.coordinates.items()},
+        "best_configuration_index": 0,
+        "best_reg_weights": reg_weights,
+        "best_metric": best_metric,
+        "validation_metrics": validation_metrics,
+        "losses": [float(x) for x in result.losses],
+        "metric_history": [],
+    }
     summary["timings"] = timing_summary()
     with open(os.path.join(out, "training-summary.json"), "w") as f:
         json.dump(_json_safe(summary), f, indent=2, default=float)
@@ -559,18 +880,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "model>1 feature-shards the primary fixed effect)")
     p.add_argument("--partitioned-io", action="store_true",
                    help="each rank decodes ~1/P of the input bytes (per-rank partitioned Avro "
-                        "ingestion; needs --distributed or --mesh, no validation data)")
+                        "ingestion; needs --distributed or --mesh, or --streaming-chunks; no "
+                        "validation data)")
     p.add_argument("--on-corrupt", default="raise", choices=["raise", "quarantine"],
                    help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
                         "(skip-and-count)")
-    p.add_argument("--max-restarts", type=int, default=0,
+    p.add_argument("--max-restarts", type=int, default=2,
                    help="restarts of a configuration after a divergence (with a checkpoint) "
-                        "or a transient failure; one process only (the JAX driver's default "
-                        "is 2)")
+                        "or a transient failure (0 disables); coordinated over the ranks of "
+                        "a partitioned run")
     p.add_argument("--streaming-chunks", type=int, default=0,
-                   help="not ported (item 16, step 2)")
+                   help="out-of-core streamed GAME: records per entity-clustered chunk (> 0 "
+                        "opts in; dense single-FE + IDENTITY-RE configs over an entity-sorted "
+                        "Avro input)")
+    p.add_argument("--no-streaming-prefetch", action="store_true",
+                   help="decode chunks inline instead of behind the current one")
     p.add_argument("--duhl-working-set", type=int, default=0,
-                   help="not ported (item 16, step 2)")
+                   help="DuHL schedule: pin this many chunks of the largest importance and "
+                        "visit the cold tail round-robin (0: uniform order)")
+    p.add_argument("--duhl-tail-chunks", type=int, default=1,
+                   help="cold chunks visited a sweep under --duhl-working-set")
     p.add_argument("--incremental-refresh", action="store_true", help="not ported (item 18)")
     return p
 
@@ -623,7 +952,9 @@ def parse_args(argv: Sequence[str] | None = None) -> GameTrainingParams:
         on_corrupt=args.on_corrupt,
         max_restarts=args.max_restarts,
         streaming_chunks=args.streaming_chunks,
+        streaming_prefetch=not args.no_streaming_prefetch,
         duhl_working_set=args.duhl_working_set,
+        duhl_tail_chunks=args.duhl_tail_chunks,
         incremental_refresh=args.incremental_refresh,
     )
 

@@ -19,8 +19,8 @@ evaluation is one chunked epoch over the Avro blocks
 decoding inline. ``--checkpoint-dir`` (streaming only) saves the solver's
 state every ``--checkpoint-every`` iterations and at each λ, and a rerun
 resumes from it; ``--max-restarts`` restarts the stages after a transient
-failure (``resilience/recovery.py``), resuming from the checkpoint. The
-port's default for ``--max-restarts`` is 0 (the JAX driver's is 2).
+failure (``resilience/recovery.py``), resuming from the checkpoint; its
+default is 2, the JAX driver's.
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
 item before any data is read: ``--grid-parallel`` and ``--search-rounds``
 (18), ``--enable-diagnostics``, ``--num-bootstraps``, ``--telemetry-dir`` and
@@ -107,7 +107,7 @@ class GLMDriverParams:
     #: iterations between mid-solve checkpoints (λ boundaries always save)
     checkpoint_every: int = 1
     #: restarts after a transient failure (resilience/recovery.py)
-    max_restarts: int = 0
+    max_restarts: int = 2
     # not ported: each refused by check_ported() when set
     enable_diagnostics: bool = False
     num_bootstraps: int = 0
@@ -398,9 +398,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=1,
                    help="solver iterations between mid-solve checkpoints (λ boundaries "
                         "always save)")
-    p.add_argument("--max-restarts", type=int, default=0,
+    p.add_argument("--max-restarts", type=int, default=2,
                    help="restarts after a transient failure, resuming from --checkpoint-dir "
-                        "(the JAX driver's default is 2)")
+                        "(0 disables)")
     p.add_argument("--search-rounds", type=int, default=0, help="not ported (item 18)")
     return p
 

@@ -187,7 +187,7 @@ class GameEstimator:
     checkpoint_every: int = 1
     #: False ignores an existing checkpoint (a fresh fit)
     resume: bool = True
-    #: a partitioned fit's restore pinned to one step (0: from scratch)
+    #: a mesh fit's restore pinned to one step (0: from scratch)
     resume_step: int | None = None
     #: raise DivergenceError on non-finite coordinate updates
     check_finite: bool = True
@@ -214,6 +214,10 @@ class GameEstimator:
     #: sparse primary FE and dense IDENTITY REs, without normalization or
     #: validation (``_check_partition_supported``)
     partition: "TrainPartition | None" = None
+    #: a mesh fit without ``partition`` commits its checkpoints between this
+    #: MetadataExchange's barriers (a coordinated recovery's exchange), so a
+    #: step exists only when every rank reached it
+    exchange: object | None = None
 
     def fit(self, dataset: GameDataset, validation_dataset: GameDataset | None = None,
             initial_model: GameModel | None = None) -> CoordinateDescentResult:
@@ -567,7 +571,7 @@ class GameEstimator:
                 training_evaluator=default_evaluator_for_task(self.task),
                 training_eval_data=eval_data(dataset), check_finite=self.check_finite,
                 checkpointer=self.checkpointer, checkpoint_every=self.checkpoint_every,
-                resume=self.resume)
+                resume=self.resume, exchange=self.exchange, resume_step=self.resume_step)
 
         trainable_cids = {} if fe_cid is None else {fe_shard: fe_cid}
         trainable_cids.update(extra_fe_cid_of_shard)
@@ -854,19 +858,27 @@ def train_glm_streaming(
     the JAX package's, so either package resumes the other's checkpoints.
 
     on_solve: called with (λ, SolverResult, the λ's StreamingGLMObjective)
-    after each λ's solve. ``telemetry`` is ROADMAP.md item 19; ``mesh`` and
-    an ``exchange`` of several ranks are item 16 step 2: they raise before
-    any data is read.
+    after each λ's solve. ``telemetry`` is ROADMAP.md item 19: it raises
+    before any data is read.
+
+    ``exchange``: a ``parallel.multihost.MetadataExchange``; each rank
+    streams its own chunks (``io/stream_reader.plan_partitioned_stream``)
+    and every epoch's accumulators sum across the ranks in rank order, so
+    every rank solves the same problem. ``mesh``: the port's data-axis mesh
+    (``algorithm/streaming.resolve_rank_exchange``). With an exchange, rank
+    0 alone writes the checkpoints (a shared directory) and every rank
+    restores the same one.
     """
-    from photon_ml_torch.algorithm.streaming import StreamingGLMObjective, check_single_process
+    from photon_ml_torch.algorithm.streaming import StreamingGLMObjective, resolve_rank_exchange
     from photon_ml_torch.io.checkpoint import host_array
     from photon_ml_torch.io.stream_reader import DEFAULT_CHUNK_TIMEOUT
     from photon_ml_torch.optim.optimizer import solver_state_class
     from photon_ml_torch.resilience import recovery
 
-    check_single_process(mesh, exchange)
     if telemetry is not None:
         raise _not_ported("solver telemetry of train_glm_streaming", 19)
+    exchange = resolve_rank_exchange(mesh, exchange)
+    writes = exchange is None or exchange.rank == 0
     device = resolve_device(device)
     optimizer = resolve_auto_optimizer(optimizer or OptimizerConfig())
     if optimizer.optimizer_type == OptimizerType.NEWTON:
@@ -910,7 +922,7 @@ def train_glm_streaming(
             "dim": int(source.dim),
             "num_chunks": int(source.num_chunks),
             "total_records": int(source.total_records),
-            "num_ranks": 1,
+            "num_ranks": 1 if exchange is None else int(exchange.num_ranks),
             "input": (None if getattr(source, "files", None) is None
                       else [[os.path.basename(f), int(os.path.getsize(f))]
                             for f in source.files]),
@@ -937,7 +949,7 @@ def train_glm_streaming(
             source, loss, l2_weight=l2, normalization=normalization, prefetch=prefetch,
             retry_policy=retry_policy,
             chunk_timeout=DEFAULT_CHUNK_TIMEOUT if chunk_timeout is None else chunk_timeout,
-            use_kernel=use_kernel, device=device)
+            use_kernel=use_kernel, device=device, exchange=exchange)
         norm = objective.objective.normalization
         if li < start_index:
             # finished before the restored checkpoint: its saved solve-space
@@ -955,7 +967,7 @@ def train_glm_streaming(
                 resume_state_arrays, dtype=solve_dtype, device=device)
             objective.epochs = resume_epochs_lambda
         state_observer = None
-        if checkpointer is not None:
+        if checkpointer is not None and writes:
             def state_observer(state, _li=li, _obj=objective, _mi=opt.max_iterations):
                 if state.iteration % checkpointer.save_every:
                     return
@@ -974,11 +986,12 @@ def train_glm_streaming(
         if checkpointer is not None:
             completed.append((lam, host_array(w)))
             epochs_total += objective.epochs
-            # λ boundary: a failure between λs resumes with this λ done
-            checkpointer.save_progress(
-                fingerprint=fingerprint, lam_index=li + 1, iteration=0,
-                epochs_total=epochs_total, epochs_lambda=0, completed=completed,
-                solver_state=None)
+            if writes:
+                # λ boundary: a failure between λs resumes with this λ done
+                checkpointer.save_progress(
+                    fingerprint=fingerprint, lam_index=li + 1, iteration=0,
+                    epochs_total=epochs_total, epochs_lambda=0, completed=completed,
+                    solver_state=None)
         if on_solve is not None:
             on_solve(lam, result, objective)
         models[lam] = GeneralizedLinearModel(

@@ -73,8 +73,11 @@ JAX package materializes it: the model on output and the FE variances
 (:meth:`GameTrainProgram.whole_state`). With a model axis of 1 the flag
 changes nothing.
 
-Checkpoints and the lane scheduler are not ported yet: ROADMAP.md items 16
-and 18. Nothing is compiled: each coordinate's solve runs its lane loops as
+``train_distributed`` and ``train_partitioned`` save and restore sweep
+checkpoints (``io/checkpoint.commit_checkpoint``), and a run of several
+ranks, partitioned or not, recovers through ``resilience.CoordinatedRecovery``
+on its exchange. The lane scheduler is not ported yet: ROADMAP.md item 18. Nothing
+is compiled: each coordinate's solve runs its lane loops as
 ``GameEstimator.fit`` does.
 """
 
@@ -1571,6 +1574,8 @@ def train_distributed(
     down_sampling_seed: int = 0,
     check_finite: bool = True,
     on_sweep=None,
+    exchange=None,
+    resume_step: "int | None" = None,
 ) -> DistributedTrainResult:
     """Run ``num_iterations`` fused sweeps on the dataset's device.
 
@@ -1605,6 +1610,9 @@ def train_distributed(
     writes), with the JAX package's keys; with ``resume=True`` and no
     ``state`` the newest checkpoint is restored, re-laid over the mesh by
     :meth:`GameTrainProgram.shard_inputs`, and its sweeps are skipped.
+    With ``exchange`` (a coordinated recovery's) each commit runs between
+    two of its barriers; ``resume_step`` pins the restore to one step (0:
+    start from scratch).
 
     A spec with a lane scheduler (ROADMAP.md item 18) raises
     ``NotImplementedError`` before any data is prepared.
@@ -1626,9 +1634,11 @@ def train_distributed(
     best_state: GameTrainState | None = None
     best_metric = float("nan")
     history: list[dict] = []
+    if resume_step == 0:
+        resume = False
     # an explicit warm start takes precedence over a checkpoint
     if checkpointer is not None and resume and state is None:
-        ckpt = checkpointer.restore()
+        ckpt = checkpointer.restore(step=resume_step if resume_step else None)
         if ckpt is not None:
             state, best_state = _restore_train_state(program, ckpt, checkpointer.directory)
             state = _state_to(state, dataset.device)
@@ -1738,7 +1748,7 @@ def train_distributed(
                 arrays.update(_state_arrays(program.whole_state(best_state), "best/"))
             commit_checkpoint(checkpointer, sweep + 1, arrays,
                               {"losses": losses, "metric_history": history,
-                               "best_metric": best_metric})
+                               "best_metric": best_metric}, exchange=exchange)
         if on_sweep is not None:
             on_sweep(sweep + 1, num_iterations, losses[-1] if losses else None)
     return DistributedTrainResult(

@@ -25,8 +25,16 @@ ranks started by the caller) and every collective is an explicit
   ``resilience.ExchangeTimeout`` (a ``TimeoutError``, classified fatal)
   naming the key and the rank that should have published it.
   :class:`DataAxisExchange` narrows an exchange to the mesh's data axis (a
-  partitioned read over a mesh with a model axis). Fencing, abort markers
-  and retries are item 16's step 2.
+  partitioned read over a mesh with a model axis).
+- Generation fencing and abort markers (``resilience/coordinated.py``):
+  ``set_generation(g)`` moves every later key into a generation-``g``
+  namespace and restarts the per-instance call sequence at 0, so the ranks
+  of a restarted attempt agree again and a dead attempt's keys never
+  satisfy a new one's wait. ``post_abort`` publishes a rank-attributed
+  marker (the first writer wins); a fenced wait that sees a peer's marker
+  raises ``resilience.PeerAbort`` naming it. Markers are written only on
+  the failure path and read only when a wait's slice expires, so a healthy
+  fenced run makes the same store operations as an unfenced one.
 
 The JAX package's ``default_put``/``global_put`` have no counterpart: the
 port places no global arrays. Its ``put_fn`` hook is "(tensor, rows) -> this
@@ -43,6 +51,7 @@ import json
 import logging
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -150,7 +159,7 @@ def initialize(
     try:
         store = _build_store(init_method if init_method is not None
                              else "env://" if launched else None, rank, world, timeout)
-        _STORE["store"] = store
+        _STORE.update(store=store, timeout=timeout)
         dist.init_process_group(backend=backend, store=store, rank=rank, world_size=world,
                                 timeout=timeout)
     except BaseException:
@@ -183,6 +192,22 @@ def group_store():
     return _STORE["store"]
 
 
+def reinitialize(prefix: str) -> ProcessInfo:
+    """Tear the process group down and join a new one of the same ranks,
+    backend and timeout, rendezvousing under ``prefix`` in the same store
+    (every rank calls it with the same prefix). A coordinated restart uses
+    it after a rank failed inside a device collective: the peer blocked in
+    that collective ends at the group's timeout, and the group's operation
+    sequence is then out of step. Metadata exchanges keep working: they use
+    the store, not the group."""
+    info = process_info()
+    store, timeout = group_store(), _STORE["timeout"]
+    dist.destroy_process_group()
+    dist.init_process_group(backend=info.backend, store=dist.PrefixStore(prefix, store),
+                            rank=info.rank, world_size=info.world_size, timeout=timeout)
+    return process_info()
+
+
 def shutdown() -> None:
     """Destroy the process group, if one exists (every rank calls it)."""
     _STORE.clear()
@@ -211,10 +236,18 @@ def make_hybrid_mesh(data: int | None = None, model: int = 1):
 class MetadataExchange:
     """Small host payloads shared by every rank (partitioned I/O's feature
     keys, vocabularies and row counts). Every rank makes the same sequence
-    of calls."""
+    of calls.
+
+    ``generation`` is the fence generation (None: the unfenced keyspace);
+    ``fence_epoch`` tells apart successive fencing sessions over one
+    transport (a driver ``run()`` called twice), and grows whenever a new
+    fence starts (the first ``set_generation``, or a generation that does
+    not increase)."""
 
     rank: int = 0
     num_ranks: int = 1
+    generation: "int | None" = None
+    fence_epoch: int = 0
 
     def allgather(self, tag: str, payload) -> list:
         """All ranks' ``payload``s, ordered by rank."""
@@ -224,6 +257,49 @@ class MetadataExchange:
         """Block until every rank reaches this barrier."""
         raise NotImplementedError
 
+    def set_generation(self, generation: int) -> None:
+        """Adopt the generation-``generation`` namespace (every rank calls at
+        the same point: the coordinator's restart rendezvous)."""
+        generation = int(generation)
+        if self.generation is None or generation <= self.generation:
+            self.fence_epoch += 1
+        self.generation = generation
+
+    def fence_namespace(self) -> str:
+        """A name of the current fencing session and generation that no
+        other session or generation of this run shares (the same on every
+        rank): a coordinated restart keys its new process group by it."""
+        return f"e{self.fence_epoch}g{self.generation}"
+
+    def post_abort(self, info: dict) -> None:
+        """Publish an abort marker for the current generation (best effort;
+        ``info`` has at least ``rank`` and ``cause``). No peers here."""
+
+    def pending_abort(self) -> "dict | None":
+        """A peer's abort marker for the current generation, or None; this
+        rank's own marker is never returned."""
+        return None
+
+    def _shape_marker(self, marker) -> "dict | None":
+        """A raw marker as :meth:`pending_abort` returns it: a corrupt
+        (non-dict) payload still ends the wait, unattributed; this rank's
+        own marker is invisible."""
+        if marker is None:
+            return None
+        if not isinstance(marker, dict):
+            return {"rank": None, "cause": f"unparseable marker {marker!r}"}
+        if marker.get("rank") == self.rank:
+            return None
+        return marker
+
+    def _raise_abort(self, tag: str, marker: dict):
+        from photon_ml_torch.resilience.errors import PeerAbort
+
+        origin = marker.get("rank")
+        raise PeerAbort(tag, origin_rank=None if origin is None else int(origin),
+                        cause=str(marker.get("cause", "")), generation=self.generation,
+                        rank=self.rank)
+
 
 class DataAxisExchange(MetadataExchange):
     """``base`` seen along a mesh's data axis: ``rank``/``num_ranks`` are the
@@ -231,7 +307,8 @@ class DataAxisExchange(MetadataExchange):
     per data rank (that of its model rank 0). Every process of the group
     still makes every call, so the ranks of one data row (which read the
     same block of a partitioned input) stay in step, and no row of the input
-    is counted more than once."""
+    is counted more than once. Fencing is the base's; an abort marker
+    carries the process rank in the base and the data rank here."""
 
     def __init__(self, base: MetadataExchange, mesh):
         from photon_ml_torch.parallel.mesh import data_rank, data_size, model_size
@@ -240,6 +317,30 @@ class DataAxisExchange(MetadataExchange):
         self.rank = data_rank(mesh)
         self.num_ranks = data_size(mesh)
         self._stride = model_size(mesh)
+
+    @property
+    def generation(self):
+        return self.base.generation
+
+    @property
+    def fence_epoch(self):
+        return self.base.fence_epoch
+
+    def set_generation(self, generation: int) -> None:
+        self.base.set_generation(generation)
+
+    def fence_namespace(self) -> str:
+        return self.base.fence_namespace()
+
+    def post_abort(self, info: dict) -> None:
+        self.base.post_abort({**info, "rank": self.base.rank} if isinstance(info, dict)
+                             else info)
+
+    def pending_abort(self) -> "dict | None":
+        marker = self.base.pending_abort()
+        if marker is not None and marker.get("rank") is not None:
+            marker = {**marker, "rank": int(marker["rank"]) // self._stride}
+        return marker
 
     def allgather(self, tag: str, payload) -> list:
         return self.base.allgather(tag, payload)[::self._stride]
@@ -280,7 +381,8 @@ class InProcessExchange(MetadataExchange):
     """N virtual ranks inside one process (threads): the test transport,
     which runs partitioned readers and writers of several ranks in one
     process. A per-instance sequence keeps repeated exchanges under one tag
-    apart (every rank makes the same calls, so the sequences agree)."""
+    apart (every rank makes the same calls, so the sequences agree);
+    ``set_generation`` restarts it at 0."""
 
     def __init__(self, store: dict, rank: int, num_ranks: int,
                  timeout: float = DEFAULT_EXCHANGE_TIMEOUT):
@@ -293,19 +395,39 @@ class InProcessExchange(MetadataExchange):
     @classmethod
     def create_group(cls, num_ranks: int, timeout: float = DEFAULT_EXCHANGE_TIMEOUT
                      ) -> "list[InProcessExchange]":
-        store = {"cond": threading.Condition(), "gather": {}, "reads": {}}
+        store = {"cond": threading.Condition(), "gather": {}, "reads": {}, "aborts": {}}
         return [cls(store, r, num_ranks, timeout=timeout) for r in range(num_ranks)]
 
+    def set_generation(self, generation: int) -> None:
+        super().set_generation(generation)
+        self._seq = 0
+
+    def post_abort(self, info: dict) -> None:
+        cond = self._store["cond"]
+        with cond:
+            # the first writer of a generation wins: it names the first failure
+            self._store["aborts"].setdefault((self.fence_epoch, self.generation),
+                                             dict(info) if isinstance(info, dict) else info)
+            cond.notify_all()
+
+    def pending_abort(self) -> "dict | None":
+        return self._shape_marker(
+            self._store["aborts"].get((self.fence_epoch, self.generation)))
+
     def allgather(self, tag: str, payload) -> list:
-        key = (self._seq, tag)
+        key = (self.fence_epoch, self.generation, self._seq, tag)
         self._seq += 1
         cond, slot = self._store["cond"], self._store["gather"]
         with cond:
             entry = slot.setdefault(key, {})
             entry[self.rank] = payload
             cond.notify_all()
-            cond.wait_for(lambda: len(slot[key]) == self.num_ranks, timeout=self.timeout)
+            cond.wait_for(lambda: len(slot[key]) == self.num_ranks
+                          or self.pending_abort() is not None, timeout=self.timeout)
             if len(slot[key]) != self.num_ranks:
+                marker = self.pending_abort()
+                if marker is not None:
+                    self._raise_abort(tag, marker)
                 missing = [r for r in range(self.num_ranks) if r not in slot[key]]
                 raise _timeout_error(tag, None, missing, self.rank, self.timeout,
                                      f"{len(slot[key])}/{self.num_ranks} ranks published")
@@ -336,36 +458,129 @@ class DistributedKVExchange(MetadataExchange):
     A key that does not appear within ``timeout`` seconds raises
     ``TimeoutError`` naming it and the rank that should have published it.
 
+    Unfenced keys take the process-global sequence (two instances in one
+    process never collide). Fenced keys (``set_generation``) live under a
+    namespace of the fencing session's nonce (this rank's count of fencing
+    sessions, kept in the store) and the generation, and take a
+    per-instance sequence that ``set_generation`` restarts at 0. A fenced wait polls in slices of
+    :attr:`ABORT_POLL_MS` and reads the generation's abort marker only when
+    a slice expires. The marker is written with ``compare_set`` against an
+    absent key, so the first writer wins. One fenced exchange per process
+    (the coordinator's).
+
     ``store``/``rank``/``num_ranks`` are injectable (tests); by default the
-    group's store and place."""
+    group's store and place. :attr:`counts` tallies this instance's
+    allgathers (barriers among them) and the JSON bytes it published and
+    read."""
+
+    #: slice of a fenced wait, between two reads of the abort marker
+    ABORT_POLL_MS = 500
 
     def __init__(self, timeout: float = DEFAULT_EXCHANGE_TIMEOUT, *, store=None,
                  rank: int | None = None, num_ranks: int | None = None):
-        self._store = dist.PrefixStore("photon/xchg", store if store is not None
-                                       else group_store())
+        base = store if store is not None else group_store()
+        self._store = dist.PrefixStore("photon/xchg", base)
+        self._aborts = dist.PrefixStore("photon/abort", base)
         self.timeout = float(timeout)
         self.rank = dist.get_rank() if rank is None else int(rank)
         self.num_ranks = dist.get_world_size() if num_ranks is None else int(num_ranks)
+        self._gen_seq = 0
+        self._fence_nonce = 0
+        self.counts = {"allgathers": 0, "bytes_sent": 0, "bytes_received": 0}
+
+    def set_generation(self, generation: int) -> None:
+        new_fence = self.generation is None or int(generation) <= self.generation
+        super().set_generation(generation)
+        if new_fence:
+            # the store outlives this session: a later session must not
+            # reuse an earlier one's keys. The nonce counts this rank's
+            # sessions in the store; every rank fences at the same points,
+            # so the counts agree
+            self._fence_nonce = int(self._store.add(f"fence_sessions/{self.rank}", 1))
+        self._gen_seq = 0
+
+    def _namespace(self) -> str:
+        return f"e{self._fence_nonce}g{self.generation}"
+
+    def fence_namespace(self) -> str:
+        return self._namespace()
+
+    def post_abort(self, info: dict) -> None:
+        try:
+            self._aborts.compare_set(self._namespace(), "", json.dumps(info))
+        except (RuntimeError, TypeError, ValueError) as e:
+            # best effort: the peers fall back to their deadlines
+            logger.warning("abort-marker write failed: %s", e)
+
+    def pending_abort(self) -> "dict | None":
+        if self.generation is None:
+            return None
+        key = self._namespace()
+        try:
+            if not self._aborts.check([key]):
+                return None
+            raw = self._aborts.get(key)
+        except RuntimeError:
+            return None
+        try:
+            marker = json.loads(raw)
+        except (TypeError, ValueError):
+            marker = raw  # corrupt: shaped unattributed
+        return self._shape_marker(marker)
+
+    def _next_seq(self) -> int:
+        if self.generation is None:
+            return _kv_seq()
+        seq, self._gen_seq = self._gen_seq, self._gen_seq + 1
+        return seq
 
     def _get(self, key: str, tag: str, expected_rank: int) -> bytes:
-        try:
-            self._store.wait([key], datetime.timedelta(seconds=self.timeout))
-        except RuntimeError as e:  # DistStoreError and the FileStore's RuntimeError
-            if "timeout" not in str(e).lower() and "timed out" not in str(e).lower():
-                raise
-            raise _timeout_error(tag, key, [expected_rank], self.rank, self.timeout) from e
-        return self._store.get(key)
+        def timed_out(e) -> bool:
+            return "timeout" in str(e).lower() or "timed out" in str(e).lower()
+
+        if self.generation is None:
+            try:
+                self._store.wait([key], datetime.timedelta(seconds=self.timeout))
+            except RuntimeError as e:  # DistStoreError and the FileStore's RuntimeError
+                if not timed_out(e):
+                    raise
+                raise _timeout_error(tag, key, [expected_rank], self.rank, self.timeout) from e
+            return self._store.get(key)
+        # fenced: slice the deadline; only an expired slice reads the marker
+        deadline = time.monotonic() + self.timeout
+        while True:
+            remaining = deadline - time.monotonic()
+            try:
+                self._store.wait([key], datetime.timedelta(
+                    seconds=max(0.001, min(self.ABORT_POLL_MS / 1000.0, remaining))))
+                return self._store.get(key)
+            except RuntimeError as e:
+                if not timed_out(e):
+                    raise
+                marker = self.pending_abort()
+                if marker is not None:
+                    self._raise_abort(tag, marker)
+                if time.monotonic() >= deadline:
+                    raise _timeout_error(tag, key, [expected_rank], self.rank,
+                                         self.timeout) from e
 
     def allgather(self, tag: str, payload) -> list:
-        seq = _kv_seq()
-        keys = [f"{seq}/{tag}/{r}" for r in range(self.num_ranks)]
-        self._store.set(keys[self.rank], json.dumps(payload))
-        out = [json.loads(self._get(k, tag, r)) for r, k in enumerate(keys)]
+        seq = self._next_seq()
+        prefix = f"{seq}/{tag}" if self.generation is None else \
+            f"{self._namespace()}/{seq}/{tag}"
+        keys = [f"{prefix}/{r}" for r in range(self.num_ranks)]
+        mine = json.dumps(payload)
+        self._store.set(keys[self.rank], mine)
+        raw = [self._get(k, tag, r) for r, k in enumerate(keys)]
+        out = [json.loads(v) for v in raw]
+        self.counts["allgathers"] += 1
+        self.counts["bytes_sent"] += len(mine)
+        self.counts["bytes_received"] += sum(len(v) for v in raw)
         # the last rank to finish reading reclaims the payloads (feature-key
         # lists can be megabytes); reclamation failing fails nothing
-        if self._store.add(f"{seq}/{tag}/reads", 1) == self.num_ranks:
+        if self._store.add(f"{prefix}/reads", 1) == self.num_ranks:
             try:
-                for k in keys + [f"{seq}/{tag}/reads"]:
+                for k in keys + [f"{prefix}/reads"]:
                     self._store.delete_key(k)
             except RuntimeError as e:
                 logger.warning("exchange %r: reclaiming its keys failed: %s", tag, e)

@@ -1,8 +1,7 @@
 """Fault tolerance: error classification, bounded retry, restore-and-resume.
 
-Counterpart of ``photon_ml_tpu/resilience/`` for one process. Coordinated
-multi-rank recovery (``resilience/coordinated.py``) is ROADMAP.md item 16
-step 2.
+Counterpart of ``photon_ml_tpu/resilience/``, coordinated multi-rank
+recovery (``resilience/coordinated.py``) included.
 """
 
 from photon_ml_torch.resilience.errors import (
@@ -27,6 +26,7 @@ from photon_ml_torch.resilience.policy import (
     default_kv_policy,
 )
 from photon_ml_torch.resilience.recovery import run_with_recovery
+from photon_ml_torch.resilience.coordinated import CoordinatedRecovery, RestartDecision
 
 __all__ = [
     "CUDA_STICKY_PATTERNS",
@@ -34,8 +34,10 @@ __all__ = [
     "NCCL_FATAL_PATTERNS",
     "NCCL_TRANSIENT_PATTERNS",
     "TRANSIENT_ERRNOS",
+    "CoordinatedRecovery",
     "ExchangeTimeout",
     "PeerAbort",
+    "RestartDecision",
     "Transience",
     "TransientError",
     "classify_exception",

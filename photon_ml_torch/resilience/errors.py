@@ -186,8 +186,8 @@ class ExchangeTimeout(TimeoutError):
 
 class PeerAbort(RuntimeError):
     """Another rank aborted the attempt, attributed to the culprit.
-    Classified FATAL (recovering it needs coordinated recovery, ROADMAP.md
-    item 16 step 2)."""
+    Classified FATAL: only a ``CoordinatedRecovery`` attached to
+    ``run_with_recovery`` recovers it."""
 
     def __init__(
         self,

@@ -271,8 +271,10 @@ GAME_LEFT_OUT = [
     # with it gets past every refusal, as do checkpoints and restarts
     (["--partitioned-io"], ValueError), (["--partitioned-io", "--distributed"], None),
     (["--partitioned-io", "--distributed", "--checkpoint-dir", "ck"], None),
-    (["--streaming-chunks", "64"], "item 16"),
-    (["--duhl-working-set", "2"], "item 16"), (["--checkpoint-dir", "ck"], None),
+    # streamed GAME is ported: --streaming-chunks gets past every refusal,
+    # and --duhl-working-set without it is the JAX driver's ValueError
+    (["--streaming-chunks", "64"], None),
+    (["--duhl-working-set", "2"], ValueError), (["--checkpoint-dir", "ck"], None),
     (["--max-restarts", "2"], None), (["--incremental-refresh"], "item 18"),
     (["--hyperparameter-tuning", "BAYESIAN"], "item 18"), (["--telemetry-dir", "t"], "item 19"),
     (["--trace-dir", "t"], "item 19"), (["--profile-dir", "t"], "item 19"),

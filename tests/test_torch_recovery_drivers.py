@@ -55,7 +55,7 @@ def _files(root: Path) -> dict:
             if p.is_file()}
 
 
-@pytest.mark.parametrize("optimizer,lams", [("LBFGS", "0.1,10"), ("TRON", "1")])
+@pytest.mark.parametrize("optimizer,lams", [("LBFGS", "0.1,1,10"), ("TRON", "1")])
 def test_streaming_glm_driver_matches_the_jax_driver(logistic, tmp_path, optimizer, lams):
     extra = ("--streaming-chunks", "128", "--optimizer", optimizer)
     if optimizer == "TRON":  # the reference's TRON defaults (TRON.scala:257-262)
@@ -216,12 +216,45 @@ def test_game_driver_without_checkpoints_gives_up_on_a_fatal_error(music, tmp_pa
 
 
 def test_game_driver_restarts_on_several_ranks_wait_for_step_2(music, tmp_path):
-    """``--max-restarts`` above 0 on a group of two ranks raises naming item
-    16 step 2 (coordinated recovery) before any data is read."""
+    """``--max-restarts`` above 0 on a group of two ranks is ported (every
+    run of several ranks takes coordinated recovery): the run gets past
+    every refusal and fails on the missing input, on each rank."""
     from tests import torch_mesh_worker as W
 
     argv = P.training_args(tmp_path / "no-such-input", tmp_path / "o",
                            GAME + ["--distributed", "--max-restarts", "1"], validation=False)
     (tmp_path / "ranks").mkdir()
-    with pytest.raises(RuntimeError, match=r"ROADMAP.md item 16 \(step 2\)"):
+    with pytest.raises(RuntimeError, match="FileNotFoundError") as ei:
         W.spawn_ranks(2, [dict(kind="driver_runs", runs=[("train", argv)])], tmp_path / "ranks")
+    assert "ROADMAP.md item" not in str(ei.value)
+
+
+def test_distributed_game_driver_recovers_a_killed_rank(music, tmp_path):
+    """A plain ``--distributed`` run on two gloo ranks (no partitioned I/O)
+    with rank 1 killed at the sweep-2 commit barrier: the driver's
+    coordinated recovery rolls both ranks back to step 1 on a new group
+    (rank 0 through the peer-abort marker, at once), spends one restart of
+    the default budget, and both ranks write the uninterrupted run's model
+    files byte for byte."""
+    from tests import torch_mesh_worker as W
+
+    def argv(name):
+        return P.training_args(music, tmp_path / name, GAME + [
+            "--distributed", "--checkpoint-dir", str(tmp_path / f"{name}-ck")])
+
+    (tmp_path / "ranks").mkdir()
+    plain, killed = W.spawn_ranks(
+        2, [dict(kind="driver_runs", runs=[("train", argv("plain"))]),
+            dict(kind="driver_recovery", argv=argv("killed"))],
+        tmp_path / "ranks", timeout_s=240, group_timeout_s=30)
+    for r in range(2):
+        assert killed[r]["exchanges"] == 1
+        assert killed[r]["fired"] == (1 if r == 1 else 0)
+        assert killed[r]["counts"]["coordinated_restarts"] == 1
+        assert killed[r]["counts"]["checkpoint_restores"] == 1
+        assert killed[r]["summary"]["best_metric"] == plain[r][0]["summary"]["best_metric"]
+    assert killed[0]["counts"]["peer_aborts"] == 1
+    assert killed[1]["counts"]["preemptions"] == 1
+    for sub in ("", ".worker-1"):
+        got = _models(tmp_path / "killed" / sub)
+        assert got and got == _models(tmp_path / "plain" / sub)

@@ -215,8 +215,23 @@ def test_recovery_counts_restarts_and_preemptions():
 
 
 def test_coordinated_recovery_waits_for_step_2():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16 \\(step 2\\)"):
-        tres.run_with_recovery(lambda r: None, coordinator=object())
+    """Coordinated recovery is ported (``resilience/coordinated.py``): a
+    coordinator's budget replaces ``max_restarts`` and a one-rank run
+    restarts through its rendezvous (``tests/test_torch_coordinated.py``
+    holds the multi-rank cases)."""
+    from photon_ml_torch.parallel.multihost import SingleProcessExchange
+
+    coord = tres.CoordinatedRecovery(SingleProcessExchange(), max_restarts=1)
+    calls = []
+
+    def fn(restart):
+        calls.append(restart)
+        if restart == 0:
+            raise RuntimeError("INTERNAL: device lost")
+        return restart
+
+    assert tres.run_with_recovery(fn, max_restarts=0, coordinator=coord) == 1
+    assert calls == [0, 1] and coord.generation == 1 and coord.resume_step == 0
 
 
 class _FailingSource:

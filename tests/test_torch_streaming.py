@@ -254,20 +254,30 @@ def test_fingerprint_mismatch_names_the_same_fields_as_jax(tmp_path):
     assert "lambdas" in messages[1] and "max_iterations" in messages[1]
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"exchange": type("X", (), {"num_ranks": 2})()},
+@pytest.mark.parametrize("kw", [{"mesh": object()},
+                                {"exchange": type("X", (), {"num_ranks": 2, "rank": 0})()},
                                 {"telemetry": object()}],
                          ids=["mesh", "exchange", "telemetry"])
 def test_refusals_before_any_data(kw):
+    """Telemetry (item 19) raises NotImplementedError before any data; a
+    mesh that is not the port's data-axis mesh raises ValueError saying so;
+    an exchange of several ranks is ported and gets past every check to the
+    data (``tests/test_torch_streaming_game_ranks.py`` and
+    ``test_torch_coordinated.py`` train over ranks)."""
     class Untouchable:
         def __getattr__(self, name):
             raise AssertionError(f"touched {name}")
 
-    item = "item 19" if "telemetry" in kw else r"item 16 \(step 2\)"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    if "telemetry" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 19"):
+            test_.train_glm_streaming(Untouchable(), TTask.LOGISTIC_REGRESSION, device="cpu",
+                                      **kw)
+        return
+    expected = (ValueError, "no counterpart") if "mesh" in kw else (AssertionError, "touched")
+    with pytest.raises(expected[0], match=expected[1]):
         test_.train_glm_streaming(Untouchable(), TTask.LOGISTIC_REGRESSION, device="cpu", **kw)
-    if "telemetry" not in kw:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tstream.StreamingGLMObjective(Untouchable(), None, device="cpu", **kw)
+    with pytest.raises(expected[0], match=expected[1]):
+        tstream.StreamingGLMObjective(Untouchable(), None, device="cpu", **kw)
 
 
 def test_newton_and_bounded_l1_are_refused():

@@ -29,18 +29,19 @@ JOIN_TIMEOUT_S = 120
 
 
 def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TIMEOUT_S,
-                device: str = "cpu") -> list:
+                device: str = "cpu", group_timeout_s: float = GROUP_TIMEOUT_S) -> list:
     """Run ``tasks`` in ``world`` spawned ranks (gloo, on the CPU, or with
     ``device="cuda"`` every rank on card 0 with CUDA tensors); returns per
     task the list of the ranks' results. Raises if a rank fails or outlives
-    ``timeout_s``."""
+    ``timeout_s``. ``group_timeout_s``: the group's collective deadline."""
     import multiprocessing as mp
 
     tmp = Path(tmp_path)
     job = tmp / "job.pkl"
     job.write_bytes(pickle.dumps(tasks))
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, str(tmp), device), daemon=True)
+    procs = [ctx.Process(target=_rank_main, args=(r, world, str(tmp), device, group_timeout_s),
+                         daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -63,7 +64,8 @@ def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TI
     return [[per_rank[r][i] for r in range(world)] for i in range(len(tasks))]
 
 
-def _rank_main(rank: int, world: int, tmp: str, device: str = "cpu") -> None:
+def _rank_main(rank: int, world: int, tmp: str, device: str = "cpu",
+               group_timeout_s: float = GROUP_TIMEOUT_S) -> None:
     os.environ.setdefault("OMP_NUM_THREADS", "1")
     import torch
 
@@ -74,7 +76,7 @@ def _rank_main(rank: int, world: int, tmp: str, device: str = "cpu") -> None:
         dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
         multihost.initialize(f"file://{tmp}/rendezvous", world, rank, device=dev,
                              backend="gloo", local_rank=0 if device == "cuda" else None,
-                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+                             timeout=datetime.timedelta(seconds=group_timeout_s))
         tasks = pickle.loads(Path(tmp, "job.pkl").read_bytes())
         out = [TASKS[t["kind"]](t, rank, world, Path(tmp)) for t in tasks]
         Path(tmp, f"out{rank}.pkl").write_bytes(pickle.dumps(out))
@@ -725,16 +727,257 @@ def _task_driver_runs(t, rank, world, tmp):
     return out
 
 
+class _Killer:
+    """An exchange wrapper that raises a transient preemption on ``rank`` at
+    its first operation whose tag contains ``tag`` (the operation never
+    reaches the store); the coordinator's calls pass through."""
+
+    def __init__(self, inner, tag: str, rank: int, on_fire=None):
+        self._inner, self._tag, self._target, self._on_fire = inner, tag, rank, on_fire
+        self.fired = 0
+
+    rank = property(lambda self: self._inner.rank)
+    num_ranks = property(lambda self: self._inner.num_ranks)
+    generation = property(lambda self: self._inner.generation)
+
+    def set_generation(self, generation):
+        self._inner.set_generation(generation)
+
+    def fence_namespace(self):
+        return self._inner.fence_namespace()
+
+    def post_abort(self, info):
+        self._inner.post_abort(info)
+
+    def pending_abort(self):
+        return self._inner.pending_abort()
+
+    def _maybe_die(self, tag):
+        if self._inner.rank == self._target and self._tag in tag and not self.fired:
+            self.fired += 1
+            if self._on_fire is not None:
+                self._on_fire()
+            raise RuntimeError("INTERNAL: device lost: worker preempted by the pool "
+                               "scheduler; Socket closed")
+
+    def allgather(self, tag, payload):
+        self._maybe_die(tag)
+        return self._inner.allgather(tag, payload)
+
+    def barrier(self, tag):
+        self._maybe_die(tag)
+        return self._inner.barrier(tag)
+
+
+def _task_driver_recovery(t, rank, world, tmp):
+    """The GAME training driver's run ``argv`` over the group with rank 1
+    killed once at the sweep-2 commit barrier of the run's
+    coordinated-recovery exchange (the one ``multihost.default_exchange``
+    hands the driver, wrapped); returns the summary, the kill's count and
+    the recovery counters."""
+    from photon_ml_torch.cli import game_training_driver
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.resilience import recovery
+
+    real = multihost.default_exchange
+    made = []
+
+    def wrapped(*args, **kwargs):
+        made.append(_Killer(real(*args, **kwargs), "checkpoint_commit/2/ready", 1))
+        return made[-1]
+
+    multihost.default_exchange = wrapped
+    recovery.reset_counts()
+    try:
+        summary = game_training_driver.main(t["argv"], device="cpu")
+    finally:
+        multihost.default_exchange = real
+    return {"summary": _plain(summary), "exchanges": len(made),
+            "fired": sum(k.fired for k in made), "counts": dict(recovery.counts)}
+
+
+class _Rows:
+    """A run journal that keeps its rows with their wall-clock times."""
+
+    def __init__(self):
+        self.rows = []
+
+    def record(self, kind, **fields):
+        import time
+
+        self.rows.append(_plain({"kind": kind, "time": time.time(), **fields}))
+
+
+def _task_partitioned_recovery(t, rank, world, tmp):
+    """train_partitioned under run_with_recovery(coordinator=) over the
+    group's fenced key-value exchange, rank 1 killed once in sweep 2: at the
+    commit barrier (``fault="commit"``) or inside the sweep's first
+    all-gather (``fault="all_gather"``, which leaves rank 0 blocked in a gloo
+    collective until the group's timeout). Every restart re-initializes the
+    group on a fresh store prefix and rebuilds the mesh. Beside it
+    (``reference``) the uninterrupted run."""
+    import time
+
+    from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+    from photon_ml_torch.parallel import distributed as tdist
+    from photon_ml_torch.parallel import mesh as M
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.resilience import CoordinatedRecovery, run_with_recovery
+
+    plain_ex = multihost.default_exchange()
+    part = _read_part(t, plain_ex)
+    res = _partitioned_inputs(t, plain_ex, part)
+    parts = {rank: (part.result.dataset, res)}
+    sweeps = t["sweeps"]
+    live = {"mesh": make_task_mesh(t)}
+    prog = build_program(t["program"], live["mesh"])
+    ref = tdist.train_partitioned(prog, parts, live["mesh"], world, num_iterations=sweeps,
+                                  exchange=plain_ex)
+    out = {"reference": {"losses": ref.losses, "state": state_numpy(prog.whole_state(ref.state))}}
+
+    times = {}
+    armed = {"on": False}
+    fenced = multihost.DistributedKVExchange()
+    killer = _Killer(fenced, "checkpoint_commit/2/ready" if t["fault"] == "commit" else
+                     "never", 1, on_fire=lambda: times.setdefault("fault", time.time()))
+    real_gather = M.all_gather_rows
+
+    def gather(x, mesh, axis="data"):
+        # armed once sweep 1 is committed: the next all-gather is sweep 2's
+        if (t["fault"] == "all_gather" and rank == 1 and armed["on"] and not killer.fired):
+            killer.fired += 1
+            times["fault"] = time.time()
+            raise RuntimeError("INTERNAL: device lost: worker preempted by the pool scheduler; "
+                               "Socket closed")
+        return real_gather(x, mesh, axis)
+
+    class _Arming:
+        """Arms the all-gather fault once sweep 1's commit is published."""
+
+        def __getattr__(self, name):
+            return getattr(killer, name)
+
+        def barrier(self, tag):
+            killer.barrier(tag)
+            if tag == "checkpoint_commit/1/published":
+                armed["on"] = True
+
+        def allgather(self, tag, payload):
+            return killer.allgather(tag, payload)
+
+    exchange = _Arming()
+    ck = TrainingCheckpointer(tmp / f"recovery-{t['fault']}")
+    journal = _Rows()
+    coord = CoordinatedRecovery(exchange, max_restarts=2, checkpointer=ck, journal=journal)
+    M.all_gather_rows = gather
+    box = {}
+
+    def attempt(restart):
+        if restart > 0:
+            multihost.reinitialize(f"restart/{fenced.fence_namespace()}")
+            live["mesh"] = make_task_mesh(t)
+            times.setdefault("resumed", time.time())
+        p = build_program(t["program"], live["mesh"])
+        r = tdist.train_partitioned(p, parts, live["mesh"], world, num_iterations=sweeps,
+                                    exchange=exchange, checkpointer=ck,
+                                    resume_step=coord.resume_step)
+        box["prog"] = p
+        return r
+
+    try:
+        result = run_with_recovery(attempt, checkpointer=ck, journal=journal,
+                                   coordinator=coord, description=f"rank {rank}")
+    finally:
+        M.all_gather_rows = real_gather
+    restarts = [row for row in journal.rows if row["kind"] == "coordinated_restart"]
+    aborts = [row for row in journal.rows if row["kind"] == "peer_abort"]
+    out.update(losses=result.losses, state=state_numpy(box["prog"].whole_state(result.state)),
+               fired=killer.fired, resume_step=coord.resume_step, generation=coord.generation,
+               origin_rank=restarts[0]["origin_rank"] if restarts else None,
+               peer_abort_origin=aborts[0]["origin_rank"] if aborts else None,
+               t_fault=times.get("fault"), t_resumed=times.get("resumed"))
+    return out
+
+
+def _task_streamed_game(t, rank, world, tmp):
+    """plan_partitioned_game_stream and StreamingGameProgram over the
+    group's key-value exchange (``schedule``: a DuHL budget), and
+    (``kill``) the same run with rank 1 killed at the sweep-2 commit under
+    run_with_recovery(coordinator=); returns each run's losses, state,
+    chunk loads and DuHL decisions."""
+    from photon_ml_torch.algorithm.streaming_game import (
+        DuHLChunkSchedule,
+        DuHLScheduleConfig,
+        StreamingGameProgram,
+    )
+    from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+    from photon_ml_torch.io.stream_reader import plan_partitioned_game_stream
+    from photon_ml_torch.optim.optimizer import OptimizerConfig
+    from photon_ml_torch.parallel import distributed as tdist
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.resilience import CoordinatedRecovery, run_with_recovery
+    from photon_ml_torch.types import TaskType
+
+    def run(exchange, checkpointer=None, resume_step=None):
+        source, maps, vocabs, partition = plan_partitioned_game_stream(
+            t["path"], shard_configs(t["configs"]), ("userId",), exchange=exchange,
+            chunk_records=t["chunk_records"], cluster_by="userId", dtype=np.float64)
+        opt = OptimizerConfig(max_iterations=t.get("max_iter", 4))
+        schedule = None
+        if t.get("working_set"):
+            schedule = DuHLChunkSchedule(DuHLScheduleConfig(working_set_chunks=t["working_set"]),
+                                         partition.num_chunks)
+        program = StreamingGameProgram(
+            TaskType.LINEAR_REGRESSION, source,
+            tdist.FixedEffectStepSpec("global", opt, l2_weight=0.1),
+            (tdist.RandomEffectStepSpec("userId", "global", opt, l2_weight=1.0),),
+            num_entities={"userId": len(vocabs["userId"])}, schedule=schedule,
+            exchange=exchange, partition=partition, device="cpu")
+        pins = []
+        real_set = program._cache.set_pinned
+
+        def set_pinned(pinned):
+            pins.append(sorted(int(g) + program._chunk_lo for g in pinned))
+            real_set(pinned)
+
+        program._cache.set_pinned = set_pinned
+        result = program.train(num_sweeps=t["sweeps"], checkpointer=checkpointer,
+                               resume_step=resume_step)
+        return {"losses": result.losses,
+                "fe": result.state.fe_coefficients.numpy(),
+                "user": result.state.re_tables["userId"].numpy(),
+                "chunk_loads": result.chunk_loads, "pins": pins,
+                "partition": dataclasses.asdict(partition)}
+
+    out = {"plain": run(multihost.default_exchange())}
+    if t.get("kill"):
+        fenced = multihost.DistributedKVExchange()
+        killer = _Killer(fenced, "checkpoint_commit/2", 1)
+        ck = TrainingCheckpointer(tmp / "streamed-ck")
+        journal = _Rows()
+        coord = CoordinatedRecovery(killer, max_restarts=2, checkpointer=ck, journal=journal)
+        got = run_with_recovery(
+            lambda restart: run(killer, ck, coord.resume_step), checkpointer=ck,
+            journal=journal, coordinator=coord, description=f"rank {rank}")
+        aborts = [row for row in journal.rows if row["kind"] == "peer_abort"]
+        out["killed"] = dict(got, fired=killer.fired, resume_step=coord.resume_step,
+                             peer_abort_origin=aborts[0]["origin_rank"] if aborts else None)
+    return out
+
+
 TASKS = {
     "train": _task_train,
     "objective": _task_objective,
     "evaluators": _task_evaluators,
     "estimator": _task_estimator,
     "driver": _task_driver,
+    "driver_recovery": _task_driver_recovery,
     "mesh_axes": _task_mesh_axes,
     "column_objective": _task_column_objective,
     "exchange": _task_exchange,
     "partitioned_read": _task_partitioned_read,
     "partitioned_train": _task_partitioned_train,
     "driver_runs": _task_driver_runs,
+    "partitioned_recovery": _task_partitioned_recovery,
+    "streamed_game": _task_streamed_game,
 }

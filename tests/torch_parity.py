@@ -16,6 +16,11 @@ from photon_ml_tpu.ops.normalization import NormalizationType as JaxNormType
 from photon_ml_tpu.ops.normalization import build_normalization as jax_build_normalization
 from photon_ml_torch import convert
 from photon_ml_torch.ops import losses as torch_losses
+from tests.torch_jax_cache import lock_persistent_cache
+
+# every worker imports this while collecting: the JAX calls of the parity
+# tests then read and write the shared compilation cache under its lock
+lock_persistent_cache()
 
 #: (name, binary labels) of the four pointwise losses
 LOSSES = [
