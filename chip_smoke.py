@@ -160,7 +160,7 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    compact scores on the validation rows. Their launches and checks join
    the kernels line's ``driver_path``. Every read of the phase takes the
    port's native Avro decoder (``avro_native.fallbacks`` must stay 0); the
-   GAME and GLM training sets are read again with the Python codec
+   GAME and GLM validation sets are read again with the Python codec
    (``PHOTON_NO_NATIVE_AVRO=1``) and must give equal arrays, with each
    codec's records per second; a GAME training driver run adds an MF
    coordinate (userId × itemId, k=16) and the scoring driver scores its
@@ -272,7 +272,7 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    phase 9's sparse shape as Avro with a dense 16-wide per-user shard, an ELL
    and then a hybrid (256-column head) fixed effect: the agreed ELL width,
    flat block and hot ids the full read's, the state within 1e-3·max|w|;
-   (c) two part files as one container (blocks mode, the Python codec)
+   (c) two held-out part files as one container (blocks mode, the Python codec)
    array for array the files mode's; (d) ``score_partitioned`` of the 2^15
    held-out rows, the ranks' rows bitwise the one-rank scorer's; (e) the
    GAME drivers with ``--partitioned-io --distributed`` on two ranks:
@@ -327,7 +327,7 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    (bytes and seconds), phase 7's flagship ``GameEstimator.fit`` stopped after
    update 5 and resumed, phase 11's flagship with MF through a one-rank NCCL
    ``train_distributed`` resumed from sweep 2 (both bitwise), a sticky CUDA
-   error not retried; (d) the GLM driver with ``--streaming-chunks`` on 256
+   error not retried; (d) the GLM driver with ``--streaming-chunks`` on 128
    of phase 8's rows against in core (1e-3 rel; prefetch on and off
    byte-identical models) with the Python codec's stream decode rate, and the
    GAME driver with ``--checkpoint-dir`` run twice (byte-identical models).
@@ -363,6 +363,34 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    ``score_game_stream`` within 1e-5 rel of the in-core scoring. The Avro
    runs are cut in depth (the Python codec decodes every chunk each epoch).
    The launches and checks join the kernels line's ``stream_game_path``.
+17. Serving (``SERVING``; ``photon_ml_torch/serving``, ``cli/serve_driver``):
+   (a) phase 11's flagship (two fused sweeps) resident on the card, its 2^15
+   held-out rows (a quarter of unseen users) served one row a request through
+   ``MicroBatchServer`` on shapes (64, 256, 1024), one captured CUDA graph a
+   signature: each bucket's graph bitwise ``score_dataset`` of the same
+   padded bucket, the served scores within 1e-6·max|score| of the unpadded
+   eager scores, every request resolved, no capture in the replay; scores/s
+   batched and one request a micro-batch, latency p50/p95, the pad fraction;
+   (b) phase 9's sparse GAME models (the ELL fit and the hybrid fit, one
+   sweep) served the same way, with 32 requests of 4096 entries (the row
+   and chunk kernels): each graph replayed twice bitwise and held against the
+   plain program in f64 on its own padded inputs, G1's row and segment
+   kernels and the chunk kernel called on those inputs against the plain
+   gather in f64 (1e-5·Σ|v·w| a row); every served request within
+   1e-5·Σ|terms| of the eager ``DistributedScorer.score_dataset`` of the
+   same rows unpadded (its own device assembly of the entries and plans);
+   each bucket's graph bitwise ``score_dataset`` of the same padded bucket on
+   every row both programs gather with the same kernel and plan (the one row
+   the entry pads can make long is held to 1e-5·Σ|terms| and counted); one
+   replay of each signature under ``torch.profiler``, the gather kernels it
+   shows by name equal to the launches the graph counts; (c) an equal-layout swap halfway
+   through (a)'s replay (no capture; before it the old model's scores, after
+   it the new one's) and a layout-changing swap refused with the old scores
+   kept bitwise; (d) (a) in bf16 (the gap printed); (e) the serve driver on
+   phase 8's flagship-width validation Avro with ``--swap-model-dir`` (phase
+   12(d)'s models), and the resident scores against the scoring driver's.
+   (b)'s launches, checks and traced replays join the kernels line's
+   ``serving_path``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2392,12 +2420,15 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
         n, nv = cfg["game_rows"], cfg["validation_rows"]
         train, held = _game_arrays(np, seed + 3, n=n, d_fe=cfg["d_fe"], d_re=cfg["d_re"],
                                    users=cfg["users"], items=cfg["items"], held_out=nv)
-        # the training set in two part files: the date-range run reads one a day
-        write_s = {"game training": sum(map(_write_game_part,
-                                            _game_parts(train, tmp / "game/train", 0, 2))),
-                   "game validation": sum(map(_write_game_part,
-                                              _game_parts(held, tmp / "game/validation", n,
-                                                          1)))}
+        # the training set in two part files: the date-range run reads one a
+        # day; the three parts written at once, a process each
+        import multiprocessing
+
+        jobs = _game_parts(train, tmp / "game/train", 0, 2) \
+            + _game_parts(held, tmp / "game/validation", n, 1)
+        with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+            part_s = pool.map(_write_game_part, jobs)
+        write_s = {"game training": sum(part_s[:2]), "game validation": part_s[2]}
         ng, ngv, dg = cfg["glm_rows"], cfg["glm_validation_rows"], cfg["glm_d"]
         x, y = _dataset(np, seed + 4, ng + ngv, dg)
         xl, yl = x[:, :-1].tolist(), y.tolist()  # the last column is the driver's intercept
@@ -2692,7 +2723,8 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
              f"device memory {(torch.cuda.max_memory_allocated() - resident) / 2**20:.1f} MiB "
              f"above the {resident / 2**20:.1f} MiB earlier phases still hold")
 
-        # g. the native decoder against the Python codec on the same files:
+        # g. the native decoder against the Python codec on the same files (the
+        # validation sets: the Python codec reads about 300-500 records/s):
         # array for array, with each codec's records per second
         game_cfg = {"global": FeatureShardConfiguration(feature_bags=("features",)),
                     "per_entity": FeatureShardConfiguration(
@@ -2700,8 +2732,8 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
         glm_cfg = {"features": FeatureShardConfiguration(feature_bags=("features",))}
         codec_rates = {}
         for label, where, cfgs, ids, rows in (
-                ("GAME training", tmp / "game/train", game_cfg, ("itemId", "userId"), n),
-                ("GLM training", tmp / "glm/train", glm_cfg, (), ng)):
+                ("GAME validation", tmp / "game/validation", game_cfg, ("itemId", "userId"), nv),
+                ("GLM validation", tmp / "glm/validation", glm_cfg, (), ngv)):
             reads, seconds = [], []
             for native in (True, False):
                 if not native:
@@ -5250,9 +5282,12 @@ def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
         avro = _flagship_avro(np, seed, tmp)
         sparse = _sparse_avro(np, seed, tmp / "sparse")
         train_files = sorted(Path(avro["train"]).glob("part-*.avro"))
-        blocks = _blocks_container(train_files[:2], tmp / "blocks" / "one.avro")
+        # two held-out parts (4096 rows each): the blocks mode decodes with the
+        # Python codec, about 500 records/s a rank
+        held_files = sorted(Path(avro["validation"]).glob("part-*.avro"))[:2]
+        blocks = _blocks_container(held_files, tmp / "blocks" / "one.avro")
         (tmp / "blocks-files").mkdir()
-        for f in train_files[:2]:
+        for f in held_files:
             os.symlink(f, tmp / "blocks-files" / f.name)
         _log(f"13. inputs: flagship {avro['n']} + {avro['held_out']} rows "
              f"({len(train_files)} training parts clustered by user), sparse {sparse['n']} "
@@ -6136,11 +6171,12 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
 #: chunks of 2^17 rows (L-BFGS at λ=1, phase 14's 20-iteration budget,
 #: checkpointed every 5 iterations), phase 7's and 11's flagships resumed
 #: from checkpoints, and the drivers' streaming and checkpoint flags. The
-#: GLM driver streams 256 of phase 8's 4096 training rows (the Python codec
-#: decodes each epoch again); the GAME driver reads 2048 flagship-width rows.
+#: GLM driver streams 128 of phase 8's 4096 training rows in two chunks (the
+#: Python codec decodes each epoch again); the GAME driver reads 2048
+#: flagship-width rows.
 STREAM = dict(dense_chunk=1 << 15, lbfgs_iterations=20, tron_iterations=5, budget_iterations=5,
               sparse_chunk=1 << 17, sparse_iterations=20, save_every=5,
-              driver_rows=256, driver_validation_rows=1024, driver_chunk=128,
+              driver_rows=128, driver_validation_rows=1024, driver_chunk=64,
               driver_iterations=3, game_rows=2048, game_validation_rows=512, sweeps=4)
 
 
@@ -7773,6 +7809,620 @@ def _stream_game_slice(torch, np, seed: int, dev, card: str) -> dict:
     return path
 
 
+#: phase 17's cells: the held-out rows of phase 11's flagship (a fixed effect
+#: on ``global`` d = 256, per-user and per-item d = 16 over 2000 users and 1500
+#: items, a user × item MF of k = 16; 2^15 rows, a quarter of unseen users) and
+#: of phase 9's sparse GAME model (a fixed effect over d = 10^6 Zipf columns,
+#: 16 a row, and a compact per-user effect on the same shard; 2^14 rows, and
+#: ``long_requests`` more rows of ``long_nnz`` distinct columns each, a request
+#: longer than two gather chunks) served one row a request through the
+#: micro-batching server on shapes (64, 256, 1024). The flagship trains
+#: ``sweeps`` fused sweeps and its refresh one more; the sparse model one
+#: ``GameEstimator`` sweep (fit a's ELL and fit b's hybrid layouts).
+#: ``baseline_requests``: the one-request-a-micro-batch baseline's length.
+SERVING = dict(shapes=(64, 256, 1024), sweeps=2, baseline_requests=4096, max_wait_ms=2.0,
+               long_requests=32, long_nnz=4096, hybrid_requests=4096, driver_request_rows=4)
+
+
+def _serve_replay(torch, np, scorer, requests, *, swap=None, swap_at=None,
+                  sequential: bool = False) -> dict:
+    """A closed-loop replay through ``MicroBatchServer`` (``SERVING``'s
+    ``max_wait_ms``): every request submitted as the bounded queue admits
+    it and every future resolved; ``sequential``: each request submitted
+    once the one before it resolved (a micro-batch each). With ``swap``: the
+    first ``swap_at`` requests resolve, then ``swap`` is hot-swapped in and
+    the rest follow. Returns the scores a request, seconds, scores/s,
+    latency p50/p95, the pad fraction, micro-batches and the captures the
+    replay made."""
+    from photon_ml_torch.serving import MicroBatchServer
+    from photon_ml_torch.telemetry import serving_counters
+
+    serving_counters.reset_serving_metrics()
+    captures = scorer.captures
+    futures = []
+    t0 = time.perf_counter()
+    with MicroBatchServer(scorer, max_wait_ms=SERVING["max_wait_ms"]) as server:
+        for i, r in enumerate(requests):
+            if swap is not None and i == swap_at:
+                for f in futures:
+                    f.result(120)
+                server.swap_model(swap)
+            futures.append(server.submit(r))
+            if sequential:
+                futures[-1].result(120)
+        scores = [f.result(120) for f in futures]
+    seconds = time.perf_counter() - t0
+    rows = sum(len(s) for s in scores)
+    latency = serving_counters.latency_summary()
+    reg = serving_counters.default_registry()
+    return {"scores": scores, "requests": len(requests), "rows": rows, "seconds": seconds,
+            "scores_per_s": rows / seconds, "latency_ms_p50": latency["p50"],
+            "latency_ms_p95": latency["p95"], "pad_fraction": serving_counters.pad_fraction(),
+            "micro_batches": reg.counter(serving_counters.BATCHES).value,
+            "captures": scorer.captures - captures}
+
+
+def _unbatched_rate(scorer, requests) -> float:
+    """Scores/s of one request a micro-batch (no queue), the same run's
+    baseline."""
+    t0 = time.perf_counter()
+    rows = sum(len(scorer.score(r)) for r in requests)
+    return rows / (time.perf_counter() - t0)
+
+
+def _plain_program(torch, inner, layouts, inputs: dict, params: dict, bucket: int,
+                   counts: dict):
+    """The resident program's plain version on the CPU in f64 (every gather
+    the plain ``index_add_``), and the same over magnitudes: (scores, each
+    row's Σ|terms|)."""
+    def host(t, mag=False):
+        t = t.detach().cpu()
+        if t.is_floating_point():
+            t = t.double()
+            return t.abs() if mag else t
+        return t
+
+    out = []
+    for mag in (False, True):
+        ins = {k: host(v, mag) for k, v in inputs.items()}
+        ps = {cid: {k: host(v, mag) for k, v in p.items()} for cid, p in params.items()}
+        out.append(inner.score_resident(layouts, ins, ps, bucket, counts))
+    return out
+
+
+def _graph_checks(torch, np, scorer, tag: str) -> tuple[list, list]:
+    """Inside the captured path, on each signature's own padded inputs (the
+    static buffers, holding its last micro-batch): the graph replayed twice
+    (bitwise equal) against the plain program in f64 (per row |g − p| <=
+    1e-5·Σ|terms|); and each gather the graph holds, G1's row or segment
+    kernel over a sparse fixed effect's entries and over a compact effect's
+    flat slots, called on those inputs by :func:`_gather_check` (twice
+    bitwise, f64 plain version, 1e-5·Σ|v·w| a row). Returns (graph checks,
+    gather checks)."""
+    from photon_ml_torch.ops import sparse_gather
+
+    inner = scorer._scorer
+    graphs, gathers = [], []
+    for (bucket, layouts_key, entry_sig), g in sorted(scorer._graphs.items(),
+                                                      key=lambda kv: str(kv[0])):
+        keyed = dict(layouts_key)
+        layouts = {cid: keyed[cid] for cid in inner.model.models if cid in keyed}
+        counts = {cid: c for cid, _, _, c in entry_sig}
+        g.graph.replay()
+        first = g.out.clone()
+        g.graph.replay()
+        second = g.out.clone()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), f"{tag}: a replay is not bitwise repeatable"
+        params = inner.resident_params(layouts, bf16=scorer.bf16)
+        plain, scale = _plain_program(torch, inner, layouts, g.inputs, params, bucket, counts)
+        err = (first.detach().cpu().double() - plain).abs()
+        bad = int((err > 1e-5 * scale + 1e-30).sum())
+        assert bad == 0, f"{tag}: graph {bucket, entry_sig} off its plain program in {bad} rows"
+        graphs.append({"bucket": bucket, "entry_axes": [list(e) for e in entry_sig],
+                       "max_err_over_scale": float((err / (scale + 1e-30)).max()),
+                       "replay_ms": _eager_ms(torch, g.graph.replay)})
+        for cid, target, long_rows, count in entry_sig:
+            arg = lambda name: g.inputs[f"{cid}/{name}"]  # noqa: E731
+            chunks = sparse_gather.ChunkPlan(arg("chunk_rows"), arg("chunk_ptr"), count) \
+                if count else None
+            w = params[cid]["w"] if layouts[cid] == "sparse" else \
+                params[cid]["table_ext"].reshape(-1)
+            check = _gather_check(torch, f"{tag}: {cid} ({layouts[cid]}) in the {bucket}-row "
+                                  f"graph, {target} entries", w, bucket,
+                                  tail=(arg("vals"), arg("cols"), arg("rows"), arg("row_ptr")),
+                                  chunks=chunks)
+            kernel = "rows" if target >= sparse_gather.SHORT_ROWS * bucket else "segments"
+            gathers.append(dict(check, layout=layouts[cid], kernel=kernel, chunks=count,
+                                chunk_rows=long_rows))
+    return graphs, gathers
+
+
+def _serving_flagship(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 17 (a), (c), (d): the flagship served, hot-swapped and in bf16."""
+    import copy
+
+    from photon_ml_torch.algorithm.mf_coordinate import build_mf_dataset
+    from photon_ml_torch.data.game_data import (
+        build_random_effect_dataset,
+        concat_game_datasets,
+        pad_game_dataset_to,
+        slice_game_dataset,
+    )
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.parallel.scoring import DistributedScorer
+    from photon_ml_torch.serving import ModelSwapError, ResidentScorer
+
+    shape = FUSED["flagship"]
+    shapes = SERVING["shapes"]
+    t0 = time.perf_counter()
+    train, held = _game_arrays(np, seed + 20, **shape)
+    task = "LOGISTIC_REGRESSION"
+    ds = _game_dataset(train, task, dev)
+    held_dev = _game_dataset(held, task, dev, vocabs=ds.entity_vocabs)
+    # requests arrive in host memory: their datasets live on the CPU
+    held_host = _game_dataset(held, task, torch.device("cpu"), vocabs=ds.entity_vocabs)
+    del train, held
+    re_ds = {t: build_random_effect_dataset(ds, t, "per_entity", bucket_sizes=(GAME["cap"],))
+             for t in ("user", "item")}
+    mf_ds = {"mf": build_mf_dataset(ds, "user", "item")}
+    program = _fused_program(k=shape["k"], alternations=shape["alternations"],
+                             mf_l2=shape["mf_l2"])
+    result = dist.train_distributed(program, ds, re_ds, mf_datasets=mf_ds,
+                                    num_iterations=SERVING["sweeps"])
+    old = copy.deepcopy(dist.state_to_game_model(program, result.state, ds, re_datasets=re_ds))
+    refreshed = dist.train_distributed(program, ds, re_ds, mf_datasets=mf_ds, num_iterations=1,
+                                       state=result.state)
+    new = dist.state_to_game_model(program, refreshed.state, ds, re_datasets=re_ds)
+    del ds, re_ds, mf_ds, result, refreshed
+    n = held_host.num_samples
+    requests = [slice_game_dataset(held_host, i, i + 1) for i in range(n)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    scorer = ResidentScorer(old, shapes=shapes)
+    t0 = time.perf_counter()
+    scorer.warm(requests[0])
+    torch.cuda.synchronize()
+    warm = {"captures": scorer.captures, "seconds": time.perf_counter() - t0}
+    # each bucket's graph against score_dataset of the same padded bucket
+    eager = DistributedScorer(old)
+    buckets = {}
+    for b in shapes:
+        for m in (b // 2 + 1, b):
+            got = scorer.score(slice_game_dataset(held_host, 0, m))
+            padded, _ = pad_game_dataset_to(slice_game_dataset(held_dev, 0, m), b)
+            assert np.array_equal(got, eager.score_dataset(padded)[:m]), \
+                f"the {b}-row graph differs from score_dataset of the padded bucket"
+        buckets[b] = "bitwise"
+    # one graph a bucket on the card; the CPU runs the program eagerly
+    assert scorer.captures == warm["captures"] == (len(shapes) if dev.type == "cuda" else 0)
+    baseline = _unbatched_rate(scorer, requests[:SERVING["baseline_requests"]])
+    # (c) the replay with an equal-layout swap halfway
+    replay = _serve_replay(torch, np, scorer, requests, swap=new, swap_at=n // 2)
+    assert replay["captures"] == 0, replay["captures"]
+    served = np.concatenate(replay.pop("scores"))
+    want = np.concatenate([eager.score_dataset(held_dev)[:n // 2],
+                           DistributedScorer(new).score_dataset(held_dev)[n // 2:]])
+    scale = float(np.abs(want).max())
+    gap = float(np.abs(served - want).max())
+    assert served.shape == (n,) and np.isfinite(served).all()
+    assert gap <= 1e-6 * scale, (gap, scale)
+    # where a full micro-batch of one-row requests spends its time (host
+    # clock, synchronized): merging them, assembling the bucket's inputs,
+    # the whole score (assembly, copy, replay, read); each graph's replay
+    group = requests[:shapes[-1]]
+    t0 = time.perf_counter()
+    merged = concat_game_datasets(group)
+    concat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scorer._scorer.resident_inputs(merged, shapes[-1])
+    assemble_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scorer.score(merged)
+    score_s = time.perf_counter() - t0
+    breakdown = {"requests": len(group), "concat_ms": 1e3 * concat_s,
+                 "assemble_ms": 1e3 * assemble_s, "score_ms": 1e3 * score_s,
+                 "replay_ms": {sig[0]: _eager_ms(torch, g.graph.replay)
+                               for sig, g in scorer._graphs.items()}}
+    # a layout-changing swap is refused and the resident model keeps serving
+    fe = new.get("global")
+    wider = type(new)(models={**new.models, "global": dataclasses.replace(
+        fe, glm=dataclasses.replace(fe.glm, coefficients=dataclasses.replace(
+            fe.glm.coefficients, means=torch.zeros(fe.glm.coefficients.means.shape[0] + 1,
+                                                   device=dev))))})
+    probe = slice_game_dataset(held_host, 0, 100)
+    before = scorer.score(probe)
+    try:
+        scorer.swap_model(wider)
+    except ModelSwapError as e:
+        refused = str(e).split(";")[0]
+    else:
+        raise AssertionError("a layout-changing swap was accepted")
+    assert np.array_equal(scorer.score(probe), before) and scorer.captures == warm["captures"]
+    # (d) bf16 along the whole path
+    half = ResidentScorer(new, shapes=shapes, bf16=True)
+    bf16 = np.concatenate([half.score(slice_game_dataset(held_host, lo, min(lo + 1024, n)))
+                           for lo in range(0, n, 1024)])
+    exact = want[n // 2:]
+    bf16_gap = float(np.abs(bf16[n // 2:] - exact).max())
+    assert np.isfinite(bf16).all() and bf16_gap <= 0.05 * scale, bf16_gap
+    out = {"rows": n, "setup_seconds": setup_s, "warm": warm, "buckets_bitwise": buckets,
+           "signatures": len(scorer.signatures), "unbatched_scores_per_s": baseline,
+           "replay": replay, "micro_batch": breakdown,
+           "swap": {"at_request": n // 2, "captures": replay["captures"],
+                                      "served_gap_to_eager": gap, "max_abs_score": scale},
+           "layout_swap_refused": refused, "bf16_max_gap": bf16_gap,
+           "bf16_gap_over_max_score": bf16_gap / scale,
+           "bf16_captures": half.captures, "resident_params_bytes":
+               scorer._scorer.resident_params_bytes()}
+    _log(f"17a/c/d. the flagship served ({card}): " + json.dumps(out))
+    return out
+
+
+def _long_requests(np, seed: int, count: int, nnz: int, d: int, users: np.ndarray, device):
+    """``count`` one-row requests of ``nnz`` distinct uniform columns each
+    (a row longer than two gather chunks), over phase 9's users."""
+    from photon_ml_torch.data.game_data import build_game_dataset, slice_game_dataset
+    from photon_ml_torch.data.sparse_batch import SparseShard
+
+    rng = np.random.default_rng(seed + 171)
+    cols = np.concatenate([rng.choice(d, size=nnz, replace=False) for _ in range(count)])
+    shard = SparseShard(rows=np.repeat(np.arange(count), nnz), cols=cols,
+                        vals=(rng.normal(size=count * nnz) / np.sqrt(nnz)).astype(np.float32),
+                        num_samples=count, feature_dim=d)
+    ds = build_game_dataset(labels=np.zeros(count, np.float32), feature_shards={"global": shard},
+                            entity_keys={"user": rng.choice(users, size=count)},
+                            entity_vocabs={"user": users}, device=device)
+    return [slice_game_dataset(ds, i, i + 1) for i in range(count)]
+
+
+def _magnitudes(model, dataset):
+    """The model with every parameter's magnitude and ``dataset`` with every
+    coalesced value's and offset's: scored together, each row's Σ|terms|."""
+    import numpy as np
+
+    from photon_ml_torch.data.sparse_batch import SparseShard
+    from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
+
+    models = {}
+    for cid, m in model.models.items():
+        if isinstance(m, FixedEffectModel):
+            c = m.glm.coefficients
+            models[cid] = dataclasses.replace(m, glm=dataclasses.replace(
+                m.glm, coefficients=dataclasses.replace(c, means=c.means.abs(), variances=None)))
+        elif isinstance(m, RandomEffectModel):
+            models[cid] = dataclasses.replace(m, coefficients=m.coefficients.abs(),
+                                              variances=None)
+        else:
+            models[cid] = dataclasses.replace(m, row_factors=m.row_factors.abs(),
+                                              col_factors=m.col_factors.abs())
+    shards = {}
+    for sid, shard in dataset.feature_shards.items():
+        if isinstance(shard, SparseShard):
+            rows, cols, vals = (np.asarray(a) for a in shard.coalesced())
+            shards[sid] = SparseShard(rows=rows, cols=cols, vals=np.abs(vals),
+                                      num_samples=shard.num_samples,
+                                      feature_dim=shard.feature_dim)
+        else:
+            shards[sid] = shard.abs()
+    kept = {k: v for k, v in dataset.host_cache.items()
+            if k != "offsets" and not k.startswith("shard/")}
+    mags = dataclasses.replace(dataset, feature_shards=shards, offsets=dataset.offsets.abs(),
+                               host_cache=kept, _sparse_batches={})
+    return GameModel(models=models), mags
+
+
+def _replay_traces(torch, scorer, tag: str) -> list:
+    """One replay of each captured signature under ``torch.profiler``: the
+    gather kernels the trace shows by name against the launches the graph
+    counts a replay (``_Graph.launches``, from its signature); they must be
+    equal. A session whose trace disagrees (or records no device event) is
+    taken again, up to three sessions, the later ones with CPU activity too,
+    and the sessions each signature took are reported: a launch count that
+    is wrong disagrees in every session, a session the profiler missed does
+    not repeat. A signature no session traced is reported with ``traced``
+    null."""
+    from photon_ml_torch.ops import sparse_gather
+
+    names = {"launches": "gather_rows_kernel", "segment_launches": "gather_segments_kernel",
+             "chunk_launches": "gather_chunks_kernel"}
+    cpu, cuda = torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA
+    out = []
+    for (bucket, _, entry_sig), g in sorted(scorer._graphs.items(), key=lambda kv: str(kv[0])):
+        counted = {c: g.launches.get((sparse_gather, c), 0) for c in names}
+        traced, kernels, sessions = None, [], 0
+        for acts in ([cuda], [cpu, cuda], [cpu, cuda]):
+            sessions += 1
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                g.graph.replay()
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if str(getattr(e, "device_type", "")).endswith("CUDA")]
+            if kernels:
+                traced = {c: sum(name in k for k in kernels) for c, name in names.items()}
+                if traced == counted:
+                    break
+        assert traced is None or traced == counted, \
+            f"{tag}: the {bucket}-row graph {entry_sig} ran {traced} gather kernels in a " \
+            f"traced replay ({sorted(set(k[:60] for k in kernels))}), counts {counted}"
+        out.append({"bucket": bucket, "entry_axes": [list(e) for e in entry_sig],
+                    "traced": traced, "counted": counted, "device_events": len(kernels),
+                    "sessions": sessions})
+    return out
+
+
+def _bucket_bitwise(torch, np, scorer, eager, host, dev_ds, b: int, m: int, tag: str) -> dict:
+    """The ``b``-row graph's scores of ``m`` rows (``host``, a request on the
+    CPU; ``dev_ds`` the same rows on the card) against ``score_dataset`` of
+    the same rows padded by ``pad_game_dataset_to`` to ``b``: bitwise on
+    every row that both programs gather with the same kernel and plan. The
+    resident inputs pad each entry axis to a power of two with zeros on its
+    last row, which can make that row long (a chunk plan the eager run has
+    not) or move the axis to the row kernel; such rows are held to
+    1e-5·Σ|terms| instead and counted."""
+    from photon_ml_torch.data.game_data import pad_game_dataset_to
+    from photon_ml_torch.ops import sparse_gather
+    from photon_ml_torch.parallel.scoring import DistributedScorer
+
+    got = scorer.score(host)
+    padded, _ = pad_game_dataset_to(dev_ds, b)
+    want = eager.score_dataset(padded)[:m]
+    inputs, layouts, sig = scorer._scorer.resident_inputs(host, b)
+    rows = np.asarray(host.feature_shards["global"].coalesced()[0])
+    lens = np.bincount(rows, minlength=m)
+    plain_long = set(np.flatnonzero(lens > sparse_gather.SEGMENT_CHUNK).tolist())
+    excused = set()
+    for cid, target, _, count in sig:
+        if sparse_gather.tail_kernel_counter(b, target) != \
+                sparse_gather.tail_kernel_counter(b, len(rows)):
+            excused = set(range(m))
+        elif count:
+            excused |= set(inputs[f"{cid}/chunk_rows"][0].tolist()) - plain_long
+    excused = {r for r in excused if r < m}
+    keep = np.asarray([r not in excused for r in range(m)])
+    assert np.array_equal(got[keep], want[keep]), \
+        f"{tag}: the {b}-row graph differs from score_dataset of the padded bucket"
+    out = {"bucket": b, "rows": m, "bitwise_rows": int(keep.sum()), "other_rows": len(excused)}
+    if excused:
+        mag_model, mag_ds = _magnitudes(eager.model, padded)
+        scale = DistributedScorer(mag_model).score_dataset(mag_ds)[:m]
+        err = np.abs(got - want)[~keep]
+        assert (err <= 1e-5 * scale[~keep]).all(), (tag, b, m, err)
+        out["other_rows_bitwise"] = bool((err == 0).all())
+    return out
+
+
+def _serving_sparse(torch, np, seed: int, dev, card: str) -> tuple[dict, dict]:
+    """Phase 17 (b): phase 9's sparse GAME models served (the ELL fit and
+    the hybrid fit); returns (the path, a summary)."""
+    from photon_ml_torch.data.game_data import concat_game_datasets, slice_game_dataset
+    from photon_ml_torch.data.sparse_batch import HybridPolicy
+    from photon_ml_torch.parallel.scoring import DistributedScorer
+    from photon_ml_torch.serving import ResidentScorer
+
+    cfg = SPARSE_GAME
+    shapes = SERVING["shapes"]
+    t0 = time.perf_counter()
+    train, held = _sparse_game_arrays(np, seed, cfg["n"], cfg["d"], cfg["per_row"],
+                                      cfg["users"], cfg["held_out"])
+    models = {}
+    for label, lanes, policy in (("ELL", "LBFGS", None),
+                                 ("hybrid", "NEWTON", HybridPolicy(hot_cols=cfg["hot_cols"]))):
+        ds = _sparse_game_dataset(train, cfg["d"], dev, policy=policy)
+        models[label] = (_sparse_game_estimator(lanes, 1, evaluators=()).fit(ds).model,
+                         ds.entity_vocabs)
+        del ds
+        torch.cuda.empty_cache()
+    vocabs = models["ELL"][1]
+    held_host = _sparse_game_dataset(held, cfg["d"], torch.device("cpu"), vocabs=vocabs)
+    held_dev = _sparse_game_dataset(held, cfg["d"], dev, vocabs=vocabs)
+    n = held_host.num_samples
+    requests = [slice_game_dataset(held_host, i, i + 1) for i in range(n)]
+    users = np.asarray(vocabs["user"])
+    longs = _long_requests(np, seed, SERVING["long_requests"], SERVING["long_nnz"], cfg["d"],
+                           users, torch.device("cpu"))
+    longs_dev = concat_game_datasets(_long_requests(
+        np, seed, SERVING["long_requests"], SERVING["long_nnz"], cfg["d"], users, dev))
+    setup_s = time.perf_counter() - t0
+
+    _reset_gather_counts()
+    runs = {}
+    scorers = {}
+    for label, (model, _) in models.items():
+        reqs = requests if label == "ELL" else requests[:SERVING["hybrid_requests"]]
+        scorer = scorers[label] = ResidentScorer(model, shapes=shapes)
+        t0 = time.perf_counter()
+        scorer.warm(reqs[0])
+        torch.cuda.synchronize()
+        warm = {"captures": scorer.captures, "seconds": time.perf_counter() - t0}
+        replay = _serve_replay(torch, np, scorer, reqs)
+        served = replay.pop("scores")
+        runs[label] = {"warm": warm, "replay": replay}
+        if label == "ELL":
+            # a long request alone in its micro-batch: the row and chunk kernels
+            alone = _serve_replay(torch, np, scorer, longs, sequential=True)
+            served += alone.pop("scores")
+            runs[label]["long_requests"] = alone
+        runs[label].update(signatures=len(scorer.signatures), served=served, requests=len(reqs),
+                           nnz_buckets=sorted({(sig[0], e[1]) for sig in scorer.signatures
+                                               for e in sig[2] if e[0] == "fixed"}))
+    launches = _gather_counts()
+    torch.cuda.synchronize()
+    # every served request against the eager score_dataset of the same rows,
+    # unpadded (its own device assembly of the entries and plans), per row
+    # within 1e-5·Σ|terms| (the eager program over magnitudes)
+    gaps = {}
+    for label, run in runs.items():
+        model = models[label][0]
+        rows = run["requests"]
+        want = [DistributedScorer(model).score_dataset(slice_game_dataset(held_dev, 0, rows))]
+        mag_model, mag_ds = _magnitudes(model, slice_game_dataset(held_dev, 0, rows))
+        scale = [DistributedScorer(mag_model).score_dataset(mag_ds)]
+        if label == "ELL":
+            want.append(DistributedScorer(model).score_dataset(longs_dev))
+            mag_model, mag_ds = _magnitudes(model, longs_dev)
+            scale.append(DistributedScorer(mag_model).score_dataset(mag_ds))
+        want, scale = np.concatenate(want), np.concatenate(scale)
+        served = np.concatenate(run.pop("served"))
+        assert served.shape == want.shape and np.isfinite(served).all(), label
+        err = np.abs(served.astype(np.float64) - want)
+        bad = int((err > 1e-5 * scale + 1e-30).sum())
+        assert bad == 0, f"17b {label}: {bad} served rows off the eager scores"
+        gaps[label] = {"rows": len(served), "max_abs_gap": float(err.max()),
+                       "max_gap_over_scale": float((err / (scale + 1e-30)).max()),
+                       "bitwise_rows": int((err == 0).sum())}
+    # each bucket's graph against score_dataset of the same padded bucket,
+    # and a 64-row bucket holding a long request among short ones
+    buckets = {}
+    for label, scorer in scorers.items():
+        eager = DistributedScorer(models[label][0])
+        cases = [_bucket_bitwise(torch, np, scorer, eager, slice_game_dataset(held_host, 0, m),
+                                 slice_game_dataset(held_dev, 0, m), b, m, f"17b {label}")
+                 for b in shapes for m in (b // 2 + 1, b)]
+        mixed = concat_game_datasets([longs[0], slice_game_dataset(held_host, 0, 20)])
+        mixed_dev = concat_game_datasets([slice_game_dataset(longs_dev, 0, 1),
+                                          slice_game_dataset(held_dev, 0, 20)])
+        cases.append(_bucket_bitwise(torch, np, scorer, eager, mixed, mixed_dev, shapes[0], 21,
+                                     f"17b {label} long"))
+        buckets[label] = cases
+    graph_checks, gather_checks, traces = {}, [], {}
+    for label, scorer in scorers.items():
+        graph_checks[label], g = _graph_checks(torch, np, scorer, f"17b {label}")
+        gather_checks += g
+        traces[label] = _replay_traces(torch, scorer, f"17b {label}")
+    chunked = [c for c in gather_checks if c["chunks"]]
+    assert chunked and any(c["kernel"] == "rows" for c in gather_checks) \
+        and any(c["kernel"] == "segments" for c in gather_checks), gather_checks
+    traced = [dict(t, model=label) for label, ts in traces.items() for t in ts]
+    fe_launches = launches["rows"] + launches["segments"] - launches["compact"]
+    path = {"sparse_gather": {"launches": fe_launches, "row_kernel": launches["rows"],
+                              "segment_kernel": launches["segments"],
+                              "compact_scoring": launches["compact"],
+                              "replay_traces": traced,
+                              "checks": [c for c in gather_checks if c["layout"] == "sparse"]},
+            "sparse_gather_chunks": {"launches": launches["chunks"], "checks": chunked,
+                                     "replay_traces": [t for t in traced
+                                                       if t["counted"]["chunk_launches"]]},
+            "sparse_gather_compact": {"launches": launches["compact"],
+                                      "checks": [c for c in gather_checks
+                                                 if c["layout"] == "entries"]}}
+    out = {"rows": n, "long_requests": len(longs), "setup_seconds": setup_s, "runs": runs,
+           "served_against_eager": gaps, "buckets_against_padded_eager": buckets,
+           "graphs": graph_checks, "replay_traces": traces, "launches": launches}
+    _log(f"17b. the sparse GAME models served ({card}): " + json.dumps(out))
+    assert launches["rows"] > 0 and launches["segments"] > 0 and launches["chunks"] > 0 \
+        and launches["compact"] > 0, launches
+    return path, out
+
+
+def _serving_driver(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """Phase 17 (e): the serve driver on phase 8's flagship-width validation
+    Avro (native decode) with ``--swap-model-dir``, serving phase 12(d)'s
+    GAME driver model and swapping in its ``--distributed`` twin (trained
+    here when phase 12 did not run); the resident scores of the same rows
+    against the scoring driver's written scores."""
+    from photon_ml_torch.cli import game_scoring_driver, game_training_driver, serve_driver
+    from photon_ml_torch.cli.configs import parse_feature_shard_config
+    from photon_ml_torch.cli.game_scoring_driver import _load_scoring_model
+    from photon_ml_torch.data.game_data import slice_game_dataset
+    from photon_ml_torch.io.model_io import read_scores
+    from photon_ml_torch.io.partitioned_reader import read_partitioned
+    from photon_ml_torch.serving import ResidentScorer
+
+    avro = _flagship_avro(np, seed, tmp)
+    shards = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",
+              "--feature-shard-configurations",
+              "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+    on = None if dev.type == "cuda" else dev
+    drivers = _SHARED.get("mesh_drivers")
+    if drivers is None:
+        drivers = tmp / "drivers"
+        re_spec = "feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,max.iter=10," \
+                  "random.effect.type="
+        for name, sweeps in (("plain", "2"), ("distributed", "1")):
+            game_training_driver.main([
+                "--input-data-path", str(avro["train"]), "--root-output-dir",
+                str(drivers / name), "--task-type", "LOGISTIC_REGRESSION", *shards,
+                "--coordinate-configurations",
+                "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+                "--coordinate-configurations", f"name=per_user,{re_spec}userId",
+                "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+                "--coordinate-descent-iterations", sweeps], device=on)
+        game_scoring_driver.main([
+            "--input-data-path", str(avro["validation"]), "--model-input-dir",
+            str(drivers / "plain" / "best"), "--output-dir", str(drivers / "scores-plain"),
+            *shards], device=on)
+    t0 = time.perf_counter()
+    summary = serve_driver.main([
+        "--requests-avro", str(avro["validation"]), "--model-input-dir",
+        str(drivers / "plain" / "best"), "--output-dir", str(tmp / "served"), *shards,
+        "--request-rows", str(SERVING["driver_request_rows"]), "--swap-model-dir",
+        str(drivers / "distributed" / "best")], device=on)
+    seconds = time.perf_counter() - t0
+    assert summary["num_rows"] == avro["held_out"] and summary["replay_compiles"] == 0 \
+        and summary["swap"]["score_compiles_after_swap"] == 0, summary
+    # the resident scores of the same rows and model against the scoring driver's
+    model, maps, cfgs, vocabs, re_cols = _load_scoring_model(
+        model_input_dir=str(drivers / "plain" / "best"), index_maps_dir=None,
+        feature_shards=dict(parse_feature_shard_config(s) for s in shards[1::2]),
+        compact_random_effect_threshold=serve_driver.DEFAULT_COMPACT_RE_THRESHOLD, device=dev)
+    ds = read_partitioned(str(avro["validation"]), cfgs, index_maps=maps,
+                          random_effect_id_columns=re_cols, entity_vocabs=vocabs,
+                          device="cpu").result.dataset
+    scorer = ResidentScorer(model, shapes=SERVING["shapes"])
+    got = scorer.score(ds)
+    written = np.asarray([r["predictionScore"] for r in read_scores(drivers / "scores-plain"
+                                                                     / "scores")])
+    gap = float(np.abs(got.astype(np.float64) - written).max())
+    scale = float(np.abs(written).max())
+    assert gap <= 1e-6 * scale, (gap, scale)
+    out = {"summary": summary, "seconds": seconds, "scored_gap_to_scoring_driver": gap,
+           "bitwise": bool(np.array_equal(got.astype(np.float64), written))}
+    _log(f"17e. the serve driver on {avro['held_out']} flagship-width Avro rows ({card}): "
+         + json.dumps(out))
+    return out
+
+
+def _serving_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 17, serving (``photon_ml_torch/serving``, ``cli/serve_driver``):
+    (a) the flagship, (b) the sparse GAME models, (c) hot swaps, (d) bf16,
+    (e) the serve driver. Returns, for each kernel this path runs, its
+    launches in (b)'s warm-ups and replays and its checks inside the
+    captured path."""
+    t0 = time.perf_counter()
+    flagship = _serving_flagship(torch, np, seed, dev, card)
+    torch.cuda.empty_cache()
+    path, sparse = _serving_sparse(torch, np, seed, dev, card)
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="serving-", dir=_SHARED.get(
+        "dir", Path(__file__).resolve().parent / "build")))
+    try:
+        driver = _serving_driver(torch, np, seed, dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _log(f"17. serving in {time.perf_counter() - t0:.2f} s ({card}): flagship "
+         f"{flagship['replay']['scores_per_s']:.0f} scores/s batched against "
+         f"{flagship['unbatched_scores_per_s']:.0f} one request a micro-batch, latency p50 "
+         f"{flagship['replay']['latency_ms_p50']:.3f} ms p95 "
+         f"{flagship['replay']['latency_ms_p95']:.3f} ms, pad fraction "
+         f"{flagship['replay']['pad_fraction']:.4f}, captures at warm-up "
+         f"{flagship['warm']['captures']} and in the replay {flagship['replay']['captures']}; "
+         f"serve driver {driver['summary']['scores_per_sec']:.0f} scores/s")
+    replay = flagship["replay"]
+    path["sparse_gather"]["serving"] = {
+        "flagship_scores_per_s": replay["scores_per_s"],
+        "flagship_unbatched_scores_per_s": flagship["unbatched_scores_per_s"],
+        "latency_ms_p50": replay["latency_ms_p50"], "latency_ms_p95": replay["latency_ms_p95"],
+        "pad_fraction": replay["pad_fraction"], "warm_captures": flagship["warm"]["captures"],
+        "replay_captures": replay["captures"],
+        "sparse_scores_per_s": sparse["runs"]["ELL"]["replay"]["scores_per_s"],
+        "driver_scores_per_s": driver["summary"]["scores_per_sec"]}
+    return path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -8028,11 +8678,19 @@ def main(argv=None) -> int:
     stream_game_path = _stream_game_slice(torch, np, args.seed, dev, card)
     _log(f"stream GAME phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in stream_game_path.items()}))
+    # 17. serving: the resident scorer's captured graphs, the micro-batching
+    # server, hot swaps and the serve driver; its launches and its kernel
+    # checks inside the captured path as its own path
+    t0 = time.perf_counter()
+    serving_path = _serving_slice(torch, np, args.seed, dev, card)
+    _log(f"serving phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in serving_path.items()}))
     for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
                       ("sparse_game_path", sparse_game_path), ("mf_path", mf_path),
                       ("fused_path", fused_path), ("mesh_path", mesh_path),
                       ("partitioned_path", partitioned_path), ("model_path", model_path),
-                      ("stream_path", stream_path), ("stream_game_path", stream_game_path)):
+                      ("stream_path", stream_path), ("stream_game_path", stream_game_path),
+                      ("serving_path", serving_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

@@ -196,6 +196,123 @@ def _pad_game_dataset_rows(dataset: GameDataset, pad: int) -> GameDataset:
     )
 
 
+def slice_game_dataset(dataset: GameDataset, lo: int, hi: int) -> GameDataset:
+    """The rows ``[lo, hi)`` of a dataset as a new dataset on its device,
+    built from its host arrays (entity vocabularies shared, not copied).
+    Sparse shards slice their coalesced triples by a ``searchsorted`` range
+    (they are row-sorted), rows shifted to the slice's origin. The serving
+    layer splits replay data into requests, and an oversized request across
+    micro-batches, with it."""
+    n = dataset.num_samples
+    if not (0 <= lo < hi <= n):
+        raise ValueError(f"slice [{lo}, {hi}) out of range for {n} samples")
+    device = dataset.device
+    host_cache = {name: dataset.host_array(name)[lo:hi]
+                  for name in ("labels", "offsets", "weights")}
+    shards: dict = {}
+    for k, v in dataset.feature_shards.items():
+        if isinstance(v, SparseShard):
+            rows, cols, vals = (np.asarray(a) for a in v.coalesced())
+            a, b = np.searchsorted(rows, [lo, hi])
+            part = ((rows[a:b] - lo).astype(rows.dtype), np.array(cols[a:b]),
+                    np.array(vals[a:b]))
+            # a row range of a coalesced triple is coalesced
+            shards[k] = dataclasses.replace(
+                v, rows=part[0], cols=part[1], vals=part[2], num_samples=hi - lo, _device={},
+                _coalesced=part, _hybrid_cache=None)
+        else:
+            arr = host_cache[f"shard/{k}"] = dataset.host_array(f"shard/{k}")[lo:hi]
+            shards[k] = device_tensor(arr, v.dtype, device)
+    for t in dataset.entity_idx:
+        host_cache[f"entity_idx/{t}"] = dataset.host_array(f"entity_idx/{t}")[lo:hi]
+    return GameDataset(
+        unique_ids=np.asarray(dataset.unique_ids)[lo:hi],
+        labels=device_tensor(host_cache["labels"], None, device),
+        offsets=device_tensor(host_cache["offsets"], None, device),
+        weights=device_tensor(host_cache["weights"], None, device),
+        feature_shards=shards,
+        entity_idx={t: device_tensor(host_cache[f"entity_idx/{t}"], torch.int32, device)
+                    for t in dataset.entity_idx},
+        entity_vocabs=dataset.entity_vocabs,
+        ids={k: np.asarray(v)[lo:hi] for k, v in dataset.ids.items()}, host_cache=host_cache)
+
+
+def concat_game_datasets(datasets: Sequence[GameDataset]) -> GameDataset:
+    """Row-wise concatenation of datasets built against the same schema,
+    on the first one's device: shard ids and widths, entity types and
+    vocabularies, and id columns must agree (a vocabulary mismatch would
+    misalign one part's entity rows, so it is checked). Sparse shards
+    concatenate their coalesced triples with rows shifted into the merged
+    sample axis, so the result stays row-sorted. The serving micro-batcher
+    merges queued requests into one micro-batch with it."""
+    datasets = list(datasets)
+    if not datasets:
+        raise ValueError("concat_game_datasets needs at least one dataset")
+    if len(datasets) == 1:
+        return datasets[0]
+    base = datasets[0]
+    for d in datasets[1:]:
+        for attr in ("feature_shards", "entity_idx", "ids"):
+            if set(getattr(d, attr)) != set(getattr(base, attr)):
+                raise ValueError(
+                    f"datasets disagree on {attr} keys: "
+                    f"{sorted(getattr(base, attr))} vs "
+                    f"{sorted(getattr(d, attr))}"
+                )
+        for t, vocab in base.entity_vocabs.items():
+            other = d.entity_vocabs.get(t)
+            if other is not vocab and not np.array_equal(np.asarray(other), np.asarray(vocab)):
+                raise ValueError(
+                    f"datasets disagree on the '{t}' entity vocab "
+                    f"({len(np.asarray(vocab))} vs "
+                    f"{0 if other is None else len(np.asarray(other))} keys)"
+                )
+    device = base.device
+
+    def cat(name: str) -> np.ndarray:
+        return np.concatenate([d.host_array(name) for d in datasets])
+
+    host_cache = {name: cat(name) for name in ("labels", "offsets", "weights")}
+    starts = np.cumsum([0] + [d.num_samples for d in datasets])
+    shards: dict = {}
+    for k, v in base.feature_shards.items():
+        if isinstance(v, SparseShard):
+            rows_parts, cols_parts, vals_parts = [], [], []
+            for d, start in zip(datasets, starts):
+                shard = d.feature_shards[k]
+                if not isinstance(shard, SparseShard):
+                    raise ValueError(f"shard '{k}' is sparse in one dataset and dense in another")
+                if shard.feature_dim != v.feature_dim:
+                    raise ValueError(f"shard '{k}' feature_dim mismatch: "
+                                     f"{v.feature_dim} vs {shard.feature_dim}")
+                r, c, vv = shard.coalesced()
+                rows_parts.append(np.asarray(r, np.int64) + int(start))
+                cols_parts.append(np.asarray(c))
+                vals_parts.append(np.asarray(vv))
+            merged = (np.concatenate(rows_parts), np.concatenate(cols_parts),
+                      np.concatenate(vals_parts))
+            # coalesced parts over disjoint, ascending row ranges
+            shards[k] = dataclasses.replace(
+                v, rows=merged[0], cols=merged[1], vals=merged[2], num_samples=int(starts[-1]),
+                _device={}, _coalesced=merged, _hybrid_cache=None)
+        else:
+            arr = host_cache[f"shard/{k}"] = cat(f"shard/{k}")
+            shards[k] = device_tensor(arr, v.dtype, device)
+    for t in base.entity_idx:
+        host_cache[f"entity_idx/{t}"] = cat(f"entity_idx/{t}")
+    return GameDataset(
+        unique_ids=np.concatenate([np.asarray(d.unique_ids) for d in datasets]),
+        labels=device_tensor(host_cache["labels"], None, device),
+        offsets=device_tensor(host_cache["offsets"], None, device),
+        weights=device_tensor(host_cache["weights"], None, device),
+        feature_shards=shards,
+        entity_idx={t: device_tensor(host_cache[f"entity_idx/{t}"], torch.int32, device)
+                    for t in base.entity_idx},
+        entity_vocabs=base.entity_vocabs,
+        ids={k: np.concatenate([np.asarray(d.ids[k]) for d in datasets]) for k in base.ids},
+        host_cache=host_cache)
+
+
 def sparse_shard_rows(shard: SparseShard, rows: slice) -> SparseShard:
     """The entries of rows ``[rows.start, rows.stop)`` of a sparse shard, as
     a shard of those rows (its layout policy kept)."""

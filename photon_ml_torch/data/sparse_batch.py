@@ -240,9 +240,15 @@ class SparseShardDevice:
     dim: int
 
     def matvec(self, coefficients: torch.Tensor) -> torch.Tensor:
-        """X @ w, the sparse scoring path, through the gather-sum."""
+        """X @ w through the gather-sum."""
         tail = (self.values, self.col_indices, self.row_ids, self.row_ptr)
         return gather_sum(coefficients, self.num_samples, tail=tail, chunks=self.row_chunks)
+
+    def arrays(self) -> dict:
+        """The flat entries and their gather plan as ``models/game.score_layout``'s
+        "sparse" layout reads them."""
+        return {"vals": self.values, "cols": self.col_indices, "rows": self.row_ids,
+                "row_ptr": self.row_ptr, "chunks": self.row_chunks}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -62,8 +62,9 @@ class FixedEffectModel(DatumScoringModel):
         features = dataset.shard_features(self.feature_shard_id)
         means = self.glm.coefficients.means
         if isinstance(features, SparseShard):
-            return features.device(means.device).matvec(means)
-        return features.to(means.dtype) @ means
+            flat = features.device(means.device)
+            return score_layout("sparse", {"w": means}, flat.arrays(), flat.num_samples)
+        return score_layout("dense", {"w": means}, {"x": features}, features.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,26 +115,19 @@ class RandomEffectModel(DatumScoringModel):
                 f"[E, d] table but shard '{self.feature_shard_id}' is sparse: a random "
                 "effect on a sparse shard is trained compact (load its model compact: "
                 "compact_random_effect_threshold below the shard width)")
-        entity_idx = dataset.entity_indices(self.random_effect_type)
+        arrays = {"x": features, "idx": dataset.entity_indices(self.random_effect_type)}
         if self.active_cols is not None:
-            return self._score_compact(features, entity_idx)
-        return score_random_effect(self.coefficients, features, entity_idx)
-
-    def _score_compact(self, features: torch.Tensor, entity_idx: torch.Tensor) -> torch.Tensor:
-        """Each sample's entity's active columns gathered from the dense
-        shard: O(n K), no [E, d] table."""
-        dim = int(self.feature_dim)
-        if features.shape[1] != dim:
-            raise ValueError(
-                f"compact random-effect model '{self.random_effect_type}' lives in a "
-                f"{dim}-column feature space but the dense shard '{self.feature_shard_id}' "
-                f"has {features.shape[1]} columns")
-        idx = entity_idx.long()
-        safe = torch.clamp(idx, min=0)
-        cols = torch.as_tensor(self.active_cols, dtype=torch.long, device=features.device)[safe]
-        x = torch.gather(features.to(self.coefficients.dtype), 1, torch.clamp(cols, max=dim - 1))
-        scores = torch.sum(x * (cols < dim) * self.coefficients[safe], dim=-1)
-        return torch.where(idx >= 0, scores, torch.zeros_like(scores))
+            dim = int(self.feature_dim)
+            if features.shape[1] != dim:
+                raise ValueError(
+                    f"compact random-effect model '{self.random_effect_type}' lives in a "
+                    f"{dim}-column feature space but the dense shard "
+                    f"'{self.feature_shard_id}' has {features.shape[1]} columns")
+            active = torch.as_tensor(self.active_cols, dtype=torch.long, device=features.device)
+            return score_layout("compact_dense", {"table": self.coefficients,
+                                                  "active_cols": active}, arrays,
+                                features.shape[0])
+        return score_layout("re", {"table": self.coefficients}, arrays, features.shape[0])
 
     def with_coefficients(self, coefficients: torch.Tensor) -> "RandomEffectModel":
         """New table, dropping any variances (they were computed at the old
@@ -149,6 +143,22 @@ def score_random_effect(table: torch.Tensor, features: torch.Tensor,
     idx = entity_idx.long()
     rows = table[torch.clamp(idx, min=0)]
     scores = torch.sum(features.to(table.dtype) * rows, dim=-1)
+    return torch.where(idx >= 0, scores, torch.zeros_like(scores))
+
+
+def score_random_effect_compact_dense(table: torch.Tensor, active_cols: torch.Tensor,
+                                      features: torch.Tensor,
+                                      entity_idx: torch.Tensor) -> torch.Tensor:
+    """A compact [E, K] table scored on a dense [n, d] shard: each sample's
+    entity's active columns (``active_cols``, a long [E, K] tensor on the
+    table's device, pad = d) gathered from its row, O(n K), no [E, d]
+    table; 0 for unseen entities (idx < 0)."""
+    dim = int(features.shape[1])
+    idx = entity_idx.long()
+    safe = torch.clamp(idx, min=0)
+    cols = active_cols[safe]
+    x = torch.gather(features.to(table.dtype), 1, torch.clamp(cols, max=dim - 1))
+    scores = torch.sum(x * (cols < dim) * table[safe], dim=-1)
     return torch.where(idx >= 0, scores, torch.zeros_like(scores))
 
 
@@ -222,7 +232,8 @@ def score_random_effect_compact_reference(table: torch.Tensor, ent: torch.Tensor
 
 def score_random_effect_compact(table: torch.Tensor, ent: torch.Tensor, pos: torch.Tensor,
                                 rows: torch.Tensor, vals: torch.Tensor, n: int,
-                                plan: tuple | None = None) -> torch.Tensor:
+                                plan: tuple | None = None,
+                                table_ext: torch.Tensor | None = None) -> torch.Tensor:
     """Scores from a compact [E, K] table: Σ vals·table[ent, pos] over each
     row's entries, O(nnz), nothing of size d_re.
 
@@ -231,7 +242,9 @@ def score_random_effect_compact(table: torch.Tensor, ent: torch.Tensor, pos: tor
     entries with the flat slot ent·(K+1)+pos as column ids and the
     flattened ``[E, K+1]`` table (its scratch column zero) as ``w``, or
     raises. ``plan`` = (flat slots, row_ptr, chunk plan), built here when
-    None (:class:`CompactEntries` keeps it)."""
+    None (:class:`CompactEntries` keeps it). ``table_ext``: that ``[E, K+1]``
+    table where the caller keeps one (the resident scorer builds it when it
+    places or swaps a model); built here when None."""
     global compact_launches
     if table.device.type == "cpu":
         return score_random_effect_compact_reference(table, ent, pos, rows, vals, n)
@@ -241,11 +254,59 @@ def score_random_effect_compact(table: torch.Tensor, ent: torch.Tensor, pos: tor
     if plan is None:
         plan = (_flat_slots(ent, pos, e, k), *segment_plan(rows, n))
     flat, row_ptr, chunks = plan
-    table_ext = torch.cat([table, table.new_zeros((e, 1))], dim=1)
+    if table_ext is None:
+        table_ext = torch.cat([table, table.new_zeros((e, 1))], dim=1)
     before = sparse_gather.launches + sparse_gather.segment_launches
     out = gather_sum(table_ext.reshape(-1), n, tail=(vals, flat, rows, row_ptr), chunks=chunks)
     compact_launches += sparse_gather.launches + sparse_gather.segment_launches - before
     return out
+
+
+def score_layout(layout: str, params: dict, arrays: dict, n: int) -> torch.Tensor:
+    """One coordinate's ``[n]`` scores (no offsets) in one scoring layout:
+    the one per-layout program, which the sub-models' ``score_dataset`` and
+    the resident serving program (``parallel/scoring.score_resident``) both
+    run, so the same inputs score bitwise alike on either path.
+
+    ``layout`` / ``params`` / ``arrays``:
+
+    - "dense" FE: ``w`` / ``x`` [n, d];
+    - "sparse" FE: ``w`` / the row-sorted flat entries ``vals``, ``cols``,
+      ``rows``, their ``row_ptr`` and chunk plan ``chunks`` (or None);
+    - "re": ``table`` [E, d] / ``x``, ``idx`` (entity index, -1 unseen);
+    - "compact_dense": ``table`` [E, K], ``active_cols`` (long [E, K]) /
+      ``x``, ``idx``;
+    - "entries" (a compact effect on a sparse shard): ``table_ext`` [E, K+1]
+      / the flat slots as ``cols``, ``rows``, ``vals``, ``row_ptr``,
+      ``chunks``;
+    - "mf": ``rows``, ``cols`` (the factors) / ``row_idx``, ``col_idx``."""
+    if layout == "dense":
+        w = params["w"]
+        return arrays["x"].to(w.dtype) @ w
+    if layout == "sparse":
+        return gather_sum(params["w"], n, chunks=arrays["chunks"], tail=(
+            arrays["vals"], arrays["cols"], arrays["rows"], arrays["row_ptr"]))
+    if layout == "re":
+        return score_random_effect(params["table"], arrays["x"], arrays["idx"])
+    if layout == "compact_dense":
+        return score_random_effect_compact_dense(params["table"], params["active_cols"],
+                                                 arrays["x"], arrays["idx"])
+    if layout == "entries":
+        ext, slots = params["table_ext"], arrays["cols"]
+        k1 = int(ext.shape[1])
+        if ext.device.type == "cpu":
+            slots = slots.long()
+            return score_random_effect_compact(ext[:, :k1 - 1], slots // k1, slots % k1,
+                                               arrays["rows"], arrays["vals"], n)
+        return score_random_effect_compact(
+            ext[:, :k1 - 1], None, None, arrays["rows"], arrays["vals"], n,
+            plan=(slots, arrays["row_ptr"], arrays["chunks"]), table_ext=ext)
+    if layout == "mf":
+        from photon_ml_torch.models.matrix_factorization import score_matrix_factorization
+
+        return score_matrix_factorization(params["rows"], params["cols"], arrays["row_idx"],
+                                          arrays["col_idx"])
+    raise ValueError(f"unknown scoring layout {layout!r}")
 
 
 @dataclasses.dataclass
@@ -274,10 +335,13 @@ class CompactEntries:
         return self._plans[(num_entities, width)]
 
     def score(self, table: torch.Tensor) -> torch.Tensor:
-        plan = None if table.device.type == "cpu" or table.shape[0] == 0 \
-            else self.plan(*table.shape)
-        return score_random_effect_compact(table, self.ent, self.pos, self.rows, self.vals,
-                                           self.num_samples, plan)
+        """Scores from the compact ``[E, K]`` table (its ``[E, K+1]`` form
+        built here, each call)."""
+        slots, row_ptr, chunks = self.plan(*table.shape)
+        table_ext = torch.cat([table, table.new_zeros((table.shape[0], 1))], dim=1)
+        return score_layout("entries", {"table_ext": table_ext}, {
+            "cols": slots, "rows": self.rows, "vals": self.vals, "row_ptr": row_ptr,
+            "chunks": chunks}, self.num_samples)
 
 
 def _same(a: np.ndarray, b: np.ndarray) -> bool:

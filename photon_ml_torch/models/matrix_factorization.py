@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch.device import resolve_device
-from photon_ml_torch.models.game import DatumScoringModel
+from photon_ml_torch.models.game import DatumScoringModel, score_layout
 from photon_ml_torch.types import TaskType
 
 
@@ -44,10 +44,11 @@ class MatrixFactorizationModel(DatumScoringModel):
         return int(self.row_factors.shape[1])
 
     def score_dataset(self, dataset) -> torch.Tensor:
-        return score_matrix_factorization(
-            self.row_factors, self.col_factors,
-            dataset.entity_indices(self.row_effect_type),
-            dataset.entity_indices(self.col_effect_type))
+        row_idx = dataset.entity_indices(self.row_effect_type)
+        return score_layout("mf", {"rows": self.row_factors, "cols": self.col_factors},
+                            {"row_idx": row_idx,
+                             "col_idx": dataset.entity_indices(self.col_effect_type)},
+                            row_idx.shape[0])
 
     def with_factors(self, row_factors: torch.Tensor,
                      col_factors: torch.Tensor) -> "MatrixFactorizationModel":

@@ -48,6 +48,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from photon_ml_torch.build import check_cuda as _check
@@ -180,6 +181,23 @@ def pointer_chunks(row_ptr: torch.Tensor) -> ChunkPlan | None:
     return ChunkPlan(rows.to(torch.int32), chunk_ptr, int(count))
 
 
+def host_segment_plan(row_ids: np.ndarray, n: int) -> tuple:
+    """:func:`segment_plan` of a row-sorted tail's host row ids, in numpy and
+    with no device work (a plan built this way can be copied into the
+    static inputs of a captured CUDA graph): (row_ptr [n+1] int32, long rows
+    [R] int32 or None, their chunk_ptr [R+1] int32 or None, chunk count),
+    the values :func:`segment_plan` and :func:`pointer_chunks` give."""
+    row_ptr = np.searchsorted(np.asarray(row_ids), np.arange(n + 1)).astype(np.int32)
+    lens = np.diff(row_ptr.astype(np.int64))
+    long = np.flatnonzero(lens > SEGMENT_CHUNK)
+    if not long.size:
+        return row_ptr, None, None, 0
+    per_row = (lens[long] + SEGMENT_CHUNK - 1) // SEGMENT_CHUNK
+    chunk_ptr = np.zeros(long.size + 1, np.int32)
+    np.cumsum(per_row, out=chunk_ptr[1:])
+    return row_ptr, long.astype(np.int32), chunk_ptr, int(chunk_ptr[-1])
+
+
 def segment_ids(row_ptr: torch.Tensor) -> torch.Tensor:
     """The row of each entry of a row-sorted tail, from its ``row_ptr``."""
     n = row_ptr.numel() - 1
@@ -302,6 +320,13 @@ def chunk_partials(w: torch.Tensor, tail, chunks: ChunkPlan) -> torch.Tensor:
     return partials
 
 
+def tail_kernel_counter(n: int, nnz: int) -> str:
+    """The counter of the kernel that :func:`gather_sum` launches for a flat
+    tail of ``nnz`` entries over ``n`` rows and no ELL block: the segment
+    kernel's (fewer than ``SHORT_ROWS`` entries a row) or the row kernel's."""
+    return "segment_launches" if nnz < SHORT_ROWS * n else "launches"
+
+
 def _launch(w, n, ell, tail, chunks):
     global launches, segment_launches
     _check_w(w)
@@ -333,7 +358,7 @@ def _launch(w, n, ell, tail, chunks):
             plan = (partials.data_ptr(), chunks.rows.data_ptr(), chunks.chunk_ptr.data_ptr(),
                     chunks.rows.shape[0])
         if n and ell_vals is None and tail_vals is not None \
-                and tail_vals.shape[0] < SHORT_ROWS * n:
+                and tail_kernel_counter(n, tail_vals.shape[0]) == "segment_launches":
             _check(lib.sparse_gather_segments(
                 int(bool(is_bf16)), tail_vals.data_ptr(), tail_cols.data_ptr(),
                 row_ptr.data_ptr(), *plan, w.data_ptr(), n, out.data_ptr(), stream),

@@ -31,9 +31,54 @@ import torch
 
 from photon_ml_torch.data.game_data import GameDataset, game_dataset_rows, pad_game_dataset
 from photon_ml_torch.data.sparse_batch import SparseShard
-from photon_ml_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
+from photon_ml_torch.models.game import (
+    FixedEffectModel,
+    GameModel,
+    RandomEffectModel,
+    compact_entry_positions,
+    score_layout,
+)
 from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
+from photon_ml_torch.ops import sparse_gather
 from photon_ml_torch.parallel import mesh as mesh_ops
+
+#: the floor of a flat entry axis's power-of-two length in the resident
+#: program: tiny requests share one signature instead of one each
+MIN_NNZ_BUCKET = 64
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def nnz_bucket(nnz: int, data_axis: int = 1) -> int:
+    """The padded length of a flat entry axis of ``nnz`` entries: a power of
+    two, at least MIN_NNZ_BUCKET and the mesh's data axis."""
+    return max(next_pow2(max(int(nnz), 1)), MIN_NNZ_BUCKET, int(data_axis))
+
+
+def _pad_nnz(arrays: dict, target: int, pad_values: dict | None = None) -> dict:
+    """Host (numpy) flat entry arrays padded to exactly ``target`` entries.
+    The pads are inert: values 0, ``rows`` its last id repeated (the
+    row-sorted order holds; an empty block takes ``pad_values["rows"]``,
+    else 0) and ``pad_values`` for the other keys, else 0 (a compact axis's
+    slots pad with the scratch slot)."""
+    nnz = int(arrays["vals"].shape[0])
+    pad = target - nnz
+    if pad < 0:
+        raise ValueError(f"flat block has {nnz} entries but the agreed length is {target}")
+    if not pad:
+        return arrays
+    pad_values = pad_values or {}
+    last_row = arrays["rows"][-1:] if nnz \
+        else np.full(1, pad_values.get("rows", 0), arrays["rows"].dtype)
+    out = {}
+    for k, v in arrays.items():
+        if k == "rows":
+            out[k] = np.concatenate([v, np.broadcast_to(last_row, (pad,))])
+        else:
+            out[k] = np.pad(v, (0, pad), constant_values=pad_values.get(k, 0))
+    return out
 
 
 def params_layout_fingerprint(model: GameModel) -> dict:
@@ -125,6 +170,10 @@ class DistributedScorer:
             raise ValueError("fe_feature_sharded requires a mesh")
         #: layout signature -> the sub-models that score it
         self._params_cache: dict = {}
+        #: (layout signature, bf16) -> the resident program's parameter
+        #: tensors, at addresses that stay fixed: a captured CUDA graph reads
+        #: them, so a swap copies into them (:meth:`swap_model_params`)
+        self._resident: dict = {}
 
     # -- data and params -----------------------------------------------------
 
@@ -203,7 +252,12 @@ class DistributedScorer:
     def swap_model_params(self, new_model: GameModel) -> None:
         """Refresh the model in place. A model whose parameter layout differs
         (:func:`params_layout_fingerprint`) raises ``ValueError`` naming the
-        fields, before anything changes."""
+        fields, before anything changes. Otherwise the new resident values
+        are built off to the side, then committed: the sub-model references,
+        and a ``copy_`` into every resident parameter tensor, whose address a
+        captured graph keeps (a rebound reference would leave the graph
+        scoring the old model). The caller keeps scoring out of the commit
+        (``serving/resident.py`` holds its lock around both)."""
         mismatch = _fingerprint_mismatch(params_layout_fingerprint(new_model),
                                          params_layout_fingerprint(self.model))
         if mismatch is not None:
@@ -211,8 +265,179 @@ class DistributedScorer:
                              "refresh must build a fresh scorer instead of hot-swapping")
         rebuilt = {key: {cid: new_model.models[cid] for cid in new_model.models
                          if cid in dict(key)} for key in self._params_cache}
+        staged = {key: self._resident_values(new_model, dict(key[0]), key[1])
+                  for key in self._resident}
         self.model = new_model
         self._params_cache = rebuilt
+        cuda = set()
+        for key, values in staged.items():
+            live = self._resident[key]
+            for cid, tensors in values.items():
+                for name, t in tensors.items():
+                    live[cid][name].copy_(t)
+                    if t.is_cuda:
+                        cuda.add(t.device)
+        for dev in cuda:
+            torch.cuda.synchronize(dev)
+        from photon_ml_torch.telemetry import serving_counters
+
+        serving_counters.set_resident_params_bytes(self.resident_params_bytes())
+
+    # -- the resident program: fixed-shape inputs, no host sync ---------------
+
+    def resident_params(self, layouts: dict, *, bf16: bool = False) -> dict:
+        """The resident program's parameters for one layout signature, placed
+        once (copies of the model's tensors, which a swap overwrites in
+        place): an FE's ``w``; a random effect's ``table``; a compact one's
+        ``table`` and long ``active_cols`` on a dense shard, or on a sparse
+        shard its ``table_ext`` ``[E, K+1]`` with the zero scratch column. With
+        ``bf16`` the products' operands are bf16, and the gather kernel's
+        (a sparse FE's ``w``, ``table_ext``) are rounded to bf16 and kept in
+        their own dtype, since the kernel reads an f32 ``w``."""
+        key = (tuple(sorted(layouts.items())), bool(bf16))
+        params = self._resident.get(key)
+        if params is None:
+            params = self._resident[key] = self._resident_values(self.model, layouts, bf16)
+        from photon_ml_torch.telemetry import serving_counters
+
+        serving_counters.set_resident_params_bytes(self.resident_params_bytes())
+        return params
+
+    def resident_params_bytes(self) -> int:
+        """Device bytes of every resident parameter set."""
+        return sum(t.numel() * t.element_size() for params in self._resident.values()
+                   for tensors in params.values() for t in tensors.values())
+
+    def _resident_values(self, model: GameModel, layouts: dict, bf16: bool) -> dict:
+        """Fresh resident parameter tensors of ``model`` (see
+        :meth:`resident_params`)."""
+
+        def cast(t):
+            return t.to(torch.bfloat16) if bf16 else t.clone()
+
+        def rounded(t):
+            return t.to(torch.bfloat16).to(t.dtype) if bf16 else t.clone()
+
+        out = {}
+        for cid in layouts:
+            m, layout = model.models[cid], layouts[cid]
+            if layout == "dense":
+                out[cid] = {"w": cast(m.glm.coefficients.means)}
+            elif layout == "sparse":
+                out[cid] = {"w": rounded(m.glm.coefficients.means).contiguous()}
+            elif layout == "re":
+                out[cid] = {"table": cast(m.coefficients)}
+            elif layout == "compact_dense":
+                out[cid] = {"table": cast(m.coefficients),
+                            "active_cols": torch.as_tensor(np.asarray(m.active_cols),
+                                                           dtype=torch.long,
+                                                           device=m.coefficients.device)}
+            elif layout == "entries":
+                t = rounded(m.coefficients)
+                out[cid] = {"table_ext": torch.cat([t, t.new_zeros((t.shape[0], 1))],
+                                                   dim=1).contiguous()}
+            else:  # mf
+                out[cid] = {"rows": cast(m.row_factors), "cols": cast(m.col_factors)}
+        return out
+
+    def resident_inputs(self, dataset: GameDataset, bucket: int, *, bf16: bool = False):
+        """The resident program's inputs for ``dataset`` padded to ``bucket``
+        rows, built on the host: (inputs, layouts, entry signature).
+
+        ``inputs`` maps a name to (numpy array, torch dtype): ``offsets``;
+        per coordinate its dense rows ``x`` (the padding contract of
+        ``pad_game_dataset_to``: zero rows, offsets 0, entity index -1),
+        ``idx``/``row_idx``/``col_idx``, and for a flat entry axis (a sparse
+        FE's coalesced triple, or a compact effect's entries on a sparse
+        shard, whose columns are the flat slots ent·(K+1)+pos) ``rows``,
+        ``cols``, ``vals`` padded by :func:`_pad_nnz` to :func:`nnz_bucket`
+        (values 0, the last row repeated, the scratch slot), ``row_ptr`` and,
+        where a row holds more than ``SEGMENT_CHUNK`` entries, the chunk
+        plan's ``chunk_rows``/``chunk_ptr``. Every plan is built here with
+        numpy, so nothing syncs with the device. The entry signature holds,
+        per entry axis, (cid, padded length, long rows, chunks): with the
+        bucket and layouts it fixes every launch parameter of the program."""
+        n = dataset.num_samples
+        if n > bucket:
+            raise ValueError(f"a {n}-row dataset does not fit a {bucket}-row bucket")
+        layouts = self._layouts(dataset)
+
+        def padded(a, fill=0):
+            out = np.full((bucket,) + a.shape[1:], fill, dtype=a.dtype)
+            out[:n] = a
+            return out
+
+        inputs = {"offsets": (padded(dataset.host_array("offsets")), dataset.offsets.dtype)}
+        entry_sig = []
+
+        def entry_axis(cid, arrays, dtype, pad_values=None):
+            target = nnz_bucket(len(arrays["vals"]))
+            arrays = _pad_nnz(arrays, target, pad_values)
+            row_ptr, long_rows, chunk_ptr, count = sparse_gather.host_segment_plan(
+                arrays["rows"], bucket)
+            inputs.update({f"{cid}/rows": (arrays["rows"].astype(np.int32), torch.int32),
+                           f"{cid}/cols": (arrays["cols"].astype(np.int32), torch.int32),
+                           f"{cid}/vals": (arrays["vals"], dtype),
+                           f"{cid}/row_ptr": (row_ptr, torch.int32)})
+            if count:
+                inputs[f"{cid}/chunk_rows"] = (long_rows, torch.int32)
+                inputs[f"{cid}/chunk_ptr"] = (chunk_ptr, torch.int32)
+            entry_sig.append((cid, target, 0 if long_rows is None else len(long_rows), count))
+
+        for cid, layout in layouts.items():
+            m = self.model.models[cid]
+            if layout in ("dense", "re", "compact_dense"):
+                shard = dataset.feature_shards[m.feature_shard_id]
+                inputs[f"{cid}/x"] = (padded(dataset.host_array(f"shard/{m.feature_shard_id}")),
+                                      torch.bfloat16 if bf16 else shard.dtype)
+            if layout in ("re", "compact_dense"):
+                inputs[f"{cid}/idx"] = (padded(dataset.host_array(
+                    f"entity_idx/{m.random_effect_type}"), -1), torch.int32)
+            elif layout == "sparse":
+                shard = dataset.feature_shards[m.feature_shard_id]
+                rows, cols, vals = (np.asarray(a) for a in shard.coalesced())
+                entry_axis(cid, {"rows": rows, "cols": cols, "vals": vals},
+                           torch.bfloat16 if bf16 else shard.dtype)
+            elif layout == "entries":
+                shard = dataset.feature_shards[m.feature_shard_id]
+                e, k = (int(x) for x in m.coefficients.shape)
+                if e * (k + 1) >= 2**31:
+                    raise ValueError(f"compact table [{e}, {k}+1] has 2^31 slots or more; the "
+                                     "gather kernel takes int32 column ids")
+                ent, pos, rows, vals = compact_entry_positions(
+                    shard, dataset.host_array(f"entity_idx/{m.random_effect_type}"),
+                    np.asarray(m.active_cols))
+                flat = ent.astype(np.int64) * (k + 1) + pos
+                entry_axis(cid, {"rows": rows, "cols": flat, "vals": vals},
+                           torch.bfloat16 if bf16 else shard.dtype, pad_values={"cols": k})
+            elif layout == "mf":
+                for name, t in (("row_idx", m.row_effect_type), ("col_idx", m.col_effect_type)):
+                    inputs[f"{cid}/{name}"] = (padded(dataset.host_array(f"entity_idx/{t}"), -1),
+                                               torch.int32)
+        return inputs, layouts, tuple(entry_sig)
+
+    def score_resident(self, layouts: dict, inputs: dict, params: dict, n: int,
+                       chunk_counts: dict) -> torch.Tensor:
+        """The resident program: ``[n]`` scores, offsets included, of the
+        tensors :meth:`resident_inputs` describes (on the params' device)
+        with :meth:`resident_params`: each coordinate through
+        ``models/game.score_layout``, the program the sub-models'
+        ``score_dataset`` runs, summed in model order, then the offsets
+        (``score_dataset``'s order), so the same padded rows score bitwise
+        alike. It reads no value on the host: a CUDA graph can capture it.
+        ``chunk_counts`` gives each entry axis's chunk count (0: no plan)."""
+        total = None
+        for cid, layout in layouts.items():
+            arrays = {k[len(cid) + 1:]: v for k, v in inputs.items() if k.startswith(cid + "/")}
+            if layout in ("sparse", "entries"):
+                count = chunk_counts.get(cid, 0)
+                arrays["chunks"] = sparse_gather.ChunkPlan(
+                    arrays.pop("chunk_rows"), arrays.pop("chunk_ptr"), count) if count else None
+            s = score_layout(layout, params[cid], arrays, n)
+            total = s if total is None else total + s
+        if total is None:
+            raise ValueError("GameModel has no sub-models")
+        return total + inputs["offsets"]
 
     # -- scoring -------------------------------------------------------------
 
@@ -368,11 +593,8 @@ class DistributedScorer:
                                                                local_nnz))
         data_axis = mesh_ops.data_size(self.mesh)
         block_nnz = max(-(-block_nnz // data_axis) * data_axis, data_axis)
-        pad = block_nnz - local_nnz
-        last = rows[-1:] if local_nnz else np.zeros(1, rows.dtype)
-        padded = (np.concatenate([rows, np.broadcast_to(last, (pad,))]),
-                  np.concatenate([cols, np.zeros(pad, cols.dtype)]),
-                  np.concatenate([vals, np.zeros(pad, vals.dtype)]))
+        p = _pad_nnz({"rows": rows, "cols": cols, "vals": vals}, block_nnz)
+        padded = (p["rows"], p["cols"], p["vals"])
         # the padded triple is the shard's entry list as it stands (its pads
         # must not coalesce away)
         return SparseShard(rows=padded[0], cols=padded[1], vals=padded[2],

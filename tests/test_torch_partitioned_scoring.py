@@ -57,22 +57,40 @@ def _driver_runs(base: Path) -> list:
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    base = tmp_path_factory.mktemp("partitioned-scoring")
-    tasks, inputs = [], {}
-    for kind in KINDS:
-        train = PP.write_input(base / f"{kind}_train", num_files=4, seed=21)
-        held = PP.write_input(base / f"{kind}_held", num_files=3, seed=22, clustered=False)
-        inputs[kind] = (train, held)
-        tasks.append(dict(kind="partitioned_train", path=train, configs=PP.CONFIGS[kind],
-                          re_columns=["userId"], program=PP.program(), sweeps=2,
-                          score={"path": held}))
-    tasks.append(dict(kind="driver_runs", runs=_driver_runs(base)))
-    ranks = base / "ranks"
+def base(tmp_path_factory):
+    return tmp_path_factory.mktemp("partitioned-scoring")
+
+
+@pytest.fixture(scope="module")
+def kind_runs(base):
+    """Per fixed-effect kind, its inputs and the two ranks' partitioned
+    training and scoring, each spawned on its own the first time a test asks
+    for it (one group's work a spawn keeps each well inside the join
+    deadline when the suite loads the machine)."""
+    cache = {}
+
+    def run(kind):
+        if kind not in cache:
+            train = PP.write_input(base / f"{kind}_train", num_files=4, seed=21)
+            held = PP.write_input(base / f"{kind}_held", num_files=3, seed=22, clustered=False)
+            task = dict(kind="partitioned_train", path=train, configs=PP.CONFIGS[kind],
+                        re_columns=["userId"], program=PP.program(), sweeps=2,
+                        score={"path": held})
+            ranks = base / f"ranks-{kind}"
+            ranks.mkdir()
+            cache[kind] = ((train, held), W.spawn_ranks(2, [task], ranks)[0])
+        return cache[kind]
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def drivers(base):
+    """The six driver runs on two spawned ranks, and their output root."""
+    ranks = base / "ranks-drivers"
     ranks.mkdir()
-    results = W.spawn_ranks(2, tasks, ranks)
-    return {"port": dict(zip(KINDS + ["drivers"], results)), "inputs": inputs,
-            "out": base / "out"}
+    results = W.spawn_ranks(2, [dict(kind="driver_runs", runs=_driver_runs(base))], ranks)[0]
+    return {"port": results, "out": base / "out"}
 
 
 def _jax_scores(train: str, held: str, kind: str):
@@ -97,12 +115,12 @@ def _jax_scores(train: str, held: str, kind: str):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_score_partitioned_matches_the_jax_package(runs, kind):
+def test_score_partitioned_matches_the_jax_package(kind_runs, kind):
     """Each rank's rows at rel 1e-8 of the JAX package's score_partitioned,
     and the ranks' rows in order those of its whole-read scores; each rank
     gets only its own true rows."""
-    jparts, jfull = _jax_scores(*runs["inputs"][kind], kind)
-    got = runs["port"][kind]
+    inputs, got = kind_runs(kind)
+    jparts, jfull = _jax_scores(*inputs, kind)
     for r, out in enumerate(got):
         part = out["score_read"]["partition"]
         assert len(out["scores"]) == part[2][r] < part[3] * 2
@@ -112,12 +130,12 @@ def test_score_partitioned_matches_the_jax_package(runs, kind):
     np.testing.assert_allclose(both, jfull, rtol=1e-8, atol=1e-8 * np.abs(jfull).max())
 
 
-def test_partitioned_drivers_run_and_refuse(runs):
+def test_partitioned_drivers_run_and_refuse(drivers):
     """Both ranks' partitioned training and scoring runs finish; validation
     data and evaluators with --partitioned-io raise the JAX package's
     messages."""
     local = []
-    for out in runs["port"]["drivers"]:
+    for out in drivers["port"]:
         train_full, train_part, score_full, score_part, refused, score_refused = out
         for run in (train_full, train_part, score_full, score_part):
             assert "summary" in run, run
@@ -133,11 +151,11 @@ def test_partitioned_drivers_run_and_refuse(runs):
     assert sum(local) == 120 and min(local) > 0
 
 
-def test_partitioned_training_driver_matches_the_full_read(runs):
+def test_partitioned_training_driver_matches_the_full_read(drivers):
     """Index maps, model metadata and id-info byte-identical to the
     --distributed run's; coefficients within 1e-5 of their largest; no
     feature statistics (they would summarize one rank's rows)."""
-    out = runs["out"]
+    out = drivers["out"]
     full, part = out / "full", out / "part"
     same = [p.relative_to(full) for p in sorted(full.rglob("*")) if p.is_file()
             and ("index-maps" in p.parts or p.name in ("id-info", "model-metadata.json"))]
@@ -154,10 +172,10 @@ def test_partitioned_training_driver_matches_the_full_read(runs):
                                    atol=1e-5 * float(x.abs().max()))
 
 
-def test_partitioned_score_parts_hold_the_one_rank_scores(runs):
+def test_partitioned_score_parts_hold_the_one_rank_scores(drivers):
     """scores/part-00000.avro and part-00001.avro, in order, hold exactly the
     records the one-rank writer of the --distributed run wrote."""
-    out = runs["out"]
+    out = drivers["out"]
     parts = sorted(os.listdir(out / "scores-part" / "scores"))
     assert parts == ["part-00000.avro", "part-00001.avro"]
     got = [r for p in parts for r in tavro.read_container(out / "scores-part" / "scores" / p)]

@@ -18,6 +18,7 @@ import dataclasses
 import datetime
 import os
 import pickle
+import time
 import traceback
 from pathlib import Path
 
@@ -51,17 +52,33 @@ def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TI
     for p in alive:
         p.kill()
         p.join(10)
-    if alive:
-        raise TimeoutError(f"{len(alive)} of {world} ranks still running after {timeout_s} s")
     errors = [(tmp / f"error{r}.txt") for r in range(world)]
+    if alive:
+        raise TimeoutError(f"{len(alive)} of {world} ranks still running after {timeout_s} s; "
+                           + _rank_report(tmp, world))
     for r, e in enumerate(errors):
         if e.exists():
             raise RuntimeError(f"rank {r} failed:\n{e.read_text()}")
     codes = [p.exitcode for p in procs]
     if any(codes):
-        raise RuntimeError(f"rank exit codes {codes}")
+        raise RuntimeError(f"rank exit codes {codes} (a negative code is the signal that "
+                           f"ended the rank); " + _rank_report(tmp, world))
     per_rank = [pickle.loads((tmp / f"out{r}.pkl").read_bytes()) for r in range(world)]
     return [[per_rank[r][i] for r in range(world)] for i in range(len(tasks))]
+
+
+def _rank_report(tmp: Path, world: int) -> str:
+    """Where each rank got to (its last ``progress`` line, with the seconds
+    since it started) and any traceback it wrote."""
+    lines = []
+    for r in range(world):
+        progress = tmp / f"progress{r}.txt"
+        last = progress.read_text().splitlines()[-1] if progress.exists() else "not started"
+        lines.append(f"rank {r}: {last}")
+        error = tmp / f"error{r}.txt"
+        if error.exists():
+            lines.append(error.read_text())
+    return "\n".join(lines)
 
 
 def _rank_main(rank: int, world: int, tmp: str, device: str = "cpu",
@@ -72,13 +89,24 @@ def _rank_main(rank: int, world: int, tmp: str, device: str = "cpu",
     torch.set_num_threads(1)
     from photon_ml_torch.parallel import multihost
 
+    started = time.monotonic()
+
+    def progress(what: str) -> None:
+        with open(Path(tmp, f"progress{rank}.txt"), "a") as f:
+            f.write(f"{what} at {time.monotonic() - started:.1f} s\n")
+
     try:
         dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+        progress("joining the group")
         multihost.initialize(f"file://{tmp}/rendezvous", world, rank, device=dev,
                              backend="gloo", local_rank=0 if device == "cuda" else None,
                              timeout=datetime.timedelta(seconds=group_timeout_s))
         tasks = pickle.loads(Path(tmp, "job.pkl").read_bytes())
-        out = [TASKS[t["kind"]](t, rank, world, Path(tmp)) for t in tasks]
+        out = []
+        for i, t in enumerate(tasks):
+            progress(f"task {i} ({t['kind']}) started")
+            out.append(TASKS[t["kind"]](t, rank, world, Path(tmp)))
+        progress("done")
         Path(tmp, f"out{rank}.pkl").write_bytes(pickle.dumps(out))
     except BaseException:
         Path(tmp, f"error{rank}.txt").write_text(traceback.format_exc())
