@@ -89,7 +89,7 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
       form's time;
    e. a small problem (n=4096) on the card in f32 against the CPU in f64:
       coefficients and tables within 1e-3 max|w|;
-   f. a larger run (n=2^20, 16,000 users, 12,000 items, logistic, Newton
+   f. a larger run (n=2^19, 8,000 users, 6,000 items, logistic, Newton
       lanes, 2 sweeps) whose times are printed.
    The probe study of (a) also runs every variant of the three earliest
    probes (P1-P3: separate columns without offsets or Σr, logistic loss),
@@ -167,9 +167,11 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    model (Avro scores bitwise the in-process ones); a run with
    ``--input-date-range`` over two daily directories must write the
    one-directory run's model files byte for byte; and one GAME training run
-   at the flagship's rows, uncut (2^17 + 2^15, the Avro written by a pool of
-   the port's pure-Python writers, one part file each), prints its stages,
-   with the packed kernel held on its own fixed-effect inputs.
+   at the flagship's rows, uncut (2^17 + 2^15), prints its stages, with the
+   packed kernel held on its own fixed-effect inputs. The phase's Avro, the
+   flagship's and phase 13's are written by a pool of processes running the
+   port's pure-Python writer (a part file a task), started after the build
+   and writing while phases 3-7b run (``_start_prewrites``).
 9. The sparse GAME slice at bench.py:721's shapes (``SPARSE_GAME``, none
    cut): n=2^16 rows of 16 Zipf columns (γ=24) over d=10^6, values
    N(0,1)/4, 2000 users, linear labels, 2^14 held-out rows; a fixed effect
@@ -255,12 +257,13 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    1e-6 of the host's and above the fixed effect's; phase 11's sparse
    program over the one-rank mesh (G1's rows, segments, chunks and compact
    scoring held on its own inputs); (d) the GAME training and scoring
-   drivers with and without ``--distributed`` at phase 8's flagship rows:
+   drivers with and without ``--distributed`` on the flagship's Avro cut
+   to a quarter of its rows (``FLAGSHIP_AVRO["cut"]``: 2^15 + 2^13 rows,
+   the widths, users and items kept; 16 training parts clustered by user):
    index maps, metadata and id-info byte-identical, coefficients within
    1e-3·max|w|, the written scores bitwise the in-process ones. The
-   launches and checks join the kernels line's ``mesh_path``. Phase 8
-   writes the flagship's Avro once (16 training parts clustered by user);
-   phases 12(d) and 13 read it.
+   launches and checks join the kernels line's ``mesh_path``. Phases 13,
+   14(e), 17(e) and 18(b) read the same cut Avro.
 13. Partitioned I/O (``io/partitioned_reader.py``, ``train_partitioned``):
    one NCCL rank, whose partitioned read is the full read, trains bit for bit
    as the full read's ``train_distributed(mesh=)``; then two ranks on the
@@ -273,14 +276,15 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    and then a hybrid (256-column head) fixed effect: the agreed ELL width,
    flat block and hot ids the full read's, the state within 1e-3·max|w|;
    (c) two held-out part files as one container (blocks mode, the Python codec)
-   array for array the files mode's; (d) ``score_partitioned`` of the 2^15
+   array for array the files mode's; (d) ``score_partitioned`` of the 2^13
    held-out rows, the ranks' rows bitwise the one-rank scorer's; (e) the
    GAME drivers with ``--partitioned-io --distributed`` on two ranks:
    index maps, metadata and id-info byte-identical to ``--distributed``'s,
    coefficients within 1e-3·max|w|, the two score parts exactly the
    one-rank scores. B1 and its reduce, and G1's rows, chunks and segments,
    held on rank 0's own partitioned blocks, join the kernels line's
-   ``partitioned_path``.
+   ``partitioned_path``. The flagship Avro is the cut one of phase 12(d);
+   the two ranks run (a)-(d) and (e) in one process group.
 14. The model axis (``parallel/column_sharded.py``, ``fe_feature_sharded``),
    ranks spawned on the card (gloo with CUDA tensors; NCCL with a card a rank
    where there are as many cards): (a) a one-rank NCCL mesh data=1, model=1
@@ -300,13 +304,15 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    phase 9's sparse GAME shape with its fixed effect feature-sharded at 1x2;
    (d) ``DistributedScorer(fe_feature_sharded=True)`` on the 2^15 held-out
    rows within 1e-5 rel of the one-device transform; (e) both GAME drivers
-   with ``--mesh data=1,model=2`` at phase 8's flagship rows against phase
-   12(d)'s ``--distributed`` run: index maps, metadata and id-info
-   byte-identical, coefficients within 1e-3·max|w|, the written scores
-   bitwise the in-process feature-sharded ones. The launches and checks
-   join the kernels line's ``model_path``.
+   with ``--mesh data=1,model=2`` on phase 12(d)'s cut flagship Avro
+   against phase 12(d)'s ``--distributed`` run: index maps, metadata and
+   id-info byte-identical, coefficients within 1e-3·max|w|, the written
+   scores bitwise the in-process feature-sharded ones. (b), (c) at 1x2 and
+   (e) run in one process group of two ranks. The launches and checks join
+   the kernels line's ``model_path``.
 15. Streamed GLM solves, checkpoints and recovery (``STREAM``): (a) phase 4's
-   ``[2^18, 512]`` logistic problem in 8 chunks of 2^15 rows
+   generator's ``[n, 512]`` logistic problem at n=2^17 (half phase 4's rows,
+   cut for the script's time), in 4 chunks of 2^15 rows
    (``ArrayChunkSource``, standardization from ``streaming_summarize``): an
    L-BFGS λ path {1, 10} (again with prefetch off at λ=1), a TRON solve and
    L-BFGS at λ=1 cut at 5 iterations, streamed and in core: where both run
@@ -333,8 +339,9 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    GAME driver with ``--checkpoint-dir`` run twice (byte-identical models).
    The launches and checks join the kernels line's ``stream_path``.
 16. Streamed GAME, two ranks and coordinated recovery (``STREAM_GAME``): (a)
-   the flagship in memory (2^17 rows, ``[2^17, 256]`` f32, 16 per-user
-   features, 2000 users; entity-sorted) in user-clustered chunks of about
+   the flagship in memory at half its rows (2^16 rows, ``[2^16, 256]`` f32,
+   16 per-user features, 2000 users; entity-sorted) in user-clustered chunks
+   of about
    2^14 rows (``GameArrayChunkSource``), FE + per-user (the flagship's items
    span any user-clustered chunking): 4 sweeps at bench.py's budgets (L-BFGS
    10 and 10), the sweep's split (FE decode, wait, copy, accumulation; RE
@@ -391,6 +398,43 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    12(d)'s models), and the resident scores against the scoring driver's.
    (b)'s launches, checks and traced replays join the kernels line's
    ``serving_path``.
+18. Search and scheduling (``SEARCH``; ``algorithm/lane_scheduler.py``,
+   ``algorithm/refresh.py``, ``algorithm/lane_search.py``,
+   ``hyperparameter/``): (a) phase 7's flagship (logistic, L-BFGS lanes of
+   20 iterations with a live function stop at 1e-6, 4 sweeps, f32) through
+   ``GameEstimator.fit`` unscheduled, with probe/rescue (probe 2) and with
+   freezing as well: no run's loss rises, the scheduled final losses' gaps
+   printed, lanes frozen in sweep 2 and skipped in sweep 3 with their rows
+   bitwise kept and the active set reset after the final sweep, a fit with
+   ``scheduler=None`` bitwise a fit built without the field; lanes probed,
+   rescued and frozen and the rescue blocks per sweep, seconds a sweep, one
+   profiled per-user update of each; P6 held on the scheduled fit's fixed
+   effect. Then in f64 (the closed-form fixed effect), the lanes run to a
+   1e-10 function stop: probe/rescue's final loss within 1e-5 rel of the
+   unscheduled one. (b) ``train_distributed``
+   of a scheduled per-user program on one device and ``train_partitioned``
+   with ``schedulers=`` on two gloo ranks at phase 13's flagship (the ranks'
+   losses equal, the state within 1e-3·max|w| of one device; B1 and its
+   reduce held on the step's fixed effect). (c) ``GameEstimator.refresh`` of
+   (a)'s unscheduled model after the labels of 100 users are redrawn:
+   unselected rows bitwise, the declared users selected, the loss on the new
+   data not above the resident model's, a stopped-and-resumed refresh bitwise
+   the whole one, a checkpoint under another λ refused; seconds against a
+   4-sweep fit. (d) λ-grid lanes: phase 4's dense problem, 8 λ over
+   [1e-2, 1e2] at 20 iterations and to the stopping tests against cold
+   ``train_glm`` solves, an elastic-net grid and diagonal variances; phase
+   5's ELL, 4 λ at 20 iterations, scaled and unscaled, G1's row and segment
+   launches equal to lanes × evaluations, G1 held on the scaled lanes' inputs
+   in f64, each unscaled lane within 1e-3·max|w| of ``train_glm``, and each
+   scaled lane, run in f64 on the plain gathers, too. (e) a uniform
+   tournament bitwise the grid; ``run_model_search`` (GP, 3 rounds × 8 lanes,
+   AUC on 2^16 held-out rows on the device); the GLM driver with
+   ``--grid-parallel`` (against its cold sequential runs) and
+   ``--search-rounds 2``; the GAME driver with ``--hyperparameter-tuning
+   BAYESIAN`` and ``--incremental-refresh`` on phase 8's cut rows. (f) phase
+   16(a)'s streamed flagship, per-user scheduled against unscheduled, 2
+   sweeps: final losses within 1e-5 rel. Its launches and checks join the
+   kernels line's ``search_path``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -418,8 +462,35 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg: str) -> None:
+    """``msg`` on standard output; its start, after the seconds since the
+    script began, on standard error (where the time of each step reads)."""
     print(msg, flush=True)
+    print(f"[{time.perf_counter() - _T0:8.1f} s] {msg[:100]}", file=sys.stderr, flush=True)
+
+
+#: what the fork server of ``_processes`` imports once, before any fork
+_PRELOAD = ("__main__", "numpy", "torch", "photon_ml_torch.io.avro",
+            "photon_ml_torch.parallel.distributed", "photon_ml_torch.parallel.multihost",
+            "photon_ml_torch.parallel.column_sharded", "photon_ml_torch.parallel.scoring",
+            "photon_ml_torch.algorithm.streaming_game", "photon_ml_torch.estimators",
+            "photon_ml_torch.cli.game_training_driver", "photon_ml_torch.cli.game_scoring_driver")
+
+
+def _processes():
+    """The multiprocessing context of every process the script starts (the
+    ranks and the Avro writers): a fork server, started once, that imported
+    ``_PRELOAD`` (torch and the port's modules, no CUDA context), so a
+    process starts in milliseconds instead of importing them again (about
+    5 s of host time a process)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(list(_PRELOAD))
+    return ctx
 
 
 def _eager_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1048,6 +1119,7 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
             for k in ("mean", "variance", "max_magnitude")}
     scale = build_normalization(NormalizationType.SCALE_WITH_STANDARD_DEVIATION, **stat)
     del stats, stat
+    _SHARED["ell"] = (ell, scale)  # phase 18's sparse grid runs on this batch
     ell16 = ell.replace(ell_vals=ell.ell_vals.to(torch.bfloat16),
                         values=ell.values.to(torch.bfloat16))
     width = ell.ell_vals.shape[1]
@@ -1344,7 +1416,7 @@ def _sparse_slice(torch, np, seed: int, dev, card: str) -> list:
 GAME = {
     "flagship": dict(n=1 << 17, d_fe=256, d_re=16, users=2000, items=1500, held_out=1 << 15,
                      sweeps=4),
-    "large": dict(n=1 << 20, d_fe=256, d_re=16, users=16000, items=12000, held_out=0, sweeps=2),
+    "large": dict(n=1 << 19, d_fe=256, d_re=16, users=8000, items=6000, held_out=0, sweeps=2),
     "small": dict(n=4096, d_fe=32, d_re=8, users=48, items=24, held_out=0, sweeps=3),
     "cap": 128,
 }
@@ -1812,6 +1884,8 @@ def _game_slice(torch, np, seed: int, dev, card: str) -> list:
     entries[0]["probe_shape_rows"] = [{k: r_[k] for k in keep if k in r_} for r_ in probe_rows
                                       if "ms" in r_]
     entries.extend(_probe_entries(probe_rows))
+    # phase 18 fits the same logistic flagship again (its training rows)
+    _SHARED["game_flagship"] = (train, data[log])
     del fits, fe_only, data, held_ds, train, held, x, aux, p6_args
     torch.cuda.empty_cache()
 
@@ -2225,6 +2299,19 @@ def _write_game_part(args) -> float:
         "metadataMap": {"userId": users[i], "itemId": items[i]}})
 
 
+def _write_glm_part(args) -> float:
+    """Write one GLM part file (``x`` without the intercept column, labels,
+    uids from ``offset``) with the port's pure-Python writer; seconds. A
+    module function, so a process pool can run it."""
+    from photon_ml_torch.io import photon_schemas
+
+    path, x, y, offset = args
+    x, y = x.tolist(), y.tolist()
+    return _write_avro(path, photon_schemas.TRAINING_EXAMPLE_AVRO, len(y), lambda i: {
+        "uid": str(offset + i), "label": y[i], "features": _ntv("f", x[i]), "weight": 1.0,
+        "offset": 0.0, "foldId": None, "metadataMap": None})
+
+
 def _game_parts(part, directory, offset: int, parts: int, cluster: bool = False) -> list:
     """The pool arguments writing ``part``'s rows as ``parts`` part files
     of ``directory`` (row order kept across the sorted part names; with
@@ -2249,38 +2336,121 @@ def _game_parts(part, directory, offset: int, parts: int, cluster: bool = False)
 #: a directory that phases share files through, kept to the end of the run
 _SHARED: dict = {}
 
+#: the flagship's rows as Avro, at two depths: "uncut" for phase 8's driver
+#: run at the flagship's rows (2^17 training, 2^15 validation); "cut" (a
+#: quarter of those rows, the widths, users and items kept) for the later
+#: phases' drivers and readers (12(d), 13, 14(e), 17(e), 18(b)), whose
+#: native decode is a pass over the whole file each read
+FLAGSHIP_AVRO = {"uncut": dict(n=1 << 17, held_out=1 << 15),
+                 "cut": dict(n=1 << 15, held_out=1 << 13)}
 
-def _flagship_avro(np, seed: int, fallback: Path) -> dict:
-    """The flagship's rows as Avro, written once a run (phase 8's uncut
-    driver run writes them; phases 12(d) and 13 read them): 2^17 training
-    rows at the flagship widths (255 global features, the drivers add the
-    intercept; 16 per-entity; 2000 users, 1500 items) as 16 part files
-    clustered by user, so that a partitioned read keeps each user on one
-    rank while items span the ranks, and 2^15 validation rows as 8 part
-    files, a quarter of them of unseen users. In ``_SHARED["dir"]``, else in
-    ``fallback``. Returns {"train", "validation", "n", "held_out",
-    "write_seconds", "workers"}."""
-    import multiprocessing
 
-    base = Path(_SHARED.get("dir", fallback)) / "flagship"
-    cached = _SHARED.get("flagship")
-    if cached is not None and cached["seed"] == seed and Path(cached["train"]).is_dir():
-        return cached
-    shape = dict(GAME["flagship"], d_fe=GAME["flagship"]["d_fe"] - 1)
+def _flagship_jobs(np, seed: int, size: str, base: Path) -> tuple:
+    """The pool arguments writing the flagship's rows at ``size`` under
+    ``base`` (``_write_game_part``'s), and what ``_flagship_avro`` returns
+    of them."""
+    shape = dict(GAME["flagship"], d_fe=GAME["flagship"]["d_fe"] - 1, **FLAGSHIP_AVRO[size])
     n, nv = shape["n"], shape["held_out"]
     train, held = _game_arrays(np, seed + 12, **shape)
-    workers = min(8, os.cpu_count() or 1)
     jobs = _game_parts(train, base / "train", 0, 16, cluster=True) \
         + _game_parts(held, base / "validation", n, 8)
-    del train, held
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        pool.map(_write_game_part, jobs)
-    out = {"seed": seed, "train": base / "train", "validation": base / "validation", "n": n,
-           "held_out": nv, "write_seconds": time.perf_counter() - t0, "workers": workers,
-           "d_fe": shape["d_fe"]}
+    return jobs, {"seed": seed, "size": size, "train": base / "train",
+                  "validation": base / "validation", "n": n, "held_out": nv,
+                  "d_fe": shape["d_fe"]}
+
+
+def _driver_avro_jobs(np, seed: int, base: Path) -> tuple:
+    """Phase 8's Avro under ``base``: the GAME rows (training in two part
+    files, one a day for the date-range run; validation in one) and the GLM
+    rows, as (``_write_game_part`` jobs, ``_write_glm_part`` jobs)."""
+    cfg = DRIVERS
+    n, nv = cfg["game_rows"], cfg["validation_rows"]
+    train, held = _game_arrays(np, seed + 3, n=n, d_fe=cfg["d_fe"], d_re=cfg["d_re"],
+                               users=cfg["users"], items=cfg["items"], held_out=nv)
+    ng, ngv, dg = cfg["glm_rows"], cfg["glm_validation_rows"], cfg["glm_d"]
+    x, y = _dataset(np, seed + 4, ng + ngv, dg)
+    x = x[:, :-1]  # the last column is the driver's intercept
+    jobs = _game_parts(train, base / "game/train", 0, 2) \
+        + _game_parts(held, base / "game/validation", n, 1)
+    glm_jobs = [(str(base / "glm/train/part-00000.avro"), x[:ng], y[:ng], 0),
+                (str(base / "glm/validation/part-00000.avro"), x[ng:], y[ng:], ng)]
+    return jobs, glm_jobs
+
+
+def _start_prewrites(np, seed: int) -> None:
+    """Start writing, in a pool of processes (the port's pure-Python Avro
+    writer, a part file a task) while phases 3-7b run on the card, the Avro
+    that later phases read: phase 8's GAME and GLM rows, the flagship's
+    rows uncut and cut, and phase 13's sparse rows, in the order they are
+    read, all under ``_SHARED["dir"]``. A phase takes its files with
+    ``_prewritten``; one run without this (a phase alone) writes them itself."""
+    base = Path(_SHARED["dir"]) / "prewritten"
+    workers = max(1, min(4, (os.cpu_count() or 1) - 2))
+    # below the phases' own processes in the host's scheduler
+    pool = _processes().Pool(workers, initializer=os.nice, initargs=(10,))
+    atexit.register(pool.terminate)
+    groups = {}
+
+    def submit(key, fn, jobs, info):
+        groups[key] = {"result": pool.map_async(fn, jobs), "info": info}
+
+    game_jobs, glm_jobs = _driver_avro_jobs(np, seed, base / "drivers")
+    submit("drivers-game", _write_game_part, game_jobs, {"dir": base / "drivers"})
+    submit("drivers-glm", _write_glm_part, glm_jobs, {"dir": base / "drivers"})
+    for size in ("uncut", "cut"):
+        jobs, info = _flagship_jobs(np, seed, size, base / f"flagship-{size}")
+        submit(f"flagship-{size}", _write_game_part, jobs, info)
+    jobs, info = _sparse_avro_jobs(np, seed, base / "sparse")
+    submit("sparse", _write_sparse_part, jobs, info)
+    _SHARED["prewrites"] = {"pool": pool, "groups": groups, "workers": workers}
+
+
+def _prewritten(key: str) -> dict | None:
+    """The files of ``_start_prewrites``' group ``key`` once written: its
+    info plus "part_seconds" (each part's writer seconds) and "workers";
+    None when nothing was started. The pool closes once every group was
+    taken."""
+    pre = _SHARED.get("prewrites")
+    if pre is None or key not in pre["groups"]:
+        return None
+    group = pre["groups"][key]
+    if "part_seconds" not in group:
+        group["part_seconds"] = group["result"].get()
+    if not pre.get("closed") and all("part_seconds" in g for g in pre["groups"].values()):
+        pre["pool"].close()
+        pre["pool"].join()
+        pre["closed"] = True
+    return dict(group["info"], part_seconds=group["part_seconds"], workers=pre["workers"])
+
+
+def _flagship_avro(np, seed: int, fallback: Path, size: str = "cut") -> dict:
+    """The flagship's rows at ``size`` (``FLAGSHIP_AVRO``) as Avro, written
+    once a run at each size (by ``_start_prewrites``, else here by a pool):
+    the training rows at the flagship widths (255 global features, the
+    drivers add the intercept; 16 per-entity; 2000 users, 1500 items) as 16
+    part files clustered by user, so that a partitioned read keeps each user
+    on one rank while items span the ranks, and the validation rows as 8
+    part files, a quarter of them of unseen users. In ``_SHARED["dir"]``,
+    else in ``fallback``. Returns {"train", "validation", "n", "held_out",
+    "write_seconds" (wall seconds, or the parts' writer seconds summed when
+    written in the background), "workers", "background"}."""
+    cached = _SHARED.get(f"flagship-{size}")
+    if cached is not None and cached["seed"] == seed and Path(cached["train"]).is_dir():
+        return cached
+    pre = _prewritten(f"flagship-{size}")
+    if pre is not None and pre["seed"] == seed:
+        out = dict(pre, write_seconds=sum(pre["part_seconds"]), background=True)
+    else:
+        jobs, info = _flagship_jobs(np, seed, size, Path(_SHARED.get("dir", fallback))
+                                    / f"flagship-{size}")
+        workers = min(8, os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        with _processes().Pool(workers) as pool:
+            pool.map(_write_game_part, jobs)
+        out = dict(info, write_seconds=time.perf_counter() - t0, workers=workers,
+                   background=False)
     if "dir" in _SHARED:
-        _SHARED["flagship"] = out
+        _SHARED[f"flagship-{size}"] = out
     return out
 
 
@@ -2393,7 +2563,7 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
     from photon_ml_torch.cli import game_scoring_driver, game_training_driver, glm_driver
     from photon_ml_torch.data.batch import LabeledPointBatch
     from photon_ml_torch.evaluation import local_metrics
-    from photon_ml_torch.io import avro_native, photon_schemas
+    from photon_ml_torch.io import avro_native
     from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
     from photon_ml_torch.io.index_map import INTERCEPT_KEY, IndexMap, feature_key
     from photon_ml_torch.io.model_io import load_game_model, read_scores
@@ -2416,39 +2586,36 @@ def _driver_slice(torch, np, seed: int, dev, card: str) -> dict:
     avro_native.fallbacks = 0  # every driver read below must take the native decoder
     with tempfile.TemporaryDirectory(prefix="photon-drivers-") as tmp:
         tmp = Path(tmp)
-        # a. TrainingExample Avro from --seed with the port's writer
+        # a. TrainingExample Avro from --seed with the port's writer (the
+        # training set in two part files: the date-range run reads one a day)
         n, nv = cfg["game_rows"], cfg["validation_rows"]
-        train, held = _game_arrays(np, seed + 3, n=n, d_fe=cfg["d_fe"], d_re=cfg["d_re"],
-                                   users=cfg["users"], items=cfg["items"], held_out=nv)
-        # the training set in two part files: the date-range run reads one a
-        # day; the three parts written at once, a process each
-        import multiprocessing
-
-        jobs = _game_parts(train, tmp / "game/train", 0, 2) \
-            + _game_parts(held, tmp / "game/validation", n, 1)
-        with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
-            part_s = pool.map(_write_game_part, jobs)
-        write_s = {"game training": sum(part_s[:2]), "game validation": part_s[2]}
         ng, ngv, dg = cfg["glm_rows"], cfg["glm_validation_rows"], cfg["glm_d"]
-        x, y = _dataset(np, seed + 4, ng + ngv, dg)
-        xl, yl = x[:, :-1].tolist(), y.tolist()  # the last column is the driver's intercept
+        game_pre, glm_pre = _prewritten("drivers-game"), _prewritten("drivers-glm")
+        if game_pre is not None and glm_pre is not None:
+            for sub in ("game", "glm"):
+                shutil.copytree(game_pre["dir"] / sub, tmp / sub)
+            part_s, glm_s = game_pre["part_seconds"], glm_pre["part_seconds"]
+            how = (f"written in the background by {game_pre['workers']} processes while phases "
+                   f"3-7b ran, a part file a process")
+        else:  # the GAME and GLM files written at once, a process each
 
-        def glm_record(offset):
-            return lambda i: {"uid": str(offset + i), "label": yl[offset + i],
-                              "features": _ntv("f", xl[offset + i]), "weight": 1.0,
-                              "offset": 0.0, "foldId": None, "metadataMap": None}
-
-        te = photon_schemas.TRAINING_EXAMPLE_AVRO
-        write_s["glm training"] = _write_avro(tmp / "glm/train/part-00000.avro", te, ng,
-                                              glm_record(0))
-        write_s["glm validation"] = _write_avro(tmp / "glm/validation/part-00000.avro", te, ngv,
-                                                glm_record(ng))
+            jobs, glm_jobs = _driver_avro_jobs(np, seed, tmp)
+            with _processes().Pool(len(jobs) + len(glm_jobs)) as pool:
+                game_s = pool.map_async(_write_game_part, jobs)
+                glm_s = pool.map(_write_glm_part, glm_jobs)
+                part_s = game_s.get()
+            how = "written by a process a part file"
+        write_s = {"game training": sum(part_s[:2]), "game validation": part_s[2],
+                   "glm training": glm_s[0], "glm validation": glm_s[1]}
+        if "dir" in _SHARED:  # phase 18's drivers read the same Avro
+            for sub in ("game", "glm"):
+                shutil.copytree(tmp / sub, _SHARED["dir"] / "drivers" / sub, dirs_exist_ok=True)
+            _SHARED["drivers_avro"] = _SHARED["dir"] / "drivers"
         rows_written = {"game training": n, "game validation": nv, "glm training": ng,
                         "glm validation": ngv}
-        _log("Avro write (port's pure-Python codec): " + ", ".join(
-            f"{k} {rows_written[k]} records in {v:.2f} s ({rows_written[k] / v:.0f} records/s)"
-            for k, v in write_s.items()))
-        del train, held, x, y, xl, yl
+        _log(f"Avro write (port's pure-Python codec, {how}; a part's writer seconds): "
+             + ", ".join(f"{k} {rows_written[k]} records in {v:.2f} s "
+                         f"({rows_written[k] / v:.0f} records/s)" for k, v in write_s.items()))
 
         # b. the GLM driver: B1 on every evaluation, the text model reloads
         value_and_gradient = objective.GLMObjective.value_and_gradient
@@ -2883,8 +3050,11 @@ def _flagship_driver_run(torch, np, seed: int, dev, tmp: Path, card: str, shards
 
     # the global bag one narrower than the flagship's d = 256: the driver
     # appends the intercept, as the 8,192-row runs' 255 features do
-    avro = _flagship_avro(np, seed, tmp)
+    avro = _flagship_avro(np, seed, tmp, size="uncut")
     n, nv, workers, write_s = avro["n"], avro["held_out"], avro["workers"], avro["write_seconds"]
+    written = (f"written in the background while phases 3-7b ran ({write_s:.2f} s of writer "
+               f"time over {len(avro.get('part_seconds', ()))} part files)" if avro["background"] else
+               f"written in {write_s:.2f} s ({(n + nv) / write_s:.0f} records/s)")
     for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
         setattr(packed_glm, name, 0)
     t0 = time.perf_counter()
@@ -2908,8 +3078,8 @@ def _flagship_driver_run(torch, np, seed: int, dev, tmp: Path, card: str, shards
         fe_alone["validate:AUC"] > 0.5, (run["best_metric"], fe_alone)
     decode = run["timings"]["avro decode"]["total"]
     _log(f"GAME training driver at the flagship's rows, uncut ({card}): {n} training + {nv} "
-         f"validation rows written in {write_s:.2f} s by {workers} processes of the port's "
-         f"pure-Python writer ({(n + nv) / write_s:.0f} records/s), training run "
+         f"validation rows {written} by {workers} processes of the port's pure-Python writer, "
+         f"training run "
          f"{run_s:.2f} s, {launches['packed_glm']} packed kernels, validation AUC "
          f"{run['best_metric']:.6f} against the fixed effect alone "
          f"{fe_alone['validate:AUC']:.6f}; native Avro decode {(n + nv) / decode:.0f} records/s; "
@@ -4454,8 +4624,8 @@ def _fused_slice(torch, np, seed: int, dev, card: str) -> dict:
 
 #: phase 12, the fused program over a data-axis mesh (``torch.distributed``):
 #: phase 11's flagship (bench.py:541-560 widths, none cut, with phase 10's MF
-#: k=16 coordinate), phase 11's sparse program, and the GAME drivers at phase
-#: 8's flagship rows
+#: k=16 coordinate), phase 11's sparse program, and the GAME drivers on the
+#: flagship's Avro cut to a quarter of its rows (``FLAGSHIP_AVRO["cut"]``)
 MESH = dict(FUSED["flagship"], sparse_sweeps=2, rank_timeout_s=420)
 
 
@@ -4568,13 +4738,11 @@ def _two_ranks(torch, np, seed: int, dev, card: str) -> dict:
     """Phase 12(b): two ranks of the flagship mesh program, NCCL on two
     cards where there are two, else two processes on the one card over gloo
     with CUDA tensors (NCCL refuses two ranks on one device)."""
-    import multiprocessing
-
     two_cards = dev.type == "cuda" and torch.cuda.device_count() >= 2
     backend = "nccl" if two_cards else "gloo"
     with tempfile.TemporaryDirectory(prefix="mesh-", dir=Path(__file__).resolve().parent
                                      / "build") as tmp:
-        ctx = multiprocessing.get_context("spawn")
+        ctx = _processes()
         procs = [ctx.Process(target=_mesh_rank_main,
                              args=(r, 2, tmp, seed, backend, dev.type, r if two_cards else 0))
                  for r in range(2)]
@@ -4598,11 +4766,11 @@ def _two_ranks(torch, np, seed: int, dev, card: str) -> dict:
 
 def _mesh_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
     """Phase 12(d): the GAME training and scoring drivers with and without
-    ``--distributed`` (one process: a group of one) on Avro at phase 8's
-    flagship rows. Index maps, metadata and id-info byte-identical;
+    ``--distributed`` (one process: a group of one) on the flagship's cut
+    Avro. Index maps, metadata and id-info byte-identical;
     coefficients within 1e-3 of their largest (the one path's packed kernel
     against the other's B1, in f32); the written scores bitwise equal to the
-    same model's in-process scores. The Avro is phase 8's (``_flagship_avro``)."""
+    same model's in-process scores. The Avro is ``_flagship_avro``'s cut one."""
     from photon_ml_torch.cli import game_scoring_driver, game_training_driver
     from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
     from photon_ml_torch.io.index_map import IndexMap
@@ -4857,12 +5025,12 @@ def _mesh_slice(torch, np, seed: int, dev, card: str) -> dict:
 
 #: phase 13, partitioned I/O (``io/partitioned_reader.py``): two ranks on the
 #: one card (gloo with CUDA tensors), each decoding about half of (a) the
-#: flagship's Avro (``_flagship_avro``: 2^17 rows, users clustered by file,
-#: items spanning the ranks), (b) phase 9's sparse shape written as Avro (n =
-#: 2^16 rows of 16 Zipf columns over d = 10^6, a dense [2^16, 16] per-user
-#: shard, users clustered), (c) two of the flagship's part files (2^14 rows)
-#: as one container, the blocks mode, (d) the 2^15 held-out rows; (e) the
-#: GAME drivers with ``--partitioned-io`` at the flagship's rows
+#: flagship's cut Avro (``_flagship_avro``: 2^15 rows, users clustered by
+#: file, items spanning the ranks), (b) phase 9's sparse shape written as
+#: Avro (n = 2^16 rows of 16 Zipf columns over d = 10^6, a dense [2^16, 16]
+#: per-user shard, users clustered), (c) two of its held-out part files
+#: (2^11 rows) as one container, the blocks mode, (d) the 2^13 held-out rows;
+#: (e) the GAME drivers with ``--partitioned-io`` on the same Avro
 PARTITIONED = dict(sweeps=4, sparse_sweeps=2, cap=128, hot_cols=256, sparse_parts=8,
                    rank_timeout_s=600)
 
@@ -4897,13 +5065,11 @@ def _write_sparse_part(args) -> float:
         "foldId": None, "metadataMap": {"userId": users[i]}})
 
 
-def _sparse_avro(np, seed: int, base: Path) -> dict:
+def _sparse_avro_jobs(np, seed: int, base: Path) -> tuple:
     """Phase 9's training rows (bench.py:721's shape, none cut) as Avro with a
     dense 16-wide per-user shard and a planted per-user term in the labels,
     rows sorted by user into ``PARTITIONED["sparse_parts"]`` files, each
-    user's rows in one file."""
-    import multiprocessing
-
+    user's rows in one file: (``_write_sparse_part`` jobs, {"path", "n"})."""
     cfg = SPARSE_GAME
     part, _ = _sparse_game_arrays(np, seed, cfg["n"], cfg["d"], cfg["per_row"], cfg["users"])
     n, k = part["n"], cfg["per_row"]
@@ -4921,10 +5087,21 @@ def _sparse_avro(np, seed: int, base: Path) -> dict:
     bounds = [int(starts[np.searchsorted(starts, n * i // parts)]) for i in range(parts + 1)]
     jobs = [(os.path.join(base, f"part-{i:05d}.avro"), cols[lo:hi], vals[lo:hi], x_re[lo:hi],
              y[lo:hi], users[lo:hi], lo) for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))]
+    return jobs, {"path": base, "n": n}
+
+
+def _sparse_avro(np, seed: int, base: Path) -> dict:
+    """``_sparse_avro_jobs``' files (written by ``_start_prewrites``, else
+    here under ``base`` by a pool): {"path", "n", "write_seconds",
+    "background"}."""
+    pre = _prewritten("sparse")
+    if pre is not None:
+        return dict(pre, write_seconds=sum(pre["part_seconds"]), background=True)
+    jobs, info = _sparse_avro_jobs(np, seed, base)
     t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(min(parts, os.cpu_count() or 1)) as pool:
+    with _processes().Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
         pool.map(_write_sparse_part, jobs)
-    return {"path": base, "n": n, "write_seconds": time.perf_counter() - t0}
+    return dict(info, write_seconds=time.perf_counter() - t0, background=False)
 
 
 def _blocks_container(src_files, dst: Path) -> dict:
@@ -5180,7 +5357,7 @@ def _full_read_layout(np, shard, partition, world: int) -> dict:
 
 def _partitioned_drivers(rank: int, tmp: Path, job: dict) -> dict:
     """Phase 13(e) on one rank: the GAME training driver with
-    ``--partitioned-io --distributed`` at the flagship's rows, then the
+    ``--partitioned-io --distributed`` on the flagship's cut Avro, then the
     scoring driver the same way on the held-out rows (each rank its part)."""
     from photon_ml_torch.cli import game_scoring_driver, game_training_driver
 
@@ -5201,12 +5378,13 @@ def _partitioned_drivers(rank: int, tmp: Path, job: dict) -> dict:
             "score": {k: v for k, v in score.items() if k != "evaluations"}}
 
 
-def _partitioned_rank_main(rank: int, world: int, tmp: str, seed: int, device_type: str,
-                           device_index: int, job: dict) -> None:
-    """One rank of phase 13 (``job["what"]``: "paths" for (a)-(d), "drivers"
-    for (e)) in a gloo group of ``world`` with CUDA tensors; writes its
-    report to ``tmp/rank<r>.json``. A module function, so a spawned process
-    runs it."""
+def _partitioned_rank_main(rank: int, world: int, seed: int, device_type: str,
+                           device_index: int, jobs: list) -> None:
+    """One rank of phase 13 in a gloo group of ``world`` with CUDA tensors:
+    each of ``jobs``, (directory, job) with ``job["what"]`` "paths" for
+    (a)-(d) or "drivers" for (e), in turn in the one group, writing its
+    report to ``<directory>/rank<r>.json``. A module function, so a spawned
+    process runs it."""
     import datetime
 
     import numpy as np
@@ -5217,43 +5395,47 @@ def _partitioned_rank_main(rank: int, world: int, tmp: str, seed: int, device_ty
     try:
         dev = torch.device(device_type, device_index) if device_type == "cuda" \
             else torch.device(device_type)
-        multihost.initialize(f"file://{tmp}/rendezvous", world, rank, local_rank=device_index,
-                             device=dev, backend="gloo",
+        multihost.initialize(f"file://{jobs[0][0]}/rendezvous", world, rank,
+                             local_rank=device_index, device=dev, backend="gloo",
                              timeout=datetime.timedelta(seconds=PARTITIONED["rank_timeout_s"]))
-        if job["what"] == "paths":
-            out = _partitioned_paths(torch, np, rank, world, Path(tmp), dev, job)
-        else:
-            out = _partitioned_drivers(rank, Path(tmp), job)
-        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out, default=float))
+        for tmp, job in jobs:
+            if job["what"] == "paths":
+                out = _partitioned_paths(torch, np, rank, world, Path(tmp), dev, job)
+            else:
+                out = _partitioned_drivers(rank, Path(tmp), job)
+            (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out, default=float))
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     finally:
         multihost.shutdown()
 
 
-def _spawn_partitioned(torch, dev, tmp: Path, seed: int, job: dict, label: str) -> tuple:
-    """Two ranks of ``job`` on the card (gloo, CUDA tensors; NCCL over two
-    cards where there are two), joined within ``rank_timeout_s``: (reports,
-    seconds with process start)."""
-    import multiprocessing
-
+def _spawn_partitioned(torch, dev, jobs: list, seed: int, label: str) -> tuple:
+    """Two ranks running ``jobs`` ((directory, job) pairs, in turn in one
+    process group) on the card (gloo, CUDA tensors; NCCL over two cards
+    where there are two), joined within ``rank_timeout_s`` a job: (each
+    job's reports, seconds with process start)."""
     two_cards = dev.type == "cuda" and torch.cuda.device_count() >= 2
-    tmp.mkdir(parents=True, exist_ok=True)
-    ctx = multiprocessing.get_context("spawn")
+    for tmp, _ in jobs:
+        tmp.mkdir(parents=True, exist_ok=True)
+    ctx = _processes()
     procs = [ctx.Process(target=_partitioned_rank_main,
-                         args=(r, 2, str(tmp), seed, dev.type, r if two_cards else 0, job))
+                         args=(r, 2, seed, dev.type, r if two_cards else 0,
+                               [(str(tmp), job) for tmp, job in jobs]))
              for r in range(2)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     for p in procs:
-        p.join(PARTITIONED["rank_timeout_s"])
+        p.join(PARTITIONED["rank_timeout_s"] * len(jobs))
     alive = [p for p in procs if p.is_alive()]
     for p in alive:
         p.kill()
         p.join(30)
     assert not alive, f"{label}: {len(alive)} ranks still running"
     assert all(p.exitcode == 0 for p in procs), (label, [p.exitcode for p in procs])
-    return ([json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)],
-            time.perf_counter() - t0)
+    return ([[json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+             for tmp, _ in jobs], time.perf_counter() - t0)
 
 
 def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
@@ -5282,8 +5464,8 @@ def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
         avro = _flagship_avro(np, seed, tmp)
         sparse = _sparse_avro(np, seed, tmp / "sparse")
         train_files = sorted(Path(avro["train"]).glob("part-*.avro"))
-        # two held-out parts (4096 rows each): the blocks mode decodes with the
-        # Python codec, about 500 records/s a rank
+        # two held-out parts (a quarter of the held-out rows): the blocks mode
+        # decodes with the Python codec, about 500 records/s a rank
         held_files = sorted(Path(avro["validation"]).glob("part-*.avro"))[:2]
         blocks = _blocks_container(held_files, tmp / "blocks" / "one.avro")
         (tmp / "blocks-files").mkdir()
@@ -5291,7 +5473,10 @@ def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
             os.symlink(f, tmp / "blocks-files" / f.name)
         _log(f"13. inputs: flagship {avro['n']} + {avro['held_out']} rows "
              f"({len(train_files)} training parts clustered by user), sparse {sparse['n']} "
-             f"rows written in {sparse['write_seconds']:.2f} s, one container of "
+             f"rows written in {sparse['write_seconds']:.2f} s"
+             + (" of writer time (its parts' seconds summed; in the background)"
+                if sparse["background"] else "")
+             + ", one container of "
              f"{blocks['records']} rows in {blocks['blocks']} blocks")
 
         # a. one NCCL rank: the partitioned path's one-rank read is the full
@@ -5325,11 +5510,27 @@ def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
         del part, res, ref
         torch.cuda.empty_cache()
 
-        # a-d on two ranks
-        job = {"what": "paths", "train": str(avro["train"]),
-               "validation": str(avro["validation"]), "sparse": str(sparse["path"]),
-               "blocks_file": str(blocks["file"]), "blocks_files": str(tmp / "blocks-files")}
-        ranks, seconds = _spawn_partitioned(torch, dev, tmp / "paths", seed, job, "13a-d")
+        # a-d and e on two ranks, one process group for both
+        shards = ["--feature-shard-configurations",
+                  "name=global,feature.bags=features,intercept=true",
+                  "--feature-shard-configurations",
+                  "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+        coordinates = ["--coordinate-configurations",
+                       "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+                       "--coordinate-configurations",
+                       "name=per_user,feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,"
+                       "max.iter=10,random.effect.type=userId"]
+        device = None if dev.type == "cuda" else dev
+        paths_job = {"what": "paths", "train": str(avro["train"]),
+                     "validation": str(avro["validation"]), "sparse": str(sparse["path"]),
+                     "blocks_file": str(blocks["file"]),
+                     "blocks_files": str(tmp / "blocks-files")}
+        drivers_job = {"what": "drivers", "train": str(avro["train"]),
+                       "validation": str(avro["validation"]), "shards": shards,
+                       "coordinates": coordinates, "device": device}
+        (ranks, drivers), seconds = _spawn_partitioned(
+            torch, dev, [(tmp / "paths", paths_job), (tmp / "drivers", drivers_job)], seed,
+            "13a-e")
         r0, r1 = ranks
         for r in ranks:
             for label, read in r["reads"].items():
@@ -5433,27 +5634,14 @@ def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
                                 "layouts": r0["layouts"]}
         del model, val, whole
 
-        # e. the drivers at the flagship's rows
-        shards = ["--feature-shard-configurations",
-                  "name=global,feature.bags=features,intercept=true",
-                  "--feature-shard-configurations",
-                  "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
-        coordinates = ["--coordinate-configurations",
-                       "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
-                       "--coordinate-configurations",
-                       "name=per_user,feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,"
-                       "max.iter=10,random.effect.type=userId"]
-        device = None if dev.type == "cuda" else dev
+        # e. the drivers at the flagship's (cut) rows: the ranks' runs above
+        # against the --distributed run of one process
         t0 = time.perf_counter()
         game_training_driver.main([
             "--input-data-path", str(avro["train"]), "--root-output-dir", str(tmp / "full"),
             "--task-type", "LOGISTIC_REGRESSION", *shards, *coordinates,
             "--coordinate-descent-iterations", "2", "--distributed"], device=device)
         full_s = time.perf_counter() - t0
-        job = {"what": "drivers", "train": str(avro["train"]),
-               "validation": str(avro["validation"]), "shards": shards,
-               "coordinates": coordinates, "device": device}
-        drivers, seconds = _spawn_partitioned(torch, dev, tmp / "drivers", seed, job, "13e")
         out = tmp / "drivers"
         game_scoring_driver.main([
             "--input-data-path", str(avro["validation"]), "--model-input-dir",
@@ -5489,7 +5677,7 @@ def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
                                        "score": round(r["score_seconds"], 2),
                                        "read": round(r["timings"].get("read training data", 0),
                                                      2)} for r in drivers})
-             + f", {seconds:.2f} with process start")
+             + f"; the two ranks' jobs (a)-(e) {seconds:.2f} s with process start")
         assert all(g <= 1e-3 * s for g, s in gaps.values()), gaps
         assert parts == ["part-00000.avro", "part-00001.avro"] and got == want
         summary["drivers"] = {"coefficient_gaps": gaps, "byte_identical": len(same),
@@ -5517,8 +5705,8 @@ def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
 #: then TRON) and its hybrid d=10^8 TRON solve column-sharded over model=2,
 #: phase 11's flagship and phase 9's sparse GAME shape with the fixed effect
 #: feature-sharded at 1x2 and 2x2, feature-sharded scoring of the 2^15
-#: held-out rows, and both GAME drivers with --mesh data=1,model=2 at phase
-#: 8's flagship rows; none of the widths cut. The ELL solves run fixed
+#: held-out rows, and both GAME drivers with --mesh data=1,model=2 on the
+#: flagship's cut Avro (phase 12(d)'s); none of the widths cut. The ELL solves run fixed
 #: budgets: run to their stopping tests, f32 solves of this flat optimum end
 #: at the objective's resolution (L-BFGS at a failed line search after 42-71
 #: iterations, TRON's gradient test met after 8 iterations on one device and
@@ -5879,11 +6067,13 @@ def _model_axis_drivers(torch, np, rank: int, world: int, tmp: Path, dev, seed: 
     return out
 
 
-def _model_axis_rank_main(rank: int, world: int, tmp: str, seed: int, device_type: str,
-                          device_index: int, backend: str, job: dict) -> None:
-    """One rank of phase 14 (``job["what"]``: "sparse_glm" for (b), "fused"
-    for (c) and (d), "drivers" for (e)); writes its report to
-    ``tmp/rank<r>.json``. A module function, so a spawned process runs it."""
+def _model_axis_rank_main(rank: int, world: int, seed: int, device_type: str,
+                          device_index: int, backend: str, jobs: list) -> None:
+    """One rank of phase 14: each of ``jobs``, (directory, job) with
+    ``job["what"]`` "sparse_glm" for (b), "fused" for (c) and (d) or
+    "drivers" for (e), in turn in one process group, writing its report to
+    ``<directory>/rank<r>.json``. A module function, so a spawned process
+    runs it."""
     import datetime
 
     import numpy as np
@@ -5894,46 +6084,49 @@ def _model_axis_rank_main(rank: int, world: int, tmp: str, seed: int, device_typ
     try:
         dev = torch.device(device_type, device_index) if device_type == "cuda" \
             else torch.device(device_type)
-        multihost.initialize(f"file://{tmp}/rendezvous", world, rank, local_rank=device_index,
-                             device=dev, backend=backend,
+        multihost.initialize(f"file://{jobs[0][0]}/rendezvous", world, rank,
+                             local_rank=device_index, device=dev, backend=backend,
                              timeout=datetime.timedelta(seconds=MODEL_AXIS["rank_timeout_s"]))
-        fn = {"sparse_glm": _model_axis_sparse_glm, "fused": _model_axis_fused,
-              "drivers": _model_axis_drivers}[job["what"]]
-        out = fn(torch, np, rank, world, Path(tmp), dev, seed, job)
-        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out, default=float))
+        for tmp, job in jobs:
+            fn = {"sparse_glm": _model_axis_sparse_glm, "fused": _model_axis_fused,
+                  "drivers": _model_axis_drivers}[job["what"]]
+            out = fn(torch, np, rank, world, Path(tmp), dev, seed, job)
+            (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out, default=float))
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     finally:
         multihost.shutdown()
 
 
-def _spawn_model_axis(torch, dev, tmp: Path, seed: int, job: dict, world: int,
-                      label: str) -> tuple:
-    """``world`` ranks of ``job``: NCCL with a card a rank where there are as
-    many cards, else gloo with CUDA tensors, every rank on card 0 (NCCL
-    refuses two ranks on one device); joined within ``rank_timeout_s``.
-    Returns (reports in rank order, backend, seconds with process start)."""
-    import multiprocessing
-
+def _spawn_model_axis(torch, dev, jobs: list, seed: int, world: int, label: str) -> tuple:
+    """``world`` ranks running ``jobs`` ((directory, job) pairs, in turn in
+    one process group): NCCL with a card a rank where there are as many
+    cards, else gloo with CUDA tensors, every rank on card 0 (NCCL refuses
+    two ranks on one device); joined within ``rank_timeout_s`` a job.
+    Returns (each job's reports in rank order, backend, seconds with process
+    start)."""
     cards = dev.type == "cuda" and torch.cuda.device_count() >= world
     backend = "nccl" if cards else "gloo"
-    tmp.mkdir(parents=True, exist_ok=True)
-    ctx = multiprocessing.get_context("spawn")
+    for tmp, _ in jobs:
+        tmp.mkdir(parents=True, exist_ok=True)
+    ctx = _processes()
     procs = [ctx.Process(target=_model_axis_rank_main,
-                         args=(r, world, str(tmp), seed, dev.type, r if cards else 0, backend,
-                               job))
+                         args=(r, world, seed, dev.type, r if cards else 0, backend,
+                               [(str(tmp), job) for tmp, job in jobs]))
              for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     for p in procs:
-        p.join(MODEL_AXIS["rank_timeout_s"])
+        p.join(MODEL_AXIS["rank_timeout_s"] * len(jobs))
     alive = [p for p in procs if p.is_alive()]
     for p in alive:
         p.kill()
         p.join(30)
     assert not alive, f"{label}: {len(alive)} ranks still running"
     assert all(p.exitcode == 0 for p in procs), (label, [p.exitcode for p in procs])
-    return ([json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)], backend,
-            time.perf_counter() - t0)
+    return ([[json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+             for tmp, _ in jobs], backend, time.perf_counter() - t0)
 
 
 def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
@@ -5980,10 +6173,31 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
     multihost.shutdown()
     torch.cuda.empty_cache()
 
+    # b., c. at 1x2 and e. on two ranks, one process group for the three
+    drivers = _SHARED["mesh_drivers"]
+    avro = _flagship_avro(np, seed, base)
+    shards = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",
+              "--feature-shard-configurations",
+              "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+    re_spec = "feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,max.iter=10," \
+              "random.effect.type="
+    drivers_job = {
+        "what": "drivers", "out": str(base / "e-out"), "validation": str(avro["validation"]),
+        "train_args": ["--input-data-path", str(avro["train"]), "--task-type",
+                       "LOGISTIC_REGRESSION", *shards, "--coordinate-configurations",
+                       "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+                       "--coordinate-configurations", f"name=per_user,{re_spec}userId",
+                       "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+                       "--coordinate-descent-iterations", "2"],
+        "score_args": ["--input-data-path", str(avro["validation"]), *shards,
+                       "--evaluators", "AUC"]}
+    (ranks, ranks_c2, ranks_e), backend, seconds = _spawn_model_axis(
+        torch, dev, [(base / "b", {"what": "sparse_glm"}),
+                     (base / "c2", {"what": "fused", "shape": (1, 2), "sparse": True}),
+                     (base / "e", drivers_job)], seed, 2, "14b, 14c 1x2, 14e")
+    backend_two = backend
+
     # b. the column-sharded sparse GLM at model=2 against phase 5's one-device solves
-    t0 = time.perf_counter()
-    ranks, backend, seconds = _spawn_model_axis(torch, dev, base / "b", seed,
-                                                {"what": "sparse_glm"}, 2, "14b")
     held = []
     for name, label, ref_key in (("ell", "lbfgs", "ell_lbfgs"), ("ell", "tron", "ell_tron"),
                                  ("hybrid_1e8", "tron", "hybrid_1e8_tron")):
@@ -6023,7 +6237,8 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
             "evaluations": run0["evaluations"], "collectives": run0["collectives"],
             "bytes": [[p["coefficient_bytes"], p["gradient_bytes"], p["history_bytes"]]
                       for p in per_rank]}
-    _log(f"14b. column-sharded sparse GLM: {seconds:.2f} s with process start; build seconds "
+    _log(f"14b. column-sharded sparse GLM (b, c at 1x2 and e on the two ranks: {seconds:.2f} s "
+         f"with process start); build seconds "
          + json.dumps({n: [r["cases"][n]["build_seconds"] for r in ranks]
                        for n in ranks[0]["cases"]}))
     # (case, solver, within 1e-3·max|w|, ranks' values equal, two runs
@@ -6044,9 +6259,13 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
     for shape in ((1, 2), (2, 2)):
         world = shape[0] * shape[1]
         label = f"14c. {shape[0]}x{shape[1]}"
-        ranks, backend, seconds = _spawn_model_axis(
-            torch, dev, base / f"c{world}", seed, {"what": "fused", "shape": shape,
-                                                   "sparse": shape == (1, 2)}, world, label)
+        if shape == (1, 2):  # run beside (b) and (e)
+            ranks, backend, spawned = ranks_c2, backend_two, "run beside (b) and (e)"
+        else:
+            (ranks,), backend, seconds = _spawn_model_axis(
+                torch, dev, [(base / f"c{world}", {"what": "fused", "shape": shape})], seed,
+                world, label)
+            spawned = f"{seconds:.2f} s with process start"
         states = [dict(np.load(base / f"c{world}" / f"state{r}.npz")) for r in range(world)]
         ranks_equal = all(np.array_equal(states[0][k], s[k]) for s in states[1:]
                           for k in states[0])
@@ -6072,7 +6291,7 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
              f"states equal {ranks_equal}, every rank's per-step values equal {steps_equal}; "
              f"FE block per rank {r0['fe_block']}; seconds a sweep "
              + json.dumps([[run["seconds_per_sweep"] for run in r["runs"]] for r in ranks])
-             + f"; {seconds:.2f} s with process start; collectives a sweep by axis (rank 0) "
+             + f"; {spawned}; collectives a sweep by axis (rank 0) "
              + json.dumps(r0["runs"][0]["sweeps"][-1]["collectives"])
              + "; profiled sweep (rank 0) " + json.dumps(r0["profiled_sweep"])
              + f"; d. feature-sharded scoring of {r0['scoring']['rows']} held-out rows: max rel "
@@ -6100,23 +6319,7 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
             compact_checks += r0["compact_checks"]
 
     # e. both GAME drivers with --mesh data=1,model=2 against phase 12(d)'s --distributed
-    drivers = _SHARED["mesh_drivers"]
-    avro = _flagship_avro(np, seed, base)
-    shards = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",
-              "--feature-shard-configurations",
-              "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
-    re_spec = "feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,max.iter=10," \
-              "random.effect.type="
-    job = {"what": "drivers", "out": str(base / "e-out"), "validation": str(avro["validation"]),
-           "train_args": ["--input-data-path", str(avro["train"]), "--task-type",
-                          "LOGISTIC_REGRESSION", *shards, "--coordinate-configurations",
-                          "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
-                          "--coordinate-configurations", f"name=per_user,{re_spec}userId",
-                          "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
-                          "--coordinate-descent-iterations", "2"],
-           "score_args": ["--input-data-path", str(avro["validation"]), *shards,
-                          "--evaluators", "AUC"]}
-    ranks, backend, seconds = _spawn_model_axis(torch, dev, base / "e", seed, job, 2, "14e")
+    ranks = ranks_e
     out = base / "e-out" / "train"
     same = {}
     for sub in ("index-maps", "best"):
@@ -6140,7 +6343,7 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
          f"byte-identical {all(same.values())}; coefficient gaps (max |dw|, max |w|) "
          + json.dumps(gaps) + f"; written scores ({ranks[0]['rows']} rows) bitwise the "
          f"in-process feature-sharded ones {ranks[0]['written_scores_bitwise']}; seconds "
-         + json.dumps([r["seconds"] for r in ranks]) + f"; {seconds:.2f} s with process start")
+         + json.dumps([r["seconds"] for r in ranks]) + " (run beside (b) and (c) at 1x2)")
     assert same and all(same.values()), same
     assert all(g <= 1e-3 * s for g, s in gaps.values()), gaps
     assert all(r["distributed"] for r in ranks) and ranks[0]["written_scores_bitwise"]
@@ -6174,7 +6377,8 @@ def _model_axis_slice(torch, np, seed: int, dev, card: str) -> dict:
 #: GLM driver streams 128 of phase 8's 4096 training rows in two chunks (the
 #: Python codec decodes each epoch again); the GAME driver reads 2048
 #: flagship-width rows.
-STREAM = dict(dense_chunk=1 << 15, lbfgs_iterations=20, tron_iterations=5, budget_iterations=5,
+STREAM = dict(dense_n=1 << 17, dense_chunk=1 << 15, lbfgs_iterations=20, tron_iterations=5,
+              budget_iterations=5,
               sparse_chunk=1 << 17, sparse_iterations=20, save_every=5,
               driver_rows=128, driver_validation_rows=1024, driver_chunk=64,
               driver_iterations=3, game_rows=2048, game_validation_rows=512, sweeps=4)
@@ -6289,10 +6493,10 @@ def _stream_dense(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
     from photon_ml_torch.resilience import RetryPolicy, recovery, run_with_recovery
     from photon_ml_torch.types import TaskType
 
-    n, d = STREAM.get("dense_n", 1 << 18), STREAM.get("dense_d", 512)
+    n, d = STREAM["dense_n"], STREAM.get("dense_d", 512)
     chunk = STREAM["dense_chunk"]
     t0 = time.perf_counter()
-    x_np, y_np = _dataset(np, seed, n, d)  # phase 4's data
+    x_np, y_np = _dataset(np, seed, n, d)  # phase 4's generator
     source = ArrayChunkSource(x_np, y_np, chunk_rows=chunk)
     stats = streaming_summarize(source)
     norm = build_normalization(
@@ -6303,7 +6507,7 @@ def _stream_dense(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
     batch = LabeledPointBatch.create(x_np, y_np, device=dev)
     torch.cuda.synchronize()
     summarize_s = time.perf_counter() - t0
-    _log(f"15a. phase 4's data [{n}, {d}] f32 in {source.num_chunks} chunks of {chunk} rows "
+    _log(f"15a. phase 4's generator at [{n}, {d}] f32 in {source.num_chunks} chunks of {chunk} rows "
          f"({chunk * d * 4 / 2**20:.0f} MiB of features a chunk); streaming_summarize and the "
          f"in-core batch: {summarize_s:.2f} s")
     # phase 4's L-BFGS and TRON budgets
@@ -6858,14 +7062,16 @@ def _stream_slice(torch, np, seed: int, dev, card: str) -> dict:
 
 #: phase 16, streamed GAME over entity-clustered chunks, two ranks and
 #: coordinated recovery (ROADMAP item 16 step 2): (a)-(b) the flagship's
-#: widths and rows (2^17 rows, a [2^17, 256] f32 fixed-effect block, 16
-#: per-user features, 2000 users) in memory, in chunks of about 2^14 rows;
+#: widths with half its rows (2^16 rows, a [2^16, 256] f32 fixed-effect
+#: block, 16 per-user features, 2000 users) in memory, in chunks of about
+#: 2^14 rows (the rows cut for the script's time: a streamed sweep is host
+#: work over every chunk);
 #: (c)-(e) the flagship's rows of its first users as user-clustered Avro (the
 #: Python codec decodes every chunk again each epoch, 2 ms a record on the
 #: card's host, so the Avro runs are cut in depth, never in width). The
 #: streamed model is FE + per-user: the flagship's items span any
 #: user-clustered chunking, and streamed GAME needs every RE type clustered.
-STREAM_GAME = dict(chunk=1 << 14, sweeps=4, fe_iterations=10, re_iterations=10,
+STREAM_GAME = dict(rows=1 << 16, chunk=1 << 14, sweeps=4, fe_iterations=10, re_iterations=10,
                    budget_fe_iterations=2, budget_re_iterations=2,
                    duhl_working_set=3, duhl_tail=1, duhl_tolerance=5e-4, duhl_sweeps=5,
                    avro_rows=256, avro_validation_rows=256, avro_chunk=64, avro_sweeps=2,
@@ -6920,11 +7126,13 @@ def _sg_gap(a: dict, b: dict) -> dict:
     return {k: float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30) for k in b}
 
 
-def _sg_flagship(np, seed: int):
-    """The flagship's training rows (FE + per-user) sorted by user, as
-    streamed GAME needs them (stable: a user's rows keep their order), its
-    user vocabulary and per-row user indexes."""
-    train, _ = _game_arrays(np, seed, **dict(GAME["flagship"], held_out=0))
+def _sg_flagship(np, seed: int, rows: int | None = None):
+    """The flagship's training rows (FE + per-user), ``rows`` of them
+    (``STREAM_GAME["rows"]`` by default), sorted by user, as streamed GAME
+    needs them (stable: a user's rows keep their order), its user vocabulary
+    and per-row user indexes."""
+    train, _ = _game_arrays(np, seed, **dict(GAME["flagship"], n=rows or STREAM_GAME["rows"],
+                                             held_out=0))
     order = np.argsort(train["keys"]["user"], kind="stable")
     train = {"x_fe": train["x_fe"][order], "x_re": train["x_re"][order],
              "keys": {"user": train["keys"]["user"][order]},
@@ -6978,7 +7186,7 @@ def _stream_game_memory(torch, np, seed: int, dev, card: str) -> tuple:
     from photon_ml_torch.types import TaskType
 
     cfg = STREAM_GAME
-    shape = dict(GAME["flagship"], held_out=0)
+    shape = dict(GAME["flagship"], n=cfg["rows"], held_out=0)
     t0 = time.perf_counter()
     train, vocab, user_idx = _sg_flagship(np, seed)
     y = train["labels"]["LOGISTIC_REGRESSION"]
@@ -7534,8 +7742,6 @@ def _stream_game_ranks(torch, np, seed: int, dev, card: str, tmp: Path, avro_in:
     over the in-memory flagship (against 16(a)'s one-rank runs,
     ``one_rank``) and over the Avro's agreed partitioned plan (against one
     rank's streamed run); the kills and their recoveries."""
-    import multiprocessing
-
     from photon_ml_torch.algorithm.streaming_game import StreamingGameProgram
     from photon_ml_torch.io import avro
     from photon_ml_torch.io.stream_reader import GameAvroChunkSource, scan_game_stream
@@ -7564,7 +7770,7 @@ def _stream_game_ranks(torch, np, seed: int, dev, card: str, tmp: Path, avro_in:
     job = {"train": str(avro_in["train"]), "seed": seed}
     rtmp = tmp / "ranks"
     rtmp.mkdir(parents=True, exist_ok=True)
-    ctx = multiprocessing.get_context("spawn")
+    ctx = _processes()
     procs = [ctx.Process(target=_sg_rank_main, args=(r, 2, str(rtmp), dev.type, 0, job))
              for r in range(2)]
     t0 = time.perf_counter()
@@ -8423,6 +8629,955 @@ def _serving_slice(torch, np, seed: int, dev, card: str) -> dict:
     return path
 
 
+#: phase 18's cells: (a) the flagship of phase 7 (``GAME["flagship"]``) with
+#: L-BFGS lanes of ``lane_iterations`` and a live function stop at 1e-6, the
+#: scheduler probing ``probe`` iterations, freezing at ``freeze``
+#: (coefficient, gradient), and in float64 with the lanes run to the stop of
+#: ``held`` (iterations, function tolerance), where scheduled and unscheduled
+#: fits are held to 1e-5 rel; (c) ``refresh_users`` users' labels redrawn;
+#: (d) phase 4's dense problem (``grid_lambdas`` λ log-spaced over [1e-2,
+#: 1e2] at ``grid_budget`` iterations) and phase 5's scaled ELL
+#: (``sparse_lambdas``); (e) ``search_rounds`` × ``search_lanes`` GP rounds
+#: with AUC on ``held_out`` rows, the drivers on phase 8's cut rows
+#: (``DRIVERS``); (f) phase 16(a)'s streamed flagship for ``stream_sweeps``
+#: sweeps.
+SEARCH = dict(lane_iterations=20, fe_iterations=30, probe=2, freeze=(0.12, 1e-2),
+              held=(100, 1e-10), refresh_users=100,
+              grid_lambdas=8, grid_budget=20, sparse_lambdas=(0.1, 0.3, 1.0, 3.0),
+              search_rounds=3, search_lanes=8, held_out=1 << 16, glm_lambdas=(0.1, 1.0, 10.0),
+              driver_budget=20, stream_sweeps=2, rank_timeout_s=600, dense=(1 << 18, 512))
+
+
+def _search_estimator(sweeps: int, scheduler=None, *, explicit_none: bool = False,
+                      lane_iterations: int | None = None, rel_function_tolerance: float = 1e-6,
+                      **kw):
+    """``_game_estimator``'s flagship configuration with L-BFGS lanes of
+    ``lane_iterations`` (``SEARCH["lane_iterations"]``) and a live function
+    stop at ``rel_function_tolerance`` on both random effects (the fixed
+    effect ``SEARCH["fe_iterations"]``, so that its solve ends on its own
+    tests and the runs compare their lanes), lane-scheduled by ``scheduler``
+    (a LaneSchedulerConfig; with ``explicit_none`` the field is passed as
+    None)."""
+    from photon_ml_torch.algorithm.coordinates import CoordinateOptimizationConfig
+    from photon_ml_torch.estimators import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.types import TaskType
+
+    lanes = dict(max_iterations=lane_iterations or SEARCH["lane_iterations"],
+                 rel_function_tolerance=rel_function_tolerance)
+    if scheduler is not None or explicit_none:
+        lanes["scheduler"] = scheduler
+
+    def opt(**o):
+        return CoordinateOptimizationConfig(optimizer=OptimizerConfig(OptimizerType.LBFGS, **o),
+                                            l2_weight=1.0)
+
+    configs = {"fixed": FixedEffectCoordinateConfig(
+        "global", opt(max_iterations=SEARCH["fe_iterations"]))}
+    for cid, re_type in (("per_user", "user"), ("per_item", "item")):
+        configs[cid] = RandomEffectCoordinateConfig(re_type, "per_entity", opt(**lanes),
+                                                    bucket_sizes=(GAME["cap"],))
+    return GameEstimator(task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=configs,
+                         num_iterations=sweeps, **kw)
+
+
+class _SchedulerLog:
+    """The SchedulerStats of every ``LaneScheduler.solve`` while open, in
+    call order, by wrapping the method (restored on exit). Beside them, for
+    each call: whether it was a final sweep, whether the active set was reset
+    after it, and, where it skipped frozen lanes, whether every frozen table
+    row came out bitwise as it went in."""
+
+    def __enter__(self):
+        import torch
+
+        from photon_ml_torch.algorithm.lane_scheduler import LaneScheduler
+
+        self.calls: list = []
+        self.checks: list = []
+        self._solve = solve = LaneScheduler.solve
+
+        def recorded(sched, objective, opt, blocks, full_offsets, table, **kw):
+            frozen = sched.frozen_rows
+            before = None if frozen is None or not frozen.any() else (frozen.copy(),
+                                                                      table.clone())
+            out = solve(sched, objective, opt, blocks, full_offsets, table, **kw)
+            stats = dataclasses.asdict(out[2])
+            check = {"final_sweep": kw.get("final_sweep", True),
+                     "active_set_reset": sched.frozen_rows is None}
+            if before is not None and stats["lanes_frozen_skipped"]:
+                mask = torch.as_tensor(before[0], device=table.device)
+                check["frozen_rows_kept"] = bool(torch.equal(before[1][mask], out[0][mask]))
+            self.calls.append(stats)
+            self.checks.append(check)
+            return out
+
+        LaneScheduler.solve = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from photon_ml_torch.algorithm.lane_scheduler import LaneScheduler
+
+        LaneScheduler.solve = self._solve
+
+    def per_sweep(self, coordinates: int) -> list:
+        """The calls summed over each sweep's ``coordinates`` scheduled solves."""
+        out = []
+        for i in range(0, len(self.calls), coordinates):
+            total: dict = {}
+            for c in self.calls[i:i + coordinates]:
+                for k, v in c.items():
+                    total[k] = total.get(k, 0) + v
+            out.append(total)
+        return out
+
+
+def _models_equal(a, b) -> bool:
+    """Every array of two GameModels bitwise equal."""
+    import numpy as np
+
+    from photon_ml_torch import convert
+
+    x, y = convert.game_model_to_numpy(a), convert.game_model_to_numpy(b)
+    return list(x) == list(y) and all(
+        np.array_equal(x[c][k], y[c][k]) for c in x for k in x[c]
+        if isinstance(x[c][k], np.ndarray))
+
+
+def _logistic_loss(torch, model, dataset) -> float:
+    """The weighted mean logistic loss of ``model``'s scores on ``dataset``."""
+    m = (model.score(dataset) + dataset.offsets).double()
+    y, w = dataset.labels.double(), dataset.weights.double()
+    return float(torch.sum(w * (torch.nn.functional.softplus(m) - y * m)) / torch.sum(w))
+
+
+def _search_flagship(torch, np, seed: int, dev, card: str) -> dict:
+    """18(a): the flagship three ways through ``GameEstimator.fit`` in f32
+    (timed; the scheduled runs' final-loss gaps printed), and unscheduled
+    against probe/rescue in f64 with the lanes run to their stop, held to
+    1e-5 rel. A 1e-6 function stop ends a lane wherever its L-BFGS history
+    puts it, and the rescue restarts that history, so at the f32 runs' stop
+    the two fits part by the stop's own width, not by rounding (f64 on the
+    CPU: 5.3e-5 rel at 1e-6, 4.7e-6 at 1e-7, 2.5e-9 at 1e-10); run to the
+    stop of ``SEARCH["held"]`` the fits agree, and a fault of the rescue or
+    its scatter shows. The freezing run is held to the skip's own semantics:
+    lanes frozen in sweep 2 and skipped in sweep 3, their table rows bitwise
+    kept, the active set gone after the final sweep."""
+    from photon_ml_torch.ops import packed_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.optim.optimizer import LaneSchedulerConfig
+    from dev import torch_kernel_probe
+
+    shape = GAME["flagship"]
+    sweeps = shape["sweeps"]
+    if "game_flagship" in _SHARED:  # phase 7's training rows and dataset
+        train, ds = _SHARED.pop("game_flagship")
+    else:
+        train, _ = _game_arrays(np, seed, **shape)
+        ds = _game_dataset(train, "LOGISTIC_REGRESSION", dev)
+    probe = LaneSchedulerConfig(probe_iterations=SEARCH["probe"])
+    freeze = LaneSchedulerConfig(probe_iterations=SEARCH["probe"],
+                                 freeze_coefficient_tolerance=SEARCH["freeze"][0],
+                                 freeze_gradient_tolerance=SEARCH["freeze"][1])
+    runs, launches = {}, {"packed_glm": 0, "packed_glm_reduce": 0}
+    for label, sched in (("unscheduled", None), ("probe/rescue", probe),
+                         ("probe/rescue + freezing", freeze)):
+        with _SchedulerLog() as log:
+            fit = _game_fit(torch, f"18a {label}", _search_estimator(sweeps, sched), ds, sweeps)
+        launches["packed_glm"] += fit["launches"]["packed_launches"] \
+            - fit["launches"]["mma_launches"]
+        launches["packed_glm_reduce"] += fit["launches"]["reduce_launches"]
+        fit["scheduler_per_sweep"] = log.per_sweep(2)
+        fit["scheduler_checks"] = log.checks
+        if sched is not freeze:  # an update alone is a final sweep: freezing skips nothing
+            fit["profiled_update"] = _lane_loop_share(torch, _search_estimator(1, sched), ds)
+        runs[label] = fit
+        _log(f"18a {label} ({card}): {fit['seconds_per_sweep']:.4f} s a sweep, final loss "
+             f"{fit['loss_per_sweep'][-1]:.9g}, per sweep {json.dumps(fit['scheduler_per_sweep'])}; "
+             f"one per-user update {json.dumps(fit.get('profiled_update'))}")
+    base = runs["unscheduled"]
+    for label in ("probe/rescue", "probe/rescue + freezing"):
+        runs[label]["final_loss_gap"] = _rel_gap(runs[label]["loss_per_sweep"][-1],
+                                                 base["loss_per_sweep"][-1])
+    per_sweep = runs["probe/rescue"]["scheduler_per_sweep"]
+    assert sum(s["lanes_rescued"] for s in per_sweep) > 0 and all(
+        s["lanes_probed"] > 0 for s in per_sweep), per_sweep
+    frozen = runs["probe/rescue + freezing"]
+    middle = frozen["scheduler_per_sweep"][1:3]
+    assert sum(s["lanes_newly_frozen"] for s in middle) > 0 \
+        and sum(s["lanes_frozen_skipped"] for s in middle) > 0, \
+        f"18a: no lane froze and was skipped in sweeps 2-3: {frozen['scheduler_per_sweep']}"
+    checks = frozen["scheduler_checks"]
+    assert all(c.get("frozen_rows_kept", True) for c in checks), \
+        f"18a: a skipped lane's table row changed: {checks}"
+    assert all(c["active_set_reset"] for c in checks if c["final_sweep"]) \
+        and any(c["final_sweep"] for c in checks), f"18a: the active set outlived the fit: {checks}"
+    explicit = _search_estimator(sweeps, None, explicit_none=True).fit(ds).model
+    assert _models_equal(explicit, base["result"].model), \
+        "18a: scheduler=None is not bitwise the fit built without the field"
+
+    # f64, the closed form on the fixed effect (the packed kernel takes f32
+    # and bf16), the lanes run to their stop: scheduled within 1e-5 rel
+    ds64 = _game_dataset(train, "LOGISTIC_REGRESSION", dev, dtype=np.float64)
+    iterations, rel = SEARCH["held"]
+    held = {}
+    for label, sched in (("unscheduled", None), ("probe/rescue", probe)):
+        est = _search_estimator(sweeps, sched, lane_iterations=iterations,
+                                rel_function_tolerance=rel, use_kernel=False)
+        held[label] = _game_fit(torch, f"18a f64 {label}", est, ds64, sweeps)
+    del ds64
+    held_gap = _rel_gap(held["probe/rescue"]["loss_per_sweep"][-1],
+                        held["unscheduled"]["loss_per_sweep"][-1])
+    assert held_gap <= 1e-5, f"18a f64: probe/rescue's final loss {held_gap} rel from " \
+                             "the unscheduled fit's (limit 1e-5)"
+    _log("18a final losses against unscheduled: f32 at the 1e-6 stop (printed) " + ", ".join(
+        f"{k} {runs[k]['final_loss_gap']:.3g}" for k in ("probe/rescue",
+                                                          "probe/rescue + freezing"))
+         + f"; f64 run to the stop ({iterations} iterations, {rel:g}) probe/rescue "
+         f"{held_gap:.3g} (limit 1e-5), {held['probe/rescue']['seconds_per_sweep']:.4f} against "
+         f"{held['unscheduled']['seconds_per_sweep']:.4f} s a sweep; freezing: frozen rows kept "
+         "bitwise where skipped, the active set reset; scheduler=None bitwise the plain fit")
+
+    # P6 and its reduce on the scheduled fit's fixed effect
+    model = runs["probe/rescue"]["result"].model
+    x = ds.feature_shards["global"]
+    w = model.get("fixed").glm.coefficients.means.float().contiguous()
+    residual = model.score(ds) - x @ w
+    aux = packed_glm.pack_aux(ds.labels, (ds.offsets + residual).contiguous(), ds.weights)
+    loss = LogisticLoss()
+    n, d = x.shape
+    r = torch.rand(n, device=dev)
+    checks = {"packed_glm": _path_check(
+        torch, "18a packed_glm on the scheduled fit's fixed effect",
+        lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False),
+        lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False),
+        lambda: (torch.matmul(x, w), torch.matmul(r, x)), torch_kernel_probe.limits("float32"),
+        n * d * 4 + 12 * n + 8 * d + 8, x.shape)}
+    p6 = (loss, x, aux, None, None, None, w, None, True, "fma", "fma")
+    checks["packed_glm_reduce"] = _reduce_entry(
+        torch, "18a packed_glm_reduce", lambda: packed_glm.launch_partials(*p6),
+        packed_glm.reduce_partials, packed_glm.reduce_partials_reference)
+    del aux, residual, p6
+    summary = {k: {kk: v[kk] for kk in ("seconds_per_sweep", "loss_per_sweep",
+                                         "scheduler_per_sweep", "profiled_update",
+                                         "final_loss_gap") if kk in v}
+               for k, v in runs.items()}
+    summary["f64"] = {"iterations": iterations, "rel_function_tolerance": rel,
+                      "final_loss_gap": held_gap,
+                      **{k: {kk: v[kk] for kk in ("seconds_per_sweep", "loss_per_sweep")}
+                         for k, v in held.items()}}
+    return {"runs": summary, "launches": launches, "checks": checks, "train": train,
+            "dataset": ds, "resident": base["result"].model}
+
+
+def _search_refresh(torch, np, seed: int, dev, card: str, flagship: dict, tmp: Path) -> dict:
+    """18(c): an incremental refresh of 18(a)'s unscheduled model."""
+    from photon_ml_torch.algorithm import coordinates
+    from photon_ml_torch.algorithm.refresh import (
+        RefreshFingerprintError,
+        RefreshPolicy,
+        expected_fingerprint,
+    )
+    from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+    from photon_ml_torch.ops import packed_glm
+
+    train, resident, old_ds = flagship["train"], flagship["resident"], flagship["dataset"]
+    rng = np.random.default_rng(seed + 18)
+    vocab = np.asarray(old_ds.entity_vocabs["user"])
+    changed = rng.choice(vocab, size=SEARCH["refresh_users"], replace=False)
+    rows = np.isin(train["keys"]["user"], changed)
+    labels = train["labels"]["LOGISTIC_REGRESSION"].copy()
+    labels[rows] = (rng.uniform(size=int(rows.sum())) < 0.5).astype(labels.dtype)
+    new = dict(train, labels=dict(train["labels"], LOGISTIC_REGRESSION=labels))
+    ds = _game_dataset(new, "LOGISTIC_REGRESSION", dev, vocabs=old_ds.entity_vocabs)
+    est = _search_estimator(GAME["flagship"]["sweeps"])
+    policy = RefreshPolicy(changed_entities={"user": changed.tolist()})
+
+    selections: dict = {}
+    set_selection = coordinates.RandomEffectCoordinate.set_refresh_selection
+
+    def recorded(coord, selected):
+        if selected is not None:
+            selections[coord.coordinate_id] = np.asarray(selected).copy()
+        return set_selection(coord, selected)
+
+    coordinates.RandomEffectCoordinate.set_refresh_selection = recorded
+    try:
+        est.refresh(ds, resident, policy)  # warm-up outside the times
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = est.refresh(ds, resident, policy)
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t0
+    finally:
+        coordinates.RandomEffectCoordinate.set_refresh_selection = set_selection
+    for cid, mask in selections.items():
+        old = resident.get(cid).coefficients
+        got = result.model.get(cid).coefficients
+        keep = torch.as_tensor(~mask, device=old.device)
+        assert torch.equal(old[keep], got[keep]), f"18c {cid}: an unselected row moved"
+    declared = np.isin(vocab, changed)
+    assert selections["per_user"][declared].all(), "18c: a declared user was not selected"
+    extra = {"per_user": int(selections["per_user"].sum()) - int(declared.sum()),
+             "per_item": int(selections["per_item"].sum())}
+    before, after = _logistic_loss(torch, resident, ds), _logistic_loss(torch, result.model, ds)
+    assert after <= before, f"18c: the refresh raised the loss on the new data {before} -> {after}"
+
+    # stopped after its first coordinate and resumed
+    seq = list(est.coordinate_configs)
+    fingerprint = expected_fingerprint(ds, est.coordinate_configs, seq, {"per_user": 1.0})
+    ck = TrainingCheckpointer(tmp / "refresh-ck")
+    update = coordinates.RandomEffectCoordinate.update_model
+
+    def stop(coord, *args, **kw):
+        if coord.coordinate_id == "per_item":
+            raise KeyboardInterrupt("stopped after the first random effect")
+        return update(coord, *args, **kw)
+
+    coordinates.RandomEffectCoordinate.update_model = stop
+    try:
+        est.refresh(ds, resident, policy, checkpointer=ck, fingerprint=fingerprint)
+        raise AssertionError("18c: the stopped refresh ran to its end")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        coordinates.RandomEffectCoordinate.update_model = update
+    resumed = est.refresh(ds, resident, policy, checkpointer=ck, fingerprint=fingerprint).model
+    assert _models_equal(resumed, result.model), "18c: the resumed refresh is not bitwise"
+    other = expected_fingerprint(ds, est.coordinate_configs, seq, {"per_user": 3.0})
+    try:
+        est.refresh(ds, resident, policy, checkpointer=ck, fingerprint=other)
+        raise AssertionError("18c: a checkpoint under another λ was accepted")
+    except RefreshFingerprintError as err:
+        assert "per_user/lambda" in str(err), err
+
+    # the fixed effect refreshed too: P6 on the refresh's path
+    before_p6 = packed_glm.packed_launches
+    with_fe = est.refresh(ds, resident, RefreshPolicy(changed_entities=policy.changed_entities,
+                                                      refresh_fixed_effects=True))
+    p6 = packed_glm.packed_launches - before_p6
+    assert p6 > 0 and with_fe.coordinate_stats["fixed"]["refreshed"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(ds)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    out = {"refresh_seconds": refresh_s, "fit_seconds": fit_s, "ratio": refresh_s / fit_s,
+           "lanes_total": result.lanes_total, "lanes_solved": result.lanes_solved,
+           "lanes_changed": result.lanes_changed, "lanes_gradient": result.lanes_gradient,
+           "screen_added": extra, "loss_before": before, "loss_after": after,
+           "rescue_blocks": {c: s.get("rescue_blocks", 0)
+                             for c, s in result.coordinate_stats.items()},
+           "p6_launches": p6}
+    _log(f"18c refresh ({card}): {json.dumps(out)}")
+    return out
+
+
+def _search_program(scheduled: bool, mesh=None):
+    """Phase 13's flagship program on its Avro columns (``_fused_program``,
+    FE + per-user: L-BFGS on the fixed effect, AUTO lanes, that is Newton,
+    on the per-user effect), the per-user lanes probe/rescue scheduled when
+    ``scheduled``."""
+    from photon_ml_torch.optim.optimizer import LaneSchedulerConfig, OptimizerConfig, OptimizerType
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.types import TaskType
+
+    lanes = OptimizerConfig(OptimizerType.AUTO, max_iterations=10,
+                            scheduler=LaneSchedulerConfig(probe_iterations=SEARCH["probe"])
+                            if scheduled else None)
+    return dist.GameTrainProgram(
+        TaskType.LOGISTIC_REGRESSION,
+        dist.FixedEffectStepSpec("global", OptimizerConfig(OptimizerType.LBFGS,
+                                                           max_iterations=10), l2_weight=1.0),
+        (dist.RandomEffectStepSpec("userId", "per_entity", lanes, l2_weight=1.0),), mesh=mesh)
+
+
+def _search_rank_main(rank: int, world: int, tmp: str, device_type: str, device_index: int,
+                      job: dict) -> None:
+    """One rank of 18(b)'s two: a partitioned read of the flagship Avro and
+    ``train_partitioned`` with this rank's lane schedulers; writes its report
+    and state into ``tmp``. A module function, so a spawned process runs it."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from photon_ml_torch import convert
+    from photon_ml_torch.algorithm.lane_scheduler import make_schedulers
+    from photon_ml_torch.data.game_data import build_random_effect_dataset_partitioned
+    from photon_ml_torch.io.partitioned_reader import read_partitioned
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.parallel import mesh as mesh_ops
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.parallel.mesh import make_mesh
+
+    try:
+        dev = torch.device(device_type, device_index) if device_type == "cuda" \
+            else torch.device(device_type)
+        multihost.initialize(f"file://{tmp}/rendezvous", world, rank, local_rank=device_index,
+                             device=dev, backend="gloo",
+                             timeout=datetime.timedelta(seconds=SEARCH["rank_timeout_s"]))
+        mesh = make_mesh()
+        ex = multihost.default_exchange()
+        part = read_partitioned(job["train"], _partitioned_cfg("flagship"), exchange=ex,
+                                random_effect_id_columns=("userId",), tag="search", device=dev)
+        res = {"userId": build_random_effect_dataset_partitioned(
+            part.result.dataset, "userId", "per_entity", partition=part.partition, exchange=ex,
+            bucket_sizes=(GAME["cap"],),
+            entity_rank_presence=part.entity_rank_presence.get("userId"), tag="search/user")}
+        program = _search_program(True, mesh)
+        schedulers = make_schedulers(program.re_specs)
+        fused_glm.launches = fused_glm.reduce_launches = 0
+        mesh_ops.counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = dist.train_partitioned(program, {rank: (part.result.dataset, res)}, mesh, world,
+                                        num_iterations=job["sweeps"], exchange=ex,
+                                        schedulers=schedulers)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        flat = _flat_state(convert.train_state_to_numpy(result.state))
+        np.savez(Path(tmp) / f"search-state-{rank}.npz", **flat)
+        out = {"losses": result.losses, "seconds": seconds,
+               "collectives": mesh_ops.counts.snapshot(),
+               "launches": {"fused_glm": fused_glm.launches,
+                            "fused_glm_reduce": fused_glm.reduce_launches},
+               "scheduler": {k: dataclasses.asdict(v.total_stats)
+                             for k, v in schedulers.items()},
+               "rows": part.partition.local_n}
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out, default=float))
+    finally:
+        multihost.shutdown()
+
+
+def _search_fused(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """18(b): the scheduled fused program on two ranks and, while they run,
+    on one device."""
+    from photon_ml_torch import convert
+    from photon_ml_torch.data.game_data import build_random_effect_dataset
+    from photon_ml_torch.io.data_reader import read_merged
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.parallel import distributed as dist
+
+    avro = _flagship_avro(np, seed, tmp)
+    sweeps = GAME["flagship"]["sweeps"]
+    two_cards = torch.cuda.device_count() >= 2
+    ranks_dir = tmp / "search-ranks"
+    ranks_dir.mkdir(parents=True, exist_ok=True)
+    job = {"train": str(avro["train"]), "sweeps": sweeps}
+    ctx = _processes()
+    procs = [ctx.Process(target=_search_rank_main,
+                         args=(r, 2, str(ranks_dir), dev.type, r if two_cards else 0, job))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        full = read_merged(avro["train"], _partitioned_cfg("flagship"),
+                           random_effect_id_columns=("userId",), device=dev).dataset
+        res = {"userId": build_random_effect_dataset(full, "userId", "per_entity",
+                                                     bucket_sizes=(GAME["cap"],))}
+        program = _search_program(True)
+        fused_glm.launches = fused_glm.reduce_launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one = dist.train_distributed(program, full, res, num_iterations=sweeps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = {"fused_glm": fused_glm.launches,
+                    "fused_glm_reduce": fused_glm.reduce_launches}
+        assert all(v > 0 for v in launches.values()), launches
+        assert all(b <= a * (1 + 1e-5) for a, b in zip(one.losses, one.losses[1:])), one.losses
+        data, _ = program.prepare_inputs(full, res)
+        checks = _mesh_b1_checks(torch, "18b the scheduled step's fixed effect", program, data,
+                                 one.state)
+        flat_one = _flat_state(convert.train_state_to_numpy(one.state))
+        del data, full, res
+    finally:
+        for p in procs:
+            p.join(SEARCH["rank_timeout_s"])
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(30)
+    assert not alive and all(p.exitcode == 0 for p in procs), \
+        ("18b ranks", [p.exitcode for p in procs])
+    ranks_s = time.perf_counter() - t0
+    reports = [json.loads((ranks_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    states = [dict(np.load(ranks_dir / f"search-state-{r}.npz")) for r in range(2)]
+    assert reports[0]["losses"] == reports[1]["losses"], "18b: the ranks' losses differ"
+    gap, scale, _ = _state_gap(np, states[0], flat_one)
+    assert gap <= 1e-3 * scale, f"18b: two ranks {gap} from one device (max |w| {scale})"
+    for k in ("fused_glm", "fused_glm_reduce"):
+        launches[k] += sum(r["launches"][k] for r in reports)
+    out = {"one_device_seconds_per_sweep": seconds / sweeps, "one_device_losses": one.losses,
+           "two_ranks_losses": reports[0]["losses"], "state_gap": gap, "state_scale": scale,
+           "collectives_per_sweep": {op: {k: v / sweeps for k, v in c.items()}
+                                     for op, c in reports[0]["collectives"].items()},
+           "two_ranks_seconds_per_sweep": reports[0]["seconds"] / sweeps,
+           "ranks_wall_seconds": ranks_s,
+           "scheduler": [r["scheduler"] for r in reports]}
+    _log(f"18b fused program ({card}): {json.dumps(out)}")
+    return {"summary": out, "launches": launches, "checks": checks}
+
+
+def _search_grid(torch, np, seed: int, dev, card: str) -> dict:
+    """18(d) dense and 18(e)'s tournament and model search on phase 4's
+    problem."""
+    from photon_ml_torch.algorithm.lane_search import LaneConfigs
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.estimators import train_glm, train_glm_grid, train_glm_tournament
+    from photon_ml_torch.hyperparameter.search_driver import parse_search_space, run_model_search
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.ops.normalization import (
+        NormalizationContext,
+        NormalizationType,
+        build_normalization,
+    )
+    from photon_ml_torch.optim.common import ConvergenceReason
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.types import TaskType
+
+    (n, d), held = SEARCH["dense"], SEARCH["held_out"]
+    x_np, y_np = _dataset(np, seed, n + held, d)
+    batch = LabeledPointBatch.create(x_np[:n], y_np[:n], device=dev)
+    val = LabeledPointBatch.create(x_np[n:], y_np[n:], device=dev)
+    del x_np
+    xd = batch.features.double()
+    norm = build_normalization(NormalizationType.STANDARDIZATION, mean=xd.mean(0),
+                               variance=xd.var(0), max_magnitude=xd.abs().amax(0),
+                               intercept_index=d - 1)
+    norm = NormalizationContext(norm.factors.float(), norm.shifts.float())
+    del xd
+    task = TaskType.LOGISTIC_REGRESSION
+    lams = np.logspace(-2, 2, SEARCH["grid_lambdas"])
+    common = dict(normalization=norm, intercept_index=d - 1)
+    budget = OptimizerConfig(OptimizerType.LBFGS, max_iterations=SEARCH["grid_budget"])
+    full = OptimizerConfig(OptimizerType.LBFGS, max_iterations=100)
+    max_iter = int(ConvergenceReason.MAX_ITERATIONS)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    timed(lambda: train_glm_grid(batch, task, optimizer=budget, regularization_weights=lams,
+                                 **common))  # warm-up
+    uniform = LaneConfigs(l2=lams, l1=np.zeros(len(lams)),
+                          tolerance=np.full(len(lams), budget.tolerance))
+    out: dict = {"lambdas": lams.tolist(), "runs": {}}
+    b1_before = fused_glm.launches
+    for label, opt in (("budget 20", budget), ("to the stopping tests", full)):
+        grid, grid_s = timed(lambda: train_glm_grid(batch, task, optimizer=opt,
+                                                    regularization_weights=lams, **common))
+        tour = train_glm_tournament(batch, task, uniform, optimizer=opt, **common)
+        for lam, model in zip(lams, tour.models):
+            assert torch.equal(model.coefficients.means, grid[float(lam)].coefficients.means), \
+                f"18e: the uniform tournament is not bitwise the grid at λ={lam}"
+        cold, cold_s = {}, 0.0
+        for lam in lams:
+            solved = {}
+            m, s = timed(lambda: train_glm(batch, task, optimizer=opt,
+                                           regularization_weights=(float(lam),),
+                                           on_solve=lambda l_, r_: solved.update(r=r_),
+                                           **common))
+            cold[float(lam)] = (m[float(lam)], solved["r"])
+            cold_s += s
+        rows = []
+        for i, lam in enumerate(lams):
+            model, result = cold[float(lam)]
+            reasons = (int(tour.results.reason[i]), int(result.reason))
+            wg = grid[float(lam)].coefficients.means.double()
+            wc = model.coefficients.means.double()
+            coef_gap = float((wg - wc).abs().max() / wc.abs().max())
+            value_gap = _rel_gap(float(tour.results.value[i]), float(result.value))
+            rows.append({"lambda": float(lam), "reasons": reasons,
+                         "iterations": (int(tour.results.iterations[i]), int(result.iterations)),
+                         "coef_gap": coef_gap, "value_gap": value_gap})
+            if reasons == (max_iter, max_iter):
+                assert coef_gap <= 1e-3, f"18d {label} λ={lam}: coefficients {coef_gap} apart"
+            else:
+                assert value_gap <= 1e-6, f"18d {label} λ={lam}: final values {value_gap} apart"
+        run = {"grid_seconds": grid_s, "cold_seconds": cold_s, "lanes": rows}
+        if opt is budget:
+            _, run["warm_sequential_seconds"] = timed(lambda: train_glm(
+                batch, task, optimizer=opt, regularization_weights=lams, **common))
+        out["runs"][label] = run
+        _log(f"18d dense grid, {label} ({card}): {json.dumps(run)}")
+    b1 = fused_glm.launches - b1_before
+    enet, enet_s = timed(lambda: train_glm_grid(batch, task, optimizer=budget,
+                                                regularization_weights=lams,
+                                                elastic_net_alpha=0.5, **common))
+    var, var_s = timed(lambda: train_glm_grid(batch, task, optimizer=budget,
+                                              regularization_weights=lams, compute_variance=True,
+                                              variance_mode="diagonal", **common))
+    for lam in lams:
+        assert bool(torch.isfinite(enet[float(lam)].coefficients.means).all())
+        v = var[float(lam)].coefficients.variances
+        assert bool(torch.isfinite(v).all()) and bool((v > 0).all()), "18d: variances"
+    zeros = [int((enet[float(lam)].coefficients.means == 0).sum()) for lam in lams]
+    out.update(elastic_net_seconds=enet_s, elastic_net_zeros=zeros, variances_seconds=var_s)
+    _log(f"18d elastic-net grid (OWL-QN lanes) {enet_s:.3f} s, zeros per lane {zeros}; "
+         f"diagonal variances grid {var_s:.3f} s")
+
+    # 18e: the GP model search, its AUC on the held-out rows reduced on the device
+    space = parse_search_space("lambda=1e-3:1e3:log,tolerance=1e-9:1e-5:log")
+    search, search_s = timed(lambda: run_model_search(
+        batch, val, task, space, rounds=SEARCH["search_rounds"],
+        lane_budget=SEARCH["search_lanes"],
+        optimizer=OptimizerConfig(OptimizerType.LBFGS, max_iterations=SEARCH["grid_budget"],
+                                  rel_function_tolerance=1e-6),
+        seed=0, searcher="gp", evaluator="AUC", **common))
+    best = [r["best_metric"] for r in search.trajectory]
+    assert all(b2 >= b1_ for b1_, b2 in zip(best, best[1:])) and best[-1] > 0.6, best
+    out["search"] = {"seconds": search_s, "round_ms": [r["round_ms"] for r in search.trajectory],
+                     "best_auc": best, "sources": [r["source"] for r in search.trajectory],
+                     "best_config": search.best_config}
+    _log(f"18e model search ({card}): {json.dumps(out['search'])}")
+    return {"summary": out, "launches": {"fused_glm": b1, "fused_glm_reduce": b1}}
+
+
+def _search_ell(torch, np, seed: int, dev):
+    """Phase 5's scaled ELL batch (kept by phase 5, else built here)."""
+    if "ell" in _SHARED:
+        return _SHARED["ell"]
+    from photon_ml_torch.data.sparse_batch import SparseLabeledPointBatch, summarize_sparse
+    from photon_ml_torch.ops.normalization import NormalizationType, build_normalization
+
+    cfg = SPARSE["ell"]
+    (rows, cols, vals, y), _ = _planted_ell_data(np, seed, cfg["n"], cfg["d"], cfg["per_row"], 0)
+    ell = SparseLabeledPointBatch.from_coo(rows, cols, vals, y, dim=cfg["d"], device=dev)
+    stats = summarize_sparse(rows, cols, vals, n=cfg["n"], dim=cfg["d"])
+    stat = {k: torch.as_tensor(stats[k], dtype=torch.float32, device=dev)
+            for k in ("mean", "variance", "max_magnitude")}
+    return ell, build_normalization(NormalizationType.SCALE_WITH_STANDARD_DEVIATION, **stat)
+
+
+def _search_sparse(torch, np, seed: int, dev, card: str) -> dict:
+    """18(d) sparse: the λ lanes on phase 5's ELL, scaled (G1's launches
+    counted, G1 held on the lanes' inputs) and unscaled. Each lane is held to
+    ``train_glm`` at its λ under the same budget: the unscaled lanes in f32
+    through G1, the scaled ones in f64 through the plain gathers (G1 takes
+    f32 and bf16). Scaled by their deviations the columns seen once or twice
+    fit the rows alone (phase 5): two f32 paths part there after 20
+    iterations, and the f32 lanes' gaps to the f64 ones are printed."""
+    from photon_ml_torch.algorithm import lane_search
+    from photon_ml_torch.estimators import train_glm, train_glm_grid
+    from photon_ml_torch.ops.normalization import NormalizationContext
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.types import TaskType
+
+    ell, scale = _search_ell(torch, np, seed, dev)
+    lams = SEARCH["sparse_lambdas"]
+    budget = OptimizerConfig(OptimizerType.LBFGS, max_iterations=SEARCH["grid_budget"])
+    task = TaskType.LOGISTIC_REGRESSION
+    out: dict = {"history_bytes": 2 * budget.history * len(lams) * ell.dim * 4}
+    launches = {"sparse_gather": 0, "sparse_gather_chunks": 0}
+    grids = {}
+    for label, norm in (("scaled", scale), ("unscaled", None)):
+        _reset_gather_counts()
+        evals = lane_search.lane_evaluations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = train_glm_grid(ell, task, optimizer=budget, regularization_weights=lams,
+                              normalization=norm)
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        counts = _gather_counts()
+        evals = lane_search.lane_evaluations - evals
+        assert counts["rows"] == counts["segments"] == len(lams) * evals > 0, (counts, evals)
+        cold_s, gaps = 0.0, {}
+        for lam in lams:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cold = train_glm(ell, task, optimizer=budget, regularization_weights=(lam,),
+                             normalization=norm)[lam].coefficients.means.double()
+            torch.cuda.synchronize()
+            cold_s += time.perf_counter() - t0
+            wg = grid[lam].coefficients.means.double()
+            gaps[lam] = float((wg - cold).abs().max() / cold.abs().max())
+        after = _gather_counts()
+        launches["sparse_gather"] += after["rows"] + after["segments"]
+        launches["sparse_gather_chunks"] += after["chunks"]
+        out[label] = {"grid_seconds": grid_s, "cold_seconds": cold_s, "evaluations": evals,
+                      "row_launches": counts["rows"], "segment_launches": counts["segments"],
+                      "coef_gaps": gaps}
+        grids[label] = grid
+        _log(f"18d sparse grid, {label} ELL [{ell.num_samples}, d={ell.dim}] ({card}): "
+             f"{json.dumps(out[label])}")
+    for lam, gap in out["unscaled"]["coef_gaps"].items():
+        assert gap <= 1e-3, f"18d sparse λ={lam}: the lane is {gap} from train_glm"
+    # the scaled grid in f64 (the same values, exactly widened)
+    ell64 = ell.replace(**{f.name: getattr(ell, f.name).double()
+                           for f in dataclasses.fields(ell)
+                           if isinstance(getattr(ell, f.name), torch.Tensor)
+                           and getattr(ell, f.name).is_floating_point()})
+    scale64 = NormalizationContext(*(None if t is None else t.double()
+                                     for t in (scale.factors, scale.shifts)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid64 = train_glm_grid(ell64, task, optimizer=budget, regularization_weights=lams,
+                            normalization=scale64, use_kernel=False)
+    torch.cuda.synchronize()
+    f64 = {"grid_seconds": time.perf_counter() - t0, "coef_gaps": {}, "f32_lane_gaps": {}}
+    for lam in lams:
+        cold = train_glm(ell64, task, optimizer=budget, regularization_weights=(lam,),
+                         normalization=scale64, use_kernel=False)[lam].coefficients.means
+        wg = grid64[lam].coefficients.means
+        f64["coef_gaps"][lam] = float((wg - cold).abs().max() / cold.abs().max())
+        f64["f32_lane_gaps"][lam] = float(
+            (grids["scaled"][lam].coefficients.means.double() - wg).abs().max()
+            / wg.abs().max())
+    del ell64, grid64
+    out["scaled_f64"] = f64
+    _log(f"18d sparse grid, scaled ELL in f64, plain gathers ({card}): {json.dumps(f64)}")
+    for lam, gap in f64["coef_gaps"].items():
+        assert gap <= 1e-3, f"18d sparse scaled λ={lam}: the f64 lane is {gap} from train_glm"
+    checks = _fe_gather_checks(torch, "18d sparse grid lane", ell,
+                               grids["scaled"][lams[0]].coefficients.means)
+    _log(f"18d sparse lanes' L-BFGS history: {out['history_bytes']} bytes (2·m·L·d·4)")
+    return {"summary": out, "launches": launches, "checks": checks}
+
+
+def _search_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """18(e) drivers: the GLM driver's grid lanes and model search, the GAME
+    driver's tuning and refresh, on phase 8's cut rows."""
+    from photon_ml_torch.cli import game_training_driver, glm_driver
+    from photon_ml_torch.io import photon_schemas
+    from photon_ml_torch.ops import fused_glm, packed_glm
+
+    cfg = DRIVERS
+    src = _SHARED.get("drivers_avro", tmp)  # phase 8's GLM and GAME Avro
+    if "drivers_avro" not in _SHARED:
+        ng, ngv, dg = cfg["glm_rows"], cfg["glm_validation_rows"], cfg["glm_d"]
+        x, y = _dataset(np, seed + 4, ng + ngv, dg)
+        xl, yl = x[:, :-1].tolist(), y.tolist()
+
+        def glm_record(offset):
+            return lambda i: {"uid": str(offset + i), "label": yl[offset + i],
+                              "features": _ntv("f", xl[offset + i]), "weight": 1.0,
+                              "offset": 0.0, "foldId": None, "metadataMap": None}
+
+        te = photon_schemas.TRAINING_EXAMPLE_AVRO
+        _write_avro(tmp / "glm/train/part-00000.avro", te, ng, glm_record(0))
+        _write_avro(tmp / "glm/validation/part-00000.avro", te, ngv, glm_record(ng))
+        n, nv = cfg["game_rows"], cfg["validation_rows"]
+        train, held = _game_arrays(np, seed + 3, n=n, d_fe=cfg["d_fe"], d_re=cfg["d_re"],
+                                   users=cfg["users"], items=cfg["items"], held_out=nv)
+        jobs = _game_parts(train, tmp / "game/train", 0, 2) \
+            + _game_parts(held, tmp / "game/validation", n, 1)
+        with _processes().Pool(len(jobs)) as pool:
+            pool.map(_write_game_part, jobs)
+        del x, y, xl, yl, train, held
+    out = tmp / "out"
+    fused_glm.launches = fused_glm.reduce_launches = 0
+    for name in ("packed_launches", "mma_launches", "columns_launches", "reduce_launches"):
+        setattr(packed_glm, name, 0)
+    glm_args = ["--input-data-path", str(src / "glm/train"),
+                "--validation-data-path", str(src / "glm/validation"),
+                "--task-type", "LOGISTIC_REGRESSION", "--max-iterations",
+                str(SEARCH["driver_budget"])]
+    lams = ",".join(str(l) for l in SEARCH["glm_lambdas"])
+    t0 = time.perf_counter()
+    grid = glm_driver.main(glm_args + ["--output-dir", str(out / "glm-grid"),
+                                       "--regularization-weights", lams, "--grid-parallel"],
+                           device=dev)
+    grid_s = time.perf_counter() - t0
+    gaps = {}
+    for lam in SEARCH["glm_lambdas"]:
+        cold = glm_driver.main(glm_args + ["--output-dir", str(out / f"glm-cold-{lam}"),
+                                           "--regularization-weights", str(lam)], device=dev)
+        wc = cold.models[lam].coefficients.means.double()
+        wg = grid.models[lam].coefficients.means.double()
+        gaps[lam] = float((wg - wc).abs().max() / wc.abs().max())
+    t0 = time.perf_counter()
+    search = glm_driver.main(glm_args + [
+        "--output-dir", str(out / "glm-search"), "--search-rounds", "2",
+        "--search-lane-budget", str(SEARCH["search_lanes"]),
+        "--search-space", "lambda=1e-2:1e2:log,tolerance=1e-9:1e-5:log"], device=dev)
+    search_s = time.perf_counter() - t0
+    summary = json.loads(Path(search.summary_path).read_text())
+    assert summary["search"]["configs"] == 2 * SEARCH["search_lanes"]
+    assert grid.stage.name == search.stage.name == "VALIDATED"
+
+    shards = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",
+              "--feature-shard-configurations",
+              "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+    re_spec = "feature.shard=per_entity,reg.weights=1,max.iter=20,random.effect.type="
+    game_args = ["--input-data-path", str(src / "game/train"), "--task-type",
+                 "LOGISTIC_REGRESSION", *shards,
+                 "--coordinate-configurations", "name=fixed,feature.shard=global,reg.weights=1,"
+                                                "max.iter=10",
+                 "--coordinate-configurations", f"name=per_user,{re_spec}userId,scheduler=true",
+                 "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+                 "--coordinate-descent-iterations", "2"]
+    t0 = time.perf_counter()
+    tuned = game_training_driver.main(game_args + [
+        "--validation-data-path", str(src / "game/validation"), "--evaluators", "AUC",
+        "--root-output-dir", str(out / "game-tuned"), "--hyperparameter-tuning", "BAYESIAN",
+        "--hyperparameter-tuning-iter", "3", "--hyperparameter-tuning-range", "0.1,10"],
+        device=dev)
+    tune_s = time.perf_counter() - t0
+    tuned_file = json.loads((out / "game-tuned/tuned-hyperparameters.json").read_text())
+    keys = ["best_reg_weights", "best_value", "observations", "prior_observations"]
+    assert sorted(tuned_file) == keys, sorted(tuned_file)
+    assert "tuned_reg_weights" in tuned
+    t0 = time.perf_counter()
+    refreshed = game_training_driver.main(game_args + [
+        "--root-output-dir", str(out / "game-refresh"), "--incremental-refresh",
+        "--model-input-dir", str(out / "game-tuned/models/0"),
+        "--index-maps-dir", str(out / "game-tuned/index-maps"),
+        "--refresh-changed-entities", "userId=u1|u2|u3"], device=dev)
+    refresh_s = time.perf_counter() - t0
+    evidence = refreshed["incremental_refresh"]
+    assert evidence["lanes_changed"] == 3 and evidence["lanes_solved"] >= 3, evidence
+    launches = {"fused_glm": fused_glm.launches, "fused_glm_reduce": fused_glm.reduce_launches,
+                "packed_glm": packed_glm.packed_launches - packed_glm.mma_launches,
+                "packed_glm_reduce": packed_glm.reduce_launches}
+    out = {"glm_grid_seconds": grid_s, "glm_grid_gaps_to_cold_runs": gaps,
+           "glm_search_seconds": search_s, "glm_search": summary["search"],
+           "game_tuning_seconds": tune_s, "tuned_reg_weights": tuned["tuned_reg_weights"],
+           "game_refresh_seconds": refresh_s, "refresh": evidence, "launches": launches}
+    _log(f"18e drivers ({card}): {json.dumps(out, default=float)}")
+    for lam, gap in gaps.items():
+        assert gap <= 1e-3, f"18e: --grid-parallel λ={lam} {gap} from the cold driver run"
+    return {"summary": out, "launches": launches}
+
+
+def _search_stream(torch, np, seed: int, dev, card: str) -> dict:
+    """18(f): phase 16(a)'s streamed layout over the flagship's 2^17 rows,
+    per-user scheduled against unscheduled, the final losses within 1e-5 rel."""
+    from photon_ml_torch.algorithm.streaming_game import StreamingGameProgram
+    from photon_ml_torch.io.stream_reader import GameArrayChunkSource
+    from photon_ml_torch.optim.optimizer import (
+        LaneSchedulerConfig,
+        OptimizerConfig,
+        OptimizerType,
+    )
+    from photon_ml_torch.parallel import distributed as dist
+    from photon_ml_torch.types import TaskType
+
+    cfg = STREAM_GAME
+    # the flagship's rows uncut: at phase 16's half depth the scheduled f32
+    # run's final loss parts from the unscheduled one's by more than 1e-5
+    # (1.3e-5 on the CPU; 2.3e-6 there at these rows)
+    train, _, user_idx = _sg_flagship(np, seed, GAME["flagship"]["n"])
+    sweeps = SEARCH["stream_sweeps"]
+    runs = {}
+    source = GameArrayChunkSource(
+        features={"global": train["x_fe"], "per_entity": train["x_re"]},
+        labels=train["labels"]["LOGISTIC_REGRESSION"], entity_idx={"user": user_idx},
+        chunk_records=cfg["chunk"], cluster_by="user")
+    for label, sched in (("unscheduled", None),
+                         ("probe/rescue", LaneSchedulerConfig(probe_iterations=SEARCH["probe"]))):
+        lanes = OptimizerConfig(OptimizerType.LBFGS, max_iterations=SEARCH["lane_iterations"],
+                                rel_function_tolerance=1e-6, scheduler=sched)
+        fe = dist.FixedEffectStepSpec("global", OptimizerConfig(
+            OptimizerType.LBFGS, max_iterations=cfg["fe_iterations"], tolerance=0.0),
+            l2_weight=1.0)
+        program = StreamingGameProgram(
+            TaskType.LOGISTIC_REGRESSION, source, fe,
+            (dist.RandomEffectStepSpec("user", "per_entity", lanes, l2_weight=1.0),),
+            bucket_sizes=(GAME["cap"],), device=dev)
+        run = _sg_run(torch, program, f"18f {label}", sweeps)
+        losses = run["result"].losses
+        assert len(losses) == sweeps and all(math.isfinite(v) for v in losses), losses
+        stats = [dataclasses.asdict(s.total_stats) for s in program._lane_schedulers.values()]
+        runs[label] = {"seconds": run["seconds"], "losses": losses, "chunks": source.num_chunks,
+                       "launches": run["launches"],
+                       "split": {k: v / sweeps for k, v in run["timings"].items()
+                                 if k in ("fe_solve", "re_solve", "re_load", "fe_refresh",
+                                          "loss")},
+                       "rescued_per_chunk": (sum(s["lanes_rescued"] for s in stats)
+                                             / len(stats) / sweeps) if stats else None}
+        _log(f"18f streamed {label} ({card}): "
+             + json.dumps({k: v for k, v in runs[label].items() if k != "launches"}))
+    gap = _rel_gap(runs["probe/rescue"]["losses"][-1], runs["unscheduled"]["losses"][-1])
+    assert gap <= 1e-5, f"18f: scheduled final loss {gap} rel from unscheduled (limit 1e-5)"
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("fused_glm", "fused_glm_reduce")}
+    assert all(v > 0 for v in launches.values()), launches
+    return {"summary": dict(runs, final_loss_gap=gap),
+            "launches": launches}
+
+
+def _search_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 18, search and scheduling, printing as it goes. Returns, for
+    each kernel this path runs, its launches here and its checks on the
+    path's own inputs (P6 on 18(a)'s scheduled fit, B1 and its reduce on
+    18(b)'s scheduled step, G1 on 18(d)'s sparse lanes)."""
+    t_phase = time.perf_counter()
+    base = Path(tempfile.mkdtemp(prefix="search-", dir=Path(__file__).resolve().parent / "build"))
+    times: dict = {}
+    try:
+        t0 = time.perf_counter()
+        flagship = _search_flagship(torch, np, seed, dev, card)
+        times["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused = _search_fused(torch, np, seed, dev, card, base)
+        times["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        refresh = _search_refresh(torch, np, seed, dev, card, flagship, base)
+        times["c"] = time.perf_counter() - t0
+        flagship.pop("dataset")
+        flagship.pop("train")
+        flagship.pop("resident")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        grid = _search_grid(torch, np, seed, dev, card)
+        times["d dense, e search"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sparse = _search_sparse(torch, np, seed, dev, card)
+        times["d sparse"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        drivers = _search_drivers(torch, np, seed, dev, card, base)
+        times["e drivers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stream = _search_stream(torch, np, seed, dev, card)
+        times["f"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    path: dict = {}
+
+    def add(name, launches, **extra):
+        entry = path.setdefault(name, {"launches": 0})
+        entry["launches"] += launches
+        entry.update(extra)
+
+    add("packed_glm", flagship["launches"]["packed_glm"] + refresh["p6_launches"]
+        + drivers["launches"]["packed_glm"], **flagship["checks"]["packed_glm"])
+    add("packed_glm_reduce", flagship["launches"]["packed_glm_reduce"]
+        + drivers["launches"]["packed_glm_reduce"], **flagship["checks"]["packed_glm_reduce"])
+    for part in (fused, grid, drivers, stream):
+        for k in ("fused_glm", "fused_glm_reduce"):
+            add(k, part["launches"][k])
+    path["fused_glm"].update(fused["checks"]["fused_glm"])
+    path["fused_glm_reduce"].update(fused["checks"]["fused_glm_reduce"])
+    add("sparse_gather", sparse["launches"]["sparse_gather"], margins=sparse["checks"][0],
+        transpose=sparse["checks"][1])
+    add("sparse_gather_chunks", sparse["launches"]["sparse_gather_chunks"])
+    assert all(v["launches"] > 0 for v in path.values()), {k: v["launches"]
+                                                           for k, v in path.items()}
+    seconds = time.perf_counter() - t_phase
+    path["fused_glm"]["phase_seconds"] = seconds
+    path["fused_glm"]["search"] = {"a": flagship["runs"], "b": fused["summary"],
+                                   "c": refresh, "d_dense_e": grid["summary"],
+                                   "d_sparse": sparse["summary"], "e_drivers": drivers["summary"],
+                                   "f": stream["summary"]}
+    _log(f"18. search phase ({card}): {seconds:.2f} s ("
+         + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + ")")
+    return path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -8449,6 +9604,13 @@ def main(argv=None) -> int:
     from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
     from photon_ml_torch.types import TaskType
 
+    # the fork server every process of the script starts from, importing
+    # torch and the port's modules while the kernels build
+    from multiprocessing import forkserver
+
+    _processes()
+    forkserver.ensure_running()
+
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -8464,6 +9626,15 @@ def main(argv=None) -> int:
          f"d=512: f32 {fused_glm.tile_plan(512, torch.float32)}, bf16 "
          f"{fused_glm.tile_plan(512, torch.bfloat16)}; one pass to d=8192: "
          f"{fused_glm.tile_plan(8192, torch.float32)}")
+
+    # the files phases share (the Avro written in the background from here
+    # on, read from phase 8 on)
+    os.makedirs(Path(__file__).resolve().parent / "build", exist_ok=True)
+    shared = Path(tempfile.mkdtemp(prefix="shared-", dir=Path(__file__).resolve().parent
+                                   / "build"))
+    atexit.register(shutil.rmtree, shared, True)
+    _SHARED["dir"] = shared
+    _start_prewrites(np, args.seed)
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -8614,13 +9785,6 @@ def main(argv=None) -> int:
     _log(f"projected GAME phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in projected_path.items()}))
 
-    # the flagship's Avro, written once by phase 8 and read by phases 12 and 13
-    os.makedirs(Path(__file__).resolve().parent / "build", exist_ok=True)
-    shared = Path(tempfile.mkdtemp(prefix="shared-", dir=Path(__file__).resolve().parent
-                                   / "build"))
-    atexit.register(shutil.rmtree, shared, True)
-    _SHARED["dir"] = shared
-
     # 8. the drivers: each kernel of that path with its launches there, and
     # its check and times on that path's own inputs
     t0 = time.perf_counter()
@@ -8685,12 +9849,19 @@ def main(argv=None) -> int:
     serving_path = _serving_slice(torch, np, args.seed, dev, card)
     _log(f"serving phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in serving_path.items()}))
+    # 18. search and scheduling: the lane scheduler on the GAME paths, the
+    # refresh, the λ-grid and tournament lanes, the model search and the
+    # drivers' options; its launches and kernel checks as its own path
+    t0 = time.perf_counter()
+    search_path = _search_slice(torch, np, args.seed, dev, card)
+    _log(f"search phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in search_path.items()}))
     for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
                       ("sparse_game_path", sparse_game_path), ("mf_path", mf_path),
                       ("fused_path", fused_path), ("mesh_path", mesh_path),
                       ("partitioned_path", partitioned_path), ("model_path", model_path),
                       ("stream_path", stream_path), ("stream_game_path", stream_game_path),
-                      ("serving_path", serving_path)):
+                      ("serving_path", serving_path), ("search_path", search_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

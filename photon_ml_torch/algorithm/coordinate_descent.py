@@ -152,6 +152,10 @@ def run_coordinate_descent(
             if slot < start_slot:
                 coord.skip_update()  # done before the restored checkpoint
                 continue
+            if hasattr(coord, "set_sweep"):
+                # a lane-scheduled random effect's active set needs the final
+                # sweep, which runs every entity
+                coord.set_sweep(iteration, num_iterations)
             # partial score = everything except this coordinate
             partial = full_score() - scores[cid]
             model, info = coord.update_model(models[cid], partial)

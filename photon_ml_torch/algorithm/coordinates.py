@@ -456,6 +456,38 @@ class RandomEffectCoordinate(Coordinate):
     config: CoordinateOptimizationConfig
     normalization: NormalizationContext | None = None
     intercept_index: int | None = None
+    #: the probe/rescue lane scheduler (algorithm/lane_scheduler.py), made
+    #: at the first scheduled update and kept across sweeps (its active set)
+    _scheduler: object = dataclasses.field(default=None, init=False, repr=False)
+    #: (iteration, num_iterations) from the coordinate-descent loop: the
+    #: active set needs the final sweep, which runs everyone. None (a lone
+    #: update_model call) counts as final: nothing is skipped.
+    _sweep_context: tuple = dataclasses.field(default=None, init=False, repr=False)
+    #: bool [num_entities] refresh selection (algorithm/refresh.py): when
+    #: set, update_model re-solves only the selected entities' lanes and the
+    #: other rows carry over bitwise
+    _refresh_selection: object = dataclasses.field(default=None, init=False, repr=False)
+    #: SchedulerStats of the last refresh-selected solve
+    last_refresh_stats: object = dataclasses.field(default=None, init=False, repr=False)
+
+    def set_sweep(self, iteration: int, num_iterations: int) -> None:
+        """The coordinate-descent loop's sweep, set before each update."""
+        self._sweep_context = (iteration, num_iterations)
+
+    def set_refresh_selection(self, selected: "np.ndarray | None") -> None:
+        """Install (or clear, with None) the refresh's entity selection for
+        the next ``update_model``: the entity-granular counterpart of the
+        reference's locked coordinates (CoordinateDescent.scala:44-49)."""
+        if selected is None:
+            self._refresh_selection = None
+            return
+        selected = np.ascontiguousarray(selected, dtype=bool)
+        if selected.shape != (self.re_dataset.num_entities,):
+            raise ValueError(
+                f"refresh selection covers {selected.shape} but coordinate "
+                f"'{self.coordinate_id}' has "
+                f"{self.re_dataset.num_entities} entities")
+        self._refresh_selection = selected
 
     def initial_model(self) -> RandomEffectModel:
         re = self.re_dataset
@@ -537,13 +569,15 @@ class RandomEffectCoordinate(Coordinate):
         objective, projector, full_offsets, norm, compact_cols, table = self._prepare_solve(
             model, extra_offsets)
         opt = _solve_config(self.config, loss=objective.loss, small_dense=True)
-        if opt.scheduler is not None:
-            raise NotImplementedError(
-                "the lane scheduler (probe/rescue, cross-sweep freezing) is not ported yet: "
-                "ROADMAP.md item 18; drop OptimizerConfig.scheduler")
         buckets = self.re_dataset.buckets
         traces: list[LaneTrace] = []
-        if projector == ProjectorType.INDEX_MAP:
+        refresh_sel = self._refresh_selection
+        if refresh_sel is not None:
+            table, traces = self._solve_refresh(objective, opt, projector, full_offsets, table,
+                                                refresh_sel)
+        elif opt.scheduler is not None:
+            table, traces = self._solve_scheduled(objective, opt, projector, full_offsets, table)
+        elif projector == ProjectorType.INDEX_MAP:
             table_ext = _with_scratch_column(table)
             for b in buckets:
                 table_ext, trace = solve_entity_bucket_indexmap_traced(
@@ -571,8 +605,93 @@ class RandomEffectCoordinate(Coordinate):
                          else norm.variances_to_model_space_compact(var_table, compact_cols))
         table = (norm.to_model_space(table, self.intercept_index) if compact_cols is None
                  else norm.to_model_space_compact(table, compact_cols))
+        if refresh_sel is not None:
+            # unselected entities carry over bitwise: the compacted solve never
+            # wrote their rows, and this erases the normalization round trip;
+            # their variances carry over too, the selected ones' are fresh (or
+            # NaN when this refresh computed none)
+            sel = torch.as_tensor(refresh_sel, device=table.device).unsqueeze(1)
+            table = torch.where(sel, table, model.coefficients.to(table.dtype))
+            if variances is not None or model.variances is not None:
+                nans = torch.full_like(table, float("nan"))
+                variances = torch.where(
+                    sel, nans if variances is None else variances.to(table.dtype),
+                    nans if model.variances is None else model.variances.to(table.dtype))
         info = LaneTraces(traces) if traces else None
         return dataclasses.replace(model, coefficients=table, variances=variances), info
+
+    def _scheduler_blocks(self, projector) -> list[dict]:
+        """Bucket field dicts in the form the lane scheduler takes."""
+        return [{"features": b.features, "labels": b.labels, "weights": b.weights,
+                 "sample_rows": b.sample_rows, "entity_rows": b.entity_rows,
+                 **({"col_index": b.col_index} if projector == ProjectorType.INDEX_MAP else {})}
+                for b in self.re_dataset.buckets]
+
+    def _matrix_for(self, projector, table: torch.Tensor):
+        return self._projection_matrix(table) if projector == ProjectorType.RANDOM else None
+
+    def _solve_scheduled(self, objective, opt, projector, full_offsets, table):
+        """Probe/rescue (and cross-sweep active-set) solve of every bucket
+        (algorithm/lane_scheduler.py); returns (table, host traces)."""
+        from photon_ml_torch.algorithm.lane_scheduler import LaneScheduler
+
+        if self._scheduler is None or self._scheduler.config != opt.scheduler:
+            self._scheduler = LaneScheduler(opt.scheduler)
+        iteration, num_iterations = self._sweep_context or (0, 1)
+        table, traces, _stats = self._scheduler.solve(
+            objective, opt, self._scheduler_blocks(projector), full_offsets, table,
+            projector=projector, matrix=self._matrix_for(projector, table),
+            final_sweep=iteration >= num_iterations - 1)
+        return table, traces
+
+    def _solve_refresh(self, objective, opt, projector, full_offsets, table,
+                       selected: np.ndarray):
+        """The refresh's solve (algorithm/refresh.py): the scheduler's active
+        set chosen from outside. Only the selected entities' lanes are
+        compacted and solved, with the whole iteration budget (the probe is
+        the whole solve), warm-started from the incoming table; the other
+        rows are never written. A fresh scheduler each call."""
+        from photon_ml_torch.algorithm.lane_scheduler import LaneScheduler
+        from photon_ml_torch.optim.optimizer import LaneSchedulerConfig
+
+        base = dataclasses.replace(opt, scheduler=None)
+        scheduler = LaneScheduler(LaneSchedulerConfig(probe_iterations=base.max_iterations),
+                                  warn_no_live_stop=False)
+        scheduler.freeze_rows(~selected)
+        table, traces, stats = scheduler.solve(
+            objective, base, self._scheduler_blocks(projector), full_offsets, table,
+            projector=projector, matrix=self._matrix_for(projector, table), final_sweep=False)
+        self.last_refresh_stats = stats
+        return table, traces
+
+    def refresh_gradient_norms(self, model: RandomEffectModel,
+                               extra_offsets: torch.Tensor | None = None) -> np.ndarray:
+        """[num_entities] solve-space gradient norms of ``model`` at its own
+        coefficients, the refresh's screening signal: an entity whose data
+        changed since the resident solve has a gradient well above rounding
+        scale. One lane-batched gradient per bucket; entities in no bucket
+        give NaN."""
+        objective, projector, full_offsets, _norm, _cols, table = self._prepare_solve(
+            model, extra_offsets)
+        num_rows = int(table.shape[0])
+        out = np.full(num_rows, np.nan)
+        matrix = self._matrix_for(projector, table)
+        if projector == ProjectorType.INDEX_MAP:
+            table_ext = _with_scratch_column(table)
+        for b in self.re_dataset.buckets:
+            if projector == ProjectorType.INDEX_MAP:
+                w = _gather_cells(table_ext, b.entity_rows, b.col_index)
+            elif projector == ProjectorType.RANDOM:
+                w = _gather_rows(table, b.entity_rows) @ matrix
+            else:
+                w = _gather_rows(table, b.entity_rows)
+            lanes = _lane_objective(objective, b.features, b.labels, b.weights,
+                                    _bucket_offsets(b.sample_rows, full_offsets))
+            norms = torch.linalg.norm(lanes.value_and_grad(w)[1], dim=-1)
+            rows = b.entity_rows.cpu().numpy().astype(np.int64)
+            valid = (rows >= 0) & (rows < num_rows)
+            out[rows[valid]] = norms.cpu().numpy()[valid]
+        return out
 
     def _variances(self, objective, projector, full_offsets, table) -> torch.Tensor:
         """Solve-space variances at the solved table, NaN where none was

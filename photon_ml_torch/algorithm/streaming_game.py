@@ -39,8 +39,10 @@ granularity).
   the same per-chunk steps, so a resumed run continues bitwise.
 
 The JAX package's single-process multi-device ``mesh=`` has no counterpart:
-several ranks are several processes (``partition=``). The lane scheduler
-(ROADMAP.md item 18) and telemetry (19) are not ported.
+several ranks are several processes (``partition=``). A random-effect spec
+whose optimizer carries a lane scheduler solves each chunk's buckets through
+one ``algorithm/lane_scheduler.LaneScheduler`` per (RE type, chunk), kept
+across sweeps. Telemetry (ROADMAP.md item 19) is not ported.
 """
 
 from __future__ import annotations
@@ -389,11 +391,12 @@ class StreamingGameProgram:
                     f"streamed random-effect coordinate '{s.re_type}' uses projector "
                     f"{s.projector.name}; the streamed surface covers IDENTITY — train "
                     "projected coordinates in-core (train_distributed)")
-        for spec in (self.fe, *self.re_specs):
-            if spec.optimizer.scheduler is not None:
-                raise NotImplementedError(
-                    "the lane scheduler on a streamed GAME coordinate is not ported yet: "
-                    "ROADMAP.md item 18")
+        #: lane schedulers per (RE type, chunk): each chunk's buckets are a
+        #: compaction universe of their own, so each keeps its own state
+        self._lane_schedulers: dict = {}
+        #: whether the sweep running is the run's last (the schedulers'
+        #: active sets run everyone then)
+        self._final_sweep = True
         self.bucket_sizes = tuple(int(b) for b in sorted(bucket_sizes))
         self.num_entities = dict(num_entities or {})
         self.schedule = schedule
@@ -642,10 +645,13 @@ class StreamingGameProgram:
         self.timings["fe_bytes"] += t["bytes"]
         return result.coefficients
 
-    def _chunk_blocks(self, chunk: GameChunk, re_type: str, residual_local: np.ndarray):
+    def _chunk_blocks(self, chunk: GameChunk, re_type: str, residual_local: np.ndarray,
+                      sample_rows: bool = False):
         """The chunk's entity buckets, packed as ``build_random_effect_dataset``
         packs IDENTITY buckets, with lanes padded to a power of two.
-        ``residual_local``: the CD residual in chunk-local rows."""
+        ``residual_local``: the CD residual in chunk-local rows. With
+        ``sample_rows`` each block carries its slots' chunk-local rows (-1 on
+        padding) in place of the offsets, the lane scheduler's form."""
         s = self._re_by_name[re_type]
         idx = chunk.entity_idx[re_type]
         m = chunk.num_records
@@ -672,23 +678,61 @@ class StreamingGameProgram:
             bo[lane, slot] = residual_local[rows_concat]
             ents = np.full((e_pad,), num_rows, np.int32)  # out-of-range sentinel
             ents[:e] = be
-            blocks.append({"features": self._to_device(bf), "labels": self._to_device(bl),
-                           "weights": self._to_device(bw), "offsets": self._to_device(bo),
-                           "entity_rows": self._to_device(ents, torch.int32)})
+            block = {"features": self._to_device(bf), "labels": self._to_device(bl),
+                     "weights": self._to_device(bw),
+                     "entity_rows": self._to_device(ents, torch.int32)}
+            if sample_rows:
+                bs = np.full((e_pad, cap), -1, np.int32)
+                bs[lane, slot] = rows_concat
+                block["sample_rows"] = self._to_device(bs, torch.int32)
+            else:
+                block["offsets"] = self._to_device(bo)
+            blocks.append(block)
         return blocks
 
-    def _solve_re_chunk(self, re_type, table, chunk, residual_local):
+    def _solve_re_chunk(self, re_type, table, chunk, residual_local, chunk_index: int = 0):
         """Every entity bucket of one chunk for one RE coordinate. Returns
         (table, importance): Σ over valid lanes of coefficient movement and
         final gradient norm."""
         s = self._re_by_name[re_type]
         objective = self._re_objectives[re_type]
+        if s.optimizer.scheduler is not None:
+            return self._solve_re_chunk_scheduled(re_type, table, chunk, residual_local,
+                                                  chunk_index)
         importance = 0.0
         for batch in self._chunk_blocks(chunk, re_type, residual_local):
             table, trace, movement = _solve_re_chunk_bucket(table, batch, objective,
                                                             s.optimizer)
             signal = (movement + trace.gradient_norm).cpu().numpy()
             importance += float(np.where(trace.valid.cpu().numpy(), signal, 0.0).sum())
+        return table, importance
+
+    def _solve_re_chunk_scheduled(self, re_type, table, chunk, residual_local,
+                                  chunk_index: int):
+        """Probe/rescue lane scheduling of one chunk's buckets, by the
+        chunk's own scheduler. The blocks' ``sample_rows`` and the residual
+        are both chunk-local. The importance is the unscheduled path's: the
+        valid lanes' coefficient movement (taken around the scheduled
+        solve) and final gradient norms."""
+        from photon_ml_torch.algorithm.lane_scheduler import LaneScheduler
+
+        s = self._re_by_name[re_type]
+        key = (re_type, chunk_index)
+        scheduler = self._lane_schedulers.get(key)
+        if scheduler is None or scheduler.config != s.optimizer.scheduler:
+            scheduler = LaneScheduler(s.optimizer.scheduler)
+            self._lane_schedulers[key] = scheduler
+        blocks = self._chunk_blocks(chunk, re_type, residual_local, sample_rows=True)
+        rows = (torch.cat([b["entity_rows"] for b in blocks]).long() if blocks
+                else torch.zeros(0, dtype=torch.long, device=table.device))
+        rows = rows[rows < table.shape[0]]
+        before = table[rows]
+        table, traces, _stats = scheduler.solve(
+            self._re_objectives[re_type], s.optimizer, blocks,
+            self._to_device(residual_local), table, final_sweep=self._final_sweep)
+        importance = float(torch.sqrt(torch.sum((table[rows] - before) ** 2, dim=-1)).sum())
+        for trace in traces:
+            importance += float(torch.where(trace.valid, trace.gradient_norm, 0.0).sum())
         return table, importance
 
     # -- the sweep -------------------------------------------------------------
@@ -750,7 +794,7 @@ class StreamingGameProgram:
             for name in re_names:
                 residual = self._chunk_residual_local(scores, rows, spec.num_records, skip=name)
                 tables[name], importance = self._solve_re_chunk(name, tables[name], chunk,
-                                                                residual)
+                                                                residual, chunk_index)
                 self._refresh_re_scores_chunk(scores, name, tables[name], chunk, spec)
                 if self._multi_rank:
                     idx = chunk.entity_idx[name][:spec.num_records]
@@ -913,6 +957,7 @@ class StreamingGameProgram:
             visit = [g - self._chunk_lo for g in self.schedule.plan_sweep()
                      if self._chunk_lo <= g < self._chunk_hi]
             chunk_visits += len(visit) * len(self.re_specs)
+            self._final_sweep = sweep + 1 == num_sweeps
             state = self._sweep(state, scores, visit)
             self.schedule.sweep_done()
             tl = time.perf_counter()

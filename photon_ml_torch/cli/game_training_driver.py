@@ -63,9 +63,19 @@ of the chunks (``plan_partitioned_game_stream``) under coordinated recovery.
 The surface is the JAX driver's: Avro, one dense fixed effect first in the
 update sequence, IDENTITY random effects, one λ each, no normalization.
 
+``--incremental-refresh`` (with ``--model-input-dir`` or a training run's
+``--checkpoint-dir``) solves again only the random-effect entities that
+changed (``--refresh-changed-entities``, ``--refresh-gradient-tolerance``,
+``--refresh-fixed-effects``; ``algorithm/refresh.py``) and writes its
+selection into the summary's ``incremental_refresh``.
+``--hyperparameter-tuning RANDOM|BAYESIAN`` searches every unlocked
+coordinate's λ over ``--hyperparameter-tuning-range`` for
+``--hyperparameter-tuning-iter`` fits after the grid
+(``hyperparameter/game_glue.py``, seeded by ``--hyperparameter-prior-json``)
+and writes ``tuned-hyperparameters.json``. ``scheduler=true`` in a random
+effect's configuration schedules its lanes (``algorithm/lane_scheduler.py``).
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--incremental-refresh``, hyperparameter
-tuning, the lane scheduler (18), ``--telemetry-dir``, ``--trace-dir``,
+item before any data is read: ``--telemetry-dir``, ``--trace-dir``,
 ``--profile-dir`` (19).
 Sparse, hybrid and pre-indexed shards and ``--input-format libsvm`` are
 taken; a random effect on a sparse shard trains and saves a compact model;
@@ -82,6 +92,7 @@ import hashlib
 import json
 import logging
 import os
+import shutil
 from typing import Sequence
 
 import numpy as np
@@ -102,6 +113,12 @@ from photon_ml_torch.data.sparse_batch import SparseShard
 from photon_ml_torch.data.validators import DataValidationType, validate_game_dataset
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.estimators import GameEstimator, TrainPartition
+from photon_ml_torch.hyperparameter.game_glue import (
+    GameHyperparameterTuner,
+    HyperparameterTuningMode,
+    load_prior_observations,
+    save_tuned_config,
+)
 from photon_ml_torch.evaluation.evaluators import parse_evaluator
 from photon_ml_torch.io.checkpoint import TrainingCheckpointer
 from photon_ml_torch.io.data_reader import read_merged
@@ -125,8 +142,7 @@ from photon_ml_torch.util.timed import reset_timings, timing_summary
 
 logger = logging.getLogger(__name__)
 
-#: hyperparameter-tuning modes of the JAX driver (reference
-#: HyperparameterTuningMode); the port takes NONE only (ROADMAP.md item 18)
+#: hyperparameter-tuning modes (reference HyperparameterTuningMode)
 TUNING_MODES = ("NONE", "BAYESIAN", "RANDOM")
 
 
@@ -168,9 +184,13 @@ class GameTrainingParams:
     resume: bool = True
     #: restarts of a configuration after a transient failure
     max_restarts: int = 2
-    # not ported: each refused by check_ported() when set
+    #: "NONE", "RANDOM" or "BAYESIAN" (game_glue.HyperparameterTuningMode)
     hyperparameter_tuning: str = "NONE"
+    hyperparameter_tuning_iter: int = 10
+    hyperparameter_tuning_range: tuple[float, float] = (1e-4, 1e4)
+    #: tuned-hyperparameters.json of a previous run, the search's priors
     hyperparameter_prior_json: str | None = None
+    # not ported: each refused by check_ported() when set
     profile_dir: str | None = None
     telemetry_dir: str | None = None
     trace_dir: str | None = None
@@ -187,15 +207,20 @@ class GameTrainingParams:
     #: DuHL working set (pinned chunks; 0: uniform order) and cold chunks a sweep
     duhl_working_set: int = 0
     duhl_tail_chunks: int = 1
+    #: incremental retrain (algorithm/refresh.py) against a resident model
+    #: (--model-input-dir, or the CD checkpoints of --checkpoint-dir)
     incremental_refresh: bool = False
+    #: gradient screen (<= 0: only declared entities are solved again)
+    refresh_gradient_tolerance: float = 1e-4
+    #: "reType=key1|key2" specs of entities declared changed
+    refresh_changed_entities: tuple[str, ...] = ()
+    #: also solve the fixed effects again (warm-started)
+    refresh_fixed_effects: bool = False
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for the first option or coordinate the
         port lacks, before any data is read."""
         left_out = (
-            (self.incremental_refresh, "--incremental-refresh", 18),
-            (self.hyperparameter_tuning != "NONE" or bool(self.hyperparameter_prior_json),
-             "hyperparameter tuning", 18),
             (bool(self.telemetry_dir), "--telemetry-dir (run journal)", 19),
             (bool(self.trace_dir), "--trace-dir (span tracing)", 19),
             (bool(self.profile_dir), "--profile-dir (device traces)", 19),
@@ -203,11 +228,6 @@ class GameTrainingParams:
         for unported, what, item in left_out:
             if unported:
                 raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
-        for name, cfg in self.coordinates.items():
-            if cfg.scheduler:
-                raise NotImplementedError(
-                    f"coordinate '{name}': the lane scheduler (scheduler=true) is not ported "
-                    "yet: ROADMAP.md item 18")
 
     def validate(self) -> None:
         """Cross-parameter checks (reference validateParams:196-298)."""
@@ -251,6 +271,22 @@ class GameTrainingParams:
                                     f"for shards {sorted(missing)}")
             except OSError as e:
                 problems.append(f"cannot read --index-maps-dir {self.index_maps_dir!r}: {e}")
+        if self.hyperparameter_prior_json:
+            # a mistyped priors path fails now, not after the grid trains
+            try:
+                load_prior_observations(self.hyperparameter_prior_json)
+            except Exception as e:
+                problems.append(f"cannot read --hyperparameter-prior-json "
+                                f"{self.hyperparameter_prior_json!r}: {e}")
+        if self.hyperparameter_tuning != "NONE" and not self.evaluators:
+            problems.append("hyperparameter tuning requires --evaluators")
+        if self.incremental_refresh:
+            self._validate_refresh(problems)
+        elif self.refresh_changed_entities or self.refresh_fixed_effects:
+            problems.append(
+                "--refresh-changed-entities/--refresh-fixed-effects tune "
+                "the incremental-refresh policy; pass --incremental-refresh "
+                "to opt into the refresh driver mode")
         if self.streaming_chunks > 0:
             self._validate_streaming(problems)
         elif self.duhl_working_set > 0:
@@ -258,6 +294,46 @@ class GameTrainingParams:
                             "--streaming-chunks N to opt into the streamed GAME path")
         if problems:
             raise ValueError("invalid driver parameters: " + "; ".join(problems))
+
+    def _validate_refresh(self, problems: list) -> None:
+        """The incremental-refresh surface (the JAX driver's checks and
+        messages): the single-process coordinate-descent path, one λ per
+        coordinate, against a resident model."""
+        if not self.model_input_dir and not self.checkpoint_dir:
+            problems.append(
+                "--incremental-refresh needs a resident model: pass "
+                "--model-input-dir (a saved model directory) or "
+                "--checkpoint-dir (a training run's CD checkpoints — "
+                "warm-start re-entry)")
+        if self.distributed or self.mesh_shape or self.partitioned_io:
+            problems.append(
+                "--incremental-refresh is the single-process host path; "
+                "drop --distributed/--mesh/--partitioned-io (run the full "
+                "fused fit to retrain at mesh scale)")
+        if self.streaming_chunks > 0:
+            problems.append(
+                "--incremental-refresh reads the refresh data in-core; "
+                "drop --streaming-chunks (or run the streamed full fit)")
+        if self.hyperparameter_tuning != "NONE":
+            problems.append(
+                "--incremental-refresh trains the resident λ; drop "
+                "--hyperparameter-tuning (tune on a full fit)")
+        if self.validation_data_path or self.evaluators:
+            problems.append(
+                "--incremental-refresh has no validation pass; drop "
+                "--validation-data-path/--evaluators and score with the "
+                "scoring driver")
+        if self.refresh_gradient_tolerance < 0:
+            problems.append("--refresh-gradient-tolerance must be >= 0")
+        for name, cfg in self.coordinates.items():
+            if len(cfg.reg_weights) != 1:
+                problems.append(
+                    f"coordinate '{name}': --incremental-refresh trains "
+                    "the resident λ; pass a single reg.weights value")
+        try:
+            _parse_changed_entities(self.refresh_changed_entities)
+        except ValueError as e:
+            problems.append(str(e))
 
     def _validate_streaming(self, problems: list) -> None:
         """The streamed-GAME surface (the JAX driver's checks and messages):
@@ -323,6 +399,21 @@ class GameTrainingParams:
                                 "coordinate; pass a single reg.weights value")
 
 
+def _parse_changed_entities(specs) -> dict:
+    """'reType=key1|key2' specs -> {reType: (keys...)} (repeatable; specs of
+    one type merge)."""
+    out: dict = {}
+    for spec in specs:
+        typ, sep, keys = str(spec).partition("=")
+        typ = typ.strip()
+        if not sep or not typ:
+            raise ValueError(f"bad --refresh-changed-entities {spec!r}; expected "
+                             "reType=key1|key2")
+        out.setdefault(typ, [])
+        out[typ] += [k for k in keys.split("|") if k]
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def _json_safe(obj):
     """NaN/Inf -> None so the summary is strict JSON."""
     if isinstance(obj, dict):
@@ -378,6 +469,9 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
         os.makedirs(out, exist_ok=True)
         reset_timings()
         with PhotonLogger(os.path.join(out, "driver.log")) as job_log:
+            if params.incremental_refresh:
+                # the refresh reads the data in the resident model's feature space
+                return _run_refresh(params, job_log, device)
             if params.streaming_chunks > 0:
                 # the streamed path scans the input itself: the full read
                 # would build what it exists to avoid
@@ -617,6 +711,198 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             save_game_model(os.path.join(out, "best"), results[best_index][1].best_model,
                             train.index_maps,
                             optimization_configurations={"regWeights": grid[best_index]})
+    if params.hyperparameter_tuning != "NONE":
+        _tune(params, summary, results, grid, best_index, best_metric, first_evaluator,
+              make_estimator, train, validation)
+    summary["timings"] = timing_summary()
+    with open(os.path.join(out, "training-summary.json"), "w") as f:
+        json.dump(_json_safe(summary), f, indent=2, default=float)
+    return summary
+
+
+def _tune(params: GameTrainingParams, summary: dict, results, grid, best_index: int,
+          best_metric: float, first_evaluator, make_estimator, train, validation) -> None:
+    """Hyperparameter tuning after the grid (reference
+    GameTrainingDriver.runHyperparameterTuning:631-663): every unlocked
+    coordinate's λ searched over the range, the grid's fits and the prior
+    file as the search's priors; ``tuned-hyperparameters.json`` written and
+    the best over the grid and the tuned candidates saved (the first
+    evaluator decides)."""
+    out = params.root_output_dir
+    with Timed("hyperparameter tuning"):
+        tunable = {name: params.hyperparameter_tuning_range for name in params.coordinates
+                   if name not in params.partial_retrain_locked_coordinates}
+        tuner = GameHyperparameterTuner(
+            estimator=make_estimator(grid[best_index]), reg_ranges=tunable,
+            mode=HyperparameterTuningMode[params.hyperparameter_tuning])
+        priors = [(rw, r.best_metric) for rw, r in results if not np.isnan(r.best_metric)]
+        if params.hyperparameter_prior_json:
+            priors += load_prior_observations(params.hyperparameter_prior_json)
+        tuned = tuner.tune(
+            train.dataset, validation.dataset, num_iterations=params.hyperparameter_tuning_iter,
+            prior_observations=priors,
+            keep_models=params.model_output_mode in (ModelOutputMode.ALL, ModelOutputMode.TUNED))
+    save_tuned_config(tuned, os.path.join(out, "tuned-hyperparameters.json"))
+    summary["tuned_reg_weights"] = tuned.best_reg_weights
+    summary["tuned_metric"] = tuned.best_value
+    if params.model_output_mode in (ModelOutputMode.ALL, ModelOutputMode.TUNED):
+        for j, (reg, r) in enumerate(tuned.tuned_results):
+            save_game_model(os.path.join(out, "models-tuned", str(j)), r.best_model,
+                            train.index_maps, optimization_configurations={"regWeights": reg})
+    if first_evaluator is not None and tuned.best_result is not None:
+        reg, r = tuned.best_result
+        if not np.isnan(r.best_metric) and first_evaluator.better_than(r.best_metric,
+                                                                       best_metric):
+            summary["best_metric"] = r.best_metric
+            summary["best_reg_weights"] = reg
+            # the grid index no longer names the winner
+            summary["best_configuration_index"] = None
+            summary["best_is_tuned"] = True
+            if params.model_output_mode != ModelOutputMode.NONE:
+                save_game_model(os.path.join(out, "best"), r.best_model, train.index_maps,
+                                optimization_configurations={"regWeights": reg})
+
+
+def _run_refresh(params: GameTrainingParams, job_log: PhotonLogger, device) -> dict:
+    """The --incremental-refresh pipeline (``algorithm/refresh.py``): load the
+    resident model (a saved directory, or the CD checkpoints of a training
+    run), read the refresh data in its feature space, check the agreement
+    (layout and λ; a mismatch fails naming the fields), then solve again
+    only the entities the policy selects, against frozen residuals, under
+    ``run_with_recovery`` with per-coordinate refresh checkpoints."""
+    from photon_ml_torch.algorithm.refresh import (
+        RefreshPolicy,
+        check_refresh_fingerprint,
+        expected_fingerprint,
+        model_fingerprint,
+    )
+    from photon_ml_torch.cli.game_scoring_driver import _load_scoring_model
+    from photon_ml_torch.io.checkpoint import latest_trained_model
+    from photon_ml_torch.models.game import RandomEffectModel
+    from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
+    from photon_ml_torch.resilience import default_io_policy
+    from photon_ml_torch.telemetry.refresh_counters import reset_refresh_metrics
+
+    reset_refresh_metrics()
+    out = params.root_output_dir
+    reg_weights = {name: cfg.reg_weights[0] for name, cfg in params.coordinates.items()}
+    saved_reg_weights = None
+    if params.model_input_dir:
+        model, index_maps, feature_shards, entity_vocabs, re_columns = _load_scoring_model(
+            model_input_dir=params.model_input_dir, index_maps_dir=params.index_maps_dir,
+            feature_shards=params.feature_shards,
+            compact_random_effect_threshold=params.compact_random_effect_threshold,
+            device=device)
+        meta_path = os.path.join(params.model_input_dir, "model-metadata.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                saved = (json.load(f).get("optimizationConfigurations") or {}).get("regWeights")
+            if isinstance(saved, dict):
+                saved_reg_weights = {k: float(v) for k, v in saved.items()}
+    else:
+        # warm-start re-entry: the training run's CD checkpoints hold the model
+        with Timed("restore resident model from checkpoint"):
+            restored = latest_trained_model(TrainingCheckpointer(params.checkpoint_dir),
+                                            device=device)
+        if restored is None:
+            raise ValueError(
+                f"--checkpoint-dir {params.checkpoint_dir!r} holds no "
+                "loadable checkpoint; pass --model-input-dir (a saved "
+                "model) instead")
+        model, step = restored
+        job_log.info("resident model restored from checkpoint step %d", step)
+        if not params.index_maps_dir:
+            raise ValueError(
+                "checkpoint warm-start re-entry needs --index-maps-dir "
+                "(the training run's saved stores) so the refresh data "
+                "reads in the resident model's feature space; or pass "
+                "--model-input-dir")
+        index_maps = IndexMap.load_directory(params.index_maps_dir)
+        feature_shards = params.feature_shards
+        entity_vocabs = {}
+        re_set = set()
+        for m in model.models.values():
+            if isinstance(m, RandomEffectModel):
+                entity_vocabs[m.random_effect_type] = np.asarray(m.entity_keys)
+                re_set.add(m.random_effect_type)
+            elif isinstance(m, MatrixFactorizationModel):
+                entity_vocabs[m.row_effect_type] = np.asarray(m.row_keys)
+                entity_vocabs[m.col_effect_type] = np.asarray(m.col_keys)
+                re_set.update((m.row_effect_type, m.col_effect_type))
+        re_columns = tuple(sorted(re_set))
+
+    with Timed("read refresh data"):
+        part = default_io_policy().call(
+            lambda: read_partitioned(
+                params.input_data_path, feature_shards, index_maps=index_maps or None,
+                random_effect_id_columns=re_columns, evaluation_id_columns=(),
+                entity_vocabs=entity_vocabs, fmt=params.input_format, tag="refresh",
+                on_corrupt=params.on_corrupt, device=device),
+            description="read refresh data")
+        dataset = part.result.dataset
+    job_log.info("read %d refresh samples", dataset.num_samples)
+
+    sequence = list(params.update_sequence or params.coordinates.keys())
+    coordinate_configs = estimator_coordinate_configs(params.coordinates, reg_weights)
+    # the agreement: layout and λ (λ only where the saved model's metadata
+    # records it; a checkpoint re-entry has no record)
+    expected = expected_fingerprint(
+        dataset, coordinate_configs, sequence,
+        reg_weights=reg_weights if saved_reg_weights is not None else None)
+    check_refresh_fingerprint(model_fingerprint(model, sequence, reg_weights=saved_reg_weights),
+                              expected)
+    policy = RefreshPolicy(
+        gradient_tolerance=(params.refresh_gradient_tolerance
+                            if params.refresh_gradient_tolerance > 0 else None),
+        changed_entities=_parse_changed_entities(params.refresh_changed_entities),
+        refresh_fixed_effects=params.refresh_fixed_effects)
+    refresh_ckpt = None
+    if params.checkpoint_dir:
+        refresh_dir = os.path.join(params.checkpoint_dir, "refresh")
+        if not params.resume and os.path.isdir(refresh_dir):
+            # --no-resume drops stale refresh progress now, so a restart within
+            # this run resumes this run's steps only
+            shutil.rmtree(refresh_dir)
+        refresh_ckpt = TrainingCheckpointer(refresh_dir)
+    estimator = GameEstimator(
+        task=params.task_type, coordinate_configs=coordinate_configs, update_sequence=sequence,
+        normalization=params.normalization,
+        locked_coordinates=frozenset(params.partial_retrain_locked_coordinates),
+        intercept_indices=part.result.intercept_indices)
+
+    with Timed("incremental refresh"):
+        def attempt(restart: int):
+            # a restart resumes even under --no-resume (that is the checkpoint's use)
+            return estimator.refresh(dataset, model, policy, checkpointer=refresh_ckpt,
+                                     fingerprint=expected, resume=params.resume or restart > 0)
+
+        result = run_with_recovery(attempt, max_restarts=params.max_restarts,
+                                   checkpointer=refresh_ckpt, description="incremental refresh")
+
+    if params.model_output_mode != ModelOutputMode.NONE:
+        save_game_model(os.path.join(out, "best"), result.model, index_maps,
+                        optimization_configurations={"regWeights": reg_weights})
+    summary: dict = {
+        "distributed": False,
+        "incremental_refresh": {
+            "lanes_total": result.lanes_total,
+            "lanes_solved": result.lanes_solved,
+            "lanes_changed": result.lanes_changed,
+            "lanes_gradient": result.lanes_gradient,
+            "coordinates": result.coordinate_stats,
+            "coordinates_refreshed": sum(1 for s in result.coordinate_stats.values()
+                                         if s.get("refreshed")),
+            "coordinates_carried": sum(1 for s in result.coordinate_stats.values()
+                                       if not s.get("refreshed")),
+        },
+        "num_configurations": 1,
+        "effective_coordinate_configurations": {
+            name: format_coordinate_config(cfg) for name, cfg in params.coordinates.items()},
+        "best_configuration_index": 0,
+        "best_reg_weights": reg_weights,
+        "best_metric": float("nan"),
+        "metric_history": [],
+    }
     summary["timings"] = timing_summary()
     with open(os.path.join(out, "training-summary.json"), "w") as f:
         json.dump(_json_safe(summary), f, indent=2, default=float)
@@ -851,9 +1137,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--partial-retrain-locked-coordinates", default="")
     p.add_argument("--model-output-mode", default="ALL",
                    choices=[m.name for m in ModelOutputMode])
-    p.add_argument("--hyperparameter-tuning", default="NONE", choices=TUNING_MODES,
-                   help="not ported beyond NONE (item 18)")
-    p.add_argument("--hyperparameter-prior-json", help="not ported (item 18)")
+    p.add_argument("--hyperparameter-tuning", default="NONE", choices=TUNING_MODES)
+    p.add_argument("--hyperparameter-tuning-iter", type=int, default=10)
+    p.add_argument("--hyperparameter-tuning-range", default="1e-4,1e4",
+                   help="low,high λ search range (log-scale)")
+    p.add_argument("--hyperparameter-prior-json",
+                   help="tuned-hyperparameters.json from a previous run, used to seed the "
+                        "search")
     p.add_argument("--input-format", default="avro", choices=["avro", "libsvm"])
     p.add_argument("--index-maps-dir",
                    help="reuse index stores built by the feature indexing driver (plain "
@@ -900,7 +1190,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "visit the cold tail round-robin (0: uniform order)")
     p.add_argument("--duhl-tail-chunks", type=int, default=1,
                    help="cold chunks visited a sweep under --duhl-working-set")
-    p.add_argument("--incremental-refresh", action="store_true", help="not ported (item 18)")
+    p.add_argument("--incremental-refresh", action="store_true",
+                   help="incremental retrain: solve again only the RE entities that saw new "
+                        "data or whose gradient at the resident solution exceeds tolerance, "
+                        "against frozen residuals — needs --model-input-dir or "
+                        "--checkpoint-dir (the resident model)")
+    p.add_argument("--refresh-gradient-tolerance", type=float, default=1e-4,
+                   help="solve again entities whose solve-space gradient norm at the resident "
+                        "solution exceeds this (0 disables the screen: only declared entities)")
+    p.add_argument("--refresh-changed-entities", action="append", default=[],
+                   help="reType=key1|key2 — entities declared changed (repeatable)")
+    p.add_argument("--refresh-fixed-effects", action="store_true",
+                   help="also solve the fixed-effect coordinates again (warm-started)")
     return p
 
 
@@ -935,6 +1236,9 @@ def parse_args(argv: Sequence[str] | None = None) -> GameTrainingParams:
         partial_retrain_locked_coordinates=split(args.partial_retrain_locked_coordinates),
         model_output_mode=ModelOutputMode[args.model_output_mode],
         hyperparameter_tuning=args.hyperparameter_tuning,
+        hyperparameter_tuning_iter=args.hyperparameter_tuning_iter,
+        hyperparameter_tuning_range=tuple(
+            float(x) for x in args.hyperparameter_tuning_range.split(",")),
         hyperparameter_prior_json=args.hyperparameter_prior_json,
         input_format=args.input_format,
         index_maps_dir=args.index_maps_dir,
@@ -956,6 +1260,9 @@ def parse_args(argv: Sequence[str] | None = None) -> GameTrainingParams:
         duhl_working_set=args.duhl_working_set,
         duhl_tail_chunks=args.duhl_tail_chunks,
         incremental_refresh=args.incremental_refresh,
+        refresh_gradient_tolerance=args.refresh_gradient_tolerance,
+        refresh_changed_entities=tuple(args.refresh_changed_entities),
+        refresh_fixed_effects=args.refresh_fixed_effects,
     )
 
 

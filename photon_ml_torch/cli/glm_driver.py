@@ -20,11 +20,14 @@ decoding inline. ``--checkpoint-dir`` (streaming only) saves the solver's
 state every ``--checkpoint-every`` iterations and at each λ, and a rerun
 resumes from it; ``--max-restarts`` restarts the stages after a transient
 failure (``resilience/recovery.py``), resuming from the checkpoint; its
-default is 2, the JAX driver's.
-Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--grid-parallel`` and ``--search-rounds``
-(18), ``--enable-diagnostics``, ``--num-bootstraps``, ``--telemetry-dir`` and
-``--trace-dir`` (19). ``--input-format libsvm`` reads LibSVM text
+default is 2, the JAX driver's. ``--grid-parallel`` trains the whole λ grid
+at once as solver lanes (``estimators.train_glm_grid``), and
+``--search-rounds N`` replaces the grid by a GP-driven model search over
+``--search-space`` with ``--search-lane-budget`` configurations a round
+(``hyperparameter/search_driver.run_model_search``), selected by the
+validation metric. Left out, each refused with ``NotImplementedError``
+naming its ROADMAP.md item before any data is read: ``--enable-diagnostics``,
+``--num-bootstraps``, ``--telemetry-dir`` and ``--trace-dir`` (19). ``--input-format libsvm`` reads LibSVM text
 (``io/libsvm.py``).
 """
 
@@ -45,7 +48,7 @@ from photon_ml_torch.data.batch import LabeledPointBatch, summarize
 from photon_ml_torch.data.validators import DataValidationType, validate_arrays
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.diagnostics.metrics import METRIC_DIRECTIONS, evaluate_model
-from photon_ml_torch.estimators import train_glm, train_glm_streaming
+from photon_ml_torch.estimators import train_glm, train_glm_grid, train_glm_streaming
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
 from photon_ml_torch.io.model_io import write_glm_text
 from photon_ml_torch.ops.normalization import NormalizationType, build_normalization
@@ -108,20 +111,28 @@ class GLMDriverParams:
     checkpoint_every: int = 1
     #: restarts after a transient failure (resilience/recovery.py)
     max_restarts: int = 2
+    #: train the λ grid at once as solver lanes (LBFGS/OWLQN)
+    grid_parallel: bool = False
+    #: GP-driven model search (hyperparameter/search_driver.py): > 0 opts in
+    #: and replaces the λ grid; needs a validation path and a search space
+    search_rounds: int = 0
+    #: configurations a round (solver lanes of one tournament)
+    search_lane_budget: int = 8
+    #: the search space, e.g. "lambda=1e-4:1e2:log,alpha=0:1,
+    #: tolerance=1e-9:1e-5:log" (search_driver.parse_search_space)
+    search_space: str | None = None
+    #: one SeedSequence threads the Sobol scramble and the GP slice sampler
+    search_seed: int = 0
     # not ported: each refused by check_ported() when set
     enable_diagnostics: bool = False
     num_bootstraps: int = 0
-    grid_parallel: bool = False
     telemetry_dir: str | None = None
     trace_dir: str | None = None
-    search_rounds: int = 0
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for the first option the port lacks,
         before any data is read."""
         left_out = (
-            (self.grid_parallel, "--grid-parallel (vmapped λ lanes)", 18),
-            (self.search_rounds > 0, "--search-rounds (model search)", 18),
             (self.enable_diagnostics or self.num_bootstraps > 0,
              "--enable-diagnostics/--num-bootstraps (diagnostic reports)", 19),
             (bool(self.telemetry_dir), "--telemetry-dir (run journal)", 19),
@@ -160,6 +171,11 @@ def _check_streaming_supported(params: GLMDriverParams) -> None:
             "--streaming-chunks streams Avro container blocks; for "
             "libsvm inputs drop --streaming-chunks (or convert with "
             "cli/libsvm_to_avro.py and stream the result)")
+    if params.grid_parallel:
+        raise ValueError(
+            "--streaming-chunks trains the λ grid sequentially with warm "
+            "starts (vmapped grid lanes need the in-core batch); drop "
+            "--grid-parallel")
     if params.compute_variance:
         raise ValueError(
             "coefficient variances decompose the in-core Hessian; drop "
@@ -168,6 +184,40 @@ def _check_streaming_supported(params: GLMDriverParams) -> None:
         raise ValueError(
             "NEWTON needs the dense [d, d] Hessian; use --optimizer TRON "
             "for streamed second-order solves")
+
+
+def _check_search_supported(params: GLMDriverParams) -> None:
+    """Fail fast, naming the alternative, before any data is read."""
+    if not params.search_space:
+        raise ValueError(
+            "--search-rounds needs --search-space (grammar: "
+            "name=low:high[:log][:int], comma-separated; e.g. "
+            "'lambda=1e-4:1e2:log,alpha=0:1')")
+    if not params.validation_data_path:
+        raise ValueError(
+            "--search-rounds selects by the validation metric; pass "
+            "--validation-data-path")
+    if params.streaming_chunks > 0:
+        raise ValueError(
+            "--search-rounds trains vmapped tournament lanes on the "
+            "in-core batch; drop --streaming-chunks (stream-compose the "
+            "winning config afterwards instead)")
+    if params.grid_parallel:
+        raise ValueError(
+            "--search-rounds replaces the λ grid (tournament lanes ARE "
+            "the grid generalization); drop --grid-parallel")
+    if params.elastic_net_alpha:
+        raise ValueError(
+            "the elastic-net mix is a search dimension — add 'alpha=0:1' "
+            "to --search-space instead of --elastic-net-alpha")
+    if params.enable_diagnostics or params.num_bootstraps:
+        raise ValueError(
+            "diagnostics re-fit the λ grid; run them on the winning "
+            "config without --search-rounds")
+    if params.compute_variance:
+        raise ValueError(
+            "coefficient variances are not computed per tournament lane; "
+            "re-fit the winning config with --compute-variance")
 
 
 def _check_checkpoint_supported(params: GLMDriverParams) -> None:
@@ -235,6 +285,8 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
     params.check_ported()
     if params.streaming_chunks > 0:
         _check_streaming_supported(params)
+    if params.search_rounds > 0:
+        _check_search_supported(params)
     _check_checkpoint_supported(params)
     device = resolve_device(device)
     if params.coefficient_box_constraints and params.normalization != NormalizationType.NONE:
@@ -303,8 +355,34 @@ def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResul
 
             lower_bounds, upper_bounds = build_bound_arrays(
                 params.coefficient_box_constraints, index_maps["features"])
+        val_batch = None
+        search_outcome = None
         with Timed("glm train", sync=sync):
-            if streaming:
+            if params.search_rounds > 0:
+                from photon_ml_torch.hyperparameter.search_driver import (
+                    parse_search_space,
+                    run_model_search,
+                )
+
+                # the validation batch is the tournament's metric input too;
+                # VALIDATE below reuses it
+                val_batch, _, _, _ = _read_batch(params.validation_data_path,
+                                                 params.input_format, shard_cfg, device,
+                                                 index_maps, on_corrupt=params.on_corrupt)
+                search_outcome = run_model_search(
+                    batch, val_batch, params.task_type, parse_search_space(params.search_space),
+                    rounds=params.search_rounds, lane_budget=params.search_lane_budget,
+                    optimizer=opt, seed=params.search_seed,
+                    evaluator=_SELECTION_METRIC[params.task_type], normalization=norm,
+                    intercept_index=intercept_index, box_lower=lower_bounds,
+                    box_upper=upper_bounds)
+                models = {search_outcome.best_config["lambda"]: search_outcome.best_model}
+                job_log.info("search best %s=%s config=%s (%d configs over %d rounds)",
+                             search_outcome.evaluator_name, search_outcome.best_metric,
+                             search_outcome.best_config,
+                             params.search_rounds * params.search_lane_budget,
+                             params.search_rounds)
+            elif streaming:
                 models = train_glm_streaming(
                     source, params.task_type, optimizer=opt,
                     regularization_weights=params.regularization_weights,
@@ -313,7 +391,8 @@ def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResul
                     lower_bounds=lower_bounds, upper_bounds=upper_bounds,
                     checkpointer=checkpointer, device=device)
             else:
-                models = train_glm(
+                trainer = train_glm_grid if params.grid_parallel else train_glm
+                models = trainer(
                     batch, params.task_type, optimizer=opt,
                     regularization_weights=params.regularization_weights,
                     elastic_net_alpha=params.elastic_net_alpha, normalization=norm,
@@ -329,9 +408,10 @@ def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResul
         validation_metrics: dict = {}
         if params.validation_data_path:
             with Timed("glm validate", sync=sync):
-                val_batch, _, _, _ = _read_batch(params.validation_data_path,
-                                                 params.input_format, shard_cfg, device,
-                                                 index_maps, on_corrupt=params.on_corrupt)
+                if val_batch is None:
+                    val_batch, _, _, _ = _read_batch(params.validation_data_path,
+                                                     params.input_format, shard_cfg, device,
+                                                     index_maps, on_corrupt=params.on_corrupt)
                 metric = _SELECTION_METRIC[params.task_type]
                 larger = METRIC_DIRECTIONS[metric]
                 best_value = None
@@ -353,6 +433,14 @@ def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResul
         "best_lambda": best_lambda,
         "validation_metrics": {str(k): v for k, v in validation_metrics.items()},
     }
+    if search_outcome is not None:
+        summary["search"] = {
+            "best_config": search_outcome.best_config,
+            "best_metric": search_outcome.best_metric,
+            "metric": search_outcome.evaluator_name,
+            "rounds": len(search_outcome.trajectory),
+            "configs": len(search_outcome.observations),
+        }
     with open(summary_path, "w") as f:
         json.dump(summary, f, indent=2, default=float)
     return GLMDriverResult(stage=stage, models=models, best_lambda=best_lambda,
@@ -386,7 +474,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(skip-and-count)")
     p.add_argument("--enable-diagnostics", action="store_true", help="not ported (item 19)")
     p.add_argument("--num-bootstraps", type=int, default=0, help="not ported (item 19)")
-    p.add_argument("--grid-parallel", action="store_true", help="not ported (item 18)")
+    p.add_argument("--grid-parallel", action="store_true",
+                   help="train all regularization weights simultaneously as "
+                        "solver lanes (LBFGS/OWLQN only)")
     p.add_argument("--telemetry-dir", help="not ported (item 19)")
     p.add_argument("--trace-dir", help="not ported (item 19)")
     p.add_argument("--streaming-chunks", type=int, default=0,
@@ -401,7 +491,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-restarts", type=int, default=2,
                    help="restarts after a transient failure, resuming from --checkpoint-dir "
                         "(0 disables)")
-    p.add_argument("--search-rounds", type=int, default=0, help="not ported (item 18)")
+    p.add_argument("--search-rounds", type=int, default=0,
+                   help="GP-driven model search: rounds of config tournaments (> 0 opts "
+                        "in; replaces --regularization-weights; requires "
+                        "--validation-data-path and --search-space)")
+    p.add_argument("--search-lane-budget", type=int, default=8,
+                   help="configs per tournament round (solver lanes sharing one "
+                        "feature-block read)")
+    p.add_argument("--search-space",
+                   help="search-space grammar: name=low:high[:log][:int], comma-separated; "
+                        "dims: lambda (required), alpha, tolerance, box — e.g. "
+                        "'lambda=1e-4:1e2:log,alpha=0:1'")
+    p.add_argument("--search-seed", type=int, default=0,
+                   help="one SeedSequence threads Sobol + the GP slice sampler; a "
+                        "trajectory replays deterministically under a fixed seed")
     return p
 
 
@@ -437,6 +540,9 @@ def main(argv: Sequence[str] | None = None, *, device=None) -> GLMDriverResult:
             checkpoint_every=args.checkpoint_every,
             max_restarts=args.max_restarts,
             search_rounds=args.search_rounds,
+            search_lane_budget=args.search_lane_budget,
+            search_space=args.search_space,
+            search_seed=args.search_seed,
         ),
         device=device,
     )

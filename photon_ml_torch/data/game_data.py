@@ -540,6 +540,61 @@ def pack_bucket_lanes(
     return entity_rows, rows_concat, lane, slot
 
 
+#: the bucket fields a compacted lane block carries, in order
+LANE_BLOCK_FIELDS = ("features", "labels", "weights", "sample_rows", "col_index")
+
+
+def compact_lane_blocks(
+    blocks: Sequence[Mapping[str, torch.Tensor]],
+    picks: Sequence[tuple[int, np.ndarray]],
+    *,
+    pad_to: int,
+    sentinel_row: int,
+) -> tuple[dict[str, torch.Tensor], np.ndarray, np.ndarray]:
+    """Gather selected lanes of same-(cap, d) bucket blocks into one padded
+    block: the lane compaction of the probe/rescue scheduler
+    (``algorithm/lane_scheduler.py``), which re-runs only unconverged entity
+    solves. One ``index_select`` per field and pick, on the resident bucket
+    tensors' device, so no bucket crosses to the host; the values are those
+    of the JAX package's numpy compaction bit for bit.
+
+    picks: [(block_index, lane_indices), ...]; every named block shares
+        capacity and feature width (the caller groups by (cap, d)).
+    pad_to: lane count of the output block (a power of two, so the set of
+        block shapes stays bounded across sweeps).
+    sentinel_row: ``entity_rows`` of padding lanes, out of range for any
+        coefficient table: gathers clamp and scatters drop.
+
+    Returns (fields, src_block, src_lane): the padded fields (weights 0,
+    sample_rows -1, entity_rows the sentinel on padding lanes) and the
+    source (block, lane) of each real lane, on the host.
+    """
+    src_block = np.concatenate(
+        [np.full(len(lanes), b, dtype=np.int32) for b, lanes in picks])
+    src_lane = np.concatenate([np.asarray(lanes, dtype=np.int64) for _, lanes in picks])
+    m = len(src_lane)
+    if not 0 < m <= pad_to:
+        raise ValueError(f"{m} picked lanes do not fit pad_to={pad_to}")
+    pad = pad_to - m
+    first = blocks[picks[0][0]]
+    device = first["entity_rows"].device
+    index = [(b, torch.as_tensor(np.asarray(lanes, dtype=np.int64), device=device))
+             for b, lanes in picks]
+    out: dict[str, torch.Tensor] = {}
+    for key in (*LANE_BLOCK_FIELDS, "entity_rows"):
+        if first.get(key) is None:
+            continue
+        parts = [blocks[b][key].index_select(0, idx) for b, idx in index]
+        if pad:
+            fill = {"sample_rows": -1, "entity_rows": sentinel_row}.get(key, 0)
+            ref = parts[0]
+            parts.append(torch.full((pad,) + tuple(ref.shape[1:]), fill, dtype=ref.dtype,
+                                    device=device))
+        out[key] = torch.cat(parts, dim=0)
+    out["entity_rows"] = out["entity_rows"].to(torch.int32)
+    return out, src_block, src_lane
+
+
 def _pearson_keep_mask(x: np.ndarray, y: np.ndarray, num_keep: int) -> np.ndarray:
     """Boolean [d] mask of the ``num_keep`` columns of x most correlated
     (|Pearson|) with y, for one entity. Zero-variance nonzero columns (an

@@ -9,14 +9,17 @@ it trains through the fused program over the mesh instead
 lays the primary fixed effect's columns over the mesh's "model" axis), and
 with ``partition``
 (:class:`TrainPartition`) on this rank's block of a partitioned read
-(``train_partitioned``). One device runs it over
+(``train_partitioned``); ``refresh`` solves again only the entities that
+changed (``algorithm/refresh.py``). One device runs it over
 a dense or sparse fixed effect, random effects
 on dense shards (IDENTITY, INDEX_MAP or RANDOM projection, optional
 per-entity Pearson feature selection) or on sparse shards (compact ``[E, K]``
 tables over each entity's active columns), and matrix-factorization
 coordinates (``algorithm/mf_coordinate.py``). ``train_glm`` (reference ModelTraining.scala:55-228)
 is the single-GLM regularization path with warm starts, for dense and sparse
-batches alike; ``train_glm_streaming`` is the same path over an out-of-core
+batches alike; ``train_glm_grid`` trains the whole λ grid at once, one solver
+lane per λ, and ``train_glm_tournament`` one lane per hyperparameter
+configuration (``algorithm/lane_search.py``); ``train_glm_streaming`` is the same path over an out-of-core
 chunk source (``io/stream_reader.py``), checkpointed through
 ``io/checkpoint.SolverCheckpointer``. A ``GameEstimator`` with a checkpointer
 saves and resumes its coordinate descent or fused program.
@@ -70,6 +73,8 @@ from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.sparse_objective import SparseGLMObjective
 from photon_ml_torch.ops.variance import (
     coefficient_variances,
+    diag_inverse_from_hessian,
+    inverse_of_diagonal,
     resolve_variance_mode_for,
     validate_variance_mode,
 )
@@ -553,14 +558,18 @@ class GameEstimator:
                          if validation_dataset is not None and evaluators else None)
         if partition is not None:
             # this rank feeds only its block; no validation or metric riders
-            # (the guard refused them)
+            # (the guard refused them); scheduled random effects compose, each
+            # rank scheduling its own lanes
+            from photon_ml_torch.algorithm.lane_scheduler import make_schedulers
+
             result = train_partitioned(
                 program, {partition.info.rank: (train_ds, re_datasets)}, self.mesh,
                 partition.info.num_ranks, num_iterations=self.num_iterations,
                 state=warm_state, check_finite=self.check_finite,
                 exchange=partition.exchange, fe_feature_sharded=self.fe_feature_sharded,
                 checkpointer=self.checkpointer, checkpoint_every=self.checkpoint_every,
-                resume=self.resume, resume_step=self.resume_step)
+                resume=self.resume, resume_step=self.resume_step,
+                schedulers=make_schedulers(program.re_specs) or None)
         else:
             result = train_distributed(
                 program, train_ds, re_datasets, mf_datasets=mf_datasets, mesh=self.mesh,
@@ -609,6 +618,29 @@ class GameEstimator:
                                        best_metric=result.best_metric,
                                        metric_history=result.metric_history)
 
+    def refresh(self, dataset: GameDataset, resident_model: GameModel, policy=None, *,
+                checkpointer=None, fingerprint: dict | None = None,
+                resume: bool | None = None):
+        """Incremental retrain (``algorithm/refresh.py``): solve again only the
+        random-effect entities the policy selects (declared changed or
+        gradient-screened), against residuals frozen at
+        ``resident_model``'s scores, warm-started from its coefficients; the
+        rest carries over bitwise. One process, no mesh."""
+        from photon_ml_torch.algorithm.refresh import RefreshPolicy, run_incremental_refresh
+
+        if self.mesh is not None or self.partition is not None:
+            raise ValueError(
+                "incremental refresh is the single-process host path; "
+                "drop mesh/partition and refresh on one host, or run the "
+                "full fused fit to retrain at mesh scale")
+        sequence, coordinates = self._build_coordinates(dataset, resident_model)
+        return run_incremental_refresh(
+            coordinates, sequence, resident_model,
+            policy if policy is not None else RefreshPolicy(),
+            checkpointer=checkpointer if checkpointer is not None else self.checkpointer,
+            resume=self.resume if resume is None else resume,
+            check_finite=self.check_finite, telemetry=self.telemetry, fingerprint=fingerprint)
+
     def _build_coordinates(self, dataset: GameDataset, initial_model: GameModel | None):
         """(sequence, coordinate map), locked coordinates wrapped as
         ModelCoordinates."""
@@ -642,8 +674,6 @@ class GameEstimator:
                     num_latent_factors=cfg.num_latent_factors,
                     num_alternations=cfg.num_alternations, seed=cfg.seed)
             elif isinstance(cfg, RandomEffectCoordinateConfig):
-                if cfg.optimization.optimizer.scheduler is not None:
-                    raise _not_ported(f"random effect '{cid}': the lane scheduler", 18)
                 re_dataset = build_random_effect_dataset(
                     dataset, cfg.random_effect_type, cfg.feature_shard_id,
                     active_data_upper_bound=cfg.active_data_upper_bound,
@@ -799,6 +829,114 @@ def train_glm(
         logger.info("trained λ=%g: value=%g iters=%d", lam, float(result.value),
                     result.iterations)
     return models
+
+
+def train_glm_grid(
+    batch: LabeledPointBatch | SparseLabeledPointBatch,
+    task: TaskType,
+    *,
+    optimizer: OptimizerConfig | None = None,
+    regularization_weights: Sequence[float] = (0.0,),
+    elastic_net_alpha: float = 0.0,
+    normalization: NormalizationContext | None = None,
+    intercept_index: int | None = None,
+    compute_variance: bool = False,
+    variance_mode: str = "auto",
+    lower_bounds=None,
+    upper_bounds=None,
+    telemetry=None,
+    use_kernel: bool | None = None,
+) -> dict[float, GeneralizedLinearModel]:
+    """Train the whole regularization grid at once, one solver lane per λ.
+
+    The alternative to :func:`train_glm`'s sequential warm-start path
+    (reference ModelTraining.scala:202-220): all λ lanes share every read
+    of the feature block, so on a dense batch the per-lane margins are one
+    ``X @ Wᵀ`` product instead of |λ| products, and a sparse batch runs its
+    kernels once per lane and evaluation (``algorithm/lane_search.py``).
+    Lanes start cold instead of warm from the previous λ. L-BFGS and OWL-QN
+    lanes (elastic net included), with an optional box shared by every
+    lane; TRON stays on the sequential path. Variances are per lane, full
+    (diag(H⁻¹)) or diagonal. ``telemetry`` is ROADMAP.md item 19.
+    ``use_kernel``: the sparse objective's evaluation path, as in
+    :func:`train_glm` (``False`` takes the plain gathers, the only path of a
+    float64 batch on the card); the dense lanes are a library product.
+
+    The λ-only case of the configuration tournaments
+    (``algorithm/lane_search.py``); a uniform tournament is bitwise this.
+    """
+    from photon_ml_torch.algorithm.lane_search import solve_lanes
+
+    _require_batch(batch)
+    if telemetry is not None:
+        raise _not_ported("lane telemetry of train_glm_grid", 19)
+    optimizer = resolve_auto_optimizer(optimizer or OptimizerConfig())
+    if optimizer.optimizer_type not in (OptimizerType.LBFGS, OptimizerType.OWLQN):
+        raise ValueError(
+            "train_glm_grid supports LBFGS/OWLQN lanes; use train_glm for "
+            f"{optimizer.optimizer_type.name}")
+    use_owlqn = elastic_net_alpha > 0.0 or optimizer.optimizer_type == OptimizerType.OWLQN
+    has_bounds = lower_bounds is not None or upper_bounds is not None
+    if use_owlqn and has_bounds:
+        raise ValueError("box constraints cannot combine with OWL-QN / elastic-net lanes")
+    loss = loss_for_task(task)
+    objective = _objective_for_batch(batch, loss, 0.0, normalization, use_kernel)
+    validate_variance_mode(variance_mode)
+    resolved_variance = None
+    if compute_variance:
+        resolved_variance = resolve_variance_mode_for(
+            objective, variance_mode, batch.dim, num_problems=len(regularization_weights))
+    dtype, device = batch.solve_dtype, batch.device
+
+    def lanes(values):
+        return torch.as_tensor(values, dtype=dtype, device=device)
+
+    lams = sorted(float(l) for l in regularization_weights)
+    l2s = lanes([(1.0 - elastic_net_alpha) * l for l in lams])
+    # the elastic-net component overrides the config's own l1_weight (train_glm)
+    l1s = (lanes([elastic_net_alpha * l for l in lams]) if elastic_net_alpha > 0.0
+           else torch.full((len(lams),), optimizer.l1_weight, dtype=dtype, device=device))
+    bounds = None
+    if has_bounds:
+        inf = torch.full((batch.dim,), float("inf"), dtype=dtype, device=device)
+        bounds = (-inf if lower_bounds is None else lanes(lower_bounds),
+                  inf if upper_bounds is None else lanes(upper_bounds))
+    w0 = torch.zeros((len(lams), batch.dim), dtype=dtype, device=device)
+    results = solve_lanes(objective, use_owlqn, optimizer, batch, l2s, l1s,
+                          optimizer.tolerance, w0, bounds)
+    norm = objective.normalization
+    models: dict[float, GeneralizedLinearModel] = {}
+    for i, lam in enumerate(lams):
+        w = results.coefficients[i]
+        variances = None
+        if resolved_variance == "full":
+            h = objective.hessian_matrix(w, batch)
+            h = h + l2s[i] * torch.eye(h.shape[0], dtype=h.dtype, device=h.device)
+            variances = norm.variances_to_model_space(diag_inverse_from_hessian(h))
+        elif resolved_variance is not None:
+            variances = norm.variances_to_model_space(
+                inverse_of_diagonal(objective.hessian_diagonal(w, batch) + l2s[i]))
+        models[lam] = GeneralizedLinearModel(
+            Coefficients(means=norm.to_model_space(w, intercept_index), variances=variances),
+            task)
+    return models
+
+
+def train_glm_tournament(batch, task: TaskType, configs, *,
+                         optimizer: OptimizerConfig | None = None, warm_start=None,
+                         normalization: NormalizationContext | None = None,
+                         intercept_index: int | None = None, telemetry=None):
+    """One configuration tournament (per-lane L1/L2/tolerance/box vectors,
+    the generalization of :func:`train_glm_grid`'s λ lanes).
+
+    ``configs``: ``algorithm.lane_search.LaneConfigs``. Returns its
+    TournamentResult; the search above it is ``hyperparameter/search_driver.py``.
+    """
+    from photon_ml_torch.algorithm.lane_search import run_lane_tournament
+
+    return run_lane_tournament(batch, task, configs, optimizer=optimizer,
+                               warm_start=warm_start, normalization=normalization,
+                               intercept_index=intercept_index, telemetry=telemetry)
 
 
 def _normalization_digest(norm) -> str | None:

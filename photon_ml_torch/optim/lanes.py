@@ -7,6 +7,12 @@ exactly the iteration it would follow alone (``optim/lbfgs.py``), and a
 per-lane done mask freezes finished lanes by ``torch.where`` in the outer
 loop and in the Wolfe line search. The loop ends when every lane is done;
 the host reads one flag per outer iteration and one per line-search trial.
+
+The tolerance may be a per-lane ``[lanes]`` tensor, and box bounds ``[d]``
+(shared) or ``[lanes, d]`` (per lane, ±inf where a lane has none): the
+configuration lanes of ``algorithm/lane_search.py`` vmap the single-vector
+solver with those per-lane arguments. A scalar and a uniform vector give
+the same bits.
 """
 
 from __future__ import annotations
@@ -63,25 +69,56 @@ def two_loop_direction_lanes(g, s_hist, y_hist, rho, count, head, pairs: int) ->
     return -r
 
 
+def lane_tolerance(tolerance, like: torch.Tensor):
+    """A per-lane tolerance as a tensor of the solve's dtype; a Python
+    scalar stays as it is."""
+    if isinstance(tolerance, torch.Tensor):
+        return tolerance.to(dtype=like.dtype, device=like.device)
+    return tolerance
+
+
 def minimize_lbfgs_lanes(
     value_and_grad_fn: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
     w0: torch.Tensor,
     *,
     max_iter: int = 100,
     history: int = 10,
-    tolerance: float = 1e-7,
+    tolerance: "float | torch.Tensor" = 1e-7,
     rel_function_tolerance: float | None = None,
     max_line_search_steps: int = 25,
+    lower_bounds: torch.Tensor | None = None,
+    upper_bounds: torch.Tensor | None = None,
 ) -> LaneResult:
     """Minimize ``lanes`` smooth functions at once. ``value_and_grad_fn``
     maps [lanes, d] coefficients to ([lanes] values, [lanes, d] gradients),
-    lane by lane independent. Box constraints are not batched."""
+    lane by lane independent. ``tolerance`` is a scalar or [lanes]. With
+    box bounds ([d] or [lanes, d]) every lane takes ``optim/lbfgs.py``'s
+    projected path: iterates projected onto the box, projected Armijo
+    backtracking and the projected-gradient convergence test."""
     lanes, d = w0.shape
     dtype, device = w0.dtype, w0.device
     m = history
-    w = w0
+    tolerance = lane_tolerance(tolerance, w0)
+    has_box = lower_bounds is not None or upper_bounds is not None
+    if has_box:
+        inf = torch.full((lanes, d), float("inf"), dtype=dtype, device=device)
+        lo = -inf if lower_bounds is None else torch.as_tensor(
+            lower_bounds, dtype=dtype, device=device).expand(lanes, d)
+        hi = inf if upper_bounds is None else torch.as_tensor(
+            upper_bounds, dtype=dtype, device=device).expand(lanes, d)
+
+    def project(v):
+        return torch.clamp(v, lo, hi) if has_box else v
+
+    def grad_norm(w, g):
+        if not has_box:
+            return torch.linalg.norm(g, dim=-1)
+        # norm of P(w - g) - w: zero iff w is box-stationary
+        return torch.linalg.norm(project(w - g) - w, dim=-1)
+
+    w = project(w0)
     f, g = value_and_grad_fn(w)
-    g0_norm = torch.linalg.norm(g, dim=-1)
+    g0_norm = grad_norm(w, g)
     s_hist = torch.zeros((lanes, m, d), dtype=dtype, device=device)
     y_hist = torch.zeros((lanes, m, d), dtype=dtype, device=device)
     rho = torch.zeros((lanes, m), dtype=dtype, device=device)
@@ -99,14 +136,19 @@ def minimize_lbfgs_lanes(
         if not any_lane(active):
             break
         direction = two_loop_direction_lanes(g, s_hist, y_hist, rho, count, head, min(step, m))
-        # not a descent direction: steepest descent
-        direction = torch.where(col(torch.sum(g * direction, dim=-1) >= 0.0), -g, direction)
         t_init = torch.where(count == 0,
                              1.0 / torch.clamp(torch.linalg.norm(g, dim=-1), min=1.0), 1.0)
-        ls_step, f_new, g_new, ls_ok = wolfe_line_search_lanes(
-            value_and_grad_fn, w, f, g, direction, t_init.to(dtype), active,
-            max_steps=max_line_search_steps)
-        w_new = w + col(ls_step) * direction
+        if has_box:
+            direction, w_new, f_new, g_new, ls_ok = _projected_step(
+                value_and_grad_fn, project, w, f, g, direction, t_init.to(dtype), active, lo,
+                hi, max_line_search_steps)
+        else:
+            # not a descent direction: steepest descent
+            direction = torch.where(col(torch.sum(g * direction, dim=-1) >= 0.0), -g, direction)
+            ls_step, f_new, g_new, ls_ok = wolfe_line_search_lanes(
+                value_and_grad_fn, w, f, g, direction, t_init.to(dtype), active,
+                max_steps=max_line_search_steps)
+            w_new = w + col(ls_step) * direction
         s = w_new - w
         y = g_new - g
         sy = torch.sum(s * y, dim=-1)
@@ -120,7 +162,7 @@ def minimize_lbfgs_lanes(
         count = torch.where(keep, torch.clamp(count + 1, max=m), count)
         head = torch.where(active, new_head, head)
 
-        gnorm = torch.linalg.norm(g_new, dim=-1)
+        gnorm = grad_norm(w_new, g_new)
         new_reason = torch.where(
             ls_ok,
             check_convergence_lanes(value=f_new, prev_value=f, grad_norm=gnorm,
@@ -136,5 +178,41 @@ def minimize_lbfgs_lanes(
 
     reason = torch.where(reason == _NOT_CONVERGED, int(ConvergenceReason.MAX_ITERATIONS),
                          reason).to(torch.int32)
-    return LaneResult(coefficients=w, value=f, gradient_norm=torch.linalg.norm(g, dim=-1),
+    return LaneResult(coefficients=w, value=f, gradient_norm=grad_norm(w, g),
                       iterations=iteration, reason=reason)
+
+
+def _projected_step(value_and_grad_fn, project, w, f, g, direction, t, active, lo, hi,
+                    max_steps: int):
+    """One box-constrained step per lane (``optim/lbfgs.py``'s projected
+    path): the direction masked where it pushes into an active bound, with
+    the masked steepest descent where it is no descent direction, then
+    projected Armijo backtracking in which a lane stops at its first
+    acceptable trial. Returns (direction, w_new, f_new, g_new, success)."""
+    col = lambda v: v.unsqueeze(-1)  # noqa: E731
+    eps_b = 1e-10
+    at_lo, at_hi = w <= lo + eps_b, w >= hi - eps_b
+
+    def unblocked(v):
+        return torch.where((at_lo & (v < 0.0)) | (at_hi & (v > 0.0)), torch.zeros_like(v), v)
+
+    direction = unblocked(direction)
+    direction = torch.where(col(torch.sum(g * direction, dim=-1) >= 0.0), unblocked(-g),
+                            direction)
+    c1 = 1e-4
+    w_new, f_new, g_new = w, f, g
+    ok_any = torch.zeros_like(active)
+    for _ in range(max_steps):
+        live = active & ~ok_any
+        if not any_lane(live):
+            break
+        cand = project(w + col(t) * direction)
+        f_t, g_t = value_and_grad_fn(cand)
+        decrease = torch.sum(g * (cand - w), dim=-1)
+        ok = (f_t <= f + c1 * decrease) & torch.isfinite(f_t) & (f_t < f)
+        w_new = torch.where(col(live), cand, w_new)
+        f_new = torch.where(live, f_t, f_new)
+        g_new = torch.where(col(live), g_t, g_new)
+        ok_any = ok_any | (live & ok)
+        t = torch.where(live, t * 0.5, t)
+    return direction, w_new, f_new, g_new, ok_any

@@ -35,8 +35,8 @@ class OptimizerType(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class LaneSchedulerConfig:
-    """Converged-lane scheduling for batched random-effect solves, carried
-    as plain configuration; the scheduler itself is not ported yet.
+    """Converged-lane scheduling for batched random-effect solves
+    (``algorithm/lane_scheduler.py``).
 
     probe_iterations: every lane solves this many iterations before the
         lanes still at MAX_ITERATIONS are re-run with the remaining budget.
@@ -62,7 +62,8 @@ class OptimizerConfig:
 
     ``rel_function_tolerance`` (None = reference behavior): a separate
     function-decrease stop threshold (optim/common.check_convergence).
-    ``scheduler``: lane scheduling for batched solves; ``solve`` ignores it.
+    ``scheduler``: probe/rescue lane scheduling of a random effect's batched
+    solves (``algorithm/lane_scheduler.py``); ``solve`` ignores it.
     """
 
     optimizer_type: OptimizerType = OptimizerType.LBFGS

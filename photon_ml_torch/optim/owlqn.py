@@ -35,7 +35,7 @@ from photon_ml_torch.optim.common import (
     run_while,
     update_history,
 )
-from photon_ml_torch.optim.lanes import two_loop_direction_lanes
+from photon_ml_torch.optim.lanes import lane_tolerance, two_loop_direction_lanes
 from photon_ml_torch.optim.lbfgs import two_loop_direction
 
 _NOT_CONVERGED = int(ConvergenceReason.NOT_CONVERGED)
@@ -196,22 +196,27 @@ def minimize_owlqn_lanes(
     value_and_grad_fn: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
     w0: torch.Tensor,
     *,
-    l1_weight: float,
+    l1_weight: "float | torch.Tensor",
     max_iter: int = 100,
     history: int = 10,
-    tolerance: float = 1e-7,
+    tolerance: "float | torch.Tensor" = 1e-7,
     rel_function_tolerance: float | None = None,
     max_line_search_steps: int = 30,
 ) -> LaneResult:
     """Minimize smooth(w) + l1_weight·‖w‖₁ for ``lanes`` independent
     problems at once. ``value_and_grad_fn`` maps [lanes, d] to ([lanes],
-    [lanes, d]) over the smooth part only. The host reads one flag per outer
-    iteration and one per backtracking step."""
+    [lanes, d]) over the smooth part only. ``l1_weight`` and ``tolerance``
+    are scalars or [lanes] tensors (a uniform vector gives a scalar's
+    bits). The host reads one flag per outer iteration and one per
+    backtracking step."""
     lanes, d = w0.shape
     dtype, device = w0.dtype, w0.device
     m = history
-    l1 = torch.tensor(l1_weight, dtype=dtype, device=device)
+    tolerance = lane_tolerance(tolerance, w0)
+    l1 = torch.as_tensor(l1_weight, dtype=dtype, device=device)
     col = lambda v: v.unsqueeze(-1)  # noqa: E731
+    # the pseudo-gradient's per-lane weight broadcasts over the columns
+    l1_cols = col(l1) if l1.dim() == 1 else l1
 
     def full_value(w, smooth_f):
         return smooth_f + l1 * torch.sum(torch.abs(w), dim=-1)
@@ -219,7 +224,7 @@ def minimize_owlqn_lanes(
     w = w0
     sf0, g = value_and_grad_fn(w)
     f = full_value(w, sf0)
-    g0_norm = torch.linalg.norm(pseudo_gradient(w, g, l1), dim=-1)
+    g0_norm = torch.linalg.norm(pseudo_gradient(w, g, l1_cols), dim=-1)
     s_hist = torch.zeros((lanes, m, d), dtype=dtype, device=device)
     y_hist = torch.zeros((lanes, m, d), dtype=dtype, device=device)
     rho = torch.zeros((lanes, m), dtype=dtype, device=device)
@@ -235,7 +240,7 @@ def minimize_owlqn_lanes(
         active = (iteration < max_iter) & (reason == _NOT_CONVERGED)
         if not any_lane(active):
             break
-        pg = pseudo_gradient(w, g, l1)
+        pg = pseudo_gradient(w, g, l1_cols)
         direction = two_loop_direction_lanes(pg, s_hist, y_hist, rho, count, head, min(step, m))
         # constrain the direction to the descent orthant of -pg; degenerate:
         # steepest descent on the pseudo-gradient
@@ -278,7 +283,7 @@ def minimize_owlqn_lanes(
         count = torch.where(keep, torch.clamp(count + 1, max=m), count)
         head = new_head
 
-        gnorm = torch.linalg.norm(pseudo_gradient(w_new, g_new, l1), dim=-1)
+        gnorm = torch.linalg.norm(pseudo_gradient(w_new, g_new, l1_cols), dim=-1)
         new_reason = torch.where(
             ls_ok,
             check_convergence_lanes(value=f_new, prev_value=f, grad_norm=gnorm,
@@ -295,5 +300,5 @@ def minimize_owlqn_lanes(
     reason = torch.where(reason == _NOT_CONVERGED, int(ConvergenceReason.MAX_ITERATIONS),
                          reason).to(torch.int32)
     return LaneResult(coefficients=w, value=f,
-                      gradient_norm=torch.linalg.norm(pseudo_gradient(w, g, l1), dim=-1),
+                      gradient_norm=torch.linalg.norm(pseudo_gradient(w, g, l1_cols), dim=-1),
                       iterations=iteration, reason=reason)

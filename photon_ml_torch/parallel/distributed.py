@@ -76,9 +76,13 @@ changes nothing.
 ``train_distributed`` and ``train_partitioned`` save and restore sweep
 checkpoints (``io/checkpoint.commit_checkpoint``), and a run of several
 ranks, partitioned or not, recovers through ``resilience.CoordinatedRecovery``
-on its exchange. The lane scheduler is not ported yet: ROADMAP.md item 18. Nothing
-is compiled: each coordinate's solve runs its lane loops as
-``GameEstimator.fit`` does.
+on its exchange. Nothing is compiled: each coordinate's solve runs its lane
+loops as ``GameEstimator.fit`` does. :meth:`GameTrainProgram.step_scheduled`
+is the sweep with probe/rescue lane scheduling on the random effects
+(``algorithm/lane_scheduler.py``), which both training functions take when a
+spec's optimizer carries a scheduler: each rank schedules its own lanes, with
+no collective inside the solve, and the solved rows are shared as in
+:meth:`GameTrainProgram.step`.
 """
 
 from __future__ import annotations
@@ -114,7 +118,6 @@ from photon_ml_torch.data.sparse_batch import (
     SparseShard,
     feature_product,
 )
-from photon_ml_torch.estimators import _not_ported
 from photon_ml_torch.io.checkpoint import (
     DivergenceError,
     commit_checkpoint,
@@ -859,6 +862,25 @@ class GameTrainProgram:
     def step(self, data, buckets, state: GameTrainState):
         """One full CD sweep. Returns (new_state, training_loss), the loss a
         0-dim tensor on the device."""
+        return self._sweep(data, buckets, state)
+
+    def step_scheduled(self, data, buckets, state: GameTrainState, *,
+                       schedulers: Mapping[str, object], final_sweep: bool = True):
+        """One full CD sweep with probe/rescue lane scheduling on the random
+        effects (``algorithm/lane_scheduler.py``): the recursion of
+        :meth:`step` in the same ``update_order``, each scheduled random
+        effect solved by its scheduler, which reads the per-lane flags
+        between the probe and the rescue and compacts the lanes still
+        running. The fixed effects solve as in :meth:`step` (B1 on a dense
+        block, G1 on a sparse one).
+
+        schedulers: RE type -> LaneScheduler, kept by the caller across
+        sweeps (its active set lives there); REs absent from it solve
+        unscheduled. Over a mesh each rank schedules its own lanes."""
+        return self._sweep(data, buckets, state, schedulers, final_sweep)
+
+    def _sweep(self, data, buckets, state: GameTrainState, schedulers=None,
+               final_sweep: bool = True):
         labels, weights = data["labels"], data["weights"]
         base_offsets = data["offsets"]
         layout: MeshLayout | None = data.get("mesh")
@@ -888,8 +910,14 @@ class GameTrainProgram:
                 full_offsets = offsets_excluding(name)
                 if layout is not None:
                     full_offsets = layout.gather(full_offsets)
-                tables[name] = self._solve_re(data, buckets, name, full_offsets, tables[name],
-                                              layout)
+                scheduler = (schedulers or {}).get(name)
+                if scheduler is None:
+                    tables[name] = self._solve_re(data, buckets, name, full_offsets,
+                                                  tables[name], layout)
+                else:
+                    tables[name] = self._solve_re_scheduled(buckets, name, full_offsets,
+                                                            tables[name], layout, scheduler,
+                                                            final_sweep)
                 if layout is not None and name not in layout.per_bucket:
                     tables[name] = layout.share(name, tables[name])
                 scores[name] = self._re_coordinate_score(
@@ -1086,6 +1114,25 @@ class GameTrainProgram:
                                         full_offsets, table)
             if per_bucket:
                 table = layout.share_bucket(k, i, table)
+        return table
+
+    def _solve_re_scheduled(self, buckets, k, full_offsets, table, layout, scheduler,
+                            final_sweep: bool):
+        """One RE coordinate through its lane scheduler (compaction across
+        buckets, so a mesh key that shares per bucket is refused)."""
+        if layout is not None and k in layout.per_bucket:
+            raise ValueError(
+                f"random-effect coordinate '{k}': the lane scheduler compacts lanes across "
+                "buckets, but over this mesh an entity has lanes in several buckets, whose "
+                "rows are shared after each bucket; drop its scheduler")
+        spec = self._re_by_name[k]
+        matrix = None
+        if spec.projector == ProjectorType.RANDOM:
+            matrix = torch.as_tensor(buckets["__projections__"][k], dtype=table.dtype,
+                                     device=table.device)
+        table, _traces, _stats = scheduler.solve(
+            self._re_solve_objectives[k], spec.optimizer, buckets[k], full_offsets, table,
+            projector=spec.projector, matrix=matrix, final_sweep=final_sweep)
         return table
 
     def _solve_mf(self, data, buckets, name, full_offsets, rows, cols):
@@ -1614,8 +1661,9 @@ def train_distributed(
     two of its barriers; ``resume_step`` pins the restore to one step (0:
     start from scratch).
 
-    A spec with a lane scheduler (ROADMAP.md item 18) raises
-    ``NotImplementedError`` before any data is prepared.
+    A spec whose optimizer carries a lane scheduler sweeps through
+    :meth:`GameTrainProgram.step_scheduled` (one scheduler per such RE type,
+    kept across the sweeps; ``make_schedulers``).
     """
     if mesh is not None:
         mesh_ops.check_data_mesh(mesh)
@@ -1625,9 +1673,9 @@ def train_distributed(
                          "mesh: GameTrainProgram(..., mesh=mesh)")
     if mesh is None and put_fn is not None:
         raise ValueError("put_fn places a rank's block and needs mesh=")
-    scheduled = [s.re_type for s in program.re_specs if s.optimizer.scheduler is not None]
-    if scheduled:
-        raise _not_ported(f"the lane scheduler (step_scheduled) on {scheduled}", 18)
+    from photon_ml_torch.algorithm.lane_scheduler import make_schedulers
+
+    schedulers = make_schedulers(program.re_specs) or None
 
     start_sweep = 0
     prior_losses: list[float] = []
@@ -1716,7 +1764,11 @@ def train_distributed(
                 data["fe_weight_multiplier"] = mult
             else:
                 data.setdefault("extra_fe_weight_multipliers", {})[key] = mult
-        state, loss = program.step(data, buckets, state)
+        if schedulers is not None:
+            state, loss = program.step_scheduled(data, buckets, state, schedulers=schedulers,
+                                                 final_sweep=sweep + 1 == num_iterations)
+        else:
+            state, loss = program.step(data, buckets, state)
         losses.append(float(loss))
         if check_finite and not np.isfinite(losses[-1]):
             raise DivergenceError(
@@ -1983,11 +2035,11 @@ def train_partitioned(
     explicit ``state`` takes precedence over a checkpoint. ``resume_step``
     pins the restore to one step (0: start from scratch).
 
-    ``schedulers`` (ROADMAP.md item 18) raise ``NotImplementedError`` before
-    any data is touched."""
-    if schedulers:
-        raise _not_ported(f"the lane scheduler of train_partitioned (schedulers on "
-                          f"{sorted(schedulers)})", 18)
+    schedulers: optional RE type -> ``algorithm.lane_scheduler.LaneScheduler``
+    (``make_schedulers``; one per rank): the sweeps then run through
+    :meth:`GameTrainProgram.step_scheduled`. A checkpointed run refuses
+    freeze tolerances: the cross-sweep active set is scheduler state the
+    checkpoint does not hold."""
     if program.mesh is not mesh:
         raise ValueError("train_partitioned needs the program built with the same mesh: "
                          "GameTrainProgram(..., mesh=mesh)")
@@ -1997,6 +2049,17 @@ def train_partitioned(
     if resume_step == 0:
         resume = False
     if checkpointer is not None:
+        freezing = sorted(k for k, sch in (schedulers or {}).items()
+                          if getattr(getattr(sch, "config", None), "freezes", False))
+        if freezing:
+            # a restart would probe every lane again and leave the
+            # uninterrupted run's path
+            raise ValueError(
+                "partitioned checkpointing cannot yet resume cross-sweep "
+                f"active-set state (freeze tolerances set on {freezing}); "
+                "drop scheduler.freeze.tolerance/scheduler.freeze.gradient "
+                "(probe/rescue scheduling resumes exactly) or disable "
+                "checkpointing for this run")
         fingerprint = _partition_fingerprint(program, parts, num_ranks)
         if resume and state is None:
             ckpt = checkpointer.restore(step=resume_step if resume_step else None)
@@ -2025,7 +2088,11 @@ def train_partitioned(
                                                    exchange=exchange,
                                                    fe_feature_sharded=fe_feature_sharded)
     for sweep in range(start_sweep, num_iterations):
-        st, loss = program.step(data, buckets, st)
+        if schedulers:
+            st, loss = program.step_scheduled(data, buckets, st, schedulers=schedulers,
+                                              final_sweep=sweep + 1 == num_iterations)
+        else:
+            st, loss = program.step(data, buckets, st)
         losses.append(float(loss))
         if check_finite and not np.isfinite(losses[-1]):
             raise DivergenceError(

@@ -211,14 +211,20 @@ def test_model_coordinate_and_base_class():
 
 
 def test_random_effect_scheduler_raises():
+    """The lane scheduler is ported (it raised while it waited for item 18):
+    a scheduled update matches the JAX package's."""
     a = game_arrays(7)
     jd, td = datasets(a)
-    _, tc = _re_pair(a, jd, td, "LOGISTIC_REGRESSION", "LBFGS")
+    jc, tc = _re_pair(a, jd, td, "LOGISTIC_REGRESSION", "LBFGS")
     opt = dataclasses.replace(tc.config.optimizer, scheduler=TScheduler(probe_iterations=2))
     tc = dataclasses.replace(tc, config=dataclasses.replace(tc.config, optimizer=opt))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 18"):
-        tc.update_model(tc.initial_model(), None)
-    assert JScheduler(probe_iterations=2).probe_iterations == opt.scheduler.probe_iterations
+    jopt = dataclasses.replace(jc.config.optimizer, scheduler=JScheduler(probe_iterations=2))
+    jc = dataclasses.replace(jc, config=dataclasses.replace(jc.config, optimizer=jopt))
+    jm, jinfo = jc.update_model(jc.initial_model(), None)
+    tm, tinfo = tc.update_model(tc.initial_model(), None)
+    _assert_close(tm.coefficients, jm.coefficients)
+    _assert_traces_equal(jinfo, tinfo)
+    assert tc._scheduler.last_stats.lanes_probed > 0
 
 
 def test_fixed_effect_on_a_sparse_shard_matches():

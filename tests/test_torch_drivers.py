@@ -275,8 +275,10 @@ GAME_LEFT_OUT = [
     # and --duhl-working-set without it is the JAX driver's ValueError
     (["--streaming-chunks", "64"], None),
     (["--duhl-working-set", "2"], ValueError), (["--checkpoint-dir", "ck"], None),
-    (["--max-restarts", "2"], None), (["--incremental-refresh"], "item 18"),
-    (["--hyperparameter-tuning", "BAYESIAN"], "item 18"), (["--telemetry-dir", "t"], "item 19"),
+    # the refresh needs a resident model and tuning needs evaluators (the
+    # JAX driver's ValueErrors); the lane scheduler gets past every refusal
+    (["--max-restarts", "2"], None), (["--incremental-refresh"], ValueError),
+    (["--hyperparameter-tuning", "BAYESIAN"], ValueError), (["--telemetry-dir", "t"], "item 19"),
     (["--trace-dir", "t"], "item 19"), (["--profile-dir", "t"], "item 19"),
     (["--input-format", "libsvm"], None), (["--input-date-range", "1-2"], ValueError),
     (["--coordinate-configurations",
@@ -284,7 +286,7 @@ GAME_LEFT_OUT = [
      None),
     (["--feature-shard-configurations", "name=sp,feature.bags=features,sparse=true"], None),
     (["--coordinate-configurations",
-      "name=s,feature.shard=userShard,random.effect.type=userId,scheduler=true"], "item 18"),
+      "name=s,feature.shard=userShard,random.effect.type=userId,scheduler=true"], None),
 ]
 
 
@@ -316,10 +318,11 @@ def _raises_for(item, run, missing=FileNotFoundError, match=None):
 
 
 GLM_LEFT_OUT = [
-    # streaming, checkpoints (streaming only) and restarts are ported
+    # streaming, checkpoints (streaming only) and restarts are ported, and
+    # so are the grid lanes and the model search (which needs its space)
     (["--streaming-chunks", "8"], None), (["--checkpoint-dir", "c"], ValueError),
-    (["--max-restarts", "1"], None), (["--grid-parallel"], "item 18"),
-    (["--search-rounds", "2"], "item 18"), (["--enable-diagnostics"], "item 19"),
+    (["--max-restarts", "1"], None), (["--grid-parallel"], None),
+    (["--search-rounds", "2"], ValueError), (["--enable-diagnostics"], "item 19"),
     (["--num-bootstraps", "3"], "item 19"), (["--telemetry-dir", "t"], "item 19"),
     (["--trace-dir", "t"], "item 19"), (["--input-format", "libsvm"], None),
 ]

@@ -1,10 +1,9 @@
 """What the fused program refuses, held against the JAX package on the CPU:
 every ValueError of its input preparation (``_data_pytree``,
 ``_buckets_pytree``, the compact entry mappings) and of
-``GameTrainProgram.__init__`` with the JAX message's key words; the parts
-not ported yet (the lane scheduler) raising ``NotImplementedError`` with
-their ROADMAP item, and a foreign checkpoint refused, before any data is
-touched;
+``GameTrainProgram.__init__`` with the JAX message's key words; a foreign
+checkpoint refused before any data is touched, and a scheduled spec (the
+lane scheduler, ported) going on to the data;
 ``DivergenceError`` on a non-finite loss; AUTO resolution; and the
 observers of ``train_distributed`` (``on_sweep``, the training evaluator)."""
 
@@ -187,7 +186,8 @@ class _ModelAxisMesh:
 # a model-axis mesh the program was not built for, fe_feature_sharded that
 # the program was not built with, put_fn without a mesh, and a checkpoint
 # that is not the fused program's (checkpoints are ported, item 16) are
-# usage errors; the lane scheduler waits with item 18
+# usage errors; a scheduled spec (item 18, ported) is no longer refused: it
+# reads the data
 REFUSALS = [({"mesh": _ModelAxisMesh()}, "the same mesh"),
             ({"mesh": _ModelAxisMesh(), "fe_feature_sharded": True}, "the same mesh and flag"),
             ({"put_fn": lambda a, s: a}, "put_fn"),
@@ -216,7 +216,7 @@ def test_refusals_come_before_any_data(option, item, tmp_path):
         with pytest.raises(ValueError, match=item):
             tdist.train_distributed(prog, _Untouchable(), _Untouchable(), **kw)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    with pytest.raises(AssertionError, match="the dataset was used"):
         tdist.train_distributed(prog, _Untouchable(), _Untouchable(), **kw)
 
 

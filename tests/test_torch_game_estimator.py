@@ -60,6 +60,7 @@ def _projected_estimators(lanes: str, norm: str, *, l1: float = 0.0, tolerance: 
     ``user`` options (projector, width, Pearson ratio) and ``lanes``, and an
     IDENTITY per-item effect with Newton lanes."""
     from photon_ml_tpu import estimators as jest
+    from photon_ml_tpu import estimators as jest
     from photon_ml_tpu.algorithm.coordinates import CoordinateOptimizationConfig as JCfg
     from photon_ml_tpu.ops.normalization import NormalizationType as JNorm
     from photon_ml_tpu.optim.optimizer import OptimizerConfig as JOpt
@@ -155,6 +156,7 @@ def test_fit_in_float32_runs_and_improves():
 
 def test_fit_with_a_sparse_fixed_effect_shard_matches():
     from photon_ml_tpu import estimators as jest
+    from photon_ml_tpu import estimators as jest
     from photon_ml_tpu.algorithm.coordinates import CoordinateOptimizationConfig as JCfg
     from photon_ml_tpu.data import game_data as jgd
     from photon_ml_tpu.data.sparse_batch import SparseShard as JShard
@@ -206,12 +208,29 @@ def _lbfgs(**kw):
     (_re_config(optimization=_lbfgs(scheduler=LaneSchedulerConfig())), {}, 18),
 ], ids=["lane-scheduler"])
 def test_coordinates_outside_the_slice_raise(config, options, item):
-    _, td = datasets(game_arrays(3, n=200))
+    """The coordinate kinds that waited for an item are ported: a
+    lane-scheduled random effect (item 18) now fits, and matches the JAX
+    package's scheduled fit."""
+    from photon_ml_tpu import estimators as jest
+    from photon_ml_tpu.algorithm.coordinates import CoordinateOptimizationConfig as JCfg
+    from photon_ml_tpu.optim.optimizer import LaneSchedulerConfig as JSched
+    from photon_ml_tpu.optim.optimizer import OptimizerConfig as JOpt
+    from photon_ml_tpu.optim.optimizer import OptimizerType as JType
+
+    jd, td = datasets(game_arrays(3, n=200))
+    jopt = JCfg(optimizer=JOpt(JType.LBFGS, max_iterations=3), l2_weight=1.0)
+    jsched = JCfg(optimizer=JOpt(JType.LBFGS, max_iterations=3, scheduler=JSched()),
+                  l2_weight=1.0)
+    jr = jest.GameEstimator(
+        task=JTask.LOGISTIC_REGRESSION, use_pallas=False,
+        coordinate_configs={"fixed": jest.FixedEffectCoordinateConfig("global", jopt),
+                            "other": jest.RandomEffectCoordinateConfig("user", "per_entity",
+                                                                       jsched)}).fit(jd)
     est = test_.GameEstimator(task=TTask.LOGISTIC_REGRESSION,
                               coordinate_configs={"fixed": test_.FixedEffectCoordinateConfig(
                                   "global", _lbfgs()), "other": config}, **options)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        est.fit(td)
+    assert item == 18 and config.optimization.optimizer.scheduler is not None
+    assert_models_close(jr.model, est.fit(td).model)
 
 
 @pytest.mark.parametrize("field,item", [("checkpointer", 16), ("telemetry", 19)])

@@ -50,6 +50,9 @@ CASES = {
     # shared after every bucket
     "spanning_buckets": ("dense", dict(num_files=4, clustered=False, uneven=True,
                                        users_per_file=6), dict(), dict()),
+    # lane-scheduled per-user solves: each rank compacts its own stragglers
+    "scheduled": ("dense", dict(num_files=4, seed=7), dict(scheduler={"probe_iterations": 2}),
+                  dict()),
 }
 
 
@@ -94,6 +97,19 @@ def test_partitioned_matches_the_full_read(runs, case):
         assert r["read"]["presence"]["userId"].max() == 1
         np.testing.assert_allclose(r["losses"], r["full"]["losses"], rtol=1e-10)
         MP.assert_states_close(r["state"], r["full"]["state"], 1e-10)
+
+
+def test_scheduled_ranks_probe_and_rescue_their_own_lanes(runs):
+    """Two ranks of the lane-scheduled program (the JAX package's state, in
+    the test above): every rank probed its own lanes and rescued some, with
+    no all-gather more than the unscheduled program makes (the all-reduces
+    are the fixed effect's evaluations, which the data decides)."""
+    for r, plain in zip(runs["port"]["scheduled"], runs["port"]["dense"]):
+        stats = r["scheduler_stats"]["userId"]
+        assert stats["lanes_probed"] == stats["lanes_total"] > 0
+        assert stats["lanes_rescued"] > 0 and stats["rescue_blocks"] > 0
+        assert r["collectives"]["all_gather"]["calls"] \
+            == plain["collectives"]["all_gather"]["calls"]
 
 
 def test_spanning_entities_take_the_last_lane(runs):
@@ -236,10 +252,10 @@ def test_partitioned_guards_match_the_jax_package():
         assert messages[0] == messages[1]
 
 
-#: checkpoints and resume are ported (item 16): each option now trains
+#: checkpoints and resume (item 16) and schedulers (item 18) are ported: each option now trains
 REFUSALS = [("checkpointer", "a checkpointer", None),
             ("resume", False, None), ("resume_step", 3, None),
-            ("checkpoint_every", 2, None), ("schedulers", {"userId": object()}, "item 18")]
+            ("checkpoint_every", 2, None), ("schedulers", "a scheduler", None)]
 
 
 @pytest.mark.parametrize("option,value,item", REFUSALS, ids=[r[0] for r in REFUSALS])
@@ -254,6 +270,11 @@ def test_train_partitioned_refuses_before_any_data(group_of_one, option, value, 
 
         if option == "checkpointer":
             value = TrainingCheckpointer(tmp_path / "ck")
+        if option == "schedulers":  # the lane scheduler is ported (item 18)
+            from photon_ml_torch.algorithm.lane_scheduler import LaneScheduler
+            from photon_ml_torch.optim.optimizer import LaneSchedulerConfig
+
+            value = {"userId": LaneScheduler(LaneSchedulerConfig())}
         path = PP.write_input(tmp_path / "in", num_files=2)
         parts, ex = PP.tread_ranks(path, PP.CONFIGS["dense"], 1)
         prog = W.build_program(PP.program(res=False), group_of_one)

@@ -11,6 +11,7 @@ parsers'."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -297,6 +298,9 @@ def test_spanning_entity_fails_fast_with_the_reference_message():
 
 
 def test_mesh_and_the_lane_scheduler_are_refused():
+    """The mesh is refused; the lane scheduler is ported (item 18): a
+    fixed-effect spec that carries one builds, as in the JAX package, where
+    only random effects schedule."""
     from photon_ml_torch.optim.optimizer import LaneSchedulerConfig, OptimizerConfig
     from photon_ml_torch.parallel.distributed import FixedEffectStepSpec
     from photon_ml_torch.types import TaskType
@@ -305,8 +309,26 @@ def test_mesh_and_the_lane_scheduler_are_refused():
     with pytest.raises(ValueError, match="no counterpart"):
         SG.program("torch", tsrc, mesh=object())
     fe = FixedEffectStepSpec("global", OptimizerConfig(scheduler=LaneSchedulerConfig()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 18"):
-        tsg.StreamingGameProgram(TaskType.LOGISTIC_REGRESSION, tsrc, fe, device="cpu")
+    prog = tsg.StreamingGameProgram(TaskType.LOGISTIC_REGRESSION, tsrc, fe, device="cpu")
+    assert prog.fe.optimizer.scheduler is not None and prog._lane_schedulers == {}
+
+
+@pytest.mark.parametrize("freeze", [0.0, 0.3], ids=["no-freeze", "freeze"])
+def test_scheduled_streamed_sweeps_match_the_jax_program(freeze):
+    """One lane scheduler per (RE type, chunk), in both packages: the same
+    state, losses and chunk visits, with the probe and rescue run."""
+    sched = dict(probe_iterations=2, freeze_coefficient_tolerance=freeze,
+                 freeze_gradient_tolerance=freeze)
+    (jprog, jres), (tprog, tres) = _train_both(SG.game_arrays(), scheduler=sched, max_iter=10)
+    SG.assert_states_close(tres.state, jres.state, 1e-8)
+    np.testing.assert_allclose(tres.losses, jres.losses, rtol=1e-8)
+    assert tres.chunk_visits == jres.chunk_visits
+    assert sorted(tprog._lane_schedulers) == sorted(
+        (k, int(c)) for k, c in jprog._lane_schedulers)
+    for key, sch in tprog._lane_schedulers.items():
+        jsch = jprog._lane_schedulers[key]
+        assert dataclasses.asdict(sch.total_stats) == dataclasses.asdict(jsch.total_stats)
+    assert sum(s.total_stats.lanes_rescued for s in tprog._lane_schedulers.values()) > 0
 
 
 def test_checkpoint_of_another_schedule_fails_naming_the_field(tmp_path):

@@ -92,7 +92,12 @@ def jdataset(a: dict, vocabs=None):
 
 
 def _opt(spec):
+    from photon_ml_tpu.optim.optimizer import LaneSchedulerConfig
+
     kind, iters, kw = spec
+    kw = dict(kw)
+    if isinstance(kw.get("scheduler"), dict):  # a lane scheduler's fields
+        kw["scheduler"] = LaneSchedulerConfig(**kw["scheduler"])
     return OptimizerConfig(optimizer_type=OptimizerType[kind], max_iterations=iters, **kw)
 
 

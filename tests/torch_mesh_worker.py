@@ -119,9 +119,16 @@ def _rank_main(rank: int, world: int, tmp: str, device: str = "cpu",
 
 
 def _opt(spec):
-    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.optim.optimizer import (
+        LaneSchedulerConfig,
+        OptimizerConfig,
+        OptimizerType,
+    )
 
     kind, iters, kw = spec
+    kw = dict(kw)
+    if isinstance(kw.get("scheduler"), dict):  # a lane scheduler's fields
+        kw["scheduler"] = LaneSchedulerConfig(**kw["scheduler"])
     return OptimizerConfig(optimizer_type=OptimizerType[kind], max_iterations=iters, **kw)
 
 
@@ -662,9 +669,15 @@ def _task_partitioned_train(t, rank, world, tmp):
     prog = build_program(t["program"], mesh, sharded)
     M.counts.reset()
     out = {"read": read_numpy(part)}
+    from photon_ml_torch.algorithm.lane_scheduler import make_schedulers
+
+    schedulers = make_schedulers(prog.re_specs) or None
     result = tdist.train_partitioned(prog, {rank: (part.result.dataset, res)}, mesh, world,
                                      num_iterations=t.get("sweeps", 2), exchange=ex,
-                                     fe_feature_sharded=sharded)
+                                     fe_feature_sharded=sharded, schedulers=schedulers)
+    if schedulers:
+        out["scheduler_stats"] = {k: dataclasses.asdict(v.total_stats)
+                                  for k, v in schedulers.items()}
     out.update(losses=result.losses, state=state_numpy(prog.whole_state(result.state)),
                block=state_numpy(result.state) if sharded else None,
                collectives=M.counts.snapshot(),

@@ -212,12 +212,16 @@ def assert_reads_equal(got: dict, ref: dict, *, layout: bool = True) -> None:
             np.testing.assert_array_equal(got["presence"][k], ref["presence"][k])
 
 
-def program(task: str = "LINEAR_REGRESSION", *, bucket_sizes=(8, 32, 128), res=True) -> dict:
+def program(task: str = "LINEAR_REGRESSION", *, bucket_sizes=(8, 32, 128), res=True,
+            scheduler: dict | None = None) -> dict:
     """A worker program spec: a fixed effect on ``global`` and a per-user
-    effect on ``perUser`` (L-BFGS, a few iterations)."""
+    effect on ``perUser`` (L-BFGS, a few iterations); ``scheduler`` (the
+    LaneSchedulerConfig fields) schedules the per-user lanes."""
     lbfgs = ("LBFGS", 8, {})
+    re_opt = lbfgs if scheduler is None else (
+        "LBFGS", 8, {"rel_function_tolerance": 1e-6, "scheduler": dict(scheduler)})
     return dict(task=task, fe_shard="global", fe_opt=lbfgs, fe_l2=0.5,
-                res=[dict(type="userId", shard="perUser", opt=lbfgs, l2=1.0)] if res else [],
+                res=[dict(type="userId", shard="perUser", opt=re_opt, l2=1.0)] if res else [],
                 bucket_sizes=tuple(bucket_sizes))
 
 
@@ -241,8 +245,11 @@ def jtrain_partitioned(path, spec: dict, p: dict, *, num_ranks: int = 2, sweeps:
     re_parts = on_threads(num_ranks, build)
     from photon_ml_tpu.parallel.distributed import train_partitioned
 
+    from photon_ml_tpu.algorithm.lane_scheduler import make_schedulers
+
     prog = MP.jprogram(p, mesh)
     res = train_partitioned(prog, {r: (parts[r].result.dataset, re_parts[r])
                                    for r in range(num_ranks)}, mesh, num_ranks,
-                            num_iterations=sweeps)
+                            num_iterations=sweeps,
+                            schedulers=make_schedulers(prog.re_specs, mesh=mesh) or None)
     return res, prog, parts, re_parts

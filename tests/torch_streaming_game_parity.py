@@ -91,17 +91,33 @@ def write_avro(base, records, block_records: int = 16, name: str = "train") -> s
 
 
 def specs(pkg: str, *, fe_shard="global", re_shard="per_entity", re_type="user",
-          max_iter: int = 8, fe_l2: float = 0.1, re_l2: float = 1.0, re_max_iter=None):
-    """(FixedEffectStepSpec, (RandomEffectStepSpec,)) of one package, L-BFGS."""
+          max_iter: int = 8, fe_l2: float = 0.1, re_l2: float = 1.0, re_max_iter=None,
+          scheduler: dict | None = None):
+    """(FixedEffectStepSpec, (RandomEffectStepSpec,)) of one package, L-BFGS;
+    ``scheduler`` (LaneSchedulerConfig fields) schedules the RE lanes, with
+    a live function stop at 1e-6."""
     if pkg == "jax":
-        from photon_ml_tpu.optim.optimizer import OptimizerConfig, OptimizerType
+        from photon_ml_tpu.optim.optimizer import (
+            LaneSchedulerConfig,
+            OptimizerConfig,
+            OptimizerType,
+        )
         from photon_ml_tpu.parallel.distributed import FixedEffectStepSpec, RandomEffectStepSpec
     else:
-        from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+        from photon_ml_torch.optim.optimizer import (
+            LaneSchedulerConfig,
+            OptimizerConfig,
+            OptimizerType,
+        )
         from photon_ml_torch.parallel.distributed import FixedEffectStepSpec, RandomEffectStepSpec
     opt = OptimizerConfig(optimizer_type=OptimizerType.LBFGS, max_iterations=max_iter)
     re_opt = OptimizerConfig(optimizer_type=OptimizerType.LBFGS,
                              max_iterations=re_max_iter or max_iter)
+    if scheduler is not None:
+        re_opt = OptimizerConfig(optimizer_type=OptimizerType.LBFGS,
+                                 max_iterations=re_max_iter or max_iter,
+                                 rel_function_tolerance=1e-6,
+                                 scheduler=LaneSchedulerConfig(**scheduler))
     return (FixedEffectStepSpec(fe_shard, opt, l2_weight=fe_l2),
             (RandomEffectStepSpec(re_type, re_shard, re_opt, l2_weight=re_l2),))
 
@@ -109,7 +125,7 @@ def specs(pkg: str, *, fe_shard="global", re_shard="per_entity", re_type="user",
 def program(pkg: str, source, task: str = "LOGISTIC_REGRESSION", schedule=None, **kw):
     """A StreamingGameProgram of one package over ``source``."""
     spec_kw = {k: kw.pop(k) for k in ("fe_shard", "re_shard", "re_type", "max_iter", "fe_l2",
-                                      "re_l2", "re_max_iter") if k in kw}
+                                      "re_l2", "re_max_iter", "scheduler") if k in kw}
     fe, res = specs(pkg, **spec_kw)
     if pkg == "jax":
         from photon_ml_tpu.algorithm.streaming_game import StreamingGameProgram
