@@ -435,6 +435,32 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    16(a)'s streamed flagship, per-user scheduled against unscheduled, 2
    sweeps: final losses within 1e-5 rel. Its launches and checks join the
    kernels line's ``search_path``.
+19. Telemetry and diagnostics (``TELEMETRY``; ``diagnostics/``,
+   ``telemetry/``, the drivers' item-19 flags): (a) phase 4's generator and
+   widths (2^18 + 2^16 rows, d=512, standardized), the diagnostic report of
+   the better of λ ∈ {1, 10} with 8 bootstraps and the 5 default fitting
+   portions: its seconds, refits, the Hosmer-Lemeshow statistic, Kendall's
+   tau and the unstable coefficients; B1's launches equal to the refits'
+   evaluations, exactly; B1 held on a bootstrap's reweighted batch. (b) the
+   same report at 2^14 rows with 4 bootstraps, standardized and solved to
+   convergence, on the card in f32 against the CPU in f64: every refit's
+   coefficients within 1e-3·max|w| and every metric of the report within
+   1e-4. (c) the GLM driver on phase 8's GLM Avro with
+   ``--enable-diagnostics --num-bootstraps 4 --telemetry-dir --trace-dir``
+   against the run without them: the report files, the journal read back,
+   the training phase's ``solver/iteration`` spans equal to the journal's
+   iterations, the model files bitwise. (d) the GAME training driver on the
+   flagship's cut Avro, 2 sweeps: plain, with ``--telemetry-dir
+   --trace-dir``, plain again and with ``--profile-dir`` too: the model
+   files bitwise, the lane loops' host reads equal, the profiler's
+   ``packed_glm_partials_kernel`` events equal to the launch counter, the
+   seconds against the warm plain run; P6 held on the driver's fixed
+   effect. (e) the scoring driver with and without telemetry (scores
+   bitwise) and the serve driver with it (its counters in the journal). (f)
+   phase 13(e)'s training driver runs with ``--trace-dir --telemetry-dir``:
+   a trace file a rank, and the straggler report naming every exchange tag
+   either trace waited on. Its launches and checks join the kernels line's
+   ``telemetry_path``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -5357,15 +5383,17 @@ def _full_read_layout(np, shard, partition, world: int) -> dict:
 
 def _partitioned_drivers(rank: int, tmp: Path, job: dict) -> dict:
     """Phase 13(e) on one rank: the GAME training driver with
-    ``--partitioned-io --distributed`` on the flagship's cut Avro, then the
-    scoring driver the same way on the held-out rows (each rank its part)."""
+    ``--partitioned-io --distributed`` on the flagship's cut Avro (with
+    ``--trace-dir`` and ``--telemetry-dir``: phase 19(f)), then the scoring
+    driver the same way on the held-out rows (each rank its part)."""
     from photon_ml_torch.cli import game_scoring_driver, game_training_driver
 
     t0 = time.perf_counter()
     train = game_training_driver.main([
         "--input-data-path", job["train"], "--root-output-dir", str(tmp / "part"),
         "--task-type", "LOGISTIC_REGRESSION", *job["shards"], *job["coordinates"],
-        "--coordinate-descent-iterations", "2", "--partitioned-io", "--distributed"],
+        "--coordinate-descent-iterations", "2", "--partitioned-io", "--distributed",
+        "--trace-dir", str(tmp / "trace"), "--telemetry-dir", str(tmp / "telemetry")],
         device=job["device"])
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5376,6 +5404,30 @@ def _partitioned_drivers(rank: int, tmp: Path, job: dict) -> dict:
     return {"rank": rank, "train_seconds": train_s, "score_seconds": time.perf_counter() - t0,
             "timings": {k: v["total"] for k, v in train["timings"].items()},
             "score": {k: v for k, v in score.items() if k != "evaluations"}}
+
+
+def _rank_traces(out: Path) -> dict:
+    """Phase 19(f), from phase 13(e)'s training run: each rank's trace file,
+    rank 0's journal, and its straggler report merged over both ranks
+    naming every exchange tag either rank's trace shows a wait on."""
+    from photon_ml_torch.telemetry import read_journal
+    from photon_ml_torch.telemetry.tracing import normalize_tag
+
+    files = sorted(p.name for p in (out / "trace").iterdir())
+    assert files == ["trace-00000.json", "trace-00001.json"], files
+    traces = [json.loads((out / "trace" / f).read_text()) for f in files]
+    assert [t["otherData"]["rank"] for t in traces] == [0, 1]
+    rows = read_journal(out / "telemetry" / "run-journal.jsonl")
+    report = [r for r in rows if r["kind"] == "straggler_report"]
+    assert len(report) == 1 and report[0]["num_ranks"] == 2 and "partial" not in report[0], \
+        report
+    waited = {normalize_tag(e["args"]["tag"]) for t in traces for e in t["traceEvents"]
+              if e.get("name") in ("exchange/allgather", "exchange/barrier")}
+    named = {r["tag"] for r in report[0]["tags"]}
+    assert waited and named == waited, (sorted(named ^ waited))
+    return {"files": files, "events": [len(t["traceEvents"]) for t in traces],
+            "journal_rows": len(rows), "tags": len(named),
+            "stragglers": {r["tag"]: r["straggler_rank"] for r in report[0]["tags"][:5]}}
 
 
 def _partitioned_rank_main(rank: int, world: int, seed: int, device_type: str,
@@ -5680,6 +5732,7 @@ def _partitioned_slice(torch, np, seed: int, dev, card: str) -> dict:
              + f"; the two ranks' jobs (a)-(e) {seconds:.2f} s with process start")
         assert all(g <= 1e-3 * s for g, s in gaps.values()), gaps
         assert parts == ["part-00000.avro", "part-00001.avro"] and got == want
+        _SHARED["partitioned_traces"] = _rank_traces(out)
         summary["drivers"] = {"coefficient_gaps": gaps, "byte_identical": len(same),
                               "seconds": seconds, "full_training_seconds": full_s}
     multihost.shutdown()
@@ -9578,6 +9631,502 @@ def _search_slice(torch, np, seed: int, dev, card: str) -> dict:
     return path
 
 
+#: phase 19, telemetry and diagnostics (ROADMAP item 19, step 1): (a) phase
+#: 4's generator and widths (2^18 training rows, d=512, with 2^16 held-out
+#: rows of the same draw), the diagnostic report of the better of λ ∈ {1, 10}
+#: with 8 bootstraps and the default fitting portions; (b) the same report at
+#: 2^14 rows with 4 bootstraps, on the card in f32 and on the CPU in f64;
+#: (c)-(e) the drivers with their telemetry flags on phase 8's GLM Avro and
+#: the flagship's cut Avro; (f) is phase 13's two-rank driver run
+TELEMETRY = dict(n=1 << 18, d=512, held_out=1 << 16, lambdas=(1.0, 10.0), iterations=20,
+                 bootstraps=8, small_n=1 << 14, small_bootstraps=4, glm_bootstraps=4,
+                 serve_requests=512)
+
+
+def _refit_recorder(train):
+    """``train_fn_for_lambda`` of ``build_diagnostic_report`` that keeps each
+    refit's (batch, model) in call order: the fitting portions, then the
+    bootstraps."""
+    refits = []
+
+    def for_lambda(lam):
+        def fit(batch):
+            model = train(batch, lam)
+            refits.append((batch, model))
+            return model
+
+        return fit
+
+    return for_lambda, refits
+
+
+def _report_metrics(report) -> dict:
+    """The report's metric values by name: the validation table, the
+    learning curves' points and the bootstrap metric summaries."""
+    from photon_ml_torch.diagnostics.reporting import LineChart, Table
+
+    out = {}
+    for chapter in report.chapters:
+        for section in chapter.sections:
+            for item in section.items:
+                if isinstance(item, LineChart):
+                    for series, ys in item.series.items():
+                        for x, y in zip(item.x, ys):
+                            out[f"{item.title}/{series}/{x}"] = float(y)
+                elif isinstance(item, Table) and chapter.title in ("Model summary and metrics",
+                                                                   "Bootstrap analysis") \
+                        and section.title != "Coefficient stability":
+                    for row in item.rows:
+                        for h, v in zip(item.headers[1:], row[1:]):
+                            out[f"{section.title}/{row[0]}/{h}"] = float(v)
+    return out
+
+
+def _unstable_count(report) -> int:
+    for chapter in report.chapters:
+        if chapter.title == "Bootstrap analysis":
+            text = chapter.sections[1].items[0].body
+            return int(text.split(" of ")[0])
+    raise AssertionError("the report has no bootstrap chapter")
+
+
+def _telemetry_diagnostics(torch, np, seed: int, dev, card: str) -> dict:
+    """19(a): the diagnostic report at phase 4's width, in memory; B1
+    launches equal to the refits' evaluations, exactly; B1 held against
+    its plain version on a bootstrap's reweighted batch."""
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.diagnostics.fitting import DEFAULT_PORTIONS
+    from photon_ml_torch.diagnostics.hosmer_lemeshow import hosmer_lemeshow
+    from photon_ml_torch.diagnostics.independence import kendall_tau_independence
+    from photon_ml_torch.diagnostics.metrics import evaluate_model
+    from photon_ml_torch.diagnostics.report_builder import build_diagnostic_report
+    from photon_ml_torch.estimators import train_glm
+    from photon_ml_torch.ops import fused_glm, objective
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.ops.normalization import (
+        NormalizationContext,
+        NormalizationType,
+        build_normalization,
+    )
+    from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+    from photon_ml_torch.types import TaskType
+
+    cfg = TELEMETRY
+    n, d, nv = cfg["n"], cfg["d"], cfg["held_out"]
+    task = TaskType.LOGISTIC_REGRESSION
+    x, y = _dataset(np, seed, n + nv, d)
+    train = LabeledPointBatch.create(x[:n], y[:n], device=dev)
+    val = LabeledPointBatch.create(x[n:], y[n:], device=dev)
+    del x, y
+    xd = train.features.double()
+    norm = build_normalization(NormalizationType.STANDARDIZATION, mean=xd.mean(0),
+                               variance=xd.var(0), max_magnitude=xd.abs().amax(0),
+                               intercept_index=d - 1)
+    norm = NormalizationContext(norm.factors.float(), norm.shifts.float())
+    del xd
+    opt = OptimizerConfig(OptimizerType.LBFGS, max_iterations=cfg["iterations"])
+
+    def fit(batch, lam):
+        return train_glm(batch, task, optimizer=opt, regularization_weights=(lam,),
+                         normalization=norm, intercept_index=d - 1)[lam]
+
+    models = train_glm(train, task, optimizer=opt, regularization_weights=cfg["lambdas"],
+                       normalization=norm, intercept_index=d - 1)
+    metrics = {lam: evaluate_model(m, val) for lam, m in models.items()}
+    best = max(metrics, key=lambda lam: metrics[lam]["AUC"])
+    for_lambda, refits = _refit_recorder(fit)
+    evaluations = [0]
+    value_and_gradient = objective.GLMObjective.value_and_gradient
+
+    def counted(self, coefficients, batch):
+        evaluations[0] += int(self._kernel_enabled(batch))
+        return value_and_gradient(self, coefficients, batch)
+
+    objective.GLMObjective.value_and_gradient = counted
+    fused_glm.launches = fused_glm.reduce_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        report = build_diagnostic_report(models, train, val, task=task,
+                                         train_fn_for_lambda=for_lambda, best_lambda=best,
+                                         num_bootstraps=cfg["bootstraps"], seed=seed,
+                                         validation_metrics=metrics)
+        torch.cuda.synchronize()
+    finally:
+        objective.GLMObjective.value_and_gradient = value_and_gradient
+    seconds = time.perf_counter() - t0
+    launches = {"fused_glm": fused_glm.launches, "fused_glm_reduce": fused_glm.reduce_launches}
+    assert len(refits) == len(DEFAULT_PORTIONS) + cfg["bootstraps"], len(refits)
+    assert launches["fused_glm"] == evaluations[0] == launches["fused_glm_reduce"] > 0, \
+        (launches, evaluations)
+    best_model = models[best]
+    margins = best_model.score(val.features, val.offsets)
+    labels = val.labels.cpu().numpy()
+    hl = hosmer_lemeshow(margins.cpu().numpy(), labels, val.weights.cpu().numpy())
+    tau = kendall_tau_independence(best_model.mean(margins).cpu().numpy(), labels, seed=seed)
+    unstable = _unstable_count(report)
+    # B1 on the first bootstrap's reweighted batch (multinomial counts as weights)
+    boot = refits[len(DEFAULT_PORTIONS)][0]
+    assert not torch.equal(boot.weights, train.weights)
+    loss, w = LogisticLoss(), best_model.coefficients.means.float()
+    kw = dict(l2_weight=1.0, normalization=norm)
+    r = torch.rand(n, device=dev)
+    bx = boot.features
+    check = _path_check(
+        torch, "fused_glm on a bootstrap's reweighted batch",
+        lambda: fused_glm.fused_value_and_gradient(loss, w, boot, **kw),
+        lambda: fused_glm.fused_value_and_gradient_reference(loss, w, boot, **kw),
+        lambda: (torch.matmul(bx, w), torch.matmul(r, bx)), (1e-5, 1e-4),
+        n * d * 4 + 12 * n + 8 * d + 8, (n, d))
+    out = {"seconds": seconds, "refits": len(refits), "evaluations": evaluations[0],
+           "launches": launches, "best_lambda": best,
+           "validation_auc": {str(k): v["AUC"] for k, v in metrics.items()},
+           "hosmer_lemeshow": {"chi_square": hl.chi_square, "dof": hl.degrees_of_freedom,
+                               "p_value": hl.p_value},
+           "kendall_tau": {"tau": tau.tau, "p_value": tau.p_value, "samples": tau.num_samples},
+           "unstable_coefficients": unstable, "check": check}
+    _log(f"19a. diagnostic report, n={n} d={d} ({nv} held out), λ={best:g}, "
+         f"{cfg['bootstraps']} bootstraps and {len(DEFAULT_PORTIONS)} fitting portions ({card}): "
+         + json.dumps(out))
+    return out
+
+
+def _telemetry_agreement(torch, np, seed: int, dev, card: str) -> dict:
+    """19(b): the same report at 2^14 rows, standardized and solved to
+    convergence, on the card in f32 and on the CPU in f64, at the CPU's
+    best λ: every refit's coefficients within 1e-3·max|w| and every metric
+    of the report within 1e-4."""
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.diagnostics.metrics import evaluate_model
+    from photon_ml_torch.diagnostics.report_builder import build_diagnostic_report
+    from photon_ml_torch.estimators import train_glm
+    from photon_ml_torch.ops.normalization import (
+        NormalizationContext,
+        NormalizationType,
+        build_normalization,
+    )
+    from photon_ml_torch.optim.optimizer import OptimizerConfig
+    from photon_ml_torch.types import TaskType
+
+    cfg = TELEMETRY
+    n, d = cfg["small_n"], cfg["d"]
+    task = TaskType.LOGISTIC_REGRESSION
+    x, y = _dataset(np, seed + 1, n + n // 4, d)
+    runs, best = {}, None
+    for where, dtype in (("cpu", torch.float64), ("card", None)):
+        device = torch.device("cpu") if where == "cpu" else dev
+        train = LabeledPointBatch.create(x[:n], y[:n], dtype=dtype, device=device)
+        val = LabeledPointBatch.create(x[n:], y[n:], dtype=dtype, device=device)
+        xd = train.features.double()
+        norm = build_normalization(NormalizationType.STANDARDIZATION, mean=xd.mean(0),
+                                   variance=xd.var(0), max_magnitude=xd.abs().amax(0),
+                                   intercept_index=d - 1)
+        dt = train.features.dtype
+        kw = dict(normalization=NormalizationContext(norm.factors.to(dt), norm.shifts.to(dt)),
+                  intercept_index=d - 1, optimizer=OptimizerConfig(max_iterations=200))
+        del xd
+
+        def fit(batch, lam, kw=kw):
+            return train_glm(batch, task, regularization_weights=(lam,), **kw)[lam]
+
+        t0 = time.perf_counter()
+        models = train_glm(train, task, regularization_weights=cfg["lambdas"], **kw)
+        metrics = {lam: evaluate_model(m, val) for lam, m in models.items()}
+        if best is None:
+            best = max(metrics, key=lambda lam: metrics[lam]["AUC"])
+        for_lambda, refits = _refit_recorder(fit)
+        report = build_diagnostic_report(models, train, val, task=task,
+                                         train_fn_for_lambda=for_lambda, best_lambda=best,
+                                         num_bootstraps=cfg["small_bootstraps"], seed=seed,
+                                         validation_metrics=metrics)
+        runs[where] = {"seconds": time.perf_counter() - t0,
+                       "w": [m.coefficients.means.double().cpu() for _, m in refits],
+                       "metrics": _report_metrics(report)}
+    cpu, card_run = runs["cpu"], runs["card"]
+    assert len(cpu["w"]) == len(card_run["w"]) > cfg["small_bootstraps"]
+    gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(card_run["w"], cpu["w"])]
+    assert set(cpu["metrics"]) == set(card_run["metrics"]) and cpu["metrics"]
+    metric_gap = max(abs(card_run["metrics"][k] - v) for k, v in cpu["metrics"].items())
+    out = {"rows": n, "refits": len(gaps), "best_lambda": best,
+           "max_coefficient_gap_over_max_w": max(gaps), "coefficient_gaps": gaps,
+           "max_metric_gap": metric_gap, "metrics": len(cpu["metrics"]),
+           "seconds": {k: v["seconds"] for k, v in runs.items()}}
+    _log(f"19b. the report at n={n} d={d} on the card (f32) against the CPU (f64) ({card}): "
+         + json.dumps(out))
+    assert max(gaps) <= 1e-3, gaps
+    assert metric_gap <= 1e-4, metric_gap
+    return out
+
+
+def _glm_avro(np, seed: int, tmp: Path) -> Path:
+    """Phase 8's GLM Avro (d=512 at full width, 4,096 + 1,024 rows): the
+    copy phase 8 left, else written here."""
+    if "drivers_avro" in _SHARED:
+        return Path(_SHARED["drivers_avro"]) / "glm"
+    pre = _prewritten("drivers-glm")
+    if pre is not None:
+        return Path(pre["dir"]) / "glm"
+    _, glm_jobs = _driver_avro_jobs(np, seed, tmp)
+    with _processes().Pool(len(glm_jobs)) as pool:
+        pool.map(_write_glm_part, glm_jobs)
+    return tmp / "glm"
+
+
+def _spans_within(trace: dict, phase: str, name: str) -> int:
+    """The ``name`` spans of a Chrome trace that start inside the first
+    ``phase`` span."""
+    events = trace["traceEvents"]
+    outer = [e for e in events if e.get("name") == phase][0]
+    return sum(1 for e in events if e.get("name") == name
+               and outer["ts"] <= e["ts"] <= outer["ts"] + outer["dur"])
+
+
+def _telemetry_glm_driver(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """19(c): the GLM driver with --enable-diagnostics --num-bootstraps 4
+    --telemetry-dir --trace-dir against the same run without them: the
+    report files, the journal read back, the training phase's
+    solver/iteration spans equal to the journal's per-λ iterations, and
+    the model files bitwise."""
+    from photon_ml_torch.cli import glm_driver
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.telemetry import read_journal
+
+    glm = _glm_avro(np, seed, tmp)
+    on = None if dev.type == "cuda" else dev
+    args = ["--input-data-path", str(glm / "train"), "--validation-data-path",
+            str(glm / "validation"), "--task-type", "LOGISTIC_REGRESSION",
+            "--regularization-weights", "1,10", "--optimizer", "LBFGS", "--max-iterations", "50"]
+    flags = ["--enable-diagnostics", "--num-bootstraps", str(TELEMETRY["glm_bootstraps"]),
+             "--telemetry-dir", str(tmp / "glm-tel"), "--trace-dir", str(tmp / "glm-tr")]
+    seconds, launches = {}, {}
+    for name, extra in (("plain", []), ("telemetry", flags)):
+        fused_glm.launches = 0
+        t0 = time.perf_counter()
+        result = glm_driver.main(args + ["--output-dir", str(tmp / f"glm-{name}"), *extra],
+                                 device=on)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = fused_glm.launches
+    assert result.stage.name == "DIAGNOSED"
+    for f in ("diagnostic-report.html", "diagnostic-report.txt"):
+        assert (tmp / "glm-telemetry" / f).stat().st_size > 0, f
+    rows = read_journal(tmp / "glm-tel" / "run-journal.jsonl")
+    kinds = [r["kind"] for r in rows]
+    conv = [r for r in rows if r["kind"] == "convergence"]
+    assert kinds[0] == "journal_open" and kinds[-1] == "journal_close" \
+        and {"config", "heartbeat", "straggler_report", "phase_timing", "metrics"} <= set(kinds)
+    assert [r["lambda"] for r in conv] == [1.0, 10.0], conv
+    trace = json.loads((tmp / "glm-tr" / "trace-00000.json").read_text())
+    spans = _spans_within(trace, "phase/glm train", "solver/iteration")
+    iterations = sum(r["iterations"] for r in conv)
+    assert spans == iterations > 0, (spans, iterations)
+    texts = sorted((tmp / "glm-plain" / "models-text").iterdir())
+    same = [(tmp / "glm-telemetry" / "models-text" / f.name).read_bytes() == f.read_bytes()
+            for f in texts]
+    assert texts and all(same), same
+    out = {"seconds": seconds, "b1_launches": launches, "journal_rows": len(rows),
+           "iterations": iterations, "solver_iteration_spans": spans,
+           "trace_events": len(trace["traceEvents"]), "model_files_bitwise": len(same),
+           "report_bytes": (tmp / "glm-telemetry" / "diagnostic-report.html").stat().st_size}
+    _log(f"19c. the GLM driver with --enable-diagnostics --num-bootstraps "
+         f"{TELEMETRY['glm_bootstraps']} --telemetry-dir --trace-dir ({card}): " + json.dumps(out))
+    return out
+
+
+def _kernel_events(trace: dict, name: str) -> int:
+    """Device kernel events of a ``torch.profiler`` Chrome trace whose name
+    holds ``name``."""
+    return sum(1 for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel" and name in e.get("name", ""))
+
+
+def _telemetry_game_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """19(d)-(e): the GAME training driver on the flagship's cut Avro, two
+    sweeps, plain, with --telemetry-dir --trace-dir, plain again (the
+    ratio's warm baseline), and with those and --profile-dir: coefficient
+    files bitwise, the lane loops' host reads
+    equal, the profiler's packed_glm_partials_kernel events equal to the
+    launch counter; P6 on the driver's fixed effect; then the scoring
+    driver with and without telemetry (scores bitwise) and the serve
+    driver with it (its counters in the journal)."""
+    from dev import torch_kernel_probe
+    from photon_ml_torch.cli import game_scoring_driver, game_training_driver, serve_driver
+    from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
+    from photon_ml_torch.io.index_map import IndexMap
+    from photon_ml_torch.io.model_io import load_game_model
+    from photon_ml_torch.ops import packed_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.optim import common
+    from photon_ml_torch.telemetry import read_journal
+
+    avro = _flagship_avro(np, seed, tmp)
+    on = None if dev.type == "cuda" else dev
+    shards = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",
+              "--feature-shard-configurations",
+              "name=per_entity,feature.bags=perEntityFeatures,intercept=false"]
+    re_spec = "feature.shard=per_entity,reg.weights=1,optimizer=NEWTON,max.iter=10," \
+              "random.effect.type="
+    args = ["--input-data-path", str(avro["train"]), "--task-type", "LOGISTIC_REGRESSION",
+            *shards, "--coordinate-configurations",
+            "name=fixed,feature.shard=global,reg.weights=1,max.iter=10",
+            "--coordinate-configurations", f"name=per_user,{re_spec}userId",
+            "--coordinate-configurations", f"name=per_item,{re_spec}itemId",
+            "--coordinate-descent-iterations", "2"]
+    telemetry = ["--telemetry-dir", str(tmp / "game-tel"), "--trace-dir", str(tmp / "game-tr")]
+    runs = {}
+    # the plain run twice, around the traced one: the first also warms up
+    for name, extra in (("plain", []), ("telemetry", telemetry), ("plain again", []),
+                        ("profiled", ["--telemetry-dir", str(tmp / "game-tel-p"), "--trace-dir",
+                                      str(tmp / "game-tr-p"), "--profile-dir",
+                                      str(tmp / "game-prof")])):
+        for counter in ("packed_launches", "columns_launches", "reduce_launches"):
+            setattr(packed_glm, counter, 0)
+        reads = common.lane_host_reads
+        t0 = time.perf_counter()
+        game_training_driver.main(args + ["--root-output-dir",
+                                          str(tmp / f"game-{name.replace(' ', '-')}"),
+                                          *extra], device=on)
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "lane_host_reads": common.lane_host_reads - reads,
+                      "p6_launches": packed_glm.packed_launches + packed_glm.columns_launches}
+    for name in ("telemetry", "plain again", "profiled"):
+        assert runs[name]["lane_host_reads"] == runs["plain"]["lane_host_reads"], runs
+        for f in sorted((tmp / "game-plain" / "best").rglob("*")):
+            if f.is_file():
+                rel = f.relative_to(tmp / "game-plain" / "best")
+                got = tmp / f"game-{name.replace(' ', '-')}" / "best" / rel
+                assert got.read_bytes() == f.read_bytes(), \
+                    (name, rel)
+    profiles = sorted((tmp / "game-prof").glob("*.json"))
+    assert len(profiles) == 1, profiles
+    traced = _kernel_events(json.loads(profiles[0].read_text()), "packed_glm_partials_kernel")
+    runs["profiled"]["profiler_kernel_events"] = traced
+    assert traced == runs["profiled"]["p6_launches"] > 0, runs["profiled"]
+    rows = read_journal(tmp / "game-tel" / "run-journal.jsonl")
+    beats = [r for r in rows if r["kind"] == "heartbeat"]
+    assert [b["sweep"] for b in beats] == [1, 2], beats
+    if dev.type == "cuda":  # the allocator's bytes, on a CUDA run only
+        assert all("hbm_bytes" in b for b in beats), beats
+    trace = json.loads((tmp / "game-tr" / "trace-00000.json").read_text())
+    assert _spans_within(trace, "phase/train config 0", "solver/iteration") > 0
+
+    # P6 on the driver's fixed-effect inputs, read back from its training Avro
+    maps = IndexMap.load_directory(tmp / "game-plain" / "index-maps")
+    model = load_game_model(tmp / "game-plain" / "best", maps, device=dev)
+    shard_cfg = {"global": FeatureShardConfiguration(feature_bags=("features",)),
+                 "per_entity": FeatureShardConfiguration(feature_bags=("perEntityFeatures",),
+                                                         has_intercept=False)}
+    ds = read_merged(avro["train"], shard_cfg, index_maps=maps,
+                     random_effect_id_columns=("itemId", "userId"),
+                     entity_vocabs={m.random_effect_type: m.entity_keys
+                                    for m in model.models.values()
+                                    if hasattr(m, "entity_keys")}, device=dev).dataset
+    x = ds.feature_shards["global"]
+    n = x.shape[0]
+    w = model.get("fixed").glm.coefficients.means.float().contiguous()
+    aux = packed_glm.pack_aux(ds.labels, ds.offsets + model.score(ds) - x @ w, ds.weights)
+    r = torch.rand(n, device=dev)
+    loss = LogisticLoss()
+    check = _path_check(
+        torch, "packed_glm on the traced GAME driver's fixed effect",
+        lambda: packed_glm.packed_core(loss, x, aux, w, with_rsum=False),
+        lambda: packed_glm.packed_core_reference(loss, x, aux, w, with_rsum=False),
+        lambda: (torch.matmul(x, w), torch.matmul(r, x)), torch_kernel_probe.limits("float32"),
+        x.shape[0] * x.shape[1] * 4 + 12 * n + 8 * x.shape[1] + 8, x.shape)
+    del ds, x, aux, r
+
+    # (e) scoring with and without telemetry, then the serve driver with it
+    score = ["--input-data-path", str(avro["validation"]), "--model-input-dir",
+             str(tmp / "game-plain" / "best"), *shards, "--evaluators", "AUC"]
+    seconds = {}
+    for name, extra in (("plain", []), ("telemetry", ["--telemetry-dir", str(tmp / "score-tel"),
+                                                      "--trace-dir", str(tmp / "score-tr")])):
+        t0 = time.perf_counter()
+        game_scoring_driver.main(score + ["--output-dir", str(tmp / f"score-{name}"), *extra],
+                                 device=on)
+        seconds[f"score {name}"] = time.perf_counter() - t0
+    parts = sorted((tmp / "score-plain" / "scores").iterdir())
+    assert parts and all((tmp / "score-telemetry" / "scores" / p.name).read_bytes()
+                         == p.read_bytes() for p in parts)
+    srows = read_journal(tmp / "score-tel" / "run-journal.jsonl")
+    summary = [r for r in srows if r["kind"] == "scoring_summary"][0]
+    assert summary["num_scored"] == avro["held_out"], summary
+    t0 = time.perf_counter()
+    served = serve_driver.main([
+        "--requests-avro", str(avro["validation"]), "--model-input-dir",
+        str(tmp / "game-plain" / "best"), "--output-dir", str(tmp / "served"), *shards,
+        "--request-rows", str(SERVING["driver_request_rows"]), "--num-requests",
+        str(TELEMETRY["serve_requests"]), "--telemetry-dir", str(tmp / "serve-tel"),
+        "--trace-dir", str(tmp / "serve-tr")], device=on)
+    seconds["serve telemetry"] = time.perf_counter() - t0
+    vrows = read_journal(tmp / "serve-tel" / "run-journal.jsonl")
+    snap = [r for r in vrows if r["kind"] == "metrics"][0]["snapshot"]
+    assert snap["counters"]["serve/requests"] >= TELEMETRY["serve_requests"] \
+        and snap["histograms"]["serve/latency_ms"]["count"] >= TELEMETRY["serve_requests"] \
+        and [r for r in vrows if r["kind"] == "serving_summary"], snap
+    vtrace = json.loads((tmp / "serve-tr" / "trace-00000.json").read_text())
+    assert {"serve/batch", "serve/score"} <= {e["name"] for e in vtrace["traceEvents"]}
+    out = {"rows": [avro["n"], avro["held_out"]], "runs": runs, "seconds": seconds,
+           "telemetry_over_plain": runs["telemetry"]["seconds"]
+           / runs["plain again"]["seconds"],
+           "profiled_over_plain": runs["profiled"]["seconds"] / runs["plain again"]["seconds"],
+           "heartbeats": len(beats), "scores_bitwise": len(parts),
+           "serve": {k: served[k] for k in ("num_requests", "scores_per_sec", "latency_ms_p50",
+                                            "latency_ms_p95", "replay_compiles")},
+           "p6_check": check}
+    _log(f"19d-e. the GAME training driver on {avro['n']} + {avro['held_out']} flagship rows, "
+         f"plain / --telemetry-dir --trace-dir / and --profile-dir; the scoring and serve "
+         f"drivers with telemetry ({card}): " + json.dumps(out))
+    return out
+
+
+def _telemetry_slice(torch, np, seed: int, dev, card: str) -> dict:
+    """Phase 19, telemetry and diagnostics, printing as it goes. Returns,
+    for each kernel this path runs, its launches here (B1 in (a)'s report
+    and (c)'s traced GLM driver, P6 in (d)'s traced GAME driver runs) and
+    its checks on the path's own inputs."""
+    t_phase = time.perf_counter()
+    base = Path(tempfile.mkdtemp(prefix="telemetry-",
+                                 dir=Path(__file__).resolve().parent / "build"))
+    times: dict = {}
+    try:
+        t0 = time.perf_counter()
+        diag = _telemetry_diagnostics(torch, np, seed, dev, card)
+        times["a"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        agreement = _telemetry_agreement(torch, np, seed, dev, card)
+        times["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        glm = _telemetry_glm_driver(torch, np, seed, dev, card, base)
+        times["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        game = _telemetry_game_drivers(torch, np, seed, dev, card, base)
+        times["d-e"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    ranks = _SHARED.get("partitioned_traces")
+    if ranks is not None:
+        _log(f"19f. phase 13's two-rank --partitioned-io GAME driver run with --trace-dir "
+             f"--telemetry-dir ({card}): " + json.dumps(ranks))
+    path = {"fused_glm": dict(diag["check"], launches=diag["launches"]["fused_glm"]
+                              + glm["b1_launches"]["telemetry"],
+                              evaluations=diag["evaluations"]),
+            "packed_glm": dict(game["p6_check"], launches=game["runs"]["telemetry"]["p6_launches"]
+                               + game["runs"]["profiled"]["p6_launches"])}
+    assert all(v["launches"] > 0 for v in path.values()), {k: v["launches"]
+                                                           for k, v in path.items()}
+    seconds = time.perf_counter() - t_phase
+    path["fused_glm"]["phase_seconds"] = seconds
+    path["fused_glm"]["telemetry"] = {
+        "a": {k: v for k, v in diag.items() if k != "check"}, "b": agreement, "c": glm,
+        "d_e": {k: v for k, v in game.items() if k != "p6_check"}, "f": ranks}
+    _log(f"19. telemetry phase ({card}): {seconds:.2f} s ("
+         + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + ")")
+    return path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -9856,12 +10405,20 @@ def main(argv=None) -> int:
     search_path = _search_slice(torch, np, args.seed, dev, card)
     _log(f"search phase: {time.perf_counter() - t0:.2f} s, launches "
          + json.dumps({k: v["launches"] for k, v in search_path.items()}))
+    # 19. telemetry and diagnostics: the diagnostic report, its agreement
+    # with the CPU, the drivers with their telemetry flags; its launches and
+    # kernel checks as its own path
+    t0 = time.perf_counter()
+    telemetry_path = _telemetry_slice(torch, np, args.seed, dev, card)
+    _log(f"telemetry phase: {time.perf_counter() - t0:.2f} s, launches "
+         + json.dumps({k: v["launches"] for k, v in telemetry_path.items()}))
     for key, path in (("projected_path", projected_path), ("driver_path", driver_path),
                       ("sparse_game_path", sparse_game_path), ("mf_path", mf_path),
                       ("fused_path", fused_path), ("mesh_path", mesh_path),
                       ("partitioned_path", partitioned_path), ("model_path", model_path),
                       ("stream_path", stream_path), ("stream_game_path", stream_game_path),
-                      ("serving_path", serving_path), ("search_path", search_path)):
+                      ("serving_path", serving_path), ("search_path", search_path),
+                      ("telemetry_path", telemetry_path)):
         for entry in line["kernels"]:
             if entry["name"] in path:
                 entry[key] = path[entry["name"]]

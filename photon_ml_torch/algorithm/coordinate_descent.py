@@ -12,7 +12,8 @@ Scores are [n] tensors on the dataset's device; the residual update is one
 elementwise subtract. With a checkpointer, coordinate-descent progress is
 saved every ``checkpoint_every`` updates and at the last one
 (``io/checkpoint.pack_cd_state``), and a resumed run skips the updates the
-checkpoint holds. Solver telemetry is ROADMAP.md item 19.
+checkpoint holds. A ``telemetry.SolverTelemetry`` receives every update's
+convergence rows and a heartbeat a sweep.
 """
 
 from __future__ import annotations
@@ -85,14 +86,14 @@ def run_coordinate_descent(
     check_finite: raise :class:`DivergenceError` the moment a coordinate
     update produces non-finite scores, instead of training on.
 
+    telemetry: a ``telemetry.SolverTelemetry``: every update's solver info
+    and metrics become journal rows, events and registry metrics, and every
+    sweep a heartbeat.
+
     on_update: called with (iteration, coordinate id, solver info) after
     each update: a SolverResult for a fixed effect, LaneTraces for a random
     effect.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "solver telemetry is not ported yet: ROADMAP.md item 19; use on_update")
-
     models: dict[str, DatumScoringModel] = {}
     scores: dict[str, torch.Tensor] = {}
     best_model: GameModel | None = None
@@ -195,6 +196,8 @@ def run_coordinate_descent(
             if metrics:
                 logger.info("CD iter %d coord %s: %s", iteration, cid, metrics)
                 history.append({"iteration": iteration, "coordinate": cid, **metrics})
+            if telemetry is not None:
+                telemetry.record_coordinate(cid, iteration, info, metrics=metrics or None)
             if on_update is not None:
                 on_update(iteration, cid, info)
             if checkpointer is not None and (
@@ -202,6 +205,10 @@ def run_coordinate_descent(
                 arrays, meta = pack_cd_state(GameModel(models=dict(models)), best_model,
                                              best_metric, history)
                 commit_checkpoint(checkpointer, slot + 1, arrays, meta)
+
+        if telemetry is not None:
+            # a liveness row a sweep: the cursor and the registry's deltas
+            telemetry.heartbeat("game_cd", sweep=iteration + 1, num_sweeps=num_iterations)
 
     final = GameModel(models=dict(models))
     if best_model is None:

@@ -66,7 +66,9 @@ from photon_ml_torch.data.game_data import compact_lane_blocks
 from photon_ml_torch.optim.common import ConvergenceReason, LaneTrace
 from photon_ml_torch.optim.optimizer import LaneSchedulerConfig, OptimizerConfig, OptimizerType
 from photon_ml_torch.projector.projectors import ProjectorType
+from photon_ml_torch.telemetry import tracing
 from photon_ml_torch.telemetry.registry import default_registry
+from photon_ml_torch.telemetry.solver_trace import LANE_ITERS_METRIC
 
 logger = logging.getLogger(__name__)
 
@@ -80,8 +82,6 @@ MIN_RESCUE_LANES = 8
 #: registry namespace of the scheduler counters
 SCHEDULER_METRIC_PREFIX = "scheduler/"
 
-#: the per-lane iteration histogram the scheduled lanes feed
-LANE_ITERS_METRIC = "solver/lane_iters"
 
 
 def _pow2_lanes(m: int) -> int:
@@ -315,8 +315,10 @@ class LaneScheduler:
             solved = n_blocks = 0
             for picks in _group_by_shape(blocks, lane_masks):
                 pad_to = _pow2_lanes(sum(len(l) for _, l in picks))
-                fields, src_blk, src_lane = compact_lane_blocks(
-                    blocks, picks, pad_to=pad_to, sentinel_row=SENTINEL_ROW)
+                with tracing.span("scheduler/compaction", cat="scheduler",
+                                  lanes=int(sum(len(l) for _, l in picks))):
+                    fields, src_blk, src_lane = compact_lane_blocks(
+                        blocks, picks, pad_to=pad_to, sentinel_row=SENTINEL_ROW)
                 tab, trace, delta, wnorm = block_solve(objective, o, fields, full_offsets, tab,
                                                        matrix)
                 scatter_back(trace, delta, wnorm, _pad_minus1(src_blk, pad_to),
@@ -326,24 +328,28 @@ class LaneScheduler:
             return tab, solved, n_blocks
 
         # -- probe phase --------------------------------------------------------
-        if not any(s.any() for s in skip_h):
-            # whole buckets, original shapes: the unscheduled path's blocks
-            for i, b in enumerate(blocks):
-                table, trace, delta, wnorm = block_solve(objective, probe_opt, b, full_offsets,
-                                                         table, matrix)
-                blk = np.where(solve_h[i], i, -1).astype(np.int32)
-                scatter_back(trace, delta, wnorm, blk, np.arange(e_sizes[i], dtype=np.int64))
-            stats.lanes_probed = int(sum(s.sum() for s in solve_h))
-        else:
-            # active-set compaction: only unfrozen lanes probe
-            table, stats.lanes_probed, _ = run_compacted(solve_h, probe_opt, table)
+        with tracing.span("scheduler/probe", cat="scheduler", lanes=stats.lanes_total,
+                          frozen_skipped=stats.lanes_frozen_skipped):
+            if not any(s.any() for s in skip_h):
+                # whole buckets, original shapes: the unscheduled path's blocks
+                for i, b in enumerate(blocks):
+                    table, trace, delta, wnorm = block_solve(objective, probe_opt, b,
+                                                             full_offsets, table, matrix)
+                    blk = np.where(solve_h[i], i, -1).astype(np.int32)
+                    scatter_back(trace, delta, wnorm, blk,
+                                 np.arange(e_sizes[i], dtype=np.int64))
+                stats.lanes_probed = int(sum(s.sum() for s in solve_h))
+            else:
+                # active-set compaction: only unfrozen lanes probe
+                table, stats.lanes_probed, _ = run_compacted(solve_h, probe_opt, table)
 
         # -- rescue phase -------------------------------------------------------
         rescue_h = [s & (r_out == int(ConvergenceReason.MAX_ITERATIONS))
                     for s, r_out in zip(solve_h, reason_out)]
         n_rescue = int(sum(r.sum() for r in rescue_h))
         if rescue_opt is not None and n_rescue:
-            table, _, rescue_blocks = run_compacted(rescue_h, rescue_opt, table)
+            with tracing.span("scheduler/rescue", cat="scheduler", lanes=n_rescue):
+                table, _, rescue_blocks = run_compacted(rescue_h, rescue_opt, table)
             stats.rescue_blocks += rescue_blocks
             stats.lanes_rescued = n_rescue
 
@@ -368,7 +374,7 @@ class LaneScheduler:
                       reason=torch.from_numpy(reason_out[i].astype(np.int32)),
                       value=torch.from_numpy(value_out[i]),
                       gradient_norm=torch.from_numpy(gnorm_out[i]),
-                      valid=torch.from_numpy(valid_h[i]))
+                      valid=torch.from_numpy(valid_h[i]), scheduled=True)
             for i in range(len(blocks))]
         self._record(stats, traces)
         self.last_stats = stats

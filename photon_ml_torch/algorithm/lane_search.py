@@ -171,12 +171,12 @@ def run_lane_tournament(batch: LabeledPointBatch, task: TaskType, configs: LaneC
     ``warm_start``: optional [L, d] per-lane initial coefficients in
     normalized (solver) space; None starts every lane at zero, the
     ``train_glm_grid`` path. AUTO resolves once for the whole tournament;
-    only L-BFGS and OWL-QN lanes run. ``telemetry`` is ROADMAP.md item 19.
+    only L-BFGS and OWL-QN lanes run. ``telemetry``: a
+    ``telemetry.SolverTelemetry`` that gets the lanes' convergence rows,
+    keyed by their L2 and L1 weights.
     """
-    from photon_ml_torch.estimators import _not_ported, _objective_for_batch
+    from photon_ml_torch.estimators import _objective_for_batch
 
-    if telemetry is not None:
-        raise _not_ported("lane telemetry of the tournament", 19)
     optimizer = resolve_auto_optimizer(optimizer or OptimizerConfig())
     if optimizer.optimizer_type not in (OptimizerType.LBFGS, OptimizerType.OWLQN):
         raise ValueError(
@@ -203,6 +203,11 @@ def run_lane_tournament(batch: LabeledPointBatch, task: TaskType, configs: LaneC
               if configs.has_box else None)
     results = solve_lanes(objective, use_owlqn, optimizer, batch, lanes(configs.l2),
                           lanes(configs.l1), lanes(configs.tolerance), w0v, bounds)
+    if telemetry is not None:
+        l2, l1 = np.asarray(configs.l2), np.asarray(configs.l1)
+        telemetry.record_lanes("lane-search", results,
+                               keys=[{"l2": float(l2[i]), "l1": float(l1[i])}
+                                     for i in range(num_lanes)])
     norm = objective.normalization
     models = [GeneralizedLinearModel(Coefficients(
         means=norm.to_model_space(results.coefficients[i], intercept_index)), task)

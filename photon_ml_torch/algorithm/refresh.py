@@ -47,7 +47,7 @@ from photon_ml_torch.algorithm.coordinates import (
     RandomEffectCoordinate,
 )
 from photon_ml_torch.models.game import GameModel
-from photon_ml_torch.telemetry import refresh_counters
+from photon_ml_torch.telemetry import refresh_counters, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -219,7 +219,8 @@ def run_incremental_refresh(coordinates: Mapping[str, Coordinate], sequence: Seq
                             telemetry=None, fingerprint: dict | None = None) -> RefreshResult:
     """One incremental refresh over ``sequence`` (see the module docstring).
     ``fingerprint`` rides every checkpoint and guards the resume.
-    ``telemetry`` is ROADMAP.md item 19."""
+    ``telemetry`` (a ``telemetry.SolverTelemetry``) gets a heartbeat after
+    each coordinate."""
     from photon_ml_torch.io.checkpoint import (
         DivergenceError,
         commit_checkpoint,
@@ -229,10 +230,6 @@ def run_incremental_refresh(coordinates: Mapping[str, Coordinate], sequence: Seq
     )
     from photon_ml_torch.resilience import recovery
 
-    if telemetry is not None:
-        from photon_ml_torch.estimators import _not_ported
-
-        raise _not_ported("refresh telemetry (heartbeats)", 19)
     sequence = list(sequence)
     models: dict = {}
     for cid in sequence:
@@ -321,45 +318,50 @@ def run_incremental_refresh(coordinates: Mapping[str, Coordinate], sequence: Seq
         if position < start_pos:
             continue  # finished before the restored checkpoint
         coord = coordinates[cid]
-        if not isinstance(coord, RandomEffectCoordinate):
-            if policy.refresh_fixed_effects and isinstance(coord, FixedEffectCoordinate):
-                partial = full_score() - scores[cid]
-                models[cid], _info = coord.update_model(models[cid], partial)
-                scores[cid] = coord.score(models[cid])
-                coordinate_stats[cid] = {"refreshed": True, "kind": "fe"}
+        with tracing.span("refresh/coordinate", cat="refresh", coordinate=cid,
+                          position=position):
+            if not isinstance(coord, RandomEffectCoordinate):
+                if policy.refresh_fixed_effects and isinstance(coord, FixedEffectCoordinate):
+                    partial = full_score() - scores[cid]
+                    models[cid], _info = coord.update_model(models[cid], partial)
+                    scores[cid] = coord.score(models[cid])
+                    coordinate_stats[cid] = {"refreshed": True, "kind": "fe"}
+                else:
+                    # fixed effects, MF and locked coordinates carry over (their
+                    # scores still anchor the residuals)
+                    refresh_counters.record_carried_coordinate()
+                    coordinate_stats[cid] = {"refreshed": False}
+                    commit(position + 1)
+                    continue
             else:
-                # fixed effects, MF and locked coordinates carry over (their
-                # scores still anchor the residuals)
-                refresh_counters.record_carried_coordinate()
-                coordinate_stats[cid] = {"refreshed": False}
-                commit(position + 1)
-                continue
-        else:
-            partial = full_score() - scores[cid]
-            selection, sel_stats = select_refresh_entities(coord, models[cid], partial, policy)
-            coord.set_refresh_selection(selection)
-            try:
-                models[cid], _info = coord.update_model(models[cid], partial)
-            finally:
-                coord.set_refresh_selection(None)
-            scores[cid] = coord.score(models[cid])
-            sched = coord.last_refresh_stats
-            stats = {"refreshed": True, "kind": "re", "lanes_total": int(sched.lanes_total),
-                     "lanes_solved": int(sched.lanes_probed),
-                     "lanes_changed": sel_stats["changed"],
-                     "lanes_gradient": sel_stats["gradient"]}
-            coordinate_stats[cid] = stats
-            for key in totals:
-                totals[key] += stats[key]
-            refresh_counters.record_selection(
-                lanes_total=stats["lanes_total"], lanes_solved=stats["lanes_solved"],
-                lanes_changed=stats["lanes_changed"], lanes_gradient=stats["lanes_gradient"])
-        if check_finite and not bool(torch.isfinite(scores[cid]).all()):
-            raise DivergenceError(
-                f"coordinate '{cid}' produced non-finite scores during incremental refresh"
-                + (f"; last good checkpoint: step {checkpointer.latest_step()} in "
-                   f"{checkpointer.directory}" if checkpointer is not None else ""))
-        commit(position + 1)
+                partial = full_score() - scores[cid]
+                selection, sel_stats = select_refresh_entities(coord, models[cid], partial, policy)
+                coord.set_refresh_selection(selection)
+                try:
+                    models[cid], _info = coord.update_model(models[cid], partial)
+                finally:
+                    coord.set_refresh_selection(None)
+                scores[cid] = coord.score(models[cid])
+                sched = coord.last_refresh_stats
+                stats = {"refreshed": True, "kind": "re", "lanes_total": int(sched.lanes_total),
+                         "lanes_solved": int(sched.lanes_probed),
+                         "lanes_changed": sel_stats["changed"],
+                         "lanes_gradient": sel_stats["gradient"]}
+                coordinate_stats[cid] = stats
+                for key in totals:
+                    totals[key] += stats[key]
+                refresh_counters.record_selection(
+                    lanes_total=stats["lanes_total"], lanes_solved=stats["lanes_solved"],
+                    lanes_changed=stats["lanes_changed"], lanes_gradient=stats["lanes_gradient"])
+            if check_finite and not bool(torch.isfinite(scores[cid]).all()):
+                raise DivergenceError(
+                    f"coordinate '{cid}' produced non-finite scores during incremental refresh"
+                    + (f"; last good checkpoint: step {checkpointer.latest_step()} in "
+                       f"{checkpointer.directory}" if checkpointer is not None else ""))
+            if telemetry is not None:
+                telemetry.heartbeat("game_refresh", position=position + 1,
+                                    num_coordinates=len(sequence))
+            commit(position + 1)
 
     return RefreshResult(model=GameModel(models=dict(models)),
                          coordinate_stats=coordinate_stats, **totals)

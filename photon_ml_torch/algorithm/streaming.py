@@ -43,6 +43,7 @@ from photon_ml_torch.device import resolve_device
 from photon_ml_torch.io.stream_reader import DEFAULT_CHUNK_TIMEOUT, ChunkPrefetcher, ChunkSource
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.sparse_objective import SparseGLMObjective
+from photon_ml_torch.telemetry import tracing
 
 #: the parts of an epoch's wall time that :attr:`StreamingGLMObjective.totals` sums
 EPOCH_PARTS = ("seconds", "decode", "wait", "copy", "accumulate", "exchange", "bytes",
@@ -156,15 +157,21 @@ class StreamingGLMObjective:
         t_start = time.perf_counter()
         copy_s = acc_s = 0.0
         nbytes = chunks = 0
-        with ChunkPrefetcher(self.source, prefetch=self.prefetch, retry_policy=self.retry_policy,
-                             chunk_timeout=self.chunk_timeout) as stream:
-            for chunk in stream:
+        # host wall-clock spans: without sync_timing the accumulate span
+        # measures the host's copy and launches, not the device's work
+        with tracing.span("stream/epoch", cat="stream", epoch=self.epochs,
+                          chunks=self.source.num_chunks), \
+                ChunkPrefetcher(self.source, prefetch=self.prefetch,
+                                retry_policy=self.retry_policy,
+                                chunk_timeout=self.chunk_timeout) as stream:
+            for i, chunk in enumerate(stream):
                 t0 = time.perf_counter()
-                batch = chunk.to_device(self.device)
-                self._sync()
-                t1 = time.perf_counter()
-                carry = fold(carry, batch)
-                self._sync()
+                with tracing.span("stream/accumulate", cat="stream", chunk=i):
+                    batch = chunk.to_device(self.device)
+                    self._sync()
+                    t1 = time.perf_counter()
+                    carry = fold(carry, batch)
+                    self._sync()
                 copy_s += t1 - t0
                 acc_s += time.perf_counter() - t1
                 nbytes += chunk.nbytes

@@ -42,7 +42,9 @@ The JAX package's single-process multi-device ``mesh=`` has no counterpart:
 several ranks are several processes (``partition=``). A random-effect spec
 whose optimizer carries a lane scheduler solves each chunk's buckets through
 one ``algorithm/lane_scheduler.LaneScheduler`` per (RE type, chunk), kept
-across sweeps. Telemetry (ROADMAP.md item 19) is not ported.
+across sweeps. The sweeps, chunk solves and exchanges record spans (``telemetry/tracing.py``),
+and each train's chunk loads, visits and sweeps land in
+``telemetry/stream_counters.py``.
 """
 
 from __future__ import annotations
@@ -93,6 +95,7 @@ from photon_ml_torch.parallel.distributed import (
 )
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.resilience import recovery
+from photon_ml_torch.telemetry import stream_counters, tracing
 from photon_ml_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -491,27 +494,28 @@ class StreamingGameProgram:
             self.labels = None
             self._row_plan = [None] * self.source.num_chunks
             seen = np.zeros(n, dtype=bool)
-            for spec in self.source.specs:
-                chunk = self._cache.get(spec.index)
-                if self.labels is None:
-                    dtype = chunk.labels.dtype
-                    self.labels = np.zeros(n, dtype)
-                    self.base_offsets = np.zeros(n, dtype)
-                    self.weights = np.zeros(n, dtype)
-                    self.entity_idx = {t: np.full(n, -1, np.int32) for t in chunk.entity_idx}
-                m = chunk.num_records
-                rows = chunk.rows[:m]
-                if seen[rows].any():
-                    raise ValueError(f"chunk {spec.index} re-covers sample rows already "
-                                     "assigned to another chunk — the plan must partition the "
-                                     "sample axis")
-                seen[rows] = True
-                self._row_plan[spec.index] = np.asarray(rows)
-                self.labels[rows] = chunk.labels[:m]
-                self.base_offsets[rows] = chunk.offsets[:m]
-                self.weights[rows] = chunk.weights[:m]
-                for t, idx in chunk.entity_idx.items():
-                    self.entity_idx[t][rows] = idx[:m]
+            with tracing.span("stream_game/scan", cat="stream", chunks=self.source.num_chunks):
+                for spec in self.source.specs:
+                    chunk = self._cache.get(spec.index)
+                    if self.labels is None:
+                        dtype = chunk.labels.dtype
+                        self.labels = np.zeros(n, dtype)
+                        self.base_offsets = np.zeros(n, dtype)
+                        self.weights = np.zeros(n, dtype)
+                        self.entity_idx = {t: np.full(n, -1, np.int32) for t in chunk.entity_idx}
+                    m = chunk.num_records
+                    rows = chunk.rows[:m]
+                    if seen[rows].any():
+                        raise ValueError(f"chunk {spec.index} re-covers sample rows already "
+                                         "assigned to another chunk — the plan must partition the "
+                                         "sample axis")
+                    seen[rows] = True
+                    self._row_plan[spec.index] = np.asarray(rows)
+                    self.labels[rows] = chunk.labels[:m]
+                    self.base_offsets[rows] = chunk.offsets[:m]
+                    self.weights[rows] = chunk.weights[:m]
+                    for t, idx in chunk.entity_idx.items():
+                        self.entity_idx[t][rows] = idx[:m]
             if self.labels is None:
                 raise ValueError("streamed GAME needs a non-empty chunk plan")
             self._set_dtype(self.labels.dtype)
@@ -774,10 +778,11 @@ class StreamingGameProgram:
         fe_w = state.fe_coefficients
         tables = dict(state.re_tables)
         t0 = time.perf_counter()
-        fe_w = self._solve_fe(scores, fe_w)
-        t1 = time.perf_counter()
-        self._refresh_fe_scores(scores, fe_w)
-        t2 = time.perf_counter()
+        with tracing.span("stream_game/fe_solve", cat="stream"):
+            fe_w = self._solve_fe(scores, fe_w)
+            t1 = time.perf_counter()
+            self._refresh_fe_scores(scores, fe_w)
+            t2 = time.perf_counter()
         self.timings["fe_solve"] += t1 - t0
         self.timings["fe_refresh"] += t2 - t1
         re_names = [n for n in self.update_order if n != self.fe.feature_shard_id]
@@ -792,10 +797,13 @@ class StreamingGameProgram:
             self.timings["re_load"] += self._cache.load_seconds - load0
             rows = self._row_plan[chunk_index]
             for name in re_names:
-                residual = self._chunk_residual_local(scores, rows, spec.num_records, skip=name)
-                tables[name], importance = self._solve_re_chunk(name, tables[name], chunk,
-                                                                residual, chunk_index)
-                self._refresh_re_scores_chunk(scores, name, tables[name], chunk, spec)
+                with tracing.span("stream_game/re_chunk", cat="stream", coordinate=name,
+                                  chunk=chunk_index):
+                    residual = self._chunk_residual_local(scores, rows, spec.num_records,
+                                                          skip=name)
+                    tables[name], importance = self._solve_re_chunk(name, tables[name], chunk,
+                                                                    residual, chunk_index)
+                    self._refresh_re_scores_chunk(scores, name, tables[name], chunk, spec)
                 if self._multi_rank:
                     idx = chunk.entity_idx[name][:spec.num_records]
                     updated_rows[name].update(np.unique(idx[idx >= 0]).tolist())
@@ -824,7 +832,8 @@ class StreamingGameProgram:
             rows_arr = np.asarray(sorted(rows), np.int64)
             vals = tables[name].cpu().numpy()[rows_arr]
             payload[name] = {"rows": _pack_i64(rows_arr), "vals": _pack_f64(vals.ravel())}
-        gathered = self.exchange.allgather("stream_game/re_sync", payload)
+        with tracing.span("stream_game/re_sync", cat="stream"):
+            gathered = self.exchange.allgather("stream_game/re_sync", payload)
         out = {}
         for name, table in tables.items():
             if name not in payload:
@@ -845,9 +854,10 @@ class StreamingGameProgram:
         """One allgathered importance signal: every rank sees every chunk's
         importance before the schedule records it, so pin and evict
         decisions are the same on every rank."""
-        gathered = self.exchange.allgather(
-            "stream_game/duhl_importance",
-            {"imp": {str(ci): float(v) for ci, v in importance_global.items()}})
+        with tracing.span("stream_game/duhl_importance", cat="stream"):
+            gathered = self.exchange.allgather(
+                "stream_game/duhl_importance",
+                {"imp": {str(ci): float(v) for ci, v in importance_global.items()}})
         merged: dict[int, float] = {}
         for g in gathered:
             for ci, v in g["imp"].items():
@@ -958,7 +968,9 @@ class StreamingGameProgram:
                      if self._chunk_lo <= g < self._chunk_hi]
             chunk_visits += len(visit) * len(self.re_specs)
             self._final_sweep = sweep + 1 == num_sweeps
-            state = self._sweep(state, scores, visit)
+            with tracing.span("stream_game/sweep", cat="stream", sweep=sweep,
+                              chunks=len(visit)):
+                state = self._sweep(state, scores, visit)
             self.schedule.sweep_done()
             tl = time.perf_counter()
             losses.append(self._weighted_loss(scores))
@@ -984,6 +996,11 @@ class StreamingGameProgram:
                     and abs(losses[-2] - losses[-1]) <= tolerance * max(abs(losses[-2]), 1e-12)):
                 logger.info("streamed GAME reached loss plateau at sweep %d", sweep)
                 break
+        # the sweeps this call ran (restored sweeps excluded, as the loads
+        # and visits are)
+        stream_counters.set_game_stream_evidence(chunk_loads=self._cache.loads,
+                                                 chunk_visits=chunk_visits,
+                                                 sweeps=len(losses) - start_sweep)
         return StreamingGameResult(state=state, losses=losses, sweeps=len(losses) - start_sweep,
                                    chunk_loads=self._cache.loads, chunk_visits=chunk_visits)
 
@@ -1023,8 +1040,9 @@ def score_game_stream(state: GameTrainState, source, task: TaskType, fe_feature_
     scalars = ({k: np.zeros(n, dtype) for k in ("labels", "offsets", "weights")}
                if return_scalars else None)
     starts = getattr(source, "record_starts", None)
-    with ChunkPrefetcher(source, prefetch=prefetch, retry_policy=retry_policy,
-                         chunk_timeout=chunk_timeout) as chunks:
+    with tracing.span("stream_game/score", cat="stream", chunks=source.num_chunks), \
+            ChunkPrefetcher(source, prefetch=prefetch, retry_policy=retry_policy,
+                            chunk_timeout=chunk_timeout) as chunks:
         for spec, chunk in zip(source.specs, chunks):
             m = chunk.num_records
             w = state.fe_coefficients

@@ -24,9 +24,9 @@ slice of the input (``io/partitioned_reader.py``), scores its own rows
 (``DistributedScorer.score_partitioned``) and writes them as its own part,
 ``scores/part-{rank:05d}.avro`` (``io/score_writer.ShardedScoreWriter``);
 the other ranks of its data row write the same part into their
-``.worker-<rank>`` directory. Left out, each refused with
-``NotImplementedError`` naming its ROADMAP.md item before any data is read:
-``--telemetry-dir`` and ``--trace-dir`` (19). ``--input-format libsvm``
+``.worker-<rank>`` directory. ``--telemetry-dir`` writes rank 0's run
+journal and ``--trace-dir`` every rank's span timeline (see :func:`run`).
+``--input-format libsvm``
 reads LibSVM text. A compact random-effect model scores a sparse shard
 (``sparse=true`` in its ``--feature-shard-configurations``) through the
 gather kernel; a model is loaded compact when its feature space exceeds
@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch.cli.configs import evaluation_id_columns, parse_feature_shard_config
-from photon_ml_torch.cli.game_training_driver import _json_safe, parse_mesh_shape
+from photon_ml_torch.cli.game_training_driver import _close_journal, _json_safe, parse_mesh_shape
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration
 from photon_ml_torch.io.index_map import IndexMap
@@ -53,6 +53,7 @@ from photon_ml_torch.io.model_io import (
     DEFAULT_COMPACT_RE_THRESHOLD,
     load_game_model,
     load_game_model_and_index_maps,
+    write_scores,
 )
 from photon_ml_torch.io.partitioned_reader import read_partitioned
 from photon_ml_torch.io.score_writer import ShardedScoreWriter
@@ -61,20 +62,19 @@ from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_torch.parallel import multihost
 from photon_ml_torch.parallel.scoring import DistributedScorer
 from photon_ml_torch.transformers import GameTransformer
+from photon_ml_torch.telemetry import (
+    RunJournal,
+    Tracer,
+    default_registry,
+    flush_trace_best_effort,
+    install_tracer,
+    uninstall_tracer,
+)
+from photon_ml_torch.telemetry.resilience_counters import reset_resilience_metrics
 from photon_ml_torch.util import Timed
 from photon_ml_torch.util.timed import reset_timings
 
 logger = logging.getLogger(__name__)
-
-
-def _check_ported(*, telemetry_dir, trace_dir) -> None:
-    left_out = (
-        (bool(telemetry_dir), "--telemetry-dir (run journal)", 19),
-        (bool(trace_dir), "--trace-dir (span tracing)", 19),
-    )
-    for unported, what, item in left_out:
-        if unported:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
 
 
 def run(
@@ -105,8 +105,13 @@ def run(
     driver saved next to the model (<root>/index-maps); feature shard
     configs default to one shard per saved index map using the bag of the
     same name.
+
+    telemetry_dir: rank 0's JSONL run journal (phase timings, the I/O and
+    resilience counters, a heartbeat a dataset, the scoring summary),
+    written on success and on failure. trace_dir: every rank's span
+    timeline (``trace-{rank:05d}.json``) and a straggler report merged over
+    the ranks into the journal, flushed before the journal's last rows.
     """
-    _check_ported(telemetry_dir=telemetry_dir, trace_dir=trace_dir)
     if on_corrupt not in ("raise", "quarantine"):
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
     distributed = distributed or bool(mesh_shape)
@@ -136,13 +141,35 @@ def run(
                 own_dir = info.rank > 0
             if own_dir:
                 output_dir = os.path.join(output_dir, f".worker-{info.rank}")
-        return _run(input_data_path=input_data_path, model_input_dir=model_input_dir,
-                    output_dir=output_dir, feature_shards=feature_shards,
-                    index_maps_dir=index_maps_dir, evaluators=evaluators, model_id=model_id,
-                    input_format=input_format,
-                    compact_random_effect_threshold=compact_random_effect_threshold,
-                    on_corrupt=on_corrupt, mesh=mesh, exchange=exchange, device=device,
-                    own_dir=own_dir)
+        reset_resilience_metrics()
+        journal = RunJournal(telemetry_dir) if telemetry_dir else None
+        tracer = install_tracer(Tracer()) if trace_dir else None
+        succeeded = False
+        try:
+            summary = _run(input_data_path=input_data_path, model_input_dir=model_input_dir,
+                           output_dir=output_dir, feature_shards=feature_shards,
+                           index_maps_dir=index_maps_dir, evaluators=evaluators,
+                           model_id=model_id, input_format=input_format,
+                           compact_random_effect_threshold=compact_random_effect_threshold,
+                           on_corrupt=on_corrupt, mesh=mesh, exchange=exchange, device=device,
+                           own_dir=own_dir, journal=journal)
+            succeeded = True
+            if journal is not None:
+                journal.record("scoring_summary", **summary)
+            return summary
+        finally:
+            # the trace flushes before the journal's last rows; the straggler
+            # merge runs collectives only on success (every rank gets here)
+            if tracer is not None:
+                try:
+                    flush_trace_best_effort(
+                        tracer, trace_dir,
+                        exchange=(exchange or multihost.default_exchange()) if succeeded
+                        else None,
+                        gather=succeeded, journal=journal)
+                finally:
+                    uninstall_tracer()
+            _close_journal(journal)
     finally:
         if created:
             multihost.shutdown()
@@ -150,7 +177,7 @@ def run(
 
 def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_maps_dir,
          evaluators, model_id, input_format, compact_random_effect_threshold, on_corrupt, mesh,
-         device, exchange=None, own_dir: bool = False) -> dict:
+         device, exchange=None, own_dir: bool = False, journal=None) -> dict:
     device = resolve_device(device)
     reset_timings()
     if exchange is not None and evaluators:
@@ -222,8 +249,9 @@ def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_
                 scored = transformer.transform(data.dataset)
             summary = {"num_scored": int(len(scored.scores)), "evaluations": scored.evaluations}
             with Timed("save scores"):
-                writer = ShardedScoreWriter(os.path.join(ds_output, "scores"))
-                writer.write(scored.scores, model_id=model_id, uids=scored.unique_ids,
+                write_scores(os.path.join(ds_output, "scores"), scored.scores,
+                             records_per_file=1 << 20, model_id=model_id,
+                             uids=scored.unique_ids,
                              labels=data.dataset.host_array("labels"),
                              weights=data.dataset.host_array("weights"))
         if len(paths) > 1:
@@ -232,6 +260,11 @@ def _run(*, input_data_path, model_input_dir, output_dir, feature_shards, index_
             with open(os.path.join(ds_output, "scoring-summary.json"), "w") as f:
                 json.dump(_json_safe(summary), f, indent=2, default=float)
         summaries.append(summary)
+        if journal is not None:
+            # which dataset the loop last finished, with the registry's deltas
+            journal.heartbeat(registry=default_registry(), stage="game_scoring",
+                              dataset_index=di, num_datasets=len(paths),
+                              num_scored=summary.get("num_scored"))
     if len(paths) == 1:
         return summaries[0]
     combined = {"num_scored": int(sum(s["num_scored"] for s in summaries)),
@@ -325,8 +358,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--partitioned-io", action="store_true",
                    help="each rank decodes ~1/P of the input and writes its own score part "
                         "(needs --distributed or --mesh; no --evaluators)")
-    p.add_argument("--telemetry-dir", help="not ported (item 19)")
-    p.add_argument("--trace-dir", help="not ported (item 19)")
+    p.add_argument("--telemetry-dir",
+                   help="write rank 0's JSONL run journal (phase timings, I/O and resilience "
+                        "counters, the scoring summary) here")
+    p.add_argument("--trace-dir",
+                   help="write every rank's host span timeline (trace-<rank>.json, "
+                        "Chrome-trace JSON) here; the straggler report goes to the journal")
     return p
 
 

@@ -20,8 +20,18 @@ Runs on the CUDA device (the fixed effects through the packed kernel);
 ``main(argv, device="cpu")`` runs on the CPU. The flags the port takes keep
 the JAX driver's names and meanings, and its outputs (``models/<i>``,
 ``best``, ``index-maps``, ``feature-stats``, ``training-summary.json``) keep
-their names and layout. The summary leaves out what only the JAX run fills:
-the telemetry journal, the program ledger and the refresh section.
+their names and layout.
+
+``--telemetry-dir`` writes rank 0's JSONL run journal
+(``run-journal.jsonl``: the configuration, per-coordinate convergence rows,
+heartbeats, phase timings, the metrics registry's snapshot; on success and
+on failure), ``--trace-dir`` every rank's host span timeline
+(``trace-<rank>.json``, Chrome-trace JSON) with a straggler report merged
+across the ranks into the journal, and ``--profile-dir`` a
+``torch.profiler`` device trace of the run. The module's ``events``
+emitter sends the setup, start, finish and per-update optimization events
+to its listeners. The JAX driver's program-ledger rows and compile gauges
+are not written (ROADMAP.md item 19, step 2).
 
 ``--distributed`` (or ``--mesh data=N[,model=M]``) trains through the fused
 program over a mesh of every rank: run it under ``torchrun --nproc-per-node
@@ -74,9 +84,6 @@ coordinate's λ over ``--hyperparameter-tuning-range`` for
 (``hyperparameter/game_glue.py``, seeded by ``--hyperparameter-prior-json``)
 and writes ``tuned-hyperparameters.json``. ``scheduler=true`` in a random
 effect's configuration schedules its lanes (``algorithm/lane_scheduler.py``).
-Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--telemetry-dir``, ``--trace-dir``,
-``--profile-dir`` (19).
 Sparse, hybrid and pre-indexed shards and ``--input-format libsvm`` are
 taken; a random effect on a sparse shard trains and saves a compact model;
 matrix-factorization coordinates read both their entity columns;
@@ -135,12 +142,36 @@ from photon_ml_torch.optim.optimizer import OptimizerType
 from photon_ml_torch.parallel import multihost
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.resilience import CoordinatedRecovery, run_with_recovery
+from photon_ml_torch.telemetry import (
+    RunJournal,
+    Tracer,
+    default_registry,
+    flush_trace_best_effort,
+    install_tracer,
+    resilience_counters,
+    uninstall_tracer,
+)
+from photon_ml_torch.telemetry.layout import reset_layout_metrics
+from photon_ml_torch.telemetry.refresh_counters import reset_refresh_metrics
+from photon_ml_torch.telemetry.resilience_counters import reset_resilience_metrics
+from photon_ml_torch.telemetry.solver_trace import SolverTelemetry, reset_solver_metrics
 from photon_ml_torch.types import TaskType
-from photon_ml_torch.util import PhotonLogger, Timed
+from photon_ml_torch.util import (
+    EventEmitter,
+    PhotonLogger,
+    Timed,
+    TrainingFinishEvent,
+    TrainingStartEvent,
+)
 from photon_ml_torch.util.date_range import parse_date_or_days_range, resolve_input_paths
-from photon_ml_torch.util.timed import reset_timings, timing_summary
+from photon_ml_torch.util.timed import profile_trace, reset_timings, timing_summary
 
 logger = logging.getLogger(__name__)
+
+#: process-wide emitter: external telemetry registers listeners here
+#: (reference Driver.scala:120-393's PhotonSetupEvent, TrainingStart/Finish
+#: and per-update PhotonOptimizationLogEvents)
+events = EventEmitter()
 
 #: hyperparameter-tuning modes (reference HyperparameterTuningMode)
 TUNING_MODES = ("NONE", "BAYESIAN", "RANDOM")
@@ -190,9 +221,11 @@ class GameTrainingParams:
     hyperparameter_tuning_range: tuple[float, float] = (1e-4, 1e4)
     #: tuned-hyperparameters.json of a previous run, the search's priors
     hyperparameter_prior_json: str | None = None
-    # not ported: each refused by check_ported() when set
+    #: torch.profiler trace output dir (CPU and CUDA activity); empty = off
     profile_dir: str | None = None
+    #: rank 0's JSONL run journal dir (telemetry/journal.py); None = off
     telemetry_dir: str | None = None
+    #: every rank's span timeline dir (telemetry/tracing.py); None = off
     trace_dir: str | None = None
     #: train through the fused program over a data-axis mesh (one process
     #: per rank: ``torchrun --nproc-per-node N``, or one process alone);
@@ -216,18 +249,6 @@ class GameTrainingParams:
     refresh_changed_entities: tuple[str, ...] = ()
     #: also solve the fixed effects again (warm-started)
     refresh_fixed_effects: bool = False
-
-    def check_ported(self) -> None:
-        """Raise NotImplementedError for the first option or coordinate the
-        port lacks, before any data is read."""
-        left_out = (
-            (bool(self.telemetry_dir), "--telemetry-dir (run journal)", 19),
-            (bool(self.trace_dir), "--trace-dir (span tracing)", 19),
-            (bool(self.profile_dir), "--profile-dir (device traces)", 19),
-        )
-        for unported, what, item in left_out:
-            if unported:
-                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
 
     def validate(self) -> None:
         """Cross-parameter checks (reference validateParams:196-298)."""
@@ -429,7 +450,6 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
     """Execute the training pipeline on ``device`` (CUDA unless "cpu");
     returns the summary dict written to ``training-summary.json``."""
     params.validate()
-    params.check_ported()
     streamed_ranks = params.streaming_chunks > 0 and params.partitioned_io
     if params.partitioned_io and not params.distributed and not streamed_ranks:
         raise ValueError(
@@ -467,19 +487,74 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
             mesh = multihost.make_hybrid_mesh(data=shape.get("data"),
                                               model=shape.get("model", 1))
         os.makedirs(out, exist_ok=True)
+        # per-run phase timings and tallies (a sweep may call run() again)
         reset_timings()
-        with PhotonLogger(os.path.join(out, "driver.log")) as job_log:
-            if params.incremental_refresh:
-                # the refresh reads the data in the resident model's feature space
-                return _run_refresh(params, job_log, device)
-            if params.streaming_chunks > 0:
-                # the streamed path scans the input itself: the full read
-                # would build what it exists to avoid
-                return _run_streaming(params, job_log, device)
-            return _run_inner(params, job_log, device, mesh)
+        reset_solver_metrics()
+        reset_layout_metrics()
+        reset_resilience_metrics()
+        reset_refresh_metrics()
+        events.send(TrainingStartEvent(job_name="game-training"))
+        # the journal is inert on ranks > 0, so the telemetry calls below
+        # run on every rank; with no live sink SolverTelemetry builds no
+        # row and reads nothing from the device
+        journal = RunJournal(params.telemetry_dir) if params.telemetry_dir else None
+        telemetry = SolverTelemetry(
+            journal=journal, emitter=events,
+            registry=default_registry() if journal and journal.active else None)
+        # installed before any stage, so a failed read still leaves a timeline
+        tracer = install_tracer(Tracer()) if params.trace_dir else None
+        succeeded = False
+        try:
+            with profile_trace(params.profile_dir), \
+                    PhotonLogger(os.path.join(out, "driver.log")) as job_log:
+                if params.incremental_refresh:
+                    # the refresh reads the data in the resident model's feature space
+                    summary = _run_refresh(params, job_log, device, telemetry)
+                elif params.streaming_chunks > 0:
+                    # the streamed path scans the input itself: the full read
+                    # would build what it exists to avoid
+                    summary = _run_streaming(params, job_log, device, telemetry)
+                else:
+                    summary = _run_inner(params, job_log, device, mesh, telemetry)
+            succeeded = True
+            events.send(TrainingFinishEvent(job_name="game-training", succeeded=True))
+            return summary
+        except Exception:
+            events.send(TrainingFinishEvent(job_name="game-training", succeeded=False))
+            raise
+        finally:
+            # the trace flushes first, so a crash leaves a timeline: on
+            # success the straggler tables merge over the exchange (every
+            # rank reaches this point); on failure no new collective runs
+            if tracer is not None:
+                try:
+                    flush_trace_best_effort(
+                        tracer, params.trace_dir,
+                        exchange=multihost.default_exchange() if succeeded else None,
+                        gather=succeeded, journal=journal)
+                finally:
+                    uninstall_tracer()
+            _close_journal(journal)
     finally:
         if created:
             multihost.shutdown()
+
+
+def _journal_of(telemetry) -> "RunJournal | None":
+    return None if telemetry is None else telemetry.journal
+
+
+def _close_journal(journal) -> None:
+    """The run-end rows, on success and on failure: each quarantined block
+    span, the phase timings and the registry snapshot (the resilience,
+    solver, scheduler, stream, layout and I/O counters); then publish."""
+    if journal is None:
+        return
+    for event in resilience_counters.drain_quarantine_events():
+        journal.record("quarantined_block", **event)
+    journal.record_timings(timing_summary())
+    journal.record_metrics(default_registry().snapshot())
+    journal.close()
 
 
 def _resolve(path: str, range_spec: str | None):
@@ -489,7 +564,8 @@ def _resolve(path: str, range_spec: str | None):
     return resolve_input_paths([path], parse_date_or_days_range(range_spec))
 
 
-def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=None) -> dict:
+def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=None,
+               telemetry: SolverTelemetry | None = None) -> dict:
     out = params.root_output_dir
     if mesh is not None:
         job_log.info("distributed mode: mesh data=%d, model=%d", mesh.size(0), mesh.size(1))
@@ -521,6 +597,7 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
         # barrier-committed checkpoint within one budget (host-side only: no
         # device collective is added or moved)
         coordinator = CoordinatedRecovery(exchange, max_restarts=params.max_restarts,
+                                          journal=_journal_of(telemetry),
                                           description="partitioned game train")
         data_axis = mesh.size(0)
         if data_axis % exchange.num_ranks:
@@ -538,6 +615,7 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
         # never re-enters the fused program's collectives out of step
         coordinator = CoordinatedRecovery(multihost.default_exchange(),
                                           max_restarts=params.max_restarts,
+                                          journal=_journal_of(telemetry),
                                           description="distributed game train")
 
     # no retry around the read: a partitioned read is collective, and one
@@ -630,11 +708,24 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             resume=resume,
             mesh=mesh,
             fe_feature_sharded=mesh is not None and mesh.size(1) > 1,
+            telemetry=telemetry,
             partition=estimator_partition,
         )
 
     grid = expand_reg_weight_grid(params.coordinates)
     job_log.info("expanded λ grid to %d configurations", len(grid))
+    if _journal_of(telemetry) is not None:
+        telemetry.journal.record(
+            "config", task_type=params.task_type.name, distributed=mesh is not None,
+            num_configurations=len(grid),
+            coordinate_configurations={name: format_coordinate_config(cfg)
+                                       for name, cfg in params.coordinates.items()},
+            update_sequence=list(params.update_sequence or params.coordinates.keys()),
+            coordinate_descent_iterations=params.coordinate_descent_iterations,
+            # their scheduler/* counters and the solver/lane_iters histogram
+            # ride the registry snapshot
+            scheduled_coordinates=[name for name, cfg in params.coordinates.items()
+                                   if cfg.scheduler])
     first_evaluator = parse_evaluator(params.evaluators[0]) if params.evaluators else None
 
     def make_checkpointer(config_index: int, reg_weights):
@@ -677,7 +768,8 @@ def _run_inner(params: GameTrainingParams, job_log: PhotonLogger, device, mesh=N
             coordinator.rebind(ckpt)
         with Timed(f"train config {i}", sync=sync):
             result = run_with_recovery(attempt, max_restarts=params.max_restarts,
-                                       checkpointer=ckpt, description=f"train config {i}",
+                                       checkpointer=ckpt, journal=_journal_of(telemetry),
+                                       description=f"train config {i}",
                                        coordinator=coordinator)
         # warm start the next grid point (reference GameEstimator.fit:352-366)
         warm_model = result.model
@@ -763,7 +855,8 @@ def _tune(params: GameTrainingParams, summary: dict, results, grid, best_index: 
                                 optimization_configurations={"regWeights": reg})
 
 
-def _run_refresh(params: GameTrainingParams, job_log: PhotonLogger, device) -> dict:
+def _run_refresh(params: GameTrainingParams, job_log: PhotonLogger, device,
+                 telemetry: SolverTelemetry | None = None) -> dict:
     """The --incremental-refresh pipeline (``algorithm/refresh.py``): load the
     resident model (a saved directory, or the CD checkpoints of a training
     run), read the refresh data in its feature space, check the agreement
@@ -781,9 +874,7 @@ def _run_refresh(params: GameTrainingParams, job_log: PhotonLogger, device) -> d
     from photon_ml_torch.models.game import RandomEffectModel
     from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
     from photon_ml_torch.resilience import default_io_policy
-    from photon_ml_torch.telemetry.refresh_counters import reset_refresh_metrics
 
-    reset_refresh_metrics()
     out = params.root_output_dir
     reg_weights = {name: cfg.reg_weights[0] for name, cfg in params.coordinates.items()}
     saved_reg_weights = None
@@ -868,7 +959,13 @@ def _run_refresh(params: GameTrainingParams, job_log: PhotonLogger, device) -> d
         task=params.task_type, coordinate_configs=coordinate_configs, update_sequence=sequence,
         normalization=params.normalization,
         locked_coordinates=frozenset(params.partial_retrain_locked_coordinates),
-        intercept_indices=part.result.intercept_indices)
+        intercept_indices=part.result.intercept_indices, telemetry=telemetry)
+    if _journal_of(telemetry) is not None:
+        telemetry.journal.record(
+            "config", task_type=params.task_type.name, incremental_refresh=True,
+            update_sequence=sequence, refresh_gradient_tolerance=params.refresh_gradient_tolerance,
+            refresh_changed_entities={k: len(v) for k, v in policy.changed_entities.items()},
+            refresh_fixed_effects=params.refresh_fixed_effects)
 
     with Timed("incremental refresh"):
         def attempt(restart: int):
@@ -877,7 +974,8 @@ def _run_refresh(params: GameTrainingParams, job_log: PhotonLogger, device) -> d
                                      fingerprint=expected, resume=params.resume or restart > 0)
 
         result = run_with_recovery(attempt, max_restarts=params.max_restarts,
-                                   checkpointer=refresh_ckpt, description="incremental refresh")
+                                   checkpointer=refresh_ckpt, journal=_journal_of(telemetry),
+                                   description="incremental refresh")
 
     if params.model_output_mode != ModelOutputMode.NONE:
         save_game_model(os.path.join(out, "best"), result.model, index_maps,
@@ -909,7 +1007,8 @@ def _run_refresh(params: GameTrainingParams, job_log: PhotonLogger, device) -> d
     return summary
 
 
-def _run_streaming(params: GameTrainingParams, job_log: PhotonLogger, device) -> dict:
+def _run_streaming(params: GameTrainingParams, job_log: PhotonLogger, device,
+                   telemetry: SolverTelemetry | None = None) -> dict:
     """The ``--streaming-chunks`` GAME pipeline: one streaming scan (index
     maps, entity vocabularies, cluster keys and per-sample scalars; records
     dropped), an entity-clustered chunk source and ``StreamingGameProgram``
@@ -974,6 +1073,7 @@ def _run_streaming(params: GameTrainingParams, job_log: PhotonLogger, device) ->
         # a preempted rank becomes a rollback of every rank to the last
         # barrier-committed sweep (host-side key-value traffic only)
         coordinator = CoordinatedRecovery(exchange, max_restarts=params.max_restarts,
+                                          journal=_journal_of(telemetry),
                                           description="partitioned streamed game train")
     else:
         files = avro_io.list_avro_files(params.input_data_path)
@@ -1028,13 +1128,16 @@ def _run_streaming(params: GameTrainingParams, job_log: PhotonLogger, device) ->
             num_sweeps=params.coordinate_descent_iterations, checkpointer=checkpointer,
             checkpoint_every=params.checkpoint_every, resume=params.resume or restart > 0,
             # a coordinated restart restores the published step on every rank
-            resume_step=coordinator.resume_step if coordinator is not None else None)
+            resume_step=coordinator.resume_step if coordinator is not None else None,
+            on_sweep=None if telemetry is None else (
+                lambda sweep, total, loss: telemetry.heartbeat(
+                    "game_streaming", sweep=sweep, num_sweeps=total, loss=loss)))
 
     if coordinator is not None:
         coordinator.rebind(checkpointer)
     with Timed("streamed game train", sync=sync):
         result = run_with_recovery(attempt, max_restarts=params.max_restarts,
-                                   checkpointer=checkpointer,
+                                   checkpointer=checkpointer, journal=_journal_of(telemetry),
                                    description="streamed game train", coordinator=coordinator)
 
     state = result.state
@@ -1105,6 +1208,12 @@ def _run_streaming(params: GameTrainingParams, job_log: PhotonLogger, device) ->
         "losses": [float(x) for x in result.losses],
         "metric_history": [],
     }
+    if _journal_of(telemetry) is not None:
+        telemetry.journal.record(
+            "config", task_type=params.task_type.name, distributed=False,
+            streaming_chunks=params.streaming_chunks, duhl_working_set=params.duhl_working_set,
+            partitioned_ranks=partition.num_ranks if partition is not None else 1,
+            num_configurations=1)
     summary["timings"] = timing_summary()
     with open(os.path.join(out, "training-summary.json"), "w") as f:
         json.dump(_json_safe(summary), f, indent=2, default=float)
@@ -1155,9 +1264,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="save every N coordinate updates (fused sweeps with --distributed)")
     p.add_argument("--resume", action=argparse.BooleanOptionalAction, default=True,
                    help="resume from existing checkpoints (--no-resume: a fresh run)")
-    p.add_argument("--profile-dir", help="not ported (item 19)")
-    p.add_argument("--telemetry-dir", help="not ported (item 19)")
-    p.add_argument("--trace-dir", help="not ported (item 19)")
+    p.add_argument("--profile-dir",
+                   help="write a torch.profiler trace (CPU and CUDA activity, Chrome-trace "
+                        "JSON) of the run here")
+    p.add_argument("--telemetry-dir",
+                   help="write rank 0's JSONL run journal (config, phase timings, "
+                        "per-coordinate convergence rows, heartbeats, the metrics registry's "
+                        "snapshot) here")
+    p.add_argument("--trace-dir",
+                   help="write every rank's host span timeline (trace-<rank>.json, "
+                        "Chrome-trace JSON) here; the straggler report goes to the journal")
     p.add_argument("--compact-random-effect-threshold", type=int,
                    default=DEFAULT_COMPACT_RE_THRESHOLD,
                    help="warm-start RE models over this feature-space size load as compact "

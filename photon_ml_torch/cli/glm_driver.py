@@ -2,9 +2,10 @@
 
 Counterpart of ``photon_ml_tpu/cli/glm_driver.py`` on its in-core Avro path;
 reference photon-client Driver.scala — staged pipeline INIT -> PREPROCESSED
--> TRAINED -> VALIDATED (:158-218), train via ModelTraining over the λ grid
-with warm starts (:334-368), validation metrics + best-model selection
-(:373-450, ModelSelection.scala), text model output (IOUtils
+-> TRAINED -> VALIDATED -> DIAGNOSED (:158-218), train via ModelTraining
+over the λ grid with warm starts (:334-368), validation metrics +
+best-model selection (:373-450, ModelSelection.scala), diagnostics and the
+HTML report (:608-635, 719-739), text model output (IOUtils
 writeModelsInText, :211-215).
 
     python -m photon_ml_torch.cli.glm_driver --input-data-path train \\
@@ -25,10 +26,17 @@ at once as solver lanes (``estimators.train_glm_grid``), and
 ``--search-rounds N`` replaces the grid by a GP-driven model search over
 ``--search-space`` with ``--search-lane-budget`` configurations a round
 (``hyperparameter/search_driver.run_model_search``), selected by the
-validation metric. Left out, each refused with ``NotImplementedError``
-naming its ROADMAP.md item before any data is read: ``--enable-diagnostics``,
-``--num-bootstraps``, ``--telemetry-dir`` and ``--trace-dir`` (19). ``--input-format libsvm`` reads LibSVM text
-(``io/libsvm.py``).
+validation metric. ``--enable-diagnostics`` (with a validation path) writes
+``diagnostic-report.html`` and ``diagnostic-report.txt`` for the best λ:
+fitting curves, Hosmer-Lemeshow or Kendall's tau, feature importance and,
+with ``--num-bootstraps`` of 2 or more, the bootstrap chapter; every refit
+trains through the same ``train_glm``. ``--telemetry-dir`` writes a JSONL
+run journal (the configuration, a convergence row and a heartbeat a λ,
+phase timings, the metrics registry's snapshot; on success and on failure)
+and ``--trace-dir`` the host span timeline (``trace-00000.json``), flushed
+before the journal's last rows. The module's ``events`` emitter sends the
+setup, start, finish and per-λ optimization events to its listeners.
+``--input-format libsvm`` reads LibSVM text (``io/libsvm.py``).
 """
 
 from __future__ import annotations
@@ -46,18 +54,46 @@ import torch
 
 from photon_ml_torch.data.batch import LabeledPointBatch, summarize
 from photon_ml_torch.data.validators import DataValidationType, validate_arrays
+from photon_ml_torch.cli.game_training_driver import _close_journal
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.diagnostics.metrics import METRIC_DIRECTIONS, evaluate_model
+from photon_ml_torch.diagnostics.report_builder import build_diagnostic_report
+from photon_ml_torch.diagnostics.reporting import render_html, render_text
 from photon_ml_torch.estimators import train_glm, train_glm_grid, train_glm_streaming
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
 from photon_ml_torch.io.model_io import write_glm_text
 from photon_ml_torch.ops.normalization import NormalizationType, build_normalization
 from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
+from photon_ml_torch.telemetry import (
+    RunJournal,
+    Tracer,
+    default_registry,
+    flush_trace_best_effort,
+    install_tracer,
+    io_counters,
+    uninstall_tracer,
+)
+from photon_ml_torch.telemetry.layout import reset_layout_metrics
+from photon_ml_torch.telemetry.resilience_counters import reset_resilience_metrics
+from photon_ml_torch.telemetry.solver_trace import SolverTelemetry, reset_solver_metrics
+from photon_ml_torch.telemetry.stream_counters import reset_stream_metrics
 from photon_ml_torch.types import TaskType
-from photon_ml_torch.util import PhotonLogger, Timed
+from photon_ml_torch.util import (
+    EventEmitter,
+    PhotonLogger,
+    SetupEvent,
+    Timed,
+    TrainingFinishEvent,
+    TrainingStartEvent,
+)
 from photon_ml_torch.util.timed import reset_timings
 
 logger = logging.getLogger(__name__)
+
+#: process-wide emitter: external telemetry registers listeners here (the
+#: reference emitted PhotonSetupEvent, TrainingStart/Finish and per-update
+#: PhotonOptimizationLogEvents from Driver.scala:120-393)
+events = EventEmitter()
 
 
 class DriverStage(enum.Enum):
@@ -123,24 +159,14 @@ class GLMDriverParams:
     search_space: str | None = None
     #: one SeedSequence threads the Sobol scramble and the GP slice sampler
     search_seed: int = 0
-    # not ported: each refused by check_ported() when set
+    #: the DIAGNOSED stage: the diagnostic report of the best λ (needs a
+    #: validation path); num_bootstraps >= 2 adds the bootstrap chapter
     enable_diagnostics: bool = False
     num_bootstraps: int = 0
+    #: JSONL run journal dir (telemetry/journal.py); None = off
     telemetry_dir: str | None = None
+    #: span timeline dir (telemetry/tracing.py); None = off
     trace_dir: str | None = None
-
-    def check_ported(self) -> None:
-        """Raise NotImplementedError for the first option the port lacks,
-        before any data is read."""
-        left_out = (
-            (self.enable_diagnostics or self.num_bootstraps > 0,
-             "--enable-diagnostics/--num-bootstraps (diagnostic reports)", 19),
-            (bool(self.telemetry_dir), "--telemetry-dir (run journal)", 19),
-            (bool(self.trace_dir), "--trace-dir (span tracing)", 19),
-        )
-        for unported, what, item in left_out:
-            if unported:
-                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
 
 
 @dataclasses.dataclass
@@ -249,6 +275,8 @@ def _prepare_streaming(params: GLMDriverParams, shard_cfg, device):
     from photon_ml_torch.resilience import default_io_policy
 
     files = list_avro_files(params.input_data_path)
+    # the full read's journal evidence (read_partitioned sets it there)
+    io_counters.set_input_bytes_total(sum(int(os.path.getsize(f)) for f in files))
     index_maps = default_io_policy().call(
         lambda: build_streaming_index_maps(files, shard_cfg, on_corrupt=params.on_corrupt),
         description=f"streaming vocab pass over {params.input_data_path}")
@@ -282,7 +310,6 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
     to ``max_restarts`` times after a transient failure."""
     from photon_ml_torch.resilience import run_with_recovery
 
-    params.check_ported()
     if params.streaming_chunks > 0:
         _check_streaming_supported(params)
     if params.search_rounds > 0:
@@ -297,19 +324,71 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
             "are stated in original feature space; the solvers work in normalized space) — "
             "drop normalization.type or the box constraints")
     os.makedirs(params.output_dir, exist_ok=True)
+    # per-run phase timings and tallies (a sweep may call run() again)
+    reset_timings()
+    reset_solver_metrics()
+    reset_layout_metrics()
+    reset_stream_metrics()
+    reset_resilience_metrics()
+    journal = RunJournal(params.telemetry_dir) if params.telemetry_dir else None
+    # the emitter rides along always; SolverTelemetry builds no row (and
+    # reads nothing from the device) unless a sink consumes it
+    telemetry = SolverTelemetry(journal=journal, emitter=events,
+                                registry=default_registry() if journal and journal.active
+                                else None)
+    config_summary = {
+        "task_type": params.task_type.name,
+        "optimizer": params.optimizer.name,
+        "regularization_weights": list(params.regularization_weights),
+        "grid_parallel": params.grid_parallel,
+        "max_iterations": params.max_iterations,
+        "tolerance": params.tolerance,
+        "normalization": params.normalization.name,
+        "streaming_chunks": params.streaming_chunks,
+        "streaming_prefetch": params.streaming_prefetch,
+        "search_rounds": params.search_rounds,
+        "search_lane_budget": params.search_lane_budget,
+        "search_space": params.search_space,
+        "checkpoint_dir": params.checkpoint_dir,
+        "max_restarts": params.max_restarts,
+        "trace_dir": params.trace_dir,
+    }
+    events.send(SetupEvent(config_summary=json.dumps(config_summary)))
+    events.send(TrainingStartEvent(job_name="glm-training"))
+    if journal is not None:
+        journal.record("config", **config_summary)
     checkpointer = None
     if params.checkpoint_dir:
         from photon_ml_torch.io.checkpoint import SolverCheckpointer
 
         checkpointer = SolverCheckpointer(params.checkpoint_dir,
                                           save_every=params.checkpoint_every)
-    return run_with_recovery(lambda restart: _run_stages(params, device, checkpointer),
-                             max_restarts=params.max_restarts, checkpointer=checkpointer,
-                             description="glm training")
+    # installed right before the try whose finally removes it, early
+    # enough that a failed read still leaves a timeline
+    tracer = install_tracer(Tracer()) if params.trace_dir else None
+    try:
+        result = run_with_recovery(
+            lambda restart: _run_stages(params, device, checkpointer, telemetry),
+            max_restarts=params.max_restarts, checkpointer=checkpointer, journal=journal,
+            description="glm training")
+        events.send(TrainingFinishEvent(job_name="glm-training", succeeded=True))
+        return result
+    except Exception:
+        events.send(TrainingFinishEvent(job_name="glm-training", succeeded=False))
+        raise
+    finally:
+        # the trace flushes first, so a crash leaves a timeline even when
+        # journaling fails; a publication error never masks the outcome
+        if tracer is not None:
+            try:
+                flush_trace_best_effort(tracer, params.trace_dir, journal=journal)
+            finally:
+                uninstall_tracer()
+        _close_journal(journal)
 
 
-def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResult:
-    reset_timings()
+def _run_stages(params: GLMDriverParams, device, checkpointer,
+                telemetry: SolverTelemetry | None = None) -> GLMDriverResult:
     sync = torch.cuda.synchronize if device.type == "cuda" else None
     stage = DriverStage.INIT
     shard_cfg = {"features": FeatureShardConfiguration(feature_bags=("features",))}
@@ -355,6 +434,15 @@ def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResul
 
             lower_bounds, upper_bounds = build_bound_arrays(
                 params.coefficient_box_constraints, index_maps["features"])
+
+        def fit(b: LabeledPointBatch, lams, tel=None) -> dict:
+            trainer = train_glm_grid if params.grid_parallel else train_glm
+            return trainer(
+                b, params.task_type, optimizer=opt, regularization_weights=lams,
+                elastic_net_alpha=params.elastic_net_alpha, normalization=norm,
+                intercept_index=intercept_index, compute_variance=params.compute_variance,
+                lower_bounds=lower_bounds, upper_bounds=upper_bounds, telemetry=tel)
+
         val_batch = None
         search_outcome = None
         with Timed("glm train", sync=sync):
@@ -375,7 +463,9 @@ def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResul
                     optimizer=opt, seed=params.search_seed,
                     evaluator=_SELECTION_METRIC[params.task_type], normalization=norm,
                     intercept_index=intercept_index, box_lower=lower_bounds,
-                    box_upper=upper_bounds)
+                    box_upper=upper_bounds,
+                    journal=None if telemetry is None else telemetry.journal,
+                    telemetry=telemetry)
                 models = {search_outcome.best_config["lambda"]: search_outcome.best_model}
                 job_log.info("search best %s=%s config=%s (%d configs over %d rounds)",
                              search_outcome.evaluator_name, search_outcome.best_metric,
@@ -389,15 +479,11 @@ def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResul
                     elastic_net_alpha=params.elastic_net_alpha, normalization=norm,
                     intercept_index=intercept_index, prefetch=params.streaming_prefetch,
                     lower_bounds=lower_bounds, upper_bounds=upper_bounds,
-                    checkpointer=checkpointer, device=device)
+                    checkpointer=checkpointer, telemetry=telemetry, device=device)
             else:
-                trainer = train_glm_grid if params.grid_parallel else train_glm
-                models = trainer(
-                    batch, params.task_type, optimizer=opt,
-                    regularization_weights=params.regularization_weights,
-                    elastic_net_alpha=params.elastic_net_alpha, normalization=norm,
-                    intercept_index=intercept_index, compute_variance=params.compute_variance,
-                    lower_bounds=lower_bounds, upper_bounds=upper_bounds)
+                # telemetry on the primary grid only: the diagnostics' refits
+                # below would repeat per-λ convergence rows
+                models = fit(batch, params.regularization_weights, tel=telemetry)
         stage = DriverStage.TRAINED
         with Timed("glm write models"):
             write_glm_text(os.path.join(params.output_dir, "models-text"), models,
@@ -425,6 +511,25 @@ def _run_stages(params: GLMDriverParams, device, checkpointer) -> GLMDriverResul
                         best_value, best_lambda = value, lam
             stage = DriverStage.VALIDATED
             job_log.info("best λ=%s by %s=%s", best_lambda, metric, best_value)
+
+        # DIAGNOSE
+        if params.enable_diagnostics:
+            if val_batch is None:
+                raise ValueError("diagnostics require --validation-data-path")
+            if best_lambda is None:
+                raise ValueError(
+                    "no model produced a finite validation metric; nothing to diagnose")
+            with Timed("glm diagnose", sync=sync):
+                report = build_diagnostic_report(
+                    models, batch, val_batch, task=params.task_type,
+                    train_fn_for_lambda=lambda lam: (lambda b: fit(b, (lam,))[lam]),
+                    best_lambda=best_lambda, index_map=index_maps["features"],
+                    num_bootstraps=params.num_bootstraps, validation_metrics=validation_metrics)
+                with open(os.path.join(params.output_dir, "diagnostic-report.html"), "w") as f:
+                    f.write(render_html(report))
+                with open(os.path.join(params.output_dir, "diagnostic-report.txt"), "w") as f:
+                    f.write(render_text(report))
+            stage = DriverStage.DIAGNOSED
 
     summary_path = os.path.join(params.output_dir, "glm-summary.json")
     summary = {
@@ -472,13 +577,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--on-corrupt", default="raise", choices=["raise", "quarantine"],
                    help="corrupt Avro blocks: 'raise' (strict, default) or 'quarantine' "
                         "(skip-and-count)")
-    p.add_argument("--enable-diagnostics", action="store_true", help="not ported (item 19)")
-    p.add_argument("--num-bootstraps", type=int, default=0, help="not ported (item 19)")
+    p.add_argument("--enable-diagnostics", action="store_true",
+                   help="write diagnostic-report.{html,txt} for the best λ (needs "
+                        "--validation-data-path)")
+    p.add_argument("--num-bootstraps", type=int, default=0,
+                   help="bootstrap refits of the diagnostic report (>= 2 adds its chapter)")
     p.add_argument("--grid-parallel", action="store_true",
                    help="train all regularization weights simultaneously as "
                         "solver lanes (LBFGS/OWLQN only)")
-    p.add_argument("--telemetry-dir", help="not ported (item 19)")
-    p.add_argument("--trace-dir", help="not ported (item 19)")
+    p.add_argument("--telemetry-dir",
+                   help="write a JSONL run journal (config, per-λ convergence rows, phase "
+                        "timings, the metrics registry's snapshot) here")
+    p.add_argument("--trace-dir",
+                   help="write the host span timeline (trace-00000.json, Chrome-trace JSON) "
+                        "here")
     p.add_argument("--streaming-chunks", type=int, default=0,
                    help="out-of-core epochs: records per chunk (0 reads the data in core)")
     p.add_argument("--no-streaming-prefetch", action="store_true",

@@ -19,9 +19,9 @@ Runs on the CUDA device; ``main(argv, device="cpu")`` runs on the CPU.
 "compile" of the summary is a CUDA graph capture: ``warm_compiles`` and
 ``replay_compiles`` count the captures of the warm-up and of the replay
 (0 once the warm-up has captured every signature the replay reaches), and
-``program_compiles`` is ``null`` (the program ledger is ROADMAP.md item 19).
-Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item before any data is read: ``--telemetry-dir`` and ``--trace-dir`` (19).
+``program_compiles`` is ``null`` (the program ledger is ROADMAP.md item 19,
+step 2). ``--telemetry-dir`` writes a JSONL run journal and ``--trace-dir``
+the span timeline (see :func:`run`).
 """
 
 from __future__ import annotations
@@ -37,24 +37,22 @@ from typing import Sequence
 import torch
 
 from photon_ml_torch.cli.configs import parse_feature_shard_config
+from photon_ml_torch.cli.game_training_driver import _close_journal
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.io.model_io import DEFAULT_COMPACT_RE_THRESHOLD
 from photon_ml_torch.io.partitioned_reader import read_partitioned
+from photon_ml_torch.telemetry import (
+    RunJournal,
+    Tracer,
+    flush_trace_best_effort,
+    install_tracer,
+    uninstall_tracer,
+)
 from photon_ml_torch.util import Timed
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_SHAPES = "64,256,1024"
-
-
-def _check_ported(*, telemetry_dir, trace_dir) -> None:
-    left_out = (
-        (bool(telemetry_dir), "--telemetry-dir (run journal)", 19),
-        (bool(trace_dir), "--trace-dir (span tracing)", 19),
-    )
-    for unported, what, item in left_out:
-        if unported:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
 
 
 class _SwapPoller(threading.Thread):
@@ -64,11 +62,12 @@ class _SwapPoller(threading.Thread):
     Appearance is completeness (publishers stage under a ``tmp.*`` or
     dot-prefixed sibling and ``os.rename`` into place), so a half-written
     model is never loaded. A rejected swap (``ModelSwapError``: a layout
-    change) or an unloadable directory is logged and recorded in
-    ``rejected``, and serving continues on the resident model."""
+    change) or an unloadable directory is logged, recorded in ``rejected``
+    and journaled as a ``model_swap`` row, and serving continues on the
+    resident model."""
 
     def __init__(self, server, watch_dir: str, poll_s: float, *, index_maps,
-                 compact_threshold: int, device):
+                 compact_threshold: int, device, journal=None):
         super().__init__(name="serve-swap-poller", daemon=True)
         self._server = server
         self._watch_dir = watch_dir
@@ -76,6 +75,7 @@ class _SwapPoller(threading.Thread):
         self._index_maps = index_maps
         self._compact_threshold = compact_threshold
         self._device = device
+        self._journal = journal
         self._stop_event = threading.Event()
         self._seen: set[str] = set()
         self.polls = 0
@@ -126,9 +126,13 @@ class _SwapPoller(threading.Thread):
                        if isinstance(e, (ModelSwapError, OSError, ValueError, KeyError))
                        or is_transient(e) else logger.error)
                 log("rejected hot swap of %s: %r", path, e)
+                if self._journal is not None:
+                    self._journal.record("model_swap", dir=name, applied=False, error=repr(e))
                 continue
             self.applied.append(name)
             logger.info("hot-swapped model from %s", path)
+            if self._journal is not None:
+                self._journal.record("model_swap", dir=name, applied=True)
 
 
 def _parse_shapes(spec: str) -> tuple[int, ...]:
@@ -183,9 +187,13 @@ def run(
     mode: the directory is watched, and every atomically renamed model
     subdirectory that appears during the replay is loaded and hot-swapped in
     order (:class:`_SwapPoller`); the ``swap`` block then carries the applied
-    and rejected directories.
+    and rejected directories, and the journal a ``model_swap`` row a swap.
+
+    telemetry_dir: a JSONL run journal (the serving summary, the ``serve/*``
+    counters and the latency histogram in the registry's snapshot, phase
+    timings), written on success and on failure. trace_dir: the span
+    timeline (``serve/batch``, ``serve/score`` and the phases).
     """
-    _check_ported(telemetry_dir=telemetry_dir, trace_dir=trace_dir)
     if swap_poll_ms > 0 and swap_at_request is not None:
         raise ValueError(
             "--swap-at-request names a submit index for the ONE-SHOT "
@@ -198,21 +206,38 @@ def run(
 
     reset_timings()
     reset_serving_metrics()
-    return _run_inner(
-        requests_avro=requests_avro, model_input_dir=model_input_dir, output_dir=output_dir,
-        feature_shards=feature_shards, index_maps_dir=index_maps_dir, input_format=input_format,
-        compact_random_effect_threshold=compact_random_effect_threshold,
-        microbatch_shapes=microbatch_shapes, max_wait_ms=max_wait_ms, queue_depth=queue_depth,
-        request_rows=request_rows, num_requests=num_requests, bf16=bf16,
-        skip_unbatched_baseline=skip_unbatched_baseline, swap_model_dir=swap_model_dir,
-        swap_at_request=swap_at_request, swap_poll_ms=swap_poll_ms,
-        device=resolve_device(device))
+    device = resolve_device(device)
+    journal = RunJournal(telemetry_dir) if telemetry_dir else None
+    tracer = install_tracer(Tracer()) if trace_dir else None
+    try:
+        summary = _run_inner(
+            requests_avro=requests_avro, model_input_dir=model_input_dir,
+            output_dir=output_dir, feature_shards=feature_shards,
+            index_maps_dir=index_maps_dir, input_format=input_format,
+            compact_random_effect_threshold=compact_random_effect_threshold,
+            microbatch_shapes=microbatch_shapes, max_wait_ms=max_wait_ms,
+            queue_depth=queue_depth, request_rows=request_rows, num_requests=num_requests,
+            bf16=bf16, skip_unbatched_baseline=skip_unbatched_baseline,
+            swap_model_dir=swap_model_dir, swap_at_request=swap_at_request,
+            swap_poll_ms=swap_poll_ms, device=device, journal=journal)
+        if journal is not None:
+            journal.record("serving_summary", **summary)
+        return summary
+    finally:
+        # one process: the trace publishes alone, before the journal's last rows
+        if tracer is not None:
+            try:
+                flush_trace_best_effort(tracer, trace_dir, exchange=None, gather=False,
+                                        journal=journal)
+            finally:
+                uninstall_tracer()
+        _close_journal(journal)
 
 
 def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, index_maps_dir,
                input_format, compact_random_effect_threshold, microbatch_shapes, max_wait_ms,
                queue_depth, request_rows, num_requests, bf16, skip_unbatched_baseline,
-               swap_model_dir, swap_at_request, swap_poll_ms, device) -> dict:
+               swap_model_dir, swap_at_request, swap_poll_ms, device, journal=None) -> dict:
     from photon_ml_torch.cli.game_scoring_driver import _load_scoring_model
     from photon_ml_torch.cli.game_training_driver import _json_safe
     from photon_ml_torch.data.game_data import slice_game_dataset
@@ -312,7 +337,7 @@ def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, in
             poller = _SwapPoller(server, swap_model_dir, swap_poll_ms / 1e3,
                                  index_maps=index_maps or None,
                                  compact_threshold=compact_random_effect_threshold,
-                                 device=device)
+                                 device=device, journal=journal)
         t0 = time.perf_counter()
         with server:
             if poller is not None:
@@ -362,7 +387,7 @@ def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, in
         "replay_compiles": scorer.captures - replay_start,
         # every submitted request resolved above, so none was dropped
         "swap": swap_info,
-        # the program ledger is ROADMAP.md item 19
+        # the program ledger is ROADMAP.md item 19, step 2
         "program_compiles": None,
     }
     with open(os.path.join(output_dir, "serving-summary.json"), "w") as f:
@@ -408,8 +433,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "model subdirectories and hot-swap each through the guarded swap "
                         "(rejected swaps are logged and serving continues); 0 = the one "
                         "rehearsed mid-replay swap")
-    p.add_argument("--telemetry-dir", help="not ported (item 19)")
-    p.add_argument("--trace-dir", help="not ported (item 19)")
+    p.add_argument("--telemetry-dir",
+                   help="write a JSONL run journal (serve/* counters, the latency "
+                        "histogram, the serving summary, hot-swap rows) here")
+    p.add_argument("--trace-dir",
+                   help="write the host span timeline (trace-00000.json, Chrome-trace "
+                        "JSON) here")
     return p
 
 

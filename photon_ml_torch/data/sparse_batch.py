@@ -38,6 +38,7 @@ import torch
 from photon_ml_torch.data.batch import device_tensor, solve_dtype_of
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.ops.sparse_gather import gather_sum, gather_sum_reference, segment_plan
+from photon_ml_torch.telemetry.layout import record_hybrid_layout
 
 #: indices ride int32 on the device; one coefficient axis can carry up to
 #: 2^31-1 entries
@@ -666,10 +667,29 @@ def _hybrid_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n: int,
     if k:
         hot_block[rows[is_hot], posc[is_hot]] = vals[is_hot]
     tail = ~is_hot
+    tr, tc, tv = rows[tail], cols[tail], vals[tail]
     if layout is not None:
         layout.update(k_hot=k, k_hot_padded=k_pad, hot_nnz=covered,
-                      hot_coverage=covered / nnz if nnz else 0.0, tail_nnz=int(tail.sum()))
-    return hot_block, hot_ids, rows[tail], cols[tail], vals[tail]
+                      hot_coverage=covered / nnz if nnz else 0.0, tail_nnz=len(tv))
+    # the layout gauges (telemetry/layout.py): the head against plain ELL
+    itemsize = vals.dtype.itemsize
+    tail_counts = np.bincount(tr, minlength=n) if len(tr) else np.zeros(n, np.int64)
+    tail_width = _ell_auto_width(tail_counts, n, len(tv))
+    full_counts = np.bincount(rows, minlength=n) if nnz else np.zeros(n, np.int64)
+    full_width = _ell_auto_width(full_counts, n, nnz)
+    record_hybrid_layout(
+        policy.label, k_hot=k, k_hot_padded=k_pad,
+        hot_coverage=covered / nnz if nnz else 0.0, hot_nnz=covered, tail_nnz=len(tv),
+        tail_width=tail_width,
+        hybrid_bytes=(n * k_pad * itemsize + n * tail_width * (itemsize + 4)
+                      + _overflow_beyond(tail_counts, tail_width) * (itemsize + 8)),
+        ell_bytes=(n * full_width * (itemsize + 4)
+                   + _overflow_beyond(full_counts, full_width) * (itemsize + 8)))
+    return hot_block, hot_ids, tr, tc, tv
+
+
+def _overflow_beyond(counts: np.ndarray, width: int) -> int:
+    return int(np.maximum(counts - width, 0).sum())
 
 
 def _column_sorted_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, pad_to: int,

@@ -146,10 +146,6 @@ CoordinateConfig = (
 )
 
 
-def _not_ported(what: str, item: "int | str"):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md item {item}")
-
-
 @dataclasses.dataclass
 class TrainPartition:
     """Partitioned-read context of ``GameEstimator``: ``fit`` receives this
@@ -204,6 +200,8 @@ class GameEstimator:
     #: axis (its dimension padded with zero columns to a multiple of it;
     #: the padding's coefficients stay 0 and are sliced off on output)
     fe_feature_sharded: bool = False
+    #: a telemetry.SolverTelemetry: per-coordinate, per-sweep convergence
+    #: rows (the drivers thread their run journal and event emitter here)
     telemetry: object | None = None
     #: evaluation path of the fixed-effect solves (ops/objective.py): None =
     #: the packed kernel on a CUDA block, False = the closed form
@@ -228,8 +226,6 @@ class GameEstimator:
             initial_model: GameModel | None = None) -> CoordinateDescentResult:
         if self.fe_feature_sharded and self.mesh is None:
             raise ValueError("fe_feature_sharded requires a mesh (GameEstimator(mesh=...))")
-        if self.telemetry is not None:
-            raise _not_ported("solver telemetry", 19)
         if self.partition is not None and self.mesh is None:
             # the coordinate-descent path would train a whole model on this
             # rank's 1/P block
@@ -272,6 +268,7 @@ class GameEstimator:
             checkpoint_every=self.checkpoint_every,
             resume=self.resume,
             check_finite=self.check_finite,
+            telemetry=self.telemetry,
             on_update=self.on_update,
         )
 
@@ -580,7 +577,10 @@ class GameEstimator:
                 training_evaluator=default_evaluator_for_task(self.task),
                 training_eval_data=eval_data(dataset), check_finite=self.check_finite,
                 checkpointer=self.checkpointer, checkpoint_every=self.checkpoint_every,
-                resume=self.resume, exchange=self.exchange, resume_step=self.resume_step)
+                resume=self.resume, exchange=self.exchange, resume_step=self.resume_step,
+                on_sweep=None if self.telemetry is None else (
+                    lambda sweep, total, loss: self.telemetry.heartbeat(
+                        "fused_game", sweep=sweep, num_sweeps=total, loss=loss)))
 
         trainable_cids = {} if fe_cid is None else {fe_shard: fe_cid}
         trainable_cids.update(extra_fe_cid_of_shard)
@@ -614,6 +614,11 @@ class GameEstimator:
         final_model = to_game_model(result.state)
         best_model = (to_game_model(result.best_state) if result.best_state is not None
                       else final_model)
+        if self.telemetry is not None:
+            # the fused program carries no per-lane solver state out of its
+            # sweeps; report the per-sweep evaluations under a synthetic id
+            for i, m in enumerate(result.metric_history or []):
+                self.telemetry.record_coordinate("fused-sweep", i, None, metrics=m)
         return CoordinateDescentResult(model=final_model, best_model=best_model,
                                        best_metric=result.best_metric,
                                        metric_history=result.metric_history)
@@ -764,6 +769,7 @@ def train_glm(
     variance_mode: str = "auto",
     lower_bounds=None,
     upper_bounds=None,
+    telemetry=None,
     use_kernel: bool | None = None,
     on_solve: Callable[[float, SolverResult], None] | None = None,
 ) -> dict[float, GeneralizedLinearModel]:
@@ -781,6 +787,9 @@ def train_glm(
     use_kernel: the objective's evaluation path (``ops/objective.py``,
     ``ops/sparse_objective.py``; None = the kernels on a CUDA batch). on_solve: called with
     (λ, SolverResult) after each λ's solve.
+
+    telemetry: a ``telemetry.SolverTelemetry``: one convergence row
+    (iterations, reason, value history) and one heartbeat a λ.
     """
     _require_batch(batch)
     optimizer = resolve_auto_optimizer(optimizer or OptimizerConfig())
@@ -817,6 +826,9 @@ def train_glm(
                        lower_bounds=bound_tensor(lower_bounds),
                        upper_bounds=bound_tensor(upper_bounds))
         w = result.coefficients
+        if telemetry is not None:
+            telemetry.record_solve("glm", result, extra={"lambda": lam})
+            telemetry.heartbeat("glm", lam=lam, n_lambdas=len(regularization_weights))
         if on_solve is not None:
             on_solve(lam, result)
         norm = objective.normalization
@@ -857,7 +869,8 @@ def train_glm_grid(
     Lanes start cold instead of warm from the previous λ. L-BFGS and OWL-QN
     lanes (elastic net included), with an optional box shared by every
     lane; TRON stays on the sequential path. Variances are per lane, full
-    (diag(H⁻¹)) or diagonal. ``telemetry`` is ROADMAP.md item 19.
+    (diag(H⁻¹)) or diagonal. ``telemetry``: a ``telemetry.SolverTelemetry``
+    that gets the lanes' convergence rows, keyed by λ.
     ``use_kernel``: the sparse objective's evaluation path, as in
     :func:`train_glm` (``False`` takes the plain gathers, the only path of a
     float64 batch on the card); the dense lanes are a library product.
@@ -868,8 +881,6 @@ def train_glm_grid(
     from photon_ml_torch.algorithm.lane_search import solve_lanes
 
     _require_batch(batch)
-    if telemetry is not None:
-        raise _not_ported("lane telemetry of train_glm_grid", 19)
     optimizer = resolve_auto_optimizer(optimizer or OptimizerConfig())
     if optimizer.optimizer_type not in (OptimizerType.LBFGS, OptimizerType.OWLQN):
         raise ValueError(
@@ -904,6 +915,8 @@ def train_glm_grid(
     w0 = torch.zeros((len(lams), batch.dim), dtype=dtype, device=device)
     results = solve_lanes(objective, use_owlqn, optimizer, batch, l2s, l1s,
                           optimizer.tolerance, w0, bounds)
+    if telemetry is not None:
+        telemetry.record_lanes("glm-grid", results, keys=[{"lambda": lam} for lam in lams])
     norm = objective.normalization
     models: dict[float, GeneralizedLinearModel] = {}
     for i, lam in enumerate(lams):
@@ -996,8 +1009,9 @@ def train_glm_streaming(
     the JAX package's, so either package resumes the other's checkpoints.
 
     on_solve: called with (λ, SolverResult, the λ's StreamingGLMObjective)
-    after each λ's solve. ``telemetry`` is ROADMAP.md item 19: it raises
-    before any data is read.
+    after each λ's solve. ``telemetry``: a ``telemetry.SolverTelemetry``:
+    one convergence row a λ and a heartbeat at every outer iteration (an
+    epoch boundary).
 
     ``exchange``: a ``parallel.multihost.MetadataExchange``; each rank
     streams its own chunks (``io/stream_reader.plan_partitioned_stream``)
@@ -1013,8 +1027,6 @@ def train_glm_streaming(
     from photon_ml_torch.optim.optimizer import solver_state_class
     from photon_ml_torch.resilience import recovery
 
-    if telemetry is not None:
-        raise _not_ported("solver telemetry of train_glm_streaming", 19)
     exchange = resolve_rank_exchange(mesh, exchange)
     writes = exchange is None or exchange.rank == 0
     device = resolve_device(device)
@@ -1104,9 +1116,16 @@ def train_glm_streaming(
             resume_state = solver_state_class(opt).from_arrays(
                 resume_state_arrays, dtype=solve_dtype, device=device)
             objective.epochs = resume_epochs_lambda
-        state_observer = None
+        observers = []
+        if telemetry is not None:
+            # the epoch cursor a wedged run is diagnosed by; observes only
+            def heartbeat(state, _li=li, _obj=objective):
+                telemetry.heartbeat("glm_streaming", lam_index=_li, n_lambdas=len(lams),
+                                    iteration=int(state.iteration), epochs=_obj.epochs)
+
+            observers.append(heartbeat)
         if checkpointer is not None and writes:
-            def state_observer(state, _li=li, _obj=objective, _mi=opt.max_iterations):
+            def checkpoint(state, _li=li, _obj=objective, _mi=opt.max_iterations):
                 if state.iteration % checkpointer.save_every:
                     return
                 if state.reason != 0 or state.iteration >= _mi:
@@ -1117,8 +1136,15 @@ def train_glm_streaming(
                     epochs_total=epochs_total, epochs_lambda=_obj.epochs,
                     completed=completed, solver_state=state)
 
+            observers.append(checkpoint)
+
+        def state_observer(state, _obs=tuple(observers)):
+            for obs in _obs:
+                obs(state)
+
         result = solve(opt, objective, w, lower_bounds=bound_tensor(lower_bounds),
-                       upper_bounds=bound_tensor(upper_bounds), state_observer=state_observer,
+                       upper_bounds=bound_tensor(upper_bounds),
+                       state_observer=state_observer if observers else None,
                        resume_state=resume_state)
         w = result.coefficients
         if checkpointer is not None:
@@ -1130,6 +1156,10 @@ def train_glm_streaming(
                     fingerprint=fingerprint, lam_index=li + 1, iteration=0,
                     epochs_total=epochs_total, epochs_lambda=0, completed=completed,
                     solver_state=None)
+        if telemetry is not None:
+            telemetry.record_solve("glm_streaming", result,
+                                   extra={"lambda": lam, "epochs": objective.epochs,
+                                          "chunks": source.num_chunks})
         if on_solve is not None:
             on_solve(lam, result, objective)
         models[lam] = GeneralizedLinearModel(

@@ -288,14 +288,12 @@ def run_model_search(
     """Ask/tell tournament search: ``rounds`` rounds of ``lane_budget``
     configs, each round one lane-batched solve and one device metric per lane.
 
-    ``journal`` (a run journal) is ROADMAP.md item 19. ``registry``: the
-    port's MetricsRegistry (default: the process default) for the
-    ``search/*`` counters and gauges. Deterministic under a fixed ``seed``.
+    ``journal``: a ``telemetry.RunJournal`` that gets a ``search_round``
+    row a round, a ``search_complete`` row, or a ``search_failure`` row
+    before an error propagates. ``registry``: the port's MetricsRegistry
+    (default: the process default) for the ``search/*`` counters and
+    gauges. Deterministic under a fixed ``seed``.
     """
-    if journal is not None:
-        from photon_ml_torch.estimators import _not_ported
-
-        raise _not_ported("the search's run journal", 19)
     if rounds < 1 or lane_budget < 1:
         raise ValueError(
             f"need rounds >= 1 and lane_budget >= 1, got {rounds}/{lane_budget}"
@@ -356,89 +354,97 @@ def run_model_search(
 
     round_units = engine.draw_candidates(lane_budget)  # Sobol warmup round
     source = "sobol"
-    for rnd in range(rounds):
-        configs = space.lane_configs(
-            round_units,
-            default_tolerance=optimizer.tolerance,
-            feature_dim=batch.dim,
-            box_lower=box_lower, box_upper=box_upper,
-        )
-        warm, _ = _nearest_warm_starts(
-            round_units, evaluated_units, evaluated_coeffs
-        )
-        warm_lanes = lane_budget if warm is not None else 0
-        c_warm.inc(warm_lanes)
-        c_cold.inc(lane_budget - warm_lanes)
-        t0 = time.perf_counter()
-        tournament = run_lane_tournament(
-            batch, task, configs,
-            optimizer=optimizer, warm_start=warm,
-            normalization=normalization,
-            intercept_index=intercept_index,
-            telemetry=telemetry,
-        )
-        metrics_dev = evaluate_tournament_on_device(
-            objective, dev.compute, val_batch,
-            tournament.results.coefficients, dev.consts,
-            intercept_index,
-        )
-        # --- tell the GP round r-1's results and propose round r+1
-        # before reading round r's metrics (the JAX package's order) ---
-        next_units = None
-        next_source = source
-        gp_ms = 0.0
-        if rnd + 1 < rounds:
-            t_gp = time.perf_counter()
-            for u, m in pending:
-                engine.observe(u, sign * m)
-            pending = []
-            next_units = engine.propose_batch(lane_budget)
-            next_source = engine.last_proposal_source
-            gp_ms = (time.perf_counter() - t_gp) * 1e3
-        # --- sync point: [L] scalars + lane coefficients to host ---
-        metrics = metrics_dev.double().cpu().numpy()
-        coeffs = tournament.results.coefficients.cpu().numpy()
-        round_ms = (time.perf_counter() - t0) * 1e3
-        cfg_dicts = space.config_dicts(round_units)
-        for i in range(lane_budget):
-            u = np.array(round_units[i], np.float64)
-            m = float(metrics[i])
-            evaluated_units.append(u)
-            evaluated_coeffs.append(coeffs[i])
-            observations.append((u, m))
-            pending.append((u, m))
-            if not np.isnan(m) and evaluator.better_than(m, best_metric):
-                best_metric = m
-                best_model = tournament.models[i]
-                best_config = cfg_dicts[i]
-                best_unit = u
-        c_rounds.inc()
-        c_configs.inc(lane_budget)
-        (c_gp if source == "gp" else c_sobol).inc()
-        registry.gauge("search/best_metric").set(best_metric)
-        row = {
-            "round": rnd,
-            "source": source,
-            "lanes": lane_budget,
-            "warm_lanes": warm_lanes,
-            "round_ms": round_ms,
-            "gp_overlap_ms": gp_ms,
-            "best_metric": best_metric,
-            "round_best": float(np.nanmax(metrics) if
-                                evaluator.larger_is_better
-                                else np.nanmin(metrics)),
-            "metric": evaluator.name,
-        }
-        trajectory.append(row)
-        if next_units is not None:
-            round_units = next_units
-            source = next_source
+    try:
+        for rnd in range(rounds):
+            configs = space.lane_configs(
+                round_units,
+                default_tolerance=optimizer.tolerance,
+                feature_dim=batch.dim,
+                box_lower=box_lower, box_upper=box_upper,
+            )
+            warm, _ = _nearest_warm_starts(
+                round_units, evaluated_units, evaluated_coeffs
+            )
+            warm_lanes = lane_budget if warm is not None else 0
+            c_warm.inc(warm_lanes)
+            c_cold.inc(lane_budget - warm_lanes)
+            t0 = time.perf_counter()
+            tournament = run_lane_tournament(
+                batch, task, configs,
+                optimizer=optimizer, warm_start=warm,
+                normalization=normalization,
+                intercept_index=intercept_index,
+                telemetry=telemetry,
+            )
+            metrics_dev = evaluate_tournament_on_device(
+                objective, dev.compute, val_batch,
+                tournament.results.coefficients, dev.consts,
+                intercept_index,
+            )
+            # --- tell the GP round r-1's results and propose round r+1
+            # before reading round r's metrics (the JAX package's order) ---
+            next_units = None
+            next_source = source
+            gp_ms = 0.0
+            if rnd + 1 < rounds:
+                t_gp = time.perf_counter()
+                for u, m in pending:
+                    engine.observe(u, sign * m)
+                pending = []
+                next_units = engine.propose_batch(lane_budget)
+                next_source = engine.last_proposal_source
+                gp_ms = (time.perf_counter() - t_gp) * 1e3
+            # --- sync point: [L] scalars + lane coefficients to host ---
+            metrics = metrics_dev.double().cpu().numpy()
+            coeffs = tournament.results.coefficients.cpu().numpy()
+            round_ms = (time.perf_counter() - t0) * 1e3
+            cfg_dicts = space.config_dicts(round_units)
+            for i in range(lane_budget):
+                u = np.array(round_units[i], np.float64)
+                m = float(metrics[i])
+                evaluated_units.append(u)
+                evaluated_coeffs.append(coeffs[i])
+                observations.append((u, m))
+                pending.append((u, m))
+                if not np.isnan(m) and evaluator.better_than(m, best_metric):
+                    best_metric = m
+                    best_model = tournament.models[i]
+                    best_config = cfg_dicts[i]
+                    best_unit = u
+            c_rounds.inc()
+            c_configs.inc(lane_budget)
+            (c_gp if source == "gp" else c_sobol).inc()
+            registry.gauge("search/best_metric").set(best_metric)
+            row = {
+                "round": rnd,
+                "source": source,
+                "lanes": lane_budget,
+                "warm_lanes": warm_lanes,
+                "round_ms": round_ms,
+                "gp_overlap_ms": gp_ms,
+                "best_metric": best_metric,
+                "round_best": float(np.nanmax(metrics) if
+                                    evaluator.larger_is_better
+                                    else np.nanmin(metrics)),
+                "metric": evaluator.name,
+            }
+            trajectory.append(row)
+            if journal is not None:
+                journal.record("search_round", **row)
+            if next_units is not None:
+                round_units = next_units
+                source = next_source
+    except Exception as exc:
+        if journal is not None:
+            journal.record("search_failure", round=len(trajectory),
+                           error=f"{type(exc).__name__}: {exc}")
+        raise
     if best_model is None:
         raise ValueError(
             f"search produced no finite {evaluator.name} over "
             f"{rounds * lane_budget} configs"
         )
-    return SearchOutcome(
+    out = SearchOutcome(
         best_model=best_model,
         best_config=best_config,
         best_metric=best_metric,
@@ -446,6 +452,10 @@ def run_model_search(
         trajectory=trajectory,
         observations=observations,
     )
+    if journal is not None:
+        journal.record("search_complete", configs=len(observations), best_metric=best_metric,
+                       best_config=best_config, metric=evaluator.name)
+    return out
 
 
 def host_metric_for_model(

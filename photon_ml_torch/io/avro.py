@@ -45,7 +45,10 @@ quarantined_blocks: list[tuple] = []
 
 def _record_quarantined_block(path: str, block_index: int, start: int, end: int,
                               reason: str) -> None:
+    from photon_ml_torch.telemetry import resilience_counters
+
     quarantined_blocks.append((path, block_index, start, end, reason))
+    resilience_counters.record_quarantined_block(path, block_index, start, end, reason)
 
 MAGIC = b"Obj\x01"
 DEFAULT_SYNC = bytes(range(16))

@@ -216,17 +216,28 @@ def commit_checkpoint(checkpointer, step: int, arrays: Mapping[str, Any], meta: 
     barrier before (the step commits only when every rank reached it), rank
     0's write, and a barrier after (no rank runs ahead of the publish).
     Returns the step directory on the writing rank, None elsewhere."""
+    from photon_ml_torch.telemetry import tracing
+
     if checkpointer is None:
         return None
     if exchange is None:
-        return checkpointer.save(step, arrays, meta) if _process_rank() == 0 else None
-    exchange.barrier(f"checkpoint_commit/{step}/ready")
-    # the exchange's rank 0 (a data-axis exchange has one per model rank:
-    # of those, the process of rank 0)
-    writes = exchange.rank == 0 and _process_rank() == 0
-    path = checkpointer.save(step, arrays, meta) if writes else None
-    exchange.barrier(f"checkpoint_commit/{step}/published")
-    return path
+        if _process_rank() != 0:
+            return None
+        with tracing.span("checkpoint/write", cat="checkpoint", step=step):
+            return checkpointer.save(step, arrays, meta)
+    # the commit span brackets both barriers (whose waits the exchange's
+    # own spans record) and the write; the barriers are the same untraced
+    with tracing.span("checkpoint/commit", cat="checkpoint", step=step, rank=exchange.rank):
+        exchange.barrier(f"checkpoint_commit/{step}/ready")
+        # the exchange's rank 0 (a data-axis exchange has one per model
+        # rank: of those, the process of rank 0)
+        path = None
+        if exchange.rank == 0 and _process_rank() == 0:
+            with tracing.span("checkpoint/write", cat="checkpoint", step=step,
+                              rank=exchange.rank):
+                path = checkpointer.save(step, arrays, meta)
+        exchange.barrier(f"checkpoint_commit/{step}/published")
+        return path
 
 
 # -- GAME models as flat arrays ------------------------------------------------

@@ -64,6 +64,8 @@ from photon_ml_torch.io.data_reader import (
     records_to_game_dataset,
 )
 from photon_ml_torch.io.index_map import INTERCEPT_KEY, IndexMap
+from photon_ml_torch.telemetry import io_counters, tracing
+from photon_ml_torch.telemetry.layout import record_global_hot_ranking
 
 logger = logging.getLogger(__name__)
 
@@ -291,6 +293,7 @@ def read_partitioned(
     files = _list_input_files(path, fmt)
     sizes = [os.path.getsize(f) for f in files]
     input_total = int(sum(sizes))
+    io_counters.set_input_bytes_total(input_total)
     common = dict(index_maps=index_maps, random_effect_id_columns=random_effect_id_columns,
                   evaluation_id_columns=evaluation_id_columns, entity_vocabs=entity_vocabs,
                   dtype=dtype)
@@ -323,6 +326,7 @@ def read_partitioned(
             records.extend(avro_io.read_container_block_range(
                 files[fi], run[0][1], len(run), index=indexes[fi], on_corrupt=on_corrupt))
         local = _read_local_records(records, shard_configs, **common)
+    io_counters.record_bytes_decoded(bytes_decoded)
 
     # the one metadata allgather: the plan's fingerprint, row counts, feature
     # keys (maps built locally), entity ids and counts (only the counts when
@@ -343,7 +347,9 @@ def read_partitioned(
         else:
             vocab_counts[t] = (vocab.tolist(), counts.astype(int).tolist())
     payload["entities"] = vocab_counts
-    gathered = exchange.allgather(f"partitioned_read/{tag}", payload)
+    with tracing.span("partitioned/metadata_exchange", cat="partitioned", tag=tag,
+                      rank=exchange.rank):
+        gathered = exchange.allgather(f"partitioned_read/{tag}", payload)
 
     fingerprints = {g["fingerprint"] for g in gathered}
     if len(fingerprints) != 1:
@@ -497,20 +503,25 @@ def _resolve_global_sparse_layout(local: ReadResult, exchange, tag: str, *,
         if policy is not None and policy.hot_ids is None:
             uniq, cnt = (np.unique(cols, return_counts=True) if len(cols)
                          else (np.zeros(0, np.int64), np.zeros(0, np.int64)))
-            gathered_hist = exchange.allgather(f"hybrid_hot/{tag}/{name}",
-                                               {"cols": _pack_i64(uniq),
-                                                "counts": _pack_i64(cnt)})
+            with tracing.span("partitioned/hybrid_hot_exchange", cat="partitioned", shard=name,
+                              rank=exchange.rank):
+                gathered_hist = exchange.allgather(f"hybrid_hot/{tag}/{name}",
+                                                   {"cols": _pack_i64(uniq),
+                                                    "counts": _pack_i64(cnt)})
             all_cols = np.concatenate([_unpack_i64(g["cols"]) for g in gathered_hist])
             all_cnts = np.concatenate([_unpack_i64(g["counts"]) for g in gathered_hist])
             # the summed histogram, sorted by id: np.unique over a full read
             guniq, inv = np.unique(all_cols, return_inverse=True)
             gcnt = np.zeros(len(guniq), dtype=np.int64)
             np.add.at(gcnt, inv, all_cnts)
-            hot = rank_hot_columns(guniq, gcnt, int(gcnt.sum()), policy)
+            gnnz = int(gcnt.sum())
+            hot = rank_hot_columns(guniq, gcnt, gnnz, policy)
             if len(hot) == 0:
                 raise ValueError(f"feature shard '{name}': hybrid=true but no rank decoded "
                                  "any nonzero entry — nothing to rank")
             policy = dataclasses.replace(policy, hot_ids=tuple(int(c) for c in hot))
+            record_global_hot_ranking(policy.label, k_hot=len(hot), global_nnz=gnnz,
+                                      num_ranks=exchange.num_ranks)
         elif policy is not None:
             hot = np.asarray(policy.hot_ids, dtype=np.int64)
 
@@ -523,8 +534,11 @@ def _resolve_global_sparse_layout(local: ReadResult, exchange, tag: str, *,
         counts = (np.bincount(tail_rows, minlength=n_local).astype(np.int64) if n_local
                   else np.zeros(0, np.int64))
         freq = np.bincount(counts) if n_local else np.zeros(1, np.int64)
-        gathered_rows = exchange.allgather(f"ell_width/{tag}/{name}",
-                                           {"freq": freq.astype(int).tolist(), "n": n_local})
+        with tracing.span("partitioned/ell_width_exchange", cat="partitioned", shard=name,
+                          rank=exchange.rank):
+            gathered_rows = exchange.allgather(f"ell_width/{tag}/{name}",
+                                               {"freq": freq.astype(int).tolist(),
+                                                "n": n_local})
         depth = max(len(g["freq"]) for g in gathered_rows)
         gfreq = np.zeros(depth, dtype=np.int64)
         rank_freqs = []

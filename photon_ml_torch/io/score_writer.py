@@ -22,6 +22,7 @@ import os
 import numpy as np
 
 from photon_ml_torch.io.model_io import write_scores
+from photon_ml_torch.telemetry import io_counters
 
 logger = logging.getLogger(__name__)
 
@@ -63,8 +64,10 @@ class ShardedScoreWriter:
             write_scores(self.output_dir, scores, model_id=model_id, uids=uids, labels=labels,
                          weights=weights, records_per_file=records_per_file)
             num_parts = max(1, -(-len(scores) // records_per_file))
-            return [os.path.join(self.output_dir, f"part-{i:05d}.avro")
-                    for i in range(num_parts)]
+            paths = [os.path.join(self.output_dir, f"part-{i:05d}.avro")
+                     for i in range(num_parts)]
+            io_counters.record_score_bytes_written(sum(os.path.getsize(p) for p in paths))
+            return paths
         if ex.rank == 0:
             os.makedirs(self.output_dir, exist_ok=True)
             # a larger earlier run's parts would ride along with any reader
@@ -76,6 +79,8 @@ class ShardedScoreWriter:
         part = os.path.join(self.output_dir, f"part-{ex.rank:05d}.avro")
         write_scores(part, scores, model_id=model_id, uids=uids, labels=labels,
                      weights=weights)
+        written = os.path.getsize(part)
+        io_counters.record_score_bytes_written(written)
         logger.info("rank %d/%d wrote %d scores (%d bytes) to %s", ex.rank, ex.num_ranks,
-                    len(scores), os.path.getsize(part), part)
+                    len(scores), written, part)
         return [part]

@@ -53,6 +53,7 @@ from photon_ml_torch.resilience import (
     default_io_policy,
     is_transient,
 )
+from photon_ml_torch.telemetry import io_counters, stream_counters, tracing
 
 #: consumer-side wait bound per chunk (seconds)
 DEFAULT_CHUNK_TIMEOUT = 120.0
@@ -433,6 +434,7 @@ class AvroChunkSource(ChunkSource):
             records.extend(avro_io.read_container_block_range(
                 path, start, count, index=index, on_corrupt=self.on_corrupt))
         self.bytes_decoded += payload_bytes
+        io_counters.record_bytes_decoded(payload_bytes)
         return self.assembler(records, self.chunk_rows)
 
 
@@ -466,8 +468,15 @@ class ChunkPrefetcher:
 
     def _load_timed(self, spec: ChunkSpec):
         t0 = time.perf_counter()
-        chunk = self.policy.call(self.source.load, spec, description=f"decode chunk {spec.index}")
-        self.decode_seconds += time.perf_counter() - t0
+        # the decode span runs in whichever thread loads (the producer when
+        # prefetching, the consumer otherwise): per-thread trace buffers
+        with tracing.span("io/decode_chunk", cat="stream", chunk=spec.index,
+                          records=spec.num_records):
+            chunk = self.policy.call(self.source.load, spec,
+                                     description=f"decode chunk {spec.index}")
+        dt = time.perf_counter() - t0
+        self.decode_seconds += dt
+        stream_counters.record_chunk_decode_ms(dt * 1e3)
         return chunk
 
     def _put(self, item) -> bool:
@@ -519,19 +528,22 @@ class ChunkPrefetcher:
     def _next_prefetched(self):
         deadline = time.perf_counter() + self.chunk_timeout
         t0 = time.perf_counter()
-        while True:
-            try:
-                item = self._queue.get(timeout=0.2)
-                self.wait_seconds += time.perf_counter() - t0
-                return item
-            except queue.Empty:
-                if self._thread is not None and not self._thread.is_alive():
-                    raise StreamDecodeError(
-                        "prefetch thread died without forwarding a result") from None
-                if time.perf_counter() > deadline:
-                    raise StreamDecodeError(
-                        f"no chunk arrived within {self.chunk_timeout:.0f}s (wedged decode?)"
-                    ) from None
+        # the consumer's queue wait: the complement of io/decode_chunk
+        # (overlap = 1 - wait/decode, the stream/overlap_fraction gauge)
+        with tracing.span("io/chunk_wait", cat="stream"):
+            while True:
+                try:
+                    item = self._queue.get(timeout=0.2)
+                    self.wait_seconds += time.perf_counter() - t0
+                    return item
+                except queue.Empty:
+                    if self._thread is not None and not self._thread.is_alive():
+                        raise StreamDecodeError(
+                            "prefetch thread died without forwarding a result") from None
+                    if time.perf_counter() > deadline:
+                        raise StreamDecodeError(
+                            f"no chunk arrived within {self.chunk_timeout:.0f}s (wedged "
+                            "decode?)") from None
 
     def __iter__(self):
         if not self.prefetch:
@@ -540,6 +552,7 @@ class ChunkPrefetcher:
                     yield self._load_timed(spec)
                 except Exception as e:
                     raise self._attributed(e, spec) from e
+            self._finish_epoch()
             return
         while True:
             spec, item = self._next_prefetched()
@@ -548,6 +561,12 @@ class ChunkPrefetcher:
             if isinstance(item, BaseException):
                 raise self._attributed(item, spec) from item
             yield item
+        self._finish_epoch()
+
+    def _finish_epoch(self) -> None:
+        """The epoch's gauges (``telemetry/stream_counters.py``)."""
+        stream_counters.set_chunks_per_epoch(self.source.num_chunks)
+        stream_counters.set_overlap_fraction(self.overlap_fraction)
 
     @property
     def overlap_fraction(self) -> float:
@@ -885,6 +904,7 @@ class GameAvroChunkSource:
             records.extend(avro_io.read_container_block_range(
                 path, start, count, index=index, on_corrupt=self.on_corrupt))
         self.bytes_decoded += payload_bytes
+        io_counters.record_bytes_decoded(payload_bytes)
         skip = self._skips[spec.index]
         records = records[skip:skip + spec.num_records]
         ds = records_to_game_dataset(records, self.shard_configs, self.index_maps,
@@ -996,6 +1016,7 @@ def plan_partitioned_stream(path, shard_configs: Mapping[str, object], *, exchan
 
     files = avro_io.list_avro_files(path)
     sizes = [int(os.path.getsize(f)) for f in files]
+    io_counters.set_input_bytes_total(int(sum(sizes)))
     indexes = [avro_io.scan_block_index(f, on_corrupt=on_corrupt) for f in files]
     blocks = [(fi, bi, payload) for fi, file_index in enumerate(indexes)
               for bi, (_, payload, _) in enumerate(file_index)]
@@ -1015,7 +1036,9 @@ def plan_partitioned_stream(path, shard_configs: Mapping[str, object], *, exchan
     payload = {"fingerprint": _plan_fingerprint(files, sizes, "stream-blocks", ranges),
                "keys": {shard: _local_keys(local_maps[shard], cfg)
                         for shard, cfg in shard_configs.items()}}
-    gathered = exchange.allgather(f"stream_plan/{tag}", payload)
+    with tracing.span("partitioned/stream_plan_exchange", cat="partitioned", tag=tag,
+                      rank=exchange.rank):
+        gathered = exchange.allgather(f"stream_plan/{tag}", payload)
     fingerprints = {g["fingerprint"] for g in gathered}
     if len(fingerprints) != 1:
         raise RuntimeError(f"ranks disagree on the streaming block plan ({fingerprints}); the "
@@ -1102,6 +1125,7 @@ def plan_partitioned_game_stream(path, shard_configs: Mapping[str, object],
     re_cols = tuple(random_effect_id_columns)
     files = avro_io.list_avro_files(path)
     sizes = [int(os.path.getsize(f)) for f in files]
+    io_counters.set_input_bytes_total(int(sum(sizes)))
     indexes = [avro_io.scan_block_index(f, on_corrupt=on_corrupt) for f in files]
     blocks = [(fi, bi, payload) for fi, file_index in enumerate(indexes)
               for bi, (_, payload, _) in enumerate(file_index)]
@@ -1149,7 +1173,9 @@ def plan_partitioned_game_stream(path, shard_configs: Mapping[str, object],
                         for shard, cfg in shard_configs.items()},
                "entities": {c: sorted(re_keys[c]) for c in re_cols},
                "cluster_runs": cluster_runs}
-    gathered = exchange.allgather(f"stream_game_plan/{tag}", payload)
+    with tracing.span("partitioned/game_stream_plan_exchange", cat="partitioned", tag=tag,
+                      rank=exchange.rank):
+        gathered = exchange.allgather(f"stream_game_plan/{tag}", payload)
     diffs = []
     for field in sorted(set().union(*[set(g["plan"]) for g in gathered])):
         values = [g["plan"].get(field) for g in gathered]

@@ -27,6 +27,8 @@ import enum
 import numpy as np
 import torch
 
+from photon_ml_torch.telemetry import tracing
+
 
 class ConvergenceReason(enum.IntEnum):
     """Why an optimizer stopped (reference util/ConvergenceReason.scala)."""
@@ -114,10 +116,15 @@ def run_while(cond, body, init, *, observer=None):
     bitwise the solve without. The history buffers of a state are updated
     in place by the next step: an observer copies what it keeps."""
     state = init
+    i = 0
     while cond(state):
-        state = body(state)
+        # a host wall-clock span an iteration: it observes only, and adds no
+        # synchronization or host read
+        with tracing.span("solver/iteration", cat="solver", i=i):
+            state = body(state)
         if observer is not None:
             observer(state)
+        i += 1
     return state
 
 
@@ -187,6 +194,9 @@ class LaneTrace:
     value: torch.Tensor  # [lanes]
     gradient_norm: torch.Tensor  # [lanes]
     valid: torch.Tensor  # [lanes] bool
+    #: produced by the lane scheduler, which fed the lane-iteration
+    #: histogram itself (telemetry does not count these lanes again)
+    scheduled: bool = False
 
     def replace(self, **changes) -> "LaneTrace":
         return dataclasses.replace(self, **changes)

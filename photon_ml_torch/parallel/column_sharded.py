@@ -58,6 +58,7 @@ from photon_ml_torch.ops.sparse_gather import (
 )
 from photon_ml_torch.optim.common import LOCAL, VectorOps
 from photon_ml_torch.parallel import mesh as mesh_ops
+from photon_ml_torch.telemetry.layout import record_block_head
 
 logger = logging.getLogger(__name__)
 
@@ -277,7 +278,9 @@ def build_column_sharded_batch(shard: SparseShard, labels, num_blocks: int, *, o
         hv3, hc2 = _block_hot_head(hot_block, hot_ids, k, block)
         # every block pads to the widest block's hot count: hot ids clustered
         # into few blocks blow the [K, n, h] head up toward K times the
-        # global head (the layout gauges of this head are ROADMAP item 19's)
+        # global head
+        record_block_head(policy.label, width=hv3.shape[2], num_blocks=k,
+                          k_hot_padded=hot_ids.shape[0])
         if hot_ids.shape[0] and hv3.shape[2] * k > 2 * hot_ids.shape[0]:
             logger.warning(
                 "hybrid hot head is clustered across column blocks: per-block width %d x %d "

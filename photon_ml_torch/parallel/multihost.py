@@ -58,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from photon_ml_torch.device import resolve_device
+from photon_ml_torch.telemetry import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -353,10 +354,14 @@ class SingleProcessExchange(MetadataExchange):
     """The exchange of a one-rank run: no waiting."""
 
     def allgather(self, tag: str, payload) -> list:
-        return [payload]
+        with tracing.span("exchange/allgather", cat=tracing.EXCHANGE_CAT, tag=tag,
+                          rank=self.rank):
+            return [payload]
 
     def barrier(self, tag: str) -> None:
-        return None
+        with tracing.span("exchange/barrier", cat=tracing.EXCHANGE_CAT, tag=tag,
+                          rank=self.rank):
+            return None
 
 
 def _timeout_error(tag: str, key, missing, rank: int, timeout: float,
@@ -418,7 +423,10 @@ class InProcessExchange(MetadataExchange):
         key = (self.fence_epoch, self.generation, self._seq, tag)
         self._seq += 1
         cond, slot = self._store["cond"], self._store["gather"]
-        with cond:
+        # the span observes the blocking wait (tag, seq and rank for the
+        # straggler tables); it never gates or reorders the exchange
+        with tracing.span("exchange/allgather", cat=tracing.EXCHANGE_CAT, tag=tag,
+                          seq=key[2], rank=self.rank), cond:
             entry = slot.setdefault(key, {})
             entry[self.rank] = payload
             cond.notify_all()
@@ -535,6 +543,11 @@ class DistributedKVExchange(MetadataExchange):
         return seq
 
     def _get(self, key: str, tag: str, expected_rank: int) -> bytes:
+        with tracing.span("exchange/kv_get", cat=tracing.EXCHANGE_IO_CAT, key=key, tag=tag,
+                          rank=self.rank):
+            return self._wait_get(key, tag, expected_rank)
+
+    def _wait_get(self, key: str, tag: str, expected_rank: int) -> bytes:
         def timed_out(e) -> bool:
             return "timeout" in str(e).lower() or "timed out" in str(e).lower()
 
@@ -565,12 +578,19 @@ class DistributedKVExchange(MetadataExchange):
                                          self.timeout) from e
 
     def allgather(self, tag: str, payload) -> list:
+        with tracing.span("exchange/allgather", cat=tracing.EXCHANGE_CAT, tag=tag,
+                          rank=self.rank):
+            return self._allgather(tag, payload)
+
+    def _allgather(self, tag: str, payload) -> list:
         seq = self._next_seq()
         prefix = f"{seq}/{tag}" if self.generation is None else \
             f"{self._namespace()}/{seq}/{tag}"
         keys = [f"{prefix}/{r}" for r in range(self.num_ranks)]
         mine = json.dumps(payload)
-        self._store.set(keys[self.rank], mine)
+        with tracing.span("exchange/kv_set", cat=tracing.EXCHANGE_IO_CAT, key=keys[self.rank],
+                          rank=self.rank):
+            self._store.set(keys[self.rank], mine)
         raw = [self._get(k, tag, r) for r, k in enumerate(keys)]
         out = [json.loads(v) for v in raw]
         self.counts["allgathers"] += 1
@@ -587,7 +607,9 @@ class DistributedKVExchange(MetadataExchange):
         return out
 
     def barrier(self, tag: str) -> None:
-        self.allgather(f"__barrier__/{tag}", None)
+        with tracing.span("exchange/barrier", cat=tracing.EXCHANGE_CAT, tag=tag,
+                          rank=self.rank):
+            self._allgather(f"__barrier__/{tag}", None)
 
 
 def default_exchange(timeout: float = DEFAULT_EXCHANGE_TIMEOUT) -> MetadataExchange:

@@ -18,12 +18,13 @@ barrier-committed checkpoint, and the budget is the coordinator's shared
 generation count. The ``run_failure`` row then names the originating rank
 and cause on every rank.
 
-:data:`counts` holds the process's tallies: ``retries`` (restarts and the
+:data:`counts` reads the process's tallies: ``retries`` (restarts and the
 retry policies' retries), ``giveups``, ``preemptions``,
 ``checkpoint_restores`` (added at every restore site), ``epochs_resumed``
 (streamed epochs or fused sweeps a resume did not redo), ``peer_aborts`` and
-``coordinated_restarts``.
-The run journal that reads them is ROADMAP.md item 19.
+``coordinated_restarts``. It is a view of the ``resilience/*`` counters of
+the metrics registry (``telemetry/resilience_counters.py``), which the run
+journal snapshots.
 """
 
 from __future__ import annotations
@@ -39,17 +40,42 @@ from photon_ml_torch.resilience.errors import (
     fatal_hint,
     is_preemption,
 )
+from photon_ml_torch.telemetry import resilience_counters
+from photon_ml_torch.telemetry.registry import default_registry
 
 logger = logging.getLogger(__name__)
 
+
+class _Counts:
+    """``counts["retries"]`` reads, and ``counts["retries"] += 1`` adds to,
+    the registry counter of that name: one source of truth for the
+    tallies and the journal."""
+
+    def __getitem__(self, key: str) -> int:
+        return int(default_registry().counter(resilience_counters.COUNTERS[key]).value)
+
+    def __setitem__(self, key: str, value: int) -> None:
+        counter = default_registry().counter(resilience_counters.COUNTERS[key])
+        counter.inc(int(value) - int(counter.value))
+
+    def keys(self):
+        return resilience_counters.COUNTERS.keys()
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
+
+    def __repr__(self) -> str:
+        return repr(dict(self.items()))
+
+
 #: the process's recovery tallies (see the module docstring)
-counts = {"retries": 0, "giveups": 0, "preemptions": 0, "checkpoint_restores": 0,
-          "epochs_resumed": 0, "peer_aborts": 0, "coordinated_restarts": 0}
+counts = _Counts()
 
 
 def reset_counts() -> None:
-    for key in counts:
-        counts[key] = 0
+    """Zero every tally (the registry drops the counters)."""
+    for name in resilience_counters.COUNTERS.values():
+        default_registry().remove_prefix(name)
 
 
 def run_with_recovery(

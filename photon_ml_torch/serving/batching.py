@@ -45,7 +45,7 @@ import numpy as np
 
 from photon_ml_torch.data.game_data import GameDataset, concat_game_datasets
 from photon_ml_torch.resilience import CUDA_STICKY_PATTERNS, classify_exception
-from photon_ml_torch.telemetry import serving_counters
+from photon_ml_torch.telemetry import serving_counters, tracing
 
 #: default flush deadline: a request waits at most this long for batch
 #: company before the loop dispatches what it has
@@ -295,6 +295,10 @@ class MicroBatchServer:
             self._flush(batch, rows)
 
     def _flush(self, batch: "list[_Queued]", rows: int) -> None:
+        with tracing.span("serve/batch", cat="serve", requests=len(batch), rows=rows):
+            self._score_batch(batch)
+
+    def _score_batch(self, batch: "list[_Queued]") -> None:
         try:
             merged = (
                 batch[0].dataset if len(batch) == 1

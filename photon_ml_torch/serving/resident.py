@@ -74,7 +74,7 @@ from photon_ml_torch.models.game import (
 )
 from photon_ml_torch.ops import sparse_gather
 from photon_ml_torch.parallel.scoring import MIN_NNZ_BUCKET, DistributedScorer
-from photon_ml_torch.telemetry import serving_counters
+from photon_ml_torch.telemetry import serving_counters, tracing
 
 __all__ = ["DEFAULT_MICROBATCH_SHAPES", "MIN_NNZ_BUCKET", "ModelSwapError", "ResidentScorer"]
 
@@ -240,7 +240,7 @@ class ResidentScorer:
     def _score_bucketed(self, dataset: GameDataset) -> np.ndarray:
         n = dataset.num_samples
         bucket = self._bucket_for(n)
-        with self._lock:
+        with tracing.span("serve/score", cat="serve", rows=n, bucket=bucket), self._lock:
             inputs, layouts, entry_sig = self._scorer.resident_inputs(dataset, bucket,
                                                                       bf16=self.bf16)
             params = self._scorer.resident_params(layouts, bf16=self.bf16)

@@ -1,12 +1,11 @@
 """Process-wide metrics registry: counters, gauges, histograms (the port's
-own copy of what serving reads).
+own copy).
 
 Counterpart of ``photon_ml_tpu/telemetry/registry.py``; reference photon-lib
 util/Timed.scala:33-77 and OptimizationStatesTracker.scala:82-101 reported
 through ad-hoc logging. Here one typed, thread-safe registry is fed by the
-serving layer (``telemetry/serving_counters.py``); snapshots are plain
-dicts. The rest of the JAX package's ``telemetry/`` (run journals, tracing,
-the program ledger) is ROADMAP.md item 19.
+phase timings (``util/timed.py``), the solver telemetry and every counter
+module of this package; snapshots are plain dicts the run journal persists.
 """
 
 from __future__ import annotations
@@ -189,7 +188,7 @@ class MetricsRegistry:
         return out
 
 
-#: the process-wide registry the serving layer feeds
+#: the process-wide registry
 _DEFAULT = MetricsRegistry()
 
 

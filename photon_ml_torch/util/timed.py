@@ -2,25 +2,33 @@
 
 Counterpart of ``photon_ml_tpu/util/timed.py``; reference photon-lib
 util/Timed.scala:33-77 — ``Timed("name"){...}`` logs the duration of the
-block. The drivers wrap each stage in one; the durations collect in this
-module so a driver can write a per-stage summary. A block that launches
-device work and must be timed to its end synchronizes the device itself
-(``Timed(..., sync=torch.cuda.synchronize)``), since CUDA calls return
-before the device finishes.
+block. Here a context manager and a decorator; the durations feed the
+process-wide metrics registry (``telemetry/registry.py`` histograms under
+``timing/<name>``), so a driver can journal a per-stage summary, and each
+block records a ``phase/<name>`` span into the run tracer when one is
+installed (``telemetry/tracing.py``), so driver phases frame the finer
+spans of the exported timeline. A block that launches device work and must
+be timed to its end synchronizes the device itself (``Timed(...,
+sync=torch.cuda.synchronize)``), since CUDA calls return before the device
+finishes. ``profile_trace`` captures a device trace with
+``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
+from functools import wraps
 
-import numpy as np
+from photon_ml_torch.telemetry import tracing
+from photon_ml_torch.telemetry.registry import default_registry
 
 logger = logging.getLogger("photon_ml_torch.timing")
 
-#: name -> durations in seconds, since the last reset_timings()
-_TIMINGS: dict[str, list[float]] = {}
+#: registry namespace for phase timings
+_TIMING_PREFIX = "timing/"
 
 
 class Timed(contextlib.AbstractContextManager):
@@ -39,6 +47,8 @@ class Timed(contextlib.AbstractContextManager):
     def __enter__(self):
         if self.sync is not None:
             self.sync()
+        self._span = tracing.span("phase/" + self.name, cat="phase")
+        self._span.__enter__()
         self._start = time.perf_counter()
         return self
 
@@ -46,22 +56,62 @@ class Timed(contextlib.AbstractContextManager):
         if self.sync is not None and exc_type is None:
             self.sync()
         self.duration = time.perf_counter() - self._start
-        _TIMINGS.setdefault(self.name, []).append(self.duration)
+        self._span.__exit__(exc_type, exc, tb)
+        default_registry().histogram(_TIMING_PREFIX + self.name).observe(self.duration)
         logger.log(self.log_level, "%s took %.3f s", self.name, self.duration)
         return False
 
 
+def timed(name: str | None = None):
+    """Decorator form of Timed."""
+
+    def decorate(fn):
+        label = name or fn.__qualname__
+
+        @wraps(fn)
+        def wrapper(*args, **kwargs):
+            with Timed(label):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return decorate
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None):
+    """Capture a ``torch.profiler`` trace of the enclosed block: CPU
+    activity, and CUDA kernels when CUDA is available, exported as one
+    Chrome trace (``trace-<pid>.json``) into ``log_dir`` (Perfetto or
+    ``chrome://tracing`` open it). Yields the profiler. A None or empty
+    ``log_dir`` disables it, so drivers pass their flag through
+    unconditionally."""
+    if not log_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(str(log_dir), exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    path = os.path.join(str(log_dir), f"trace-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    logger.info("torch profiler trace written to %s", path)
+
+
 def timing_summary() -> dict[str, dict[str, float]]:
     """name -> {count, total, mean, min, max, p50, p95} over everything
-    timed since the last reset."""
-    out = {}
-    for name, values in _TIMINGS.items():
-        v = np.asarray(values, dtype=np.float64)
-        out[name] = {"count": int(v.size), "total": float(v.sum()), "mean": float(v.mean()),
-                     "min": float(v.min()), "max": float(v.max()),
-                     "p50": float(np.percentile(v, 50)), "p95": float(np.percentile(v, 95))}
-    return out
+    timed so far (the ``timing/`` histograms of the metrics registry)."""
+    return {
+        name[len(_TIMING_PREFIX):]: hist.summary()
+        for name, hist in default_registry().histograms(_TIMING_PREFIX).items()
+        if hist.count
+    }
 
 
 def reset_timings() -> None:
-    _TIMINGS.clear()
+    default_registry().remove_prefix(_TIMING_PREFIX)

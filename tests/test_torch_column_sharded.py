@@ -64,16 +64,23 @@ def _task(p, hybrid=None, solvers=("LBFGS", "TRON")):
                 solvers=solvers)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """world -> {"flat": per-rank results, "hybrid": ...} for 1xK meshes."""
+def _build_runs(base) -> dict:
     out = {}
     for world in WORLDS:
         tasks = [dict(_task(PROBLEM), mesh=(1, world)),
                  dict(_task(SKEWED, HYBRID, solvers=()), mesh=(1, world))]
-        flat, hybrid = W.spawn_ranks(world, tasks, tmp_path_factory.mktemp(f"cols{world}"))
+        spawn_dir = base / f"cols{world}"
+        spawn_dir.mkdir(parents=True)
+        flat, hybrid = W.spawn_ranks(world, tasks, spawn_dir)
         out[world] = {"flat": flat, "hybrid": hybrid}
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """world -> {"flat": per-rank results, "hybrid": ...} for 1xK meshes,
+    built once a test run (``torch_mesh_worker.run_once``)."""
+    return W.run_once("column_sharded", _build_runs, tmp_path_factory.mktemp("cols"))
 
 
 def _jshard(p, hybrid=None):

@@ -112,21 +112,17 @@ def test_non_finite_update_raises():
         te.fit(td)
 
 
-@pytest.mark.parametrize("kw,item", [({"checkpointer": object()}, 16), ({"telemetry": object()}, 19)])
+@pytest.mark.parametrize("kw,item", [({"checkpointer": object()}, 16)])
 def test_checkpoints_and_telemetry_raise(kw, item, tmp_path):
-    """Telemetry (item 19) raises before any work. Checkpoints (item 16) are
-    ported: a checkpoint of another update sequence raises instead
-    (tests/test_torch_checkpoint.py resumes them)."""
-    if item == 16:
-        from photon_ml_torch.io.checkpoint import TrainingCheckpointer
+    """Checkpoints (item 16) are ported: a checkpoint of another update
+    sequence raises (tests/test_torch_checkpoint.py resumes them). Telemetry
+    is ported too (tests/test_torch_telemetry.py)."""
+    from photon_ml_torch.io.checkpoint import TrainingCheckpointer
 
-        ck = TrainingCheckpointer(tmp_path)
-        ck.save(1, {}, {"model": {"order": ["other"]}})
-        with pytest.raises(ValueError, match="incompatible"):
-            tcd.run_coordinate_descent({"fixed": None}, ["fixed"], 1, checkpointer=ck)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        tcd.run_coordinate_descent({}, [], 1, **kw)
+    ck = TrainingCheckpointer(tmp_path)
+    ck.save(1, {}, {"model": {"order": ["other"]}})
+    with pytest.raises(ValueError, match="incompatible"):
+        tcd.run_coordinate_descent({"fixed": None}, ["fixed"], 1, checkpointer=ck)
 
 
 def test_run_without_evaluators_keeps_no_history():

@@ -278,8 +278,7 @@ GAME_LEFT_OUT = [
     # the refresh needs a resident model and tuning needs evaluators (the
     # JAX driver's ValueErrors); the lane scheduler gets past every refusal
     (["--max-restarts", "2"], None), (["--incremental-refresh"], ValueError),
-    (["--hyperparameter-tuning", "BAYESIAN"], ValueError), (["--telemetry-dir", "t"], "item 19"),
-    (["--trace-dir", "t"], "item 19"), (["--profile-dir", "t"], "item 19"),
+    (["--hyperparameter-tuning", "BAYESIAN"], ValueError),
     (["--input-format", "libsvm"], None), (["--input-date-range", "1-2"], ValueError),
     (["--coordinate-configurations",
       "name=mf,mf.row.effect.type=userId,mf.col.effect.type=songId,mf.latent.factors=2"],
@@ -322,9 +321,7 @@ GLM_LEFT_OUT = [
     # so are the grid lanes and the model search (which needs its space)
     (["--streaming-chunks", "8"], None), (["--checkpoint-dir", "c"], ValueError),
     (["--max-restarts", "1"], None), (["--grid-parallel"], None),
-    (["--search-rounds", "2"], ValueError), (["--enable-diagnostics"], "item 19"),
-    (["--num-bootstraps", "3"], "item 19"), (["--telemetry-dir", "t"], "item 19"),
-    (["--trace-dir", "t"], "item 19"), (["--input-format", "libsvm"], None),
+    (["--search-rounds", "2"], ValueError), (["--input-format", "libsvm"], None),
 ]
 
 
@@ -339,7 +336,6 @@ SCORING_LEFT_OUT = [(["--distributed"], None), (["--mesh", "model=2"], ValueErro
                     (["--mesh", "data=1,model=1"], None),
                     (["--partitioned-io"], ValueError),
                     (["--partitioned-io", "--distributed"], None),
-                    (["--telemetry-dir", "t"], "item 19"), (["--trace-dir", "t"], "item 19"),
                     (["--input-format", "libsvm"], None)]
 
 

@@ -222,8 +222,3 @@ def test_refusals_match(case):
     else:
         assert got == ref
 
-
-def test_telemetry_is_item_19():
-    _, tb, _ = _dense(6, n=60)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 19"):
-        test_.train_glm_grid(tb, TTask.LOGISTIC_REGRESSION, telemetry=object())

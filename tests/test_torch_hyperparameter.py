@@ -168,9 +168,6 @@ def test_model_search_matches(searcher, space):
 def test_model_search_refusals():
     _, tb, _, tv, _, _ = _search_problem()
     space = tsd.parse_search_space("lambda=1:2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 19"):
-        tsd.run_model_search(tb, tv, TTask.LOGISTIC_REGRESSION, space, rounds=1, lane_budget=2,
-                             journal=object())
     with pytest.raises(ValueError, match="need rounds >= 1"):
         tsd.run_model_search(tb, tv, TTask.LOGISTIC_REGRESSION, space, rounds=0, lane_budget=2)
     with pytest.raises(ValueError, match="unknown searcher"):

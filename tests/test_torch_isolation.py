@@ -60,7 +60,11 @@ def test_importing_every_port_module_loads_no_jax():
             "photon_ml_torch.parallel.sharded_dense", "photon_ml_torch.parallel.scoring",
             "photon_ml_torch.evaluation.sharded",
             # partitioned I/O: each rank's slice of the input
-            "photon_ml_torch.io.partitioned_reader"} <= set(mods)
+            "photon_ml_torch.io.partitioned_reader",
+            # diagnostics, the run journal, tracing, solver telemetry, events
+            "photon_ml_torch.diagnostics.report_builder", "photon_ml_torch.telemetry.journal",
+            "photon_ml_torch.telemetry.tracing", "photon_ml_torch.telemetry.solver_trace",
+            "photon_ml_torch.util.events"} <= set(mods)
     # the mesh tests' rank processes import the port only
     mods = mods + ["tests.torch_mesh_worker"]
     script = (

@@ -100,7 +100,13 @@ def _evaluator_task() -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both rank groups run once a module: world -> name -> per-rank results."""
+    """Both rank groups run once a test run (the xdist workers share one
+    build, ``torch_mesh_worker.run_once``): world -> name -> per-rank
+    results."""
+    return W.run_once("mesh_training", _build_runs, tmp_path_factory.mktemp("mesh-training"))
+
+
+def _build_runs(base) -> dict:
     trains = _train_tasks()
     objectives = _objective_tasks()
     groups = {2: {**trains, **{f"objective_{k}": v for k, v in objectives.items()},
@@ -110,8 +116,9 @@ def runs(tmp_path_factory):
     out = {}
     for world, tasks in groups.items():
         names = list(tasks)
-        results = W.spawn_ranks(world, [tasks[k] for k in names],
-                                tmp_path_factory.mktemp(f"ranks{world}"))
+        spawn_dir = base / f"ranks{world}"
+        spawn_dir.mkdir(parents=True)
+        results = W.spawn_ranks(world, [tasks[k] for k in names], spawn_dir)
         out[world] = dict(zip(names, results))
     return {"results": out, "trains": trains, "objectives": objectives}
 

@@ -75,17 +75,24 @@ def _estimator_task() -> dict:
                                               **opt)})
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both rank groups run once a module: world -> name -> per-rank results."""
+def _build_runs(base) -> dict:
     tasks = dict(_TASKS(), estimator=_estimator_task())
     out = {}
     for world, shape in SHAPES.items():
         names = list(tasks)
-        results = W.spawn_ranks(world, [dict(tasks[k], mesh=shape) for k in names],
-                                tmp_path_factory.mktemp(f"model_axis{world}"))
+        spawn_dir = base / f"model_axis{world}"
+        spawn_dir.mkdir(parents=True)
+        results = W.spawn_ranks(world, [dict(tasks[k], mesh=shape) for k in names], spawn_dir)
         out[world] = dict(zip(names, results))
     return {"results": out, "tasks": tasks}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both rank groups run once a test run (the xdist workers share one
+    build, ``torch_mesh_worker.run_once``): world -> name -> per-rank
+    results."""
+    return W.run_once("model_axis", _build_runs, tmp_path_factory.mktemp("model-axis"))
 
 
 @functools.lru_cache(maxsize=None)

@@ -51,16 +51,13 @@ def _driver_runs(music, world: int) -> list:
     return [("train", train), ("score", score), ("train", ptrain), ("score", pscore)]
 
 
-@pytest.fixture(scope="module")
-def music(tmp_path_factory):
-    base = tmp_path_factory.mktemp("music")
-    P.write_music(base)
-    return base
-
-
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory, music):
-    base = tmp_path_factory.mktemp("model-axis-io")
+def _build_runs(base) -> dict:
+    """The music fixture, the partitioned inputs and every spawned run of
+    the file: a group of 2 (1x2) and one of 4 (2x2) ranks."""
+    base.mkdir(parents=True, exist_ok=True)
+    music = base / "music"
+    music.mkdir()
+    P.write_music(music)
     inputs = {name: PP.write_input(base / name, **kw) for name, kw in CASES.items()}
     out = {}
     for world, shape in SHAPES.items():
@@ -73,10 +70,19 @@ def runs(tmp_path_factory, music):
                  for name in CASES}
         tasks["drivers"] = dict(kind="driver_runs", runs=_driver_runs(music, world))
         names = list(tasks)
-        results = W.spawn_ranks(world, [tasks[k] for k in names],
-                                tmp_path_factory.mktemp(f"io{world}"))
+        spawn_dir = base / f"io{world}"
+        spawn_dir.mkdir()
+        results = W.spawn_ranks(world, [tasks[k] for k in names], spawn_dir)
         out[world] = dict(zip(names, results))
-    return {"results": out, "inputs": inputs}
+    return {"results": out, "inputs": inputs, "music": music}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Built once a run: the workers of an xdist run share one build
+    (``torch_mesh_worker.run_once``) instead of each spawning its own six
+    ranks for the same results."""
+    return W.run_once("model_axis_io", _build_runs, tmp_path_factory.mktemp("model-axis-io"))
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -165,7 +171,7 @@ def _same_files(a, b, names=("id-info", "model-metadata.json")) -> None:
 
 
 @pytest.mark.parametrize("world", [2, 4])
-def test_drivers_over_a_model_axis_match(runs, music, tmp_path, world):
+def test_drivers_over_a_model_axis_match(runs, tmp_path, world):
     """The training and scoring drivers with --mesh data=D,model=2 (the
     fixed effect feature-sharded, as the JAX driver does for model > 1):
     index maps, model metadata and id-info byte-identical to the JAX
@@ -177,6 +183,7 @@ def test_drivers_over_a_model_axis_match(runs, music, tmp_path, world):
     one-process run's."""
     got = runs["results"][world]["drivers"]
     assert got[0][0]["summary"]["distributed"] is True
+    music = runs["music"]
     out = music / f"w{world}"
     jtrain.main(P.training_args(music, tmp_path / "jax", EXTRA) + _mesh_flag(world))
     one = tmp_path / "one"
@@ -200,14 +207,14 @@ def test_drivers_over_a_model_axis_match(runs, music, tmp_path, world):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-def test_partitioned_drivers_over_a_model_axis(runs, music, world):
+def test_partitioned_drivers_over_a_model_axis(runs, world):
     """--partitioned-io with --mesh data=D,model=2: the training driver's
     model equals its full-read run's (the same mesh) within 1e-3 of the
     largest coefficient, and the scoring driver writes one part per data
     rank, 400 scores in all, within 1e-4 of the full-read scoring's."""
     got = runs["results"][world]["drivers"]
     assert all("summary" in run for r in got for run in r), got[0]
-    out = music / f"w{world}"
+    out = runs["music"] / f"w{world}"
     mine, full = _coefficients(out / "ptrain" / "best"), _coefficients(out / "train" / "best")
     for key, v in full.items():
         assert _gap(mine[key], v) <= 1e-3, key

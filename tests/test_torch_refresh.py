@@ -164,8 +164,6 @@ def test_refresh_refusals(resident):
     _, td = datasets(b)
     with pytest.raises(ValueError, match="single-process host path"):
         dataclasses.replace(te, mesh=object()).refresh(td, tmodel)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 19"):
-        dataclasses.replace(te, telemetry=object()).refresh(td, tmodel)
     partial = convert.game_model_from_numpy(
         {k: v for k, v in convert.game_model_to_numpy(tmodel).items() if k != "per_item"},
         device="cpu")

@@ -687,12 +687,3 @@ def test_serve_driver_rejects_bad_shapes_and_rows(trained, tmp_path):
     with pytest.raises(ValueError, match="--swap-at-request names a submit index"):
         _serve(trained, tmp_path / "z", swap_poll_ms=5, swap_at_request=3)
 
-
-@pytest.mark.parametrize("flag", ["--telemetry-dir", "--trace-dir"])
-def test_serve_driver_refuses_item_19(flag, tmp_path):
-    from photon_ml_torch.cli import serve_driver
-
-    with pytest.raises(NotImplementedError, match=f"{flag} .* ROADMAP.md item 19"):
-        serve_driver.main(["--requests-avro", str(tmp_path / "none"), "--model-input-dir",
-                           str(tmp_path / "none"), "--output-dir", str(tmp_path / "o"), flag,
-                           str(tmp_path / "t")], device="cpu")

@@ -67,6 +67,57 @@ def spawn_ranks(world: int, tasks: list, tmp_path, *, timeout_s: float = JOIN_TI
     return [[per_rank[r][i] for r in range(world)] for i in range(len(tasks))]
 
 
+#: where the workers of one pytest-xdist run share what :func:`run_once` builds
+SHARED_RUNS_DIR = "photon_ml_torch_tests_runs"
+#: run directories older than this (seconds) are removed by the next build
+SHARED_RUN_MAX_AGE_S = 6 * 3600
+
+
+def run_once(name: str, build, fallback_dir):
+    """``build(directory)`` computed once a test run and shared by its
+    pytest-xdist workers: the first worker to take the file lock of
+    ``<tempdir>/photon_ml_torch_tests_runs/<run uid>/<name>`` builds into
+    that directory and pickles the result there, and every other worker
+    waits on the lock and reads it. A failed build is recorded and raised
+    again on every worker, so one failure is not rebuilt six times. Outside
+    xdist (no ``PYTEST_XDIST_TESTRUNUID``) it builds in ``fallback_dir``.
+    Without this, every worker that draws a test of a module builds the
+    module fixture again, and their spawned ranks compete for the CPU."""
+    import fcntl
+    import shutil
+    import tempfile
+
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run is None:
+        return build(Path(fallback_dir))
+    root = Path(tempfile.gettempdir()) / SHARED_RUNS_DIR
+    here = root / run / name
+    here.mkdir(parents=True, exist_ok=True)
+    result, error = here / "result.pkl", here / "error.txt"
+    with open(here / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if result.exists():
+                return pickle.loads(result.read_bytes())
+            if error.exists():
+                raise RuntimeError(f"{name} failed on another worker of this run:\n"
+                                   f"{error.read_text()}")
+            for old in root.iterdir():  # earlier runs' directories
+                if old.name != run and time.time() - old.stat().st_mtime > SHARED_RUN_MAX_AGE_S:
+                    shutil.rmtree(old, ignore_errors=True)
+            try:
+                out = build(here / "work")
+            except BaseException:
+                error.write_text(traceback.format_exc())
+                raise
+            staged = here / "result.tmp"
+            staged.write_bytes(pickle.dumps(out))
+            os.replace(staged, result)
+            return out
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def _rank_report(tmp: Path, world: int) -> str:
     """Where each rank got to (its last ``progress`` line, with the seconds
     since it started) and any traceback it wrote."""
@@ -1006,6 +1057,31 @@ def _task_streamed_game(t, rank, world, tmp):
     return out
 
 
+def _task_traced_exchanges(t, rank, world, tmp):
+    """Exchanges of the group's key-value exchange under an installed tracer
+    (rank 1 reaches the ``late`` barrier ``late_s`` seconds after rank 0),
+    then ``finalize_trace``: the straggler report merged over the ranks and
+    the trace files in the task's directory."""
+    from photon_ml_torch.parallel import multihost
+    from photon_ml_torch.telemetry import tracing
+
+    tracer = tracing.install_tracer(tracing.Tracer())
+    try:
+        ex = multihost.default_exchange()
+        ex.allgather("early", rank)
+        if rank == 1:
+            time.sleep(t["late_s"])
+        ex.barrier("late")
+        for step in (1, 2):
+            ex.allgather(f"step/{step}/sum", rank)
+        report = tracing.finalize_trace(tracer, t["dir"], exchange=ex)
+        events = tracer.chrome_trace()["traceEvents"]
+    finally:
+        tracing.uninstall_tracer()
+    return {"report": report, "files": sorted(os.listdir(t["dir"])),
+            "spans": sorted({e["name"] for e in events if e["ph"] == "X"})}
+
+
 TASKS = {
     "train": _task_train,
     "objective": _task_objective,
@@ -1019,6 +1095,7 @@ TASKS = {
     "partitioned_read": _task_partitioned_read,
     "partitioned_train": _task_partitioned_train,
     "driver_runs": _task_driver_runs,
+    "traced_exchanges": _task_traced_exchanges,
     "partitioned_recovery": _task_partitioned_recovery,
     "streamed_game": _task_streamed_game,
 }
