@@ -388,9 +388,10 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    same rows unpadded (its own device assembly of the entries and plans);
    each bucket's graph bitwise ``score_dataset`` of the same padded bucket on
    every row both programs gather with the same kernel and plan (the one row
-   the entry pads can make long is held to 1e-5·Σ|terms| and counted); one
-   replay of each signature under ``torch.profiler``, the gather kernels it
-   shows by name equal to the launches the graph counts; (c) an equal-layout swap halfway
+   the entry pads can make long is held to 1e-5·Σ|terms| and counted);
+   replays of each signature under ``torch.profiler``, each between two
+   marker kernels, the gather kernels of a replay recorded whole by name
+   equal to the launches the graph counts; (c) an equal-layout swap halfway
    through (a)'s replay (no capture; before it the old model's scores, after
    it the new one's) and a layout-changing swap refused with the old scores
    kept bitwise; (d) (a) in bf16 (the gap printed); (e) the serve driver on
@@ -459,8 +460,30 @@ Phases, each failing loudly (an exception or a failed check exits non-zero):
    bitwise) and the serve driver with it (its counters in the journal). (f)
    phase 13(e)'s training driver runs with ``--trace-dir --telemetry-dir``:
    a trace file a rank, and the straggler report naming every exchange tag
-   either trace waited on. Its launches and checks join the kernels line's
-   ``telemetry_path``.
+   either trace waited on. The program ledger, the probes and the verdicts
+   (``telemetry/{program_ledger,probes,verdicts}.py``; a compile is an
+   ``nvcc`` or host-library build or a CUDA graph capture): (g) the compile
+   count after phase 2's build equals the libraries it compiled (0 on a warm
+   build directory), with their seconds; (h) the serve driver of (e), with a
+   same-layout swap mid-replay, run without and with ``--telemetry-dir``:
+   ``program_compiles["serve/score"]["compiles"]`` equals the warm-up's
+   captures, one ``program_compile`` row a capture, the replay and the swap
+   capture nothing by the ledger and by the scorer's count, and the
+   unbatched baseline's scores are bitwise those of the run without a
+   journal; (i) phase 17(b)'s ELL model served request by request (one-row
+   requests, longer slices, long requests) with a ledger installed and
+   without: scores bitwise, recompile rows equal to the captures after the
+   first, each naming the input leaves whose shapes changed; then 17(b)'s
+   micro-batched replay under the ledger, each replay capture attributed;
+   (j) (d)'s traced GAME training run compiled nothing under any label (its
+   signatures printed, its seconds against the plain run), then the stream
+   calibration on phase 4's [2^18, 512] f32 block (K steps in one captured
+   graph) with B1's bytes over its time as a fraction of it, and the
+   live-buffer and memory-limit probes against the allocator and
+   ``mem_get_info``; (k) the verdicts over every journal of the phase: no
+   ledger finding on the training drivers, every finding printed. Its
+   launches and checks join the kernels line's ``telemetry_path`` (the
+   gather kernels of (i) among them, with the checks of (i)'s graphs).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -8100,7 +8123,9 @@ def _serve_replay(torch, np, scorer, requests, *, swap=None, swap_at=None,
     captures = scorer.captures
     futures = []
     t0 = time.perf_counter()
-    with MicroBatchServer(scorer, max_wait_ms=SERVING["max_wait_ms"]) as server:
+    # a closed loop waits for the bounded queue as long as for a result
+    with MicroBatchServer(scorer, max_wait_ms=SERVING["max_wait_ms"],
+                          submit_timeout=120) as server:
         for i, r in enumerate(requests):
             if swap is not None and i == swap_at:
                 for f in futures:
@@ -8195,6 +8220,22 @@ def _graph_checks(torch, np, scorer, tag: str) -> tuple[list, list]:
             gathers.append(dict(check, layout=layouts[cid], kernel=kernel, chunks=count,
                                 chunk_rows=long_rows))
     return graphs, gathers
+
+
+def _served_gather_path(launches: dict, checks: list) -> dict:
+    """The kernels line's gather entries for a served path: G1's row and
+    segment kernels over fixed effects' entries, its chunk kernel and its
+    compact scoring, each with the launches counted on the path and the
+    :func:`_graph_checks` gather checks of the graphs that launched them."""
+    return {"sparse_gather": {"launches": launches["rows"] + launches["segments"]
+                              - launches["compact"], "row_kernel": launches["rows"],
+                              "segment_kernel": launches["segments"],
+                              "compact_scoring": launches["compact"],
+                              "checks": [c for c in checks if c["layout"] == "sparse"]},
+            "sparse_gather_chunks": {"launches": launches["chunks"],
+                                     "checks": [c for c in checks if c["chunks"]]},
+            "sparse_gather_compact": {"launches": launches["compact"],
+                                      "checks": [c for c in checks if c["layout"] == "entries"]}}
 
 
 def _serving_flagship(torch, np, seed: int, dev, card: str) -> dict:
@@ -8374,42 +8415,58 @@ def _magnitudes(model, dataset):
 
 
 def _replay_traces(torch, scorer, tag: str) -> list:
-    """One replay of each captured signature under ``torch.profiler``: the
-    gather kernels the trace shows by name against the launches the graph
-    counts a replay (``_Graph.launches``, from its signature); they must be
-    equal. A session whose trace disagrees (or records no device event) is
-    taken again, up to three sessions, the later ones with CPU activity too,
-    and the sessions each signature took are reported: a launch count that
-    is wrong disagrees in every session, a session the profiler missed does
-    not repeat. A signature no session traced is reported with ``traced``
-    null."""
+    """Replays of each captured signature under ``torch.profiler``: the
+    gather kernels the trace shows by name in one replay against the
+    launches the graph counts a replay (``_Graph.launches``, from its
+    signature); they must be equal. The profiler can drop a session's first
+    kernel records (a session then holds only a replay's last kernels), so
+    a session runs three replays, each between two marker kernels
+    (``torch.cuda._sleep``'s spin kernel), and judges only the replays
+    whose markers on both sides it recorded: those it recorded whole. A
+    session none of whose whole replays agrees is taken again, up to three
+    sessions, the later ones with CPU activity too, and the sessions each
+    signature took are reported: a launch count that is wrong disagrees in
+    every whole replay. A signature no session recorded a whole replay of
+    is reported with ``traced`` null; at least one signature must be
+    traced."""
     from photon_ml_torch.ops import sparse_gather
 
     names = {"launches": "gather_rows_kernel", "segment_launches": "gather_segments_kernel",
              "chunk_launches": "gather_chunks_kernel"}
+    marker = "spin_kernel"
     cpu, cuda = torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA
     out = []
     for (bucket, _, entry_sig), g in sorted(scorer._graphs.items(), key=lambda kv: str(kv[0])):
         counted = {c: g.launches.get((sparse_gather, c), 0) for c in names}
-        traced, kernels, sessions = None, [], 0
+        traced, kernels, sessions, whole = None, [], 0, 0
         for acts in ([cuda], [cpu, cuda], [cpu, cuda]):
             sessions += 1
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=acts) as prof:
-                g.graph.replay()
+                for _ in range(3):
+                    torch.cuda._sleep(1 << 16)
+                    g.graph.replay()
+                torch.cuda._sleep(1 << 16)
                 torch.cuda.synchronize()
-            kernels = [e.name for e in prof.events()
-                       if str(getattr(e, "device_type", "")).endswith("CUDA")]
-            if kernels:
+            events = sorted((e.time_range.start, e.name) for e in prof.events()
+                            if str(getattr(e, "device_type", "")).endswith("CUDA"))
+            marks = [i for i, (_, name) in enumerate(events) if marker in name]
+            replays = [[name for _, name in events[a + 1:b]] for a, b in zip(marks, marks[1:])]
+            whole = len(replays)
+            for kernels in replays:
                 traced = {c: sum(name in k for k in kernels) for c, name in names.items()}
                 if traced == counted:
                     break
+            if traced == counted:
+                break
         assert traced is None or traced == counted, \
-            f"{tag}: the {bucket}-row graph {entry_sig} ran {traced} gather kernels in a " \
-            f"traced replay ({sorted(set(k[:60] for k in kernels))}), counts {counted}"
+            f"{tag}: the {bucket}-row graph {entry_sig} ran {traced} gather kernels in each " \
+            f"whole traced replay ({sorted(set(k[:60] for k in kernels))}), counts {counted}"
         out.append({"bucket": bucket, "entry_axes": [list(e) for e in entry_sig],
                     "traced": traced, "counted": counted, "device_events": len(kernels),
-                    "sessions": sessions})
+                    "sessions": sessions, "whole_replays": whole})
+    assert not out or any(t["traced"] is not None for t in out), \
+        f"{tag}: no session recorded a whole replay: {out}"
     return out
 
 
@@ -8556,18 +8613,13 @@ def _serving_sparse(torch, np, seed: int, dev, card: str) -> tuple[dict, dict]:
     assert chunked and any(c["kernel"] == "rows" for c in gather_checks) \
         and any(c["kernel"] == "segments" for c in gather_checks), gather_checks
     traced = [dict(t, model=label) for label, ts in traces.items() for t in ts]
-    fe_launches = launches["rows"] + launches["segments"] - launches["compact"]
-    path = {"sparse_gather": {"launches": fe_launches, "row_kernel": launches["rows"],
-                              "segment_kernel": launches["segments"],
-                              "compact_scoring": launches["compact"],
-                              "replay_traces": traced,
-                              "checks": [c for c in gather_checks if c["layout"] == "sparse"]},
-            "sparse_gather_chunks": {"launches": launches["chunks"], "checks": chunked,
-                                     "replay_traces": [t for t in traced
-                                                       if t["counted"]["chunk_launches"]]},
-            "sparse_gather_compact": {"launches": launches["compact"],
-                                      "checks": [c for c in gather_checks
-                                                 if c["layout"] == "entries"]}}
+    path = _served_gather_path(launches, gather_checks)
+    path["sparse_gather"]["replay_traces"] = traced
+    path["sparse_gather_chunks"]["replay_traces"] = [t for t in traced
+                                                     if t["counted"]["chunk_launches"]]
+    # 19(i) replays the ELL model's requests under the program ledger
+    _SHARED["serving_sparse"] = {"model": models["ELL"][0], "requests": requests,
+                                 "longs": longs, "held": held_host}
     out = {"rows": n, "long_requests": len(longs), "setup_seconds": setup_s, "runs": runs,
            "served_against_eager": gaps, "buckets_against_padded_eager": buckets,
            "graphs": graph_checks, "replay_traces": traces, "launches": launches}
@@ -10052,14 +10104,39 @@ def _telemetry_game_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> 
     srows = read_journal(tmp / "score-tel" / "run-journal.jsonl")
     summary = [r for r in srows if r["kind"] == "scoring_summary"][0]
     assert summary["num_scored"] == avro["held_out"], summary
-    t0 = time.perf_counter()
-    served = serve_driver.main([
-        "--requests-avro", str(avro["validation"]), "--model-input-dir",
-        str(tmp / "game-plain" / "best"), "--output-dir", str(tmp / "served"), *shards,
-        "--request-rows", str(SERVING["driver_request_rows"]), "--num-requests",
-        str(TELEMETRY["serve_requests"]), "--telemetry-dir", str(tmp / "serve-tel"),
-        "--trace-dir", str(tmp / "serve-tr")], device=on)
-    seconds["serve telemetry"] = time.perf_counter() - t0
+    # the serve driver without and with a journal (19(h)), each with a
+    # same-layout swap mid-replay; the unbatched baseline's scores recorded
+    from photon_ml_torch.serving import ResidentScorer
+
+    score_fn, baseline = ResidentScorer.score, {}
+    served = {}
+    for name, extra in (("plain", []), ("telemetry", ["--telemetry-dir", str(tmp / "serve-tel"),
+                                                      "--trace-dir", str(tmp / "serve-tr")])):
+        outs = baseline[name] = []
+
+        def recording(self, dataset, _outs=outs):
+            scores = score_fn(self, dataset)
+            _outs.append(scores)
+            return scores
+
+        ResidentScorer.score = recording
+        t0 = time.perf_counter()
+        try:
+            served[name] = serve_driver.main([
+                "--requests-avro", str(avro["validation"]), "--model-input-dir",
+                str(tmp / "game-plain" / "best"), "--output-dir", str(tmp / f"served-{name}"),
+                *shards, "--request-rows", str(SERVING["driver_request_rows"]),
+                "--num-requests", str(TELEMETRY["serve_requests"]), "--swap-model-dir",
+                str(tmp / "game-plain" / "best"), *extra], device=on)
+        finally:
+            ResidentScorer.score = score_fn
+        seconds[f"serve {name}"] = time.perf_counter() - t0
+    requests = TELEMETRY["serve_requests"]
+    assert all(len(v) >= requests for v in baseline.values()), {k: len(v) for k, v in
+                                                               baseline.items()}
+    assert all(np.array_equal(a, b) for a, b in zip(baseline["plain"][:requests],
+                                                   baseline["telemetry"][:requests]))
+    served_plain, served = served["plain"], served["telemetry"]
     vrows = read_journal(tmp / "serve-tel" / "run-journal.jsonl")
     snap = [r for r in vrows if r["kind"] == "metrics"][0]["snapshot"]
     assert snap["counters"]["serve/requests"] >= TELEMETRY["serve_requests"] \
@@ -10067,6 +10144,7 @@ def _telemetry_game_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> 
         and [r for r in vrows if r["kind"] == "serving_summary"], snap
     vtrace = json.loads((tmp / "serve-tr" / "trace-00000.json").read_text())
     assert {"serve/batch", "serve/score"} <= {e["name"] for e in vtrace["traceEvents"]}
+    ledger = _ledger_training_journal(rows)
     out = {"rows": [avro["n"], avro["held_out"]], "runs": runs, "seconds": seconds,
            "telemetry_over_plain": runs["telemetry"]["seconds"]
            / runs["plain again"]["seconds"],
@@ -10074,11 +10152,297 @@ def _telemetry_game_drivers(torch, np, seed: int, dev, card: str, tmp: Path) -> 
            "heartbeats": len(beats), "scores_bitwise": len(parts),
            "serve": {k: served[k] for k in ("num_requests", "scores_per_sec", "latency_ms_p50",
                                             "latency_ms_p95", "replay_compiles")},
-           "p6_check": check}
+           "p6_check": check, "ledger": ledger,
+           "serve_ledger": _ledger_serve_checks(served_plain, served, vrows, requests)}
     _log(f"19d-e. the GAME training driver on {avro['n']} + {avro['held_out']} flagship rows, "
          f"plain / --telemetry-dir --trace-dir / and --profile-dir; the scoring and serve "
          f"drivers with telemetry ({card}): " + json.dumps(out))
     return out
+
+#: phase 19(g)-(k), the program ledger, the probes and the verdicts (ROADMAP
+#: item 19, step 2): (i) replays the first ``sparse_singles`` one-row
+#: requests of phase 17(b)'s ELL model, requests of ``sparse_lengths`` rows
+#: and ``sparse_longs`` of its long requests, twice, then again the singles;
+#: (j)'s probes run on phase 4's [2^18, 512] f32 block
+LEDGER = dict(sparse_singles=256, sparse_lengths=(3, 9, 27, 81, 243, 729), sparse_longs=4,
+              probe_shape=(1 << 18, 512), calibration_k=(16, 256))
+#: the verdicts' ledger rules (telemetry/verdicts._ledger_findings)
+LEDGER_RULES = ("recompile-storm", "signature-churn", "compile-dominated",
+                "hbm-overcommit-forecast")
+
+
+def _build_record(built: dict) -> dict:
+    """19(g)'s record of the script's first build: the compile events it
+    counted (one a library nvcc compiled) and their seconds."""
+    from photon_ml_torch.telemetry import default_registry, probes
+
+    return {"built": built, "compiles": probes.compile_count(),
+            "compile_seconds": default_registry().histogram(
+                probes.COMPILE_SECONDS_METRIC).total,
+            "compiled": sorted(k for k, v in built.items() if v > 0)}
+
+
+def _ledger_labels(rows: list) -> dict:
+    """label -> calls, compiles and signatures from a journal's last metrics
+    snapshot, with each signature's array leaves as "path:shape"."""
+    snap = [r for r in rows if r["kind"] == "metrics"][-1]["snapshot"]
+    counters, gauges = snap["counters"], snap["gauges"]
+    labels = sorted({k[len("xla/"):-len("/calls")] for k in counters
+                     if k.startswith("xla/") and k.endswith("/calls")})
+    out = {}
+    for label in labels:
+        sigs = [r["signature"] for r in rows
+                if r["kind"] in ("program_signature", "program_compile") and r["label"] == label]
+        out[label] = {
+            "calls": counters[f"xla/{label}/calls"],
+            "compiles": counters.get(f"xla/{label}/compiles", 0),
+            "signatures": int(gauges[f"xla/{label}/signatures"]),
+            "leaves": [[f"{leaf['path']}:{'x'.join(map(str, leaf['shape']))}"
+                        for leaf in sig["leaves"] if leaf["kind"] == "array"][:12]
+                       for sig in sigs[:4]]}
+    return out
+
+
+def _ledger_training_journal(rows: list) -> dict:
+    """19(j): the traced GAME training driver's ledger: every label it ran
+    compiled nothing (the kernels and host libraries are built) and wrote
+    one signature row a signature."""
+    labels = _ledger_labels(rows)
+    assert labels and all(v["compiles"] == 0 for v in labels.values()), labels
+    assert not [r for r in rows if r["kind"] in ("program_compile", "program_recompile")]
+    sig_rows = [r for r in rows if r["kind"] == "program_signature"]
+    assert len(sig_rows) == sum(v["signatures"] for v in labels.values()), labels
+    return labels
+
+
+def _ledger_serve_checks(plain: dict, served: dict, rows: list, requests: int) -> dict:
+    """19(h): the serve driver with --telemetry-dir: program_compiles is
+    the ledger's snapshot, its serve/score compiles the warm-up's captures,
+    one program_compile row a capture (all in the warm phase), the replay
+    and the swap capture nothing by the ledger and by the scorer's count;
+    without a journal, program_compiles is null."""
+    score = served["program_compiles"]["serve/score"]
+    compiles = [r for r in rows if r["kind"] == "program_compile" and r["label"] == "serve/score"]
+    recompiles = [r for r in rows if r["kind"] == "program_recompile"]
+    assert plain["program_compiles"] is None
+    assert served["warm_compiles"] > 0 and score["compiles"] == served["warm_compiles"], score
+    assert len(compiles) == score["compiles"] and {r["phase"] for r in compiles} == {"warm"}
+    assert len(recompiles) == score["recompiles"] == score["compiles"] - 1
+    assert served["replay_compiles"] == 0 and served["swap"]["performed"] \
+        and served["swap"]["score_compiles_after_swap"] == 0, served
+    assert served["warm_compiles"] == plain["warm_compiles"]
+    return {"program_compiles": served["program_compiles"],
+            "warm_captures": served["warm_compiles"], "replay_captures": 0,
+            "swap": served["swap"], "compile_rows": len(compiles),
+            "recompile_summaries": [r["summary"] for r in recompiles],
+            "capture_seconds": [r["compile_seconds"] for r in compiles],
+            "baseline_requests_bitwise": requests}
+
+
+def _ledger_builds(torch, card: str) -> dict:
+    """19(g): the compile count after the script's first build equals the
+    libraries it compiled (0 on a warm build directory), with their nvcc
+    seconds. Run alone, the phase builds now."""
+    record = _SHARED.get("build")
+    if record is None:
+        from photon_ml_torch import build
+
+        record = _build_record(build.build_all())
+    assert record["compiles"] == len(record["compiled"]), record
+    _log(f"19g. the first build's compile events ({card}): " + json.dumps(record))
+    return record
+
+
+def _ledger_sparse_replay(torch, np, seed: int, dev, card: str, tmp: Path) -> dict:
+    """19(i): phase 17(b)'s ELL model served request by request (one-row
+    requests, longer slices, long requests, the one-row requests again)
+    with a ProgramLedger installed and without: the scores bitwise, one
+    compile row a capture, recompile rows for every capture after the
+    first, each naming the input leaves whose shapes changed; every graph
+    of both runs checked by :func:`_graph_checks` (replays bitwise, the f64
+    plain program, each gather on the graph's own padded inputs against its
+    f64 plain version), so that every launch the run counts came from a
+    checked graph. Then 17(b)'s own warm-up and micro-batched replay under
+    the ledger, its captures attributed by phase. Returns the summary and
+    the path's gather entries for the kernels line."""
+    from photon_ml_torch.data.game_data import slice_game_dataset
+    from photon_ml_torch.serving import ResidentScorer
+    from photon_ml_torch.telemetry import RunJournal, read_journal
+    from photon_ml_torch.telemetry import program_ledger as pl
+
+    if "serving_sparse" not in _SHARED:
+        _serving_sparse(torch, np, seed, dev, card)
+    s = _SHARED["serving_sparse"]
+    cfg = LEDGER
+    requests, held = s["requests"], s["held"]
+    singles = requests[:cfg["sparse_singles"]]
+    lengths = [slice_game_dataset(held, 0, m) for m in cfg["sparse_lengths"]]
+    sequence = singles + lengths + s["longs"][:cfg["sparse_longs"]] + singles
+
+    def serve(journal_dir):
+        scorer = ResidentScorer(s["model"], shapes=SERVING["shapes"])
+        journal = ledger = None
+        if journal_dir is not None:
+            journal = RunJournal(journal_dir)
+            ledger = pl.install_ledger(pl.ProgramLedger(journal=journal))
+        try:
+            out = [scorer.score(r) for r in sequence]
+            torch.cuda.synchronize()
+        finally:
+            if ledger is not None:
+                pl.uninstall_ledger()
+                journal.close()
+        return scorer, out, ledger
+
+    _reset_gather_counts()
+    t0 = time.perf_counter()
+    plain, plain_scores, _ = serve(None)
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scorer, scores, ledger = serve(tmp / "sparse-ledger")
+    t_ledger = time.perf_counter() - t0
+    launches = _gather_counts()
+    assert all(np.array_equal(a, b) for a, b in zip(plain_scores, scores))
+    assert scorer.captures == plain.captures >= 2
+    graph_checks, gather_checks = {}, []
+    for label, served in (("ledger off", plain), ("ledger on", scorer)):
+        graph_checks[label], g = _graph_checks(torch, np, served, f"19i {label}")
+        gather_checks += g
+    path = _served_gather_path(launches, gather_checks)
+    assert all(v["checks"] for v in path.values() if v["launches"]), \
+        {k: (v["launches"], len(v["checks"])) for k, v in path.items()}
+    rows = read_journal(tmp / "sparse-ledger" / "run-journal.jsonl")
+    compiles = [r for r in rows if r["kind"] == "program_compile"]
+    recompiles = [r for r in rows if r["kind"] == "program_recompile"]
+    snap = ledger.snapshot()["serve/score"]
+    assert len(compiles) == snap["compiles"] == scorer.captures, (snap, scorer.captures)
+    assert len(recompiles) == snap["recompiles"] == scorer.captures - 1
+    assert snap["calls"] == len(sequence)
+    entry = ("/rows", "/cols", "/vals", "/row_ptr", "/chunk_rows", "/chunk_ptr")
+    causes = []
+    for r in recompiles:
+        shapes = [c for c in r["changed"] if c["field"] in ("shape", "presence")]
+        assert shapes, r
+        named = sorted({c["leaf"] for c in shapes})
+        causes.append({"bucket_changed": any(c["leaf"] == "arg0.offsets" for c in shapes),
+                       "entry_axis": [c for c in shapes if c["leaf"].endswith(entry)][:3],
+                       "summary": r["summary"], "leaves": named})
+    assert any(c["entry_axis"] for c in causes), causes
+
+    # 17(b)'s own warm-up and micro-batched replay of every one-row request
+    journal = RunJournal(tmp / "sparse-replay")
+    ledger = pl.install_ledger(pl.ProgramLedger(journal=journal))
+    try:
+        replayer = ResidentScorer(s["model"], shapes=SERVING["shapes"])
+        ledger.set_phase("warm")
+        replayer.warm(requests[0])
+        warm = replayer.captures
+        ledger.set_phase("replay")
+        replay = _serve_replay(torch, np, replayer, requests)
+    finally:
+        pl.uninstall_ledger()
+        journal.close()
+    rrows = read_journal(tmp / "sparse-replay" / "run-journal.jsonl")
+    replay_rows = [r for r in rrows if r["kind"] == "program_recompile"
+                   and r["phase"] == "replay"]
+    assert len(replay_rows) == replayer.captures - warm, \
+        (len(replay_rows), replayer.captures, warm)
+    out = {"requests": len(sequence), "captures": scorer.captures, "compile_rows": len(compiles),
+           "recompile_causes": causes, "seconds": {"plain": t_plain, "ledger": t_ledger},
+           "ledger_over_plain": t_ledger / t_plain, "launches": launches,
+           "graphs": graph_checks,
+           "replay": {"requests": len(requests), "warm_captures": warm,
+                      "replay_captures": replayer.captures - warm,
+                      "attributions": [{"summary": r["summary"],
+                                        "leaves": sorted({c["leaf"] for c in r["changed"]})}
+                                       for r in replay_rows],
+                      "micro_batches": replay.get("micro_batches")}}
+    _log(f"19i. phase 17(b)'s ELL model served request by request under the ledger and "
+         f"without ({card}): " + json.dumps(out))
+    assert launches["rows"] + launches["segments"] > 0, launches
+    return out, path
+
+
+def _ledger_probes(torch, np, seed: int, dev, card: str) -> dict:
+    """19(j)'s probes: the stream calibration on phase 4's [2^18, 512] f32
+    block (K steps of one captured graph), B1's bytes over its time on the
+    same block as a fraction of it; the live-buffer and memory-limit probes
+    against the allocator and the card."""
+    from photon_ml_torch.data.batch import LabeledPointBatch
+    from photon_ml_torch.ops import fused_glm
+    from photon_ml_torch.ops.losses import LogisticLoss
+    from photon_ml_torch.telemetry import probes
+
+    n, d = LEDGER["probe_shape"]
+    x, y = _dataset(np, seed, n, d)
+    batch = LabeledPointBatch.create(x, y, device=dev)
+    del x, y
+    k_lo, k_hi = LEDGER["calibration_k"]
+    cal = probes.stream_calibration(batch.features, k_lo=k_lo, k_hi=k_hi)
+    loss = LogisticLoss()
+    w = (torch.randn(d, device=dev, generator=torch.Generator(dev).manual_seed(seed)) * 0.01)
+    b1_ms = _device_ms(torch, lambda: fused_glm.fused_value_and_gradient(loss, w, batch,
+                                                                          l2_weight=1.0))
+    nbytes = n * d * 4 + 12 * n + 8 * d + 8
+    b1_gbps = nbytes / (b1_ms * 1e-3) / 1e9
+    torch.cuda.synchronize()
+    live, allocated = probes.live_buffer_bytes(), torch.cuda.memory_allocated()
+    limit, total = probes.device_memory_limit_bytes(), torch.cuda.mem_get_info()[1]
+    assert live == allocated and limit == total, (live, allocated, limit, total)
+    out = {"calibration": cal, "b1_ms": b1_ms, "b1_bytes": nbytes, "b1_gbps": b1_gbps,
+           "b1_fraction_of_calibration": b1_gbps / cal["gbps"],
+           "live_buffer_bytes": live, "memory_allocated": allocated,
+           "device_memory_limit_bytes": limit, "mem_get_info_total": total}
+    del batch
+    torch.cuda.empty_cache()
+    _log(f"19j. probes on phase 4's [{n}, {d}] f32 block ({card}): " + json.dumps(out))
+    return out
+
+
+def _ledger_verdicts(card: str, journals: dict, training: tuple) -> dict:
+    """19(k): the port's verdicts over every journal phase 19 wrote: no
+    ledger finding of status pathology on any, none at all on the training
+    drivers'; every finding printed."""
+    from photon_ml_torch.telemetry import read_journal
+    from photon_ml_torch.telemetry.verdicts import PATHOLOGY, journal_findings
+
+    out = {}
+    for name, path in journals.items():
+        findings = journal_findings(read_journal(path))
+        ledger = [f for f in findings if f.rule in LEDGER_RULES]
+        assert not [f for f in ledger if f.status == PATHOLOGY], (name, ledger)
+        if name in training:
+            assert not ledger, (name, ledger)
+        out[name] = [dataclasses.asdict(f) for f in findings]
+    _log(f"19k. the verdicts over phase 19's journals ({card}): " + json.dumps(out))
+    return out
+
+
+def _ledger_slice(torch, np, seed: int, dev, card: str, base: Path) -> dict:
+    """Phase 19(g)-(k), after (a)-(e) wrote their journals under ``base``;
+    (h) and (j)'s driver checks ran inside (e) and (d)."""
+    times = {}
+    t0 = time.perf_counter()
+    builds = _ledger_builds(torch, card)
+    times["g"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sparse, gathers = _ledger_sparse_replay(torch, np, seed, dev, card, base)
+    times["i"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = _ledger_probes(torch, np, seed, dev, card)
+    times["j"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    journals = {name: base / sub / "run-journal.jsonl" for name, sub in (
+        ("19c GLM driver", "glm-tel"), ("19d GAME training driver", "game-tel"),
+        ("19d GAME training driver, profiled", "game-tel-p"),
+        ("19e scoring driver", "score-tel"), ("19e-h serve driver", "serve-tel"),
+        ("19i sparse requests", "sparse-ledger"), ("19i sparse replay", "sparse-replay"))}
+    verdicts = _ledger_verdicts(card, journals, training=(
+        "19c GLM driver", "19d GAME training driver", "19d GAME training driver, profiled"))
+    times["k"] = time.perf_counter() - t0
+    return {"g": builds, "i": sparse, "j": probe, "k": verdicts, "seconds": times,
+            "gathers": gathers}
+
 
 
 def _telemetry_slice(torch, np, seed: int, dev, card: str) -> dict:
@@ -10104,6 +10468,9 @@ def _telemetry_slice(torch, np, seed: int, dev, card: str) -> dict:
         t0 = time.perf_counter()
         game = _telemetry_game_drivers(torch, np, seed, dev, card, base)
         times["d-e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ledger = _ledger_slice(torch, np, seed, dev, card, base)
+        times["g-k"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(base, ignore_errors=True)
     ranks = _SHARED.get("partitioned_traces")
@@ -10114,14 +10481,18 @@ def _telemetry_slice(torch, np, seed: int, dev, card: str) -> dict:
                               + glm["b1_launches"]["telemetry"],
                               evaluations=diag["evaluations"]),
             "packed_glm": dict(game["p6_check"], launches=game["runs"]["telemetry"]["p6_launches"]
-                               + game["runs"]["profiled"]["p6_launches"])}
+                               + game["runs"]["profiled"]["p6_launches"]),
+            # 19(i): the gather kernels inside the served graphs, with the
+            # checks of those graphs
+            **ledger["gathers"]}
     assert all(v["launches"] > 0 for v in path.values()), {k: v["launches"]
                                                            for k, v in path.items()}
     seconds = time.perf_counter() - t_phase
     path["fused_glm"]["phase_seconds"] = seconds
     path["fused_glm"]["telemetry"] = {
         "a": {k: v for k, v in diag.items() if k != "check"}, "b": agreement, "c": glm,
-        "d_e": {k: v for k, v in game.items() if k != "p6_check"}, "f": ranks}
+        "d_e": {k: v for k, v in game.items() if k != "p6_check"}, "f": ranks,
+        "g_k": {k: v for k, v in ledger.items() if k not in ("k", "gathers")}}
     _log(f"19. telemetry phase ({card}): {seconds:.2f} s ("
          + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + ")")
     return path
@@ -10171,6 +10542,7 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     built = build.build_all()
+    _SHARED["build"] = _build_record(built)
     _log(f"build: {json.dumps(built)} ({time.perf_counter() - t0:.2f} s); B1's tile plan at "
          f"d=512: f32 {fused_glm.tile_plan(512, torch.float32)}, bf16 "
          f"{fused_glm.tile_plan(512, torch.bfloat16)}; one pass to d=8192: "

@@ -33,6 +33,8 @@ lanes are L-BFGS, Newton, OWL-QN (with an L1 weight) or TRON.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from functools import partial
 
 import numpy as np
 import torch
@@ -71,6 +73,7 @@ from photon_ml_torch.optim.optimizer import (
 )
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.sampling.down_sampler import down_sampler_for_task
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 from photon_ml_torch.types import TaskType
 
 
@@ -200,8 +203,7 @@ class FixedEffectCoordinate(Coordinate):
             resolve_variance_mode_for(objective, self.config.variance_mode, batch.dim)
         norm = objective.normalization
         w0 = norm.from_model_space(model.glm.coefficients.means, self.intercept_index)
-        bound = objective.bind(batch) if sparse else objective.bind_packed(batch)
-        result = solve(_solve_config(self.config, loss=objective.loss), bound, w0)
+        result = _fe_solve(objective, _solve_config(self.config, loss=objective.loss), batch, w0)
         means = norm.to_model_space(result.coefficients, self.intercept_index)
         variances = None
         if self.config.compute_variance:
@@ -212,6 +214,14 @@ class FixedEffectCoordinate(Coordinate):
 
     def score(self, model: FixedEffectModel) -> torch.Tensor:
         return model.score_dataset(self.dataset)
+
+
+@partial(ledger_call, label="coord/fe_solve", static_argnums=(0, 1))
+def _fe_solve(objective, opt: OptimizerConfig, batch, w0: torch.Tensor):
+    """The fixed effect's solve over its (dense: packed once) batch."""
+    sparse = isinstance(batch, SparseLabeledPointBatch)
+    bound = objective.bind(batch) if sparse else objective.bind_packed(batch)
+    return solve(opt, bound, w0)
 
 
 def _bucket_offsets(sample_rows: torch.Tensor, full_offsets: torch.Tensor) -> torch.Tensor:
@@ -290,6 +300,7 @@ def _gather_rows(table: torch.Tensor, entity_rows: torch.Tensor) -> torch.Tensor
     return table[torch.clamp(entity_rows.long(), min=0, max=max(table.shape[0] - 1, 0))]
 
 
+@partial(ledger_call, label="coord/re_bucket_solve", static_argnums=(0, 1))
 def solve_entity_bucket_traced(objective: GLMObjective, opt: OptimizerConfig, features, labels,
                                weights, sample_rows, entity_rows, full_offsets,
                                table) -> tuple[torch.Tensor, LaneTrace]:
@@ -315,8 +326,20 @@ def _lane_variances(lanes: LaneObjective, w: torch.Tensor, mode: str) -> torch.T
     return inverse_of_diagonal(lanes.hessian_diagonal(w))
 
 
-def bucket_variances(objective: GLMObjective, bucket, full_offsets, table, var_table,
-                     mode: str) -> torch.Tensor:
+def _by_mode(full, diagonal):
+    """One variance function (whose last argument is the mode) under two
+    program labels, the first for "full" and the second otherwise, as the
+    JAX package compiles one program for each mode."""
+
+    @functools.wraps(full.wrapped)
+    def run(*args):
+        return (full if args[-1] == "full" else diagonal)(*args)
+
+    return run
+
+
+def _bucket_variances(objective: GLMObjective, bucket, full_offsets, table, var_table,
+                      mode: str) -> torch.Tensor:
     """Per-entity variances at the solved coefficients written into a copy of
     ``var_table``: diag(H⁻¹) by one batched Cholesky ("full"), or 1/diag(H)."""
     offsets = _bucket_offsets(bucket.sample_rows, full_offsets)
@@ -354,6 +377,7 @@ def _with_scratch_column(table: torch.Tensor) -> torch.Tensor:
                                          device=table.device)], dim=1)
 
 
+@partial(ledger_call, label="coord/re_bucket_solve_indexmap", static_argnums=(0, 1))
 def solve_entity_bucket_indexmap_traced(objective: GLMObjective, opt: OptimizerConfig, features,
                                         labels, weights, sample_rows, entity_rows, col_index,
                                         full_offsets, table_ext
@@ -378,6 +402,7 @@ def solve_entity_bucket_indexmap(objective, opt, features, labels, weights, samp
                                                full_offsets, table_ext)[0]
 
 
+@partial(ledger_call, label="coord/re_bucket_solve_random", static_argnums=(0, 1))
 def solve_entity_bucket_random_traced(objective: GLMObjective, opt: OptimizerConfig, features,
                                       labels, weights, sample_rows, entity_rows, matrix,
                                       full_offsets, table) -> tuple[torch.Tensor, LaneTrace]:
@@ -397,8 +422,14 @@ def solve_entity_bucket_random(objective, opt, features, labels, weights, sample
                                              table)[0]
 
 
-def bucket_variances_indexmap(objective: GLMObjective, bucket, full_offsets, table_ext, var_ext,
-                              mode: str) -> torch.Tensor:
+bucket_variances = _by_mode(
+    ledger_call(_bucket_variances, label="coord/re_bucket_variances", static_argnums=(0,)),
+    ledger_call(_bucket_variances, label="coord/re_bucket_variances_diagonal",
+                static_argnums=(0,)))
+
+
+def _bucket_variances_indexmap(objective: GLMObjective, bucket, full_offsets, table_ext, var_ext,
+                               mode: str) -> torch.Tensor:
     """Per-entity variances in the projected space (H over the entity's
     active columns), scattered back through its column index into a copy of
     ``var_ext`` [E, d+1]; the scratch column holds pad slots' values."""
@@ -407,6 +438,13 @@ def bucket_variances_indexmap(objective: GLMObjective, bucket, full_offsets, tab
     w = _gather_cells(table_ext, bucket.entity_rows, bucket.col_index)
     return _scatter_cells(var_ext, bucket.entity_rows, bucket.col_index,
                           _lane_variances(lanes, w, mode))
+
+
+bucket_variances_indexmap = _by_mode(
+    ledger_call(_bucket_variances_indexmap, label="coord/re_bucket_variances_indexmap",
+                static_argnums=(0,)),
+    ledger_call(_bucket_variances_indexmap, label="coord/re_bucket_variances_indexmap_diagonal",
+                static_argnums=(0,)))
 
 
 def _recover_sketch_coefficients(rows: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
@@ -418,8 +456,8 @@ def _recover_sketch_coefficients(rows: torch.Tensor, matrix: torch.Tensor) -> to
     return torch.linalg.solve(gram, (rows @ matrix).T).T
 
 
-def bucket_variances_random(objective: GLMObjective, bucket, full_offsets, matrix, table,
-                            var_table, mode: str) -> torch.Tensor:
+def _bucket_variances_random(objective: GLMObjective, bucket, full_offsets, matrix, table,
+                             var_table, mode: str) -> torch.Tensor:
     """Original-space variances of a random-projected solve, w = P w_k:
     "full" propagates the covariance, var(w) = diag(P H_k⁻¹ Pᵀ); "diagonal"
     takes (P∘P) @ 1/diag(H_k). Written into a copy of ``var_table``."""
@@ -432,6 +470,41 @@ def bucket_variances_random(objective: GLMObjective, bucket, full_offsets, matri
     else:
         vs = inverse_of_diagonal(lanes.hessian_diagonal(wks)) @ (matrix * matrix).T
     return _scatter_rows(var_table, bucket.entity_rows, vs)
+
+
+bucket_variances_random = _by_mode(
+    ledger_call(_bucket_variances_random, label="coord/re_bucket_variances_random",
+                static_argnums=(0,)),
+    ledger_call(_bucket_variances_random, label="coord/re_bucket_variances_random_diagonal",
+                static_argnums=(0,)))
+
+
+def _lane_grad_norms(objective, bucket, full_offsets, w) -> torch.Tensor:
+    lanes = _lane_objective(objective, bucket.features, bucket.labels, bucket.weights,
+                            _bucket_offsets(bucket.sample_rows, full_offsets))
+    return torch.linalg.norm(lanes.value_and_grad(w)[1], dim=-1)
+
+
+@partial(ledger_call, label="refresh/grad_norms", static_argnums=(0,))
+def bucket_grad_norms(objective, bucket, full_offsets, table) -> torch.Tensor:
+    """[e] solve-space gradient norms of a bucket's lanes at their rows of
+    ``table`` (the refresh's screening signal)."""
+    return _lane_grad_norms(objective, bucket, full_offsets,
+                            _gather_rows(table, bucket.entity_rows))
+
+
+@partial(ledger_call, label="refresh/grad_norms_indexmap", static_argnums=(0,))
+def bucket_grad_norms_indexmap(objective, bucket, full_offsets, table_ext) -> torch.Tensor:
+    """:func:`bucket_grad_norms` of an INDEX_MAP bucket on the [E, d+1] table."""
+    return _lane_grad_norms(objective, bucket, full_offsets,
+                            _gather_cells(table_ext, bucket.entity_rows, bucket.col_index))
+
+
+@partial(ledger_call, label="refresh/grad_norms_random", static_argnums=(0,))
+def bucket_grad_norms_random(objective, bucket, full_offsets, matrix, table) -> torch.Tensor:
+    """:func:`bucket_grad_norms` of a RANDOM bucket, at table[rows] @ P."""
+    return _lane_grad_norms(objective, bucket, full_offsets,
+                            _gather_rows(table, bucket.entity_rows) @ matrix)
 
 
 def random_variance_mode(mode: str, d: int, k: int, num_problems: int) -> str:
@@ -680,14 +753,11 @@ class RandomEffectCoordinate(Coordinate):
             table_ext = _with_scratch_column(table)
         for b in self.re_dataset.buckets:
             if projector == ProjectorType.INDEX_MAP:
-                w = _gather_cells(table_ext, b.entity_rows, b.col_index)
+                norms = bucket_grad_norms_indexmap(objective, b, full_offsets, table_ext)
             elif projector == ProjectorType.RANDOM:
-                w = _gather_rows(table, b.entity_rows) @ matrix
+                norms = bucket_grad_norms_random(objective, b, full_offsets, matrix, table)
             else:
-                w = _gather_rows(table, b.entity_rows)
-            lanes = _lane_objective(objective, b.features, b.labels, b.weights,
-                                    _bucket_offsets(b.sample_rows, full_offsets))
-            norms = torch.linalg.norm(lanes.value_and_grad(w)[1], dim=-1)
+                norms = bucket_grad_norms(objective, b, full_offsets, table)
             rows = b.entity_rows.cpu().numpy().astype(np.int64)
             valid = (rows >= 0) & (rows < num_rows)
             out[rows[valid]] = norms.cpu().numpy()[valid]

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+from functools import partial
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -67,6 +68,7 @@ from photon_ml_torch.optim.common import ConvergenceReason, LaneTrace
 from photon_ml_torch.optim.optimizer import LaneSchedulerConfig, OptimizerConfig, OptimizerType
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.telemetry import tracing
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 from photon_ml_torch.telemetry.registry import default_registry
 from photon_ml_torch.telemetry.solver_trace import LANE_ITERS_METRIC
 
@@ -118,6 +120,7 @@ def _finish(objective, opt, b, full_offsets, w0s, num_rows):
     return solved, trace, delta, torch.linalg.norm(solved, dim=-1)
 
 
+@partial(ledger_call, label="scheduler/solve_identity", static_argnums=(0, 1))
 def block_solve_identity(objective, opt: OptimizerConfig, b: Mapping[str, torch.Tensor],
                          full_offsets: torch.Tensor, table: torch.Tensor, matrix=None):
     """(table, trace, delta, wnorm) of one block on an [E, d] table."""
@@ -126,6 +129,7 @@ def block_solve_identity(objective, opt: OptimizerConfig, b: Mapping[str, torch.
     return _scatter_rows(table, b["entity_rows"], solved), trace, delta, wnorm
 
 
+@partial(ledger_call, label="scheduler/solve_indexmap", static_argnums=(0, 1))
 def block_solve_indexmap(objective, opt: OptimizerConfig, b: Mapping[str, torch.Tensor],
                          full_offsets: torch.Tensor, table_ext: torch.Tensor, matrix=None):
     """One INDEX_MAP block on the [E, d+1] table with its scratch column."""
@@ -137,12 +141,25 @@ def block_solve_indexmap(objective, opt: OptimizerConfig, b: Mapping[str, torch.
     return table_ext, trace, delta, wnorm
 
 
+@partial(ledger_call, label="scheduler/solve_random", static_argnums=(0, 1))
 def block_solve_random(objective, opt: OptimizerConfig, b: Mapping[str, torch.Tensor],
                        full_offsets: torch.Tensor, table: torch.Tensor, matrix=None):
     """One RANDOM block: warm start table[rows] @ P, back-projection P w_k."""
     w0s = _gather_rows(table, b["entity_rows"]) @ matrix
     solved, trace, delta, wnorm = _finish(objective, opt, b, full_offsets, w0s, table.shape[0])
     return _scatter_rows(table, b["entity_rows"], solved @ matrix.T), trace, delta, wnorm
+
+
+@partial(ledger_call, label="scheduler/extend_scratch")
+def _extend_scratch(table: torch.Tensor) -> torch.Tensor:
+    """[E, d] -> [E, d+1]: the INDEX_MAP scratch column that absorbs the
+    pad slots' gathers and scatters."""
+    return _with_scratch_column(table)
+
+
+@partial(ledger_call, label="scheduler/strip_scratch")
+def _strip_scratch(table_ext: torch.Tensor) -> torch.Tensor:
+    return table_ext[:, :-1]
 
 
 _BLOCK_SOLVERS = {
@@ -233,7 +250,7 @@ class LaneScheduler:
 
         indexmap = projector == ProjectorType.INDEX_MAP
         if indexmap:
-            table = _with_scratch_column(table)
+            table = _extend_scratch(table)
         num_rows = int(table.shape[0])
         if self._num_rows is None:
             self._num_rows = num_rows
@@ -380,7 +397,7 @@ class LaneScheduler:
         self.last_stats = stats
         self.total_stats.merge(stats)
         if indexmap:
-            table = table[:, :-1]
+            table = _strip_scratch(table)
         return table, traces, stats
 
     def _record(self, stats: SchedulerStats, traces: Sequence[LaneTrace]) -> None:

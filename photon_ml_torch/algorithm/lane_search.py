@@ -34,6 +34,7 @@ Invariants:
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ from photon_ml_torch.optim.common import LaneResult
 from photon_ml_torch.optim.lanes import minimize_lbfgs_lanes
 from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType, resolve_auto_optimizer
 from photon_ml_torch.optim.owlqn import minimize_owlqn_lanes
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 from photon_ml_torch.types import TaskType
 
 #: evaluations of a lane objective (each evaluates every lane): read by
@@ -162,6 +164,14 @@ def solve_lanes(objective, use_owlqn: bool, optimizer: OptimizerConfig, batch, l
                                 upper_bounds=None if bounds is None else bounds[1], **common)
 
 
+@partial(ledger_call, label="search/lane_solve", static_argnums=(0, 1, 2))
+def _search_lanes(objective, use_owlqn: bool, optimizer: OptimizerConfig, batch, l2v, l1v,
+                  tolerance, w0v, bounds=None) -> LaneResult:
+    """:func:`solve_lanes` under the tournament's program label."""
+    return solve_lanes(objective, use_owlqn, optimizer, batch, l2v, l1v, tolerance, w0v,
+                       bounds)
+
+
 def run_lane_tournament(batch: LabeledPointBatch, task: TaskType, configs: LaneConfigs, *,
                         optimizer: OptimizerConfig | None = None, warm_start=None,
                         normalization=None, intercept_index: int | None = None,
@@ -201,8 +211,8 @@ def run_lane_tournament(batch: LabeledPointBatch, task: TaskType, configs: LaneC
                 f"warm_start must be [{num_lanes}, {batch.dim}], got {tuple(w0v.shape)}")
     bounds = ((lanes(configs.lower_bounds), lanes(configs.upper_bounds))
               if configs.has_box else None)
-    results = solve_lanes(objective, use_owlqn, optimizer, batch, lanes(configs.l2),
-                          lanes(configs.l1), lanes(configs.tolerance), w0v, bounds)
+    results = _search_lanes(objective, use_owlqn, optimizer, batch, lanes(configs.l2),
+                            lanes(configs.l1), lanes(configs.tolerance), w0v, bounds)
     if telemetry is not None:
         l2, l1 = np.asarray(configs.l2), np.asarray(configs.l1)
         telemetry.record_lanes("lane-search", results,
@@ -215,6 +225,8 @@ def run_lane_tournament(batch: LabeledPointBatch, task: TaskType, configs: LaneC
     return TournamentResult(results=results, models=models, configs=configs)
 
 
+@partial(ledger_call, label="search/lane_metrics", static_argnums=(0, 1),
+         static_argnames=("intercept_index",))
 def evaluate_tournament_on_device(objective, metric_fn, val_batch: LabeledPointBatch,
                                   coefficients: torch.Tensor, consts: dict,
                                   intercept_index: int | None = None) -> torch.Tensor:

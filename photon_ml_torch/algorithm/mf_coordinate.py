@@ -18,6 +18,7 @@ is plain jnp too, with no Pallas kernel behind it.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ from photon_ml_torch.ops.losses import loss_for_task
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.optim.common import LaneTrace, LaneTraces
 from photon_ml_torch.optim.optimizer import OptimizerConfig
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 from photon_ml_torch.types import TaskType
 
 
@@ -141,6 +143,7 @@ def build_mf_dataset(dataset: GameDataset, row_effect_type: str, col_effect_type
         num_col_entities=len(dataset.entity_vocabs[col_effect_type]))
 
 
+@partial(ledger_call, label="coord/mf_side_solve", static_argnums=(0, 1))
 def solve_mf_side_bucket(objective: GLMObjective, opt: OptimizerConfig, labels: torch.Tensor,
                          weights: torch.Tensor, entity_rows: torch.Tensor,
                          sample_rows: torch.Tensor, other_idx_full: torch.Tensor,

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import base64
 import time
+from functools import partial
 from typing import Callable, Sequence
 
 import numpy as np
@@ -44,6 +45,7 @@ from photon_ml_torch.io.stream_reader import DEFAULT_CHUNK_TIMEOUT, ChunkPrefetc
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.sparse_objective import SparseGLMObjective
 from photon_ml_torch.telemetry import tracing
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 
 #: the parts of an epoch's wall time that :attr:`StreamingGLMObjective.totals` sums
 EPOCH_PARTS = ("seconds", "decode", "wait", "copy", "accumulate", "exchange", "bytes",
@@ -102,6 +104,20 @@ def resolve_rank_exchange(mesh, exchange):
                          f"axis has {data_size(mesh)}; pass the exchange of the mesh's data "
                          "group")
     return exchange
+
+
+@partial(ledger_call, label="streaming/accumulate_value_grad", static_argnames=("objective",))
+def _accumulate_value_grad(acc_value, acc_grad, coefficients, batch, *, objective):
+    """One chunk's (value, gradient) added to the epoch's accumulators."""
+    value, grad = objective.value_and_gradient(coefficients, batch)
+    return acc_value + value, acc_grad + grad
+
+
+@partial(ledger_call, label="streaming/accumulate_hessian_vector",
+         static_argnames=("objective",))
+def _accumulate_hessian_vector(acc_hv, coefficients, vector, batch, *, objective):
+    """One chunk's Hessian-vector product added to the epoch's accumulator."""
+    return acc_hv + objective.hessian_vector(coefficients, vector, batch)
 
 
 class StreamingGLMObjective:
@@ -201,8 +217,8 @@ class StreamingGLMObjective:
 
     def value_and_grad(self, w: torch.Tensor):
         def fold(carry, batch):
-            value, grad = self.objective.value_and_gradient(w, batch)
-            return carry[0] + value, carry[1] + grad
+            return _accumulate_value_grad(carry[0], carry[1], w, batch,
+                                          objective=self.objective)
 
         acc_f, acc_g = self._close_epoch(self._epoch(
             fold, (torch.zeros((), dtype=w.dtype, device=w.device), torch.zeros_like(w))))
@@ -216,7 +232,8 @@ class StreamingGLMObjective:
 
     def hessian_vector(self, w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         (acc,) = self._close_epoch([self._epoch(
-            lambda carry, batch: carry + self.objective.hessian_vector(w, v, batch),
+            lambda carry, batch: _accumulate_hessian_vector(carry, w, v, batch,
+                                                            objective=self.objective),
             torch.zeros_like(w))])
         if self.l2_weight > 0.0:
             acc = acc + self.l2_weight * v

@@ -54,6 +54,7 @@ import logging
 import os
 import threading
 import time
+from functools import partial
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -96,6 +97,7 @@ from photon_ml_torch.parallel.distributed import (
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.resilience import recovery
 from photon_ml_torch.telemetry import stream_counters, tracing
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 from photon_ml_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -110,6 +112,7 @@ SWEEP_PARTS = ("fe_solve", "fe_decode", "fe_wait", "fe_copy", "fe_accumulate", "
                "fe_bytes")
 
 
+@partial(ledger_call, label="streaming_game/fe_margin_chunk", static_argnums=(2,))
 def _fe_margin_chunk(w: torch.Tensor, features: torch.Tensor, objective: GLMObjective
                      ) -> torch.Tensor:
     """The pure FE margin of one chunk (no offsets) from normalized-space
@@ -119,6 +122,7 @@ def _fe_margin_chunk(w: torch.Tensor, features: torch.Tensor, objective: GLMObje
     return features.to(eff.dtype) @ eff - norm.margin_shift(eff)
 
 
+@partial(ledger_call, label="streaming_game/solve_re_chunk_bucket", static_argnums=(2, 3))
 def _solve_re_chunk_bucket(table: torch.Tensor, batch: dict, objective: GLMObjective,
                            opt: OptimizerConfig):
     """Solve one chunk-local entity bucket and write it into the [E, d]
@@ -132,6 +136,14 @@ def _solve_re_chunk_bucket(table: torch.Tensor, batch: dict, objective: GLMObjec
     trace = _mask_padding_lanes(trace, batch["entity_rows"], table.shape[0])
     movement = torch.sqrt(torch.sum((solved - w0) ** 2, dim=-1))
     return _scatter_rows(table, batch["entity_rows"], solved), trace, movement
+
+
+@partial(ledger_call, label="streaming_game/re_score_chunk")
+def _re_score_chunk(table: torch.Tensor, features: torch.Tensor,
+                    entity_idx: torch.Tensor) -> torch.Tensor:
+    """One chunk's RE coordinate scores: x_i · table[entity_idx_i] (0 for
+    absent entities and padding rows)."""
+    return score_random_effect(table, features, entity_idx)
 
 
 # ---------------------------------------------------------------------------
@@ -608,7 +620,7 @@ class StreamingGameProgram:
 
     def _refresh_re_scores_chunk(self, scores, re_type, table, chunk, spec) -> None:
         s = self._re_by_name[re_type]
-        margins = score_random_effect(
+        margins = _re_score_chunk(
             table, self._to_device(chunk.features[s.feature_shard_id]),
             self._to_device(chunk.entity_idx[re_type], torch.int32)).cpu().numpy()
         scores[re_type][self._row_plan[spec.index]] = \
@@ -1050,7 +1062,7 @@ def score_game_stream(state: GameTrainState, source, task: TaskType, fe_feature_
                 w, device_tensor(chunk.features[fe_feature_shard_id], w.dtype, device),
                 objective).cpu().numpy().astype(dtype)
             for re_type, table in state.re_tables.items():
-                total = total + score_random_effect(
+                total = total + _re_score_chunk(
                     table, device_tensor(chunk.features[re_feature_shards[re_type]],
                                          table.dtype, device),
                     device_tensor(chunk.entity_idx[re_type], torch.int32, device)

@@ -16,6 +16,10 @@ The host libraries (``native/<name>.cpp``: the columnar Avro decoder and the
 LibSVM parser) build the same way with ``g++`` into ``build/torch_native/``:
 ``load_host(name, configure)``. A build that fails raises ``RuntimeError``
 with the compiler's output; nothing falls back on its own.
+
+Each build that compiles (not a library found built) is one compile event
+of its seconds in ``telemetry/probes`` (``jax/backend_compile_count``), which
+the program ledger attributes to the labelled call it happened in.
 """
 
 from __future__ import annotations
@@ -91,19 +95,29 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return (proc, tmp), out
+    return (proc, tmp, t0), out
 
 
 def _finish(name: str, started, out: Path) -> None:
+    """Wait for one nvcc build and record it as a compile event of its
+    seconds (``telemetry/probes.record_compile``)."""
     if started is None:
         return
-    proc, tmp = started
+    proc, tmp, t0 = started
     log, _ = proc.communicate()
     (BUILD_DIR / f"{name}.log").write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    _record_compile(time.perf_counter() - t0)
+
+
+def _record_compile(seconds: float) -> None:
+    from photon_ml_torch.telemetry.probes import record_compile
+
+    record_compile(seconds)
 
 
 def build_all() -> dict[str, float]:
@@ -165,6 +179,7 @@ def _build_host(name: str, out: Path) -> None:
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     link = list(HOST_LINK.get(name, ()))
+    t0 = time.perf_counter()
     attempts = [link]
     zlib = ctypes.util.find_library("z")
     if "-lz" in link and zlib:
@@ -175,6 +190,7 @@ def _build_host(name: str, out: Path) -> None:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode == 0:
             os.replace(tmp, out)
+            _record_compile(time.perf_counter() - t0)
             return
         log += f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     with contextlib.suppress(FileNotFoundError):

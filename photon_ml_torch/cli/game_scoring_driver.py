@@ -45,7 +45,12 @@ import numpy as np
 import torch
 
 from photon_ml_torch.cli.configs import evaluation_id_columns, parse_feature_shard_config
-from photon_ml_torch.cli.game_training_driver import _close_journal, _json_safe, parse_mesh_shape
+from photon_ml_torch.cli.game_training_driver import (
+    _close_journal,
+    _install_ledger,
+    _json_safe,
+    parse_mesh_shape,
+)
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration
 from photon_ml_torch.io.index_map import IndexMap
@@ -107,8 +112,8 @@ def run(
     same name.
 
     telemetry_dir: rank 0's JSONL run journal (phase timings, the I/O and
-    resilience counters, a heartbeat a dataset, the scoring summary),
-    written on success and on failure. trace_dir: every rank's span
+    resilience counters, a heartbeat a dataset, the scoring summary, the
+    program ledger's rows), written on success and on failure. trace_dir: every rank's span
     timeline (``trace-{rank:05d}.json``) and a straggler report merged over
     the ranks into the journal, flushed before the journal's last rows.
     """
@@ -143,6 +148,8 @@ def run(
                 output_dir = os.path.join(output_dir, f".worker-{info.rank}")
         reset_resilience_metrics()
         journal = RunJournal(telemetry_dir) if telemetry_dir else None
+        # the program ledger: the scoring program (score/score_dataset)
+        ledger = _install_ledger(journal)
         tracer = install_tracer(Tracer()) if trace_dir else None
         succeeded = False
         try:
@@ -169,7 +176,7 @@ def run(
                         gather=succeeded, journal=journal)
                 finally:
                     uninstall_tracer()
-            _close_journal(journal)
+            _close_journal(journal, ledger)
     finally:
         if created:
             multihost.shutdown()

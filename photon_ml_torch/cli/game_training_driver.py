@@ -30,8 +30,12 @@ on failure), ``--trace-dir`` every rank's host span timeline
 across the ranks into the journal, and ``--profile-dir`` a
 ``torch.profiler`` device trace of the run. The module's ``events``
 emitter sends the setup, start, finish and per-update optimization events
-to its listeners. The JAX driver's program-ledger rows and compile gauges
-are not written (ROADMAP.md item 19, step 2).
+to its listeners. Under ``--telemetry-dir`` the program ledger
+(``telemetry/program_ledger.py``) journals each labelled program's
+signatures and compiles (in the port a kernel or host-library build, or a
+CUDA graph capture), and the journal ends with the
+``jax/backend_compile_count`` and ``device/live_buffer_bytes`` gauges (the
+JAX driver's names; the second is None on the CPU).
 
 ``--distributed`` (or ``--mesh data=N[,model=M]``) trains through the fused
 program over a mesh of every rank: run it under ``torchrun --nproc-per-node
@@ -143,12 +147,17 @@ from photon_ml_torch.parallel import multihost
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.resilience import CoordinatedRecovery, run_with_recovery
 from photon_ml_torch.telemetry import (
+    CompileMonitor,
+    ProgramLedger,
     RunJournal,
     Tracer,
     default_registry,
     flush_trace_best_effort,
+    install_ledger,
     install_tracer,
+    live_buffer_bytes,
     resilience_counters,
+    uninstall_ledger,
     uninstall_tracer,
 )
 from photon_ml_torch.telemetry.layout import reset_layout_metrics
@@ -501,11 +510,13 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
         telemetry = SolverTelemetry(
             journal=journal, emitter=events,
             registry=default_registry() if journal and journal.active else None)
+        compiles = CompileMonitor()
+        ledger = _install_ledger(journal)
         # installed before any stage, so a failed read still leaves a timeline
         tracer = install_tracer(Tracer()) if params.trace_dir else None
         succeeded = False
         try:
-            with profile_trace(params.profile_dir), \
+            with profile_trace(params.profile_dir), compiles, \
                     PhotonLogger(os.path.join(out, "driver.log")) as job_log:
                 if params.incremental_refresh:
                     # the refresh reads the data in the resident model's feature space
@@ -534,7 +545,9 @@ def run(params: GameTrainingParams, *, device=None) -> dict:
                         gather=succeeded, journal=journal)
                 finally:
                     uninstall_tracer()
-            _close_journal(journal)
+            _close_journal(journal, ledger, gauges={
+                "jax/backend_compile_count": lambda: compiles.count,
+                "device/live_buffer_bytes": lambda: live_buffer_bytes(device)})
     finally:
         if created:
             multihost.shutdown()
@@ -544,15 +557,30 @@ def _journal_of(telemetry) -> "RunJournal | None":
     return None if telemetry is None else telemetry.journal
 
 
-def _close_journal(journal) -> None:
-    """The run-end rows, on success and on failure: each quarantined block
-    span, the phase timings and the registry snapshot (the resilience,
-    solver, scheduler, stream, layout and I/O counters); then publish."""
+def _install_ledger(journal) -> "ProgramLedger | None":
+    """The program ledger the drivers install under ``--telemetry-dir``: every
+    labelled program's signatures and compiles journaled with their
+    attribution; None (nothing observed) without a journal."""
+    if journal is None:
+        return None
+    return install_ledger(ProgramLedger(journal=journal))
+
+
+def _close_journal(journal, ledger=None, gauges=None) -> None:
+    """The run-end rows, on success and on failure: the ledger uninstalled,
+    each quarantined block span, the phase timings, the driver's gauges
+    (name -> a function giving the value) and the registry snapshot (the
+    resilience, solver, scheduler, stream, layout, I/O and ledger
+    counters); then publish."""
+    if ledger is not None:
+        uninstall_ledger()
     if journal is None:
         return
     for event in resilience_counters.drain_quarantine_events():
         journal.record("quarantined_block", **event)
     journal.record_timings(timing_summary())
+    for name, value in (gauges or {}).items():
+        journal.record_gauge(name, value())
     journal.record_metrics(default_registry().snapshot())
     journal.close()
 

@@ -32,8 +32,9 @@ fitting curves, Hosmer-Lemeshow or Kendall's tau, feature importance and,
 with ``--num-bootstraps`` of 2 or more, the bootstrap chapter; every refit
 trains through the same ``train_glm``. ``--telemetry-dir`` writes a JSONL
 run journal (the configuration, a convergence row and a heartbeat a λ,
-phase timings, the metrics registry's snapshot; on success and on failure)
-and ``--trace-dir`` the host span timeline (``trace-00000.json``), flushed
+phase timings, the program ledger's rows and the ``jax/backend_compile_count``
+gauge, the metrics registry's snapshot; on success and on failure) and
+``--trace-dir`` the host span timeline (``trace-00000.json``), flushed
 before the journal's last rows. The module's ``events`` emitter sends the
 setup, start, finish and per-λ optimization events to its listeners.
 ``--input-format libsvm`` reads LibSVM text (``io/libsvm.py``).
@@ -54,7 +55,7 @@ import torch
 
 from photon_ml_torch.data.batch import LabeledPointBatch, summarize
 from photon_ml_torch.data.validators import DataValidationType, validate_arrays
-from photon_ml_torch.cli.game_training_driver import _close_journal
+from photon_ml_torch.cli.game_training_driver import _close_journal, _install_ledger
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.diagnostics.metrics import METRIC_DIRECTIONS, evaluate_model
 from photon_ml_torch.diagnostics.report_builder import build_diagnostic_report
@@ -65,6 +66,7 @@ from photon_ml_torch.io.model_io import write_glm_text
 from photon_ml_torch.ops.normalization import NormalizationType, build_normalization
 from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
 from photon_ml_torch.telemetry import (
+    CompileMonitor,
     RunJournal,
     Tracer,
     default_registry,
@@ -357,20 +359,23 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
     events.send(TrainingStartEvent(job_name="glm-training"))
     if journal is not None:
         journal.record("config", **config_summary)
+    compiles = CompileMonitor()
     checkpointer = None
     if params.checkpoint_dir:
         from photon_ml_torch.io.checkpoint import SolverCheckpointer
 
         checkpointer = SolverCheckpointer(params.checkpoint_dir,
                                           save_every=params.checkpoint_every)
-    # installed right before the try whose finally removes it, early
+    # installed right before the try whose finally removes them, early
     # enough that a failed read still leaves a timeline
+    ledger = _install_ledger(journal)
     tracer = install_tracer(Tracer()) if params.trace_dir else None
     try:
-        result = run_with_recovery(
-            lambda restart: _run_stages(params, device, checkpointer, telemetry),
-            max_restarts=params.max_restarts, checkpointer=checkpointer, journal=journal,
-            description="glm training")
+        with compiles:
+            result = run_with_recovery(
+                lambda restart: _run_stages(params, device, checkpointer, telemetry),
+                max_restarts=params.max_restarts, checkpointer=checkpointer, journal=journal,
+                description="glm training")
         events.send(TrainingFinishEvent(job_name="glm-training", succeeded=True))
         return result
     except Exception:
@@ -384,7 +389,8 @@ def run(params: GLMDriverParams, *, device=None) -> GLMDriverResult:
                 flush_trace_best_effort(tracer, params.trace_dir, journal=journal)
             finally:
                 uninstall_tracer()
-        _close_journal(journal)
+        _close_journal(journal, ledger,
+                       gauges={"jax/backend_compile_count": lambda: compiles.count})
 
 
 def _run_stages(params: GLMDriverParams, device, checkpointer,

@@ -18,10 +18,13 @@ Runs on the CUDA device; ``main(argv, device="cpu")`` runs on the CPU.
 ``serving-summary.json`` keeps the JAX driver's keys. On the card a
 "compile" of the summary is a CUDA graph capture: ``warm_compiles`` and
 ``replay_compiles`` count the captures of the warm-up and of the replay
-(0 once the warm-up has captured every signature the replay reaches), and
-``program_compiles`` is ``null`` (the program ledger is ROADMAP.md item 19,
-step 2). ``--telemetry-dir`` writes a JSONL run journal and ``--trace-dir``
-the span timeline (see :func:`run`).
+(0 once the warm-up has captured every signature the replay reaches).
+``--telemetry-dir`` writes a JSONL run journal and installs the program
+ledger: ``program_compiles`` is then its per-label snapshot (``null``
+without it), and each capture journals a ``program_compile`` row stamped
+with its phase (``warm`` or ``replay``) and, after the first, a
+``program_recompile`` row naming the input leaves whose shapes changed.
+``--trace-dir`` writes the span timeline (see :func:`run`).
 """
 
 from __future__ import annotations
@@ -37,13 +40,14 @@ from typing import Sequence
 import torch
 
 from photon_ml_torch.cli.configs import parse_feature_shard_config
-from photon_ml_torch.cli.game_training_driver import _close_journal
+from photon_ml_torch.cli.game_training_driver import _close_journal, _install_ledger
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.io.model_io import DEFAULT_COMPACT_RE_THRESHOLD
 from photon_ml_torch.io.partitioned_reader import read_partitioned
 from photon_ml_torch.telemetry import (
     RunJournal,
     Tracer,
+    current_ledger,
     flush_trace_best_effort,
     install_tracer,
     uninstall_tracer,
@@ -135,6 +139,14 @@ class _SwapPoller(threading.Thread):
                 self._journal.record("model_swap", dir=name, applied=True)
 
 
+def _score_compiles(ledger) -> int:
+    """Compiles (captures and builds) the ledger counted under
+    ``serve/score``; 0 without a ledger."""
+    if ledger is None:
+        return 0
+    return ledger.snapshot().get("serve/score", {}).get("compiles", 0)
+
+
 def _parse_shapes(spec: str) -> tuple[int, ...]:
     try:
         shapes = tuple(int(s) for s in spec.split(",") if s.strip())
@@ -191,7 +203,7 @@ def run(
 
     telemetry_dir: a JSONL run journal (the serving summary, the ``serve/*``
     counters and the latency histogram in the registry's snapshot, phase
-    timings), written on success and on failure. trace_dir: the span
+    timings, the program ledger's rows), written on success and on failure. trace_dir: the span
     timeline (``serve/batch``, ``serve/score`` and the phases).
     """
     if swap_poll_ms > 0 and swap_at_request is not None:
@@ -208,6 +220,9 @@ def run(
     reset_serving_metrics()
     device = resolve_device(device)
     journal = RunJournal(telemetry_dir) if telemetry_dir else None
+    # every capture (a compile of the port) arrives with its attributed
+    # cause: the program_recompile row naming the changed input leaves
+    ledger = _install_ledger(journal)
     tracer = install_tracer(Tracer()) if trace_dir else None
     try:
         summary = _run_inner(
@@ -231,7 +246,7 @@ def run(
                                         journal=journal)
             finally:
                 uninstall_tracer()
-        _close_journal(journal)
+        _close_journal(journal, ledger)
 
 
 def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, index_maps_dir,
@@ -286,7 +301,10 @@ def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, in
     logger.info("replaying %d requests (%d rows) through shapes %s", len(requests), total_rows,
                 shapes)
 
+    ledger = current_ledger()
     scorer = ResidentScorer(model, shapes=shapes, bf16=bf16)
+    if ledger is not None:
+        ledger.set_phase("warm")
     with Timed("warm capture"):
         scorer.warm(requests[0])
     warm_captures = scorer.captures
@@ -328,6 +346,9 @@ def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, in
         # the baseline's counters are not the service's
         serving_counters.reset_serving_metrics()
 
+    if ledger is not None:
+        # a capture from here on is the replay's, not the warm-up's
+        ledger.set_phase("replay")
     replay_start = scorer.captures
     swap_info = None
     with Timed("batched replay"):
@@ -346,8 +367,10 @@ def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, in
                 futures = []
                 for i, r in enumerate(requests):
                     if swap_model is not None and i == swap_at_request:
-                        # the in-place swap while the consumer keeps draining
-                        before = scorer.captures
+                        # the in-place swap while the consumer keeps draining;
+                        # a same-layout swap captures nothing, by the
+                        # scorer's count and by the ledger's serve/score
+                        before = (scorer.captures, _score_compiles(ledger))
                         server.swap_model(swap_model)
                         swap_info = {"performed": True, "at_request": i,
                                      "_captures_before": before}
@@ -365,8 +388,10 @@ def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, in
         swap_info = {"mode": "poll", "poll_ms": swap_poll_ms, "polls": poller.polls,
                      "applied": list(poller.applied), "rejected": list(poller.rejected)}
     if swap_info is not None and "mode" not in swap_info:
-        swap_info["score_compiles_after_swap"] = \
-            scorer.captures - swap_info.pop("_captures_before")
+        captures, compiles = swap_info.pop("_captures_before")
+        # the larger of the two counts, so neither can hide a capture
+        swap_info["score_compiles_after_swap"] = max(
+            scorer.captures - captures, _score_compiles(ledger) - compiles)
 
     latency = serving_counters.latency_summary()
     summary = {
@@ -387,8 +412,9 @@ def _run_inner(*, requests_avro, model_input_dir, output_dir, feature_shards, in
         "replay_compiles": scorer.captures - replay_start,
         # every submitted request resolved above, so none was dropped
         "swap": swap_info,
-        # the program ledger is ROADMAP.md item 19, step 2
-        "program_compiles": None,
+        # the program ledger's per-label accounting (None without
+        # --telemetry-dir); its rows in the journal carry the attribution
+        "program_compiles": None if ledger is None else ledger.snapshot(),
     }
     with open(os.path.join(output_dir, "serving-summary.json"), "w") as f:
         json.dump(_json_safe(summary), f, indent=2, default=float)

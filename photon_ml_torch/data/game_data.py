@@ -66,7 +66,7 @@ class GameDataset:
     ids: dict = dataclasses.field(default_factory=dict)
     #: host copies kept by build_game_dataset so bucketing never pulls
     #: device tensors back
-    host_cache: dict = dataclasses.field(default_factory=dict)
+    host_cache: dict = dataclasses.field(default_factory=dict, compare=False)
     #: per sparse shard, its training batch built once (the layout does not
     #: depend on the offsets)
     _sparse_batches: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)

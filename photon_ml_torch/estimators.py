@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+from functools import partial
 from typing import Callable, Mapping, Sequence
 
 import numpy as np
@@ -86,6 +87,7 @@ from photon_ml_torch.optim.optimizer import (
     solve,
 )
 from photon_ml_torch.projector.projectors import ProjectorType
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 from photon_ml_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -843,6 +845,30 @@ def train_glm(
     return models
 
 
+@partial(ledger_call, label="glm/grid_solve", static_argnums=(0, 1, 2))
+def _grid_solve(objective, use_owlqn: bool, optimizer: OptimizerConfig, batch, l2v, l1v,
+                tolerance, w0v, bounds=None):
+    """Every λ lane's solve at once (``lane_search.solve_lanes``)."""
+    from photon_ml_torch.algorithm.lane_search import solve_lanes
+
+    return solve_lanes(objective, use_owlqn, optimizer, batch, l2v, l1v, tolerance, w0v,
+                       bounds)
+
+
+@partial(ledger_call, label="glm/grid_diagonals", static_argnums=(0,))
+def _grid_diagonals(objective, batch, w: torch.Tensor, l2) -> torch.Tensor:
+    """One λ lane's Hessian diagonal with its L2 term."""
+    return objective.hessian_diagonal(w, batch) + l2
+
+
+@partial(ledger_call, label="glm/grid_full_variances", static_argnums=(0,))
+def _grid_full_variances(objective, batch, w: torch.Tensor, l2) -> torch.Tensor:
+    """One λ lane's diag(H⁻¹) (DistributedOptimizationProblem.scala:82-96)."""
+    h = objective.hessian_matrix(w, batch)
+    h = h + l2 * torch.eye(h.shape[0], dtype=h.dtype, device=h.device)
+    return diag_inverse_from_hessian(h)
+
+
 def train_glm_grid(
     batch: LabeledPointBatch | SparseLabeledPointBatch,
     task: TaskType,
@@ -878,8 +904,6 @@ def train_glm_grid(
     The λ-only case of the configuration tournaments
     (``algorithm/lane_search.py``); a uniform tournament is bitwise this.
     """
-    from photon_ml_torch.algorithm.lane_search import solve_lanes
-
     _require_batch(batch)
     optimizer = resolve_auto_optimizer(optimizer or OptimizerConfig())
     if optimizer.optimizer_type not in (OptimizerType.LBFGS, OptimizerType.OWLQN):
@@ -913,7 +937,7 @@ def train_glm_grid(
         bounds = (-inf if lower_bounds is None else lanes(lower_bounds),
                   inf if upper_bounds is None else lanes(upper_bounds))
     w0 = torch.zeros((len(lams), batch.dim), dtype=dtype, device=device)
-    results = solve_lanes(objective, use_owlqn, optimizer, batch, l2s, l1s,
+    results = _grid_solve(objective, use_owlqn, optimizer, batch, l2s, l1s,
                           optimizer.tolerance, w0, bounds)
     if telemetry is not None:
         telemetry.record_lanes("glm-grid", results, keys=[{"lambda": lam} for lam in lams])
@@ -923,12 +947,11 @@ def train_glm_grid(
         w = results.coefficients[i]
         variances = None
         if resolved_variance == "full":
-            h = objective.hessian_matrix(w, batch)
-            h = h + l2s[i] * torch.eye(h.shape[0], dtype=h.dtype, device=h.device)
-            variances = norm.variances_to_model_space(diag_inverse_from_hessian(h))
+            variances = norm.variances_to_model_space(
+                _grid_full_variances(objective, batch, w, l2s[i]))
         elif resolved_variance is not None:
             variances = norm.variances_to_model_space(
-                inverse_of_diagonal(objective.hessian_diagonal(w, batch) + l2s[i]))
+                inverse_of_diagonal(_grid_diagonals(objective, batch, w, l2s[i])))
         models[lam] = GeneralizedLinearModel(
             Coefficients(means=norm.to_model_space(w, intercept_index), variances=variances),
             task)

@@ -98,6 +98,21 @@ class GLMObjective:
         self.kernel_unit = kernel_unit
         self.kernel_aux = kernel_aux
 
+    # Value-based identity (the JAX package's): a program label's signature
+    # describes a static objective by its hash, so an objective rebuilt each
+    # sweep with the same settings is the same program. Normalization
+    # contexts hold tensors, so they compare by object identity;
+    # coordinates build theirs once.
+    def _key(self):
+        return (type(self.loss), self.l2_weight, id(self.normalization), self.use_kernel,
+                self.kernel_unit, self.kernel_aux)
+
+    def __eq__(self, other):
+        return isinstance(other, GLMObjective) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
     # -- core scalar function ------------------------------------------------
 
     def margins(self, coefficients: torch.Tensor, batch: LabeledPointBatch) -> torch.Tensor:

@@ -96,6 +96,16 @@ class SparseGLMObjective:
         self.normalization = normalization if normalization is not None else no_normalization()
         self.use_kernel = use_kernel
 
+    # value-based identity, as GLMObjective's (GLMObjective._key)
+    def _key(self):
+        return (type(self.loss), self.l2_weight, id(self.normalization), self.use_kernel)
+
+    def __eq__(self, other):
+        return isinstance(other, SparseGLMObjective) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
     # -- core scalar function ------------------------------------------------
 
     def _product(self, v: torch.Tensor, batch: SparseLabeledPointBatch) -> torch.Tensor:

@@ -166,6 +166,7 @@ from photon_ml_torch.parallel.sharded_dense import (
 )
 from photon_ml_torch.projector.projectors import ProjectorType
 from photon_ml_torch.resilience import recovery
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 from photon_ml_torch.types import TaskType
 
 @dataclasses.dataclass
@@ -579,6 +580,32 @@ class GameTrainProgram:
                     loss, mesh, l2_weight=s.l2_weight,
                     normalization=extra_fe_normalizations.get(s.feature_shard_id),
                     use_kernel=use_kernel_fe)
+        # program labels (telemetry/program_ledger.py): the whole sweep and
+        # the validation score; the sweep's pieces each under its own label,
+        # observed where the JAX package dispatches them on their own (the
+        # scheduled sweep): inside "train/step" they are part of its call
+        self._step = ledger_call(self._step_impl, label="train/step")
+        self._score = ledger_call(self._score_impl, label="train/score")
+        self._pieces = {
+            "scores": ledger_call(self._coordinate_scores, label="train/sched_scores"),
+            "fe_solve": ledger_call(self._solve_primary_fe, label="train/sched_fe_solve"),
+            "fe_margin": ledger_call(self._fe_margin_score, label="train/sched_fe_margin"),
+            "extra_fe_solve": ledger_call(self._solve_extra_fe,
+                                          label="train/sched_extra_fe_solve",
+                                          static_argnums=(1,)),
+            "extra_fe_margin": ledger_call(self._extra_fe_margin,
+                                           label="train/sched_extra_fe_margin",
+                                           static_argnums=(1,)),
+            "re_solve": ledger_call(self._solve_re, label="train/sched_re_solve",
+                                    static_argnums=(2,)),
+            "re_score": ledger_call(self._re_coordinate_score, label="train/sched_re_score",
+                                    static_argnums=(1, 3)),
+            "mf_solve": ledger_call(self._solve_mf, label="train/sched_mf_solve",
+                                    static_argnums=(2,)),
+            "offsets": ledger_call(self._sum_scores, label="train/sched_offsets",
+                                   static_argnums=(2,)),
+            "loss": ledger_call(self._weighted_loss, label="train/sched_loss"),
+        }
 
     def fe_coefficients_model_space(self, state: GameTrainState,
                                     intercept_index: int | None = None) -> torch.Tensor:
@@ -862,6 +889,9 @@ class GameTrainProgram:
     def step(self, data, buckets, state: GameTrainState):
         """One full CD sweep. Returns (new_state, training_loss), the loss a
         0-dim tensor on the device."""
+        return self._step(data, buckets, state)
+
+    def _step_impl(self, data, buckets, state: GameTrainState):
         return self._sweep(data, buckets, state)
 
     def step_scheduled(self, data, buckets, state: GameTrainState, *,
@@ -884,13 +914,14 @@ class GameTrainProgram:
         labels, weights = data["labels"], data["weights"]
         base_offsets = data["offsets"]
         layout: MeshLayout | None = data.get("mesh")
+        f = self._pieces
         # `scores` holds each coordinate's score at its LATEST coefficients,
         # so a coordinate solved later in the sweep sees the residuals of
         # the ones already updated
-        scores = self._coordinate_scores(data, state)
+        scores = f["scores"](data, state)
 
         def offsets_excluding(skip=None):
-            return self._sum_scores(base_offsets, scores, skip)
+            return f["offsets"](base_offsets, scores, skip)
 
         fe_w = state.fe_coefficients
         extra_fe = dict(state.extra_fe)
@@ -900,35 +931,35 @@ class GameTrainProgram:
         for name in self.update_order:
             kind = self._kind[name]
             if kind == "fe":
-                fe_w = self._solve_primary_fe(data, offsets_excluding(name), weights, fe_w)
-                scores[name] = self._fe_margin_score(data, fe_w)
+                fe_w = f["fe_solve"](data, offsets_excluding(name), weights, fe_w)
+                scores[name] = f["fe_margin"](data, fe_w)
             elif kind == "extra_fe":
-                extra_fe[name] = self._solve_extra_fe(data, name, offsets_excluding(name),
-                                                      labels, weights, extra_fe[name])
-                scores[name] = self._extra_fe_margin(data, name, extra_fe[name])
+                extra_fe[name] = f["extra_fe_solve"](data, name, offsets_excluding(name),
+                                                     labels, weights, extra_fe[name])
+                scores[name] = f["extra_fe_margin"](data, name, extra_fe[name])
             elif kind == "re":
                 full_offsets = offsets_excluding(name)
                 if layout is not None:
                     full_offsets = layout.gather(full_offsets)
                 scheduler = (schedulers or {}).get(name)
                 if scheduler is None:
-                    tables[name] = self._solve_re(data, buckets, name, full_offsets,
-                                                  tables[name], layout)
+                    tables[name] = f["re_solve"](data, buckets, name, full_offsets,
+                                                 tables[name], layout)
                 else:
                     tables[name] = self._solve_re_scheduled(buckets, name, full_offsets,
                                                             tables[name], layout, scheduler,
                                                             final_sweep)
                 if layout is not None and name not in layout.per_bucket:
                     tables[name] = layout.share(name, tables[name])
-                scores[name] = self._re_coordinate_score(
+                scores[name] = f["re_score"](
                     data, name, tables[name], self._re_by_name[name].feature_shard_id)
             else:  # mf
                 full_offsets = offsets_excluding(name)
                 if layout is not None:
                     full_offsets = layout.gather(full_offsets)
-                mf_rows[name], mf_cols[name], scores[name] = self._solve_mf(
+                mf_rows[name], mf_cols[name], scores[name] = f["mf_solve"](
                     data, buckets, name, full_offsets, mf_rows[name], mf_cols[name])
-        train_loss = self._weighted_loss(labels, weights, offsets_excluding(), layout)
+        train_loss = f["loss"](labels, weights, offsets_excluding(), layout)
         new_state = GameTrainState(fe_coefficients=fe_w, re_tables=tables, mf_rows=mf_rows,
                                    mf_cols=mf_cols, extra_fe=extra_fe,
                                    fe_columns=state.fe_columns)
@@ -967,6 +998,9 @@ class GameTrainProgram:
         """[n] total scores (margins including the data offsets) at ``state``
         (reference GameModel.scoreAndValidate, CoordinateDescent.scala:291-356);
         over a mesh, the scores of this rank's rows."""
+        return self._score(data, state)
+
+    def _score_impl(self, data, state: GameTrainState) -> torch.Tensor:
         total = data["offsets"]
         for v in self._coordinate_scores(data, state).values():
             total = total + v

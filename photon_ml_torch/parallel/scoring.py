@@ -41,6 +41,7 @@ from photon_ml_torch.models.game import (
 from photon_ml_torch.models.matrix_factorization import MatrixFactorizationModel
 from photon_ml_torch.ops import sparse_gather
 from photon_ml_torch.parallel import mesh as mesh_ops
+from photon_ml_torch.telemetry.program_ledger import ledger_call
 
 #: the floor of a flat entry axis's power-of-two length in the resident
 #: program: tiny requests share one signature instead of one each
@@ -151,6 +152,9 @@ class DistributedScorer:
             mesh_ops.check_data_mesh(mesh)
         self.model = model
         self.mesh = mesh
+        # the batch scoring program's label (telemetry/program_ledger.py):
+        # data and parameters both enter as arguments
+        self._score_prepared = ledger_call(self._score_program, label="score/score_dataset")
         self._kinds = _model_kinds(model)
         fe_cids = [c for c, k in self._kinds.items() if k == "fe"]
         if fe_feature_sharded is True:
@@ -441,8 +445,9 @@ class DistributedScorer:
 
     # -- scoring -------------------------------------------------------------
 
-    def _score_prepared(self, data, params) -> torch.Tensor:
-        """This rank's scores, offsets included."""
+    def _score_program(self, data, params) -> torch.Tensor:
+        """This rank's scores, offsets included (``self._score_prepared`` is
+        this under its program label)."""
         dataset = data["dataset"]
         block = data.get("fe_block")
         total = None

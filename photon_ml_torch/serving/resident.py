@@ -36,6 +36,12 @@ kernel each entry axis takes and whether it has a chunk plan), not from the
 counters' change across the capture, so launches another thread makes
 meanwhile are not taken into the graph's count.
 
+Each capture is a compile of the port (``telemetry/probes.record_compile``,
+with its seconds and the bytes its graph's pool reserved), and each
+micro-batch runs under the program label ``serve/score``
+(``telemetry/program_ledger.ledger_call``): with a ledger installed, a
+capture after the first journals the input leaves whose shapes changed.
+
 A hot swap (:meth:`ResidentScorer.swap_model`) copies the new parameters
 into the resident buffers, so every captured graph scores the new model and
 no new capture is made. One lock covers both a micro-batch's "assemble,
@@ -57,6 +63,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import torch
@@ -74,7 +81,8 @@ from photon_ml_torch.models.game import (
 )
 from photon_ml_torch.ops import sparse_gather
 from photon_ml_torch.parallel.scoring import MIN_NNZ_BUCKET, DistributedScorer
-from photon_ml_torch.telemetry import serving_counters, tracing
+from photon_ml_torch.telemetry import probes, serving_counters, tracing
+from photon_ml_torch.telemetry.program_ledger import current_ledger, ledger_call
 
 __all__ = ["DEFAULT_MICROBATCH_SHAPES", "MIN_NNZ_BUCKET", "ModelSwapError", "ResidentScorer"]
 
@@ -181,6 +189,10 @@ class ResidentScorer:
                         f"data axis {data_axis}"
                     )
         self._scorer = DistributedScorer(model)
+        # the "serve/score" program label: with a ProgramLedger installed,
+        # every capture (a compile of the port) journals its signature and,
+        # after the first, the leaves that changed
+        self._program = ledger_call(self._run, label="serve/score", static_argnums=(3, 4, 5))
         self.model = model
         self.shapes = shapes
         self.bf16 = bool(bf16)
@@ -219,6 +231,11 @@ class ResidentScorer:
                 ) from e
             self.model = new_model
         serving_counters.record_model_swap()
+        ledger = current_ledger()
+        if ledger is not None:
+            # a same-layout swap captures nothing, so the label's memory
+            # forecast is priced again by hand from the resident bytes
+            ledger.refeed_resident_forecast("serve/score")
 
     # -- scoring -------------------------------------------------------------
 
@@ -244,21 +261,30 @@ class ResidentScorer:
             inputs, layouts, entry_sig = self._scorer.resident_inputs(dataset, bucket,
                                                                       bf16=self.bf16)
             params = self._scorer.resident_params(layouts, bf16=self.bf16)
-            sig = (bucket, tuple(sorted(layouts.items())), entry_sig)
-            self._signatures.add(sig)
-            if self.device.type == "cuda":
-                out = self._replay(sig, inputs, layouts, params, bucket)
-            else:
-                tensors = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dt)
-                           for k, (a, dt) in inputs.items()}
-                out = self._scorer.score_resident(layouts, tensors, params, bucket,
-                                                  {cid: c for cid, _, _, c in entry_sig})
+            self._signatures.add((bucket, tuple(sorted(layouts.items())), entry_sig))
+            arrays = {k: a for k, (a, _) in inputs.items()}
+            dtypes = tuple(sorted((k, dt) for k, (_, dt) in inputs.items()))
+            out = self._program(arrays, layouts, params, bucket, entry_sig, dtypes)
             scores = out[:n].detach().cpu().numpy()
         serving_counters.set_compiled_signatures(len(self._signatures))
         serving_counters.record_scored(rows=n, padded_rows=bucket - n)
         if self.bf16 and scores.dtype != np.float32:
             scores = scores.astype(np.float32)
         return scores
+
+    def _run(self, arrays, layouts, params, bucket, entry_sig, dtypes) -> torch.Tensor:
+        """One micro-batch's program (the ``serve/score`` label): on the card
+        the replay of its signature's graph, captured first if it is new;
+        on the CPU the eager program. ``dtypes`` holds each input's torch
+        dtype, (name, dtype) pairs: a static argument of the label."""
+        inputs = {k: (arrays[k], dt) for k, dt in dtypes}
+        if self.device.type == "cuda":
+            sig = (bucket, tuple(sorted(layouts.items())), entry_sig)
+            return self._replay(sig, inputs, layouts, params, bucket)
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dt)
+                   for k, (a, dt) in inputs.items()}
+        return self._scorer.score_resident(layouts, tensors, params, bucket,
+                                           {cid: c for cid, _, _, c in entry_sig})
 
     def _replay(self, sig, inputs, layouts, params, bucket) -> torch.Tensor:
         entry = self._graphs.get(sig)
@@ -274,7 +300,10 @@ class ResidentScorer:
     def _capture(self, inputs, layouts, params, bucket, entry_sig) -> _Graph:
         """Static input buffers holding this micro-batch, one eager run on a
         side stream (it initializes the libraries the program calls), then
-        the capture."""
+        the capture. The whole of it is one compile event of its host
+        seconds, with the bytes the graph's memory pool reserved
+        (``telemetry/probes.record_compile``)."""
+        t0 = time.perf_counter()
         dev = self.device
         counts = {cid: count for cid, _, _, count in entry_sig}
         static = {k: torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dt)
@@ -285,11 +314,14 @@ class ResidentScorer:
             self._scorer.score_resident(layouts, static, params, bucket, counts)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        reserved = torch.cuda.memory_reserved(dev)
         with torch.cuda.graph(graph):
             out = self._scorer.score_resident(layouts, static, params, bucket, counts)
+        pool = torch.cuda.memory_reserved(dev) - reserved
         recorded = _graph_launches(layouts, entry_sig, params, bucket)
         _add_counts(recorded, -1)  # recorded into the graph, not launched
         self.captures += 1
+        probes.record_compile(time.perf_counter() - t0, pool_bytes=max(pool, 0))
         return _Graph(graph=graph, inputs=static, out=out, launches=recorded)
 
     def warm(self, example: GameDataset) -> int:

@@ -1,14 +1,16 @@
 """Structured run telemetry (the port's own copies): the metrics registry,
-the JSONL run journal, span tracing, solver convergence telemetry and the
+the JSONL run journal, span tracing, solver convergence telemetry, the
 counters the I/O, streaming, resilience, layout, serving and refresh layers
-feed.
+feed, the device and compile probes, the program ledger, and the verdicts
+and bench history that judge a run.
 
 Counterpart of ``photon_ml_tpu/telemetry``; reference the PhotonLogger /
 OptimizationStatesTracker / PhotonOptimizationLogEvent triple (photon-lib
 util/PhotonLogger.scala:34-90, OptimizationStatesTracker.scala:82-101,
-photon-client event/ emitted from Driver.scala:120-393). The JAX package's
-program ledger, probes, verdicts and bench history are ROADMAP.md item 19,
-step 2.
+photon-client event/ emitted from Driver.scala:120-393). The ledger and the
+probes keep the JAX package's names (``jax/backend_compile_count``,
+``xla/<label>/...``); in the port a compile is a kernel or host-library build
+or a CUDA graph capture.
 """
 
 from photon_ml_torch.telemetry import serving_counters
@@ -23,6 +25,27 @@ from photon_ml_torch.telemetry.layout import (
     LAYOUT_METRIC_PREFIX,
     record_hybrid_layout,
     reset_layout_metrics,
+)
+from photon_ml_torch.telemetry.probes import (
+    GATE_REPS,
+    CompileMonitor,
+    MarginalResult,
+    MarginalTimer,
+    compile_count,
+    install_compile_listener,
+    live_buffer_bytes,
+    median_spread,
+    read_scalar,
+    scan_step_marginal,
+    stream_calibration,
+)
+from photon_ml_torch.telemetry.program_ledger import (
+    ProgramLedger,
+    current_ledger,
+    install_ledger,
+    ledger_active,
+    ledger_call,
+    uninstall_ledger,
 )
 from photon_ml_torch.telemetry.registry import (
     Counter,
@@ -74,6 +97,23 @@ __all__ = [
     "LAYOUT_METRIC_PREFIX",
     "record_hybrid_layout",
     "reset_layout_metrics",
+    "GATE_REPS",
+    "CompileMonitor",
+    "MarginalResult",
+    "MarginalTimer",
+    "compile_count",
+    "install_compile_listener",
+    "live_buffer_bytes",
+    "median_spread",
+    "read_scalar",
+    "scan_step_marginal",
+    "stream_calibration",
+    "ProgramLedger",
+    "current_ledger",
+    "install_ledger",
+    "ledger_active",
+    "ledger_call",
+    "uninstall_ledger",
     "Counter",
     "Gauge",
     "Histogram",

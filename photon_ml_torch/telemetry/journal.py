@@ -211,6 +211,12 @@ class RunJournal:
         if registry is not None:
             snap = registry.snapshot()
             counters = {str(k): int(v) for k, v in (snap.get("counters") or {}).items()}
+            # the absolute compile count (builds and graph captures): the
+            # delta alone cannot show a storm's course across heartbeats
+            from photon_ml_torch.telemetry.probes import COMPILE_COUNT_METRIC
+
+            if COMPILE_COUNT_METRIC in counters:
+                fields["compiles"] = counters[COMPILE_COUNT_METRIC]
             deltas = {k: v - self._hb_counters.get(k, 0) for k, v in counters.items()
                       if v != self._hb_counters.get(k, 0)}
             self._hb_counters = counters

@@ -26,6 +26,8 @@ from photon_ml_torch.io import index_map as tindex
 from photon_ml_torch.io import photon_schemas as tschemas
 from tests import torch_driver_parity as P
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 SHARDS = {"global": ("features",), "userShard": ("userFeatures",),
           "songShard": ("songFeatures",)}
 

@@ -25,6 +25,8 @@ from photon_ml_torch.io import avro_native as av
 from photon_ml_torch.io import data_reader as treader
 from photon_ml_torch.io import photon_schemas as schemas
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 SCHEMA = {
     "name": "NativeAvroTestRecord",
     "type": "record",

@@ -35,6 +35,8 @@ from tests import torch_mesh_worker as W
 from tests import torch_partitioned_parity as PP
 from tests.torch_game_parity import assert_models_close, datasets, estimator_pair, game_arrays
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _arrays(seed=0):
     rng = np.random.default_rng(seed)

@@ -33,6 +33,8 @@ from photon_ml_torch.data.sparse_batch import HybridPolicy, SparseShard
 from photon_ml_torch.parallel import column_sharded as tcs
 from tests import torch_mesh_worker as W
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 L2 = 0.4
 WORLDS = (2, 4)
 

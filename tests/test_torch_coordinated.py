@@ -36,6 +36,8 @@ from photon_ml_torch.resilience import (
     run_with_recovery,
 )
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 NUM_RANKS = 2
 
 #: (InProcessExchange, ExchangeTimeout, PeerAbort) of each package

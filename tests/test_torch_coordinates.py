@@ -22,6 +22,8 @@ from photon_ml_torch.types import TaskType as TTask
 from tests.torch_game_parity import datasets, game_arrays, optimizer_pair
 from tests.torch_parity import normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _configs(kind, iterations, tolerance=1e-7, **kw):
     jopt, topt = optimizer_pair(kind, iterations, tolerance=tolerance)

@@ -13,6 +13,8 @@ from photon_ml_tpu.util import date_range as jdr
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration, read_merged
 from photon_ml_torch.util import date_range as tdr
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.mark.parametrize("spec", ["20260101-20260103", "20251230-20260102", "20240228-20240301"])
 def test_date_range_parse_and_dates(spec):

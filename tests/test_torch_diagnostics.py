@@ -35,6 +35,8 @@ from photon_ml_tpu.optim.optimizer import OptimizerConfig as JOpt
 from photon_ml_tpu.types import TaskType as JTask
 from tests import torch_parity as P
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 # the package namespaces re-export functions of these modules' names
 t_imp = importlib.import_module("photon_ml_torch.diagnostics.feature_importance")
 t_hl = importlib.import_module("photon_ml_torch.diagnostics.hosmer_lemeshow")

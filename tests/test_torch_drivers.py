@@ -26,6 +26,8 @@ from photon_ml_torch.cli import glm_driver as tglm
 from photon_ml_torch.io.model_io import read_scores
 from tests import torch_driver_parity as P
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 #: configuration -> (extra arguments, frozen bound of tests/test_driver_integ.py)
 CONFIGS = {
     "fixed-effect-only": (P.FE_ARGS, 2.1),

@@ -17,6 +17,8 @@ from photon_ml_torch.ops import fused_glm
 from photon_ml_torch.ops.losses import LogisticLoss
 from tests.torch_parity import LOSSES, NORMS, batches, loss_pair, make_data, normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.mark.parametrize("norm", NORMS)
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])

@@ -18,6 +18,8 @@ from photon_ml_torch.parallel import distributed as tdist
 from tests.torch_fused_parity import CASES, assert_states_close, run
 from tests.torch_game_parity import assert_models_close
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.mark.parametrize("name", CASES)
 def test_fused_sweeps_match_the_jax_program(name):

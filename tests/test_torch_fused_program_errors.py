@@ -29,6 +29,8 @@ from tests.torch_fused_parity import sparse_shards
 from tests.torch_game_parity import game_arrays, optimizer_pair
 from tests.torch_parity import normalizations
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 SIDES = {"jax": (jdist, jgd, JTask, JProj, 0), "torch": (tdist, tgd, TTask, TProj, 1)}
 
 

@@ -16,6 +16,8 @@ from photon_ml_torch.sampling import down_sampler as tds
 from photon_ml_torch.types import TaskType as TTask
 from tests.torch_game_parity import datasets, game_arrays
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _assert_dataset_equal(jd, td):
     for name in ("labels", "offsets", "weights"):

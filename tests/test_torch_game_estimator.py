@@ -31,6 +31,8 @@ from tests.torch_game_parity import (
     projected_arrays,
 )
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.mark.parametrize("lanes", ["LBFGS", "NEWTON", "AUTO"])
 @pytest.mark.parametrize("norm", ["NONE", "STANDARDIZATION"])

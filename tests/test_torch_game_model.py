@@ -18,6 +18,8 @@ from photon_ml_torch.models import game as tgame
 from photon_ml_torch.types import TaskType as TTask
 from tests.torch_game_parity import datasets, game_arrays, model_to_plain
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _models(jd, seed=0, variances=False):
     rng = np.random.default_rng(seed)

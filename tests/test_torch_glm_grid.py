@@ -28,6 +28,8 @@ from photon_ml_torch.types import TaskType as TTask
 from tests.test_torch_sparse_objective import batch_pair, sparse_problem
 from tests.torch_parity import batches, make_data, normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 RTOL = 1e-8
 LAMBDAS = (0.03, 0.3, 3.0, 30.0)
 D = 6

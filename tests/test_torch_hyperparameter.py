@@ -27,6 +27,8 @@ from photon_ml_torch.types import TaskType as TTask
 from tests.torch_game_parity import datasets, estimator_pair, game_arrays
 from tests.torch_parity import batches, make_data, normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _points(seed=0, n=9, d=3):
     rng = np.random.default_rng(seed)

@@ -18,6 +18,8 @@ from photon_ml_torch.io import paldb as tpaldb
 from tests.test_paldb import GAME_INDEXES, HEART, HEART_ICPT, REF
 from tests.torch_paldb_writer import serialize, write_store
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.fixture(scope="module")
 def keys():

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "photon_ml_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "photon_ml_tpu")
@@ -64,7 +66,11 @@ def test_importing_every_port_module_loads_no_jax():
             # diagnostics, the run journal, tracing, solver telemetry, events
             "photon_ml_torch.diagnostics.report_builder", "photon_ml_torch.telemetry.journal",
             "photon_ml_torch.telemetry.tracing", "photon_ml_torch.telemetry.solver_trace",
-            "photon_ml_torch.util.events"} <= set(mods)
+            "photon_ml_torch.util.events",
+            # the program ledger, the probes, the verdicts and the bench history
+            "photon_ml_torch.telemetry.program_ledger", "photon_ml_torch.telemetry.probes",
+            "photon_ml_torch.telemetry.verdicts",
+            "photon_ml_torch.telemetry.bench_history"} <= set(mods)
     # the mesh tests' rank processes import the port only
     mods = mods + ["tests.torch_mesh_worker"]
     script = (

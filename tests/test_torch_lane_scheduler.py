@@ -28,6 +28,8 @@ from photon_ml_torch.types import TaskType as TTask
 from tests.torch_game_parity import datasets, game_arrays, optimizer_pair, projected_arrays
 from tests.torch_parity import to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 RTOL = 1e-8
 
 

@@ -23,6 +23,8 @@ from tests.torch_game_parity import optimizer_pair
 from tests.torch_lane_parity import assert_lanes_equal, bucket, objectives, solve_both
 from tests.torch_parity import LOSSES, batches, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.mark.parametrize("norm", ["NONE", "STANDARDIZATION"])
 @pytest.mark.parametrize("loss_name", [name for name, _ in LOSSES])

@@ -16,6 +16,8 @@ from photon_ml_tpu.optim.owlqn import minimize_owlqn as jminimize_owlqn
 from photon_ml_torch.optim.lanes import minimize_lbfgs_lanes
 from photon_ml_torch.optim.owlqn import minimize_owlqn_lanes
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 TOL = 1e-10
 
 

@@ -11,6 +11,8 @@ from photon_ml_torch.ops.losses import loss_for_task
 from photon_ml_torch.types import TaskType
 from tests.torch_parity import LOSSES, loss_pair
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 # margins across the range, with |z| > 20 (where a thresholded softplus
 # would return z itself) and the hinge's t = 0 and t = 1 boundaries exactly
 MARGINS = np.concatenate([

@@ -29,6 +29,8 @@ from tests import torch_driver_parity as P
 from tests import torch_mesh_parity as MP
 from tests import torch_mesh_worker as W
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 LBFGS20 = ("LBFGS", 20, {})
 FE = dict(kind="fe", shard="global", opt=LBFGS20, l2=1.0)
 RE = dict(kind="re", type="user", shard="per_entity", opt=LBFGS20, l2=1.0)

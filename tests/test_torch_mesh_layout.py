@@ -39,6 +39,8 @@ from photon_ml_torch.types import TaskType
 from tests import torch_mesh_parity as MP
 from tests import torch_mesh_worker as W
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 OPT = OptimizerConfig(OptimizerType.LBFGS, max_iterations=10)
 
 

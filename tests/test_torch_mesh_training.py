@@ -29,6 +29,8 @@ from photon_ml_torch.types import TaskType as TTask
 from tests import torch_mesh_parity as MP
 from tests import torch_mesh_worker as W
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 LBFGS = ("LBFGS", 10, {})
 
 

@@ -41,6 +41,8 @@ from tests.torch_game_parity import (
 from tests.torch_lane_parity import assert_lanes_equal
 from tests.torch_parity import loss_pair
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _mf_problem(rng, n=600, n_rows=12, n_cols=9, k=2, noise=0.05):
     """Low-rank regression data: y = u_r . v_c + noise."""

@@ -29,6 +29,8 @@ from tests import torch_mesh_parity as MP
 from tests import torch_mesh_worker as W
 from tests import torch_model_axis_parity as MA
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 LBFGS = ("LBFGS", 10, {})
 SHAPES = {2: (1, 2), 4: (2, 2)}
 

@@ -27,6 +27,8 @@ from tests import torch_mesh_parity as MP
 from tests import torch_mesh_worker as W
 from tests import torch_partitioned_parity as PP
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 SHAPES = {2: (1, 2), 4: (2, 2)}
 CASES = {"dense": dict(num_files=4), "sparse": dict(num_files=4, seed=2)}
 EXTRA = P.FE_ARGS + P.PER_USER_ARGS + ["--coordinate-descent-iterations", "2"]

@@ -31,6 +31,8 @@ from photon_ml_torch.models.glm import GeneralizedLinearModel
 from photon_ml_torch.types import TaskType
 from tests.torch_game_parity import model_to_plain
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 D_FE, D_RE, E, N = 9, 5, 13, 200
 
 

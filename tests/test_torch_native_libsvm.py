@@ -19,6 +19,8 @@ from photon_ml_torch.io.data_reader import (
     records_to_game_dataset,
 )
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 A1A_SNIPPET = """\
 # comment line
 -1 3:1 11:1 14:1 19:1 39:1

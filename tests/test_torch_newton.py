@@ -17,6 +17,8 @@ from tests.torch_game_parity import optimizer_pair
 from tests.torch_lane_parity import assert_lanes_equal, bucket, objectives, solve_both
 from tests.torch_parity import batches, loss_pair, make_data, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _pd_systems(seed, batch, d):
     rng = np.random.default_rng(seed)

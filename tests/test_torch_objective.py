@@ -11,6 +11,8 @@ from photon_ml_torch.ops import fused_glm
 from photon_ml_torch.ops.objective import GLMObjective
 from tests.torch_parity import LOSSES, NORMS, batches, loss_pair, make_data, normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 RTOL = 1e-10
 
 

@@ -37,6 +37,8 @@ from photon_ml_torch.optim.owlqn import minimize_owlqn, pseudo_gradient
 from photon_ml_torch.optim.tron import minimize_tron
 from tests.torch_parity import batches, loss_pair, make_data, normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 RTOL = 1e-8
 
 

@@ -23,6 +23,8 @@ from photon_ml_torch.ops import fused_glm, packed_glm
 from photon_ml_torch.ops.objective import BoundObjective, GLMObjective, PackedBoundObjective
 from tests.torch_parity import LOSSES, NORMS, batches, loss_pair, make_data, normalizations
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 REPO = Path(__file__).resolve().parents[1]
 N, D, TILE = 1024, 128, 256
 

@@ -34,6 +34,8 @@ from photon_ml_torch.parallel.distributed import last_lane_positions
 from tests import torch_mesh_worker as W
 from tests import torch_partitioned_parity as PP
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.mark.parametrize("seed", range(4))
 def test_assign_contiguous_matches_the_jax_package(seed):

@@ -24,6 +24,8 @@ from tests import torch_mesh_parity as MP
 from tests import torch_mesh_worker as W
 from tests import torch_partitioned_parity as PP
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 KINDS = ["dense", "sparse", "hybrid"]
 
 SHARDS = ["--feature-shard-configurations", "name=global,feature.bags=features,intercept=true",

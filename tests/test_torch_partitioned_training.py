@@ -36,6 +36,8 @@ from tests import torch_mesh_parity as MP
 from tests import torch_mesh_worker as W
 from tests import torch_partitioned_parity as PP
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 #: name -> (shard layout, input kwargs, program kwargs, worker extras)
 CASES = {
     "dense": ("dense", dict(num_files=4), dict(),

@@ -28,6 +28,8 @@ from dev import torch_kernel_probe as tkp
 from photon_ml_torch.ops import packed_glm
 from photon_ml_torch.ops.losses import LogisticLoss
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 REPO = Path(__file__).resolve().parents[1]
 N, D = 2048, 128
 PROBE_FILES = {"P1": "kernel_probe", "P2": "kernel_probe2", "P3": "kernel_probe3"}

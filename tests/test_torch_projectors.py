@@ -26,6 +26,8 @@ from photon_ml_torch.types import TaskType as TTask
 from tests.torch_game_parity import datasets, optimizer_pair, projected_arrays
 from tests.torch_parity import normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 NORMS = ["NONE", "SCALE_WITH_STANDARD_DEVIATION", "STANDARDIZATION"]
 
 

@@ -22,6 +22,8 @@ from tests.torch_game_parity import optimizer_pair
 from tests.torch_lane_parity import assert_lanes_equal, bucket, objectives, solve_both
 from tests.torch_parity import LOSSES, batches
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 #: the twice-differentiable losses (TRON's domain)
 SMOOTH = [name for name, _ in LOSSES if name != "SmoothedHingeLoss"]
 

@@ -24,6 +24,8 @@ from photon_ml_torch.io import stream_reader as tsr
 from photon_ml_torch.resilience import recovery
 from tests import torch_driver_parity as P
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.fixture(scope="module")
 def logistic(tmp_path_factory):

@@ -27,6 +27,8 @@ from tests.torch_game_parity import (
     model_to_plain,
 )
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.fixture(scope="module")
 def resident():

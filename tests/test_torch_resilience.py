@@ -18,6 +18,8 @@ from photon_ml_torch.io.stream_reader import (
 )
 from photon_ml_torch.resilience import recovery
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _reference_cases():
     """(id, factory) of every shape the JAX package's tests classify; a

@@ -28,6 +28,8 @@ from photon_ml_torch.types import TaskType as TTask
 from tests.torch_fused_parity import assert_states_close
 from tests.torch_game_parity import game_arrays, optimizer_pair, projected_arrays
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 CASES = {
     "identity-mf": dict(projector="IDENTITY", mf=True),
     "identity-freeze": dict(projector="IDENTITY", freeze=(0.3, 0.3)),

@@ -18,6 +18,8 @@ from photon_ml_torch.cli import game_training_driver as ttrain
 from photon_ml_torch.cli import glm_driver as tglm
 from tests import torch_driver_parity as P
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 @pytest.fixture(scope="module")
 def logistic(tmp_path_factory):

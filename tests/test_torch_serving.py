@@ -45,6 +45,8 @@ from photon_ml_torch.serving import (
 from photon_ml_torch.telemetry import serving_counters
 from tests import torch_parity  # noqa: F401  (the JAX compilation cache's lock)
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 LAYOUTS = ["dense", "ell", "hybrid", "compact", "compact_dense"]
 SHAPES = (8, 32)
 N_USERS, N_ITEMS = 9, 7

@@ -25,6 +25,8 @@ from photon_ml_torch.optim.optimizer import (
 )
 from photon_ml_torch.types import TaskType
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 SOLVERS = [("LBFGS", 0.0, None), ("LBFGSB", 0.0, (-0.5, 0.8)), ("OWLQN", 0.4, None),
            ("TRON", 0.0, None)]
 

@@ -13,6 +13,8 @@ from photon_ml_torch import convert
 from photon_ml_torch.data import sparse_batch as tsb
 from photon_ml_torch.ops import sparse_gather
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 N, D = 48, 37
 #: rows the fixture leaves empty
 EMPTY_ROWS = (0, 5, 11, 12, 47)

@@ -18,6 +18,8 @@ from photon_ml_torch.data import sparse_batch as tsb
 from photon_ml_torch.ops import sparse_gather
 from tests.test_torch_sparse_batch import LAYOUTS, D, N, _policy, coo
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -15,6 +15,8 @@ from photon_ml_torch.ops import sparse_objective as tso
 from tests.test_torch_sparse_batch import D, N, _policy, coo
 from tests.torch_parity import LOSSES, NORMS, loss_pair, normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 RTOL = 1e-10
 
 VIEWS = {

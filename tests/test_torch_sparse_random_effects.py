@@ -42,6 +42,8 @@ from photon_ml_torch.projector.projectors import ProjectorType as TProj
 from photon_ml_torch.types import TaskType as TTask
 from tests.torch_game_parity import assert_models_close, model_to_plain, optimizer_pair
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def sparse_arrays(seed: int = 0, *, n: int = 400, d_re: int = 3000, users: int = 18,
                   support: int = 5, held_out: int = 0, task: str = "LINEAR_REGRESSION"):

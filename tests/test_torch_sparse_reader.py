@@ -22,6 +22,8 @@ from photon_ml_torch.io import data_reader as treader
 from photon_ml_torch.io import index_map as tindex
 from photon_ml_torch.io import libsvm as tlibsvm
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 SCHEMA = {
     "name": "BagsTrainingExampleAvro", "type": "record",
     "fields": [

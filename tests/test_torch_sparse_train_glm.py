@@ -18,6 +18,8 @@ from photon_ml_torch.types import TaskType
 from tests.test_torch_sparse_objective import batch_pair, sparse_problem
 from tests.torch_parity import normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 LAMBDAS = (0.1, 1.0, 20.0)
 D = 37
 

@@ -22,6 +22,8 @@ from photon_ml_torch.io import stream_reader as tsr
 from photon_ml_torch.io.data_reader import FeatureShardConfiguration as TShardCfg
 from tests.torch_driver_parity import make_logistic_records
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 DENSE_FIELDS = ("features", "labels", "offsets", "weights")
 SPARSE_FIELDS = ("values", "col_indices", "row_ids", "labels", "offsets", "weights", "ell_vals",
                  "ell_cols", "hot_vals", "hot_col_ids")

@@ -39,6 +39,8 @@ from photon_ml_torch.optim.optimizer import OptimizerType as TType
 from photon_ml_torch.resilience import recovery
 from photon_ml_torch.types import TaskType as TTask
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 LAMS = (0.3, 3.0)
 
 

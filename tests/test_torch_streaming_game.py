@@ -27,6 +27,8 @@ from photon_ml_torch.io.checkpoint import TrainingCheckpointer
 from photon_ml_torch.resilience import recovery, run_with_recovery
 from tests import torch_streaming_game_parity as SG
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 SWEEPS = 3
 
 

@@ -32,6 +32,8 @@ from photon_ml_torch.resilience import (
 )
 from tests import torch_streaming_game_parity as SG
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 NUM_RANKS = 2
 CHUNK_RECORDS = 40
 SWEEPS = 2

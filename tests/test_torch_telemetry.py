@@ -52,6 +52,8 @@ from photon_ml_tpu.util import events as jev
 from tests.torch_game_parity import datasets, estimator_pair, game_arrays, model_to_plain
 from tests.torch_parity import batches, make_data, normalizations
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 # the util namespaces re-export the decorator ``timed`` under the module's name
 ttimed = importlib.import_module("photon_ml_torch.util.timed")
 jtimed = importlib.import_module("photon_ml_tpu.util.timed")

@@ -5,14 +5,22 @@ package, on the CPU and the fixtures of ``tests/test_torch_drivers.py`` and
 Each driver runs once in each package with ``--telemetry-dir`` and
 ``--trace-dir`` (the GLM driver also with ``--enable-diagnostics
 --num-bootstraps``, the GAME training driver of the port also with
-``--profile-dir``). The journals hold the same row kinds with the same keys
-but for the rows of the program ledger and its probes, which the port adds
-in a later step: the difference is asserted to be exactly that set. The
-JAX package's program ledger needs ``jax.core.trace_state_clean``, which the
-installed JAX lacks, so its ledger is not installed here (its rows are the
-excluded ones). The drivers train in float32, so values hold at the
-drivers' tolerances; the port's outputs with telemetry are bitwise its
-outputs without.
+``--profile-dir``). The journals hold the same row kinds with the same keys,
+the compile-count and live-buffer gauges and the heartbeats' compile count
+included, but for two named differences:
+
+- the program ledger's rows and ``xla/<label>/*`` metrics, which only the
+  port's journal has here: the JAX package's ledger needs
+  ``jax.core.trace_state_clean``, which the installed JAX lacks, so it is
+  not installed; the port's ledger writes a ``program_signature`` row per
+  new signature (nothing compiles on the CPU);
+- the CPU's device memory: the heartbeats' ``hbm_bytes`` and the
+  ``device/live_buffer_bytes`` gauge's value, which the JAX package reads
+  from its live arrays and the port from the CUDA allocator only (None on
+  the CPU).
+
+The drivers train in float32, so values hold at the drivers' tolerances;
+the port's outputs with telemetry are bitwise its outputs without.
 """
 
 import json
@@ -32,14 +40,15 @@ from photon_ml_tpu.cli import glm_driver as jglm
 from photon_ml_tpu.cli import serve_driver as jserve
 from tests import torch_driver_parity as P
 
-#: journal rows and fields only the JAX package writes until the port's
-#: program ledger and probes land: the compile-count and live-buffer gauges
-#: and the heartbeat's compile count; ``hbm_bytes`` is the JAX package's
-#: live device buffers, which the port reports on a CUDA device only
-STEP2_ROWS = {("gauge", "jax/backend_compile_count"), ("gauge", "device/live_buffer_bytes")}
-STEP2_FIELDS = {"compiles"}
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
+#: the heartbeat field only the JAX package writes on the CPU: its live
+#: device buffers, which the port reports on a CUDA device only
 CPU_FIELDS = {"hbm_bytes"}
-STEP2_METRICS = {"jax/backend_compile_count", "jax/backend_compile_seconds"}
+#: the row kinds only the port's ledger writes here (the JAX package's
+#: ledger is not installed; nothing compiles on the CPU, so every new
+#: signature is a signature row)
+LEDGER_ROWS = {"program_signature"}
 STAMPS = {"seq", "ts", "elapsed_ms"}
 EXTRA = P.FE_ARGS + P.PER_USER_ARGS + ["--coordinate-descent-iterations", "2"]
 
@@ -58,21 +67,54 @@ def _metric_names(rows) -> set:
     return {name for part in snap.values() for name in part if not name.startswith("timing/")}
 
 
-def _assert_same_rows(jdir, tdir, *, heartbeats: bool = True):
+def _assert_same_rows(jdir, tdir, *, heartbeats: bool = True, labels=None):
     """The JAX journal's rows and fields less the port's are exactly the
-    ledger's and probes' (and the CPU's device-memory field), and the port
-    writes none the JAX package does not; the metric names (phase timings
-    apart, each package timing its own blocks) likewise."""
+    CPU's device-memory field, and the port's less the JAX package's are
+    exactly the ledger's signature rows (under ``labels``, the labelled
+    programs the run called, when given) and the heartbeats' ledger gauges;
+    the metric names (phase timings apart, each package timing its own
+    blocks) likewise, the port's extra ones being the ledger's
+    ``xla/<label>/`` calls and signatures. A
+    live-buffer gauge is None in the port's journal (the CPU) and a count
+    in the JAX package's."""
     jrows = read_journal(jdir / "run-journal.jsonl")
     trows = read_journal(tdir / "run-journal.jsonl")
     js, ts = _signature(jrows), _signature(trows)
-    expected = {(k, f) for k, f in js if k in STEP2_ROWS}
+    assert js - ts == ({("heartbeat", f) for f in CPU_FIELDS} if heartbeats else set())
+    ledger_fields = {(k, f) for k, f in ts if k in LEDGER_ROWS}
+    if ("heartbeat", "gauges") in ts - js:
+        # the ledger's xla/<label>/signatures gauges are the port's only
+        # gauges at a heartbeat
+        ledger_fields.add(("heartbeat", "gauges"))
+        assert all(name.startswith("xla/") for r in trows if r["kind"] == "heartbeat"
+                   for name in r.get("gauges", {}))
+    assert ts - js == ledger_fields
+    assert {f for k, f in ledger_fields if k in LEDGER_ROWS} <= {"kind", "label", "phase",
+                                                                "signature", "cost"}
+    signature_rows = [r for r in trows if r["kind"] == "program_signature"]
+    assert all(r["cost"] is None for r in signature_rows)
+    assert not any(r["kind"] in ("program_compile", "program_recompile") for r in trows)
+    if labels is not None:
+        assert {r["label"] for r in signature_rows} == set(labels)
+    # the process registry keeps the ledger's metrics of the module's
+    # earlier drivers too
+    extra = _metric_names(trows) - _metric_names(jrows)
+    assert extra >= {f"xla/{r['label']}/{m}" for r in signature_rows
+                     for m in ("calls", "signatures")}
+    assert all(name.startswith("xla/") for name in extra)
+    assert _metric_names(jrows) - _metric_names(trows) == set()
     if heartbeats:
-        expected |= {("heartbeat", f) for f in STEP2_FIELDS | CPU_FIELDS}
-    assert js - ts == expected
-    assert ts - js == set()
-    assert _metric_names(jrows) - _metric_names(trows) == STEP2_METRICS
-    assert _metric_names(trows) - _metric_names(jrows) == set()
+        for rows in (jrows, trows):
+            beats = [r for r in rows if r["kind"] == "heartbeat"]
+            assert beats and all(isinstance(r["compiles"], int) for r in beats)
+    for name in ("jax/backend_compile_count", "device/live_buffer_bytes"):
+        jg = [r["value"] for r in jrows if r["kind"] == "gauge" and r["name"] == name]
+        tg = [r["value"] for r in trows if r["kind"] == "gauge" and r["name"] == name]
+        assert len(jg) == len(tg) <= 1
+        if tg and name == "device/live_buffer_bytes":
+            assert tg == [None] and isinstance(jg[0], int)
+        elif tg:
+            assert isinstance(tg[0], int) and isinstance(jg[0], int)
     assert [r["kind"] for r in trows][0] == "journal_open" == [r["kind"] for r in jrows][0]
     assert trows[-1]["kind"] == "journal_close" and not (tdir / "run-journal.jsonl.partial"
                                                          ).exists()
@@ -161,7 +203,8 @@ def test_glm_driver_journal_and_events_match(glm):
     per-λ iterations equal the trace's solver/iteration spans; the events
     come in the JAX driver's order."""
     base, j, t, _, seen = glm
-    jrows, trows = _assert_same_rows(base / "j-tel", base / "t-tel")
+    # train_glm's solves carry no program label (nor do the JAX package's)
+    jrows, trows = _assert_same_rows(base / "j-tel", base / "t-tel", labels=())
     jconv = [r for r in jrows if r["kind"] == "convergence"]
     tconv = [r for r in trows if r["kind"] == "convergence"]
     assert [r["lambda"] for r in tconv] == [r["lambda"] for r in jconv] == [0.1, 1.0, 10.0]
@@ -276,7 +319,8 @@ def test_game_training_driver_journal_matches(game):
     snapshot, as the JAX driver writes them but the ledger's; the same rows
     for the same coordinates and sweeps; best metrics within 1e-3."""
     base, jsum, tsum = game
-    jrows, trows = _assert_same_rows(base / "jt-tel", base / "tt-tel")
+    jrows, trows = _assert_same_rows(base / "jt-tel", base / "tt-tel",
+                                     labels=("coord/fe_solve", "coord/re_bucket_solve"))
 
     def shape(rows):
         return [(r["kind"], r.get("coordinate"), r.get("outer_iteration"), r.get("stage"),
@@ -315,7 +359,8 @@ def test_scoring_driver_journal_matches(game):
     summaries' evaluations within 1e-3; the scores bitwise those of the run
     without telemetry."""
     base, _, _ = game
-    jrows, trows = _assert_same_rows(base / "js-tel", base / "ts-tel")
+    # one device scores through the sub-models, outside score/score_dataset
+    jrows, trows = _assert_same_rows(base / "js-tel", base / "ts-tel", labels=())
     js = [r for r in jrows if r["kind"] == "scoring_summary"][0]
     ts = [r for r in trows if r["kind"] == "scoring_summary"][0]
     assert ts["num_scored"] == js["num_scored"] == 400
@@ -330,11 +375,16 @@ def test_serve_driver_journal_matches(game):
     serving counters and latency histogram in the snapshot; the trace holds
     the micro-batches' and the resident scorer's spans."""
     base, _, _ = game
-    jrows, trows = _assert_same_rows(base / "jv-tel", base / "tv-tel", heartbeats=False)
+    jrows, trows = _assert_same_rows(base / "jv-tel", base / "tv-tel", heartbeats=False,
+                                     labels=("serve/score",))
     ts = [r for r in trows if r["kind"] == "serving_summary"][0]
     js = [r for r in jrows if r["kind"] == "serving_summary"][0]
     assert set(ts) == set(js) and ts["num_requests"] == js["num_requests"] == 40
-    assert ts["program_compiles"] is None
+    # the port's ledger snapshot: every micro-batch under serve/score, no
+    # capture on the CPU
+    score = ts["program_compiles"]["serve/score"]
+    assert score["compiles"] == score["recompiles"] == 0
+    assert score["calls"] >= 40 and score["signatures"] == ts["compiled_signatures"]
     snap = [r for r in trows if r["kind"] == "metrics"][0]["snapshot"]
     assert snap["counters"]["serve/requests"] >= 40 and \
         snap["histograms"]["serve/latency_ms"]["count"] >= 40

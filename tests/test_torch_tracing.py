@@ -24,6 +24,8 @@ from photon_ml_tpu.telemetry import tracing as jt
 from tests import torch_driver_parity as P
 from tests import torch_mesh_worker as W
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 SPANS = [
     ("phase/read", "phase", 0.5, 2.0, None),
     ("exchange/allgather", "exchange", 1.0, 0.25, {"tag": "partitioned_read/train", "rank": 0}),

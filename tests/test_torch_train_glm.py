@@ -19,6 +19,8 @@ from photon_ml_torch.optim.optimizer import OptimizerConfig, OptimizerType
 from photon_ml_torch.types import TaskType
 from tests.torch_parity import batches, make_data, normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 LAMBDAS = (0.1, 1.0, 50.0)
 
 # task, normalization, elastic-net alpha, optimizer (type, max_iterations, tolerance)

@@ -21,6 +21,8 @@ from photon_ml_torch.optim.optimizer import OptimizerConfig
 from photon_ml_torch.types import TaskType
 from tests.torch_parity import batches, loss_pair, make_data, normalizations, to_np
 
+pytest_plugins = ("tests.torch_jax_maps",)  # keeps a worker's memory maps in bounds
+
 
 def _spd(d, seed, collinear=False):
     rng = np.random.default_rng(seed)

@@ -6,10 +6,7 @@ directory, which every checkout on the machine shares. Without a size
 limit, JAX writes an entry with a plain ``write_bytes`` and reads it with a
 plain ``read_bytes``, under no lock (``jax/_src/lru_cache.py``,
 ``LRUCache.get``/``put``), so a pytest-xdist worker can read an entry that
-another process is still writing, and deserializing the torn executable
-crashes the worker (a segmentation fault in
-``compilation_cache.get_executable_and_time``), failing whatever test it
-ran.
+another process is still writing.
 
 :func:`lock_persistent_cache` moves the process to a cache directory under
 ``tempfile.gettempdir()``, which follows the checkout's ``TMPDIR``, and gives
@@ -18,6 +15,15 @@ write. The workers of one run share that directory, and all of them lock.
 The limit is far above what the suite writes, so nothing is evicted. It
 runs when the port's parity helpers are imported, which every worker does
 while collecting the suite, before its first test.
+
+The directory persists from run to run on purpose: with it cold, the whole
+suite under xdist does not finish inside its time limit. An entry that a
+killed run left torn is harmless (JAX warns that it does not decompress and
+compiles again).
+
+A worker that died of a segmentation fault inside XLA:CPU had run out of
+memory maps, not read a bad entry: ``tests/torch_jax_maps.py`` (ROADMAP
+C.5).
 """
 
 from __future__ import annotations
